@@ -21,7 +21,28 @@ Phases (any failure exits non-zero):
 5. check the output: finite image of the expected shape, and the port's
    render of the ``cornell_96`` golden configuration against
    ``tests/golden/cornell_96.npy``; write the PNG, and run the CLI once;
-6. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+6. ``[grad]``, the differentiable step: ``render.diff.loss_and_grad_rays``
+   at Cornell 800x800, depth 8, NEE, 4 spp, target zeros, with the launch
+   counters zeroed just before: the forward-with-residuals and the reverse
+   kernel must each have launched once per progressive iteration, every
+   gradient be finite and the loss positive.  Then the forward kernel
+   against its plain version on the 640,000 primary rays of an iteration
+   (equal ray counts; radiance and residual planes within 2e-6 on at least
+   99.9% of lanes; radiance bit-equal to the trace kernel's), and the
+   reverse kernel against its plain version on the same residuals and a
+   seeded radiance cotangent: every component of d_origin / d_direction
+   within rtol = atol = 1e-5 of the float64 reference's (``tbwd_plain``
+   with ``dtype=torch.float64``: float64 autograd at the float32 bounce's
+   values) on at least 99.9% of lanes, the float32 plain version's share
+   and the worst lanes against both printed beside it; each table
+   cotangent within 1e-4 of the largest magnitude in its table of the
+   float32 plain version's, since the sums over 640,000 lanes run in
+   another order.  Times by CUDA events: the step, both kernels, both
+   plain versions and the fwd+bwd Mrays/s (rays of one forward pass over
+   the step's time, ``bench.py``'s convention); the step's profile (device
+   busy and idle share); the inverse-rendering example on the card, whose
+   loss must fall and wall error shrink;
+7. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
 The rendered PNGs and the profile table go to ``--out-dir`` (default
 ``renders/chip_smoke``).
@@ -56,6 +77,14 @@ OPS_TO_OBJECT = 33
 OPS_SPHERE = 37 + 2
 OPS_CUBE = 46 + 2
 OPS_SHADE = 270
+# fp32 operations of one live bounce of csrc/trace_grad.cu's reverse kernel
+# beyond the replayed intersection (OPS_TO_OBJECT + one primitive), counted
+# by hand for a diffuse hit with a counted NEE connection, the common case:
+# the recomputed shading (OPS_SHADE) and its adjoint (tangent frame 130,
+# NEE connection with its light sample 210, normal and inverse-transpose 45,
+# hit point and intersection 60, object-space ray 60, table accumulation 45)
+OPS_BWD_ADJOINT = 550
+RESID_PLANES = 13  # residual planes per bounce (ops/trace_grad.py:N_RESID)
 
 
 def fail(msg: str) -> None:
@@ -66,6 +95,28 @@ def fail(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         fail(msg)
+
+
+def zero_counts(trace, trace_grad) -> None:
+    """Every kernel wrapper's launch count to 0."""
+    trace.launches = 0
+    trace_grad.fwd_launches = 0
+    trace_grad.bwd_launches = 0
+
+
+def read_counts(trace, trace_grad) -> dict:
+    return {
+        "trace": trace.launches,
+        "trace_fwd_resid": trace_grad.fwd_launches,
+        "trace_bwd": trace_grad.bwd_launches,
+    }
+
+
+def close_fraction(got, want, tol: float = 1e-5) -> float:
+    """Share of lanes (rows of ``[N, 3]``) whose every component is within
+    rtol = atol = ``tol`` of ``want``'s, compared in float64."""
+    close = got.double().isclose(want.double(), rtol=tol, atol=tol)
+    return float(close.all(-1).double().mean())
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -85,6 +136,228 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def grad_phase(desc, dev, card: str, out_dir: str) -> list:
+    """Phase 6: the differentiable step on the card.  Returns the JSON
+    entries of its two kernels."""
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import trace, trace_grad
+    from pathtracer_tpu_torch.ops.bounce import pack_tables
+    from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render import diff
+
+    params, static = diff.params_from_description(desc, 0, device=dev)
+    w, h = static.resolution
+    n = w * h
+    cfg = RenderConfig(wavefront=False, nee=True, max_depth=8)
+    gspp = 4
+    key = prng_key(0)
+    target = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+
+    def step():
+        return diff.loss_and_grad_rays(params, static, target, gspp, key, cfg, device=dev)
+
+    # ---- the main path: one gradient step through the entry point
+    zero_counts(trace, trace_grad)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads, rays = step()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_counts(trace, trace_grad)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    leaves = grads.leaves()
+    big = sorted(leaves, key=lambda k: -float(leaves[k].abs().max()))[:4]
+    print(
+        f"[grad] loss_and_grad_rays cornell {w}x{h} d{cfg.max_depth} nee spp={gspp}: "
+        f"{first_s:.3f} s (first step), loss {float(loss):.6g}, rays {int(rays)}, peak memory "
+        f"{peak_gb:.3f} GB, launches {launches}; largest |grad|: "
+        + ", ".join(f"{k} {float(leaves[k].abs().max()):.4g}" for k in big)
+    )
+    check(launches == {"trace": 0, "trace_fwd_resid": gspp, "trace_bwd": gspp},
+          f"gradient step launches {launches}")
+    bad = [k for k, v in leaves.items() if not bool(torch.isfinite(v).all())]
+    check(not bad, f"non-finite gradients in {bad}")
+    check(float(loss) > 0 and np.isfinite(float(loss)), f"loss {float(loss)}")
+
+    # ---- each kernel against its plain version on the main path's inputs
+    seed = key_to_seed(key)
+    kw = dict(max_depth=cfg.max_depth, nee=cfg.nee, rr=cfg.russian_roulette,
+              rr_start=cfg.rr_start)
+    with torch.no_grad():
+        scene = diff.build_scene(params, static)
+        tables = [t.contiguous() for t in pack_tables(scene)]
+        pixel = torch.arange(n, dtype=torch.int64, device=dev)
+        sample = pixel  # iteration 0
+        rays0 = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, sample))
+        args = (*tables, seed, rays0.origin, rays0.direction, sample)
+        rad_k, nr_k, res_k = trace_grad.tfwd_cuda(*args, **kw)
+        rad_t, nr_t = trace.trace_cuda(*args, **kw)
+        rad_p, nr_p, res_p = trace_grad.tfwd_plain(*args, **kw)
+        torch.cuda.synchronize()
+        rad_frac = float(torch.isclose(rad_k, rad_p, rtol=2e-6, atol=2e-6).all(-1).float().mean())
+        res_frac = float(
+            torch.isclose(res_k, res_p, rtol=2e-6, atol=2e-6).all(0).all(0).float().mean()
+        )
+        fwd_err = float((rad_k - rad_p).abs().max())
+        print(
+            f"[grad:check] forward kernel: rays {int(nr_k)} (trace kernel {int(nr_t)}, plain "
+            f"{int(nr_p)}); radiance bit-equal to the trace kernel: "
+            f"{bool(torch.equal(rad_k, rad_t))}; lanes within 2e-6 of plain: radiance "
+            f"{rad_frac:.6f}, residuals {res_frac:.6f}; max abs radiance err {fwd_err:.3g}, "
+            f"max abs residual err {float((res_k - res_p).abs().max()):.3g}"
+        )
+        check(torch.equal(rad_k, rad_t) and int(nr_k) == int(nr_t),
+              "forward kernel differs from the trace kernel")
+        check(int(nr_k) == int(nr_p), "forward kernel and plain ray counts differ")
+        check(rad_frac >= 0.999 and res_frac >= 0.999, "forward kernel beyond 2e-6 on > 0.1% of lanes")
+
+        g_rad = torch.from_numpy(
+            np.random.default_rng(0).standard_normal((n, 3)).astype(np.float32)
+        ).to(dev)
+        bargs = (*tables, seed, sample, res_k, g_rad)
+        got = trace_grad.tbwd_cuda(*bargs, **kw)
+        want = trace_grad.tbwd_plain(*bargs, **kw)
+        ref = trace_grad.tbwd_plain(*bargs, dtype=torch.float64, **kw)
+        torch.cuda.synchronize()
+        worst = {}
+        for name, g, wt, rf in zip(("d_gtab", "d_mtab", "d_ltab", "d_scal"), got[:4], want[:4],
+                                   ref[:4]):
+            err = float((g - wt).abs().max())
+            scale = float(wt.abs().max())
+            worst[name] = (err, float((g.double() - rf).abs().max()), scale)
+            check(bool(torch.isfinite(g).all()), f"{name} not finite")
+            check(err <= 1e-4 * max(scale, 1e-30), f"{name}: {err:.3g} against max {scale:.3g}")
+        print(
+            "[grad:check] reverse kernel, table cotangents: "
+            + "; ".join(f"{k} worst {e:.3g} against float32 plain, {e64:.3g} against float64 "
+                        f"reference, of max {m:.4g}" for k, (e, e64, m) in worst.items())
+        )
+        fracs = {}
+        bwd_err = 0.0
+        for name, g, wt, rf in zip(("d_origin", "d_direction"), got[4:], want[4:], ref[4:]):
+            check(bool(torch.isfinite(g).all()), f"{name} not finite")
+            gd, wd = g.double(), wt.double()
+            fracs[name] = (close_fraction(gd, rf), close_fraction(wd, rf), close_fraction(gd, wd))
+            bwd_err = max(bwd_err, float((gd - rf).abs().max()))
+            # the lanes furthest past the bar against the float64 reference,
+            # and the float32 plain version on the same lanes
+            for ref_name, x in (("kernel", gd), ("float32 plain", wd)):
+                excess = ((x - rf).abs() / (1e-5 + 1e-5 * rf.abs())).amax(-1)
+                for i in excess.topk(3).indices.tolist():
+                    print(
+                        f"[grad:check] {name} worst lanes of the {ref_name}: lane {i}: |kernel - "
+                        f"float64| {float((gd[i] - rf[i]).abs().max()):.3g}, |float32 plain - "
+                        f"float64| {float((wd[i] - rf[i]).abs().max()):.3g}, |kernel - float32 "
+                        f"plain| {float((gd[i] - wd[i]).abs().max()):.3g}, largest |component| "
+                        f"{float(rf[i].abs().max()):.4g}"
+                    )
+        print(
+            "[grad:check] reverse kernel, lanes with every component within rtol = atol = 1e-5: "
+            + "; ".join(f"{k}: kernel vs float64 reference {a:.6f}, float32 plain vs float64 "
+                        f"reference {b:.6f}, kernel vs float32 plain {c:.6f}"
+                        for k, (a, b, c) in fracs.items())
+            + f"; max abs err against the float64 reference {bwd_err:.3g}"
+        )
+        check(min(a for a, _, _ in fracs.values()) >= 0.999,
+              "reverse kernel beyond 1e-5 of the float64 reference on > 0.1% of lanes")
+
+        # ---- times
+        f_ms = cuda_ms(lambda: trace_grad.tfwd_cuda(*args, **kw), reps=10)
+        b_ms = cuda_ms(lambda: trace_grad.tbwd_cuda(*bargs, **kw), reps=10)
+        fp_ms = cuda_ms(lambda: trace_grad.tfwd_plain(*args, **kw), reps=1)
+        bp_ms = cuda_ms(lambda: trace_grad.tbwd_plain(*bargs, **kw), reps=1)
+    step_ms = cuda_ms(step, reps=3)
+    mrays = int(rays) / step_ms / 1e3
+
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels_run = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in kernels_run) / 1e3
+    named = {
+        k: sum(dev_us(e) for e in kernels_run if k in e.key) / 1e3
+        for k in ("trace_fwd_kernel", "trace_bwd_kernel", "trace_bwd_reduce")
+    }
+    with open(os.path.join(out_dir, "profile_grad_step.txt"), "w") as f:
+        f.write(events.table(sort_by="self_cuda_time_total", row_limit=30))
+    print(
+        f"[grad:profile] step: device busy {busy_ms:.4f} ms of {step_ms:.4f} ms unprofiled "
+        f"({prof_ms:.4f} ms profiled): idle share {1 - busy_ms / step_ms:.3f}; "
+        + "; ".join(f"{k} {v:.4f} ms" for k, v in named.items())
+        + f"; everything else {busy_ms - sum(named.values()):.4f} ms in "
+        f"{sum(e.count for e in kernels_run)} kernel launches"
+    )
+
+    # ---- bounds, from this run's inputs
+    lane_bounces = int(nr_k) // (2 if cfg.nee else 1)
+    types = scene.geoms.type.tolist()
+    sweep = sum(OPS_TO_OBJECT + (OPS_SPHERE if t == 0 else OPS_CUBE) for t in types)
+    table_bytes = sum(t.numel() * 4 for t in tables)
+    f_ops = lane_bounces * (sweep + OPS_SHADE)
+    # origin, direction, sample in; radiance and every residual plane out
+    f_bytes = n * (12 + 12 + 4 + 12) + cfg.max_depth * RESID_PLANES * n * 4 + table_bytes
+    b_ops = lane_bounces * (OPS_TO_OBJECT + min(OPS_SPHERE, OPS_CUBE) + OPS_SHADE + OPS_BWD_ADJOINT)
+    # in: the alive plane of every bounce, the other residual planes (o, d,
+    # thr, emit state, gid, NEE bit) of the live ones, sample and radiance
+    # cotangent; out: d_origin, d_direction and the table cotangents
+    b_resid = cfg.max_depth * n * 4 + lane_bounces * (RESID_PLANES - 1) * 4
+    b_bytes = b_resid + n * (4 + 12 + 12 + 12) + table_bytes + sum(t.numel() * 4 for t in got[:4])
+
+    def bound(ops, nbytes):
+        t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+    f_bound, f_by = bound(f_ops, f_bytes)
+    b_bound, b_by = bound(b_ops, b_bytes)
+    print(f"[card] {card}")
+    print(
+        f"[grad:time] step {step_ms:.4f} ms ({mrays:.1f} fwd+bwd Mrays/s: {int(rays)} rays of one "
+        f"forward pass over the step); forward kernel {f_ms:.4f} ms/iteration (plain "
+        f"{fp_ms:.3f} ms), bound {f_bound:.4f} ms by {f_by} ({f_ops} fp32 ops, {f_bytes} bytes); "
+        f"reverse kernel {b_ms:.4f} ms/iteration (plain {bp_ms:.3f} ms), bound {b_bound:.4f} ms "
+        f"by {b_by} ({b_ops} fp32 ops, {b_bytes} bytes); on {card}"
+    )
+
+    # ---- the inverse-rendering example on the card
+    ex = subprocess.run(
+        [sys.executable, "-m", "pathtracer_tpu_torch.examples.inverse_rendering",
+         "--res", "64", "--steps", "20"],
+        cwd=ROOT, capture_output=True, text=True, timeout=600,
+    )
+    lines = ex.stdout.strip().splitlines()
+    print(f"[grad:example] exit {ex.returncode}: {' | '.join(lines[-4:])} {ex.stderr.strip()[-2000:]}")
+    check(ex.returncode == 0 and lines, "inverse-rendering example failed")
+    summary = json.loads(lines[-1])
+    check(summary["loss_last"] < summary["loss_first"] and summary["err_end"] < summary["err_start"],
+          f"inverse rendering did not converge: {summary}")
+
+    common = {"route": "cuda", "source": "pathtracer_tpu_torch/csrc/trace_grad.cu", "library_ms": None}
+    return [
+        {"name": "trace_fwd_resid", **common,
+         "replaces": "pathtracer_tpu/ops/trace_grad.py:115",
+         "launches": launches["trace_fwd_resid"], "max_abs_err": fwd_err, "ms": f_ms,
+         "plain_ms": fp_ms, "bound_ms": f_bound, "bound_by": f_by},
+        {"name": "trace_bwd", **common,
+         "replaces": "pathtracer_tpu/ops/trace_grad.py:190",
+         "launches": launches["trace_bwd"], "max_abs_err": bwd_err, "ms": b_ms,
+         "plain_ms": bp_ms, "bound_ms": b_bound, "bound_by": b_by},
+    ]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -97,7 +370,7 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
     from pathtracer_tpu_torch.config import RenderConfig
-    from pathtracer_tpu_torch.ops import _build, trace
+    from pathtracer_tpu_torch.ops import _build, trace, trace_grad
     from pathtracer_tpu_torch.ops.bounce import pack_tables
     from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
     from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
@@ -132,18 +405,19 @@ def main() -> int:
     n = w * h
     cfg = RenderConfig(max_depth=8, nee=True, iters_per_launch=4)
     spp = 8
-    trace.launches = 0
+    zero_counts(trace, trace_grad)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     img, accum, stats = render(scene, spp, cfg, device=dev)
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
-    main_launches = {"trace": trace.launches}
+    main_launches = read_counts(trace, trace_grad)
     print(
         f"[main] cornell {w}x{h} d{cfg.max_depth} nee spp={spp}: {render_s:.3f} s, "
         f"rays {stats['rays_traced']}, launches {main_launches}"
     )
-    check(main_launches["trace"] == spp, f"trace launches {main_launches['trace']} != {spp}")
+    check(main_launches == {"trace": spp, "trace_fwd_resid": 0, "trace_bwd": 0},
+          f"forward main path launches {main_launches}")
     check(tuple(img.shape) == (h, w, 3), f"image shape {tuple(img.shape)}")
     check(bool(torch.isfinite(accum).all()), "non-finite accumulator")
     check(bool((accum >= 0).all()), "negative radiance")
@@ -253,7 +527,10 @@ def main() -> int:
     print(f"[cli] exit {cli.returncode}: {cli.stdout.strip()} {cli.stderr.strip()[-2000:]}")
     check(cli.returncode == 0, "CLI run failed")
 
-    # ---- 6. results
+    # ---- 6. the differentiable step
+    grad_kernels = grad_phase(desc, dev, card, out_dir)
+
+    # ---- 7. results
     kernels = [
         {
             "name": "trace",
@@ -267,7 +544,8 @@ def main() -> int:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
             "library_ms": None,
-        }
+        },
+        *grad_kernels,
     ]
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

@@ -5,8 +5,9 @@ same fields and defaults, so one set of knobs drives both packages.  Knobs
 that select a JAX engine (``pallas``, ``fused``, ``grad_*``, ``wavefront``)
 are kept for parity; the port reads only the ones its slices implement
 (``max_depth``, ``jitter``, ``nee``, ``russian_roulette``, ``rr_start``,
-``seed``, ``fast_rng``, ``features``, ``auto_features``) and refuses the
-engines it does not have yet.
+``seed``, ``fast_rng``, ``features``, ``auto_features``, and for the
+differentiable render ``grad_lean``, ``grad_fused``, ``grad_full_trace``)
+and refuses the engines it does not have yet.
 """
 
 from __future__ import annotations

@@ -2,8 +2,10 @@
 
 Each ``pathtracer_tpu_torch/csrc/<name>.cu`` is compiled by ``nvcc`` into
 ``build/torch_kernels/lib<name>-<hash>.so`` at first use and loaded with
-``ctypes``; the hash covers the source and the flags, so a library built
-by an earlier process of the same checkout is reused.  The sources expose
+``ctypes``; the hash covers the source, every header of ``csrc/`` (the
+sources share ``trace_common.cuh``) and the flags, so a library built by an
+earlier process of the same checkout is reused and an edited header
+rebuilds every kernel.  The sources expose
 plain C entry points (no PyTorch headers), so a build takes seconds.
 Flags: ``sm_90a`` (Hopper), ``-O3``, and ``-fmad=false`` without fast
 math, so that the kernels round as the op-by-op plain versions do.  A
@@ -43,12 +45,22 @@ def kernel_names() -> list:
     return sorted(f[:-3] for f in os.listdir(CSRC_DIR) if f.endswith(".cu"))
 
 
+def source_digest(name: str) -> str:
+    """Hash of ``csrc/<name>.cu``, the headers of ``csrc/`` and the flags."""
+    h = hashlib.sha1()
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith((".cuh", ".h")))
+    for f in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, f), "rb") as fh:
+            h.update(f.encode() + b"\0" + fh.read() + b"\0")
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:12]
+
+
 def compile_kernel(name: str) -> tuple:
     """Compile ``csrc/<name>.cu`` unless an identical build exists;
     returns ``(library path, ptxas report or "" when reused)``."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
-    with open(src, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    digest = source_digest(name)
     out = os.path.join(BUILD_DIR, f"lib{name}-{digest}.so")
     if os.path.exists(out):
         return out, ""

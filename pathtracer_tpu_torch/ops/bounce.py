@@ -8,17 +8,20 @@ material table, 19-column light table, 2 scalars), ``_material_fetch``
 ``_sample_lights_planes`` (``:798-861``) and ``bounce_physics``
 (``:881-1321``), with ``RAY_BIAS`` from ``pathtracer_tpu/ops/bsdf.py:33``.
 
-This is the plain version of the trace kernel's loop body
-(``csrc/trace.cu``): nearest hit with the first minimum winning,
+This is the plain version of the trace kernels' loop body
+(``csrc/trace_common.cuh:bounce_step``): nearest hit with the first minimum winning,
 argmax-|coord| cube normals, inverse-transpose world normals, emittance
 under the 0/1/2 emit-state code, Lambert / Phong-glossy / mirror / Fresnel
 dielectric sampling, and area-light NEE with a shadow sweep.  Vectors are
 tuples of three ``[N]`` tensors.  The JAX kernel selects table rows with
 where-chains over every geom and material (the TPU has no vector gather);
-here they are gathers with the same result.
+here they are gathers with the same result.  Everything here is
+differentiable in its tensor inputs: autograd of it is the reference of the
+reverse trace kernel (``csrc/trace_grad.cu``), and winner replay
+(``bounce_physics(replay=...)``) is its recompute.
 
 The optional blocks (texture, bump, volumetric, microfacet, ward, hg),
-meshes, deferred texels and winner replay belong to later slices and raise
+meshes and deferred texels belong to later slices and raise
 ``NotImplementedError``.  ``glossy`` is not gated in the JAX kernel either.
 """
 
@@ -28,7 +31,7 @@ import math
 
 import torch
 
-from pathtracer_tpu_torch.ops.intersect import BIG, geom_t, pack_geom_table
+from pathtracer_tpu_torch.ops.intersect import BIG, geom_t, geom_t_lanes, pack_geom_table
 from pathtracer_tpu_torch.ops.lights import axis_scales, light_areas
 from pathtracer_tpu_torch.scene.structs import SPHERE, Scene
 
@@ -338,6 +341,7 @@ def bounce_physics(
     gtab, mtab, ltab, svals,
     u, depth: int, prev_state,
     *, nee: bool, t_min: float, features=frozenset(),
+    replay=None, emit_replay: bool = False,
 ):
     """One bounce for a wavefront of lanes (mask-free: the caller gates with
     its alive mask).  ``o``/``d``/``throughput``/``sigma_a`` are 3-tuples
@@ -345,22 +349,47 @@ def bounce_physics(
     ``mtab``, ``ltab``, ``svals`` the packed tables; ``u`` the 11 uniform
     tensors of this (sample, depth).
 
-    Returns a dict: contrib(3), next_o(3), next_d(3), thr_mult(3),
-    terminate (bool), wspec (emit-state code), rru, out_ma(3), out_ms."""
-    check_features(features)
-    gvals = gtab.tolist()
+    Differentiable in the carries and in every table value: the sweep reads
+    the geom rows as tensors, so the winner's distance, object-space ray and
+    normal carry gradients to its row (the where-chain routes cotangents to
+    the winner only).  The uniforms, ``depth``, ``prev_state``, the geom
+    types and material ids, and every comparison are discrete.
 
-    best_t = torch.full_like(o[0], BIG)
-    gid = torch.zeros(o[0].shape, dtype=torch.int64, device=o[0].device)
-    w = [torch.zeros_like(o[0]) for _ in range(6)]
-    for g in range(len(gvals)):
-        t_g, obj = geom_t(gvals[g], *o, *d, t_min)
-        better = t_g < best_t
-        best_t = torch.where(better, t_g, best_t)
-        gid = torch.where(better, g, gid)
-        w = [torch.where(better, ob, prev) for ob, prev in zip(obj, w)]
+    Winner replay (``bounce_pallas.py:929-966``): ``emit_replay=True`` adds
+    ``replay_gid`` (winner geom as float, -1 = miss) and ``replay_nee_add``
+    (the resolved NEE candidate-and-visible bit) to the result; passing
+    them back as ``replay={"gid", "nee_add"}`` recomputes only the winner's
+    intersection and skips the shadow sweep.  Both are comparisons, so the
+    gradients are those of the sweep, and the recompute gives the sweep's
+    values bit for bit.
+
+    Returns a dict: contrib(3), next_o(3), next_d(3), thr_mult(3),
+    terminate (bool), wspec (emit-state code), rru, out_ma(3), out_ms
+    [, replay_gid, replay_nee_add]."""
+    check_features(features)
+    n_geoms = gtab.shape[0]
+    gtypes = gtab[:, 12].tolist()  # host-side types: the sweep dispatches on them
+
+    if replay is not None:
+        rhit = replay["gid"] >= 0.0
+        gid = torch.clamp(replay["gid"], min=0.0).to(torch.int64)
+        win = gtab[gid].unbind(-1)
+        t_win, obj = geom_t_lanes(win, *o, *d, t_min)
+        best_t = torch.where(rhit, t_win, BIG)
+        w = [torch.where(rhit, ob, 0.0) for ob in obj]
+    else:
+        rows = gtab.unbind(0)
+        best_t = torch.full_like(o[0], BIG)
+        gid = torch.zeros(o[0].shape, dtype=torch.int64, device=o[0].device)
+        w = [torch.zeros_like(o[0]) for _ in range(6)]
+        for g in range(n_geoms):
+            t_g, obj = geom_t(rows[g], *o, *d, t_min, gtypes[g])
+            better = t_g < best_t
+            best_t = torch.where(better, t_g, best_t)
+            gid = torch.where(better, g, gid)
+            w = [torch.where(better, ob, prev) for ob, prev in zip(obj, w)]
+        win = gtab[gid].unbind(-1)
     hit = best_t < BIG
-    win = gtab[gid].unbind(-1)
     mid = torch.where(hit, win[13].to(torch.int64), 0)
     sph = hit & (win[12] == float(SPHERE))
     t_safe = torch.where(hit, best_t, 1.0)
@@ -400,6 +429,7 @@ def bounce_physics(
 
     sc = sample_bsdf(mat, p, normal, d, u[0], u[1], u[2])
 
+    add = None
     if nee:
         ls = sample_lights(gtab, ltab, svals, u[4], u[5], u[6], u[7])
         n_shade = vscale(torch.sign(-vdot(normal, d)), normal)
@@ -410,27 +440,32 @@ def bounce_physics(
         wi = vscale(1.0 / dist, to_light)
         cos_x = vdot(n_shade, wi)
         cos_y = -vdot(ls["normal"], wi)
-        diffuse_lane = hit & (~emissive) & (~sc["is_specular"])
-        candidate = diffuse_lane & ls["valid"] & (cos_x > 0) & (cos_y > 0)
-
-        occ_t = torch.full_like(o[0], BIG)
-        for g in range(len(gvals)):
-            t_g, _ = geom_t(gvals[g], *x, *wi, t_min)
-            occ_t = torch.minimum(occ_t, t_g)
-        visible = occ_t >= dist - 4.0 * RAY_BIAS
+        if replay is not None:
+            add = replay["nee_add"] > 0.5
+        else:
+            diffuse_lane = hit & (~emissive) & (~sc["is_specular"])
+            candidate = diffuse_lane & ls["valid"] & (cos_x > 0) & (cos_y > 0)
+            # visibility is a comparison: the sweep runs detached
+            occ_t = torch.full_like(o[0], BIG)
+            xd, wd = tuple(c.detach() for c in x), tuple(c.detach() for c in wi)
+            for g, row in enumerate(gtab.detach().unbind(0)):
+                t_g, _ = geom_t(row, *xd, *wd, t_min, gtypes[g])
+                occ_t = torch.minimum(occ_t, t_g)
+            visible = occ_t >= dist.detach() - 4.0 * RAY_BIAS
+            add = candidate & visible
 
         gterm = cos_x * cos_y / torch.clamp(dist2, min=1e-12)
         pdf_area = 1.0 / torch.clamp(svals[0], min=1e-20)
         nee_scale = gterm / torch.clamp(pdf_area, min=1e-20) * INV_PI
         nee_rgb = vscale(nee_scale, vmul(vmul(throughput, mat["color"]), ls["emit"]))
-        contrib = vadd(contrib, vwhere(candidate & visible, nee_rgb, (0.0, 0.0, 0.0)))
+        contrib = vadd(contrib, vwhere(add, nee_rgb, (0.0, 0.0, 0.0)))
 
     surf_state = torch.where(
         sc["is_specular"],
         torch.where(torch.abs(prev_state - 2.0) < 0.5, 2.0, 1.0),
         0.0,
     )
-    return dict(
+    out = dict(
         contrib=contrib,
         next_o=sc["origin"],
         next_d=sc["direction"],
@@ -441,3 +476,9 @@ def bounce_physics(
         out_ma=sigma_a,
         out_ms=sigma_s,
     )
+    if emit_replay:
+        zero = torch.zeros_like(o[0])
+        out["replay_gid"] = torch.where(hit, gid.to(torch.float32), -1.0)
+        out["replay_nee_add"] = torch.where(add, 1.0, zero) if add is not None else zero
+    return out
+

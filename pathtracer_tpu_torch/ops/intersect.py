@@ -3,11 +3,12 @@
 Port of ``pathtracer_tpu/ops/intersect.py:37-111`` (``BIG``, ``T_MIN``,
 ``sphere_t_planes``, ``cube_t_planes``) and
 ``pathtracer_tpu/ops/intersect_pallas.py:58-80,206-216`` (``_geom_t``,
-``_pack_gdata``).  Unit primitives live in object space (sphere r = 0.5,
+``_pack_gdata``).  A geom's row is read as tensors, so ``t`` and the
+object-space ray carry gradients to the geom table.  Unit primitives live in object space (sphere r = 0.5,
 cube side 1) and are tested through the inverse transform; the
 object-space direction stays unnormalized, so ``t`` is the world-space
-distance.  A miss is ``BIG``.  The CUDA kernel (``csrc/trace.cu``)
-repeats this arithmetic in the same order.
+distance.  A miss is ``BIG``.  The CUDA kernels (``csrc/trace_common.cuh``)
+repeat this arithmetic in the same order.
 """
 
 from __future__ import annotations
@@ -62,24 +63,46 @@ def cube_t_planes(ox, oy, oz, dx, dy, dz, t_min=T_MIN):
     return torch.where(valid & (t > t_min), t, BIG)
 
 
-def geom_t(grow, ox, oy, oz, dx, dy, dz, t_min=T_MIN):
-    """Distance for one geom from its 14 table values, plus its
-    object-space ray ``(oox, ooy, ooz, odx, ody, odz)``."""
-    m = grow
+def _to_object(m, ox, oy, oz, dx, dy, dz):
     oox = m[0] * ox + m[1] * oy + m[2] * oz + m[3]
     ooy = m[4] * ox + m[5] * oy + m[6] * oz + m[7]
     ooz = m[8] * ox + m[9] * oy + m[10] * oz + m[11]
     odx = m[0] * dx + m[1] * dy + m[2] * dz
     ody = m[4] * dx + m[5] * dy + m[6] * dz
     odz = m[8] * dx + m[9] * dy + m[10] * dz
-    gtype = float(m[12])
+    return oox, ooy, ooz, odx, ody, odz
+
+
+def geom_t(grow, ox, oy, oz, dx, dy, dz, t_min, gtype):
+    """Distance for one geom from its 14 table values, plus its
+    object-space ray ``(oox, ooy, ooz, odx, ody, odz)``.
+
+    ``grow`` is the geom's table row: a ``[14]`` tensor, 14 scalar tensors
+    or 14 floats.  As tensors the distance and the object-space ray carry
+    gradients to the row.  ``gtype`` is the geom type as a host number
+    (a sweep reads the table's types once); the test dispatches on it."""
+    m = grow.unbind(-1) if isinstance(grow, torch.Tensor) else grow
+    obj = _to_object(m, ox, oy, oz, dx, dy, dz)
     if gtype == float(SPHERE):
-        t = sphere_t_planes(oox, ooy, ooz, odx, ody, odz, t_min)
+        t = sphere_t_planes(*obj, t_min)
     elif gtype == float(CUBE):
-        t = cube_t_planes(oox, ooy, ooz, odx, ody, odz, t_min)
+        t = cube_t_planes(*obj, t_min)
     else:  # mesh slots never hit in the analytic sweep
         t = torch.full_like(ox, BIG)
-    return t, (oox, ooy, ooz, odx, ody, odz)
+    return t, obj
+
+
+def geom_t_lanes(rows, ox, oy, oz, dx, dy, dz, t_min=T_MIN):
+    """:func:`geom_t` with a row per lane (14 ``[N]`` tensors, e.g. the
+    winner's row gathered per lane): both primitives are tested and the
+    lane's type selects, as ``intersect_pallas.py:_geom_t`` does."""
+    obj = _to_object(rows, ox, oy, oz, dx, dy, dz)
+    ts = sphere_t_planes(*obj, t_min)
+    tc = cube_t_planes(*obj, t_min)
+    t = torch.where(
+        rows[12] == float(SPHERE), ts, torch.where(rows[12] == float(CUBE), tc, BIG)
+    )
+    return t, obj
 
 
 def pack_geom_table(geoms: Geoms) -> torch.Tensor:

@@ -8,7 +8,8 @@ russian roulette, the radiance sum, and the measured ray count (alive
 lanes per bounce, twice that with NEE for the shadow rays).
 
 * :func:`trace_plain` is the plain PyTorch version: the bounce loop of
-  ``trace_pallas.py:110-173`` over ``ops/bounce.py``.
+  ``trace_pallas.py:110-173`` over ``ops/bounce.py`` and
+  :func:`step_update`, which the differentiable trace shares.
 * :func:`trace_cuda` launches ``csrc/trace.cu`` (one thread per lane, all
   bounces in a loop inside the thread).
 * :func:`trace_fused` dispatches on the rays' device: a CUDA tensor
@@ -44,22 +45,58 @@ def fused_trace_eligible(scene, cfg) -> bool:
     return cfg.fast_rng and not scene.meshes and scene.textures is None
 
 
+def step_update(out, o, d, thr, prev_state, alive, dep: int, *, rr: bool, rr_start: int):
+    """The bounce loop's update after :func:`bounce_physics` (port of
+    ``pathtracer_tpu/ops/trace_grad.py:79-112``): the radiance increment
+    and the next carries.  Russian roulette multiplies by ``1 / p`` with
+    ``p`` detached.  A lane that dies keeps its carries as they were at its
+    death, the emit state included (a dead lane's state never reaches the
+    radiance).  ``trace_plain``, the forward with residuals and the reverse
+    loop of ``ops/trace_grad.py`` all run this one function.
+
+    Returns ``(rad_inc, new_alive, thr, o, d, prev_state)``."""
+    rad_inc = tuple(torch.where(alive, c, 0.0) for c in out["contrib"])
+    new_alive = alive & (~out["terminate"])
+    thr2 = tuple(torch.where(new_alive, t * m, t) for t, m in zip(thr, out["thr_mult"]))
+    if rr:
+        p = torch.clamp(torch.maximum(torch.maximum(thr2[0], thr2[1]), thr2[2]), 0.05, 1.0)
+        p = p.detach()
+        rr_active = new_alive & (dep >= rr_start)
+        survive = out["rru"] < p
+        inv_p = 1.0 / p
+        thr2 = tuple(torch.where(rr_active, t * inv_p, t) for t in thr2)
+        new_alive = new_alive & (survive | (~rr_active))
+    next_o = tuple(torch.where(new_alive, n, prev) for n, prev in zip(out["next_o"], o))
+    next_d = tuple(torch.where(new_alive, n, prev) for n, prev in zip(out["next_d"], d))
+    next_state = torch.where(new_alive, out["wspec"], prev_state)
+    return rad_inc, new_alive, thr2, next_o, next_d, next_state
+
+
+def init_carries(origin, direction):
+    """Carries at bounce 0: ``(o, d, thr, prev_state, alive)``."""
+    shape = origin.shape[:1]
+    f32 = dict(dtype=torch.float32, device=origin.device)
+    return (
+        tuple(origin.unbind(-1)),
+        tuple(direction.unbind(-1)),
+        (torch.ones(shape, **f32),) * 3,
+        torch.zeros(shape, **f32),
+        torch.ones(shape, dtype=torch.bool, device=origin.device),
+    )
+
+
 def trace_plain(
     gtab, mtab, ltab, scal, seed: int, origin, direction, sample_idx,
     *, max_depth: int, nee: bool, rr: bool, rr_start: int,
     features=frozenset(),
 ):
-    """Plain version: ``(radiance [N, 3] float32, rays_traced int64 [])``."""
-    o = tuple(origin.unbind(-1))
-    d = tuple(direction.unbind(-1))
-    shape = o[0].shape
-    f32 = dict(dtype=torch.float32, device=origin.device)
-    throughput = (torch.ones(shape, **f32),) * 3
-    sigma_a = (torch.zeros(shape, **f32),) * 3
-    sigma_s = torch.zeros(shape, **f32)
-    alive = torch.ones(shape, dtype=torch.bool, device=origin.device)
-    prev_state = torch.zeros(shape, **f32)
-    radiance = [torch.zeros(shape, **f32) for _ in range(3)]
+    """Plain version: ``(radiance [N, 3] float32, rays_traced int64 [])``.
+    Differentiable in the tables and the rays (the analytic scenes' media
+    are vacuum, so the medium carries stay zero)."""
+    o, d, thr, prev_state, alive = init_carries(origin, direction)
+    sigma_a = (torch.zeros_like(prev_state),) * 3
+    sigma_s = torch.zeros_like(prev_state)
+    radiance = (torch.zeros_like(prev_state),) * 3
     nrays = torch.zeros((), dtype=torch.int64, device=origin.device)
     ray_mult = 2 if nee else 1
 
@@ -67,30 +104,13 @@ def trace_plain(
         nrays = nrays + alive.sum() * ray_mult
         u = hash_uniforms_planes(seed, sample_idx, dep, 11)
         out = bounce_physics(
-            o, d, throughput, sigma_a, sigma_s, gtab, mtab, ltab, scal,
+            o, d, thr, sigma_a, sigma_s, gtab, mtab, ltab, scal,
             u, dep, prev_state, nee=nee, t_min=T_MIN, features=features,
         )
-        radiance = [r + torch.where(alive, c, 0.0) for r, c in zip(radiance, out["contrib"])]
-        new_alive = alive & (~out["terminate"])
-        throughput = tuple(
-            torch.where(new_alive, t * m, t) for t, m in zip(throughput, out["thr_mult"])
+        rad_inc, alive, thr, o, d, prev_state = step_update(
+            out, o, d, thr, prev_state, alive, dep, rr=rr, rr_start=rr_start
         )
-        if rr:
-            p = torch.clamp(
-                torch.maximum(torch.maximum(throughput[0], throughput[1]), throughput[2]),
-                0.05, 1.0,
-            )
-            rr_active = new_alive & (dep >= rr_start)
-            survive = out["rru"] < p
-            inv_p = 1.0 / p
-            throughput = tuple(torch.where(rr_active, t * inv_p, t) for t in throughput)
-            new_alive = new_alive & (survive | (~rr_active))
-        o = tuple(torch.where(new_alive, n, prev) for n, prev in zip(out["next_o"], o))
-        d = tuple(torch.where(new_alive, n, prev) for n, prev in zip(out["next_d"], d))
-        alive = new_alive
-        prev_state = out["wspec"]
-        sigma_a = out["out_ma"]
-        sigma_s = out["out_ms"]
+        radiance = tuple(r + c for r, c in zip(radiance, rad_inc))
     return torch.stack(radiance, dim=-1), nrays
 
 
@@ -113,7 +133,9 @@ def _lib():
     return fn
 
 
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+def check_tensor(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    """Raise unless ``t`` is a contiguous tensor of that dtype, shape and
+    device: what a kernel launcher takes."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:
@@ -122,6 +144,31 @@ def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def check_launch(gtab, mtab, ltab, scal, sample_idx, n: int, device):
+    """The checks every trace kernel launcher shares: the packed tables
+    within the shared-memory caps, the lane count, and the sample indices
+    as the kernels take them (their uint32 bits as int32).  Returns
+    ``(G, M, sample bits)``."""
+    if device.type != "cuda":
+        raise ValueError(f"trace kernels need CUDA tensors, got {device}")
+    if 3 * n >= 2**31:  # the kernels index the [N, 3] planes with 32-bit ints
+        raise ValueError(f"trace kernels take fewer than {2**31 // 3} rays, got {n}")
+    g, m = gtab.shape[0], mtab.shape[0]
+    if not 1 <= g <= MAX_GEOMS or not 1 <= m <= MAX_MATERIALS:
+        raise ValueError(
+            f"trace kernels take 1..{MAX_GEOMS} geoms and 1..{MAX_MATERIALS} "
+            f"materials, got {g} and {m}"
+        )
+    f32 = torch.float32
+    check_tensor(gtab, "geom table", f32, (g, GEOM_COLS), device)
+    check_tensor(mtab, "material table", f32, (m, MAT_COLS), device)
+    check_tensor(ltab, "light table", f32, (g, LIGHT_COLS), device)
+    check_tensor(scal, "scalars", f32, (2,), device)
+    bits = ((sample_bits(sample_idx) ^ 0x80000000) - 0x80000000).to(torch.int32)
+    check_tensor(bits, "sample_idx", torch.int32, (n,), device)
+    return g, m, bits
 
 
 def trace_cuda(
@@ -133,27 +180,11 @@ def trace_cuda(
     of :func:`pack_tables`, which checks the material ids."""
     global launches
     device = origin.device
-    if device.type != "cuda":
-        raise ValueError(f"trace_cuda needs CUDA tensors, got {device}")
     n = origin.shape[0]
-    if 3 * n >= 2**31:  # the kernel indexes the [N, 3] planes with 32-bit ints
-        raise ValueError(f"trace kernel takes fewer than {2**31 // 3} rays, got {n}")
-    g, m = gtab.shape[0], mtab.shape[0]
-    if not 1 <= g <= MAX_GEOMS or not 1 <= m <= MAX_MATERIALS:
-        raise ValueError(
-            f"trace kernel takes 1..{MAX_GEOMS} geoms and 1..{MAX_MATERIALS} "
-            f"materials, got {g} and {m}"
-        )
+    g, m, bits = check_launch(gtab, mtab, ltab, scal, sample_idx, n, device)
     f32 = torch.float32
-    _check(gtab, "geom table", f32, (g, GEOM_COLS), device)
-    _check(mtab, "material table", f32, (m, MAT_COLS), device)
-    _check(ltab, "light table", f32, (g, LIGHT_COLS), device)
-    _check(scal, "scalars", f32, (2,), device)
-    _check(origin, "origin", f32, (n, 3), device)
-    _check(direction, "direction", f32, (n, 3), device)
-    # uint32 sample bits as int32 (two's complement) for the kernel
-    bits = ((sample_bits(sample_idx) ^ 0x80000000) - 0x80000000).to(torch.int32)
-    _check(bits, "sample_idx", torch.int32, (n,), device)
+    check_tensor(origin, "origin", f32, (n, 3), device)
+    check_tensor(direction, "direction", f32, (n, 3), device)
 
     radiance = torch.empty((n, 3), dtype=f32, device=device)
     nrays = torch.zeros((), dtype=torch.int64, device=device)

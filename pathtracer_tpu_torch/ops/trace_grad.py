@@ -1,0 +1,405 @@
+"""Full-depth differentiable trace: the forward with residuals, the reverse
+loop, and the autograd Function around them.
+
+Port of ``pathtracer_tpu/ops/trace_grad.py``.  The forward traces a
+wavefront through all bounces as the trace kernel does, and also stores,
+per bounce and lane, the carries that enter the bounce and the two discrete
+outcomes the bounce resolved (the winner geom and the NEE bit): the
+residuals.  The reverse loop walks the bounces newest first; for each it
+replays the winner (no sweep, no shadow ray), differentiates the bounce and
+:func:`ops.trace.step_update`, and chains the carry cotangents.
+
+* :func:`tfwd_plain` / :func:`tbwd_plain` are the plain PyTorch versions;
+  the reverse loop differentiates each bounce with ``torch.autograd.grad``
+  (``jax.vjp`` in the TPU kernel), in float32, or in float64 at the float32
+  bounce's own values: the reference the reverse kernel is held to.
+* :func:`tfwd_cuda` / :func:`tbwd_cuda` launch ``csrc/trace_grad.cu``: one
+  thread per lane; the reverse kernel is a hand-written adjoint of the
+  replayed bounce, with per-block table partials and a fixed-order sum.
+* :class:`TraceDiff` is the ``torch.autograd.Function`` (the
+  ``jax.custom_vjp`` of ``trace_grad.py:487-511``): the forward saves the
+  tables, the samples and the residuals, the backward runs the reverse
+  loop, and the ray count is not differentiable.
+* :func:`trace_fused_diff` is the drop-in for ``trace_paths`` under
+  ``grad_lean``.  Rays on a CUDA device launch the kernels or raise; rays
+  on the CPU take the plain versions.
+
+Residuals are ``[depth, N_RESID, N]`` float32, lane-contiguous so that the
+kernel's stores coalesce.  Planes: o(3) d(3) thr(3) prev_state alive
+replay_gid replay_nee_add.  A lane that has died stores the carries it
+died with, alive 0, gid -1 and NEE bit 0.  The analytic scenes of this
+slice are vacuum, so the medium carries of the JAX layout (sigma_a,
+sigma_s) are not stored.
+
+Gradient semantics are those of the JAX engines: detached sampling,
+winner-only intersection cotangents, zero-cotangent visibility, detached
+russian-roulette probability.  The table cotangents come back as
+``d_gtab [G, 14]``, ``d_mtab [M, 28]``, ``d_ltab [G, 19]``, ``d_scal [2]``;
+autograd of :func:`ops.bounce.pack_tables` carries them on to the scene.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+
+import torch
+from torch.overrides import TorchFunctionMode
+
+from pathtracer_tpu_torch.ops import _build
+from pathtracer_tpu_torch.ops.bounce import (
+    LIGHT_COLS,
+    MAT_COLS,
+    bounce_physics,
+    check_features,
+    pack_tables,
+)
+from pathtracer_tpu_torch.ops.intersect import GEOM_COLS, T_MIN
+from pathtracer_tpu_torch.ops.rng import hash_uniforms_planes
+from pathtracer_tpu_torch.ops.trace import (
+    check_launch,
+    check_tensor,
+    fused_trace_eligible,
+    init_carries,
+    step_update,
+)
+
+N_RESID = 13
+R_O, R_D, R_THR, R_STATE, R_ALIVE, R_GID, R_NEE = 0, 3, 6, 9, 10, 11, 12
+
+fwd_launches = 0  # launches of tfwd_cuda in this process
+bwd_launches = 0  # launches of tbwd_cuda (its kernel and its block sum)
+
+
+def grad_row_len(n_geoms: int, n_materials: int) -> int:
+    """Length of the flat table-cotangent row: geom, material, light
+    tables and the two scalars (``bounce_grad.py:76``)."""
+    return n_geoms * GEOM_COLS + n_materials * MAT_COLS + n_geoms * LIGHT_COLS + 2
+
+
+def split_grad_row(row, n_geoms: int, n_materials: int):
+    """``row [K]`` -> ``(d_gtab [G, 14], d_mtab [M, 28], d_ltab [G, 19],
+    d_scal [2])``."""
+    sizes = (n_geoms * GEOM_COLS, n_materials * MAT_COLS, n_geoms * LIGHT_COLS, 2)
+    dg, dm, dl, ds = torch.split(row, sizes)
+    return (
+        dg.reshape(n_geoms, GEOM_COLS),
+        dm.reshape(n_materials, MAT_COLS),
+        dl.reshape(n_geoms, LIGHT_COLS),
+        ds,
+    )
+
+
+def fused_diff_eligible(scene, cfg) -> bool:
+    """Scope of the differentiable trace (``render/common.py:80``): that of
+    the forward trace, without Henyey-Greenstein media, unless the caller
+    turned the fused engine off."""
+    return (
+        cfg.grad_fused is not False
+        and fused_trace_eligible(scene, cfg)
+        and "hg" not in cfg.features
+    )
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def tfwd_plain(
+    gtab, mtab, ltab, scal, seed: int, origin, direction, sample_idx,
+    *, max_depth: int, nee: bool, rr: bool, rr_start: int, features=frozenset(),
+):
+    """``(radiance [N, 3], rays_traced int64 [], residuals [depth, 13, N])``:
+    :func:`ops.trace.trace_plain`'s loop plus the residual stores."""
+    o, d, thr, prev_state, alive = init_carries(origin, direction)
+    zero = torch.zeros_like(prev_state)
+    radiance = (zero,) * 3
+    nrays = torch.zeros((), dtype=torch.int64, device=origin.device)
+    ray_mult = 2 if nee else 1
+    resid = torch.empty((max_depth, N_RESID, origin.shape[0]), dtype=torch.float32,
+                        device=origin.device)
+
+    for dep in range(max_depth):
+        alive_f = alive.to(torch.float32)
+        resid[dep, :R_GID] = torch.stack([*o, *d, *thr, prev_state, alive_f])
+        nrays = nrays + alive.sum() * ray_mult
+        u = hash_uniforms_planes(seed, sample_idx, dep, 11)
+        out = bounce_physics(
+            o, d, thr, (zero,) * 3, zero, gtab, mtab, ltab, scal,
+            u, dep, prev_state, nee=nee, t_min=T_MIN, features=features,
+            emit_replay=True,
+        )
+        resid[dep, R_GID] = torch.where(alive, out["replay_gid"], -1.0)
+        resid[dep, R_NEE] = torch.where(alive, out["replay_nee_add"], 0.0)
+        rad_inc, alive, thr, o, d, prev_state = step_update(
+            out, o, d, thr, prev_state, alive, dep, rr=rr, rr_start=rr_start
+        )
+        radiance = tuple(r + c for r, c in zip(radiance, rad_inc))
+    return torch.stack(radiance, dim=-1), nrays, resid
+
+
+class _Float32Values(TorchFunctionMode):
+    """Runs each float64 op twice: in float64, which autograd records and
+    differentiates, and on float32 copies of its inputs, whose result
+    becomes the op's value.  A float64 bounce under this mode takes the
+    float32 bounce's values exactly, and autograd differentiates it at
+    those values in float64."""
+
+    def __torch_function__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if not _any_f64(out):
+            return out
+        name = getattr(func, "__name__", "")
+        if name.endswith("_") and not name.endswith("__"):
+            raise NotImplementedError(f"in-place {name} under float32 values")
+        return _with_values(out, func(*_to_f32(args), **_to_f32(kwargs)))
+
+
+def _any_f64(x) -> bool:
+    if isinstance(x, torch.Tensor):
+        return x.dtype == torch.float64
+    return isinstance(x, (tuple, list)) and any(_any_f64(v) for v in x)
+
+
+def _to_f32(x):
+    if isinstance(x, torch.Tensor) and x.dtype == torch.float64:
+        return x.float()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_to_f32(v) for v in x)
+    if isinstance(x, dict):
+        return {k: _to_f32(v) for k, v in x.items()}
+    return x
+
+
+def _with_values(x, low):
+    """``x`` with the values of ``low`` and the graph of ``x``."""
+    if isinstance(x, torch.Tensor):
+        return x + (low.to(x.dtype) - x).detach() if x.dtype == torch.float64 else x
+    return type(x)([_with_values(a, b) for a, b in zip(x, low)])
+
+
+def tbwd_plain(
+    gtab, mtab, ltab, scal, seed: int, sample_idx, resid, g_rad,
+    *, max_depth: int, nee: bool, rr: bool, rr_start: int, features=frozenset(),
+    dtype=torch.float32,
+):
+    """Reverse loop, newest bounce first (``trace_grad.py:190-318``):
+    ``(d_gtab, d_mtab, d_ltab, d_scal, d_origin [N, 3], d_direction [N, 3])``.
+
+    Each bounce reloads its residuals, recomputes the replayed bounce and
+    :func:`step_update` on leaf tensors, and takes ``torch.autograd.grad``
+    with the radiance cotangent and the carry cotangents of the bounce
+    after it; the table cotangents are summed across bounces.
+
+    ``dtype=torch.float64`` returns the float64 reference: the bounce's
+    values are the float32 bounce's own (:class:`_Float32Values`) and
+    autograd's products and sums run in float64, as the reverse kernel's
+    adjoint does.  Where a gradient component is the small
+    difference of large terms, float32 autograd rounds those terms and this
+    reference does not."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype must be float32 or float64, got {dtype}")
+    values = _Float32Values() if dtype == torch.float64 else contextlib.nullcontext()
+    tabs = [t.detach().to(dtype).requires_grad_(True) for t in (gtab, mtab, ltab, scal)]
+    acc = [torch.zeros_like(t) for t in tabs]
+    resid = resid.to(dtype)
+    g_rad = tuple(g_rad.to(dtype).unbind(-1))
+    zero = torch.zeros_like(resid[0, 0])
+    g_o = g_d = g_thr = (zero,) * 3  # the loop's final carries are discarded
+
+    for dep in reversed(range(max_depth)):
+        r = resid[dep]
+        leaves = [r[k].detach().requires_grad_(True) for k in range(R_STATE)]
+        o, d, thr = tuple(leaves[0:3]), tuple(leaves[3:6]), tuple(leaves[6:9])
+        alive = r[R_ALIVE] > 0.5
+        u = hash_uniforms_planes(seed, sample_idx, dep, 11)
+        with torch.enable_grad():
+            with values:
+                out = bounce_physics(
+                    o, d, thr, (zero,) * 3, zero, *tabs, u, dep, r[R_STATE],
+                    nee=nee, t_min=T_MIN, features=features,
+                    replay={"gid": r[R_GID], "nee_add": r[R_NEE]},
+                )
+                rad_inc, _, thr2, next_o, next_d, _ = step_update(
+                    out, o, d, thr, r[R_STATE], alive, dep, rr=rr, rr_start=rr_start
+                )
+            grads = torch.autograd.grad(
+                [*rad_inc, *next_o, *next_d, *thr2],
+                [*leaves, *tabs],
+                grad_outputs=[*g_rad, *g_o, *g_d, *g_thr],
+                allow_unused=True,
+            )
+        grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves + tabs)]
+        g_o, g_d, g_thr = tuple(grads[0:3]), tuple(grads[3:6]), tuple(grads[6:9])
+        acc = [a + g for a, g in zip(acc, grads[9:])]
+    return (*acc, torch.stack(g_o, dim=-1), torch.stack(g_d, dim=-1))
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+def _lib():
+    lib = _build.load("trace_grad")
+    if lib.trace_fwd_launch.argtypes is None:
+        # without argtypes ctypes would cut pointers to 32 bits
+        lib.trace_fwd_launch.restype = ctypes.c_int
+        lib.trace_fwd_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_int,  # geom table, G
+            ctypes.c_void_p, ctypes.c_int,  # material table, M
+            ctypes.c_void_p, ctypes.c_void_p,  # light table, scalars
+            ctypes.c_uint,  # seed
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # origin, dir, sample
+            ctypes.c_int,  # n
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # radiance, nrays, resid
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # depth, nee, rr, rr_start
+            ctypes.c_void_p,  # stream
+        ]
+        lib.trace_bwd_launch.restype = ctypes.c_int
+        lib.trace_bwd_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_int,  # geom table, G
+            ctypes.c_void_p, ctypes.c_int,  # material table, M
+            ctypes.c_void_p, ctypes.c_void_p,  # light table, scalars
+            ctypes.c_uint,  # seed
+            ctypes.c_void_p, ctypes.c_int,  # sample, n
+            ctypes.c_void_p, ctypes.c_void_p,  # resid, g_rad
+            ctypes.c_void_p, ctypes.c_void_p,  # d_origin, d_direction
+            ctypes.c_void_p, ctypes.c_void_p,  # block partials, table row
+            ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # depth, nee, rr, rr_start
+            ctypes.c_void_p,  # stream
+        ]
+        lib.trace_bwd_blocks.restype = ctypes.c_int
+        lib.trace_bwd_blocks.argtypes = [ctypes.c_int]
+    return lib
+
+
+def tfwd_cuda(
+    gtab, mtab, ltab, scal, seed: int, origin, direction, sample_idx,
+    *, max_depth: int, nee: bool, rr: bool, rr_start: int,
+):
+    """Launch the forward-with-residuals kernel: ``(radiance [N, 3],
+    rays_traced int64 [], residuals [depth, 13, N])`` on the rays' CUDA
+    device, on the current stream."""
+    global fwd_launches
+    device = origin.device
+    n = origin.shape[0]
+    g, m, bits = check_launch(gtab, mtab, ltab, scal, sample_idx, n, device)
+    check_tensor(origin, "origin", torch.float32, (n, 3), device)
+    check_tensor(direction, "direction", torch.float32, (n, 3), device)
+
+    radiance = torch.empty((n, 3), dtype=torch.float32, device=device)
+    nrays = torch.zeros((), dtype=torch.int64, device=device)
+    resid = torch.empty((max_depth, N_RESID, n), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = _lib().trace_fwd_launch(
+        gtab.data_ptr(), g, mtab.data_ptr(), m, ltab.data_ptr(), scal.data_ptr(),
+        int(seed) & 0xFFFFFFFF,
+        origin.data_ptr(), direction.data_ptr(), bits.data_ptr(), n,
+        radiance.data_ptr(), nrays.data_ptr(), resid.data_ptr(),
+        int(max_depth), int(bool(nee)), int(bool(rr)), int(rr_start), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"trace_fwd kernel launch failed: CUDA error {err}")
+    fwd_launches += 1
+    return radiance, nrays, resid
+
+
+def tbwd_cuda(
+    gtab, mtab, ltab, scal, seed: int, sample_idx, resid, g_rad,
+    *, max_depth: int, nee: bool, rr: bool, rr_start: int,
+):
+    """Launch the reverse kernel and its fixed-order block sum:
+    ``(d_gtab, d_mtab, d_ltab, d_scal, d_origin [N, 3], d_direction
+    [N, 3])`` on the current stream."""
+    global bwd_launches
+    device = resid.device
+    n = resid.shape[2]
+    g, m, bits = check_launch(gtab, mtab, ltab, scal, sample_idx, n, device)
+    check_tensor(resid, "residuals", torch.float32, (max_depth, N_RESID, n), device)
+    check_tensor(g_rad, "radiance cotangent", torch.float32, (n, 3), device)
+
+    lib = _lib()
+    k = grad_row_len(g, m)
+    d_o = torch.empty((n, 3), dtype=torch.float32, device=device)
+    d_d = torch.empty((n, 3), dtype=torch.float32, device=device)
+    partial = torch.empty((max(lib.trace_bwd_blocks(n), 1), k), dtype=torch.float32,
+                          device=device)
+    row = torch.empty((k,), dtype=torch.float32, device=device)
+    stream = torch.cuda.current_stream(device).cuda_stream
+    err = lib.trace_bwd_launch(
+        gtab.data_ptr(), g, mtab.data_ptr(), m, ltab.data_ptr(), scal.data_ptr(),
+        int(seed) & 0xFFFFFFFF, bits.data_ptr(), n,
+        resid.data_ptr(), g_rad.data_ptr(), d_o.data_ptr(), d_d.data_ptr(),
+        partial.data_ptr(), row.data_ptr(),
+        int(max_depth), int(bool(nee)), int(bool(rr)), int(rr_start), stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"trace_bwd kernel launch failed: CUDA error {err}")
+    bwd_launches += 1
+    return (*split_grad_row(row, g, m), d_o, d_d)
+
+
+# ---------------------------------------------------------------------------
+# the autograd Function
+# ---------------------------------------------------------------------------
+
+class TraceDiff(torch.autograd.Function):
+    """``(radiance [N, 3], rays_traced int64 [])`` of a wavefront, with the
+    reverse loop as its backward.  ``opts`` holds ``max_depth``, ``nee``,
+    ``rr``, ``rr_start`` and ``features``."""
+
+    @staticmethod
+    def forward(ctx, gtab, mtab, ltab, scal, origin, direction, sample_idx, seed, opts):
+        kw = dict(opts)
+        if origin.device.type == "cuda":
+            kw.pop("features")
+            rad, nrays, resid = tfwd_cuda(
+                gtab, mtab, ltab, scal, seed, origin, direction, sample_idx, **kw
+            )
+        elif origin.device.type == "cpu":
+            rad, nrays, resid = tfwd_plain(
+                gtab, mtab, ltab, scal, seed, origin, direction, sample_idx, **kw
+            )
+        else:
+            raise ValueError(f"no differentiable trace for device {origin.device}")
+        ctx.save_for_backward(gtab, mtab, ltab, scal, sample_idx, resid)
+        ctx.seed, ctx.opts = seed, opts
+        ctx.mark_non_differentiable(nrays)
+        return rad, nrays
+
+    @staticmethod
+    def backward(ctx, g_rad, _g_nrays):
+        gtab, mtab, ltab, scal, sample_idx, resid = ctx.saved_tensors
+        if g_rad is None:
+            g_rad = torch.zeros((resid.shape[2], 3), dtype=torch.float32, device=resid.device)
+        kw = dict(ctx.opts)
+        args = (gtab, mtab, ltab, scal, ctx.seed, sample_idx, resid, g_rad.contiguous())
+        if resid.device.type == "cuda":
+            kw.pop("features")
+            grads = tbwd_cuda(*args, **kw)
+        else:
+            grads = tbwd_plain(*args, **kw)
+        return (*grads, None, None, None)
+
+
+def trace_fused_diff(scene, rays, sample_idx, seed: int, cfg, tables=None):
+    """Differentiable drop-in for ``render/megakernel.trace_paths``:
+    ``(radiance [N, 3], rays_traced int64 [])``.  ``tables`` are
+    :func:`pack_tables` of the scene, packed here when not given; their
+    graph carries the table cotangents on to the scene's tensors, and the
+    rays' graph carries ``d_origin`` / ``d_direction`` to the camera."""
+    check_features(cfg.features)
+    if not fused_diff_eligible(scene, cfg):
+        raise NotImplementedError(
+            "differentiable trace of meshes, image textures, HG media or "
+            "fast_rng=False: later slice"
+        )
+    gtab, mtab, ltab, scal = tables if tables is not None else pack_tables(scene)
+    opts = dict(
+        max_depth=cfg.max_depth, nee=cfg.nee, rr=cfg.russian_roulette,
+        rr_start=cfg.rr_start, features=frozenset(cfg.features),
+    )
+    return TraceDiff.apply(
+        gtab, mtab, ltab, scal, rays.origin, rays.direction, sample_idx, int(seed), opts
+    )

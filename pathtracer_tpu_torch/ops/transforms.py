@@ -4,7 +4,9 @@ Port of ``pathtracer_tpu/ops/transforms.py:17-128``: angles in degrees,
 ``M = T @ Rx @ Ry @ Rz @ S``, and the inverse built analytically as
 ``S^-1 Rz^T Ry^T Rx^T T^-1``.  Products of 3x3 matrices are written as
 explicit float32 multiply-adds, as the JAX package does for its vector
-applies, so no BLAS reassociation enters the geometry.
+applies, so no BLAS reassociation enters the geometry.  The matrices are
+built out of place from tensor inputs, so the differentiable render
+(``render/diff.py``) carries gradients to the TRS values.
 """
 
 from __future__ import annotations
@@ -43,9 +45,22 @@ def mat3_apply(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     )
 
 
-def build_transform(translation, rotation_deg, scale, device="cpu"):
+def _affine(lin: torch.Tensor, trans: torch.Tensor) -> torch.Tensor:
+    """``[..., 4, 4]`` from a ``[..., 3, 3]`` linear part and a ``[..., 3]``
+    translation, built out of place so that autograd sees every entry."""
+    top = torch.cat([lin, trans[..., :, None]], dim=-1)
+    bottom = torch.zeros(lin.shape[:-2] + (1, 4), dtype=lin.dtype, device=lin.device)
+    bottom[..., 0, 3] = 1.0
+    return torch.cat([top, bottom], dim=-2)
+
+
+def build_transform(translation, rotation_deg, scale, device=None):
     """``([..., 4, 4] transform, [..., 4, 4] inverse)`` from ``[..., 3]``
-    translation, rotation (degrees) and scale."""
+    translation, rotation (degrees) and scale.  Tensor inputs keep their
+    graph: the matrices are differentiable in all three.  ``device``
+    defaults to the translation's device (the CPU for array inputs)."""
+    if device is None:
+        device = translation.device if isinstance(translation, torch.Tensor) else "cpu"
     f32 = dict(dtype=torch.float32, device=device)
     translation = torch.as_tensor(translation, **f32)
     rotation_deg = torch.as_tensor(rotation_deg, **f32)
@@ -66,16 +81,7 @@ def build_transform(translation, rotation_deg, scale, device="cpu"):
     rz = mat3([[cz, -sz, zero], [sz, cz, zero], [zero, zero, one]])
     r = _mat3_mul(_mat3_mul(rx, ry), rz)
 
-    m3 = r * scale[..., None, :]
-    batch = cx.shape
-    m = torch.zeros(batch + (4, 4), **f32)
-    m[..., :3, :3] = m3
-    m[..., :3, 3] = translation
-    m[..., 3, 3] = 1.0
-
+    m = _affine(r * scale[..., None, :], translation)
     inv3 = r.transpose(-1, -2) / scale[..., :, None]
-    minv = torch.zeros(batch + (4, 4), **f32)
-    minv[..., :3, :3] = inv3
-    minv[..., :3, 3] = -mat3_apply(inv3, translation)
-    minv[..., 3, 3] = 1.0
+    minv = _affine(inv3, -mat3_apply(inv3, translation))
     return m, minv

@@ -10,6 +10,13 @@ numbers.  ``d`` holds
 * ``materials``: one array per field of :class:`Materials`;
 * ``camera``: ``resolution`` (w, h), ``position``, ``view``, ``up``,
   ``fov`` (degrees), ``aperture``, ``focal_distance``.
+
+The differentiable render's state crosses the same way:
+:func:`params_from_numpy` takes the leaves of a ``SceneParams`` as numpy
+(``materials`` as a dict of fields, then ``translations``, ``rotations``,
+``scales``, ``cam_position``, ``cam_view``, ``cam_up``, ``cam_fov``,
+``cam_aperture``, ``cam_focal``), and :func:`params_to_numpy` gives a
+port ``SceneParams`` (its gradients, say) back in that form.
 """
 
 from __future__ import annotations
@@ -51,3 +58,33 @@ def scene_from_numpy(d: dict, device="cuda") -> Scene:
         focal_distance=f32(c["focal_distance"]),
     )
     return Scene(geoms=geoms, materials=materials, camera=camera)
+
+
+PARAM_FIELDS = (
+    "translations", "rotations", "scales", "cam_position", "cam_view", "cam_up",
+    "cam_fov", "cam_aperture", "cam_focal",
+)
+
+
+def params_from_numpy(d: dict, device="cuda"):
+    """The port's ``render.diff.SceneParams`` holding ``d``'s numbers."""
+    from pathtracer_tpu_torch.render.diff import SceneParams
+
+    def f32(x):
+        return torch.as_tensor(np.array(x, np.float32), device=device)
+
+    return SceneParams(
+        materials=Materials(**{k: f32(d["materials"][k]) for k in MATERIAL_FIELDS}),
+        **{k: f32(d[k]) for k in PARAM_FIELDS},
+    )
+
+
+def params_to_numpy(p) -> dict:
+    """A port ``SceneParams`` as the numpy dict of :func:`params_from_numpy`."""
+
+    def arr(x):
+        return x.detach().cpu().numpy()
+
+    out = {k: arr(getattr(p, k)) for k in PARAM_FIELDS}
+    out["materials"] = {k: arr(getattr(p.materials, k)) for k in MATERIAL_FIELDS}
+    return out

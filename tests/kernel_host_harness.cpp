@@ -1,0 +1,62 @@
+// Host build of the differentiable trace kernels' per-lane code, for
+// tests/test_torch_kernel_host.py.  pathtracer_tpu_torch/csrc/
+// trace_grad.cu compiles without nvcc (its PT_FN functions become host
+// inline functions, its kernels drop out); these two C entry points run
+// its forward and reverse lanes one after another over a wavefront, with
+// the same arguments as the CUDA launchers.
+//
+//   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -o libhost.so \
+//       tests/kernel_host_harness.cpp
+
+#include <math.h>
+
+// the card's rsqrtf; the host has none
+static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
+
+#include "../pathtracer_tpu_torch/csrc/trace_grad.cu"
+
+using namespace pt;
+
+extern "C" void host_fwd(const float* gtab, int G, const float* mtab, const float* ltab,
+                         const float* scal, unsigned seed, const float* origin,
+                         const float* direction, const unsigned* sample, int n, float* radiance,
+                         unsigned long long* nrays, float* resid, int depth, int nee, int rr,
+                         int rr_start) {
+  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f};
+  unsigned long long total = 0;
+  for (int i = 0; i < n; ++i) {
+    V3 o = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
+    V3 d = v3(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
+    V3 rad = v3(0.0f, 0.0f, 0.0f);
+    unsigned bounces = 0;
+    fwd_lane(T, seed, sample[i], o, d, depth, nee, rr, rr_start, true, resid, (size_t)n,
+             (size_t)i, rad, bounces);
+    radiance[3 * i] = rad.x;
+    radiance[3 * i + 1] = rad.y;
+    radiance[3 * i + 2] = rad.z;
+    total += (unsigned long long)bounces * (nee ? 2 : 1);
+  }
+  *nrays = total;
+}
+
+extern "C" void host_bwd(const float* gtab, int G, const float* mtab, int M, const float* ltab,
+                         const float* scal, unsigned seed, const unsigned* sample, int n,
+                         const float* resid, const float* g_radiance, float* d_origin,
+                         float* d_direction, float* row, int depth, int nee, int rr,
+                         int rr_start) {
+  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f};
+  const RowLayout R = row_layout(G, M);
+  for (int k = 0; k < R.k; ++k) row[k] = 0.0f;
+  for (int i = 0; i < n; ++i) {
+    V3 g_rad = v3(g_radiance[3 * i], g_radiance[3 * i + 1], g_radiance[3 * i + 2]);
+    V3 g_o, g_d;
+    bwd_lane(T, R, seed, sample[i], resid, (size_t)n, (size_t)i, depth, nee, rr, rr_start,
+             g_rad, g_o, g_d, row);
+    d_origin[3 * i] = g_o.x;
+    d_origin[3 * i + 1] = g_o.y;
+    d_origin[3 * i + 2] = g_o.z;
+    d_direction[3 * i] = g_d.x;
+    d_direction[3 * i + 1] = g_d.y;
+    d_direction[3 * i + 2] = g_d.z;
+  }
+}

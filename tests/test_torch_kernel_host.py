@@ -1,0 +1,151 @@
+"""The differentiable trace kernels' per-lane code, built for the host CPU,
+against the plain versions.
+
+``pathtracer_tpu_torch/csrc/trace_grad.cu`` keeps the arithmetic of a lane
+(the forward with residuals, and the hand-written adjoint of the reverse
+loop) in functions that also compile as plain C++.  This test builds them
+with the host's C++ compiler (``tests/kernel_host_harness.cpp``, no
+contraction of a*b+c, as ``nvcc -fmad=false``) and runs them lane after
+lane, so the adjoint's logic is checked on every CPU run;
+``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py`` check the CUDA
+build itself on the card.
+
+Tolerances, with the reason: equal ray counts.  On MINI_SCENE (diffuse,
+mirror, glass, area light; depth 3, russian roulette, NEE on and off) and
+on its variant with a Phong-glossy sphere, radiance and residuals within
+2e-6 on every lane.  On Cornell 48x48 at
+depth 8, radiance on 99.5% of lanes and every residual plane of a lane on
+98% of lanes (measured 99.957% and 98.83%): the host's libm
+sin/cos/exp/log and its ``rsqrtf = 1/sqrtf`` round differently from
+torch's CPU kernels, and eight bounces carry that into later bounces'
+carries.  The reverse lanes run on the plain version's residuals and are
+held to its float64 reference (``tbwd_plain(dtype=torch.float64)``:
+float64 autograd at the float32 bounce's values, as the kernel's adjoint
+runs in double at them): every table cotangent within 1e-4 of itself plus
+1e-6 of the largest magnitude in its table (measured: below 4e-6 of the
+largest), every component of d_origin / d_direction within rtol = atol =
+1e-5 on every lane.  The float32 plain version misses that element-wise
+bar on up to 0.14% of Cornell's lanes, where a component is the small
+difference of large terms that float32 autograd rounds (the share is
+printed under ``pytest -s``).
+"""
+
+import ctypes
+import dataclasses
+import os
+import shutil
+import subprocess
+
+import numpy as np
+import pytest
+import torch
+
+from pathtracer_tpu_torch.ops import trace_grad
+from pathtracer_tpu_torch.ops.bounce import pack_tables
+from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
+from pathtracer_tpu_torch.scene.parser import load_scene, parse_scene_text
+from tests.test_bounce_grad import MINI_SCENE
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+P, I = ctypes.c_void_p, ctypes.c_int
+# MINI_SCENE with its mirror sphere turned Phong-glossy (specular exponent 30)
+GLOSSY_MINI = MINI_SCENE.replace("SPECEX 0\nSPECRGB .95 .92 .9", "SPECEX 30\nSPECRGB .95 .92 .9")
+assert GLOSSY_MINI != MINI_SCENE
+
+
+@pytest.fixture(scope="module")
+def host_lib(tmp_path_factory):
+    cxx = shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        pytest.skip("needs a C++ compiler on the host")
+    out = str(tmp_path_factory.mktemp("kernel_host") / "libtrace_grad_host.so")
+    subprocess.run(
+        [cxx, "-O2", "-std=c++17", "-ffp-contract=off", "-Wno-unknown-pragmas", "-shared",
+         "-fPIC", "-o", out, os.path.join(HERE, "kernel_host_harness.cpp")],
+        check=True, capture_output=True, text=True,
+    )
+    lib = ctypes.CDLL(out)
+    lib.host_fwd.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, P, I, I, I, I]
+    lib.host_bwd.argtypes = [P, I, P, I, P, P, ctypes.c_uint, P, I, P, P, P, P, P, I, I, I, I]
+    return lib
+
+
+# scene, resolution, options, least shares of lanes: radiance, residuals
+CASES = {
+    "mini_nee_rr": ("mini", (37, 23), dict(max_depth=3, nee=True, rr=True, rr_start=1),
+                    (1.0, 1.0)),
+    "mini_rr": ("mini", (37, 23), dict(max_depth=3, nee=False, rr=True, rr_start=1),
+                (1.0, 1.0)),
+    "glossy_nee": ("glossy", (37, 23), dict(max_depth=3, nee=True, rr=False, rr_start=3),
+                   (1.0, 1.0)),
+    "cornell_d8": ("cornell", (48, 48), dict(max_depth=8, nee=True, rr=False, rr_start=3),
+                   (0.995, 0.98)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_kernel_lanes_match_plain(host_lib, case):
+    name, res, kw, (min_rad, min_res) = CASES[case]
+    if name in ("mini", "glossy"):
+        desc = parse_scene_text(MINI_SCENE if name == "mini" else GLOSSY_MINI, name=name)
+    else:
+        desc = load_scene(os.path.join(HERE, "..", "scenes", "cornell.txt"))
+    scene = dataclasses.replace(desc, resolution=res).scene_for_frame(0, device="cpu")
+    n = res[0] * res[1]
+    seed = 1234
+    pixel = torch.arange(n)
+    sample = 3 * n + pixel
+    rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, sample))
+    tables = [t.contiguous() for t in pack_tables(scene)]
+    g, m = tables[0].shape[0], tables[1].shape[0]
+    bits = sample.to(torch.int32)  # indices below 2^31: their uint32 bits
+    flags = (kw["max_depth"], int(kw["nee"]), int(kw["rr"]), kw["rr_start"])
+
+    rad_p, nr_p, res_p = trace_grad.tfwd_plain(*tables, seed, rays.origin, rays.direction,
+                                               sample, **kw)
+    rad_k = torch.empty((n, 3))
+    res_k = torch.empty_like(res_p)
+    nr_k = ctypes.c_ulonglong()
+    host_lib.host_fwd(tables[0].data_ptr(), g, tables[1].data_ptr(), tables[2].data_ptr(),
+                      tables[3].data_ptr(), seed, rays.origin.data_ptr(),
+                      rays.direction.data_ptr(), bits.data_ptr(), n, rad_k.data_ptr(),
+                      ctypes.byref(nr_k), res_k.data_ptr(), *flags)
+    assert nr_k.value == int(nr_p)
+    rad_frac = float(torch.isclose(rad_k, rad_p, rtol=2e-6, atol=2e-6).all(-1).float().mean())
+    res_frac = float(
+        torch.isclose(res_k, res_p, rtol=2e-6, atol=2e-6).all(0).all(0).float().mean()
+    )
+
+    g_rad = torch.from_numpy(np.random.default_rng(5).standard_normal((n, 3)).astype(np.float32))
+    want = trace_grad.tbwd_plain(*tables, seed, sample, res_p, g_rad, dtype=torch.float64,
+                                 **kw)
+    want32 = trace_grad.tbwd_plain(*tables, seed, sample, res_p, g_rad, **kw)
+    d_o, d_d = torch.empty((n, 3)), torch.empty((n, 3))
+    row = torch.empty(trace_grad.grad_row_len(g, m))
+    host_lib.host_bwd(tables[0].data_ptr(), g, tables[1].data_ptr(), m, tables[2].data_ptr(),
+                      tables[3].data_ptr(), seed, bits.data_ptr(), n, res_p.data_ptr(),
+                      g_rad.data_ptr(), d_o.data_ptr(), d_d.data_ptr(), row.data_ptr(), *flags)
+    got = tuple(t.double() for t in (*trace_grad.split_grad_row(row, g, m), d_o, d_d))
+
+    def lane_frac(a, b):
+        return float(torch.isclose(a.double(), b, rtol=1e-5, atol=1e-5).all(-1).double().mean())
+
+    table_rel = [
+        float((k - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+        for w, k in zip(want[:4], got[:4])
+    ]
+    print(f"{case}: lanes within 2e-6: radiance {rad_frac:.5f}, residuals {res_frac:.5f}; "
+          f"reverse lanes within 1e-5 of the float64 reference: kernel "
+          f"{[lane_frac(k, w) for k, w in zip(got[4:], want[4:])]}, float32 plain "
+          f"{[lane_frac(p, w) for p, w in zip(want32[4:], want[4:])]}; "
+          f"table errors / max: {table_rel}")
+    assert rad_frac >= min_rad and res_frac >= min_res
+    for w, k in zip(want[:4], got[:4]):
+        # every entry, small ones too (a material's specular exponent has a
+        # gradient thousands of times below the table's largest)
+        assert bool(((k - w).abs() <= 1e-4 * w.abs() + 1e-6 * float(w.abs().max())).all())
+    for w, k in zip(want[4:], got[4:]):
+        assert bool(torch.isclose(k, w, rtol=1e-5, atol=1e-5).all())
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    if kw["nee"]:
+        assert float(want[0].abs().max()) > 0 and float(d_d.abs().max()) > 0

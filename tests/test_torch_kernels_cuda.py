@@ -40,6 +40,11 @@ def _need_cuda():
 def _scene(name, res):
     if name == "mini":
         desc = parse_scene_text(MINI_SCENE, name="mini")
+    elif name == "glossy":  # the mirror sphere turned Phong-glossy
+        desc = parse_scene_text(
+            MINI_SCENE.replace("SPECEX 0\nSPECRGB .95 .92 .9", "SPECEX 30\nSPECRGB .95 .92 .9"),
+            name="glossy",
+        )
     else:
         desc = load_scene(os.path.join(ROOT, "scenes", f"{name}.txt"))
     return dataclasses.replace(desc, resolution=res).scene_for_frame(0, device="cuda")
@@ -104,3 +109,136 @@ def test_wrapper_checks_inputs():
     big = gtab.repeat(trace.MAX_GEOMS, 1)
     with pytest.raises(ValueError):
         trace.trace_cuda(big, mtab, ltab.repeat(trace.MAX_GEOMS, 1), scal, 1, o, d, s, **kw)
+
+
+# ---- the differentiable trace: forward with residuals and reverse kernels
+#
+# Tolerances (those chip_smoke.py holds at full width): the forward kernel's
+# radiance equals the trace kernel's bit for bit (same device function),
+# its ray count equals the plain version's, and its residual planes are
+# within 2e-6 of the plain version's on at least 99.9% of lanes.  The
+# reverse kernel's d_origin / d_direction have every component within
+# rtol = atol = 1e-5 of the float64 reference's (tbwd_plain with
+# dtype=float64: float64 autograd at the float32 bounce's values, as the
+# kernel's adjoint runs in double at them) on at least 99.9% of lanes; the
+# float32 plain version misses that bar on up to 0.14% of Cornell's lanes,
+# where a component is the small difference of large terms that float32
+# autograd rounds.  Each table cotangent within 1e-4 of the largest
+# magnitude in its table of the float32 plain version's (sums over lanes
+# in another order, with shared-memory float atomics inside a block).
+
+GRAD_CASES = [
+    ("cornell", (160, 120), dict(max_depth=8, nee=True, rr=False, rr_start=3)),
+    ("mini", (37, 23), dict(max_depth=3, nee=True, rr=True, rr_start=1)),
+    ("mini", (64, 64), dict(max_depth=4, nee=False, rr=True, rr_start=1)),
+    ("glossy", (64, 64), dict(max_depth=4, nee=True, rr=False, rr_start=3)),
+]
+
+
+def _grad_inputs(name, res, seed=77, iteration=2):
+    from pathtracer_tpu_torch.ops import trace_grad  # noqa: F401
+
+    scene = _scene(name, res)
+    n = res[0] * res[1]
+    pixel = torch.arange(n, device="cuda")
+    sample = iteration * n + pixel
+    rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, sample))
+    return pack_tables(scene), seed, rays, sample
+
+
+@pytest.mark.parametrize("name,res,kw", GRAD_CASES)
+def test_trace_fwd_kernel_matches_plain(name, res, kw):
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import trace_grad
+
+    tables, seed, rays, sample = _grad_inputs(name, res)
+    args = (*tables, seed, rays.origin, rays.direction, sample)
+    before = trace_grad.fwd_launches
+    rad_k, nr_k, res_k = trace_grad.tfwd_cuda(*args, **kw)
+    assert trace_grad.fwd_launches == before + 1
+    rad_t, nr_t = trace.trace_cuda(*args, **kw)
+    rad_p, nr_p, res_p = trace_grad.tfwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(rad_k, rad_t) and int(nr_k) == int(nr_t) == int(nr_p)
+    close = torch.isclose(res_k, res_p, rtol=2e-6, atol=2e-6).all(1)
+    assert float(close.float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("name,res,kw", GRAD_CASES)
+def test_trace_bwd_kernel_matches_plain(name, res, kw):
+    _need_cuda()
+    import numpy as np
+
+    from pathtracer_tpu_torch.ops import trace_grad
+
+    tables, seed, rays, sample = _grad_inputs(name, res)
+    n = res[0] * res[1]
+    _, _, resid = trace_grad.tfwd_plain(*tables, seed, rays.origin, rays.direction, sample, **kw)
+    g_rad = torch.from_numpy(
+        np.random.default_rng(3).standard_normal((n, 3)).astype(np.float32)
+    ).cuda()
+    before = trace_grad.bwd_launches
+    got = trace_grad.tbwd_cuda(*tables, seed, sample, resid, g_rad, **kw)
+    assert trace_grad.bwd_launches == before + 1
+    want = trace_grad.tbwd_plain(*tables, seed, sample, resid, g_rad, **kw)
+    ref = trace_grad.tbwd_plain(*tables, seed, sample, resid, g_rad, dtype=torch.float64, **kw)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:4], want[:4]):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= 1e-4 * max(float(w.abs().max()), 1e-30)
+    for g, w in zip(got[4:], ref[4:]):
+        assert bool(torch.isfinite(g).all())
+        close = torch.isclose(g.double(), w, rtol=1e-5, atol=1e-5).all(-1)
+        assert float(close.double().mean()) >= 0.999
+
+
+def test_loss_and_grad_launches_both_kernels_once_per_iteration():
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import trace_grad
+    from pathtracer_tpu_torch.ops.rng import prng_key
+    from pathtracer_tpu_torch.render import diff
+
+    desc = dataclasses.replace(load_scene(os.path.join(ROOT, "scenes", "cornell.txt")),
+                               resolution=(64, 48))
+    params, static = diff.params_from_description(desc, 0, device="cuda")
+    target = torch.zeros((64 * 48, 3), device="cuda")
+    cfg = RenderConfig(max_depth=5)
+    f0, b0 = trace_grad.fwd_launches, trace_grad.bwd_launches
+    loss, grads, rays = diff.loss_and_grad_rays(params, static, target, 3, prng_key(0), cfg)
+    torch.cuda.synchronize()
+    assert (trace_grad.fwd_launches - f0, trace_grad.bwd_launches - b0) == (3, 3)
+    leaves = grads.leaves()
+    assert all(bool(torch.isfinite(v).all()) for v in leaves.values())
+    assert float(loss) > 0 and int(rays) > 3 * 64 * 48
+    # the plain versions on the CPU give the same loss and gradients (the
+    # CPU's sin / cos / exp round differently from the card's: 5e-4 bar)
+    cp, _ = diff.params_from_description(desc, 0, device="cpu")
+    loss_c, grads_c = diff.loss_and_grad(cp, static, target.cpu(), 3, prng_key(0), cfg,
+                                         device="cpu")
+    assert abs(float(loss) - float(loss_c)) <= 1e-4 * abs(float(loss_c))
+    cl = grads_c.leaves()
+    gscale = max(float(v.abs().max()) for v in cl.values())
+    for k, v in leaves.items():
+        assert float((v.cpu() - cl[k]).abs().max()) <= 5e-4 * max(gscale, 1.0), k
+
+
+def test_grad_wrappers_check_inputs():
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import trace_grad
+
+    tables, seed, rays, sample = _grad_inputs("mini", (8, 8))
+    kw = dict(max_depth=2, nee=True, rr=False, rr_start=3)
+    gtab, mtab, ltab, scal = tables
+    with pytest.raises(TypeError):
+        trace_grad.tfwd_cuda(gtab.double(), mtab, ltab, scal, seed, rays.origin,
+                             rays.direction, sample, **kw)
+    with pytest.raises(ValueError):
+        trace_grad.tfwd_cuda(*tables, seed, rays.origin[:5], rays.direction, sample, **kw)
+    resid = torch.zeros((2, trace_grad.N_RESID, 64), device="cuda")
+    g = torch.zeros((64, 3), device="cuda")
+    with pytest.raises(ValueError):
+        trace_grad.tbwd_cuda(*tables, seed, sample, resid[:1], g, **kw)
+    with pytest.raises(ValueError):
+        trace_grad.tbwd_cuda(*tables, seed, sample, resid, g.t().contiguous().t(), **kw)
+    with pytest.raises(ValueError):
+        trace_grad.tbwd_cuda(*tables, seed, sample, resid, g.cpu(), **kw)
