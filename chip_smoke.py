@@ -42,7 +42,29 @@ Phases (any failure exits non-zero):
    the step's time, ``bench.py``'s convention); the step's profile (device
    busy and idle share); the inverse-rendering example on the card, whose
    loss must fall and wall error shrink;
-7. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+7. ``[wavefront]``, the wavefront engines (``render(...,
+   RenderConfig(wavefront=True))``) at Cornell 800x800, depth 8, NEE, each
+   run through the entry point with the launch counters zeroed just before:
+   (a) the pinned engine at 8 spp launches the per-bounce kernel once per
+   super-step and nothing else, traces the megakernel's ray count, and its
+   accumulator is within rtol = atol = 2e-4 of the megakernel's on at least
+   99.9% of entries with the sums within 1e-5 relative; (b) the free-slot
+   queue engine (capacity 2^18, 2 spp), the same checks; (c) the split
+   route (``fused=False``, 2 spp) launches the nearest-hit and occlusion
+   kernels once per super-step each and no per-bounce kernel, and its
+   accumulator is within 2e-4 of the fused route's on at least 99.5% of
+   entries with the sums within 2e-5; (d) kernels 2, 6 and 8 against their
+   plain versions on the 640,000 primary rays and on the state of a
+   mid-render super-step (mixed depths and emit states): kernel 2's
+   terminate, emit state, russian-roulette uniform and medium equal on
+   every lane and its float planes within 2e-6 on at least 99.9% of lanes;
+   kernel 6's t, gid and mid equal, its frame within 2e-6 on at least 99.9%
+   of lanes; kernel 8's t within 2e-6 on at least 99.9%; (e) times: each
+   kernel at 640,000 lanes beside its plain version and its bound, the
+   renders' wall time, super-steps and Mrays/s, and the 8-spp pinned render
+   profiled (device busy and idle share, per super-step); and the CLI with
+   ``--engine wavefront``;
+8. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
 The rendered PNGs and the profile table go to ``--out-dir`` (default
 ``renders/chip_smoke``).
@@ -97,19 +119,33 @@ def check(cond: bool, msg: str) -> None:
         fail(msg)
 
 
-def zero_counts(trace, trace_grad) -> None:
-    """Every kernel wrapper's launch count to 0."""
-    trace.launches = 0
-    trace_grad.fwd_launches = 0
-    trace_grad.bwd_launches = 0
+def _counters() -> dict:
+    """Every kernel wrapper's launch counter: name -> (module, attribute)."""
+    from pathtracer_tpu_torch.ops import bounce_fused, intersect_cuda, trace, trace_grad
 
-
-def read_counts(trace, trace_grad) -> dict:
     return {
-        "trace": trace.launches,
-        "trace_fwd_resid": trace_grad.fwd_launches,
-        "trace_bwd": trace_grad.bwd_launches,
+        "trace": (trace, "launches"),
+        "trace_fwd_resid": (trace_grad, "fwd_launches"),
+        "trace_bwd": (trace_grad, "bwd_launches"),
+        "bounce": (bounce_fused, "launches"),
+        "nearest_hit": (intersect_cuda, "nearest_launches"),
+        "occlusion": (intersect_cuda, "occlusion_launches"),
     }
+
+
+def zero_counts() -> None:
+    """Every kernel wrapper's launch count to 0."""
+    for module, attr in _counters().values():
+        setattr(module, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(module, attr) for name, (module, attr) in _counters().items()}
+
+
+def only(**launched) -> dict:
+    """The counts of a run that launched ``launched`` and nothing else."""
+    return {name: launched.get(name, 0) for name in _counters()}
 
 
 def close_fraction(got, want, tol: float = 1e-5) -> float:
@@ -161,14 +197,14 @@ def grad_phase(desc, dev, card: str, out_dir: str) -> list:
         return diff.loss_and_grad_rays(params, static, target, gspp, key, cfg, device=dev)
 
     # ---- the main path: one gradient step through the entry point
-    zero_counts(trace, trace_grad)
+    zero_counts()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     loss, grads, rays = step()
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
-    launches = read_counts(trace, trace_grad)
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     leaves = grads.leaves()
     big = sorted(leaves, key=lambda k: -float(leaves[k].abs().max()))[:4]
@@ -178,7 +214,7 @@ def grad_phase(desc, dev, card: str, out_dir: str) -> list:
         f"{peak_gb:.3f} GB, launches {launches}; largest |grad|: "
         + ", ".join(f"{k} {float(leaves[k].abs().max()):.4g}" for k in big)
     )
-    check(launches == {"trace": 0, "trace_fwd_resid": gspp, "trace_bwd": gspp},
+    check(launches == only(trace_fwd_resid=gspp, trace_bwd=gspp),
           f"gradient step launches {launches}")
     bad = [k for k, v in leaves.items() if not bool(torch.isfinite(v).all())]
     check(not bad, f"non-finite gradients in {bad}")
@@ -358,6 +394,264 @@ def grad_phase(desc, dev, card: str, out_dir: str) -> list:
     ]
 
 
+# fp32 operations of kernel 6's hit frame beyond the sweep, counted by hand
+# from csrc/intersect.cu: the world and object-space points (12), the
+# object normal (sphere: normalize 9; cube: compares and signs, ~12), the
+# inverse-transpose (15) and its normalization (9)
+OPS_FRAME = 48
+CAPTURE_STEP = 10  # the super-step whose state phase [wavefront] (d) holds the kernels on
+
+
+def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
+    """Phase 7: the wavefront engines on the card.  ``mega`` holds the
+    megakernel's accumulators and ray counts at 8 and 2 spp.  Returns the
+    JSON entries of kernels 2, 6 and 8."""
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import bounce_fused, intersect_cuda
+    from pathtracer_tpu_torch.ops.bounce import pack_tables
+    from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
+    from pathtracer_tpu_torch.ops.intersect import nearest_hit_plain, occlusion_t_plain
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render import wavefront
+    from pathtracer_tpu_torch.render.integrator import render
+    from pathtracer_tpu_torch.scene.structs import Rays
+
+    w, h = scene.camera.width, scene.camera.height
+    n = w * h
+    base = dict(max_depth=8, nee=True)
+
+    def close_to(acc, ref, min_share, sum_tol, what):
+        share = float(torch.isclose(acc, ref, rtol=2e-4, atol=2e-4).float().mean())
+        sum_rel = float((acc.double().sum() - ref.double().sum()).abs() / ref.double().sum())
+        print(f"[wavefront:check] {what}: {share:.6f} of entries within 2e-4, sums within "
+              f"{sum_rel:.3g} relative")
+        check(share >= min_share and sum_rel <= sum_tol, f"{what} beyond the bar")
+
+    def run(spp, cfg, record=None):
+        """One render through the entry point, counters zeroed just before;
+        returns (accum, stats, launches, super-steps, wall s)."""
+        zero_counts()
+        wavefront.super_steps = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, acc, st = render(scene, spp, cfg, device=dev)
+        torch.cuda.synchronize()
+        return acc, st, read_counts(), wavefront.super_steps, time.perf_counter() - t0
+
+    # ---- (a) pinned engine, 8 spp; the state of one mid-render super-step
+    # is kept for (d) by a wrapper that only copies shade_bounce's inputs
+    captured = {}
+    shade = wavefront.shade_bounce
+
+    def recording(scn, rays, thr, sample, depth, prev, seed_, cfg_, medium_sigma=None, tables=None):
+        if wavefront.super_steps == CAPTURE_STEP:
+            captured.update(origin=rays.origin.clone(), direction=rays.direction.clone(),
+                            throughput=thr.clone(), sample=sample.clone(), depth=depth.clone(),
+                            prev=prev.clone(), medium=medium_sigma.clone())
+        return shade(scn, rays, thr, sample, depth, prev, seed_, cfg_,
+                     medium_sigma=medium_sigma, tables=tables)
+
+    pinned = RenderConfig(wavefront=True, iters_per_launch=8, **base)
+    wavefront.shade_bounce = recording
+    try:
+        acc_a, st_a, launch_a, steps_a, wall_a = run(8, pinned)
+    finally:
+        wavefront.shade_bounce = shade
+    print(f"[wavefront] (a) pinned {w}x{h} d8 nee spp=8: {wall_a:.3f} s, {steps_a} super-steps, "
+          f"rays {st_a['rays_traced']}, launches {launch_a}")
+    check(launch_a == only(bounce=steps_a), f"pinned engine launches {launch_a}")
+    check(st_a["rays_traced"] == mega["rays8"], "pinned and megakernel ray counts differ")
+    close_to(acc_a, mega["acc8"], 0.999, 1e-5, "(a) pinned vs megakernel, 8 spp")
+    check(bool(torch.isfinite(acc_a).all()), "non-finite pinned accumulator")
+
+    # ---- (b) free-slot queue engine, 2 spp
+    queue = RenderConfig(wavefront=True, wavefront_pinned=False, wavefront_capacity=1 << 18,
+                         iters_per_launch=2, **base)
+    acc_b, st_b, launch_b, steps_b, wall_b = run(2, queue)
+    print(f"[wavefront] (b) queue capacity {1 << 18}, spp=2: {wall_b:.3f} s, {steps_b} "
+          f"super-steps, rays {st_b['rays_traced']}, launches {launch_b}")
+    check(launch_b == only(bounce=steps_b), f"queue engine launches {launch_b}")
+    check(st_b["rays_traced"] == mega["rays2"], "queue and megakernel ray counts differ")
+    close_to(acc_b, mega["acc2"], 0.999, 1e-5, "(b) queue vs megakernel, 2 spp")
+
+    # ---- (c) split route (kernels 6 and 8), pinned, 2 spp, against the
+    # fused route's pinned render at the same spp
+    split = dataclasses.replace(pinned, fused=False, iters_per_launch=2)
+    acc_c, st_c, launch_c, steps_c, wall_c = run(2, split)
+    print(f"[wavefront] (c) split route, pinned, spp=2: {wall_c:.3f} s, {steps_c} super-steps, "
+          f"rays {st_c['rays_traced']}, launches {launch_c}")
+    check(launch_c == only(nearest_hit=steps_c, occlusion=steps_c),
+          f"split route launches {launch_c}")
+    acc_a2, st_a2, _, steps_a2, wall_a2 = run(2, dataclasses.replace(pinned, iters_per_launch=2))
+    print(f"[wavefront] fused route, pinned, spp=2: {wall_a2:.3f} s, {steps_a2} super-steps, "
+          f"rays {st_a2['rays_traced']}")
+    close_to(acc_c, acc_a2, 0.995, 2e-5, "(c) split vs fused route, 2 spp")
+
+    # ---- (d) kernels against their plain versions: the primary rays and
+    # the captured mid-render super-step
+    check(bool(captured), "no super-step state captured")
+    seed = key_to_seed(prng_key(0))
+    tables = [t.contiguous() for t in pack_tables(scene)]
+    pixel = torch.arange(n, dtype=torch.int64, device=dev)
+    rays0 = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, pixel))
+    f32 = dict(dtype=torch.float32, device=dev)
+    states = {
+        "primary": dict(origin=rays0.origin, direction=rays0.direction,
+                        throughput=torch.ones((n, 3), **f32), sample=pixel,
+                        depth=torch.zeros(n, dtype=torch.int32, device=dev),
+                        prev=torch.zeros(n, **f32), medium=torch.zeros((n, 4), **f32)),
+        f"super-step {CAPTURE_STEP}": captured,
+    }
+    mid = captured
+    print(f"[wavefront:check] super-step {CAPTURE_STEP}: depths "
+          f"{torch.bincount(mid['depth'].long()).tolist()}, emit states "
+          f"{[int((mid['prev'] == v).sum()) for v in (0.0, 1.0, 2.0)]}")
+    b_err = n_err = o_err = 0.0
+    for label, s in states.items():
+        args = (tables, s["origin"], s["direction"], s["throughput"], s["sample"], s["depth"],
+                s["prev"], s["medium"], seed)
+        got = bounce_fused.bounce_fused_cuda(*args, nee=True)
+        want = bounce_fused.bounce_fused_plain(*args, nee=True)
+        rays = Rays(s["origin"], s["direction"])
+        hit_k, hit_p = intersect_cuda.nearest_hit_cuda(rays, tables[0]), nearest_hit_plain(rays, tables[0])
+        occ_k, occ_p = intersect_cuda.occlusion_t_cuda(rays, tables[0]), occlusion_t_plain(rays, tables[0])
+        torch.cuda.synchronize()
+        exact = (torch.equal(got.terminate, want.terminate)
+                 and torch.equal(got.was_specular, want.was_specular)
+                 and torch.equal(got.rr_uniform, want.rr_uniform)
+                 and torch.equal(got.next_medium, want.next_medium))
+        close = torch.ones(n, dtype=torch.bool, device=dev)
+        same = torch.ones(n, dtype=torch.bool, device=dev)
+        for f in ("contrib", "next_origin", "next_direction", "throughput_mult"):
+            a, b = getattr(got, f), getattr(want, f)
+            close &= torch.isclose(a, b, rtol=2e-6, atol=2e-6).all(-1)
+            same &= (a == b).all(-1)
+            b_err = max(b_err, float((a - b).abs().max()))
+        b_share = float(close.float().mean())
+        ids_equal = (torch.equal(hit_k.t, hit_p.t) and torch.equal(hit_k.geom_id, hit_p.geom_id)
+                     and torch.equal(hit_k.material_id, hit_p.material_id))
+        frame = torch.ones(n, dtype=torch.bool, device=dev)
+        for f in ("position", "position_obj", "normal"):
+            a, b = getattr(hit_k, f), getattr(hit_p, f)
+            frame &= torch.isclose(a, b, rtol=2e-6, atol=2e-6).all(-1)
+            n_err = max(n_err, float((a - b).abs().max()))
+        occ_share = float(torch.isclose(occ_k, occ_p, rtol=2e-6, atol=2e-6).float().mean())
+        o_err = max(o_err, float((occ_k - occ_p).abs().max()))
+        print(
+            f"[wavefront:check] {label}, {n} lanes: kernel 2 terminate / emit state / rr "
+            f"uniform / medium equal: {exact}; lanes with every plane within 2e-6 {b_share:.6f}, "
+            f"bit-equal {float(same.float().mean()):.6f}; kernel 6 t / gid / mid equal: "
+            f"{ids_equal}, frame within 2e-6 {float(frame.float().mean()):.6f}; kernel 8 t "
+            f"within 2e-6 {occ_share:.6f}"
+        )
+        check(exact and b_share >= 0.999, f"kernel 2 differs from its plain version ({label})")
+        check(ids_equal and float(frame.float().mean()) >= 0.999,
+              f"kernel 6 differs from its plain version ({label})")
+        check(occ_share >= 0.999, f"kernel 8 differs from its plain version ({label})")
+
+    # ---- (e) times at 640,000 lanes, on the captured super-step's state
+    margs = (tables, mid["origin"], mid["direction"], mid["throughput"], mid["sample"],
+             mid["depth"], mid["prev"], mid["medium"], seed)
+    mrays = Rays(mid["origin"], mid["direction"])
+    k2_ms = cuda_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, nee=True), reps=50)
+    k2p_ms = cuda_ms(lambda: bounce_fused.bounce_fused_plain(*margs, nee=True), reps=2)
+    k6_ms = cuda_ms(lambda: intersect_cuda.nearest_hit_cuda(mrays, tables[0]), reps=50)
+    k6p_ms = cuda_ms(lambda: nearest_hit_plain(mrays, tables[0]), reps=3)
+    k8_ms = cuda_ms(lambda: intersect_cuda.occlusion_t_cuda(mrays, tables[0]), reps=50)
+    k8p_ms = cuda_ms(lambda: occlusion_t_plain(mrays, tables[0]), reps=3)
+    _, st_t, _, steps_t, wall_t = run(8, pinned)  # the pinned render again, unwrapped
+    # where a super-step's time goes: the same 8-spp render, profiled
+    wavefront.super_steps = 0
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        t0 = time.perf_counter()
+        render(scene, 8, pinned, device=dev)
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    steps_p = wavefront.super_steps
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    kernels_run = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in kernels_run) / 1e3
+    k2_prof = sum(dev_us(e) for e in kernels_run if "bounce_kernel" in e.key) / 1e3
+    top = sorted(kernels_run, key=dev_us, reverse=True)[:5]
+    with open(os.path.join(out_dir, "profile_wavefront_8spp.txt"), "w") as f:
+        f.write(events.table(sort_by="self_cuda_time_total", row_limit=30))
+    wall_ms = wall_t * 1e3  # the unprofiled run of the same render
+    print(
+        f"[wavefront:profile] pinned 8-spp render, {steps_p} super-steps: {wall_ms:.4f} ms "
+        f"unprofiled ({prof_ms:.4f} ms profiled), device busy {busy_ms:.4f} ms, idle share "
+        f"{1 - busy_ms / wall_ms:.3f}; per super-step: wall {wall_ms / steps_p:.4f} ms, kernel 2 "
+        f"{k2_prof / steps_p:.4f} ms, other device work {(busy_ms - k2_prof) / steps_p:.4f} ms "
+        f"in {sum(e.count for e in kernels_run) / steps_p:.1f} kernel launches; top: "
+        + "; ".join(f"{e.key[:40]} x{e.count} {dev_us(e) / 1e3:.4f} ms" for e in top)
+    )
+
+    # ---- bounds, from this run's inputs (all 640,000 lanes are computed)
+    types = scene.geoms.type.tolist()
+    sweep = sum(OPS_TO_OBJECT + (OPS_SPHERE if t == 0 else OPS_CUBE) for t in types)
+    table_bytes = sum(t.numel() * 4 for t in tables)
+
+    def bound(ops, nbytes):
+        t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+    # kernel 2: 16 planes in (64 B), 18 float planes and a terminate byte out (73 B)
+    k2_bound = bound(n * (sweep + OPS_SHADE), n * (64 + 73) + table_bytes)
+    # kernel 6: origin and direction in (24 B); t, gid, mid, p, p_obj, n out (48 B)
+    k6_bound = bound(n * (sweep + OPS_FRAME), n * (24 + 48) + tables[0].numel() * 4)
+    # kernel 8: origin and direction in, t out
+    k8_bound = bound(n * sweep, n * (24 + 4) + tables[0].numel() * 4)
+    print(f"[card] {card}")
+    print(
+        f"[wavefront:time] pinned 8 spp: {steps_t} super-steps, {wall_t * 1e3:.4f} ms "
+        f"({wall_t * 1e3 / 8:.4f} ms per spp, {st_t['rays_traced'] / wall_t / 1e6:.1f} Mrays/s); "
+        f"queue 2 spp {wall_b * 1e3:.4f} ms ({st_b['rays_traced'] / wall_b / 1e6:.1f} Mrays/s); "
+        f"split route 2 spp {wall_c * 1e3:.4f} ms ({st_c['rays_traced'] / wall_c / 1e6:.1f} "
+        f"Mrays/s); fused route 2 spp {wall_a2 * 1e3:.4f} ms; launches per 8-spp render: kernel 2 "
+        f"{launch_a['bounce']}; per 2-spp split render: kernels 6 and 8 "
+        f"{launch_c['nearest_hit']} each; on {card}"
+    )
+    print(
+        f"[wavefront:time] at {n} lanes: kernel 2 {k2_ms:.4f} ms (plain {k2p_ms:.3f} ms, bound "
+        f"{k2_bound[0]:.4f} ms by {k2_bound[1]}); kernel 6 {k6_ms:.4f} ms (plain {k6p_ms:.3f} ms, "
+        f"bound {k6_bound[0]:.4f} ms by {k6_bound[1]}); kernel 8 {k8_ms:.4f} ms (plain "
+        f"{k8p_ms:.3f} ms, bound {k8_bound[0]:.4f} ms by {k8_bound[1]}); on {card}"
+    )
+
+    # ---- the CLI with the wavefront engine
+    cli = subprocess.run(
+        [sys.executable, "-m", "pathtracer_tpu_torch.cli", "scene=scenes/cornell.txt",
+         "--spp", "2", "--engine", "wavefront", "--out",
+         os.path.join(out_dir, "cli_cornell_wavefront.png")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    print(f"[wavefront:cli] exit {cli.returncode}: {cli.stdout.strip()} {cli.stderr.strip()[-2000:]}")
+    check(cli.returncode == 0 and "engine=wavefront" in cli.stdout, "wavefront CLI run failed")
+
+    common = {"route": "cuda", "library_ms": None}
+    return [
+        {"name": "bounce", **common, "source": "pathtracer_tpu_torch/csrc/bounce.cu",
+         "replaces": "pathtracer_tpu/ops/bounce_pallas.py:1477", "launches": launch_a["bounce"],
+         "max_abs_err": b_err, "ms": k2_ms, "plain_ms": k2p_ms, "bound_ms": k2_bound[0],
+         "bound_by": k2_bound[1]},
+        {"name": "nearest_hit", **common, "source": "pathtracer_tpu_torch/csrc/intersect.cu",
+         "replaces": "pathtracer_tpu/ops/intersect_pallas.py:83",
+         "launches": launch_c["nearest_hit"], "max_abs_err": n_err, "ms": k6_ms,
+         "plain_ms": k6p_ms, "bound_ms": k6_bound[0], "bound_by": k6_bound[1]},
+        {"name": "occlusion", **common, "source": "pathtracer_tpu_torch/csrc/intersect.cu",
+         "replaces": "pathtracer_tpu/ops/intersect_pallas.py:193",
+         "launches": launch_c["occlusion"], "max_abs_err": o_err, "ms": k8_ms,
+         "plain_ms": k8p_ms, "bound_ms": k8_bound[0], "bound_by": k8_bound[1]},
+    ]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -405,23 +699,25 @@ def main() -> int:
     n = w * h
     cfg = RenderConfig(max_depth=8, nee=True, iters_per_launch=4)
     spp = 8
-    zero_counts(trace, trace_grad)
+    zero_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     img, accum, stats = render(scene, spp, cfg, device=dev)
     torch.cuda.synchronize()
     render_s = time.perf_counter() - t0
-    main_launches = read_counts(trace, trace_grad)
+    main_launches = read_counts()
     print(
         f"[main] cornell {w}x{h} d{cfg.max_depth} nee spp={spp}: {render_s:.3f} s, "
         f"rays {stats['rays_traced']}, launches {main_launches}"
     )
-    check(main_launches == {"trace": spp, "trace_fwd_resid": 0, "trace_bwd": 0},
-          f"forward main path launches {main_launches}")
+    check(main_launches == only(trace=spp), f"forward main path launches {main_launches}")
     check(tuple(img.shape) == (h, w, 3), f"image shape {tuple(img.shape)}")
     check(bool(torch.isfinite(accum).all()), "non-finite accumulator")
     check(bool((accum >= 0).all()), "negative radiance")
     save_image(os.path.join(out_dir, "chip_smoke_cornell.png"), img.cpu().numpy())
+    _, acc2, stats2 = render(scene, 2, cfg, device=dev)  # the megakernel at 2 spp, for [wavefront]
+    mega = {"acc8": accum, "rays8": stats["rays_traced"], "acc2": acc2,
+            "rays2": stats2["rays_traced"]}
 
     # ---- 3. kernel vs plain on the card, on the main path's inputs
     seed = key_to_seed(prng_key(cfg.seed))
@@ -530,7 +826,10 @@ def main() -> int:
     # ---- 6. the differentiable step
     grad_kernels = grad_phase(desc, dev, card, out_dir)
 
-    # ---- 7. results
+    # ---- 7. the wavefront engines
+    wave_kernels = wavefront_phase(scene, dev, card, out_dir, mega)
+
+    # ---- 8. results
     kernels = [
         {
             "name": "trace",
@@ -546,6 +845,7 @@ def main() -> int:
             "library_ms": None,
         },
         *grad_kernels,
+        *wave_kernels,
     ]
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

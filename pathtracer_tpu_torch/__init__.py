@@ -7,8 +7,12 @@ counter-hash RNG, so one seed gives the same samples in both.  The
 full-depth trace runs as one hand-written CUDA kernel per progressive
 iteration (``csrc/trace.cu``); the differentiable render runs a forward
 kernel with residuals and a reverse kernel per iteration
-(``csrc/trace_grad.cu``).  On CPU tensors their plain PyTorch versions run
-instead.  This package imports neither JAX nor ``pathtracer_tpu``.
+(``csrc/trace_grad.cu``).  The wavefront engines
+(``RenderConfig(wavefront=True)``) run one bounce per launch
+(``csrc/bounce.cu``), or with ``fused=False`` the nearest-hit and occlusion
+kernels (``csrc/intersect.cu``) around PyTorch shading.  On CPU tensors
+their plain PyTorch versions run instead.  This package imports neither
+JAX nor ``pathtracer_tpu``.
 
     from pathtracer_tpu_torch import load_scene, render, RenderConfig
     scene = load_scene("scenes/cornell.txt").scene_for_frame(0, device="cuda")

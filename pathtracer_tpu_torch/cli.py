@@ -2,9 +2,12 @@
 
 Port of ``pathtracer_tpu/cli.py`` for one frame: the reference-style
 ``scene=<file> frame=<n>`` key=value arguments next to the flags
-``--scene --frame --spp --depth --out --seed --no-jitter`` and
-``--device`` (default ``cuda``).  Animation, checkpoints, sharding and the
-interactive mode belong to later slices.
+``--scene --frame --spp --depth --out --seed --no-jitter``, ``--engine
+auto|wavefront|megakernel`` (``cli.py:58-62,134-160``) and ``--device``
+(default ``cuda``).  ``auto`` takes the megakernel, the full-depth trace
+kernel, for scenes inside its scope on a CUDA device, where the TPU took it
+on a TPU, and the wavefront engine otherwise.  Animation, checkpoints,
+sharding and the interactive mode belong to later slices.
 
     python -m pathtracer_tpu_torch.cli scene=scenes/cornell.txt --spp 16
 """
@@ -41,6 +44,13 @@ def build_argparser():
     p.add_argument("--out", default=None, help="override output image path")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--no-jitter", action="store_true", help="disable AA jitter")
+    p.add_argument(
+        "--engine",
+        choices=["auto", "wavefront", "megakernel"],
+        default="auto",
+        help="path tracing engine (auto: the full-depth trace kernel for analytic "
+        "scenes on CUDA, wavefront otherwise)",
+    )
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     return p
 
@@ -63,6 +73,8 @@ def main(argv=None):
     if not args.scene:
         parser.error("a scene file is required (scene=<file> or --scene)")
 
+    from pathtracer_tpu_torch.ops.trace import fused_trace_eligible
+    from pathtracer_tpu_torch.render.features import resolve_features
     from pathtracer_tpu_torch.render.integrator import render, resolve_device
     from pathtracer_tpu_torch.scene.parser import load_scene
     from pathtracer_tpu_torch.utils.imageio import save_image
@@ -70,12 +82,18 @@ def main(argv=None):
     device = resolve_device(args.device)
     desc = load_scene(args.scene)
     spp = args.spp if args.spp is not None else desc.iterations
-    cfg = RenderConfig(max_depth=args.depth, jitter=not args.no_jitter, seed=args.seed)
     scene = desc.scene_for_frame(args.frame, device=device)
+    engine = args.engine
+    if engine == "auto":
+        probe = resolve_features(RenderConfig(), scene.materials)
+        eligible = fused_trace_eligible(scene, probe)
+        engine = "megakernel" if eligible and device.type == "cuda" else "wavefront"
+    cfg = RenderConfig(max_depth=args.depth, jitter=not args.no_jitter, seed=args.seed,
+                       wavefront=engine == "wavefront")
     w, h = scene.camera.width, scene.camera.height
     print(
         f"[pathtracer-tpu-torch] frame {args.frame}: {w}x{h}, {spp} spp, "
-        f"depth {cfg.max_depth}, device={device}"
+        f"depth {cfg.max_depth}, engine={engine}, device={device}"
     )
     t0 = time.perf_counter()
     img, _, stats = render(scene, spp, cfg, device=device)

@@ -1,0 +1,140 @@
+// One bounce per launch for Hopper (sm_90a): the per-bounce kernel of the
+// wavefront engines.
+//
+// Replaces the TPU kernel pathtracer_tpu/ops/bounce_pallas.py:_bounce_kernel
+// (launched by bounce_fused, :1637), analytic scenes without the optional
+// material blocks.  The plain PyTorch version is
+// pathtracer_tpu_torch/ops/bounce_fused.py:bounce_fused_plain, which runs
+// ops/bounce.py:bounce_physics with a per-lane depth; this file runs the
+// same pt::bounce as the trace kernels (trace_common.cuh), in its mask-free
+// form, and repeats the plain version's arithmetic in the same order.
+//
+// Per lane it reads the 16 input planes (origin, direction, throughput,
+// sample index, depth, emit state, medium (sigma_a rgb, sigma_s)) and
+// writes the 19 outputs: contrib, next origin, next direction, throughput
+// multiplier, terminate, emit state, the russian-roulette uniform and the
+// medium.  Layout: vectors [N, 3] and the medium [N, 4] row-major, scalars
+// [N], terminate as one byte (0/1); the uniforms are the per-lane
+// hash_uniforms(seed, sample, depth, 11).
+//
+// Output contract: every one of the 19 outputs is defined on every lane
+// below n and equals the plain version's bit for bit, terminated lanes
+// included: a miss samples material 0's BSDF at t = 1, a light hit its own
+// material's, exactly as bounce_physics does (mask-free; the engines gate
+// with their alive masks).  The medium passes through: the port's scenes
+// are vacuum (volumetric media raise in the wrappers).  Lanes past n read
+// and write nothing.
+//
+// Design: one thread per lane; the geom / material / light tables are
+// copied once per block into shared memory and indexed by id (the TPU
+// kernel's where-chains over every row become gathers with the same
+// semantics, as in trace.cu).  Built with -fmad=false and without fast
+// math, so it rounds as the op-by-op plain version does.
+//
+// What bounds it on the H100: bytes, on paper.  A lane moves 137 B (16
+// four-byte planes in, 18 four-byte planes and one byte out), 87.7 MB per
+// 640,000-lane launch, 0.026 ms at 3.35 TB/s; its counted operations (the
+// sweep over the geoms and one shading, as one bounce of trace.cu) take
+// about a third of that at the fp32 peak.  Measured by chip_smoke.py on an
+// H100 80GB HBM3 at 700 W, a launch on the state of a mid-render super-step
+// takes about 9x that bound: the lanes of a warp sit at different depths
+// and materials, and the transcendental functions and the shadow sweeps
+// are not counted.  The kernel is simple on purpose (one bounce, no sorting
+// by material, no compaction of live lanes); making it fast is later work.
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#endif
+#include <stdint.h>
+
+#include "trace_common.cuh"
+
+namespace pt {
+
+// one lane of the per-bounce kernel; also compiled as host C++ by
+// tests/kernel_host_harness.cpp
+PT_FN void bounce_lane(const Tables& T, uint32_t seed, int nee, size_t i,
+                       const float* __restrict__ origin, const float* __restrict__ direction,
+                       const float* __restrict__ thr, const uint32_t* __restrict__ sample,
+                       const int32_t* __restrict__ depth, const float* __restrict__ prev,
+                       const float* __restrict__ medium, float* __restrict__ contrib,
+                       float* __restrict__ next_o, float* __restrict__ next_d,
+                       float* __restrict__ thr_mult, uint8_t* __restrict__ terminate,
+                       float* __restrict__ wspec, float* __restrict__ rru,
+                       float* __restrict__ out_medium) {
+  const V3 o = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
+  const V3 d = v3(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
+  const V3 t = v3(thr[3 * i], thr[3 * i + 1], thr[3 * i + 2]);
+  const int dep = depth[i];
+  const uint32_t base = bounce_base(seed, sample[i] * 0x85EBCA6Bu, dep);
+  const Bounce b = bounce<true>(T, base, dep, nee, o, d, t, prev[i]);
+  const V3* vec[4] = {&b.contrib, &b.next_o, &b.next_d, &b.thr_mult};
+  float* out[4] = {contrib, next_o, next_d, thr_mult};
+  for (int k = 0; k < 4; ++k) {
+    out[k][3 * i] = vec[k]->x;
+    out[k][3 * i + 1] = vec[k]->y;
+    out[k][3 * i + 2] = vec[k]->z;
+  }
+  terminate[i] = b.terminate ? 1 : 0;
+  wspec[i] = b.wspec;
+  rru[i] = uniform(base, 3);
+  for (int k = 0; k < 4; ++k) out_medium[4 * i + k] = medium[4 * i + k];
+}
+
+}  // namespace pt
+
+#ifdef __CUDACC__
+
+namespace {
+
+using namespace pt;
+
+constexpr int THREADS = 128;
+
+__global__ void __launch_bounds__(THREADS)
+bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mtab, int M,
+              const float* __restrict__ ltab, const float* __restrict__ scal, uint32_t seed,
+              int nee, int n, const float* __restrict__ origin,
+              const float* __restrict__ direction, const float* __restrict__ thr,
+              const uint32_t* __restrict__ sample, const int32_t* __restrict__ depth,
+              const float* __restrict__ prev, const float* __restrict__ medium,
+              float* __restrict__ contrib, float* __restrict__ next_o,
+              float* __restrict__ next_d, float* __restrict__ thr_mult,
+              uint8_t* __restrict__ terminate, float* __restrict__ wspec,
+              float* __restrict__ rru, float* __restrict__ out_medium) {
+  extern __shared__ float smem[];
+  float* s_g = smem;
+  float* s_m = s_g + G * GCOLS;
+  float* s_l = s_m + M * MCOLS;
+  for (int i = threadIdx.x; i < G * GCOLS; i += blockDim.x) s_g[i] = gtab[i];
+  for (int i = threadIdx.x; i < M * MCOLS; i += blockDim.x) s_m[i] = mtab[i];
+  for (int i = threadIdx.x; i < G * LCOLS; i += blockDim.x) s_l[i] = ltab[i];
+  __syncthreads();
+
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  const Tables T{s_g, s_m, s_l, G, scal[0], scal[1] > 0.5f};
+  bounce_lane(T, seed, nee, (size_t)idx, origin, direction, thr, sample, depth, prev, medium,
+              contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium);
+}
+
+}  // namespace
+
+extern "C" int bounce_launch(const float* gtab, int G, const float* mtab, int M,
+                             const float* ltab, const float* scal, unsigned int seed, int nee,
+                             int n, const float* origin, const float* direction,
+                             const float* thr, const unsigned int* sample, const int* depth,
+                             const float* prev, const float* medium, float* contrib,
+                             float* next_o, float* next_d, float* thr_mult,
+                             unsigned char* terminate, float* wspec, float* rru,
+                             float* out_medium, void* stream) {
+  if (n <= 0) return 0;
+  const int blocks = (n + THREADS - 1) / THREADS;
+  const size_t smem = sizeof(float) * (size_t)(G * GCOLS + M * MCOLS + G * LCOLS);
+  bounce_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      gtab, G, mtab, M, ltab, scal, seed, nee, n, origin, direction, thr, sample, depth, prev,
+      medium, contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium);
+  return (int)cudaGetLastError();
+}
+
+#endif  // __CUDACC__

@@ -30,7 +30,8 @@
 //   lax.rsqrt, so the kernel rounds as the op-by-op plain version does.
 // - The loop body, pt::bounce_step, lives in trace_common.cuh: the forward
 //   kernel of the differentiable trace (trace_grad.cu) runs the same
-//   function, so the two forwards agree bit for bit.
+//   function, so the two forwards agree bit for bit, and the per-bounce
+//   kernel (bounce.cu) runs the same pt::bounce.
 //
 // What bounds it on the H100: operations, not bytes.  A lane reads 28 bytes
 // (origin, direction, sample) and writes 12, about 26 MB per 640,000-lane
@@ -42,10 +43,37 @@
 // working set.  Sorting lanes by material or compacting live lanes is
 // later work.
 
+#ifdef __CUDACC__
 #include <cuda_runtime.h>
+#endif
 #include <stdint.h>
 
 #include "trace_common.cuh"
+
+namespace pt {
+
+// One lane's whole path: the bounce loop, the radiance and the number of
+// bounces it traced.  Also compiled as host C++ by
+// tests/kernel_host_harness.cpp.
+PT_FN V3 trace_lane(const Tables& T, uint32_t seed, uint32_t s, V3 o, V3 d, int max_depth,
+                    int nee, int rr, int rr_start, bool alive, unsigned int& bounces) {
+  V3 thr = v3(1.0f, 1.0f, 1.0f);
+  V3 rad = v3(0.0f, 0.0f, 0.0f);
+  float prev_state = 0.0f;
+  const uint32_t s_term = s * 0x85EBCA6Bu;
+  for (int dep = 0; dep < max_depth && alive; ++dep) {
+    ++bounces;
+    int gid;
+    bool nee_add;
+    bounce_step(T, bounce_base(seed, s_term, dep), dep, nee, rr, rr_start, o, d, thr,
+                prev_state, rad, alive, gid, nee_add);
+  }
+  return rad;
+}
+
+}  // namespace pt
+
+#ifdef __CUDACC__
 
 namespace {
 
@@ -70,7 +98,7 @@ trace_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mt
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   const Tables T{s_g, s_m, s_l, G, scal[0], scal[1] > 0.5f};
 
-  bool alive = idx < n;
+  const bool alive = idx < n;
   V3 o = v3(0.0f, 0.0f, 0.0f), d = o;
   uint32_t s = 0;
   if (alive) {
@@ -78,19 +106,8 @@ trace_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mt
     d = v3(direction[3 * idx], direction[3 * idx + 1], direction[3 * idx + 2]);
     s = sample[idx];
   }
-  V3 thr = v3(1.0f, 1.0f, 1.0f);
-  V3 rad = v3(0.0f, 0.0f, 0.0f);
-  float prev_state = 0.0f;
   unsigned int bounces = 0;
-  const uint32_t s_term = s * 0x85EBCA6Bu;
-
-  for (int dep = 0; dep < max_depth && alive; ++dep) {
-    ++bounces;
-    int gid;
-    bool nee_add;
-    bounce_step(T, bounce_base(seed, s_term, dep), dep, nee, rr, rr_start, o, d, thr,
-                prev_state, rad, alive, gid, nee_add);
-  }
+  const V3 rad = trace_lane(T, seed, s, o, d, max_depth, nee, rr, rr_start, alive, bounces);
 
   if (idx < n) {
     radiance[3 * idx] = rad.x;
@@ -121,3 +138,5 @@ extern "C" int trace_launch(const float* gtab, int G, const float* mtab, int M,
       max_depth, nee, rr, rr_start);
   return (int)cudaGetLastError();
 }
+
+#endif  // __CUDACC__

@@ -1,6 +1,7 @@
-// Device functions shared by the trace kernels (trace.cu, trace_grad.cu):
-// the vector helpers, the counter-hash RNG, the analytic intersection, the
-// sampling blocks and one forward bounce.  The plain PyTorch versions are
+// Device functions shared by the kernels (trace.cu, trace_grad.cu,
+// bounce.cu, intersect.cu): the vector helpers, the counter-hash RNG, the
+// analytic intersection, the sampling blocks, one forward bounce and the
+// trace loops' step.  The plain PyTorch versions are
 // pathtracer_tpu_torch/ops/{rng,intersect,bounce,trace}.py; this file
 // repeats their arithmetic in the same order (built with -fmad=false and
 // without fast math, so a*b+c is not contracted and the kernels round as
@@ -294,7 +295,7 @@ PT_FN V3 light_position(const float* L, V3 lp_obj) {
             L[8] * lp_obj.x + L[9] * lp_obj.y + L[10] * lp_obj.z + L[11]);
 }
 
-// ---- one bounce (ops/bounce.py:bounce_physics + ops/trace.py:step_update) --
+// ---- one bounce (ops/bounce.py:bounce_physics) ----------------------------
 
 struct Tables {
   const float* g;  // [G, GCOLS]
@@ -305,17 +306,36 @@ struct Tables {
   bool any_light;    // scal[1] > 0.5
 };
 
-// One bounce of an alive lane.  Updates the carries (o, d, thr, prev_state)
-// and the radiance; clears `alive` when the path ends, leaving the carries
-// as they were at its death (a russian-roulette death keeps the rescaled
-// throughput, as the plain step_update does).  Reports the winner geom (-1
-// on a miss) and whether the NEE connection counted: the residuals of the
-// differentiable trace.
-PT_FN void bounce_step(const Tables& T, uint32_t base, int dep, int nee, int rr, int rr_start,
-                       V3& o, V3& d, V3& thr, float& prev_state, V3& rad, bool& alive,
-                       int& gid_out, bool& nee_add) {
-  gid_out = -1;
-  nee_add = false;
+// What one bounce resolves: bounce_physics's outputs (the medium passes
+// through unchanged in the vacuum scenes of the port) plus the two discrete
+// outcomes the differentiable trace stores as residuals.
+struct Bounce {
+  V3 contrib, next_o, next_d, thr_mult;
+  bool terminate;  // a miss or a light hit
+  float wspec;     // emit-state code of this bounce's event
+  int gid;         // winner geom, -1 on a miss
+  bool nee_add;    // the NEE connection counted
+};
+
+// One bounce of a lane at depth `dep` with emit state `prev_state`.
+//
+// kMaskFree = false (the trace loops): a lane that terminates here (miss or
+// light hit) returns with only contrib, terminate, gid and nee_add set; the
+// continuation is left undefined, since the loop ends the path.
+//
+// kMaskFree = true (the per-bounce kernel): every output is defined on every
+// lane, as in bounce_physics: a miss samples material 0's BSDF at t = 1
+// with a zero normal, and a light hit samples the light's own material.
+// Only NEE stays gated, as there: it counts on non-emissive hits only.
+template <bool kMaskFree>
+PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d, V3 thr,
+                    float prev_state) {
+  Bounce b;
+  b.contrib = v3(0.0f, 0.0f, 0.0f);
+  b.next_o = b.next_d = b.thr_mult = b.contrib;
+  b.wspec = 0.0f;
+  b.gid = -1;
+  b.nee_add = false;
 
   // ---- nearest hit: the first minimum wins
   float best_t = BIG;
@@ -333,36 +353,35 @@ PT_FN void bounce_step(const Tables& T, uint32_t base, int dep, int nee, int rr,
       w_d = od;
     }
   }
-  if (!(best_t < BIG)) {  // miss: the path ends with nothing added
-    alive = false;
-    return;
-  }
-  gid_out = gid;
+  const bool hit = best_t < BIG;
+  b.terminate = true;
+  if (!kMaskFree && !hit) return b;  // miss: the path ends with nothing added
+  if (hit) b.gid = gid;
 
-  const float* gw = T.g + gid * GCOLS;
-  const float* mat = T.m + (int)gw[13] * MCOLS;
+  const float* gw = T.g + gid * GCOLS;  // geom 0's row on a miss
+  const float* mat = T.m + (hit ? (int)gw[13] : 0) * MCOLS;
   const bool emissive = mat[9] > 0.0f;
   const V3 color = v3(mat[0], mat[1], mat[2]);
-  if (emissive) {
+  if (hit && emissive) {
     // light hit: counted on primary rays and after specular events with
-    // NEE, always without; the path ends here
+    // NEE, always without
     bool count = !nee || dep == 0 || fabsf(prev_state - 1.0f) < 0.5f;
-    if (count) rad = vadd(rad, vscale(mat[9], vmul(thr, color)));
-    alive = false;
-    return;
+    if (count) b.contrib = vscale(mat[9], vmul(thr, color));
   }
+  b.terminate = !hit || emissive;
+  if (!kMaskFree && b.terminate) return b;
 
-  const float t_safe = best_t;
+  const float t_safe = hit ? best_t : 1.0f;
   const V3 p = vadd(o, vscale(t_safe, d));
   const V3 p_obj = vadd(w_o, vscale(t_safe, w_d));
-  const V3 n_obj = object_normal(gw[12] == SPHERE, p_obj);
+  const V3 n_obj = object_normal(hit && gw[12] == SPHERE, p_obj);
   const V3 normal = vnormalize(world_normal_raw(gw, n_obj));
 
   const Scatter sc = sample_bsdf(mat, p, normal, d, uniform(base, 0), uniform(base, 1),
                                  uniform(base, 2));
 
   // ---- next-event estimation at diffuse hits
-  if (nee && !sc.is_specular && T.any_light) {
+  if (nee && hit && !emissive && !sc.is_specular && T.any_light) {
     V3 lp_obj, ln_obj;
     const int lid = sample_light_obj(T.g, T.l, T.G, uniform(base, 4), uniform(base, 5),
                                      uniform(base, 6), uniform(base, 7), lp_obj, ln_obj);
@@ -390,14 +409,41 @@ PT_FN void bounce_step(const Tables& T, uint32_t base, int dep, int nee, int rr,
         const float pdf_area = 1.0f / fmaxf(T.total_area, 1e-20f);
         float gterm = cos_x * cos_y / fmaxf(dist2, 1e-12f);
         float nee_scale = gterm / fmaxf(pdf_area, 1e-20f) * INV_PI;
-        rad = vadd(rad, vscale(nee_scale, vmul(vmul(thr, color), emit)));
-        nee_add = true;
+        b.contrib = vadd(b.contrib, vscale(nee_scale, vmul(vmul(thr, color), emit)));
+        b.nee_add = true;
       }
     }
   }
 
+  b.next_o = sc.origin;
+  b.next_d = sc.direction;
+  b.thr_mult = sc.thr;
+  b.wspec = sc.is_specular ? (fabsf(prev_state - 2.0f) < 0.5f ? 2.0f : 1.0f) : 0.0f;
+  return b;
+}
+
+// ---- the trace loops' step (ops/trace.py:step_update) ----------------------
+
+// One bounce of an alive lane.  Updates the carries (o, d, thr, prev_state)
+// and the radiance; clears `alive` when the path ends, leaving the carries
+// as they were at its death (a russian-roulette death keeps the rescaled
+// throughput, as the plain step_update does).  Reports the winner geom (-1
+// on a miss) and whether the NEE connection counted: the residuals of the
+// differentiable trace.
+PT_FN void bounce_step(const Tables& T, uint32_t base, int dep, int nee, int rr, int rr_start,
+                       V3& o, V3& d, V3& thr, float& prev_state, V3& rad, bool& alive,
+                       int& gid_out, bool& nee_add) {
+  const Bounce b = bounce<false>(T, base, dep, nee, o, d, thr, prev_state);
+  gid_out = b.gid;
+  nee_add = b.nee_add;
+  rad = vadd(rad, b.contrib);  // + 0 where nothing counted: exact
+  if (b.terminate) {
+    alive = false;
+    return;
+  }
+
   // ---- continuation, russian roulette
-  thr = vmul(thr, sc.thr);
+  thr = vmul(thr, b.thr_mult);
   if (rr && dep >= rr_start) {
     float p_rr = fminf(fmaxf(fmaxf(fmaxf(thr.x, thr.y), thr.z), 0.05f), 1.0f);
     bool survive = uniform(base, 3) < p_rr;
@@ -408,9 +454,9 @@ PT_FN void bounce_step(const Tables& T, uint32_t base, int dep, int nee, int rr,
       return;
     }
   }
-  o = sc.origin;
-  d = sc.direction;
-  prev_state = sc.is_specular ? (fabsf(prev_state - 2.0f) < 0.5f ? 2.0f : 1.0f) : 0.0f;
+  o = b.next_o;
+  d = b.next_d;
+  prev_state = b.wspec;
 }
 
 }  // namespace pt

@@ -8,8 +8,10 @@ material table, 19-column light table, 2 scalars), ``_material_fetch``
 ``_sample_lights_planes`` (``:798-861``) and ``bounce_physics``
 (``:881-1321``), with ``RAY_BIAS`` from ``pathtracer_tpu/ops/bsdf.py:33``.
 
-This is the plain version of the trace kernels' loop body
-(``csrc/trace_common.cuh:bounce_step``): nearest hit with the first minimum winning,
+This is the plain version of the kernels' one bounce
+(``csrc/trace_common.cuh:pt::bounce``: the trace loops' body, and with a
+per-lane ``depth`` the per-bounce kernel ``csrc/bounce.cu``): nearest hit
+with the first minimum winning,
 argmax-|coord| cube normals, inverse-transpose world normals, emittance
 under the 0/1/2 emit-state code, Lambert / Phong-glossy / mirror / Fresnel
 dielectric sampling, and area-light NEE with a shadow sweep.  Vectors are
@@ -31,7 +33,15 @@ import math
 
 import torch
 
-from pathtracer_tpu_torch.ops.intersect import BIG, geom_t, geom_t_lanes, pack_geom_table
+from pathtracer_tpu_torch.ops.intersect import (
+    BIG,
+    geom_t,
+    geom_t_lanes,
+    object_normal,
+    pack_geom_table,
+    sweep,
+    world_normal,
+)
 from pathtracer_tpu_torch.ops.lights import axis_scales, light_areas
 from pathtracer_tpu_torch.scene.structs import SPHERE, Scene
 
@@ -339,7 +349,7 @@ def sample_lights(gtab, ltab, svals, u0, u1, u2, u3):
 def bounce_physics(
     o, d, throughput, sigma_a, sigma_s,
     gtab, mtab, ltab, svals,
-    u, depth: int, prev_state,
+    u, depth, prev_state,
     *, nee: bool, t_min: float, features=frozenset(),
     replay=None, emit_replay: bool = False,
 ):
@@ -347,7 +357,9 @@ def bounce_physics(
     its alive mask).  ``o``/``d``/``throughput``/``sigma_a`` are 3-tuples
     of ``[N]`` float32, ``sigma_s`` and ``prev_state`` ``[N]``; ``gtab``,
     ``mtab``, ``ltab``, ``svals`` the packed tables; ``u`` the 11 uniform
-    tensors of this (sample, depth).
+    tensors of this (sample, depth); ``depth`` is the bounce index, an int
+    or a per-lane ``[N]`` tensor (the wavefront engines' lanes are at mixed
+    depths).
 
     Differentiable in the carries and in every table value: the sweep reads
     the geom rows as tensors, so the winner's distance, object-space ray and
@@ -367,7 +379,6 @@ def bounce_physics(
     terminate (bool), wspec (emit-state code), rru, out_ma(3), out_ms
     [, replay_gid, replay_nee_add]."""
     check_features(features)
-    n_geoms = gtab.shape[0]
     gtypes = gtab[:, 12].tolist()  # host-side types: the sweep dispatches on them
 
     if replay is not None:
@@ -378,16 +389,7 @@ def bounce_physics(
         best_t = torch.where(rhit, t_win, BIG)
         w = [torch.where(rhit, ob, 0.0) for ob in obj]
     else:
-        rows = gtab.unbind(0)
-        best_t = torch.full_like(o[0], BIG)
-        gid = torch.zeros(o[0].shape, dtype=torch.int64, device=o[0].device)
-        w = [torch.zeros_like(o[0]) for _ in range(6)]
-        for g in range(n_geoms):
-            t_g, obj = geom_t(rows[g], *o, *d, t_min, gtypes[g])
-            better = t_g < best_t
-            best_t = torch.where(better, t_g, best_t)
-            gid = torch.where(better, g, gid)
-            w = [torch.where(better, ob, prev) for ob, prev in zip(obj, w)]
+        best_t, gid, w = sweep(gtab, o, d, t_min)
         win = gtab[gid].unbind(-1)
     hit = best_t < BIG
     mid = torch.where(hit, win[13].to(torch.int64), 0)
@@ -396,35 +398,21 @@ def bounce_physics(
     p = vadd(o, vscale(t_safe, d))
     p_obj = (w[0] + t_safe * w[3], w[1] + t_safe * w[4], w[2] + t_safe * w[5])
 
-    axx, axy, axz = (torch.abs(c) for c in p_obj)
-    fx = (axx >= axy) & (axx >= axz)
-    fy = (~fx) & (axy >= axz)
-    inv_len = torch.rsqrt(torch.clamp(vdot(p_obj, p_obj), min=1e-24))
-    n_obj = (
-        torch.where(sph, p_obj[0] * inv_len, torch.where(fx, torch.sign(p_obj[0]), 0.0)),
-        torch.where(sph, p_obj[1] * inv_len, torch.where(fy, torch.sign(p_obj[1]), 0.0)),
-        torch.where(
-            sph, p_obj[2] * inv_len,
-            torch.where((~fx) & (~fy), torch.sign(p_obj[2]), 0.0),
-        ),
-    )
-    m = win
-    normal = vnormalize(
-        (
-            m[0] * n_obj[0] + m[4] * n_obj[1] + m[8] * n_obj[2],
-            m[1] * n_obj[0] + m[5] * n_obj[1] + m[9] * n_obj[2],
-            m[2] * n_obj[0] + m[6] * n_obj[1] + m[10] * n_obj[2],
-        )
-    )
+    normal = world_normal(win, object_normal(sph, p_obj))
 
     mat = material_fetch(mtab, mid)
     emissive = mat["emittance"] > 0.0
 
     emitted = vscale(mat["emittance"], vmul(throughput, mat["color"]))
     emit_mask = hit & emissive
-    if nee and depth != 0:
-        # with NEE only state 1 (after a specular event) counts a light hit
-        emit_mask = emit_mask & (torch.abs(prev_state - 1.0) < 0.5)
+    if nee:
+        # with NEE a light hit counts on primary rays and in state 1 (after
+        # a specular event) only; ``depth`` is an int or a per-lane tensor
+        after_specular = torch.abs(prev_state - 1.0) < 0.5
+        if isinstance(depth, torch.Tensor):
+            emit_mask = emit_mask & ((depth == 0) | after_specular)
+        elif depth != 0:
+            emit_mask = emit_mask & after_specular
     contrib = vwhere(emit_mask, emitted, (0.0, 0.0, 0.0))
 
     sc = sample_bsdf(mat, p, normal, d, u[0], u[1], u[2])

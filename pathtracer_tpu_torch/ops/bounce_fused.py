@@ -1,0 +1,158 @@
+"""One bounce per launch: the per-bounce kernel and its plain version.
+
+Port of the wrapper ``pathtracer_tpu/ops/bounce_pallas.py:1637-1830``
+(``bounce_fused``) for analytic scenes, and of ``BounceResult``
+(``pathtracer_tpu/render/common.py:61-77``).  One call shades a wavefront
+of lanes at mixed depths: nearest hit, emittance under the 0/1/2 emit-state
+code, BSDF continuation, and NEE with a shadow sweep.
+
+* :func:`bounce_fused_plain` is the plain version: ``ops/bounce.py:
+  bounce_physics`` over the 16 input planes, with a per-lane depth and the
+  per-lane ``hash_uniforms(seed, sample, depth, 11)``.
+* :func:`bounce_fused_cuda` launches ``csrc/bounce.cu`` (kernel 2: one
+  thread per lane, the tables in shared memory, the same ``pt::bounce``
+  as the trace kernels).  Its 19 outputs equal the plain version's on
+  every lane, terminated lanes included (the header says why).
+* :func:`bounce_fused` dispatches on the rays' device: a CUDA tensor
+  launches the kernel or raises, a CPU tensor takes the plain version.
+
+The medium passes through unchanged: the port's scenes are vacuum
+(``volumetric`` and the other optional blocks raise).  Meshes and image
+textures (the mesh-merge and deferred-texel variants) raise as well.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import torch
+
+from pathtracer_tpu_torch.ops import _build
+from pathtracer_tpu_torch.ops.bounce import bounce_physics, check_features, pack_tables
+from pathtracer_tpu_torch.ops.intersect import T_MIN
+from pathtracer_tpu_torch.ops.rng import hash_uniforms_planes
+from pathtracer_tpu_torch.ops.trace import check_launch, check_tensor
+
+launches = 0  # launches of csrc/bounce.cu in this process
+
+
+@dataclasses.dataclass(frozen=True)
+class BounceResult:
+    contrib: torch.Tensor  # [N, 3] radiance contribution this bounce
+    next_origin: torch.Tensor  # [N, 3]
+    next_direction: torch.Tensor  # [N, 3]
+    throughput_mult: torch.Tensor  # [N, 3]
+    terminate: torch.Tensor  # [N] bool: the path ends here (miss or light hit)
+    # [N] float32 emit-state code of this bounce's event: 0 = diffuse (NEE
+    # covers the next light hit), 1 = specular (a following light hit
+    # counts), 2 = post-scatter specular chain (volumetric NEE covered it)
+    was_specular: torch.Tensor
+    rr_uniform: torch.Tensor  # [N] the uniform reserved for russian roulette
+    next_medium: torch.Tensor  # [N, 4] (sigma_a rgb, sigma_s) of the medium entered
+
+
+def _per_lane_depth(depth, n: int, device) -> torch.Tensor:
+    return torch.as_tensor(depth, dtype=torch.int32, device=device).expand(n).contiguous()
+
+
+def bounce_fused_plain(tables, origin, direction, throughput, sample_idx, depth,
+                       prev_specular, medium_sigma, seed: int, *, nee: bool,
+                       features=frozenset()) -> BounceResult:
+    """Plain version of kernel 2.  ``depth`` is an int or a per-lane
+    tensor; ``medium_sigma`` ``[N, 4]``."""
+    gtab, mtab, ltab, scal = tables
+    depth = _per_lane_depth(depth, origin.shape[0], origin.device)
+    u = hash_uniforms_planes(seed, sample_idx, depth, 11)
+    out = bounce_physics(
+        tuple(origin.unbind(-1)), tuple(direction.unbind(-1)), tuple(throughput.unbind(-1)),
+        tuple(medium_sigma[:, :3].unbind(-1)), medium_sigma[:, 3],
+        gtab, mtab, ltab, scal, u, depth, prev_specular.to(torch.float32),
+        nee=nee, t_min=T_MIN, features=features,
+    )
+    return BounceResult(
+        contrib=torch.stack(out["contrib"], dim=-1),
+        next_origin=torch.stack(out["next_o"], dim=-1),
+        next_direction=torch.stack(out["next_d"], dim=-1),
+        throughput_mult=torch.stack(out["thr_mult"], dim=-1),
+        terminate=out["terminate"],
+        was_specular=out["wspec"],
+        rr_uniform=out["rru"],
+        next_medium=torch.stack([*out["out_ma"], out["out_ms"]], dim=-1),
+    )
+
+
+def _lib():
+    fn = _build.load("bounce").bounce_launch
+    if fn.argtypes is None:  # without argtypes ctypes would cut pointers to 32 bits
+        P, I = ctypes.c_void_p, ctypes.c_int
+        fn.restype = ctypes.c_int
+        fn.argtypes = [
+            P, I, P, I, P, P,  # geom table, G, material table, M, light table, scalars
+            ctypes.c_uint, I, I,  # seed, nee, n
+            P, P, P, P, P, P, P,  # origin, direction, throughput, sample, depth, state, medium
+            P, P, P, P, P, P, P, P,  # contrib, next o, next d, thr mult, terminate, state, rru, medium
+            P,  # stream
+        ]
+    return fn
+
+
+def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
+                      prev_specular, medium_sigma, seed: int, *, nee: bool) -> BounceResult:
+    """Launch kernel 2 on the rays' CUDA device, on the current stream."""
+    global launches
+    gtab, mtab, ltab, scal = tables
+    device = origin.device
+    n = origin.shape[0]
+    g, m, bits = check_launch(gtab, mtab, ltab, scal, sample_idx, n, device)
+    f32 = dict(dtype=torch.float32, device=device)
+    depth = _per_lane_depth(depth, n, device)
+    prev = prev_specular.to(torch.float32).contiguous()
+    for t, name, shape in ((origin, "origin", (n, 3)), (direction, "direction", (n, 3)),
+                           (throughput, "throughput", (n, 3)), (prev, "prev_specular", (n,)),
+                           (medium_sigma, "medium", (n, 4))):
+        check_tensor(t, name, torch.float32, shape, device)
+
+    contrib, next_o, next_d, thr_mult = (torch.empty((n, 3), **f32) for _ in range(4))
+    terminate = torch.empty(n, dtype=torch.uint8, device=device)
+    wspec, rru = torch.empty(n, **f32), torch.empty(n, **f32)
+    medium = torch.empty((n, 4), **f32)
+    err = _lib()(
+        gtab.data_ptr(), g, mtab.data_ptr(), m, ltab.data_ptr(), scal.data_ptr(),
+        int(seed) & 0xFFFFFFFF, int(bool(nee)), n,
+        origin.data_ptr(), direction.data_ptr(), throughput.data_ptr(), bits.data_ptr(),
+        depth.data_ptr(), prev.data_ptr(), medium_sigma.data_ptr(),
+        contrib.data_ptr(), next_o.data_ptr(), next_d.data_ptr(), thr_mult.data_ptr(),
+        terminate.data_ptr(), wspec.data_ptr(), rru.data_ptr(), medium.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"bounce kernel launch failed: CUDA error {err}")
+    launches += 1
+    return BounceResult(contrib=contrib, next_origin=next_o, next_direction=next_d,
+                        throughput_mult=thr_mult, terminate=terminate.view(torch.bool),
+                        was_specular=wspec, rr_uniform=rru, next_medium=medium)
+
+
+def bounce_fused(scene, origin, direction, throughput, sample_idx, depth, prev_specular,
+                 medium_sigma, seed: int, cfg, tables=None) -> BounceResult:
+    """One bounce for a wavefront of lanes (mask-free: callers gate with
+    their alive masks).  ``tables`` are :func:`pack_tables` of the scene
+    (packed here when not given); ``medium_sigma`` ``[N, 4]`` or None."""
+    check_features(cfg.features)
+    if scene.meshes or scene.textures is not None or not cfg.fast_rng:
+        raise NotImplementedError(
+            "per-bounce kernel for meshes, image textures or fast_rng=False: later slice"
+        )
+    tables = tables if tables is not None else pack_tables(scene)
+    if medium_sigma is None:
+        medium_sigma = torch.zeros((origin.shape[0], 4), dtype=torch.float32,
+                                   device=origin.device)
+    args = (tables, origin, direction, throughput, sample_idx, depth, prev_specular,
+            medium_sigma, seed)
+    device_type = origin.device.type
+    if device_type == "cuda":
+        return bounce_fused_cuda(*args, nee=cfg.nee)
+    if device_type == "cpu":
+        return bounce_fused_plain(*args, nee=cfg.nee, features=frozenset(cfg.features))
+    raise ValueError(f"no per-bounce kernel for device type {device_type!r}")

@@ -1,0 +1,225 @@
+"""BSDF sampling of the split per-bounce route: diffuse, Phong glossy,
+mirror and Fresnel glass.
+
+Port of ``pathtracer_tpu/ops/bsdf.py``: ``RAY_BIAS``, ``MaterialLookup``
+and ``gather_materials`` (``:33-118``), ``cosine_hemisphere``,
+``_rotate_about``, ``reflect``, ``refract``, ``fresnel_dielectric``
+(``:125-262``) and ``sample_bsdf`` (``:378-512``) on ``[N, 3]`` tensors,
+in the JAX package's order of operations.  The JAX gather is a one-hot
+matmul at full precision; here it is a row gather with the same values.
+The Cook-Torrance and Ward lobes (``microfacet``, ``ward``) belong to a
+later slice and raise ``NotImplementedError``.  Discrete choices (the
+dielectric's reflect-or-transmit) are taken on detached values, as there.
+
+The fused route's plain version (``ops/bounce.py:sample_bsdf``, on
+component tuples) computes the same lobes in the TPU kernel's order.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+SQRT_ONE_THIRD = 0.5773502691896257
+RAY_BIAS = 2e-4
+
+
+@dataclasses.dataclass(frozen=True)
+class MaterialLookup:
+    """Per-ray material fields, gathered from the ``[M, 28]`` table of
+    ``ops/bounce.pack_material_table``."""
+
+    color: torch.Tensor  # [N, 3]
+    specular_color: torch.Tensor  # [N, 3]
+    has_reflective: torch.Tensor  # [N]
+    has_refractive: torch.Tensor  # [N]
+    ior: torch.Tensor  # [N]
+    emittance: torch.Tensor  # [N]
+    specular_exponent: torch.Tensor  # [N] Phong exponent (0 => ideal mirror)
+    absorption: torch.Tensor  # [N, 3]
+    has_scatter: torch.Tensor  # [N]
+    scatter_coeff: torch.Tensor  # [N]
+    texture_type: torch.Tensor  # [N]
+    texture_scale: torch.Tensor  # [N]
+    texture_color2: torch.Tensor  # [N, 3]
+    bump_scale: torch.Tensor  # [N]
+    bump_amp: torch.Tensor  # [N]
+    texture_image: torch.Tensor  # [N]
+    brdf_model: torch.Tensor  # [N]
+    roughness: torch.Tensor  # [N]
+    roughness_y: torch.Tensor  # [N]
+    phase_g: torch.Tensor  # [N]
+
+
+def gather_materials(mtab: torch.Tensor, material_id: torch.Tensor) -> MaterialLookup:
+    """Rows of the material table per ray (``material_id`` detached)."""
+    rows = mtab[material_id.detach().long()]
+    return MaterialLookup(
+        color=rows[:, 0:3],
+        specular_color=rows[:, 3:6],
+        has_reflective=rows[:, 6],
+        has_refractive=rows[:, 7],
+        ior=rows[:, 8],
+        emittance=rows[:, 9],
+        specular_exponent=rows[:, 10],
+        absorption=rows[:, 11:14],
+        has_scatter=rows[:, 14],
+        scatter_coeff=rows[:, 15],
+        texture_type=rows[:, 16],
+        texture_scale=rows[:, 17],
+        texture_color2=rows[:, 18:21],
+        bump_scale=rows[:, 21],
+        bump_amp=rows[:, 22],
+        texture_image=rows[:, 23],
+        brdf_model=rows[:, 24],
+        roughness=rows[:, 25],
+        roughness_y=rows[:, 26],
+        phase_g=rows[:, 27],
+    )
+
+
+def _dot(a, b):
+    return torch.sum(a * b, dim=-1)
+
+
+def _normalize(v):
+    return v / torch.clamp(torch.sqrt(_dot(v, v)), min=1e-12)[..., None]
+
+
+def _kutz_frame(axis_dir):
+    """Tangent frame about ``axis_dir`` by the not-normal-axis trick."""
+    ax = torch.abs(axis_dir)
+    use_x = ax[..., 0] < SQRT_ONE_THIRD
+    use_y = (~use_x) & (ax[..., 1] < SQRT_ONE_THIRD)
+    one, zero = torch.ones_like(ax[..., 0]), torch.zeros_like(ax[..., 0])
+    not_axis = torch.stack(
+        [torch.where(use_x, one, zero), torch.where(use_y, one, zero),
+         torch.where(use_x | use_y, zero, one)],
+        dim=-1,
+    )
+    t1 = _normalize(torch.linalg.cross(axis_dir, not_axis, dim=-1))
+    t2 = _normalize(torch.linalg.cross(axis_dir, t1, dim=-1))
+    return t1, t2
+
+
+def cosine_hemisphere(normal, xi1, xi2):
+    """Cosine-weighted direction about ``normal``."""
+    up = torch.sqrt(xi1)
+    over = torch.sqrt(torch.clamp(1.0 - xi1, min=0.0))
+    around = xi2 * 2.0 * math.pi
+    perp1, perp2 = _kutz_frame(normal)
+    return (
+        up[..., None] * normal
+        + (torch.cos(around) * over)[..., None] * perp1
+        + (torch.sin(around) * over)[..., None] * perp2
+    )
+
+
+def _rotate_about(axis_dir, cos_angle, phi):
+    """Direction at ``acos(cos_angle)`` from ``axis_dir``, azimuth ``phi``."""
+    sin_angle = torch.sqrt(torch.clamp(1.0 - cos_angle**2, min=0.0))
+    p1, p2 = _kutz_frame(axis_dir)
+    return (
+        cos_angle[..., None] * axis_dir
+        + (torch.cos(phi) * sin_angle)[..., None] * p1
+        + (torch.sin(phi) * sin_angle)[..., None] * p2
+    )
+
+
+def reflect(incident, normal):
+    return incident - 2.0 * _dot(incident, normal)[..., None] * normal
+
+
+def refract(incident, normal, eta):
+    """Snell transmission: ``(direction, valid)``, ``valid`` False under
+    total internal reflection.  ``normal`` opposes ``incident``."""
+    cos_i = -_dot(incident, normal)
+    sin2_t = (eta**2) * torch.clamp(1.0 - cos_i**2, min=0.0)
+    valid = sin2_t <= 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=1e-12))
+    d = eta[..., None] * incident + (eta * cos_i - cos_t)[..., None] * normal
+    return _normalize(d), valid
+
+
+def fresnel_dielectric(cos_i, ior_i, ior_t):
+    """Unpolarized Fresnel reflectance in [0, 1]; 1 under total internal
+    reflection."""
+    cos_i = torch.clamp(cos_i, 0.0, 1.0)
+    eta = ior_i / ior_t
+    sin2_t = (eta**2) * (1.0 - cos_i**2)
+    tir = sin2_t > 1.0
+    cos_t = torch.sqrt(torch.clamp(1.0 - sin2_t, min=1e-12))
+    r_par = (ior_t * cos_i - ior_i * cos_t) / (ior_t * cos_i + ior_i * cos_t)
+    r_perp = (ior_i * cos_i - ior_t * cos_t) / (ior_i * cos_i + ior_t * cos_t)
+    return torch.where(tir, 1.0, 0.5 * (r_par**2 + r_perp**2))
+
+
+@dataclasses.dataclass(frozen=True)
+class ScatterSample:
+    direction: torch.Tensor  # [N, 3] next ray direction
+    origin: torch.Tensor  # [N, 3] next ray origin (bias applied)
+    throughput_mult: torch.Tensor  # [N, 3]
+    is_specular: torch.Tensor  # [N] bool (mirror / glossy / dielectric)
+    transmitted: torch.Tensor  # [N] bool: dielectric transmission
+    entering: torch.Tensor  # [N] bool: the ray came from outside
+
+
+def sample_bsdf(mat: MaterialLookup, position, normal, incident, u, glossy: bool = True,
+                microfacet: bool = False, ward: bool = False) -> ScatterSample:
+    """Outgoing direction and throughput multiplier per ray.  ``u`` is
+    ``[N, 3]`` (two hemisphere uniforms, one Fresnel choice); ``normal``
+    the geometric world normal, either way round."""
+    if microfacet or ward:
+        raise NotImplementedError("microfacet / ward lobes of sample_bsdf: later slice")
+    cos_raw = _dot(incident, normal)
+    entering = cos_raw < 0.0
+    n = torch.where(entering[..., None], normal, -normal)
+    cos_i = torch.abs(cos_raw)
+
+    d_diffuse = cosine_hemisphere(n, u[..., 0], u[..., 1])
+    d_mirror = reflect(incident, n)
+
+    if glossy:
+        exp_n = torch.clamp(mat.specular_exponent, min=1e-6)
+        cos_alpha = torch.clamp(u[..., 0], min=1e-9) ** (1.0 / (exp_n + 1.0))
+        d_glossy = _rotate_about(d_mirror, cos_alpha, u[..., 1] * 2.0 * math.pi)
+        glossy_cos_out = _dot(d_glossy, n)
+        glossy_weight = torch.where(
+            glossy_cos_out > 0.0,
+            (exp_n + 2.0) / (exp_n + 1.0) * torch.clamp(glossy_cos_out, 0.0, 1.0),
+            0.0,
+        )
+        is_glossy_mat = mat.specular_exponent > 0.0
+    else:
+        d_glossy, glossy_weight = d_mirror, torch.ones_like(mat.specular_exponent)
+        is_glossy_mat = torch.zeros_like(entering)
+
+    ior_i = torch.where(entering, 1.0, mat.ior)
+    ior_t = torch.where(entering, mat.ior, 1.0)
+    eta = ior_i / torch.clamp(ior_t, min=1e-6)
+    d_refr, refr_valid = refract(incident, n, eta)
+    fres_r = torch.where(refr_valid, fresnel_dielectric(cos_i, ior_i, ior_t), 1.0)
+    choose_reflect = u[..., 2] < fres_r.detach()
+    d_dielectric = torch.where(choose_reflect[..., None], d_mirror, d_refr)
+
+    is_refractive = mat.has_refractive > 0.0
+    is_reflective = (~is_refractive) & (mat.has_reflective > 0.0)
+    is_glossy = is_reflective & is_glossy_mat
+    is_mirror = is_reflective & (~is_glossy)
+    is_specular = is_refractive | is_reflective
+
+    direction = torch.where(
+        is_refractive[..., None], d_dielectric,
+        torch.where(is_glossy[..., None], d_glossy,
+                    torch.where(is_mirror[..., None], d_mirror, d_diffuse)),
+    )
+    throughput_mult = torch.where(is_specular[..., None], mat.specular_color, mat.color)
+    throughput_mult = torch.where(
+        is_glossy[..., None], throughput_mult * glossy_weight[..., None], throughput_mult
+    )
+    transmitted = is_refractive & (~choose_reflect) & refr_valid
+    origin = position + torch.where(transmitted[..., None], -RAY_BIAS * n, RAY_BIAS * n)
+    return ScatterSample(direction=direction, origin=origin, throughput_mult=throughput_mult,
+                         is_specular=is_specular, transmitted=transmitted, entering=entering)

@@ -1,9 +1,14 @@
 """Analytic primitive intersection on component tensors.
 
 Port of ``pathtracer_tpu/ops/intersect.py:37-111`` (``BIG``, ``T_MIN``,
-``sphere_t_planes``, ``cube_t_planes``) and
+``Hit``, ``sphere_t_planes``, ``cube_t_planes``) and
 ``pathtracer_tpu/ops/intersect_pallas.py:58-80,206-216`` (``_geom_t``,
-``_pack_gdata``).  A geom's row is read as tensors, so ``t`` and the
+``_pack_gdata``), with the plain versions of two TPU kernels of
+``intersect_pallas.py``: :func:`nearest_hit_plain` (``_nearest_hit_kernel``,
+``:92-148``: the nearest hit with its full record) and
+:func:`occlusion_t_plain` (``_occlusion_kernel``, ``:197-203``: a shadow
+ray's nearest ``t``).  Their CUDA kernels are ``csrc/intersect.cu``
+(``ops/intersect_cuda.py``).  A geom's row is read as tensors, so ``t`` and the
 object-space ray carry gradients to the geom table.  Unit primitives live in object space (sphere r = 0.5,
 cube side 1) and are tested through the inverse transform; the
 object-space direction stays unnormalized, so ``t`` is the world-space
@@ -13,9 +18,11 @@ repeat this arithmetic in the same order.
 
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from pathtracer_tpu_torch.scene.structs import CUBE, SPHERE, Geoms
+from pathtracer_tpu_torch.scene.structs import CUBE, SPHERE, Geoms, Rays
 
 BIG = 1e30  # miss sentinel (finite)
 T_MIN = 1e-4  # min accepted hit distance
@@ -116,3 +123,98 @@ def pack_geom_table(geoms: Geoms) -> torch.Tensor:
         ],
         dim=-1,
     ).contiguous()
+
+
+@dataclasses.dataclass(frozen=True)
+class Hit:
+    """Per-ray nearest-hit record (``pathtracer_tpu/ops/intersect.py:42``)."""
+
+    t: torch.Tensor  # [N] world-space distance; BIG on a miss
+    hit: torch.Tensor  # [N] bool
+    geom_id: torch.Tensor  # [N] int32 (0 on a miss)
+    material_id: torch.Tensor  # [N] int32 (0 on a miss)
+    position: torch.Tensor  # [N, 3] world hit point (o + d on a miss)
+    position_obj: torch.Tensor  # [N, 3] hit point in the winner's object space
+    normal: torch.Tensor  # [N, 3] world unit normal (zero on a miss)
+
+
+def sweep(gtab, o, d, t_min=T_MIN):
+    """Nearest hit over every geom row of ``gtab`` for the ray planes ``o``,
+    ``d`` (3-tuples of ``[N]``): ``(best_t, gid int64, winner's object-space
+    ray as 6 planes)``.  Strict ``t < best`` keeps the first minimum; a miss
+    keeps ``BIG``, geom 0 and a zero object ray.  The rows are read as
+    tensors, so ``best_t`` and the object ray carry gradients to the table."""
+    gtypes = gtab[:, 12].tolist()  # host-side types: the sweep dispatches on them
+    best_t = torch.full_like(o[0], BIG)
+    gid = torch.zeros(o[0].shape, dtype=torch.int64, device=o[0].device)
+    w = [torch.zeros_like(o[0]) for _ in range(6)]
+    for g, row in enumerate(gtab.unbind(0)):
+        t_g, obj = geom_t(row, *o, *d, t_min, gtypes[g])
+        better = t_g < best_t
+        best_t = torch.where(better, t_g, best_t)
+        gid = torch.where(better, g, gid)
+        w = [torch.where(better, ob, prev) for ob, prev in zip(obj, w)]
+    return best_t, gid, w
+
+
+def object_normal(sph, p_obj):
+    """Object-space normal at ``p_obj``: radial on spheres (``sph``), the
+    argmax-|coord| face on cubes."""
+    axx, axy, axz = (torch.abs(c) for c in p_obj)
+    fx = (axx >= axy) & (axx >= axz)
+    fy = (~fx) & (axy >= axz)
+    inv_len = torch.rsqrt(torch.clamp(
+        p_obj[0] * p_obj[0] + p_obj[1] * p_obj[1] + p_obj[2] * p_obj[2], min=1e-24))
+    return (
+        torch.where(sph, p_obj[0] * inv_len, torch.where(fx, torch.sign(p_obj[0]), 0.0)),
+        torch.where(sph, p_obj[1] * inv_len, torch.where(fy, torch.sign(p_obj[1]), 0.0)),
+        torch.where(
+            sph, p_obj[2] * inv_len, torch.where((~fx) & (~fy), torch.sign(p_obj[2]), 0.0)
+        ),
+    )
+
+
+def world_normal(m, n_obj):
+    """The winner's inverse-transpose applied to ``n_obj`` and normalized
+    (``m``: the winner's 14 table values per lane)."""
+    n = (
+        m[0] * n_obj[0] + m[4] * n_obj[1] + m[8] * n_obj[2],
+        m[1] * n_obj[0] + m[5] * n_obj[1] + m[9] * n_obj[2],
+        m[2] * n_obj[0] + m[6] * n_obj[1] + m[10] * n_obj[2],
+    )
+    inv = torch.rsqrt(torch.clamp(n[0] * n[0] + n[1] * n[1] + n[2] * n[2], min=1e-24))
+    return (n[0] * inv, n[1] * inv, n[2] * inv)
+
+
+def nearest_hit_plain(rays: Rays, gtab: torch.Tensor) -> Hit:
+    """Plain version of kernel 6 (``csrc/intersect.cu:nearest_kernel``):
+    the sweep, then the hit frame from the winner's row, gathered per lane
+    (the TPU kernel's second where-pass over the geoms)."""
+    o, d = rays.origin.unbind(-1), rays.direction.unbind(-1)
+    best_t, gid, w = sweep(gtab, o, d)
+    win = gtab[gid].unbind(-1)
+    hit = best_t < BIG
+    t_safe = torch.where(hit, best_t, 1.0)
+    p = tuple(oc + t_safe * dc for oc, dc in zip(o, d))
+    p_obj = (w[0] + t_safe * w[3], w[1] + t_safe * w[4], w[2] + t_safe * w[5])
+    normal = world_normal(win, object_normal(hit & (win[12] == float(SPHERE)), p_obj))
+    return Hit(
+        t=best_t,
+        hit=hit,
+        geom_id=gid.to(torch.int32),
+        material_id=torch.where(hit, win[13], 0.0).to(torch.int32),
+        position=torch.stack(p, dim=-1),
+        position_obj=torch.stack(p_obj, dim=-1),
+        normal=torch.stack(normal, dim=-1),
+    )
+
+
+def occlusion_t_plain(rays: Rays, gtab: torch.Tensor) -> torch.Tensor:
+    """Plain version of kernel 8 (``csrc/intersect.cu:occlusion_kernel``):
+    each shadow ray's nearest ``t`` over every geom (``BIG`` = clear)."""
+    o, d = rays.origin.unbind(-1), rays.direction.unbind(-1)
+    gtypes = gtab[:, 12].tolist()
+    best_t = torch.full_like(o[0], BIG)
+    for g, row in enumerate(gtab.unbind(0)):
+        best_t = torch.minimum(best_t, geom_t(row, *o, *d, T_MIN, gtypes[g])[0])
+    return best_t

@@ -1,0 +1,122 @@
+"""The per-bounce shading step both wavefront engines and the per-bounce
+scan call.
+
+Port of ``pathtracer_tpu/render/common.py``: ``bounce_uniforms``
+(``:37-48``), ``BounceResult`` (``:61-77``, defined in
+``ops/bounce_fused.py`` and re-exported here) and ``shade_bounce``
+(``:101-460``) for analytic scenes.  One bounce is: nearest hit,
+emittance under the 0/1/2 emit-state code, BSDF continuation, and NEE at
+diffuse hits with a shadow ray.  Two routes:
+
+* fused (``cfg.fused`` None or True): ``ops/bounce_fused.bounce_fused``,
+  kernel 2 on a CUDA tensor;
+* split (``cfg.fused=False``): ``ops/intersect_cuda.nearest_hit`` (kernel
+  6), ``ops/bsdf.gather_materials`` / ``sample_bsdf``,
+  ``ops/lights.sample_lights`` and ``ops/intersect_cuda.occlusion_t``
+  (kernel 8) for the shadow ray, the rest in PyTorch ops, in the JAX split
+  path's order of operations.
+
+``cfg.pallas`` picks no route in the port.  Texture, bump, volumetric,
+hg, the Cook-Torrance and Ward lobes, meshes, image textures and the lean
+differentiable route raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from pathtracer_tpu_torch.ops.bounce import check_features, pack_tables
+from pathtracer_tpu_torch.ops.bounce_fused import BounceResult, bounce_fused
+from pathtracer_tpu_torch.ops.bsdf import RAY_BIAS, gather_materials, sample_bsdf
+from pathtracer_tpu_torch.ops.intersect_cuda import nearest_hit, occlusion_t
+from pathtracer_tpu_torch.ops.lights import sample_lights
+from pathtracer_tpu_torch.ops.rng import hash_uniforms
+from pathtracer_tpu_torch.scene.structs import Rays
+
+__all__ = ["BounceResult", "bounce_uniforms", "shade_bounce"]
+
+
+def bounce_uniforms(seed: int, sample_idx, depth) -> torch.Tensor:
+    """``[N, 11]`` uniforms, a pure function of (seed, sample, depth): 3 for
+    the BSDF, 1 for russian roulette, 4 for the light sample, 3 for media."""
+    return hash_uniforms(seed, sample_idx, depth, 11)
+
+
+def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular, seed: int,
+                 cfg, medium_sigma=None, tables=None) -> BounceResult:
+    """One physics step for a wavefront of rays (mask-free: callers gate
+    with their alive masks).  ``depth`` is an int or a per-lane tensor;
+    ``tables`` are ``ops/bounce.pack_tables`` of the scene."""
+    check_features(cfg.features)
+    if cfg.grad_lean:
+        raise NotImplementedError("lean differentiable shade_bounce: later slice")
+    if scene.meshes or scene.textures is not None or not cfg.fast_rng:
+        raise NotImplementedError(
+            "shade_bounce for meshes, image textures or fast_rng=False: later slice"
+        )
+    tables = tables if tables is not None else pack_tables(scene)
+    if medium_sigma is None:
+        medium_sigma = torch.zeros((throughput.shape[0], 4), dtype=torch.float32,
+                                   device=throughput.device)
+    if cfg.fused is not False:
+        return bounce_fused(scene, rays.origin, rays.direction, throughput, sample_idx, depth,
+                            prev_specular, medium_sigma, seed, cfg, tables=tables)
+
+    gtab, mtab = tables[0], tables[1]
+    hit = nearest_hit(rays, gtab)
+    mat = gather_materials(mtab, hit.material_id)
+    emissive = mat.emittance > 0.0
+    u = bounce_uniforms(seed, sample_idx, depth)
+
+    # emittance at a BSDF hit: with NEE only where no NEE could have sampled
+    # the light, on primary rays and after a specular event (state 1)
+    prev_state = prev_specular.to(torch.float32)
+    if cfg.nee:
+        at_depth0 = torch.as_tensor(depth, device=throughput.device) == 0
+        count_emit = at_depth0 | (torch.abs(prev_state - 1.0) < 0.5)
+    else:
+        count_emit = torch.ones_like(emissive)
+    emitted = throughput * mat.color * mat.emittance[:, None]
+    contrib = torch.where((hit.hit & emissive & count_emit)[:, None], emitted, 0.0)
+
+    scatter = sample_bsdf(mat, hit.position, hit.normal, rays.direction, u[:, 0:3],
+                          glossy="glossy" in cfg.features)
+
+    if cfg.nee:
+        ls = sample_lights(scene.geoms, scene.materials, u[:, 4:8])
+        n_shade = hit.normal * torch.sign(
+            -torch.sum(hit.normal * rays.direction, dim=-1, keepdim=True)
+        )
+        x = hit.position + RAY_BIAS * n_shade
+        to_light = ls.position - x
+        dist2 = torch.sum(to_light * to_light, dim=-1)
+        dist = torch.sqrt(torch.clamp(dist2, min=1e-12))
+        wi = to_light / dist[:, None]
+        cos_x = torch.sum(n_shade * wi, dim=-1)
+        cos_y = torch.sum(ls.normal * (-wi), dim=-1)
+        diffuse_lane = hit.hit & (~emissive) & (~scatter.is_specular)
+        candidate = diffuse_lane & ls.valid & (cos_x > 0) & (cos_y > 0)
+        occ_t = occlusion_t(Rays(origin=x.contiguous(), direction=wi.contiguous()), gtab)
+        visible = occ_t >= dist - 4.0 * RAY_BIAS
+        g = cos_x * cos_y / torch.clamp(dist2, min=1e-12)
+        nee = (throughput * (mat.color / math.pi) * ls.emitted
+               * (g / torch.clamp(ls.pdf_area, min=1e-20))[:, None])
+        contrib = contrib + torch.where((candidate & visible)[:, None], nee, 0.0)
+
+    # emit-state code of this bounce: a specular event continues a
+    # suppressed chain (2 -> 2), otherwise 1; a diffuse event resets to 0
+    surf_state = torch.where(
+        scatter.is_specular, torch.where(torch.abs(prev_state - 2.0) < 0.5, 2.0, 1.0), 0.0
+    )
+    return BounceResult(
+        contrib=contrib,
+        next_origin=scatter.origin,
+        next_direction=scatter.direction,
+        throughput_mult=scatter.throughput_mult,
+        terminate=(~hit.hit) | emissive,
+        was_specular=surf_state,
+        rr_uniform=u[:, 3],
+        next_medium=medium_sigma,
+    )

@@ -4,8 +4,13 @@ Port of ``pathtracer_tpu/render/integrator.py:28-201``: ``render_sample``
 (one jittered sample per pixel), ``render_chunk`` (a run of progressive
 iterations into the radiance-sum accumulator) and ``render`` (the whole
 progressive loop with ``start_iteration`` / ``accum`` resume, tone map and
-stats).  The accumulator stays on the device and takes ``acc + radiance``
-in float32 one iteration at a time, in the same order as the JAX loop.
+stats).  ``render_chunk`` dispatches as ``_chunk_executable`` does
+(``:67-80``): with ``cfg.wavefront`` the chunk is one call of a wavefront
+engine (``render/wavefront.py``: pinned slots up to
+``cfg.wavefront_pinned_max_pixels`` pixels, the free-slot queue otherwise);
+else the megakernel's accumulator takes ``acc + radiance`` in float32 one
+iteration at a time, in the same order as the JAX loop.  Ray counts are
+int64 on every engine.
 Every entry point renders on the device it is given, CUDA by default; on
 a host without CUDA the caller must ask for ``device="cpu"``.
 """
@@ -23,6 +28,7 @@ from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
 from pathtracer_tpu_torch.ops.tonemap import tonemap
 from pathtracer_tpu_torch.render.features import resolve_features
 from pathtracer_tpu_torch.render.megakernel import trace_paths
+from pathtracer_tpu_torch.render.wavefront import render_samples_pinned, render_samples_wavefront
 from pathtracer_tpu_torch.scene.structs import Scene
 
 
@@ -58,6 +64,12 @@ def render_chunk(
     """Add ``n_iters`` progressive iterations to ``accum`` (``[N, 3]``
     radiance sum); returns ``(accum, rays_traced int64 [])``."""
     n_pixels = accum.shape[0]
+    if cfg.wavefront:
+        if cfg.wavefront_pinned and n_pixels <= cfg.wavefront_pinned_max_pixels:
+            return render_samples_pinned(scene, accum, start_iteration, n_iters, seed, cfg,
+                                         tables=tables)
+        return render_samples_wavefront(scene, accum, start_iteration * n_pixels,
+                                        n_iters * n_pixels, seed, cfg, tables=tables)
     pixel_index = torch.arange(n_pixels, dtype=torch.int64, device=accum.device)
     nrays = torch.zeros((), dtype=torch.int64, device=accum.device)
     for i in range(n_iters):

@@ -3,19 +3,60 @@
 Port of ``pathtracer_tpu/render/megakernel.py:28-175``.  The forward takes
 the full-depth trace of ``ops/trace.py`` (``:44-64`` in the JAX package);
 under ``cfg.grad_lean`` an eligible scene takes the full-depth
-differentiable trace of ``ops/trace_grad.py`` (``:66-76``).  Each runs its
-CUDA kernels for rays on a CUDA device and its plain version for rays on
-the CPU.  The per-bounce differentiable engine (``grad_full_trace=False``),
-the lean scan, the debug and the wavefront variants belong to later
-slices.
+differentiable trace of ``ops/trace_grad.py`` (``:66-76``).  With
+``cfg.fused=False`` the forward takes the per-bounce scan (``:116-175``,
+the non-lean branch): a loop over ``max_depth`` bounces of
+``render/common.shade_bounce`` on its split route (kernels 6 and 8 on a
+CUDA tensor) with an alive mask.  Each runs its CUDA kernels for rays on a
+CUDA device and its plain version for rays on the CPU.  The per-bounce
+differentiable engine (``grad_full_trace=False``), the lean scan and the
+debug variant belong to later slices.  The wavefront engines are
+``render/wavefront.py``, chosen by the integrator.
 """
 
 from __future__ import annotations
 
+import torch
+
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.ops.trace import trace_fused
 from pathtracer_tpu_torch.ops.trace_grad import fused_diff_eligible, trace_fused_diff
+from pathtracer_tpu_torch.render.common import shade_bounce
 from pathtracer_tpu_torch.scene.structs import Rays, Scene
+
+
+def scan_paths(scene: Scene, rays: Rays, sample_idx, seed: int, cfg: RenderConfig,
+               tables=None):
+    """The per-bounce scan: ``(radiance [N, 3], rays_traced int64 [])``.
+    Russian roulette divides by ``p`` with ``p`` detached, as the JAX scan
+    does."""
+    n = rays.count
+    f32 = dict(dtype=torch.float32, device=rays.origin.device)
+    throughput = torch.ones((n, 3), **f32)
+    alive = torch.ones(n, dtype=torch.bool, device=rays.origin.device)
+    prev_spec = torch.zeros(n, **f32)  # emit-state code
+    medium = torch.zeros((n, 4), **f32)
+    radiance = torch.zeros((n, 3), **f32)
+    nrays = torch.zeros((), dtype=torch.int64, device=rays.origin.device)
+    for depth in range(cfg.max_depth):
+        nrays = nrays + alive.sum() * (2 if cfg.nee else 1)  # + the shadow ray
+        res = shade_bounce(scene, rays, throughput, sample_idx, depth, prev_spec, seed, cfg,
+                           medium_sigma=medium, tables=tables)
+        radiance = radiance + torch.where(alive[:, None], res.contrib, 0.0)
+        new_alive = alive & (~res.terminate)
+        throughput = torch.where(new_alive[:, None], throughput * res.throughput_mult,
+                                 throughput)
+        if cfg.russian_roulette:
+            p = torch.clamp(torch.amax(throughput, dim=-1), 0.05, 1.0).detach()
+            rr_active = new_alive & (depth >= cfg.rr_start)
+            throughput = torch.where(rr_active[:, None], throughput / p[:, None], throughput)
+            new_alive = torch.where(rr_active, new_alive & (res.rr_uniform < p), new_alive)
+        rays = Rays(
+            origin=torch.where(new_alive[:, None], res.next_origin, rays.origin),
+            direction=torch.where(new_alive[:, None], res.next_direction, rays.direction),
+        )
+        alive, prev_spec, medium = new_alive, res.was_specular, res.next_medium
+    return radiance, nrays
 
 
 def trace_paths(
@@ -23,8 +64,8 @@ def trace_paths(
 ):
     """Trace a wavefront of primary rays to completion: ``(radiance [N, 3],
     rays_traced int64 [])``, one sample of the estimator per ray."""
-    if cfg.debug or cfg.wavefront:
-        raise NotImplementedError("debug / wavefront engines of trace_paths: later slice")
+    if cfg.debug:
+        raise NotImplementedError("debug engine of trace_paths: later slice")
     if cfg.grad_lean:
         if not fused_diff_eligible(scene, cfg):
             raise NotImplementedError(
@@ -35,4 +76,6 @@ def trace_paths(
                 "per-bounce differentiable engine (grad_full_trace=False): later slice"
             )
         return trace_fused_diff(scene, rays, sample_idx, seed, cfg, tables=tables)
+    if cfg.fused is False:
+        return scan_paths(scene, rays, sample_idx, seed, cfg, tables=tables)
     return trace_fused(scene, rays, sample_idx, seed, cfg, tables=tables)

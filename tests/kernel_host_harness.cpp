@@ -1,9 +1,11 @@
-// Host build of the differentiable trace kernels' per-lane code, for
-// tests/test_torch_kernel_host.py.  pathtracer_tpu_torch/csrc/
-// trace_grad.cu compiles without nvcc (its PT_FN functions become host
-// inline functions, its kernels drop out); these two C entry points run
-// its forward and reverse lanes one after another over a wavefront, with
-// the same arguments as the CUDA launchers.
+// Host build of the kernels' per-lane code, for
+// tests/test_torch_kernel_host.py.  The sources of pathtracer_tpu_torch/
+// csrc/ compile without nvcc (their PT_FN functions become host inline
+// functions, their kernels drop out); these C entry points run their lanes
+// one after another over a wavefront, with the same arguments as the CUDA
+// launchers: the trace (trace.cu), the forward with residuals and the
+// reverse lanes (trace_grad.cu), one bounce (bounce.cu), and the nearest hit
+// and occlusion (intersect.cu).
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -o libhost.so \
 //       tests/kernel_host_harness.cpp
@@ -14,6 +16,9 @@
 static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 
 #include "../pathtracer_tpu_torch/csrc/trace_grad.cu"
+#include "../pathtracer_tpu_torch/csrc/trace.cu"
+#include "../pathtracer_tpu_torch/csrc/bounce.cu"
+#include "../pathtracer_tpu_torch/csrc/intersect.cu"
 
 using namespace pt;
 
@@ -59,4 +64,49 @@ extern "C" void host_bwd(const float* gtab, int G, const float* mtab, int M, con
     d_direction[3 * i + 1] = g_d.y;
     d_direction[3 * i + 2] = g_d.z;
   }
+}
+
+extern "C" void host_trace(const float* gtab, int G, const float* mtab, const float* ltab,
+                           const float* scal, unsigned seed, const float* origin,
+                           const float* direction, const unsigned* sample, int n,
+                           float* radiance, unsigned long long* nrays, int depth, int nee,
+                           int rr, int rr_start) {
+  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f};
+  unsigned long long total = 0;
+  for (int i = 0; i < n; ++i) {
+    V3 o = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
+    V3 d = v3(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
+    unsigned bounces = 0;
+    const V3 rad = trace_lane(T, seed, sample[i], o, d, depth, nee, rr, rr_start, true, bounces);
+    radiance[3 * i] = rad.x;
+    radiance[3 * i + 1] = rad.y;
+    radiance[3 * i + 2] = rad.z;
+    total += (unsigned long long)bounces * (nee ? 2 : 1);
+  }
+  *nrays = total;
+}
+
+extern "C" void host_bounce(const float* gtab, int G, const float* mtab, const float* ltab,
+                            const float* scal, unsigned seed, int nee, int n,
+                            const float* origin, const float* direction, const float* thr,
+                            const unsigned* sample, const int* depth, const float* prev,
+                            const float* medium, float* contrib, float* next_o, float* next_d,
+                            float* thr_mult, unsigned char* terminate, float* wspec, float* rru,
+                            float* out_medium) {
+  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f};
+  for (int i = 0; i < n; ++i)
+    bounce_lane(T, seed, nee, (size_t)i, origin, direction, thr, sample, depth, prev, medium,
+                contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium);
+}
+
+extern "C" void host_nearest(const float* gtab, int G, int n, const float* origin,
+                             const float* direction, float* t, int* gid, int* mid, float* p,
+                             float* p_obj, float* normal) {
+  for (int i = 0; i < n; ++i)
+    nearest_lane(gtab, G, (size_t)i, origin, direction, t, gid, mid, p, p_obj, normal);
+}
+
+extern "C" void host_occlusion(const float* gtab, int G, int n, const float* origin,
+                               const float* direction, float* t) {
+  for (int i = 0; i < n; ++i) t[i] = occlusion_lane(gtab, G, (size_t)i, origin, direction);
 }

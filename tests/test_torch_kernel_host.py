@@ -1,12 +1,14 @@
-"""The differentiable trace kernels' per-lane code, built for the host CPU,
-against the plain versions.
+"""The kernels' per-lane code, built for the host CPU, against the plain
+versions.
 
-``pathtracer_tpu_torch/csrc/trace_grad.cu`` keeps the arithmetic of a lane
-(the forward with residuals, and the hand-written adjoint of the reverse
-loop) in functions that also compile as plain C++.  This test builds them
-with the host's C++ compiler (``tests/kernel_host_harness.cpp``, no
+Every source of ``pathtracer_tpu_torch/csrc/`` keeps the arithmetic of a
+lane in functions that also compile as plain C++: the trace
+(``trace.cu``), the forward with residuals and the hand-written adjoint of
+the reverse loop (``trace_grad.cu``), one bounce (``bounce.cu``), the
+nearest hit and the occlusion sweep (``intersect.cu``).  This test builds
+them with the host's C++ compiler (``tests/kernel_host_harness.cpp``, no
 contraction of a*b+c, as ``nvcc -fmad=false``) and runs them lane after
-lane, so the adjoint's logic is checked on every CPU run;
+lane, so their logic is checked on every CPU run;
 ``tests/test_torch_kernels_cuda.py`` and ``chip_smoke.py`` check the CUDA
 build itself on the card.
 
@@ -40,11 +42,14 @@ import numpy as np
 import pytest
 import torch
 
-from pathtracer_tpu_torch.ops import trace_grad
+from pathtracer_tpu_torch.ops import bounce_fused, trace, trace_grad
 from pathtracer_tpu_torch.ops.bounce import pack_tables
 from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
+from pathtracer_tpu_torch.ops.intersect import nearest_hit_plain, occlusion_t_plain
 from pathtracer_tpu_torch.scene.parser import load_scene, parse_scene_text
+from pathtracer_tpu_torch.scene.structs import Rays
 from tests.test_bounce_grad import MINI_SCENE
+from tests.test_torch_shade import random_lanes
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 P, I = ctypes.c_void_p, ctypes.c_int
@@ -67,6 +72,10 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(out)
     lib.host_fwd.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, P, I, I, I, I]
     lib.host_bwd.argtypes = [P, I, P, I, P, P, ctypes.c_uint, P, I, P, P, P, P, P, I, I, I, I]
+    lib.host_trace.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, I, I, I, I]
+    lib.host_bounce.argtypes = [P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 15
+    lib.host_nearest.argtypes = [P, I, I] + [P] * 8
+    lib.host_occlusion.argtypes = [P, I, I, P, P, P]
     return lib
 
 
@@ -149,3 +158,122 @@ def test_kernel_lanes_match_plain(host_lib, case):
     assert all(bool(torch.isfinite(t).all()) for t in got)
     if kw["nee"]:
         assert float(want[0].abs().max()) > 0 and float(d_d.abs().max()) > 0
+
+
+# ---- kernel 1 after the split of the loop body, kernel 2, kernels 6 and 8
+
+
+def _case_inputs(name, res):
+    if name in ("mini", "glossy"):
+        desc = parse_scene_text(MINI_SCENE if name == "mini" else GLOSSY_MINI, name=name)
+    else:
+        desc = load_scene(os.path.join(HERE, "..", "scenes", "cornell.txt"))
+    scene = dataclasses.replace(desc, resolution=res).scene_for_frame(0, device="cpu")
+    return scene, [t.contiguous() for t in pack_tables(scene)]
+
+
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_trace_lanes_match_plain_and_forward(host_lib, case):
+    """Kernel 1's lanes (``trace.cu:trace_lane`` over ``pt::bounce_step``)
+    against ``trace_plain`` at the forward test's radiance bars (measured:
+    99.87% of Cornell's lanes within 2e-6, every lane of the others), and
+    bit-equal to the forward-with-residuals lanes, ray counts too (the two
+    kernels share the loop body)."""
+    name, res, kw, (min_rad, _) = CASES[case]
+    scene, tables = _case_inputs(name, res)
+    n, seed = res[0] * res[1], 99
+    pixel = torch.arange(n)
+    sample = 5 * n + pixel
+    rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, sample))
+    g = tables[0].shape[0]
+    bits = sample.to(torch.int32)
+    flags = (kw["max_depth"], int(kw["nee"]), int(kw["rr"]), kw["rr_start"])
+    common = (tables[0].data_ptr(), g, tables[1].data_ptr(), tables[2].data_ptr(),
+              tables[3].data_ptr(), seed, rays.origin.data_ptr(), rays.direction.data_ptr(),
+              bits.data_ptr(), n)
+    rad_k, nr_k = torch.empty((n, 3)), ctypes.c_ulonglong()
+    host_lib.host_trace(*common, rad_k.data_ptr(), ctypes.byref(nr_k), *flags)
+    rad_f, nr_f = torch.empty((n, 3)), ctypes.c_ulonglong()
+    resid = torch.empty((kw["max_depth"], trace_grad.N_RESID, n))
+    host_lib.host_fwd(*common, rad_f.data_ptr(), ctypes.byref(nr_f), resid.data_ptr(), *flags)
+    rad_p, nr_p = trace.trace_plain(*tables, seed, rays.origin, rays.direction, sample, **kw)
+    frac = float(torch.isclose(rad_k, rad_p, rtol=2e-6, atol=2e-6).all(-1).float().mean())
+    print(f"{case}: trace lanes within 2e-6 of trace_plain: {frac:.5f}")
+    assert nr_k.value == nr_f.value == int(nr_p)
+    assert torch.equal(rad_k, rad_f)
+    assert frac >= min_rad
+
+
+def _bounce_args(scene_name, n, seed):
+    scene, tables = _case_inputs(scene_name, (8, 8))
+    lanes = {k: torch.from_numpy(v) for k, v in random_lanes(n, seed=seed).items()}
+    medium = torch.zeros((n, 4))
+    return tables, lanes, medium
+
+
+@pytest.mark.parametrize("scene_name", ["cornell", "glossy"])
+@pytest.mark.parametrize("nee", [True, False])
+def test_bounce_lanes_match_plain(host_lib, scene_name, nee):
+    """Kernel 2's lanes (``bounce.cu:bounce_lane``, the mask-free
+    ``pt::bounce``) against ``bounce_fused_plain`` on 2,048 random lanes at
+    mixed depth and emit state.  Every one of the 19 outputs is defined on
+    every lane, terminated lanes too (the kernel's contract): terminate, emit
+    state and the russian-roulette uniform equal on every lane, the float
+    planes within 2e-6 on at least 99.5% of lanes, room for the host's libm
+    sin/cos to round a sampled direction differently from torch's
+    (measured: every lane, printed under ``pytest -s``)."""
+    n, seed = 2048, 77
+    tables, t, medium = _bounce_args(scene_name, n, 21)
+    want = bounce_fused.bounce_fused_plain(
+        tables, t["origin"], t["direction"], t["throughput"], t["sample"].long(), t["depth"],
+        t["prev"], medium, seed, nee=nee,
+    )
+    f32 = dict(dtype=torch.float32)
+    contrib, next_o, next_d, thr_mult = (torch.empty((n, 3), **f32) for _ in range(4))
+    terminate = torch.empty(n, dtype=torch.uint8)
+    wspec, rru, out_medium = torch.empty(n), torch.empty(n), torch.empty((n, 4))
+    host_lib.host_bounce(
+        tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(), tables[2].data_ptr(),
+        tables[3].data_ptr(), seed, int(nee), n, t["origin"].data_ptr(),
+        t["direction"].data_ptr(), t["throughput"].data_ptr(), t["sample"].data_ptr(),
+        t["depth"].data_ptr(), t["prev"].data_ptr(), medium.data_ptr(), contrib.data_ptr(),
+        next_o.data_ptr(), next_d.data_ptr(), thr_mult.data_ptr(), terminate.data_ptr(),
+        wspec.data_ptr(), rru.data_ptr(), out_medium.data_ptr(),
+    )
+    assert torch.equal(terminate.bool(), want.terminate)
+    assert 0.05 < float(want.terminate.float().mean()) < 0.95
+    assert torch.equal(wspec, want.was_specular) and torch.equal(rru, want.rr_uniform)
+    assert torch.equal(out_medium, want.next_medium)
+    close = torch.ones(n, dtype=torch.bool)
+    for got, ref in ((contrib, want.contrib), (next_o, want.next_origin),
+                     (next_d, want.next_direction), (thr_mult, want.throughput_mult)):
+        close &= torch.isclose(got, ref, rtol=2e-6, atol=2e-6).all(-1)
+    frac = float(close.float().mean())
+    print(f"{scene_name} nee={nee}: bounce lanes with every plane within 2e-6: {frac:.5f}")
+    assert frac >= 0.995
+    assert float(contrib.abs().max()) > 0
+
+
+@pytest.mark.parametrize("scene_name", ["cornell", "glossy"])
+def test_intersect_lanes_match_plain(host_lib, scene_name):
+    """Kernels 6 and 8's lanes against ``nearest_hit_plain`` /
+    ``occlusion_t_plain``: t, gid and mid equal; the frame within 2e-6
+    (the host's ``rsqrtf`` is ``1/sqrtf``, as torch's CPU ``rsqrt``)."""
+    n = 2048
+    tables, t, _ = _bounce_args(scene_name, n, 4)
+    gtab = tables[0]
+    want = nearest_hit_plain(Rays(t["origin"], t["direction"]), gtab)
+    want_occ = occlusion_t_plain(Rays(t["origin"], t["direction"]), gtab)
+    t_k, gid, mid = torch.empty(n), torch.empty(n, dtype=torch.int32), torch.empty(
+        n, dtype=torch.int32)
+    p, p_obj, normal = (torch.empty((n, 3)) for _ in range(3))
+    host_lib.host_nearest(gtab.data_ptr(), gtab.shape[0], n, t["origin"].data_ptr(),
+                          t["direction"].data_ptr(), t_k.data_ptr(), gid.data_ptr(),
+                          mid.data_ptr(), p.data_ptr(), p_obj.data_ptr(), normal.data_ptr())
+    occ = torch.empty(n)
+    host_lib.host_occlusion(gtab.data_ptr(), gtab.shape[0], n, t["origin"].data_ptr(),
+                            t["direction"].data_ptr(), occ.data_ptr())
+    assert torch.equal(t_k, want.t) and torch.equal(occ, want_occ)
+    assert torch.equal(gid, want.geom_id) and torch.equal(mid, want.material_id)
+    for got, ref in ((p, want.position), (p_obj, want.position_obj), (normal, want.normal)):
+        torch.testing.assert_close(got, ref, rtol=2e-6, atol=2e-6)

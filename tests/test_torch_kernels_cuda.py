@@ -242,3 +242,136 @@ def test_grad_wrappers_check_inputs():
         trace_grad.tbwd_cuda(*tables, seed, sample, resid, g.t().contiguous().t(), **kw)
     with pytest.raises(ValueError):
         trace_grad.tbwd_cuda(*tables, seed, sample, resid, g.cpu(), **kw)
+
+
+# ---- the per-bounce kernel (kernel 2) and the split route's nearest-hit
+# and occlusion kernels (kernels 6 and 8)
+#
+# Tolerances (those chip_smoke.py holds at full width): kernel 2's
+# terminate, emit state and russian-roulette uniform equal the plain
+# version's on every lane, and every float plane is within rtol = atol =
+# 2e-6 on at least 99.9% of lanes, terminated lanes included (the kernel
+# defines every output on every lane, as bounce_physics does).  Kernel 6's
+# t, gid and mid equal on at least 99.9% of lanes, its frame within 2e-6 on
+# at least 99.9%; kernel 8's t within 2e-6 on at least 99.9%.
+
+
+def _random_lanes_cuda(n, seed):
+    """Lanes of one bounce, as ``tests/test_torch_shade.random_lanes`` makes
+    them (that module imports the JAX package)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((n, 3))
+    lanes = dict(
+        origin=(rng.standard_normal((n, 3)) * 3.0).astype(np.float32),
+        direction=(d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32),
+        throughput=rng.uniform(0.2, 1.0, (n, 3)).astype(np.float32),
+        sample=rng.integers(0, 10_000_000, n).astype(np.int32),
+        depth=rng.integers(0, 8, n).astype(np.int32),
+        prev=rng.choice(np.array([0.0, 1.0, 2.0], np.float32), n, p=[0.6, 0.3, 0.1]),
+    )
+    return {k: torch.from_numpy(v).cuda() for k, v in lanes.items()}
+
+
+@pytest.mark.parametrize("name", ["cornell", "glossy"])
+@pytest.mark.parametrize("nee", [True, False])
+def test_bounce_kernel_matches_plain(name, nee):
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import bounce_fused
+
+    scene = _scene(name, (8, 8))
+    tables = pack_tables(scene)
+    n = 50_000
+    t = _random_lanes_cuda(n, 8)
+    medium = torch.zeros((n, 4), device="cuda")
+    args = (tables, t["origin"], t["direction"], t["throughput"], t["sample"].long(),
+            t["depth"], t["prev"], medium, 4321)
+    before = bounce_fused.launches
+    got = bounce_fused.bounce_fused_cuda(*args, nee=nee)
+    assert bounce_fused.launches == before + 1
+    want = bounce_fused.bounce_fused_plain(*args, nee=nee)
+    torch.cuda.synchronize()
+    assert torch.equal(got.terminate, want.terminate)
+    assert torch.equal(got.was_specular, want.was_specular)
+    assert torch.equal(got.rr_uniform, want.rr_uniform)
+    assert torch.equal(got.next_medium, want.next_medium)
+    close = torch.ones(n, dtype=torch.bool, device="cuda")
+    for f in ("contrib", "next_origin", "next_direction", "throughput_mult"):
+        close &= torch.isclose(getattr(got, f), getattr(want, f), rtol=2e-6, atol=2e-6).all(-1)
+    assert float(close.float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("name", ["cornell", "glossy"])
+def test_intersect_kernels_match_plain(name):
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import intersect_cuda
+    from pathtracer_tpu_torch.ops.intersect import nearest_hit_plain, occlusion_t_plain
+    from pathtracer_tpu_torch.scene.structs import Rays
+
+    gtab = pack_tables(_scene(name, (8, 8)))[0]
+    t = _random_lanes_cuda(50_000, 9)
+    rays = Rays(t["origin"], t["direction"])
+    before = (intersect_cuda.nearest_launches, intersect_cuda.occlusion_launches)
+    got = intersect_cuda.nearest_hit(rays, gtab)
+    occ = intersect_cuda.occlusion_t(rays, gtab)
+    assert (intersect_cuda.nearest_launches, intersect_cuda.occlusion_launches) == (
+        before[0] + 1, before[1] + 1)
+    want = nearest_hit_plain(rays, gtab)
+    want_occ = occlusion_t_plain(rays, gtab)
+    torch.cuda.synchronize()
+    same = (got.t == want.t) & (got.geom_id == want.geom_id) & (got.material_id == want.material_id)
+    assert float(same.float().mean()) >= 0.999
+    for f in ("position", "position_obj", "normal"):
+        close = torch.isclose(getattr(got, f), getattr(want, f), rtol=2e-6, atol=2e-6).all(-1)
+        assert float(close.float().mean()) >= 0.999, f
+    assert float(torch.isclose(occ, want_occ, rtol=2e-6, atol=2e-6).float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("engine", [dict(wavefront=True),
+                                    dict(wavefront=True, wavefront_pinned=False,
+                                         wavefront_capacity=1 << 11),
+                                    dict(wavefront=True, fused=False)],
+                         ids=["pinned", "queue", "split"])
+def test_wavefront_render_launches_its_kernels_once_per_super_step(engine):
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import bounce_fused, intersect_cuda
+    from pathtracer_tpu_torch.render import wavefront
+
+    scene = _scene("cornell", (64, 48))
+    _, mega, ms = render(scene, 4, RenderConfig(max_depth=6), device="cuda")
+    counts = lambda: (trace.launches, bounce_fused.launches, intersect_cuda.nearest_launches,  # noqa: E731
+                      intersect_cuda.occlusion_launches, wavefront.super_steps)
+    before = counts()
+    _, wave, ws = render(scene, 4, RenderConfig(max_depth=6, **engine), device="cuda")
+    torch.cuda.synchronize()
+    d = [a - b for a, b in zip(counts(), before)]
+    steps = d[4]
+    assert steps > 0 and d[0] == 0
+    if engine.get("fused") is False:
+        assert d[1:4] == [0, steps, steps]
+    else:
+        assert d[1:4] == [steps, 0, 0]
+    assert ws["rays_traced"] == ms["rays_traced"]
+    close = torch.isclose(wave, mega, rtol=2e-4, atol=2e-4)
+    assert float(close.float().mean()) >= 0.999
+    assert abs(float(wave.double().sum() - mega.double().sum())) <= 1e-5 * float(mega.double().sum())
+
+
+def test_bounce_and_intersect_wrappers_check_inputs():
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import bounce_fused, intersect_cuda
+    from pathtracer_tpu_torch.scene.structs import Rays
+
+    tables = pack_tables(_scene("mini", (8, 8)))
+    o, d = torch.zeros((4, 3), device="cuda"), torch.ones((4, 3), device="cuda")
+    thr, s = torch.ones((4, 3), device="cuda"), torch.arange(4, device="cuda")
+    prev, med = torch.zeros(4, device="cuda"), torch.zeros((4, 4), device="cuda")
+    with pytest.raises(ValueError):
+        bounce_fused.bounce_fused_cuda(tables, o[:3], d, thr, s, 0, prev, med, 1, nee=True)
+    with pytest.raises(ValueError):
+        bounce_fused.bounce_fused_cuda(tables, o, d, thr, s, 0, prev, med[:, :3], 1, nee=True)
+    with pytest.raises(TypeError):
+        intersect_cuda.nearest_hit_cuda(Rays(o.double(), d), tables[0])
+    with pytest.raises(ValueError):
+        intersect_cuda.occlusion_t_cuda(Rays(o, d), tables[0].repeat(200, 1))
