@@ -42,7 +42,28 @@ Phases (any failure exits non-zero):
    the step's time, ``bench.py``'s convention); the step's profile (device
    busy and idle share); the inverse-rendering example on the card, whose
    loss must fall and wall error shrink;
-7. ``[wavefront]``, the wavefront engines (``render(...,
+7. ``[grad:perbounce]`` and ``[grad:lean]``, the other two differentiable
+   engines at the same width: ``loss_and_grad_rays`` with
+   ``RenderConfig(grad_full_trace=False)`` (kernel 2 with replay planes and
+   kernel 3 once per bounce: 32 launches each per 4-spp depth-8 step, no
+   kernel 4 or 5) and with ``RenderConfig(grad_fused=False)`` (kernel 1
+   once per iteration for the forward; the backward's lean scan runs kernels
+   7 and 8 once per bounce, 32 each, so its checkpoint recompute ran
+   neither), each with the counters zeroed just before; every gradient
+   finite, the loss within 1e-5 relative and every leaf within 5e-4 *
+   max(gscale, 1) of the full-depth step's (russian roulette is off, so the
+   physics and samples are the same).  Then on the 640,000 primary rays and
+   on the state after three bounces: kernel 2's replay planes equal its
+   plain version's on every lane (its other planes bit-equal to the
+   wavefront kernel's), kernel 7's t and gid equal on every lane, and kernel
+   3 on seeded cotangents on every lane against ``bounce_bwd_plain``'s
+   float64 reference: d_origin / d_direction / d_throughput within rtol =
+   atol = 1e-5 on at least 99.9% of lanes (the float32 plain version's
+   share printed beside it), each table cotangent within 1e-4 of its
+   table's largest magnitude.  Times by CUDA events: each new kernel at
+   640,000 lanes with its plain version and its bound; each step's ms,
+   fwd+bwd Mrays/s, profiled idle share and peak memory;
+8. ``[wavefront]``, the wavefront engines (``render(...,
    RenderConfig(wavefront=True))``) at Cornell 800x800, depth 8, NEE, each
    run through the entry point with the launch counters zeroed just before:
    (a) the pinned engine at 8 spp launches the per-bounce kernel once per
@@ -64,7 +85,7 @@ Phases (any failure exits non-zero):
    renders' wall time, super-steps and Mrays/s, and the 8-spp pinned render
    profiled (device busy and idle share, per super-step); and the CLI with
    ``--engine wavefront``;
-8. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+9. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
 The rendered PNGs and the profile table go to ``--out-dir`` (default
 ``renders/chip_smoke``).
@@ -121,14 +142,23 @@ def check(cond: bool, msg: str) -> None:
 
 def _counters() -> dict:
     """Every kernel wrapper's launch counter: name -> (module, attribute)."""
-    from pathtracer_tpu_torch.ops import bounce_fused, intersect_cuda, trace, trace_grad
+    from pathtracer_tpu_torch.ops import (
+        bounce_fused,
+        bounce_grad,
+        intersect_cuda,
+        trace,
+        trace_grad,
+    )
 
     return {
         "trace": (trace, "launches"),
         "trace_fwd_resid": (trace_grad, "fwd_launches"),
         "trace_bwd": (trace_grad, "bwd_launches"),
         "bounce": (bounce_fused, "launches"),
+        "bounce_replay": (bounce_fused, "replay_launches"),
+        "bounce_bwd": (bounce_grad, "launches"),
         "nearest_hit": (intersect_cuda, "nearest_launches"),
+        "winner": (intersect_cuda, "winner_launches"),
         "occlusion": (intersect_cuda, "occlusion_launches"),
     }
 
@@ -172,9 +202,41 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def grad_phase(desc, dev, card: str, out_dir: str) -> list:
+def profile_step(step, step_ms: float, out_dir: str, name: str, kernels) -> str:
+    """Profile one ``step()``: writes the table and returns the summary
+    (device busy and idle share against ``step_ms``, time per named
+    kernel)."""
+    import torch
+
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+
+    run = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in run) / 1e3
+    named = {k: sum(dev_us(e) for e in run if k in e.key) / 1e3 for k in kernels}
+    with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
+        f.write(events.table(sort_by="self_cuda_time_total", row_limit=30))
+    return (
+        f"device busy {busy_ms:.4f} ms of {step_ms:.4f} ms unprofiled ({prof_ms:.4f} ms "
+        f"profiled): idle share {1 - busy_ms / step_ms:.3f}; "
+        + "; ".join(f"{k} {v:.4f} ms" for k, v in named.items())
+        + f"; everything else {busy_ms - sum(named.values()):.4f} ms in "
+        f"{sum(e.count for e in run)} kernel launches"
+    )
+
+
+def grad_phase(desc, dev, card: str, out_dir: str):
     """Phase 6: the differentiable step on the card.  Returns the JSON
-    entries of its two kernels."""
+    entries of its two kernels, and the step's loss and gradients."""
     import numpy as np
     import torch
 
@@ -310,33 +372,9 @@ def grad_phase(desc, dev, card: str, out_dir: str) -> list:
     step_ms = cuda_ms(step, reps=3)
     mrays = int(rays) / step_ms / 1e3
 
-    with torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    ) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        prof_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    kernels_run = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(dev_us(e) for e in kernels_run) / 1e3
-    named = {
-        k: sum(dev_us(e) for e in kernels_run if k in e.key) / 1e3
-        for k in ("trace_fwd_kernel", "trace_bwd_kernel", "trace_bwd_reduce")
-    }
-    with open(os.path.join(out_dir, "profile_grad_step.txt"), "w") as f:
-        f.write(events.table(sort_by="self_cuda_time_total", row_limit=30))
-    print(
-        f"[grad:profile] step: device busy {busy_ms:.4f} ms of {step_ms:.4f} ms unprofiled "
-        f"({prof_ms:.4f} ms profiled): idle share {1 - busy_ms / step_ms:.3f}; "
-        + "; ".join(f"{k} {v:.4f} ms" for k, v in named.items())
-        + f"; everything else {busy_ms - sum(named.values()):.4f} ms in "
-        f"{sum(e.count for e in kernels_run)} kernel launches"
-    )
+    summary = profile_step(step, step_ms, out_dir, "grad_step",
+                           ("trace_fwd_kernel", "trace_bwd_kernel", "block_row_sum"))
+    print(f"[grad:profile] step: {summary}")
 
     # ---- bounds, from this run's inputs
     lane_bounces = int(nr_k) // (2 if cfg.nee else 1)
@@ -382,7 +420,7 @@ def grad_phase(desc, dev, card: str, out_dir: str) -> list:
           f"inverse rendering did not converge: {summary}")
 
     common = {"route": "cuda", "source": "pathtracer_tpu_torch/csrc/trace_grad.cu", "library_ms": None}
-    return [
+    return loss, grads, [
         {"name": "trace_fwd_resid", **common,
          "replaces": "pathtracer_tpu/ops/trace_grad.py:115",
          "launches": launches["trace_fwd_resid"], "max_abs_err": fwd_err, "ms": f_ms,
@@ -391,6 +429,226 @@ def grad_phase(desc, dev, card: str, out_dir: str) -> list:
          "replaces": "pathtracer_tpu/ops/trace_grad.py:190",
          "launches": launches["trace_bwd"], "max_abs_err": bwd_err, "ms": b_ms,
          "plain_ms": bp_ms, "bound_ms": b_bound, "bound_by": b_by},
+    ]
+
+
+def grad_engines_phase(desc, dev, card: str, out_dir: str, full_loss, full_grads) -> list:
+    """Phase 7: the per-bounce and lean differentiable engines on the card,
+    held to the full-depth step (``full_loss``, ``full_grads``).  Returns the
+    JSON entries of kernel 2's replay variant and kernels 3 and 7."""
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import bounce_fused, bounce_grad, intersect_cuda
+    from pathtracer_tpu_torch.ops.bounce import pack_tables
+    from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
+    from pathtracer_tpu_torch.ops.intersect import winner_t_gid_plain
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render import diff
+    from pathtracer_tpu_torch.scene.structs import Rays
+
+    params, static = diff.params_from_description(desc, 0, device=dev)
+    w, h = static.resolution
+    n = w * h
+    gspp, depth = 4, 8
+    key = prng_key(0)
+    target = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    base = RenderConfig(wavefront=False, nee=True, max_depth=depth)
+    engines = {
+        "perbounce": (dataclasses.replace(base, grad_full_trace=False),
+                      only(bounce_replay=gspp * depth, bounce_bwd=gspp * depth),
+                      ("bounce_kernel", "bounce_bwd_kernel", "block_row_sum")),
+        "lean": (dataclasses.replace(base, grad_fused=False),
+                 only(trace=gspp, winner=gspp * depth, occlusion=gspp * depth),
+                 ("trace_kernel", "winner_kernel", "occlusion_kernel")),
+    }
+    full = full_grads.leaves()
+    gscale = max(float(v.abs().max()) for v in full.values())
+    steps = {}
+    for name, (cfg, expect, kernels) in engines.items():
+        def step(cfg=cfg):
+            return diff.loss_and_grad_rays(params, static, target, gspp, key, cfg, device=dev)
+
+        # ---- the main path: one gradient step through the entry point
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, rays = step()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        leaves = grads.leaves()
+        worst, worst_leaf = max((float((leaves[k] - full[k]).abs().max()), k) for k in full)
+        loss_rel = abs(float(loss) - float(full_loss)) / abs(float(full_loss))
+        print(
+            f"[grad:{name}] loss_and_grad_rays cornell {w}x{h} d{depth} nee spp={gspp}: "
+            f"{first_s:.3f} s (first step), loss {float(loss):.9g} (full-depth step "
+            f"{float(full_loss):.9g}, {loss_rel:.3g} relative), rays {int(rays)}, peak memory "
+            f"{peak_gb:.3f} GB, launches {launches}; worst leaf against the full-depth step "
+            f"{worst_leaf}, {worst:.3g} (bar {5e-4 * max(gscale, 1.0):.4g})"
+        )
+        check(launches == expect, f"{name} step launches {launches}, expected {expect}")
+        bad = [k for k, v in leaves.items() if not bool(torch.isfinite(v).all())]
+        check(not bad, f"{name}: non-finite gradients in {bad}")
+        check(loss_rel <= 1e-5, f"{name}: loss {float(loss)} against {float(full_loss)}")
+        for k in full:
+            err = float((leaves[k] - full[k]).abs().max())
+            check(err <= 5e-4 * max(gscale, 1.0), f"{name}: {k} off by {err:.3g}")
+        step_ms = cuda_ms(step, reps=2)
+        summary = profile_step(step, step_ms, out_dir, f"grad_{name}_step", kernels)
+        print(f"[grad:{name}:profile] step: {summary}")
+        steps[name] = dict(launches=launches, ms=step_ms, rays=int(rays), peak_gb=peak_gb)
+
+    # ---- kernels against their plain versions: the primary rays of
+    # iteration 0 and the state after three bounces of the same rays
+    seed = key_to_seed(key)
+    f32 = dict(dtype=torch.float32, device=dev)
+    with torch.no_grad():
+        scene = diff.build_scene(params, static)
+        tables = [t.contiguous() for t in pack_tables(scene)]
+        pixel = torch.arange(n, dtype=torch.int64, device=dev)
+        rays0 = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, pixel))
+        medium = torch.zeros((n, 4), **f32)
+        state = dict(origin=rays0.origin, direction=rays0.direction,
+                     throughput=torch.ones((n, 3), **f32), sample=pixel,
+                     depth=torch.zeros(n, dtype=torch.int32, device=dev),
+                     prev=torch.zeros(n, **f32))
+        states = {"primary": state}
+        alive = torch.ones(n, dtype=torch.bool, device=dev)
+        for dep in range(3):  # the scan's carry update, without russian roulette
+            res = bounce_fused.bounce_fused_cuda(
+                tables, state["origin"], state["direction"], state["throughput"], pixel, dep,
+                state["prev"], medium, seed, nee=True)
+            alive = alive & ~res.terminate
+            a = alive[:, None]
+            state = dict(origin=torch.where(a, res.next_origin, state["origin"]),
+                         direction=torch.where(a, res.next_direction, state["direction"]),
+                         throughput=torch.where(a, state["throughput"] * res.throughput_mult,
+                                                state["throughput"]),
+                         sample=pixel, depth=torch.full((n,), dep + 1, dtype=torch.int32,
+                                                        device=dev),
+                         prev=res.was_specular)
+        states["after 3 bounces"] = state
+        print(f"[grad:check] after 3 bounces: {int(alive.sum())} of {n} paths alive")
+        rng = np.random.default_rng(0)
+        r_err = b_err = w_err = 0.0
+        for label, s in states.items():
+            args = (tables, s["origin"], s["direction"], s["throughput"], s["sample"],
+                    s["depth"], s["prev"])
+            got, rgid, rnee = bounce_fused.bounce_fused_cuda(*args, medium, seed, nee=True,
+                                                             emit_replay=True)
+            plain, pgid, pnee = bounce_fused.bounce_fused_plain(*args, medium, seed, nee=True,
+                                                                emit_replay=True)
+            wave = bounce_fused.bounce_fused_cuda(*args, medium, seed, nee=True)
+            rays = Rays(s["origin"], s["direction"])
+            wt, wg = intersect_cuda.winner_t_gid_cuda(rays, tables[0])
+            pt, pg = winner_t_gid_plain(rays, tables[0])
+            torch.cuda.synchronize()
+            same_wave = all(torch.equal(getattr(got, f.name), getattr(wave, f.name))
+                            for f in dataclasses.fields(got))
+            for f in ("contrib", "next_origin", "next_direction", "throughput_mult"):
+                r_err = max(r_err, float((getattr(got, f) - getattr(plain, f)).abs().max()))
+            w_err = max(w_err, float((wt - pt).abs().max()))
+            print(f"[grad:check] {label}: kernel 2 replay planes equal to plain: gid "
+                  f"{torch.equal(rgid, pgid)}, NEE bit {torch.equal(rnee, pnee)} "
+                  f"({int((rgid < 0).sum())} misses, {int(rnee.sum())} NEE connections); other "
+                  f"planes bit-equal to the wavefront kernel's: {same_wave}; kernel 7 t / gid "
+                  f"equal to plain: {torch.equal(wt, pt)} / {torch.equal(wg, pg)}")
+            check(torch.equal(rgid, pgid) and torch.equal(rnee, pnee) and same_wave,
+                  f"kernel 2's replay variant differs ({label})")
+            check(torch.equal(wt, pt) and torch.equal(wg, pg), f"kernel 7 differs ({label})")
+
+            cots = [torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32)).to(dev)
+                    for _ in range(4)]
+            bargs = (*args, rgid, rnee, *cots, seed)
+            got_b = bounce_grad.bounce_bwd_cuda(*bargs, nee=True)
+            want_b = bounce_grad.bounce_bwd_plain(*bargs, nee=True)
+            ref_b = bounce_grad.bounce_bwd_plain(*bargs, nee=True, dtype=torch.float64)
+            torch.cuda.synchronize()
+            shares = []
+            for nm, g, wt32, rf in zip(("d_origin", "d_direction", "d_throughput"), got_b[4:],
+                                       want_b[4:], ref_b[4:]):
+                check(bool(torch.isfinite(g).all()), f"kernel 3 {nm} not finite ({label})")
+                shares.append((nm, close_fraction(g, rf), close_fraction(wt32, rf)))
+                b_err = max(b_err, float((g.double() - rf).abs().max()))
+            tab = []
+            for nm, g, rf in zip(("d_gtab", "d_mtab", "d_ltab", "d_scal"), got_b[:4], ref_b[:4]):
+                err, scale = float((g.double() - rf).abs().max()), float(rf.abs().max())
+                tab.append((nm, err, scale))
+                check(bool(torch.isfinite(g).all()) and err <= 1e-4 * max(scale, 1e-30),
+                      f"kernel 3 {nm}: {err:.3g} against max {scale:.3g} ({label})")
+            print(f"[grad:check] {label}: kernel 3, lanes within rtol = atol = 1e-5 of the "
+                  f"float64 reference: "
+                  + "; ".join(f"{nm} kernel {a:.6f}, float32 plain {b:.6f}" for nm, a, b in shares)
+                  + "; tables: " + "; ".join(f"{nm} worst {e:.3g} of max {m:.4g}"
+                                             for nm, e, m in tab))
+            check(min(a for _, a, _ in shares) >= 0.999,
+                  f"kernel 3 beyond 1e-5 of the float64 reference on > 0.1% of lanes ({label})")
+
+        # ---- times at 640,000 lanes on the state after three bounces
+        ms_ = states["after 3 bounces"]
+        args = (tables, ms_["origin"], ms_["direction"], ms_["throughput"], ms_["sample"],
+                ms_["depth"], ms_["prev"])
+        bargs = (*args, rgid, rnee, *cots, seed)
+        mrays = Rays(ms_["origin"], ms_["direction"])
+        r_ms = cuda_ms(lambda: bounce_fused.bounce_fused_cuda(*args, medium, seed, nee=True,
+                                                              emit_replay=True), reps=50)
+        rp_ms = cuda_ms(lambda: bounce_fused.bounce_fused_plain(*args, medium, seed, nee=True,
+                                                                emit_replay=True), reps=2)
+        b_ms = cuda_ms(lambda: bounce_grad.bounce_bwd_cuda(*bargs, nee=True), reps=20)
+        bp_ms = cuda_ms(lambda: bounce_grad.bounce_bwd_plain(*bargs, nee=True), reps=2)
+        w_ms = cuda_ms(lambda: intersect_cuda.winner_t_gid_cuda(mrays, tables[0]), reps=50)
+        wp_ms = cuda_ms(lambda: winner_t_gid_plain(mrays, tables[0]), reps=3)
+
+    # ---- bounds, from this run's inputs (every one of the 640,000 lanes is computed)
+    types = scene.geoms.type.tolist()
+    sweep = sum(OPS_TO_OBJECT + (OPS_SPHERE if t == 0 else OPS_CUBE) for t in types)
+    table_bytes = sum(t.numel() * 4 for t in tables)
+    row_bytes = sum(t.numel() * 4 for t in got_b[:4])
+
+    def bound(ops, nbytes):
+        t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+    # kernel 2 with replay: 16 planes in (64 B), 20 float planes and a terminate byte out (81 B)
+    r_bound = bound(n * (sweep + OPS_SHADE), n * (64 + 81) + table_bytes)
+    # kernel 3: o, d, thr, sample, depth, emit state, two replay planes and four
+    # [N, 3] cotangents in (104 B), d_o, d_d, d_thr out (36 B), and the table row;
+    # operations: the replayed intersection, the shading and its adjoint
+    b_bound = bound(n * (OPS_TO_OBJECT + min(OPS_SPHERE, OPS_CUBE) + OPS_SHADE + OPS_BWD_ADJOINT),
+                    n * (104 + 36) + table_bytes + row_bytes)
+    # kernel 7: origin and direction in (24 B), t and gid out (8 B)
+    w_bound = bound(n * sweep, n * (24 + 8) + tables[0].numel() * 4)
+    print(f"[card] {card}")
+    for name, st in steps.items():
+        print(f"[grad:{name}:time] step {st['ms']:.4f} ms ({st['rays'] / st['ms'] / 1e3:.1f} "
+              f"fwd+bwd Mrays/s: {st['rays']} rays of one forward pass over the step), peak "
+              f"memory {st['peak_gb']:.3f} GB; on {card}")
+    print(
+        f"[grad:engines:time] at {n} lanes, the state after 3 bounces: kernel 2 with replay "
+        f"{r_ms:.4f} ms (plain {rp_ms:.3f} ms, bound {r_bound[0]:.4f} ms by {r_bound[1]}); "
+        f"kernel 3 {b_ms:.4f} ms (plain {bp_ms:.3f} ms, bound {b_bound[0]:.4f} ms by "
+        f"{b_bound[1]}); kernel 7 {w_ms:.4f} ms (plain {wp_ms:.3f} ms, bound {w_bound[0]:.4f} "
+        f"ms by {w_bound[1]}); on {card}"
+    )
+    pb, ln = steps["perbounce"]["launches"], steps["lean"]["launches"]
+    common = {"route": "cuda", "library_ms": None}
+    return [
+        {"name": "bounce_replay", **common, "source": "pathtracer_tpu_torch/csrc/bounce.cu",
+         "replaces": "pathtracer_tpu/ops/bounce_grad.py:226", "launches": pb["bounce_replay"],
+         "max_abs_err": r_err, "ms": r_ms, "plain_ms": rp_ms, "bound_ms": r_bound[0],
+         "bound_by": r_bound[1]},
+        {"name": "bounce_bwd", **common, "source": "pathtracer_tpu_torch/csrc/bounce_grad.cu",
+         "replaces": "pathtracer_tpu/ops/bounce_grad.py:91", "launches": pb["bounce_bwd"],
+         "max_abs_err": b_err, "ms": b_ms, "plain_ms": bp_ms, "bound_ms": b_bound[0],
+         "bound_by": b_bound[1]},
+        {"name": "winner", **common, "source": "pathtracer_tpu_torch/csrc/intersect.cu",
+         "replaces": "pathtracer_tpu/ops/intersect_pallas.py:151", "launches": ln["winner"],
+         "max_abs_err": w_err, "ms": w_ms, "plain_ms": wp_ms, "bound_ms": w_bound[0],
+         "bound_by": w_bound[1]},
     ]
 
 
@@ -824,12 +1082,15 @@ def main() -> int:
     check(cli.returncode == 0, "CLI run failed")
 
     # ---- 6. the differentiable step
-    grad_kernels = grad_phase(desc, dev, card, out_dir)
+    full_loss, full_grads, grad_kernels = grad_phase(desc, dev, card, out_dir)
 
-    # ---- 7. the wavefront engines
+    # ---- 7. the per-bounce and lean differentiable engines
+    engine_kernels = grad_engines_phase(desc, dev, card, out_dir, full_loss, full_grads)
+
+    # ---- 8. the wavefront engines
     wave_kernels = wavefront_phase(scene, dev, card, out_dir, mega)
 
-    # ---- 8. results
+    # ---- 9. results
     kernels = [
         {
             "name": "trace",
@@ -845,6 +1106,7 @@ def main() -> int:
             "library_ms": None,
         },
         *grad_kernels,
+        *engine_kernels,
         *wave_kernels,
     ]
     print(f"{card}")

@@ -17,6 +17,14 @@
 // [N], terminate as one byte (0/1); the uniforms are the per-lane
 // hash_uniforms(seed, sample, depth, 11).
 //
+// The emit_replay variant (the forward of the per-bounce differentiable
+// engine, pathtracer_tpu/ops/bounce_grad.py:_fused_fwd_call) is the same
+// kernel with two optional output pointers, replay_gid and replay_nee: when
+// they are not null it also writes the winner geom as a float (-1 on a
+// miss) and the NEE bit (1 where the connection counted, else 0), the
+// discrete outcomes kernel 3 (csrc/bounce_grad.cu) replays.  Null pointers
+// give the 19-output kernel of the wavefront engines.
+//
 // Output contract: every one of the 19 outputs is defined on every lane
 // below n and equals the plain version's bit for bit, terminated lanes
 // included: a miss samples material 0's BSDF at t = 1, a light hit its own
@@ -61,7 +69,8 @@ PT_FN void bounce_lane(const Tables& T, uint32_t seed, int nee, size_t i,
                        float* __restrict__ next_o, float* __restrict__ next_d,
                        float* __restrict__ thr_mult, uint8_t* __restrict__ terminate,
                        float* __restrict__ wspec, float* __restrict__ rru,
-                       float* __restrict__ out_medium) {
+                       float* __restrict__ out_medium, float* __restrict__ replay_gid,
+                       float* __restrict__ replay_nee) {
   const V3 o = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
   const V3 d = v3(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
   const V3 t = v3(thr[3 * i], thr[3 * i + 1], thr[3 * i + 2]);
@@ -79,6 +88,10 @@ PT_FN void bounce_lane(const Tables& T, uint32_t seed, int nee, size_t i,
   wspec[i] = b.wspec;
   rru[i] = uniform(base, 3);
   for (int k = 0; k < 4; ++k) out_medium[4 * i + k] = medium[4 * i + k];
+  if (replay_gid != nullptr) {
+    replay_gid[i] = (float)b.gid;
+    replay_nee[i] = b.nee_add ? 1.0f : 0.0f;
+  }
 }
 
 }  // namespace pt
@@ -101,7 +114,8 @@ bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ m
               float* __restrict__ contrib, float* __restrict__ next_o,
               float* __restrict__ next_d, float* __restrict__ thr_mult,
               uint8_t* __restrict__ terminate, float* __restrict__ wspec,
-              float* __restrict__ rru, float* __restrict__ out_medium) {
+              float* __restrict__ rru, float* __restrict__ out_medium,
+              float* __restrict__ replay_gid, float* __restrict__ replay_nee) {
   extern __shared__ float smem[];
   float* s_g = smem;
   float* s_m = s_g + G * GCOLS;
@@ -115,7 +129,8 @@ bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ m
   if (idx >= n) return;
   const Tables T{s_g, s_m, s_l, G, scal[0], scal[1] > 0.5f};
   bounce_lane(T, seed, nee, (size_t)idx, origin, direction, thr, sample, depth, prev, medium,
-              contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium);
+              contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
+              replay_nee);
 }
 
 }  // namespace
@@ -127,13 +142,15 @@ extern "C" int bounce_launch(const float* gtab, int G, const float* mtab, int M,
                              const float* prev, const float* medium, float* contrib,
                              float* next_o, float* next_d, float* thr_mult,
                              unsigned char* terminate, float* wspec, float* rru,
-                             float* out_medium, void* stream) {
+                             float* out_medium, float* replay_gid, float* replay_nee,
+                             void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + THREADS - 1) / THREADS;
   const size_t smem = sizeof(float) * (size_t)(G * GCOLS + M * MCOLS + G * LCOLS);
   bounce_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       gtab, G, mtab, M, ltab, scal, seed, nee, n, origin, direction, thr, sample, depth, prev,
-      medium, contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium);
+      medium, contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
+      replay_nee);
   return (int)cudaGetLastError();
 }
 

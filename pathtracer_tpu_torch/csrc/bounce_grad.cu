@@ -1,0 +1,164 @@
+// The backward of one bounce for Hopper (sm_90a): the per-bounce
+// differentiable engine's reverse kernel.
+//
+// Replaces the TPU kernel pathtracer_tpu/ops/bounce_grad.py:_bounce_bwd_kernel
+// (launched by _fused_bwd_call, :260), the backward of bounce_fused_diff for
+// analytic scenes.  Its forward is kernel 2's emit_replay variant
+// (csrc/bounce.cu with the replay pointers set).  The plain PyTorch version
+// is pathtracer_tpu_torch/ops/bounce_grad.py:bounce_bwd_plain:
+// torch.autograd of ops/bounce.py:bounce_physics(replay=...) for one bounce.
+//
+// Per lane it reads 14 input planes (origin, direction, throughput, sample
+// index, depth, emit state, and the forward's replay planes: winner geom as
+// a float, -1 on a miss, and the NEE bit) and the cotangents of the four
+// differentiable outputs (contrib, next origin, next direction, throughput
+// multiplier), runs bounce_adj.cuh's physics_adj (the adjoint kernel 5 runs
+// too) in double at the float forward's recomputed values, and writes
+// d_origin, d_direction and d_throughput ([N, 3] each).  No sweep and no
+// shadow ray run: the winner and the NEE bit are replayed, since both are
+// comparisons and carry no cotangent.  The medium passes through the bounce
+// unchanged in the port's vacuum scenes, so its cotangent passes through in
+// the wrapper and this kernel neither reads nor writes medium planes.
+//
+// Output contract: mask-free, as kernel 2's.  For any cotangents on any
+// lane, misses and light hits included, the outputs are the adjoint of the
+// bounce kernel 2 computed on that lane: a miss differentiates p = o + d and
+// material 0's BSDF at the zero normal, a light hit its counted emission and
+// its own material's BSDF.  Zero cotangents give exact zeros.  Lanes past n
+// read and write nothing.
+//
+// Table cotangents: the row of K = 14 G + 28 M + 19 G + 2 floats (495 for
+// Cornell) that autograd of ops/bounce.py:pack_tables carries to the scene.
+// Each block sums its lanes' cotangents into a shared-memory row with float
+// atomics (no fixed order within a block), writes it to its row of
+// `partial`, and bounce_adj.cuh's block_row_sum adds the rows in block
+// order.  The TPU kernel accumulated into one SMEM row across its sequential
+// grid; on the GPU the blocks run at once.
+//
+// Design: one thread per lane, the tables in shared memory, the adjoint in
+// registers.  What bounds it on the H100: bytes, on paper (140 B per lane:
+// 23 four-byte planes in, 9 out; 89.6 MB per 640,000-lane launch, 0.027 ms
+// at 3.35 TB/s), but its adjoint is several times a bounce's shading
+// arithmetic in double, and its shared-memory atomics serialize where a
+// block's lanes hit the same geom; chip_smoke.py measures it.
+
+#ifdef __CUDACC__
+#include <cuda_runtime.h>
+#endif
+#include <stdint.h>
+
+#include "bounce_adj.cuh"
+
+namespace pt {
+
+// one lane of kernel 3; also compiled as host C++ by
+// tests/kernel_host_harness.cpp
+PT_FN void bounce_bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, int nee, size_t i,
+                           const float* __restrict__ origin, const float* __restrict__ direction,
+                           const float* __restrict__ thr, const uint32_t* __restrict__ sample,
+                           const int32_t* __restrict__ depth, const float* __restrict__ prev,
+                           const float* __restrict__ replay_gid,
+                           const float* __restrict__ replay_nee,
+                           const float* __restrict__ g_contrib, const float* __restrict__ g_next_o,
+                           const float* __restrict__ g_next_d,
+                           const float* __restrict__ g_thr_mult, float* __restrict__ d_origin,
+                           float* __restrict__ d_direction, float* __restrict__ d_thr,
+                           float* acc) {
+  const V3 o = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
+  const V3 d = v3(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
+  const V3 t = v3(thr[3 * i], thr[3 * i + 1], thr[3 * i + 2]);
+  const int dep = depth[i];
+  const uint32_t base = bounce_base(seed, sample[i] * 0x85EBCA6Bu, dep);
+  const Replay r = replay_bounce(T, o, d, (int)replay_gid[i]);
+  const D3 gc = d3(g_contrib[3 * i], g_contrib[3 * i + 1], g_contrib[3 * i + 2]);
+  const D3 gno = d3(g_next_o[3 * i], g_next_o[3 * i + 1], g_next_o[3 * i + 2]);
+  const D3 gnd = d3(g_next_d[3 * i], g_next_d[3 * i + 1], g_next_d[3 * i + 2]);
+  const D3 gtm = d3(g_thr_mult[3 * i], g_thr_mult[3 * i + 1], g_thr_mult[3 * i + 2]);
+  D3 g_o = d3(0.0, 0.0, 0.0), g_d = g_o, g_t = g_o;
+  physics_adj(T, R, r, base, dep, nee, o, d, t, prev[i], replay_nee[i] > 0.5f, gc, gno, gnd, gtm,
+              g_o, g_d, g_t, acc);
+  const D3* vec[3] = {&g_o, &g_d, &g_t};
+  float* out[3] = {d_origin, d_direction, d_thr};
+  for (int k = 0; k < 3; ++k) {
+    out[k][3 * i] = (float)vec[k]->x;
+    out[k][3 * i + 1] = (float)vec[k]->y;
+    out[k][3 * i + 2] = (float)vec[k]->z;
+  }
+}
+
+}  // namespace pt
+
+#ifdef __CUDACC__
+
+namespace {
+
+using namespace pt;
+
+constexpr int THREADS = 128;
+
+__global__ void __launch_bounds__(THREADS)
+bounce_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mtab, int M,
+                  const float* __restrict__ ltab, const float* __restrict__ scal, uint32_t seed,
+                  int nee, int n, const float* __restrict__ origin,
+                  const float* __restrict__ direction, const float* __restrict__ thr,
+                  const uint32_t* __restrict__ sample, const int32_t* __restrict__ depth,
+                  const float* __restrict__ prev, const float* __restrict__ replay_gid,
+                  const float* __restrict__ replay_nee, const float* __restrict__ g_contrib,
+                  const float* __restrict__ g_next_o, const float* __restrict__ g_next_d,
+                  const float* __restrict__ g_thr_mult, float* __restrict__ d_origin,
+                  float* __restrict__ d_direction, float* __restrict__ d_thr,
+                  float* __restrict__ partial) {
+  extern __shared__ float smem[];
+  const RowLayout R = row_layout(G, M);
+  float* s_acc = smem + table_floats(G, M);
+  load_tables(smem, gtab, G, mtab, M, ltab);
+  for (int i = threadIdx.x; i < R.k; i += blockDim.x) s_acc[i] = 0.0f;
+  __syncthreads();
+  const Tables T{smem, smem + G * GCOLS, smem + G * GCOLS + M * MCOLS, G, scal[0],
+                 scal[1] > 0.5f};
+
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx < n)  // lanes past n contribute nothing
+    bounce_bwd_lane(T, R, seed, nee, (size_t)idx, origin, direction, thr, sample, depth, prev,
+                    replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult, d_origin,
+                    d_direction, d_thr, s_acc);
+  __syncthreads();
+  for (int i = threadIdx.x; i < R.k; i += blockDim.x)
+    partial[(size_t)blockIdx.x * R.k + i] = s_acc[i];
+}
+
+}  // namespace
+
+// the number of blocks (rows of `partial`) kernel 3 runs for n lanes
+extern "C" int bounce_bwd_blocks(int n) { return (n + THREADS - 1) / THREADS; }
+
+extern "C" int bounce_bwd_launch(const float* gtab, int G, const float* mtab, int M,
+                                 const float* ltab, const float* scal, unsigned int seed, int nee,
+                                 int n, const float* origin, const float* direction,
+                                 const float* thr, const unsigned int* sample, const int* depth,
+                                 const float* prev, const float* replay_gid,
+                                 const float* replay_nee, const float* g_contrib,
+                                 const float* g_next_o, const float* g_next_d,
+                                 const float* g_thr_mult, float* d_origin, float* d_direction,
+                                 float* d_thr, float* partial, float* row, void* stream) {
+  const RowLayout R = row_layout(G, M);
+  const int blocks = bounce_bwd_blocks(n);
+  if (n <= 0) return (int)cudaMemsetAsync(row, 0, sizeof(float) * R.k, (cudaStream_t)stream);
+  const size_t smem = sizeof(float) * (table_floats(G, M) + R.k);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        bounce_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  bounce_bwd_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+      gtab, G, mtab, M, ltab, scal, seed, nee, n, origin, direction, thr, sample, depth, prev,
+      replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult, d_origin, d_direction,
+      d_thr, partial);
+  cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return (int)e;
+  block_row_sum<<<(R.k + ROW_SUM_THREADS - 1) / ROW_SUM_THREADS, ROW_SUM_THREADS, 0,
+                  (cudaStream_t)stream>>>(partial, blocks, R.k, row);
+  return (int)cudaGetLastError();
+}
+
+#endif  // __CUDACC__

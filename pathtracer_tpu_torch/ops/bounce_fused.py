@@ -13,6 +13,12 @@ code, BSDF continuation, and NEE with a shadow sweep.
   thread per lane, the tables in shared memory, the same ``pt::bounce``
   as the trace kernels).  Its 19 outputs equal the plain version's on
   every lane, terminated lanes included (the header says why).
+* ``emit_replay=True`` on either is the forward of the per-bounce
+  differentiable engine (``pathtracer_tpu/ops/bounce_grad.py:200-257``):
+  it also returns the winner geom as a float (-1 on a miss) and the NEE
+  bit, the planes kernel 3 (``ops/bounce_grad.py``) replays.  On the card
+  it is the same kernel with two more output pointers, counted in
+  ``replay_launches``.
 * :func:`bounce_fused` dispatches on the rays' device: a CUDA tensor
   launches the kernel or raises, a CPU tensor takes the plain version.
 
@@ -34,7 +40,8 @@ from pathtracer_tpu_torch.ops.intersect import T_MIN
 from pathtracer_tpu_torch.ops.rng import hash_uniforms_planes
 from pathtracer_tpu_torch.ops.trace import check_launch, check_tensor
 
-launches = 0  # launches of csrc/bounce.cu in this process
+launches = 0  # launches of csrc/bounce.cu in this process, without replay planes
+replay_launches = 0  # launches of its emit_replay variant
 
 
 @dataclasses.dataclass(frozen=True)
@@ -58,9 +65,11 @@ def _per_lane_depth(depth, n: int, device) -> torch.Tensor:
 
 def bounce_fused_plain(tables, origin, direction, throughput, sample_idx, depth,
                        prev_specular, medium_sigma, seed: int, *, nee: bool,
-                       features=frozenset()) -> BounceResult:
+                       features=frozenset(), emit_replay: bool = False):
     """Plain version of kernel 2.  ``depth`` is an int or a per-lane
-    tensor; ``medium_sigma`` ``[N, 4]``."""
+    tensor; ``medium_sigma`` ``[N, 4]``.  Returns a :class:`BounceResult`,
+    with ``emit_replay`` the tuple ``(BounceResult, replay_gid [N],
+    replay_nee_add [N])``."""
     gtab, mtab, ltab, scal = tables
     depth = _per_lane_depth(depth, origin.shape[0], origin.device)
     u = hash_uniforms_planes(seed, sample_idx, depth, 11)
@@ -68,9 +77,9 @@ def bounce_fused_plain(tables, origin, direction, throughput, sample_idx, depth,
         tuple(origin.unbind(-1)), tuple(direction.unbind(-1)), tuple(throughput.unbind(-1)),
         tuple(medium_sigma[:, :3].unbind(-1)), medium_sigma[:, 3],
         gtab, mtab, ltab, scal, u, depth, prev_specular.to(torch.float32),
-        nee=nee, t_min=T_MIN, features=features,
+        nee=nee, t_min=T_MIN, features=features, emit_replay=emit_replay,
     )
-    return BounceResult(
+    res = BounceResult(
         contrib=torch.stack(out["contrib"], dim=-1),
         next_origin=torch.stack(out["next_o"], dim=-1),
         next_direction=torch.stack(out["next_d"], dim=-1),
@@ -80,6 +89,7 @@ def bounce_fused_plain(tables, origin, direction, throughput, sample_idx, depth,
         rr_uniform=out["rru"],
         next_medium=torch.stack([*out["out_ma"], out["out_ms"]], dim=-1),
     )
+    return (res, out["replay_gid"], out["replay_nee_add"]) if emit_replay else res
 
 
 def _lib():
@@ -92,15 +102,18 @@ def _lib():
             ctypes.c_uint, I, I,  # seed, nee, n
             P, P, P, P, P, P, P,  # origin, direction, throughput, sample, depth, state, medium
             P, P, P, P, P, P, P, P,  # contrib, next o, next d, thr mult, terminate, state, rru, medium
+            P, P,  # replay gid, replay NEE bit (null: not written)
             P,  # stream
         ]
     return fn
 
 
 def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
-                      prev_specular, medium_sigma, seed: int, *, nee: bool) -> BounceResult:
-    """Launch kernel 2 on the rays' CUDA device, on the current stream."""
-    global launches
+                      prev_specular, medium_sigma, seed: int, *, nee: bool,
+                      emit_replay: bool = False):
+    """Launch kernel 2 on the rays' CUDA device, on the current stream;
+    ``emit_replay`` as in :func:`bounce_fused_plain`."""
+    global launches, replay_launches
     gtab, mtab, ltab, scal = tables
     device = origin.device
     n = origin.shape[0]
@@ -117,6 +130,7 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
     terminate = torch.empty(n, dtype=torch.uint8, device=device)
     wspec, rru = torch.empty(n, **f32), torch.empty(n, **f32)
     medium = torch.empty((n, 4), **f32)
+    replay = (torch.empty(n, **f32), torch.empty(n, **f32)) if emit_replay else (None, None)
     err = _lib()(
         gtab.data_ptr(), g, mtab.data_ptr(), m, ltab.data_ptr(), scal.data_ptr(),
         int(seed) & 0xFFFFFFFF, int(bool(nee)), n,
@@ -124,14 +138,19 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
         depth.data_ptr(), prev.data_ptr(), medium_sigma.data_ptr(),
         contrib.data_ptr(), next_o.data_ptr(), next_d.data_ptr(), thr_mult.data_ptr(),
         terminate.data_ptr(), wspec.data_ptr(), rru.data_ptr(), medium.data_ptr(),
+        *(None if r is None else r.data_ptr() for r in replay),
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"bounce kernel launch failed: CUDA error {err}")
+    res = BounceResult(contrib=contrib, next_origin=next_o, next_direction=next_d,
+                       throughput_mult=thr_mult, terminate=terminate.view(torch.bool),
+                       was_specular=wspec, rr_uniform=rru, next_medium=medium)
+    if emit_replay:
+        replay_launches += 1
+        return (res, *replay)
     launches += 1
-    return BounceResult(contrib=contrib, next_origin=next_o, next_direction=next_d,
-                        throughput_mult=thr_mult, terminate=terminate.view(torch.bool),
-                        was_specular=wspec, rr_uniform=rru, next_medium=medium)
+    return res
 
 
 def bounce_fused(scene, origin, direction, throughput, sample_idx, depth, prev_specular,

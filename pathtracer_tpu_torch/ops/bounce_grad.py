@@ -1,0 +1,230 @@
+"""The per-bounce differentiable engine's bounce: kernel 2 with replay planes
+forward, kernel 3 backward.
+
+Port of ``pathtracer_tpu/ops/bounce_grad.py`` for analytic scenes.  The
+forward is one bounce (``ops/bounce_fused.py``, kernel 2) that also emits
+the two discrete outcomes it resolved: the winner geom and the NEE bit.
+The backward replays them (no sweep, no shadow ray: both are comparisons
+and carry no cotangent) and differentiates ``ops/bounce.py:bounce_physics``
+for that bounce alone.
+
+* :func:`bounce_bwd_plain` is the plain version: ``torch.autograd.grad`` of
+  ``bounce_physics(replay=...)`` (``jax.vjp`` inside the TPU kernel), in
+  float32, or in float64 at the float32 bounce's own values (the reference
+  kernel 3 is held to, as ``ops/trace_grad.py:tbwd_plain``'s).
+* :func:`bounce_bwd_cuda` launches ``csrc/bounce_grad.cu`` (kernel 3: one
+  thread per lane, the tables in shared memory, the adjoint of
+  ``csrc/bounce_adj.cuh`` that kernel 5 shares, per-block table rows summed
+  in block order).
+* :class:`BounceDiff` is the ``torch.autograd.Function`` (the
+  ``jax.custom_vjp`` of ``bounce_grad.py:380-428``): its forward saves the
+  inputs and the replay planes, its backward runs kernel 3 on a CUDA
+  tensor and the plain version on a CPU tensor.
+* :func:`bounce_fused_diff` returns a ``BounceResult`` whose contribution,
+  continuation and throughput multiplier carry gradients to the tables and
+  the carries.
+
+The medium passes through the bounce in the port's vacuum scenes, so it
+stays outside the Function: ``next_medium`` is ``medium_sigma`` itself and
+its cotangent passes through as JAX's kernel passes it (zero in the scans,
+whose medium starts as a constant).  Volumetric media raise, as the other
+optional blocks do.
+
+Output contract of both backwards: mask-free, as kernel 2's forward.  Any
+cotangents on any lane, misses and light hits included, give the adjoint of
+the bounce kernel 2 computed on that lane.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+
+import torch
+
+from pathtracer_tpu_torch.ops import _build
+from pathtracer_tpu_torch.ops.bounce import bounce_physics, check_features, pack_tables
+from pathtracer_tpu_torch.ops.bounce_fused import (
+    BounceResult,
+    _per_lane_depth,
+    bounce_fused_cuda,
+    bounce_fused_plain,
+)
+from pathtracer_tpu_torch.ops.intersect import T_MIN
+from pathtracer_tpu_torch.ops.rng import hash_uniforms_planes
+from pathtracer_tpu_torch.ops.trace import check_launch, check_tensor
+from pathtracer_tpu_torch.ops.trace_grad import (
+    _Float32Values,
+    fused_diff_eligible,
+    grad_row_len,
+    split_grad_row,
+)
+
+launches = 0  # launches of csrc/bounce_grad.cu (its kernel and its block sum)
+
+
+def bounce_bwd_plain(tables, origin, direction, throughput, sample_idx, depth, prev_specular,
+                     replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult,
+                     seed: int, *, nee: bool, features=frozenset(), dtype=torch.float32):
+    """Plain version of kernel 3: ``(d_gtab, d_mtab, d_ltab, d_scal,
+    d_origin [N, 3], d_direction [N, 3], d_throughput [N, 3])`` of one
+    bounce, from the cotangents of its contribution, next origin, next
+    direction and throughput multiplier (``[N, 3]`` each).
+
+    ``dtype=torch.float64`` returns the float64 reference: the bounce's
+    values are the float32 bounce's own (``ops/trace_grad._Float32Values``)
+    and autograd's products and sums run in float64, as kernel 3's adjoint
+    does."""
+    if dtype not in (torch.float32, torch.float64):
+        raise ValueError(f"dtype must be float32 or float64, got {dtype}")
+    values = _Float32Values() if dtype == torch.float64 else contextlib.nullcontext()
+    tabs = [t.detach().to(dtype).requires_grad_(True) for t in tables]
+    leaves = [x[:, k].detach().to(dtype).requires_grad_(True)
+              for x in (origin, direction, throughput) for k in range(3)]
+    depth = _per_lane_depth(depth, origin.shape[0], origin.device)
+    u = hash_uniforms_planes(seed, sample_idx, depth, 11)
+    zero = torch.zeros_like(leaves[0])
+    replay = {"gid": replay_gid.to(dtype), "nee_add": replay_nee.to(dtype)}
+    with torch.enable_grad():
+        with values:
+            out = bounce_physics(
+                tuple(leaves[0:3]), tuple(leaves[3:6]), tuple(leaves[6:9]), (zero,) * 3, zero,
+                *tabs, u, depth, prev_specular.to(dtype), nee=nee, t_min=T_MIN,
+                features=features, replay=replay,
+            )
+        cots = [g.to(dtype)[:, k] for g in (g_contrib, g_next_o, g_next_d, g_thr_mult)
+                for k in range(3)]
+        grads = torch.autograd.grad(
+            [c for key in ("contrib", "next_o", "next_d", "thr_mult") for c in out[key]],
+            [*tabs, *leaves], grad_outputs=cots, allow_unused=True,
+        )
+    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, tabs + leaves)]
+    return (*grads[:4], *(torch.stack(grads[4 + 3 * i:7 + 3 * i], dim=-1) for i in range(3)))
+
+
+def _lib():
+    lib = _build.load("bounce_grad")
+    if lib.bounce_bwd_launch.argtypes is None:  # ctypes would cut pointers to 32 bits
+        P, I = ctypes.c_void_p, ctypes.c_int
+        lib.bounce_bwd_launch.restype = ctypes.c_int
+        lib.bounce_bwd_launch.argtypes = [
+            P, I, P, I, P, P,  # geom table, G, material table, M, light table, scalars
+            ctypes.c_uint, I, I,  # seed, nee, n
+            P, P, P, P, P, P,  # origin, direction, throughput, sample, depth, emit state
+            P, P,  # replay gid, replay NEE bit
+            P, P, P, P,  # cotangents: contrib, next origin, next direction, thr mult
+            P, P, P,  # d_origin, d_direction, d_throughput
+            P, P,  # block partials, table row
+            P,  # stream
+        ]
+        lib.bounce_bwd_blocks.restype = ctypes.c_int
+        lib.bounce_bwd_blocks.argtypes = [I]
+    return lib
+
+
+def bounce_bwd_cuda(tables, origin, direction, throughput, sample_idx, depth, prev_specular,
+                    replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult,
+                    seed: int, *, nee: bool):
+    """Launch kernel 3 and its fixed-order block sum on the rays' CUDA
+    device, on the current stream: what :func:`bounce_bwd_plain` returns."""
+    global launches
+    gtab, mtab, ltab, scal = tables
+    device = origin.device
+    n = origin.shape[0]
+    g, m, bits = check_launch(gtab, mtab, ltab, scal, sample_idx, n, device)
+    depth = _per_lane_depth(depth, n, device)
+    prev = prev_specular.to(torch.float32).contiguous()
+    f32 = torch.float32
+    for t, name, shape in ((origin, "origin", (n, 3)), (direction, "direction", (n, 3)),
+                           (throughput, "throughput", (n, 3)), (prev, "prev_specular", (n,)),
+                           (replay_gid, "replay_gid", (n,)), (replay_nee, "replay_nee", (n,)),
+                           (g_contrib, "contrib cotangent", (n, 3)),
+                           (g_next_o, "next origin cotangent", (n, 3)),
+                           (g_next_d, "next direction cotangent", (n, 3)),
+                           (g_thr_mult, "throughput multiplier cotangent", (n, 3))):
+        check_tensor(t, name, f32, shape, device)
+
+    lib = _lib()
+    k = grad_row_len(g, m)
+    d_o, d_d, d_t = (torch.empty((n, 3), dtype=f32, device=device) for _ in range(3))
+    partial = torch.empty((max(lib.bounce_bwd_blocks(n), 1), k), dtype=f32, device=device)
+    row = torch.empty((k,), dtype=f32, device=device)
+    err = lib.bounce_bwd_launch(
+        gtab.data_ptr(), g, mtab.data_ptr(), m, ltab.data_ptr(), scal.data_ptr(),
+        int(seed) & 0xFFFFFFFF, int(bool(nee)), n,
+        origin.data_ptr(), direction.data_ptr(), throughput.data_ptr(), bits.data_ptr(),
+        depth.data_ptr(), prev.data_ptr(), replay_gid.data_ptr(), replay_nee.data_ptr(),
+        g_contrib.data_ptr(), g_next_o.data_ptr(), g_next_d.data_ptr(), g_thr_mult.data_ptr(),
+        d_o.data_ptr(), d_d.data_ptr(), d_t.data_ptr(), partial.data_ptr(), row.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"bounce backward kernel launch failed: CUDA error {err}")
+    launches += 1
+    return (*split_grad_row(row, g, m), d_o, d_d, d_t)
+
+
+class BounceDiff(torch.autograd.Function):
+    """One bounce with kernel 3 as its backward: ``(contrib, next_origin,
+    next_direction, throughput_mult, terminate, was_specular, rr_uniform,
+    replay_gid, replay_nee_add)``; the last five are not differentiable.
+    ``opts`` holds ``nee`` and ``features``."""
+
+    @staticmethod
+    def forward(ctx, gtab, mtab, ltab, scal, origin, direction, throughput, sample_idx, depth,
+                prev_specular, seed, opts):
+        n = origin.shape[0]
+        depth = _per_lane_depth(depth, n, origin.device)
+        medium = torch.zeros((n, 4), dtype=torch.float32, device=origin.device)
+        args = ((gtab, mtab, ltab, scal), origin, direction, throughput, sample_idx, depth,
+                prev_specular, medium, seed)
+        if origin.device.type == "cuda":
+            res, rgid, rnee = bounce_fused_cuda(*args, nee=opts["nee"], emit_replay=True)
+        elif origin.device.type == "cpu":
+            res, rgid, rnee = bounce_fused_plain(*args, nee=opts["nee"],
+                                                 features=opts["features"], emit_replay=True)
+        else:
+            raise ValueError(f"no differentiable bounce for device {origin.device}")
+        ctx.save_for_backward(gtab, mtab, ltab, scal, origin, direction, throughput, sample_idx,
+                              depth, prev_specular, rgid, rnee)
+        ctx.seed, ctx.opts = seed, opts
+        terminate = res.terminate.clone()  # a view of the kernel's byte plane
+        ctx.mark_non_differentiable(terminate, res.was_specular, res.rr_uniform, rgid, rnee)
+        return (res.contrib, res.next_origin, res.next_direction, res.throughput_mult,
+                terminate, res.was_specular, res.rr_uniform, rgid, rnee)
+
+    @staticmethod
+    def backward(ctx, g_contrib, g_next_o, g_next_d, g_thr_mult, *_):
+        saved = ctx.saved_tensors
+        args = ((*saved[:4],), *saved[4:],
+                *(g.contiguous() for g in (g_contrib, g_next_o, g_next_d, g_thr_mult)), ctx.seed)
+        if saved[4].device.type == "cuda":
+            grads = bounce_bwd_cuda(*args, nee=ctx.opts["nee"])
+        else:
+            grads = bounce_bwd_plain(*args, nee=ctx.opts["nee"], features=ctx.opts["features"])
+        return (*grads, None, None, None, None, None)
+
+
+def bounce_fused_diff(scene, origin, direction, throughput, sample_idx, depth, prev_specular,
+                      medium_sigma, seed: int, cfg, tables=None) -> BounceResult:
+    """Differentiable bounce (``bounce_grad.py:348``): forward kernel 2 with
+    replay planes, backward kernel 3 (their plain versions on the CPU).
+    ``tables`` are :func:`pack_tables` of the scene, whose graph carries
+    the table cotangents on to the scene's tensors."""
+    check_features(cfg.features)
+    if not fused_diff_eligible(scene, cfg):
+        raise NotImplementedError(
+            "differentiable bounce of meshes, image textures, HG media or fast_rng=False: "
+            "later slice"
+        )
+    gtab, mtab, ltab, scal = tables if tables is not None else pack_tables(scene)
+    if medium_sigma is None:
+        medium_sigma = torch.zeros((origin.shape[0], 4), dtype=torch.float32,
+                                   device=origin.device)
+    opts = dict(nee=cfg.nee, features=frozenset(cfg.features))
+    out = BounceDiff.apply(gtab, mtab, ltab, scal, origin, direction, throughput, sample_idx,
+                           depth, prev_specular, int(seed), opts)
+    return BounceResult(
+        contrib=out[0], next_origin=out[1], next_direction=out[2], throughput_mult=out[3],
+        terminate=out[4], was_specular=out[5], rr_uniform=out[6], next_medium=medium_sigma,
+    )

@@ -54,8 +54,10 @@ class MaterialLookup:
 
 
 def gather_materials(mtab: torch.Tensor, material_id: torch.Tensor) -> MaterialLookup:
-    """Rows of the material table per ray (``material_id`` detached)."""
-    rows = mtab[material_id.detach().long()]
+    """Rows of the material table per ray (``material_id`` detached).  An
+    ``index_select``, whose backward adds rows with ``index_add_``: the
+    backward of ``mtab[ids]`` serializes the many lanes that share a row."""
+    rows = torch.index_select(mtab, 0, material_id.detach().long())
     return MaterialLookup(
         color=rows[:, 0:3],
         specular_color=rows[:, 3:6],

@@ -3,12 +3,15 @@
 Port of ``pathtracer_tpu/ops/intersect.py:37-111`` (``BIG``, ``T_MIN``,
 ``Hit``, ``sphere_t_planes``, ``cube_t_planes``) and
 ``pathtracer_tpu/ops/intersect_pallas.py:58-80,206-216`` (``_geom_t``,
-``_pack_gdata``), with the plain versions of two TPU kernels of
+``_pack_gdata``), with the plain versions of three TPU kernels of
 ``intersect_pallas.py``: :func:`nearest_hit_plain` (``_nearest_hit_kernel``,
-``:92-148``: the nearest hit with its full record) and
-:func:`occlusion_t_plain` (``_occlusion_kernel``, ``:197-203``: a shadow
-ray's nearest ``t``).  Their CUDA kernels are ``csrc/intersect.cu``
-(``ops/intersect_cuda.py``).  A geom's row is read as tensors, so ``t`` and the
+``:92-148``: the nearest hit with its full record),
+:func:`winner_t_gid_plain` (``_winner_kernel``, ``:151-170``: the winner's
+``t`` and geom id only) and :func:`occlusion_t_plain` (``_occlusion_kernel``,
+``:197-203``: a shadow ray's nearest ``t``).  Their CUDA kernels are
+``csrc/intersect.cu`` (``ops/intersect_cuda.py``).  :func:`intersect_scene_lean`
+ports ``pathtracer_tpu/ops/intersect.py:777-926`` for analytic geoms: the
+differentiable recompute of the winner only.  A geom's row is read as tensors, so ``t`` and the
 object-space ray carry gradients to the geom table.  Unit primitives live in object space (sphere r = 0.5,
 cube side 1) and are tested through the inverse transform; the
 object-space direction stays unnormalized, so ``t`` is the world-space
@@ -218,3 +221,63 @@ def occlusion_t_plain(rays: Rays, gtab: torch.Tensor) -> torch.Tensor:
     for g, row in enumerate(gtab.unbind(0)):
         best_t = torch.minimum(best_t, geom_t(row, *o, *d, T_MIN, gtypes[g])[0])
     return best_t
+
+
+def winner_t_gid_plain(rays: Rays, gtab: torch.Tensor):
+    """Plain version of kernel 7 (``csrc/intersect.cu:winner_kernel``): the
+    sweep's winner, ``(t [N] float32, gid [N] int32)``.  Strict ``t < best``
+    keeps the first minimum; a miss gives ``BIG`` and geom 0, as
+    ``_winner_kernel`` and ``jnp.argmin`` do."""
+    o, d = rays.origin.unbind(-1), rays.direction.unbind(-1)
+    gtypes = gtab[:, 12].tolist()
+    best_t = torch.full_like(o[0], BIG)
+    gid = torch.zeros(o[0].shape, dtype=torch.int32, device=o[0].device)
+    for g, row in enumerate(gtab.unbind(0)):
+        t_g = geom_t(row, *o, *d, T_MIN, gtypes[g])[0]
+        better = t_g < best_t
+        best_t = torch.where(better, t_g, best_t)
+        gid = torch.where(better, g, gid)
+    return best_t, gid
+
+
+def intersect_scene_lean(rays: Rays, gtab: torch.Tensor, winner=None) -> Hit:
+    """Nearest hit whose backward costs O(N), not O(N G): a detached winner
+    search, then the differentiable recompute of the winner only
+    (``pathtracer_tpu/ops/intersect.py:777-926``).  ``winner`` is the
+    search's ``(t, gid)`` when the caller ran it (kernel 7 on the card);
+    without it :func:`winner_t_gid_plain` runs on detached inputs.
+
+    Equal to the sweep a.e.; cotangents reach the winner's geom row and the
+    ray.  The winner's row is gathered per lane (JAX: a one-hot matmul of
+    the same values).  Where the recompute disagrees with the search about
+    hitting at all, the detached ``t`` of the search stands (``:882-884``).
+    A miss keeps geom 0's row and material, as JAX's argmin does."""
+    if winner is None:
+        winner = winner_t_gid_plain(
+            Rays(rays.origin.detach(), rays.direction.detach()), gtab.detach()
+        )
+    t_win, gid = winner
+    hit = t_win < BIG
+    # index_select: its backward adds rows with index_add_ (gtab[gid]'s
+    # serializes the many lanes that share a row)
+    rows = torch.index_select(gtab, 0, gid.long()).unbind(-1)
+    o, d = rays.origin.unbind(-1), rays.direction.unbind(-1)
+    obj = _to_object(rows, *o, *d)
+    is_sphere = rows[12] == float(SPHERE)
+    ts = sphere_t_planes(*obj)
+    tc = cube_t_planes(*obj)
+    t_re = torch.where(is_sphere, ts, torch.where(rows[12] == float(CUBE), tc, BIG))
+    t = torch.where(t_re < BIG, t_re, t_win)
+    t_safe = torch.where(hit, t, 1.0)
+    p = tuple(oc + t_safe * dc for oc, dc in zip(o, d))
+    p_obj = (obj[0] + t_safe * obj[3], obj[1] + t_safe * obj[4], obj[2] + t_safe * obj[5])
+    normal = world_normal(rows, object_normal(is_sphere, p_obj))
+    return Hit(
+        t=t,
+        hit=hit,
+        geom_id=gid,
+        material_id=rows[13].to(torch.int32),
+        position=torch.stack(p, dim=-1),
+        position_obj=torch.stack(p_obj, dim=-1),
+        normal=torch.stack(normal, dim=-1),
+    )

@@ -1,14 +1,15 @@
-"""Nearest hit and shadow-ray occlusion of analytic scenes: the CUDA kernels
-and their dispatch.
+"""Nearest hit, winner search and shadow-ray occlusion of analytic scenes:
+the CUDA kernels and their dispatch.
 
-Port of ``pathtracer_tpu/ops/intersect_pallas.py:245-343``
-(``nearest_hit_planes``, ``occlusion_t_planes``, and for scenes of spheres
-and cubes ``intersect_scene_pallas`` / ``occlusion_scene_pallas``).  The
-kernels are ``csrc/intersect.cu`` (one thread per lane, the geom table in
-shared memory); their plain versions are ``ops/intersect.nearest_hit_plain``
-and ``occlusion_t_plain``.  :func:`nearest_hit` and :func:`occlusion_t`
-dispatch on the rays' device: a CUDA tensor launches the kernel or raises,
-a CPU tensor takes the plain version.  Meshes raise, as everywhere in the
+Port of ``pathtracer_tpu/ops/intersect_pallas.py:174-343``
+(``winner_t_gid_planes``, ``nearest_hit_planes``, ``occlusion_t_planes``,
+and for scenes of spheres and cubes ``intersect_scene_pallas`` /
+``occlusion_scene_pallas``).  The kernels are ``csrc/intersect.cu`` (one
+thread per lane, the geom table in shared memory); their plain versions are
+``ops/intersect.nearest_hit_plain``, ``winner_t_gid_plain`` and
+``occlusion_t_plain``.  :func:`nearest_hit`, :func:`winner_t_gid` and
+:func:`occlusion_t` dispatch on the rays' device: a CUDA tensor launches
+the kernel or raises, a CPU tensor takes the plain version.  Meshes raise, as everywhere in the
 port.
 """
 
@@ -25,12 +26,14 @@ from pathtracer_tpu_torch.ops.intersect import (
     Hit,
     nearest_hit_plain,
     occlusion_t_plain,
+    winner_t_gid_plain,
 )
 from pathtracer_tpu_torch.ops.trace import MAX_GEOMS, check_tensor
 from pathtracer_tpu_torch.scene.structs import Rays
 
 nearest_launches = 0  # launches of csrc/intersect.cu:nearest_kernel in this process
 occlusion_launches = 0  # launches of csrc/intersect.cu:occlusion_kernel
+winner_launches = 0  # launches of csrc/intersect.cu:winner_kernel
 
 P, I = ctypes.c_void_p, ctypes.c_int
 
@@ -44,6 +47,9 @@ def _lib():
         lib.occlusion_launch.restype = ctypes.c_int
         # gtab, G, n, origin, direction, t, stream
         lib.occlusion_launch.argtypes = [P, I, I, P, P, P, P]
+        lib.winner_launch.restype = ctypes.c_int
+        # gtab, G, n, origin, direction, t, gid, stream
+        lib.winner_launch.argtypes = [P, I, I, P, P, P, P, P]
     return lib
 
 
@@ -82,6 +88,23 @@ def nearest_hit_cuda(rays: Rays, gtab: torch.Tensor) -> Hit:
                position_obj=p_obj, normal=normal)
 
 
+def winner_t_gid_cuda(rays: Rays, gtab: torch.Tensor):
+    """Launch kernel 7: each ray's winner ``(t [N] float32, gid [N]
+    int32)``, with ``BIG`` and geom 0 on a miss."""
+    global winner_launches
+    n, g, device = _check(rays, gtab)
+    t = torch.empty(n, dtype=torch.float32, device=device)
+    gid = torch.empty(n, dtype=torch.int32, device=device)
+    err = _lib().winner_launch(
+        gtab.data_ptr(), g, n, rays.origin.data_ptr(), rays.direction.data_ptr(),
+        t.data_ptr(), gid.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"winner kernel launch failed: CUDA error {err}")
+    winner_launches += 1
+    return t, gid
+
+
 def occlusion_t_cuda(rays: Rays, gtab: torch.Tensor) -> torch.Tensor:
     """Launch kernel 8: each shadow ray's nearest ``t`` (``BIG`` = clear)."""
     global occlusion_launches
@@ -109,6 +132,12 @@ def _route(rays: Rays, kernel, plain):
 def nearest_hit(rays: Rays, gtab: torch.Tensor) -> Hit:
     """Nearest hit over the geom table ``gtab`` (``pack_geom_table``)."""
     return _route(rays, nearest_hit_cuda, nearest_hit_plain)(rays, gtab)
+
+
+def winner_t_gid(rays: Rays, gtab: torch.Tensor):
+    """The nearest hit's ``(t, gid)`` over the geom table ``gtab``, without
+    the hit frame (the lean scan's detached winner search)."""
+    return _route(rays, winner_t_gid_cuda, winner_t_gid_plain)(rays, gtab)
 
 
 def occlusion_t(rays: Rays, gtab: torch.Tensor) -> torch.Tensor:

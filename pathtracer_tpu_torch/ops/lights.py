@@ -63,10 +63,11 @@ def _sample_unit_cube_surface(u: torch.Tensor, face_areas: torch.Tensor):
     """Area-weighted point and normal on the unit cube, object space.
     ``u`` is ``[N, 3]`` (face pick, two surface coordinates), ``face_areas``
     ``[N, 3]`` the world areas of the x-, y- and z-normal face pairs."""
-    total = torch.sum(face_areas, dim=-1, keepdim=True)
-    cdf = torch.cumsum(face_areas, dim=-1) / torch.clamp(total, min=1e-20)
+    total = torch.clamp(torch.sum(face_areas, dim=-1, keepdim=True), min=1e-20)
+    cdf0 = face_areas[:, 0:1] / total  # the face-pair CDF, as a cumsum adds it
+    cdf1 = (face_areas[:, 0:1] + face_areas[:, 1:2]) / total
     pick = u[:, 0:1]
-    axis = ((pick > cdf[:, 0:1]).long() + (pick > cdf[:, 1:2]).long())[:, 0]
+    axis = ((pick > cdf0).long() + (pick > cdf1).long())[:, 0]
     side = torch.where(u[:, 1] < 0.5, -0.5, 0.5)  # which face of the pair
     c1 = torch.where(u[:, 1] < 0.5, u[:, 1] * 2.0, (u[:, 1] - 0.5) * 2.0) - 0.5
     c2 = u[:, 2] - 0.5
@@ -98,8 +99,10 @@ def sample_lights(geoms: Geoms, materials: Materials, u: torch.Tensor) -> LightS
     light_id = torch.sum((pick > cdf.detach()[None, :]).long(), dim=-1)
     light_id = torch.clamp(light_id, 0, geoms.count - 1)
 
-    xf = geoms.transform[light_id]
-    inv = geoms.inv_transform[light_id]
+    # index_select: its backward adds rows with index_add_ (x[light_id]'s
+    # serializes the many lanes that pick one light)
+    xf = torch.index_select(geoms.transform, 0, light_id)
+    inv = torch.index_select(geoms.inv_transform, 0, light_id)
     is_sphere = geoms.type[light_id] == SPHERE
     s = axis_scales(xf)  # [N, 3] per-axis world scale of the picked light
     face_pairs = 2.0 * torch.stack([s[:, 1] * s[:, 2], s[:, 0] * s[:, 2], s[:, 0] * s[:, 1]],
@@ -120,7 +123,7 @@ def sample_lights(geoms: Geoms, materials: Materials, u: torch.Tensor) -> LightS
     return LightSample(
         position=p_world,
         normal=n_world,
-        emitted=emit_g[light_id],
+        emitted=torch.index_select(emit_g, 0, light_id),
         pdf_area=torch.ones(n, dtype=u.dtype, device=u.device) * pdf,
         valid=valid.expand(n),
     )

@@ -16,9 +16,19 @@ diffuse hits with a shadow ray.  Two routes:
   (kernel 8) for the shadow ray, the rest in PyTorch ops, in the JAX split
   path's order of operations.
 
+Under ``cfg.grad_lean`` (``:204-222,395-417``) a scene in the fused scope
+takes ``ops/bounce_grad.bounce_fused_diff`` (kernel 2 with replay planes,
+kernel 3 backward); any other takes the lean split route: the detached
+winner search (``ops/intersect_cuda.winner_t_gid``, kernel 7) and the
+winner-only recompute of ``ops/intersect.intersect_scene_lean``, the split
+route's shading, and the NEE shadow ray on detached inputs through kernel
+8, visibility a comparison.  ``lean_cache``, a dict, keeps the two detached
+searches' outputs on their first run and hands them back to a recompute
+(the lean scan's per-bounce checkpoint), so neither kernel runs again.
+
 ``cfg.pallas`` picks no route in the port.  Texture, bump, volumetric,
-hg, the Cook-Torrance and Ward lobes, meshes, image textures and the lean
-differentiable route raise ``NotImplementedError``.
+hg, the Cook-Torrance and Ward lobes, meshes and image textures raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -29,10 +39,13 @@ import torch
 
 from pathtracer_tpu_torch.ops.bounce import check_features, pack_tables
 from pathtracer_tpu_torch.ops.bounce_fused import BounceResult, bounce_fused
+from pathtracer_tpu_torch.ops.bounce_grad import bounce_fused_diff
 from pathtracer_tpu_torch.ops.bsdf import RAY_BIAS, gather_materials, sample_bsdf
-from pathtracer_tpu_torch.ops.intersect_cuda import nearest_hit, occlusion_t
+from pathtracer_tpu_torch.ops.intersect import intersect_scene_lean
+from pathtracer_tpu_torch.ops.intersect_cuda import nearest_hit, occlusion_t, winner_t_gid
 from pathtracer_tpu_torch.ops.lights import sample_lights
 from pathtracer_tpu_torch.ops.rng import hash_uniforms
+from pathtracer_tpu_torch.ops.trace_grad import fused_diff_eligible
 from pathtracer_tpu_torch.scene.structs import Rays
 
 __all__ = ["BounceResult", "bounce_uniforms", "shade_bounce"]
@@ -44,14 +57,28 @@ def bounce_uniforms(seed: int, sample_idx, depth) -> torch.Tensor:
     return hash_uniforms(seed, sample_idx, depth, 11)
 
 
+def _cached(cache, key, fn):
+    """``fn()``, kept in ``cache[key]`` on the first call when a cache is
+    given."""
+    if cache is None:
+        return fn()
+    if key not in cache:
+        cache[key] = fn()
+    return cache[key]
+
+
+def _detached(rays: Rays) -> Rays:
+    return Rays(origin=rays.origin.detach().contiguous(),
+                direction=rays.direction.detach().contiguous())
+
+
 def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular, seed: int,
-                 cfg, medium_sigma=None, tables=None) -> BounceResult:
+                 cfg, medium_sigma=None, tables=None, lean_cache=None) -> BounceResult:
     """One physics step for a wavefront of rays (mask-free: callers gate
     with their alive masks).  ``depth`` is an int or a per-lane tensor;
-    ``tables`` are ``ops/bounce.pack_tables`` of the scene."""
+    ``tables`` are ``ops/bounce.pack_tables`` of the scene; ``lean_cache``
+    as the module docstring says."""
     check_features(cfg.features)
-    if cfg.grad_lean:
-        raise NotImplementedError("lean differentiable shade_bounce: later slice")
     if scene.meshes or scene.textures is not None or not cfg.fast_rng:
         raise NotImplementedError(
             "shade_bounce for meshes, image textures or fast_rng=False: later slice"
@@ -60,12 +87,20 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
     if medium_sigma is None:
         medium_sigma = torch.zeros((throughput.shape[0], 4), dtype=torch.float32,
                                    device=throughput.device)
-    if cfg.fused is not False:
+    if cfg.grad_lean and fused_diff_eligible(scene, cfg):
+        return bounce_fused_diff(scene, rays.origin, rays.direction, throughput, sample_idx,
+                                 depth, prev_specular, medium_sigma, seed, cfg, tables=tables)
+    if cfg.fused is not False and not cfg.grad_lean:
         return bounce_fused(scene, rays.origin, rays.direction, throughput, sample_idx, depth,
                             prev_specular, medium_sigma, seed, cfg, tables=tables)
 
     gtab, mtab = tables[0], tables[1]
-    hit = nearest_hit(rays, gtab)
+    if cfg.grad_lean:
+        winner = _cached(lean_cache, "winner",
+                         lambda: winner_t_gid(_detached(rays), gtab.detach().contiguous()))
+        hit = intersect_scene_lean(rays, gtab, winner=winner)
+    else:
+        hit = nearest_hit(rays, gtab)
     mat = gather_materials(mtab, hit.material_id)
     emissive = mat.emittance > 0.0
     u = bounce_uniforms(seed, sample_idx, depth)
@@ -98,8 +133,14 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
         cos_y = torch.sum(ls.normal * (-wi), dim=-1)
         diffuse_lane = hit.hit & (~emissive) & (~scatter.is_specular)
         candidate = diffuse_lane & ls.valid & (cos_x > 0) & (cos_y > 0)
-        occ_t = occlusion_t(Rays(origin=x.contiguous(), direction=wi.contiguous()), gtab)
-        visible = occ_t >= dist - 4.0 * RAY_BIAS
+        shadow = Rays(origin=x.contiguous(), direction=wi.contiguous())
+        if cfg.grad_lean:  # visibility is a comparison: the shadow ray runs detached
+            occ_t = _cached(lean_cache, "occlusion",
+                            lambda: occlusion_t(_detached(shadow), gtab.detach().contiguous()))
+            visible = occ_t >= dist.detach() - 4.0 * RAY_BIAS
+        else:
+            occ_t = occlusion_t(shadow, gtab)
+            visible = occ_t >= dist - 4.0 * RAY_BIAS
         g = cos_x * cos_y / torch.clamp(dist2, min=1e-12)
         nee = (throughput * (mat.color / math.pi) * ls.emitted
                * (g / torch.clamp(ls.pdf_area, min=1e-20))[:, None])

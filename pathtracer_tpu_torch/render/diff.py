@@ -6,16 +6,29 @@ from TRS inside the graph, so gradients reach translations, rotations and
 scales; materials and the camera are leaves themselves.  Sampling is
 detached (lobe choice, russian roulette, visibility are comparisons); the
 throughput, Fresnel weights, emittance, hit points and normals through the
-intersection ``t`` carry pathwise gradients.  Each progressive iteration
-runs the full-depth differentiable trace (``ops/trace_grad.py``): on the
-card one forward kernel and one reverse kernel, on the CPU their plain
-versions.  Gradients come from ``torch.autograd.grad`` over the
-:class:`SceneParams` leaves; a leaf with no path to the loss gets zeros,
-as in JAX's pytree of gradients.
+intersection ``t`` carry pathwise gradients.  Gradients come from
+``torch.autograd.grad`` over the :class:`SceneParams` leaves; a leaf with
+no path to the loss gets zeros, as in JAX's pytree of gradients.
 
-Not ported yet: meshes and textures as leaves (``mesh_verts`` and
-``textures`` raise when set), the LBVH cache, the per-iteration
-checkpoint for large spp and the sharded variants.
+Engines (``diff.py:279-327``), chosen per scene as JAX chooses them:
+
+* a scene in the fused scope runs each progressive iteration on the
+  full-depth differentiable trace (``ops/trace_grad.py``: kernels 4 and 5),
+  or with ``grad_full_trace=False`` on the per-bounce engine
+  (``ops/bounce_grad.py``: kernels 2 with replay planes and 3 per bounce);
+  above 8 spp each iteration runs under ``torch.utils.checkpoint``, so one
+  iteration's residuals are alive at a time and the backward recomputes
+  them with the forward kernels;
+* any other scene (``grad_fused=False``) runs each iteration as
+  :class:`LeanSample`: the forward is the fast forward engine (kernel 1 on
+  the card), the backward re-traces the lean scan (kernels 7 and 8, PyTorch
+  shading, a checkpoint per bounce) and returns the scene's cotangents.
+  JAX takes this split only on a TPU and runs the lean graph both ways on
+  the CPU; the port takes it on every device.
+
+On the card the kernels run, on the CPU their plain versions.  Not ported
+yet: meshes and textures as leaves (``mesh_verts`` and ``textures`` raise
+when set), the LBVH cache and the sharded variants.
 """
 
 from __future__ import annotations
@@ -23,10 +36,12 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.ops.bounce import pack_tables
 from pathtracer_tpu_torch.ops.rng import key_to_seed
+from pathtracer_tpu_torch.ops.trace_grad import fused_diff_eligible
 from pathtracer_tpu_torch.ops.transforms import build_transform
 from pathtracer_tpu_torch.render.features import resolve_features
 from pathtracer_tpu_torch.render.integrator import render_sample, resolve_device
@@ -144,24 +159,91 @@ def build_scene(params: SceneParams, static: SceneStatic) -> Scene:
     return Scene(geoms=geoms, materials=params.materials, camera=cam)
 
 
+CAMERA_FIELDS = ("position", "view", "up", "fov", "aperture", "focal_distance")
+
+
+def scene_tensors(scene: Scene) -> list:
+    """The float tensors of an analytic scene that gradients reach: the
+    transforms, every material field and the camera's."""
+    return [scene.geoms.transform, scene.geoms.inv_transform,
+            *(getattr(scene.materials, k) for k in MATERIAL_FIELDS),
+            *(getattr(scene.camera, k) for k in CAMERA_FIELDS)]
+
+
+def scene_with_tensors(scene: Scene, tensors) -> Scene:
+    """``scene`` with :func:`scene_tensors`' tensors replaced, in order."""
+    tensors = list(tensors)
+    nm = len(MATERIAL_FIELDS)
+    geoms = dataclasses.replace(scene.geoms, transform=tensors[0], inv_transform=tensors[1])
+    mats = Materials(**dict(zip(MATERIAL_FIELDS, tensors[2:2 + nm])))
+    cam = dataclasses.replace(scene.camera, **dict(zip(CAMERA_FIELDS, tensors[2 + nm:])))
+    return dataclasses.replace(scene, geoms=geoms, materials=mats, camera=cam)
+
+
+class LeanSample(torch.autograd.Function):
+    """One progressive iteration of the lean engine (``diff.py:299-321``):
+    ``(radiance [N, 3], rays_traced)`` of ``render_sample`` under
+    ``cfg_fwd`` (the fast forward: kernel 1 on the card), with the backward
+    re-tracing the lean scan under ``cfg_bwd`` and differentiating it
+    (``torch.autograd.grad`` at the lean forward's values, equal to the fast
+    forward's a.e.).  Its differentiable inputs are :func:`scene_tensors`."""
+
+    @staticmethod
+    def forward(ctx, scene, pixel_index, iteration, seed, cfg_fwd, cfg_bwd, *tensors):
+        scene = scene_with_tensors(scene, tensors)
+        radiance, nrays = render_sample(scene, pixel_index, iteration, seed, cfg_fwd,
+                                        tables=pack_tables(scene))
+        ctx.save_for_backward(pixel_index, *tensors)
+        ctx.scene, ctx.iteration, ctx.seed, ctx.cfg_bwd = scene, iteration, seed, cfg_bwd
+        ctx.mark_non_differentiable(nrays)
+        return radiance, nrays
+
+    @staticmethod
+    def backward(ctx, g_rad, _g_nrays):
+        pixel_index, *tensors = ctx.saved_tensors
+        needs = ctx.needs_input_grad[6:]
+        leaves = [t.detach().requires_grad_(need) for t, need in zip(tensors, needs)]
+        wanted = [x for x in leaves if x.requires_grad]
+        with torch.enable_grad():
+            scene = scene_with_tensors(ctx.scene, leaves)
+            radiance, _ = render_sample(scene, pixel_index, ctx.iteration, ctx.seed,
+                                        ctx.cfg_bwd, tables=pack_tables(scene))
+            grads = iter(torch.autograd.grad(radiance, wanted, g_rad, allow_unused=True))
+        return (None,) * 6 + tuple(next(grads) if x.requires_grad else None for x in leaves)
+
+
 def render_linear_rays(params: SceneParams, static: SceneStatic, spp: int, base_key,
                        cfg: RenderConfig):
     """Differentiable linear (pre-tonemap) image ``[N, 3]``, the mean of
     ``spp`` progressive samples, plus the measured int64 number of rays of
     one forward pass (primary, bounce and shadow rays).  Linear, because
     the gamma curve has an unbounded gradient at 0.  ``cfg.features`` is
-    trimmed to the materials' needs, as every render entry point does."""
+    trimmed to the materials' needs, as every render entry point does; the
+    engine is chosen as the module docstring says."""
     cfg = resolve_features(cfg, params.materials)
-    cfg = dataclasses.replace(cfg, fused=False, grad_lean=True, debug=False)
+    cfg_bwd = dataclasses.replace(cfg, fused=False, grad_lean=True, debug=False)
     scene = build_scene(params, static)
-    tables = pack_tables(scene)
     seed = key_to_seed(base_key)
     w, h = static.resolution
     pixel_index = torch.arange(w * h, dtype=torch.int64, device=params.device)
+    if fused_diff_eligible(scene, cfg_bwd):
+        tables = pack_tables(scene)
+
+        def sample(it):
+            if spp > 8:
+                return checkpoint(render_sample, scene, pixel_index, it, seed, cfg_bwd,
+                                  tables=tables, use_reentrant=False, preserve_rng_state=False)
+            return render_sample(scene, pixel_index, it, seed, cfg_bwd, tables=tables)
+    else:
+        cfg_fwd = dataclasses.replace(cfg, grad_lean=False, debug=False)
+
+        def sample(it):
+            return LeanSample.apply(scene, pixel_index, it, seed, cfg_fwd, cfg_bwd,
+                                    *scene_tensors(scene))
     total = torch.zeros((w * h, 3), dtype=torch.float32, device=params.device)
     rays = torch.zeros((), dtype=torch.int64, device=params.device)
     for it in range(spp):
-        radiance, n = render_sample(scene, pixel_index, it, seed, cfg, tables=tables)
+        radiance, n = sample(it)
         total = total + radiance
         rays = rays + n
     return total / spp, rays

@@ -1,22 +1,31 @@
 """Masked megakernel path integrator: the trace of one wavefront.
 
 Port of ``pathtracer_tpu/render/megakernel.py:28-175``.  The forward takes
-the full-depth trace of ``ops/trace.py`` (``:44-64`` in the JAX package);
-under ``cfg.grad_lean`` an eligible scene takes the full-depth
-differentiable trace of ``ops/trace_grad.py`` (``:66-76``).  With
-``cfg.fused=False`` the forward takes the per-bounce scan (``:116-175``,
-the non-lean branch): a loop over ``max_depth`` bounces of
+the full-depth trace of ``ops/trace.py`` (``:44-64`` in the JAX package).
+With ``cfg.fused=False`` the forward takes the per-bounce scan
+(``:116-175``, the non-lean branch): a loop over ``max_depth`` bounces of
 ``render/common.shade_bounce`` on its split route (kernels 6 and 8 on a
-CUDA tensor) with an alive mask.  Each runs its CUDA kernels for rays on a
-CUDA device and its plain version for rays on the CPU.  The per-bounce
-differentiable engine (``grad_full_trace=False``), the lean scan and the
-debug variant belong to later slices.  The wavefront engines are
-``render/wavefront.py``, chosen by the integrator.
+CUDA tensor) with an alive mask.  Under ``cfg.grad_lean`` (``:66-115``) a
+scene in the fused scope takes the full-depth differentiable trace of
+``ops/trace_grad.py`` (kernels 4 and 5), or with ``grad_full_trace=False``
+the per-bounce engine: the same scan, whose ``shade_bounce`` is
+``ops/bounce_grad.BounceDiff`` (kernel 2 with replay planes, kernel 3
+backward), with no checkpoint.  Any other scene takes the lean scan: the
+scan on ``shade_bounce``'s lean split route, each bounce under
+``torch.utils.checkpoint``, so that only the bounce's inputs are kept and
+its backward recomputes the shading; the detached winner search and shadow
+ray (kernels 7 and 8) keep their outputs in a per-bounce cache and do not
+run again in the recompute (``save_only_these_names("lean_winner")`` in
+JAX).  Each runs its CUDA kernels for rays on a CUDA device and its plain
+version for rays on the CPU.  The debug variant belongs to a later slice.
+The wavefront engines are ``render/wavefront.py``, chosen by the
+integrator.
 """
 
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.ops.trace import trace_fused
@@ -29,7 +38,11 @@ def scan_paths(scene: Scene, rays: Rays, sample_idx, seed: int, cfg: RenderConfi
                tables=None):
     """The per-bounce scan: ``(radiance [N, 3], rays_traced int64 [])``.
     Russian roulette divides by ``p`` with ``p`` detached, as the JAX scan
-    does."""
+    does.  Under ``cfg.grad_lean`` outside the fused scope each bounce runs
+    under a checkpoint with its own lean cache (the module docstring says
+    why); the checkpoint keeps no torch RNG state, since the port's
+    sampling is the counter hash."""
+    lean = cfg.grad_lean and not fused_diff_eligible(scene, cfg)
     n = rays.count
     f32 = dict(dtype=torch.float32, device=rays.origin.device)
     throughput = torch.ones((n, 3), **f32)
@@ -40,8 +53,13 @@ def scan_paths(scene: Scene, rays: Rays, sample_idx, seed: int, cfg: RenderConfi
     nrays = torch.zeros((), dtype=torch.int64, device=rays.origin.device)
     for depth in range(cfg.max_depth):
         nrays = nrays + alive.sum() * (2 if cfg.nee else 1)  # + the shadow ray
-        res = shade_bounce(scene, rays, throughput, sample_idx, depth, prev_spec, seed, cfg,
-                           medium_sigma=medium, tables=tables)
+        if lean:
+            res = checkpoint(shade_bounce, scene, rays, throughput, sample_idx, depth, prev_spec,
+                             seed, cfg, medium_sigma=medium, tables=tables, lean_cache={},
+                             use_reentrant=False, preserve_rng_state=False)
+        else:
+            res = shade_bounce(scene, rays, throughput, sample_idx, depth, prev_spec, seed, cfg,
+                               medium_sigma=medium, tables=tables)
         radiance = radiance + torch.where(alive[:, None], res.contrib, 0.0)
         new_alive = alive & (~res.terminate)
         throughput = torch.where(new_alive[:, None], throughput * res.throughput_mult,
@@ -66,16 +84,8 @@ def trace_paths(
     rays_traced int64 [])``, one sample of the estimator per ray."""
     if cfg.debug:
         raise NotImplementedError("debug engine of trace_paths: later slice")
-    if cfg.grad_lean:
-        if not fused_diff_eligible(scene, cfg):
-            raise NotImplementedError(
-                "lean differentiable scan for scenes outside the fused trace: later slice"
-            )
-        if cfg.grad_full_trace is False:
-            raise NotImplementedError(
-                "per-bounce differentiable engine (grad_full_trace=False): later slice"
-            )
+    if cfg.grad_lean and fused_diff_eligible(scene, cfg) and cfg.grad_full_trace is not False:
         return trace_fused_diff(scene, rays, sample_idx, seed, cfg, tables=tables)
-    if cfg.fused is False:
+    if cfg.grad_lean or cfg.fused is False:
         return scan_paths(scene, rays, sample_idx, seed, cfg, tables=tables)
     return trace_fused(scene, rays, sample_idx, seed, cfg, tables=tables)

@@ -4,8 +4,9 @@
 // functions, their kernels drop out); these C entry points run their lanes
 // one after another over a wavefront, with the same arguments as the CUDA
 // launchers: the trace (trace.cu), the forward with residuals and the
-// reverse lanes (trace_grad.cu), one bounce (bounce.cu), and the nearest hit
-// and occlusion (intersect.cu).
+// reverse lanes (trace_grad.cu), one bounce (bounce.cu) and its backward
+// (bounce_grad.cu), and the nearest hit, winner search and occlusion
+// (intersect.cu).
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -o libhost.so \
 //       tests/kernel_host_harness.cpp
@@ -18,6 +19,7 @@ static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 #include "../pathtracer_tpu_torch/csrc/trace_grad.cu"
 #include "../pathtracer_tpu_torch/csrc/trace.cu"
 #include "../pathtracer_tpu_torch/csrc/bounce.cu"
+#include "../pathtracer_tpu_torch/csrc/bounce_grad.cu"
 #include "../pathtracer_tpu_torch/csrc/intersect.cu"
 
 using namespace pt;
@@ -92,11 +94,12 @@ extern "C" void host_bounce(const float* gtab, int G, const float* mtab, const f
                             const unsigned* sample, const int* depth, const float* prev,
                             const float* medium, float* contrib, float* next_o, float* next_d,
                             float* thr_mult, unsigned char* terminate, float* wspec, float* rru,
-                            float* out_medium) {
+                            float* out_medium, float* replay_gid, float* replay_nee) {
   const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f};
   for (int i = 0; i < n; ++i)
     bounce_lane(T, seed, nee, (size_t)i, origin, direction, thr, sample, depth, prev, medium,
-                contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium);
+                contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
+                replay_nee);
 }
 
 extern "C" void host_nearest(const float* gtab, int G, int n, const float* origin,
@@ -109,4 +112,27 @@ extern "C" void host_nearest(const float* gtab, int G, int n, const float* origi
 extern "C" void host_occlusion(const float* gtab, int G, int n, const float* origin,
                                const float* direction, float* t) {
   for (int i = 0; i < n; ++i) t[i] = occlusion_lane(gtab, G, (size_t)i, origin, direction);
+}
+
+extern "C" void host_winner(const float* gtab, int G, int n, const float* origin,
+                            const float* direction, float* t, int* gid) {
+  for (int i = 0; i < n; ++i) winner_lane(gtab, G, (size_t)i, origin, direction, t, gid);
+}
+
+extern "C" void host_bounce_bwd(const float* gtab, int G, const float* mtab, int M,
+                                const float* ltab, const float* scal, unsigned seed, int nee,
+                                int n, const float* origin, const float* direction,
+                                const float* thr, const unsigned* sample, const int* depth,
+                                const float* prev, const float* replay_gid,
+                                const float* replay_nee, const float* g_contrib,
+                                const float* g_next_o, const float* g_next_d,
+                                const float* g_thr_mult, float* d_origin, float* d_direction,
+                                float* d_thr, float* row) {
+  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f};
+  const RowLayout R = row_layout(G, M);
+  for (int k = 0; k < R.k; ++k) row[k] = 0.0f;
+  for (int i = 0; i < n; ++i)
+    bounce_bwd_lane(T, R, seed, nee, (size_t)i, origin, direction, thr, sample, depth, prev,
+                    replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult, d_origin,
+                    d_direction, d_thr, row);
 }

@@ -322,8 +322,10 @@ def test_tbwd_plain_float64_reference_keeps_float32_values(mini_desc):
 
 def test_trace_diff_dispatch_on_device(mini_desc):
     """CPU rays take the plain versions under autograd; the kernel wrappers
-    refuse CPU tensors (nothing falls back); the per-bounce engine and the
-    lean scan of other scenes wait for their slices."""
+    refuse CPU tensors (nothing falls back); the per-bounce engine
+    (``grad_full_trace=False``) runs and gives the full-depth trace's
+    radiance and origin cotangents; ``fast_rng=False`` waits for its
+    slice."""
     scene = dataclasses.replace(mini_desc, resolution=(5, 4)).scene_for_frame(0, device="cpu")
     tables = pack_tables(scene)
     pix = torch.arange(20)
@@ -343,8 +345,12 @@ def test_trace_diff_dispatch_on_device(mini_desc):
         trace_grad.tbwd_cuda(*tables, 3, pix, torch.zeros(2, trace_grad.N_RESID, 20),
                              torch.zeros(20, 3),
                              max_depth=2, nee=True, rr=False, rr_start=3)
-    with pytest.raises(NotImplementedError, match="grad_full_trace"):
-        trace_paths(scene, rays, pix, 3, dataclasses.replace(cfg, grad_full_trace=False))
+    o2 = rays.origin.clone().requires_grad_()
+    rad2, nrays2 = trace_paths(scene, Rays(o2, rays.direction), pix, 3,
+                               dataclasses.replace(cfg, grad_full_trace=False), tables=tables)
+    rad2.sum().backward()
+    assert torch.equal(rad2.detach(), rad.detach()) and int(nrays2) == int(nrays)
+    assert torch.allclose(o2.grad, o.grad, rtol=1e-5, atol=1e-6)
     with pytest.raises(NotImplementedError, match="later slice"):
         trace_paths(scene, rays, pix, 3, dataclasses.replace(cfg, fast_rng=False))
 

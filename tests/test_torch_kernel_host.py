@@ -4,8 +4,9 @@ versions.
 Every source of ``pathtracer_tpu_torch/csrc/`` keeps the arithmetic of a
 lane in functions that also compile as plain C++: the trace
 (``trace.cu``), the forward with residuals and the hand-written adjoint of
-the reverse loop (``trace_grad.cu``), one bounce (``bounce.cu``), the
-nearest hit and the occlusion sweep (``intersect.cu``).  This test builds
+the reverse loop (``trace_grad.cu``), one bounce (``bounce.cu``) and its
+backward (``bounce_grad.cu``), the nearest hit, the winner search and the
+occlusion sweep (``intersect.cu``).  This test builds
 them with the host's C++ compiler (``tests/kernel_host_harness.cpp``, no
 contraction of a*b+c, as ``nvcc -fmad=false``) and runs them lane after
 lane, so their logic is checked on every CPU run;
@@ -29,7 +30,11 @@ largest), every component of d_origin / d_direction within rtol = atol =
 1e-5 on every lane.  The float32 plain version misses that element-wise
 bar on up to 0.14% of Cornell's lanes, where a component is the small
 difference of large terms that float32 autograd rounds (the share is
-printed under ``pytest -s``).
+printed under ``pytest -s``).  Kernel 3's lanes (one bounce's backward, on
+random lanes with random cotangents on every lane, misses and light hits
+included) are held to ``bounce_bwd_plain``'s float64 reference at the same
+bars, every lane; kernel 2's replay planes and kernel 7's t and gid equal
+their plain versions on every lane.
 """
 
 import ctypes
@@ -42,10 +47,14 @@ import numpy as np
 import pytest
 import torch
 
-from pathtracer_tpu_torch.ops import bounce_fused, trace, trace_grad
+from pathtracer_tpu_torch.ops import bounce_fused, bounce_grad, trace, trace_grad
 from pathtracer_tpu_torch.ops.bounce import pack_tables
 from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
-from pathtracer_tpu_torch.ops.intersect import nearest_hit_plain, occlusion_t_plain
+from pathtracer_tpu_torch.ops.intersect import (
+    nearest_hit_plain,
+    occlusion_t_plain,
+    winner_t_gid_plain,
+)
 from pathtracer_tpu_torch.scene.parser import load_scene, parse_scene_text
 from pathtracer_tpu_torch.scene.structs import Rays
 from tests.test_bounce_grad import MINI_SCENE
@@ -73,9 +82,11 @@ def host_lib(tmp_path_factory):
     lib.host_fwd.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, P, I, I, I, I]
     lib.host_bwd.argtypes = [P, I, P, I, P, P, ctypes.c_uint, P, I, P, P, P, P, P, I, I, I, I]
     lib.host_trace.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, I, I, I, I]
-    lib.host_bounce.argtypes = [P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 15
+    lib.host_bounce.argtypes = [P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 17
     lib.host_nearest.argtypes = [P, I, I] + [P] * 8
     lib.host_occlusion.argtypes = [P, I, I, P, P, P]
+    lib.host_winner.argtypes = [P, I, I, P, P, P, P]
+    lib.host_bounce_bwd.argtypes = [P, I, P, I, P, P, ctypes.c_uint, I, I] + [P] * 16
     return lib
 
 
@@ -238,7 +249,7 @@ def test_bounce_lanes_match_plain(host_lib, scene_name, nee):
         t["direction"].data_ptr(), t["throughput"].data_ptr(), t["sample"].data_ptr(),
         t["depth"].data_ptr(), t["prev"].data_ptr(), medium.data_ptr(), contrib.data_ptr(),
         next_o.data_ptr(), next_d.data_ptr(), thr_mult.data_ptr(), terminate.data_ptr(),
-        wspec.data_ptr(), rru.data_ptr(), out_medium.data_ptr(),
+        wspec.data_ptr(), rru.data_ptr(), out_medium.data_ptr(), None, None,
     )
     assert torch.equal(terminate.bool(), want.terminate)
     assert 0.05 < float(want.terminate.float().mean()) < 0.95
@@ -277,3 +288,100 @@ def test_intersect_lanes_match_plain(host_lib, scene_name):
     assert torch.equal(gid, want.geom_id) and torch.equal(mid, want.material_id)
     for got, ref in ((p, want.position), (p_obj, want.position_obj), (normal, want.normal)):
         torch.testing.assert_close(got, ref, rtol=2e-6, atol=2e-6)
+
+
+def _host_bounce(host_lib, tables, t, medium, seed, nee, replay=True):
+    """Kernel 2's lanes with the replay planes: ``(outputs, replay_gid,
+    replay_nee)``."""
+    n = t["origin"].shape[0]
+    outs = [torch.empty((n, 3)) for _ in range(4)] + [
+        torch.empty(n, dtype=torch.uint8), torch.empty(n), torch.empty(n), torch.empty((n, 4))]
+    rgid, rnee = torch.empty(n), torch.empty(n)
+    host_lib.host_bounce(
+        tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(), tables[2].data_ptr(),
+        tables[3].data_ptr(), seed, int(nee), n,
+        *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
+                                    "prev")),
+        medium.data_ptr(), *(o.data_ptr() for o in outs), rgid.data_ptr(), rnee.data_ptr(),
+    )
+    return outs, rgid, rnee
+
+
+@pytest.mark.parametrize("scene_name", ["cornell", "glossy"])
+@pytest.mark.parametrize("nee", [True, False])
+def test_bounce_replay_and_backward_lanes_match_plain(host_lib, scene_name, nee):
+    """Kernel 2's replay planes equal ``bounce_fused_plain(emit_replay=True)``'s
+    on every lane, and kernel 3's lanes (``bounce_grad.cu:bounce_bwd_lane``)
+    on those planes, with seeded cotangents on every lane, meet the float64
+    reference of ``bounce_bwd_plain`` at the module's bars on every lane:
+    misses and light hits included (the mask-free contract)."""
+    n, seed = 2048, 77
+    tables, t, medium = _bounce_args(scene_name, n, 31)
+    args = (tables, t["origin"], t["direction"], t["throughput"], t["sample"].long(),
+            t["depth"], t["prev"], medium, seed)
+    want, want_gid, want_nee = bounce_fused.bounce_fused_plain(*args, nee=nee, emit_replay=True)
+    _, rgid, rnee = _host_bounce(host_lib, tables, t, medium, seed, nee)
+    assert torch.equal(rgid, want_gid) and torch.equal(rnee, want_nee)
+    miss, light = (rgid < 0), (~(rgid < 0)) & want.terminate
+    assert int(miss.sum()) > 0 and int(light.sum()) > 0
+    if nee:
+        assert int((rnee > 0).sum()) > 0
+
+    r = np.random.default_rng(6)
+    cots = [torch.from_numpy(r.standard_normal((n, 3)).astype(np.float32)) for _ in range(4)]
+    bargs = (tables, t["origin"], t["direction"], t["throughput"], t["sample"].long(),
+             t["depth"], t["prev"], rgid, rnee, *cots, seed)
+    ref = bounce_grad.bounce_bwd_plain(*bargs, nee=nee, dtype=torch.float64)
+    f32 = bounce_grad.bounce_bwd_plain(*bargs, nee=nee)
+    g, m = tables[0].shape[0], tables[1].shape[0]
+    d_o, d_d, d_t = (torch.empty((n, 3)) for _ in range(3))
+    row = torch.empty(trace_grad.grad_row_len(g, m))
+    host_lib.host_bounce_bwd(
+        tables[0].data_ptr(), g, tables[1].data_ptr(), m, tables[2].data_ptr(),
+        tables[3].data_ptr(), seed, int(nee), n,
+        *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
+                                    "prev")),
+        rgid.data_ptr(), rnee.data_ptr(), *(c.data_ptr() for c in cots),
+        d_o.data_ptr(), d_d.data_ptr(), d_t.data_ptr(), row.data_ptr(),
+    )
+    got = (*trace_grad.split_grad_row(row, g, m), d_o, d_d, d_t)
+    frac = [float(torch.isclose(k.double(), w, rtol=1e-5, atol=1e-5).all(-1).double().mean())
+            for k, w in zip(got[4:], ref[4:])]
+    frac32 = [float(torch.isclose(p.double(), w, rtol=1e-5, atol=1e-5).all(-1).double().mean())
+              for p, w in zip(f32[4:], ref[4:])]
+    print(f"{scene_name} nee={nee}: {int(miss.sum())} misses, {int(light.sum())} light hits; "
+          f"lanes within 1e-5 of the float64 reference: kernel {frac}, float32 plain {frac32}")
+    for w, k in zip(ref[:4], got[:4]):
+        assert bool(((k.double() - w).abs() <= 1e-4 * w.abs() + 1e-6 * float(w.abs().max())).all())
+    for w, k in zip(ref[4:], got[4:]):
+        assert bool(torch.isclose(k.double(), w, rtol=1e-5, atol=1e-5).all())
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    # zero cotangents give exact zeros on every lane
+    zero = torch.zeros((n, 3))
+    host_lib.host_bounce_bwd(
+        tables[0].data_ptr(), g, tables[1].data_ptr(), m, tables[2].data_ptr(),
+        tables[3].data_ptr(), seed, int(nee), n,
+        *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
+                                    "prev")),
+        rgid.data_ptr(), rnee.data_ptr(), *(zero.data_ptr() for _ in cots),
+        d_o.data_ptr(), d_d.data_ptr(), d_t.data_ptr(), row.data_ptr(),
+    )
+    assert not bool(torch.cat([d_o, d_d, d_t, row[None].expand(3, -1).reshape(-1, 3)]).any())
+
+
+@pytest.mark.parametrize("scene_name", ["cornell", "glossy"])
+def test_winner_lanes_match_plain(host_lib, scene_name):
+    """Kernel 7's lanes (``intersect.cu:winner_lane``) against
+    ``winner_t_gid_plain``: t and gid equal on every lane, and equal to the
+    nearest hit's."""
+    n = 2048
+    tables, t, _ = _bounce_args(scene_name, n, 4)
+    gtab = tables[0]
+    rays = Rays(t["origin"], t["direction"])
+    want_t, want_gid = winner_t_gid_plain(rays, gtab)
+    t_k, gid = torch.empty(n), torch.empty(n, dtype=torch.int32)
+    host_lib.host_winner(gtab.data_ptr(), gtab.shape[0], n, t["origin"].data_ptr(),
+                         t["direction"].data_ptr(), t_k.data_ptr(), gid.data_ptr())
+    assert torch.equal(t_k, want_t) and torch.equal(gid, want_gid)
+    hit = nearest_hit_plain(rays, gtab)
+    assert torch.equal(want_t, hit.t) and torch.equal(want_gid, hit.geom_id)

@@ -375,3 +375,149 @@ def test_bounce_and_intersect_wrappers_check_inputs():
         intersect_cuda.nearest_hit_cuda(Rays(o.double(), d), tables[0])
     with pytest.raises(ValueError):
         intersect_cuda.occlusion_t_cuda(Rays(o, d), tables[0].repeat(200, 1))
+
+
+# ---- the per-bounce differentiable engine (kernel 2 with replay planes and
+# kernel 3) and the lean scan's winner search (kernel 7)
+#
+# Tolerances (those chip_smoke.py holds at full width): kernel 2's replay
+# planes equal the plain version's on every lane and its other outputs equal
+# the wavefront kernel's bit for bit (one kernel, two more stores); kernel
+# 3's d_origin / d_direction / d_throughput have every component within
+# rtol = atol = 1e-5 of the float64 reference's (bounce_bwd_plain with
+# dtype=float64) on at least 99.9% of lanes, on random lanes with random
+# cotangents on every lane (misses and light hits included: the kernel's
+# mask-free contract), and each table cotangent within 1e-4 of the largest
+# magnitude in its table of the float32 plain version's; zero cotangents
+# give exact zeros.  Kernel 7's t and gid equal the plain version's on
+# every lane.  The engines' losses and gradients match the full-depth
+# engine's at the bars of tests/test_torch_diff.py.
+
+
+@pytest.mark.parametrize("name", ["cornell", "glossy"])
+@pytest.mark.parametrize("nee", [True, False])
+def test_bounce_replay_and_backward_kernels_match_plain(name, nee):
+    _need_cuda()
+    import numpy as np
+
+    from pathtracer_tpu_torch.ops import bounce_fused, bounce_grad
+
+    tables = pack_tables(_scene(name, (8, 8)))
+    n = 50_000
+    t = _random_lanes_cuda(n, 10)
+    medium = torch.zeros((n, 4), device="cuda")
+    args = (tables, t["origin"], t["direction"], t["throughput"], t["sample"].long(),
+            t["depth"], t["prev"])
+    before = (bounce_fused.launches, bounce_fused.replay_launches)
+    res, rgid, rnee = bounce_fused.bounce_fused_cuda(*args, medium, 4321, nee=nee,
+                                                     emit_replay=True)
+    assert (bounce_fused.launches, bounce_fused.replay_launches) == (before[0], before[1] + 1)
+    plain, pgid, pnee = bounce_fused.bounce_fused_plain(*args, medium, 4321, nee=nee,
+                                                        emit_replay=True)
+    plain_k = bounce_fused.bounce_fused_cuda(*args, medium, 4321, nee=nee)
+    torch.cuda.synchronize()
+    assert torch.equal(rgid, pgid) and torch.equal(rnee, pnee)
+    for f in ("contrib", "next_origin", "next_direction", "throughput_mult", "terminate",
+              "was_specular", "rr_uniform", "next_medium"):
+        assert torch.equal(getattr(res, f), getattr(plain_k, f)), f
+    assert int((rgid < 0).sum()) > 0
+
+    r = np.random.default_rng(11)
+    cots = [torch.from_numpy(r.standard_normal((n, 3)).astype(np.float32)).cuda()
+            for _ in range(4)]
+    bargs = (*args, rgid, rnee, *cots, 4321)
+    before = bounce_grad.launches
+    got = bounce_grad.bounce_bwd_cuda(*bargs, nee=nee)
+    assert bounce_grad.launches == before + 1
+    want = bounce_grad.bounce_bwd_plain(*bargs, nee=nee)
+    ref = bounce_grad.bounce_bwd_plain(*bargs, nee=nee, dtype=torch.float64)
+    torch.cuda.synchronize()
+    for g, w in zip(got[:4], want[:4]):
+        assert bool(torch.isfinite(g).all())
+        assert float((g - w).abs().max()) <= 1e-4 * max(float(w.abs().max()), 1e-30)
+    for g, w in zip(got[4:], ref[4:]):
+        assert bool(torch.isfinite(g).all())
+        close = torch.isclose(g.double(), w, rtol=1e-5, atol=1e-5).all(-1)
+        assert float(close.double().mean()) >= 0.999
+    zero = torch.zeros((n, 3), device="cuda")
+    zgot = bounce_grad.bounce_bwd_cuda(*args, rgid, rnee, zero, zero, zero, zero, 4321, nee=nee)
+    assert not any(bool(z.any()) for z in zgot)
+
+
+@pytest.mark.parametrize("name", ["cornell", "glossy"])
+def test_winner_kernel_matches_plain(name):
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import intersect_cuda
+    from pathtracer_tpu_torch.ops.intersect import winner_t_gid_plain
+    from pathtracer_tpu_torch.scene.structs import Rays
+
+    gtab = pack_tables(_scene(name, (8, 8)))[0]
+    t = _random_lanes_cuda(50_000, 12)
+    rays = Rays(t["origin"], t["direction"])
+    before = intersect_cuda.winner_launches
+    got_t, got_gid = intersect_cuda.winner_t_gid(rays, gtab)
+    assert intersect_cuda.winner_launches == before + 1
+    want_t, want_gid = winner_t_gid_plain(rays, gtab)
+    torch.cuda.synchronize()
+    assert torch.equal(got_t, want_t) and torch.equal(got_gid, want_gid)
+
+
+@pytest.mark.parametrize("engine", [dict(grad_full_trace=False), dict(grad_fused=False)],
+                         ids=["perbounce", "lean"])
+def test_grad_engines_launch_their_kernels(engine):
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import bounce_fused, bounce_grad, intersect_cuda, trace_grad
+    from pathtracer_tpu_torch.ops.rng import prng_key
+    from pathtracer_tpu_torch.render import diff
+
+    desc = dataclasses.replace(load_scene(os.path.join(ROOT, "scenes", "cornell.txt")),
+                               resolution=(64, 48))
+    params, static = diff.params_from_description(desc, 0, device="cuda")
+    target = torch.zeros((64 * 48, 3), device="cuda")
+    cfg = RenderConfig(max_depth=5)
+
+    def counts():
+        return (trace.launches, trace_grad.fwd_launches, trace_grad.bwd_launches,
+                bounce_fused.launches, bounce_fused.replay_launches, bounce_grad.launches,
+                intersect_cuda.winner_launches, intersect_cuda.occlusion_launches,
+                intersect_cuda.nearest_launches)
+
+    full_loss, full, _ = diff.loss_and_grad_rays(params, static, target, 3, prng_key(0), cfg)
+    before = counts()
+    loss, grads, _ = diff.loss_and_grad_rays(params, static, target, 3, prng_key(0),
+                                             dataclasses.replace(cfg, **engine))
+    torch.cuda.synchronize()
+    d = [a - b for a, b in zip(counts(), before)]
+    if "grad_full_trace" in engine:  # 3 spp x 5 bounces of kernels 2-replay and 3
+        assert d == [0, 0, 0, 0, 15, 15, 0, 0, 0], d
+    else:  # kernel 1 forward; the backward's winner and shadow sweeps once per bounce
+        assert d == [3, 0, 0, 0, 0, 0, 15, 15, 0], d
+    assert abs(float(loss) - float(full_loss)) <= 1e-5 * abs(float(full_loss))
+    fl, gl = full.leaves(), grads.leaves()
+    gscale = max(float(v.abs().max()) for v in fl.values())
+    for k, v in gl.items():
+        assert bool(torch.isfinite(v).all()), k
+        assert float((v - fl[k]).abs().max()) <= 5e-4 * max(gscale, 1.0), k
+
+
+def test_grad_engine_wrappers_check_inputs():
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import bounce_grad, intersect_cuda
+    from pathtracer_tpu_torch.scene.structs import Rays
+
+    tables = pack_tables(_scene("mini", (8, 8)))
+    o, d = torch.zeros((4, 3), device="cuda"), torch.ones((4, 3), device="cuda")
+    thr, s = torch.ones((4, 3), device="cuda"), torch.arange(4, device="cuda")
+    prev, gid, bit = (torch.zeros(4, device="cuda") for _ in range(3))
+    g = torch.zeros((4, 3), device="cuda")
+    args = (tables, o, d, thr, s, 0, prev, gid, bit)
+    with pytest.raises(ValueError):
+        bounce_grad.bounce_bwd_cuda(*args[:7], gid[:3], bit, g, g, g, g, 1, nee=True)
+    with pytest.raises(TypeError):
+        bounce_grad.bounce_bwd_cuda(*args, g.double(), g, g, g, 1, nee=True)
+    with pytest.raises(ValueError):
+        bounce_grad.bounce_bwd_cuda(*args, g, g.cpu(), g, g, 1, nee=True)
+    with pytest.raises(TypeError):
+        intersect_cuda.winner_t_gid_cuda(Rays(o.double(), d), tables[0])
+    with pytest.raises(ValueError):
+        intersect_cuda.winner_t_gid_cuda(Rays(o, d), tables[0].repeat(200, 1))

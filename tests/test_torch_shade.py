@@ -149,8 +149,12 @@ def test_shade_bounce_both_routes_match_jax_split(cornell_scene, name, nee):
     assert bounce_fused.launches == before  # CPU tensors take the plain versions
     with pytest.raises(NotImplementedError, match="later slice"):
         shade_bounce(*args, RenderConfig(features=("volumetric",)))
-    with pytest.raises(NotImplementedError, match="later slice"):
-        shade_bounce(*args, RenderConfig(features=features, grad_lean=True))
+    # under grad_lean both differentiable routes give the same bounce: the
+    # per-bounce engine's (kernel 2 with replay planes) and, outside the
+    # fused scope, the lean split route (kernels 7 and 8)
+    for grad_fused in (None, False):
+        cfg = RenderConfig(nee=nee, features=features, grad_lean=True, grad_fused=grad_fused)
+        _compare_bounce(ref, shade_bounce(*args, cfg), f"grad_lean, grad_fused={grad_fused}")
 
 
 def test_bounce_fused_plain_takes_int_or_lane_depth():
