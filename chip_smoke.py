@@ -85,7 +85,28 @@ Phases (any failure exits non-zero):
    renders' wall time, super-steps and Mrays/s, and the 8-spp pinned render
    profiled (device busy and idle share, per super-step); and the CLI with
    ``--engine wavefront``;
-9. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+9. ``[mesh]``, triangle meshes: ``scenes/smooth_mesh.txt`` (a 320-triangle
+   icosphere with authored normals) at ``bench.py``'s 512x512, depth 8,
+   NEE, each run through ``render`` with the counters zeroed just before:
+   (a) the megakernel at 32 spp launches kernel 1's mesh variant once per
+   iteration and nothing else, finite image, PNG written; (b) kernel 1m
+   against its plain version on the 262,144 primary rays of an iteration:
+   equal ray counts and radiance bit-equal on every lane (the lanes that
+   differ, the share within 2e-6 and the sum's difference are printed);
+   (c) the split route
+   (``fused=False``, 2 spp) launches kernels 6, 8, 9 and 10 once per bounce
+   each, the megakernel's ray count, at least 99.5% of accumulator entries
+   within 2e-4 of the megakernel's, sums within 2e-5; (d) the pinned
+   wavefront engine (2 spp) launches kernel 2m once per super-step, the same
+   ray count, 99.9% within 2e-4, sums within 1e-5; (e) kernels 9 and 10
+   equal their plain versions on every lane (t, index, misses) on the mesh's
+   object-space primary rays and a mid-render super-step's at 320
+   triangles, and on a 5,120-triangle displaced icosphere; (f) kernel 2m
+   equals its plain version in every output on every lane, primary rays
+   and that super-step; (g) the ``smooth_mesh_96`` golden rendered on the
+   card within a mean 0.8/255 of the PNG; (h) times and bounds; (i) the CLI
+   on smooth_mesh takes ``engine=megakernel``;
+10. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
 The rendered PNGs and the profile table go to ``--out-dir`` (default
 ``renders/chip_smoke``).
@@ -146,12 +167,17 @@ def _counters() -> dict:
         bounce_fused,
         bounce_grad,
         intersect_cuda,
+        mesh,
         trace,
         trace_grad,
     )
 
     return {
         "trace": (trace, "launches"),
+        "trace_mesh": (trace, "mesh_launches"),
+        "bounce_mesh": (bounce_fused, "mesh_launches"),
+        "mesh_nearest": (mesh, "nearest_launches"),
+        "mesh_min": (mesh, "min_launches"),
         "trace_fwd_resid": (trace_grad, "fwd_launches"),
         "trace_bwd": (trace_grad, "bwd_launches"),
         "bounce": (bounce_fused, "launches"),
@@ -657,7 +683,62 @@ def grad_engines_phase(desc, dev, card: str, out_dir: str, full_loss, full_grads
 # object normal (sphere: normalize 9; cube: compares and signs, ~12), the
 # inverse-transpose (15) and its normalization (9)
 OPS_FRAME = 48
-CAPTURE_STEP = 10  # the super-step whose state phase [wavefront] (d) holds the kernels on
+CAPTURE_STEP = 10  # the super-step whose state [wavefront] and [mesh] hold the kernels on
+
+
+def counted_render(scene, spp: int, cfg, dev):
+    """One render through the entry point, every launch counter zeroed just
+    before: ``(image, accum, stats, launches, super-steps, wall s)``.  With
+    ``captured`` (a dict), the inputs of the wavefront engines' bounce at
+    super-step :data:`CAPTURE_STEP` are copied into it."""
+    import torch
+
+    from pathtracer_tpu_torch.render import wavefront
+    from pathtracer_tpu_torch.render.integrator import render
+
+    zero_counts()
+    wavefront.super_steps = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, acc, st = render(scene, spp, cfg, device=dev)
+    torch.cuda.synchronize()
+    return img, acc, st, read_counts(), wavefront.super_steps, time.perf_counter() - t0
+
+
+def capturing_render(scene, spp: int, cfg, dev, captured: dict):
+    """:func:`counted_render` of a wavefront engine that also copies the
+    inputs of its bounce at super-step :data:`CAPTURE_STEP` into
+    ``captured``; the wrapper only copies, so the render is unchanged."""
+    from pathtracer_tpu_torch.render import wavefront
+
+    shade = wavefront.shade_bounce
+
+    def recording(scn, rays, thr, sample, depth, prev, seed_, cfg_, medium_sigma=None,
+                  tables=None):
+        if wavefront.super_steps == CAPTURE_STEP:
+            captured.update(origin=rays.origin.clone(), direction=rays.direction.clone(),
+                            throughput=thr.clone(), sample=sample.clone(), depth=depth.clone(),
+                            prev=prev.clone(), medium=medium_sigma.clone())
+        return shade(scn, rays, thr, sample, depth, prev, seed_, cfg_,
+                     medium_sigma=medium_sigma, tables=tables)
+
+    wavefront.shade_bounce = recording
+    try:
+        return counted_render(scene, spp, cfg, dev)
+    finally:
+        wavefront.shade_bounce = shade
+
+
+def check_close(tag: str, acc, ref, min_share: float, sum_tol: float, what: str) -> None:
+    """Fail unless at least ``min_share`` of ``acc``'s entries are within
+    rtol = atol = 2e-4 of ``ref``'s and the sums within ``sum_tol``."""
+    import torch
+
+    share = float(torch.isclose(acc, ref, rtol=2e-4, atol=2e-4).float().mean())
+    sum_rel = float((acc.double().sum() - ref.double().sum()).abs() / ref.double().sum())
+    print(f"[{tag}:check] {what}: {share:.6f} of entries within 2e-4, sums within "
+          f"{sum_rel:.3g} relative")
+    check(share >= min_share and sum_rel <= sum_tol, f"{what} beyond the bar")
 
 
 def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
@@ -680,43 +761,17 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
     n = w * h
     base = dict(max_depth=8, nee=True)
 
-    def close_to(acc, ref, min_share, sum_tol, what):
-        share = float(torch.isclose(acc, ref, rtol=2e-4, atol=2e-4).float().mean())
-        sum_rel = float((acc.double().sum() - ref.double().sum()).abs() / ref.double().sum())
-        print(f"[wavefront:check] {what}: {share:.6f} of entries within 2e-4, sums within "
-              f"{sum_rel:.3g} relative")
-        check(share >= min_share and sum_rel <= sum_tol, f"{what} beyond the bar")
+    def run(spp, cfg):
+        return counted_render(scene, spp, cfg, dev)[1:]
 
-    def run(spp, cfg, record=None):
-        """One render through the entry point, counters zeroed just before;
-        returns (accum, stats, launches, super-steps, wall s)."""
-        zero_counts()
-        wavefront.super_steps = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        _, acc, st = render(scene, spp, cfg, device=dev)
-        torch.cuda.synchronize()
-        return acc, st, read_counts(), wavefront.super_steps, time.perf_counter() - t0
+    def close_to(acc, ref, min_share, sum_tol, what):
+        check_close("wavefront", acc, ref, min_share, sum_tol, what)
 
     # ---- (a) pinned engine, 8 spp; the state of one mid-render super-step
-    # is kept for (d) by a wrapper that only copies shade_bounce's inputs
+    # is kept for (d)
     captured = {}
-    shade = wavefront.shade_bounce
-
-    def recording(scn, rays, thr, sample, depth, prev, seed_, cfg_, medium_sigma=None, tables=None):
-        if wavefront.super_steps == CAPTURE_STEP:
-            captured.update(origin=rays.origin.clone(), direction=rays.direction.clone(),
-                            throughput=thr.clone(), sample=sample.clone(), depth=depth.clone(),
-                            prev=prev.clone(), medium=medium_sigma.clone())
-        return shade(scn, rays, thr, sample, depth, prev, seed_, cfg_,
-                     medium_sigma=medium_sigma, tables=tables)
-
     pinned = RenderConfig(wavefront=True, iters_per_launch=8, **base)
-    wavefront.shade_bounce = recording
-    try:
-        acc_a, st_a, launch_a, steps_a, wall_a = run(8, pinned)
-    finally:
-        wavefront.shade_bounce = shade
+    _, acc_a, st_a, launch_a, steps_a, wall_a = capturing_render(scene, 8, pinned, dev, captured)
     print(f"[wavefront] (a) pinned {w}x{h} d8 nee spp=8: {wall_a:.3f} s, {steps_a} super-steps, "
           f"rays {st_a['rays_traced']}, launches {launch_a}")
     check(launch_a == only(bounce=steps_a), f"pinned engine launches {launch_a}")
@@ -910,6 +965,260 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
     ]
 
 
+MESH_RES = (512, 512)  # bench.py's smooth_mesh row
+MESH_SPP = 32
+OPS_MT = 66  # one ray-triangle Moeller-Trumbore test and the running-best update
+OPS_AABB = 26  # one chunk-box slab test of the in-kernel sweep
+OPS_MESH_RAY = OPS_TO_OBJECT + 18  # a mesh's object-space ray and its reciprocal direction
+
+
+def mesh_phase(dev, card: str, out_dir: str) -> list:
+    """Phase 9, ``[mesh]``: smooth_mesh (a 320-triangle icosphere with
+    authored normals) at ``bench.py``'s width through every forward engine,
+    and kernels 9, 10 and the mesh variants of 1 and 2 against their plain
+    versions.  Returns their JSON entries."""
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import bounce_fused, mesh, trace
+    from pathtracer_tpu_torch.ops.bounce import pack_tables
+    from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
+    from pathtracer_tpu_torch.ops.mesh_tables import MESH_CHUNK, mesh_sweep
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render import wavefront
+    from pathtracer_tpu_torch.render.features import resolve_features
+    from pathtracer_tpu_torch.render.integrator import render, render_chunk
+    from pathtracer_tpu_torch.scene.displace import displace_mesh
+    from pathtracer_tpu_torch.scene.obj import load_obj
+    from pathtracer_tpu_torch.scene.parser import load_scene
+    from pathtracer_tpu_torch.scene.structs import Rays
+    from pathtracer_tpu_torch.utils.imageio import load_png, save_image
+
+    path = os.path.join(ROOT, "scenes", "smooth_mesh.txt")
+    desc = dataclasses.replace(load_scene(path), resolution=MESH_RES)
+    scene = desc.scene_for_frame(0, device=dev)
+    (m0,) = scene.meshes
+    km = scene.mesh_tables
+    w, h = scene.camera.width, scene.camera.height
+    n = w * h
+    cfg = RenderConfig(max_depth=8, nee=True, iters_per_launch=8)
+    seed = key_to_seed(prng_key(cfg.seed))
+
+    def run(spp, rcfg):
+        return counted_render(scene, spp, rcfg, dev)
+
+    def close_to(acc, ref, min_share, sum_tol, what):
+        check_close("mesh", acc, ref, min_share, sum_tol, what)
+
+    # ---- (a) the megakernel through the entry point at bench.py's width
+    spp = MESH_SPP
+    img, acc, st, launches, _, wall = run(spp, cfg)
+    print(f"[mesh] smooth_mesh {w}x{h} d{cfg.max_depth} nee spp={spp}, {m0.tri_verts.shape[0]} "
+          f"triangles: {wall:.3f} s, rays {st['rays_traced']}, launches {launches}")
+    check(launches == only(trace_mesh=spp), f"mesh megakernel launches {launches}")
+    check(tuple(img.shape) == (h, w, 3) and bool(torch.isfinite(acc).all())
+          and bool((acc >= 0).all()), "mesh render: bad image")
+    save_image(os.path.join(out_dir, "chip_smoke_smooth_mesh.png"), img.cpu().numpy())
+    _, acc2, st2, _, _, _ = run(2, cfg)  # the megakernel at 2 spp, for (c) and (d)
+
+    # ---- (b) kernel 1m against its plain version on one iteration's primary rays
+    tables = [t.contiguous() for t in pack_tables(scene)]
+    pixel = torch.arange(n, dtype=torch.int64, device=dev)
+    rays0 = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, pixel))
+    targs = (*tables, seed, rays0.origin, rays0.direction, pixel)
+    kw = dict(max_depth=cfg.max_depth, nee=cfg.nee, rr=False, rr_start=cfg.rr_start, mesh=km)
+    rad_k, nr_k = trace.trace_cuda(*targs, **kw)
+    rad_p, nr_p = trace.trace_plain(*targs, **kw)
+    torch.cuda.synchronize()
+    diff = (rad_k - rad_p).abs()
+    differ = (rad_k != rad_p).any(-1)
+    within = float(torch.isclose(rad_k, rad_p, rtol=2e-6, atol=2e-6).all(-1).float().mean())
+    sum_rel = float((rad_k.double().sum() - rad_p.double().sum()).abs() / rad_p.double().sum())
+    k1_err = float(diff.max())
+    print(f"[mesh:check] (b) kernel 1m on {n} primary rays: rays kernel {int(nr_k)} plain "
+          f"{int(nr_p)}; lanes bit-equal {1 - float(differ.float().mean()):.6f} "
+          f"({int(differ.sum())} differ: {differ.nonzero()[:8, 0].tolist()}), within 2e-6 "
+          f"{within:.6f}, max abs err {k1_err:.3g}, sum rel {sum_rel:.3g}")
+    check(int(nr_k) == int(nr_p), "kernel 1m and plain ray counts differ")
+    check(int(differ.sum()) == 0, f"kernel 1m differs from its plain version on "
+          f"{int(differ.sum())} lanes")
+
+    # ---- (c) the split route (kernels 6, 8, 9, 10) through the entry point
+    split = dataclasses.replace(cfg, fused=False, iters_per_launch=2)
+    _, acc_c, st_c, launch_c, _, wall_c = run(2, split)
+    per = 2 * cfg.max_depth
+    print(f"[mesh] (c) split route spp=2: {wall_c:.3f} s, rays {st_c['rays_traced']}, launches "
+          f"{launch_c}")
+    check(launch_c == only(nearest_hit=per, occlusion=per, mesh_nearest=per, mesh_min=per),
+          f"split route launches {launch_c}")
+    check(st_c["rays_traced"] == st2["rays_traced"], "split route and megakernel ray counts differ")
+    close_to(acc_c, acc2, 0.995, 2e-5, "(c) split route vs megakernel, 2 spp")
+
+    # ---- (d) the pinned wavefront engine on kernel 2m; the state of one
+    # mid-render super-step is kept for (e) and (f)
+    captured = {}
+    pinned = RenderConfig(wavefront=True, max_depth=8, nee=True, iters_per_launch=2)
+    _, acc_d, st_d, launch_d, steps_d, wall_d = capturing_render(scene, 2, pinned, dev, captured)
+    print(f"[mesh] (d) pinned wavefront spp=2: {wall_d:.3f} s, {steps_d} super-steps, rays "
+          f"{st_d['rays_traced']}, launches {launch_d}")
+    check(launch_d == only(bounce_mesh=steps_d), f"pinned engine launches {launch_d}")
+    check(st_d["rays_traced"] == st2["rays_traced"], "pinned and megakernel ray counts differ")
+    close_to(acc_d, acc2, 0.999, 1e-5, "(d) pinned vs megakernel, 2 spp")
+    check(bool(captured), "no super-step state captured")
+
+    # ---- (e) kernels 9 and 10 against their plain versions, bit for bit
+    def object_rays(o, d):
+        return mesh.object_rays(Rays(o, d), tables[0], m0.geom_index)
+
+    ico = load_obj(os.path.join(ROOT, "scenes", "assets", "ico.obj"))
+    big = mesh.pack_tri_table(torch.from_numpy(displace_mesh(ico, 0.06, 4, "sin", 9.0)).to(dev))
+    o_p, d_p = object_rays(rays0.origin, rays0.direction)
+    o_m, d_m = object_rays(captured["origin"], captured["direction"])
+    cases = {"primary, T=320": (m0.scan_table, o_p, d_p),
+             f"super-step {CAPTURE_STEP}, T=320": (m0.scan_table, o_m, d_m),
+             f"primary, T={big.numel() // 9}": (big, o_p, d_p)}
+    k9_err = k10_err = 0.0
+    for label, (tab, o, d) in cases.items():
+        t_k, i_k = mesh.mesh_nearest_cuda(tab, o, d)
+        occ_k = mesh.mesh_min_cuda(tab, o, d)
+        t_p, i_p = mesh.mesh_nearest_plain(tab, o, d)
+        occ_p = mesh.mesh_min_plain(tab, o, d)
+        torch.cuda.synchronize()
+        hit = t_p < mesh.BIG
+        k9_err = max(k9_err, float((t_k - t_p).abs()[hit].max()) if bool(hit.any()) else 0.0)
+        k10_err = max(k10_err, float((occ_k - occ_p).abs()[hit].max()) if bool(hit.any()) else 0.0)
+        equal = (torch.equal(t_k, t_p), torch.equal(i_k, i_p), torch.equal(occ_k, occ_p))
+        print(f"[mesh:check] (e) {label}, {o.shape[0]} rays, {int(hit.sum())} hits: kernel 9 t / "
+              f"index equal {equal[0]} / {equal[1]}, kernel 10 t equal {equal[2]}")
+        check(all(equal), f"kernels 9 / 10 differ from their plain versions ({label})")
+
+    # ---- (f) kernel 2m against its plain version: every output on every lane
+    f32 = dict(dtype=torch.float32, device=dev)
+    primary = dict(origin=rays0.origin, direction=rays0.direction,
+                   throughput=torch.ones((n, 3), **f32), sample=pixel,
+                   depth=torch.zeros(n, dtype=torch.int32, device=dev),
+                   prev=torch.zeros(n, **f32), medium=torch.zeros((n, 4), **f32))
+    k2_err = 0.0
+    for label, s in (("primary", primary), (f"super-step {CAPTURE_STEP}", captured)):
+        bargs = (tables, s["origin"], s["direction"], s["throughput"], s["sample"], s["depth"],
+                 s["prev"], s["medium"], seed)
+        got = bounce_fused.bounce_fused_cuda(*bargs, nee=True, mesh=km)
+        want = bounce_fused.bounce_fused_plain(*bargs, nee=True, mesh=km)
+        torch.cuda.synchronize()
+        same = {f.name: torch.equal(getattr(got, f.name), getattr(want, f.name))
+                for f in dataclasses.fields(got)}
+        for f in ("contrib", "next_origin", "next_direction", "throughput_mult"):
+            k2_err = max(k2_err, float((getattr(got, f) - getattr(want, f)).abs().max()))
+        print(f"[mesh:check] (f) kernel 2m, {label}, {s['origin'].shape[0]} lanes: outputs equal "
+              f"{same}; max abs err {k2_err:.3g}")
+        check(all(same.values()), f"kernel 2m differs from its plain version ({label})")
+
+    # ---- (g) the smooth_mesh_96 golden, rendered on the card
+    gscene = dataclasses.replace(desc, resolution=(96, 96)).scene_for_frame(0, device=dev)
+    gimg, _, _ = render(gscene, 16, cfg, device=dev)
+    png = torch.from_numpy(load_png(os.path.join(ROOT, "tests", "golden", "smooth_mesh_96.png")))
+    gdiff = (gimg.cpu() - png.float() / 255.0).abs()
+    print(f"[mesh:golden] smooth_mesh_96: mean abs {float(gdiff.mean()) * 255:.4f}/255, max "
+          f"{float(gdiff.max()) * 255:.4f}/255")
+    check(float(gdiff.mean()) * 255 <= 0.8, "smooth_mesh_96 golden beyond its mean bar")
+
+    # ---- (h) times by CUDA events, bounds from this run's inputs
+    rcfg = resolve_features(cfg, scene.materials)
+    acc0 = torch.zeros((n, 3), **f32)
+
+    def iteration():
+        render_chunk(scene, acc0, 0, seed, rcfg, 1, tables=tables)
+
+    iter_ms = cuda_ms(iteration, reps=5)
+    summary = profile_step(iteration, iter_ms, out_dir, "mesh_iteration", ("trace_kernel",))
+    k1_ms = cuda_ms(lambda: trace.trace_cuda(*targs, **kw), reps=10)
+    k1p_ms = cuda_ms(lambda: trace.trace_plain(*targs, **kw), reps=1)
+    margs = (tables, captured["origin"], captured["direction"], captured["throughput"],
+             captured["sample"], captured["depth"], captured["prev"], captured["medium"], seed)
+    k2_ms = cuda_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, nee=True, mesh=km), reps=20)
+    k2p_ms = cuda_ms(lambda: bounce_fused.bounce_fused_plain(*margs, nee=True, mesh=km), reps=1)
+    mt_ms = {}
+    for label, tab in (("320", m0.scan_table), (str(big.numel() // 9), big)):
+        mt_ms[label] = (
+            cuda_ms(lambda: mesh.mesh_nearest_cuda(tab, o_p, d_p), reps=10),
+            cuda_ms(lambda: mesh.mesh_nearest_plain(tab, o_p, d_p), reps=2),
+            cuda_ms(lambda: mesh.mesh_min_cuda(tab, o_p, d_p), reps=10),
+            cuda_ms(lambda: mesh.mesh_min_plain(tab, o_p, d_p), reps=2),
+        )
+
+    def bound(ops, nbytes):
+        t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+    types = scene.geoms.type.tolist()
+    sweep = sum(OPS_TO_OBJECT + (OPS_SPHERE if t == 0 else OPS_CUBE if t == 1 else 0)
+                for t in types)
+    mesh_ops = OPS_MESH_RAY + OPS_AABB * km.aabb.numel() // 6  # per lane-bounce, a lower bound
+
+    def tri_tests(o, d):  # the triangles the sweep tests for these rays, from its plain version
+        reached = mesh_sweep(km, tables[0], o.unbind(-1), d.unbind(-1))["reached"]
+        return int(reached.sum()) * MESH_CHUNK
+
+    k1_tris = tri_tests(rays0.origin, rays0.direction)  # bounce 0 only: a lower bound
+    k2_tris = tri_tests(captured["origin"], captured["direction"])
+    table_bytes = sum(t.numel() * 4 for t in tables) + sum(
+        t.numel() * 4 for t in (km.tri, km.aabb, km.norm, km.desc))
+    lane_bounces = int(nr_k) // 2
+    k1_bound = bound(lane_bounces * (sweep + OPS_SHADE + mesh_ops) + k1_tris * OPS_MT,
+                     n * (12 + 12 + 4 + 12) + table_bytes)
+    k2_bound = bound(n * (sweep + OPS_SHADE + mesh_ops) + k2_tris * OPS_MT,
+                     n * (64 + 73) + table_bytes)
+    mt_bound = {t: (bound(n * int(t) * OPS_MT, n * (24 + 8) + int(t) * 36),
+                    bound(n * int(t) * OPS_MT, n * (24 + 4) + int(t) * 36)) for t in mt_ms}
+    print(f"[card] {card}")
+    print(f"[mesh:profile] render iteration: {summary}")
+    print(
+        f"[mesh:time] iteration {iter_ms:.4f} ms ({int(nr_k) / iter_ms / 1e3:.1f} Mrays/s); kernel "
+        f"1m {k1_ms:.4f} ms/iteration ({int(nr_k) / k1_ms / 1e3:.1f} Mrays/s; plain {k1p_ms:.3f} "
+        f"ms), bound {k1_bound[0]:.4f} ms by {k1_bound[1]} (a lower bound: the analytic part, "
+        f"the chunk-box tests and the {k1_tris} triangle tests of bounce 0, not those of later "
+        f"bounces or of shadow rays); kernel 2m {k2_ms:.4f} ms at {n} lanes of super-step "
+        f"{CAPTURE_STEP} (plain {k2p_ms:.3f} ms, bound {k2_bound[0]:.4f} ms by {k2_bound[1]}, with "
+        f"{k2_tris} triangle tests, a lower bound: shadow rays left out); on {card}"
+    )
+    for t, (k9, k9p, k10, k10p) in mt_ms.items():
+        b9, b10 = mt_bound[t]
+        print(f"[mesh:time] {n} rays x {t} triangles: kernel 9 {k9:.4f} ms (plain {k9p:.3f} ms, "
+              f"bound {b9[0]:.4f} ms by {b9[1]}); kernel 10 {k10:.4f} ms (plain {k10p:.3f} ms, "
+              f"bound {b10[0]:.4f} ms by {b10[1]}); on {card}")
+
+    # ---- (i) the CLI on smooth_mesh takes the megakernel
+    cli = subprocess.run(
+        [sys.executable, "-m", "pathtracer_tpu_torch.cli", "scene=scenes/smooth_mesh.txt",
+         "--spp", "2", "--out", os.path.join(out_dir, "cli_smooth_mesh.png")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    print(f"[mesh:cli] exit {cli.returncode}: {cli.stdout.strip()} {cli.stderr.strip()[-2000:]}")
+    check(cli.returncode == 0 and "engine=megakernel" in cli.stdout, "mesh CLI run failed")
+
+    common = {"route": "cuda", "library_ms": None}
+    k9, k9p, k10, k10p = mt_ms["320"]
+    return [
+        {"name": "trace_mesh", **common, "source": "pathtracer_tpu_torch/csrc/trace.cu",
+         "replaces": "pathtracer_tpu/ops/trace_pallas.py:62", "launches": launches["trace_mesh"],
+         "max_abs_err": k1_err, "ms": k1_ms, "plain_ms": k1p_ms, "bound_ms": k1_bound[0],
+         "bound_by": k1_bound[1]},
+        {"name": "bounce_mesh", **common, "source": "pathtracer_tpu_torch/csrc/bounce.cu",
+         "replaces": "pathtracer_tpu/ops/bounce_pallas.py:1477",
+         "launches": launch_d["bounce_mesh"], "max_abs_err": k2_err, "ms": k2_ms,
+         "plain_ms": k2p_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1]},
+        {"name": "mesh_nearest", **common, "source": "pathtracer_tpu_torch/csrc/mesh.cu",
+         "replaces": "pathtracer_tpu/ops/mesh_pallas.py:88",
+         "launches": launch_c["mesh_nearest"], "max_abs_err": k9_err, "ms": k9, "plain_ms": k9p,
+         "bound_ms": mt_bound["320"][0][0], "bound_by": mt_bound["320"][0][1]},
+        {"name": "mesh_min", **common, "source": "pathtracer_tpu_torch/csrc/mesh.cu",
+         "replaces": "pathtracer_tpu/ops/mesh_pallas.py:107",
+         "launches": launch_c["mesh_min"], "max_abs_err": k10_err, "ms": k10, "plain_ms": k10p,
+         "bound_ms": mt_bound["320"][1][0], "bound_by": mt_bound["320"][1][1]},
+    ]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1090,7 +1399,10 @@ def main() -> int:
     # ---- 8. the wavefront engines
     wave_kernels = wavefront_phase(scene, dev, card, out_dir, mega)
 
-    # ---- 9. results
+    # ---- 9. triangle meshes
+    mesh_kernels = mesh_phase(dev, card, out_dir)
+
+    # ---- 10. results
     kernels = [
         {
             "name": "trace",
@@ -1108,6 +1420,7 @@ def main() -> int:
         *grad_kernels,
         *engine_kernels,
         *wave_kernels,
+        *mesh_kernels,
     ]
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

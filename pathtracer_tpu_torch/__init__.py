@@ -10,8 +10,11 @@ kernel with residuals and a reverse kernel per iteration
 (``csrc/trace_grad.cu``).  The wavefront engines
 (``RenderConfig(wavefront=True)``) run one bounce per launch
 (``csrc/bounce.cu``), or with ``fused=False`` the nearest-hit and occlusion
-kernels (``csrc/intersect.cu``) around PyTorch shading.  On CPU tensors
-their plain PyTorch versions run instead.  This package imports neither
+kernels (``csrc/intersect.cu``) around PyTorch shading.  Triangle meshes
+(OBJ files, displacement) render too: inside the trace and per-bounce
+kernels up to 4096 triangles, and on the split route through the mesh
+kernels (``csrc/mesh.cu``).  On CPU tensors their plain PyTorch versions
+run instead.  This package imports neither
 JAX nor ``pathtracer_tpu``.
 
     from pathtracer_tpu_torch import load_scene, render, RenderConfig

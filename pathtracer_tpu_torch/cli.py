@@ -5,8 +5,9 @@ Port of ``pathtracer_tpu/cli.py`` for one frame: the reference-style
 ``--scene --frame --spp --depth --out --seed --no-jitter``, ``--engine
 auto|wavefront|megakernel`` (``cli.py:58-62,134-160``) and ``--device``
 (default ``cuda``).  ``auto`` takes the megakernel, the full-depth trace
-kernel, for scenes inside its scope on a CUDA device, where the TPU took it
-on a TPU, and the wavefront engine otherwise.  Animation, checkpoints,
+kernel, for scenes inside its scope on a CUDA device (analytic scenes, and
+mesh scenes of at most 4096 triangles with the in-kernel sweep), where the
+TPU took it on a TPU, and the wavefront engine otherwise.  Animation, checkpoints,
 sharding and the interactive mode belong to later slices.
 
     python -m pathtracer_tpu_torch.cli scene=scenes/cornell.txt --spp 16
@@ -48,8 +49,8 @@ def build_argparser():
         "--engine",
         choices=["auto", "wavefront", "megakernel"],
         default="auto",
-        help="path tracing engine (auto: the full-depth trace kernel for analytic "
-        "scenes on CUDA, wavefront otherwise)",
+        help="path tracing engine (auto: the full-depth trace kernel for the scenes "
+        "it takes on CUDA, wavefront otherwise)",
     )
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     return p

@@ -33,6 +33,14 @@
 // are vacuum (volumetric media raise in the wrappers).  Lanes past n read
 // and write nothing.
 //
+// Triangle meshes (kernel 2 with mesh_tables, bounce_pallas.py:1491-1494,
+// 1568-1591, the in-kernel branch): as in trace.cu, a scene whose meshes
+// total at most 4096 triangles passes their in-kernel tables, and the
+// bounce's nearest hit and shadow ray sweep them through the same
+// pt::bounce.  As in trace.cu the kernel is built with and without the sweep
+// and launched by n_mesh.  The mesh-merge variant for larger meshes is not
+// ported.
+//
 // Design: one thread per lane; the geom / material / light tables are
 // copied once per block into shared memory and indexed by id (the TPU
 // kernel's where-chains over every row become gathers with the same
@@ -104,6 +112,10 @@ using namespace pt;
 
 constexpr int THREADS = 128;
 
+// kMesh = false compiles the analytic kernel: its mesh tables are a
+// constant n = 0, and the sweep drops out of the code (and of the register
+// budget) as in the kernels that never take meshes
+template <bool kMesh>
 __global__ void __launch_bounds__(THREADS)
 bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mtab, int M,
               const float* __restrict__ ltab, const float* __restrict__ scal, uint32_t seed,
@@ -115,7 +127,8 @@ bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ m
               float* __restrict__ next_d, float* __restrict__ thr_mult,
               uint8_t* __restrict__ terminate, float* __restrict__ wspec,
               float* __restrict__ rru, float* __restrict__ out_medium,
-              float* __restrict__ replay_gid, float* __restrict__ replay_nee) {
+              float* __restrict__ replay_gid, float* __restrict__ replay_nee,
+              MeshTables mesh) {
   extern __shared__ float smem[];
   float* s_g = smem;
   float* s_m = s_g + G * GCOLS;
@@ -127,7 +140,8 @@ bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ m
 
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
-  const Tables T{s_g, s_m, s_l, G, scal[0], scal[1] > 0.5f};
+  const Tables T{s_g, s_m, s_l, G, scal[0], scal[1] > 0.5f,
+                 kMesh ? mesh : MeshTables{nullptr, nullptr, nullptr, nullptr, 0}};
   bounce_lane(T, seed, nee, (size_t)idx, origin, direction, thr, sample, depth, prev, medium,
               contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
               replay_nee);
@@ -143,14 +157,17 @@ extern "C" int bounce_launch(const float* gtab, int G, const float* mtab, int M,
                              float* next_o, float* next_d, float* thr_mult,
                              unsigned char* terminate, float* wspec, float* rru,
                              float* out_medium, float* replay_gid, float* replay_nee,
-                             void* stream) {
+                             const float* mtri, const float* maabb, const float* mnorm,
+                             const int* mdesc, int n_mesh, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + THREADS - 1) / THREADS;
   const size_t smem = sizeof(float) * (size_t)(G * GCOLS + M * MCOLS + G * LCOLS);
-  bounce_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  const MeshTables mesh{mtri, maabb, mnorm, mdesc, n_mesh};
+  auto kernel = n_mesh > 0 ? bounce_kernel<true> : bounce_kernel<false>;
+  kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       gtab, G, mtab, M, ltab, scal, seed, nee, n, origin, direction, thr, sample, depth, prev,
       medium, contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
-      replay_nee);
+      replay_nee, mesh);
   return (int)cudaGetLastError();
 }
 

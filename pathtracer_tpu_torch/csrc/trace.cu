@@ -33,6 +33,17 @@
 //   function, so the two forwards agree bit for bit, and the per-bounce
 //   kernel (bounce.cu) runs the same pt::bounce.
 //
+// Triangle meshes (kernel 1 with mesh_tables, trace_pallas.py:67-74,115-137):
+// a scene whose meshes total at most 4096 triangles passes their in-kernel
+// tables (ops/mesh_tables.KernelMeshes: triangles, chunk boxes, corner
+// normals, one descriptor row per mesh), which stay in device memory (at the
+// cap 4096 x 27 floats, 442 KB, more than a block's shared memory) and are
+// read through the caches by every lane alike.  Each bounce's nearest hit
+// and each counted shadow ray also sweep them (trace_common.cuh:mesh_sweep,
+// mesh_occ), each lane culling 32-triangle chunks by their boxes.  The
+// kernel is built twice: with the sweep, launched for n_mesh > 0, and
+// without it for analytic scenes, whose code and registers stay as before.
+//
 // What bounds it on the H100: operations, not bytes.  A lane reads 28 bytes
 // (origin, direction, sample) and writes 12, about 26 MB per 640,000-lane
 // iteration (~8 us at 3.35 TB/s), while every bounce costs two sweeps over
@@ -79,13 +90,17 @@ namespace {
 
 using namespace pt;
 
+// kMesh = false compiles the analytic kernel: its mesh tables are a
+// constant n = 0, and the sweep drops out of the code (and of the register
+// budget) as in the kernels that never take meshes
+template <bool kMesh>
 __global__ void __launch_bounds__(128)
 trace_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mtab, int M,
              const float* __restrict__ ltab, const float* __restrict__ scal, uint32_t seed,
              const float* __restrict__ origin, const float* __restrict__ direction,
              const uint32_t* __restrict__ sample, int n, float* __restrict__ radiance,
              unsigned long long* __restrict__ nrays, int max_depth, int nee, int rr,
-             int rr_start) {
+             int rr_start, MeshTables mesh) {
   extern __shared__ float smem[];
   float* s_g = smem;
   float* s_m = s_g + G * GCOLS;
@@ -96,7 +111,8 @@ trace_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mt
   __syncthreads();
 
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const Tables T{s_g, s_m, s_l, G, scal[0], scal[1] > 0.5f};
+  const Tables T{s_g, s_m, s_l, G, scal[0], scal[1] > 0.5f,
+                 kMesh ? mesh : MeshTables{nullptr, nullptr, nullptr, nullptr, 0}};
 
   const bool alive = idx < n;
   V3 o = v3(0.0f, 0.0f, 0.0f), d = o;
@@ -128,14 +144,17 @@ extern "C" int trace_launch(const float* gtab, int G, const float* mtab, int M,
                             const float* origin, const float* direction,
                             const unsigned int* sample, int n, float* radiance,
                             unsigned long long* nrays, int max_depth, int nee, int rr,
-                            int rr_start, void* stream) {
+                            int rr_start, const float* mtri, const float* maabb,
+                            const float* mnorm, const int* mdesc, int n_mesh, void* stream) {
   if (n <= 0) return 0;
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
   const size_t smem = sizeof(float) * (size_t)(G * pt::GCOLS + M * pt::MCOLS + G * pt::LCOLS);
-  trace_kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
+  const pt::MeshTables mesh{mtri, maabb, mnorm, mdesc, n_mesh};
+  auto kernel = n_mesh > 0 ? trace_kernel<true> : trace_kernel<false>;
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       gtab, G, mtab, M, ltab, scal, seed, origin, direction, sample, n, radiance, nrays,
-      max_depth, nee, rr, rr_start);
+      max_depth, nee, rr, rr_start, mesh);
   return (int)cudaGetLastError();
 }
 

@@ -1,11 +1,11 @@
 // Device functions shared by the kernels (trace.cu, trace_grad.cu,
-// bounce.cu, intersect.cu): the vector helpers, the counter-hash RNG, the
-// analytic intersection, the sampling blocks, one forward bounce and the
-// trace loops' step.  The plain PyTorch versions are
-// pathtracer_tpu_torch/ops/{rng,intersect,bounce,trace}.py; this file
-// repeats their arithmetic in the same order (built with -fmad=false and
-// without fast math, so a*b+c is not contracted and the kernels round as
-// the op-by-op plain versions do).
+// bounce.cu, intersect.cu, mesh.cu): the vector helpers, the counter-hash
+// RNG, the analytic and triangle intersection, the in-kernel mesh sweep, the
+// sampling blocks, one forward bounce and the trace loops' step.  The plain
+// PyTorch versions are pathtracer_tpu_torch/ops/{rng,intersect,mesh_tables,
+// bounce,trace}.py; this file repeats their arithmetic in the same order
+// (built with -fmad=false and without fast math, so a*b+c is not contracted
+// and the kernels round as the op-by-op plain versions do).
 //
 // PT_FN marks a function that the kernels inline (PT_HD one that the host
 // launchers call too).  Without nvcc the same
@@ -147,6 +147,129 @@ PT_FN V3 world_normal_raw(const float* m, V3 n_obj) {
   return v3(m[0] * n_obj.x + m[4] * n_obj.y + m[8] * n_obj.z,
             m[1] * n_obj.x + m[5] * n_obj.y + m[9] * n_obj.z,
             m[2] * n_obj.x + m[6] * n_obj.y + m[10] * n_obj.z);
+}
+
+// ---- triangles (ops/intersect.py:mt_planes, ops/mesh_tables.py) -----------
+
+// Moeller-Trumbore of one triangle whose first 9 floats are (v0, e1, e2):
+// t (BIG on a miss) and the barycentrics u, v.  The rows of kernels 9 and 10
+// (stride 9) and of the in-kernel tables (stride 12) both start so.
+PT_FN float mt_tri(const float* tr, V3 o, V3 d, float& u, float& v) {
+  const float v0x = tr[0], v0y = tr[1], v0z = tr[2];
+  const float e1x = tr[3], e1y = tr[4], e1z = tr[5];
+  const float e2x = tr[6], e2y = tr[7], e2z = tr[8];
+  const float hx = d.y * e2z - d.z * e2y;
+  const float hy = d.z * e2x - d.x * e2z;
+  const float hz = d.x * e2y - d.y * e2x;
+  const float a = e1x * hx + e1y * hy + e1z * hz;
+  const float f = 1.0f / (fabsf(a) < 1e-12f ? (a >= 0.0f ? 1e-12f : -1e-12f) : a);
+  const float sx = o.x - v0x, sy = o.y - v0y, sz = o.z - v0z;
+  u = f * (sx * hx + sy * hy + sz * hz);
+  const float qx = sy * e1z - sz * e1y;
+  const float qy = sz * e1x - sx * e1z;
+  const float qz = sx * e1y - sy * e1x;
+  v = f * (d.x * qx + d.y * qy + d.z * qz);
+  const float t = f * (e2x * qx + e2y * qy + e2z * qz);
+  const bool ok = fabsf(a) > 1e-12f && u >= 0.0f && u <= 1.0f && v >= 0.0f && u + v <= 1.0f &&
+                  t > T_MIN;
+  return ok ? t : BIG;
+}
+
+constexpr int MESH_CHUNK = 32;  // triangles per culling chunk
+
+// The in-kernel tables of a scene's meshes (ops/mesh_tables.KernelMeshes),
+// in device memory: n = 0 for none.
+struct MeshTables {
+  const float* tri;   // [Tp, 12]: v0, e1, e2, face normal
+  const float* aabb;  // [C, 6]: chunk box lo, hi
+  const float* norm;  // [Tp, 9]: corner normals (zeros where a mesh has no vn)
+  const int* desc;    // [n, 4]: geom index, chunks, first chunk, has normals
+  int n;
+};
+
+// the ray's slab interval meets the chunk box nearer than `best`
+PT_FN bool chunk_reaches(const float* box, V3 oo, V3 inv, float best) {
+  const float t1x = (box[0] - oo.x) * inv.x, t2x = (box[3] - oo.x) * inv.x;
+  const float t1y = (box[1] - oo.y) * inv.y, t2y = (box[4] - oo.y) * inv.y;
+  const float t1z = (box[2] - oo.z) * inv.z, t2z = (box[5] - oo.z) * inv.z;
+  const float tmin =
+      fmaxf(fmaxf(fminf(t1x, t2x), fminf(t1y, t2y)), fmaxf(fminf(t1z, t2z), T_MIN));
+  const float tmax = fminf(fminf(fmaxf(t1x, t2x), fmaxf(t1y, t2y)), fmaxf(t1z, t2z));
+  return tmax >= tmin && tmin < best;
+}
+
+struct MeshHit {
+  float t;    // BIG: no triangle
+  V3 p_obj;   // hit point in the mesh's object space
+  V3 normal;  // unit world normal
+  int mid;    // material id
+};
+
+// The nearest triangle over every mesh (ops/mesh_tables.py:mesh_sweep): per
+// mesh the ray in its geom's object space, per chunk the slab test against
+// this lane's best, per triangle a strict t < best update; the normal is
+// the clipped barycentric blend of the corner normals (or the face normal)
+// through the geom's inverse transpose, normalized after the loop.
+PT_FN MeshHit mesh_sweep(const float* g_tab, const MeshTables& M, V3 o, V3 d) {
+  MeshHit h;
+  h.t = BIG;
+  h.p_obj = v3(0.0f, 0.0f, 0.0f);
+  V3 nw = h.p_obj;
+  h.mid = 0;
+  for (int k = 0; k < M.n; ++k) {
+    const int* ds = M.desc + 4 * k;
+    const float* m = g_tab + ds[0] * GCOLS;
+    V3 oo, od;
+    to_object(m, o, d, oo, od);
+    const V3 inv = v3(safe_recip(od.x), safe_recip(od.y), safe_recip(od.z));
+    for (int c = ds[2]; c < ds[2] + ds[1]; ++c) {
+      if (!chunk_reaches(M.aabb + 6 * c, oo, inv, h.t)) continue;
+      for (int j = 0; j < MESH_CHUNK; ++j) {
+        const int row = c * MESH_CHUNK + j;
+        const float* tr = M.tri + 12 * row;
+        float u, v;
+        const float tc = mt_tri(tr, oo, od, u, v);
+        if (tc < h.t) {
+          h.t = tc;
+          h.p_obj = vadd(oo, vscale(tc, od));
+          V3 n;
+          if (ds[3]) {
+            const float* nr = M.norm + 9 * row;
+            const float uc = fminf(fmaxf(u, 0.0f), 1.0f);
+            const float vc = fminf(fmaxf(v, 0.0f), 1.0f);
+            const float w0 = fminf(fmaxf(1.0f - uc - vc, 0.0f), 1.0f);
+            n = v3(w0 * nr[0] + uc * nr[3] + vc * nr[6], w0 * nr[1] + uc * nr[4] + vc * nr[7],
+                   w0 * nr[2] + uc * nr[5] + vc * nr[8]);
+          } else {
+            n = v3(tr[9], tr[10], tr[11]);
+          }
+          nw = world_normal_raw(m, n);
+          h.mid = (int)m[13];
+        }
+      }
+    }
+  }
+  h.normal = vnormalize(nw);
+  return h;
+}
+
+// the shadow ray's nearest triangle t (ops/mesh_tables.py:mesh_occ)
+PT_FN float mesh_occ(const float* g_tab, const MeshTables& M, V3 x, V3 wi) {
+  float occ = BIG;
+  for (int k = 0; k < M.n; ++k) {
+    const int* ds = M.desc + 4 * k;
+    V3 oo, od;
+    to_object(g_tab + ds[0] * GCOLS, x, wi, oo, od);
+    const V3 inv = v3(safe_recip(od.x), safe_recip(od.y), safe_recip(od.z));
+    for (int c = ds[2]; c < ds[2] + ds[1]; ++c) {
+      if (!chunk_reaches(M.aabb + 6 * c, oo, inv, occ)) continue;
+      for (int j = 0; j < MESH_CHUNK; ++j) {
+        float u, v;
+        occ = fminf(occ, mt_tri(M.tri + 12 * (c * MESH_CHUNK + j), oo, od, u, v));
+      }
+    }
+  }
+  return occ;
 }
 
 // ---- sampling blocks (ops/bounce.py) --------------------------------------
@@ -304,6 +427,7 @@ struct Tables {
   int G;
   float total_area;  // scal[0]
   bool any_light;    // scal[1] > 0.5
+  MeshTables mesh;   // the in-kernel triangle sweep; mesh.n = 0 for none
 };
 
 // What one bounce resolves: bounce_physics's outputs (the medium passes
@@ -353,13 +477,23 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
       w_d = od;
     }
   }
+  const bool a_hit = best_t < BIG;  // the analytic winner
+  // the mesh winner merges in where it is nearer: its distance, material,
+  // point and normal win; gid stays the analytic winner's, as in JAX
+  MeshHit mh;
+  bool mb = false;
+  if (T.mesh.n > 0) {
+    mh = mesh_sweep(T.g, T.mesh, o, d);
+    mb = mh.t < best_t;
+    if (mb) best_t = mh.t;
+  }
   const bool hit = best_t < BIG;
   b.terminate = true;
   if (!kMaskFree && !hit) return b;  // miss: the path ends with nothing added
   if (hit) b.gid = gid;
 
   const float* gw = T.g + gid * GCOLS;  // geom 0's row on a miss
-  const float* mat = T.m + (hit ? (int)gw[13] : 0) * MCOLS;
+  const float* mat = T.m + (mb ? mh.mid : (a_hit ? (int)gw[13] : 0)) * MCOLS;
   const bool emissive = mat[9] > 0.0f;
   const V3 color = v3(mat[0], mat[1], mat[2]);
   if (hit && emissive) {
@@ -373,9 +507,14 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
 
   const float t_safe = hit ? best_t : 1.0f;
   const V3 p = vadd(o, vscale(t_safe, d));
-  const V3 p_obj = vadd(w_o, vscale(t_safe, w_d));
-  const V3 n_obj = object_normal(hit && gw[12] == SPHERE, p_obj);
-  const V3 normal = vnormalize(world_normal_raw(gw, n_obj));
+  V3 normal;
+  if (mb) {
+    normal = mh.normal;
+  } else {
+    const V3 p_obj = vadd(w_o, vscale(t_safe, w_d));
+    const V3 n_obj = object_normal(a_hit && gw[12] == SPHERE, p_obj);
+    normal = vnormalize(world_normal_raw(gw, n_obj));
+  }
 
   const Scatter sc = sample_bsdf(mat, p, normal, d, uniform(base, 0), uniform(base, 1),
                                  uniform(base, 2));
@@ -405,6 +544,10 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
         to_object(m, x, wi, oo, od);
         occ_t = fminf(occ_t, geom_t(m, oo, od));
       }
+      // min(analytic, mesh) clears the bar only if both do: the triangles
+      // are swept only for a shadow ray the analytic geoms leave clear
+      if (T.mesh.n > 0 && occ_t >= dist - SHADOW_SLACK)
+        occ_t = fminf(occ_t, mesh_occ(T.g, T.mesh, x, wi));
       if (occ_t >= dist - SHADOW_SLACK) {
         const float pdf_area = 1.0f / fmaxf(T.total_area, 1e-20f);
         float gterm = cos_x * cos_y / fmaxf(dist2, 1e-12f);

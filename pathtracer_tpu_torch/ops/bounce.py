@@ -22,9 +22,14 @@ differentiable in its tensor inputs: autograd of it is the reference of the
 reverse trace kernel (``csrc/trace_grad.cu``), and winner replay
 (``bounce_physics(replay=...)``) is its recompute.
 
-The optional blocks (texture, bump, volumetric, microfacet, ward, hg),
-meshes and deferred texels belong to later slices and raise
-``NotImplementedError``.  ``glossy`` is not gated in the JAX kernel either.
+Triangle meshes whose tables the kernels take (``ops/mesh_tables.py``)
+enter through ``mesh=``: the in-kernel sweep's winner is merged into the
+analytic one (``bounce_pallas.py:1027-1036``: where the mesh is nearer its
+distance, material, hit point and normal win, while the analytic geom id
+stays), and the shadow ray sweeps the triangles too (``:1251-1254``).
+The optional blocks (texture, bump, volumetric, microfacet, ward, hg) and
+deferred texels belong to later slices and raise ``NotImplementedError``.
+``glossy`` is not gated in the JAX kernel either.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from pathtracer_tpu_torch.ops.intersect import (
     world_normal,
 )
 from pathtracer_tpu_torch.ops.lights import axis_scales, light_areas
+from pathtracer_tpu_torch.ops.mesh_tables import mesh_occ, mesh_sweep
 from pathtracer_tpu_torch.scene.structs import SPHERE, Scene
 
 TWO_PI = 2.0 * math.pi
@@ -351,7 +357,7 @@ def bounce_physics(
     gtab, mtab, ltab, svals,
     u, depth, prev_state,
     *, nee: bool, t_min: float, features=frozenset(),
-    replay=None, emit_replay: bool = False,
+    replay=None, emit_replay: bool = False, mesh=None,
 ):
     """One bounce for a wavefront of lanes (mask-free: the caller gates with
     its alive mask).  ``o``/``d``/``throughput``/``sigma_a`` are 3-tuples
@@ -375,10 +381,16 @@ def bounce_physics(
     gradients are those of the sweep, and the recompute gives the sweep's
     values bit for bit.
 
+    ``mesh`` is the scene's ``ops/mesh_tables.KernelMeshes`` (or None): the
+    in-kernel triangle sweep, as the module docstring says.  It takes no
+    gradients and no replay.
+
     Returns a dict: contrib(3), next_o(3), next_d(3), thr_mult(3),
     terminate (bool), wspec (emit-state code), rru, out_ma(3), out_ms
     [, replay_gid, replay_nee_add]."""
     check_features(features)
+    if mesh is not None and (replay is not None or emit_replay):
+        raise NotImplementedError("winner replay of mesh scenes: later slice")
     gtypes = gtab[:, 12].tolist()  # host-side types: the sweep dispatches on them
 
     if replay is not None:
@@ -399,6 +411,15 @@ def bounce_physics(
     p_obj = (w[0] + t_safe * w[3], w[1] + t_safe * w[4], w[2] + t_safe * w[5])
 
     normal = world_normal(win, object_normal(sph, p_obj))
+    if mesh is not None:
+        mh = mesh_sweep(mesh, gtab, o, d)
+        mb = mh["et"] < best_t
+        best_t = torch.where(mb, mh["et"], best_t)
+        mid = torch.where(mb, mh["emid"], mid)
+        hit = best_t < BIG
+        t_safe = torch.where(hit, best_t, 1.0)
+        p = vadd(o, vscale(t_safe, d))
+        normal = vwhere(mb, mh["en"], normal)
 
     mat = material_fetch(mtab, mid)
     emissive = mat["emittance"] > 0.0
@@ -439,6 +460,8 @@ def bounce_physics(
             for g, row in enumerate(gtab.detach().unbind(0)):
                 t_g, _ = geom_t(row, *xd, *wd, t_min, gtypes[g])
                 occ_t = torch.minimum(occ_t, t_g)
+            if mesh is not None:
+                occ_t = torch.minimum(occ_t, mesh_occ(mesh, gtab.detach(), xd, wd))
             visible = occ_t >= dist.detach() - 4.0 * RAY_BIAS
             add = candidate & visible
 

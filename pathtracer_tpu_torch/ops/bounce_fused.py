@@ -22,9 +22,12 @@ code, BSDF continuation, and NEE with a shadow sweep.
 * :func:`bounce_fused` dispatches on the rays' device: a CUDA tensor
   launches the kernel or raises, a CPU tensor takes the plain version.
 
-The medium passes through unchanged: the port's scenes are vacuum
-(``volumetric`` and the other optional blocks raise).  Meshes and image
-textures (the mesh-merge and deferred-texel variants) raise as well.
+Mesh scenes the in-kernel sweep takes (``bounce_pallas.py:1637-1671``, the
+in-kernel branch) pass its tables as ``mesh=``: the bounce sweeps the
+triangles for its nearest hit and its shadow ray.  The medium passes
+through unchanged: the port's scenes are vacuum (``volumetric`` and the
+other optional blocks raise).  Larger meshes (the mesh-merge variant) and
+image textures (the deferred-texel variant) raise as well.
 """
 
 from __future__ import annotations
@@ -38,10 +41,18 @@ from pathtracer_tpu_torch.ops import _build
 from pathtracer_tpu_torch.ops.bounce import bounce_physics, check_features, pack_tables
 from pathtracer_tpu_torch.ops.intersect import T_MIN
 from pathtracer_tpu_torch.ops.rng import hash_uniforms_planes
-from pathtracer_tpu_torch.ops.trace import check_launch, check_tensor
+from pathtracer_tpu_torch.ops.mesh_tables import mesh_inkernel_eligible
+from pathtracer_tpu_torch.ops.trace import (
+    MESH_ARGTYPES,
+    MESH_MERGE_MISSING,
+    check_launch,
+    check_tensor,
+    mesh_launch_args,
+)
 
-launches = 0  # launches of csrc/bounce.cu in this process, without replay planes
+launches = 0  # launches of csrc/bounce.cu in this process, analytic scenes
 replay_launches = 0  # launches of its emit_replay variant
+mesh_launches = 0  # launches of its variant with in-kernel mesh tables
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,10 +76,11 @@ def _per_lane_depth(depth, n: int, device) -> torch.Tensor:
 
 def bounce_fused_plain(tables, origin, direction, throughput, sample_idx, depth,
                        prev_specular, medium_sigma, seed: int, *, nee: bool,
-                       features=frozenset(), emit_replay: bool = False):
+                       features=frozenset(), emit_replay: bool = False, mesh=None):
     """Plain version of kernel 2.  ``depth`` is an int or a per-lane
-    tensor; ``medium_sigma`` ``[N, 4]``.  Returns a :class:`BounceResult`,
-    with ``emit_replay`` the tuple ``(BounceResult, replay_gid [N],
+    tensor; ``medium_sigma`` ``[N, 4]``; ``mesh`` the scene's in-kernel
+    triangle tables or None.  Returns a :class:`BounceResult`, with
+    ``emit_replay`` the tuple ``(BounceResult, replay_gid [N],
     replay_nee_add [N])``."""
     gtab, mtab, ltab, scal = tables
     depth = _per_lane_depth(depth, origin.shape[0], origin.device)
@@ -77,7 +89,7 @@ def bounce_fused_plain(tables, origin, direction, throughput, sample_idx, depth,
         tuple(origin.unbind(-1)), tuple(direction.unbind(-1)), tuple(throughput.unbind(-1)),
         tuple(medium_sigma[:, :3].unbind(-1)), medium_sigma[:, 3],
         gtab, mtab, ltab, scal, u, depth, prev_specular.to(torch.float32),
-        nee=nee, t_min=T_MIN, features=features, emit_replay=emit_replay,
+        nee=nee, t_min=T_MIN, features=features, emit_replay=emit_replay, mesh=mesh,
     )
     res = BounceResult(
         contrib=torch.stack(out["contrib"], dim=-1),
@@ -103,6 +115,7 @@ def _lib():
             P, P, P, P, P, P, P,  # origin, direction, throughput, sample, depth, state, medium
             P, P, P, P, P, P, P, P,  # contrib, next o, next d, thr mult, terminate, state, rru, medium
             P, P,  # replay gid, replay NEE bit (null: not written)
+            *MESH_ARGTYPES,
             P,  # stream
         ]
     return fn
@@ -110,13 +123,15 @@ def _lib():
 
 def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
                       prev_specular, medium_sigma, seed: int, *, nee: bool,
-                      emit_replay: bool = False):
+                      emit_replay: bool = False, mesh=None):
     """Launch kernel 2 on the rays' CUDA device, on the current stream;
-    ``emit_replay`` as in :func:`bounce_fused_plain`."""
-    global launches, replay_launches
+    ``emit_replay`` and ``mesh`` as in :func:`bounce_fused_plain`."""
+    global launches, replay_launches, mesh_launches
     gtab, mtab, ltab, scal = tables
     device = origin.device
     n = origin.shape[0]
+    if mesh is not None and emit_replay:
+        raise NotImplementedError("winner replay of mesh scenes: later slice")
     g, m, bits = check_launch(gtab, mtab, ltab, scal, sample_idx, n, device)
     f32 = dict(dtype=torch.float32, device=device)
     depth = _per_lane_depth(depth, n, device)
@@ -139,7 +154,7 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
         contrib.data_ptr(), next_o.data_ptr(), next_d.data_ptr(), thr_mult.data_ptr(),
         terminate.data_ptr(), wspec.data_ptr(), rru.data_ptr(), medium.data_ptr(),
         *(None if r is None else r.data_ptr() for r in replay),
-        torch.cuda.current_stream(device).cuda_stream,
+        *mesh_launch_args(mesh, device), torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"bounce kernel launch failed: CUDA error {err}")
@@ -149,7 +164,10 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
     if emit_replay:
         replay_launches += 1
         return (res, *replay)
-    launches += 1
+    if mesh is None:
+        launches += 1
+    else:
+        mesh_launches += 1
     return res
 
 
@@ -159,9 +177,11 @@ def bounce_fused(scene, origin, direction, throughput, sample_idx, depth, prev_s
     their alive masks).  ``tables`` are :func:`pack_tables` of the scene
     (packed here when not given); ``medium_sigma`` ``[N, 4]`` or None."""
     check_features(cfg.features)
-    if scene.meshes or scene.textures is not None or not cfg.fast_rng:
+    if scene.meshes and not mesh_inkernel_eligible(scene.meshes):
+        raise NotImplementedError(MESH_MERGE_MISSING)
+    if scene.textures is not None or not cfg.fast_rng:
         raise NotImplementedError(
-            "per-bounce kernel for meshes, image textures or fast_rng=False: later slice"
+            "per-bounce kernel for image textures or fast_rng=False: later slice"
         )
     tables = tables if tables is not None else pack_tables(scene)
     if medium_sigma is None:
@@ -171,7 +191,8 @@ def bounce_fused(scene, origin, direction, throughput, sample_idx, depth, prev_s
             medium_sigma, seed)
     device_type = origin.device.type
     if device_type == "cuda":
-        return bounce_fused_cuda(*args, nee=cfg.nee)
+        return bounce_fused_cuda(*args, nee=cfg.nee, mesh=scene.mesh_tables)
     if device_type == "cpu":
-        return bounce_fused_plain(*args, nee=cfg.nee, features=frozenset(cfg.features))
+        return bounce_fused_plain(*args, nee=cfg.nee, features=frozenset(cfg.features),
+                                  mesh=scene.mesh_tables)
     raise ValueError(f"no per-bounce kernel for device type {device_type!r}")

@@ -17,6 +17,14 @@ cube side 1) and are tested through the inverse transform; the
 object-space direction stays unnormalized, so ``t`` is the world-space
 distance.  A miss is ``BIG``.  The CUDA kernels (``csrc/trace_common.cuh``)
 repeat this arithmetic in the same order.
+
+The mesh half ports ``pathtracer_tpu/ops/intersect.py:236-270,307-373,
+500-564``: :func:`mt_chunk_t` (Moeller-Trumbore of ``[N]`` rays against a
+chunk of triangles, the formula of kernels 9 and 10),
+:func:`winner_face_normal`, :func:`mesh_scan_verts` and
+:func:`mesh_winner_attrs` (the authored smooth normal at a winning
+triangle).  The kernels' dispatch and the split route's
+mesh winner are ``ops/mesh.py``.
 """
 
 from __future__ import annotations
@@ -33,7 +41,7 @@ T_MIN = 1e-4  # min accepted hit distance
 GEOM_COLS = 14  # inverse-transform rows 0..2 (12), type, material id
 
 
-def _safe_recip(x, eps=1e-12):
+def safe_recip(x, eps=1e-12):
     return 1.0 / torch.where(
         torch.abs(x) < eps, torch.where(x >= 0, eps, -eps), x
     )
@@ -47,7 +55,7 @@ def sphere_t_planes(ox, oy, oz, dx, dy, dz, t_min=T_MIN):
     disc = b * b - a * c
     valid = disc > 0.0
     sq = torch.sqrt(torch.where(valid, disc, 1.0))
-    inv_a = _safe_recip(a)
+    inv_a = safe_recip(a)
     t0 = (-b - sq) * inv_a
     t1 = (-b + sq) * inv_a
     t = torch.where(t0 > t_min, t0, t1)
@@ -56,7 +64,7 @@ def sphere_t_planes(ox, oy, oz, dx, dy, dz, t_min=T_MIN):
 
 def cube_t_planes(ox, oy, oz, dx, dy, dz, t_min=T_MIN):
     """Unit-cube slab test: nearest t > t_min, else BIG."""
-    ix, iy, iz = _safe_recip(dx), _safe_recip(dy), _safe_recip(dz)
+    ix, iy, iz = safe_recip(dx), safe_recip(dy), safe_recip(dz)
     tlx, thx = (-0.5 - ox) * ix, (0.5 - ox) * ix
     tly, thy = (-0.5 - oy) * iy, (0.5 - oy) * iy
     tlz, thz = (-0.5 - oz) * iz, (0.5 - oz) * iz
@@ -73,7 +81,7 @@ def cube_t_planes(ox, oy, oz, dx, dy, dz, t_min=T_MIN):
     return torch.where(valid & (t > t_min), t, BIG)
 
 
-def _to_object(m, ox, oy, oz, dx, dy, dz):
+def to_object(m, ox, oy, oz, dx, dy, dz):
     oox = m[0] * ox + m[1] * oy + m[2] * oz + m[3]
     ooy = m[4] * ox + m[5] * oy + m[6] * oz + m[7]
     ooz = m[8] * ox + m[9] * oy + m[10] * oz + m[11]
@@ -92,7 +100,7 @@ def geom_t(grow, ox, oy, oz, dx, dy, dz, t_min, gtype):
     gradients to the row.  ``gtype`` is the geom type as a host number
     (a sweep reads the table's types once); the test dispatches on it."""
     m = grow.unbind(-1) if isinstance(grow, torch.Tensor) else grow
-    obj = _to_object(m, ox, oy, oz, dx, dy, dz)
+    obj = to_object(m, ox, oy, oz, dx, dy, dz)
     if gtype == float(SPHERE):
         t = sphere_t_planes(*obj, t_min)
     elif gtype == float(CUBE):
@@ -106,7 +114,7 @@ def geom_t_lanes(rows, ox, oy, oz, dx, dy, dz, t_min=T_MIN):
     """:func:`geom_t` with a row per lane (14 ``[N]`` tensors, e.g. the
     winner's row gathered per lane): both primitives are tested and the
     lane's type selects, as ``intersect_pallas.py:_geom_t`` does."""
-    obj = _to_object(rows, ox, oy, oz, dx, dy, dz)
+    obj = to_object(rows, ox, oy, oz, dx, dy, dz)
     ts = sphere_t_planes(*obj, t_min)
     tc = cube_t_planes(*obj, t_min)
     t = torch.where(
@@ -262,7 +270,7 @@ def intersect_scene_lean(rays: Rays, gtab: torch.Tensor, winner=None) -> Hit:
     # serializes the many lanes that share a row)
     rows = torch.index_select(gtab, 0, gid.long()).unbind(-1)
     o, d = rays.origin.unbind(-1), rays.direction.unbind(-1)
-    obj = _to_object(rows, *o, *d)
+    obj = to_object(rows, *o, *d)
     is_sphere = rows[12] == float(SPHERE)
     ts = sphere_t_planes(*obj)
     tc = cube_t_planes(*obj)
@@ -281,3 +289,91 @@ def intersect_scene_lean(rays: Rays, gtab: torch.Tensor, winner=None) -> Hit:
         position_obj=torch.stack(p_obj, dim=-1),
         normal=torch.stack(normal, dim=-1),
     )
+
+
+# ---------------------------------------------------------------------------
+# triangle meshes (the split route)
+# ---------------------------------------------------------------------------
+
+
+def mt_chunk_t(o_obj, d_obj, cv0, ce1, ce2, t_min=T_MIN):
+    """Moeller-Trumbore distances ``[N rays, C triangles]`` (BIG = miss) of
+    ``[N, 3]`` object-space rays against triangles given as ``v0``, ``e1 =
+    v1 - v0``, ``e2 = v2 - v0`` (``[C, 3]`` each); a near-zero determinant
+    (below 1e-12) misses."""
+    return mt_planes(o_obj.unbind(-1), d_obj.unbind(-1), cv0, ce1, ce2, t_min)[0]
+
+
+def mt_planes(o, d, cv0, ce1, ce2, t_min=T_MIN):
+    """:func:`mt_chunk_t` on ray planes (3-tuples of ``[N]``): ``(t, u, v)``,
+    each ``[N, C]``, with the barycentrics ``u``, ``v`` of every pair."""
+    ox, oy, oz = (c[:, None] for c in o)
+    dx, dy, dz = (c[:, None] for c in d)
+    v0x, v0y, v0z = (cv0[None, :, i] for i in range(3))
+    e1x, e1y, e1z = (ce1[None, :, i] for i in range(3))
+    e2x, e2y, e2z = (ce2[None, :, i] for i in range(3))
+    hx = dy * e2z - dz * e2y  # h = d x e2
+    hy = dz * e2x - dx * e2z
+    hz = dx * e2y - dy * e2x
+    a = e1x * hx + e1y * hy + e1z * hz
+    f = safe_recip(a)
+    sx, sy, sz = ox - v0x, oy - v0y, oz - v0z
+    u = f * (sx * hx + sy * hy + sz * hz)
+    qx = sy * e1z - sz * e1y  # q = s x e1
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = f * (dx * qx + dy * qy + dz * qz)
+    t = f * (e2x * qx + e2y * qy + e2z * qz)
+    ok = (torch.abs(a) > 1e-12) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (
+        t > t_min)
+    return torch.where(ok, t, BIG), u, v
+
+
+def winner_face_normal(scan_verts, best_i):
+    """Unnormalized face normal ``cross(v1 - v0, v2 - v0)`` of each lane's
+    winning row of ``scan_verts`` (``[T, 3, 3]``)."""
+    tri = torch.index_select(scan_verts, 0, best_i.long())
+    return torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], dim=-1)
+
+
+def mesh_scan_verts(m) -> torch.Tensor:
+    """The triangles, ``[T', 3, 3]``, that a mesh's winner indices refer to:
+    the LBVH's Morton scan order for meshes with one, else file order."""
+    if m.accel is not None:
+        return m.accel.chunks.reshape(-1, 3, 3)
+    return m.tri_verts
+
+
+def unit(v):
+    """``v / max(|v|, 1e-12)`` along the last axis, as ``jnp.linalg.norm``."""
+    return v / torch.clamp(torch.sqrt(torch.sum(v * v, dim=-1, keepdim=True)), min=1e-12)
+
+
+def mesh_winner_attrs(m, o_obj, d_obj, best_i):
+    """The authored smooth normal (object space, unit) at each lane's
+    winning triangle ``best_i`` (a scan-order row), or None for a mesh
+    without ``vn``.  The barycentrics are recomputed against the winner
+    alone and clipped to [0, 1]; the scan-to-file permutation is applied to
+    the tables, and each lane's row is gathered with ``index_select``.
+    Authored UVs serve image textures, a later slice."""
+    if m.tri_norm is None:
+        return None
+    idx = best_i.long()
+    verts, norms = m.tri_verts, m.tri_norm
+    if m.accel is not None:
+        perm = m.accel.scan_to_file.long()
+        verts, norms = verts[perm], norms[perm]
+    tri = torch.index_select(verts, 0, idx)
+    v0 = tri[:, 0]
+    e1 = tri[:, 1] - tri[:, 0]
+    e2 = tri[:, 2] - tri[:, 0]
+    h = torch.linalg.cross(d_obj, e2, dim=-1)
+    f = safe_recip(torch.sum(e1 * h, dim=-1))
+    s = o_obj - v0
+    u = torch.clamp(f * torch.sum(s * h, dim=-1), 0.0, 1.0)
+    q = torch.linalg.cross(s, e1, dim=-1)
+    v = torch.clamp(f * torch.sum(d_obj * q, dim=-1), 0.0, 1.0)
+    w0 = torch.clamp(1.0 - u - v, 0.0, 1.0)
+    nc = torch.index_select(norms, 0, idx)
+    n_sm = w0[:, None] * nc[:, 0] + u[:, None] * nc[:, 1] + v[:, None] * nc[:, 2]
+    return unit(n_sm)

@@ -9,8 +9,12 @@ thread per lane, the geom table in shared memory); their plain versions are
 ``ops/intersect.nearest_hit_plain``, ``winner_t_gid_plain`` and
 ``occlusion_t_plain``.  :func:`nearest_hit`, :func:`winner_t_gid` and
 :func:`occlusion_t` dispatch on the rays' device: a CUDA tensor launches
-the kernel or raises, a CPU tensor takes the plain version.  Meshes raise, as everywhere in the
-port.
+the kernel or raises, a CPU tensor takes the plain version.  With meshes,
+:func:`nearest_hit` and :func:`occlusion_t` are the split route's
+``intersect_scene_pallas`` / ``occlusion_scene_pallas``
+(``intersect_pallas.py:283-333``): kernel 6 with the mesh winner of
+``ops/mesh.mesh_only_hit`` merged in where it is nearer, and kernel 8 with
+``ops/mesh.mesh_only_occlusion``'s minimum (kernels 9 and 10 inside).
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ from pathtracer_tpu_torch.ops.intersect import (
     occlusion_t_plain,
     winner_t_gid_plain,
 )
+from pathtracer_tpu_torch.ops.mesh import mesh_only_hit, mesh_only_occlusion
 from pathtracer_tpu_torch.ops.trace import MAX_GEOMS, check_tensor
 from pathtracer_tpu_torch.scene.structs import Rays
 
@@ -129,9 +134,26 @@ def _route(rays: Rays, kernel, plain):
     raise ValueError(f"no intersection for device type {device_type!r}")
 
 
-def nearest_hit(rays: Rays, gtab: torch.Tensor) -> Hit:
-    """Nearest hit over the geom table ``gtab`` (``pack_geom_table``)."""
-    return _route(rays, nearest_hit_cuda, nearest_hit_plain)(rays, gtab)
+def nearest_hit(rays: Rays, gtab: torch.Tensor, meshes=()) -> Hit:
+    """Nearest hit over the geom table ``gtab`` (``pack_geom_table``) and
+    the mesh instances ``meshes``."""
+    hit = _route(rays, nearest_hit_cuda, nearest_hit_plain)(rays, gtab)
+    if not meshes:
+        return hit
+    mt, mpo, mnw, mmid, mgid = mesh_only_hit(rays, gtab, meshes)
+    better = mt < hit.t
+    b = better[:, None]
+    t = torch.where(better, mt, hit.t)
+    t_safe = torch.where(t < BIG, t, 1.0)
+    return Hit(
+        t=t,
+        hit=t < BIG,
+        geom_id=torch.where(better, mgid, hit.geom_id),
+        material_id=torch.where(better, mmid, hit.material_id),
+        position=torch.where(b, rays.origin + t_safe[:, None] * rays.direction, hit.position),
+        position_obj=torch.where(b, mpo, hit.position_obj),
+        normal=torch.where(b, mnw, hit.normal),
+    )
 
 
 def winner_t_gid(rays: Rays, gtab: torch.Tensor):
@@ -140,6 +162,10 @@ def winner_t_gid(rays: Rays, gtab: torch.Tensor):
     return _route(rays, winner_t_gid_cuda, winner_t_gid_plain)(rays, gtab)
 
 
-def occlusion_t(rays: Rays, gtab: torch.Tensor) -> torch.Tensor:
-    """Shadow-ray nearest ``t`` over the geom table ``gtab``."""
-    return _route(rays, occlusion_t_cuda, occlusion_t_plain)(rays, gtab)
+def occlusion_t(rays: Rays, gtab: torch.Tensor, meshes=()) -> torch.Tensor:
+    """Shadow-ray nearest ``t`` over the geom table ``gtab`` and the mesh
+    instances ``meshes``."""
+    t = _route(rays, occlusion_t_cuda, occlusion_t_plain)(rays, gtab)
+    if meshes:
+        t = torch.minimum(t, mesh_only_occlusion(rays, gtab, meshes))
+    return t

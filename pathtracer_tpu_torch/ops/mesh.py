@@ -1,0 +1,260 @@
+"""Triangle-mesh intersection for the split route: kernels 9 and 10 with
+their plain versions and dispatch, and the mesh winner of a wavefront.
+
+Port of ``pathtracer_tpu/ops/mesh_pallas.py:39-54,118-181``
+(``MESH_PALLAS_MAX_TRIS``, ``pack_tri_table``, ``mesh_nearest_pallas``,
+``mesh_min_pallas``) and ``pathtracer_tpu/ops/intersect.py:376-498,679-739``
+(``mesh_query``, ``mesh_occlusion_t``, ``mesh_only_hit``,
+``mesh_only_occlusion``).
+
+* Kernel 9, :func:`mesh_nearest`: each ray's nearest triangle ``t`` and
+  index over a ``[T * 9]`` table of ``(v0, e1, e2)`` rows; kernel 10,
+  :func:`mesh_min`: the nearest ``t`` alone, for shadow rays.  The CUDA
+  kernels are ``csrc/mesh.cu``; the plain versions
+  (:func:`mesh_nearest_plain`, :func:`mesh_min_plain`) run
+  ``ops/intersect.mt_chunk_t`` on ``[N, 256]`` blocks and fold each block's
+  first minimum into the running best under a strict ``<``, which equals
+  the kernels' one triangle after another.  A CUDA tensor launches the
+  kernel or raises; a CPU tensor takes the plain version.
+* :func:`mesh_query` / :func:`mesh_occlusion_t` take the kernels for
+  meshes of at most :data:`MESH_KERNEL_MAX_TRIS` triangles, and above that
+  the LBVH traversal of ``ops/accel.py`` (``scene_for_frame`` builds an
+  LBVH for every mesh of ``ACCEL_MIN_TRIS`` triangles or more).  Every
+  path tests against ``T_MIN``, which the kernels hard-code.  A mesh's
+  table is its scan order without the LBVH's pad rows: a pad row repeats
+  the last triangle and cannot beat it under a strict ``<``, so the
+  winners are those of the padded table.
+* JAX guards both kernels with a ``lax.cond`` on whether any ray reaches
+  the mesh's root box; that needs a host sync here, so the kernels launch
+  unconditionally, which gives the same result.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from pathtracer_tpu_torch.ops import _build
+from pathtracer_tpu_torch.ops.accel import mesh_t_and_normal_accel
+from pathtracer_tpu_torch.ops.intersect import (
+    BIG,
+    T_MIN,
+    mesh_scan_verts,
+    mesh_winner_attrs,
+    mt_chunk_t,
+    to_object,
+    unit,
+    winner_face_normal,
+)
+from pathtracer_tpu_torch.ops.trace import check_tensor
+
+# kernels 9 and 10 take meshes up to this many triangles; larger ones take
+# the LBVH traversal, as in JAX
+MESH_KERNEL_MAX_TRIS = 8192
+PLAIN_BLOCK = 256  # triangles per block of the plain versions
+
+nearest_launches = 0  # launches of csrc/mesh.cu:mesh_nearest_kernel in this process
+min_launches = 0  # launches of csrc/mesh.cu:mesh_min_kernel
+
+P, I = ctypes.c_void_p, ctypes.c_int
+
+
+def pack_tri_table(tri_verts: torch.Tensor) -> torch.Tensor:
+    """``[T, 3, 3]`` corners -> flat ``[T * 9]`` ``(v0, e1, e2)`` table."""
+    v0 = tri_verts[:, 0]
+    e1 = tri_verts[:, 1] - tri_verts[:, 0]
+    e2 = tri_verts[:, 2] - tri_verts[:, 0]
+    return torch.cat([v0, e1, e2], dim=-1).reshape(-1).contiguous()
+
+
+def _blocks(table: torch.Tensor):
+    rows = table.view(-1, 9)
+    for b in range(0, rows.shape[0], PLAIN_BLOCK):
+        r = rows[b:b + PLAIN_BLOCK]
+        yield b, r[:, 0:3], r[:, 3:6], r[:, 6:9]
+
+
+def mesh_nearest_plain(table, o_obj, d_obj):
+    """Plain version of kernel 9: ``(t [N] float32, index [N] int32)``,
+    BIG and index 0 on a miss."""
+    best_t = torch.full((o_obj.shape[0],), BIG, dtype=torch.float32, device=o_obj.device)
+    best_i = torch.zeros(o_obj.shape[0], dtype=torch.int32, device=o_obj.device)
+    for b, v0, e1, e2 in _blocks(table):
+        t_b, i_b = torch.min(mt_chunk_t(o_obj, d_obj, v0, e1, e2, T_MIN), dim=-1)
+        better = t_b < best_t
+        best_t = torch.where(better, t_b, best_t)
+        best_i = torch.where(better, (b + i_b).to(torch.int32), best_i)
+    return best_t, best_i
+
+
+def mesh_min_plain(table, o_obj, d_obj):
+    """Plain version of kernel 10: each ray's nearest ``t`` (BIG = clear)."""
+    best_t = torch.full((o_obj.shape[0],), BIG, dtype=torch.float32, device=o_obj.device)
+    for _, v0, e1, e2 in _blocks(table):
+        best_t = torch.minimum(best_t, torch.amin(mt_chunk_t(o_obj, d_obj, v0, e1, e2, T_MIN),
+                                                  dim=-1))
+    return best_t
+
+
+def _lib():
+    lib = _build.load("mesh")
+    if lib.mesh_nearest_launch.argtypes is None:  # ctypes would cut pointers to 32 bits
+        lib.mesh_nearest_launch.restype = ctypes.c_int
+        # table, T, n, o_obj, d_obj, t, index, stream
+        lib.mesh_nearest_launch.argtypes = [P, I, I, P, P, P, P, P]
+        lib.mesh_min_launch.restype = ctypes.c_int
+        # table, T, n, o_obj, d_obj, t, stream
+        lib.mesh_min_launch.argtypes = [P, I, I, P, P, P, P]
+    return lib
+
+
+def _check(table, o_obj, d_obj):
+    device = o_obj.device
+    if device.type != "cuda":
+        raise ValueError(f"mesh kernels need CUDA tensors, got {device}")
+    n, n_tris = o_obj.shape[0], table.shape[0] // 9
+    if 3 * n >= 2**31:  # the kernels index the [N, 3] planes with 32-bit ints
+        raise ValueError(f"mesh kernels take fewer than {2**31 // 3} rays, got {n}")
+    if not 1 <= n_tris <= MESH_KERNEL_MAX_TRIS:
+        raise ValueError(f"mesh kernels take 1..{MESH_KERNEL_MAX_TRIS} triangles, got {n_tris}")
+    check_tensor(table, "triangle table", torch.float32, (n_tris * 9,), device)
+    check_tensor(o_obj, "origin", torch.float32, (n, 3), device)
+    check_tensor(d_obj, "direction", torch.float32, (n, 3), device)
+    return n, n_tris, device
+
+
+def mesh_nearest_cuda(table, o_obj, d_obj):
+    """Launch kernel 9 on the rays' CUDA device, on the current stream."""
+    global nearest_launches
+    n, n_tris, device = _check(table, o_obj, d_obj)
+    t = torch.empty(n, dtype=torch.float32, device=device)
+    idx = torch.empty(n, dtype=torch.int32, device=device)
+    err = _lib().mesh_nearest_launch(
+        table.data_ptr(), n_tris, n, o_obj.data_ptr(), d_obj.data_ptr(), t.data_ptr(),
+        idx.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"mesh nearest kernel launch failed: CUDA error {err}")
+    nearest_launches += 1
+    return t, idx
+
+
+def mesh_min_cuda(table, o_obj, d_obj):
+    """Launch kernel 10 on the rays' CUDA device, on the current stream."""
+    global min_launches
+    n, n_tris, device = _check(table, o_obj, d_obj)
+    t = torch.empty(n, dtype=torch.float32, device=device)
+    err = _lib().mesh_min_launch(
+        table.data_ptr(), n_tris, n, o_obj.data_ptr(), d_obj.data_ptr(), t.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"mesh min kernel launch failed: CUDA error {err}")
+    min_launches += 1
+    return t
+
+
+def _route(o_obj, kernel, plain):
+    device_type = o_obj.device.type
+    if device_type == "cuda":
+        return kernel
+    if device_type == "cpu":
+        return plain
+    raise ValueError(f"no mesh intersection for device type {device_type!r}")
+
+
+def mesh_nearest(table, o_obj, d_obj):
+    """Kernel 9 or its plain version, by the rays' device."""
+    return _route(o_obj, mesh_nearest_cuda, mesh_nearest_plain)(table, o_obj, d_obj)
+
+
+def mesh_min(table, o_obj, d_obj):
+    """Kernel 10 or its plain version, by the rays' device."""
+    return _route(o_obj, mesh_min_cuda, mesh_min_plain)(table, o_obj, d_obj)
+
+
+# ---------------------------------------------------------------------------
+# the split route's mesh winner
+# ---------------------------------------------------------------------------
+
+
+def _kernel_rows(m) -> int:
+    """Rows of the mesh's scan order that its kernel table holds."""
+    return m.accel.n_tris if m.accel is not None else m.tri_verts.shape[0]
+
+
+def mesh_query(m, o_obj, d_obj, with_index=False):
+    """Nearest triangle of one mesh for ``[N, 3]`` object-space rays:
+    ``(t [N], n_obj [N, 3])`` with the winner's unnormalized face normal
+    (BIG = miss), and with ``with_index`` its row in
+    ``ops/intersect.mesh_scan_verts(m)``."""
+    if _kernel_rows(m) <= MESH_KERNEL_MAX_TRIS:
+        t, idx = mesh_nearest(m.scan_table, o_obj.contiguous(), d_obj.contiguous())
+        nrm = winner_face_normal(mesh_scan_verts(m), idx)
+        return (t, nrm, idx) if with_index else (t, nrm)
+    if m.accel is None:
+        raise ValueError(f"a mesh of {_kernel_rows(m)} triangles needs its LBVH "
+                         "(scene_for_frame builds one)")
+    return mesh_t_and_normal_accel(o_obj, d_obj, m.accel, T_MIN, with_index=with_index)
+
+
+def mesh_occlusion_t(m, o_obj, d_obj):
+    """Nearest ``t`` of one mesh for shadow rays (BIG = clear)."""
+    if _kernel_rows(m) <= MESH_KERNEL_MAX_TRIS:
+        return mesh_min(m.scan_table, o_obj.contiguous(), d_obj.contiguous())
+    return mesh_query(m, o_obj, d_obj)[0]
+
+
+def object_rays(rays, gtab, g):
+    """The rays in geom ``g``'s object space as two ``[N, 3]`` tensors."""
+    obj = to_object(gtab[g].unbind(-1), *rays.origin.unbind(-1), *rays.direction.unbind(-1))
+    return torch.stack(obj[:3], dim=-1), torch.stack(obj[3:], dim=-1)
+
+
+def _world_normal_unit(m, n_obj):
+    """``inv^T n`` normalized as ``transforms.transform_normal`` does."""
+    n = torch.stack([m[0] * n_obj[:, 0] + m[4] * n_obj[:, 1] + m[8] * n_obj[:, 2],
+                     m[1] * n_obj[:, 0] + m[5] * n_obj[:, 1] + m[9] * n_obj[:, 2],
+                     m[2] * n_obj[:, 0] + m[6] * n_obj[:, 1] + m[10] * n_obj[:, 2]], dim=-1)
+    return unit(n)
+
+
+def mesh_only_hit(rays, gtab, meshes):
+    """Nearest hit over the mesh instances only: ``(t [N], p_obj [N, 3],
+    normal [N, 3] world unit, material_id [N] int32, geom_id [N] int32)``,
+    t >= BIG on a miss.  The geoms' inverse transforms and material ids are
+    read from the geom table ``gtab``; a mesh with authored ``vn`` shades
+    with its smooth normal."""
+    n = rays.origin.shape[0]
+    f32 = dict(dtype=torch.float32, device=rays.origin.device)
+    t = torch.full((n,), BIG, **f32)
+    pobj = torch.zeros((n, 3), **f32)
+    nrm = torch.zeros((n, 3), **f32)
+    mid = torch.zeros(n, dtype=torch.int32, device=rays.origin.device)
+    gid = torch.zeros(n, dtype=torch.int32, device=rays.origin.device)
+    for m in meshes:
+        g = m.geom_index
+        o_obj, d_obj = object_rays(rays, gtab, g)
+        mt, mn, mi = mesh_query(m, o_obj, d_obj, with_index=True)
+        n_sm = mesh_winner_attrs(m, o_obj, d_obj, mi)
+        better = mt < t
+        t_safe = torch.where(better, mt, 1.0)
+        mpo = o_obj + t_safe[:, None] * d_obj
+        mnw = _world_normal_unit(gtab[g], unit(mn) if n_sm is None else n_sm)
+        b = better[:, None]
+        t = torch.where(better, mt, t)
+        pobj = torch.where(b, mpo, pobj)
+        nrm = torch.where(b, mnw, nrm)
+        mid = torch.where(better, gtab[g, 13].to(torch.int32), mid)
+        gid = torch.where(better, g, gid)
+    return t, pobj, nrm, mid, gid
+
+
+def mesh_only_occlusion(rays, gtab, meshes):
+    """Nearest ``t`` per shadow ray over the mesh instances only."""
+    t = torch.full((rays.origin.shape[0],), BIG, dtype=torch.float32, device=rays.origin.device)
+    for m in meshes:
+        o_obj, d_obj = object_rays(rays, gtab, m.geom_index)
+        t = torch.minimum(t, mesh_occlusion_t(m, o_obj, d_obj))
+    return t

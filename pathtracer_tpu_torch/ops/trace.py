@@ -14,6 +14,13 @@ lanes per bounce, twice that with NEE for the shadow rays).
   bounces in a loop inside the thread).
 * :func:`trace_fused` dispatches on the rays' device: a CUDA tensor
   launches the kernel or raises, a CPU tensor takes the plain version.
+
+A scene whose meshes total at most ``ops/mesh_tables.MESH_INKERNEL_MAX_TRIS``
+triangles is in the kernel's scope (``trace_pallas.py:185-202``): both
+versions take its in-kernel tables (``mesh=``, the scene's
+``mesh_tables``) and sweep the triangles inside the bounce loop.  Larger
+meshes run per bounce in JAX, on kernel 2's mesh-merge variant, which the
+port does not have yet: :func:`trace_fused` raises for them.
 """
 
 from __future__ import annotations
@@ -31,18 +38,45 @@ from pathtracer_tpu_torch.ops.bounce import (
     pack_tables,
 )
 from pathtracer_tpu_torch.ops.intersect import GEOM_COLS, T_MIN
+from pathtracer_tpu_torch.ops.mesh_tables import mesh_inkernel_eligible
 from pathtracer_tpu_torch.ops.rng import hash_uniforms_planes, sample_bits
 
 MAX_GEOMS = 128  # table caps of the kernel's shared-memory copy
 MAX_MATERIALS = 128
 
-launches = 0  # kernel launches of trace_cuda in this process
+launches = 0  # launches of csrc/trace.cu for analytic scenes in this process
+mesh_launches = 0  # launches of its mesh variant (in-kernel triangle tables)
+
+
+MESH_MERGE_MISSING = (
+    "meshes above 4096 triangles run on kernel 2's mesh-merge variant "
+    "(pathtracer_tpu/ops/bounce_pallas.py:1694-1810): later slice; "
+    "RenderConfig(fused=False) takes the split route"
+)
 
 
 def fused_trace_eligible(scene, cfg) -> bool:
-    """Scope of the one-kernel trace in this slice: the counter-hash RNG,
-    analytic geoms only, no image textures."""
-    return cfg.fast_rng and not scene.meshes and scene.textures is None
+    """Scope of the one-kernel trace: the counter-hash RNG, no image
+    textures, and meshes only when the in-kernel sweep takes them."""
+    return (cfg.fast_rng and scene.textures is None
+            and (not scene.meshes or mesh_inkernel_eligible(scene.meshes)))
+
+
+def mesh_launch_args(mesh, device) -> tuple:
+    """The kernels' five mesh arguments: table pointers, descriptors and
+    the mesh count of ``ops/mesh_tables.KernelMeshes`` (0 for None), after
+    checking the tables are what the kernels read."""
+    if mesh is None:
+        return (None, None, None, None, 0)
+    for t, name in ((mesh.tri, "mesh triangles"), (mesh.aabb, "mesh chunk boxes"),
+                    (mesh.norm, "mesh normals")):
+        check_tensor(t, name, torch.float32, t.shape, device)
+    check_tensor(mesh.desc, "mesh descriptors", torch.int32, (len(mesh.descs), 4), device)
+    return (mesh.tri.data_ptr(), mesh.aabb.data_ptr(), mesh.norm.data_ptr(),
+            mesh.desc.data_ptr(), len(mesh.descs))
+
+
+MESH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int]  # tri, aabb, norm, desc, count
 
 
 def step_update(out, o, d, thr, prev_state, alive, dep: int, *, rr: bool, rr_start: int):
@@ -88,11 +122,12 @@ def init_carries(origin, direction):
 def trace_plain(
     gtab, mtab, ltab, scal, seed: int, origin, direction, sample_idx,
     *, max_depth: int, nee: bool, rr: bool, rr_start: int,
-    features=frozenset(),
+    features=frozenset(), mesh=None,
 ):
     """Plain version: ``(radiance [N, 3] float32, rays_traced int64 [])``.
     Differentiable in the tables and the rays (the analytic scenes' media
-    are vacuum, so the medium carries stay zero)."""
+    are vacuum, so the medium carries stay zero); ``mesh`` is the scene's
+    in-kernel triangle tables or None."""
     o, d, thr, prev_state, alive = init_carries(origin, direction)
     sigma_a = (torch.zeros_like(prev_state),) * 3
     sigma_s = torch.zeros_like(prev_state)
@@ -105,7 +140,7 @@ def trace_plain(
         u = hash_uniforms_planes(seed, sample_idx, dep, 11)
         out = bounce_physics(
             o, d, thr, sigma_a, sigma_s, gtab, mtab, ltab, scal,
-            u, dep, prev_state, nee=nee, t_min=T_MIN, features=features,
+            u, dep, prev_state, nee=nee, t_min=T_MIN, features=features, mesh=mesh,
         )
         rad_inc, alive, thr, o, d, prev_state = step_update(
             out, o, d, thr, prev_state, alive, dep, rr=rr, rr_start=rr_start
@@ -128,6 +163,7 @@ def _lib():
             ctypes.c_int,  # n
             ctypes.c_void_p, ctypes.c_void_p,  # radiance, nrays
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # depth, nee, rr, rr_start
+            *MESH_ARGTYPES,
             ctypes.c_void_p,  # stream
         ]
     return fn
@@ -173,12 +209,13 @@ def check_launch(gtab, mtab, ltab, scal, sample_idx, n: int, device):
 
 def trace_cuda(
     gtab, mtab, ltab, scal, seed: int, origin, direction, sample_idx,
-    *, max_depth: int, nee: bool, rr: bool, rr_start: int,
+    *, max_depth: int, nee: bool, rr: bool, rr_start: int, mesh=None,
 ):
     """Launch the trace kernel: ``(radiance [N, 3], rays_traced int64 [])``
     on the rays' CUDA device, on the current stream.  The tables are those
-    of :func:`pack_tables`, which checks the material ids."""
-    global launches
+    of :func:`pack_tables`, which checks the material ids; ``mesh`` the
+    scene's in-kernel triangle tables or None."""
+    global launches, mesh_launches
     device = origin.device
     n = origin.shape[0]
     g, m, bits = check_launch(gtab, mtab, ltab, scal, sample_idx, n, device)
@@ -194,11 +231,15 @@ def trace_cuda(
         int(seed) & 0xFFFFFFFF,
         origin.data_ptr(), direction.data_ptr(), bits.data_ptr(), n,
         radiance.data_ptr(), nrays.data_ptr(),
-        int(max_depth), int(bool(nee)), int(bool(rr)), int(rr_start), stream,
+        int(max_depth), int(bool(nee)), int(bool(rr)), int(rr_start),
+        *mesh_launch_args(mesh, device), stream,
     )
     if err != 0:
         raise RuntimeError(f"trace kernel launch failed: CUDA error {err}")
-    launches += 1
+    if mesh is None:
+        launches += 1
+    else:
+        mesh_launches += 1
     return radiance, nrays
 
 
@@ -207,14 +248,14 @@ def trace_fused(scene, rays, sample_idx, seed: int, cfg, tables=None):
     rays_traced int64 [])``.  ``tables`` are :func:`pack_tables` of the
     scene (packed here when not given)."""
     check_features(cfg.features)
+    if scene.meshes and not mesh_inkernel_eligible(scene.meshes):
+        raise NotImplementedError(MESH_MERGE_MISSING)
     if not fused_trace_eligible(scene, cfg):
-        raise NotImplementedError(
-            "trace of meshes, image textures or fast_rng=False: later slice"
-        )
+        raise NotImplementedError("trace of image textures or fast_rng=False: later slice")
     gtab, mtab, ltab, scal = tables if tables is not None else pack_tables(scene)
     kw = dict(
         max_depth=cfg.max_depth, nee=cfg.nee, rr=cfg.russian_roulette,
-        rr_start=cfg.rr_start,
+        rr_start=cfg.rr_start, mesh=scene.mesh_tables,
     )
     args = (gtab, mtab, ltab, scal, seed, rays.origin, rays.direction, sample_idx)
     device_type = rays.origin.device.type

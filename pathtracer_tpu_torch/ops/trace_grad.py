@@ -92,10 +92,11 @@ def split_grad_row(row, n_geoms: int, n_materials: int):
 
 def fused_diff_eligible(scene, cfg) -> bool:
     """Scope of the differentiable trace (``render/common.py:80``): that of
-    the forward trace, without Henyey-Greenstein media, unless the caller
-    turned the fused engine off."""
+    the forward trace, without meshes or Henyey-Greenstein media, unless the
+    caller turned the fused engine off."""
     return (
         cfg.grad_fused is not False
+        and not scene.meshes
         and fused_trace_eligible(scene, cfg)
         and "hg" not in cfg.features
     )

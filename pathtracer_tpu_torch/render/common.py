@@ -16,6 +16,13 @@ diffuse hits with a shadow ray.  Two routes:
   (kernel 8) for the shadow ray, the rest in PyTorch ops, in the JAX split
   path's order of operations.
 
+Triangle meshes (``:123-234``): the fused route takes kernel 2 with the
+in-kernel tables when the meshes total at most 4096 triangles, and raises
+above that (kernel 2's mesh-merge variant is a later slice); the split
+route merges each mesh's winner, with its authored smooth normal, into the
+analytic one (kernels 9 and 10 up to 8192 triangles, the LBVH traversal
+above).
+
 Under ``cfg.grad_lean`` (``:204-222,395-417``) a scene in the fused scope
 takes ``ops/bounce_grad.bounce_fused_diff`` (kernel 2 with replay planes,
 kernel 3 backward); any other takes the lean split route: the detached
@@ -27,8 +34,8 @@ searches' outputs on their first run and hands them back to a recompute
 (the lean scan's per-bounce checkpoint), so neither kernel runs again.
 
 ``cfg.pallas`` picks no route in the port.  Texture, bump, volumetric,
-hg, the Cook-Torrance and Ward lobes, meshes and image textures raise
-``NotImplementedError``.
+hg, the Cook-Torrance and Ward lobes, image textures and differentiable
+meshes raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -79,10 +86,12 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
     ``tables`` are ``ops/bounce.pack_tables`` of the scene; ``lean_cache``
     as the module docstring says."""
     check_features(cfg.features)
-    if scene.meshes or scene.textures is not None or not cfg.fast_rng:
+    if scene.textures is not None or not cfg.fast_rng:
         raise NotImplementedError(
-            "shade_bounce for meshes, image textures or fast_rng=False: later slice"
+            "shade_bounce for image textures or fast_rng=False: later slice"
         )
+    if scene.meshes and cfg.grad_lean:
+        raise NotImplementedError("differentiable meshes: later slice")
     tables = tables if tables is not None else pack_tables(scene)
     if medium_sigma is None:
         medium_sigma = torch.zeros((throughput.shape[0], 4), dtype=torch.float32,
@@ -100,7 +109,7 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
                          lambda: winner_t_gid(_detached(rays), gtab.detach().contiguous()))
         hit = intersect_scene_lean(rays, gtab, winner=winner)
     else:
-        hit = nearest_hit(rays, gtab)
+        hit = nearest_hit(rays, gtab, scene.meshes)
     mat = gather_materials(mtab, hit.material_id)
     emissive = mat.emittance > 0.0
     u = bounce_uniforms(seed, sample_idx, depth)
@@ -139,7 +148,7 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
                             lambda: occlusion_t(_detached(shadow), gtab.detach().contiguous()))
             visible = occ_t >= dist.detach() - 4.0 * RAY_BIAS
         else:
-            occ_t = occlusion_t(shadow, gtab)
+            occ_t = occlusion_t(shadow, gtab, scene.meshes)
             visible = occ_t >= dist - 4.0 * RAY_BIAS
         g = cos_x * cos_y / torch.clamp(dist2, min=1e-12)
         nee = (throughput * (mat.color / math.pi) * ls.emitted

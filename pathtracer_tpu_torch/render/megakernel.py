@@ -20,6 +20,13 @@ JAX).  Each runs its CUDA kernels for rays on a CUDA device and its plain
 version for rays on the CPU.  The debug variant belongs to a later slice.
 The wavefront engines are ``render/wavefront.py``, chosen by the
 integrator.
+
+Mesh scenes whose meshes total at most 4096 triangles take the full-depth
+trace with the in-kernel triangle sweep (kernel 1's mesh variant); larger
+ones run per bounce in JAX on kernel 2's mesh-merge variant, which the port
+does not have yet, so ``trace_paths`` raises for them unless
+``cfg.fused=False`` asks for the split route (kernels 9 and 10, or the LBVH
+traversal above 8192 triangles).  Differentiable meshes raise.
 """
 
 from __future__ import annotations

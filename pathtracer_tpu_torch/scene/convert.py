@@ -9,7 +9,11 @@ numbers.  ``d`` holds
   ``inv_transform`` (``[G, 4, 4]``);
 * ``materials``: one array per field of :class:`Materials`;
 * ``camera``: ``resolution`` (w, h), ``position``, ``view``, ``up``,
-  ``fov`` (degrees), ``aperture``, ``focal_distance``.
+  ``fov`` (degrees), ``aperture``, ``focal_distance``;
+* ``meshes`` (optional): per mesh instance ``geom_index``, ``tri_verts``
+  (``[T, 3, 3]``), ``tri_norm`` / ``tri_uv`` (or None) and ``accel``: None
+  or the LBVH's ``n_tris``, ``chunks``, ``lo``, ``hi``, ``root_lo``,
+  ``root_hi``, ``scan_to_file``.
 
 The differentiable render's state crosses the same way:
 :func:`params_from_numpy` takes the leaves of a ``SceneParams`` as numpy
@@ -24,11 +28,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pathtracer_tpu_torch.ops.accel import MeshAccel
 from pathtracer_tpu_torch.scene.structs import (
     MATERIAL_FIELDS,
     Camera,
     Geoms,
     Materials,
+    MeshInstance,
     Scene,
 )
 
@@ -57,7 +63,21 @@ def scene_from_numpy(d: dict, device="cuda") -> Scene:
         aperture=f32(c["aperture"]),
         focal_distance=f32(c["focal_distance"]),
     )
-    return Scene(geoms=geoms, materials=materials, camera=camera)
+
+    def opt(x):
+        return None if x is None else f32(x)
+
+    meshes = []
+    for m in d.get("meshes", ()):
+        a = m["accel"]
+        accel = None if a is None else MeshAccel(
+            n_tris=int(a["n_tris"]), scan_to_file=i32(a["scan_to_file"]),
+            **{k: f32(a[k]) for k in ("chunks", "lo", "hi", "root_lo", "root_hi")},
+        )
+        meshes.append(MeshInstance(geom_index=int(m["geom_index"]), tri_verts=f32(m["tri_verts"]),
+                                   accel=accel, tri_uv=opt(m["tri_uv"]),
+                                   tri_norm=opt(m["tri_norm"])))
+    return Scene(geoms=geoms, materials=materials, camera=camera, meshes=tuple(meshes))
 
 
 PARAM_FIELDS = (

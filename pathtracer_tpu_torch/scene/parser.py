@@ -4,9 +4,12 @@ Port of ``pathtracer_tpu/scene/parser.py:57-525`` (pure Python, no native
 loader): ``MATERIAL`` blocks with their 10 fixed property lines and the
 TEXTURE / BUMP / PHASE / BRDF extension lines, the ``CAMERA`` block with
 optional APERTURE / FOCAL, and ``OBJECT`` blocks with per-frame TRS, the
-DISPLACE extension and per-frame FILE overrides.  The whole grammar is
-parsed; loading the assets it names (OBJ meshes, PNG textures) raises
-``NotImplementedError`` until the slice that renders them.
+DISPLACE extension and per-frame FILE overrides.  Mesh objects load their
+OBJ file relative to the scene file (``:240-300,346-360``): the triangles,
+displaced when the object says DISPLACE, one vertex array per frame where
+FILE lines deform the mesh (the topology must match), and the authored
+``vt`` / ``vn`` attributes of undisplaced meshes.  Loading PNG textures
+raises ``NotImplementedError`` until the slice that renders them.
 """
 
 from __future__ import annotations
@@ -17,6 +20,8 @@ from typing import List
 
 import numpy as np
 
+from pathtracer_tpu_torch.scene.displace import displace_mesh
+from pathtracer_tpu_torch.scene.obj import load_obj_full
 from pathtracer_tpu_torch.scene.structs import CUBE, MESH, SPHERE, SceneDescription
 
 _MATERIAL_KEYS = {
@@ -103,7 +108,9 @@ def _parse_material_ext(mat, advance, peek, name):
             return
 
 
-def parse_scene_text(text: str, name: str = "<string>") -> SceneDescription:
+def parse_scene_text(text: str, name: str = "<string>", scene_dir=None) -> SceneDescription:
+    """Parse scene DSL text; assets load relative to ``scene_dir`` (else the
+    working directory)."""
     lines = text.splitlines()
     pos = 0
 
@@ -180,8 +187,6 @@ def parse_scene_text(text: str, name: str = "<string>") -> SceneDescription:
 
     if any("_texture_path" in m for m in materials):
         raise NotImplementedError("image texture loading (TEXTURE *.png): later slice")
-    if any(o["type"] == MESH for o in objects):
-        raise NotImplementedError("OBJ mesh loading: later slice")
 
     all_fields = [f for f, _ in _MATERIAL_KEYS.values()] + list(_EXT_DEFAULTS)
     mat_soa = {
@@ -214,7 +219,64 @@ def parse_scene_text(text: str, name: str = "<string>") -> SceneDescription:
         rotations=per_frame("rotat"),
         scales=per_frame("scale"),
         materials=mat_soa,
+        **_load_meshes(objects, name, scene_dir),
     )
+
+
+def _resolve_asset(token: str, scene_dir) -> str:
+    for cand in (token, os.path.join(scene_dir or ".", token)):
+        if os.path.exists(cand):
+            return os.path.abspath(cand)
+    raise SceneParseError(f"mesh file not found: {token!r}")
+
+
+def _load_meshes(objects, name, scene_dir) -> dict:
+    """The mesh fields of :class:`SceneDescription`: ``mesh_tris`` (per
+    object ``[T, 3, 3]`` or None), ``mesh_tris_frames`` (per object a tuple
+    of per-frame arrays where FILE lines deform it, else None) and
+    ``mesh_attrs`` (per object ``(uv, norm)`` of an undisplaced mesh with
+    authored attributes, else None)."""
+
+    def finish(o, tris):
+        if o["displace"] is not None:
+            amount, levels, mode, arg = o["displace"]
+            tris = displace_mesh(tris, amount, levels, mode, arg)
+        return tris
+
+    mesh_data = tuple(
+        load_obj_full(_resolve_asset(o["mesh_path"], scene_dir)) if o["type"] == MESH else None
+        for o in objects
+    )
+    mesh_tris = tuple(
+        None if md is None else finish(o, md.verts) for o, md in zip(objects, mesh_data)
+    )
+    # displacement regenerates the geometry, so a displaced mesh drops its
+    # authored attributes
+    mesh_attrs = tuple(
+        (md.uv, md.norm)
+        if md is not None and o["displace"] is None and (md.uv is not None or md.norm is not None)
+        else None
+        for o, md in zip(objects, mesh_data)
+    )
+    mesh_tris_frames = []
+    for g, o in enumerate(objects):
+        if o["type"] != MESH or not any(f is not None for f in o["frame_files"]):
+            mesh_tris_frames.append(None)
+            continue
+        per_frame = []
+        for f, override in enumerate(o["frame_files"]):
+            tris = mesh_tris[g]
+            if override is not None:
+                tris = finish(o, load_obj_full(_resolve_asset(override, scene_dir)).verts)
+            if tris.shape != mesh_tris[g].shape:
+                raise SceneParseError(
+                    f"{name}: deforming mesh frame {f} has {tris.shape[0]} triangles, "
+                    f"frame 0 has {mesh_tris[g].shape[0]} — topology must match"
+                )
+            per_frame.append(tris)
+        mesh_tris_frames.append(tuple(per_frame))
+    return dict(mesh_tris=mesh_tris, mesh_tris_frames=tuple(mesh_tris_frames),
+                mesh_attrs=mesh_attrs)
 
 
 def _parse_camera(advance, peek, name):
@@ -333,4 +395,5 @@ def load_scene(path: str) -> SceneDescription:
     """Load a scene DSL file."""
     with open(path, "r") as f:
         text = f.read()
-    return parse_scene_text(text, name=os.path.basename(path))
+    return parse_scene_text(text, name=os.path.basename(path),
+                            scene_dir=os.path.dirname(os.path.abspath(path)))

@@ -1,15 +1,21 @@
 """Scene data model: struct-of-arrays dataclasses of torch tensors.
 
-Port of ``pathtracer_tpu/scene/structs.py:49-307``: ``Rays``, ``Geoms``,
-``Materials``, ``Camera``, ``Scene`` and ``SceneDescription`` with
-``scene_for_frame`` / ``camera_for_frame``.  One tensor per field, on the
-device the caller names.  Mesh and texture fields are carried as data only;
-the slices that render them come later.
+Port of ``pathtracer_tpu/scene/structs.py:31-33,49-307``: ``Rays``,
+``Geoms``, ``Materials``, ``Camera``, ``MeshInstance``, ``Scene`` and
+``SceneDescription`` with ``mesh_tris_for_frame`` / ``scene_for_frame`` /
+``camera_for_frame``.  One tensor per field, on the device the caller names.
+A mesh of at least :data:`ACCEL_MIN_TRIS` triangles gets its chunked LBVH
+(``ops/accel.py``) when its frame is built.  Two packed forms of the meshes
+are built once, on first use: a mesh's ``(v0, e1, e2)`` table of kernels 9
+and 10 (:attr:`MeshInstance.scan_table`) and the scene's in-kernel tables of
+kernels 1 and 2 (:attr:`Scene.mesh_tables`).  Image textures are carried as
+data only; the slice that renders them comes later.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any
 
@@ -19,6 +25,10 @@ import torch
 SPHERE = 0
 CUBE = 1
 MESH = 2
+
+# meshes with at least this many triangles get a chunked-LBVH accel
+# structure (ops/accel.py); below it the split route sweeps file order
+ACCEL_MIN_TRIS = 256
 
 MATERIAL_FIELDS = (
     "color", "specular_exponent", "specular_color", "has_reflective",
@@ -106,16 +116,53 @@ class Camera:
 
 
 @dataclasses.dataclass(frozen=True)
+class MeshInstance:
+    """A triangle mesh bound to the geom slot ``geom_index`` (type MESH):
+    triangles in the mesh's object space, placed by that geom's transform.
+    Authored attributes are in file order; ``accel.scan_to_file`` maps the
+    LBVH's scan order to it."""
+
+    geom_index: int
+    tri_verts: torch.Tensor  # [T, 3, 3] float32
+    accel: Any = None  # ops/accel.MeshAccel, or None (below ACCEL_MIN_TRIS)
+    tri_uv: Any = None  # [T, 3, 2] float32 authored texture coordinates
+    tri_norm: Any = None  # [T, 3, 3] float32 authored unit shading normals
+
+    @property
+    def has_attrs(self) -> bool:
+        return self.tri_uv is not None or self.tri_norm is not None
+
+    @functools.cached_property
+    def scan_table(self) -> torch.Tensor:
+        """The ``[T * 9]`` ``(v0, e1, e2)`` table of kernels 9 and 10 in
+        scan order, without the LBVH's pad rows (``ops/mesh.py``)."""
+        from pathtracer_tpu_torch.ops.mesh import pack_tri_table
+
+        if self.accel is None:
+            return pack_tri_table(self.tri_verts)
+        return pack_tri_table(self.accel.chunks.reshape(-1, 3, 3)[: self.accel.n_tris])
+
+
+@dataclasses.dataclass(frozen=True)
 class Scene:
     geoms: Geoms
     materials: Materials
     camera: Camera
-    meshes: tuple = ()  # triangle meshes: data of a later slice
+    meshes: tuple = ()  # MeshInstance per mesh geom
     textures: Any = None  # image-texture atlas: data of a later slice
 
     @property
     def device(self) -> torch.device:
         return self.geoms.transform.device
+
+    @functools.cached_property
+    def mesh_tables(self):
+        """The in-kernel triangle tables of kernels 1 and 2
+        (``ops/mesh_tables.KernelMeshes``), or None for a scene without
+        meshes or with more triangles than they take."""
+        from pathtracer_tpu_torch.ops.mesh_tables import kernel_meshes
+
+        return kernel_meshes(self.meshes)
 
 
 def derive_fov(fovy_deg: float, width: int, height: int):
@@ -145,15 +192,29 @@ class SceneDescription:
     rotations: np.ndarray  # [F, G, 3]
     scales: np.ndarray  # [F, G, 3]
     materials: dict  # field -> np.ndarray
-    mesh_tris: tuple = ()  # per object [T, 3, 3] or None (meshes: later slice)
+    mesh_tris: tuple = ()  # per object [T, 3, 3] float32, or None
     texture_images: tuple = ()  # decoded images (image textures: later slice)
+    # per object a tuple of per-frame [T, 3, 3] arrays (FILE lines), or None
+    mesh_tris_frames: tuple = ()
+    # per object (uv [T, 3, 2] | None, norm [T, 3, 3] | None), or None
+    mesh_attrs: tuple = ()
+
+    def mesh_tris_for_frame(self, frame: int) -> tuple:
+        """Per-object triangle arrays at ``frame``: a deforming mesh's array
+        of that frame, a rigid mesh's only one, None for other objects."""
+        anim = self.mesh_tris_frames or ()
+        return tuple(
+            anim[g][frame] if g < len(anim) and anim[g] is not None else tris
+            for g, tris in enumerate(self.mesh_tris or ())
+        )
 
     def scene_for_frame(self, frame: int, device="cuda") -> Scene:
         """One animation frame as a :class:`Scene` on ``device``."""
+        from pathtracer_tpu_torch.ops.accel import build_mesh_accel
         from pathtracer_tpu_torch.ops.transforms import build_transform
 
-        if self.texture_images or any(t is not None for t in self.mesh_tris):
-            raise NotImplementedError("scenes with meshes or image textures: later slice")
+        if self.texture_images:
+            raise NotImplementedError("scenes with image textures: later slice")
         t, inv = build_transform(
             self.translations[frame], self.rotations[frame], self.scales[frame],
             device=device,
@@ -172,8 +233,22 @@ class SceneDescription:
                 for k, v in self.materials.items()
             }
         )
+
+        def f32(a):
+            return None if a is None else torch.as_tensor(a, dtype=torch.float32, device=device)
+
+        meshes = []
+        for g, tris in enumerate(self.mesh_tris_for_frame(frame)):
+            if tris is None:
+                continue
+            attrs = self.mesh_attrs[g] if g < len(self.mesh_attrs) else None
+            uv, norm = attrs if attrs else (None, None)
+            accel = build_mesh_accel(tris, device=device) if len(tris) >= ACCEL_MIN_TRIS else None
+            meshes.append(MeshInstance(geom_index=g, tri_verts=f32(tris), accel=accel,
+                                       tri_uv=f32(uv), tri_norm=f32(norm)))
         return Scene(
-            geoms=geoms, materials=mats, camera=self.camera_for_frame(frame, device=device)
+            geoms=geoms, materials=mats, camera=self.camera_for_frame(frame, device=device),
+            meshes=tuple(meshes),
         )
 
     def camera_for_frame(self, frame: int, device="cuda") -> Camera:

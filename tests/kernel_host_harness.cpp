@@ -5,8 +5,10 @@
 // one after another over a wavefront, with the same arguments as the CUDA
 // launchers: the trace (trace.cu), the forward with residuals and the
 // reverse lanes (trace_grad.cu), one bounce (bounce.cu) and its backward
-// (bounce_grad.cu), and the nearest hit, winner search and occlusion
-// (intersect.cu).
+// (bounce_grad.cu), the nearest hit, winner search and occlusion
+// (intersect.cu), and the nearest triangle and triangle occlusion (mesh.cu).
+// The trace and the bounce take the in-kernel mesh tables as the launchers
+// do (n_mesh = 0 for none).
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -o libhost.so \
 //       tests/kernel_host_harness.cpp
@@ -21,6 +23,7 @@ static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 #include "../pathtracer_tpu_torch/csrc/bounce.cu"
 #include "../pathtracer_tpu_torch/csrc/bounce_grad.cu"
 #include "../pathtracer_tpu_torch/csrc/intersect.cu"
+#include "../pathtracer_tpu_torch/csrc/mesh.cu"
 
 using namespace pt;
 
@@ -72,8 +75,10 @@ extern "C" void host_trace(const float* gtab, int G, const float* mtab, const fl
                            const float* scal, unsigned seed, const float* origin,
                            const float* direction, const unsigned* sample, int n,
                            float* radiance, unsigned long long* nrays, int depth, int nee,
-                           int rr, int rr_start) {
-  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f};
+                           int rr, int rr_start, const float* mtri, const float* maabb,
+                           const float* mnorm, const int* mdesc, int n_mesh) {
+  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f,
+                 MeshTables{mtri, maabb, mnorm, mdesc, n_mesh}};
   unsigned long long total = 0;
   for (int i = 0; i < n; ++i) {
     V3 o = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
@@ -94,8 +99,11 @@ extern "C" void host_bounce(const float* gtab, int G, const float* mtab, const f
                             const unsigned* sample, const int* depth, const float* prev,
                             const float* medium, float* contrib, float* next_o, float* next_d,
                             float* thr_mult, unsigned char* terminate, float* wspec, float* rru,
-                            float* out_medium, float* replay_gid, float* replay_nee) {
-  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f};
+                            float* out_medium, float* replay_gid, float* replay_nee,
+                            const float* mtri, const float* maabb, const float* mnorm,
+                            const int* mdesc, int n_mesh) {
+  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f,
+                 MeshTables{mtri, maabb, mnorm, mdesc, n_mesh}};
   for (int i = 0; i < n; ++i)
     bounce_lane(T, seed, nee, (size_t)i, origin, direction, thr, sample, depth, prev, medium,
                 contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
@@ -135,4 +143,18 @@ extern "C" void host_bounce_bwd(const float* gtab, int G, const float* mtab, int
     bounce_bwd_lane(T, R, seed, nee, (size_t)i, origin, direction, thr, sample, depth, prev,
                     replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult, d_origin,
                     d_direction, d_thr, row);
+}
+
+extern "C" void host_mesh_nearest(const float* tab, int n_tris, int n, const float* o_obj,
+                                  const float* d_obj, float* t, int* idx) {
+  for (int i = 0; i < n; ++i)
+    mesh_nearest_lane(tab, n_tris, v3(o_obj[3 * i], o_obj[3 * i + 1], o_obj[3 * i + 2]),
+                      v3(d_obj[3 * i], d_obj[3 * i + 1], d_obj[3 * i + 2]), t[i], idx[i]);
+}
+
+extern "C" void host_mesh_min(const float* tab, int n_tris, int n, const float* o_obj,
+                              const float* d_obj, float* t) {
+  for (int i = 0; i < n; ++i)
+    t[i] = mesh_min_lane(tab, n_tris, v3(o_obj[3 * i], o_obj[3 * i + 1], o_obj[3 * i + 2]),
+                         v3(d_obj[3 * i], d_obj[3 * i + 1], d_obj[3 * i + 2]));
 }

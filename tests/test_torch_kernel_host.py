@@ -47,7 +47,7 @@ import numpy as np
 import pytest
 import torch
 
-from pathtracer_tpu_torch.ops import bounce_fused, bounce_grad, trace, trace_grad
+from pathtracer_tpu_torch.ops import bounce_fused, bounce_grad, mesh, trace, trace_grad
 from pathtracer_tpu_torch.ops.bounce import pack_tables
 from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
 from pathtracer_tpu_torch.ops.intersect import (
@@ -62,6 +62,7 @@ from tests.test_torch_shade import random_lanes
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 P, I = ctypes.c_void_p, ctypes.c_int
+NO_MESH = (None, None, None, None, 0)  # the launchers' mesh arguments for no meshes
 # MINI_SCENE with its mirror sphere turned Phong-glossy (specular exponent 30)
 GLOSSY_MINI = MINI_SCENE.replace("SPECEX 0\nSPECRGB .95 .92 .9", "SPECEX 30\nSPECRGB .95 .92 .9")
 assert GLOSSY_MINI != MINI_SCENE
@@ -81,8 +82,11 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(out)
     lib.host_fwd.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, P, I, I, I, I]
     lib.host_bwd.argtypes = [P, I, P, I, P, P, ctypes.c_uint, P, I, P, P, P, P, P, I, I, I, I]
-    lib.host_trace.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, I, I, I, I]
-    lib.host_bounce.argtypes = [P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 17
+    lib.host_trace.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, I, I, I, I,
+                               P, P, P, P, I]
+    lib.host_bounce.argtypes = [P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 17 + [P] * 4 + [I]
+    lib.host_mesh_nearest.argtypes = [P, I, I, P, P, P, P]
+    lib.host_mesh_min.argtypes = [P, I, I, P, P, P]
     lib.host_nearest.argtypes = [P, I, I] + [P] * 8
     lib.host_occlusion.argtypes = [P, I, I, P, P, P]
     lib.host_winner.argtypes = [P, I, I, P, P, P, P]
@@ -203,7 +207,7 @@ def test_trace_lanes_match_plain_and_forward(host_lib, case):
               tables[3].data_ptr(), seed, rays.origin.data_ptr(), rays.direction.data_ptr(),
               bits.data_ptr(), n)
     rad_k, nr_k = torch.empty((n, 3)), ctypes.c_ulonglong()
-    host_lib.host_trace(*common, rad_k.data_ptr(), ctypes.byref(nr_k), *flags)
+    host_lib.host_trace(*common, rad_k.data_ptr(), ctypes.byref(nr_k), *flags, *NO_MESH)
     rad_f, nr_f = torch.empty((n, 3)), ctypes.c_ulonglong()
     resid = torch.empty((kw["max_depth"], trace_grad.N_RESID, n))
     host_lib.host_fwd(*common, rad_f.data_ptr(), ctypes.byref(nr_f), resid.data_ptr(), *flags)
@@ -249,7 +253,7 @@ def test_bounce_lanes_match_plain(host_lib, scene_name, nee):
         t["direction"].data_ptr(), t["throughput"].data_ptr(), t["sample"].data_ptr(),
         t["depth"].data_ptr(), t["prev"].data_ptr(), medium.data_ptr(), contrib.data_ptr(),
         next_o.data_ptr(), next_d.data_ptr(), thr_mult.data_ptr(), terminate.data_ptr(),
-        wspec.data_ptr(), rru.data_ptr(), out_medium.data_ptr(), None, None,
+        wspec.data_ptr(), rru.data_ptr(), out_medium.data_ptr(), None, None, *NO_MESH,
     )
     assert torch.equal(terminate.bool(), want.terminate)
     assert 0.05 < float(want.terminate.float().mean()) < 0.95
@@ -303,6 +307,7 @@ def _host_bounce(host_lib, tables, t, medium, seed, nee, replay=True):
         *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
                                     "prev")),
         medium.data_ptr(), *(o.data_ptr() for o in outs), rgid.data_ptr(), rnee.data_ptr(),
+        *NO_MESH,
     )
     return outs, rgid, rnee
 
@@ -385,3 +390,132 @@ def test_winner_lanes_match_plain(host_lib, scene_name):
     assert torch.equal(t_k, want_t) and torch.equal(gid, want_gid)
     hit = nearest_hit_plain(rays, gtab)
     assert torch.equal(want_t, hit.t) and torch.equal(want_gid, hit.geom_id)
+
+
+# ---- triangle meshes: kernels 9 and 10, and the in-kernel sweep of 1 and 2
+
+
+def object_rays(n: int, seed: int):
+    """Numpy object-space rays aimed near a unit-scale mesh at the origin:
+    origins 1.5 away, directions towards a point within about 0.4 of the
+    centre, so both hits and misses."""
+    rng = np.random.default_rng(seed)
+
+    def unit(v):
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    o = unit(rng.standard_normal((n, 3))) * 1.5
+    d = unit(rng.standard_normal((n, 3)) * 0.4 - o)
+    return o.astype(np.float32), d.astype(np.float32)
+
+
+def _mesh_scene(res):
+    desc = load_scene(os.path.join(HERE, "..", "scenes", "smooth_mesh.txt"))
+    scene = dataclasses.replace(desc, resolution=res).scene_for_frame(0, device="cpu")
+    return scene, [t.contiguous() for t in pack_tables(scene)]
+
+
+def _mesh_args(km):
+    return (km.tri.data_ptr(), km.aabb.data_ptr(), km.norm.data_ptr(), km.desc.data_ptr(),
+            len(km.descs))
+
+
+@pytest.mark.parametrize("scene_name", ["smooth_mesh", "displace_demo"])
+def test_mesh_kernel_lanes_match_plain(host_lib, scene_name):
+    """Kernels 9 and 10's lanes (``mesh.cu``) against ``mesh_nearest_plain``
+    / ``mesh_min_plain`` on the mesh's scan-order table (320 and 1,280
+    triangles) and 2,048 object-space rays from around it: t, winner
+    index and miss pattern equal on every lane."""
+    desc = load_scene(os.path.join(HERE, "..", "scenes", f"{scene_name}.txt"))
+    m = desc.scene_for_frame(0, device="cpu").meshes[0]
+    table = m.scan_table
+    n = 2048
+    o, d = (torch.from_numpy(a) for a in object_rays(n, seed=9))
+    want_t, want_i = mesh.mesh_nearest_plain(table, o, d)
+    want_min = mesh.mesh_min_plain(table, o, d)
+    t_k, i_k, min_k = torch.empty(n), torch.empty(n, dtype=torch.int32), torch.empty(n)
+    n_tris = table.shape[0] // 9
+    host_lib.host_mesh_nearest(table.data_ptr(), n_tris, n, o.data_ptr(), d.data_ptr(),
+                               t_k.data_ptr(), i_k.data_ptr())
+    host_lib.host_mesh_min(table.data_ptr(), n_tris, n, o.data_ptr(), d.data_ptr(),
+                           min_k.data_ptr())
+    hit = want_t < mesh.BIG
+    assert 0.2 < float(hit.float().mean()) < 0.95
+    assert torch.equal(t_k, want_t) and torch.equal(i_k, want_i) and torch.equal(min_k, want_min)
+    assert torch.equal(want_min, want_t)
+
+
+@pytest.mark.parametrize("kw", [dict(max_depth=4, nee=True, rr=False, rr_start=3),
+                                dict(max_depth=3, nee=False, rr=True, rr_start=1)])
+def test_trace_mesh_lanes_match_plain(host_lib, kw):
+    """Kernel 1's lanes with the in-kernel mesh tables (``pt::mesh_sweep`` /
+    ``mesh_occ`` inside ``pt::bounce``) against ``trace_plain(mesh=...)`` on
+    smooth_mesh at 40x40: equal ray counts, radiance within 2e-6 on at least
+    99.5% of lanes (the analytic cases' bar: the host's libm rounds sin /
+    cos / exp / log apart from torch's; measured every lane, printed under
+    ``pytest -s``)."""
+    scene, tables = _mesh_scene((40, 40))
+    km = scene.mesh_tables
+    n, seed = 1600, 31
+    pixel = torch.arange(n)
+    sample = 2 * n + pixel
+    rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, sample))
+    rad_k, nr_k = torch.empty((n, 3)), ctypes.c_ulonglong()
+    host_lib.host_trace(tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(),
+                        tables[2].data_ptr(), tables[3].data_ptr(), seed,
+                        rays.origin.data_ptr(), rays.direction.data_ptr(),
+                        sample.to(torch.int32).data_ptr(), n, rad_k.data_ptr(),
+                        ctypes.byref(nr_k), kw["max_depth"], int(kw["nee"]), int(kw["rr"]),
+                        kw["rr_start"], *_mesh_args(km))
+    rad_p, nr_p = trace.trace_plain(*tables, seed, rays.origin, rays.direction, sample,
+                                    mesh=km, **kw)
+    frac = float(torch.isclose(rad_k, rad_p, rtol=2e-6, atol=2e-6).all(-1).float().mean())
+    print(f"smooth_mesh {kw}: trace lanes within 2e-6 of trace_plain: {frac:.5f}")
+    assert nr_k.value == int(nr_p)
+    assert frac >= 0.995 and float(rad_p.sum()) > 0
+
+
+@pytest.mark.parametrize("nee", [True, False])
+def test_bounce_mesh_lanes_match_plain(host_lib, nee):
+    """Kernel 2's lanes with the in-kernel mesh tables against
+    ``bounce_fused_plain(mesh=...)`` on 2,048 random lanes of smooth_mesh
+    (rays from around the mesh, mixed depth and emit state): terminate,
+    emit state and russian-roulette uniform equal on every lane, the float
+    planes within 2e-6 on at least 99.5% of lanes (measured: every lane)."""
+    n, seed = 2048, 77
+    scene, tables = _mesh_scene((8, 8))
+    km = scene.mesh_tables
+    lanes = random_lanes(n, seed=12)
+    lanes["origin"] = (lanes["origin"] * 0.7 + np.array([0.0, 1.8, 0.0])).astype(np.float32)
+    t = {k: torch.from_numpy(v) for k, v in lanes.items()}
+    medium = torch.zeros((n, 4))
+    want = bounce_fused.bounce_fused_plain(
+        tables, t["origin"], t["direction"], t["throughput"], t["sample"].long(), t["depth"],
+        t["prev"], medium, seed, nee=nee, mesh=km,
+    )
+    outs = [torch.empty((n, 3)) for _ in range(4)] + [
+        torch.empty(n, dtype=torch.uint8), torch.empty(n), torch.empty(n), torch.empty((n, 4))]
+    host_lib.host_bounce(
+        tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(), tables[2].data_ptr(),
+        tables[3].data_ptr(), seed, int(nee), n,
+        *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
+                                    "prev")),
+        medium.data_ptr(), *(o.data_ptr() for o in outs), None, None, *_mesh_args(km),
+    )
+    contrib, next_o, next_d, thr_mult, terminate, wspec, rru, _ = outs
+    assert torch.equal(terminate.bool(), want.terminate)
+    assert torch.equal(wspec, want.was_specular) and torch.equal(rru, want.rr_uniform)
+    close = torch.ones(n, dtype=torch.bool)
+    for got, ref in ((contrib, want.contrib), (next_o, want.next_origin),
+                     (next_d, want.next_direction), (thr_mult, want.throughput_mult)):
+        close &= torch.isclose(got, ref, rtol=2e-6, atol=2e-6).all(-1)
+    frac = float(close.float().mean())
+    # the mesh's material (glossy gold, 1) wins on some lanes
+    on_mesh = bounce_fused.bounce_fused_plain(
+        tables, t["origin"], t["direction"], t["throughput"], t["sample"].long(), t["depth"],
+        t["prev"], medium, seed, nee=nee,
+    )
+    moved = (on_mesh.next_direction != want.next_direction).any(-1)
+    print(f"smooth_mesh nee={nee}: bounce lanes within 2e-6: {frac:.5f}; lanes the mesh "
+          f"changed: {int(moved.sum())}")
+    assert frac >= 0.995 and int(moved.sum()) > 100

@@ -521,3 +521,112 @@ def test_grad_engine_wrappers_check_inputs():
         intersect_cuda.winner_t_gid_cuda(Rays(o.double(), d), tables[0])
     with pytest.raises(ValueError):
         intersect_cuda.winner_t_gid_cuda(Rays(o, d), tables[0].repeat(200, 1))
+
+
+# ---- triangle meshes: kernels 9 and 10, kernels 1 and 2 with the in-kernel
+# sweep.  Bars: kernels 9 and 10 equal their plain versions on every lane (t,
+# index, miss pattern); kernel 1 with meshes equal ray counts and radiance
+# within 2e-6 on at least 99.9% of lanes; kernel 2 with meshes the module's
+# bounce bars; a mesh render launches kernel 1 once per iteration, and the
+# split route kernels 6, 8, 9 and 10 once per bounce.
+
+
+def _object_rays_cuda(n, seed):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+
+    def unit(v):
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    o = unit(rng.standard_normal((n, 3))) * 1.5
+    d = unit(rng.standard_normal((n, 3)) * 0.4 - o)
+    return (torch.from_numpy(o.astype(np.float32)).cuda(),
+            torch.from_numpy(d.astype(np.float32)).cuda())
+
+
+@pytest.mark.parametrize("name", ["smooth_mesh", "displace_demo"])
+def test_mesh_kernels_match_plain(name):
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import mesh
+
+    table = _scene(name, (8, 8)).meshes[0].scan_table
+    o, d = _object_rays_cuda(100_000, 3)
+    before = (mesh.nearest_launches, mesh.min_launches)
+    t, idx = mesh.mesh_nearest(table, o, d)
+    occ = mesh.mesh_min(table, o, d)
+    assert (mesh.nearest_launches, mesh.min_launches) == (before[0] + 1, before[1] + 1)
+    want_t, want_i = mesh.mesh_nearest_plain(table, o, d)
+    want_occ = mesh.mesh_min_plain(table, o, d)
+    torch.cuda.synchronize()
+    assert 0.2 < float((want_t < mesh.BIG).float().mean()) < 0.95
+    assert torch.equal(t, want_t) and torch.equal(idx, want_i) and torch.equal(occ, want_occ)
+
+
+@pytest.mark.parametrize("kw", [dict(max_depth=8, nee=True),
+                                dict(max_depth=5, nee=False, russian_roulette=True, rr_start=1)])
+def test_trace_kernel_with_meshes_matches_plain(kw):
+    _need_cuda()
+    scene = _scene("smooth_mesh", (128, 96))
+    cfg = RenderConfig(**kw)
+    n = 128 * 96
+    pixel = torch.arange(n, device="cuda")
+    sample = 3 * n + pixel
+    rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(77, sample))
+    args = (*pack_tables(scene), 77, rays.origin, rays.direction, sample)
+    opts = dict(max_depth=cfg.max_depth, nee=cfg.nee, rr=cfg.russian_roulette,
+                rr_start=cfg.rr_start, mesh=scene.mesh_tables)
+    before = (trace.launches, trace.mesh_launches)
+    rad_k, rays_k = trace.trace_cuda(*args, **opts)
+    assert (trace.launches, trace.mesh_launches) == (before[0], before[1] + 1)
+    rad_p, rays_p = trace.trace_plain(*args, **opts)
+    torch.cuda.synchronize()
+    assert int(rays_k) == int(rays_p)
+    close = torch.isclose(rad_k, rad_p, rtol=2e-6, atol=2e-6).all(-1)
+    assert float(close.float().mean()) >= 0.999
+
+
+@pytest.mark.parametrize("nee", [True, False])
+def test_bounce_kernel_with_meshes_matches_plain(nee):
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import bounce_fused
+
+    scene = _scene("smooth_mesh", (8, 8))
+    n = 50_000
+    t = _random_lanes_cuda(n, 8)
+    t["origin"] = t["origin"] * 0.7 + torch.tensor([0.0, 1.8, 0.0], device="cuda")
+    medium = torch.zeros((n, 4), device="cuda")
+    args = (pack_tables(scene), t["origin"], t["direction"], t["throughput"], t["sample"].long(),
+            t["depth"], t["prev"], medium, 4321)
+    before = (bounce_fused.launches, bounce_fused.mesh_launches)
+    got = bounce_fused.bounce_fused_cuda(*args, nee=nee, mesh=scene.mesh_tables)
+    assert (bounce_fused.launches, bounce_fused.mesh_launches) == (before[0], before[1] + 1)
+    want = bounce_fused.bounce_fused_plain(*args, nee=nee, mesh=scene.mesh_tables)
+    torch.cuda.synchronize()
+    assert torch.equal(got.terminate, want.terminate)
+    assert torch.equal(got.was_specular, want.was_specular)
+    assert torch.equal(got.rr_uniform, want.rr_uniform)
+    close = torch.ones(n, dtype=torch.bool, device="cuda")
+    for f in ("contrib", "next_origin", "next_direction", "throughput_mult"):
+        close &= torch.isclose(getattr(got, f), getattr(want, f), rtol=2e-6, atol=2e-6).all(-1)
+    assert float(close.float().mean()) >= 0.999
+
+
+def test_mesh_render_launches_its_kernels():
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import intersect_cuda, mesh
+
+    scene = _scene("smooth_mesh", (64, 48))
+    counts = lambda: (trace.mesh_launches, intersect_cuda.nearest_launches,  # noqa: E731
+                      intersect_cuda.occlusion_launches, mesh.nearest_launches,
+                      mesh.min_launches)
+    before = counts()
+    _, mega, ms = render(scene, 2, RenderConfig(max_depth=4), device="cuda")
+    assert [a - b for a, b in zip(counts(), before)] == [2, 0, 0, 0, 0]
+    before = counts()
+    _, split, ss = render(scene, 2, RenderConfig(max_depth=4, fused=False), device="cuda")
+    torch.cuda.synchronize()
+    assert [a - b for a, b in zip(counts(), before)] == [0, 8, 8, 8, 8]
+    assert ss["rays_traced"] == ms["rays_traced"]
+    close = torch.isclose(split, mega, rtol=2e-4, atol=2e-4)
+    assert float(close.float().mean()) >= 0.995

@@ -34,10 +34,25 @@ SCENES = os.path.join(ROOT, "scenes")
 ANALYTIC = ["cornell", "glass_dof", "fog", "milky", "sss", "ward", "animation"]
 
 
+def _jax_accel(a):
+    if a is None:
+        return None
+    return dict(n_tris=a.n_tris, **{k: np.asarray(getattr(a, k)) for k in (
+        "chunks", "lo", "hi", "root_lo", "root_hi", "scan_to_file")})
+
+
 def jax_scene_arrays(scene) -> dict:
     """A JAX ``Scene`` as the numpy dict of ``scene_from_numpy``."""
     g, m, c = scene.geoms, scene.materials, scene.camera
+
+    def opt(x):
+        return None if x is None else np.asarray(x)
+
+    meshes = [dict(geom_index=mi.geom_index, tri_verts=np.asarray(mi.tri_verts),
+                   tri_norm=opt(mi.tri_norm), tri_uv=opt(mi.tri_uv), accel=_jax_accel(mi.accel))
+              for mi in scene.meshes]
     return dict(
+        meshes=meshes,
         type=np.asarray(g.type),
         material_id=np.asarray(g.material_id),
         transform=np.asarray(g.transform),
@@ -121,8 +136,16 @@ def test_cornell_resolves_to_base_physics():
 
 @pytest.mark.parametrize("name", ["mesh_demo", "textured_image"])
 def test_assets_wait_for_their_slice(name):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        load_scene(os.path.join(SCENES, f"{name}.txt"))
+    """Image textures still wait for their slice; meshes load."""
+    path = os.path.join(SCENES, f"{name}.txt")
+    if name == "textured_image":
+        with pytest.raises(NotImplementedError, match="later slice"):
+            load_scene(path)
+        return
+    scene = load_scene(path).scene_for_frame(0, device="cpu")
+    (mesh,) = scene.meshes
+    assert mesh.geom_index == 1 and tuple(mesh.tri_verts.shape) == (20, 3, 3)
+    assert mesh.accel is None and not mesh.has_attrs
 
 
 def test_scene_for_frame_places_tensors_on_device():
