@@ -106,7 +106,29 @@ Phases (any failure exits non-zero):
    and that super-step; (g) the ``smooth_mesh_96`` golden rendered on the
    card within a mean 0.8/255 of the PNG; (h) times and bounds; (i) the CLI
    on smooth_mesh takes ``engine=megakernel``;
-10. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+10. ``[vol]``, participating media, each render through ``render`` with
+    the counters zeroed just before: (a) ``scenes/sss.txt`` at
+    ``bench.py``'s 512x512, depth 8, NEE, 32 spp on the megakernel launches
+    kernel 1's hg instance once per iteration and nothing else, finite
+    image, PNG written; (b) kernel 1 against ``trace_plain`` bit for bit on
+    every primary ray of sss (hg), fog (volumetric NEE) and glass_dof at
+    its own 800x800 (Beer-Lambert only), equal ray counts; (c) the pinned
+    and queue wavefront engines and the split route at 2 spp on sss and fog
+    (kernel 2's instance once per super-step; the split route kernels 6 and
+    8 once per bounce), the megakernel's ray counts, accumulators within
+    rtol = atol = 2e-4 of the megakernel's on at least 99.9% of entries,
+    sums within 2e-5; (d) kernel 2's vol and hg instances bit-equal to
+    ``bounce_fused_plain`` in every output on sss's primary rays and on
+    the captured super-step of the sss and fog renders (lanes inside a
+    medium); (e) kernel 1m's vol instance (``pt::mesh_occ_split``) bit for
+    bit on a scene the script writes (:func:`fog_mesh_scene`: smooth_mesh's
+    icosphere inside fog's scattering cube, glass and opaque), and through
+    ``render``; (f) the ``sss_96`` golden (95% of entries within 1e-5,
+    sum within 2e-5, PNG mean 0.8/255) and the ``glass_dof_128`` PNG
+    (mean 0.8/255) on the card; (g) times by CUDA events, bounds, and each
+    instance's registers and spills from ``[build]`` (Cornell's kernel 1
+    must keep 72 registers); (h) the CLI on sss takes ``engine=megakernel``;
+11. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
 The rendered PNGs and the profile table go to ``--out-dir`` (default
 ``renders/chip_smoke``).
@@ -174,8 +196,13 @@ def _counters() -> dict:
 
     return {
         "trace": (trace, "launches"),
+        "trace_vol": (trace, "vol_launches"),
+        "trace_hg": (trace, "hg_launches"),
         "trace_mesh": (trace, "mesh_launches"),
+        "trace_mesh_vol": (trace, "mesh_vol_launches"),
         "bounce_mesh": (bounce_fused, "mesh_launches"),
+        "bounce_vol": (bounce_fused, "vol_launches"),
+        "bounce_hg": (bounce_fused, "hg_launches"),
         "mesh_nearest": (mesh, "nearest_launches"),
         "mesh_min": (mesh, "min_launches"),
         "trace_fwd_resid": (trace_grad, "fwd_launches"),
@@ -965,6 +992,100 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
     ]
 
 
+def fog_mesh_scene(refractive: bool) -> str:
+    """The scene text of ``[vol]`` (e): ``scenes/fog.txt``'s lamp,
+    index-matched scattering cube and backdrop, with smooth_mesh's
+    icosphere (320 triangles, authored normals) inside the cube, in a glass
+    material (refractive, Beer-Lambert) or an opaque diffuse one.  Parse it
+    with ``scene_dir`` set to ``scenes/``."""
+    mesh_mat = ("RGB 0 0 0\nSPECEX 0\nSPECRGB 1 1 1\nREFL 0\nREFR 1\nREFRIOR 1.5\nSCATTER 0\n"
+                "ABSCOEFF .3 .1 .3\nRSCTCOEFF 0\nEMITTANCE 0" if refractive else
+                "RGB .7 .5 .3\nSPECEX 0\nSPECRGB 1 1 1\nREFL 0\nREFR 0\nREFRIOR 0\nSCATTER 0\n"
+                "ABSCOEFF 0 0 0\nRSCTCOEFF 0\nEMITTANCE 0")
+    return f"""
+MATERIAL 0
+RGB .9 .9 .9
+SPECEX 0
+SPECRGB 0 0 0
+REFL 0
+REFR 0
+REFRIOR 0
+SCATTER 0
+ABSCOEFF 0 0 0
+RSCTCOEFF 0
+EMITTANCE 40
+
+MATERIAL 1
+RGB 1 1 1
+SPECEX 0
+SPECRGB 1 1 1
+REFL 0
+REFR 1
+REFRIOR 1.0
+SCATTER 1
+ABSCOEFF .01 .01 .01
+RSCTCOEFF 0.8
+EMITTANCE 0
+
+MATERIAL 2
+RGB .4 .4 .45
+SPECEX 0
+SPECRGB 0 0 0
+REFL 0
+REFR 0
+REFRIOR 0
+SCATTER 0
+ABSCOEFF 0 0 0
+RSCTCOEFF 0
+EMITTANCE 0
+
+MATERIAL 3
+{mesh_mat}
+
+CAMERA
+RES 200 200
+FOVY 40
+ITERATIONS 64
+FILE fog_mesh.png
+frame 0
+EYE 0 0 8
+VIEW 0 0 -1
+UP 0 1 0
+
+OBJECT 0
+sphere
+material 0
+frame 0
+TRANS 2 2.5 -1
+ROTAT 0 0 0
+SCALE .4 .4 .4
+
+OBJECT 1
+cube
+material 1
+frame 0
+TRANS 0 0 0
+ROTAT 0 0 0
+SCALE 6 6 6
+
+OBJECT 2
+cube
+material 2
+frame 0
+TRANS 0 0 -8
+ROTAT 0 0 0
+SCALE 14 14 .3
+
+OBJECT 3
+assets/ico_smooth.obj
+material 3
+frame 0
+TRANS -.6 -.4 .5
+ROTAT 0 25 0
+SCALE 2.5 2.5 2.5
+"""
+
+
 MESH_RES = (512, 512)  # bench.py's smooth_mesh row
 MESH_SPP = 32
 OPS_MT = 66  # one ray-triangle Moeller-Trumbore test and the running-best update
@@ -1219,6 +1340,337 @@ def mesh_phase(dev, card: str, out_dir: str) -> list:
     ]
 
 
+VOL_RES = (512, 512)  # bench.py's sss row
+VOL_SPP = 32
+# fp32 operations of the media blocks per lane-bounce, counted by hand from
+# trace_common.cuh: the free path (log, divide, compare: 8), the segment's
+# attenuation (3 exp, 6 multiply: 9) and the surface event's medium switch
+# (8); an in-medium scatter or its light connection is data-dependent and
+# left out, so the bounds below stay lower bounds
+OPS_VOL = 25
+
+
+def ptxas_instances(reports: dict) -> dict:
+    """``{(source, mangled entry): (registers, spill store bytes, spill load
+    bytes)}`` from ``_build.build_all``'s ptxas reports."""
+    import re
+
+    out = {}
+    for name, report in reports.items():
+        entry = spill = None
+        for line in report.splitlines():
+            m = re.search(r"Compiling entry function '([^']+)'", line)
+            if m:
+                entry = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            if m:
+                spill = (int(m.group(1)), int(m.group(2)))
+            m = re.search(r"Used (\d+) registers", line)
+            if m and entry is not None:
+                out[(name, entry)] = (int(m.group(1)), *(spill or (0, 0)))
+                entry = spill = None
+    return out
+
+
+def instance_regs(instances: dict, source: str, kernel: str, mesh: bool, vol: bool, hg: bool):
+    """Registers and spills of one ``kMesh, kVol, kHg`` instance of
+    ``trace_kernel`` / ``bounce_kernel``, or None when the report has no
+    such entry (a library reused from an earlier build prints none)."""
+    tag = "".join(f"ILb{int(mesh)}E" if i == 0 else f"Lb{int(b)}E"
+                  for i, b in enumerate((mesh, vol, hg)))
+    for (src, entry), regs in instances.items():
+        if src == source and f"{kernel}{tag}" in entry:
+            return regs
+    return None
+
+
+def vol_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -> list:
+    """Phase 10, ``[vol]``: participating media.  sss at ``bench.py``'s
+    width on the megakernel (kernel 1's hg instance), kernel 1 against its
+    plain version on sss, fog and glass_dof, the wavefront engines and the
+    split route on sss and fog, kernel 2's vol and hg instances, kernel 1m
+    with the triangle split, the sss_96 and glass_dof_128 goldens, times and
+    bounds, the CLI.  Returns the JSON entries of the new instances."""
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import bounce_fused, trace
+    from pathtracer_tpu_torch.ops.bounce import pack_tables
+    from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
+    from pathtracer_tpu_torch.ops.mesh_tables import MESH_CHUNK, mesh_sweep
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render.features import features_for_materials
+    from pathtracer_tpu_torch.render.integrator import render, render_chunk
+    from pathtracer_tpu_torch.scene.parser import load_scene, parse_scene_text
+    from pathtracer_tpu_torch.utils.imageio import load_png, save_image
+
+    scenes_dir = os.path.join(ROOT, "scenes")
+
+    def scene_of(name, res=None):
+        if name.startswith("fog_mesh"):
+            desc = parse_scene_text(fog_mesh_scene(name.endswith("glass")), name=name,
+                                    scene_dir=scenes_dir)
+        else:
+            desc = load_scene(os.path.join(scenes_dir, f"{name}.txt"))
+        if res is not None:
+            desc = dataclasses.replace(desc, resolution=res)
+        return desc.scene_for_frame(0, device=dev)
+
+    base = dict(max_depth=8, nee=True)
+    seed = key_to_seed(prng_key(0))
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    # ---- (a) sss through the entry point at bench.py's width: kernel 1's
+    # hg instance once per iteration and nothing else
+    sss = scene_of("sss", VOL_RES)
+    w, h = sss.camera.width, sss.camera.height
+    cfg = RenderConfig(iters_per_launch=8, **base)
+    img, acc, st, launch_a, _, wall_a = counted_render(sss, VOL_SPP, cfg, dev)
+    feats = features_for_materials(sss.materials)
+    print(f"[vol] (a) sss {w}x{h} d8 nee spp={VOL_SPP}, features {feats}: {wall_a:.3f} s, rays "
+          f"{st['rays_traced']}, launches {launch_a}")
+    check(launch_a == only(trace_hg=VOL_SPP), f"sss megakernel launches {launch_a}")
+    check(tuple(img.shape) == (h, w, 3) and bool(torch.isfinite(acc).all())
+          and bool((acc >= 0).all()) and float(acc.sum()) > 0, "sss render: bad image")
+    save_image(os.path.join(out_dir, "chip_smoke_sss.png"), img.cpu().numpy())
+
+    # ---- (b) kernel 1 against its plain version on every lane: sss (hg),
+    # fog (volumetric NEE), glass_dof at its own 800x800 (Beer-Lambert only)
+    def primary(scene):
+        n = scene.camera.width * scene.camera.height
+        pixel = torch.arange(n, dtype=torch.int64, device=dev)
+        rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, pixel))
+        return rays, pixel
+
+    trace_args = {}
+    k1_err = {}
+    for name, scene in (("sss", sss), ("fog", scene_of("fog")), ("glass_dof", scene_of("glass_dof")),
+                        ("fog_mesh_glass", scene_of("fog_mesh_glass")),
+                        ("fog_mesh_opaque", scene_of("fog_mesh_opaque"))):
+        tables = [t.contiguous() for t in pack_tables(scene)]
+        rays, pixel = primary(scene)
+        kw = dict(max_depth=8, nee=True, rr=False, rr_start=3, mesh=scene.mesh_tables,
+                  features=frozenset(features_for_materials(scene.materials)))
+        targs = (*tables, seed, rays.origin, rays.direction, pixel)
+        rad_k, nr_k = trace.trace_cuda(*targs, **kw)
+        rad_p, nr_p = trace.trace_plain(*targs, **kw)
+        torch.cuda.synchronize()
+        differ = (rad_k != rad_p).any(-1)
+        k1_err[name] = float((rad_k - rad_p).abs().max())
+        tag = "(e) kernel 1m" if scene.meshes else "(b) kernel 1"
+        print(f"[vol:check] {tag} on {name} ({sorted(kw['features'])}), {pixel.numel()} primary "
+              f"rays: rays kernel {int(nr_k)} plain {int(nr_p)}; lanes that differ "
+              f"{int(differ.sum())}; max abs err {k1_err[name]:.3g}; radiance sum "
+              f"{float(rad_k.double().sum()):.6g}")
+        check(int(nr_k) == int(nr_p), f"kernel 1 and plain ray counts differ on {name}")
+        check(int(differ.sum()) == 0, f"kernel 1 differs from plain on {name}")
+        check(float(rad_p.sum()) > 0, f"{name}: no radiance")
+        trace_args[name] = (scene, targs, kw, int(nr_k))
+
+    # ---- (c) the wavefront engines and the split route against the
+    # megakernel, 2 spp; the state of super-step CAPTURE_STEP is kept for (d)
+    captured = {}
+    engine_launch = {}
+    for name, res in (("sss", VOL_RES), ("fog", None)):
+        scene = sss if name == "sss" else trace_args["fog"][0]
+        hg = "hg" in features_for_materials(scene.materials)
+        inst = "hg" if hg else "vol"
+        mega_cfg = RenderConfig(iters_per_launch=2, **base)
+        _, acc_m, st_m, launch_m, _, wall_m = counted_render(scene, 2, mega_cfg, dev)
+        check(launch_m == only(**{f"trace_{inst}": 2}), f"{name} megakernel launches {launch_m}")
+        engine_launch[f"trace_{inst}"] = launch_m[f"trace_{inst}"]
+        cap = {}
+        runs = (("pinned", RenderConfig(wavefront=True, iters_per_launch=2, **base)),
+                ("queue", RenderConfig(wavefront=True, wavefront_pinned=False,
+                                       wavefront_capacity=1 << 16, iters_per_launch=2, **base)),
+                ("split", RenderConfig(fused=False, iters_per_launch=2, **base)))
+        for engine, ecfg in runs:
+            if engine == "pinned":
+                _, acc_e, st_e, launch_e, steps, wall_e = capturing_render(scene, 2, ecfg, dev, cap)
+            else:
+                _, acc_e, st_e, launch_e, steps, wall_e = counted_render(scene, 2, ecfg, dev)
+            print(f"[vol] (c) {name} {engine}, spp=2: {wall_e:.3f} s, {steps} super-steps, rays "
+                  f"{st_e['rays_traced']}, launches {launch_e}")
+            if engine == "split":
+                per = 2 * 8  # a bounce of each path slot: 2 spp x depth 8
+                check(launch_e == only(nearest_hit=per, occlusion=per),
+                      f"{name} split route launches {launch_e}")
+            else:
+                check(launch_e == only(**{f"bounce_{inst}": steps}),
+                      f"{name} {engine} launches {launch_e}")
+                engine_launch.setdefault(f"bounce_{inst}", launch_e[f"bounce_{inst}"])
+            check(st_e["rays_traced"] == st_m["rays_traced"],
+                  f"{name} {engine} and megakernel ray counts differ")
+            check_close("vol", acc_e, acc_m, 0.999, 2e-5, f"(c) {name} {engine} vs megakernel")
+        check(bool(cap), f"{name}: no super-step state captured")
+        in_medium = int((cap["medium"][:, 3] > 0).sum())
+        print(f"[vol:check] {name} super-step {CAPTURE_STEP}: {cap['medium'].shape[0]} lanes, "
+              f"{in_medium} inside a scattering medium")
+        check(in_medium > 0, f"{name}: no lane of super-step {CAPTURE_STEP} is in a medium")
+        captured[name] = cap
+
+    # ---- (d) kernel 2's vol and hg instances against bounce_fused_plain on
+    # every lane: primary rays and the captured super-steps (sss's state
+    # runs both instances: its first four medium columns feed the vol one)
+    k2_err = {"vol": 0.0, "hg": 0.0}
+    sss_tables = [t.contiguous() for t in pack_tables(sss)]
+    fog_tables = [t.contiguous() for t in pack_tables(trace_args["fog"][0])]
+    rays0, pixel0 = primary(sss)
+    n0 = pixel0.numel()
+    prim = dict(origin=rays0.origin, direction=rays0.direction,
+                throughput=torch.ones((n0, 3), **f32), sample=pixel0,
+                depth=torch.zeros(n0, dtype=torch.int32, device=dev),
+                prev=torch.zeros(n0, **f32), medium=torch.zeros((n0, 5), **f32))
+    cases = [("hg", "sss primary", sss_tables, prim),
+             ("hg", f"sss super-step {CAPTURE_STEP}", sss_tables, captured["sss"]),
+             ("vol", f"sss super-step {CAPTURE_STEP}", sss_tables, captured["sss"]),
+             ("vol", f"fog super-step {CAPTURE_STEP}", fog_tables, captured["fog"])]
+    bargs = {}
+    for inst, label, tables, s in cases:
+        feats2 = frozenset({"volumetric", "hg"} if inst == "hg" else {"volumetric"})
+        med = s["medium"] if inst == "hg" else s["medium"][:, :4].contiguous()
+        args = (tables, s["origin"], s["direction"], s["throughput"], s["sample"], s["depth"],
+                s["prev"], med, seed)
+        got = bounce_fused.bounce_fused_cuda(*args, nee=True, features=feats2)
+        want = bounce_fused.bounce_fused_plain(*args, nee=True, features=feats2)
+        torch.cuda.synchronize()
+        same = {f.name: torch.equal(getattr(got, f.name), getattr(want, f.name))
+                for f in dataclasses.fields(got)}
+        for f in ("contrib", "next_origin", "next_direction", "throughput_mult"):
+            k2_err[inst] = max(k2_err[inst], float((getattr(got, f) - getattr(want, f)).abs().max()))
+        changed = int((want.next_medium != med).any(-1).sum())
+        print(f"[vol:check] (d) kernel 2 {inst}, {label}, {med.shape[0]} lanes ({changed} change "
+              f"medium): outputs equal {same}")
+        check(all(same.values()), f"kernel 2 {inst} differs from plain ({label})")
+        if "super-step" in label:  # the first such state of each instance is timed in (g)
+            bargs.setdefault(inst, (args, feats2, label))
+
+    # ---- (f) the sss_96 and glass_dof_128 goldens on the card
+    gimg, gacc, _ = render(scene_of("sss", (96, 96)), 24,
+                           RenderConfig(iters_per_launch=8, **base), device=dev)
+    golden = torch.from_numpy(np.load(os.path.join(ROOT, "tests", "golden", "sss_96.npy"))).to(dev)
+    frac = float(((gacc - golden).abs() <= 1e-5 * (golden.abs() + 1e-3)).float().mean())
+    gsum = float((gacc.double().sum() - golden.double().sum()).abs() / golden.double().sum())
+    png = torch.from_numpy(load_png(os.path.join(ROOT, "tests", "golden", "sss_96.png"))).to(dev)
+    png_mean = float((gimg - png.float() / 255.0).abs().mean()) * 255.0
+    print(f"[vol:golden] sss_96: {frac:.5f} of entries within 1e-5 rel, sum rel {gsum:.3g}, "
+          f"PNG mean abs {png_mean:.4f}/255")
+    check(frac >= 0.95 and gsum <= 2e-5 and png_mean <= 0.8, "sss_96 golden beyond its bar")
+    gimg, _, _ = render(scene_of("glass_dof", (128, 128)), 32,
+                        RenderConfig(iters_per_launch=8, **base), device=dev)
+    png = torch.from_numpy(load_png(os.path.join(ROOT, "tests", "golden", "glass_dof_128.png")))
+    gdiff = (gimg.cpu() - png.float() / 255.0).abs()
+    print(f"[vol:golden] glass_dof_128: PNG mean abs {float(gdiff.mean()) * 255:.4f}/255, max "
+          f"{float(gdiff.max()) * 255:.4f}/255")
+    check(float(gdiff.mean()) * 255 <= 0.8, "glass_dof_128 golden beyond its mean bar")
+
+    # ---- (e) kernel 1m's vol instance through the entry point
+    fm = trace_args["fog_mesh_glass"][0]
+    _, acc_e, _, launch_e, _, _ = counted_render(fm, 2, RenderConfig(iters_per_launch=2, **base),
+                                                 dev)
+    print(f"[vol] (e) fog_mesh_glass megakernel spp=2: launches {launch_e}")
+    check(launch_e == only(trace_mesh_vol=2) and bool(torch.isfinite(acc_e).all()),
+          f"fog_mesh megakernel launches {launch_e}")
+    engine_launch["trace_mesh_vol"] = launch_e["trace_mesh_vol"]
+
+    # ---- (g) times by CUDA events, bounds from this run's inputs, registers
+    def bound(ops, nbytes):
+        t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+    def sweep_ops(scene):
+        return sum(OPS_TO_OBJECT + (OPS_SPHERE if t == 0 else OPS_CUBE if t == 1 else 0)
+                   for t in scene.geoms.type.tolist())
+
+    timing = {}
+    for key, name in (("trace_hg", "sss"), ("trace_vol", "glass_dof"),
+                      ("trace_mesh_vol", "fog_mesh_glass")):
+        scene, targs, kw, nrays = trace_args[name]
+        ms = cuda_ms(lambda: trace.trace_cuda(*targs, **kw), reps=10)
+        p_ms = cuda_ms(lambda: trace.trace_plain(*targs, **kw), reps=1)
+        n = targs[5].shape[0]
+        tbytes = sum(t.numel() * 4 for t in targs[:4])
+        lane_bounces = nrays // 2
+        ops = lane_bounces * (sweep_ops(scene) + OPS_SHADE + OPS_VOL)
+        if scene.meshes:  # the triangle tables, read once, and [mesh]'s count of their tests
+            km = scene.mesh_tables
+            tbytes += sum(t.numel() * 4 for t in (km.tri, km.aabb, km.norm, km.desc))
+            reached = mesh_sweep(km, targs[0], targs[5].unbind(-1), targs[6].unbind(-1))["reached"]
+            ops += (lane_bounces * (OPS_MESH_RAY + OPS_AABB * km.aabb.numel() // 6)
+                    + int(reached.sum()) * MESH_CHUNK * OPS_MT)
+        timing[key] = (ms, p_ms, bound(ops, n * (12 + 12 + 4 + 12) + tbytes), name, n)
+    for inst in ("vol", "hg"):
+        args, feats2, label = bargs[inst]
+        n = args[1].shape[0]
+        mw = args[7].shape[1]
+        ms = cuda_ms(lambda: bounce_fused.bounce_fused_cuda(*args, nee=True, features=feats2),
+                     reps=20)
+        p_ms = cuda_ms(lambda: bounce_fused.bounce_fused_plain(*args, nee=True, features=feats2),
+                       reps=2)
+        tbytes = sum(t.numel() * 4 for t in args[0])
+        # 12 planes and the medium in, 14 float planes, the medium and the
+        # terminate byte out
+        timing[f"bounce_{inst}"] = (ms, p_ms, bound(n * (sweep_ops(sss) + OPS_SHADE + OPS_VOL),
+                                                    n * (48 + 4 * mw + 57 + 4 * mw) + tbytes),
+                                    label, n)
+    rcfg = dataclasses.replace(cfg, features=tuple(feats))
+    acc0 = torch.zeros((n0, 3), **f32)
+    iter_ms = cuda_ms(lambda: render_chunk(sss, acc0, 0, seed, rcfg, 1, tables=sss_tables),
+                      reps=5)
+    summary = profile_step(lambda: render_chunk(sss, acc0, 0, seed, rcfg, 1, tables=sss_tables),
+                           iter_ms, out_dir, "sss_iteration", ("trace_kernel",))
+    instances = ptxas_instances(reports)
+    regs = {
+        "trace": instance_regs(instances, "trace", "trace_kernel", False, False, False),
+        "trace_vol": instance_regs(instances, "trace", "trace_kernel", False, True, False),
+        "trace_hg": instance_regs(instances, "trace", "trace_kernel", False, True, True),
+        "trace_mesh_vol": instance_regs(instances, "trace", "trace_kernel", True, True, False),
+        "trace_mesh_hg": instance_regs(instances, "trace", "trace_kernel", True, True, True),
+        "bounce": instance_regs(instances, "bounce", "bounce_kernel", False, False, False),
+        "bounce_vol": instance_regs(instances, "bounce", "bounce_kernel", False, True, False),
+        "bounce_hg": instance_regs(instances, "bounce", "bounce_kernel", False, True, True),
+    }
+    print(f"[card] {card}")
+    print(f"[vol:regs] registers, spill store / load bytes per instance: {regs}")
+    check(regs["trace"] is None or regs["trace"][0] == 72,
+          f"Cornell's kernel 1 uses {regs['trace']} registers, not 72")
+    print(f"[vol:time] sss iteration {iter_ms:.4f} ms ({trace_args['sss'][3] / iter_ms / 1e3:.1f} "
+          f"Mrays/s); Cornell's kernel 1 {cornell_ms:.4f} ms/iteration in this run; on {card}")
+    print(f"[vol:profile] sss render iteration: {summary}")
+    for key, (ms, p_ms, (b_ms, b_by), where, n) in timing.items():
+        print(f"[vol:time] {key} at {n} lanes of {where}: {ms:.4f} ms (plain {p_ms:.3f} ms), "
+              f"bound {b_ms:.4f} ms by {b_by} (a lower bound: in-medium scatters, light "
+              f"connections, shadow rays and triangle tests after bounce 0 left out); on {card}")
+
+    # ---- (h) the CLI on sss takes the megakernel
+    cli = subprocess.run(
+        [sys.executable, "-m", "pathtracer_tpu_torch.cli", "scene=scenes/sss.txt",
+         "--spp", "2", "--out", os.path.join(out_dir, "cli_sss.png")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    print(f"[vol:cli] exit {cli.returncode}: {cli.stdout.strip()} {cli.stderr.strip()[-2000:]}")
+    check(cli.returncode == 0 and "engine=megakernel" in cli.stdout, "sss CLI run failed")
+
+    launches = {**engine_launch, "trace_hg": launch_a["trace_hg"]}  # (a) is the main path
+    common = {"route": "cuda", "library_ms": None}
+    entries = []
+    for key, source, replaces, err in (
+        ("trace_hg", "trace.cu", "pathtracer_tpu/ops/trace_pallas.py:62", k1_err["sss"]),
+        ("trace_vol", "trace.cu", "pathtracer_tpu/ops/trace_pallas.py:62",
+         max(k1_err["fog"], k1_err["glass_dof"])),
+        ("trace_mesh_vol", "trace.cu", "pathtracer_tpu/ops/trace_pallas.py:62",
+         max(k1_err["fog_mesh_glass"], k1_err["fog_mesh_opaque"])),
+        ("bounce_vol", "bounce.cu", "pathtracer_tpu/ops/bounce_pallas.py:1477", k2_err["vol"]),
+        ("bounce_hg", "bounce.cu", "pathtracer_tpu/ops/bounce_pallas.py:1477", k2_err["hg"]),
+    ):
+        ms, p_ms, (b_ms, b_by), _, _ = timing[key]
+        entries.append({"name": key, **common, "source": f"pathtracer_tpu_torch/csrc/{source}",
+                        "replaces": replaces, "launches": launches[key], "max_abs_err": err,
+                        "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by})
+    return entries
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -1402,7 +1854,10 @@ def main() -> int:
     # ---- 9. triangle meshes
     mesh_kernels = mesh_phase(dev, card, out_dir)
 
-    # ---- 10. results
+    # ---- 10. participating media
+    vol_kernels = vol_phase(dev, card, out_dir, reports, k_ms)
+
+    # ---- 11. results
     kernels = [
         {
             "name": "trace",
@@ -1421,6 +1876,7 @@ def main() -> int:
         *engine_kernels,
         *wave_kernels,
         *mesh_kernels,
+        *vol_kernels,
     ]
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

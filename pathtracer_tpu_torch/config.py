@@ -3,13 +3,13 @@
 Port of ``pathtracer_tpu/config.py``: the same frozen dataclass with the
 same fields and defaults, so one set of knobs drives both packages.  The
 port reads the ones its slices implement (``max_depth``, ``jitter``,
-``nee``, ``russian_roulette``, ``rr_start``, ``iters_per_launch``,
+``nee``, ``vol_nee``, ``russian_roulette``, ``rr_start``, ``iters_per_launch``,
 ``seed``, ``fast_rng``, ``features``, ``auto_features``; the engine choice
 ``wavefront``, ``wavefront_pinned``, ``wavefront_pinned_max_pixels``,
 ``wavefront_capacity`` and ``fused``, which picks the per-bounce kernel or
 the split route's intersection kernels; and for the differentiable render
 ``grad_lean``, ``grad_fused``, ``grad_full_trace``) and refuses the engines
-it does not have yet.  ``pallas`` is kept for parity and picks no route:
+it does not have yet (``debug`` raises).  ``pallas`` is kept for parity and picks no route:
 a CUDA tensor always runs the hand-written kernels.
 """
 

@@ -15,7 +15,14 @@
 // multiplier, terminate, emit state, the russian-roulette uniform and the
 // medium.  Layout: vectors [N, 3] and the medium [N, 4] row-major, scalars
 // [N], terminate as one byte (0/1); the uniforms are the per-lane
-// hash_uniforms(seed, sample, depth, 11).
+// hash_uniforms(seed, sample, depth, 11).  With the hg feature the medium
+// is [N, 5]: one more plane in and out, the phase g (bounce_pallas.py:
+// 1485-1488, bounce_fused :1661,1737).
+//
+// Participating media (the volumetric feature): the kVol / kHg instances
+// run pt::bounce's media blocks, reading the lane's medium and writing the
+// one its continuation travels through; the vacuum instance copies the
+// medium through.  The replay variant runs the vacuum instance only.
 //
 // The emit_replay variant (the forward of the per-bounce differentiable
 // engine, pathtracer_tpu/ops/bounce_grad.py:_fused_fwd_call) is the same
@@ -29,9 +36,7 @@
 // below n and equals the plain version's bit for bit, terminated lanes
 // included: a miss samples material 0's BSDF at t = 1, a light hit its own
 // material's, exactly as bounce_physics does (mask-free; the engines gate
-// with their alive masks).  The medium passes through: the port's scenes
-// are vacuum (volumetric media raise in the wrappers).  Lanes past n read
-// and write nothing.
+// with their alive masks).  Lanes past n read and write nothing.
 //
 // Triangle meshes (kernel 2 with mesh_tables, bounce_pallas.py:1491-1494,
 // 1568-1591, the in-kernel branch): as in trace.cu, a scene whose meshes
@@ -68,8 +73,12 @@
 namespace pt {
 
 // one lane of the per-bounce kernel; also compiled as host C++ by
-// tests/kernel_host_harness.cpp
-PT_FN void bounce_lane(const Tables& T, uint32_t seed, int nee, size_t i,
+// tests/kernel_host_harness.cpp.  The medium rows are mw = 4 or 5 wide
+// (the phase g in column 4); the output g column is the medium entered with
+// kHg, 0 with kVol alone (its g is never read), and passes through in
+// vacuum.
+template <bool kVol = false, bool kHg = false>
+PT_FN void bounce_lane(const Tables& T, uint32_t seed, int nee, int vol_nee, int mw, size_t i,
                        const float* __restrict__ origin, const float* __restrict__ direction,
                        const float* __restrict__ thr, const uint32_t* __restrict__ sample,
                        const int32_t* __restrict__ depth, const float* __restrict__ prev,
@@ -84,7 +93,10 @@ PT_FN void bounce_lane(const Tables& T, uint32_t seed, int nee, size_t i,
   const V3 t = v3(thr[3 * i], thr[3 * i + 1], thr[3 * i + 2]);
   const int dep = depth[i];
   const uint32_t base = bounce_base(seed, sample[i] * 0x85EBCA6Bu, dep);
-  const Bounce b = bounce<true>(T, base, dep, nee, o, d, t, prev[i]);
+  const float* mi = medium + (size_t)mw * i;
+  Medium med{};
+  if constexpr (kVol) med = Medium{v3(mi[0], mi[1], mi[2]), mi[3], mw > 4 ? mi[4] : 0.0f};
+  const Bounce b = bounce<true, kVol, kHg>(T, base, dep, nee, o, d, t, prev[i], med, vol_nee);
   const V3* vec[4] = {&b.contrib, &b.next_o, &b.next_d, &b.thr_mult};
   float* out[4] = {contrib, next_o, next_d, thr_mult};
   for (int k = 0; k < 4; ++k) {
@@ -95,7 +107,16 @@ PT_FN void bounce_lane(const Tables& T, uint32_t seed, int nee, size_t i,
   terminate[i] = b.terminate ? 1 : 0;
   wspec[i] = b.wspec;
   rru[i] = uniform(base, 3);
-  for (int k = 0; k < 4; ++k) out_medium[4 * i + k] = medium[4 * i + k];
+  float* mo = out_medium + (size_t)mw * i;
+  if constexpr (kVol) {
+    mo[0] = b.medium.a.x;
+    mo[1] = b.medium.a.y;
+    mo[2] = b.medium.a.z;
+    mo[3] = b.medium.s;
+    if (mw > 4) mo[4] = kHg ? b.medium.g : 0.0f;
+  } else {
+    for (int k = 0; k < mw; ++k) mo[k] = mi[k];  // vacuum: the medium passes through
+  }
   if (replay_gid != nullptr) {
     replay_gid[i] = (float)b.gid;
     replay_nee[i] = b.nee_add ? 1.0f : 0.0f;
@@ -114,8 +135,9 @@ constexpr int THREADS = 128;
 
 // kMesh = false compiles the analytic kernel: its mesh tables are a
 // constant n = 0, and the sweep drops out of the code (and of the register
-// budget) as in the kernels that never take meshes
-template <bool kMesh>
+// budget) as in the kernels that never take meshes.  kVol / kHg compile the
+// participating-media blocks in, as in trace.cu.
+template <bool kMesh, bool kVol, bool kHg>
 __global__ void __launch_bounds__(THREADS)
 bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mtab, int M,
               const float* __restrict__ ltab, const float* __restrict__ scal, uint32_t seed,
@@ -127,8 +149,8 @@ bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ m
               float* __restrict__ next_d, float* __restrict__ thr_mult,
               uint8_t* __restrict__ terminate, float* __restrict__ wspec,
               float* __restrict__ rru, float* __restrict__ out_medium,
-              float* __restrict__ replay_gid, float* __restrict__ replay_nee,
-              MeshTables mesh) {
+              float* __restrict__ replay_gid, float* __restrict__ replay_nee, int vol_nee,
+              int mw, MeshTables mesh) {
   extern __shared__ float smem[];
   float* s_g = smem;
   float* s_m = s_g + G * GCOLS;
@@ -142,9 +164,9 @@ bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ m
   if (idx >= n) return;
   const Tables T{s_g, s_m, s_l, G, scal[0], scal[1] > 0.5f,
                  kMesh ? mesh : MeshTables{nullptr, nullptr, nullptr, nullptr, 0}};
-  bounce_lane(T, seed, nee, (size_t)idx, origin, direction, thr, sample, depth, prev, medium,
-              contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
-              replay_nee);
+  bounce_lane<kVol, kHg>(T, seed, nee, vol_nee, mw, (size_t)idx, origin, direction, thr, sample,
+                         depth, prev, medium, contrib, next_o, next_d, thr_mult, terminate, wspec,
+                         rru, out_medium, replay_gid, replay_nee);
 }
 
 }  // namespace
@@ -156,18 +178,25 @@ extern "C" int bounce_launch(const float* gtab, int G, const float* mtab, int M,
                              const float* prev, const float* medium, float* contrib,
                              float* next_o, float* next_d, float* thr_mult,
                              unsigned char* terminate, float* wspec, float* rru,
-                             float* out_medium, float* replay_gid, float* replay_nee,
-                             const float* mtri, const float* maabb, const float* mnorm,
-                             const int* mdesc, int n_mesh, void* stream) {
+                             float* out_medium, float* replay_gid, float* replay_nee, int vol,
+                             int hg, int vol_nee, int mw, const float* mtri, const float* maabb,
+                             const float* mnorm, const int* mdesc, int n_mesh, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + THREADS - 1) / THREADS;
   const size_t smem = sizeof(float) * (size_t)(G * GCOLS + M * MCOLS + G * LCOLS);
   const MeshTables mesh{mtri, maabb, mnorm, mdesc, n_mesh};
-  auto kernel = n_mesh > 0 ? bounce_kernel<true> : bounce_kernel<false>;
+  // the instance: mesh sweep or not x vacuum, volumetric, volumetric + HG
+  decltype(&bounce_kernel<false, false, false>) kernel;
+  if (n_mesh > 0)
+    kernel = !vol ? bounce_kernel<true, false, false>
+                  : (hg ? bounce_kernel<true, true, true> : bounce_kernel<true, true, false>);
+  else
+    kernel = !vol ? bounce_kernel<false, false, false>
+                  : (hg ? bounce_kernel<false, true, true> : bounce_kernel<false, true, false>);
   kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       gtab, G, mtab, M, ltab, scal, seed, nee, n, origin, direction, thr, sample, depth, prev,
       medium, contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
-      replay_nee, mesh);
+      replay_nee, vol_nee, mw, mesh);
   return (int)cudaGetLastError();
 }
 

@@ -44,6 +44,16 @@
 // kernel is built twice: with the sweep, launched for n_mesh > 0, and
 // without it for analytic scenes, whose code and registers stay as before.
 //
+// Participating media (kernel 1 with the volumetric and Henyey-Greenstein
+// blocks, trace_pallas.py:90-98,131-173): each lane carries its medium
+// (sigma_a rgb, sigma_s, and the phase g) in registers from bounce to
+// bounce, starting in vacuum; pt::bounce's kVol / kHg blocks sample the free
+// path, scatter in the medium and connect scatter points to the light
+// (volumetric NEE: the shadow ray sweeps the analytic geoms and, in the
+// mesh instance, the triangles through pt::mesh_occ_split, split by
+// material into refractive and opaque).  The launcher picks the instance
+// from the volumetric and hg flags, so vacuum scenes run the vacuum code.
+//
 // What bounds it on the H100: operations, not bytes.  A lane reads 28 bytes
 // (origin, direction, sample) and writes 12, about 26 MB per 640,000-lane
 // iteration (~8 us at 3.35 TB/s), while every bounce costs two sweeps over
@@ -64,20 +74,24 @@
 namespace pt {
 
 // One lane's whole path: the bounce loop, the radiance and the number of
-// bounces it traced.  Also compiled as host C++ by
-// tests/kernel_host_harness.cpp.
+// bounces it traced.  With kVol the lane carries its medium in registers,
+// starting in vacuum (kHg: with the phase g).  Also compiled as host C++
+// by tests/kernel_host_harness.cpp.
+template <bool kVol = false, bool kHg = false>
 PT_FN V3 trace_lane(const Tables& T, uint32_t seed, uint32_t s, V3 o, V3 d, int max_depth,
-                    int nee, int rr, int rr_start, bool alive, unsigned int& bounces) {
+                    int nee, int rr, int rr_start, bool alive, unsigned int& bounces,
+                    int vol_nee = 1) {
   V3 thr = v3(1.0f, 1.0f, 1.0f);
   V3 rad = v3(0.0f, 0.0f, 0.0f);
   float prev_state = 0.0f;
+  Medium med{};
   const uint32_t s_term = s * 0x85EBCA6Bu;
   for (int dep = 0; dep < max_depth && alive; ++dep) {
     ++bounces;
     int gid;
     bool nee_add;
-    bounce_step(T, bounce_base(seed, s_term, dep), dep, nee, rr, rr_start, o, d, thr,
-                prev_state, rad, alive, gid, nee_add);
+    bounce_step<kVol, kHg>(T, bounce_base(seed, s_term, dep), dep, nee, rr, rr_start, o, d, thr,
+                           prev_state, rad, alive, gid, nee_add, &med, vol_nee);
   }
   return rad;
 }
@@ -92,15 +106,17 @@ using namespace pt;
 
 // kMesh = false compiles the analytic kernel: its mesh tables are a
 // constant n = 0, and the sweep drops out of the code (and of the register
-// budget) as in the kernels that never take meshes
-template <bool kMesh>
+// budget) as in the kernels that never take meshes.  kVol / kHg compile the
+// participating-media blocks in (pt::bounce); without them the code is the
+// vacuum kernel's.
+template <bool kMesh, bool kVol, bool kHg>
 __global__ void __launch_bounds__(128)
 trace_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mtab, int M,
              const float* __restrict__ ltab, const float* __restrict__ scal, uint32_t seed,
              const float* __restrict__ origin, const float* __restrict__ direction,
              const uint32_t* __restrict__ sample, int n, float* __restrict__ radiance,
              unsigned long long* __restrict__ nrays, int max_depth, int nee, int rr,
-             int rr_start, MeshTables mesh) {
+             int rr_start, int vol_nee, MeshTables mesh) {
   extern __shared__ float smem[];
   float* s_g = smem;
   float* s_m = s_g + G * GCOLS;
@@ -123,7 +139,8 @@ trace_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mt
     s = sample[idx];
   }
   unsigned int bounces = 0;
-  const V3 rad = trace_lane(T, seed, s, o, d, max_depth, nee, rr, rr_start, alive, bounces);
+  const V3 rad = trace_lane<kVol, kHg>(T, seed, s, o, d, max_depth, nee, rr, rr_start, alive,
+                                       bounces, vol_nee);
 
   if (idx < n) {
     radiance[3 * idx] = rad.x;
@@ -144,17 +161,25 @@ extern "C" int trace_launch(const float* gtab, int G, const float* mtab, int M,
                             const float* origin, const float* direction,
                             const unsigned int* sample, int n, float* radiance,
                             unsigned long long* nrays, int max_depth, int nee, int rr,
-                            int rr_start, const float* mtri, const float* maabb,
-                            const float* mnorm, const int* mdesc, int n_mesh, void* stream) {
+                            int rr_start, int vol, int hg, int vol_nee, const float* mtri,
+                            const float* maabb, const float* mnorm, const int* mdesc,
+                            int n_mesh, void* stream) {
   if (n <= 0) return 0;
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
   const size_t smem = sizeof(float) * (size_t)(G * pt::GCOLS + M * pt::MCOLS + G * pt::LCOLS);
   const pt::MeshTables mesh{mtri, maabb, mnorm, mdesc, n_mesh};
-  auto kernel = n_mesh > 0 ? trace_kernel<true> : trace_kernel<false>;
+  // the instance: mesh sweep or not x vacuum, volumetric, volumetric + HG
+  decltype(&trace_kernel<false, false, false>) kernel;
+  if (n_mesh > 0)
+    kernel = !vol ? trace_kernel<true, false, false>
+                  : (hg ? trace_kernel<true, true, true> : trace_kernel<true, true, false>);
+  else
+    kernel = !vol ? trace_kernel<false, false, false>
+                  : (hg ? trace_kernel<false, true, true> : trace_kernel<false, true, false>);
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       gtab, G, mtab, M, ltab, scal, seed, origin, direction, sample, n, radiance, nrays,
-      max_depth, nee, rr, rr_start, mesh);
+      max_depth, nee, rr, rr_start, vol_nee, mesh);
   return (int)cudaGetLastError();
 }
 

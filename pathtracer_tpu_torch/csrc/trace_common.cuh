@@ -39,6 +39,8 @@ constexpr float SHADOW_SLACK = (float)(4.0 * 2e-4);
 constexpr float TWO_PI = (float)(2.0 * 3.14159265358979323846);
 constexpr float INV_PI = (float)(1.0 / 3.14159265358979323846);
 constexpr float SQRT_ONE_THIRD = (float)0.5773502691896257;
+constexpr float INV_FOUR_PI = (float)(1.0 / (4.0 * 3.14159265358979323846));
+constexpr float FOUR_PI = (float)(4.0 * 3.14159265358979323846);
 constexpr float SPHERE = 0.0f;
 constexpr float CUBE = 1.0f;
 
@@ -272,6 +274,33 @@ PT_FN float mesh_occ(const float* g_tab, const MeshTables& M, V3 x, V3 wi) {
   return occ;
 }
 
+// volumetric NEE's shadow ray through the triangles, split by each mesh's
+// material (ops/mesh_tables.py:mesh_occ_split): a mesh's nearest t, culled
+// against that mesh's own running minimum, bounds the attenuated segment
+// when the material is refractive (occ_re) and blocks otherwise (occ_op)
+PT_FN void mesh_occ_split(const float* g_tab, const float* m_tab, const MeshTables& M, V3 x,
+                          V3 wi, float& occ_op, float& occ_re) {
+  for (int k = 0; k < M.n; ++k) {
+    const int* ds = M.desc + 4 * k;
+    const float* m = g_tab + ds[0] * GCOLS;
+    V3 oo, od;
+    to_object(m, x, wi, oo, od);
+    const V3 inv = v3(safe_recip(od.x), safe_recip(od.y), safe_recip(od.z));
+    float mt = BIG;
+    for (int c = ds[2]; c < ds[2] + ds[1]; ++c) {
+      if (!chunk_reaches(M.aabb + 6 * c, oo, inv, mt)) continue;
+      for (int j = 0; j < MESH_CHUNK; ++j) {
+        float u, v;
+        mt = fminf(mt, mt_tri(M.tri + 12 * (c * MESH_CHUNK + j), oo, od, u, v));
+      }
+    }
+    if (m_tab[(int)m[13] * MCOLS + 7] > 0.0f)
+      occ_re = fminf(occ_re, mt);
+    else
+      occ_op = fminf(occ_op, mt);
+  }
+}
+
 // ---- sampling blocks (ops/bounce.py) --------------------------------------
 
 PT_FN V3 not_axis_vector(V3 n) {
@@ -309,6 +338,8 @@ PT_FN V3 reflect(V3 d_in, V3 n) { return vsub(d_in, vscale(2.0f * vdot(d_in, n),
 struct Scatter {
   V3 origin, direction, thr;
   bool is_specular;
+  bool transmitted;  // a dielectric transmission (the medium changes)
+  bool entering;     // the ray came from outside
 };
 
 // the dielectric's lobe choice (Fresnel reflectance against u2)
@@ -339,6 +370,8 @@ PT_FN Scatter sample_bsdf(const float* mat, V3 p, V3 n_raw, V3 d_in, float u0, f
 
   Scatter s;
   s.is_specular = is_refractive || is_reflective;
+  s.transmitted = false;
+  s.entering = entering;
   float bias = RAY_BIAS;
   if (is_refractive) {
     V3 d_mirror = reflect(d_in, n);
@@ -354,7 +387,8 @@ PT_FN Scatter sample_bsdf(const float* mat, V3 p, V3 n_raw, V3 d_in, float u0, f
     bool choose_reflect = fresnel_reflects(ior_i, ior_t, eta, cos_i, refr_valid, u2);
     s.direction = choose_reflect ? d_mirror : d_refr;
     s.thr = v3(mat[3], mat[4], mat[5]);
-    if (!choose_reflect && refr_valid) bias = -RAY_BIAS;
+    s.transmitted = !choose_reflect && refr_valid;
+    if (s.transmitted) bias = -RAY_BIAS;
   } else if (is_glossy) {
     V3 d_mirror = reflect(d_in, n);
     float exp_n = fmaxf(mat[10], 1e-6f);
@@ -430,16 +464,43 @@ struct Tables {
   MeshTables mesh;   // the in-kernel triangle sweep; mesh.n = 0 for none
 };
 
-// What one bounce resolves: bounce_physics's outputs (the medium passes
-// through unchanged in the vacuum scenes of the port) plus the two discrete
+// The medium a lane travels through (render/common.py's medium_sigma):
+// sigma_a rgb, sigma_s and, with the hg feature, the Henyey-Greenstein g;
+// zeros are vacuum.
+struct Medium {
+  V3 a;
+  float s;
+  float g;
+};
+
+// What one bounce resolves: bounce_physics's outputs plus the two discrete
 // outcomes the differentiable trace stores as residuals.
 struct Bounce {
   V3 contrib, next_o, next_d, thr_mult;
-  bool terminate;  // a miss or a light hit
+  bool terminate;  // a miss, or a light hit that no in-medium scatter precedes
   float wspec;     // emit-state code of this bounce's event
   int gid;         // winner geom, -1 on a miss
   bool nee_add;    // the NEE connection counted
+  Medium medium;   // the medium the continuation travels through
 };
+
+// The light pick of one bounce (uniforms 4..7): world point, unit normal
+// and emitted rgb (ops/bounce.py:sample_lights)
+struct LightSample {
+  V3 lp, ln, emit;
+};
+
+PT_FN LightSample light_sample(const Tables& T, uint32_t base) {
+  V3 lp_obj, ln_obj;
+  const int lid = sample_light_obj(T.g, T.l, T.G, uniform(base, 4), uniform(base, 5),
+                                   uniform(base, 6), uniform(base, 7), lp_obj, ln_obj);
+  const float* L = T.l + lid * LCOLS;
+  LightSample ls;
+  ls.lp = light_position(L, lp_obj);
+  ls.ln = vnormalize(world_normal_raw(T.g + lid * GCOLS, ln_obj));
+  ls.emit = v3(L[13], L[14], L[15]);
+  return ls;
+}
 
 // One bounce of a lane at depth `dep` with emit state `prev_state`.
 //
@@ -451,15 +512,30 @@ struct Bounce {
 // lane, as in bounce_physics: a miss samples material 0's BSDF at t = 1
 // with a zero normal, and a light hit samples the light's own material.
 // Only NEE stays gated, as there: it counts on non-emissive hits only.
-template <bool kMaskFree>
+//
+// kVol (the volumetric feature, bounce_pallas.py:1140-1168,1323-1470): an
+// exponential free path in the medium `med` (uniform 8) that ends before
+// the surface is an in-medium scatter.  It is computed before the emittance:
+// a scatter lane is neither counted at a light nor ended by it, takes no
+// surface NEE, and continues from the scatter point in an isotropic
+// direction (uniforms 9, 10) or, with kHg, a Henyey-Greenstein one about d
+// where the medium's g is nonzero.  The segment travelled attenuates the
+// throughput (Beer-Lambert) before the emittance and both NEE terms.  With
+// vol_nee a scatter lane connects to the light sample through the
+// straight-line transmittance: refractive geoms (and meshes) bound the
+// attenuated segment, opaque ones block.  A transmission into a material
+// takes its medium, out of one returns to vacuum.  kVol = false is vacuum
+// transport and compiles to the code without media; `med` passes through.
+template <bool kMaskFree, bool kVol = false, bool kHg = false>
 PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d, V3 thr,
-                    float prev_state) {
+                    float prev_state, Medium med = Medium{}, int vol_nee = 1) {
   Bounce b;
   b.contrib = v3(0.0f, 0.0f, 0.0f);
   b.next_o = b.next_d = b.thr_mult = b.contrib;
   b.wspec = 0.0f;
   b.gid = -1;
   b.nee_add = false;
+  b.medium = med;
 
   // ---- nearest hit: the first minimum wins
   float best_t = BIG;
@@ -496,13 +572,27 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
   const float* mat = T.m + (mb ? mh.mid : (a_hit ? (int)gw[13] : 0)) * MCOLS;
   const bool emissive = mat[9] > 0.0f;
   const V3 color = v3(mat[0], mat[1], mat[2]);
-  if (hit && emissive) {
+
+  // ---- volumetric free path and the segment's attenuation
+  float free_path = BIG;
+  bool vol_scatter = false;
+  V3 atten = v3(1.0f, 1.0f, 1.0f);
+  if (kVol) {
+    if (med.s > 0.0f)
+      free_path = -logf(fminf(fmaxf(1.0f - uniform(base, 8), 1e-7f), 1.0f)) / fmaxf(med.s, 1e-12f);
+    vol_scatter = hit && free_path < best_t;
+    const float seg = vol_scatter ? free_path : (hit ? best_t : 0.0f);
+    atten = v3(expf(-med.a.x * seg), expf(-med.a.y * seg), expf(-med.a.z * seg));
+    thr = vmul(thr, atten);
+  }
+
+  if (hit && emissive && !vol_scatter) {
     // light hit: counted on primary rays and after specular events with
     // NEE, always without
     bool count = !nee || dep == 0 || fabsf(prev_state - 1.0f) < 0.5f;
     if (count) b.contrib = vscale(mat[9], vmul(thr, color));
   }
-  b.terminate = !hit || emissive;
+  b.terminate = !hit || (emissive && !vol_scatter);
   if (!kMaskFree && b.terminate) return b;
 
   const float t_safe = hit ? best_t : 1.0f;
@@ -519,23 +609,17 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
   const Scatter sc = sample_bsdf(mat, p, normal, d, uniform(base, 0), uniform(base, 1),
                                  uniform(base, 2));
 
-  // ---- next-event estimation at diffuse hits
-  if (nee && hit && !emissive && !sc.is_specular && T.any_light) {
-    V3 lp_obj, ln_obj;
-    const int lid = sample_light_obj(T.g, T.l, T.G, uniform(base, 4), uniform(base, 5),
-                                     uniform(base, 6), uniform(base, 7), lp_obj, ln_obj);
-    const float* L = T.l + lid * LCOLS;
-    const V3 lp = light_position(L, lp_obj);
-    const V3 ln = vnormalize(world_normal_raw(T.g + lid * GCOLS, ln_obj));
-    const V3 emit = v3(L[13], L[14], L[15]);
+  // ---- next-event estimation at diffuse surface hits
+  if (nee && hit && !emissive && !sc.is_specular && !vol_scatter && T.any_light) {
+    const LightSample ls = light_sample(T, base);
     const V3 n_shade = vscale(fsign(-vdot(normal, d)), normal);
     const V3 x = vadd(p, vscale(RAY_BIAS, n_shade));
-    const V3 to_light = vsub(lp, x);
+    const V3 to_light = vsub(ls.lp, x);
     const float dist2 = vdot(to_light, to_light);
     const float dist = sqrtf(fmaxf(dist2, 1e-12f));
     const V3 wi = vscale(1.0f / dist, to_light);
     const float cos_x = vdot(n_shade, wi);
-    const float cos_y = -vdot(ln, wi);
+    const float cos_y = -vdot(ls.ln, wi);
     if (cos_x > 0.0f && cos_y > 0.0f) {
       float occ_t = BIG;
       for (int g = 0; g < T.G; ++g) {
@@ -552,7 +636,7 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
         const float pdf_area = 1.0f / fmaxf(T.total_area, 1e-20f);
         float gterm = cos_x * cos_y / fmaxf(dist2, 1e-12f);
         float nee_scale = gterm / fmaxf(pdf_area, 1e-20f) * INV_PI;
-        b.contrib = vadd(b.contrib, vscale(nee_scale, vmul(vmul(thr, color), emit)));
+        b.contrib = vadd(b.contrib, vscale(nee_scale, vmul(vmul(thr, color), ls.emit)));
         b.nee_add = true;
       }
     }
@@ -562,21 +646,109 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
   b.next_d = sc.direction;
   b.thr_mult = sc.thr;
   b.wspec = sc.is_specular ? (fabsf(prev_state - 2.0f) < 0.5f ? 2.0f : 1.0f) : 0.0f;
+  if (!kVol) return b;
+
+  if (!vol_scatter) {
+    // a surface event: its multiplier after the attenuation; a
+    // transmission enters the material's medium or leaves to vacuum
+    b.thr_mult = vmul(atten, sc.thr);
+    if (sc.transmitted) {
+      const bool in = sc.entering;
+      b.medium.a = in ? v3(mat[11], mat[12], mat[13]) : v3(0.0f, 0.0f, 0.0f);
+      b.medium.s = in ? mat[14] * mat[15] : 0.0f;
+      b.medium.g = in ? mat[27] : 0.0f;
+    }
+    return b;
+  }
+
+  // ---- in-medium scatter: the continuation leaves the scatter point in
+  // the same medium
+  const V3 vol_pos = vadd(o, vscale(free_path, d));
+  const float u9 = uniform(base, 9);
+  const float vz = 1.0f - 2.0f * u9;
+  const float vr = sqrtf(fmaxf(1.0f - vz * vz, 0.0f));
+  const float vphi = TWO_PI * uniform(base, 10);
+  V3 vol_dir = v3(vr * cosf(vphi), vr * sinf(vphi), vz);
+  const float g_c = fminf(fmaxf(med.g, -0.999f), 0.999f);
+  if (kHg && med.g != 0.0f) {
+    // Henyey-Greenstein about d (ops/bsdf.py:henyey_greenstein); g == 0
+    // keeps the uniform sphere's sample
+    const bool near0 = fabsf(g_c) < 1e-3f;
+    const float safe_g = near0 ? 1.0f : g_c;
+    const float frac = (1.0f - g_c * g_c) / (1.0f - g_c + 2.0f * g_c * u9);
+    const float cos_hg = (1.0f + g_c * g_c - frac * frac) / (2.0f * safe_g);
+    const float cos_t = fminf(fmaxf(near0 ? 1.0f - 2.0f * u9 : cos_hg, -1.0f), 1.0f);
+    const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 0.0f));
+    V3 t1, t2;
+    not_axis_frame(d, t1, t2);
+    vol_dir = vadd(vscale(cos_t, d),
+                   vadd(vscale(sin_t * cosf(vphi), t1), vscale(sin_t * sinf(vphi), t2)));
+  }
+
+  // ---- volumetric NEE: the light sample connected to the scatter point
+  float vol_state = 1.0f;
+  if (nee && vol_nee && T.any_light) {
+    const LightSample ls = light_sample(T, base);
+    const V3 to_l = vsub(ls.lp, vol_pos);
+    const float d2v = vdot(to_l, to_l);
+    const float distv = sqrtf(fmaxf(d2v, 1e-12f));
+    const V3 wiv = vscale(1.0f / distv, to_l);
+    const float cos_yv = -vdot(ls.ln, wiv);
+    if (cos_yv > 0.0f) {
+      // the occlusion split: refractive geoms bound the segment, the rest
+      // block (ops/intersect.py:occlusion_split_t)
+      float occ_op = BIG, occ_re = BIG;
+      for (int g = 0; g < T.G; ++g) {
+        const float* m = T.g + g * GCOLS;
+        V3 oo, od;
+        to_object(m, vol_pos, wiv, oo, od);
+        const float t = geom_t(m, oo, od);
+        if (T.m[(int)m[13] * MCOLS + 7] > 0.0f)
+          occ_re = fminf(occ_re, t);
+        else
+          occ_op = fminf(occ_op, t);
+      }
+      if (T.mesh.n > 0) mesh_occ_split(T.g, T.m, T.mesh, vol_pos, wiv, occ_op, occ_re);
+      if (occ_op >= distv - SHADOW_SLACK) {
+        const float seg_v = fminf(occ_re, distv);
+        const V3 transmit = v3(expf(-(med.a.x + med.s) * seg_v), expf(-(med.a.y + med.s) * seg_v),
+                               expf(-(med.a.z + med.s) * seg_v));
+        float phase = INV_FOUR_PI;
+        if (kHg) {
+          const float cos_th = vdot(d, wiv);
+          const float denomp = fmaxf(1.0f + g_c * g_c - 2.0f * g_c * cos_th, 1e-6f);
+          phase = (1.0f - g_c * g_c) / (FOUR_PI * denomp * sqrtf(denomp));
+        }
+        const float pdf_area_v = 1.0f / fmaxf(T.total_area, 1e-20f);
+        const float scale_v = phase * cos_yv / fmaxf(d2v, 1e-12f) / fmaxf(pdf_area_v, 1e-20f);
+        b.contrib = vadd(b.contrib, vscale(scale_v, vmul(vmul(thr, transmit), ls.emit)));
+        vol_state = 2.0f;  // the next specular chain does not count the light again
+      }
+    }
+  }
+  b.next_o = vol_pos;
+  b.next_d = vol_dir;
+  b.thr_mult = atten;
+  b.wspec = vol_state;
   return b;
 }
 
 // ---- the trace loops' step (ops/trace.py:step_update) ----------------------
 
-// One bounce of an alive lane.  Updates the carries (o, d, thr, prev_state)
-// and the radiance; clears `alive` when the path ends, leaving the carries
-// as they were at its death (a russian-roulette death keeps the rescaled
-// throughput, as the plain step_update does).  Reports the winner geom (-1
-// on a miss) and whether the NEE connection counted: the residuals of the
-// differentiable trace.
+// One bounce of an alive lane.  Updates the carries (o, d, thr, prev_state,
+// and with kVol the medium *med) and the radiance; clears `alive` when the
+// path ends, leaving the carries as they were at its death (a
+// russian-roulette death keeps the rescaled throughput, as the plain
+// step_update does).  Reports the winner geom (-1 on a miss) and whether the
+// NEE connection counted: the residuals of the differentiable trace.
+template <bool kVol = false, bool kHg = false>
 PT_FN void bounce_step(const Tables& T, uint32_t base, int dep, int nee, int rr, int rr_start,
                        V3& o, V3& d, V3& thr, float& prev_state, V3& rad, bool& alive,
-                       int& gid_out, bool& nee_add) {
-  const Bounce b = bounce<false>(T, base, dep, nee, o, d, thr, prev_state);
+                       int& gid_out, bool& nee_add, Medium* med = nullptr, int vol_nee = 1) {
+  Medium m_in{};
+  if constexpr (kVol) m_in = *med;
+  const Bounce b = bounce<false, kVol, kHg>(T, base, dep, nee, o, d, thr, prev_state, m_in,
+                                            vol_nee);
   gid_out = b.gid;
   nee_add = b.nee_add;
   rad = vadd(rad, b.contrib);  // + 0 where nothing counted: exact
@@ -600,6 +772,7 @@ PT_FN void bounce_step(const Tables& T, uint32_t base, int dep, int nee, int rr,
   o = b.next_o;
   d = b.next_d;
   prev_state = b.wspec;
+  if constexpr (kVol) *med = b.medium;
 }
 
 }  // namespace pt

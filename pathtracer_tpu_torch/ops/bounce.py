@@ -6,7 +6,7 @@ material table, 19-column light table, 2 scalars), ``_material_fetch``
 (``:544``), ``_not_axis_frame`` / ``_cosine_hemisphere`` /
 ``_rotate_about`` (``:607-644``), ``_sample_bsdf_planes`` (``:709-795``),
 ``_sample_lights_planes`` (``:798-861``) and ``bounce_physics``
-(``:881-1321``), with ``RAY_BIAS`` from ``pathtracer_tpu/ops/bsdf.py:33``.
+(``:881-1470``), with ``RAY_BIAS`` from ``pathtracer_tpu/ops/bsdf.py:33``.
 
 This is the plain version of the kernels' one bounce
 (``csrc/trace_common.cuh:pt::bounce``: the trace loops' body, and with a
@@ -27,9 +27,13 @@ enter through ``mesh=``: the in-kernel sweep's winner is merged into the
 analytic one (``bounce_pallas.py:1027-1036``: where the mesh is nearer its
 distance, material, hit point and normal win, while the analytic geom id
 stays), and the shadow ray sweeps the triangles too (``:1251-1254``).
-The optional blocks (texture, bump, volumetric, microfacet, ward, hg) and
-deferred texels belong to later slices and raise ``NotImplementedError``.
-``glossy`` is not gated in the JAX kernel either.
+Participating media (``volumetric``, ``hg``: ``bounce_pallas.py:1140-1168,
+1323-1470``) are modelled forward, with ``mesh_occ_split`` for volumetric
+NEE's shadow ray through in-kernel meshes; the differentiable engines
+refuse them (:func:`check_diff_features`).  The other optional blocks
+(texture, bump, microfacet, ward) and deferred texels belong to later slices
+and raise ``NotImplementedError``.  ``glossy`` is not gated in the JAX
+kernel either.
 """
 
 from __future__ import annotations
@@ -48,7 +52,7 @@ from pathtracer_tpu_torch.ops.intersect import (
     world_normal,
 )
 from pathtracer_tpu_torch.ops.lights import axis_scales, light_areas
-from pathtracer_tpu_torch.ops.mesh_tables import mesh_occ, mesh_sweep
+from pathtracer_tpu_torch.ops.mesh_tables import mesh_occ, mesh_occ_split, mesh_sweep
 from pathtracer_tpu_torch.scene.structs import SPHERE, Scene
 
 TWO_PI = 2.0 * math.pi
@@ -59,16 +63,22 @@ SQRT_ONE_THIRD = 0.5773502691896257
 MAT_COLS = 28
 LIGHT_COLS = 19
 
-# features this slice models; "glossy" is always on in the kernel body
-SUPPORTED_FEATURES = frozenset({"glossy"})
+# features the forward bounce models; "glossy" is always on in the kernel body
+SUPPORTED_FEATURES = frozenset({"glossy", "volumetric", "hg"})
+# features the differentiable engines model: vacuum transport only
+DIFF_FEATURES = frozenset({"glossy"})
 
 
-def check_features(features) -> None:
-    missing = sorted(set(features) - SUPPORTED_FEATURES)
+def check_features(features, supported=SUPPORTED_FEATURES, what="the bounce physics") -> None:
+    missing = sorted(set(features) - supported)
     if missing:
-        raise NotImplementedError(
-            f"feature(s) {', '.join(missing)} of the bounce physics: later slice"
-        )
+        raise NotImplementedError(f"feature(s) {', '.join(missing)} of {what}: later slice")
+
+
+def check_diff_features(features) -> None:
+    """The differentiable entry points' gate: the forward models
+    participating media, their gradients are a later slice."""
+    check_features(features, DIFF_FEATURES, "the differentiable engines")
 
 
 # ---------------------------------------------------------------------------
@@ -181,6 +191,10 @@ def material_fetch(mtab: torch.Tensor, mid: torch.Tensor) -> dict:
         ior=cols[8],
         emittance=cols[9],
         spec_exp=cols[10],
+        absorption=(cols[11], cols[12], cols[13]),
+        has_scatter=cols[14],
+        scatter_coeff=cols[15],
+        phase_g=cols[27],
     )
 
 
@@ -286,6 +300,8 @@ def sample_bsdf(mat, p, n_raw, d_in, u0, u1, u2):
         origin=vadd(p, vscale(bias, n)),
         throughput_mult=thr,
         is_specular=is_specular,
+        transmitted=transmitted,
+        entering=entering,
     )
 
 
@@ -358,6 +374,7 @@ def bounce_physics(
     u, depth, prev_state,
     *, nee: bool, t_min: float, features=frozenset(),
     replay=None, emit_replay: bool = False, mesh=None,
+    medium_g=None, vol_nee: bool = True,
 ):
     """One bounce for a wavefront of lanes (mask-free: the caller gates with
     its alive mask).  ``o``/``d``/``throughput``/``sigma_a`` are 3-tuples
@@ -385,12 +402,33 @@ def bounce_physics(
     in-kernel triangle sweep, as the module docstring says.  It takes no
     gradients and no replay.
 
+    Participating media (``features`` with ``volumetric``,
+    ``bounce_pallas.py:1140-1168,1323-1470``): ``sigma_a``/``sigma_s`` are
+    the medium the ray travels through.  An exponential free path (from
+    ``u[8]``) that ends before the surface is an in-medium scatter: no
+    surface event, the continuation leaves the scatter point in the phase
+    function's direction (``u[9]``, ``u[10]``: isotropic, or with ``hg``
+    Henyey-Greenstein about ``d`` with the carried ``medium_g`` wherever it
+    is nonzero), and with ``nee`` and ``vol_nee`` the light sample connects
+    to the scatter point through the straight-line transmittance, with
+    refractive geoms bounding the segment and opaque ones blocking (the
+    shadow ray runs detached).  The segment travelled attenuates by
+    Beer-Lambert either way, before emittance and NEE; a transmission into
+    a material takes its medium, out of one back to vacuum.  Without
+    ``volumetric`` the medium passes through.
+
     Returns a dict: contrib(3), next_o(3), next_d(3), thr_mult(3),
     terminate (bool), wspec (emit-state code), rru, out_ma(3), out_ms
-    [, replay_gid, replay_nee_add]."""
+    [, out_mg when ``medium_g`` is given] [, replay_gid, replay_nee_add]."""
     check_features(features)
     if mesh is not None and (replay is not None or emit_replay):
         raise NotImplementedError("winner replay of mesh scenes: later slice")
+    has_vol = "volumetric" in features  # "hg" without "volumetric" is inert
+    if has_vol and (replay is not None or emit_replay):
+        raise NotImplementedError("winner replay of volumetric media: later slice")
+    hg = has_vol and "hg" in features
+    if hg and medium_g is None:
+        raise ValueError("the hg feature needs the medium's phase g (medium_g)")
     gtypes = gtab[:, 12].tolist()  # host-side types: the sweep dispatches on them
 
     if replay is not None:
@@ -424,8 +462,23 @@ def bounce_physics(
     mat = material_fetch(mtab, mid)
     emissive = mat["emittance"] > 0.0
 
+    # ---- volumetric free path and Beer-Lambert attenuation of the segment
+    if has_vol:
+        free_path = torch.where(
+            sigma_s > 0.0,
+            -torch.log(torch.clamp(1.0 - u[8], 1e-7, 1.0)) / torch.clamp(sigma_s, min=1e-12),
+            1e30,
+        )
+        vol_scatter = hit & (free_path < best_t)
+        seg = torch.where(vol_scatter, free_path, torch.where(hit, best_t, 0.0))
+        atten = tuple(torch.exp(-a * seg) for a in sigma_a)
+        throughput = vmul(throughput, atten)
+        surface = ~vol_scatter
+    else:
+        surface = torch.ones_like(hit)
+
     emitted = vscale(mat["emittance"], vmul(throughput, mat["color"]))
-    emit_mask = hit & emissive
+    emit_mask = hit & emissive & surface
     if nee:
         # with NEE a light hit counts on primary rays and in state 1 (after
         # a specular event) only; ``depth`` is an int or a per-lane tensor
@@ -438,7 +491,7 @@ def bounce_physics(
 
     sc = sample_bsdf(mat, p, normal, d, u[0], u[1], u[2])
 
-    add = None
+    add = ls = None
     if nee:
         ls = sample_lights(gtab, ltab, svals, u[4], u[5], u[6], u[7])
         n_shade = vscale(torch.sign(-vdot(normal, d)), normal)
@@ -452,7 +505,7 @@ def bounce_physics(
         if replay is not None:
             add = replay["nee_add"] > 0.5
         else:
-            diffuse_lane = hit & (~emissive) & (~sc["is_specular"])
+            diffuse_lane = hit & (~emissive) & (~sc["is_specular"]) & surface
             candidate = diffuse_lane & ls["valid"] & (cos_x > 0) & (cos_y > 0)
             # visibility is a comparison: the sweep runs detached
             occ_t = torch.full_like(o[0], BIG)
@@ -487,9 +540,101 @@ def bounce_physics(
         out_ma=sigma_a,
         out_ms=sigma_s,
     )
-    if emit_replay:
-        zero = torch.zeros_like(o[0])
-        out["replay_gid"] = torch.where(hit, gid.to(torch.float32), -1.0)
-        out["replay_nee_add"] = torch.where(add, 1.0, zero) if add is not None else zero
-    return out
+    if medium_g is not None:
+        out["out_mg"] = medium_g
+    if not has_vol:
+        # vacuum transport: surface events only, the medium passes through
+        if emit_replay:
+            zero = torch.zeros_like(o[0])
+            out["replay_gid"] = torch.where(hit, gid.to(torch.float32), -1.0)
+            out["replay_nee_add"] = torch.where(add, 1.0, zero) if add is not None else zero
+        return out
 
+    # ---- in-medium scatter: the continuation from the scatter point
+    vol_pos = vadd(o, vscale(free_path, d))
+    vz = 1.0 - 2.0 * u[9]
+    vr = torch.sqrt(torch.clamp(1.0 - vz * vz, min=0.0))
+    vphi = TWO_PI * u[10]
+    vol_dir = (vr * torch.cos(vphi), vr * torch.sin(vphi), vz)
+    if hg:
+        # Henyey-Greenstein about d, selected per lane against the uniform
+        # sphere so that g == 0 lanes scatter as without the feature
+        g_c = torch.clamp(medium_g, -0.999, 0.999)
+        near0 = torch.abs(g_c) < 1e-3
+        safe_g = torch.where(near0, 1.0, g_c)
+        frac = (1.0 - g_c * g_c) / (1.0 - g_c + 2.0 * g_c * u[9])
+        cos_hg = (1.0 + g_c * g_c - frac * frac) / (2.0 * safe_g)
+        cos_t = torch.clamp(torch.where(near0, 1.0 - 2.0 * u[9], cos_hg), -1.0, 1.0)
+        sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+        hg_phi = TWO_PI * u[10]
+        t1h, t2h = not_axis_frame(d)
+        hg_dir = vadd(
+            vscale(cos_t, d),
+            vadd(vscale(sin_t * torch.cos(hg_phi), t1h), vscale(sin_t * torch.sin(hg_phi), t2h)),
+        )
+        vol_dir = vwhere(medium_g != 0.0, hg_dir, vol_dir)
+
+    vol_state = torch.ones_like(o[0])
+    if nee and vol_nee:
+        # a lane that does not scatter has a ~1e30 free path: its NEE
+        # geometry starts at the (finite) ray origin instead, and is masked
+        vp = vwhere(vol_scatter, vol_pos, o)
+        to_l = vsub(ls["position"], vp)
+        d2v = vdot(to_l, to_l)
+        distv = torch.sqrt(torch.clamp(d2v, min=1e-12))
+        wiv = vscale(1.0 / distv, to_l)
+        cos_yv = -vdot(ls["normal"], wiv)
+        cand_v = vol_scatter & ls["valid"] & (cos_yv > 0)
+        # the occlusion split runs detached: visibility is a comparison and
+        # the boundary distance a constant of the transmittance
+        vpd, wvd = tuple(c.detach() for c in vp), tuple(c.detach() for c in wiv)
+        gtd, mtd = gtab.detach(), mtab.detach()
+        refr = (mtd[gtd[:, 13].long(), 7] > 0.0).tolist()
+        occ_op = torch.full_like(o[0], BIG)
+        occ_re = torch.full_like(o[0], BIG)
+        for g, row in enumerate(gtd.unbind(0)):
+            t_g, _ = geom_t(row, *vpd, *wvd, t_min, gtypes[g])
+            if refr[g]:
+                occ_re = torch.minimum(occ_re, t_g)
+            else:
+                occ_op = torch.minimum(occ_op, t_g)
+        if mesh is not None:
+            m_op, m_re = mesh_occ_split(mesh, gtd, mtd, vpd, wvd)
+            occ_op = torch.minimum(occ_op, m_op)
+            occ_re = torch.minimum(occ_re, m_re)
+        visible_v = occ_op >= distv.detach() - 4.0 * RAY_BIAS
+        seg_v = torch.minimum(occ_re, distv)
+        transmit = tuple(torch.exp(-(a + sigma_s) * seg_v) for a in sigma_a)
+        cos_th = vdot(d, wiv)
+        if hg:
+            g_c = torch.clamp(medium_g, -0.999, 0.999)
+            denomp = torch.clamp(1.0 + g_c * g_c - 2.0 * g_c * cos_th, min=1e-6)
+            phase = (1.0 - g_c * g_c) / (4.0 * math.pi * denomp * torch.sqrt(denomp))
+        else:
+            phase = torch.full_like(cos_th, 1.0 / (4.0 * math.pi))
+        pdf_area_v = 1.0 / torch.clamp(svals[0], min=1e-20)
+        scale_v = (phase * cos_yv / torch.clamp(d2v, min=1e-12)
+                   / torch.clamp(pdf_area_v, min=1e-20))
+        vol_rgb = vscale(scale_v, vmul(vmul(throughput, transmit), ls["emit"]))
+        add_v = cand_v & visible_v
+        contrib = vadd(contrib, vwhere(add_v, vol_rgb, (0.0, 0.0, 0.0)))
+        vol_state = torch.where(add_v, 2.0, 1.0)
+
+    # a transmission enters the material's medium or leaves to vacuum
+    tr, ent = sc["transmitted"], sc["entering"]
+    surf_a = vwhere(tr, vwhere(ent, mat["absorption"], (0.0, 0.0, 0.0)), sigma_a)
+    surf_s = torch.where(tr, torch.where(ent, mat["has_scatter"] * mat["scatter_coeff"], 0.0),
+                         sigma_s)
+    out.update(
+        next_o=vwhere(vol_scatter, vol_pos, sc["origin"]),
+        next_d=vwhere(vol_scatter, vol_dir, sc["direction"]),
+        thr_mult=vwhere(vol_scatter, atten, vmul(atten, sc["throughput_mult"])),
+        terminate=(~hit) | (emissive & (~vol_scatter)),
+        out_ma=vwhere(vol_scatter, sigma_a, surf_a),
+        out_ms=torch.where(vol_scatter, sigma_s, surf_s),
+    )
+    if medium_g is not None:
+        surf_g = torch.where(tr, torch.where(ent, mat["phase_g"], 0.0), medium_g)
+        out["out_mg"] = torch.where(vol_scatter, medium_g, surf_g)
+    out.update(contrib=contrib, wspec=torch.where(vol_scatter, vol_state, surf_state))
+    return out

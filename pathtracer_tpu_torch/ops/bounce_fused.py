@@ -24,10 +24,14 @@ code, BSDF continuation, and NEE with a shadow sweep.
 
 Mesh scenes the in-kernel sweep takes (``bounce_pallas.py:1637-1671``, the
 in-kernel branch) pass its tables as ``mesh=``: the bounce sweeps the
-triangles for its nearest hit and its shadow ray.  The medium passes
-through unchanged: the port's scenes are vacuum (``volumetric`` and the
-other optional blocks raise).  Larger meshes (the mesh-merge variant) and
-image textures (the deferred-texel variant) raise as well.
+triangles for its nearest hit and its shadow ray.  Participating media
+(``volumetric``, ``hg``): the medium is read and written, ``[N, 4]``
+(sigma_a rgb, sigma_s) or ``[N, 5]`` with the phase g when ``hg`` is on
+(:func:`medium_width`; ``bounce_pallas.py:1485-1488,1661,1737``), and the
+kernel runs its ``kVol`` / ``kHg`` instance; in vacuum the medium passes
+through.  The replay variant stays in vacuum.  Larger meshes (the
+mesh-merge variant), image textures (the deferred-texel variant) and the
+other optional blocks raise.
 """
 
 from __future__ import annotations
@@ -43,16 +47,20 @@ from pathtracer_tpu_torch.ops.intersect import T_MIN
 from pathtracer_tpu_torch.ops.rng import hash_uniforms_planes
 from pathtracer_tpu_torch.ops.mesh_tables import mesh_inkernel_eligible
 from pathtracer_tpu_torch.ops.trace import (
+    MEDIA_ARGTYPES,
     MESH_ARGTYPES,
     MESH_MERGE_MISSING,
     check_launch,
     check_tensor,
+    media_args,
     mesh_launch_args,
 )
 
-launches = 0  # launches of csrc/bounce.cu in this process, analytic scenes
+launches = 0  # launches of csrc/bounce.cu in this process, analytic vacuum scenes
+vol_launches = 0  # launches of its volumetric instance (analytic scenes)
+hg_launches = 0  # launches of its volumetric instance with the HG phase
 replay_launches = 0  # launches of its emit_replay variant
-mesh_launches = 0  # launches of its variant with in-kernel mesh tables
+mesh_launches = 0  # launches of its variant with in-kernel mesh tables, media or not
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,22 +75,46 @@ class BounceResult:
     # counts), 2 = post-scatter specular chain (volumetric NEE covered it)
     was_specular: torch.Tensor
     rr_uniform: torch.Tensor  # [N] the uniform reserved for russian roulette
-    next_medium: torch.Tensor  # [N, 4] (sigma_a rgb, sigma_s) of the medium entered
+    # [N, 4] (sigma_a rgb, sigma_s) of the medium entered, [N, 5] with the
+    # Henyey-Greenstein g when the hg feature is on
+    next_medium: torch.Tensor
+
+
+def medium_width(features) -> int:
+    """The medium carry's width: 5 with the ``hg`` feature (the phase g
+    rides beside sigma_a rgb and sigma_s), else 4, as every JAX engine
+    sizes it (``render/megakernel.py:164-166``, ``render/wavefront.py:98,
+    240``)."""
+    return 5 if "hg" in features else 4
 
 
 def _per_lane_depth(depth, n: int, device) -> torch.Tensor:
     return torch.as_tensor(depth, dtype=torch.int32, device=device).expand(n).contiguous()
 
 
+def _checked_width(medium_sigma, hg: int) -> int:
+    """The medium's width, 4 or 5; the hg instance needs the phase g."""
+    width = medium_sigma.shape[1] if medium_sigma.dim() == 2 else 0
+    if width not in (4, 5) or (hg and width != 5):
+        raise ValueError(f"medium of shape {tuple(medium_sigma.shape)}: expected [N, 4] or, "
+                         "with the hg feature, [N, 5]")
+    return width
+
+
 def bounce_fused_plain(tables, origin, direction, throughput, sample_idx, depth,
                        prev_specular, medium_sigma, seed: int, *, nee: bool,
-                       features=frozenset(), emit_replay: bool = False, mesh=None):
+                       features=frozenset(), emit_replay: bool = False, mesh=None,
+                       vol_nee: bool = True):
     """Plain version of kernel 2.  ``depth`` is an int or a per-lane
-    tensor; ``medium_sigma`` ``[N, 4]``; ``mesh`` the scene's in-kernel
-    triangle tables or None.  Returns a :class:`BounceResult`, with
-    ``emit_replay`` the tuple ``(BounceResult, replay_gid [N],
-    replay_nee_add [N])``."""
+    tensor; ``medium_sigma`` ``[N, 4]`` or, with ``hg``, ``[N, 5]``; ``mesh``
+    the scene's in-kernel triangle tables or None.  The output medium has
+    the input's width: with ``volumetric`` the medium entered (its g column
+    zero without ``hg``), without it the input passed through.  Returns a
+    :class:`BounceResult`, with ``emit_replay`` the tuple ``(BounceResult,
+    replay_gid [N], replay_nee_add [N])``."""
     gtab, mtab, ltab, scal = tables
+    vol, hg, _ = media_args(features, vol_nee)
+    width = _checked_width(medium_sigma, hg)
     depth = _per_lane_depth(depth, origin.shape[0], origin.device)
     u = hash_uniforms_planes(seed, sample_idx, depth, 11)
     out = bounce_physics(
@@ -90,7 +122,12 @@ def bounce_fused_plain(tables, origin, direction, throughput, sample_idx, depth,
         tuple(medium_sigma[:, :3].unbind(-1)), medium_sigma[:, 3],
         gtab, mtab, ltab, scal, u, depth, prev_specular.to(torch.float32),
         nee=nee, t_min=T_MIN, features=features, emit_replay=emit_replay, mesh=mesh,
+        medium_g=medium_sigma[:, 4] if hg else None, vol_nee=vol_nee,
     )
+    g_col = []
+    if width == 5:
+        g_col = [out["out_mg"] if hg else (torch.zeros_like(out["out_ms"]) if vol
+                                            else medium_sigma[:, 4])]
     res = BounceResult(
         contrib=torch.stack(out["contrib"], dim=-1),
         next_origin=torch.stack(out["next_o"], dim=-1),
@@ -99,7 +136,7 @@ def bounce_fused_plain(tables, origin, direction, throughput, sample_idx, depth,
         terminate=out["terminate"],
         was_specular=out["wspec"],
         rr_uniform=out["rru"],
-        next_medium=torch.stack([*out["out_ma"], out["out_ms"]], dim=-1),
+        next_medium=torch.stack([*out["out_ma"], out["out_ms"], *g_col], dim=-1),
     )
     return (res, out["replay_gid"], out["replay_nee_add"]) if emit_replay else res
 
@@ -115,6 +152,7 @@ def _lib():
             P, P, P, P, P, P, P,  # origin, direction, throughput, sample, depth, state, medium
             P, P, P, P, P, P, P, P,  # contrib, next o, next d, thr mult, terminate, state, rru, medium
             P, P,  # replay gid, replay NEE bit (null: not written)
+            *MEDIA_ARGTYPES, I,  # volumetric, hg, vol_nee; the medium's width
             *MESH_ARGTYPES,
             P,  # stream
         ]
@@ -123,28 +161,35 @@ def _lib():
 
 def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
                       prev_specular, medium_sigma, seed: int, *, nee: bool,
-                      emit_replay: bool = False, mesh=None):
+                      features=frozenset(), emit_replay: bool = False, mesh=None,
+                      vol_nee: bool = True):
     """Launch kernel 2 on the rays' CUDA device, on the current stream;
-    ``emit_replay`` and ``mesh`` as in :func:`bounce_fused_plain`."""
-    global launches, replay_launches, mesh_launches
+    ``features``, ``emit_replay``, ``mesh`` and ``vol_nee`` as in
+    :func:`bounce_fused_plain`."""
+    global launches, replay_launches, mesh_launches, vol_launches, hg_launches
+    check_features(features)
     gtab, mtab, ltab, scal = tables
     device = origin.device
     n = origin.shape[0]
+    media = media_args(features, vol_nee)
+    width = _checked_width(medium_sigma, media[1])
     if mesh is not None and emit_replay:
         raise NotImplementedError("winner replay of mesh scenes: later slice")
+    if media[0] and emit_replay:
+        raise NotImplementedError("winner replay of volumetric media: later slice")
     g, m, bits = check_launch(gtab, mtab, ltab, scal, sample_idx, n, device)
     f32 = dict(dtype=torch.float32, device=device)
     depth = _per_lane_depth(depth, n, device)
     prev = prev_specular.to(torch.float32).contiguous()
     for t, name, shape in ((origin, "origin", (n, 3)), (direction, "direction", (n, 3)),
                            (throughput, "throughput", (n, 3)), (prev, "prev_specular", (n,)),
-                           (medium_sigma, "medium", (n, 4))):
+                           (medium_sigma, "medium", (n, width))):
         check_tensor(t, name, torch.float32, shape, device)
 
     contrib, next_o, next_d, thr_mult = (torch.empty((n, 3), **f32) for _ in range(4))
     terminate = torch.empty(n, dtype=torch.uint8, device=device)
     wspec, rru = torch.empty(n, **f32), torch.empty(n, **f32)
-    medium = torch.empty((n, 4), **f32)
+    medium = torch.empty((n, width), **f32)
     replay = (torch.empty(n, **f32), torch.empty(n, **f32)) if emit_replay else (None, None)
     err = _lib()(
         gtab.data_ptr(), g, mtab.data_ptr(), m, ltab.data_ptr(), scal.data_ptr(),
@@ -153,7 +198,7 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
         depth.data_ptr(), prev.data_ptr(), medium_sigma.data_ptr(),
         contrib.data_ptr(), next_o.data_ptr(), next_d.data_ptr(), thr_mult.data_ptr(),
         terminate.data_ptr(), wspec.data_ptr(), rru.data_ptr(), medium.data_ptr(),
-        *(None if r is None else r.data_ptr() for r in replay),
+        *(None if r is None else r.data_ptr() for r in replay), *media, width,
         *mesh_launch_args(mesh, device), torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
@@ -164,10 +209,14 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
     if emit_replay:
         replay_launches += 1
         return (res, *replay)
-    if mesh is None:
-        launches += 1
-    else:
+    if mesh is not None:
         mesh_launches += 1
+    elif media[1]:
+        hg_launches += 1
+    elif media[0]:
+        vol_launches += 1
+    else:
+        launches += 1
     return res
 
 
@@ -175,7 +224,8 @@ def bounce_fused(scene, origin, direction, throughput, sample_idx, depth, prev_s
                  medium_sigma, seed: int, cfg, tables=None) -> BounceResult:
     """One bounce for a wavefront of lanes (mask-free: callers gate with
     their alive masks).  ``tables`` are :func:`pack_tables` of the scene
-    (packed here when not given); ``medium_sigma`` ``[N, 4]`` or None."""
+    (packed here when not given); ``medium_sigma`` ``[N, medium_width]`` or
+    None (vacuum)."""
     check_features(cfg.features)
     if scene.meshes and not mesh_inkernel_eligible(scene.meshes):
         raise NotImplementedError(MESH_MERGE_MISSING)
@@ -185,14 +235,15 @@ def bounce_fused(scene, origin, direction, throughput, sample_idx, depth, prev_s
         )
     tables = tables if tables is not None else pack_tables(scene)
     if medium_sigma is None:
-        medium_sigma = torch.zeros((origin.shape[0], 4), dtype=torch.float32,
-                                   device=origin.device)
+        medium_sigma = torch.zeros((origin.shape[0], medium_width(cfg.features)),
+                                   dtype=torch.float32, device=origin.device)
     args = (tables, origin, direction, throughput, sample_idx, depth, prev_specular,
             medium_sigma, seed)
+    kw = dict(nee=cfg.nee, features=frozenset(cfg.features), mesh=scene.mesh_tables,
+              vol_nee=cfg.vol_nee)
     device_type = origin.device.type
     if device_type == "cuda":
-        return bounce_fused_cuda(*args, nee=cfg.nee, mesh=scene.mesh_tables)
+        return bounce_fused_cuda(*args, **kw)
     if device_type == "cpu":
-        return bounce_fused_plain(*args, nee=cfg.nee, features=frozenset(cfg.features),
-                                  mesh=scene.mesh_tables)
+        return bounce_fused_plain(*args, **kw)
     raise ValueError(f"no per-bounce kernel for device type {device_type!r}")

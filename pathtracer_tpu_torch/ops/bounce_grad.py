@@ -43,7 +43,7 @@ import ctypes
 import torch
 
 from pathtracer_tpu_torch.ops import _build
-from pathtracer_tpu_torch.ops.bounce import bounce_physics, check_features, pack_tables
+from pathtracer_tpu_torch.ops.bounce import bounce_physics, check_diff_features, pack_tables
 from pathtracer_tpu_torch.ops.bounce_fused import (
     BounceResult,
     _per_lane_depth,
@@ -211,7 +211,7 @@ def bounce_fused_diff(scene, origin, direction, throughput, sample_idx, depth, p
     replay planes, backward kernel 3 (their plain versions on the CPU).
     ``tables`` are :func:`pack_tables` of the scene, whose graph carries
     the table cotangents on to the scene's tensors."""
-    check_features(cfg.features)
+    check_diff_features(cfg.features)
     if not fused_diff_eligible(scene, cfg):
         raise NotImplementedError(
             "differentiable bounce of meshes, image textures, HG media or fast_rng=False: "

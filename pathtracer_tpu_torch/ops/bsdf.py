@@ -3,8 +3,10 @@ mirror and Fresnel glass.
 
 Port of ``pathtracer_tpu/ops/bsdf.py``: ``RAY_BIAS``, ``MaterialLookup``
 and ``gather_materials`` (``:33-118``), ``cosine_hemisphere``,
-``_rotate_about``, ``reflect``, ``refract``, ``fresnel_dielectric``
-(``:125-262``) and ``sample_bsdf`` (``:378-512``) on ``[N, 3]`` tensors,
+``_rotate_about``, the in-medium phase functions ``uniform_sphere``,
+``hg_phase_value`` and ``henyey_greenstein`` (``:178-223``), ``reflect``,
+``refract``, ``fresnel_dielectric`` (``:125-262``) and ``sample_bsdf``
+(``:378-512``) on ``[N, 3]`` tensors,
 in the JAX package's order of operations.  The JAX gather is a one-hot
 matmul at full precision; here it is a row gather with the same values.
 The Cook-Torrance and Ward lobes (``microfacet``, ``ward``) belong to a
@@ -127,6 +129,46 @@ def _rotate_about(axis_dir, cos_angle, phi):
         cos_angle[..., None] * axis_dir
         + (torch.cos(phi) * sin_angle)[..., None] * p1
         + (torch.sin(phi) * sin_angle)[..., None] * p2
+    )
+
+
+def uniform_sphere(xi1, xi2):
+    """Uniform direction on the unit sphere, ``[N, 3]``: the isotropic
+    in-medium scatter."""
+    z = 1.0 - 2.0 * xi1
+    r = torch.sqrt(torch.clamp(1.0 - z * z, min=0.0))
+    phi = 2.0 * math.pi * xi2
+    return torch.stack([r * torch.cos(phi), r * torch.sin(phi), z], dim=-1)
+
+
+def hg_phase_value(g, cos_theta):
+    """Henyey-Greenstein phase function value (1/sr); the isotropic
+    ``1 / (4 pi)`` at g = 0.  Volumetric NEE weighs the light connection
+    with it."""
+    g = torch.clamp(g, -0.999, 0.999)
+    denom = torch.clamp(1.0 + g * g - 2.0 * g * cos_theta, min=1e-6)
+    return (1.0 - g * g) / (4.0 * math.pi * denom * torch.sqrt(denom))
+
+
+def henyey_greenstein(direction, g, xi1, xi2):
+    """Direction sampled from the Henyey-Greenstein phase function about
+    the propagation ``direction`` (``[N, 3]``), by exact inversion of its
+    cosine; below |g| < 1e-3 the uniform sphere's ``1 - 2 xi1`` stands in
+    for the division that loses precision there.  The sample follows the
+    phase function exactly, so the throughput does not change."""
+    g = torch.clamp(g, -0.999, 0.999)
+    near0 = torch.abs(g) < 1e-3
+    safe_g = torch.where(near0, 1.0, g)  # divisor placeholder
+    frac = (1.0 - g * g) / (1.0 - g + 2.0 * g * xi1)
+    cos_hg = (1.0 + g * g - frac * frac) / (2.0 * safe_g)
+    cos_t = torch.clamp(torch.where(near0, 1.0 - 2.0 * xi1, cos_hg), -1.0, 1.0)
+    sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=0.0))
+    phi = 2.0 * math.pi * xi2
+    t1, t2 = _kutz_frame(direction)
+    return (
+        cos_t[..., None] * direction
+        + (sin_t * torch.cos(phi))[..., None] * t1
+        + (sin_t * torch.sin(phi))[..., None] * t2
     )
 
 

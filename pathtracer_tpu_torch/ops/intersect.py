@@ -8,7 +8,9 @@ Port of ``pathtracer_tpu/ops/intersect.py:37-111`` (``BIG``, ``T_MIN``,
 ``:92-148``: the nearest hit with its full record),
 :func:`winner_t_gid_plain` (``_winner_kernel``, ``:151-170``: the winner's
 ``t`` and geom id only) and :func:`occlusion_t_plain` (``_occlusion_kernel``,
-``:197-203``: a shadow ray's nearest ``t``).  Their CUDA kernels are
+``:197-203``: a shadow ray's nearest ``t``), and :func:`occlusion_split_t`
+(``intersect.py:742-762``: volumetric NEE's shadow ray, split into opaque
+and refractive geoms).  The kernels' CUDA versions are
 ``csrc/intersect.cu`` (``ops/intersect_cuda.py``).  :func:`intersect_scene_lean`
 ports ``pathtracer_tpu/ops/intersect.py:777-926`` for analytic geoms: the
 differentiable recompute of the winner only.  A geom's row is read as tensors, so ``t`` and the
@@ -229,6 +231,40 @@ def occlusion_t_plain(rays: Rays, gtab: torch.Tensor) -> torch.Tensor:
     for g, row in enumerate(gtab.unbind(0)):
         best_t = torch.minimum(best_t, geom_t(row, *o, *d, T_MIN, gtypes[g])[0])
     return best_t
+
+
+def occlusion_split_t(rays: Rays, gtab: torch.Tensor, mtab: torch.Tensor, meshes=()):
+    """``(t_opaque [N], t_refractive [N])``: each shadow ray's nearest
+    ``t`` over the geoms whose material is not refractive, and over those
+    whose material is (``BIG`` = none); port of
+    ``pathtracer_tpu/ops/intersect.py:742-762``.  Volumetric NEE lets
+    refractive interfaces bound the attenuated segment instead of blocking.
+    ``mtab`` is the packed material table.  JAX computes it in plain XLA,
+    so the analytic geoms here are plain PyTorch on every device; each mesh
+    instance of ``meshes`` takes its kernel-10 minimum (``ops/mesh.
+    mesh_occlusion_t``), split by its material."""
+    o, d = rays.origin.unbind(-1), rays.direction.unbind(-1)
+    gtypes = gtab[:, 12].tolist()
+    refr = (mtab[gtab[:, 13].long(), 7] > 0.0).tolist()
+    t_op = torch.full_like(o[0], BIG)
+    t_re = torch.full_like(o[0], BIG)
+    for g, row in enumerate(gtab.unbind(0)):
+        t_g = geom_t(row, *o, *d, T_MIN, gtypes[g])[0]
+        if refr[g]:
+            t_re = torch.minimum(t_re, t_g)
+        else:
+            t_op = torch.minimum(t_op, t_g)
+    if meshes:
+        # ops/mesh imports this module
+        from pathtracer_tpu_torch.ops.mesh import mesh_occlusion_t, object_rays
+
+        for m in meshes:
+            mt = mesh_occlusion_t(m, *object_rays(rays, gtab, m.geom_index))
+            if refr[m.geom_index]:
+                t_re = torch.minimum(t_re, mt)
+            else:
+                t_op = torch.minimum(t_op, mt)
+    return t_op, t_re
 
 
 def winner_t_gid_plain(rays: Rays, gtab: torch.Tensor):

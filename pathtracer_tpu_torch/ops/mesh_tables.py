@@ -4,10 +4,12 @@ version.
 Port of ``pathtracer_tpu/ops/bounce_pallas.py:196-501``
 (``MESH_INKERNEL_MAX_TRIS``, ``mesh_inkernel_eligible``, ``MESH_CHUNK``,
 ``_morton3_jnp``, ``pack_mesh_tables``, ``_chunk_cull_loop``,
-``mesh_sweep_planes``, ``mesh_occ_planes``).  Scenes whose meshes total at
+``mesh_sweep_planes``, ``mesh_occ_planes``, ``mesh_occ_split_planes``).
+Scenes whose meshes total at
 most :data:`MESH_INKERNEL_MAX_TRIS` triangles trace them inside the trace
 kernel (``csrc/trace.cu``) and the per-bounce kernel (``csrc/bounce.cu``),
-both through ``csrc/trace_common.cuh:mesh_sweep`` / ``mesh_occ``.
+both through ``csrc/trace_common.cuh:mesh_sweep`` / ``mesh_occ`` /
+``mesh_occ_split``.
 
 Tables, per mesh as :func:`pack_mesh_tables` builds them (JAX's arrays,
 element for element): triangles sorted by the Morton code of their float32
@@ -215,3 +217,27 @@ def mesh_occ(km: KernelMeshes, gtab, x, wi) -> torch.Tensor:
             reach = _reaches(boxes[c].unbind(-1), oo, inv, occ)
             occ = torch.where(reach, torch.minimum(occ, t_min[:, c]), occ)
     return occ
+
+
+def mesh_occ_split(km: KernelMeshes, gtab, mtab, x, wi):
+    """Plain version of the in-kernel triangle split of volumetric NEE's
+    shadow ray (``bounce_pallas.py:504-541``, ``mesh_occ_split_planes``):
+    ``(t_opaque, t_refractive)``, each mesh's nearest ``t`` (culled against
+    that mesh's own running minimum) going to the refractive side when its
+    geom's material is refractive.  ``mtab`` is the packed material
+    table."""
+    occ_op = torch.full_like(x[0], BIG)
+    occ_re = torch.full_like(x[0], BIG)
+    refr = (mtab[gtab[:, 13].long(), 7] > 0.0).tolist()
+    meshes = _meshes(km, gtab, x, wi)
+    for (g, _, _, _), (_, _, _, boxes, oo, _, inv, (tc, _, _)) in zip(km.descs, meshes):
+        mt = torch.full_like(x[0], BIG)
+        t_min = torch.amin(tc, dim=-1)
+        for c in range(boxes.shape[0]):
+            reach = _reaches(boxes[c].unbind(-1), oo, inv, mt)
+            mt = torch.where(reach, torch.minimum(mt, t_min[:, c]), mt)
+        if refr[g]:
+            occ_re = torch.minimum(occ_re, mt)
+        else:
+            occ_op = torch.minimum(occ_op, mt)
+    return occ_op, occ_re

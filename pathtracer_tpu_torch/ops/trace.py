@@ -15,6 +15,12 @@ lanes per bounce, twice that with NEE for the shadow rays).
 * :func:`trace_fused` dispatches on the rays' device: a CUDA tensor
   launches the kernel or raises, a CPU tensor takes the plain version.
 
+Participating media (``volumetric``, ``hg``; ``trace_pallas.py:90-98,
+170-173``): both versions carry the medium from bounce to bounce, and the
+kernel has an instance for each (``kVol``, ``kHg``), picked from
+``cfg.features`` (:func:`media_args`), so vacuum scenes keep the vacuum
+code; each instance counts its launches.
+
 A scene whose meshes total at most ``ops/mesh_tables.MESH_INKERNEL_MAX_TRIS``
 triangles is in the kernel's scope (``trace_pallas.py:185-202``): both
 versions take its in-kernel tables (``mesh=``, the scene's
@@ -44,8 +50,11 @@ from pathtracer_tpu_torch.ops.rng import hash_uniforms_planes, sample_bits
 MAX_GEOMS = 128  # table caps of the kernel's shared-memory copy
 MAX_MATERIALS = 128
 
-launches = 0  # launches of csrc/trace.cu for analytic scenes in this process
+launches = 0  # launches of csrc/trace.cu for analytic vacuum scenes in this process
+vol_launches = 0  # launches of its volumetric instance (analytic scenes)
+hg_launches = 0  # launches of its volumetric instance with the HG phase
 mesh_launches = 0  # launches of its mesh variant (in-kernel triangle tables)
+mesh_vol_launches = 0  # launches of its mesh variant's volumetric instances
 
 
 MESH_MERGE_MISSING = (
@@ -77,6 +86,15 @@ def mesh_launch_args(mesh, device) -> tuple:
 
 
 MESH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int]  # tri, aabb, norm, desc, count
+MEDIA_ARGTYPES = [ctypes.c_int] * 3  # volumetric, hg, vol_nee
+
+
+def media_args(features, vol_nee: bool) -> tuple:
+    """The kernels' three media arguments: whether the ``volumetric`` and
+    ``hg`` instances run (``hg`` only with ``volumetric``: without it the
+    phase g is inert) and whether in-medium scatter samples the light."""
+    vol = "volumetric" in features
+    return int(vol), int(vol and "hg" in features), int(bool(vol_nee))
 
 
 def step_update(out, o, d, thr, prev_state, alive, dep: int, *, rr: bool, rr_start: int):
@@ -122,31 +140,49 @@ def init_carries(origin, direction):
 def trace_plain(
     gtab, mtab, ltab, scal, seed: int, origin, direction, sample_idx,
     *, max_depth: int, nee: bool, rr: bool, rr_start: int,
-    features=frozenset(), mesh=None,
+    features=frozenset(), mesh=None, vol_nee: bool = True,
 ):
     """Plain version: ``(radiance [N, 3] float32, rays_traced int64 [])``.
-    Differentiable in the tables and the rays (the analytic scenes' media
-    are vacuum, so the medium carries stay zero); ``mesh`` is the scene's
-    in-kernel triangle tables or None."""
+    Differentiable in the tables and the rays; ``mesh`` is the scene's
+    in-kernel triangle tables or None.  Every path starts in vacuum; with
+    ``volumetric`` in ``features`` the medium (sigma_a rgb, sigma_s and,
+    with ``hg``, the phase g) is carried from bounce to bounce, as in
+    ``trace_pallas.py:93-98,170-173``.
+
+    Each bounce runs on the lanes still alive only, as the kernel's threads
+    do: the carries of the lanes that die are dropped (``lanes`` keeps the
+    original index of each carried lane), so a lane's values are those of
+    the whole-wavefront loop and the work follows the paths' length."""
     o, d, thr, prev_state, alive = init_carries(origin, direction)
     sigma_a = (torch.zeros_like(prev_state),) * 3
     sigma_s = torch.zeros_like(prev_state)
-    radiance = (torch.zeros_like(prev_state),) * 3
+    medium_g = torch.zeros_like(prev_state) if "hg" in features else None
+    radiance = torch.zeros((origin.shape[0], 3), dtype=torch.float32, device=origin.device)
+    lanes = torch.arange(origin.shape[0], device=origin.device)
     nrays = torch.zeros((), dtype=torch.int64, device=origin.device)
     ray_mult = 2 if nee else 1
 
     for dep in range(max_depth):
-        nrays = nrays + alive.sum() * ray_mult
-        u = hash_uniforms_planes(seed, sample_idx, dep, 11)
+        if lanes.numel() == 0:
+            break
+        nrays = nrays + lanes.numel() * ray_mult
+        u = hash_uniforms_planes(seed, sample_idx[lanes], dep, 11)
         out = bounce_physics(
             o, d, thr, sigma_a, sigma_s, gtab, mtab, ltab, scal,
             u, dep, prev_state, nee=nee, t_min=T_MIN, features=features, mesh=mesh,
+            medium_g=medium_g, vol_nee=vol_nee,
         )
         rad_inc, alive, thr, o, d, prev_state = step_update(
             out, o, d, thr, prev_state, alive, dep, rr=rr, rr_start=rr_start
         )
-        radiance = tuple(r + c for r, c in zip(radiance, rad_inc))
-    return torch.stack(radiance, dim=-1), nrays
+        # each lane once: the same single add per bounce as a full-size sum
+        radiance = radiance.index_add(0, lanes, torch.stack(rad_inc, dim=-1))
+        keep = alive.nonzero()[:, 0]
+        lanes, alive, prev_state = lanes[keep], alive[keep], prev_state[keep]
+        o, d, thr, sigma_a = (tuple(c[keep] for c in v) for v in (o, d, thr, out["out_ma"]))
+        sigma_s = out["out_ms"][keep]
+        medium_g = out["out_mg"][keep] if "out_mg" in out else None
+    return radiance, nrays
 
 
 def _lib():
@@ -163,6 +199,7 @@ def _lib():
             ctypes.c_int,  # n
             ctypes.c_void_p, ctypes.c_void_p,  # radiance, nrays
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # depth, nee, rr, rr_start
+            *MEDIA_ARGTYPES,
             *MESH_ARGTYPES,
             ctypes.c_void_p,  # stream
         ]
@@ -210,12 +247,15 @@ def check_launch(gtab, mtab, ltab, scal, sample_idx, n: int, device):
 def trace_cuda(
     gtab, mtab, ltab, scal, seed: int, origin, direction, sample_idx,
     *, max_depth: int, nee: bool, rr: bool, rr_start: int, mesh=None,
+    features=frozenset(), vol_nee: bool = True,
 ):
     """Launch the trace kernel: ``(radiance [N, 3], rays_traced int64 [])``
     on the rays' CUDA device, on the current stream.  The tables are those
     of :func:`pack_tables`, which checks the material ids; ``mesh`` the
-    scene's in-kernel triangle tables or None."""
-    global launches, mesh_launches
+    scene's in-kernel triangle tables or None; ``features`` picks the
+    media instance (:func:`media_args`)."""
+    global launches, mesh_launches, vol_launches, hg_launches, mesh_vol_launches
+    check_features(features)
     device = origin.device
     n = origin.shape[0]
     g, m, bits = check_launch(gtab, mtab, ltab, scal, sample_idx, n, device)
@@ -225,6 +265,7 @@ def trace_cuda(
 
     radiance = torch.empty((n, 3), dtype=f32, device=device)
     nrays = torch.zeros((), dtype=torch.int64, device=device)
+    media = media_args(features, vol_nee)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _lib()(
         gtab.data_ptr(), g, mtab.data_ptr(), m, ltab.data_ptr(), scal.data_ptr(),
@@ -232,14 +273,20 @@ def trace_cuda(
         origin.data_ptr(), direction.data_ptr(), bits.data_ptr(), n,
         radiance.data_ptr(), nrays.data_ptr(),
         int(max_depth), int(bool(nee)), int(bool(rr)), int(rr_start),
-        *mesh_launch_args(mesh, device), stream,
+        *media, *mesh_launch_args(mesh, device), stream,
     )
     if err != 0:
         raise RuntimeError(f"trace kernel launch failed: CUDA error {err}")
-    if mesh is None:
-        launches += 1
-    else:
+    if mesh is not None and media[0]:
+        mesh_vol_launches += 1
+    elif mesh is not None:
         mesh_launches += 1
+    elif media[1]:
+        hg_launches += 1
+    elif media[0]:
+        vol_launches += 1
+    else:
+        launches += 1
     return radiance, nrays
 
 
@@ -255,12 +302,13 @@ def trace_fused(scene, rays, sample_idx, seed: int, cfg, tables=None):
     gtab, mtab, ltab, scal = tables if tables is not None else pack_tables(scene)
     kw = dict(
         max_depth=cfg.max_depth, nee=cfg.nee, rr=cfg.russian_roulette,
-        rr_start=cfg.rr_start, mesh=scene.mesh_tables,
+        rr_start=cfg.rr_start, mesh=scene.mesh_tables, features=frozenset(cfg.features),
+        vol_nee=cfg.vol_nee,
     )
     args = (gtab, mtab, ltab, scal, seed, rays.origin, rays.direction, sample_idx)
     device_type = rays.origin.device.type
     if device_type == "cuda":
         return trace_cuda(*args, **kw)
     if device_type == "cpu":
-        return trace_plain(*args, **kw, features=frozenset(cfg.features))
+        return trace_plain(*args, **kw)
     raise ValueError(f"no trace for device type {device_type!r}")

@@ -51,7 +51,7 @@ from pathtracer_tpu_torch.ops.bounce import (
     LIGHT_COLS,
     MAT_COLS,
     bounce_physics,
-    check_features,
+    check_diff_features,
     pack_tables,
 )
 from pathtracer_tpu_torch.ops.intersect import GEOM_COLS, T_MIN
@@ -390,7 +390,7 @@ def trace_fused_diff(scene, rays, sample_idx, seed: int, cfg, tables=None):
     :func:`pack_tables` of the scene, packed here when not given; their
     graph carries the table cotangents on to the scene's tensors, and the
     rays' graph carries ``d_origin`` / ``d_direction`` to the camera."""
-    check_features(cfg.features)
+    check_diff_features(cfg.features)
     if not fused_diff_eligible(scene, cfg):
         raise NotImplementedError(
             "differentiable trace of meshes, image textures, HG media or "

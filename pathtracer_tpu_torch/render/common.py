@@ -4,7 +4,7 @@ scan call.
 Port of ``pathtracer_tpu/render/common.py``: ``bounce_uniforms``
 (``:37-48``), ``BounceResult`` (``:61-77``, defined in
 ``ops/bounce_fused.py`` and re-exported here) and ``shade_bounce``
-(``:101-460``) for analytic scenes.  One bounce is: nearest hit,
+(``:101-582``).  One bounce is: nearest hit,
 emittance under the 0/1/2 emit-state code, BSDF continuation, and NEE at
 diffuse hits with a shadow ray.  Two routes:
 
@@ -33,9 +33,22 @@ route's shading, and the NEE shadow ray on detached inputs through kernel
 searches' outputs on their first run and hands them back to a recompute
 (the lean scan's per-bounce checkpoint), so neither kernel runs again.
 
-``cfg.pallas`` picks no route in the port.  Texture, bump, volumetric,
-hg, the Cook-Torrance and Ward lobes, image textures and differentiable
-meshes raise ``NotImplementedError``.
+Participating media (``:311-348,440-582``): with ``volumetric`` the
+bounce samples an exponential free path in the medium the ray travels
+through; a lane that scatters before the surface takes no surface event (no
+emittance, no surface NEE) and continues from the scatter point, isotropic
+or with ``hg`` Henyey-Greenstein; Beer-Lambert attenuation scales the
+throughput first, and a transmission into or out of a material switches the
+medium.  Volumetric NEE connects the scatter point to the light sample
+through ``ops/intersect.occlusion_split_t`` on detached inputs (plain
+PyTorch over the analytic geoms, as JAX's XLA, and kernel 10 per mesh).
+Meshes above 4096 triangles with volumetric NEE take the split route, as
+in JAX (``:131-153``).  Media are forward only: under ``grad_lean`` they
+raise.
+
+``cfg.pallas`` picks no route in the port.  Texture, bump, the
+Cook-Torrance and Ward lobes, image textures and differentiable meshes
+raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -44,13 +57,21 @@ import math
 
 import torch
 
-from pathtracer_tpu_torch.ops.bounce import check_features, pack_tables
-from pathtracer_tpu_torch.ops.bounce_fused import BounceResult, bounce_fused
+from pathtracer_tpu_torch.ops.bounce import check_diff_features, check_features, pack_tables
+from pathtracer_tpu_torch.ops.bounce_fused import BounceResult, bounce_fused, medium_width
 from pathtracer_tpu_torch.ops.bounce_grad import bounce_fused_diff
-from pathtracer_tpu_torch.ops.bsdf import RAY_BIAS, gather_materials, sample_bsdf
-from pathtracer_tpu_torch.ops.intersect import intersect_scene_lean
+from pathtracer_tpu_torch.ops.bsdf import (
+    RAY_BIAS,
+    gather_materials,
+    henyey_greenstein,
+    hg_phase_value,
+    sample_bsdf,
+    uniform_sphere,
+)
+from pathtracer_tpu_torch.ops.intersect import intersect_scene_lean, occlusion_split_t
 from pathtracer_tpu_torch.ops.intersect_cuda import nearest_hit, occlusion_t, winner_t_gid
 from pathtracer_tpu_torch.ops.lights import sample_lights
+from pathtracer_tpu_torch.ops.mesh_tables import mesh_inkernel_eligible
 from pathtracer_tpu_torch.ops.rng import hash_uniforms
 from pathtracer_tpu_torch.ops.trace_grad import fused_diff_eligible
 from pathtracer_tpu_torch.scene.structs import Rays
@@ -83,9 +104,13 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
                  cfg, medium_sigma=None, tables=None, lean_cache=None) -> BounceResult:
     """One physics step for a wavefront of rays (mask-free: callers gate
     with their alive masks).  ``depth`` is an int or a per-lane tensor;
-    ``tables`` are ``ops/bounce.pack_tables`` of the scene; ``lean_cache``
+    ``tables`` are ``ops/bounce.pack_tables`` of the scene; ``medium_sigma``
+    the medium each ray travels through, ``[N, 4]`` (sigma_a rgb, sigma_s)
+    or with ``hg`` ``[N, 5]`` (the phase g), None for vacuum; ``lean_cache``
     as the module docstring says."""
     check_features(cfg.features)
+    if cfg.grad_lean:
+        check_diff_features(cfg.features)
     if scene.textures is not None or not cfg.fast_rng:
         raise NotImplementedError(
             "shade_bounce for image textures or fast_rng=False: later slice"
@@ -94,12 +119,17 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
         raise NotImplementedError("differentiable meshes: later slice")
     tables = tables if tables is not None else pack_tables(scene)
     if medium_sigma is None:
-        medium_sigma = torch.zeros((throughput.shape[0], 4), dtype=torch.float32,
-                                   device=throughput.device)
+        medium_sigma = torch.zeros((throughput.shape[0], medium_width(cfg.features)),
+                                   dtype=torch.float32, device=throughput.device)
+    # volumetric NEE through meshes the in-kernel sweep does not take runs
+    # on the split route (:131-153): kernel 2's mesh-merge variant defers no
+    # refractive/opaque split
+    vol_mesh = (bool(scene.meshes) and not mesh_inkernel_eligible(scene.meshes)
+                and "volumetric" in cfg.features and cfg.nee and cfg.vol_nee)
     if cfg.grad_lean and fused_diff_eligible(scene, cfg):
         return bounce_fused_diff(scene, rays.origin, rays.direction, throughput, sample_idx,
                                  depth, prev_specular, medium_sigma, seed, cfg, tables=tables)
-    if cfg.fused is not False and not cfg.grad_lean:
+    if cfg.fused is not False and not cfg.grad_lean and not vol_mesh:
         return bounce_fused(scene, rays.origin, rays.direction, throughput, sample_idx, depth,
                             prev_specular, medium_sigma, seed, cfg, tables=tables)
 
@@ -114,6 +144,27 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
     emissive = mat.emittance > 0.0
     u = bounce_uniforms(seed, sample_idx, depth)
 
+    sigma_a = medium_sigma[:, 0:3]
+    sigma_s = medium_sigma[:, 3]
+    wide_medium = medium_sigma.shape[1] > 4
+    medium_g = medium_sigma[:, 4] if wide_medium else torch.zeros_like(sigma_s)
+    has_vol = "volumetric" in cfg.features
+    if has_vol:
+        # the free path to the next scatter event (effectively infinite in
+        # a medium that does not scatter), and Beer-Lambert attenuation
+        # over the segment actually travelled
+        free_path = torch.where(
+            sigma_s > 0.0,
+            -torch.log(torch.clamp(1.0 - u[:, 8], 1e-7, 1.0)) / torch.clamp(sigma_s, min=1e-12),
+            1e30,
+        )
+        vol_scatter = hit.hit & (free_path < hit.t)
+        seg = torch.where(vol_scatter, free_path, torch.where(hit.hit, hit.t, 0.0))
+        atten = torch.exp(-sigma_a * seg[:, None])
+        throughput = throughput * atten
+    else:
+        vol_scatter = torch.zeros_like(hit.hit)
+
     # emittance at a BSDF hit: with NEE only where no NEE could have sampled
     # the light, on primary rays and after a specular event (state 1)
     prev_state = prev_specular.to(torch.float32)
@@ -123,7 +174,8 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
     else:
         count_emit = torch.ones_like(emissive)
     emitted = throughput * mat.color * mat.emittance[:, None]
-    contrib = torch.where((hit.hit & emissive & count_emit)[:, None], emitted, 0.0)
+    contrib = torch.where((hit.hit & emissive & count_emit & (~vol_scatter))[:, None],
+                          emitted, 0.0)
 
     scatter = sample_bsdf(mat, hit.position, hit.normal, rays.direction, u[:, 0:3],
                           glossy="glossy" in cfg.features)
@@ -140,7 +192,7 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
         wi = to_light / dist[:, None]
         cos_x = torch.sum(n_shade * wi, dim=-1)
         cos_y = torch.sum(ls.normal * (-wi), dim=-1)
-        diffuse_lane = hit.hit & (~emissive) & (~scatter.is_specular)
+        diffuse_lane = hit.hit & (~emissive) & (~scatter.is_specular) & (~vol_scatter)
         candidate = diffuse_lane & ls.valid & (cos_x > 0) & (cos_y > 0)
         shadow = Rays(origin=x.contiguous(), direction=wi.contiguous())
         if cfg.grad_lean:  # visibility is a comparison: the shadow ray runs detached
@@ -160,13 +212,87 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
     surf_state = torch.where(
         scatter.is_specular, torch.where(torch.abs(prev_state - 2.0) < 0.5, 2.0, 1.0), 0.0
     )
+    terminate = (~hit.hit) | (emissive & (~vol_scatter))
+    if not has_vol:
+        return BounceResult(
+            contrib=contrib,
+            next_origin=scatter.origin,
+            next_direction=scatter.direction,
+            throughput_mult=scatter.throughput_mult,
+            terminate=terminate,
+            was_specular=surf_state,
+            rr_uniform=u[:, 3],
+            next_medium=medium_sigma,
+        )
+
+    # ---- in-medium scatter: a phase-sampled continuation from the scatter
+    # point, in the same medium
+    vol_pos = rays.origin + free_path[:, None] * rays.direction
+    if "hg" in cfg.features:
+        # per lane against the uniform sphere, so that g == 0 lanes scatter
+        # as without the feature
+        hg_dir = henyey_greenstein(rays.direction, medium_g, u[:, 9], u[:, 10])
+        vol_dir = torch.where((medium_g != 0.0)[:, None], hg_dir,
+                              uniform_sphere(u[:, 9], u[:, 10]))
+    else:
+        vol_dir = uniform_sphere(u[:, 9], u[:, 10])
+
+    # a transmission enters the material's medium or leaves to vacuum
+    tr, ent = scatter.transmitted, scatter.entering
+    surf_medium = torch.cat(
+        [
+            torch.where(tr[:, None], torch.where(ent[:, None], mat.absorption, 0.0), sigma_a),
+            torch.where(tr, torch.where(ent, mat.has_scatter * mat.scatter_coeff, 0.0),
+                        sigma_s)[:, None],
+        ]
+        + ([torch.where(tr, torch.where(ent, mat.phase_g, 0.0), medium_g)[:, None]]
+           if wide_medium else []),
+        dim=-1,
+    )
+
+    # ---- volumetric NEE: the light sample (the surface NEE's: the two sets
+    # of lanes are disjoint) connected to the scatter point through the
+    # straight-line transmittance; refractive interfaces bound the
+    # attenuated segment, opaque geometry blocks.  Emit state 2 where it
+    # counted keeps the next specular chain from counting the light again.
+    vol_state = torch.ones_like(sigma_s)
+    if cfg.nee and cfg.vol_nee:
+        # a lane that does not scatter has a ~1e30 free path: its shadow ray
+        # starts at the (finite) ray origin instead, and is masked
+        vp = torch.where(vol_scatter[:, None], vol_pos, rays.origin)
+        to_l = ls.position - vp
+        d2v = torch.sum(to_l * to_l, dim=-1)
+        distv = torch.sqrt(torch.clamp(d2v, min=1e-12))
+        wiv = to_l / distv[:, None]
+        cos_yv = torch.sum(ls.normal * (-wiv), dim=-1)
+        cand_v = vol_scatter & ls.valid & (cos_yv > 0)
+        t_opaque, t_boundary = occlusion_split_t(
+            Rays(origin=vp.detach().contiguous(), direction=wiv.detach().contiguous()),
+            gtab.detach(), mtab.detach(), scene.meshes,
+        )
+        visible_v = t_opaque >= distv.detach() - 4.0 * RAY_BIAS
+        seg_v = torch.minimum(t_boundary, distv)
+        transmit = torch.exp(-(sigma_a + sigma_s[:, None]) * seg_v[:, None])
+        cos_th = torch.sum(rays.direction * wiv, dim=-1)
+        if "hg" in cfg.features:
+            phase = hg_phase_value(medium_g, cos_th)
+        else:
+            phase = torch.full_like(cos_th, 1.0 / (4.0 * math.pi))
+        vol_nee = (throughput * transmit * ls.emitted
+                   * (phase * cos_yv / torch.clamp(d2v, min=1e-12)
+                      / torch.clamp(ls.pdf_area, min=1e-20))[:, None])
+        add_v = cand_v & visible_v
+        contrib = contrib + torch.where(add_v[:, None], vol_nee, 0.0)
+        vol_state = torch.where(add_v, 2.0, 1.0)
+
+    vs = vol_scatter[:, None]
     return BounceResult(
         contrib=contrib,
-        next_origin=scatter.origin,
-        next_direction=scatter.direction,
-        throughput_mult=scatter.throughput_mult,
-        terminate=(~hit.hit) | emissive,
-        was_specular=surf_state,
+        next_origin=torch.where(vs, vol_pos, scatter.origin),
+        next_direction=torch.where(vs, vol_dir, scatter.direction),
+        throughput_mult=torch.where(vs, atten, atten * scatter.throughput_mult),
+        terminate=terminate,
+        was_specular=torch.where(vol_scatter, vol_state, surf_state),
         rr_uniform=u[:, 3],
-        next_medium=medium_sigma,
+        next_medium=torch.where(vs, medium_sigma, surf_medium),
     )

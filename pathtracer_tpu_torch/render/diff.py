@@ -39,7 +39,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from pathtracer_tpu_torch.config import RenderConfig
-from pathtracer_tpu_torch.ops.bounce import pack_tables
+from pathtracer_tpu_torch.ops.bounce import check_diff_features, pack_tables
 from pathtracer_tpu_torch.ops.rng import key_to_seed
 from pathtracer_tpu_torch.ops.trace_grad import fused_diff_eligible
 from pathtracer_tpu_torch.ops.transforms import build_transform
@@ -221,6 +221,7 @@ def render_linear_rays(params: SceneParams, static: SceneStatic, spp: int, base_
     trimmed to the materials' needs, as every render entry point does; the
     engine is chosen as the module docstring says."""
     cfg = resolve_features(cfg, params.materials)
+    check_diff_features(cfg.features)  # media are forward only: every engine refuses them
     cfg_bwd = dataclasses.replace(cfg, fused=False, grad_lean=True, debug=False)
     scene = build_scene(params, static)
     seed = key_to_seed(base_key)

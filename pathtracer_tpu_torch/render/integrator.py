@@ -27,7 +27,7 @@ from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_ray
 from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
 from pathtracer_tpu_torch.ops.tonemap import tonemap
 from pathtracer_tpu_torch.render.features import resolve_features
-from pathtracer_tpu_torch.render.megakernel import trace_paths
+from pathtracer_tpu_torch.render.megakernel import DEBUG_MISSING, trace_paths
 from pathtracer_tpu_torch.render.wavefront import render_samples_pinned, render_samples_wavefront
 from pathtracer_tpu_torch.scene.structs import Scene
 
@@ -93,11 +93,16 @@ def render(
 ):
     """Render ``spp`` progressive samples per pixel on ``device`` (where the
     scene must live); returns ``(image [H, W, 3] in [0, 1], accum [N, 3],
-    stats)`` with ``stats["rays_traced"]`` and ``stats["spp"]``."""
+    stats)`` with ``stats["rays_traced"]`` and ``stats["spp"]``.
+    ``cfg.debug`` raises ``NotImplementedError`` on every engine: JAX checks
+    the accumulator after every chunk (``integrator.py:158-185``), which
+    the port does not do yet."""
     device = resolve_device(device)
     if scene.device.type != device.type or device.index not in (None, scene.device.index):
         raise ValueError(f"scene is on {scene.device}, render asked for {device}")
     cfg = resolve_features(cfg or RenderConfig(), scene.materials)
+    if cfg.debug:  # every engine: nothing here checks the accumulator yet
+        raise NotImplementedError(DEBUG_MISSING)
     seed = key_to_seed(base_key if base_key is not None else prng_key(cfg.seed))
     w, h = scene.camera.width, scene.camera.height
     if accum is None:

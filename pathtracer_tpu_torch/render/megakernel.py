@@ -17,7 +17,9 @@ its backward recomputes the shading; the detached winner search and shadow
 ray (kernels 7 and 8) keep their outputs in a per-bounce cache and do not
 run again in the recompute (``save_only_these_names("lean_winner")`` in
 JAX).  Each runs its CUDA kernels for rays on a CUDA device and its plain
-version for rays on the CPU.  The debug variant belongs to a later slice.
+version for rays on the CPU.  The scan carries each path's medium, ``[N,
+4]`` or ``[N, 5]`` with the ``hg`` feature (``:164-166``), from vacuum.
+``cfg.debug`` raises: the debug variant belongs to a later slice.
 The wavefront engines are ``render/wavefront.py``, chosen by the
 integrator.
 
@@ -35,10 +37,18 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from pathtracer_tpu_torch.config import RenderConfig
+from pathtracer_tpu_torch.ops.bounce_fused import medium_width
 from pathtracer_tpu_torch.ops.trace import trace_fused
 from pathtracer_tpu_torch.ops.trace_grad import fused_diff_eligible, trace_fused_diff
 from pathtracer_tpu_torch.render.common import shade_bounce
 from pathtracer_tpu_torch.scene.structs import Rays, Scene
+
+
+DEBUG_MISSING = (
+    "RenderConfig(debug=True): the per-chunk finite check and the alive histogram "
+    "(pathtracer_tpu/render/integrator.py:154-192, render/megakernel.py:156-175) are a "
+    "later slice"
+)
 
 
 def scan_paths(scene: Scene, rays: Rays, sample_idx, seed: int, cfg: RenderConfig,
@@ -55,7 +65,7 @@ def scan_paths(scene: Scene, rays: Rays, sample_idx, seed: int, cfg: RenderConfi
     throughput = torch.ones((n, 3), **f32)
     alive = torch.ones(n, dtype=torch.bool, device=rays.origin.device)
     prev_spec = torch.zeros(n, **f32)  # emit-state code
-    medium = torch.zeros((n, 4), **f32)
+    medium = torch.zeros((n, medium_width(cfg.features)), **f32)
     radiance = torch.zeros((n, 3), **f32)
     nrays = torch.zeros((), dtype=torch.int64, device=rays.origin.device)
     for depth in range(cfg.max_depth):
@@ -90,7 +100,7 @@ def trace_paths(
     """Trace a wavefront of primary rays to completion: ``(radiance [N, 3],
     rays_traced int64 [])``, one sample of the estimator per ray."""
     if cfg.debug:
-        raise NotImplementedError("debug engine of trace_paths: later slice")
+        raise NotImplementedError(DEBUG_MISSING)
     if cfg.grad_lean and fused_diff_eligible(scene, cfg) and cfg.grad_full_trace is not False:
         return trace_fused_diff(scene, rays, sample_idx, seed, cfg, tables=tables)
     if cfg.grad_lean or cfg.fused is False:

@@ -17,6 +17,9 @@ compaction uses, with no movement of live lanes.
   ends adds its radiance into three ``[P]`` accumulator planes
   (``index_add_``, whose float sums run in no fixed order on the card).
 
+Each slot carries its path's medium, ``[N, 4]`` or ``[N, 5]`` with the
+``hg`` feature (``wavefront.py:98,240``); a refilled slot starts in vacuum.
+
 RNG and sharding contract: every uniform is keyed by the global sample
 index ``iteration * n_global_pixels + global_pixel``, with ``global_pixel =
 pixel_offset + pixel_stride * local_pixel``, so both engines, every
@@ -41,6 +44,7 @@ from __future__ import annotations
 
 import torch
 
+from pathtracer_tpu_torch.ops.bounce_fused import medium_width
 from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
 from pathtracer_tpu_torch.ops.compact import partition
 from pathtracer_tpu_torch.render.common import shade_bounce
@@ -91,7 +95,8 @@ def _refill_lanes(refill, survive):
 
 
 def _continue(st, res, throughput, survive, refill, lanes):
-    """Carry the continuation into every slot and reset the refilled ones."""
+    """Carry the continuation into every slot and reset the refilled ones
+    (a fresh path starts in vacuum)."""
     st["origin"] = res.next_origin
     st["direction"] = res.next_direction
     st["throughput"] = throughput.index_fill(0, lanes, 1.0)
@@ -101,7 +106,7 @@ def _continue(st, res, throughput, survive, refill, lanes):
     st["alive"] = refill | survive
 
 
-def _init_state(rays: Rays, sample, n: int, alive, device):
+def _init_state(rays: Rays, sample, n: int, alive, device, cfg):
     f32 = dict(dtype=torch.float32, device=device)
     return dict(
         origin=rays.origin,
@@ -111,7 +116,7 @@ def _init_state(rays: Rays, sample, n: int, alive, device):
         sample=sample,
         depth=torch.zeros(n, dtype=torch.int32, device=device),
         prev_spec=torch.zeros(n, **f32),  # emit-state code
-        medium=torch.zeros((n, 4), **f32),
+        medium=torch.zeros((n, medium_width(cfg.features)), **f32),  # vacuum
         alive=alive,
         rays=torch.zeros((), dtype=torch.int64, device=device),
     )
@@ -131,7 +136,7 @@ def render_samples_pinned(scene, accum, start_iteration: int, n_iters: int, seed
     it = torch.full((n_local,), start_iteration, dtype=torch.int64, device=device)
     sample = it * n_global + global_pix
     st = _init_state(_spawn(scene, global_pix, sample, seed, cfg), sample, n_local,
-                     torch.full((n_local,), n_iters > 0, device=device), device)
+                     torch.full((n_local,), n_iters > 0, device=device), device, cfg)
     any_alive = n_iters > 0
     while any_alive:
         res, st["radiance"], throughput, survive = _step(scene, st, seed, cfg, tables)
@@ -172,7 +177,7 @@ def render_samples_wavefront(scene, accum, start_queue: int, n_samples: int, see
 
     first_q = start_queue + torch.arange(capacity, device=device)
     rays0, pixel, sample0 = spawn(first_q)
-    st = _init_state(rays0, sample0, capacity, first_q < end_queue, device)
+    st = _init_state(rays0, sample0, capacity, first_q < end_queue, device, cfg)
     planes = [accum[:, c].clone() for c in range(3)]  # the accumulator as 3 [P] planes
     next_queue = torch.full((), start_queue + capacity, dtype=torch.int64, device=device)
     any_alive = capacity > 0

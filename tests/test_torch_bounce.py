@@ -17,6 +17,7 @@ the other side) would show as a lane outside the tolerance; their count is
 reported and expected to be 0.
 """
 
+import tests.torch_threads  # noqa: F401  (first: one torch thread per xdist worker)
 import os
 
 import jax.numpy as jnp
@@ -133,13 +134,24 @@ def test_bounce_physics_matches_jax(name):
 
 
 def test_unsupported_features_raise():
+    """The optional blocks of later slices raise; the media blocks run (and
+    are held against JAX in ``tests/test_torch_volume.py``)."""
     scene = port_scene_from_jax(_jax_scene("mini"))
     tables = tb.pack_tables(scene)
     z = (torch.zeros(4),) * 3
-    for feat in ("texture", "bump", "volumetric", "microfacet", "ward", "hg"):
+    for feat in ("texture", "bump", "microfacet", "ward"):
         with pytest.raises(NotImplementedError, match=feat):
             tb.bounce_physics(
                 z, z, z, z, torch.zeros(4), *tables, [torch.zeros(4)] * 11, 0,
                 torch.zeros(4), nee=True, t_min=T_MIN, features=frozenset({feat}),
             )
+    d = (torch.zeros(4), torch.zeros(4), -torch.ones(4))
+    out = tb.bounce_physics(
+        z, d, (torch.ones(4),) * 3, z, torch.zeros(4), *tables, [torch.full((4,), 0.5)] * 11, 0,
+        torch.zeros(4), nee=True, t_min=T_MIN, features=frozenset({"volumetric", "hg"}),
+        medium_g=torch.zeros(4),
+    )
+    assert {"out_ma", "out_ms", "out_mg"} <= set(out)
+    with pytest.raises(NotImplementedError, match="volumetric"):
+        tb.check_diff_features(("volumetric",))
 

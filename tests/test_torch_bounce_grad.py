@@ -35,6 +35,7 @@ Tolerances, with the reason:
   order).
 """
 
+import tests.torch_threads  # noqa: F401  (first: one torch thread per xdist worker)
 import dataclasses
 import os
 

@@ -9,6 +9,7 @@ one more normalize and a divide, a few ulps more.  The tone map to 1e-6
 image are identical.
 """
 
+import tests.torch_threads  # noqa: F401  (first: one torch thread per xdist worker)
 import dataclasses
 import os
 

@@ -3,6 +3,7 @@ package's, on the cases of ``tests/test_compact.py``, with the same numpy
 inputs handed to both.  Every result is exact: compaction moves values
 and counts lanes, it computes nothing."""
 
+import tests.torch_threads  # noqa: F401  (first: one torch thread per xdist worker)
 import jax.numpy as jnp
 import numpy as np
 import torch

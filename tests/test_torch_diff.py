@@ -30,6 +30,7 @@ Tolerances, with the reason:
   within 1e-7 and the leaves within 3.3e-5 of gscale (printed).
 """
 
+import tests.torch_threads  # noqa: F401  (first: one torch thread per xdist worker)
 import dataclasses
 import os
 

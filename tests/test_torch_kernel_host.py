@@ -34,9 +34,14 @@ printed under ``pytest -s``).  Kernel 3's lanes (one bounce's backward, on
 random lanes with random cotangents on every lane, misses and light hits
 included) are held to ``bounce_bwd_plain``'s float64 reference at the same
 bars, every lane; kernel 2's replay planes and kernel 7's t and gid equal
-their plain versions on every lane.
+their plain versions on every lane.  The participating-media instances
+(``kVol`` / ``kHg`` of kernels 1 and 2, and kernel 1m's triangle split
+``pt::mesh_occ_split``) are held to their plain versions at the vacuum
+cases' bars, on media scenes and on random lanes with seeded medium
+carries.
 """
 
+import tests.torch_threads  # noqa: F401  (first: one torch thread per xdist worker)
 import ctypes
 import dataclasses
 import os
@@ -63,6 +68,7 @@ from tests.test_torch_shade import random_lanes
 HERE = os.path.dirname(os.path.abspath(__file__))
 P, I = ctypes.c_void_p, ctypes.c_int
 NO_MESH = (None, None, None, None, 0)  # the launchers' mesh arguments for no meshes
+VACUUM = (0, 0, 1)  # the launchers' media arguments (volumetric, hg, vol_nee) for vacuum
 # MINI_SCENE with its mirror sphere turned Phong-glossy (specular exponent 30)
 GLOSSY_MINI = MINI_SCENE.replace("SPECEX 0\nSPECRGB .95 .92 .9", "SPECEX 30\nSPECRGB .95 .92 .9")
 assert GLOSSY_MINI != MINI_SCENE
@@ -83,8 +89,9 @@ def host_lib(tmp_path_factory):
     lib.host_fwd.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, P, I, I, I, I]
     lib.host_bwd.argtypes = [P, I, P, I, P, P, ctypes.c_uint, P, I, P, P, P, P, P, I, I, I, I]
     lib.host_trace.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, I, I, I, I,
-                               P, P, P, P, I]
-    lib.host_bounce.argtypes = [P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 17 + [P] * 4 + [I]
+                               I, I, I, P, P, P, P, I]
+    lib.host_bounce.argtypes = ([P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 17 + [I] * 4
+                                + [P] * 4 + [I])
     lib.host_mesh_nearest.argtypes = [P, I, I, P, P, P, P]
     lib.host_mesh_min.argtypes = [P, I, I, P, P, P]
     lib.host_nearest.argtypes = [P, I, I] + [P] * 8
@@ -207,7 +214,8 @@ def test_trace_lanes_match_plain_and_forward(host_lib, case):
               tables[3].data_ptr(), seed, rays.origin.data_ptr(), rays.direction.data_ptr(),
               bits.data_ptr(), n)
     rad_k, nr_k = torch.empty((n, 3)), ctypes.c_ulonglong()
-    host_lib.host_trace(*common, rad_k.data_ptr(), ctypes.byref(nr_k), *flags, *NO_MESH)
+    host_lib.host_trace(*common, rad_k.data_ptr(), ctypes.byref(nr_k), *flags, *VACUUM,
+                        *NO_MESH)
     rad_f, nr_f = torch.empty((n, 3)), ctypes.c_ulonglong()
     resid = torch.empty((kw["max_depth"], trace_grad.N_RESID, n))
     host_lib.host_fwd(*common, rad_f.data_ptr(), ctypes.byref(nr_f), resid.data_ptr(), *flags)
@@ -253,7 +261,8 @@ def test_bounce_lanes_match_plain(host_lib, scene_name, nee):
         t["direction"].data_ptr(), t["throughput"].data_ptr(), t["sample"].data_ptr(),
         t["depth"].data_ptr(), t["prev"].data_ptr(), medium.data_ptr(), contrib.data_ptr(),
         next_o.data_ptr(), next_d.data_ptr(), thr_mult.data_ptr(), terminate.data_ptr(),
-        wspec.data_ptr(), rru.data_ptr(), out_medium.data_ptr(), None, None, *NO_MESH,
+        wspec.data_ptr(), rru.data_ptr(), out_medium.data_ptr(), None, None, *VACUUM, 4,
+        *NO_MESH,
     )
     assert torch.equal(terminate.bool(), want.terminate)
     assert 0.05 < float(want.terminate.float().mean()) < 0.95
@@ -307,7 +316,7 @@ def _host_bounce(host_lib, tables, t, medium, seed, nee, replay=True):
         *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
                                     "prev")),
         medium.data_ptr(), *(o.data_ptr() for o in outs), rgid.data_ptr(), rnee.data_ptr(),
-        *NO_MESH,
+        *VACUUM, 4, *NO_MESH,
     )
     return outs, rgid, rnee
 
@@ -460,13 +469,14 @@ def test_trace_mesh_lanes_match_plain(host_lib, kw):
     pixel = torch.arange(n)
     sample = 2 * n + pixel
     rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, sample))
+    bits = sample.to(torch.int32)  # kept alive across the call
     rad_k, nr_k = torch.empty((n, 3)), ctypes.c_ulonglong()
     host_lib.host_trace(tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(),
                         tables[2].data_ptr(), tables[3].data_ptr(), seed,
                         rays.origin.data_ptr(), rays.direction.data_ptr(),
-                        sample.to(torch.int32).data_ptr(), n, rad_k.data_ptr(),
+                        bits.data_ptr(), n, rad_k.data_ptr(),
                         ctypes.byref(nr_k), kw["max_depth"], int(kw["nee"]), int(kw["rr"]),
-                        kw["rr_start"], *_mesh_args(km))
+                        kw["rr_start"], *VACUUM, *_mesh_args(km))
     rad_p, nr_p = trace.trace_plain(*tables, seed, rays.origin, rays.direction, sample,
                                     mesh=km, **kw)
     frac = float(torch.isclose(rad_k, rad_p, rtol=2e-6, atol=2e-6).all(-1).float().mean())
@@ -500,7 +510,8 @@ def test_bounce_mesh_lanes_match_plain(host_lib, nee):
         tables[3].data_ptr(), seed, int(nee), n,
         *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
                                     "prev")),
-        medium.data_ptr(), *(o.data_ptr() for o in outs), None, None, *_mesh_args(km),
+        medium.data_ptr(), *(o.data_ptr() for o in outs), None, None, *VACUUM, 4,
+        *_mesh_args(km),
     )
     contrib, next_o, next_d, thr_mult, terminate, wspec, rru, _ = outs
     assert torch.equal(terminate.bool(), want.terminate)
@@ -519,3 +530,129 @@ def test_bounce_mesh_lanes_match_plain(host_lib, nee):
     print(f"smooth_mesh nee={nee}: bounce lanes within 2e-6: {frac:.5f}; lanes the mesh "
           f"changed: {int(moved.sum())}")
     assert frac >= 0.995 and int(moved.sum()) > 100
+
+
+# ---- participating media: the kVol / kHg instances of kernels 1 and 2,
+# and kernel 1m's triangle split
+
+
+def _media_scene(name, res):
+    """A media scene at ``res``, its tables, its resolved features and the
+    launchers' media flags (volumetric, hg)."""
+    from chip_smoke import fog_mesh_scene
+    from pathtracer_tpu_torch.render.features import features_for_materials
+
+    if name.startswith("fog_mesh"):
+        desc = parse_scene_text(fog_mesh_scene(name.endswith("glass")), name=name,
+                                scene_dir=os.path.join(HERE, "..", "scenes"))
+    else:
+        desc = load_scene(os.path.join(HERE, "..", "scenes", f"{name}.txt"))
+    scene = dataclasses.replace(desc, resolution=res).scene_for_frame(0, device="cpu")
+    feats = frozenset(features_for_materials(scene.materials))
+    flags = (int("volumetric" in feats), int("hg" in feats))
+    return scene, [t.contiguous() for t in pack_tables(scene)], feats, flags
+
+
+# scene, options, vol_nee, expected media flags
+MEDIA_CASES = {
+    "sss_hg": ("sss", dict(max_depth=8, nee=True, rr=False, rr_start=3), True, (1, 1)),
+    "fog": ("fog", dict(max_depth=8, nee=True, rr=False, rr_start=3), True, (1, 0)),
+    "glass_dof_rr": ("glass_dof", dict(max_depth=6, nee=True, rr=True, rr_start=2), True,
+                     (1, 0)),
+    "milky_no_vol_nee": ("milky", dict(max_depth=6, nee=True, rr=False, rr_start=3), False,
+                         (1, 0)),
+    "fog_mesh_glass": ("fog_mesh_glass", dict(max_depth=6, nee=True, rr=False, rr_start=3), True,
+                       (1, 0)),
+    "fog_mesh_opaque": ("fog_mesh_opaque", dict(max_depth=6, nee=True, rr=False, rr_start=3),
+                        True, (1, 0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(MEDIA_CASES))
+def test_trace_media_lanes_match_plain(host_lib, case):
+    """Kernel 1's kVol / kHg lanes (and kernel 1m's, whose volumetric NEE
+    splits the triangles by material through ``pt::mesh_occ_split``)
+    against ``trace_plain(features=...)`` at 32x32: equal ray counts,
+    radiance within 2e-6 on at least 99.5% of lanes (the analytic cases'
+    bar: the host's libm rounds sin / cos / exp / log apart from torch's;
+    measured every lane, printed under ``pytest -s``)."""
+    name, kw, vol_nee, want_flags = MEDIA_CASES[case]
+    scene, tables, feats, flags = _media_scene(name, (32, 32))
+    assert flags == want_flags
+    km = scene.mesh_tables
+    n, seed = 32 * 32, 17
+    pixel = torch.arange(n)
+    sample = 4 * n + pixel
+    rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, sample))
+    bits = sample.to(torch.int32)  # kept alive across the call
+    rad_k, nr_k = torch.empty((n, 3)), ctypes.c_ulonglong()
+    host_lib.host_trace(tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(),
+                        tables[2].data_ptr(), tables[3].data_ptr(), seed,
+                        rays.origin.data_ptr(), rays.direction.data_ptr(),
+                        bits.data_ptr(), n, rad_k.data_ptr(),
+                        ctypes.byref(nr_k), kw["max_depth"], int(kw["nee"]), int(kw["rr"]),
+                        kw["rr_start"], *flags, int(vol_nee),
+                        *(_mesh_args(km) if km is not None else NO_MESH))
+    rad_p, nr_p = trace.trace_plain(*tables, seed, rays.origin, rays.direction, sample,
+                                    mesh=km, features=feats, vol_nee=vol_nee, **kw)
+    vac_p, _ = trace.trace_plain(*tables, seed, rays.origin, rays.direction, sample,
+                                 mesh=km, **kw)
+    frac = float(torch.isclose(rad_k, rad_p, rtol=2e-6, atol=2e-6).all(-1).float().mean())
+    moved = int((rad_p != vac_p).any(-1).sum())
+    print(f"{case}: trace lanes within 2e-6 of trace_plain: {frac:.5f}; lanes the media "
+          f"changed: {moved}; rays kernel {nr_k.value}, plain {int(nr_p)}")
+    assert nr_k.value == int(nr_p)
+    assert frac >= 0.995 and float(rad_p.sum()) > 0 and moved > 10
+
+
+@pytest.mark.parametrize("nee", [True, False])
+@pytest.mark.parametrize("hg", [True, False])
+def test_bounce_media_lanes_match_plain(host_lib, hg, nee):
+    """Kernel 2's kVol / kHg lanes against ``bounce_fused_plain`` on 2,048
+    random lanes of sss with seeded medium carries (sigma_a, sigma_s and g
+    nonzero on 60% of lanes; the medium [N, 5] with hg, [N, 4] without):
+    terminate, emit state, the russian-roulette uniform and the medium
+    equal on every lane, the float planes within 2e-6 on at least 99.5% of
+    lanes (measured: every lane)."""
+    from tests.test_torch_volume import medium_carries
+
+    n, seed = 2048, 77
+    _, tables, _, _ = _media_scene("sss", (8, 8))
+    lanes = random_lanes(n, seed=14)
+    lanes["origin"] = (lanes["origin"] * 0.5 + np.array([0.0, 1.2, 0.0])).astype(np.float32)
+    t = {k: torch.from_numpy(v) for k, v in lanes.items()}
+    sa, ss, g = medium_carries(n, seed=6)
+    width = 5 if hg else 4
+    medium = torch.from_numpy(
+        np.ascontiguousarray(np.concatenate([sa, ss[:, None], g[:, None]], -1)[:, :width]))
+    feats = frozenset({"volumetric", "hg"} if hg else {"volumetric"})
+    want = bounce_fused.bounce_fused_plain(
+        tables, t["origin"], t["direction"], t["throughput"], t["sample"].long(), t["depth"],
+        t["prev"], medium, seed, nee=nee, features=feats,
+    )
+    outs = [torch.empty((n, 3)) for _ in range(4)] + [
+        torch.empty(n, dtype=torch.uint8), torch.empty(n), torch.empty(n), torch.empty((n, width))]
+    host_lib.host_bounce(
+        tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(), tables[2].data_ptr(),
+        tables[3].data_ptr(), seed, int(nee), n,
+        *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
+                                    "prev")),
+        medium.data_ptr(), *(o.data_ptr() for o in outs), None, None, 1, int(hg), 1, width,
+        *NO_MESH,
+    )
+    contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium = outs
+    assert torch.equal(terminate.bool(), want.terminate)
+    assert torch.equal(wspec, want.was_specular) and torch.equal(rru, want.rr_uniform)
+    assert torch.equal(out_medium, want.next_medium)
+    close = torch.ones(n, dtype=torch.bool)
+    for got, ref in ((contrib, want.contrib), (next_o, want.next_origin),
+                     (next_d, want.next_direction), (thr_mult, want.throughput_mult)):
+        close &= torch.isclose(got, ref, rtol=2e-6, atol=2e-6).all(-1)
+    frac = float(close.float().mean())
+    states = [int((wspec == v).sum()) for v in (0.0, 1.0, 2.0)]
+    changed = int((out_medium != medium).any(-1).sum())
+    print(f"hg={hg} nee={nee}: bounce lanes within 2e-6: {frac:.5f}; emit states {states}; "
+          f"media changed {changed}")
+    assert frac >= 0.995 and changed > 50
+    if nee:
+        assert states[2] > 10

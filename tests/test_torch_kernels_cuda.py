@@ -13,6 +13,7 @@ and plain version run the same float32 operations in the same order
 (nvcc -fmad=false, no fast math), so they usually agree bit for bit.
 """
 
+import tests.torch_threads  # noqa: F401  (first: one torch thread per xdist worker)
 import dataclasses
 import os
 
@@ -630,3 +631,76 @@ def test_mesh_render_launches_its_kernels():
     assert ss["rays_traced"] == ms["rays_traced"]
     close = torch.isclose(split, mega, rtol=2e-4, atol=2e-4)
     assert float(close.float().mean()) >= 0.995
+
+
+# ---- participating media: kernel 1's and kernel 2's kVol / kHg instances,
+# and kernel 1m's triangle split (chip_smoke.py [vol] holds them at full
+# width).  Bit for bit: kernel and plain version run the same functions on
+# the card.
+
+
+def _media_scene(name, res):
+    from chip_smoke import fog_mesh_scene
+
+    if name.startswith("fog_mesh"):
+        desc = parse_scene_text(fog_mesh_scene(name.endswith("glass")), name=name,
+                                scene_dir=os.path.join(ROOT, "scenes"))
+        return dataclasses.replace(desc, resolution=res).scene_for_frame(0, device="cuda")
+    return _scene(name, res)
+
+
+@pytest.mark.parametrize("name", ["sss", "fog", "glass_dof", "milky", "fog_mesh_glass",
+                                  "fog_mesh_opaque"])
+def test_trace_media_kernel_matches_plain(name):
+    _need_cuda()
+    from pathtracer_tpu_torch.render.features import features_for_materials
+
+    scene = _media_scene(name, (96, 96))
+    feats = frozenset(features_for_materials(scene.materials))
+    assert "volumetric" in feats
+    n = 96 * 96
+    pixel = torch.arange(n, device="cuda")
+    rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(99, pixel))
+    args = (*pack_tables(scene), 99, rays.origin, rays.direction, pixel)
+    opts = dict(max_depth=8, nee=True, rr=False, rr_start=3, mesh=scene.mesh_tables,
+                features=feats)
+    before = (trace.vol_launches, trace.hg_launches, trace.mesh_vol_launches)
+    rad_k, rays_k = trace.trace_cuda(*args, **opts)
+    after = (trace.vol_launches, trace.hg_launches, trace.mesh_vol_launches)
+    want = 2 if scene.meshes else (1 if "hg" in feats else 0)
+    assert [a - b for a, b in zip(after, before)] == [int(i == want) for i in range(3)]
+    rad_p, rays_p = trace.trace_plain(*args, **opts)
+    torch.cuda.synchronize()
+    assert int(rays_k) == int(rays_p)
+    assert torch.equal(rad_k, rad_p) and float(rad_p.sum()) > 0
+
+
+@pytest.mark.parametrize("hg", [False, True])
+@pytest.mark.parametrize("nee", [True, False])
+def test_bounce_media_kernel_matches_plain(hg, nee):
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import bounce_fused
+
+    tables = pack_tables(_scene("sss", (8, 8)))
+    n = 50_000
+    t = _random_lanes_cuda(n, 12)
+    t["origin"] = t["origin"] * 0.5 + torch.tensor([0.0, 1.2, 0.0], device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    width = 5 if hg else 4
+    medium = torch.rand((n, width), device="cuda", generator=gen) * torch.tensor(
+        [0.3, 0.3, 0.3, 3.0, 1.8][:width], device="cuda")
+    if hg:
+        medium[:, 4] -= 0.9
+    medium = medium * (torch.rand((n, 1), device="cuda", generator=gen) < 0.6)
+    feats = frozenset({"volumetric", "hg"} if hg else {"volumetric"})
+    args = (tables, t["origin"].contiguous(), t["direction"], t["throughput"], t["sample"].long(),
+            t["depth"], t["prev"], medium.contiguous(), 4321)
+    counter = "hg_launches" if hg else "vol_launches"
+    before = getattr(bounce_fused, counter)
+    got = bounce_fused.bounce_fused_cuda(*args, nee=nee, features=feats)
+    assert getattr(bounce_fused, counter) == before + 1
+    want = bounce_fused.bounce_fused_plain(*args, nee=nee, features=feats)
+    torch.cuda.synchronize()
+    for f in dataclasses.fields(got):
+        assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
+    assert int((want.next_medium != medium).any(-1).sum()) > 100

@@ -40,6 +40,7 @@ Tolerances, with the reason:
   runs twice (forward and checkpoint recompute).
 """
 
+import tests.torch_threads  # noqa: F401  (first: one torch thread per xdist worker)
 import dataclasses
 
 import jax

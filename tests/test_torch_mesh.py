@@ -21,6 +21,7 @@ files, and handed to both packages.  Tolerances, with their reasons:
   pattern and winner row equal, ``t`` within 1e-5 relative.
 """
 
+import tests.torch_threads  # noqa: F401  (first: one torch thread per xdist worker)
 import dataclasses
 import os
 

@@ -38,6 +38,7 @@ handed to both packages; the scenes cross with
   largest is printed.
 """
 
+import tests.torch_threads  # noqa: F401  (first: one torch thread per xdist worker)
 import dataclasses
 import os
 

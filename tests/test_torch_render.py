@@ -18,6 +18,7 @@ average (its bar is 0.8/255).  Required: 95% of entries, the sum within
 2e-5, and the PNG golden's mean bar.
 """
 
+import tests.torch_threads  # noqa: F401  (first: one torch thread per xdist worker)
 import dataclasses
 import os
 import subprocess
@@ -160,3 +161,16 @@ def test_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch, tmp_path):
     assert cli.main([f"scene={scene_file}", "--spp", "1", "--depth", "3",
                      "--device", "cpu", "--out", str(out)]) == 0
     assert load_png(str(tmp_path / "mini.0.png")).shape == (40, 40, 3)
+
+
+@pytest.mark.parametrize("engine", [dict(), dict(fused=False), dict(wavefront=True),
+                                    dict(wavefront=True, wavefront_pinned=False)],
+                         ids=["megakernel", "split", "pinned", "queue"])
+def test_debug_raises_on_every_engine(engine):
+    """``RenderConfig(debug=True)`` raises on every engine: the port does not
+    run JAX's per-chunk finite check yet, and must not ignore the flag."""
+    scene = dataclasses.replace(
+        load_scene(os.path.join(ROOT, "scenes", "cornell.txt")), resolution=(8, 8)
+    ).scene_for_frame(0, device="cpu")
+    with pytest.raises(NotImplementedError, match="debug=True"):
+        render(scene, 1, RenderConfig(debug=True, max_depth=2, **engine), device="cpu")

@@ -6,6 +6,7 @@ slot), including sample indices past 2^31, which JAX's int32 sample index
 reaches by wrapping (``iteration * n_pixels + pixel``).
 """
 
+import tests.torch_threads  # noqa: F401  (first: one torch thread per xdist worker)
 import jax
 import jax.numpy as jnp
 import numpy as np

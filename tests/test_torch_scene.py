@@ -12,6 +12,7 @@ tuples are equal.
 how a JAX ``Scene`` crosses into the port bit for bit.
 """
 
+import tests.torch_threads  # noqa: F401  (first: one torch thread per xdist worker)
 import dataclasses
 import os
 import warnings

@@ -23,6 +23,7 @@ scenes cross through ``tests/test_torch_scene.port_scene_from_jax``.
   on live lanes.
 """
 
+import tests.torch_threads  # noqa: F401  (first: one torch thread per xdist worker)
 import dataclasses
 
 import jax
@@ -148,7 +149,12 @@ def test_shade_bounce_both_routes_match_jax_split(cornell_scene, name, nee):
         _compare_bounce(ref, shade_bounce(*args, cfg), f"fused={fused}, nee={nee}")
     assert bounce_fused.launches == before  # CPU tensors take the plain versions
     with pytest.raises(NotImplementedError, match="later slice"):
-        shade_bounce(*args, RenderConfig(features=("volumetric",)))
+        shade_bounce(*args, RenderConfig(features=("texture",)))
+    # media in a vacuum scene with a vacuum carry: the same bounce on both
+    # routes (zero sigmas attenuate by exactly 1 and never scatter)
+    for fused in (None, False):
+        cfg = RenderConfig(nee=nee, fused=fused, features=(*features, "volumetric"))
+        _compare_bounce(ref, shade_bounce(*args, cfg), f"volumetric, fused={fused}, nee={nee}")
     # under grad_lean both differentiable routes give the same bounce: the
     # per-bounce engine's (kernel 2 with replay planes) and, outside the
     # fused scope, the lean split route (kernels 7 and 8)

@@ -20,6 +20,7 @@ lane at 2.7e-3 relative, the sum at 2.1e-7 relative, and equal ray counts;
 on MINI_SCENE every lane within the tight bar.
 """
 
+import tests.torch_threads  # noqa: F401  (first: one torch thread per xdist worker)
 import dataclasses
 import os
 
@@ -120,7 +121,12 @@ def test_trace_dispatch_on_device():
     )
     with pytest.raises(ValueError, match="material ids"):
         pack_tables(bad)
-    with pytest.raises(NotImplementedError, match="volumetric"):
+    with pytest.raises(NotImplementedError, match="texture"):
         trace.trace_fused(
-            tscene, Rays(o, d), sample, 5, dataclasses.replace(cfg, features=("volumetric",))
+            tscene, Rays(o, d), sample, 5, dataclasses.replace(cfg, features=("texture",))
         )
+    # the media instance on a vacuum scene: the vacuum trace, bit for bit
+    vol = dataclasses.replace(cfg, features=(*cfg.features, "volumetric", "hg"))
+    rad_v, nrays_v = trace.trace_fused(tscene, Rays(o, d), sample, 5, vol, tables=tables)
+    assert torch.equal(rad_v, rad) and int(nrays_v) == int(nrays)
+    assert trace.launches == before and trace.hg_launches == 0

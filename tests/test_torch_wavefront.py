@@ -21,6 +21,7 @@ with ``pixel_offset`` 0 and 1, interleaved, equals the stride-1 render
 1e-6, its flushes add a pixel's samples in another order).
 """
 
+import tests.torch_threads  # noqa: F401  (first: one torch thread per xdist worker)
 import dataclasses
 import os
 
