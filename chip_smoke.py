@@ -128,7 +128,35 @@ Phases (any failure exits non-zero):
     (mean 0.8/255) on the card; (g) times by CUDA events, bounds, and each
     instance's registers and spills from ``[build]`` (Cornell's kernel 1
     must keep 72 registers); (h) the CLI on sss takes ``engine=megakernel``;
-11. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+11. ``[surf]``, optional surface physics, each render through ``render``
+    with the counters zeroed just before: (a) ``scenes/ward.txt`` at
+    ``bench.py``'s 512x512, depth 8, NEE, 32 spp on the megakernel launches
+    kernel 1's surface instance (1s) once per iteration and nothing else,
+    and 1s equals ``trace_plain`` bit for bit on all 262,144 primary lanes;
+    (b) the same on a GGX copy of ward that the script writes
+    (:func:`ggx_ward_scene`: its sphere Cook-Torrance); (c) on textured at
+    its 800x800 (checker, bump) and a striped copy (:func:`striped_scene`);
+    (d) ``scenes/textured_image.txt`` at 512x512, 32 spp through ``render``:
+    the per-bounce scan, kernel 2's deferred-texel variant (2t) 8 times per
+    iteration and nothing else, and 2t bit-equal to its plain version on
+    every output plane (the UV and the atlas slot included) on the primary
+    rays and on the inputs of the scan's bounce 3; kernel 2's surface
+    instance (2s) bit-equal on ward's primary rays; (e) the pinned and queue
+    engines and the split route at 2 spp on the three scenes (kernels 2s /
+    2t once per super-step; the split route kernels 6 and 8 once per
+    bounce), the megakernel's ray counts, accumulators within rtol = atol =
+    2e-4 of the megakernel route's on at least 99.9% of entries with sums
+    within 2e-5 (textured's split route, whose bump frame is JAX's split
+    path's: 99% and 1e-4, ray counts within 1e-5), and 2s bit-equal on the
+    pinned engine's
+    super-step 10 of ward and textured; (f) the ``ward_96`` golden (95% of
+    entries within 1e-5, sum within 2e-5, PNG mean 0.8/255) and the
+    ``textured_image_96`` PNG (mean 0.8/255, 99.9% of pixels within 2.5/255)
+    on the card; (g) times by CUDA events and each new kernel's device time
+    from the profiler, bounds, each new instance's registers and spills,
+    Cornell's kernel 1's registers (72) and time;
+    (h) the CLI's auto engine on textured_image (``engine=wavefront``);
+12. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
 The rendered PNGs and the profile table go to ``--out-dir`` (default
 ``renders/chip_smoke``).
@@ -200,6 +228,9 @@ def _counters() -> dict:
         "trace_hg": (trace, "hg_launches"),
         "trace_mesh": (trace, "mesh_launches"),
         "trace_mesh_vol": (trace, "mesh_vol_launches"),
+        "trace_surf": (trace, "surf_launches"),
+        "bounce_surf": (bounce_fused, "surf_launches"),
+        "bounce_tex": (bounce_fused, "tex_launches"),
         "bounce_mesh": (bounce_fused, "mesh_launches"),
         "bounce_vol": (bounce_fused, "vol_launches"),
         "bounce_hg": (bounce_fused, "hg_launches"),
@@ -253,6 +284,31 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, kernel: str, reps: int = 10) -> float:
+    """Mean device time in ms of one launch of the kernels whose name holds
+    ``kernel`` over ``reps`` calls of ``fn()``, from the profiler (after one
+    warm-up call): without the host time of the wrapper, which CUDA events
+    around back-to-back calls of a short kernel include.  The profiler may
+    drop some launches' records; the mean is over those it kept."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    ) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    run = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+    count = sum(e.count for e in run)
+    check(0 < count <= reps, f"the profiler kept {count} launches of {kernel} for {reps} calls")
+    total = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+                for e in run)
+    return total / 1e3 / count
 
 
 def profile_step(step, step_ms: float, out_dir: str, name: str, kernels) -> str:
@@ -992,6 +1048,27 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
     ]
 
 
+def ggx_ward_scene() -> str:
+    """The scene text of ``[surf]`` (b): ``scenes/ward.txt`` with its sphere
+    (material 3) turned Cook-Torrance GGX at roughness 0.25, so that a GGX
+    lane and the Ward floor's lanes are selected per lane in one launch."""
+    with open(os.path.join(ROOT, "scenes", "ward.txt")) as f:
+        text = f.read()
+    assert text.count("BRDF ward 0.25\n") == 1
+    return text.replace("BRDF ward 0.25\n", "BRDF cooktorrance 0.25\n")
+
+
+def striped_scene() -> str:
+    """The scene text of ``[surf]`` (c): ``scenes/textured.txt`` with stripes
+    (scale 3) on its red wall, so that the stripes pattern, on cells of
+    both signs, runs beside the checker floor and walls."""
+    with open(os.path.join(ROOT, "scenes", "textured.txt")) as f:
+        text = f.read()
+    marker = "\nMATERIAL 2  // green diffuse"
+    assert text.count(marker) == 1
+    return text.replace(marker, "TEXTURE     stripes 3 .9 .8 .1\n" + marker)
+
+
 def fog_mesh_scene(refractive: bool) -> str:
     """The scene text of ``[vol]`` (e): ``scenes/fog.txt``'s lamp,
     index-matched scattering cube and backdrop, with smooth_mesh's
@@ -1372,12 +1449,12 @@ def ptxas_instances(reports: dict) -> dict:
     return out
 
 
-def instance_regs(instances: dict, source: str, kernel: str, mesh: bool, vol: bool, hg: bool):
-    """Registers and spills of one ``kMesh, kVol, kHg`` instance of
-    ``trace_kernel`` / ``bounce_kernel``, or None when the report has no
-    such entry (a library reused from an earlier build prints none)."""
-    tag = "".join(f"ILb{int(mesh)}E" if i == 0 else f"Lb{int(b)}E"
-                  for i, b in enumerate((mesh, vol, hg)))
+def instance_regs(instances: dict, source: str, kernel: str, *flags: bool):
+    """Registers and spills of the instance of ``trace_kernel`` /
+    ``bounce_kernel`` with these template flags (``kMesh, kVol, kHg,
+    kSurf[, kTex]``), or None when the report has no such entry (a library
+    reused from an earlier build prints none)."""
+    tag = "I" + "".join(f"Lb{int(b)}E" for b in flags) + "E"
     for (src, entry), regs in instances.items():
         if src == source and f"{kernel}{tag}" in entry:
             return regs
@@ -1622,14 +1699,14 @@ def vol_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) ->
                            iter_ms, out_dir, "sss_iteration", ("trace_kernel",))
     instances = ptxas_instances(reports)
     regs = {
-        "trace": instance_regs(instances, "trace", "trace_kernel", False, False, False),
-        "trace_vol": instance_regs(instances, "trace", "trace_kernel", False, True, False),
-        "trace_hg": instance_regs(instances, "trace", "trace_kernel", False, True, True),
-        "trace_mesh_vol": instance_regs(instances, "trace", "trace_kernel", True, True, False),
-        "trace_mesh_hg": instance_regs(instances, "trace", "trace_kernel", True, True, True),
-        "bounce": instance_regs(instances, "bounce", "bounce_kernel", False, False, False),
-        "bounce_vol": instance_regs(instances, "bounce", "bounce_kernel", False, True, False),
-        "bounce_hg": instance_regs(instances, "bounce", "bounce_kernel", False, True, True),
+        "trace": instance_regs(instances, "trace", "trace_kernel", 0, 0, 0, 0),
+        "trace_vol": instance_regs(instances, "trace", "trace_kernel", 0, 1, 0, 0),
+        "trace_hg": instance_regs(instances, "trace", "trace_kernel", 0, 1, 1, 0),
+        "trace_mesh_vol": instance_regs(instances, "trace", "trace_kernel", 1, 1, 0, 0),
+        "trace_mesh_hg": instance_regs(instances, "trace", "trace_kernel", 1, 1, 1, 0),
+        "bounce": instance_regs(instances, "bounce", "bounce_kernel", 0, 0, 0, 0, 0),
+        "bounce_vol": instance_regs(instances, "bounce", "bounce_kernel", 0, 1, 0, 0, 0),
+        "bounce_hg": instance_regs(instances, "bounce", "bounce_kernel", 0, 1, 1, 0, 0),
     }
     print(f"[card] {card}")
     print(f"[vol:regs] registers, spill store / load bytes per instance: {regs}")
@@ -1667,6 +1744,358 @@ def vol_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) ->
         ms, p_ms, (b_ms, b_by), _, _ = timing[key]
         entries.append({"name": key, **common, "source": f"pathtracer_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": launches[key], "max_abs_err": err,
+                        "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by})
+    return entries
+
+
+SURF_RES = (512, 512)  # bench.py's ward and textured_image rows
+SURF_SPP = 32
+SCAN_CAPTURE_DEPTH = 3  # the bounce of the textured_image scan whose inputs (d) holds 2t on
+# fp32 operations of the texture block per lane-bounce, counted by hand from
+# trace_common.cuh:texture_albedo (3 multiplies, 3 floors, 2 adds, 2 floor-mods
+# of 3 each, 6 compares and selects: 20); the bump, the Cook-Torrance and Ward
+# lobes and the deferred texel's UV run only on the lanes whose material
+# selects them and are left out, so the bounds below are lower bounds
+OPS_TEXTURE = 20
+
+
+def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -> list:
+    """Phase 11, ``[surf]``: optional surface physics.  ward at
+    ``bench.py``'s width on the megakernel (kernel 1s), kernel 1s against
+    its plain version on ward, its GGX copy, textured and its striped copy;
+    textured_image through ``render`` (kernel 2t once per bounce of the
+    scan) and kernel 2t against its plain version; the wavefront engines and
+    the split route on the three scenes, and kernel 2s; the ward_96 and
+    textured_image_96 goldens; times, bounds and registers; the CLI.
+    Returns the JSON entries of the new kernels."""
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import bounce_fused, trace
+    from pathtracer_tpu_torch.ops.bounce import pack_tables
+    from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render import megakernel
+    from pathtracer_tpu_torch.render.features import features_for_materials
+    from pathtracer_tpu_torch.render.integrator import render, render_chunk
+    from pathtracer_tpu_torch.scene.parser import load_scene, parse_scene_text
+    from pathtracer_tpu_torch.utils.imageio import load_png, save_image
+
+    scenes_dir = os.path.join(ROOT, "scenes")
+
+    def scene_of(name, res=None):
+        if name == "ggx_ward":
+            desc = parse_scene_text(ggx_ward_scene(), name=name)
+        elif name == "striped":
+            desc = parse_scene_text(striped_scene(), name=name, scene_dir=scenes_dir)
+        else:
+            desc = load_scene(os.path.join(scenes_dir, f"{name}.txt"))
+        if res is not None:
+            desc = dataclasses.replace(desc, resolution=res)
+        return desc.scene_for_frame(0, device=dev)
+
+    base = dict(max_depth=8, nee=True)
+    seed = key_to_seed(prng_key(0))
+    f32 = dict(dtype=torch.float32, device=dev)
+
+    def feats_of(scene):
+        return frozenset(features_for_materials(scene.materials))
+
+    def tables_of(scene):
+        return [t.contiguous() for t in pack_tables(scene)]
+
+    def primary(scene):
+        """The primary rays of iteration 0 and the bounce state they start."""
+        n = scene.camera.width * scene.camera.height
+        pixel = torch.arange(n, dtype=torch.int64, device=dev)
+        rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, pixel))
+        return dict(origin=rays.origin, direction=rays.direction,
+                    throughput=torch.ones((n, 3), **f32), sample=pixel,
+                    depth=torch.zeros(n, dtype=torch.int32, device=dev),
+                    prev=torch.zeros(n, **f32), medium=torch.zeros((n, 4), **f32))
+
+    # ---- (a) ward through the entry point at bench.py's width: kernel 1s
+    # once per iteration and nothing else
+    ward = scene_of("ward", SURF_RES)
+    w, h = ward.camera.width, ward.camera.height
+    cfg = RenderConfig(iters_per_launch=8, **base)
+    img, acc, st, launch_a, _, wall_a = counted_render(ward, SURF_SPP, cfg, dev)
+    print(f"[surf] (a) ward {w}x{h} d8 nee spp={SURF_SPP}, features {sorted(feats_of(ward))}: "
+          f"{wall_a:.3f} s, rays {st['rays_traced']}, launches {launch_a}")
+    check(launch_a == only(trace_surf=SURF_SPP), f"ward megakernel launches {launch_a}")
+    check(tuple(img.shape) == (h, w, 3) and bool(torch.isfinite(acc).all())
+          and bool((acc >= 0).all()) and float(acc.sum()) > 0, "ward render: bad image")
+    save_image(os.path.join(out_dir, "chip_smoke_ward.png"), img.cpu().numpy())
+
+    # ---- (a)-(c) kernel 1s against its plain version on every primary lane:
+    # ward (the Ward lobes), its GGX copy (a Cook-Torrance lane beside the
+    # Ward ones), textured at its 800x800 (checker, bump) and its striped copy
+    trace_args = {}
+    k1_err = 0.0
+    for tag, name, scene in (("(a)", "ward", ward),
+                             ("(b)", "ggx_ward", scene_of("ggx_ward", SURF_RES)),
+                             ("(c)", "textured", scene_of("textured")),
+                             ("(c)", "striped", scene_of("striped"))):
+        p = primary(scene)
+        kw = dict(max_depth=8, nee=True, rr=False, rr_start=3, features=feats_of(scene))
+        targs = (*tables_of(scene), seed, p["origin"], p["direction"], p["sample"])
+        zero_counts()
+        rad_k, nr_k = trace.trace_cuda(*targs, **kw)
+        launched = read_counts()
+        rad_p, nr_p = trace.trace_plain(*targs, **kw)
+        torch.cuda.synchronize()
+        differ = (rad_k != rad_p).any(-1)
+        k1_err = max(k1_err, float((rad_k - rad_p).abs().max()))
+        print(f"[surf:check] {tag} kernel 1s on {name} ({sorted(kw['features'])}, bits "
+              f"{trace.surface_bits(kw['features'])}), {p['sample'].numel()} primary rays: rays "
+              f"kernel {int(nr_k)} plain {int(nr_p)}; lanes that differ {int(differ.sum())}; "
+              f"radiance sum {float(rad_k.double().sum()):.6g}")
+        check(launched == only(trace_surf=1), f"kernel 1s launches {launched} on {name}")
+        check(int(nr_k) == int(nr_p), f"kernel 1s and plain ray counts differ on {name}")
+        check(int(differ.sum()) == 0, f"kernel 1s differs from plain on {name}")
+        check(float(rad_p.sum()) > 0, f"{name}: no radiance")
+        trace_args[name] = (scene, targs, kw, int(nr_k))
+
+    # ---- (d) textured_image through the entry point: its megakernel route is
+    # the per-bounce scan, kernel 2t once per bounce (8 per iteration); the
+    # inputs of one mid-render bounce are kept
+    timg = scene_of("textured_image", SURF_RES)
+    captured = {}
+    shade = megakernel.shade_bounce
+
+    def recording(scn, rays, thr, sample, depth, prev, seed_, cfg_, medium_sigma=None,
+                  tables=None):
+        if depth == SCAN_CAPTURE_DEPTH and not captured:
+            captured.update(origin=rays.origin.clone(), direction=rays.direction.clone(),
+                            throughput=thr.clone(), sample=sample.clone(),
+                            depth=torch.full(sample.shape, depth, dtype=torch.int32, device=dev),
+                            prev=prev.clone(), medium=medium_sigma.clone())
+        return shade(scn, rays, thr, sample, depth, prev, seed_, cfg_,
+                     medium_sigma=medium_sigma, tables=tables)
+
+    megakernel.shade_bounce = recording
+    try:
+        img_d, acc_d, st_d, launch_d, _, wall_d = counted_render(timg, SURF_SPP, cfg, dev)
+    finally:
+        megakernel.shade_bounce = shade
+    print(f"[surf] (d) textured_image {SURF_RES[0]}x{SURF_RES[1]} d8 nee spp={SURF_SPP}: "
+          f"{wall_d:.3f} s, rays {st_d['rays_traced']}, launches {launch_d}")
+    check(launch_d == only(bounce_tex=8 * SURF_SPP), f"textured_image launches {launch_d}")
+    check(bool(torch.isfinite(acc_d).all()) and bool((acc_d >= 0).all())
+          and float(acc_d.sum()) > 0, "textured_image render: bad image")
+    check(bool(captured), "no scan bounce captured")
+    save_image(os.path.join(out_dir, "chip_smoke_textured_image.png"), img_d.cpu().numpy())
+
+    k2_err = {"surf": 0.0, "tex": 0.0}
+    bargs = {}
+
+    def hold_bounce(inst, label, scene, s):
+        """Kernel 2s (2t) against its plain version on the bounce state
+        ``s``: every output plane equal on every lane."""
+        tex = inst == "tex"
+        feats = feats_of(scene)
+        args = (tables_of(scene), s["origin"], s["direction"], s["throughput"], s["sample"],
+                s["depth"], s["prev"], s["medium"].contiguous(), seed)
+        zero_counts()
+        got = bounce_fused.bounce_fused_cuda(*args, nee=True, features=feats, tex_defer=tex)
+        launched = read_counts()
+        want = bounce_fused.bounce_fused_plain(*args, nee=True, features=feats, tex_defer=tex)
+        torch.cuda.synchronize()
+        same, extra = {}, ""
+        if tex:
+            same = {k: torch.equal(a, b) for k, a, b in zip(("u", "v", "slot"), got[1:], want[1:])}
+            extra = f" ({int((want[3] >= 0).sum())} image-textured surface events)"
+            got, want = got[0], want[0]
+        same.update({f.name: torch.equal(getattr(got, f.name), getattr(want, f.name))
+                     for f in dataclasses.fields(got)})
+        for f in ("contrib", "next_origin", "next_direction", "throughput_mult"):
+            k2_err[inst] = max(k2_err[inst],
+                               float((getattr(got, f) - getattr(want, f)).abs().max()))
+        print(f"[surf:check] kernel 2{inst[0]} on {label}, {s['origin'].shape[0]} lanes{extra}: "
+              f"outputs equal {same}")
+        check(launched == only(**{f"bounce_{inst}": 1}), f"kernel 2{inst[0]} launches {launched}")
+        check(all(same.values()), f"kernel 2{inst[0]} differs from plain ({label})")
+        if "primary" not in label:  # the first mid-render state of each is timed in (g)
+            bargs.setdefault(inst, (args, feats, label))
+
+    hold_bounce("tex", "textured_image primary rays", timg, primary(timg))
+    hold_bounce("tex", f"textured_image scan bounce {SCAN_CAPTURE_DEPTH}", timg, captured)
+    hold_bounce("surf", "ward primary rays", ward, primary(ward))
+
+    # ---- (e) the pinned and queue engines and the split route at 2 spp on
+    # the three scenes against the megakernel route; the pinned engine's
+    # super-step CAPTURE_STEP holds kernel 2s on ward and textured
+    engine_launch = {"trace_surf": launch_a["trace_surf"], "bounce_tex": launch_d["bounce_tex"]}
+    for name, scene in (("ward", ward), ("textured", trace_args["textured"][0]),
+                        ("textured_image", timg)):
+        tex = scene.textures is not None
+        _, acc_m, st_m, launch_m, _, _ = counted_render(
+            scene, 2, RenderConfig(iters_per_launch=2, **base), dev)
+        check(launch_m == (only(bounce_tex=16) if tex else only(trace_surf=2)),
+              f"{name} megakernel launches {launch_m}")
+        cap = {}
+        runs = (("pinned", RenderConfig(wavefront=True, iters_per_launch=2, **base)),
+                ("queue", RenderConfig(wavefront=True, wavefront_pinned=False,
+                                       wavefront_capacity=1 << 16, iters_per_launch=2, **base)),
+                ("split", RenderConfig(fused=False, iters_per_launch=2, **base)))
+        for engine, ecfg in runs:
+            if engine == "pinned":
+                _, acc_e, st_e, launch_e, steps, wall_e = capturing_render(scene, 2, ecfg, dev,
+                                                                           cap)
+            else:
+                _, acc_e, st_e, launch_e, steps, wall_e = counted_render(scene, 2, ecfg, dev)
+            print(f"[surf] (e) {name} {engine}, spp=2: {wall_e:.3f} s, {steps} super-steps, rays "
+                  f"{st_e['rays_traced']}, launches {launch_e}")
+            bar, rays_tol = (0.999, 2e-5), 0.0
+            if engine == "split":
+                check(launch_e == only(nearest_hit=16, occlusion=16),
+                      f"{name} split route launches {launch_e}")
+                if name == "textured":
+                    # JAX's split path builds the bump frame apart from the
+                    # kernel's (a 0.577 threshold, t2 left unnormalized), so
+                    # a few bumped paths end at another bounce
+                    bar, rays_tol = (0.99, 1e-4), 1e-5
+            else:
+                inst = "bounce_tex" if tex else "bounce_surf"
+                check(launch_e == only(**{inst: steps}), f"{name} {engine} launches {launch_e}")
+                engine_launch.setdefault(inst, launch_e[inst])
+            check(abs(st_e["rays_traced"] - st_m["rays_traced"]) <= rays_tol * st_m["rays_traced"],
+                  f"{name} {engine} and megakernel ray counts differ")
+            check_close("surf", acc_e, acc_m, *bar, f"(e) {name} {engine} vs megakernel")
+        check(bool(cap), f"{name}: no super-step state captured")
+        if not tex:
+            hold_bounce("surf", f"{name} super-step {CAPTURE_STEP}", scene, cap)
+
+    # ---- (f) the ward_96 and textured_image_96 goldens on the card
+    gcfg = RenderConfig(iters_per_launch=8, **base)
+    gimg, gacc, _ = render(scene_of("ward", (96, 96)), 16, gcfg, device=dev)
+    golden = torch.from_numpy(np.load(os.path.join(ROOT, "tests", "golden", "ward_96.npy"))).to(dev)
+    frac = float(((gacc - golden).abs() <= 1e-5 * (golden.abs() + 1e-3)).float().mean())
+    gsum = float((gacc.double().sum() - golden.double().sum()).abs() / golden.double().sum())
+    png = torch.from_numpy(load_png(os.path.join(ROOT, "tests", "golden", "ward_96.png"))).to(dev)
+    png_mean = float((gimg - png.float() / 255.0).abs().mean()) * 255.0
+    print(f"[surf:golden] ward_96: {frac:.5f} of entries within 1e-5 rel, sum rel {gsum:.3g}, "
+          f"PNG mean abs {png_mean:.4f}/255")
+    check(frac >= 0.95 and gsum <= 2e-5 and png_mean <= 0.8, "ward_96 golden beyond its bar")
+    gimg, _, _ = render(scene_of("textured_image", (96, 96)), 16, gcfg, device=dev)
+    png = torch.from_numpy(load_png(os.path.join(ROOT, "tests", "golden",
+                                                 "textured_image_96.png"))).to(dev)
+    gdiff = (gimg - png.float() / 255.0).abs()
+    within = float((gdiff.amax(-1) <= 2.5 / 255.0).float().mean())
+    print(f"[surf:golden] textured_image_96: PNG mean abs {float(gdiff.mean()) * 255:.4f}/255, "
+          f"max {float(gdiff.max()) * 255:.4f}/255, pixels within 2.5/255 {within:.5f}")
+    check(float(gdiff.mean()) * 255 <= 0.8 and within >= 0.999,
+          "textured_image_96 golden beyond its bar")
+
+    # ---- (g) times by CUDA events, bounds from this run's inputs, registers
+    def bound(ops, nbytes):
+        t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+    def sweep_ops(scene):
+        return sum(OPS_TO_OBJECT + (OPS_SPHERE if t == 0 else OPS_CUBE if t == 1 else 0)
+                   for t in scene.geoms.type.tolist())
+
+    def surf_ops(feats):
+        return OPS_SHADE + (OPS_TEXTURE if "texture" in feats else 0)
+
+    timing = {}
+    for key, name in (("trace_surf", "ward"), ("trace_surf textured", "textured")):
+        scene, targs, kw, nrays = trace_args[name]
+        ms = cuda_ms(lambda: trace.trace_cuda(*targs, **kw), reps=10)
+        d_ms = device_ms(lambda: trace.trace_cuda(*targs, **kw), "trace_kernel")
+        p_ms = cuda_ms(lambda: trace.trace_plain(*targs, **kw), reps=1)
+        n = targs[5].shape[0]
+        tbytes = sum(t.numel() * 4 for t in targs[:4])
+        ops = nrays // 2 * (sweep_ops(scene) + surf_ops(kw["features"]))
+        timing[key] = (ms, d_ms, p_ms, bound(ops, n * (12 + 12 + 4 + 12) + tbytes), name, n)
+    for inst in ("surf", "tex"):
+        args, feats, label = bargs[inst]
+        tex = inst == "tex"
+        n = args[1].shape[0]
+        scene = timg if tex else ward
+
+        def launch():
+            return bounce_fused.bounce_fused_cuda(*args, nee=True, features=feats, tex_defer=tex)
+
+        ms = cuda_ms(launch, reps=20)
+        d_ms = device_ms(launch, "bounce_kernel")
+        p_ms = cuda_ms(lambda: bounce_fused.bounce_fused_plain(*args, nee=True, features=feats,
+                                                               tex_defer=tex), reps=2)
+        tbytes = sum(t.numel() * 4 for t in args[0])
+        # 12 planes and the 4-wide medium in; 14 float planes, the medium, the
+        # terminate byte and, with the deferred texel, 3 more planes out
+        nbytes = n * (48 + 16 + 57 + 16 + (12 if tex else 0)) + tbytes
+        timing[f"bounce_{inst}"] = (ms, d_ms, p_ms,
+                                    bound(n * (sweep_ops(scene) + surf_ops(feats)), nbytes),
+                                    label, n)
+    rcfg = dataclasses.replace(cfg, features=tuple(sorted(feats_of(ward))))
+    ward_tables = tables_of(ward)
+    acc0 = torch.zeros((w * h, 3), **f32)
+    iter_ms = cuda_ms(lambda: render_chunk(ward, acc0, 0, seed, rcfg, 1, tables=ward_tables),
+                      reps=5)
+    summary = profile_step(lambda: render_chunk(ward, acc0, 0, seed, rcfg, 1, tables=ward_tables),
+                           iter_ms, out_dir, "ward_iteration", ("trace_kernel",))
+    ti_cfg = dataclasses.replace(cfg, features=tuple(sorted(feats_of(timg))))
+    ti_tables = tables_of(timg)
+    ti_ms = cuda_ms(lambda: render_chunk(timg, acc0, 0, seed, ti_cfg, 1, tables=ti_tables),
+                    reps=3)
+    instances = ptxas_instances(reports)
+    regs = {
+        "trace (Cornell)": instance_regs(instances, "trace", "trace_kernel", 0, 0, 0, 0),
+        "trace_surf": instance_regs(instances, "trace", "trace_kernel", 0, 0, 0, 1),
+        "trace_surf_vol": instance_regs(instances, "trace", "trace_kernel", 0, 1, 0, 1),
+        "trace_surf_hg": instance_regs(instances, "trace", "trace_kernel", 0, 1, 1, 1),
+        "trace_surf_mesh": instance_regs(instances, "trace", "trace_kernel", 1, 0, 0, 1),
+        "trace_surf_mesh_vol": instance_regs(instances, "trace", "trace_kernel", 1, 1, 0, 1),
+        "trace_surf_mesh_hg": instance_regs(instances, "trace", "trace_kernel", 1, 1, 1, 1),
+        "bounce_surf": instance_regs(instances, "bounce", "bounce_kernel", 0, 0, 0, 1, 0),
+        "bounce_surf_vol": instance_regs(instances, "bounce", "bounce_kernel", 0, 1, 0, 1, 0),
+        "bounce_surf_hg": instance_regs(instances, "bounce", "bounce_kernel", 0, 1, 1, 1, 0),
+        "bounce_surf_mesh": instance_regs(instances, "bounce", "bounce_kernel", 1, 0, 0, 1, 0),
+        "bounce_surf_mesh_vol": instance_regs(instances, "bounce", "bounce_kernel", 1, 1, 0, 1,
+                                              0),
+        "bounce_surf_mesh_hg": instance_regs(instances, "bounce", "bounce_kernel", 1, 1, 1, 1, 0),
+        "bounce_tex": instance_regs(instances, "bounce", "bounce_kernel", 0, 0, 0, 1, 1),
+        "bounce_tex_vol": instance_regs(instances, "bounce", "bounce_kernel", 0, 1, 0, 1, 1),
+        "bounce_tex_hg": instance_regs(instances, "bounce", "bounce_kernel", 0, 1, 1, 1, 1),
+    }
+    print(f"[card] {card}")
+    print(f"[surf:regs] registers, spill store / load bytes per instance: {regs}")
+    check(regs["trace (Cornell)"] is None or regs["trace (Cornell)"][0] == 72,
+          f"Cornell's kernel 1 uses {regs['trace (Cornell)']} registers, not 72")
+    print(f"[surf:time] Cornell's kernel 1 {cornell_ms:.4f} ms/iteration in this run; ward "
+          f"iteration {iter_ms:.4f} ms ({trace_args['ward'][3] / iter_ms / 1e3:.1f} Mrays/s); "
+          f"textured_image iteration (8 bounces of the scan) {ti_ms:.4f} ms; on {card}")
+    print(f"[surf:profile] ward render iteration: {summary}")
+    for key, (ms, d_ms, p_ms, (b_ms, b_by), where, n) in timing.items():
+        print(f"[surf:time] {key} at {n} lanes of {where}: {ms:.4f} ms by events, "
+              f"{d_ms:.4f} ms of device time (plain {p_ms:.3f} ms), bound {b_ms:.4f} ms by "
+              f"{b_by} (a lower bound: the bump, the lobes, the UV and shadow rays left out); "
+              f"on {card}")
+
+    # ---- (h) the CLI's auto engine on textured_image (the wavefront engine,
+    # as JAX's CLI picks for image textures)
+    cli = subprocess.run(
+        [sys.executable, "-m", "pathtracer_tpu_torch.cli", "scene=scenes/textured_image.txt",
+         "--spp", "2", "--out", os.path.join(out_dir, "cli_textured_image.png")],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    print(f"[surf:cli] exit {cli.returncode}: {cli.stdout.strip()} {cli.stderr.strip()[-2000:]}")
+    check(cli.returncode == 0 and "engine=wavefront" in cli.stdout,
+          "textured_image CLI run failed")
+
+    common = {"route": "cuda", "library_ms": None}
+    entries = []
+    for key, source, err in (("trace_surf", "trace.cu", k1_err),
+                             ("bounce_surf", "bounce.cu", k2_err["surf"]),
+                             ("bounce_tex", "bounce.cu", k2_err["tex"])):
+        ms, _, p_ms, (b_ms, b_by), _, _ = timing[key]
+        replaces = ("pathtracer_tpu/ops/trace_pallas.py:62" if key == "trace_surf"
+                    else "pathtracer_tpu/ops/bounce_pallas.py:1477")
+        entries.append({"name": key, **common, "source": f"pathtracer_tpu_torch/csrc/{source}",
+                        "replaces": replaces, "launches": engine_launch[key], "max_abs_err": err,
                         "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by})
     return entries
 
@@ -1857,7 +2286,10 @@ def main() -> int:
     # ---- 10. participating media
     vol_kernels = vol_phase(dev, card, out_dir, reports, k_ms)
 
-    # ---- 11. results
+    # ---- 11. optional surface physics
+    surf_kernels = surf_phase(dev, card, out_dir, reports, k_ms)
+
+    # ---- 12. results
     kernels = [
         {
             "name": "trace",
@@ -1877,6 +2309,7 @@ def main() -> int:
         *wave_kernels,
         *mesh_kernels,
         *vol_kernels,
+        *surf_kernels,
     ]
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

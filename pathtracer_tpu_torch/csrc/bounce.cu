@@ -46,6 +46,19 @@
 // and launched by n_mesh.  The mesh-merge variant for larger meshes is not
 // ported.
 //
+// Optional surface physics (kernel 2 with the texture, bump, microfacet and
+// ward blocks): the kSurf instances run pt::bounce's surface blocks, switched
+// on by the feature bits `surf`, as in trace.cu.  The deferred-texel variant
+// (bounce_pallas.py:1076-1119, its outputs :1544,1610,1741): a scene with
+// image textures passes three more output planes, tex_u, tex_v and
+// tex_slot, and the kTex instance writes the hit's texture-scaled UV (from
+// JAX's polynomial atan2) and the atlas slot of an image-textured surface
+// event, -1 elsewhere; the wrapper (ops/bounce_fused.py) fetches the
+// bilinear texel and multiplies it into contrib and, on diffuse events, the
+// throughput multiplier (:1772-1793).  The atlas stays outside the kernel,
+// as on the TPU.  kTex is built with kSurf and without meshes only: image
+// textures on meshes are not ported.
+//
 // Design: one thread per lane; the geom / material / light tables are
 // copied once per block into shared memory and indexed by id (the TPU
 // kernel's where-chains over every row become gathers with the same
@@ -77,7 +90,7 @@ namespace pt {
 // (the phase g in column 4); the output g column is the medium entered with
 // kHg, 0 with kVol alone (its g is never read), and passes through in
 // vacuum.
-template <bool kVol = false, bool kHg = false>
+template <bool kVol = false, bool kHg = false, bool kSurf = false, bool kTex = false>
 PT_FN void bounce_lane(const Tables& T, uint32_t seed, int nee, int vol_nee, int mw, size_t i,
                        const float* __restrict__ origin, const float* __restrict__ direction,
                        const float* __restrict__ thr, const uint32_t* __restrict__ sample,
@@ -87,7 +100,9 @@ PT_FN void bounce_lane(const Tables& T, uint32_t seed, int nee, int vol_nee, int
                        float* __restrict__ thr_mult, uint8_t* __restrict__ terminate,
                        float* __restrict__ wspec, float* __restrict__ rru,
                        float* __restrict__ out_medium, float* __restrict__ replay_gid,
-                       float* __restrict__ replay_nee) {
+                       float* __restrict__ replay_nee, float* __restrict__ tex_u = nullptr,
+                       float* __restrict__ tex_v = nullptr,
+                       float* __restrict__ tex_slot = nullptr) {
   const V3 o = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
   const V3 d = v3(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
   const V3 t = v3(thr[3 * i], thr[3 * i + 1], thr[3 * i + 2]);
@@ -96,7 +111,8 @@ PT_FN void bounce_lane(const Tables& T, uint32_t seed, int nee, int vol_nee, int
   const float* mi = medium + (size_t)mw * i;
   Medium med{};
   if constexpr (kVol) med = Medium{v3(mi[0], mi[1], mi[2]), mi[3], mw > 4 ? mi[4] : 0.0f};
-  const Bounce b = bounce<true, kVol, kHg>(T, base, dep, nee, o, d, t, prev[i], med, vol_nee);
+  const Bounce b =
+      bounce<true, kVol, kHg, kSurf, kTex>(T, base, dep, nee, o, d, t, prev[i], med, vol_nee);
   const V3* vec[4] = {&b.contrib, &b.next_o, &b.next_d, &b.thr_mult};
   float* out[4] = {contrib, next_o, next_d, thr_mult};
   for (int k = 0; k < 4; ++k) {
@@ -121,6 +137,11 @@ PT_FN void bounce_lane(const Tables& T, uint32_t seed, int nee, int vol_nee, int
     replay_gid[i] = (float)b.gid;
     replay_nee[i] = b.nee_add ? 1.0f : 0.0f;
   }
+  if constexpr (kTex) {
+    tex_u[i] = b.tex_u;
+    tex_v[i] = b.tex_v;
+    tex_slot[i] = b.tex_slot;
+  }
 }
 
 }  // namespace pt
@@ -136,8 +157,9 @@ constexpr int THREADS = 128;
 // kMesh = false compiles the analytic kernel: its mesh tables are a
 // constant n = 0, and the sweep drops out of the code (and of the register
 // budget) as in the kernels that never take meshes.  kVol / kHg compile the
-// participating-media blocks in, as in trace.cu.
-template <bool kMesh, bool kVol, bool kHg>
+// participating-media blocks in, kSurf the surface blocks, as in trace.cu;
+// kTex writes the deferred texel's planes.
+template <bool kMesh, bool kVol, bool kHg, bool kSurf, bool kTex>
 __global__ void __launch_bounds__(THREADS)
 bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mtab, int M,
               const float* __restrict__ ltab, const float* __restrict__ scal, uint32_t seed,
@@ -150,7 +172,8 @@ bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ m
               uint8_t* __restrict__ terminate, float* __restrict__ wspec,
               float* __restrict__ rru, float* __restrict__ out_medium,
               float* __restrict__ replay_gid, float* __restrict__ replay_nee, int vol_nee,
-              int mw, MeshTables mesh) {
+              int mw, int surf, float* __restrict__ tex_u, float* __restrict__ tex_v,
+              float* __restrict__ tex_slot, MeshTables mesh) {
   extern __shared__ float smem[];
   float* s_g = smem;
   float* s_m = s_g + G * GCOLS;
@@ -163,14 +186,26 @@ bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ m
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
   const Tables T{s_g, s_m, s_l, G, scal[0], scal[1] > 0.5f,
-                 kMesh ? mesh : MeshTables{nullptr, nullptr, nullptr, nullptr, 0}};
-  bounce_lane<kVol, kHg>(T, seed, nee, vol_nee, mw, (size_t)idx, origin, direction, thr, sample,
-                         depth, prev, medium, contrib, next_o, next_d, thr_mult, terminate, wspec,
-                         rru, out_medium, replay_gid, replay_nee);
+                 kMesh ? mesh : MeshTables{nullptr, nullptr, nullptr, nullptr, 0},
+                 kSurf ? surf : 0};
+  bounce_lane<kVol, kHg, kSurf, kTex>(T, seed, nee, vol_nee, mw, (size_t)idx, origin, direction,
+                                      thr, sample, depth, prev, medium, contrib, next_o, next_d,
+                                      thr_mult, terminate, wspec, rru, out_medium, replay_gid,
+                                      replay_nee, tex_u, tex_v, tex_slot);
+}
+
+// the instance of one media case (vacuum, volumetric, volumetric + HG)
+template <bool kMesh, bool kSurf, bool kTex>
+decltype(&bounce_kernel<false, false, false, false, false>) media_instance(int vol, int hg) {
+  return !vol ? bounce_kernel<kMesh, false, false, kSurf, kTex>
+              : (hg ? bounce_kernel<kMesh, true, true, kSurf, kTex>
+                    : bounce_kernel<kMesh, true, false, kSurf, kTex>);
 }
 
 }  // namespace
 
+// tex_u / tex_v / tex_slot not null: the deferred-texel variant (with surf
+// and without meshes; the wrapper checks both)
 extern "C" int bounce_launch(const float* gtab, int G, const float* mtab, int M,
                              const float* ltab, const float* scal, unsigned int seed, int nee,
                              int n, const float* origin, const float* direction,
@@ -179,24 +214,29 @@ extern "C" int bounce_launch(const float* gtab, int G, const float* mtab, int M,
                              float* next_o, float* next_d, float* thr_mult,
                              unsigned char* terminate, float* wspec, float* rru,
                              float* out_medium, float* replay_gid, float* replay_nee, int vol,
-                             int hg, int vol_nee, int mw, const float* mtri, const float* maabb,
+                             int hg, int vol_nee, int mw, int surf, float* tex_u, float* tex_v,
+                             float* tex_slot, const float* mtri, const float* maabb,
                              const float* mnorm, const int* mdesc, int n_mesh, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + THREADS - 1) / THREADS;
   const size_t smem = sizeof(float) * (size_t)(G * GCOLS + M * MCOLS + G * LCOLS);
   const MeshTables mesh{mtri, maabb, mnorm, mdesc, n_mesh};
-  // the instance: mesh sweep or not x vacuum, volumetric, volumetric + HG
-  decltype(&bounce_kernel<false, false, false>) kernel;
-  if (n_mesh > 0)
-    kernel = !vol ? bounce_kernel<true, false, false>
-                  : (hg ? bounce_kernel<true, true, true> : bounce_kernel<true, true, false>);
+  // the instance: mesh sweep or not x media x surface blocks or not, and the
+  // deferred texel
+  const bool tex = tex_u != nullptr;
+  decltype(&bounce_kernel<false, false, false, false, false>) kernel;
+  if (tex)
+    kernel = media_instance<false, true, true>(vol, hg);
+  else if (n_mesh > 0)
+    kernel = surf ? media_instance<true, true, false>(vol, hg)
+                  : media_instance<true, false, false>(vol, hg);
   else
-    kernel = !vol ? bounce_kernel<false, false, false>
-                  : (hg ? bounce_kernel<false, true, true> : bounce_kernel<false, true, false>);
+    kernel = surf ? media_instance<false, true, false>(vol, hg)
+                  : media_instance<false, false, false>(vol, hg);
   kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       gtab, G, mtab, M, ltab, scal, seed, nee, n, origin, direction, thr, sample, depth, prev,
       medium, contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
-      replay_nee, vol_nee, mw, mesh);
+      replay_nee, vol_nee, mw, surf, tex_u, tex_v, tex_slot, mesh);
   return (int)cudaGetLastError();
 }
 

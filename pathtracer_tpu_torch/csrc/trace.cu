@@ -54,6 +54,14 @@
 // material into refractive and opaque).  The launcher picks the instance
 // from the volumetric and hg flags, so vacuum scenes run the vacuum code.
 //
+// Optional surface physics (kernel 1 with the texture, bump, microfacet and
+// ward blocks, bounce_pallas.py:645-706,756-783,1054-1074,1121-1138): the
+// kSurf instance runs pt::bounce's surface blocks, which the feature bits
+// `surf` switch on (a uniform branch per block) and the material columns
+// select per lane, so a lobe compiled in but not selected changes nothing,
+// as JAX's where-selection.  The launcher picks it for surf != 0 (any mesh
+// and media combination), so scenes without the features keep their code.
+//
 // What bounds it on the H100: operations, not bytes.  A lane reads 28 bytes
 // (origin, direction, sample) and writes 12, about 26 MB per 640,000-lane
 // iteration (~8 us at 3.35 TB/s), while every bounce costs two sweeps over
@@ -77,7 +85,7 @@ namespace pt {
 // bounces it traced.  With kVol the lane carries its medium in registers,
 // starting in vacuum (kHg: with the phase g).  Also compiled as host C++
 // by tests/kernel_host_harness.cpp.
-template <bool kVol = false, bool kHg = false>
+template <bool kVol = false, bool kHg = false, bool kSurf = false>
 PT_FN V3 trace_lane(const Tables& T, uint32_t seed, uint32_t s, V3 o, V3 d, int max_depth,
                     int nee, int rr, int rr_start, bool alive, unsigned int& bounces,
                     int vol_nee = 1) {
@@ -90,8 +98,8 @@ PT_FN V3 trace_lane(const Tables& T, uint32_t seed, uint32_t s, V3 o, V3 d, int 
     ++bounces;
     int gid;
     bool nee_add;
-    bounce_step<kVol, kHg>(T, bounce_base(seed, s_term, dep), dep, nee, rr, rr_start, o, d, thr,
-                           prev_state, rad, alive, gid, nee_add, &med, vol_nee);
+    bounce_step<kVol, kHg, kSurf>(T, bounce_base(seed, s_term, dep), dep, nee, rr, rr_start, o, d,
+                                  thr, prev_state, rad, alive, gid, nee_add, &med, vol_nee);
   }
   return rad;
 }
@@ -108,15 +116,15 @@ using namespace pt;
 // constant n = 0, and the sweep drops out of the code (and of the register
 // budget) as in the kernels that never take meshes.  kVol / kHg compile the
 // participating-media blocks in (pt::bounce); without them the code is the
-// vacuum kernel's.
-template <bool kMesh, bool kVol, bool kHg>
+// vacuum kernel's.  kSurf compiles the surface blocks in.
+template <bool kMesh, bool kVol, bool kHg, bool kSurf>
 __global__ void __launch_bounds__(128)
 trace_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mtab, int M,
              const float* __restrict__ ltab, const float* __restrict__ scal, uint32_t seed,
              const float* __restrict__ origin, const float* __restrict__ direction,
              const uint32_t* __restrict__ sample, int n, float* __restrict__ radiance,
              unsigned long long* __restrict__ nrays, int max_depth, int nee, int rr,
-             int rr_start, int vol_nee, MeshTables mesh) {
+             int rr_start, int vol_nee, int surf, MeshTables mesh) {
   extern __shared__ float smem[];
   float* s_g = smem;
   float* s_m = s_g + G * GCOLS;
@@ -128,7 +136,8 @@ trace_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mt
 
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   const Tables T{s_g, s_m, s_l, G, scal[0], scal[1] > 0.5f,
-                 kMesh ? mesh : MeshTables{nullptr, nullptr, nullptr, nullptr, 0}};
+                 kMesh ? mesh : MeshTables{nullptr, nullptr, nullptr, nullptr, 0},
+                 kSurf ? surf : 0};
 
   const bool alive = idx < n;
   V3 o = v3(0.0f, 0.0f, 0.0f), d = o;
@@ -139,7 +148,7 @@ trace_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mt
     s = sample[idx];
   }
   unsigned int bounces = 0;
-  const V3 rad = trace_lane<kVol, kHg>(T, seed, s, o, d, max_depth, nee, rr, rr_start, alive,
+  const V3 rad = trace_lane<kVol, kHg, kSurf>(T, seed, s, o, d, max_depth, nee, rr, rr_start, alive,
                                        bounces, vol_nee);
 
   if (idx < n) {
@@ -154,6 +163,14 @@ trace_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mt
   if ((threadIdx.x & 31) == 0 && c) atomicAdd(nrays, c);
 }
 
+// the instance of one media case (vacuum, volumetric, volumetric + HG)
+template <bool kMesh, bool kSurf>
+decltype(&trace_kernel<false, false, false, false>) media_instance(int vol, int hg) {
+  return !vol ? trace_kernel<kMesh, false, false, kSurf>
+              : (hg ? trace_kernel<kMesh, true, true, kSurf>
+                    : trace_kernel<kMesh, true, false, kSurf>);
+}
+
 }  // namespace
 
 extern "C" int trace_launch(const float* gtab, int G, const float* mtab, int M,
@@ -161,25 +178,23 @@ extern "C" int trace_launch(const float* gtab, int G, const float* mtab, int M,
                             const float* origin, const float* direction,
                             const unsigned int* sample, int n, float* radiance,
                             unsigned long long* nrays, int max_depth, int nee, int rr,
-                            int rr_start, int vol, int hg, int vol_nee, const float* mtri,
-                            const float* maabb, const float* mnorm, const int* mdesc,
-                            int n_mesh, void* stream) {
+                            int rr_start, int vol, int hg, int vol_nee, int surf,
+                            const float* mtri, const float* maabb, const float* mnorm,
+                            const int* mdesc, int n_mesh, void* stream) {
   if (n <= 0) return 0;
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
   const size_t smem = sizeof(float) * (size_t)(G * pt::GCOLS + M * pt::MCOLS + G * pt::LCOLS);
   const pt::MeshTables mesh{mtri, maabb, mnorm, mdesc, n_mesh};
-  // the instance: mesh sweep or not x vacuum, volumetric, volumetric + HG
-  decltype(&trace_kernel<false, false, false>) kernel;
-  if (n_mesh > 0)
-    kernel = !vol ? trace_kernel<true, false, false>
-                  : (hg ? trace_kernel<true, true, true> : trace_kernel<true, true, false>);
-  else
-    kernel = !vol ? trace_kernel<false, false, false>
-                  : (hg ? trace_kernel<false, true, true> : trace_kernel<false, true, false>);
+  // the instance: mesh sweep or not x vacuum, volumetric, volumetric + HG x
+  // surface blocks or not
+  const auto kernel = n_mesh > 0 ? (surf ? media_instance<true, true>(vol, hg)
+                                         : media_instance<true, false>(vol, hg))
+                                 : (surf ? media_instance<false, true>(vol, hg)
+                                         : media_instance<false, false>(vol, hg));
   kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       gtab, G, mtab, M, ltab, scal, seed, origin, direction, sample, n, radiance, nrays,
-      max_depth, nee, rr, rr_start, vol_nee, mesh);
+      max_depth, nee, rr, rr_start, vol_nee, surf, mesh);
   return (int)cudaGetLastError();
 }
 

@@ -43,6 +43,17 @@ constexpr float INV_FOUR_PI = (float)(1.0 / (4.0 * 3.14159265358979323846));
 constexpr float FOUR_PI = (float)(4.0 * 3.14159265358979323846);
 constexpr float SPHERE = 0.0f;
 constexpr float CUBE = 1.0f;
+constexpr float HALF_PI = (float)(0.5 * 3.14159265358979323846);
+constexpr float PI = (float)3.14159265358979323846;
+constexpr float INV_TWO_PI = (float)(1.0 / (2.0 * 3.14159265358979323846));
+constexpr float ONE_MINUS_1E7 = (float)(1.0 - 1e-7);
+
+// the surface feature bits of a launch (ops/trace.py:surface_bits): which of
+// the kSurf instance's blocks run, as RenderConfig.features gates them
+constexpr int SURF_TEXTURE = 1;
+constexpr int SURF_BUMP = 2;
+constexpr int SURF_MICROFACET = 4;
+constexpr int SURF_WARD = 8;
 
 struct V3 {
   float x, y, z;
@@ -356,9 +367,133 @@ PT_FN bool fresnel_reflects(float ior_i, float ior_t, float eta, float cos_i, bo
   return u2 < fres_r;
 }
 
+// ---- the optional surface blocks of the kSurf instances (ops/bounce.py) ----
+
+// JAX's integer powers lower to repeated multiplication (x ** 5 is
+// x * ((x*x) * (x*x)), x ** 3 is x * (x*x)); Ward's 1 / sqrt is a division,
+// not rsqrtf, as there.
+
+// Smith's G1 of the GGX distribution with alpha^2 = a2
+PT_FN float smith_g1(float c, float a2) {
+  c = fminf(fmaxf(c, 1e-6f), 1.0f);
+  return 2.0f * c / (c + sqrtf(a2 + (1.0f - a2) * c * c));
+}
+
+// the Cook-Torrance GGX lobe (ops/bounce.py:ggx_planes): direction, weight
+PT_FN void ggx_lobe(const float* mat, V3 n, V3 d_in, float cos_i, float u0, float u1, V3& dir,
+                    V3& weight) {
+  const float alpha = fminf(fmaxf(mat[25] * mat[25], 1e-4f), 1.0f);
+  const float a2 = alpha * alpha;
+  const float xi1 = fminf(fmaxf(u0, 1e-7f), ONE_MINUS_1E7);
+  const float cos_h =
+      sqrtf(fminf(fmaxf((1.0f - xi1) / (1.0f + (a2 - 1.0f) * xi1), 0.0f), 1.0f));
+  const V3 h = rotate_about(n, cos_h, u1 * TWO_PI);
+  dir = reflect(d_in, h);
+  const float wo_dot_h = -vdot(d_in, h);
+  const float cos_o = vdot(dir, n);
+  const bool valid = cos_o > 0.0f && wo_dot_h > 0.0f;
+  const float ci = fminf(fmaxf(cos_i, 1e-6f), 1.0f);
+  const float g = smith_g1(ci, a2) * smith_g1(cos_o, a2);
+  const float x = fmaxf(1.0f - wo_dot_h, 0.0f);
+  const float f5 = x * ((x * x) * (x * x));
+  const float w = g * wo_dot_h / fmaxf(ci * cos_h, 1e-6f);
+  if (valid) {
+    weight = v3(w * (mat[3] + (1.0f - mat[3]) * f5), w * (mat[4] + (1.0f - mat[4]) * f5),
+                w * (mat[5] + (1.0f - mat[5]) * f5));
+  } else {
+    const float z = 0.0f * w;
+    weight = v3(z, z, z);
+  }
+}
+
+// the Ward lobe (ops/bounce.py:ward_planes): direction, weight
+PT_FN void ward_lobe(const float* mat, V3 n, V3 d_in, float cos_i, float u0, float u1, V3& dir,
+                     V3& weight) {
+  const float ax_ = fminf(fmaxf(mat[25], 1e-3f), 1.0f);
+  const float ay_ = fminf(fmaxf(mat[26] > 0.0f ? mat[26] : mat[25], 1e-3f), 1.0f);
+  const float xi1 = fminf(fmaxf(u0, 1e-7f), ONE_MINUS_1E7);
+  const float beta = TWO_PI * u1;
+  const float cb = cosf(beta), sb = sinf(beta);
+  const float d_inv = ax_ * ax_ * cb * cb + ay_ * ay_ * sb * sb;
+  const float inv_len = 1.0f / sqrtf(fmaxf(d_inv, 1e-12f));
+  const float cos_phi = ax_ * cb * inv_len;
+  const float sin_phi = ay_ * sb * inv_len;
+  const float tan2 = -logf(xi1) * d_inv;
+  const float cos_th = 1.0f / sqrtf(1.0f + tan2);
+  const float sin_th = sqrtf(fmaxf(1.0f - cos_th * cos_th, 0.0f));
+  V3 t1, t2;
+  not_axis_frame(n, t1, t2);
+  const V3 h = vadd(vscale(cos_th, n),
+                    vadd(vscale(sin_th * cos_phi, t1), vscale(sin_th * sin_phi, t2)));
+  dir = reflect(d_in, h);
+  const float wi_dot_h = -vdot(d_in, h);
+  const float cos_o = vdot(dir, n);
+  const bool valid = cos_o > 0.0f && wi_dot_h > 0.0f;
+  const float w = wi_dot_h * (cos_th * (cos_th * cos_th)) *
+                  sqrtf(fmaxf(cos_o, 0.0f) / fminf(fmaxf(cos_i, 1e-6f), 1.0f));
+  if (valid) {
+    weight = vscale(w, v3(mat[3], mat[4], mat[5]));
+  } else {
+    const float z = 0.0f * w;
+    weight = v3(z, z, z);
+  }
+}
+
+// floor-mod by 2 (torch.remainder, jnp.mod): fmodf truncates, so a negative
+// cell would give -1
+PT_FN float floor_mod2(float x) {
+  float m = fmodf(x, 2.0f);
+  if (m != 0.0f && m < 0.0f) m += 2.0f;
+  return m;
+}
+
+// the checker / stripes albedo in the object space (image textures, type 3,
+// are the deferred texel's)
+PT_FN V3 texture_albedo(const float* mat, V3 p_obj, V3 color) {
+  const float ts = mat[17], tt = mat[16];
+  const float cx = floorf(p_obj.x * ts), cy = floorf(p_obj.y * ts), cz = floorf(p_obj.z * ts);
+  const float pattern = tt > 1.5f ? floor_mod2(cx) : floor_mod2(cx + cy + cz);
+  return (tt > 0.5f && tt < 2.5f && pattern > 0.5f) ? v3(mat[18], mat[19], mat[20]) : color;
+}
+
+// the sinusoidal bump of the shading normal, on a lane whose bump scale is
+// positive
+PT_FN V3 bump_normal(const float* mat, V3 p_obj, V3 normal) {
+  V3 t1, t2;
+  not_axis_frame(normal, t1, t2);
+  const float ph1 = p_obj.x * (float)12.9898 + p_obj.y * (float)78.233 + p_obj.z * (float)37.719;
+  const float ph2 = p_obj.x * (float)93.989 + p_obj.y * (float)26.651 + p_obj.z * (float)61.312;
+  const float amp = mat[22], bs = mat[21];
+  return vnormalize(
+      vadd(normal, vadd(vscale(amp * sinf(bs * ph1), t1), vscale(amp * sinf(bs * ph2), t2))));
+}
+
+// JAX's plane atan2 (ops/bounce.py:atan2_planes): an octant-reduced minimax
+// polynomial, not libm
+PT_FN float atan2_poly(float y, float x) {
+  const float ax = fabsf(x), ay = fabsf(y);
+  const bool swap = ay > ax;
+  const float r = fminf(ax, ay) / fmaxf(fmaxf(ax, ay), 1e-30f);
+  const float z = r * r;
+  const float p =
+      r * ((float)0.99997726 +
+           z * ((float)-0.33262347 +
+                z * ((float)0.19354346 +
+                     z * ((float)-0.11643287 + z * ((float)0.05265332 + z * (float)-0.01172120)))));
+  float a = swap ? HALF_PI - p : p;
+  a = x < 0.0f ? PI - a : a;
+  return y < 0.0f ? -a : a;
+}
+
+PT_FN float asin_poly(float x) { return atan2_poly(x, sqrtf(fmaxf(1.0f - x * x, 0.0f))); }
+
 // BSDF continuation sample at a non-emissive hit (ops/bounce.py:sample_bsdf)
-PT_FN Scatter sample_bsdf(const float* mat, V3 p, V3 n_raw, V3 d_in, float u0, float u1,
-                          float u2) {
+// with the diffuse albedo `color`.  With kSurf and the microfacet bit of
+// `surf`, a reflective lane whose BRDF model is 1 takes the Cook-Torrance
+// lobe, 2 (with the Ward bit) the Ward lobe.
+template <bool kSurf = false>
+PT_FN Scatter sample_bsdf_c(const float* mat, V3 color, V3 p, V3 n_raw, V3 d_in, float u0,
+                            float u1, float u2, int surf = 0) {
   float cos_raw = vdot(d_in, n_raw);
   bool entering = cos_raw < 0.0f;
   V3 n = entering ? n_raw : vscale(-1.0f, n_raw);
@@ -366,7 +501,9 @@ PT_FN Scatter sample_bsdf(const float* mat, V3 p, V3 n_raw, V3 d_in, float u0, f
 
   bool is_refractive = mat[7] > 0.0f;
   bool is_reflective = !is_refractive && (mat[6] > 0.0f);
-  bool is_glossy = is_reflective && (mat[10] > 0.0f);
+  bool is_ct = false;
+  if constexpr (kSurf) is_ct = (surf & SURF_MICROFACET) && is_reflective && mat[24] > 0.5f;
+  bool is_glossy = is_reflective && (mat[10] > 0.0f) && !is_ct;
 
   Scatter s;
   s.is_specular = is_refractive || is_reflective;
@@ -389,6 +526,11 @@ PT_FN Scatter sample_bsdf(const float* mat, V3 p, V3 n_raw, V3 d_in, float u0, f
     s.thr = v3(mat[3], mat[4], mat[5]);
     s.transmitted = !choose_reflect && refr_valid;
     if (s.transmitted) bias = -RAY_BIAS;
+  } else if (kSurf && is_ct) {
+    if ((surf & SURF_WARD) && mat[24] > 1.5f)
+      ward_lobe(mat, n, d_in, cos_i, u0, u1, s.direction, s.thr);
+    else
+      ggx_lobe(mat, n, d_in, cos_i, u0, u1, s.direction, s.thr);
   } else if (is_glossy) {
     V3 d_mirror = reflect(d_in, n);
     float exp_n = fmaxf(mat[10], 1e-6f);
@@ -404,10 +546,16 @@ PT_FN Scatter sample_bsdf(const float* mat, V3 p, V3 n_raw, V3 d_in, float u0, f
     s.thr = v3(mat[3], mat[4], mat[5]);
   } else {
     s.direction = cosine_hemisphere(n, u0, u1);
-    s.thr = v3(mat[0], mat[1], mat[2]);
+    s.thr = color;
   }
   s.origin = vadd(p, vscale(bias, n));
   return s;
+}
+
+// the base lobes with the material's own albedo
+PT_FN Scatter sample_bsdf(const float* mat, V3 p, V3 n_raw, V3 d_in, float u0, float u1,
+                          float u2) {
+  return sample_bsdf_c<false>(mat, v3(mat[0], mat[1], mat[2]), p, n_raw, d_in, u0, u1, u2);
 }
 
 // the light pick and the object-space point and normal on it
@@ -462,6 +610,7 @@ struct Tables {
   float total_area;  // scal[0]
   bool any_light;    // scal[1] > 0.5
   MeshTables mesh;   // the in-kernel triangle sweep; mesh.n = 0 for none
+  int surf = 0;      // the surface feature bits (SURF_*) of a kSurf instance
 };
 
 // The medium a lane travels through (render/common.py's medium_sigma):
@@ -482,6 +631,7 @@ struct Bounce {
   int gid;         // winner geom, -1 on a miss
   bool nee_add;    // the NEE connection counted
   Medium medium;   // the medium the continuation travels through
+  float tex_u, tex_v, tex_slot;  // kTex: the deferred texel's scaled UV and atlas slot
 };
 
 // The light pick of one bounce (uniforms 4..7): world point, unit normal
@@ -526,7 +676,20 @@ PT_FN LightSample light_sample(const Tables& T, uint32_t base) {
 // attenuated segment, opaque ones block.  A transmission into a material
 // takes its medium, out of one returns to vacuum.  kVol = false is vacuum
 // transport and compiles to the code without media; `med` passes through.
-template <bool kMaskFree, bool kVol = false, bool kHg = false>
+//
+// kSurf (the texture, bump, microfacet and ward features, bounce_pallas.py:
+// 645-706,756-783,1054-1074,1121-1138): the blocks T.surf names run, each
+// selected per lane on the material columns, in JAX's order: the checker /
+// stripes albedo in the winner's object space (the analytic one, or the
+// mesh's) before the emittance, the bump of the shading normal before NEE
+// and the BSDF, and the Cook-Torrance / Ward lobes in the BSDF.  The albedo
+// feeds the emittance, NEE and the diffuse multiplier.  kTex (kernel 2's
+// deferred-texel variant, :1076-1119, with kSurf and without meshes) also
+// writes the texture-scaled UV of the hit, from the polynomial atan2, and
+// the atlas slot of an image-textured surface event (-1 otherwise); the
+// caller multiplies the texel in.  Without them the code is the base one.
+template <bool kMaskFree, bool kVol = false, bool kHg = false, bool kSurf = false,
+          bool kTex = false>
 PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d, V3 thr,
                     float prev_state, Medium med = Medium{}, int vol_nee = 1) {
   Bounce b;
@@ -571,7 +734,26 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
   const float* gw = T.g + gid * GCOLS;  // geom 0's row on a miss
   const float* mat = T.m + (mb ? mh.mid : (a_hit ? (int)gw[13] : 0)) * MCOLS;
   const bool emissive = mat[9] > 0.0f;
-  const V3 color = v3(mat[0], mat[1], mat[2]);
+  V3 color = v3(mat[0], mat[1], mat[2]);
+  V3 p_obj_s = color;  // kSurf: the winner's object-space hit point
+  if constexpr (kSurf) {
+    p_obj_s = mb ? mh.p_obj : vadd(w_o, vscale(hit ? best_t : 1.0f, w_d));
+    if (T.surf & SURF_TEXTURE) color = texture_albedo(mat, p_obj_s, color);
+  }
+  if constexpr (kTex) {
+    const V3 q = p_obj_s;
+    const float u_sph = atan2_poly(q.z, q.x) * INV_TWO_PI + 0.5f;
+    const float v_sph = asin_poly(fminf(fmaxf(q.y * 2.0f, -1.0f), 1.0f)) * INV_PI + 0.5f;
+    const float sx = fabsf(q.x), sy = fabsf(q.y), sz = fabsf(q.z);
+    const bool ax0 = sx >= sy && sx >= sz;
+    const bool ax2 = !ax0 && !(sy >= sz);
+    const float u_box = (ax0 ? q.z : q.x) + 0.5f;
+    const float v_box = (ax2 ? q.y : (ax0 ? q.y : q.z)) + 0.5f;
+    const bool sph = a_hit && gw[12] == SPHERE;
+    b.tex_u = (sph ? u_sph : u_box) * mat[17];
+    b.tex_v = (sph ? v_sph : v_box) * mat[17];
+    b.tex_slot = (mat[16] > 2.5f && hit) ? mat[23] : -1.0f;
+  }
 
   // ---- volumetric free path and the segment's attenuation
   float free_path = BIG;
@@ -581,6 +763,7 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
     if (med.s > 0.0f)
       free_path = -logf(fminf(fmaxf(1.0f - uniform(base, 8), 1e-7f), 1.0f)) / fmaxf(med.s, 1e-12f);
     vol_scatter = hit && free_path < best_t;
+    if (kTex && vol_scatter) b.tex_slot = -1.0f;  // no surface event this bounce
     const float seg = vol_scatter ? free_path : (hit ? best_t : 0.0f);
     atten = v3(expf(-med.a.x * seg), expf(-med.a.y * seg), expf(-med.a.z * seg));
     thr = vmul(thr, atten);
@@ -605,9 +788,12 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
     const V3 n_obj = object_normal(a_hit && gw[12] == SPHERE, p_obj);
     normal = vnormalize(world_normal_raw(gw, n_obj));
   }
+  if constexpr (kSurf) {
+    if ((T.surf & SURF_BUMP) && mat[21] > 0.0f) normal = bump_normal(mat, p_obj_s, normal);
+  }
 
-  const Scatter sc = sample_bsdf(mat, p, normal, d, uniform(base, 0), uniform(base, 1),
-                                 uniform(base, 2));
+  const Scatter sc = sample_bsdf_c<kSurf>(mat, color, p, normal, d, uniform(base, 0),
+                                          uniform(base, 1), uniform(base, 2), T.surf);
 
   // ---- next-event estimation at diffuse surface hits
   if (nee && hit && !emissive && !sc.is_specular && !vol_scatter && T.any_light) {
@@ -741,14 +927,14 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
 // russian-roulette death keeps the rescaled throughput, as the plain
 // step_update does).  Reports the winner geom (-1 on a miss) and whether the
 // NEE connection counted: the residuals of the differentiable trace.
-template <bool kVol = false, bool kHg = false>
+template <bool kVol = false, bool kHg = false, bool kSurf = false>
 PT_FN void bounce_step(const Tables& T, uint32_t base, int dep, int nee, int rr, int rr_start,
                        V3& o, V3& d, V3& thr, float& prev_state, V3& rad, bool& alive,
                        int& gid_out, bool& nee_add, Medium* med = nullptr, int vol_nee = 1) {
   Medium m_in{};
   if constexpr (kVol) m_in = *med;
-  const Bounce b = bounce<false, kVol, kHg>(T, base, dep, nee, o, d, thr, prev_state, m_in,
-                                            vol_nee);
+  const Bounce b = bounce<false, kVol, kHg, kSurf>(T, base, dep, nee, o, d, thr, prev_state,
+                                                   m_in, vol_nee);
   gid_out = b.gid;
   nee_add = b.nee_add;
   rad = vadd(rad, b.contrib);  // + 0 where nothing counted: exact

@@ -29,11 +29,16 @@ distance, material, hit point and normal win, while the analytic geom id
 stays), and the shadow ray sweeps the triangles too (``:1251-1254``).
 Participating media (``volumetric``, ``hg``: ``bounce_pallas.py:1140-1168,
 1323-1470``) are modelled forward, with ``mesh_occ_split`` for volumetric
-NEE's shadow ray through in-kernel meshes; the differentiable engines
-refuse them (:func:`check_diff_features`).  The other optional blocks
-(texture, bump, microfacet, ward) and deferred texels belong to later slices
-and raise ``NotImplementedError``.  ``glossy`` is not gated in the JAX
-kernel either.
+NEE's shadow ray through in-kernel meshes.  The optional surface blocks
+(``texture``: the checker / stripes albedo, ``:1054-1074``; ``bump``: the
+sinusoidal bump of the shading normal, ``:1121-1138``; ``microfacet`` and
+``ward``: the Cook-Torrance GGX and Ward lobes, ``:645-706,756-783``) run in
+JAX's order: texture before the bump, the bump before the free path, the
+emittance, NEE and the BSDF.  ``tex_defer`` adds the deferred image texel's
+UV and atlas slot (``:1076-1119``, with the polynomial ``atan2_planes`` /
+``asin_planes`` of ``:580-605``).  The differentiable engines refuse media
+and the surface features (:func:`check_diff_features`).  ``glossy`` is not
+gated in the JAX kernel either.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from pathtracer_tpu_torch.ops.intersect import (
 )
 from pathtracer_tpu_torch.ops.lights import axis_scales, light_areas
 from pathtracer_tpu_torch.ops.mesh_tables import mesh_occ, mesh_occ_split, mesh_sweep
+from pathtracer_tpu_torch.ops.texture import MESH_TEXTURES_MISSING
 from pathtracer_tpu_torch.scene.structs import SPHERE, Scene
 
 TWO_PI = 2.0 * math.pi
@@ -64,8 +70,11 @@ MAT_COLS = 28
 LIGHT_COLS = 19
 
 # features the forward bounce models; "glossy" is always on in the kernel body
-SUPPORTED_FEATURES = frozenset({"glossy", "volumetric", "hg"})
-# features the differentiable engines model: vacuum transport only
+SUPPORTED_FEATURES = frozenset(
+    {"glossy", "volumetric", "hg", "texture", "bump", "microfacet", "ward"})
+# the optional surface blocks, compiled into the kernels' kSurf instance
+SURFACE_FEATURES = ("texture", "bump", "microfacet", "ward")
+# features the differentiable engines model: vacuum transport, base lobes
 DIFF_FEATURES = frozenset({"glossy"})
 
 
@@ -77,7 +86,8 @@ def check_features(features, supported=SUPPORTED_FEATURES, what="the bounce phys
 
 def check_diff_features(features) -> None:
     """The differentiable entry points' gate: the forward models
-    participating media, their gradients are a later slice."""
+    participating media and the surface features, their gradients are a
+    later slice."""
     check_features(features, DIFF_FEATURES, "the differentiable engines")
 
 
@@ -194,8 +204,38 @@ def material_fetch(mtab: torch.Tensor, mid: torch.Tensor) -> dict:
         absorption=(cols[11], cols[12], cols[13]),
         has_scatter=cols[14],
         scatter_coeff=cols[15],
+        texture_type=cols[16],
+        texture_scale=cols[17],
+        texture_color2=(cols[18], cols[19], cols[20]),
+        bump_scale=cols[21],
+        bump_amp=cols[22],
+        texture_image=cols[23],
+        brdf_model=cols[24],
+        roughness=cols[25],
+        roughness_y=cols[26],
         phase_g=cols[27],
     )
+
+
+def atan2_planes(y, x):
+    """JAX's plane atan2 (``bounce_pallas.py:580-601``): an octant-reduced
+    minimax polynomial on [0, 1], within about 2e-7 rad of libm."""
+    ax, ay = torch.abs(x), torch.abs(y)
+    swap = ay > ax
+    num = torch.minimum(ax, ay)
+    den = torch.clamp(torch.maximum(ax, ay), min=1e-30)
+    r = num / den
+    z = r * r
+    p = r * (0.99997726 + z * (-0.33262347 + z * (0.19354346 + z * (
+        -0.11643287 + z * (0.05265332 + z * -0.01172120)))))
+    a = torch.where(swap, 0.5 * math.pi - p, p)
+    a = torch.where(x < 0.0, math.pi - a, a)
+    return torch.where(y < 0.0, -a, a)
+
+
+def asin_planes(x):
+    """``atan2_planes(x, sqrt(1 - x^2))``; ``x`` in [-1, 1]."""
+    return atan2_planes(x, torch.sqrt(torch.clamp(1.0 - x * x, min=0.0)))
 
 
 # ---------------------------------------------------------------------------
@@ -240,8 +280,62 @@ def rotate_about(axis_dir, cos_angle, phi):
     )
 
 
-def sample_bsdf(mat, p, n_raw, d_in, u0, u1, u2):
-    """Continuation ray: diffuse, Phong glossy, mirror or Fresnel glass."""
+def ggx_planes(mat, n, d_in, cos_i, u0, u1):
+    """The Cook-Torrance GGX lobe (``bounce_pallas.py:645-672``):
+    direction and weight; ``x ** 5`` as JAX lowers it."""
+    alpha = torch.clamp(mat["roughness"] * mat["roughness"], 1e-4, 1.0)
+    a2 = alpha * alpha
+    xi1 = torch.clamp(u0, 1e-7, 1.0 - 1e-7)
+    cos_h = torch.sqrt(torch.clamp((1.0 - xi1) / (1.0 + (a2 - 1.0) * xi1), 0.0, 1.0))
+    h = rotate_about(n, cos_h, u1 * TWO_PI)
+    d = vsub(d_in, vscale(2.0 * vdot(d_in, h), h))
+    wo_dot_h = -vdot(d_in, h)
+    cos_o = vdot(d, n)
+    valid = (cos_o > 0.0) & (wo_dot_h > 0.0)
+
+    def g1(c):
+        c = torch.clamp(c, 1e-6, 1.0)
+        return 2.0 * c / (c + torch.sqrt(a2 + (1.0 - a2) * c * c))
+
+    g = g1(torch.clamp(cos_i, 1e-6, 1.0)) * g1(cos_o)
+    x = torch.clamp(1.0 - wo_dot_h, min=0.0)
+    f5 = x * ((x * x) * (x * x))
+    f = tuple(s + (1.0 - s) * f5 for s in mat["spec_color"])
+    w = g * wo_dot_h / torch.clamp(torch.clamp(cos_i, 1e-6, 1.0) * cos_h, min=1e-6)
+    return d, vwhere(valid, vscale(w, f), (0.0 * w,) * 3)
+
+
+def ward_planes(mat, n, d_in, cos_i, u0, u1):
+    """The Ward lobe (``bounce_pallas.py:674-706``): direction and weight;
+    ``1 / sqrt`` is a division, ``cos_th ** 3`` as JAX lowers it."""
+    ax_ = torch.clamp(mat["roughness"], 1e-3, 1.0)
+    ay_ = torch.clamp(torch.where(mat["roughness_y"] > 0.0, mat["roughness_y"], mat["roughness"]),
+                      1e-3, 1.0)
+    xi1 = torch.clamp(u0, 1e-7, 1.0 - 1e-7)
+    beta = TWO_PI * u1
+    cb, sb = torch.cos(beta), torch.sin(beta)
+    d_inv = ax_ * ax_ * cb * cb + ay_ * ay_ * sb * sb
+    inv_len = 1.0 / torch.sqrt(torch.clamp(d_inv, min=1e-12))
+    cos_phi = ax_ * cb * inv_len
+    sin_phi = ay_ * sb * inv_len
+    tan2 = -torch.log(xi1) * d_inv
+    cos_th = 1.0 / torch.sqrt(1.0 + tan2)
+    sin_th = torch.sqrt(torch.clamp(1.0 - cos_th * cos_th, min=0.0))
+    t1, t2 = not_axis_frame(n)
+    h = vadd(vscale(cos_th, n), vadd(vscale(sin_th * cos_phi, t1), vscale(sin_th * sin_phi, t2)))
+    d = vsub(d_in, vscale(2.0 * vdot(d_in, h), h))
+    wi_dot_h = -vdot(d_in, h)
+    cos_o = vdot(d, n)
+    valid = (cos_o > 0.0) & (wi_dot_h > 0.0)
+    w = (wi_dot_h * (cos_th * (cos_th * cos_th))
+         * torch.sqrt(torch.clamp(cos_o, min=0.0) / torch.clamp(cos_i, 1e-6, 1.0)))
+    return d, vwhere(valid, vscale(w, mat["spec_color"]), (0.0 * w,) * 3)
+
+
+def sample_bsdf(mat, p, n_raw, d_in, u0, u1, u2, features=frozenset()):
+    """Continuation ray: diffuse, Phong glossy, mirror or Fresnel glass, and
+    with ``microfacet`` (``ward``) the Cook-Torrance (and Ward) lobe on the
+    reflective lanes whose BRDF model is 1 (2)."""
     cos_raw = vdot(d_in, n_raw)
     entering = cos_raw < 0.0
     n = vwhere(entering, n_raw, vscale(-1.0, n_raw))
@@ -282,8 +376,18 @@ def sample_bsdf(mat, p, n_raw, d_in, u0, u1, u2):
 
     is_refractive = mat["has_refractive"] > 0.0
     is_reflective = (~is_refractive) & (mat["has_reflective"] > 0.0)
-    is_glossy = is_reflective & (mat["spec_exp"] > 0.0)
-    is_mirror = is_reflective & (~is_glossy)
+    microfacet = "microfacet" in features
+    is_ct = torch.zeros_like(is_reflective)
+    if microfacet:
+        is_ct = is_reflective & (mat["brdf_model"] > 0.5)
+        d_ct, ct_weight = ggx_planes(mat, n, d_in, cos_i, u0, u1)
+        if "ward" in features:
+            is_ward = mat["brdf_model"] > 1.5
+            d_wd, wd_weight = ward_planes(mat, n, d_in, cos_i, u0, u1)
+            d_ct = vwhere(is_ward, d_wd, d_ct)
+            ct_weight = vwhere(is_ward, wd_weight, ct_weight)
+    is_glossy = is_reflective & (mat["spec_exp"] > 0.0) & (~is_ct)
+    is_mirror = is_reflective & (~is_glossy) & (~is_ct)
     is_specular = is_refractive | is_reflective
 
     direction = vwhere(
@@ -293,6 +397,9 @@ def sample_bsdf(mat, p, n_raw, d_in, u0, u1, u2):
     )
     thr = vwhere(is_specular, mat["spec_color"], mat["color"])
     thr = vwhere(is_glossy, vscale(glossy_weight, thr), thr)
+    if microfacet:
+        direction = vwhere(is_refractive, d_dielectric, vwhere(is_ct, d_ct, direction))
+        thr = vwhere(is_ct, ct_weight, thr)
     transmitted = is_refractive & (~choose_reflect) & refr_valid
     bias = torch.where(transmitted, -RAY_BIAS, RAY_BIAS)
     return dict(
@@ -374,7 +481,7 @@ def bounce_physics(
     u, depth, prev_state,
     *, nee: bool, t_min: float, features=frozenset(),
     replay=None, emit_replay: bool = False, mesh=None,
-    medium_g=None, vol_nee: bool = True,
+    medium_g=None, vol_nee: bool = True, tex_defer: bool = False,
 ):
     """One bounce for a wavefront of lanes (mask-free: the caller gates with
     its alive mask).  ``o``/``d``/``throughput``/``sigma_a`` are 3-tuples
@@ -417,10 +524,20 @@ def bounce_physics(
     a material takes its medium, out of one back to vacuum.  Without
     ``volumetric`` the medium passes through.
 
+    The surface features (``texture``, ``bump``, ``microfacet``, ``ward``)
+    are selected per lane on the material columns, as the module docstring
+    says; ``tex_defer`` (a scene with image textures, kernel 2's
+    deferred-texel variant) adds ``tex_out``: the texture-scaled UV ``u``,
+    ``v`` and the atlas ``slot`` (-1 where the lane has no image-textured
+    surface event), whose texel the caller multiplies in.
+
     Returns a dict: contrib(3), next_o(3), next_d(3), thr_mult(3),
     terminate (bool), wspec (emit-state code), rru, out_ma(3), out_ms
-    [, out_mg when ``medium_g`` is given] [, replay_gid, replay_nee_add]."""
+    [, out_mg when ``medium_g`` is given] [, replay_gid, replay_nee_add]
+    [, tex_out]."""
     check_features(features)
+    if tex_defer and mesh is not None:
+        raise NotImplementedError(MESH_TEXTURES_MISSING)
     if mesh is not None and (replay is not None or emit_replay):
         raise NotImplementedError("winner replay of mesh scenes: later slice")
     has_vol = "volumetric" in features  # "hg" without "volumetric" is inert
@@ -457,10 +574,53 @@ def bounce_physics(
         hit = best_t < BIG
         t_safe = torch.where(hit, best_t, 1.0)
         p = vadd(o, vscale(t_safe, d))
+        p_obj = vwhere(mb, mh["epo"], p_obj)
         normal = vwhere(mb, mh["en"], normal)
 
     mat = material_fetch(mtab, mid)
     emissive = mat["emittance"] > 0.0
+
+    # ---- procedural checker / stripes albedo in the object space (the
+    # image-textured type 3 is the deferred texel's)
+    if "texture" in features:
+        cells = tuple(torch.floor(c * mat["texture_scale"]) for c in p_obj)
+        checker = torch.remainder(cells[0] + cells[1] + cells[2], 2.0)
+        stripes = torch.remainder(cells[0], 2.0)
+        ttype = mat["texture_type"]
+        pattern = torch.where(ttype > 1.5, stripes, checker)
+        textured = (ttype > 0.5) & (ttype < 2.5) & (pattern > 0.5)
+        mat["color"] = vwhere(textured, mat["texture_color2"], mat["color"])
+
+    tex_out = None
+    if tex_defer:
+        # the deferred image texel's UV: the sphere's longitude / latitude,
+        # the cube's face-local planar map (dominant |p_obj| axis)
+        u_sph = atan2_planes(p_obj[2], p_obj[0]) * (1.0 / TWO_PI) + 0.5
+        v_sph = asin_planes(torch.clamp(p_obj[1] * 2.0, -1.0, 1.0)) * INV_PI + 0.5
+        sx, sy, sz = (torch.abs(c) for c in p_obj)
+        ax0 = (sx >= sy) & (sx >= sz)
+        ax1 = (~ax0) & (sy >= sz)
+        ax2 = (~ax0) & (~ax1)
+        u_box = torch.where(ax0, p_obj[2], p_obj[0]) + 0.5
+        v_box = torch.where(ax2, p_obj[1], torch.where(ax0, p_obj[1], p_obj[2])) + 0.5
+        is_img = (mat["texture_type"] > 2.5) & hit
+        tex_out = dict(
+            u=torch.where(sph, u_sph, u_box) * mat["texture_scale"],
+            v=torch.where(sph, v_sph, v_box) * mat["texture_scale"],
+            slot=torch.where(is_img, mat["texture_image"], -1.0),
+        )
+
+    # ---- sinusoidal bump of the shading normal
+    if "bump" in features:
+        bump_on = mat["bump_scale"] > 0.0
+        t1, t2 = not_axis_frame(normal)
+        ph1 = p_obj[0] * 12.9898 + p_obj[1] * 78.233 + p_obj[2] * 37.719
+        ph2 = p_obj[0] * 93.989 + p_obj[1] * 26.651 + p_obj[2] * 61.312
+        amp = torch.where(bump_on, mat["bump_amp"], 0.0)
+        n_bumped = vnormalize(vadd(normal, vadd(
+            vscale(amp * torch.sin(mat["bump_scale"] * ph1), t1),
+            vscale(amp * torch.sin(mat["bump_scale"] * ph2), t2))))
+        normal = vwhere(bump_on, n_bumped, normal)
 
     # ---- volumetric free path and Beer-Lambert attenuation of the segment
     if has_vol:
@@ -470,6 +630,9 @@ def bounce_physics(
             1e30,
         )
         vol_scatter = hit & (free_path < best_t)
+        if tex_out is not None:
+            # a lane that scatters before its surface has no surface event
+            tex_out["slot"] = torch.where(vol_scatter, -1.0, tex_out["slot"])
         seg = torch.where(vol_scatter, free_path, torch.where(hit, best_t, 0.0))
         atten = tuple(torch.exp(-a * seg) for a in sigma_a)
         throughput = vmul(throughput, atten)
@@ -489,7 +652,7 @@ def bounce_physics(
             emit_mask = emit_mask & after_specular
     contrib = vwhere(emit_mask, emitted, (0.0, 0.0, 0.0))
 
-    sc = sample_bsdf(mat, p, normal, d, u[0], u[1], u[2])
+    sc = sample_bsdf(mat, p, normal, d, u[0], u[1], u[2], features)
 
     add = ls = None
     if nee:
@@ -542,6 +705,8 @@ def bounce_physics(
     )
     if medium_g is not None:
         out["out_mg"] = medium_g
+    if tex_out is not None:
+        out["tex_out"] = tex_out
     if not has_vol:
         # vacuum transport: surface events only, the medium passes through
         if emit_replay:

@@ -29,9 +29,15 @@ triangles for its nearest hit and its shadow ray.  Participating media
 (sigma_a rgb, sigma_s) or ``[N, 5]`` with the phase g when ``hg`` is on
 (:func:`medium_width`; ``bounce_pallas.py:1485-1488,1661,1737``), and the
 kernel runs its ``kVol`` / ``kHg`` instance; in vacuum the medium passes
-through.  The replay variant stays in vacuum.  Larger meshes (the
-mesh-merge variant), image textures (the deferred-texel variant) and the
-other optional blocks raise.
+through.  The replay variant stays in vacuum.  The surface features
+(``texture``, ``bump``, ``microfacet``, ``ward``) run the kernel's ``kSurf``
+instance (``surf_launches``).  A scene with image textures runs the
+deferred-texel variant (``bounce_pallas.py:1076-1119,1772-1793``): both
+versions, with ``tex_defer=True``, also return the texture-scaled UV and the
+atlas slot of each lane, and :func:`bounce_fused` multiplies the bilinear
+texel (``ops/texture.sample_atlas``) into ``contrib`` and, on diffuse
+events, the throughput multiplier (``tex_launches``).  Larger meshes (the
+mesh-merge variant) and image textures on meshes raise.
 """
 
 from __future__ import annotations
@@ -46,14 +52,21 @@ from pathtracer_tpu_torch.ops.bounce import bounce_physics, check_features, pack
 from pathtracer_tpu_torch.ops.intersect import T_MIN
 from pathtracer_tpu_torch.ops.rng import hash_uniforms_planes
 from pathtracer_tpu_torch.ops.mesh_tables import mesh_inkernel_eligible
+from pathtracer_tpu_torch.ops.texture import (
+    MESH_TEXTURES_MISSING,
+    check_texture_scene,
+    sample_atlas,
+)
 from pathtracer_tpu_torch.ops.trace import (
     MEDIA_ARGTYPES,
     MESH_ARGTYPES,
     MESH_MERGE_MISSING,
+    SURF_ARGTYPE,
     check_launch,
     check_tensor,
     media_args,
     mesh_launch_args,
+    surface_bits,
 )
 
 launches = 0  # launches of csrc/bounce.cu in this process, analytic vacuum scenes
@@ -61,6 +74,8 @@ vol_launches = 0  # launches of its volumetric instance (analytic scenes)
 hg_launches = 0  # launches of its volumetric instance with the HG phase
 replay_launches = 0  # launches of its emit_replay variant
 mesh_launches = 0  # launches of its variant with in-kernel mesh tables, media or not
+surf_launches = 0  # launches of its surface instances (no deferred texel), any mesh or media
+tex_launches = 0  # launches of its deferred-texel variant (surface blocks, any media case)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -101,17 +116,27 @@ def _checked_width(medium_sigma, hg: int) -> int:
     return width
 
 
+def _check_variants(emit_replay: bool, tex_defer: bool, mesh) -> None:
+    if emit_replay and tex_defer:
+        raise NotImplementedError("winner replay of image textures: later slice")
+    if tex_defer and mesh is not None:
+        raise NotImplementedError(MESH_TEXTURES_MISSING)
+
+
 def bounce_fused_plain(tables, origin, direction, throughput, sample_idx, depth,
                        prev_specular, medium_sigma, seed: int, *, nee: bool,
                        features=frozenset(), emit_replay: bool = False, mesh=None,
-                       vol_nee: bool = True):
+                       vol_nee: bool = True, tex_defer: bool = False):
     """Plain version of kernel 2.  ``depth`` is an int or a per-lane
     tensor; ``medium_sigma`` ``[N, 4]`` or, with ``hg``, ``[N, 5]``; ``mesh``
     the scene's in-kernel triangle tables or None.  The output medium has
     the input's width: with ``volumetric`` the medium entered (its g column
     zero without ``hg``), without it the input passed through.  Returns a
     :class:`BounceResult`, with ``emit_replay`` the tuple ``(BounceResult,
-    replay_gid [N], replay_nee_add [N])``."""
+    replay_gid [N], replay_nee_add [N])``, with ``tex_defer`` the tuple
+    ``(BounceResult, tex_u [N], tex_v [N], tex_slot [N])``: the deferred
+    texel's texture-scaled UV and atlas slot (-1: no texel)."""
+    _check_variants(emit_replay, tex_defer, mesh)
     gtab, mtab, ltab, scal = tables
     vol, hg, _ = media_args(features, vol_nee)
     width = _checked_width(medium_sigma, hg)
@@ -122,7 +147,7 @@ def bounce_fused_plain(tables, origin, direction, throughput, sample_idx, depth,
         tuple(medium_sigma[:, :3].unbind(-1)), medium_sigma[:, 3],
         gtab, mtab, ltab, scal, u, depth, prev_specular.to(torch.float32),
         nee=nee, t_min=T_MIN, features=features, emit_replay=emit_replay, mesh=mesh,
-        medium_g=medium_sigma[:, 4] if hg else None, vol_nee=vol_nee,
+        medium_g=medium_sigma[:, 4] if hg else None, vol_nee=vol_nee, tex_defer=tex_defer,
     )
     g_col = []
     if width == 5:
@@ -138,6 +163,9 @@ def bounce_fused_plain(tables, origin, direction, throughput, sample_idx, depth,
         rr_uniform=out["rru"],
         next_medium=torch.stack([*out["out_ma"], out["out_ms"], *g_col], dim=-1),
     )
+    if tex_defer:
+        tex = out["tex_out"]
+        return res, tex["u"], tex["v"], tex["slot"]
     return (res, out["replay_gid"], out["replay_nee_add"]) if emit_replay else res
 
 
@@ -153,6 +181,7 @@ def _lib():
             P, P, P, P, P, P, P, P,  # contrib, next o, next d, thr mult, terminate, state, rru, medium
             P, P,  # replay gid, replay NEE bit (null: not written)
             *MEDIA_ARGTYPES, I,  # volumetric, hg, vol_nee; the medium's width
+            SURF_ARGTYPE, P, P, P,  # surface bits; deferred texel u, v, slot (null: none)
             *MESH_ARGTYPES,
             P,  # stream
         ]
@@ -162,16 +191,19 @@ def _lib():
 def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
                       prev_specular, medium_sigma, seed: int, *, nee: bool,
                       features=frozenset(), emit_replay: bool = False, mesh=None,
-                      vol_nee: bool = True):
+                      vol_nee: bool = True, tex_defer: bool = False):
     """Launch kernel 2 on the rays' CUDA device, on the current stream;
-    ``features``, ``emit_replay``, ``mesh`` and ``vol_nee`` as in
-    :func:`bounce_fused_plain`."""
+    ``features``, ``emit_replay``, ``mesh``, ``vol_nee`` and ``tex_defer``
+    as in :func:`bounce_fused_plain`."""
     global launches, replay_launches, mesh_launches, vol_launches, hg_launches
+    global surf_launches, tex_launches
     check_features(features)
+    _check_variants(emit_replay, tex_defer, mesh)
     gtab, mtab, ltab, scal = tables
     device = origin.device
     n = origin.shape[0]
     media = media_args(features, vol_nee)
+    surf = surface_bits(features)
     width = _checked_width(medium_sigma, media[1])
     if mesh is not None and emit_replay:
         raise NotImplementedError("winner replay of mesh scenes: later slice")
@@ -191,6 +223,7 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
     wspec, rru = torch.empty(n, **f32), torch.empty(n, **f32)
     medium = torch.empty((n, width), **f32)
     replay = (torch.empty(n, **f32), torch.empty(n, **f32)) if emit_replay else (None, None)
+    tex = tuple(torch.empty(n, **f32) for _ in range(3)) if tex_defer else (None,) * 3
     err = _lib()(
         gtab.data_ptr(), g, mtab.data_ptr(), m, ltab.data_ptr(), scal.data_ptr(),
         int(seed) & 0xFFFFFFFF, int(bool(nee)), n,
@@ -199,6 +232,7 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
         contrib.data_ptr(), next_o.data_ptr(), next_d.data_ptr(), thr_mult.data_ptr(),
         terminate.data_ptr(), wspec.data_ptr(), rru.data_ptr(), medium.data_ptr(),
         *(None if r is None else r.data_ptr() for r in replay), *media, width,
+        surf, *(None if t is None else t.data_ptr() for t in tex),
         *mesh_launch_args(mesh, device), torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
@@ -209,7 +243,12 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
     if emit_replay:
         replay_launches += 1
         return (res, *replay)
-    if mesh is not None:
+    if tex_defer:
+        tex_launches += 1
+        return (res, *tex)
+    if surf:
+        surf_launches += 1
+    elif mesh is not None:
         mesh_launches += 1
     elif media[1]:
         hg_launches += 1
@@ -229,21 +268,39 @@ def bounce_fused(scene, origin, direction, throughput, sample_idx, depth, prev_s
     check_features(cfg.features)
     if scene.meshes and not mesh_inkernel_eligible(scene.meshes):
         raise NotImplementedError(MESH_MERGE_MISSING)
-    if scene.textures is not None or not cfg.fast_rng:
-        raise NotImplementedError(
-            "per-bounce kernel for image textures or fast_rng=False: later slice"
-        )
+    check_texture_scene(scene)
+    if not cfg.fast_rng:
+        raise NotImplementedError("per-bounce kernel for fast_rng=False: later slice")
     tables = tables if tables is not None else pack_tables(scene)
     if medium_sigma is None:
         medium_sigma = torch.zeros((origin.shape[0], medium_width(cfg.features)),
                                    dtype=torch.float32, device=origin.device)
     args = (tables, origin, direction, throughput, sample_idx, depth, prev_specular,
             medium_sigma, seed)
+    tex_defer = scene.textures is not None
     kw = dict(nee=cfg.nee, features=frozenset(cfg.features), mesh=scene.mesh_tables,
-              vol_nee=cfg.vol_nee)
+              vol_nee=cfg.vol_nee, tex_defer=tex_defer)
     device_type = origin.device.type
     if device_type == "cuda":
-        return bounce_fused_cuda(*args, **kw)
-    if device_type == "cpu":
-        return bounce_fused_plain(*args, **kw)
-    raise ValueError(f"no per-bounce kernel for device type {device_type!r}")
+        out = bounce_fused_cuda(*args, **kw)
+    elif device_type == "cpu":
+        out = bounce_fused_plain(*args, **kw)
+    else:
+        raise ValueError(f"no per-bounce kernel for device type {device_type!r}")
+    return apply_texel(scene.textures, *out) if tex_defer else out
+
+
+def apply_texel(atlas, res: BounceResult, tex_u, tex_v, tex_slot) -> BounceResult:
+    """The deferred texel (``bounce_pallas.py:1772-1793``): the albedo enters
+    ``contrib`` (emittance or NEE, never both on a lane) and the diffuse
+    multiplier linearly, so one bilinear texel multiplies in what the split
+    route folds into the albedo; only diffuse events (emit state 0) carry
+    the albedo in their multiplier."""
+    texel = sample_atlas(atlas, tex_slot, torch.stack([tex_u, tex_v], dim=-1))
+    on = tex_slot >= 0.0
+    diffuse = (on & (res.was_specular < 0.5))[:, None]
+    return dataclasses.replace(
+        res,
+        contrib=res.contrib * torch.where(on[:, None], texel, 1.0),
+        throughput_mult=torch.where(diffuse, res.throughput_mult * texel, res.throughput_mult),
+    )

@@ -1,17 +1,19 @@
 """BSDF sampling of the split per-bounce route: diffuse, Phong glossy,
-mirror and Fresnel glass.
+mirror, Fresnel glass and the Cook-Torrance GGX and Ward lobes.
 
 Port of ``pathtracer_tpu/ops/bsdf.py``: ``RAY_BIAS``, ``MaterialLookup``
 and ``gather_materials`` (``:33-118``), ``cosine_hemisphere``,
 ``_rotate_about``, the in-medium phase functions ``uniform_sphere``,
 ``hg_phase_value`` and ``henyey_greenstein`` (``:178-223``), ``reflect``,
-``refract``, ``fresnel_dielectric`` (``:125-262``) and ``sample_bsdf``
+``refract``, ``fresnel_dielectric`` (``:125-262``), ``ggx_sample``,
+``_kutz_frame`` and ``ward_sample`` (``:276-377``) and ``sample_bsdf``
 (``:378-512``) on ``[N, 3]`` tensors,
 in the JAX package's order of operations.  The JAX gather is a one-hot
 matmul at full precision; here it is a row gather with the same values.
-The Cook-Torrance and Ward lobes (``microfacet``, ``ward``) belong to a
-later slice and raise ``NotImplementedError``.  Discrete choices (the
-dielectric's reflect-or-transmit) are taken on detached values, as there.
+JAX's integer powers (``x ** 5``, ``x ** 3``) lower to repeated
+multiplication, ``x * ((x * x) * (x * x))`` and ``x * (x * x)``; they are
+written out so.  Discrete choices (the dielectric's reflect-or-transmit) are
+taken on detached values, as there.
 
 The fused route's plain version (``ops/bounce.py:sample_bsdf``, on
 component tuples) computes the same lobes in the TPU kernel's order.
@@ -210,13 +212,69 @@ class ScatterSample:
     entering: torch.Tensor  # [N] bool: the ray came from outside
 
 
+def ggx_sample(n, incident, cos_i, roughness, spec_color, xi1, xi2):
+    """Cook-Torrance lobe (GGX distribution, Smith G, Schlick Fresnel):
+    ``(direction [N, 3], weight [N, 3])``, the half-vector sampling
+    estimator ``F G (wo.h) / (cos_i cos_h)``, zero for self-shadowed
+    samples; ``alpha = roughness^2``."""
+    alpha = torch.clamp(roughness * roughness, 1e-4, 1.0)
+    a2 = alpha * alpha
+    xi1 = torch.clamp(xi1, 1e-7, 1.0 - 1e-7)
+    cos_h = torch.sqrt(torch.clamp((1.0 - xi1) / (1.0 + (a2 - 1.0) * xi1), 0.0, 1.0))
+    h = _rotate_about(n, cos_h, xi2 * 2.0 * math.pi)
+    d = reflect(incident, h)
+    wo_dot_h = -_dot(incident, h)
+    cos_o = _dot(d, n)
+    valid = (cos_o > 0.0) & (wo_dot_h > 0.0)
+
+    def g1(c):
+        c = torch.clamp(c, 1e-6, 1.0)
+        return 2.0 * c / (c + torch.sqrt(a2 + (1.0 - a2) * c * c))
+
+    g = g1(torch.clamp(cos_i, 1e-6, 1.0)) * g1(cos_o)
+    x = torch.clamp(1.0 - wo_dot_h, min=0.0)
+    f5 = x * ((x * x) * (x * x))
+    f = spec_color + (1.0 - spec_color) * f5[..., None]
+    w = g * wo_dot_h / torch.clamp(torch.clamp(cos_i, 1e-6, 1.0) * cos_h, min=1e-6)
+    return d, torch.where(valid[..., None], f * w[..., None], 0.0)
+
+
+def ward_sample(n, incident, cos_i, alpha_x, alpha_y, spec_color, xi1, xi2):
+    """Ward anisotropic lobe with Walter's half-vector sampling (TR
+    nvrt-2005, eqs. 6-9): ``(direction, weight)``, weight ``rho_s (wi.h)
+    (n.h)^3 sqrt(cos_o / cos_i)``.  The anisotropy axes are the Kutz frame
+    of ``n``; ``alpha_y <= 0`` is the isotropic case."""
+    ax_ = torch.clamp(alpha_x, 1e-3, 1.0)
+    ay_ = torch.clamp(torch.where(alpha_y > 0.0, alpha_y, alpha_x), 1e-3, 1.0)
+    xi1 = torch.clamp(xi1, 1e-7, 1.0 - 1e-7)
+    beta = 2.0 * math.pi * xi2
+    cb, sb = torch.cos(beta), torch.sin(beta)
+    d_inv = ax_ * ax_ * cb * cb + ay_ * ay_ * sb * sb
+    inv_len = 1.0 / torch.sqrt(torch.clamp(d_inv, min=1e-12))
+    cos_phi = ax_ * cb * inv_len
+    sin_phi = ay_ * sb * inv_len
+    tan2 = -torch.log(xi1) * d_inv
+    cos_th = 1.0 / torch.sqrt(1.0 + tan2)
+    sin_th = torch.sqrt(torch.clamp(1.0 - cos_th * cos_th, min=0.0))
+    t1, t2 = _kutz_frame(n)
+    h = (cos_th[..., None] * n + (sin_th * cos_phi)[..., None] * t1
+         + (sin_th * sin_phi)[..., None] * t2)
+    d = reflect(incident, h)
+    wi_dot_h = -_dot(incident, h)
+    cos_o = _dot(d, n)
+    valid = (cos_o > 0.0) & (wi_dot_h > 0.0)
+    w = (wi_dot_h * (cos_th * (cos_th * cos_th))
+         * torch.sqrt(torch.clamp(cos_o, min=0.0) / torch.clamp(cos_i, 1e-6, 1.0)))
+    return d, torch.where(valid[..., None], spec_color * w[..., None], 0.0)
+
+
 def sample_bsdf(mat: MaterialLookup, position, normal, incident, u, glossy: bool = True,
                 microfacet: bool = False, ward: bool = False) -> ScatterSample:
     """Outgoing direction and throughput multiplier per ray.  ``u`` is
     ``[N, 3]`` (two hemisphere uniforms, one Fresnel choice); ``normal``
-    the geometric world normal, either way round."""
-    if microfacet or ward:
-        raise NotImplementedError("microfacet / ward lobes of sample_bsdf: later slice")
+    the geometric world normal, either way round.  ``glossy``,
+    ``microfacet`` and ``ward`` put the Phong, Cook-Torrance and Ward lobes
+    in the graph, as the feature gates of ``RenderConfig.features``."""
     cos_raw = _dot(incident, normal)
     entering = cos_raw < 0.0
     n = torch.where(entering[..., None], normal, -normal)
@@ -250,19 +308,36 @@ def sample_bsdf(mat: MaterialLookup, position, normal, incident, u, glossy: bool
 
     is_refractive = mat.has_refractive > 0.0
     is_reflective = (~is_refractive) & (mat.has_reflective > 0.0)
-    is_glossy = is_reflective & is_glossy_mat
-    is_mirror = is_reflective & (~is_glossy)
+    if microfacet:
+        # the microfacet family (1 = Cook-Torrance GGX, 2 = Ward) rides one
+        # lane, with each model's direction and weight
+        is_ct = is_reflective & (mat.brdf_model > 0.5)
+        d_ct, ct_weight = ggx_sample(n, incident, cos_i, mat.roughness, mat.specular_color,
+                                     u[..., 0], u[..., 1])
+        if ward:
+            is_ward = (mat.brdf_model > 1.5)[..., None]
+            d_wd, wd_weight = ward_sample(n, incident, cos_i, mat.roughness, mat.roughness_y,
+                                          mat.specular_color, u[..., 0], u[..., 1])
+            d_ct = torch.where(is_ward, d_wd, d_ct)
+            ct_weight = torch.where(is_ward, wd_weight, ct_weight)
+    else:
+        is_ct = torch.zeros_like(is_reflective)
+        d_ct, ct_weight = d_mirror, torch.ones_like(mat.specular_color)
+    is_glossy = is_reflective & is_glossy_mat & (~is_ct)
+    is_mirror = is_reflective & (~is_glossy) & (~is_ct)
     is_specular = is_refractive | is_reflective
 
     direction = torch.where(
         is_refractive[..., None], d_dielectric,
-        torch.where(is_glossy[..., None], d_glossy,
-                    torch.where(is_mirror[..., None], d_mirror, d_diffuse)),
+        torch.where(is_ct[..., None], d_ct,
+                    torch.where(is_glossy[..., None], d_glossy,
+                                torch.where(is_mirror[..., None], d_mirror, d_diffuse))),
     )
     throughput_mult = torch.where(is_specular[..., None], mat.specular_color, mat.color)
     throughput_mult = torch.where(
         is_glossy[..., None], throughput_mult * glossy_weight[..., None], throughput_mult
     )
+    throughput_mult = torch.where(is_ct[..., None], ct_weight, throughput_mult)
     transmitted = is_refractive & (~choose_reflect) & refr_valid
     origin = position + torch.where(transmitted[..., None], -RAY_BIAS * n, RAY_BIAS * n)
     return ScatterSample(direction=direction, origin=origin, throughput_mult=throughput_mult,

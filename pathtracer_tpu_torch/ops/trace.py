@@ -21,6 +21,13 @@ kernel has an instance for each (``kVol``, ``kHg``), picked from
 ``cfg.features`` (:func:`media_args`), so vacuum scenes keep the vacuum
 code; each instance counts its launches.
 
+The optional surface features (``texture``, ``bump``, ``microfacet``,
+``ward``) run in the kernel's ``kSurf`` instance, whose blocks the feature
+bits of :func:`surface_bits` switch on; it counts in ``surf_launches``,
+whatever its mesh and media case.  Image textures are outside the one-kernel
+trace, as in JAX (``trace_pallas.py:196-203``): such scenes run the
+per-bounce scan (``render/megakernel.trace_paths``).
+
 A scene whose meshes total at most ``ops/mesh_tables.MESH_INKERNEL_MAX_TRIS``
 triangles is in the kernel's scope (``trace_pallas.py:185-202``): both
 versions take its in-kernel tables (``mesh=``, the scene's
@@ -39,6 +46,7 @@ from pathtracer_tpu_torch.ops import _build
 from pathtracer_tpu_torch.ops.bounce import (
     LIGHT_COLS,
     MAT_COLS,
+    SURFACE_FEATURES,
     bounce_physics,
     check_features,
     pack_tables,
@@ -55,6 +63,7 @@ vol_launches = 0  # launches of its volumetric instance (analytic scenes)
 hg_launches = 0  # launches of its volumetric instance with the HG phase
 mesh_launches = 0  # launches of its mesh variant (in-kernel triangle tables)
 mesh_vol_launches = 0  # launches of its mesh variant's volumetric instances
+surf_launches = 0  # launches of its instances with the surface blocks, any mesh or media case
 
 
 MESH_MERGE_MISSING = (
@@ -87,6 +96,14 @@ def mesh_launch_args(mesh, device) -> tuple:
 
 MESH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int]  # tri, aabb, norm, desc, count
 MEDIA_ARGTYPES = [ctypes.c_int] * 3  # volumetric, hg, vol_nee
+SURF_ARGTYPE = ctypes.c_int  # the surface feature bits
+
+
+def surface_bits(features) -> int:
+    """The kernels' surface feature bits (``trace_common.cuh`` ``SURF_*``):
+    1 texture, 2 bump, 4 microfacet, 8 ward; 0 runs the instance without
+    the surface blocks."""
+    return sum(1 << i for i, f in enumerate(SURFACE_FEATURES) if f in features)
 
 
 def media_args(features, vol_nee: bool) -> tuple:
@@ -199,7 +216,7 @@ def _lib():
             ctypes.c_int,  # n
             ctypes.c_void_p, ctypes.c_void_p,  # radiance, nrays
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # depth, nee, rr, rr_start
-            *MEDIA_ARGTYPES,
+            *MEDIA_ARGTYPES, SURF_ARGTYPE,
             *MESH_ARGTYPES,
             ctypes.c_void_p,  # stream
         ]
@@ -253,8 +270,9 @@ def trace_cuda(
     on the rays' CUDA device, on the current stream.  The tables are those
     of :func:`pack_tables`, which checks the material ids; ``mesh`` the
     scene's in-kernel triangle tables or None; ``features`` picks the
-    media instance (:func:`media_args`)."""
-    global launches, mesh_launches, vol_launches, hg_launches, mesh_vol_launches
+    media instance (:func:`media_args`) and the surface blocks
+    (:func:`surface_bits`)."""
+    global launches, mesh_launches, vol_launches, hg_launches, mesh_vol_launches, surf_launches
     check_features(features)
     device = origin.device
     n = origin.shape[0]
@@ -266,6 +284,7 @@ def trace_cuda(
     radiance = torch.empty((n, 3), dtype=f32, device=device)
     nrays = torch.zeros((), dtype=torch.int64, device=device)
     media = media_args(features, vol_nee)
+    surf = surface_bits(features)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _lib()(
         gtab.data_ptr(), g, mtab.data_ptr(), m, ltab.data_ptr(), scal.data_ptr(),
@@ -273,11 +292,13 @@ def trace_cuda(
         origin.data_ptr(), direction.data_ptr(), bits.data_ptr(), n,
         radiance.data_ptr(), nrays.data_ptr(),
         int(max_depth), int(bool(nee)), int(bool(rr)), int(rr_start),
-        *media, *mesh_launch_args(mesh, device), stream,
+        *media, surf, *mesh_launch_args(mesh, device), stream,
     )
     if err != 0:
         raise RuntimeError(f"trace kernel launch failed: CUDA error {err}")
-    if mesh is not None and media[0]:
+    if surf:
+        surf_launches += 1
+    elif mesh is not None and media[0]:
         mesh_vol_launches += 1
     elif mesh is not None:
         mesh_launches += 1
@@ -298,7 +319,10 @@ def trace_fused(scene, rays, sample_idx, seed: int, cfg, tables=None):
     if scene.meshes and not mesh_inkernel_eligible(scene.meshes):
         raise NotImplementedError(MESH_MERGE_MISSING)
     if not fused_trace_eligible(scene, cfg):
-        raise NotImplementedError("trace of image textures or fast_rng=False: later slice")
+        raise NotImplementedError(
+            "the one-kernel trace takes no image textures (their scenes run the per-bounce "
+            "scan, render/megakernel.trace_paths) and no fast_rng=False"
+        )
     gtab, mtab, ltab, scal = tables if tables is not None else pack_tables(scene)
     kw = dict(
         max_depth=cfg.max_depth, nee=cfg.nee, rr=cfg.russian_roulette,

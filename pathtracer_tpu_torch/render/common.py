@@ -46,13 +46,21 @@ Meshes above 4096 triangles with volumetric NEE take the split route, as
 in JAX (``:131-153``).  Media are forward only: under ``grad_lean`` they
 raise.
 
-``cfg.pallas`` picks no route in the port.  Texture, bump, the
-Cook-Torrance and Ward lobes, image textures and differentiable meshes
-raise ``NotImplementedError``.
+Optional surface physics (``:238-308``): with ``texture`` the checker /
+stripes albedo and, for a scene with image textures, the bilinear atlas
+texel (``ops/texture.py``) modulate the diffuse albedo; with ``bump`` the
+sinusoidal bump perturbs the shading normal, which NEE and the BSDF then
+use; ``microfacet`` / ``ward`` put the Cook-Torrance and Ward lobes in the
+BSDF.  On the fused route kernel 2 runs its surface instance and, with
+image textures, its deferred-texel variant.  Meshes with image textures and
+the surface features under ``grad_lean`` raise ``NotImplementedError``.
+
+``cfg.pallas`` picks no route in the port.  Differentiable meshes raise.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
@@ -73,6 +81,7 @@ from pathtracer_tpu_torch.ops.intersect_cuda import nearest_hit, occlusion_t, wi
 from pathtracer_tpu_torch.ops.lights import sample_lights
 from pathtracer_tpu_torch.ops.mesh_tables import mesh_inkernel_eligible
 from pathtracer_tpu_torch.ops.rng import hash_uniforms
+from pathtracer_tpu_torch.ops.texture import check_texture_scene, compute_uv, sample_atlas
 from pathtracer_tpu_torch.ops.trace_grad import fused_diff_eligible
 from pathtracer_tpu_torch.scene.structs import Rays
 
@@ -111,10 +120,11 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
     check_features(cfg.features)
     if cfg.grad_lean:
         check_diff_features(cfg.features)
-    if scene.textures is not None or not cfg.fast_rng:
-        raise NotImplementedError(
-            "shade_bounce for image textures or fast_rng=False: later slice"
-        )
+        if scene.textures is not None:
+            raise NotImplementedError("gradients of image textures: later slice")
+    if not cfg.fast_rng:
+        raise NotImplementedError("shade_bounce for fast_rng=False: later slice")
+    check_texture_scene(scene)
     if scene.meshes and cfg.grad_lean:
         raise NotImplementedError("differentiable meshes: later slice")
     tables = tables if tables is not None else pack_tables(scene)
@@ -142,6 +152,52 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
         hit = nearest_hit(rays, gtab, scene.meshes)
     mat = gather_materials(mtab, hit.material_id)
     emissive = mat.emittance > 0.0
+    normal = hit.normal
+
+    if "texture" in cfg.features:
+        # procedural solid texture in the winner's object space
+        cells = torch.floor(hit.position_obj * mat.texture_scale[:, None])
+        checker = torch.remainder(cells[:, 0] + cells[:, 1] + cells[:, 2], 2.0)
+        stripes = torch.remainder(cells[:, 0], 2.0)
+        pattern = torch.where(mat.texture_type > 1.5, stripes, checker)
+        textured = (mat.texture_type > 0.5) & (mat.texture_type < 2.5) & (pattern > 0.5)
+        mat = dataclasses.replace(
+            mat, color=torch.where(textured[:, None], mat.texture_color2, mat.color))
+    if "texture" in cfg.features and scene.textures is not None:
+        # image texture: UV from the object-space hit, bilinear atlas texel
+        gid = hit.geom_id.detach().long()
+        gtype = scene.geoms.type[gid]
+        m3 = scene.geoms.transform.detach()[gid][:, :3, :3]
+        n_obj = torch.einsum("nij,ni->nj", m3, normal)  # n_obj ~ M^T n_world
+        uv = compute_uv(gtype, hit.position_obj, n_obj)
+        texel = sample_atlas(scene.textures, mat.texture_image,
+                             uv * mat.texture_scale[:, None])
+        is_img = mat.texture_type > 2.5
+        mat = dataclasses.replace(
+            mat, color=torch.where(is_img[:, None], mat.color * texel, mat.color))
+    if "bump" in cfg.features:
+        # tangential sinusoidal perturbation of the shading normal
+        bump_on = mat.bump_scale > 0.0
+        ax = torch.abs(normal)
+        use_x = ax[:, 0] < 0.577
+        use_y = (~use_x) & (ax[:, 1] < 0.577)
+        one, zero = torch.ones_like(ax[:, 0]), torch.zeros_like(ax[:, 0])
+        not_n = torch.stack([torch.where(use_x, one, zero), torch.where(use_y, one, zero),
+                             torch.where(use_x | use_y, zero, one)], dim=-1)
+        t1 = torch.linalg.cross(normal, not_n, dim=-1)
+        t1 = t1 / torch.clamp(torch.linalg.vector_norm(t1, dim=-1, keepdim=True), min=1e-12)
+        t2 = torch.linalg.cross(normal, t1, dim=-1)
+        w1 = torch.tensor([12.9898, 78.233, 37.719], dtype=torch.float32, device=normal.device)
+        w2 = torch.tensor([93.989, 26.651, 61.312], dtype=torch.float32, device=normal.device)
+        ph1 = torch.sum(hit.position_obj * w1, dim=-1)
+        ph2 = torch.sum(hit.position_obj * w2, dim=-1)
+        amp = torch.where(bump_on, mat.bump_amp, 0.0)
+        n_bumped = (normal + (amp * torch.sin(mat.bump_scale * ph1))[:, None] * t1
+                    + (amp * torch.sin(mat.bump_scale * ph2))[:, None] * t2)
+        n_bumped = n_bumped / torch.clamp(
+            torch.linalg.vector_norm(n_bumped, dim=-1, keepdim=True), min=1e-12)
+        normal = torch.where(bump_on[:, None], n_bumped, normal)
+
     u = bounce_uniforms(seed, sample_idx, depth)
 
     sigma_a = medium_sigma[:, 0:3]
@@ -177,14 +233,13 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
     contrib = torch.where((hit.hit & emissive & count_emit & (~vol_scatter))[:, None],
                           emitted, 0.0)
 
-    scatter = sample_bsdf(mat, hit.position, hit.normal, rays.direction, u[:, 0:3],
-                          glossy="glossy" in cfg.features)
+    scatter = sample_bsdf(mat, hit.position, normal, rays.direction, u[:, 0:3],
+                          glossy="glossy" in cfg.features,
+                          microfacet="microfacet" in cfg.features, ward="ward" in cfg.features)
 
     if cfg.nee:
         ls = sample_lights(scene.geoms, scene.materials, u[:, 4:8])
-        n_shade = hit.normal * torch.sign(
-            -torch.sum(hit.normal * rays.direction, dim=-1, keepdim=True)
-        )
+        n_shade = normal * torch.sign(-torch.sum(normal * rays.direction, dim=-1, keepdim=True))
         x = hit.position + RAY_BIAS * n_shade
         to_light = ls.position - x
         dist2 = torch.sum(to_light * to_light, dim=-1)

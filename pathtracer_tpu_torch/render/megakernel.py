@@ -23,6 +23,11 @@ version for rays on the CPU.  The scan carries each path's medium, ``[N,
 The wavefront engines are ``render/wavefront.py``, chosen by the
 integrator.
 
+A scene with image textures takes the per-bounce scan on every route, as
+JAX's ``trace_paths`` does (its trace kernel refuses them): with
+``cfg.fused`` None the scan's ``shade_bounce`` runs kernel 2's
+deferred-texel variant.
+
 Mesh scenes whose meshes total at most 4096 triangles take the full-depth
 trace with the in-kernel triangle sweep (kernel 1's mesh variant); larger
 ones run per bounce in JAX on kernel 2's mesh-merge variant, which the port
@@ -103,6 +108,7 @@ def trace_paths(
         raise NotImplementedError(DEBUG_MISSING)
     if cfg.grad_lean and fused_diff_eligible(scene, cfg) and cfg.grad_full_trace is not False:
         return trace_fused_diff(scene, rays, sample_idx, seed, cfg, tables=tables)
-    if cfg.grad_lean or cfg.fused is False:
+    if cfg.grad_lean or cfg.fused is False or scene.textures is not None:
+        # image textures stay outside the one-kernel trace, as in JAX (:44-64)
         return scan_paths(scene, rays, sample_idx, seed, cfg, tables=tables)
     return trace_fused(scene, rays, sample_idx, seed, cfg, tables=tables)

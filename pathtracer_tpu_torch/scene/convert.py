@@ -13,7 +13,9 @@ numbers.  ``d`` holds
 * ``meshes`` (optional): per mesh instance ``geom_index``, ``tri_verts``
   (``[T, 3, 3]``), ``tri_norm`` / ``tri_uv`` (or None) and ``accel``: None
   or the LBVH's ``n_tris``, ``chunks``, ``lo``, ``hi``, ``root_lo``,
-  ``root_hi``, ``scan_to_file``.
+  ``root_hi``, ``scan_to_file``;
+* ``textures`` (optional): None or the image atlas's ``data`` (``[K, H, W,
+  3]``) and ``hw`` (``[K, 2]``).
 
 The differentiable render's state crosses the same way:
 :func:`params_from_numpy` takes the leaves of a ``SceneParams`` as numpy
@@ -29,6 +31,7 @@ import numpy as np
 import torch
 
 from pathtracer_tpu_torch.ops.accel import MeshAccel
+from pathtracer_tpu_torch.ops.texture import TextureAtlas
 from pathtracer_tpu_torch.scene.structs import (
     MATERIAL_FIELDS,
     Camera,
@@ -77,7 +80,10 @@ def scene_from_numpy(d: dict, device="cuda") -> Scene:
         meshes.append(MeshInstance(geom_index=int(m["geom_index"]), tri_verts=f32(m["tri_verts"]),
                                    accel=accel, tri_uv=opt(m["tri_uv"]),
                                    tri_norm=opt(m["tri_norm"])))
-    return Scene(geoms=geoms, materials=materials, camera=camera, meshes=tuple(meshes))
+    tex = d.get("textures")
+    textures = None if tex is None else TextureAtlas(data=f32(tex["data"]), hw=f32(tex["hw"]))
+    return Scene(geoms=geoms, materials=materials, camera=camera, meshes=tuple(meshes),
+                 textures=textures)
 
 
 PARAM_FIELDS = (

@@ -8,8 +8,9 @@ DISPLACE extension and per-frame FILE overrides.  Mesh objects load their
 OBJ file relative to the scene file (``:240-300,346-360``): the triangles,
 displaced when the object says DISPLACE, one vertex array per frame where
 FILE lines deform the mesh (the topology must match), and the authored
-``vt`` / ``vn`` attributes of undisplaced meshes.  Loading PNG textures
-raises ``NotImplementedError`` until the slice that renders them.
+``vt`` / ``vn`` attributes of undisplaced meshes.  ``TEXTURE <file>.png``
+images load relative to the scene file too (``:207-217``), decoded to
+linear light, one atlas slot per distinct path.
 """
 
 from __future__ import annotations
@@ -20,9 +21,11 @@ from typing import List
 
 import numpy as np
 
+from pathtracer_tpu_torch.ops.texture import decode_srgb
 from pathtracer_tpu_torch.scene.displace import displace_mesh
 from pathtracer_tpu_torch.scene.obj import load_obj_full
 from pathtracer_tpu_torch.scene.structs import CUBE, MESH, SPHERE, SceneDescription
+from pathtracer_tpu_torch.utils.imageio import load_png
 
 _MATERIAL_KEYS = {
     "RGB": ("color", 3),
@@ -185,8 +188,16 @@ def parse_scene_text(text: str, name: str = "<string>", scene_dir=None) -> Scene
         if obj["material"] >= len(materials):
             raise SceneParseError(f"{name}: object references missing material")
 
-    if any("_texture_path" in m for m in materials):
-        raise NotImplementedError("image texture loading (TEXTURE *.png): later slice")
+    # resolve image-texture paths into atlas slots (deduped by path)
+    tex_paths: List[str] = []
+    for m in materials:
+        p = m.pop("_texture_path", None)
+        if p is None:
+            continue
+        full = _resolve_asset(p, scene_dir, "texture")
+        if full not in tex_paths:
+            tex_paths.append(full)
+        m["texture_image"] = float(tex_paths.index(full))
 
     all_fields = [f for f, _ in _MATERIAL_KEYS.values()] + list(_EXT_DEFAULTS)
     mat_soa = {
@@ -219,15 +230,16 @@ def parse_scene_text(text: str, name: str = "<string>", scene_dir=None) -> Scene
         rotations=per_frame("rotat"),
         scales=per_frame("scale"),
         materials=mat_soa,
+        texture_images=tuple(decode_srgb(load_png(p)) for p in tex_paths),
         **_load_meshes(objects, name, scene_dir),
     )
 
 
-def _resolve_asset(token: str, scene_dir) -> str:
+def _resolve_asset(token: str, scene_dir, kind: str = "mesh") -> str:
     for cand in (token, os.path.join(scene_dir or ".", token)):
         if os.path.exists(cand):
             return os.path.abspath(cand)
-    raise SceneParseError(f"mesh file not found: {token!r}")
+    raise SceneParseError(f"{kind} file not found: {token!r}")
 
 
 def _load_meshes(objects, name, scene_dir) -> dict:

@@ -8,8 +8,8 @@ A mesh of at least :data:`ACCEL_MIN_TRIS` triangles gets its chunked LBVH
 (``ops/accel.py``) when its frame is built.  Two packed forms of the meshes
 are built once, on first use: a mesh's ``(v0, e1, e2)`` table of kernels 9
 and 10 (:attr:`MeshInstance.scan_table`) and the scene's in-kernel tables of
-kernels 1 and 2 (:attr:`Scene.mesh_tables`).  Image textures are carried as
-data only; the slice that renders them comes later.
+kernels 1 and 2 (:attr:`Scene.mesh_tables`).  A scene's image textures
+become one ``ops/texture.TextureAtlas`` on its device (``:284-288``).
 """
 
 from __future__ import annotations
@@ -149,7 +149,7 @@ class Scene:
     materials: Materials
     camera: Camera
     meshes: tuple = ()  # MeshInstance per mesh geom
-    textures: Any = None  # image-texture atlas: data of a later slice
+    textures: Any = None  # ops/texture.TextureAtlas of the image textures, or None
 
     @property
     def device(self) -> torch.device:
@@ -193,7 +193,7 @@ class SceneDescription:
     scales: np.ndarray  # [F, G, 3]
     materials: dict  # field -> np.ndarray
     mesh_tris: tuple = ()  # per object [T, 3, 3] float32, or None
-    texture_images: tuple = ()  # decoded images (image textures: later slice)
+    texture_images: tuple = ()  # decoded linear-light [H, W, 3] images, one per atlas slot
     # per object a tuple of per-frame [T, 3, 3] arrays (FILE lines), or None
     mesh_tris_frames: tuple = ()
     # per object (uv [T, 3, 2] | None, norm [T, 3, 3] | None), or None
@@ -213,8 +213,6 @@ class SceneDescription:
         from pathtracer_tpu_torch.ops.accel import build_mesh_accel
         from pathtracer_tpu_torch.ops.transforms import build_transform
 
-        if self.texture_images:
-            raise NotImplementedError("scenes with image textures: later slice")
         t, inv = build_transform(
             self.translations[frame], self.rotations[frame], self.scales[frame],
             device=device,
@@ -246,9 +244,14 @@ class SceneDescription:
             accel = build_mesh_accel(tris, device=device) if len(tris) >= ACCEL_MIN_TRIS else None
             meshes.append(MeshInstance(geom_index=g, tri_verts=f32(tris), accel=accel,
                                        tri_uv=f32(uv), tri_norm=f32(norm)))
+        textures = None
+        if self.texture_images:
+            from pathtracer_tpu_torch.ops.texture import build_atlas
+
+            textures = build_atlas(self.texture_images, device=device)
         return Scene(
             geoms=geoms, materials=mats, camera=self.camera_for_frame(frame, device=device),
-            meshes=tuple(meshes),
+            meshes=tuple(meshes), textures=textures,
         )
 
     def camera_for_frame(self, frame: int, device="cuda") -> Camera:

@@ -8,8 +8,10 @@
 // (bounce_grad.cu), the nearest hit, winner search and occlusion
 // (intersect.cu), and the nearest triangle and triangle occlusion (mesh.cu).
 // The trace and the bounce take the in-kernel mesh tables as the launchers
-// do (n_mesh = 0 for none), and the media flags (volumetric, hg, vol_nee)
-// that pick their kVol / kHg instance; the bounce also the medium's width.
+// do (n_mesh = 0 for none), the media flags (volumetric, hg, vol_nee)
+// that pick their kVol / kHg instance and the surface feature bits that pick
+// the kSurf one; the bounce also the medium's width and the deferred texel's
+// three output planes (null for none: with them, the kTex instance).
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -o libhost.so \
 //       tests/kernel_host_harness.cpp
@@ -76,22 +78,21 @@ extern "C" void host_trace(const float* gtab, int G, const float* mtab, const fl
                            const float* scal, unsigned seed, const float* origin,
                            const float* direction, const unsigned* sample, int n,
                            float* radiance, unsigned long long* nrays, int depth, int nee,
-                           int rr, int rr_start, int vol, int hg, int vol_nee,
+                           int rr, int rr_start, int vol, int hg, int vol_nee, int surf,
                            const float* mtri, const float* maabb, const float* mnorm,
                            const int* mdesc, int n_mesh) {
   const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f,
-                 MeshTables{mtri, maabb, mnorm, mdesc, n_mesh}};
+                 MeshTables{mtri, maabb, mnorm, mdesc, n_mesh}, surf};
+  auto lane = !vol ? (surf ? trace_lane<false, false, true> : trace_lane<false, false, false>)
+              : hg ? (surf ? trace_lane<true, true, true> : trace_lane<true, true, false>)
+                   : (surf ? trace_lane<true, false, true> : trace_lane<true, false, false>);
   unsigned long long total = 0;
   for (int i = 0; i < n; ++i) {
     V3 o = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
     V3 d = v3(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
     unsigned bounces = 0;
     const V3 rad =
-        !vol ? trace_lane(T, seed, sample[i], o, d, depth, nee, rr, rr_start, true, bounces)
-        : hg ? trace_lane<true, true>(T, seed, sample[i], o, d, depth, nee, rr, rr_start, true,
-                                      bounces, vol_nee)
-             : trace_lane<true, false>(T, seed, sample[i], o, d, depth, nee, rr, rr_start, true,
-                                       bounces, vol_nee);
+        lane(T, seed, sample[i], o, d, depth, nee, rr, rr_start, true, bounces, vol_nee);
     radiance[3 * i] = rad.x;
     radiance[3 * i + 1] = rad.y;
     radiance[3 * i + 2] = rad.z;
@@ -107,16 +108,25 @@ extern "C" void host_bounce(const float* gtab, int G, const float* mtab, const f
                             const float* medium, float* contrib, float* next_o, float* next_d,
                             float* thr_mult, unsigned char* terminate, float* wspec, float* rru,
                             float* out_medium, float* replay_gid, float* replay_nee, int vol,
-                            int hg, int vol_nee, int mw, const float* mtri, const float* maabb,
+                            int hg, int vol_nee, int mw, int surf, float* tex_u, float* tex_v,
+                            float* tex_slot, const float* mtri, const float* maabb,
                             const float* mnorm, const int* mdesc, int n_mesh) {
   const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f,
-                 MeshTables{mtri, maabb, mnorm, mdesc, n_mesh}};
-  auto lane = !vol ? bounce_lane<false, false> : (hg ? bounce_lane<true, true>
-                                                     : bounce_lane<true, false>);
+                 MeshTables{mtri, maabb, mnorm, mdesc, n_mesh}, surf};
+  decltype(&bounce_lane<false, false>) lane;
+  if (tex_u != nullptr)
+    lane = !vol ? bounce_lane<false, false, true, true>
+                : (hg ? bounce_lane<true, true, true, true> : bounce_lane<true, false, true, true>);
+  else if (surf)
+    lane = !vol ? bounce_lane<false, false, true>
+                : (hg ? bounce_lane<true, true, true> : bounce_lane<true, false, true>);
+  else
+    lane = !vol ? bounce_lane<false, false> : (hg ? bounce_lane<true, true>
+                                                  : bounce_lane<true, false>);
   for (int i = 0; i < n; ++i)
     lane(T, seed, nee, vol_nee, mw, (size_t)i, origin, direction, thr, sample, depth, prev,
          medium, contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium,
-         replay_gid, replay_nee);
+         replay_gid, replay_nee, tex_u, tex_v, tex_slot);
 }
 
 extern "C" void host_nearest(const float* gtab, int G, int n, const float* origin,

@@ -134,17 +134,23 @@ def test_bounce_physics_matches_jax(name):
 
 
 def test_unsupported_features_raise():
-    """The optional blocks of later slices raise; the media blocks run (and
-    are held against JAX in ``tests/test_torch_volume.py``)."""
+    """Every optional block of the forward bounce runs (the surface blocks
+    are held against JAX in ``tests/test_torch_surface.py``, the media in
+    ``tests/test_torch_volume.py``); the differentiable gate refuses them,
+    and an unknown feature raises."""
     scene = port_scene_from_jax(_jax_scene("mini"))
     tables = tb.pack_tables(scene)
     z = (torch.zeros(4),) * 3
     for feat in ("texture", "bump", "microfacet", "ward"):
+        out = tb.bounce_physics(
+            z, z, z, z, torch.zeros(4), *tables, [torch.zeros(4)] * 11, 0,
+            torch.zeros(4), nee=True, t_min=T_MIN, features=frozenset({feat}),
+        )
+        assert out["contrib"][0].shape == (4,)
         with pytest.raises(NotImplementedError, match=feat):
-            tb.bounce_physics(
-                z, z, z, z, torch.zeros(4), *tables, [torch.zeros(4)] * 11, 0,
-                torch.zeros(4), nee=True, t_min=T_MIN, features=frozenset({feat}),
-            )
+            tb.check_diff_features((feat,))
+    with pytest.raises(NotImplementedError, match="sparkle"):
+        tb.check_features(("sparkle",))
     d = (torch.zeros(4), torch.zeros(4), -torch.ones(4))
     out = tb.bounce_physics(
         z, d, (torch.ones(4),) * 3, z, torch.zeros(4), *tables, [torch.full((4,), 0.5)] * 11, 0,

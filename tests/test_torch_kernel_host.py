@@ -69,6 +69,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 P, I = ctypes.c_void_p, ctypes.c_int
 NO_MESH = (None, None, None, None, 0)  # the launchers' mesh arguments for no meshes
 VACUUM = (0, 0, 1)  # the launchers' media arguments (volumetric, hg, vol_nee) for vacuum
+# the bounce launcher's surface bits and deferred-texel planes for neither
+NO_SURF = (0, None, None, None)
 # MINI_SCENE with its mirror sphere turned Phong-glossy (specular exponent 30)
 GLOSSY_MINI = MINI_SCENE.replace("SPECEX 0\nSPECRGB .95 .92 .9", "SPECEX 30\nSPECRGB .95 .92 .9")
 assert GLOSSY_MINI != MINI_SCENE
@@ -89,9 +91,9 @@ def host_lib(tmp_path_factory):
     lib.host_fwd.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, P, I, I, I, I]
     lib.host_bwd.argtypes = [P, I, P, I, P, P, ctypes.c_uint, P, I, P, P, P, P, P, I, I, I, I]
     lib.host_trace.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, I, I, I, I,
-                               I, I, I, P, P, P, P, I]
-    lib.host_bounce.argtypes = ([P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 17 + [I] * 4
-                                + [P] * 4 + [I])
+                               I, I, I, I, P, P, P, P, I]
+    lib.host_bounce.argtypes = ([P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 17 + [I] * 5
+                                + [P] * 3 + [P] * 4 + [I])
     lib.host_mesh_nearest.argtypes = [P, I, I, P, P, P, P]
     lib.host_mesh_min.argtypes = [P, I, I, P, P, P]
     lib.host_nearest.argtypes = [P, I, I] + [P] * 8
@@ -214,7 +216,7 @@ def test_trace_lanes_match_plain_and_forward(host_lib, case):
               tables[3].data_ptr(), seed, rays.origin.data_ptr(), rays.direction.data_ptr(),
               bits.data_ptr(), n)
     rad_k, nr_k = torch.empty((n, 3)), ctypes.c_ulonglong()
-    host_lib.host_trace(*common, rad_k.data_ptr(), ctypes.byref(nr_k), *flags, *VACUUM,
+    host_lib.host_trace(*common, rad_k.data_ptr(), ctypes.byref(nr_k), *flags, *VACUUM, 0,
                         *NO_MESH)
     rad_f, nr_f = torch.empty((n, 3)), ctypes.c_ulonglong()
     resid = torch.empty((kw["max_depth"], trace_grad.N_RESID, n))
@@ -262,7 +264,7 @@ def test_bounce_lanes_match_plain(host_lib, scene_name, nee):
         t["depth"].data_ptr(), t["prev"].data_ptr(), medium.data_ptr(), contrib.data_ptr(),
         next_o.data_ptr(), next_d.data_ptr(), thr_mult.data_ptr(), terminate.data_ptr(),
         wspec.data_ptr(), rru.data_ptr(), out_medium.data_ptr(), None, None, *VACUUM, 4,
-        *NO_MESH,
+        *NO_SURF, *NO_MESH,
     )
     assert torch.equal(terminate.bool(), want.terminate)
     assert 0.05 < float(want.terminate.float().mean()) < 0.95
@@ -316,7 +318,7 @@ def _host_bounce(host_lib, tables, t, medium, seed, nee, replay=True):
         *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
                                     "prev")),
         medium.data_ptr(), *(o.data_ptr() for o in outs), rgid.data_ptr(), rnee.data_ptr(),
-        *VACUUM, 4, *NO_MESH,
+        *VACUUM, 4, *NO_SURF, *NO_MESH,
     )
     return outs, rgid, rnee
 
@@ -476,7 +478,7 @@ def test_trace_mesh_lanes_match_plain(host_lib, kw):
                         rays.origin.data_ptr(), rays.direction.data_ptr(),
                         bits.data_ptr(), n, rad_k.data_ptr(),
                         ctypes.byref(nr_k), kw["max_depth"], int(kw["nee"]), int(kw["rr"]),
-                        kw["rr_start"], *VACUUM, *_mesh_args(km))
+                        kw["rr_start"], *VACUUM, 0, *_mesh_args(km))
     rad_p, nr_p = trace.trace_plain(*tables, seed, rays.origin, rays.direction, sample,
                                     mesh=km, **kw)
     frac = float(torch.isclose(rad_k, rad_p, rtol=2e-6, atol=2e-6).all(-1).float().mean())
@@ -510,7 +512,7 @@ def test_bounce_mesh_lanes_match_plain(host_lib, nee):
         tables[3].data_ptr(), seed, int(nee), n,
         *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
                                     "prev")),
-        medium.data_ptr(), *(o.data_ptr() for o in outs), None, None, *VACUUM, 4,
+        medium.data_ptr(), *(o.data_ptr() for o in outs), None, None, *VACUUM, 4, *NO_SURF,
         *_mesh_args(km),
     )
     contrib, next_o, next_d, thr_mult, terminate, wspec, rru, _ = outs
@@ -592,7 +594,7 @@ def test_trace_media_lanes_match_plain(host_lib, case):
                         bits.data_ptr(), n, rad_k.data_ptr(),
                         ctypes.byref(nr_k), kw["max_depth"], int(kw["nee"]), int(kw["rr"]),
                         kw["rr_start"], *flags, int(vol_nee),
-                        *(_mesh_args(km) if km is not None else NO_MESH))
+                        0, *(_mesh_args(km) if km is not None else NO_MESH))
     rad_p, nr_p = trace.trace_plain(*tables, seed, rays.origin, rays.direction, sample,
                                     mesh=km, features=feats, vol_nee=vol_nee, **kw)
     vac_p, _ = trace.trace_plain(*tables, seed, rays.origin, rays.direction, sample,
@@ -638,7 +640,7 @@ def test_bounce_media_lanes_match_plain(host_lib, hg, nee):
         *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
                                     "prev")),
         medium.data_ptr(), *(o.data_ptr() for o in outs), None, None, 1, int(hg), 1, width,
-        *NO_MESH,
+        *NO_SURF, *NO_MESH,
     )
     contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium = outs
     assert torch.equal(terminate.bool(), want.terminate)
@@ -656,3 +658,127 @@ def test_bounce_media_lanes_match_plain(host_lib, hg, nee):
     assert frac >= 0.995 and changed > 50
     if nee:
         assert states[2] > 10
+
+
+# ---- the optional surface physics: the kSurf instances of kernels 1 and 2
+# and kernel 2's deferred-texel variant (kTex)
+
+
+def _surface_scene(name, res):
+    """A surface scene at ``res``: ward, its GGX copy, textured with stripes
+    or textured_image; its tables, resolved features and surface bits."""
+    from chip_smoke import ggx_ward_scene, striped_scene
+    from pathtracer_tpu_torch.render.features import features_for_materials
+
+    scenes = os.path.join(HERE, "..", "scenes")
+    if name == "ggx_ward":
+        desc = parse_scene_text(ggx_ward_scene(), name=name)
+    elif name == "striped":
+        desc = parse_scene_text(striped_scene(), name=name, scene_dir=scenes)
+    else:
+        desc = load_scene(os.path.join(scenes, f"{name}.txt"))
+    scene = dataclasses.replace(desc, resolution=res).scene_for_frame(0, device="cpu")
+    feats = frozenset(features_for_materials(scene.materials))
+    return scene, [t.contiguous() for t in pack_tables(scene)], feats, trace.surface_bits(feats)
+
+
+# scene, options, expected surface bits, least share of lanes within 2e-6
+# and largest relative difference of the ray counts
+SURF_CASES = {
+    "ward": ("ward", dict(max_depth=8, nee=True, rr=False, rr_start=3), 12, (0.995, 0.0)),
+    "ggx_ward_rr": ("ggx_ward", dict(max_depth=6, nee=True, rr=True, rr_start=2), 12,
+                    (0.995, 0.0)),
+    "striped": ("striped", dict(max_depth=8, nee=True, rr=False, rr_start=3), 3, (0.99, 1e-3)),
+    "striped_no_nee": ("striped", dict(max_depth=6, nee=False, rr=False, rr_start=3), 3,
+                       (0.99, 1e-3)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SURF_CASES))
+def test_trace_surface_lanes_match_plain(host_lib, case):
+    """Kernel 1's kSurf lanes against ``trace_plain(features=...)`` at
+    32x32: equal ray counts and radiance within 2e-6 on at least 99.5% of
+    lanes (the analytic cases' bar: the host's libm rounds sin / cos / exp /
+    log apart from torch's).  With the bump, the host's ``sinf`` and torch's
+    vectorized ``sin`` of phases near 10^3 rad differ in the last ulp, which
+    moves the bumped normal by about 1e-4 and sends a few paths elsewhere:
+    99% of lanes and the ray counts within 0.1% (measured 99.41% and 4 of
+    10,894 rays).  On the card the kernel and the plain version call the
+    same ``sinf`` and agree bit for bit (``chip_smoke.py`` ``[surf]``)."""
+    name, kw, want_bits, (least, rays_tol) = SURF_CASES[case]
+    scene, tables, feats, bits_s = _surface_scene(name, (32, 32))
+    assert bits_s == want_bits
+    n, seed = 32 * 32, 23
+    pixel = torch.arange(n)
+    sample = 2 * n + pixel
+    rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, sample))
+    bits = sample.to(torch.int32)  # kept alive across the call
+    rad_k, nr_k = torch.empty((n, 3)), ctypes.c_ulonglong()
+    host_lib.host_trace(tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(),
+                        tables[2].data_ptr(), tables[3].data_ptr(), seed,
+                        rays.origin.data_ptr(), rays.direction.data_ptr(), bits.data_ptr(), n,
+                        rad_k.data_ptr(), ctypes.byref(nr_k), kw["max_depth"], int(kw["nee"]),
+                        int(kw["rr"]), kw["rr_start"], *VACUUM, bits_s, *NO_MESH)
+    rad_p, nr_p = trace.trace_plain(*tables, seed, rays.origin, rays.direction, sample,
+                                    features=feats, **kw)
+    base_p, _ = trace.trace_plain(*tables, seed, rays.origin, rays.direction, sample, **kw)
+    frac = float(torch.isclose(rad_k, rad_p, rtol=2e-6, atol=2e-6).all(-1).float().mean())
+    moved = int((rad_p != base_p).any(-1).sum())
+    print(f"{case}: trace lanes within 2e-6 of trace_plain: {frac:.5f}; lanes the surface "
+          f"features changed: {moved}; rays kernel {nr_k.value}, plain {int(nr_p)}")
+    assert abs(nr_k.value - int(nr_p)) <= rays_tol * int(nr_p)
+    assert frac >= least and float(rad_p.sum()) > 0 and moved > 40
+
+
+CENTRES = {"ward": (0.0, 2.0, 0.0), "ggx_ward": (0.0, 2.0, 0.0), "striped": (0.0, 4.0, -1.0),
+           "textured_image": (0.0, 2.0, 0.0)}
+
+
+@pytest.mark.parametrize("nee", [True, False])
+@pytest.mark.parametrize("name", ["ggx_ward", "striped", "textured_image"])
+def test_bounce_surface_lanes_match_plain(host_lib, name, nee):
+    """Kernel 2's kSurf lanes (and on textured_image its kTex lanes, with
+    the deferred texel's planes) against ``bounce_fused_plain`` on 2,048
+    random lanes: terminate, emit state, the russian-roulette uniform, the
+    medium and the atlas slot equal on every lane, the float planes and the
+    UV within 2e-6 on at least 99.5% of lanes (measured: 99.9% to every
+    lane)."""
+    n, seed = 2048, 31
+    scene, tables, feats, bits_s = _surface_scene(name, (8, 8))
+    tex = scene.textures is not None
+    lanes = random_lanes(n, seed=19)
+    lanes["origin"] = (lanes["origin"] * 0.8 + np.asarray(CENTRES[name])).astype(np.float32)
+    t = {k: torch.from_numpy(v) for k, v in lanes.items()}
+    medium = torch.zeros((n, 4))
+    want = bounce_fused.bounce_fused_plain(
+        tables, t["origin"], t["direction"], t["throughput"], t["sample"].long(), t["depth"],
+        t["prev"], medium, seed, nee=nee, features=feats, tex_defer=tex,
+    )
+    want, want_tex = (want[0], want[1:]) if tex else (want, ())
+    outs = [torch.empty((n, 3)) for _ in range(4)] + [
+        torch.empty(n, dtype=torch.uint8), torch.empty(n), torch.empty(n), torch.empty((n, 4))]
+    tex_out = [torch.empty(n) for _ in range(3)] if tex else []
+    host_lib.host_bounce(
+        tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(), tables[2].data_ptr(),
+        tables[3].data_ptr(), seed, int(nee), n,
+        *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
+                                    "prev")),
+        medium.data_ptr(), *(o.data_ptr() for o in outs), None, None, *VACUUM, 4, bits_s,
+        *((o.data_ptr() for o in tex_out) if tex else (None, None, None)), *NO_MESH,
+    )
+    contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium = outs
+    assert torch.equal(terminate.bool(), want.terminate)
+    assert torch.equal(wspec, want.was_specular) and torch.equal(rru, want.rr_uniform)
+    assert torch.equal(out_medium, want.next_medium)
+    close = torch.ones(n, dtype=torch.bool)
+    for got, ref in ((contrib, want.contrib), (next_o, want.next_origin),
+                     (next_d, want.next_direction), (thr_mult, want.throughput_mult)):
+        close &= torch.isclose(got, ref, rtol=2e-6, atol=2e-6).all(-1)
+    if tex:
+        assert torch.equal(tex_out[2], want_tex[2])
+        for got, ref in zip(tex_out[:2], want_tex[:2]):
+            close &= torch.isclose(got, ref, rtol=2e-6, atol=2e-6)
+        assert int((want_tex[2] >= 0).sum()) > 100
+    frac = float(close.float().mean())
+    print(f"{name} nee={nee}: bounce lanes within 2e-6: {frac:.5f}")
+    assert frac >= 0.995

@@ -704,3 +704,106 @@ def test_bounce_media_kernel_matches_plain(hg, nee):
     for f in dataclasses.fields(got):
         assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
     assert int((want.next_medium != medium).any(-1).sum()) > 100
+
+
+# ---- optional surface physics: kernel 1's and kernel 2's kSurf instances
+# and kernel 2's deferred-texel variant (chip_smoke.py [surf] holds them at
+# full width).  Bit for bit: kernel and plain version run the same functions
+# on the card (sinf of the bump's large phases included).
+
+
+def _surface_scene(name, res):
+    from chip_smoke import ggx_ward_scene, striped_scene
+
+    scenes = os.path.join(ROOT, "scenes")
+    if name == "ggx_ward":
+        desc = parse_scene_text(ggx_ward_scene(), name=name)
+    elif name == "striped":
+        desc = parse_scene_text(striped_scene(), name=name, scene_dir=scenes)
+    else:
+        return _scene(name, res)
+    return dataclasses.replace(desc, resolution=res).scene_for_frame(0, device="cuda")
+
+
+@pytest.mark.parametrize("name", ["ward", "ggx_ward", "striped"])
+def test_trace_surface_kernel_matches_plain(name):
+    _need_cuda()
+    from pathtracer_tpu_torch.render.features import features_for_materials
+
+    scene = _surface_scene(name, (96, 96))
+    feats = frozenset(features_for_materials(scene.materials))
+    assert trace.surface_bits(feats)
+    n = 96 * 96
+    pixel = torch.arange(n, device="cuda")
+    rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(99, pixel))
+    args = (*pack_tables(scene), 99, rays.origin, rays.direction, pixel)
+    opts = dict(max_depth=8, nee=True, rr=False, rr_start=3, features=feats)
+    before = (trace.launches, trace.surf_launches)
+    rad_k, rays_k = trace.trace_cuda(*args, **opts)
+    assert (trace.launches, trace.surf_launches) == (before[0], before[1] + 1)
+    rad_p, rays_p = trace.trace_plain(*args, **opts)
+    torch.cuda.synchronize()
+    assert int(rays_k) == int(rays_p)
+    assert torch.equal(rad_k, rad_p) and float(rad_p.sum()) > 0
+
+
+CENTRES = {"ggx_ward": (0.0, 2.0, 0.0), "striped": (0.0, 4.0, -1.0),
+           "textured_image": (0.0, 2.0, 0.0)}
+
+
+@pytest.mark.parametrize("nee", [True, False])
+@pytest.mark.parametrize("name", ["ggx_ward", "striped", "textured_image"])
+def test_bounce_surface_kernel_matches_plain(name, nee):
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import bounce_fused
+    from pathtracer_tpu_torch.render.features import features_for_materials
+
+    scene = _surface_scene(name, (8, 8))
+    feats = frozenset(features_for_materials(scene.materials))
+    tex = scene.textures is not None
+    n = 50_000
+    t = _random_lanes_cuda(n, 13)
+    t["origin"] = (t["origin"] * 0.8 + torch.tensor(CENTRES[name], device="cuda")).contiguous()
+    args = (pack_tables(scene), t["origin"], t["direction"], t["throughput"], t["sample"].long(),
+            t["depth"], t["prev"], torch.zeros((n, 4), device="cuda"), 4321)
+    counter = "tex_launches" if tex else "surf_launches"
+    before = getattr(bounce_fused, counter)
+    got = bounce_fused.bounce_fused_cuda(*args, nee=nee, features=feats, tex_defer=tex)
+    assert getattr(bounce_fused, counter) == before + 1
+    want = bounce_fused.bounce_fused_plain(*args, nee=nee, features=feats, tex_defer=tex)
+    torch.cuda.synchronize()
+    if tex:
+        for k, a, b in zip(("u", "v", "slot"), got[1:], want[1:]):
+            assert torch.equal(a, b), k
+        assert int((want[3] >= 0).sum()) > 1000
+        got, want = got[0], want[0]
+    for f in dataclasses.fields(got):
+        assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
+
+
+@pytest.mark.parametrize("name", ["ward", "textured", "textured_image"])
+def test_surface_render_launches_its_kernels(name):
+    """Through ``render``: the megakernel route runs kernel 1s once per
+    iteration (textured_image: the scan, kernel 2t once per bounce), the
+    pinned engine kernel 2s (2t) once per super-step, and the two agree."""
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import bounce_fused
+    from pathtracer_tpu_torch.render import wavefront
+
+    scene = _scene(name, (64, 48))
+    counts = lambda: (trace.surf_launches, bounce_fused.surf_launches,  # noqa: E731
+                      bounce_fused.tex_launches)
+    tex = scene.textures is not None
+    before = counts()
+    _, mega, ms = render(scene, 2, RenderConfig(max_depth=4), device="cuda")
+    want = [0, 0, 8] if tex else [2, 0, 0]
+    assert [a - b for a, b in zip(counts(), before)] == want
+    before = counts()
+    wavefront.super_steps = 0
+    _, pinned, ps = render(scene, 2, RenderConfig(max_depth=4, wavefront=True), device="cuda")
+    torch.cuda.synchronize()
+    steps = wavefront.super_steps
+    assert [a - b for a, b in zip(counts(), before)] == ([0, 0, steps] if tex else [0, steps, 0])
+    assert ps["rays_traced"] == ms["rays_traced"]
+    close = torch.isclose(pinned, mega, rtol=2e-4, atol=2e-4)
+    assert float(close.float().mean()) >= 0.999

@@ -32,7 +32,8 @@ from pathtracer_tpu_torch.scene.structs import MATERIAL_FIELDS
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 SCENES = os.path.join(ROOT, "scenes")
-ANALYTIC = ["cornell", "glass_dof", "fog", "milky", "sss", "ward", "animation"]
+ANALYTIC = ["cornell", "glass_dof", "fog", "milky", "sss", "ward", "animation", "textured",
+            "textured_image"]
 
 
 def _jax_accel(a):
@@ -52,8 +53,10 @@ def jax_scene_arrays(scene) -> dict:
     meshes = [dict(geom_index=mi.geom_index, tri_verts=np.asarray(mi.tri_verts),
                    tri_norm=opt(mi.tri_norm), tri_uv=opt(mi.tri_uv), accel=_jax_accel(mi.accel))
               for mi in scene.meshes]
+    tex = scene.textures
     return dict(
         meshes=meshes,
+        textures=None if tex is None else dict(data=np.asarray(tex.data), hw=np.asarray(tex.hw)),
         type=np.asarray(g.type),
         material_id=np.asarray(g.material_id),
         transform=np.asarray(g.transform),
@@ -137,11 +140,18 @@ def test_cornell_resolves_to_base_physics():
 
 @pytest.mark.parametrize("name", ["mesh_demo", "textured_image"])
 def test_assets_wait_for_their_slice(name):
-    """Image textures still wait for their slice; meshes load."""
+    """The assets load: image textures into the atlas (bit for bit the JAX
+    package's), meshes into their instances."""
     path = os.path.join(SCENES, f"{name}.txt")
     if name == "textured_image":
-        with pytest.raises(NotImplementedError, match="later slice"):
-            load_scene(path)
+        jscene = jax_load_scene(path).scene_for_frame(0)
+        scene = load_scene(path).scene_for_frame(0, device="cpu")
+        assert scene.textures.count == 1 and tuple(scene.textures.data.shape) == (1, 64, 64, 3)
+        np.testing.assert_array_equal(scene.textures.data.numpy(), np.asarray(jscene.textures.data))
+        np.testing.assert_array_equal(scene.textures.hw.numpy(), np.asarray(jscene.textures.hw))
+        np.testing.assert_array_equal(scene.materials.texture_image.numpy(), [-1.0, 0.0, -1.0])
+        np.testing.assert_array_equal(port_scene_from_jax(jscene).textures.data.numpy(),
+                                      scene.textures.data.numpy())
         return
     scene = load_scene(path).scene_for_frame(0, device="cpu")
     (mesh,) = scene.meshes

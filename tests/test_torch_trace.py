@@ -38,7 +38,7 @@ from pathtracer_tpu.render.megakernel import trace_paths as jax_trace_paths
 from pathtracer_tpu.scene.parser import load_scene as jax_load_scene
 from pathtracer_tpu.scene.parser import parse_scene_text as jax_parse
 from pathtracer_tpu_torch.config import RenderConfig
-from pathtracer_tpu_torch.ops import trace
+from pathtracer_tpu_torch.ops import texture, trace
 from pathtracer_tpu_torch.ops.bounce import pack_tables
 from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
 from pathtracer_tpu_torch.render.features import resolve_features
@@ -121,10 +121,16 @@ def test_trace_dispatch_on_device():
     )
     with pytest.raises(ValueError, match="material ids"):
         pack_tables(bad)
-    with pytest.raises(NotImplementedError, match="texture"):
-        trace.trace_fused(
-            tscene, Rays(o, d), sample, 5, dataclasses.replace(cfg, features=("texture",))
-        )
+    # the surface instance on a scene without surface materials: the same
+    # trace, bit for bit; image textures stay outside the one-kernel trace
+    surf = dataclasses.replace(cfg, features=(*cfg.features, "texture", "bump", "microfacet",
+                                              "ward"))
+    rad_s, nrays_s = trace.trace_fused(tscene, Rays(o, d), sample, 5, surf, tables=tables)
+    assert torch.equal(rad_s, rad) and int(nrays_s) == int(nrays)
+    atlas = texture.build_atlas([np.ones((2, 2, 3), np.float32)], device="cpu")
+    with pytest.raises(NotImplementedError, match="image textures"):
+        trace.trace_fused(dataclasses.replace(tscene, textures=atlas), Rays(o, d), sample, 5,
+                          surf)
     # the media instance on a vacuum scene: the vacuum trace, bit for bit
     vol = dataclasses.replace(cfg, features=(*cfg.features, "volumetric", "hg"))
     rad_v, nrays_v = trace.trace_fused(tscene, Rays(o, d), sample, 5, vol, tables=tables)
