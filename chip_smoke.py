@@ -121,8 +121,8 @@ Phases (any failure exits non-zero):
     ``bounce_fused_plain`` in every output on sss's primary rays and on
     the captured super-step of the sss and fog renders (lanes inside a
     medium); (e) kernel 1m's vol instance (``pt::mesh_occ_split``) bit for
-    bit on a scene the script writes (:func:`fog_mesh_scene`: smooth_mesh's
-    icosphere inside fog's scattering cube, glass and opaque), and through
+    bit on a scene the script writes (``scene/variants.fog_mesh_scene``:
+    smooth_mesh's icosphere inside fog's scattering cube, glass and opaque), and through
     ``render``; (f) the ``sss_96`` golden (95% of entries within 1e-5,
     sum within 2e-5, PNG mean 0.8/255) and the ``glass_dof_128`` PNG
     (mean 0.8/255) on the card; (g) times by CUDA events, bounds, and each
@@ -134,8 +134,9 @@ Phases (any failure exits non-zero):
     kernel 1's surface instance (1s) once per iteration and nothing else,
     and 1s equals ``trace_plain`` bit for bit on all 262,144 primary lanes;
     (b) the same on a GGX copy of ward that the script writes
-    (:func:`ggx_ward_scene`: its sphere Cook-Torrance); (c) on textured at
-    its 800x800 (checker, bump) and a striped copy (:func:`striped_scene`);
+    (``variants.ggx_ward_scene``: its sphere Cook-Torrance); (c) on
+    textured at its 800x800 (checker, bump) and a striped copy
+    (``variants.striped_scene``);
     (d) ``scenes/textured_image.txt`` at 512x512, 32 spp through ``render``:
     the per-bounce scan, kernel 2's deferred-texel variant (2t) 8 times per
     iteration and nothing else, and 2t bit-equal to its plain version on
@@ -156,7 +157,30 @@ Phases (any failure exits non-zero):
     from the profiler, bounds, each new instance's registers and spills,
     Cornell's kernel 1's registers (72) and time;
     (h) the CLI's auto engine on textured_image (``engine=wavefront``);
-12. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+12. ``[bigmesh]``, meshes above the in-kernel cap and image textures on
+    meshes, each render through ``render`` with the counters zeroed just
+    before: (a) displace_demo's geometry at 5,120 triangles
+    (``scene/variants.bigmesh_scene``) at 512x512, depth 8, NEE, 32 spp on the
+    megakernel route, which is the per-bounce scan: kernels 9, 2mm and 10
+    once per bounce each (256 each) and nothing else; (b) kernel 2mm
+    bit-equal to its plain version on every plane (the 11 deferred ones
+    too) on scan bounce 3 and the primary rays, both fed the same merge
+    planes; (c) the pinned and queue engines and the split route at 2 spp
+    against the megakernel route (99.9% of entries within 2e-4, sums
+    1e-5), equal ray counts; (d) the same geometry at 20,480 triangles (the
+    LBVH traversal) and (e) an image texture on a vt grid of 8,450
+    triangles (``variants.grid_obj``, 2mm with mesh_uv), each at 256x256
+    and 1 spp, and on a vt quad (``variants.quad_obj``, kernel 2mt) at
+    512x512 and 2 spp, the megakernel route against the split route at
+    the same bars, the kernels bit-equal to plain; (f) one lean
+    ``loss_and_grad_rays`` step with mesh vertex leaves on smooth_mesh at
+    512x512, 4 spp (kernel 1m forward) and on the 5,120-triangle scene at
+    256x256, 2 spp (2mm forward): launch counts, finite nonzero vertex
+    gradients, time, idle share, peak memory; (g) times by CUDA events and
+    device time, bounds, registers (Cornell's kernels 1 and 2 keep 72 and
+    56) and the CLI's auto engine on the 5,120-triangle scene
+    (``engine=wavefront``);
+13. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
 The rendered PNGs and the profile table go to ``--out-dir`` (default
 ``renders/chip_smoke``).
@@ -231,6 +255,8 @@ def _counters() -> dict:
         "trace_surf": (trace, "surf_launches"),
         "bounce_surf": (bounce_fused, "surf_launches"),
         "bounce_tex": (bounce_fused, "tex_launches"),
+        "bounce_mesh_tex": (bounce_fused, "mesh_tex_launches"),
+        "bounce_merge": (bounce_fused, "merge_launches"),
         "bounce_mesh": (bounce_fused, "mesh_launches"),
         "bounce_vol": (bounce_fused, "vol_launches"),
         "bounce_hg": (bounce_fused, "hg_launches"),
@@ -286,60 +312,87 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def device_ms(fn, kernel: str, reps: int = 10) -> float:
-    """Mean device time in ms of one launch of the kernels whose name holds
-    ``kernel`` over ``reps`` calls of ``fn()``, from the profiler (after one
-    warm-up call): without the host time of the wrapper, which CUDA events
-    around back-to-back calls of a short kernel include.  The profiler may
-    drop some launches' records; the mean is over those it kept."""
+def profiled(fn, reps: int = 1):
+    """Run ``fn()`` ``reps`` times under the profiler: ``(kernels, wall ms
+    per call)``, ``kernels`` per device kernel name its ``[device us,
+    launches]`` over all the calls.  Only the device is traced, and the raw
+    events are summed here: host operators and ``key_averages``' grouping
+    took minutes for the half a million events of a lean gradient step."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name, [0.0, 0])
+            k[0] += getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
+            k[1] += 1
+    return kernels, wall_ms
+
+
+def top_kernels(kernels: dict, count: int) -> list:
+    """The ``count`` entries of :func:`profiled`'s ``kernels`` with the most
+    device time: ``(name, us, launches)``."""
+    ranked = sorted(kernels.items(), key=lambda kv: kv[1][0], reverse=True)[:count]
+    return [(name, us, launches) for name, (us, launches) in ranked]
+
+
+def write_kernel_table(kernels: dict, path: str) -> None:
+    """The 30 kernels with the most device time, with launches, and the
+    total over all."""
+    with open(path, "w") as f:
+        f.write(f"{'device ms':>12} {'launches':>9} {'ms/launch':>10}  kernel\n")
+        for name, us, launches in top_kernels(kernels, 30):
+            f.write(f"{us / 1e3:12.4f} {launches:9d} {us / 1e3 / launches:10.4f}  {name}\n")
+        f.write(f"{sum(v[0] for v in kernels.values()) / 1e3:12.4f} "
+                f"{sum(v[1] for v in kernels.values()):9d} {'':10}  all kernels\n")
+
+
+def device_ms(fn, kernels, reps: int = 10, per_call: int = 1) -> dict:
+    """Per kernel of ``kernels`` (substrings of kernel names): its mean
+    device time in ms per launch and its launch count over ``reps`` calls of
+    ``fn()``, from the profiler (after one warm-up call): without the host
+    time of the wrapper, which CUDA events around back-to-back calls of a
+    short kernel include.  Each kernel launches ``per_call`` times per call;
+    the profiler may drop some launches' records, and the mean is over those
+    it kept."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    with torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    ) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    run = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-    count = sum(e.count for e in run)
-    check(0 < count <= reps, f"the profiler kept {count} launches of {kernel} for {reps} calls")
-    total = sum(getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-                for e in run)
-    return total / 1e3 / count
+    run, _ = profiled(fn, reps)
+    out = {}
+    for k in kernels:
+        hits = [v for name, v in run.items() if k in name]
+        count = sum(launches for _, launches in hits)
+        check(0 < count <= reps * per_call,
+              f"the profiler kept {count} launches of {k} for {reps} calls")
+        out[k] = (sum(us for us, _ in hits) / 1e3 / count, count)
+    return out
 
 
 def profile_step(step, step_ms: float, out_dir: str, name: str, kernels) -> str:
-    """Profile one ``step()``: writes the table and returns the summary
-    (device busy and idle share against ``step_ms``, time per named
+    """Profile one ``step()``: writes the kernel table and returns the
+    summary (device busy and idle share against ``step_ms``, time per named
     kernel)."""
-    import torch
-
-    with torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    ) as prof:
-        t0 = time.perf_counter()
-        step()
-        torch.cuda.synchronize()
-        prof_ms = (time.perf_counter() - t0) * 1e3
-    events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    run = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(dev_us(e) for e in run) / 1e3
-    named = {k: sum(dev_us(e) for e in run if k in e.key) / 1e3 for k in kernels}
-    with open(os.path.join(out_dir, f"profile_{name}.txt"), "w") as f:
-        f.write(events.table(sort_by="self_cuda_time_total", row_limit=30))
+    t0 = time.perf_counter()
+    run, prof_ms = profiled(step)
+    prof_s = time.perf_counter() - t0
+    busy_ms = sum(us for us, _ in run.values()) / 1e3
+    named = {k: sum(us for n, (us, _) in run.items() if k in n) / 1e3 for k in kernels}
+    write_kernel_table(run, os.path.join(out_dir, f"profile_{name}.txt"))
     return (
         f"device busy {busy_ms:.4f} ms of {step_ms:.4f} ms unprofiled ({prof_ms:.4f} ms "
         f"profiled): idle share {1 - busy_ms / step_ms:.3f}; "
         + "; ".join(f"{k} {v:.4f} ms" for k, v in named.items())
         + f"; everything else {busy_ms - sum(named.values()):.4f} ms in "
-        f"{sum(e.count for e in run)} kernel launches"
+        f"{sum(launches for _, launches in run.values())} kernel launches; the profile "
+        f"took {prof_s:.1f} s with its parse"
     )
 
 
@@ -960,33 +1013,19 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
     _, st_t, _, steps_t, wall_t = run(8, pinned)  # the pinned render again, unwrapped
     # where a super-step's time goes: the same 8-spp render, profiled
     wavefront.super_steps = 0
-    with torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    ) as prof:
-        t0 = time.perf_counter()
-        render(scene, 8, pinned, device=dev)
-        torch.cuda.synchronize()
-        prof_ms = (time.perf_counter() - t0) * 1e3
+    kernels_run, prof_ms = profiled(lambda: render(scene, 8, pinned, device=dev))
     steps_p = wavefront.super_steps
-    events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    kernels_run = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(dev_us(e) for e in kernels_run) / 1e3
-    k2_prof = sum(dev_us(e) for e in kernels_run if "bounce_kernel" in e.key) / 1e3
-    top = sorted(kernels_run, key=dev_us, reverse=True)[:5]
-    with open(os.path.join(out_dir, "profile_wavefront_8spp.txt"), "w") as f:
-        f.write(events.table(sort_by="self_cuda_time_total", row_limit=30))
+    busy_ms = sum(us for us, _ in kernels_run.values()) / 1e3
+    k2_prof = sum(us for k, (us, _) in kernels_run.items() if "bounce_kernel" in k) / 1e3
+    write_kernel_table(kernels_run, os.path.join(out_dir, "profile_wavefront_8spp.txt"))
     wall_ms = wall_t * 1e3  # the unprofiled run of the same render
     print(
         f"[wavefront:profile] pinned 8-spp render, {steps_p} super-steps: {wall_ms:.4f} ms "
         f"unprofiled ({prof_ms:.4f} ms profiled), device busy {busy_ms:.4f} ms, idle share "
         f"{1 - busy_ms / wall_ms:.3f}; per super-step: wall {wall_ms / steps_p:.4f} ms, kernel 2 "
         f"{k2_prof / steps_p:.4f} ms, other device work {(busy_ms - k2_prof) / steps_p:.4f} ms "
-        f"in {sum(e.count for e in kernels_run) / steps_p:.1f} kernel launches; top: "
-        + "; ".join(f"{e.key[:40]} x{e.count} {dev_us(e) / 1e3:.4f} ms" for e in top)
+        f"in {sum(c for _, c in kernels_run.values()) / steps_p:.1f} kernel launches; top: "
+        + "; ".join(f"{k[:40]} x{c} {us / 1e3:.4f} ms" for k, us, c in top_kernels(kernels_run, 5))
     )
 
     # ---- bounds, from this run's inputs (all 640,000 lanes are computed)
@@ -1046,121 +1085,6 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
          "launches": launch_c["occlusion"], "max_abs_err": o_err, "ms": k8_ms,
          "plain_ms": k8p_ms, "bound_ms": k8_bound[0], "bound_by": k8_bound[1]},
     ]
-
-
-def ggx_ward_scene() -> str:
-    """The scene text of ``[surf]`` (b): ``scenes/ward.txt`` with its sphere
-    (material 3) turned Cook-Torrance GGX at roughness 0.25, so that a GGX
-    lane and the Ward floor's lanes are selected per lane in one launch."""
-    with open(os.path.join(ROOT, "scenes", "ward.txt")) as f:
-        text = f.read()
-    assert text.count("BRDF ward 0.25\n") == 1
-    return text.replace("BRDF ward 0.25\n", "BRDF cooktorrance 0.25\n")
-
-
-def striped_scene() -> str:
-    """The scene text of ``[surf]`` (c): ``scenes/textured.txt`` with stripes
-    (scale 3) on its red wall, so that the stripes pattern, on cells of
-    both signs, runs beside the checker floor and walls."""
-    with open(os.path.join(ROOT, "scenes", "textured.txt")) as f:
-        text = f.read()
-    marker = "\nMATERIAL 2  // green diffuse"
-    assert text.count(marker) == 1
-    return text.replace(marker, "TEXTURE     stripes 3 .9 .8 .1\n" + marker)
-
-
-def fog_mesh_scene(refractive: bool) -> str:
-    """The scene text of ``[vol]`` (e): ``scenes/fog.txt``'s lamp,
-    index-matched scattering cube and backdrop, with smooth_mesh's
-    icosphere (320 triangles, authored normals) inside the cube, in a glass
-    material (refractive, Beer-Lambert) or an opaque diffuse one.  Parse it
-    with ``scene_dir`` set to ``scenes/``."""
-    mesh_mat = ("RGB 0 0 0\nSPECEX 0\nSPECRGB 1 1 1\nREFL 0\nREFR 1\nREFRIOR 1.5\nSCATTER 0\n"
-                "ABSCOEFF .3 .1 .3\nRSCTCOEFF 0\nEMITTANCE 0" if refractive else
-                "RGB .7 .5 .3\nSPECEX 0\nSPECRGB 1 1 1\nREFL 0\nREFR 0\nREFRIOR 0\nSCATTER 0\n"
-                "ABSCOEFF 0 0 0\nRSCTCOEFF 0\nEMITTANCE 0")
-    return f"""
-MATERIAL 0
-RGB .9 .9 .9
-SPECEX 0
-SPECRGB 0 0 0
-REFL 0
-REFR 0
-REFRIOR 0
-SCATTER 0
-ABSCOEFF 0 0 0
-RSCTCOEFF 0
-EMITTANCE 40
-
-MATERIAL 1
-RGB 1 1 1
-SPECEX 0
-SPECRGB 1 1 1
-REFL 0
-REFR 1
-REFRIOR 1.0
-SCATTER 1
-ABSCOEFF .01 .01 .01
-RSCTCOEFF 0.8
-EMITTANCE 0
-
-MATERIAL 2
-RGB .4 .4 .45
-SPECEX 0
-SPECRGB 0 0 0
-REFL 0
-REFR 0
-REFRIOR 0
-SCATTER 0
-ABSCOEFF 0 0 0
-RSCTCOEFF 0
-EMITTANCE 0
-
-MATERIAL 3
-{mesh_mat}
-
-CAMERA
-RES 200 200
-FOVY 40
-ITERATIONS 64
-FILE fog_mesh.png
-frame 0
-EYE 0 0 8
-VIEW 0 0 -1
-UP 0 1 0
-
-OBJECT 0
-sphere
-material 0
-frame 0
-TRANS 2 2.5 -1
-ROTAT 0 0 0
-SCALE .4 .4 .4
-
-OBJECT 1
-cube
-material 1
-frame 0
-TRANS 0 0 0
-ROTAT 0 0 0
-SCALE 6 6 6
-
-OBJECT 2
-cube
-material 2
-frame 0
-TRANS 0 0 -8
-ROTAT 0 0 0
-SCALE 14 14 .3
-
-OBJECT 3
-assets/ico_smooth.obj
-material 3
-frame 0
-TRANS -.6 -.4 .5
-ROTAT 0 25 0
-SCALE 2.5 2.5 2.5
-"""
 
 
 MESH_RES = (512, 512)  # bench.py's smooth_mesh row
@@ -1480,6 +1404,7 @@ def vol_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) ->
     from pathtracer_tpu_torch.render.features import features_for_materials
     from pathtracer_tpu_torch.render.integrator import render, render_chunk
     from pathtracer_tpu_torch.scene.parser import load_scene, parse_scene_text
+    from pathtracer_tpu_torch.scene.variants import fog_mesh_scene
     from pathtracer_tpu_torch.utils.imageio import load_png, save_image
 
     scenes_dir = os.path.join(ROOT, "scenes")
@@ -1780,6 +1705,7 @@ def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -
     from pathtracer_tpu_torch.render.features import features_for_materials
     from pathtracer_tpu_torch.render.integrator import render, render_chunk
     from pathtracer_tpu_torch.scene.parser import load_scene, parse_scene_text
+    from pathtracer_tpu_torch.scene.variants import ggx_ward_scene, striped_scene
     from pathtracer_tpu_torch.utils.imageio import load_png, save_image
 
     scenes_dir = os.path.join(ROOT, "scenes")
@@ -2004,7 +1930,8 @@ def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -
     for key, name in (("trace_surf", "ward"), ("trace_surf textured", "textured")):
         scene, targs, kw, nrays = trace_args[name]
         ms = cuda_ms(lambda: trace.trace_cuda(*targs, **kw), reps=10)
-        d_ms = device_ms(lambda: trace.trace_cuda(*targs, **kw), "trace_kernel")
+        d_ms = device_ms(lambda: trace.trace_cuda(*targs, **kw),
+                         ["trace_kernel"])["trace_kernel"][0]
         p_ms = cuda_ms(lambda: trace.trace_plain(*targs, **kw), reps=1)
         n = targs[5].shape[0]
         tbytes = sum(t.numel() * 4 for t in targs[:4])
@@ -2020,7 +1947,7 @@ def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -
             return bounce_fused.bounce_fused_cuda(*args, nee=True, features=feats, tex_defer=tex)
 
         ms = cuda_ms(launch, reps=20)
-        d_ms = device_ms(launch, "bounce_kernel")
+        d_ms = device_ms(launch, ["bounce_kernel"])["bounce_kernel"][0]
         p_ms = cuda_ms(lambda: bounce_fused.bounce_fused_plain(*args, nee=True, features=feats,
                                                                tex_defer=tex), reps=2)
         tbytes = sum(t.numel() * 4 for t in args[0])
@@ -2100,6 +2027,427 @@ def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -
     return entries
 
 
+BIG_RES = (512, 512)  # bench.py's smooth_mesh row's width, on displace_demo's geometry
+BIG_SPP = 32
+# (d) and (e)'s vt grid are above kernel 9's 8,192 triangles: their winner and
+# shadow rays take the LBVH traversal, plain PyTorch over every lane for each
+# chunk of 64 triangles with a host sync per chunk, so they run at a quarter
+# of the lanes and 1 spp; the 2mm gradient step runs at TRAVERSAL_RES, 2 spp,
+# as the lean step is plain PyTorch per bounce around its kernels
+TRAVERSAL_RES = (256, 256)
+TRAVERSAL_SPP = 1
+
+
+def bigmesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
+    """Phase 12, ``[bigmesh]``: meshes above the in-kernel cap and image
+    textures on meshes.  displace_demo's geometry at 5,120 triangles through
+    every forward engine (kernel 2mm per bounce, kernels 9 and 10 around
+    it), 2mm against its plain version, 20,480 triangles (the LBVH
+    traversal), an image texture on a vt grid of 8,450 triangles (2mm with
+    mesh_uv) and on a 2-triangle quad (2mt), one lean gradient step with
+    mesh vertex leaves on smooth_mesh (kernel 1m forward) and on the
+    5,120-triangle scene (2mm forward), times, bounds, registers and the
+    CLI.  Returns the JSON entries of 2mm and 2mt."""
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import bounce_fused, mesh
+    from pathtracer_tpu_torch.ops.bounce import pack_tables
+    from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
+    from pathtracer_tpu_torch.ops.mesh import object_rays
+    from pathtracer_tpu_torch.ops.mesh_tables import MESH_CHUNK, mesh_sweep
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render import diff, megakernel
+    from pathtracer_tpu_torch.render.features import features_for_materials
+    from pathtracer_tpu_torch.render.integrator import render_chunk
+    from pathtracer_tpu_torch.scene.parser import load_scene, parse_scene_text
+    from pathtracer_tpu_torch.scene.structs import Rays
+    from pathtracer_tpu_torch.scene.variants import (bigmesh_scene, grid_obj, quad_obj,
+                                                     textured_mesh_scene)
+    from pathtracer_tpu_torch.utils.imageio import save_image
+
+    scenes_dir = os.path.join(ROOT, "scenes")
+    obj_dir = os.path.join(out_dir, "bigmesh_assets")
+    os.makedirs(obj_dir, exist_ok=True)
+    grid_path, quad_path = os.path.join(obj_dir, "grid65.obj"), os.path.join(obj_dir, "quad.obj")
+    with open(grid_path, "w") as f:
+        f.write(grid_obj(65))
+    with open(quad_path, "w") as f:
+        f.write(quad_obj(True))
+
+    def scene_of(text, res, name):
+        desc = dataclasses.replace(parse_scene_text(text, name=name, scene_dir=scenes_dir),
+                                   resolution=res)
+        return desc.scene_for_frame(0, device=dev)
+
+    base = dict(max_depth=8, nee=True)
+    seed = key_to_seed(prng_key(0))
+    f32 = dict(dtype=torch.float32, device=dev)
+    t_last = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        print(f"[bigmesh:wall] {part} {now - t_last[0]:.1f} s")
+        t_last[0] = now
+
+    def feats_of(scene):
+        return frozenset(features_for_materials(scene.materials)) | {"glossy"}
+
+    def tables_of(scene):
+        return [t.contiguous() for t in pack_tables(scene)]
+
+    def primary(scene):
+        n = scene.camera.width * scene.camera.height
+        pixel = torch.arange(n, dtype=torch.int64, device=dev)
+        rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, pixel))
+        return dict(origin=rays.origin, direction=rays.direction,
+                    throughput=torch.ones((n, 3), **f32), sample=pixel,
+                    depth=torch.zeros(n, dtype=torch.int32, device=dev),
+                    prev=torch.zeros(n, **f32), medium=torch.zeros((n, 4), **f32))
+
+    # ---- (a) the 5,120-triangle scene through the entry point: the
+    # megakernel route is the per-bounce scan, each bounce kernel 9 (the
+    # mesh winner), kernel 2mm and kernel 10 (the deferred shadow rays) once;
+    # the inputs of scan bounce SCAN_CAPTURE_DEPTH are kept
+    big = scene_of(bigmesh_scene(4), BIG_RES, "bigmesh")
+    n_tris = big.meshes[0].tri_verts.shape[0]
+    w, h = BIG_RES
+    n = w * h
+    cfg = RenderConfig(iters_per_launch=8, **base)
+    captured = {}
+    shade = megakernel.shade_bounce
+
+    def recording(scn, rays, thr, sample, depth, prev, seed_, cfg_, medium_sigma=None,
+                  tables=None):
+        if depth == SCAN_CAPTURE_DEPTH and not captured:
+            captured.update(origin=rays.origin.clone(), direction=rays.direction.clone(),
+                            throughput=thr.clone(), sample=sample.clone(),
+                            depth=torch.full(sample.shape, depth, dtype=torch.int32, device=dev),
+                            prev=prev.clone(), medium=medium_sigma.clone())
+        return shade(scn, rays, thr, sample, depth, prev, seed_, cfg_,
+                     medium_sigma=medium_sigma, tables=tables)
+
+    megakernel.shade_bounce = recording
+    try:
+        img, acc, st, launch_a, _, wall_a = counted_render(big, BIG_SPP, cfg, dev)
+    finally:
+        megakernel.shade_bounce = shade
+    per_iter = cfg.max_depth
+    print(f"[bigmesh] (a) displaced icosahedron, {n_tris} triangles, {w}x{h} d8 nee "
+          f"spp={BIG_SPP}: {wall_a:.3f} s, rays {st['rays_traced']}, launches {launch_a}")
+    check(n_tris == 5120, f"{n_tris} triangles, expected 5120")
+    check(launch_a == only(bounce_merge=per_iter * BIG_SPP, mesh_nearest=per_iter * BIG_SPP,
+                           mesh_min=per_iter * BIG_SPP), f"big mesh megakernel launches {launch_a}")
+    check(tuple(img.shape) == (h, w, 3) and bool(torch.isfinite(acc).all())
+          and bool((acc >= 0).all()) and float(acc.sum()) > 0, "big mesh render: bad image")
+    check(bool(captured), "no scan bounce captured")
+    save_image(os.path.join(out_dir, "chip_smoke_bigmesh.png"), img.cpu().numpy())
+
+    # ---- (b) kernel 2mm against its plain version on the primary rays and
+    # on scan bounce SCAN_CAPTURE_DEPTH: both take the same merge planes
+    k2_err = {"merge": 0.0, "mesh_tex": 0.0}
+    bargs = {}
+
+    def hold_bounce(inst, label, scene, s):
+        """Kernel 2mm (2mt) against its plain version on the bounce state
+        ``s``: every output plane equal on every lane."""
+        feats = feats_of(scene)
+        tables = tables_of(scene)
+        tex = scene.textures is not None
+        kw = dict(nee=True, features=feats, tex_defer=tex)
+        if inst == "merge":
+            with_uv = tex and any(m.tri_uv is not None for m in scene.meshes)
+            kw["mesh_in"], kw["mesh_uv"] = bounce_fused.merge_planes(
+                scene, s["origin"], s["direction"], tables[0], with_uv)
+        else:
+            kw["mesh"] = scene.mesh_tables
+        args = (tables, s["origin"], s["direction"], s["throughput"], s["sample"], s["depth"],
+                s["prev"], s["medium"].contiguous(), seed)
+        zero_counts()
+        got = bounce_fused.bounce_fused_cuda(*args, **kw)
+        launched = read_counts()
+        want = bounce_fused.bounce_fused_plain(*args, **kw)
+        torch.cuda.synchronize()
+        (got, *g_extra), (want, *w_extra) = got, want
+        names = (["u", "v", "slot"] if tex else []) + (["deferred"] if inst == "merge" else [])
+        same = {k: torch.equal(a, b) for k, a, b in zip(names, g_extra, w_extra)}
+        same.update({f.name: torch.equal(getattr(got, f.name), getattr(want, f.name))
+                     for f in dataclasses.fields(got)})
+        for f in ("contrib", "next_origin", "next_direction", "throughput_mult"):
+            k2_err[inst] = max(k2_err[inst],
+                               float((getattr(got, f) - getattr(want, f)).abs().max()))
+        extra = ""
+        if inst == "merge":
+            extra = (f", {int((kw['mesh_in'][0] < 1e29).sum())} lanes on the mesh, "
+                     f"{int(w_extra[-1][10].sum())} deferred candidates")
+        if tex:
+            extra += f", {int((w_extra[2] >= 0).sum())} image-textured events"
+        print(f"[bigmesh:check] kernel 2{'mm' if inst == 'merge' else 'mt'} on {label}, "
+              f"{s['origin'].shape[0]} lanes{extra}: outputs equal {same}")
+        check(launched == only(**{f"bounce_{inst}": 1}), f"kernel 2 {inst} launches {launched}")
+        check(all(same.values()), f"kernel 2 {inst} differs from plain ({label})")
+        bargs.setdefault(inst, (args, kw, label, scene))
+
+    hold_bounce("merge", f"bounce {SCAN_CAPTURE_DEPTH} of the scan", big, captured)
+    hold_bounce("merge", "the primary rays", big, primary(big))
+    lap("(a), (b)")
+
+    # ---- (c) the pinned and queue engines and the split route at 2 spp
+    # against the megakernel route
+    _, acc_m, st_m, launch_m, _, _ = counted_render(
+        big, 2, RenderConfig(iters_per_launch=2, **base), dev)
+    check(launch_m == only(bounce_merge=16, mesh_nearest=16, mesh_min=16),
+          f"big mesh megakernel launches at 2 spp {launch_m}")
+    engine_launch = {"bounce_merge": launch_a["bounce_merge"]}
+    for engine, ecfg, bar in (
+            ("pinned", RenderConfig(wavefront=True, iters_per_launch=2, **base), (0.999, 1e-5)),
+            ("queue", RenderConfig(wavefront=True, wavefront_pinned=False,
+                                   wavefront_capacity=1 << 16, iters_per_launch=2, **base),
+             (0.999, 1e-5)),
+            ("split", RenderConfig(fused=False, iters_per_launch=2, **base), (0.999, 1e-5))):
+        _, acc_e, st_e, launch_e, steps, wall_e = counted_render(big, 2, ecfg, dev)
+        print(f"[bigmesh] (c) {engine}, spp=2: {wall_e:.3f} s, {steps} super-steps, rays "
+              f"{st_e['rays_traced']}, launches {launch_e}")
+        if engine == "split":
+            check(launch_e == only(nearest_hit=16, occlusion=16, mesh_nearest=16, mesh_min=16),
+                  f"big mesh split route launches {launch_e}")
+        else:
+            check(launch_e == only(bounce_merge=steps, mesh_nearest=steps, mesh_min=steps),
+                  f"big mesh {engine} launches {launch_e}")
+        check(st_e["rays_traced"] == st_m["rays_traced"],
+              f"big mesh {engine} and megakernel ray counts differ")
+        check_close("bigmesh", acc_e, acc_m, *bar, f"(c) {engine} vs megakernel, 2 spp")
+    lap("(c)")
+
+    # ---- (d) 20,480 triangles (the LBVH traversal, no kernel 9 or 10)
+    huge = scene_of(bigmesh_scene(5), TRAVERSAL_RES, "bigmesh5")
+    t_d = {}
+    per_d = per_iter * TRAVERSAL_SPP
+    for engine, ecfg in (("megakernel", RenderConfig(iters_per_launch=TRAVERSAL_SPP, **base)),
+                         ("split", RenderConfig(fused=False, iters_per_launch=TRAVERSAL_SPP,
+                                                **base))):
+        _, acc_e, st_e, launch_e, _, wall_e = counted_render(huge, TRAVERSAL_SPP, ecfg, dev)
+        print(f"[bigmesh] (d) {huge.meshes[0].tri_verts.shape[0]} triangles "
+              f"{TRAVERSAL_RES[0]}x{TRAVERSAL_RES[1]} {engine}, spp={TRAVERSAL_SPP}: "
+              f"{wall_e:.3f} s, rays {st_e['rays_traced']}, launches {launch_e}")
+        want = (only(bounce_merge=per_d) if engine == "megakernel"
+                else only(nearest_hit=per_d, occlusion=per_d))
+        check(launch_e == want, f"20,480-triangle {engine} launches {launch_e}")
+        t_d[engine] = (acc_e, st_e["rays_traced"])
+    check(t_d["megakernel"][1] == t_d["split"][1], "20,480 triangles: ray counts differ")
+    check_close("bigmesh", t_d["split"][0], t_d["megakernel"][0], 0.999, 1e-5,
+                "(d) 20,480 triangles, split route vs megakernel")
+    lap("(d)")
+
+    # ---- (e) image textures on meshes: the vt grid above the cap (2mm with
+    # mesh_uv and the texel) and the quad in the in-kernel sweep (2mt)
+    for name, path, inst, res, spp in (
+            ("vt grid", grid_path, "merge", TRAVERSAL_RES, TRAVERSAL_SPP),
+            ("vt quad", quad_path, "mesh_tex", BIG_RES, 2)):
+        scene = scene_of(textured_mesh_scene(path), res, name)
+        accs = {}
+        for engine, ecfg in (("megakernel", RenderConfig(iters_per_launch=spp, **base)),
+                             ("split", RenderConfig(fused=False, iters_per_launch=spp, **base))):
+            _, acc_e, st_e, launch_e, _, wall_e = counted_render(scene, spp, ecfg, dev)
+            print(f"[bigmesh] (e) {name} ({scene.meshes[0].tri_verts.shape[0]} triangles) "
+                  f"{res[0]}x{res[1]} {engine}, spp={spp}: {wall_e:.3f} s, rays "
+                  f"{st_e['rays_traced']}, launches {launch_e}")
+            if engine == "megakernel":
+                check(launch_e[f"bounce_{inst}"] == per_iter * spp,
+                      f"{name}: kernel 2 {inst} launches {launch_e}")
+                engine_launch.setdefault(f"bounce_{inst}", launch_e[f"bounce_{inst}"])
+            accs[engine] = (acc_e, st_e["rays_traced"])
+        check(accs["megakernel"][1] == accs["split"][1], f"{name}: ray counts differ")
+        check_close("bigmesh", accs["split"][0], accs["megakernel"][0], 0.999, 1e-5,
+                    f"(e) {name}, split route vs megakernel")
+        hold_bounce(inst, f"{name} primary rays", scene, primary(scene))
+    lap("(e)")
+
+    # ---- (g) times by CUDA events and profiler device time, bounds from this
+    # run's inputs, registers, and the CLI
+    def bound(ops, nbytes):
+        t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+    def sweep_ops(scene):
+        return sum(OPS_TO_OBJECT + (OPS_SPHERE if t == 0 else OPS_CUBE if t == 1 else 0)
+                   for t in scene.geoms.type.tolist())
+
+    timing = {}
+    for inst in ("merge", "mesh_tex"):
+        args, kw, label, scene = bargs[inst]
+        ln = args[1].shape[0]
+        tex = kw["tex_defer"]
+
+        def launch(args=args, kw=kw):
+            return bounce_fused.bounce_fused_cuda(*args, **kw)
+
+        ms = cuda_ms(launch, reps=20)
+        kname = "bounce_merge_kernel" if inst == "merge" else "bounce_kernel"
+        d_ms = device_ms(launch, [kname])[kname][0]
+        p_ms = cuda_ms(lambda args=args, kw=kw: bounce_fused.bounce_fused_plain(*args, **kw),
+                       reps=2)
+        tbytes = sum(t.numel() * 4 for t in args[0])
+        ops = ln * (sweep_ops(scene) + OPS_SHADE + (OPS_TEXTURE if tex else 0))
+        if inst == "merge":
+            # kernel 2's 16 planes in and 18 float planes and a byte out, the
+            # 8 merge planes, 11 deferred ones under NEE, with the texel 3 out
+            # and mesh_uv 3 in
+            nbytes = ln * (53 * 4 + 1 + (24 if tex else 0)) + tbytes
+        else:
+            km = scene.mesh_tables
+            tbytes += sum(t.numel() * 4 for t in (km.tri, km.aabb, km.norm, km.uv, km.desc))
+            nbytes = ln * (48 + 16 + 57 + 16 + 12) + tbytes
+            reached = mesh_sweep(km, args[0][0], args[1].unbind(-1), args[2].unbind(-1))["reached"]
+            ops += (ln * (OPS_MESH_RAY + OPS_AABB * km.aabb.numel() // 6)
+                    + int(reached.sum()) * MESH_CHUNK * OPS_MT)
+        timing[f"bounce_{inst}"] = (ms, d_ms, p_ms, bound(ops, nbytes), label, ln)
+    # kernels 9 and 10 inside this path: the mesh winner of scan bounce
+    # SCAN_CAPTURE_DEPTH's rays and the deferred shadow rays of that bounce
+    m0 = big.meshes[0]
+    big_tables = tables_of(big)
+    o_obj, d_obj = object_rays(Rays(captured["origin"], captured["direction"]), big_tables[0],
+                               m0.geom_index)
+    kw_merge = bargs["merge"][1]
+    deferred = bounce_fused.bounce_fused_cuda(*bargs["merge"][0], **kw_merge)[-1]
+    s_obj, s_dir = object_rays(Rays(deferred[0:3].T.contiguous(), deferred[3:6].T.contiguous()),
+                               big_tables[0], m0.geom_index)
+    k9 = (lambda: mesh.mesh_nearest_cuda(m0.scan_table, o_obj.contiguous(), d_obj.contiguous()))
+    k10 = (lambda: mesh.mesh_min_cuda(m0.scan_table, s_obj.contiguous(), s_dir.contiguous()))
+    k9_ms, k10_ms = cuda_ms(k9, reps=5), cuda_ms(k10, reps=5)
+    acc0 = torch.zeros((n, 3), **f32)
+    rcfg = dataclasses.replace(cfg, features=tuple(sorted(feats_of(big))))
+    iter_ms = cuda_ms(lambda: render_chunk(big, acc0, 0, seed, rcfg, 1, tables=big_tables), reps=3)
+    in_path = ("bounce_merge_kernel", "mesh_nearest_kernel", "mesh_min_kernel")
+    summary = profile_step(lambda: render_chunk(big, acc0, 0, seed, rcfg, 1, tables=big_tables),
+                           iter_ms, out_dir, "bigmesh_iteration", in_path)
+    per_launch = device_ms(lambda: render_chunk(big, acc0, 0, seed, rcfg, 1, tables=big_tables),
+                           in_path, reps=1, per_call=per_iter)
+    instances = ptxas_instances(reports)
+    regs = {
+        "trace (Cornell)": instance_regs(instances, "trace", "trace_kernel", 0, 0, 0, 0),
+        "bounce (Cornell)": instance_regs(instances, "bounce", "bounce_kernel", 0, 0, 0, 0, 0),
+        "bounce_surf": instance_regs(instances, "bounce", "bounce_kernel", 0, 0, 0, 1, 0),
+        "bounce_tex": instance_regs(instances, "bounce", "bounce_kernel", 0, 0, 0, 1, 1),
+        "bounce_mesh_tex": instance_regs(instances, "bounce", "bounce_kernel", 1, 0, 0, 1, 1),
+        "bounce_mesh_tex_vol": instance_regs(instances, "bounce", "bounce_kernel", 1, 1, 0, 1, 1),
+        "bounce_mesh_tex_hg": instance_regs(instances, "bounce", "bounce_kernel", 1, 1, 1, 1, 1),
+    }
+    for vol, hg, surf, tex in ((0, 0, 0, 0), (0, 0, 1, 0), (0, 0, 1, 1), (1, 0, 0, 0),
+                               (1, 1, 0, 0), (1, 0, 1, 0), (1, 1, 1, 0), (1, 0, 1, 1),
+                               (1, 1, 1, 1)):
+        tag = "bounce_merge" + "".join(f"_{k}" for k, on in (("vol", vol), ("hg", hg),
+                                                              ("surf", surf), ("tex", tex)) if on)
+        regs[tag] = instance_regs(instances, "bounce_merge", "bounce_merge_kernel",
+                                  vol, hg, surf, tex)
+    print(f"[card] {card}")
+    print(f"[bigmesh:regs] registers, spill store / load bytes per instance: {regs}")
+    for key, want in (("trace (Cornell)", 72), ("bounce (Cornell)", 56), ("bounce_surf", 56),
+                      ("bounce_tex", 64)):
+        check(regs[key] is None or regs[key][0] == want,
+              f"{key} uses {regs[key]} registers, not {want} as before")
+    print(f"[bigmesh:time] iteration of the 5,120-triangle scene at {w}x{h} (8 bounces of the "
+          f"scan, each kernels 9, 2mm, 10) {iter_ms:.4f} ms "
+          f"({st_m['rays_traced'] / 2 / iter_ms / 1e3:.1f} Mrays/s); device time per launch "
+          f"in the iteration: "
+          + "; ".join(f"{k} {v[0]:.4f} ms x{v[1]}" for k, v in per_launch.items())
+          + f"; by events at {o_obj.shape[0]} rays of bounce {SCAN_CAPTURE_DEPTH}: kernel 9 "
+          f"{k9_ms:.4f} ms, kernel 10 {k10_ms:.4f} ms; on {card}")
+    print(f"[bigmesh:profile] iteration: {summary}")
+    for key, (ms, d_ms, p_ms, (b_ms, b_by), where, ln) in timing.items():
+        print(f"[bigmesh:time] {key} at {ln} lanes of {where}: {ms:.4f} ms by events, "
+              f"{d_ms:.4f} ms of device time (plain {p_ms:.3f} ms), bound {b_ms:.4f} ms by "
+              f"{b_by}; on {card}")
+    lap("(g) times")
+
+    # ---- (f) one lean gradient step with mesh vertex leaves: smooth_mesh
+    # (the forward on kernel 1m) and the 5,120-triangle scene (2mm).  It runs
+    # after (g)'s short profiles: one started just after the profile of a
+    # lean step (tens of thousands of launches) kept no kernel at all
+    for name, desc, gspp in (
+            ("smooth_mesh", dataclasses.replace(load_scene(os.path.join(scenes_dir,
+                                                                        "smooth_mesh.txt")),
+                                                resolution=BIG_RES), 4),
+            ("bigmesh", dataclasses.replace(parse_scene_text(bigmesh_scene(4), name="bigmesh",
+                                                             scene_dir=scenes_dir),
+                                            resolution=TRAVERSAL_RES), 2)):
+        params, static = diff.params_from_description(desc, 0, device=dev)
+        gn = static.resolution[0] * static.resolution[1]
+        target = torch.zeros((gn, 3), **f32)
+        gcfg = RenderConfig(wavefront=False, **base)
+        per = gspp * base["max_depth"]
+
+        def step(params=params, static=static, target=target, gspp=gspp, gcfg=gcfg):
+            return diff.loss_and_grad_rays(params, static, target, gspp, prng_key(0), gcfg,
+                                           device=dev)
+
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, rays = step()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        vg = grads.mesh_verts[0]
+        expect = (only(trace_mesh=gspp, winner=per, occlusion=per, mesh_nearest=per, mesh_min=per)
+                  if name == "smooth_mesh" else
+                  only(bounce_merge=per, winner=per, occlusion=per, mesh_nearest=2 * per,
+                       mesh_min=2 * per))
+        print(f"[bigmesh] (f) lean loss_and_grad_rays {name} {static.resolution[0]}x"
+              f"{static.resolution[1]} d8 nee spp={gspp}, {vg.shape[0]} triangles as leaves: "
+              f"{first_s:.3f} s (first step), loss {float(loss):.9g}, rays {int(rays)}, peak "
+              f"memory {peak_gb:.3f} GB, vertex gradients max {float(vg.abs().max()):.4g}, "
+              f"launches {launches}")
+        check(launches == expect, f"{name} lean step launches {launches}, expected {expect}")
+        check(float(loss) > 0 and bool(torch.isfinite(vg).all()) and float(vg.abs().max()) > 0,
+              f"{name}: vertex gradients not finite and nonzero")
+        bad = [k for k, v in grads.leaves().items() if not bool(torch.isfinite(v).all())]
+        check(not bad, f"{name}: non-finite gradients in {bad}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        kernels = (("trace_kernel",) if name == "smooth_mesh" else ("bounce_merge_kernel",)) + (
+            "winner_kernel", "occlusion_kernel", "mesh_nearest_kernel", "mesh_min_kernel")
+        summary = profile_step(step, step_ms, out_dir, f"bigmesh_{name}_step", kernels)
+        print(f"[bigmesh:profile] lean step on {name}: {step_ms:.4f} ms, "
+              f"{int(rays) / step_ms / 1e3:.1f} fwd+bwd Mrays/s; {summary}")
+    lap("(f)")
+
+    # the CLI's auto engine on the 5,120-triangle scene: the wavefront engine
+    scene_file = os.path.join(obj_dir, "bigmesh.txt")
+    with open(scene_file, "w") as f:
+        f.write(bigmesh_scene(4).replace("assets/ico.obj",
+                                         os.path.join(scenes_dir, "assets", "ico.obj")))
+    png = os.path.join(out_dir, "cli_bigmesh.png")
+    cli = subprocess.run(
+        [sys.executable, "-m", "pathtracer_tpu_torch.cli", f"scene={scene_file}", "--spp", "2",
+         "--engine", "auto", "--out", png],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    print(f"[bigmesh:cli] exit {cli.returncode}: {cli.stdout.strip()} "
+          f"{cli.stderr.strip()[-2000:]}")
+    check(cli.returncode == 0 and "engine=wavefront" in cli.stdout
+          and os.path.exists(os.path.join(out_dir, "cli_bigmesh.0.png")),
+          "the CLI on the 5,120-triangle scene failed")
+    lap("(g) CLI")
+
+    common = {"route": "cuda", "library_ms": None,
+              "replaces": "pathtracer_tpu/ops/bounce_pallas.py:1477"}
+    entries = []
+    for key, source, err in (("bounce_merge", "bounce_merge.cu", k2_err["merge"]),
+                             ("bounce_mesh_tex", "bounce.cu", k2_err["mesh_tex"])):
+        ms, _, p_ms, (b_ms, b_by), _, _ = timing[key]
+        entries.append({"name": key, **common, "source": f"pathtracer_tpu_torch/csrc/{source}",
+                        "launches": engine_launch[key], "max_abs_err": err, "ms": ms,
+                        "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by})
+    return entries
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2107,6 +2455,10 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--out-dir", default=os.path.join(ROOT, "renders", "chip_smoke"))
     out_dir = parser.parse_args().out_dir
+    t_start = time.perf_counter()
+
+    def wall(done: str) -> None:
+        print(f"[wall] {time.perf_counter() - t_start:.1f} s since the start, {done} done")
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
@@ -2134,7 +2486,8 @@ def main() -> int:
     # ---- 1. build
     t0 = time.perf_counter()
     reports = _build.build_all()
-    print(f"[build] {len(reports)} kernel(s) in {time.perf_counter() - t0:.1f} s")
+    print(f"[build] {len(reports)} kernel(s) in {time.perf_counter() - t0:.1f} s; per source "
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(_build.build_seconds.items())))
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -2204,29 +2557,16 @@ def main() -> int:
         lambda: generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, pixel)), reps=5
     )
     # where one render iteration's device time goes, and how idle the card is
-    with torch.profiler.profile(
-        activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    ) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            render_chunk(scene, acc0, 0, seed, rcfg, 1, tables=tables)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / 3
-    events = prof.key_averages()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-
-    kernels_run = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(dev_us(e) for e in kernels_run) / 1e3 / 3
-    top = sorted(kernels_run, key=dev_us, reverse=True)[:4]
-    with open(os.path.join(out_dir, "profile_render_iteration.txt"), "w") as f:
-        f.write(events.table(sort_by="self_cuda_time_total", row_limit=25))
+    kernels_run, wall_ms = profiled(
+        lambda: render_chunk(scene, acc0, 0, seed, rcfg, 1, tables=tables), reps=3)
+    busy_ms = sum(us for us, _ in kernels_run.values()) / 1e3 / 3
+    write_kernel_table(kernels_run, os.path.join(out_dir, "profile_render_iteration.txt"))
     print(
         f"[profile] render iteration: device busy {busy_ms:.4f} ms; wall {iter_ms:.4f} ms "
         f"unprofiled ({wall_ms:.4f} ms profiled); idle share {1 - busy_ms / iter_ms:.3f}; top: "
-        + "; ".join(f"{e.key[:40]} x{e.count // 3} {dev_us(e) / 1e3 / 3:.4f} ms" for e in top)
-        + f"; {sum(e.count for e in kernels_run) // 3} kernels per iteration"
+        + "; ".join(f"{k[:40]} x{c // 3} {us / 1e3 / 3:.4f} ms"
+                    for k, us, c in top_kernels(kernels_run, 4))
+        + f"; {sum(c for _, c in kernels_run.values()) // 3} kernels per iteration"
     )
     lane_bounces = rays_per_iter // (2 if cfg.nee else 1)
     types = scene.geoms.type.tolist()
@@ -2270,26 +2610,37 @@ def main() -> int:
     )
     print(f"[cli] exit {cli.returncode}: {cli.stdout.strip()} {cli.stderr.strip()[-2000:]}")
     check(cli.returncode == 0, "CLI run failed")
+    wall("phases 1-5")
 
     # ---- 6. the differentiable step
     full_loss, full_grads, grad_kernels = grad_phase(desc, dev, card, out_dir)
+    wall("[grad]")
 
     # ---- 7. the per-bounce and lean differentiable engines
     engine_kernels = grad_engines_phase(desc, dev, card, out_dir, full_loss, full_grads)
+    wall("[grad:perbounce] and [grad:lean]")
 
     # ---- 8. the wavefront engines
     wave_kernels = wavefront_phase(scene, dev, card, out_dir, mega)
+    wall("[wavefront]")
 
     # ---- 9. triangle meshes
     mesh_kernels = mesh_phase(dev, card, out_dir)
+    wall("[mesh]")
 
     # ---- 10. participating media
     vol_kernels = vol_phase(dev, card, out_dir, reports, k_ms)
+    wall("[vol]")
 
     # ---- 11. optional surface physics
     surf_kernels = surf_phase(dev, card, out_dir, reports, k_ms)
+    wall("[surf]")
 
-    # ---- 12. results
+    # ---- 12. meshes above the in-kernel cap, image textures on meshes
+    bigmesh_kernels = bigmesh_phase(dev, card, out_dir, reports)
+    wall("[bigmesh]")
+
+    # ---- 13. results
     kernels = [
         {
             "name": "trace",
@@ -2310,6 +2661,7 @@ def main() -> int:
         *mesh_kernels,
         *vol_kernels,
         *surf_kernels,
+        *bigmesh_kernels,
     ]
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

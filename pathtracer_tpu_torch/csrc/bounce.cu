@@ -43,8 +43,8 @@
 // total at most 4096 triangles passes their in-kernel tables, and the
 // bounce's nearest hit and shadow ray sweep them through the same
 // pt::bounce.  As in trace.cu the kernel is built with and without the sweep
-// and launched by n_mesh.  The mesh-merge variant for larger meshes is not
-// ported.
+// and launched by n_mesh.  The mesh-merge variant for larger meshes is
+// csrc/bounce_merge.cu.
 //
 // Optional surface physics (kernel 2 with the texture, bump, microfacet and
 // ward blocks): the kSurf instances run pt::bounce's surface blocks, switched
@@ -56,8 +56,9 @@
 // event, -1 elsewhere; the wrapper (ops/bounce_fused.py) fetches the
 // bilinear texel and multiplies it into contrib and, on diffuse events, the
 // throughput multiplier (:1772-1793).  The atlas stays outside the kernel,
-// as on the TPU.  kTex is built with kSurf and without meshes only: image
-// textures on meshes are not ported.
+// as on the TPU.  kTex is built with kSurf, with and without the in-kernel
+// meshes (kernel 2mt: the mesh sweep also blends the winner's authored UV,
+// and a mesh lane takes the box map of its object-space normal).
 //
 // Design: one thread per lane; the geom / material / light tables are
 // copied once per block into shared memory and indexed by id (the TPU
@@ -76,77 +77,10 @@
 // are not counted.  The kernel is simple on purpose (one bounce, no sorting
 // by material, no compaction of live lanes); making it fast is later work.
 
+#include "bounce_lane.cuh"
+
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
-#endif
-#include <stdint.h>
-
-#include "trace_common.cuh"
-
-namespace pt {
-
-// one lane of the per-bounce kernel; also compiled as host C++ by
-// tests/kernel_host_harness.cpp.  The medium rows are mw = 4 or 5 wide
-// (the phase g in column 4); the output g column is the medium entered with
-// kHg, 0 with kVol alone (its g is never read), and passes through in
-// vacuum.
-template <bool kVol = false, bool kHg = false, bool kSurf = false, bool kTex = false>
-PT_FN void bounce_lane(const Tables& T, uint32_t seed, int nee, int vol_nee, int mw, size_t i,
-                       const float* __restrict__ origin, const float* __restrict__ direction,
-                       const float* __restrict__ thr, const uint32_t* __restrict__ sample,
-                       const int32_t* __restrict__ depth, const float* __restrict__ prev,
-                       const float* __restrict__ medium, float* __restrict__ contrib,
-                       float* __restrict__ next_o, float* __restrict__ next_d,
-                       float* __restrict__ thr_mult, uint8_t* __restrict__ terminate,
-                       float* __restrict__ wspec, float* __restrict__ rru,
-                       float* __restrict__ out_medium, float* __restrict__ replay_gid,
-                       float* __restrict__ replay_nee, float* __restrict__ tex_u = nullptr,
-                       float* __restrict__ tex_v = nullptr,
-                       float* __restrict__ tex_slot = nullptr) {
-  const V3 o = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
-  const V3 d = v3(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
-  const V3 t = v3(thr[3 * i], thr[3 * i + 1], thr[3 * i + 2]);
-  const int dep = depth[i];
-  const uint32_t base = bounce_base(seed, sample[i] * 0x85EBCA6Bu, dep);
-  const float* mi = medium + (size_t)mw * i;
-  Medium med{};
-  if constexpr (kVol) med = Medium{v3(mi[0], mi[1], mi[2]), mi[3], mw > 4 ? mi[4] : 0.0f};
-  const Bounce b =
-      bounce<true, kVol, kHg, kSurf, kTex>(T, base, dep, nee, o, d, t, prev[i], med, vol_nee);
-  const V3* vec[4] = {&b.contrib, &b.next_o, &b.next_d, &b.thr_mult};
-  float* out[4] = {contrib, next_o, next_d, thr_mult};
-  for (int k = 0; k < 4; ++k) {
-    out[k][3 * i] = vec[k]->x;
-    out[k][3 * i + 1] = vec[k]->y;
-    out[k][3 * i + 2] = vec[k]->z;
-  }
-  terminate[i] = b.terminate ? 1 : 0;
-  wspec[i] = b.wspec;
-  rru[i] = uniform(base, 3);
-  float* mo = out_medium + (size_t)mw * i;
-  if constexpr (kVol) {
-    mo[0] = b.medium.a.x;
-    mo[1] = b.medium.a.y;
-    mo[2] = b.medium.a.z;
-    mo[3] = b.medium.s;
-    if (mw > 4) mo[4] = kHg ? b.medium.g : 0.0f;
-  } else {
-    for (int k = 0; k < mw; ++k) mo[k] = mi[k];  // vacuum: the medium passes through
-  }
-  if (replay_gid != nullptr) {
-    replay_gid[i] = (float)b.gid;
-    replay_nee[i] = b.nee_add ? 1.0f : 0.0f;
-  }
-  if constexpr (kTex) {
-    tex_u[i] = b.tex_u;
-    tex_v[i] = b.tex_v;
-    tex_slot[i] = b.tex_slot;
-  }
-}
-
-}  // namespace pt
-
-#ifdef __CUDACC__
 
 namespace {
 
@@ -186,7 +120,7 @@ bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ m
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
   const Tables T{s_g, s_m, s_l, G, scal[0], scal[1] > 0.5f,
-                 kMesh ? mesh : MeshTables{nullptr, nullptr, nullptr, nullptr, 0},
+                 kMesh ? mesh : MeshTables{nullptr, nullptr, nullptr, nullptr, nullptr, 0},
                  kSurf ? surf : 0};
   bounce_lane<kVol, kHg, kSurf, kTex>(T, seed, nee, vol_nee, mw, (size_t)idx, origin, direction,
                                       thr, sample, depth, prev, medium, contrib, next_o, next_d,
@@ -204,8 +138,8 @@ decltype(&bounce_kernel<false, false, false, false, false>) media_instance(int v
 
 }  // namespace
 
-// tex_u / tex_v / tex_slot not null: the deferred-texel variant (with surf
-// and without meshes; the wrapper checks both)
+// tex_u / tex_v / tex_slot not null: the deferred-texel variant (with surf;
+// the wrapper checks it), with n_mesh > 0 kernel 2mt
 extern "C" int bounce_launch(const float* gtab, int G, const float* mtab, int M,
                              const float* ltab, const float* scal, unsigned int seed, int nee,
                              int n, const float* origin, const float* direction,
@@ -216,17 +150,19 @@ extern "C" int bounce_launch(const float* gtab, int G, const float* mtab, int M,
                              float* out_medium, float* replay_gid, float* replay_nee, int vol,
                              int hg, int vol_nee, int mw, int surf, float* tex_u, float* tex_v,
                              float* tex_slot, const float* mtri, const float* maabb,
-                             const float* mnorm, const int* mdesc, int n_mesh, void* stream) {
+                             const float* mnorm, const float* muv, const int* mdesc, int n_mesh,
+                             void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + THREADS - 1) / THREADS;
   const size_t smem = sizeof(float) * (size_t)(G * GCOLS + M * MCOLS + G * LCOLS);
-  const MeshTables mesh{mtri, maabb, mnorm, mdesc, n_mesh};
+  const MeshTables mesh{mtri, maabb, mnorm, muv, mdesc, n_mesh};
   // the instance: mesh sweep or not x media x surface blocks or not, and the
   // deferred texel
   const bool tex = tex_u != nullptr;
   decltype(&bounce_kernel<false, false, false, false, false>) kernel;
   if (tex)
-    kernel = media_instance<false, true, true>(vol, hg);
+    kernel = n_mesh > 0 ? media_instance<true, true, true>(vol, hg)
+                        : media_instance<false, true, true>(vol, hg);
   else if (n_mesh > 0)
     kernel = surf ? media_instance<true, true, false>(vol, hg)
                   : media_instance<true, false, false>(vol, hg);

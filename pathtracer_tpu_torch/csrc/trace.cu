@@ -136,7 +136,7 @@ trace_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mt
 
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   const Tables T{s_g, s_m, s_l, G, scal[0], scal[1] > 0.5f,
-                 kMesh ? mesh : MeshTables{nullptr, nullptr, nullptr, nullptr, 0},
+                 kMesh ? mesh : MeshTables{nullptr, nullptr, nullptr, nullptr, nullptr, 0},
                  kSurf ? surf : 0};
 
   const bool alive = idx < n;
@@ -180,12 +180,12 @@ extern "C" int trace_launch(const float* gtab, int G, const float* mtab, int M,
                             unsigned long long* nrays, int max_depth, int nee, int rr,
                             int rr_start, int vol, int hg, int vol_nee, int surf,
                             const float* mtri, const float* maabb, const float* mnorm,
-                            const int* mdesc, int n_mesh, void* stream) {
+                            const float* muv, const int* mdesc, int n_mesh, void* stream) {
   if (n <= 0) return 0;
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
   const size_t smem = sizeof(float) * (size_t)(G * pt::GCOLS + M * pt::MCOLS + G * pt::LCOLS);
-  const pt::MeshTables mesh{mtri, maabb, mnorm, mdesc, n_mesh};
+  const pt::MeshTables mesh{mtri, maabb, mnorm, muv, mdesc, n_mesh};
   // the instance: mesh sweep or not x vacuum, volumetric, volumetric + HG x
   // surface blocks or not
   const auto kernel = n_mesh > 0 ? (surf ? media_instance<true, true>(vol, hg)

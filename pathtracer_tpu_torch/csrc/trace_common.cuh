@@ -196,9 +196,11 @@ struct MeshTables {
   const float* tri;   // [Tp, 12]: v0, e1, e2, face normal
   const float* aabb;  // [C, 6]: chunk box lo, hi
   const float* norm;  // [Tp, 9]: corner normals (zeros where a mesh has no vn)
-  const int* desc;    // [n, 4]: geom index, chunks, first chunk, has normals
+  const float* uv;    // [Tp, 6]: corner UVs (zeros where a mesh has no vt)
+  const int* desc;    // [n, 5]: geom index, chunks, first chunk, has normals, has UVs
   int n;
 };
+constexpr int MESH_DESC = 5;  // ints per mesh descriptor
 
 // the ray's slab interval meets the chunk box nearer than `best`
 PT_FN bool chunk_reaches(const float* box, V3 oo, V3 inv, float best) {
@@ -211,26 +213,36 @@ PT_FN bool chunk_reaches(const float* box, V3 oo, V3 inv, float best) {
   return tmax >= tmin && tmin < best;
 }
 
+// A lane's mesh winner: the in-kernel sweep's, or (kernel 2mm) one found
+// outside the kernel and read from the merge planes.
 struct MeshHit {
-  float t;    // BIG: no triangle
-  V3 p_obj;   // hit point in the mesh's object space
-  V3 normal;  // unit world normal
-  int mid;    // material id
+  float t;          // BIG: no triangle
+  V3 p_obj;         // hit point in the mesh's object space
+  V3 normal;        // unit world normal
+  int mid;          // material id
+  float uv_u, uv_v;  // the authored UV (the deferred texel's)
+  bool uv_valid;    // the winner's mesh has authored UVs
 };
 
 // The nearest triangle over every mesh (ops/mesh_tables.py:mesh_sweep): per
 // mesh the ray in its geom's object space, per chunk the slab test against
 // this lane's best, per triangle a strict t < best update; the normal is
 // the clipped barycentric blend of the corner normals (or the face normal)
-// through the geom's inverse transpose, normalized after the loop.
+// through the geom's inverse transpose, normalized after the loop.  kUV
+// (kernel 2m's want_uv, bounce_pallas.py:430-473) also blends the winner's
+// corner UVs; a winner whose mesh has none keeps the earlier UV and clears
+// uv_valid.
+template <bool kUV = false>
 PT_FN MeshHit mesh_sweep(const float* g_tab, const MeshTables& M, V3 o, V3 d) {
   MeshHit h;
   h.t = BIG;
   h.p_obj = v3(0.0f, 0.0f, 0.0f);
   V3 nw = h.p_obj;
   h.mid = 0;
+  h.uv_u = h.uv_v = 0.0f;
+  h.uv_valid = false;
   for (int k = 0; k < M.n; ++k) {
-    const int* ds = M.desc + 4 * k;
+    const int* ds = M.desc + MESH_DESC * k;
     const float* m = g_tab + ds[0] * GCOLS;
     V3 oo, od;
     to_object(m, o, d, oo, od);
@@ -258,6 +270,17 @@ PT_FN MeshHit mesh_sweep(const float* g_tab, const MeshTables& M, V3 o, V3 d) {
           }
           nw = world_normal_raw(m, n);
           h.mid = (int)m[13];
+          if constexpr (kUV) {
+            h.uv_valid = ds[4] != 0;
+            if (ds[4]) {
+              const float* ur = M.uv + 6 * row;
+              const float uc = fminf(fmaxf(u, 0.0f), 1.0f);
+              const float vc = fminf(fmaxf(v, 0.0f), 1.0f);
+              const float w0 = fminf(fmaxf(1.0f - uc - vc, 0.0f), 1.0f);
+              h.uv_u = w0 * ur[0] + uc * ur[2] + vc * ur[4];
+              h.uv_v = w0 * ur[1] + uc * ur[3] + vc * ur[5];
+            }
+          }
         }
       }
     }
@@ -270,7 +293,7 @@ PT_FN MeshHit mesh_sweep(const float* g_tab, const MeshTables& M, V3 o, V3 d) {
 PT_FN float mesh_occ(const float* g_tab, const MeshTables& M, V3 x, V3 wi) {
   float occ = BIG;
   for (int k = 0; k < M.n; ++k) {
-    const int* ds = M.desc + 4 * k;
+    const int* ds = M.desc + MESH_DESC * k;
     V3 oo, od;
     to_object(g_tab + ds[0] * GCOLS, x, wi, oo, od);
     const V3 inv = v3(safe_recip(od.x), safe_recip(od.y), safe_recip(od.z));
@@ -292,7 +315,7 @@ PT_FN float mesh_occ(const float* g_tab, const MeshTables& M, V3 x, V3 wi) {
 PT_FN void mesh_occ_split(const float* g_tab, const float* m_tab, const MeshTables& M, V3 x,
                           V3 wi, float& occ_op, float& occ_re) {
   for (int k = 0; k < M.n; ++k) {
-    const int* ds = M.desc + 4 * k;
+    const int* ds = M.desc + MESH_DESC * k;
     const float* m = g_tab + ds[0] * GCOLS;
     V3 oo, od;
     to_object(m, x, wi, oo, od);
@@ -632,6 +655,10 @@ struct Bounce {
   bool nee_add;    // the NEE connection counted
   Medium medium;   // the medium the continuation travels through
   float tex_u, tex_v, tex_slot;  // kTex: the deferred texel's scaled UV and atlas slot
+  // kMerge under NEE: the deferred shadow ray (x, wi, its length), the
+  // pending term and 1 where the candidate clears the analytic geoms
+  V3 sh_x, sh_wi, nee_rgb;
+  float sh_dist, cand_vis;
 };
 
 // The light pick of one bounce (uniforms 4..7): world point, unit normal
@@ -684,14 +711,27 @@ PT_FN LightSample light_sample(const Tables& T, uint32_t base) {
 // mesh's) before the emittance, the bump of the shading normal before NEE
 // and the BSDF, and the Cook-Torrance / Ward lobes in the BSDF.  The albedo
 // feeds the emittance, NEE and the diffuse multiplier.  kTex (kernel 2's
-// deferred-texel variant, :1076-1119, with kSurf and without meshes) also
-// writes the texture-scaled UV of the hit, from the polynomial atan2, and
-// the atlas slot of an image-textured surface event (-1 otherwise); the
-// caller multiplies the texel in.  Without them the code is the base one.
+// deferred-texel variant, :1076-1119, with kSurf) also writes the
+// texture-scaled UV of the hit, from the polynomial atan2, and the atlas slot
+// of an image-textured surface event (-1 otherwise); the caller multiplies
+// the texel in.  On a mesh lane the UV is the box map of M^T n_world, M the
+// forward rows of the lane's analytic winner (geom 0 on an analytic miss,
+// as JAX's kernel takes it, :1088-1100), or the authored UV where the
+// winner's mesh has one (with in-kernel meshes: kernel 2m's UV sweep).
+// Without them the code is the base one.
+//
+// kMerge (kernel 2's mesh-merge variant, 2mm, :1027-1036,1263-1275,1359):
+// the mesh winner `ext` was found outside the kernel and merges in as the
+// in-kernel sweep's does.  Under NEE the shadow ray is traced against the
+// analytic geoms only, and leaves with its pending term on every lane
+// (sh_x, sh_wi, sh_dist, nee_rgb, cand_vis) instead of being added: the
+// caller tests the triangles.  Volumetric NEE does not run (its callers
+// send such scenes to the split route).
 template <bool kMaskFree, bool kVol = false, bool kHg = false, bool kSurf = false,
-          bool kTex = false>
+          bool kTex = false, bool kMerge = false>
 PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d, V3 thr,
-                    float prev_state, Medium med = Medium{}, int vol_nee = 1) {
+                    float prev_state, Medium med = Medium{}, int vol_nee = 1,
+                    const MeshHit& ext = MeshHit{}) {
   Bounce b;
   b.contrib = v3(0.0f, 0.0f, 0.0f);
   b.next_o = b.next_d = b.thr_mult = b.contrib;
@@ -721,8 +761,11 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
   // point and normal win; gid stays the analytic winner's, as in JAX
   MeshHit mh;
   bool mb = false;
-  if (T.mesh.n > 0) {
-    mh = mesh_sweep(T.g, T.mesh, o, d);
+  if (kMerge || T.mesh.n > 0) {
+    if constexpr (kMerge)
+      mh = ext;
+    else
+      mh = mesh_sweep<kTex>(T.g, T.mesh, o, d);
     mb = mh.t < best_t;
     if (mb) best_t = mh.t;
   }
@@ -744,14 +787,27 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
     const V3 q = p_obj_s;
     const float u_sph = atan2_poly(q.z, q.x) * INV_TWO_PI + 0.5f;
     const float v_sph = asin_poly(fminf(fmaxf(q.y * 2.0f, -1.0f), 1.0f)) * INV_PI + 0.5f;
-    const float sx = fabsf(q.x), sy = fabsf(q.y), sz = fabsf(q.z);
+    float sx = fabsf(q.x), sy = fabsf(q.y), sz = fabsf(q.z);
+    if (mb) {
+      // a mesh lane's box map: the dominant axis of M^T n_world
+      const float* f = T.l + gid * LCOLS;
+      const V3 n = mh.normal;
+      sx = fabsf(f[0] * n.x + f[4] * n.y + f[8] * n.z);
+      sy = fabsf(f[1] * n.x + f[5] * n.y + f[9] * n.z);
+      sz = fabsf(f[2] * n.x + f[6] * n.y + f[10] * n.z);
+    }
     const bool ax0 = sx >= sy && sx >= sz;
     const bool ax2 = !ax0 && !(sy >= sz);
     const float u_box = (ax0 ? q.z : q.x) + 0.5f;
     const float v_box = (ax2 ? q.y : (ax0 ? q.y : q.z)) + 0.5f;
     const bool sph = a_hit && gw[12] == SPHERE;
-    b.tex_u = (sph ? u_sph : u_box) * mat[17];
-    b.tex_v = (sph ? v_sph : v_box) * mat[17];
+    float uu = sph ? u_sph : u_box, vv = sph ? v_sph : v_box;
+    if (mb && mh.uv_valid) {  // the authored vt wins
+      uu = mh.uv_u;
+      vv = mh.uv_v;
+    }
+    b.tex_u = uu * mat[17];
+    b.tex_v = vv * mat[17];
     b.tex_slot = (mat[16] > 2.5f && hit) ? mat[23] : -1.0f;
   }
 
@@ -796,7 +852,41 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
                                           uniform(base, 1), uniform(base, 2), T.surf);
 
   // ---- next-event estimation at diffuse surface hits
-  if (nee && hit && !emissive && !sc.is_specular && !vol_scatter && T.any_light) {
+  if constexpr (kMerge) {
+    // every lane's shadow ray and pending term leave (mask-free); the
+    // triangles' occlusion is the caller's
+    if (nee) {
+      const LightSample ls = light_sample(T, base);
+      const V3 n_shade = vscale(fsign(-vdot(normal, d)), normal);
+      const V3 x = vadd(p, vscale(RAY_BIAS, n_shade));
+      const V3 to_light = vsub(ls.lp, x);
+      const float dist2 = vdot(to_light, to_light);
+      const float dist = sqrtf(fmaxf(dist2, 1e-12f));
+      const V3 wi = vscale(1.0f / dist, to_light);
+      const float cos_x = vdot(n_shade, wi);
+      const float cos_y = -vdot(ls.ln, wi);
+      bool cand = hit && !emissive && !sc.is_specular && !vol_scatter && T.any_light &&
+                  cos_x > 0.0f && cos_y > 0.0f;
+      if (cand) {
+        float occ_t = BIG;
+        for (int g = 0; g < T.G; ++g) {
+          const float* m = T.g + g * GCOLS;
+          V3 oo, od;
+          to_object(m, x, wi, oo, od);
+          occ_t = fminf(occ_t, geom_t(m, oo, od));
+        }
+        cand = occ_t >= dist - SHADOW_SLACK;
+      }
+      const float pdf_area = 1.0f / fmaxf(T.total_area, 1e-20f);
+      const float gterm = cos_x * cos_y / fmaxf(dist2, 1e-12f);
+      const float nee_scale = gterm / fmaxf(pdf_area, 1e-20f) * INV_PI;
+      b.sh_x = x;
+      b.sh_wi = wi;
+      b.sh_dist = dist;
+      b.nee_rgb = vscale(nee_scale, vmul(vmul(thr, color), ls.emit));
+      b.cand_vis = cand ? 1.0f : 0.0f;
+    }
+  } else if (nee && hit && !emissive && !sc.is_specular && !vol_scatter && T.any_light) {
     const LightSample ls = light_sample(T, base);
     const V3 n_shade = vscale(fsign(-vdot(normal, d)), normal);
     const V3 x = vadd(p, vscale(RAY_BIAS, n_shade));
@@ -873,7 +963,7 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
 
   // ---- volumetric NEE: the light sample connected to the scatter point
   float vol_state = 1.0f;
-  if (nee && vol_nee && T.any_light) {
+  if (!kMerge && nee && vol_nee && T.any_light) {
     const LightSample ls = light_sample(T, base);
     const V3 to_l = vsub(ls.lp, vol_pos);
     const float d2v = vdot(to_l, to_l);

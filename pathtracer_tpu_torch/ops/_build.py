@@ -19,6 +19,7 @@ import hashlib
 import os
 import subprocess
 import tempfile
+import time
 from concurrent.futures import ThreadPoolExecutor
 
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -33,6 +34,7 @@ NVCC_FLAGS = (
 )
 
 _LIBS: dict = {}  # name -> loaded library, one per process
+build_seconds: dict = {}  # name -> wall seconds of its last compile in this process
 
 
 def nvcc_path() -> str:
@@ -67,6 +69,7 @@ def compile_kernel(name: str) -> tuple:
     os.makedirs(BUILD_DIR, exist_ok=True)
     fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
     os.close(fd)
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run(
             [nvcc_path(), *NVCC_FLAGS, "-o", tmp, src], capture_output=True, text=True
@@ -79,6 +82,7 @@ def compile_kernel(name: str) -> tuple:
     finally:
         if os.path.exists(tmp):
             os.remove(tmp)
+    build_seconds[name] = time.perf_counter() - t0
     return out, proc.stderr
 
 

@@ -14,8 +14,8 @@ meshes above ``ops/mesh.MESH_KERNEL_MAX_TRIS`` triangles: plain PyTorch, as
 JAX leaves it to XLA.  It skips the whole mesh when no ray reaches the root
 box and a chunk when no ray reaches that chunk's box nearer than its
 current best, as JAX's ``lax.cond`` does; in PyTorch each such test is a
-host sync.
-``refresh_accel`` belongs to the differentiable meshes of a later slice.
+host sync.  :func:`refresh_accel` (``accel.py:122``) rebinds an LBVH to a
+mesh's live vertices for differentiable meshes.
 """
 
 from __future__ import annotations
@@ -94,6 +94,22 @@ def build_mesh_accel(tri_verts: np.ndarray, chunk: int = ACCEL_CHUNK, device="cp
         root_hi=dev(tris.max(axis=(0, 1))),
         scan_to_file=dev(scan_to_file),
     )
+
+
+def refresh_accel(accel: MeshAccel, tri_verts: torch.Tensor) -> MeshAccel:
+    """``accel`` rebound to the vertices ``tri_verts`` (file order): its
+    Morton grouping (``scan_to_file``) stays, its triangle copies and its
+    chunk and root boxes are recomputed from the vertices, detached.  A
+    vertex can then move anywhere and the traversal still sees the exact
+    triangles; a stale grouping only loosens the boxes."""
+    verts = tri_verts.detach().to(torch.float32)
+    perm = accel.scan_to_file.to(verts.device)
+    chunks = verts[perm.long()].reshape(-1, accel.chunks.shape[1], 3, 3)
+    lo = torch.amin(chunks, dim=(1, 2))
+    hi = torch.amax(chunks, dim=(1, 2))
+    return MeshAccel(n_tris=accel.n_tris, chunks=chunks, lo=lo, hi=hi,
+                     root_lo=torch.amin(lo, dim=0), root_hi=torch.amax(hi, dim=0),
+                     scan_to_file=perm)
 
 
 def _aabb_hits_any(o_obj, inv_d, lo, hi, best_t, t_min) -> torch.Tensor:

@@ -27,6 +27,10 @@ enter through ``mesh=``: the in-kernel sweep's winner is merged into the
 analytic one (``bounce_pallas.py:1027-1036``: where the mesh is nearer its
 distance, material, hit point and normal win, while the analytic geom id
 stays), and the shadow ray sweeps the triangles too (``:1251-1254``).
+Larger meshes enter through ``mesh_in=`` (kernel 2's mesh-merge variant,
+2mm): a winner found outside the bounce is merged the same way, and under
+NEE the shadow ray and its pending term leave as ``nee_deferred``
+(``:1263-1275``) for the caller's triangle occlusion test.
 Participating media (``volumetric``, ``hg``: ``bounce_pallas.py:1140-1168,
 1323-1470``) are modelled forward, with ``mesh_occ_split`` for volumetric
 NEE's shadow ray through in-kernel meshes.  The optional surface blocks
@@ -58,7 +62,6 @@ from pathtracer_tpu_torch.ops.intersect import (
 )
 from pathtracer_tpu_torch.ops.lights import axis_scales, light_areas
 from pathtracer_tpu_torch.ops.mesh_tables import mesh_occ, mesh_occ_split, mesh_sweep
-from pathtracer_tpu_torch.ops.texture import MESH_TEXTURES_MISSING
 from pathtracer_tpu_torch.scene.structs import SPHERE, Scene
 
 TWO_PI = 2.0 * math.pi
@@ -481,7 +484,7 @@ def bounce_physics(
     u, depth, prev_state,
     *, nee: bool, t_min: float, features=frozenset(),
     replay=None, emit_replay: bool = False, mesh=None,
-    medium_g=None, vol_nee: bool = True, tex_defer: bool = False,
+    medium_g=None, vol_nee: bool = True, tex_defer: bool = False, mesh_in=None,
 ):
     """One bounce for a wavefront of lanes (mask-free: the caller gates with
     its alive mask).  ``o``/``d``/``throughput``/``sigma_a`` are 3-tuples
@@ -507,7 +510,21 @@ def bounce_physics(
 
     ``mesh`` is the scene's ``ops/mesh_tables.KernelMeshes`` (or None): the
     in-kernel triangle sweep, as the module docstring says.  It takes no
-    gradients and no replay.
+    gradients and no replay.  ``mesh_in`` (or None) is a mesh winner found
+    outside the bounce (kernel 2mm, ``bounce_pallas.py:1027-1036``): a dict
+    of ``et`` (BIG = none), ``epo`` and ``en`` (3-tuples: the hit point in
+    the mesh's object space, the unit world normal), ``emid`` and, with
+    image textures, ``muv_u``, ``muv_v``, ``muvv`` (the authored UV and
+    1.0 where it exists).  Under NEE the result then holds
+    ``nee_deferred``: the shadow ray ``x``, ``wi``, its length ``dist``,
+    the pending ``nee_rgb`` and ``cand_vis`` (1.0 where the connection is a
+    candidate the analytic geoms leave visible), in place of the added
+    term; volumetric NEE is not modelled there (the callers send such
+    scenes to the split route).  With ``tex_defer`` and either mesh input,
+    a mesh lane's UV is the box map of ``M^T n_world``, ``M`` the forward
+    transform of the lane's analytic winner (geom 0 on an analytic miss),
+    as JAX's kernel takes it (``:1088-1113``), and its authored UV where it
+    has one.
 
     Participating media (``features`` with ``volumetric``,
     ``bounce_pallas.py:1140-1168,1323-1470``): ``sigma_a``/``sigma_s`` are
@@ -536,9 +553,10 @@ def bounce_physics(
     [, out_mg when ``medium_g`` is given] [, replay_gid, replay_nee_add]
     [, tex_out]."""
     check_features(features)
-    if tex_defer and mesh is not None:
-        raise NotImplementedError(MESH_TEXTURES_MISSING)
-    if mesh is not None and (replay is not None or emit_replay):
+    if mesh is not None and mesh_in is not None:
+        raise ValueError("mesh (the in-kernel tables) and mesh_in (an outside winner) exclude "
+                         "each other")
+    if (mesh is not None or mesh_in is not None) and (replay is not None or emit_replay):
         raise NotImplementedError("winner replay of mesh scenes: later slice")
     has_vol = "volumetric" in features  # "hg" without "volumetric" is inert
     if has_vol and (replay is not None or emit_replay):
@@ -566,8 +584,10 @@ def bounce_physics(
     p_obj = (w[0] + t_safe * w[3], w[1] + t_safe * w[4], w[2] + t_safe * w[5])
 
     normal = world_normal(win, object_normal(sph, p_obj))
+    mh = mesh_in
     if mesh is not None:
-        mh = mesh_sweep(mesh, gtab, o, d)
+        mh = mesh_sweep(mesh, gtab, o, d, want_uv=tex_defer and mesh.has_uv)
+    if mh is not None:
         mb = mh["et"] < best_t
         best_t = torch.where(mb, mh["et"], best_t)
         mid = torch.where(mb, mh["emid"], mid)
@@ -598,15 +618,28 @@ def bounce_physics(
         u_sph = atan2_planes(p_obj[2], p_obj[0]) * (1.0 / TWO_PI) + 0.5
         v_sph = asin_planes(torch.clamp(p_obj[1] * 2.0, -1.0, 1.0)) * INV_PI + 0.5
         sx, sy, sz = (torch.abs(c) for c in p_obj)
+        if mh is not None:
+            # a mesh lane's box map takes the dominant axis of M^T n_world,
+            # M the forward rows of the analytic winner's light-table row
+            f = ltab[gid].unbind(-1)
+            nt = tuple(f[k] * normal[0] + f[4 + k] * normal[1] + f[8 + k] * normal[2]
+                       for k in range(3))
+            sx, sy, sz = (torch.where(mb, torch.abs(a), b) for a, b in zip(nt, (sx, sy, sz)))
         ax0 = (sx >= sy) & (sx >= sz)
         ax1 = (~ax0) & (sy >= sz)
         ax2 = (~ax0) & (~ax1)
         u_box = torch.where(ax0, p_obj[2], p_obj[0]) + 0.5
         v_box = torch.where(ax2, p_obj[1], torch.where(ax0, p_obj[1], p_obj[2])) + 0.5
+        uv_u, uv_v = torch.where(sph, u_sph, u_box), torch.where(sph, v_sph, v_box)
+        if mh is not None and "muvv" in mh:
+            # the authored vt wins on the mesh lanes that have one
+            auth = mb & (mh["muvv"] > 0.5)
+            uv_u = torch.where(auth, mh["muv_u"], uv_u)
+            uv_v = torch.where(auth, mh["muv_v"], uv_v)
         is_img = (mat["texture_type"] > 2.5) & hit
         tex_out = dict(
-            u=torch.where(sph, u_sph, u_box) * mat["texture_scale"],
-            v=torch.where(sph, v_sph, v_box) * mat["texture_scale"],
+            u=uv_u * mat["texture_scale"],
+            v=uv_v * mat["texture_scale"],
             slot=torch.where(is_img, mat["texture_image"], -1.0),
         )
 
@@ -654,7 +687,7 @@ def bounce_physics(
 
     sc = sample_bsdf(mat, p, normal, d, u[0], u[1], u[2], features)
 
-    add = ls = None
+    add = ls = deferred = None
     if nee:
         ls = sample_lights(gtab, ltab, svals, u[4], u[5], u[6], u[7])
         n_shade = vscale(torch.sign(-vdot(normal, d)), normal)
@@ -685,7 +718,14 @@ def bounce_physics(
         pdf_area = 1.0 / torch.clamp(svals[0], min=1e-20)
         nee_scale = gterm / torch.clamp(pdf_area, min=1e-20) * INV_PI
         nee_rgb = vscale(nee_scale, vmul(vmul(throughput, mat["color"]), ls["emit"]))
-        contrib = vadd(contrib, vwhere(add, nee_rgb, (0.0, 0.0, 0.0)))
+        if mesh_in is not None:
+            # the triangles' occlusion is the caller's: min(analytic, mesh)
+            # clears the bar exactly when both do
+            deferred = dict(x=x, wi=wi, dist=dist, nee_rgb=nee_rgb,
+                            cand_vis=torch.where(add, 1.0, 0.0))
+            add = None
+        else:
+            contrib = vadd(contrib, vwhere(add, nee_rgb, (0.0, 0.0, 0.0)))
 
     surf_state = torch.where(
         sc["is_specular"],
@@ -707,6 +747,8 @@ def bounce_physics(
         out["out_mg"] = medium_g
     if tex_out is not None:
         out["tex_out"] = tex_out
+    if deferred is not None:
+        out["nee_deferred"] = deferred
     if not has_vol:
         # vacuum transport: surface events only, the medium passes through
         if emit_replay:
@@ -740,7 +782,7 @@ def bounce_physics(
         vol_dir = vwhere(medium_g != 0.0, hg_dir, vol_dir)
 
     vol_state = torch.ones_like(o[0])
-    if nee and vol_nee:
+    if nee and vol_nee and mesh_in is None:
         # a lane that does not scatter has a ~1e30 free path: its NEE
         # geometry starts at the (finite) ray origin instead, and is masked
         vp = vwhere(vol_scatter, vol_pos, o)

@@ -12,8 +12,9 @@ Port of ``pathtracer_tpu/ops/intersect.py:37-111`` (``BIG``, ``T_MIN``,
 (``intersect.py:742-762``: volumetric NEE's shadow ray, split into opaque
 and refractive geoms).  The kernels' CUDA versions are
 ``csrc/intersect.cu`` (``ops/intersect_cuda.py``).  :func:`intersect_scene_lean`
-ports ``pathtracer_tpu/ops/intersect.py:777-926`` for analytic geoms: the
-differentiable recompute of the winner only.  A geom's row is read as tensors, so ``t`` and the
+ports ``pathtracer_tpu/ops/intersect.py:777-926``: the differentiable
+recompute of the winner only, a mesh winner's triangle (:func:`mt_single`)
+gathered from the file-order vertices so that their gradients land there.  A geom's row is read as tensors, so ``t`` and the
 object-space ray carry gradients to the geom table.  Unit primitives live in object space (sphere r = 0.5,
 cube side 1) and are tested through the inverse transform; the
 object-space direction stays unnormalized, so ``t`` is the world-space
@@ -24,7 +25,7 @@ The mesh half ports ``pathtracer_tpu/ops/intersect.py:236-270,307-373,
 500-564``: :func:`mt_chunk_t` (Moeller-Trumbore of ``[N]`` rays against a
 chunk of triangles, the formula of kernels 9 and 10),
 :func:`winner_face_normal`, :func:`mesh_scan_verts` and
-:func:`mesh_winner_attrs` (the authored smooth normal at a winning
+:func:`mesh_winner_attrs` (the authored smooth normal and UV at a winning
 triangle).  The kernels' dispatch and the split route's
 mesh winner are ``ops/mesh.py``.
 """
@@ -149,6 +150,10 @@ class Hit:
     position: torch.Tensor  # [N, 3] world hit point (o + d on a miss)
     position_obj: torch.Tensor  # [N, 3] hit point in the winner's object space
     normal: torch.Tensor  # [N, 3] world unit normal (zero on a miss)
+    # [N, 2] a mesh winner's authored UV and [N] bool where it has one; None
+    # when no mesh of the scene has authored UVs
+    uv: torch.Tensor | None = None
+    uv_valid: torch.Tensor | None = None
 
 
 def sweep(gtab, o, d, t_min=T_MIN):
@@ -284,23 +289,33 @@ def winner_t_gid_plain(rays: Rays, gtab: torch.Tensor):
     return best_t, gid
 
 
-def intersect_scene_lean(rays: Rays, gtab: torch.Tensor, winner=None) -> Hit:
-    """Nearest hit whose backward costs O(N), not O(N G): a detached winner
-    search, then the differentiable recompute of the winner only
+def intersect_scene_lean(rays: Rays, gtab: torch.Tensor, winner=None, meshes=()) -> Hit:
+    """Nearest hit whose backward costs O(N), not O(N G + N T): a detached
+    winner search, then the differentiable recompute of the winner only
     (``pathtracer_tpu/ops/intersect.py:777-926``).  ``winner`` is the
-    search's ``(t, gid)`` when the caller ran it (kernel 7 on the card);
-    without it :func:`winner_t_gid_plain` runs on detached inputs.
+    search's ``(t, gid[, mesh_idx])`` when the caller ran it (kernel 7 and
+    kernel 9 or the LBVH per mesh on the card, ``ops/mesh.
+    merge_mesh_winners``); without it the plain search runs
+    on detached inputs.  ``mesh_idx`` holds, per mesh of ``meshes``, each
+    lane's nearest triangle (a row of ``mesh_scan_verts``).
 
-    Equal to the sweep a.e.; cotangents reach the winner's geom row and the
-    ray.  The winner's row is gathered per lane (JAX: a one-hot matmul of
-    the same values).  Where the recompute disagrees with the search about
-    hitting at all, the detached ``t`` of the search stands (``:882-884``).
-    A miss keeps geom 0's row and material, as JAX's argmin does."""
+    Equal to the sweep a.e.; cotangents reach the winner's geom row, the
+    ray and, on a mesh winner, the winning triangle's vertices in file order
+    (the scan-to-file permutation is applied to the table, so the gather's
+    backward adds them back to ``tri_verts``).  The winner's row and
+    triangle are gathered per lane (JAX: one-hot matmuls of the same
+    values).  Where the recompute disagrees with the search about hitting
+    at all, the detached ``t`` of the search stands (``:882-884``).  A miss
+    keeps geom 0's row and material, as JAX's argmin does.  A mesh winner
+    shades with its face normal, as JAX's recompute does: authored normals
+    and UVs do not enter the lean route."""
     if winner is None:
-        winner = winner_t_gid_plain(
-            Rays(rays.origin.detach(), rays.direction.detach()), gtab.detach()
-        )
-    t_win, gid = winner
+        from pathtracer_tpu_torch.ops.mesh import merge_mesh_winners  # ops/mesh imports this module
+
+        rays_d, gtab_d = Rays(rays.origin.detach(), rays.direction.detach()), gtab.detach()
+        winner = merge_mesh_winners(rays_d, gtab_d, meshes, *winner_t_gid_plain(rays_d, gtab_d))
+    t_win, gid = winner[0], winner[1]
+    mesh_idx = winner[2] if len(winner) > 2 else ()
     hit = t_win < BIG
     # index_select: its backward adds rows with index_add_ (gtab[gid]'s
     # serializes the many lanes that share a row)
@@ -311,11 +326,27 @@ def intersect_scene_lean(rays: Rays, gtab: torch.Tensor, winner=None) -> Hit:
     ts = sphere_t_planes(*obj)
     tc = cube_t_planes(*obj)
     t_re = torch.where(is_sphere, ts, torch.where(rows[12] == float(CUBE), tc, BIG))
+    mesh_normals = []
+    if meshes:
+        o_obj, d_obj = torch.stack(obj[:3], dim=-1), torch.stack(obj[3:], dim=-1)
+        for m, idx in zip(meshes, mesh_idx):
+            verts = m.tri_verts
+            if m.accel is not None:
+                verts = torch.index_select(verts, 0, m.accel.scan_to_file.long())
+            tri = torch.index_select(verts, 0, idx.detach().long())
+            mt_re, mn = mt_single(o_obj, d_obj, tri)
+            sel = gid == m.geom_index
+            t_re = torch.where(sel, mt_re, t_re)
+            mesh_normals.append((sel, mn))
     t = torch.where(t_re < BIG, t_re, t_win)
     t_safe = torch.where(hit, t, 1.0)
     p = tuple(oc + t_safe * dc for oc, dc in zip(o, d))
     p_obj = (obj[0] + t_safe * obj[3], obj[1] + t_safe * obj[4], obj[2] + t_safe * obj[5])
-    normal = world_normal(rows, object_normal(is_sphere, p_obj))
+    n_obj = object_normal(is_sphere, p_obj)
+    for sel, mn in mesh_normals:
+        inv_len = torch.rsqrt(torch.clamp(torch.sum(mn * mn, dim=-1), min=1e-24))
+        n_obj = tuple(torch.where(sel, mn[:, k] * inv_len, n_obj[k]) for k in range(3))
+    normal = world_normal(rows, n_obj)
     return Hit(
         t=t,
         hit=hit,
@@ -325,6 +356,26 @@ def intersect_scene_lean(rays: Rays, gtab: torch.Tensor, winner=None) -> Hit:
         position_obj=torch.stack(p_obj, dim=-1),
         normal=torch.stack(normal, dim=-1),
     )
+
+
+def mt_single(o_obj, d_obj, tri, t_min=T_MIN):
+    """Differentiable Moeller-Trumbore of ray ``i`` against triangle ``i``
+    (``pathtracer_tpu/ops/intersect.py:636-660``): ``tri`` ``[N, 3, 3]``;
+    returns ``(t [N], unnormalized face normal [N, 3])``, BIG on a miss."""
+    v0 = tri[:, 0]
+    e1 = tri[:, 1] - tri[:, 0]
+    e2 = tri[:, 2] - tri[:, 0]
+    h = torch.linalg.cross(d_obj, e2, dim=-1)
+    a = torch.sum(e1 * h, dim=-1)
+    f = safe_recip(a)
+    s = o_obj - v0
+    u = f * torch.sum(s * h, dim=-1)
+    q = torch.linalg.cross(s, e1, dim=-1)
+    v = f * torch.sum(d_obj * q, dim=-1)
+    t = f * torch.sum(e2 * q, dim=-1)
+    ok = (torch.abs(a) > 1e-12) & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (
+        t > t_min)
+    return torch.where(ok, t, BIG), torch.linalg.cross(e1, e2, dim=-1)
 
 
 # ---------------------------------------------------------------------------
@@ -386,19 +437,22 @@ def unit(v):
 
 
 def mesh_winner_attrs(m, o_obj, d_obj, best_i):
-    """The authored smooth normal (object space, unit) at each lane's
-    winning triangle ``best_i`` (a scan-order row), or None for a mesh
-    without ``vn``.  The barycentrics are recomputed against the winner
-    alone and clipped to [0, 1]; the scan-to-file permutation is applied to
-    the tables, and each lane's row is gathered with ``index_select``.
-    Authored UVs serve image textures, a later slice."""
-    if m.tri_norm is None:
-        return None
+    """The authored attributes at each lane's winning triangle ``best_i``
+    (a scan-order row): ``(n_sm, uv)``, the smooth normal (object space,
+    unit; None for a mesh without ``vn``) and the UV ``[N, 2]`` (None for
+    a mesh without ``vt``).  The barycentrics are recomputed against the
+    winner alone and clipped to [0, 1]; the scan-to-file permutation is
+    applied to the tables, and each lane's row is gathered with
+    ``index_select``."""
+    if not m.has_attrs:
+        return None, None
     idx = best_i.long()
-    verts, norms = m.tri_verts, m.tri_norm
+    verts, norms, uvs = m.tri_verts, m.tri_norm, m.tri_uv
     if m.accel is not None:
         perm = m.accel.scan_to_file.long()
-        verts, norms = verts[perm], norms[perm]
+        verts = verts[perm]
+        norms = None if norms is None else norms[perm]
+        uvs = None if uvs is None else uvs[perm]
     tri = torch.index_select(verts, 0, idx)
     v0 = tri[:, 0]
     e1 = tri[:, 1] - tri[:, 0]
@@ -410,6 +464,10 @@ def mesh_winner_attrs(m, o_obj, d_obj, best_i):
     q = torch.linalg.cross(s, e1, dim=-1)
     v = torch.clamp(f * torch.sum(d_obj * q, dim=-1), 0.0, 1.0)
     w0 = torch.clamp(1.0 - u - v, 0.0, 1.0)
-    nc = torch.index_select(norms, 0, idx)
-    n_sm = w0[:, None] * nc[:, 0] + u[:, None] * nc[:, 1] + v[:, None] * nc[:, 2]
-    return unit(n_sm)
+
+    def blend(table):
+        c = torch.index_select(table, 0, idx)
+        return w0[:, None] * c[:, 0] + u[:, None] * c[:, 1] + v[:, None] * c[:, 2]
+
+    return (None if norms is None else unit(blend(norms)),
+            None if uvs is None else blend(uvs))

@@ -13,7 +13,8 @@ the kernel or raises, a CPU tensor takes the plain version.  With meshes,
 :func:`nearest_hit` and :func:`occlusion_t` are the split route's
 ``intersect_scene_pallas`` / ``occlusion_scene_pallas``
 (``intersect_pallas.py:283-333``): kernel 6 with the mesh winner of
-``ops/mesh.mesh_only_hit`` merged in where it is nearer, and kernel 8 with
+``ops/mesh.mesh_only_hit`` merged in where it is nearer (with the authored
+UV of a mesh with ``vt``), and kernel 8 with
 ``ops/mesh.mesh_only_occlusion``'s minimum (kernels 9 and 10 inside).
 """
 
@@ -140,11 +141,12 @@ def nearest_hit(rays: Rays, gtab: torch.Tensor, meshes=()) -> Hit:
     hit = _route(rays, nearest_hit_cuda, nearest_hit_plain)(rays, gtab)
     if not meshes:
         return hit
-    mt, mpo, mnw, mmid, mgid = mesh_only_hit(rays, gtab, meshes)
+    mt, mpo, mnw, mmid, mgid, muv, muvv = mesh_only_hit(rays, gtab, meshes)
     better = mt < hit.t
     b = better[:, None]
     t = torch.where(better, mt, hit.t)
     t_safe = torch.where(t < BIG, t, 1.0)
+    any_uv = any(m.tri_uv is not None for m in meshes)
     return Hit(
         t=t,
         hit=t < BIG,
@@ -153,6 +155,8 @@ def nearest_hit(rays: Rays, gtab: torch.Tensor, meshes=()) -> Hit:
         position=torch.where(b, rays.origin + t_safe[:, None] * rays.direction, hit.position),
         position_obj=torch.where(b, mpo, hit.position_obj),
         normal=torch.where(b, mnw, hit.normal),
+        uv=torch.where(b, muv, 0.0) if any_uv else None,
+        uv_valid=better & muvv if any_uv else None,
     )
 
 

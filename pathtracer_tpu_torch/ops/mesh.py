@@ -5,7 +5,8 @@ Port of ``pathtracer_tpu/ops/mesh_pallas.py:39-54,118-181``
 (``MESH_PALLAS_MAX_TRIS``, ``pack_tri_table``, ``mesh_nearest_pallas``,
 ``mesh_min_pallas``) and ``pathtracer_tpu/ops/intersect.py:376-498,679-739``
 (``mesh_query``, ``mesh_occlusion_t``, ``mesh_only_hit``,
-``mesh_only_occlusion``).
+``mesh_only_occlusion``), and the mesh half of the lean route's detached
+winner search (``intersect.py:808-826``, :func:`merge_mesh_winners`).
 
 * Kernel 9, :func:`mesh_nearest`: each ray's nearest triangle ``t`` and
   index over a ``[T * 9]`` table of ``(v0, e1, e2)`` rows; kernel 10,
@@ -222,22 +223,26 @@ def _world_normal_unit(m, n_obj):
 
 def mesh_only_hit(rays, gtab, meshes):
     """Nearest hit over the mesh instances only: ``(t [N], p_obj [N, 3],
-    normal [N, 3] world unit, material_id [N] int32, geom_id [N] int32)``,
-    t >= BIG on a miss.  The geoms' inverse transforms and material ids are
-    read from the geom table ``gtab``; a mesh with authored ``vn`` shades
-    with its smooth normal."""
+    normal [N, 3] world unit, material_id [N] int32, geom_id [N] int32,
+    uv [N, 2], uv_valid [N] bool)``, t >= BIG on a miss.  The geoms' inverse
+    transforms and material ids are read from the geom table ``gtab``; a
+    mesh with authored ``vn`` shades with its smooth normal.  ``uv`` is the
+    winner's authored UV where its mesh has ``vt`` (a winning mesh without
+    clears what an earlier one set)."""
     n = rays.origin.shape[0]
     f32 = dict(dtype=torch.float32, device=rays.origin.device)
     t = torch.full((n,), BIG, **f32)
     pobj = torch.zeros((n, 3), **f32)
     nrm = torch.zeros((n, 3), **f32)
+    uv = torch.zeros((n, 2), **f32)
+    uv_valid = torch.zeros(n, dtype=torch.bool, device=rays.origin.device)
     mid = torch.zeros(n, dtype=torch.int32, device=rays.origin.device)
     gid = torch.zeros(n, dtype=torch.int32, device=rays.origin.device)
     for m in meshes:
         g = m.geom_index
         o_obj, d_obj = object_rays(rays, gtab, g)
         mt, mn, mi = mesh_query(m, o_obj, d_obj, with_index=True)
-        n_sm = mesh_winner_attrs(m, o_obj, d_obj, mi)
+        n_sm, m_uv = mesh_winner_attrs(m, o_obj, d_obj, mi)
         better = mt < t
         t_safe = torch.where(better, mt, 1.0)
         mpo = o_obj + t_safe[:, None] * d_obj
@@ -248,7 +253,29 @@ def mesh_only_hit(rays, gtab, meshes):
         nrm = torch.where(b, mnw, nrm)
         mid = torch.where(better, gtab[g, 13].to(torch.int32), mid)
         gid = torch.where(better, g, gid)
-    return t, pobj, nrm, mid, gid
+        if m_uv is not None:
+            uv = torch.where(b, m_uv, uv)
+            uv_valid = uv_valid | better
+        else:
+            uv_valid = uv_valid & ~better
+    return t, pobj, nrm, mid, gid, uv, uv_valid
+
+
+def merge_mesh_winners(rays, gtab, meshes, t, gid):
+    """The lean route's detached winner search over the meshes: each mesh's
+    nearest triangle (kernel 9, or the LBVH traversal) merged into the
+    analytic winner ``(t, gid)`` where it is nearer.  Returns ``(t, gid,
+    mesh_idx)``, ``mesh_idx`` per mesh each lane's triangle row in
+    ``ops/intersect.mesh_scan_verts`` order (whether or not it won)."""
+    idx = []
+    for m in meshes:
+        o_obj, d_obj = object_rays(rays, gtab, m.geom_index)
+        mt, _, mi = mesh_query(m, o_obj, d_obj, with_index=True)
+        better = mt < t
+        t = torch.where(better, mt, t)
+        gid = torch.where(better, m.geom_index, gid)
+        idx.append(mi)
+    return t, gid, tuple(idx)
 
 
 def mesh_only_occlusion(rays, gtab, meshes):

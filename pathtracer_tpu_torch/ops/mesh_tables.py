@@ -15,18 +15,21 @@ Tables, per mesh as :func:`pack_mesh_tables` builds them (JAX's arrays,
 element for element): triangles sorted by the Morton code of their float32
 centroid (stable), padded to a multiple of :data:`MESH_CHUNK` with copies of
 the last one; ``[Tp * 12]`` rows ``(v0, e1, e2, cross(e1, e2))``, ``[C * 6]``
-chunk boxes ``(lo, hi)``, and ``[Tp * 9]`` corner normals when the mesh has
-authored ``vn``.  :func:`kernel_meshes` concatenates every mesh's tables
-for a launch, with one descriptor row per mesh ``(geom index, chunks, first
-chunk, has normals)``.
+chunk boxes ``(lo, hi)``, ``[Tp * 9]`` corner normals when the mesh has
+authored ``vn`` and ``[Tp * 6]`` corner UVs when it has authored ``vt``.
+:func:`kernel_meshes` concatenates every mesh's tables for a launch, with one
+descriptor row per mesh ``(geom index, chunks, first chunk, has normals, has
+UVs)``.
 
 The sweep: per mesh, the ray in the geom's object space; per chunk, the
 slab test of its box against the lane's current best; per triangle of a
 chunk that passes, Moeller-Trumbore and a strict ``t < best`` update of the
 winner's distance, object-space point, world normal (the clipped
 barycentric blend of the corner normals, or the face normal, through the
-geom's inverse transpose; normalized once after the loop) and material.
-The shadow ray keeps the minimum ``t`` alone.  JAX skips a chunk when no
+geom's inverse transpose; normalized once after the loop) and material,
+and with ``want_uv`` (kernel 2m's deferred texel, ``bounce_pallas.py:430-473``)
+the clipped barycentric blend of the winner's corner UVs and whether its
+mesh has them.  The shadow ray keeps the minimum ``t`` alone.  JAX skips a chunk when no
 lane of its TPU tile reaches the box; here each lane makes that test for
 itself, in the kernel as in :func:`mesh_sweep` and :func:`mesh_occ`, so the
 kernels equal these plain versions on every lane.  A chunk box contains its
@@ -76,30 +79,30 @@ def _cross(a, b):
 
 
 def pack_mesh_tables(meshes):
-    """Per mesh ``((geom_index, n_chunks, has_norm), [tri, aabb(, norm)])``:
-    the flat float32 tables of ``bounce_pallas.pack_mesh_tables`` (without
-    UVs, which serve image textures, a later slice)."""
+    """Per mesh ``((geom_index, n_chunks, has_norm, has_uv), [tri, aabb(,
+    norm)(, uv)])``: the flat float32 tables of
+    ``bounce_pallas.pack_mesh_tables``.  Built from the vertices as they
+    are, detached: the kernels take no gradients."""
     out = []
     for m in meshes:
-        tv = m.tri_verts.to(torch.float32)
-        tn = None if m.tri_norm is None else m.tri_norm.to(torch.float32)
+        tv = m.tri_verts.detach().to(torch.float32)
+        attrs = [a.detach().to(torch.float32) for a in (m.tri_norm, m.tri_uv) if a is not None]
         cent = (tv[:, 0] + tv[:, 1] + tv[:, 2]) / 3.0  # jnp.mean of three
         order = torch.argsort(morton3(cent), stable=True)
-        tv = tv[order]
-        tn = None if tn is None else tn[order]
+        tv, attrs = tv[order], [a[order] for a in attrs]
         pad = (-tv.shape[0]) % MESH_CHUNK
         if pad:
-            tv = torch.cat([tv, tv[-1:].expand(pad, 3, 3)], dim=0)
-            tn = None if tn is None else torch.cat([tn, tn[-1:].expand(pad, 3, 3)], dim=0)
+            tv, *attrs = (torch.cat([a, a[-1:].expand(pad, *a.shape[1:])], dim=0)
+                          for a in (tv, *attrs))
         n_chunks = tv.shape[0] // MESH_CHUNK
         e1 = tv[:, 1] - tv[:, 0]
         e2 = tv[:, 2] - tv[:, 0]
         tables = [torch.cat([tv[:, 0], e1, e2, _cross(e1, e2)], dim=-1).reshape(-1)]
         ch = tv.reshape(n_chunks, MESH_CHUNK * 3, 3)
         tables.append(torch.cat([torch.amin(ch, dim=1), torch.amax(ch, dim=1)], dim=-1).reshape(-1))
-        if tn is not None:
-            tables.append(tn.reshape(-1))
-        out.append(((int(m.geom_index), n_chunks, tn is not None), tables))
+        tables += [a.reshape(-1) for a in attrs]
+        desc = (int(m.geom_index), n_chunks, m.tri_norm is not None, m.tri_uv is not None)
+        out.append((desc, tables))
     return out
 
 
@@ -107,11 +110,18 @@ def pack_mesh_tables(meshes):
 class KernelMeshes:
     """Every mesh's in-kernel tables, concatenated for one launch."""
 
-    descs: tuple  # per mesh (geom index, chunks, first chunk, has normals), host ints
-    desc: torch.Tensor  # [n_mesh, 4] int32: the same, on the tables' device
+    # per mesh (geom index, chunks, first chunk, has normals, has UVs), host ints
+    descs: tuple
+    desc: torch.Tensor  # [n_mesh, 5] int32: the same, on the tables' device
     tri: torch.Tensor  # [Tp * 12] (v0, e1, e2, face normal)
     aabb: torch.Tensor  # [C * 6] chunk boxes (lo, hi)
     norm: torch.Tensor  # [Tp * 9] corner normals, zeros for a mesh without vn
+    uv: torch.Tensor  # [Tp * 6] corner UVs, zeros for a mesh without vt
+
+    @property
+    def has_uv(self) -> bool:
+        """Some mesh has authored UVs (JAX's ``want_uv`` under image textures)."""
+        return any(d[4] for d in self.descs)
 
 
 def kernel_meshes(meshes):
@@ -119,13 +129,15 @@ def kernel_meshes(meshes):
     does not take them (no meshes, or too many triangles)."""
     if not mesh_inkernel_eligible(meshes):
         return None
-    descs, tri, aabb, norm = [], [], [], []
+    descs, tri, aabb, norm, uv = [], [], [], [], []
     first = 0
-    for (g, n_chunks, has_norm), tables in pack_mesh_tables(meshes):
-        descs.append((g, n_chunks, first, int(has_norm)))
+    for (g, n_chunks, has_norm, has_uv), tables in pack_mesh_tables(meshes):
+        descs.append((g, n_chunks, first, int(has_norm), int(has_uv)))
         tri.append(tables[0])
         aabb.append(tables[1])
-        norm.append(tables[2] if has_norm else tables[0].new_zeros(n_chunks * MESH_CHUNK * 9))
+        rows = n_chunks * MESH_CHUNK
+        norm.append(tables[2] if has_norm else tables[0].new_zeros(rows * 9))
+        uv.append(tables[-1] if has_uv else tables[0].new_zeros(rows * 6))
         first += n_chunks
     device = tri[0].device
     return KernelMeshes(
@@ -134,6 +146,7 @@ def kernel_meshes(meshes):
         tri=torch.cat(tri).contiguous(),
         aabb=torch.cat(aabb).contiguous(),
         norm=torch.cat(norm).contiguous(),
+        uv=torch.cat(uv).contiguous(),
     )
 
 
@@ -157,7 +170,7 @@ def _meshes(km: KernelMeshes, gtab, o, d):
     triangles are tested at once; the chunk loop of the callers then keeps
     what the kernel's culled loop keeps (a culled chunk changes nothing)."""
     tri, aabb = km.tri.view(-1, 12), km.aabb.view(-1, 6)
-    for g, n_chunks, first, has_norm in km.descs:
+    for g, n_chunks, first, has_norm, _ in km.descs:
         m = gtab[g].unbind(-1)
         obj = to_object(m, *o, *d)
         oo, od = obj[:3], obj[3:]
@@ -168,18 +181,23 @@ def _meshes(km: KernelMeshes, gtab, o, d):
         yield m, has_norm, first * MESH_CHUNK, aabb[first:first + n_chunks], oo, od, inv, tuv
 
 
-def mesh_sweep(km: KernelMeshes, gtab, o, d) -> dict:
+def mesh_sweep(km: KernelMeshes, gtab, o, d, want_uv: bool = False) -> dict:
     """Plain version of the in-kernel sweep for the ray planes ``o``, ``d``:
     ``et`` (BIG = no triangle), ``epo`` (hit point in the mesh's object
     space), ``en`` (unit world normal), ``emid`` (int64 material id), and
     ``reached``, the chunks whose triangles the kernel tests for each lane
-    (int64)."""
+    (int64).  With ``want_uv`` also ``muv_u``, ``muv_v`` (the winner's
+    authored UV; a winner whose mesh has none keeps the lane's earlier
+    values, as JAX's) and ``muvv`` (1.0 where the winner's mesh has UVs)."""
     zero = torch.zeros_like(o[0])
     et = torch.full_like(o[0], BIG)
     epo, enw = (zero, zero, zero), (zero, zero, zero)
+    uu, vv, uvv = zero, zero, zero
     emid = torch.zeros(o[0].shape, dtype=torch.int64, device=o[0].device)
     reached = torch.zeros_like(emid)
-    for m, has_norm, row0, boxes, oo, od, inv, (tc, u, v) in _meshes(km, gtab, o, d):
+    uv_tab = km.uv.view(-1, 6)
+    for (*_, has_uv), (m, has_norm, row0, boxes, oo, od, inv, (tc, u, v)) in zip(
+            km.descs, _meshes(km, gtab, o, d)):
         t_min, j_min = torch.min(tc, dim=-1)  # per chunk the first minimum, as the strict < loop
         for c in range(boxes.shape[0]):
             t_c, j = t_min[:, c], j_min[:, c]
@@ -187,10 +205,17 @@ def mesh_sweep(km: KernelMeshes, gtab, o, d) -> dict:
             reached = reached + reach
             better = reach & (t_c < et)
             row = row0 + c * MESH_CHUNK + j
-            if has_norm:
+            if has_norm or (want_uv and has_uv):
                 uc = torch.clamp(u[:, c].gather(1, j[:, None])[:, 0], 0.0, 1.0)
                 vc = torch.clamp(v[:, c].gather(1, j[:, None])[:, 0], 0.0, 1.0)
                 w0 = torch.clamp(1.0 - uc - vc, 0.0, 1.0)
+            if want_uv:
+                if has_uv:
+                    ur = torch.index_select(uv_tab, 0, row).unbind(-1)
+                    uu = torch.where(better, w0 * ur[0] + uc * ur[2] + vc * ur[4], uu)
+                    vv = torch.where(better, w0 * ur[1] + uc * ur[3] + vc * ur[5], vv)
+                uvv = torch.where(better, float(has_uv), uvv)
+            if has_norm:
                 nr = torch.index_select(km.norm.view(-1, 9), 0, row).unbind(-1)
                 n = tuple(w0 * nr[k] + uc * nr[3 + k] + vc * nr[6 + k] for k in range(3))
             else:
@@ -204,7 +229,10 @@ def mesh_sweep(km: KernelMeshes, gtab, o, d) -> dict:
             emid = torch.where(better, m[13].to(torch.int64), emid)
     inv_len = torch.rsqrt(torch.clamp(enw[0] * enw[0] + enw[1] * enw[1] + enw[2] * enw[2],
                                       min=1e-24))
-    return dict(et=et, epo=epo, en=tuple(inv_len * c for c in enw), emid=emid, reached=reached)
+    out = dict(et=et, epo=epo, en=tuple(inv_len * c for c in enw), emid=emid, reached=reached)
+    if want_uv:
+        out.update(muv_u=uu, muv_v=vv, muvv=uvv)
+    return out
 
 
 def mesh_occ(km: KernelMeshes, gtab, x, wi) -> torch.Tensor:
@@ -230,7 +258,7 @@ def mesh_occ_split(km: KernelMeshes, gtab, mtab, x, wi):
     occ_re = torch.full_like(x[0], BIG)
     refr = (mtab[gtab[:, 13].long(), 7] > 0.0).tolist()
     meshes = _meshes(km, gtab, x, wi)
-    for (g, _, _, _), (_, _, _, boxes, oo, _, inv, (tc, _, _)) in zip(km.descs, meshes):
+    for (g, *_), (_, _, _, boxes, oo, _, inv, (tc, _, _)) in zip(km.descs, meshes):
         mt = torch.full_like(x[0], BIG)
         t_min = torch.amin(tc, dim=-1)
         for c in range(boxes.shape[0]):

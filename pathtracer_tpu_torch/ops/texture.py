@@ -8,7 +8,9 @@ scene's device, with each slot's own ``(height, width)``.
 
 The UV comes from the object-space hit: the longitude / latitude of the
 sphere's r = 0.5 point, the face-local planar map of the cube (dominant
-``|p_obj|`` axis) and, for meshes, the box map of the object-space normal.
+``|p_obj|`` axis) and, for meshes, the box map of the object-space normal;
+a mesh hit with authored ``vt`` takes that UV instead (the callers'
+business: ``render/common.shade_bounce``, ``ops/bounce.bounce_physics``).
 ``compute_uv`` uses libm's ``atan2`` / ``asin`` as the JAX split path does;
 kernel 2's deferred-texel variant computes its UV in the kernel with JAX's
 polynomial (``ops/bounce.atan2_planes``), as the JAX kernel does.
@@ -16,9 +18,7 @@ polynomial (``ops/bounce.atan2_planes``), as the JAX kernel does.
 The fetch is plain PyTorch, as the JAX package left it to XLA: four row
 gathers and a bilinear blend with wrapping.  JAX's one-hot MXU fetch at
 HIGHEST precision gives the exact texel values, so the gathers give the
-same numbers.  Image textures on meshes (the box map of the normal, the
-authored ``vt`` of the hit record and kernel 2m's UV sweep) wait for the
-slice of big meshes: :func:`check_texture_scene` raises for them.
+same numbers.
 """
 
 from __future__ import annotations
@@ -29,13 +29,6 @@ import numpy as np
 import torch
 
 from pathtracer_tpu_torch.scene.structs import CUBE, SPHERE
-
-MESH_TEXTURES_MISSING = (
-    "image textures on meshes (the box map, authored vt and kernel 2m's UV sweep, "
-    "pathtracer_tpu/ops/intersect.py:522-564,614-637 and ops/bounce_pallas.py:1570) "
-    "wait for the slice of big meshes (ROADMAP queue 1 item 5)"
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class TextureAtlas:
@@ -70,12 +63,6 @@ def build_atlas(images, device="cuda") -> TextureAtlas:
         hw[k] = (im.shape[0], im.shape[1])
     return TextureAtlas(data=torch.as_tensor(data, device=device),
                         hw=torch.as_tensor(hw, device=device))
-
-
-def check_texture_scene(scene) -> None:
-    """Raise for a scene with both meshes and image textures."""
-    if scene.textures is not None and scene.meshes:
-        raise NotImplementedError(MESH_TEXTURES_MISSING)
 
 
 def compute_uv(gtype: torch.Tensor, p_obj: torch.Tensor, n_obj: torch.Tensor) -> torch.Tensor:

@@ -32,8 +32,8 @@ A scene whose meshes total at most ``ops/mesh_tables.MESH_INKERNEL_MAX_TRIS``
 triangles is in the kernel's scope (``trace_pallas.py:185-202``): both
 versions take its in-kernel tables (``mesh=``, the scene's
 ``mesh_tables``) and sweep the triangles inside the bounce loop.  Larger
-meshes run per bounce in JAX, on kernel 2's mesh-merge variant, which the
-port does not have yet: :func:`trace_fused` raises for them.
+meshes run per bounce, on kernel 2's mesh-merge variant, as in JAX
+(``render/megakernel.trace_paths`` sends them to the per-bounce scan).
 """
 
 from __future__ import annotations
@@ -66,12 +66,6 @@ mesh_vol_launches = 0  # launches of its mesh variant's volumetric instances
 surf_launches = 0  # launches of its instances with the surface blocks, any mesh or media case
 
 
-MESH_MERGE_MISSING = (
-    "meshes above 4096 triangles run on kernel 2's mesh-merge variant "
-    "(pathtracer_tpu/ops/bounce_pallas.py:1694-1810): later slice; "
-    "RenderConfig(fused=False) takes the split route"
-)
-
 
 def fused_trace_eligible(scene, cfg) -> bool:
     """Scope of the one-kernel trace: the counter-hash RNG, no image
@@ -81,20 +75,20 @@ def fused_trace_eligible(scene, cfg) -> bool:
 
 
 def mesh_launch_args(mesh, device) -> tuple:
-    """The kernels' five mesh arguments: table pointers, descriptors and
-    the mesh count of ``ops/mesh_tables.KernelMeshes`` (0 for None), after
+    """The kernels' six mesh arguments: table pointers, descriptors and the
+    mesh count of ``ops/mesh_tables.KernelMeshes`` (0 for None), after
     checking the tables are what the kernels read."""
     if mesh is None:
-        return (None, None, None, None, 0)
+        return (None, None, None, None, None, 0)
     for t, name in ((mesh.tri, "mesh triangles"), (mesh.aabb, "mesh chunk boxes"),
-                    (mesh.norm, "mesh normals")):
+                    (mesh.norm, "mesh normals"), (mesh.uv, "mesh UVs")):
         check_tensor(t, name, torch.float32, t.shape, device)
-    check_tensor(mesh.desc, "mesh descriptors", torch.int32, (len(mesh.descs), 4), device)
+    check_tensor(mesh.desc, "mesh descriptors", torch.int32, (len(mesh.descs), 5), device)
     return (mesh.tri.data_ptr(), mesh.aabb.data_ptr(), mesh.norm.data_ptr(),
-            mesh.desc.data_ptr(), len(mesh.descs))
+            mesh.uv.data_ptr(), mesh.desc.data_ptr(), len(mesh.descs))
 
 
-MESH_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int]  # tri, aabb, norm, desc, count
+MESH_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int]  # tri, aabb, norm, uv, desc, count
 MEDIA_ARGTYPES = [ctypes.c_int] * 3  # volumetric, hg, vol_nee
 SURF_ARGTYPE = ctypes.c_int  # the surface feature bits
 
@@ -316,12 +310,11 @@ def trace_fused(scene, rays, sample_idx, seed: int, cfg, tables=None):
     rays_traced int64 [])``.  ``tables`` are :func:`pack_tables` of the
     scene (packed here when not given)."""
     check_features(cfg.features)
-    if scene.meshes and not mesh_inkernel_eligible(scene.meshes):
-        raise NotImplementedError(MESH_MERGE_MISSING)
     if not fused_trace_eligible(scene, cfg):
         raise NotImplementedError(
-            "the one-kernel trace takes no image textures (their scenes run the per-bounce "
-            "scan, render/megakernel.trace_paths) and no fast_rng=False"
+            "the one-kernel trace takes no image textures, no meshes above 4096 triangles "
+            "(their scenes run the per-bounce scan, render/megakernel.trace_paths) and no "
+            "fast_rng=False"
         )
     gtab, mtab, ltab, scal = tables if tables is not None else pack_tables(scene)
     kw = dict(

@@ -17,11 +17,11 @@ diffuse hits with a shadow ray.  Two routes:
   path's order of operations.
 
 Triangle meshes (``:123-234``): the fused route takes kernel 2 with the
-in-kernel tables when the meshes total at most 4096 triangles, and raises
-above that (kernel 2's mesh-merge variant is a later slice); the split
-route merges each mesh's winner, with its authored smooth normal, into the
-analytic one (kernels 9 and 10 up to 8192 triangles, the LBVH traversal
-above).
+in-kernel tables when the meshes total at most 4096 triangles, and above
+that kernel 2's mesh-merge variant (``ops/bounce_fused.py``); the split
+route merges each mesh's winner, with its authored smooth normal and UV,
+into the analytic one (kernels 9 and 10 up to 8192 triangles, the LBVH
+traversal above).
 
 Under ``cfg.grad_lean`` (``:204-222,395-417``) a scene in the fused scope
 takes ``ops/bounce_grad.bounce_fused_diff`` (kernel 2 with replay planes,
@@ -29,9 +29,13 @@ kernel 3 backward); any other takes the lean split route: the detached
 winner search (``ops/intersect_cuda.winner_t_gid``, kernel 7) and the
 winner-only recompute of ``ops/intersect.intersect_scene_lean``, the split
 route's shading, and the NEE shadow ray on detached inputs through kernel
-8, visibility a comparison.  ``lean_cache``, a dict, keeps the two detached
-searches' outputs on their first run and hands them back to a recompute
-(the lean scan's per-bounce checkpoint), so neither kernel runs again.
+8, visibility a comparison.  Meshes join both detached searches (kernels 9
+and 10 per mesh, or the LBVH traversal), and a mesh winner's triangle is
+recomputed from the live vertices, so vertex gradients flow (JAX
+``:395-417``, ``ops/intersect.py:777-910``).  ``lean_cache``, a dict, keeps
+the two detached searches' outputs on their first run and hands them back
+to a recompute (the lean scan's per-bounce checkpoint), so no search
+kernel runs again.
 
 Participating media (``:311-348,440-582``): with ``volumetric`` the
 bounce samples an exponential free path in the medium the ray travels
@@ -52,10 +56,12 @@ texel (``ops/texture.py``) modulate the diffuse albedo; with ``bump`` the
 sinusoidal bump perturbs the shading normal, which NEE and the BSDF then
 use; ``microfacet`` / ``ward`` put the Cook-Torrance and Ward lobes in the
 BSDF.  On the fused route kernel 2 runs its surface instance and, with
-image textures, its deferred-texel variant.  Meshes with image textures and
-the surface features under ``grad_lean`` raise ``NotImplementedError``.
+image textures, its deferred-texel variant.  A mesh lane's image UV is the
+box map of its object-space normal ``M^T n_world`` or its authored ``vt``
+(``:258-279``).  The surface features and image textures under
+``grad_lean`` raise ``NotImplementedError``.
 
-``cfg.pallas`` picks no route in the port.  Differentiable meshes raise.
+``cfg.pallas`` picks no route in the port.
 """
 
 from __future__ import annotations
@@ -79,9 +85,10 @@ from pathtracer_tpu_torch.ops.bsdf import (
 from pathtracer_tpu_torch.ops.intersect import intersect_scene_lean, occlusion_split_t
 from pathtracer_tpu_torch.ops.intersect_cuda import nearest_hit, occlusion_t, winner_t_gid
 from pathtracer_tpu_torch.ops.lights import sample_lights
+from pathtracer_tpu_torch.ops.mesh import merge_mesh_winners
 from pathtracer_tpu_torch.ops.mesh_tables import mesh_inkernel_eligible
 from pathtracer_tpu_torch.ops.rng import hash_uniforms
-from pathtracer_tpu_torch.ops.texture import check_texture_scene, compute_uv, sample_atlas
+from pathtracer_tpu_torch.ops.texture import compute_uv, sample_atlas
 from pathtracer_tpu_torch.ops.trace_grad import fused_diff_eligible
 from pathtracer_tpu_torch.scene.structs import Rays
 
@@ -95,12 +102,16 @@ def bounce_uniforms(seed: int, sample_idx, depth) -> torch.Tensor:
 
 
 def _cached(cache, key, fn):
-    """``fn()``, kept in ``cache[key]`` on the first call when a cache is
+    """``fn()`` of a detached search, run without autograd (so that the
+    checkpoint's recompute, which reads the cache, saves what its first run
+    saved), kept in ``cache[key]`` on the first call when a cache is
     given."""
-    if cache is None:
-        return fn()
-    if key not in cache:
-        cache[key] = fn()
+    if cache is None or key not in cache:
+        with torch.no_grad():
+            out = fn()
+        if cache is None:
+            return out
+        cache[key] = out
     return cache[key]
 
 
@@ -124,9 +135,6 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
             raise NotImplementedError("gradients of image textures: later slice")
     if not cfg.fast_rng:
         raise NotImplementedError("shade_bounce for fast_rng=False: later slice")
-    check_texture_scene(scene)
-    if scene.meshes and cfg.grad_lean:
-        raise NotImplementedError("differentiable meshes: later slice")
     tables = tables if tables is not None else pack_tables(scene)
     if medium_sigma is None:
         medium_sigma = torch.zeros((throughput.shape[0], medium_width(cfg.features)),
@@ -145,9 +153,12 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
 
     gtab, mtab = tables[0], tables[1]
     if cfg.grad_lean:
-        winner = _cached(lean_cache, "winner",
-                         lambda: winner_t_gid(_detached(rays), gtab.detach().contiguous()))
-        hit = intersect_scene_lean(rays, gtab, winner=winner)
+        def search():
+            rays_d, gtab_d = _detached(rays), gtab.detach().contiguous()
+            return merge_mesh_winners(rays_d, gtab_d, scene.meshes, *winner_t_gid(rays_d, gtab_d))
+
+        winner = _cached(lean_cache, "winner", search)
+        hit = intersect_scene_lean(rays, gtab, winner=winner, meshes=scene.meshes)
     else:
         hit = nearest_hit(rays, gtab, scene.meshes)
     mat = gather_materials(mtab, hit.material_id)
@@ -170,6 +181,9 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
         m3 = scene.geoms.transform.detach()[gid][:, :3, :3]
         n_obj = torch.einsum("nij,ni->nj", m3, normal)  # n_obj ~ M^T n_world
         uv = compute_uv(gtype, hit.position_obj, n_obj)
+        if hit.uv is not None:
+            # the authored vt wins on the mesh lanes that have one
+            uv = torch.where(hit.uv_valid[:, None], hit.uv, uv)
         texel = sample_atlas(scene.textures, mat.texture_image,
                              uv * mat.texture_scale[:, None])
         is_img = mat.texture_type > 2.5
@@ -251,8 +265,8 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
         candidate = diffuse_lane & ls.valid & (cos_x > 0) & (cos_y > 0)
         shadow = Rays(origin=x.contiguous(), direction=wi.contiguous())
         if cfg.grad_lean:  # visibility is a comparison: the shadow ray runs detached
-            occ_t = _cached(lean_cache, "occlusion",
-                            lambda: occlusion_t(_detached(shadow), gtab.detach().contiguous()))
+            occ_t = _cached(lean_cache, "occlusion", lambda: occlusion_t(
+                _detached(shadow), gtab.detach().contiguous(), scene.meshes))
             visible = occ_t >= dist.detach() - 4.0 * RAY_BIAS
         else:
             occ_t = occlusion_t(shadow, gtab, scene.meshes)

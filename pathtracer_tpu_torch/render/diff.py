@@ -3,7 +3,8 @@ respect to every scene parameter.
 
 Port of ``pathtracer_tpu/render/diff.py:49-497``.  Transforms are rebuilt
 from TRS inside the graph, so gradients reach translations, rotations and
-scales; materials and the camera are leaves themselves.  Sampling is
+scales; materials, the camera and each mesh's object-space vertices
+(``SceneParams.mesh_verts``) are leaves themselves.  Sampling is
 detached (lobe choice, russian roulette, visibility are comparisons); the
 throughput, Fresnel weights, emittance, hit points and normals through the
 intersection ``t`` carry pathwise gradients.  Gradients come from
@@ -19,26 +20,39 @@ Engines (``diff.py:279-327``), chosen per scene as JAX chooses them:
   above 8 spp each iteration runs under ``torch.utils.checkpoint``, so one
   iteration's residuals are alive at a time and the backward recomputes
   them with the forward kernels;
-* any other scene (``grad_fused=False``) runs each iteration as
-  :class:`LeanSample`: the forward is the fast forward engine (kernel 1 on
-  the card), the backward re-traces the lean scan (kernels 7 and 8, PyTorch
+* any other scene (``grad_fused=False``, and every mesh scene, as JAX's
+  ``fused_diff_eligible`` excludes meshes) runs each iteration as
+  :class:`LeanSample`: the forward is the fast forward engine (kernel 1,
+  or 1m for meshes up to 4096 triangles, on the card; above that the
+  per-bounce scan on kernel 2's mesh-merge variant), the backward re-traces
+  the lean scan (kernels 7 and 8, and 9 and 10 per mesh, detached; PyTorch
   shading, a checkpoint per bounce) and returns the scene's cotangents.
   JAX takes this split only on a TPU and runs the lean graph both ways on
   the CPU; the port takes it on every device.
 
+Meshes: a mesh of at least ``ACCEL_MIN_TRIS`` triangles gets an LBVH built
+once over its initial vertices (``_ACCEL_CACHE``, keyed by a hash of
+them); every :func:`build_scene` rebinds it to the live vertices
+(``ops/accel.refresh_accel``), so a vertex that moves far is never missed
+(the stale Morton order only loosens the chunk boxes).  Authored normals
+and UVs do not enter differentiable mode, as in JAX.
+
 On the card the kernels run, on the CPU their plain versions.  Not ported
-yet: meshes and textures as leaves (``mesh_verts`` and ``textures`` raise
-when set), the LBVH cache and the sharded variants.
+yet: textures as leaves (``textures`` raises when set), the surface and
+media features' gradients and the sharded variants.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 
+import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
 from pathtracer_tpu_torch.config import RenderConfig
+from pathtracer_tpu_torch.ops.accel import build_mesh_accel, refresh_accel
 from pathtracer_tpu_torch.ops.bounce import check_diff_features, pack_tables
 from pathtracer_tpu_torch.ops.rng import key_to_seed
 from pathtracer_tpu_torch.ops.trace_grad import fused_diff_eligible
@@ -46,10 +60,12 @@ from pathtracer_tpu_torch.ops.transforms import build_transform
 from pathtracer_tpu_torch.render.features import resolve_features
 from pathtracer_tpu_torch.render.integrator import render_sample, resolve_device
 from pathtracer_tpu_torch.scene.structs import (
+    ACCEL_MIN_TRIS,
     MATERIAL_FIELDS,
     Camera,
     Geoms,
     Materials,
+    MeshInstance,
     Scene,
     derive_fov,
 )
@@ -70,26 +86,32 @@ class SceneParams:
     cam_fov: torch.Tensor  # [2]
     cam_aperture: torch.Tensor  # []
     cam_focal: torch.Tensor  # []
-    mesh_verts: tuple = ()  # mesh vertices as leaves: later slice
+    # per mesh geom its [T, 3, 3] object-space vertices (file order): the
+    # gradients reach them and, through TRS, the instance's transform
+    mesh_verts: tuple = ()
     textures: object = None  # texture atlas as a leaf: later slice
 
     def __post_init__(self):
-        if self.mesh_verts or self.textures is not None:
-            raise NotImplementedError("mesh vertices and textures as leaves: later slice")
+        if self.textures is not None:
+            raise NotImplementedError("textures as leaves: later slice")
+        self.mesh_verts = tuple(self.mesh_verts)
 
     def leaves(self) -> dict:
-        """``{name: tensor}`` of every leaf, materials as ``materials.<field>``."""
+        """``{name: tensor}`` of every leaf, materials as ``materials.<field>``
+        and the meshes' vertices as ``mesh_verts.<k>``."""
         out = {f"materials.{k}": getattr(self.materials, k) for k in MATERIAL_FIELDS}
         for f in dataclasses.fields(self):
             if f.name not in ("materials", "mesh_verts", "textures"):
                 out[f.name] = getattr(self, f.name)
+        out.update({f"mesh_verts.{k}": v for k, v in enumerate(self.mesh_verts)})
         return out
 
     @classmethod
     def from_leaves(cls, leaves: dict) -> "SceneParams":
         mats = Materials(**{k: leaves[f"materials.{k}"] for k in MATERIAL_FIELDS})
-        rest = {k: v for k, v in leaves.items() if not k.startswith("materials.")}
-        return cls(materials=mats, **rest)
+        verts = [v for k, v in leaves.items() if k.startswith("mesh_verts.")]
+        rest = {k: v for k, v in leaves.items() if not k.startswith(("materials.", "mesh_verts."))}
+        return cls(materials=mats, mesh_verts=tuple(verts), **rest)
 
     @property
     def device(self) -> torch.device:
@@ -103,15 +125,45 @@ class SceneStatic:
     geom_type: tuple  # ints
     geom_material: tuple  # ints
     resolution: tuple  # (width, height)
+    mesh_geom_indices: tuple = ()  # the geom slot of each mesh_verts entry
+    # per mesh_verts entry its key into _ACCEL_CACHE, or None (no LBVH)
+    mesh_accel_keys: tuple = ()
 
 
-def params_from_description(desc, frame: int = 0, device="cuda"):
+# LBVHs built on the host over the initial vertices of the differentiable
+# meshes, keyed by a hash of them (SceneStatic stays hashable).  Only their
+# Morton grouping (scan_to_file) is used: build_scene rebinds the triangle
+# copies and boxes to the live vertices (ops/accel.refresh_accel).
+_ACCEL_CACHE: dict = {}
+
+
+def _accel_key_for(verts) -> str:
+    """Content key of a ``[T, 3, 3]`` vertex array (``diff.py:102-107``)."""
+    a = np.ascontiguousarray(np.asarray(verts, np.float32))
+    return f"{a.shape[0]}-{hashlib.sha1(a.tobytes()).hexdigest()[:16]}"
+
+
+def params_from_description(desc, frame: int = 0, device="cuda", accel: bool = True):
     """SceneDescription -> ``(SceneParams, SceneStatic)`` on ``device``
     (CUDA by default; raises on a host without CUDA unless asked for the
-    CPU)."""
+    CPU).  ``accel=True`` builds the LBVH of each mesh of at least
+    ``ACCEL_MIN_TRIS`` triangles over its initial vertices (``diff.py:
+    110-183``)."""
     device = resolve_device(device)
-    if desc.texture_images or any(t is not None for t in desc.mesh_tris):
-        raise NotImplementedError("differentiable meshes and image textures: later slice")
+    if desc.texture_images:
+        raise NotImplementedError("differentiable image textures: later slice")
+    mesh_tris = desc.mesh_tris_for_frame(frame)
+    keys = []
+    for t in mesh_tris:
+        if t is None:
+            continue
+        if not accel or len(t) < ACCEL_MIN_TRIS:
+            keys.append(None)
+            continue
+        key = _accel_key_for(t)
+        if key not in _ACCEL_CACHE:
+            _ACCEL_CACHE[key] = build_mesh_accel(t, device="cpu")
+        keys.append(key)
 
     def f32(x):
         return torch.as_tensor(x, dtype=torch.float32, device=device).clone()
@@ -128,17 +180,29 @@ def params_from_description(desc, frame: int = 0, device="cuda"):
         cam_fov=f32(derive_fov(desc.fovy, desc.resolution[0], desc.resolution[1])),
         cam_aperture=f32(desc.aperture),
         cam_focal=f32(desc.focal_distance),
+        mesh_verts=tuple(f32(t) for t in mesh_tris if t is not None),
     )
     static = SceneStatic(
         geom_type=tuple(int(t) for t in desc.geom_type),
         geom_material=tuple(int(m) for m in desc.geom_material),
         resolution=tuple(int(r) for r in desc.resolution),
+        mesh_geom_indices=tuple(g for g, t in enumerate(mesh_tris) if t is not None),
+        mesh_accel_keys=tuple(keys),
     )
     return params, static
 
 
+def _mesh_accel(key, verts):
+    """The cached LBVH of ``key`` rebound to ``verts``, or None (no key, or
+    a cold cache: the mesh then takes kernels 9 and 10 up to 8192 triangles,
+    as JAX degrades to its dense sweep)."""
+    cached = _ACCEL_CACHE.get(key) if key else None
+    return None if cached is None else refresh_accel(cached, verts)
+
+
 def build_scene(params: SceneParams, static: SceneStatic) -> Scene:
-    """Differentiable scene assembly: TRS -> matrices inside the graph."""
+    """Differentiable scene assembly: TRS -> matrices inside the graph; the
+    meshes take their live vertices and their LBVH rebound to them."""
     t, inv = build_transform(params.translations, params.rotations, params.scales)
     dev = params.device
     geoms = Geoms(
@@ -156,28 +220,37 @@ def build_scene(params: SceneParams, static: SceneStatic) -> Scene:
         aperture=params.cam_aperture,
         focal_distance=params.cam_focal,
     )
-    return Scene(geoms=geoms, materials=params.materials, camera=cam)
+    keys = static.mesh_accel_keys or (None,) * len(static.mesh_geom_indices)
+    meshes = tuple(MeshInstance(geom_index=g, tri_verts=v, accel=_mesh_accel(k, v))
+                   for g, v, k in zip(static.mesh_geom_indices, params.mesh_verts, keys))
+    return Scene(geoms=geoms, materials=params.materials, camera=cam, meshes=meshes)
 
 
 CAMERA_FIELDS = ("position", "view", "up", "fov", "aperture", "focal_distance")
 
 
 def scene_tensors(scene: Scene) -> list:
-    """The float tensors of an analytic scene that gradients reach: the
-    transforms, every material field and the camera's."""
+    """The float tensors of a scene that gradients reach: the transforms,
+    every material field, the camera's and each mesh's vertices."""
     return [scene.geoms.transform, scene.geoms.inv_transform,
             *(getattr(scene.materials, k) for k in MATERIAL_FIELDS),
-            *(getattr(scene.camera, k) for k in CAMERA_FIELDS)]
+            *(getattr(scene.camera, k) for k in CAMERA_FIELDS),
+            *(m.tri_verts for m in scene.meshes)]
 
 
 def scene_with_tensors(scene: Scene, tensors) -> Scene:
-    """``scene`` with :func:`scene_tensors`' tensors replaced, in order."""
+    """``scene`` with :func:`scene_tensors`' tensors replaced, in order; a
+    mesh's LBVH is rebound to its new vertices."""
     tensors = list(tensors)
-    nm = len(MATERIAL_FIELDS)
+    nm, nc = len(MATERIAL_FIELDS), len(CAMERA_FIELDS)
     geoms = dataclasses.replace(scene.geoms, transform=tensors[0], inv_transform=tensors[1])
     mats = Materials(**dict(zip(MATERIAL_FIELDS, tensors[2:2 + nm])))
-    cam = dataclasses.replace(scene.camera, **dict(zip(CAMERA_FIELDS, tensors[2 + nm:])))
-    return dataclasses.replace(scene, geoms=geoms, materials=mats, camera=cam)
+    cam = dataclasses.replace(scene.camera, **dict(zip(CAMERA_FIELDS, tensors[2 + nm:2 + nm + nc])))
+    meshes = tuple(
+        dataclasses.replace(m, tri_verts=v,
+                            accel=None if m.accel is None else refresh_accel(m.accel, v))
+        for m, v in zip(scene.meshes, tensors[2 + nm + nc:]))
+    return dataclasses.replace(scene, geoms=geoms, materials=mats, camera=cam, meshes=meshes)
 
 
 class LeanSample(torch.autograd.Function):

@@ -30,10 +30,11 @@ deferred-texel variant.
 
 Mesh scenes whose meshes total at most 4096 triangles take the full-depth
 trace with the in-kernel triangle sweep (kernel 1's mesh variant); larger
-ones run per bounce in JAX on kernel 2's mesh-merge variant, which the port
-does not have yet, so ``trace_paths`` raises for them unless
-``cfg.fused=False`` asks for the split route (kernels 9 and 10, or the LBVH
-traversal above 8192 triangles).  Differentiable meshes raise.
+ones take the per-bounce scan, as in JAX (``:44-64``), whose
+``shade_bounce`` runs kernel 2's mesh-merge variant (kernels 9 and 10, or
+the LBVH traversal above 8192 triangles, around it), or the split route
+with ``cfg.fused=False``.  Under ``cfg.grad_lean`` mesh scenes take the
+lean scan, as JAX's ``fused_diff_eligible`` excludes them.
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ from torch.utils.checkpoint import checkpoint
 
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.ops.bounce_fused import medium_width
-from pathtracer_tpu_torch.ops.trace import trace_fused
+from pathtracer_tpu_torch.ops.trace import fused_trace_eligible, trace_fused
 from pathtracer_tpu_torch.ops.trace_grad import fused_diff_eligible, trace_fused_diff
 from pathtracer_tpu_torch.render.common import shade_bounce
 from pathtracer_tpu_torch.scene.structs import Rays, Scene
@@ -108,7 +109,9 @@ def trace_paths(
         raise NotImplementedError(DEBUG_MISSING)
     if cfg.grad_lean and fused_diff_eligible(scene, cfg) and cfg.grad_full_trace is not False:
         return trace_fused_diff(scene, rays, sample_idx, seed, cfg, tables=tables)
-    if cfg.grad_lean or cfg.fused is False or scene.textures is not None:
-        # image textures stay outside the one-kernel trace, as in JAX (:44-64)
+    if cfg.grad_lean or cfg.fused is False or (cfg.fast_rng
+                                                and not fused_trace_eligible(scene, cfg)):
+        # image textures and meshes above the in-kernel cap stay outside the
+        # one-kernel trace, as in JAX (:44-64)
         return scan_paths(scene, rays, sample_idx, seed, cfg, tables=tables)
     return trace_fused(scene, rays, sample_idx, seed, cfg, tables=tables)

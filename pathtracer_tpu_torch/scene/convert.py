@@ -21,8 +21,9 @@ The differentiable render's state crosses the same way:
 :func:`params_from_numpy` takes the leaves of a ``SceneParams`` as numpy
 (``materials`` as a dict of fields, then ``translations``, ``rotations``,
 ``scales``, ``cam_position``, ``cam_view``, ``cam_up``, ``cam_fov``,
-``cam_aperture``, ``cam_focal``), and :func:`params_to_numpy` gives a
-port ``SceneParams`` (its gradients, say) back in that form.
+``cam_aperture``, ``cam_focal`` and, optionally, ``mesh_verts``: a list of
+``[T, 3, 3]`` arrays), and :func:`params_to_numpy` gives a port
+``SceneParams`` (its gradients, say) back in that form.
 """
 
 from __future__ import annotations
@@ -101,6 +102,7 @@ def params_from_numpy(d: dict, device="cuda"):
 
     return SceneParams(
         materials=Materials(**{k: f32(d["materials"][k]) for k in MATERIAL_FIELDS}),
+        mesh_verts=tuple(f32(v) for v in d.get("mesh_verts", ())),
         **{k: f32(d[k]) for k in PARAM_FIELDS},
     )
 
@@ -113,4 +115,6 @@ def params_to_numpy(p) -> dict:
 
     out = {k: arr(getattr(p, k)) for k in PARAM_FIELDS}
     out["materials"] = {k: arr(getattr(p.materials, k)) for k in MATERIAL_FIELDS}
+    if p.mesh_verts:
+        out["mesh_verts"] = [arr(v) for v in p.mesh_verts]
     return out

@@ -135,12 +135,13 @@ class MeshInstance:
     @functools.cached_property
     def scan_table(self) -> torch.Tensor:
         """The ``[T * 9]`` ``(v0, e1, e2)`` table of kernels 9 and 10 in
-        scan order, without the LBVH's pad rows (``ops/mesh.py``)."""
+        scan order, without the LBVH's pad rows (``ops/mesh.py``); detached,
+        as the searches it serves."""
         from pathtracer_tpu_torch.ops.mesh import pack_tri_table
 
         if self.accel is None:
-            return pack_tri_table(self.tri_verts)
-        return pack_tri_table(self.accel.chunks.reshape(-1, 3, 3)[: self.accel.n_tris])
+            return pack_tri_table(self.tri_verts.detach())
+        return pack_tri_table(self.accel.chunks.detach().reshape(-1, 3, 3)[: self.accel.n_tris])
 
 
 @dataclasses.dataclass(frozen=True)

@@ -11,7 +11,9 @@
 // do (n_mesh = 0 for none), the media flags (volumetric, hg, vol_nee)
 // that pick their kVol / kHg instance and the surface feature bits that pick
 // the kSurf one; the bounce also the medium's width and the deferred texel's
-// three output planes (null for none: with them, the kTex instance).
+// three output planes (null for none: with them, the kTex instance, with
+// meshes kernel 2mt).  host_bounce_merge runs the lanes of the mesh-merge
+// variant (bounce_merge.cu) with its merge, mesh-UV and deferred planes.
 //
 //   g++ -O2 -std=c++17 -ffp-contract=off -shared -fPIC -o libhost.so \
 //       tests/kernel_host_harness.cpp
@@ -80,9 +82,9 @@ extern "C" void host_trace(const float* gtab, int G, const float* mtab, const fl
                            float* radiance, unsigned long long* nrays, int depth, int nee,
                            int rr, int rr_start, int vol, int hg, int vol_nee, int surf,
                            const float* mtri, const float* maabb, const float* mnorm,
-                           const int* mdesc, int n_mesh) {
+                           const float* muv, const int* mdesc, int n_mesh) {
   const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f,
-                 MeshTables{mtri, maabb, mnorm, mdesc, n_mesh}, surf};
+                 MeshTables{mtri, maabb, mnorm, muv, mdesc, n_mesh}, surf};
   auto lane = !vol ? (surf ? trace_lane<false, false, true> : trace_lane<false, false, false>)
               : hg ? (surf ? trace_lane<true, true, true> : trace_lane<true, true, false>)
                    : (surf ? trace_lane<true, false, true> : trace_lane<true, false, false>);
@@ -110,9 +112,10 @@ extern "C" void host_bounce(const float* gtab, int G, const float* mtab, const f
                             float* out_medium, float* replay_gid, float* replay_nee, int vol,
                             int hg, int vol_nee, int mw, int surf, float* tex_u, float* tex_v,
                             float* tex_slot, const float* mtri, const float* maabb,
-                            const float* mnorm, const int* mdesc, int n_mesh) {
+                            const float* mnorm, const float* muv, const int* mdesc,
+                            int n_mesh) {
   const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f,
-                 MeshTables{mtri, maabb, mnorm, mdesc, n_mesh}, surf};
+                 MeshTables{mtri, maabb, mnorm, muv, mdesc, n_mesh}, surf};
   decltype(&bounce_lane<false, false>) lane;
   if (tex_u != nullptr)
     lane = !vol ? bounce_lane<false, false, true, true>
@@ -126,7 +129,38 @@ extern "C" void host_bounce(const float* gtab, int G, const float* mtab, const f
   for (int i = 0; i < n; ++i)
     lane(T, seed, nee, vol_nee, mw, (size_t)i, origin, direction, thr, sample, depth, prev,
          medium, contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium,
-         replay_gid, replay_nee, tex_u, tex_v, tex_slot);
+         replay_gid, replay_nee, tex_u, tex_v, tex_slot, nullptr, nullptr, nullptr, 0);
+}
+
+extern "C" void host_bounce_merge(const float* gtab, int G, const float* mtab, const float* ltab,
+                                  const float* scal, unsigned seed, int nee, int n,
+                                  const float* origin, const float* direction, const float* thr,
+                                  const unsigned* sample, const int* depth, const float* prev,
+                                  const float* medium, float* contrib, float* next_o,
+                                  float* next_d, float* thr_mult, unsigned char* terminate,
+                                  float* wspec, float* rru, float* out_medium, int vol, int hg,
+                                  int vol_nee, int mw, int surf, float* tex_u, float* tex_v,
+                                  float* tex_slot, const float* mesh_in, const float* mesh_uv,
+                                  float* deferred) {
+  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f,
+                 MeshTables{nullptr, nullptr, nullptr, nullptr, nullptr, 0}, surf};
+  decltype(&bounce_lane<false, false, false, false, true>) lane;
+  if (tex_u != nullptr)
+    lane = !vol ? bounce_lane<false, false, true, true, true>
+                : (hg ? bounce_lane<true, true, true, true, true>
+                      : bounce_lane<true, false, true, true, true>);
+  else if (surf)
+    lane = !vol ? bounce_lane<false, false, true, false, true>
+                : (hg ? bounce_lane<true, true, true, false, true>
+                      : bounce_lane<true, false, true, false, true>);
+  else
+    lane = !vol ? bounce_lane<false, false, false, false, true>
+                : (hg ? bounce_lane<true, true, false, false, true>
+                      : bounce_lane<true, false, false, false, true>);
+  for (int i = 0; i < n; ++i)
+    lane(T, seed, nee, vol_nee, mw, (size_t)i, origin, direction, thr, sample, depth, prev,
+         medium, contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, nullptr,
+         nullptr, tex_u, tex_v, tex_slot, mesh_in, mesh_uv, deferred, (size_t)n);
 }
 
 extern "C" void host_nearest(const float* gtab, int G, int n, const float* origin,

@@ -453,4 +453,6 @@ def test_diff_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     assert float(grads.materials.emittance.abs().max()) > 0
     assert float(grads.materials.texture_scale.abs().max()) == 0  # no path to the loss
     with pytest.raises(NotImplementedError, match="later slice"):
-        dataclasses.replace(params, mesh_verts=(torch.zeros(1, 3, 3),))
+        dataclasses.replace(params, textures=object())  # texture leaves: a later slice
+    verts = dataclasses.replace(params, mesh_verts=[torch.zeros(1, 3, 3)]).mesh_verts
+    assert isinstance(verts, tuple) and len(verts) == 1  # mesh vertices are leaves

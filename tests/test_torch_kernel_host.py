@@ -67,7 +67,7 @@ from tests.test_torch_shade import random_lanes
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 P, I = ctypes.c_void_p, ctypes.c_int
-NO_MESH = (None, None, None, None, 0)  # the launchers' mesh arguments for no meshes
+NO_MESH = (None, None, None, None, None, 0)  # the launchers' mesh arguments for no meshes
 VACUUM = (0, 0, 1)  # the launchers' media arguments (volumetric, hg, vol_nee) for vacuum
 # the bounce launcher's surface bits and deferred-texel planes for neither
 NO_SURF = (0, None, None, None)
@@ -91,9 +91,11 @@ def host_lib(tmp_path_factory):
     lib.host_fwd.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, P, I, I, I, I]
     lib.host_bwd.argtypes = [P, I, P, I, P, P, ctypes.c_uint, P, I, P, P, P, P, P, I, I, I, I]
     lib.host_trace.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, I, I, I, I,
-                               I, I, I, I, P, P, P, P, I]
+                               I, I, I, I, P, P, P, P, P, I]
     lib.host_bounce.argtypes = ([P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 17 + [I] * 5
-                                + [P] * 3 + [P] * 4 + [I])
+                                + [P] * 3 + [P] * 5 + [I])
+    lib.host_bounce_merge.argtypes = ([P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 15
+                                      + [I] * 5 + [P] * 6)
     lib.host_mesh_nearest.argtypes = [P, I, I, P, P, P, P]
     lib.host_mesh_min.argtypes = [P, I, I, P, P, P]
     lib.host_nearest.argtypes = [P, I, I] + [P] * 8
@@ -427,8 +429,8 @@ def _mesh_scene(res):
 
 
 def _mesh_args(km):
-    return (km.tri.data_ptr(), km.aabb.data_ptr(), km.norm.data_ptr(), km.desc.data_ptr(),
-            len(km.descs))
+    return (km.tri.data_ptr(), km.aabb.data_ptr(), km.norm.data_ptr(), km.uv.data_ptr(),
+            km.desc.data_ptr(), len(km.descs))
 
 
 @pytest.mark.parametrize("scene_name", ["smooth_mesh", "displace_demo"])
@@ -541,7 +543,7 @@ def test_bounce_mesh_lanes_match_plain(host_lib, nee):
 def _media_scene(name, res):
     """A media scene at ``res``, its tables, its resolved features and the
     launchers' media flags (volumetric, hg)."""
-    from chip_smoke import fog_mesh_scene
+    from pathtracer_tpu_torch.scene.variants import fog_mesh_scene
     from pathtracer_tpu_torch.render.features import features_for_materials
 
     if name.startswith("fog_mesh"):
@@ -667,7 +669,7 @@ def test_bounce_media_lanes_match_plain(host_lib, hg, nee):
 def _surface_scene(name, res):
     """A surface scene at ``res``: ward, its GGX copy, textured with stripes
     or textured_image; its tables, resolved features and surface bits."""
-    from chip_smoke import ggx_ward_scene, striped_scene
+    from pathtracer_tpu_torch.scene.variants import ggx_ward_scene, striped_scene
     from pathtracer_tpu_torch.render.features import features_for_materials
 
     scenes = os.path.join(HERE, "..", "scenes")
@@ -782,3 +784,138 @@ def test_bounce_surface_lanes_match_plain(host_lib, name, nee):
     frac = float(close.float().mean())
     print(f"{name} nee={nee}: bounce lanes within 2e-6: {frac:.5f}")
     assert frac >= 0.995
+
+
+# ---- meshes above the in-kernel cap and image textures on meshes: kernel
+# 2's mesh-merge variant (2mm, bounce_merge.cu) and kernel 2m's UV sweep
+# (2mt)
+
+
+def _bigmesh_scene(name, tmp_path):
+    """The 5,120-triangle scene, or textured_mesh_scene with a vt grid of
+    65 cells (8,450 triangles, the merge variant) or 24 (in-kernel)."""
+    from pathtracer_tpu_torch.scene.variants import bigmesh_scene, grid_obj, textured_mesh_scene
+    from pathtracer_tpu_torch.render.features import features_for_materials
+
+    scenes = os.path.join(HERE, "..", "scenes")
+    if name == "big":
+        text = bigmesh_scene(4)
+    else:
+        obj = tmp_path / f"{name}.obj"
+        obj.write_text(grid_obj(65 if name == "grid65" else 24))
+        text = textured_mesh_scene(str(obj))
+    scene = parse_scene_text(text, name=name, scene_dir=scenes).scene_for_frame(0, device="cpu")
+    feats = frozenset(features_for_materials(scene.materials)) | {"glossy"}
+    return scene, [t.contiguous() for t in pack_tables(scene)], feats
+
+
+def _aimed(centre, n, seed):
+    lanes = random_lanes(n, seed=seed)
+    rng = np.random.default_rng(seed + 1000)
+    o = np.asarray(centre) + lanes["direction"] * rng.uniform(2.0, 4.0, (n, 1))
+    d = np.asarray(centre) + rng.standard_normal((n, 3)) * 0.6 - o
+    lanes["origin"] = o.astype(np.float32)
+    lanes["direction"] = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    return {k: torch.from_numpy(v) for k, v in lanes.items()}
+
+
+@pytest.mark.parametrize("nee", [True, False])
+@pytest.mark.parametrize("name", ["big", "grid65"])
+def test_bounce_merge_lanes_match_plain(host_lib, tmp_path, name, nee):
+    """Kernel 2mm's lanes (the merge of the outside mesh winner, the
+    deferred shadow ray; on the vt grid the deferred texel with the
+    authored UV of mesh_uv) against ``bounce_fused_plain(mesh_in=...)`` on
+    2,048 lanes aimed at the mesh: terminate, emit state, russian-roulette
+    uniform, atlas slot and the deferred candidate bit equal on every lane;
+    the float planes (the 11 deferred ones too) within 2e-6 on at least
+    99.5% of lanes (the host's libm; measured printed)."""
+    n, seed = 2048, 41
+    scene, tables, feats = _bigmesh_scene(name, tmp_path)
+    tex = scene.textures is not None
+    # the copper mesh is glossy: aim the big scene's lanes at the floor's
+    # diffuse lanes too, below and in front of it
+    t = _aimed((0.0, 0.4, 1.5) if name == "big" else (0.3, 2.4, 2.5), n, seed=17)
+    mesh_in, mesh_uv = bounce_fused.merge_planes(scene, t["origin"], t["direction"], tables[0],
+                                                 with_uv=tex)
+    medium = torch.zeros((n, 4))
+    want = bounce_fused.bounce_fused_plain(
+        tables, t["origin"], t["direction"], t["throughput"], t["sample"].long(), t["depth"],
+        t["prev"], medium, seed, nee=nee, features=feats, tex_defer=tex, mesh_in=mesh_in,
+        mesh_uv=mesh_uv)
+    want, *extra = want if isinstance(want, tuple) else (want,)
+    outs = [torch.empty((n, 3)) for _ in range(4)] + [
+        torch.empty(n, dtype=torch.uint8), torch.empty(n), torch.empty(n), torch.empty((n, 4))]
+    tex_out = [torch.empty(n) for _ in range(3)] if tex else [None] * 3
+    deferred = torch.empty((11, n)) if nee else None
+    host_lib.host_bounce_merge(
+        tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(), tables[2].data_ptr(),
+        tables[3].data_ptr(), seed, int(nee), n,
+        *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
+                                    "prev")),
+        medium.data_ptr(), *(o.data_ptr() for o in outs), *VACUUM, 4, trace.surface_bits(feats),
+        *(None if o is None else o.data_ptr() for o in tex_out), mesh_in.data_ptr(),
+        None if mesh_uv is None else mesh_uv.data_ptr(),
+        None if deferred is None else deferred.data_ptr(),
+    )
+    contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium = outs
+    assert torch.equal(terminate.bool(), want.terminate)
+    assert torch.equal(wspec, want.was_specular) and torch.equal(rru, want.rr_uniform)
+    close = torch.ones(n, dtype=torch.bool)
+    for got, ref in ((contrib, want.contrib), (next_o, want.next_origin),
+                     (next_d, want.next_direction), (thr_mult, want.throughput_mult)):
+        close &= torch.isclose(got, ref, rtol=2e-6, atol=2e-6).all(-1)
+    if tex:
+        assert torch.equal(tex_out[2], extra[2]) and int((extra[2] >= 0).sum()) > 100
+        for got, ref in zip(tex_out[:2], extra[:2]):
+            close &= torch.isclose(got, ref, rtol=2e-6, atol=2e-6)
+    if nee:
+        ref = extra[-1]
+        assert torch.equal(deferred[10], ref[10]) and int(ref[10].sum()) > 50
+        close &= torch.isclose(deferred[:10], ref[:10], rtol=2e-6, atol=2e-6).all(0)
+    on_mesh = int((mesh_in[0] < 1e29).sum())
+    frac = float(close.float().mean())
+    print(f"{name} nee={nee}: {on_mesh} lanes on the mesh; merge lanes within 2e-6: {frac:.5f}")
+    assert frac >= 0.995 and on_mesh > 200
+
+
+@pytest.mark.parametrize("nee", [True, False])
+def test_bounce_mesh_tex_lanes_match_plain(host_lib, tmp_path, nee):
+    """Kernel 2mt's lanes (the deferred texel with in-kernel meshes: kernel
+    2m's UV sweep and the box map of a mesh lane) against
+    ``bounce_fused_plain(mesh=..., tex_defer=True)`` on 2,048 lanes aimed at
+    a 1,152-triangle vt grid: terminate, emit state, russian-roulette
+    uniform and atlas slot equal on every lane, the float planes and the UV
+    within 2e-6 on at least 99.5% of lanes."""
+    n, seed = 2048, 43
+    scene, tables, feats = _bigmesh_scene("grid24", tmp_path)
+    km = scene.mesh_tables
+    assert km is not None and km.has_uv
+    t = _aimed((0.3, 2.4, 2.5), n, seed=23)
+    medium = torch.zeros((n, 4))
+    want, *want_tex = bounce_fused.bounce_fused_plain(
+        tables, t["origin"], t["direction"], t["throughput"], t["sample"].long(), t["depth"],
+        t["prev"], medium, seed, nee=nee, features=feats, tex_defer=True, mesh=km)
+    outs = [torch.empty((n, 3)) for _ in range(4)] + [
+        torch.empty(n, dtype=torch.uint8), torch.empty(n), torch.empty(n), torch.empty((n, 4))]
+    tex_out = [torch.empty(n) for _ in range(3)]
+    host_lib.host_bounce(
+        tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(), tables[2].data_ptr(),
+        tables[3].data_ptr(), seed, int(nee), n,
+        *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
+                                    "prev")),
+        medium.data_ptr(), *(o.data_ptr() for o in outs), None, None, *VACUUM, 4,
+        trace.surface_bits(feats), *(o.data_ptr() for o in tex_out), *_mesh_args(km),
+    )
+    contrib, next_o, next_d, thr_mult, terminate, wspec, rru, _ = outs
+    assert torch.equal(terminate.bool(), want.terminate)
+    assert torch.equal(wspec, want.was_specular) and torch.equal(rru, want.rr_uniform)
+    assert torch.equal(tex_out[2], want_tex[2])
+    close = torch.ones(n, dtype=torch.bool)
+    for got, ref in ((contrib, want.contrib), (next_o, want.next_origin),
+                     (next_d, want.next_direction), (thr_mult, want.throughput_mult),
+                     *zip(tex_out[:2], (w[:, None] for w in want_tex[:2]))):
+        close &= torch.isclose(got.reshape(ref.shape), ref, rtol=2e-6, atol=2e-6).all(-1)
+    frac = float(close.float().mean())
+    slots = int((want_tex[2] >= 0).sum())
+    print(f"2mt nee={nee}: {slots} image-textured events; lanes within 2e-6: {frac:.5f}")
+    assert frac >= 0.995 and slots > 100

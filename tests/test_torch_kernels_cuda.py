@@ -640,7 +640,7 @@ def test_mesh_render_launches_its_kernels():
 
 
 def _media_scene(name, res):
-    from chip_smoke import fog_mesh_scene
+    from pathtracer_tpu_torch.scene.variants import fog_mesh_scene
 
     if name.startswith("fog_mesh"):
         desc = parse_scene_text(fog_mesh_scene(name.endswith("glass")), name=name,
@@ -713,7 +713,7 @@ def test_bounce_media_kernel_matches_plain(hg, nee):
 
 
 def _surface_scene(name, res):
-    from chip_smoke import ggx_ward_scene, striped_scene
+    from pathtracer_tpu_torch.scene.variants import ggx_ward_scene, striped_scene
 
     scenes = os.path.join(ROOT, "scenes")
     if name == "ggx_ward":
@@ -807,3 +807,129 @@ def test_surface_render_launches_its_kernels(name):
     assert ps["rays_traced"] == ms["rays_traced"]
     close = torch.isclose(pinned, mega, rtol=2e-4, atol=2e-4)
     assert float(close.float().mean()) >= 0.999
+
+
+# ---- meshes above the in-kernel cap (kernel 2mm, csrc/bounce_merge.cu) and
+# image textures on meshes (kernel 2mt): bit for bit (chip_smoke.py
+# [bigmesh] holds them at full width)
+
+
+def _bigmesh(name, res, tmp_path=None):
+    from pathtracer_tpu_torch.scene.variants import bigmesh_scene, grid_obj, textured_mesh_scene
+
+    if name == "big":
+        text = bigmesh_scene(4)
+    else:
+        obj = tmp_path / f"{name}.obj"
+        obj.write_text(grid_obj(65 if name == "grid65" else 24))
+        text = textured_mesh_scene(str(obj))
+    desc = parse_scene_text(text, name=name, scene_dir=os.path.join(ROOT, "scenes"))
+    return dataclasses.replace(desc, resolution=res).scene_for_frame(0, device="cuda")
+
+
+def _primary_state(scene):
+    n = scene.camera.width * scene.camera.height
+    pixel = torch.arange(n, device="cuda")
+    rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(99, pixel))
+    return (rays.origin, rays.direction, torch.ones((n, 3), device="cuda"), pixel,
+            torch.zeros(n, dtype=torch.int32, device="cuda"), torch.zeros(n, device="cuda"),
+            torch.zeros((n, 4), device="cuda"))
+
+
+def _all_equal(got, want):
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if dataclasses.is_dataclass(g):
+            for f in dataclasses.fields(g):
+                assert torch.equal(getattr(g, f.name), getattr(w, f.name)), f.name
+        else:
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("nee", [True, False])
+@pytest.mark.parametrize("name", ["big", "grid65"])
+def test_merge_kernel_matches_plain(tmp_path, name, nee):
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import bounce_fused
+    from pathtracer_tpu_torch.render.features import features_for_materials
+
+    scene = _bigmesh(name, (128, 128), tmp_path)
+    tables = [t.contiguous() for t in pack_tables(scene)]
+    state = _primary_state(scene)
+    tex = scene.textures is not None
+    mesh_in, mesh_uv = bounce_fused.merge_planes(scene, state[0], state[1], tables[0], tex)
+    kw = dict(nee=nee, features=frozenset(features_for_materials(scene.materials)) | {"glossy"},
+              tex_defer=tex, mesh_in=mesh_in, mesh_uv=mesh_uv)
+    before = bounce_fused.merge_launches
+    got = bounce_fused.bounce_fused_cuda(tables, *state, 11, **kw)
+    assert bounce_fused.merge_launches == before + 1
+    want = bounce_fused.bounce_fused_plain(tables, *state, 11, **kw)
+    torch.cuda.synchronize()
+    _all_equal(got, want)
+    assert int((mesh_in[0] < 1e29).sum()) > 100
+
+
+@pytest.mark.parametrize("nee", [True, False])
+def test_mesh_tex_kernel_matches_plain(tmp_path, nee):
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import bounce_fused
+
+    scene = _bigmesh("grid24", (128, 128), tmp_path)
+    tables = [t.contiguous() for t in pack_tables(scene)]
+    state = _primary_state(scene)
+    kw = dict(nee=nee, features=frozenset({"glossy", "texture"}), tex_defer=True,
+              mesh=scene.mesh_tables)
+    before = bounce_fused.mesh_tex_launches
+    got = bounce_fused.bounce_fused_cuda(tables, *state, 13, **kw)
+    assert bounce_fused.mesh_tex_launches == before + 1
+    want = bounce_fused.bounce_fused_plain(tables, *state, 13, **kw)
+    torch.cuda.synchronize()
+    _all_equal(got, want)
+    assert int((want[3] >= 0).sum()) > 100
+
+
+def test_big_mesh_renders_launch_their_kernels():
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import bounce_fused, mesh
+    from pathtracer_tpu_torch.render import wavefront
+
+    scene = _bigmesh("big", (64, 48))
+    counts = lambda: (trace.launches, trace.mesh_launches, bounce_fused.merge_launches,  # noqa
+                      mesh.nearest_launches, mesh.min_launches)
+    before = counts()
+    _, mega, ms = render(scene, 2, RenderConfig(max_depth=4), device="cuda")
+    assert [a - b for a, b in zip(counts(), before)] == [0, 0, 8, 8, 8]
+    before, steps = counts(), wavefront.super_steps
+    _, pinned, ps = render(scene, 2, RenderConfig(max_depth=4, wavefront=True), device="cuda")
+    steps = wavefront.super_steps - steps
+    assert [a - b for a, b in zip(counts(), before)] == [0, 0, steps, steps, steps]
+    _, split, ss = render(scene, 2, RenderConfig(max_depth=4, fused=False), device="cuda")
+    torch.cuda.synchronize()
+    assert ps["rays_traced"] == ms["rays_traced"] == ss["rays_traced"]
+    assert float(torch.isclose(pinned, mega, rtol=2e-4, atol=2e-4).float().mean()) >= 0.999
+    assert float(torch.isclose(split, mega, rtol=2e-4, atol=2e-4).float().mean()) >= 0.995
+
+
+def test_merge_wrapper_checks_its_inputs():
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import bounce_fused
+
+    scene = _bigmesh("big", (16, 16))
+    tables = [t.contiguous() for t in pack_tables(scene)]
+    state = _primary_state(scene)
+    mesh_in, _ = bounce_fused.merge_planes(scene, state[0], state[1], tables[0], False)
+    with pytest.raises(ValueError, match="mesh_in"):
+        bounce_fused.bounce_fused_cuda(tables, *state, 1, nee=True, mesh_in=mesh_in[:7])
+    with pytest.raises(ValueError, match="mesh_in"):
+        bounce_fused.bounce_fused_cuda(tables, *state, 1, nee=True, mesh_in=mesh_in.T.clone())
+    with pytest.raises(ValueError, match="mesh_uv"):
+        bounce_fused.bounce_fused_cuda(tables, *state, 1, nee=True, mesh_in=mesh_in,
+                                       mesh_uv=torch.zeros((3, 256), device="cuda"))
+    with pytest.raises(ValueError, match="exclude"):
+        bounce_fused.bounce_fused_cuda(tables, *state, 1, nee=True, mesh_in=mesh_in,
+                                       mesh=_scene("smooth_mesh", (8, 8)).mesh_tables)
+    with pytest.raises(ValueError, match="CUDA"):
+        bounce_fused.bounce_fused_cuda([t.cpu() for t in tables], *(s.cpu() for s in state), 1,
+                                       nee=True, mesh_in=mesh_in.cpu())

@@ -115,7 +115,7 @@ def test_pack_mesh_tables_match_jax(name):
     jscene = jax_load_scene(os.path.join(ROOT, "scenes", f"{name}.txt")).scene_for_frame(0)
     jdescs, jtabs = jax_pack_mesh_tables(jscene.meshes)
     got = pack_mesh_tables(port_scene_from_jax(jscene).meshes)
-    assert [d for d, _ in got] == [d[:3] for d in jdescs]
+    assert [d for d, _ in got] == [tuple(d) for d in jdescs]  # has_uv too
     tabs = [t.numpy() for _, ts in got for t in ts]
     assert len(tabs) == len(jtabs)
     tri, jtri = tabs[0].reshape(-1, 12), np.asarray(jtabs[0]).reshape(-1, 12)
@@ -212,9 +212,14 @@ def test_lbvh_traversal_matches_jax():
 
 
 def test_meshes_above_the_in_kernel_cap_raise_on_the_fused_routes():
-    """Above 4,096 triangles JAX runs kernel 2's mesh-merge variant, which the
-    port does not have yet: the megakernel raises naming it; the split
-    route (``fused=False``) renders."""
+    """Above 4,096 triangles the fused routes run kernel 2's mesh-merge
+    variant, as JAX's do (the name is from when they raised): the
+    megakernel route (the per-bounce scan), ``fused=True`` and the wavefront
+    engine's ``shade_bounce`` give the split route's bounce: terminate,
+    emit states and the russian-roulette uniform equal on every lane, the
+    float outputs within ``tests/test_torch_shade.py``'s rtol 2e-4 / atol
+    2e-5 (the split route shades in PyTorch, the merge variant in the
+    kernels' order); the traces' ray counts equal."""
     desc = load_scene(os.path.join(ROOT, "scenes", "displace_demo.txt"))
     ico = load_obj_full(os.path.join(ASSETS, "ico.obj")).verts
     big = displace_mesh(ico, 0.06, 4, "sin", 9.0)  # 5,120 triangles
@@ -227,13 +232,17 @@ def test_meshes_above_the_in_kernel_cap_raise_on_the_fused_routes():
     pixel = torch.arange(24)
     rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(0, pixel))
     glossy = dict(features=("glossy",))
+    args = (scene, rays, torch.ones((24, 3)), pixel, 0, torch.zeros(24), 0)
+    split = shade_bounce(*args, RenderConfig(fused=False, **glossy))
     for cfg in (RenderConfig(**glossy), RenderConfig(fused=True, **glossy),
                 RenderConfig(wavefront=True, **glossy)):
-        with pytest.raises(NotImplementedError, match="mesh-merge variant"):
-            if cfg.wavefront:
-                shade_bounce(scene, rays, torch.ones((24, 3)), pixel, 0, torch.zeros(24), 0, cfg)
-            else:
-                trace_paths(scene, rays, pixel, 0, cfg)
-    rad, nrays = trace_paths(scene, rays, pixel, 0,
-                             RenderConfig(fused=False, max_depth=2, **glossy))
-    assert bool(torch.isfinite(rad).all()) and int(nrays) > 0
+        got = shade_bounce(*args, cfg)
+        assert torch.equal(got.terminate, split.terminate)
+        assert torch.equal(got.was_specular, split.was_specular)
+        assert torch.equal(got.rr_uniform, split.rr_uniform)
+        for f in ("contrib", "next_origin", "next_direction", "throughput_mult"):
+            torch.testing.assert_close(getattr(got, f), getattr(split, f), rtol=2e-4, atol=2e-5)
+    rad_s, n_s = trace_paths(scene, rays, pixel, 0, RenderConfig(fused=False, max_depth=2, **glossy))
+    rad_m, n_m = trace_paths(scene, rays, pixel, 0, RenderConfig(max_depth=2, **glossy))
+    assert bool(torch.isfinite(rad_m).all()) and int(n_m) == int(n_s) > 0
+    torch.testing.assert_close(rad_m, rad_s, rtol=2e-4, atol=2e-5)

@@ -66,6 +66,7 @@ from pathtracer_tpu_torch.ops import intersect_cuda, mesh, trace, trace_grad
 from pathtracer_tpu_torch.ops.bounce import pack_tables
 from pathtracer_tpu_torch.ops.mesh_tables import mesh_occ, mesh_sweep
 from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+from pathtracer_tpu_torch.render import diff
 from pathtracer_tpu_torch.render.common import shade_bounce
 from pathtracer_tpu_torch.render.integrator import render
 from pathtracer_tpu_torch.scene.parser import load_scene
@@ -126,7 +127,7 @@ def test_split_route_intersection_matches_jax(smooth, which):
     # the mesh winner alone, with the authored smooth normal
     jt, jpo, jn, jmid, jgid, _, _ = jax_mesh_only_hit(jr, jscene.geoms, jscene.meshes,
                                                       with_attrs=True)
-    mt, mpo, mn, mmid, mgid = mesh.mesh_only_hit(tr, gtab, tscene.meshes)
+    mt, mpo, mn, mmid, mgid, _, _ = mesh.mesh_only_hit(tr, gtab, tscene.meshes)
     mhit = np.asarray(jt) < 1e29
     np.testing.assert_array_equal(mt.numpy() < 1e29, mhit)
     np.testing.assert_allclose(mt.numpy(), np.asarray(jt), rtol=1e-5, atol=1e-6)
@@ -188,20 +189,43 @@ def test_shade_bounce_with_meshes_matches_jax_split(smooth, nee):
     for fused in (None, False):
         cfg = RenderConfig(nee=nee, fused=fused, features=("glossy",))
         _compare_bounce(ref, shade_bounce(*args, cfg), f"fused={fused}, nee={nee}")
-    with pytest.raises(NotImplementedError, match="differentiable meshes"):
-        shade_bounce(*args, RenderConfig(features=("glossy",), grad_lean=True))
+    # the lean route (a mesh winner shades with its face normal, as JAX's)
+    lean = jax_shade_bounce(
+        jscene, jrays, jnp.asarray(lanes["throughput"]), jnp.asarray(lanes["sample"]),
+        jnp.asarray(lanes["depth"]), jnp.asarray(lanes["prev"]), key,
+        JaxConfig(nee=nee, pallas=False, fused=False, grad_lean=True, features=("glossy",)),
+        medium_sigma=jnp.zeros((n, 4), jnp.float32),
+    )
+    _compare_bounce(lean, shade_bounce(*args, RenderConfig(nee=nee, features=("glossy",),
+                                                           grad_lean=True)),
+                    f"grad_lean, nee={nee}")
 
 
 @pytest.mark.parametrize("grad", [dict(), dict(grad_full_trace=True),
                                   dict(grad_full_trace=False), dict(grad_fused=False)])
 def test_differentiable_engines_refuse_meshes(smooth, grad):
-    """Every differentiable engine raises on a mesh scene: none of them
-    takes mesh tables yet, so a kernel that ran would drop the mesh."""
+    """A mesh scene takes the lean engine whatever the gradient options say
+    (the name is from when every engine refused meshes): none of them is in
+    the fused scope, as in JAX, so each gives the lean engine's loss and
+    gradients bit for bit, and ``render`` under ``grad_lean`` runs the lean
+    scan."""
     _, tscene, _ = smooth
     cfg = RenderConfig(grad_lean=True, max_depth=2, features=("glossy",), **grad)
     assert not trace_grad.fused_diff_eligible(tscene, cfg)
-    with pytest.raises(NotImplementedError, match="differentiable meshes"):
-        render(tscene, 1, cfg, device="cpu")
+    _, acc, st = render(tscene, 1, cfg, device="cpu")
+    assert bool(torch.isfinite(acc).all()) and st["rays_traced"] > 0
+    desc = dataclasses.replace(load_scene(SMOOTH), resolution=(8, 8))
+    params, static = diff.params_from_description(desc, 0, device="cpu")
+    target = torch.zeros((64, 3))
+    loss, grads = diff.loss_and_grad(params, static, target, 1, prng_key(2),
+                                     RenderConfig(max_depth=2, **grad), device="cpu")
+    lean_loss, lean = diff.loss_and_grad(params, static, target, 1, prng_key(2),
+                                         RenderConfig(max_depth=2, grad_fused=False),
+                                         device="cpu")
+    assert float(loss) == float(lean_loss) > 0
+    for k, v in grads.leaves().items():
+        assert torch.equal(v, lean.leaves()[k]), k
+    assert float(grads.mesh_verts[0].abs().max()) > 0
 
 
 def test_renders_match_jax(smooth):

@@ -5,8 +5,8 @@ stripes texture, the sinusoidal bump and image textures.
 Inputs are made with numpy from a seed and handed to both packages; the
 scenes cross with ``tests/test_torch_scene.port_scene_from_jax``.  The
 scenes are ``scenes/ward.txt`` (Ward floor and sphere), its GGX copy
-(``chip_smoke.ggx_ward_scene``: the sphere Cook-Torrance), ``textured.txt``
-with stripes on its red wall (``chip_smoke.striped_scene``; checker floor
+(``scene/variants.ggx_ward_scene``: the sphere Cook-Torrance), ``textured.txt``
+with stripes on its red wall (``variants.striped_scene``; checker floor
 and walls, a bumped sphere) and ``textured_image.txt`` (an image-textured cube and
 sphere).  Tolerances, with reasons:
 
@@ -50,7 +50,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import ggx_ward_scene, striped_scene
 from pathtracer_tpu.config import RenderConfig as JaxConfig
 from pathtracer_tpu.ops import bounce_pallas as jb
 from pathtracer_tpu.ops import bsdf as jbsdf
@@ -68,6 +67,7 @@ from pathtracer_tpu_torch.ops.intersect import T_MIN
 from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
 from pathtracer_tpu_torch.render.common import shade_bounce
 from pathtracer_tpu_torch.scene.structs import Rays
+from pathtracer_tpu_torch.scene.variants import ggx_ward_scene, striped_scene
 from pathtracer_tpu_torch.utils.imageio import load_png
 from tests.test_torch_scene import port_scene_from_jax
 from tests.test_torch_shade import random_lanes

@@ -6,7 +6,7 @@ scenes cross with ``tests/test_torch_scene.port_scene_from_jax``.  The media
 scenes are ``scenes/sss.txt`` (Henyey-Greenstein and isotropic scattering
 spheres), ``fog.txt`` (a lamp inside an index-matched scattering cube),
 ``glass_dof.txt`` (Beer-Lambert absorption in glass) and the fog with
-smooth_mesh's icosphere inside, glass or opaque (``chip_smoke.
+smooth_mesh's icosphere inside, glass or opaque (``scene/variants.
 fog_mesh_scene``).  Tolerances, with reasons:
 
 * ``uniform_sphere`` / ``henyey_greenstein`` / ``hg_phase_value`` against
@@ -44,7 +44,6 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import fog_mesh_scene
 from pathtracer_tpu.config import RenderConfig as JaxConfig
 from pathtracer_tpu.ops import bounce_pallas as jb
 from pathtracer_tpu.ops import bsdf as jbsdf
@@ -64,6 +63,7 @@ from pathtracer_tpu_torch.ops.mesh_tables import mesh_occ_split
 from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
 from pathtracer_tpu_torch.render.common import shade_bounce
 from pathtracer_tpu_torch.scene.structs import Rays
+from pathtracer_tpu_torch.scene.variants import fog_mesh_scene
 from tests.test_torch_scene import port_scene_from_jax
 from tests.test_torch_shade import _compare_bounce, random_lanes
 
