@@ -180,7 +180,32 @@ Phases (any failure exits non-zero):
     device time, bounds, registers (Cornell's kernels 1 and 2 keep 72 and
     56) and the CLI's auto engine on the 5,120-triangle scene
     (``engine=wavefront``);
-13. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+13. ``[grad:vol]``, differentiable participating media, each step through
+    ``render.diff.loss_and_grad_rays`` with the counters zeroed just before:
+    (a) ``scenes/milky.txt`` at its 800x800, depth 8, NEE, vol_nee on, 4 spp,
+    target zeros, on the full-depth engine (kernels 4v and 5v, 4 launches
+    each), the per-bounce engine (2r-v and 3v, 32 each) and the lean one
+    (kernel 1v forward, kernels 7 and 8 in the backward), each step's ms,
+    fwd+bwd Mrays/s, profiled idle share, peak memory, launches and the
+    medium leaves' gradients; the per-bounce and lean steps' losses within
+    1e-5 relative and every leaf within 5e-4 of the largest gradient of the
+    full-depth step's; (b) on milky's iteration-0 inputs at full width
+    (640,000 lanes) with vol_nee on, and on a 65,536-lane window around the
+    milky sphere with vol_nee off: 4v's radiance and 17
+    residual planes equal to ``tfwd_plain``'s (its radiance to kernel 1v's),
+    5v against ``tbwd_plain``'s float64 reference, 2r-v equal to plain in
+    every output and replay plane and 3v against ``bounce_bwd_plain``'s
+    float64 reference (the medium's planes too) on the primary rays and the
+    state after two bounces: every component within rtol = atol = 1e-5 on
+    at least 99.99% of lanes, every table cotangent within 1e-4 of itself
+    plus 1e-6 of its table's largest, the lanes beyond the bar printed with
+    their paths; each kernel's device time from the profiler, its plain
+    version's and its bound at full width; (c) ``scenes/fog.txt`` at
+    its 200x200 on the three engines at (a)'s bars; (d) the lean steps of
+    sss at 512x512 (kernel 1hg forward; profiled) and of fog's cube around
+    the icosphere (kernel 1m-vol forward); the new instances' registers,
+    and Cornell's kernels 3, 4 and 5 take exactly 136, 72 and 148;
+14. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
 The rendered PNGs and the profile table go to ``--out-dir`` (default
 ``renders/chip_smoke``).
@@ -222,7 +247,6 @@ OPS_SHADE = 270
 # NEE connection with its light sample 210, normal and inverse-transpose 45,
 # hit point and intersection 60, object-space ray 60, table accumulation 45)
 OPS_BWD_ADJOINT = 550
-RESID_PLANES = 13  # residual planes per bounce (ops/trace_grad.py:N_RESID)
 
 
 def fail(msg: str) -> None:
@@ -264,9 +288,13 @@ def _counters() -> dict:
         "mesh_min": (mesh, "min_launches"),
         "trace_fwd_resid": (trace_grad, "fwd_launches"),
         "trace_bwd": (trace_grad, "bwd_launches"),
+        "trace_fwd_resid_vol": (trace_grad, "fwd_vol_launches"),
+        "trace_bwd_vol": (trace_grad, "bwd_vol_launches"),
         "bounce": (bounce_fused, "launches"),
         "bounce_replay": (bounce_fused, "replay_launches"),
+        "bounce_replay_vol": (bounce_fused, "replay_vol_launches"),
         "bounce_bwd": (bounce_grad, "launches"),
+        "bounce_bwd_vol": (bounce_grad, "vol_launches"),
         "nearest_hit": (intersect_cuda, "nearest_launches"),
         "winner": (intersect_cuda, "winner_launches"),
         "occlusion": (intersect_cuda, "occlusion_launches"),
@@ -545,12 +573,12 @@ def grad_phase(desc, dev, card: str, out_dir: str):
     table_bytes = sum(t.numel() * 4 for t in tables)
     f_ops = lane_bounces * (sweep + OPS_SHADE)
     # origin, direction, sample in; radiance and every residual plane out
-    f_bytes = n * (12 + 12 + 4 + 12) + cfg.max_depth * RESID_PLANES * n * 4 + table_bytes
+    f_bytes = n * (12 + 12 + 4 + 12) + cfg.max_depth * trace_grad.N_RESID * n * 4 + table_bytes
     b_ops = lane_bounces * (OPS_TO_OBJECT + min(OPS_SPHERE, OPS_CUBE) + OPS_SHADE + OPS_BWD_ADJOINT)
     # in: the alive plane of every bounce, the other residual planes (o, d,
     # thr, emit state, gid, NEE bit) of the live ones, sample and radiance
     # cotangent; out: d_origin, d_direction and the table cotangents
-    b_resid = cfg.max_depth * n * 4 + lane_bounces * (RESID_PLANES - 1) * 4
+    b_resid = cfg.max_depth * n * 4 + lane_bounces * (trace_grad.N_RESID - 1) * 4
     b_bytes = b_resid + n * (4 + 12 + 12 + 12) + table_bytes + sum(t.numel() * 4 for t in got[:4])
 
     def bound(ops, nbytes):
@@ -2448,6 +2476,409 @@ def bigmesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     return entries
 
 
+GRAD_VOL_SPP = 4
+GRAD_VOL_WINDOW = 256  # (b)'s vol_nee=False repeat: a 256x256 window of milky's primary rays
+# fp32 operations of the adjoint's media blocks per live lane-bounce beyond
+# OPS_BWD_ADJOINT, counted by hand from bounce_adj.cuh for a surface event
+# (the free path 8, attenuation and its adjoint 24, the medium switch 8); an
+# in-medium scatter's volumetric NEE and its sweep are data-dependent and
+# left out, so the bounds stay lower bounds
+OPS_BWD_VOL = 40
+
+
+def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
+    """Phase 13, ``[grad:vol]``: differentiable participating media.
+    milky at its 800x800 on the three gradient engines, kernels 4v, 5v, 2r-v
+    and 3v against their plain versions, fog on the three engines, the lean
+    steps of sss and of fog around the icosphere, times, bounds and
+    registers.  Returns the JSON entries of the four new instances."""
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import bounce_fused, bounce_grad, intersect_cuda, trace
+    from pathtracer_tpu_torch.ops import trace_grad
+    from pathtracer_tpu_torch.ops.bounce import pack_tables
+    from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render import diff
+    from pathtracer_tpu_torch.render.features import resolve_features
+    from pathtracer_tpu_torch.scene.parser import load_scene, parse_scene_text
+    from pathtracer_tpu_torch.scene.structs import Rays
+    from pathtracer_tpu_torch.scene.variants import fog_mesh_scene
+
+    scenes_dir = os.path.join(ROOT, "scenes")
+    t_last = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        print(f"[grad:vol:wall] {part} {now - t_last[0]:.1f} s")
+        t_last[0] = now
+
+    spp, depth = GRAD_VOL_SPP, 8
+    per = spp * depth
+    base = RenderConfig(wavefront=False, nee=True, max_depth=depth)
+    engines = {
+        "full-depth": (base, only(trace_fwd_resid_vol=spp, trace_bwd_vol=spp),
+                       ("trace_fwd_kernel", "trace_bwd_kernel", "block_row_sum")),
+        "per-bounce": (dataclasses.replace(base, grad_full_trace=False),
+                       only(bounce_replay_vol=per, bounce_bwd_vol=per),
+                       ("bounce_kernel", "bounce_bwd_kernel", "block_row_sum")),
+        "lean": (dataclasses.replace(base, grad_fused=False),
+                 only(trace_vol=spp, winner=per, occlusion=per),
+                 ("trace_kernel", "winner_kernel", "occlusion_kernel")),
+    }
+    medium_leaves = ("absorption_coefficient", "reduced_scatter_coefficient", "has_scatter",
+                     "phase_g")
+
+    def grad_step(label, desc, cfg, expect, kernels=None):
+        """One ``loss_and_grad_rays`` step through the entry point with the
+        counters zeroed just before: its launches checked, its time, and
+        with ``kernels`` one profiled step (idle share)."""
+        params, static = diff.params_from_description(desc, 0, device=dev)
+        n = static.resolution[0] * static.resolution[1]
+        target = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+
+        def step():
+            return diff.loss_and_grad_rays(params, static, target, spp, prng_key(0), cfg,
+                                           device=dev)
+
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, grads, rays = step()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = read_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        check(launches == expect, f"{label} step launches {launches}, expected {expect}")
+        bad = [k for k, v in grads.leaves().items() if not bool(torch.isfinite(v).all())]
+        check(not bad and float(loss) > 0, f"{label}: loss {float(loss)}, non-finite {bad}")
+        t0 = time.perf_counter()  # the first step was the warm-up
+        step()
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t0) * 1e3
+        summary = (profile_step(step, step_ms, out_dir, "grad_vol_" + label.replace(" ", "_"),
+                                kernels)
+                   if kernels else "idle share not measured (one lean profile per phase)")
+        med = {k: [round(v, 6) for v in getattr(grads.materials, k).flatten().tolist()]
+               for k in medium_leaves}
+        print(f"[grad:vol] {label} {static.resolution[0]}x{static.resolution[1]} d{depth} nee "
+              f"vol_nee={cfg.vol_nee} spp={spp}: {step_ms:.4f} ms ({first_s:.3f} s first), "
+              f"{int(rays) / step_ms / 1e3:.1f} fwd+bwd Mrays/s, loss {float(loss):.9g}, peak "
+              f"memory {peak_gb:.3f} GB, launches {launches}; medium leaves' gradients {med}; "
+              f"{summary}")
+        return dict(loss=loss, grads=grads, ms=step_ms, launches=launches)
+
+    def hold_engines(label, steps):
+        """The per-bounce and lean steps against the full-depth one: the loss
+        within 1e-5 relative, every leaf within 5e-4 of the largest
+        gradient."""
+        full = steps["full-depth"]
+        fl = full["grads"].leaves()
+        gscale = max(float(v.abs().max()) for v in fl.values())
+        for name in ("per-bounce", "lean"):
+            st = steps[name]
+            leaves = st["grads"].leaves()
+            worst, worst_leaf = max((float((leaves[k] - fl[k]).abs().max()), k) for k in fl)
+            loss_rel = abs(float(st["loss"]) - float(full["loss"])) / abs(float(full["loss"]))
+            print(f"[grad:vol] {label} {name} against full-depth: loss {loss_rel:.3g} relative, "
+                  f"worst leaf {worst_leaf} {worst:.3g} (bar {5e-4 * gscale:.4g})")
+            check(loss_rel <= 1e-5, f"{label} {name}: loss {loss_rel:.3g} relative")
+            check(worst <= 5e-4 * gscale, f"{label} {name}: {worst_leaf} off by {worst:.3g}")
+
+    # ---- (a) milky at its 800x800 on the three engines
+    milky = load_scene(os.path.join(scenes_dir, "milky.txt"))
+    steps = {name: grad_step(f"milky {name}", milky, cfg, expect, kernels)
+             for name, (cfg, expect, kernels) in engines.items()}
+    hold_engines("milky", steps)
+    engine_launch = {"trace_fwd_resid_vol": steps["full-depth"]["launches"]["trace_fwd_resid_vol"],
+                     "trace_bwd_vol": steps["full-depth"]["launches"]["trace_bwd_vol"],
+                     "bounce_replay_vol": steps["per-bounce"]["launches"]["bounce_replay_vol"],
+                     "bounce_bwd_vol": steps["per-bounce"]["launches"]["bounce_bwd_vol"]}
+    lap("(a)")
+
+    # ---- (b) each new kernel against its plain version on the main path's
+    # inputs: milky's iteration 0 at its full width (pixel = sample, 640,000
+    # lanes) and the wavefront's state after two bounces, vol_nee on as the
+    # steps of (a) run it; the vol_nee=False repeat on a 256x256 window
+    # around the milky sphere.  The times and bounds are the full width's.
+    params, static = diff.params_from_description(milky, 0, device=dev)
+    cfg = resolve_features(base, params.materials)
+    feats = frozenset(cfg.features)
+    seed = key_to_seed(prng_key(0))
+    f32 = dict(dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(0)
+    err = {k: 0.0 for k in engine_launch}
+    with torch.no_grad():
+        scene = diff.build_scene(params, static)
+        tables = [t.contiguous() for t in pack_tables(scene)]
+        w, h = static.resolution
+        n_full = w * h
+        pixel = torch.arange(n_full, dtype=torch.int64, device=dev)
+        rays_all = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, pixel))
+        _, gid = intersect_cuda.winner_t_gid_cuda(rays_all, tables[0])
+        scatterers = [g for g, m in enumerate(scene.geoms.material_id.tolist())
+                      if float(scene.materials.has_scatter[m]) > 0]
+        on_sphere = torch.isin(gid, torch.tensor(scatterers, device=dev))
+        on = on_sphere.nonzero()[:, 0]
+        cy, cx = int((on // w).float().median()), int((on % w).float().median())
+        half = GRAD_VOL_WINDOW // 2
+        y0, x0 = min(max(cy - half, 0), h - GRAD_VOL_WINDOW), min(max(cx - half, 0),
+                                                               w - GRAD_VOL_WINDOW)
+        window = ((torch.arange(GRAD_VOL_WINDOW, device=dev)[:, None] + y0) * w
+                  + torch.arange(GRAD_VOL_WINDOW, device=dev)[None, :] + x0).reshape(-1)
+        print(f"[grad:vol] (b) vol_nee=True on all {n_full} lanes, {int(on_sphere.sum())} of "
+              f"them on the milky sphere; vol_nee=False on {window.numel()} lanes at rows "
+              f"{y0}.., columns {x0}.., {int(on_sphere[window].sum())} of them on the sphere")
+
+        def lane_share(got, want):
+            close = torch.isclose(got.double(), want, rtol=1e-5, atol=1e-5).all(-1)
+            return float(close.double().mean())
+
+        def hold_adjoint(tag, got, ref, names, path):
+            """The tables at their bars, each lane component within rtol =
+            atol = 1e-5 of the float64 reference on 99.99% of lanes; the
+            worst lane of each component, and up to four lanes beyond the
+            bar with the path they took."""
+            shares = {}
+            for nm, g, rf in zip(("d_gtab", "d_mtab", "d_ltab", "d_scal"), got[:4], ref[:4]):
+                bar = 1e-4 * rf.abs() + 1e-6 * float(rf.abs().max())
+                ok = bool(torch.isfinite(g).all()) and bool(((g.double() - rf).abs() <= bar).all())
+                check(ok, f"{tag}: {nm} beyond 1e-4 of itself plus 1e-6 of its table's largest")
+            for nm, g, rf in zip(names, got[4:], ref[4:]):
+                check(bool(torch.isfinite(g).all()), f"{tag}: {nm} not finite")
+                shares[nm] = lane_share(g, rf)
+                excess = ((g.double() - rf).abs() / (1e-5 + 1e-5 * rf.abs())).amax(-1)
+                beyond = (excess > 1).nonzero()[:, 0]
+                i = int(excess.argmax())
+                print(f"[grad:check] {tag}: {nm} worst lane {i}: |kernel - float64| "
+                      f"{float((g[i].double() - rf[i]).abs().max()):.3g}, largest |component| "
+                      f"{float(rf[i].abs().max()):.4g}, {float(excess[i]):.3g} times the bar; "
+                      f"{beyond.numel()} lanes beyond it")
+                for j in beyond[:4].tolist():
+                    c = int((g[j].double() - rf[j]).abs().argmax())
+                    print(f"[grad:check] {tag}: {nm}[{c}] lane {j}: kernel {float(g[j, c]):.9g}, "
+                          f"float64 {float(rf[j, c]):.9g}; path {path(j)}")
+            worst = max(float((g.double() - rf).abs().max()) for g, rf in zip(got, ref))
+            print(f"[grad:check] {tag}: lanes within rtol = atol = 1e-5 of the float64 "
+                  f"reference {shares}; tables within their bars; max abs err {worst:.3g}")
+            check(min(shares.values()) >= 0.9999,
+                  f"{tag}: beyond 1e-5 of the float64 reference on > 0.01% of lanes")
+            return worst
+
+        timing_args = {}
+        for vol_nee, lanes in ((True, pixel), (False, window)):
+            n = lanes.numel()
+            o0, d0 = rays_all.origin[lanes].contiguous(), rays_all.direction[lanes].contiguous()
+            kw = dict(max_depth=depth, nee=True, rr=False, rr_start=base.rr_start,
+                      features=feats, vol_nee=vol_nee)
+            args = (*tables, seed, o0, d0, lanes)
+            rad_k, nr_k, res_k = trace_grad.tfwd_cuda(*args, **kw)
+            rad_t, nr_t = trace.trace_cuda(*args, **kw)
+            rad_p, nr_p, res_p = trace_grad.tfwd_plain(*args, **kw)
+            torch.cuda.synchronize()
+            same = torch.equal(rad_k, rad_p) and torch.equal(res_k, res_p)
+            print(f"[grad:check] 4v vol_nee={vol_nee}, {n} lanes: rays {int(nr_k)} (kernel 1v "
+                  f"{int(nr_t)}, plain {int(nr_p)}); radiance and all {res_k.shape[1]} residual "
+                  f"planes equal to plain: {same}; radiance equal to kernel 1v: "
+                  f"{torch.equal(rad_k, rad_t)}; lane-bounces in the medium "
+                  f"{int((res_k[:, trace_grad.R_SS] > 0).sum())}")
+            check(same and torch.equal(rad_k, rad_t) and int(nr_k) == int(nr_t) == int(nr_p),
+                  f"kernel 4v differs from its plain version (vol_nee={vol_nee})")
+            err["trace_fwd_resid_vol"] = max(err["trace_fwd_resid_vol"],
+                                             float((rad_k - rad_p).abs().max()))
+            del rad_t, rad_p, res_p
+            g_rad = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32)).to(dev)
+            bargs = (*tables, seed, lanes, res_k, g_rad)
+            got = trace_grad.tbwd_cuda(*bargs, **kw)
+            ref = trace_grad.tbwd_plain(*bargs, dtype=torch.float64, **kw)
+            torch.cuda.synchronize()
+            err["trace_bwd_vol"] = max(err["trace_bwd_vol"], hold_adjoint(
+                f"5v vol_nee={vol_nee}", got, ref, ("d_origin", "d_direction"),
+                lambda j: trace_grad.lane_events(tables[0], seed, lanes, res_k, j, feats)))
+            del ref
+            if vol_nee:
+                timing_args["4v"] = (args, kw, int(nr_k))
+                timing_args["5v"] = (bargs, kw, got)
+
+            # 2r-v and 3v: the primary rays, and the state after two bounces
+            # (the scan's carry update, the medium carried)
+            medium = torch.zeros((n, 4), **f32)
+            state = dict(origin=o0, direction=d0, throughput=torch.ones((n, 3), **f32),
+                         depth=torch.zeros(n, dtype=torch.int32, device=dev),
+                         prev=torch.zeros(n, **f32), medium=medium)
+            states = {"primary": state}
+            alive = torch.ones(n, dtype=torch.bool, device=dev)
+            for dep in range(2):
+                res = bounce_fused.bounce_fused_cuda(
+                    tables, state["origin"], state["direction"], state["throughput"], lanes, dep,
+                    state["prev"], state["medium"], seed, nee=True, features=feats,
+                    vol_nee=vol_nee)
+                alive = alive & ~res.terminate
+                a = alive[:, None]
+                state = dict(origin=torch.where(a, res.next_origin, state["origin"]),
+                             direction=torch.where(a, res.next_direction, state["direction"]),
+                             throughput=torch.where(a, state["throughput"] * res.throughput_mult,
+                                                    state["throughput"]),
+                             depth=torch.full((n,), dep + 1, dtype=torch.int32, device=dev),
+                             prev=res.was_specular, medium=res.next_medium)
+            states["after 2 bounces"] = state
+            for label, st in states.items():
+                args2 = (tables, st["origin"], st["direction"], st["throughput"], lanes,
+                         st["depth"], st["prev"])
+                rkw = dict(nee=True, features=feats, vol_nee=vol_nee)
+                got2, rgid, rnee = bounce_fused.bounce_fused_cuda(*args2, st["medium"], seed,
+                                                                  emit_replay=True, **rkw)
+                plain2, pgid, pnee = bounce_fused.bounce_fused_plain(*args2, st["medium"], seed,
+                                                                     emit_replay=True, **rkw)
+                torch.cuda.synchronize()
+                same = (torch.equal(rgid, pgid) and torch.equal(rnee, pnee)
+                        and all(torch.equal(getattr(got2, f.name), getattr(plain2, f.name))
+                                for f in dataclasses.fields(got2)))
+                for f in ("contrib", "next_origin", "next_direction", "throughput_mult"):
+                    err["bounce_replay_vol"] = max(err["bounce_replay_vol"], float(
+                        (getattr(got2, f) - getattr(plain2, f)).abs().max()))
+                in_med = int((st["medium"][:, 3] > 0).sum())
+                print(f"[grad:check] 2r-v vol_nee={vol_nee} {label}, {n} lanes: every output and "
+                      f"the replay planes equal to plain: {same}; {in_med} lanes in a scattering "
+                      f"medium, {int((rgid < 0).sum())} misses, {int(rnee.sum())} NEE "
+                      f"connections")
+                check(same, f"kernel 2r-v differs from its plain version ({label})")
+                cots = [torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32)).to(dev)
+                        for _ in range(4)]
+                g_med = torch.from_numpy(rng.standard_normal((n, 4)).astype(np.float32)).to(dev)
+                b2 = (*args2, rgid, rnee, *cots, seed)
+                bkw = dict(nee=True, features=feats, medium=st["medium"], g_medium=g_med,
+                           vol_nee=vol_nee)
+                got3 = bounce_grad.bounce_bwd_cuda(*b2, **bkw)
+                ref3 = bounce_grad.bounce_bwd_plain(*b2, dtype=torch.float64, **bkw)
+                torch.cuda.synchronize()
+
+                def path(j, st=st, rgid=rgid, rnee=rnee):
+                    return (f"sigma_s {float(st['medium'][j, 3]):.6g}, gid {int(rgid[j])}, "
+                            f"NEE bit {int(rnee[j])}")
+
+                err["bounce_bwd_vol"] = max(err["bounce_bwd_vol"], hold_adjoint(
+                    f"3v vol_nee={vol_nee} {label}", got3, ref3,
+                    ("d_origin", "d_direction", "d_throughput", "d_medium"), path))
+                del ref3
+                if vol_nee and label != "primary":
+                    timing_args["2r-v"] = (args2, st["medium"], rkw)
+                    timing_args["3v"] = (b2, bkw, got3)
+        lap("(b)")
+
+        # ---- times: each kernel's device time from the profiler, its plain
+        # version by CUDA events, its bound from this run's inputs
+        args, kw, nrays4 = timing_args["4v"]
+        bargs, _, got5 = timing_args["5v"]
+        args2, med2, rkw = timing_args["2r-v"]
+        b2, bkw, got3 = timing_args["3v"]
+        dev_ms = {}
+        dev_ms["4v"] = device_ms(lambda: trace_grad.tfwd_cuda(*args, **kw),
+                                 ["trace_fwd_kernel"])["trace_fwd_kernel"][0]
+        dev_ms["5v"] = device_ms(lambda: trace_grad.tbwd_cuda(*bargs, **kw),
+                                 ["trace_bwd_kernel"])["trace_bwd_kernel"][0]
+        dev_ms["2r-v"] = device_ms(lambda: bounce_fused.bounce_fused_cuda(
+            *args2, med2, seed, emit_replay=True, **rkw), ["bounce_kernel"])["bounce_kernel"][0]
+        dev_ms["3v"] = device_ms(lambda: bounce_grad.bounce_bwd_cuda(*b2, **bkw),
+                                 ["bounce_bwd_kernel"])["bounce_bwd_kernel"][0]
+        plain_ms = {
+            "4v": cuda_ms(lambda: trace_grad.tfwd_plain(*args, **kw), reps=1),
+            "5v": cuda_ms(lambda: trace_grad.tbwd_plain(*bargs, **kw), reps=1),
+            "2r-v": cuda_ms(lambda: bounce_fused.bounce_fused_plain(
+                *args2, med2, seed, emit_replay=True, **rkw), reps=1),
+            "3v": cuda_ms(lambda: bounce_grad.bounce_bwd_plain(*b2, **bkw), reps=1),
+        }
+    lap("(b) times")
+
+    types = scene.geoms.type.tolist()
+    sweep = sum(OPS_TO_OBJECT + (OPS_SPHERE if t == 0 else OPS_CUBE) for t in types)
+    table_bytes = sum(t.numel() * 4 for t in tables)
+    row_bytes = sum(t.numel() * 4 for t in got5[:4])
+
+    def bound(ops, nbytes):
+        t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+    lane_bounces, n = nrays4 // 2, n_full
+    adj = OPS_TO_OBJECT + min(OPS_SPHERE, OPS_CUBE) + OPS_SHADE + OPS_BWD_ADJOINT + OPS_BWD_VOL
+    planes = trace_grad.N_RESID_VOL
+    bounds = {
+        # origin, direction, sample in; radiance and the 17 planes per bounce out
+        "4v": bound(lane_bounces * (sweep + OPS_SHADE + OPS_VOL),
+                    n * (12 + 12 + 4 + 12) + depth * planes * n * 4 + table_bytes),
+        # the alive plane of every bounce, the other 16 planes of the live
+        # ones, sample and radiance cotangent in; d_origin, d_direction, the row out
+        "5v": bound(lane_bounces * adj, depth * n * 4 + lane_bounces * (planes - 1) * 4
+                    + n * (4 + 12 + 12 + 12) + table_bytes + row_bytes),
+        # 16 planes in (64 B); 20 float planes and a terminate byte out (81 B)
+        "2r-v": bound(n * (sweep + OPS_SHADE + OPS_VOL), n * (64 + 81) + table_bytes),
+        # o, d, thr, sample, depth, emit state, two replay planes, four [N, 3]
+        # cotangents, the medium and its cotangent in (136 B); d_o, d_d, d_thr,
+        # d_medium out (52 B); the tables and the row
+        "3v": bound(n * adj, n * (136 + 52) + table_bytes + row_bytes),
+    }
+
+    # ---- (c) fog at its 200x200 on the three engines
+    fog = load_scene(os.path.join(scenes_dir, "fog.txt"))
+    fog_steps = {name: grad_step(f"fog {name}", fog, cfg, expect)
+                 for name, (cfg, expect, _) in engines.items()}
+    hold_engines("fog", fog_steps)
+    lap("(c)")
+
+    # ---- (d) two lean steps: sss at 512x512 (the hg instance forward) and
+    # fog's cube around the icosphere (media in a mesh scene, 1m-vol forward)
+    sss = dataclasses.replace(load_scene(os.path.join(scenes_dir, "sss.txt")),
+                              resolution=VOL_RES)
+    grad_step("sss lean", sss, base, only(trace_hg=spp, winner=per, occlusion=per),
+              ("trace_kernel", "winner_kernel", "occlusion_kernel"))
+    fog_mesh = parse_scene_text(fog_mesh_scene(True), name="fog_mesh_glass", scene_dir=scenes_dir)
+    grad_step("fog_mesh_glass lean", fog_mesh, base,
+              only(trace_mesh_vol=spp, winner=per, occlusion=per, mesh_nearest=per,
+                   mesh_min=2 * per))
+    lap("(d)")
+
+    # ---- registers: the new instances, and the vacuum ones keep theirs
+    instances = ptxas_instances(reports)
+    regs = {
+        "4": instance_regs(instances, "trace_grad", "trace_fwd_kernel", False),
+        "4v": instance_regs(instances, "trace_grad", "trace_fwd_kernel", True),
+        "5": instance_regs(instances, "trace_grad", "trace_bwd_kernel", False),
+        "5v": instance_regs(instances, "trace_grad", "trace_bwd_kernel", True),
+        "3": instance_regs(instances, "bounce_grad", "bounce_bwd_kernel", False),
+        "3v": instance_regs(instances, "bounce_grad", "bounce_bwd_kernel", True),
+        "2r-v": instance_regs(instances, "bounce", "bounce_kernel", 0, 1, 0, 0, 0),
+    }
+    print(f"[grad:vol:regs] registers, spill store / load bytes per instance: {regs}")
+    # the vacuum instances' registers, pinned: 4 keeps its 72; 5 and 3 went
+    # from 156 and 140 to 148 and 136 when their light and winner adjoints
+    # were factored out for the media instances to share (PERF.md)
+    for key, want in (("4", 72), ("5", 148), ("3", 136)):
+        check(regs[key] is None or regs[key][0] == want,
+              f"Cornell's kernel {key} uses {regs[key]} registers, not {want}")
+    print(f"[card] {card}")
+    for key in ("4v", "5v", "2r-v", "3v"):
+        print(f"[grad:vol:time] kernel {key}: {dev_ms[key]:.4f} ms of device time at {n} lanes "
+              f"(plain {plain_ms[key]:.3f} ms), bound {bounds[key][0]:.4f} ms by "
+              f"{bounds[key][1]}; on {card}")
+
+    common = {"route": "cuda", "library_ms": None}
+    return [
+        {"name": name, **common, "source": f"pathtracer_tpu_torch/csrc/{src}",
+         "replaces": rep, "launches": engine_launch[name], "max_abs_err": err[name],
+         "ms": dev_ms[key], "plain_ms": plain_ms[key], "bound_ms": bounds[key][0],
+         "bound_by": bounds[key][1]}
+        for name, key, src, rep in (
+            ("trace_fwd_resid_vol", "4v", "trace_grad.cu", "pathtracer_tpu/ops/trace_grad.py:115"),
+            ("trace_bwd_vol", "5v", "trace_grad.cu", "pathtracer_tpu/ops/trace_grad.py:190"),
+            ("bounce_replay_vol", "2r-v", "bounce.cu", "pathtracer_tpu/ops/bounce_grad.py:226"),
+            ("bounce_bwd_vol", "3v", "bounce_grad.cu", "pathtracer_tpu/ops/bounce_grad.py:91"),
+        )
+    ]
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -2640,7 +3071,11 @@ def main() -> int:
     bigmesh_kernels = bigmesh_phase(dev, card, out_dir, reports)
     wall("[bigmesh]")
 
-    # ---- 13. results
+    # ---- 13. differentiable participating media
+    grad_vol_kernels = grad_vol_phase(dev, card, out_dir, reports)
+    wall("[grad:vol]")
+
+    # ---- 14. results
     kernels = [
         {
             "name": "trace",
@@ -2662,6 +3097,7 @@ def main() -> int:
         *vol_kernels,
         *surf_kernels,
         *bigmesh_kernels,
+        *grad_vol_kernels,
     ]
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

@@ -22,7 +22,9 @@
 // Participating media (the volumetric feature): the kVol / kHg instances
 // run pt::bounce's media blocks, reading the lane's medium and writing the
 // one its continuation travels through; the vacuum instance copies the
-// medium through.  The replay variant runs the vacuum instance only.
+// medium through.  The replay variant runs the vacuum and the kVol
+// instances (2r-v: the per-bounce differentiable engine's forward in media;
+// hg stays on the lean engine, as in JAX).
 //
 // The emit_replay variant (the forward of the per-bounce differentiable
 // engine, pathtracer_tpu/ops/bounce_grad.py:_fused_fwd_call) is the same

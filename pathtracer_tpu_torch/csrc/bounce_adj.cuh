@@ -311,6 +311,32 @@ PT_FN void bsdf_adj(const float* mat, int macc, V3 n_raw, V3 d_in, float u0, flo
   g_nraw = entering ? dadd(g_nraw, g_n) : dsub(g_nraw, g_n);
 }
 
+// The light sample's point lp = F lp_obj + f (light table rows 0..11 of
+// `lid`) and unit normal ln = normalize(Li^T ln_obj) (the light geom's
+// inverse rows, lnw before the normalize): their cotangents -> the tables'
+PT_FN void light_adj(const RowLayout& R, int lid, V3 lp_obj, V3 ln_obj, V3 lnw, D3 g_lp, D3 g_ln,
+                     float* acc) {
+  const D3 lpo = up(lp_obj), lno = up(ln_obj);
+  const int lacc = R.ol + lid * LCOLS;
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    const AD gi = dcomp(g_lp, i);
+    acc_d(acc, lacc + 4 * i + 0, gi * lpo.x);
+    acc_d(acc, lacc + 4 * i + 1, gi * lpo.y);
+    acc_d(acc, lacc + 4 * i + 2, gi * lpo.z);
+    acc_d(acc, lacc + 4 * i + 3, gi);
+  }
+  const D3 g_lnw = normalize_adj(lnw, g_ln);
+  const int gacc = lid * GCOLS;
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    const AD nj = dcomp(lno, j);
+    acc_d(acc, gacc + 4 * j + 0, g_lnw.x * nj);
+    acc_d(acc, gacc + 4 * j + 1, g_lnw.y * nj);
+    acc_d(acc, gacc + 4 * j + 2, g_lnw.z * nj);
+  }
+}
+
 // NEE connection that counted (its radiance cotangent g_rad) -> cotangents
 // of p, the normal, the throughput, and the material, light, geom and
 // scalar tables
@@ -345,7 +371,6 @@ PT_FN void nee_adj(const Tables& T, const RowLayout& R, const float* mat, int ma
   const AD sgn = sgn_f, dist = dist_f, rd = rd_f, cos_x = cos_x_f, cos_y = cos_y_f,
            md = md_f, cxy = cxy_f, gterm = gterm_f, ma = ma_f, mp = mp_f, ns = ns_f;
   const D3 n_shade = up(n_shade_f), tl = up(tl_f), wi = up(wi_f), ln = up(ln_f);
-  const D3 lpo = up(lp_obj), lno = up(ln_obj);
   const D3 emit = d3(L[13], L[14], L[15]);
   const D3 thr = up(thr_f);
   const D3 color = d3(mat[0], mat[1], mat[2]);
@@ -388,25 +413,7 @@ PT_FN void nee_adj(const Tables& T, const RowLayout& R, const float* mat, int ma
   g_p = dsub(g_p, g_tl);
   g_nsh = dsub(g_nsh, dscale((AD)RAY_BIAS, g_tl));
   g_normal = dadd(g_normal, dscale(sgn, g_nsh));
-  // lp = F lp_obj + f3 (light table rows 0..11)
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    const AD gi = dcomp(g_tl, i);
-    acc_d(acc, lacc + 4 * i + 0, gi * lpo.x);
-    acc_d(acc, lacc + 4 * i + 1, gi * lpo.y);
-    acc_d(acc, lacc + 4 * i + 2, gi * lpo.z);
-    acc_d(acc, lacc + 4 * i + 3, gi);
-  }
-  // ln = normalize(Li^T ln_obj) (the light geom's inverse rows)
-  const D3 g_lnw = normalize_adj(lnw, g_ln);
-  const int gacc = lid * GCOLS;
-#pragma unroll
-  for (int j = 0; j < 3; ++j) {
-    const AD nj = dcomp(lno, j);
-    acc_d(acc, gacc + 4 * j + 0, g_lnw.x * nj);
-    acc_d(acc, gacc + 4 * j + 1, g_lnw.y * nj);
-    acc_d(acc, gacc + 4 * j + 2, g_lnw.z * nj);
-  }
+  light_adj(R, lid, lp_obj, ln_obj, lnw, g_tl, g_ln, acc);
 }
 
 // ---- one replayed bounce ----------------------------------------------------
@@ -464,31 +471,15 @@ PT_FN void emission_adj(const float* mat, int macc, V3 thr, D3 g_contrib, D3& g_
   g_thr = dadd(g_thr, dmul(g_tc, color));
 }
 
-// The adjoint of bounce_physics(replay) alone, mask-free: the cotangents of
-// its outputs (contrib, next origin, next direction, throughput multiplier)
-// become those of its inputs, added to g_o, g_d, g_thr, and of the tables,
-// added to acc.  Every lane is defined: a miss differentiates p = o + d and
-// material 0's BSDF at the zero normal, a light hit its emission (when it
-// counted) and its own material's BSDF.  The medium passes through and is
-// not seen here.
-PT_FN void physics_adj(const Tables& T, const RowLayout& R, const Replay& r, uint32_t base,
-                       int dep, int nee, V3 o, V3 d, V3 thr, float prev_state, bool nee_add,
-                       D3 g_contrib, D3 g_next_o, D3 g_next_d, D3 g_thr_mult, D3& g_o, D3& g_d,
-                       D3& g_thr, float* acc) {
+// The winner's part of a replayed bounce's adjoint: the cotangents of the hit
+// point p, the unit normal and, with kT, of the winner's t itself (g_t_in:
+// the volumetric segment's attenuation) -> those of o, d and the winner's
+// geom row.  A miss (t = 1, zero normal) passes p's to o and d only.
+template <bool kT = false>
+PT_FN void winner_adj(const Replay& r, V3 o, V3 d, D3 g_p, D3 g_normal, D3& g_o, D3& g_d,
+                      float* acc, AD g_t_in = 0.0) {
   const float* gw = r.gw;
-  const int macc = R.om + r.mid * MCOLS;
-  if (r.hit && r.mat[9] > 0.0f && emission_counts(nee, dep, prev_state))
-    emission_adj(r.mat, macc, thr, g_contrib, g_thr, acc);
-
-  // ---- BSDF and NEE
   const D3 zero = d3(0.0, 0.0, 0.0);
-  D3 g_p = zero, g_normal = zero;
-  bsdf_adj(r.mat, macc, r.normal, d, uniform(base, 0), uniform(base, 1), uniform(base, 2),
-           g_thr_mult, g_next_o, g_next_d, g_p, g_normal, g_d, acc);
-  if (nee && nee_add)
-    nee_adj(T, R, r.mat, macc, r.p, r.normal, d, thr, uniform(base, 4), uniform(base, 5),
-            uniform(base, 6), uniform(base, 7), g_contrib, g_p, g_normal, g_thr, acc);
-
   // ---- normal = normalize(M3^T n_obj)
   const D3 g_nw = normalize_adj(r.nw, g_normal);
   const int gacc = r.gc * GCOLS;
@@ -510,7 +501,8 @@ PT_FN void physics_adj(const Tables& T, const RowLayout& R, const Replay& r, uin
   // ---- p_obj = oo + t od, p = o + t d, t of the winner (1 on a miss)
   D3 g_oo = g_pobj;
   D3 g_od = dscale(r.t, g_pobj);
-  const AD g_t = ddot(g_pobj, up(r.od)) + ddot(g_p, up(d));
+  AD g_t = ddot(g_pobj, up(r.od)) + ddot(g_p, up(d));
+  if constexpr (kT) g_t += g_t_in;
   g_o = dadd(g_o, g_p);
   g_d = dadd(g_d, dscale(r.t, g_p));
   if (!r.rhit) return;  // no winner: nothing reaches a geom row
@@ -536,6 +528,226 @@ PT_FN void physics_adj(const Tables& T, const RowLayout& R, const Replay& r, uin
   g_d = dadd(g_d, d3(gw[0] * g_od.x + gw[4] * g_od.y + gw[8] * g_od.z,
                      gw[1] * g_od.x + gw[5] * g_od.y + gw[9] * g_od.z,
                      gw[2] * g_od.x + gw[6] * g_od.y + gw[10] * g_od.z));
+}
+
+// The adjoint of bounce_physics(replay) alone, mask-free: the cotangents of
+// its outputs (contrib, next origin, next direction, throughput multiplier)
+// become those of its inputs, added to g_o, g_d, g_thr, and of the tables,
+// added to acc.  Every lane is defined: a miss differentiates p = o + d and
+// material 0's BSDF at the zero normal, a light hit its emission (when it
+// counted) and its own material's BSDF.  The medium passes through and is
+// not seen here.
+PT_FN void physics_adj(const Tables& T, const RowLayout& R, const Replay& r, uint32_t base,
+                       int dep, int nee, V3 o, V3 d, V3 thr, float prev_state, bool nee_add,
+                       D3 g_contrib, D3 g_next_o, D3 g_next_d, D3 g_thr_mult, D3& g_o, D3& g_d,
+                       D3& g_thr, float* acc) {
+  const int macc = R.om + r.mid * MCOLS;
+  if (r.hit && r.mat[9] > 0.0f && emission_counts(nee, dep, prev_state))
+    emission_adj(r.mat, macc, thr, g_contrib, g_thr, acc);
+
+  // ---- BSDF and NEE
+  const D3 zero = d3(0.0, 0.0, 0.0);
+  D3 g_p = zero, g_normal = zero;
+  bsdf_adj(r.mat, macc, r.normal, d, uniform(base, 0), uniform(base, 1), uniform(base, 2),
+           g_thr_mult, g_next_o, g_next_d, g_p, g_normal, g_d, acc);
+  if (nee && nee_add)
+    nee_adj(T, R, r.mat, macc, r.p, r.normal, d, thr, uniform(base, 4), uniform(base, 5),
+            uniform(base, 6), uniform(base, 7), g_contrib, g_p, g_normal, g_thr, acc);
+  winner_adj(r, o, d, g_p, g_normal, g_o, g_d, acc);
+}
+
+// ---- participating media (the kVol instances of kernels 3 and 5) -----------
+
+// The media part of a replayed bounce, recomputed in float as
+// pt::bounce<kVol> ran it (bounce_pallas.py:1140-1168): the exponential
+// free path, whether the lane scatters in the medium before its surface,
+// the segment travelled and its Beer-Lambert attenuation, and on a surface
+// event the BSDF sample.
+struct VolBounce {
+  float lnum;       // -log(clip(1 - u8)): the free path's numerator
+  float free_path;  // BIG in a medium that does not scatter
+  bool vs;          // an in-medium scatter before the surface
+  float seg;        // the segment travelled: the free path, the winner's t, 0 on a miss
+  V3 atten;         // exp(-sigma_a seg)
+  Scatter sc;       // the surface event's BSDF sample (unset where vs)
+  V3 thr_mult;      // atten, times sc.thr on a surface event
+};
+
+PT_FN VolBounce vol_bounce(const Replay& r, uint32_t base, V3 d, Medium med) {
+  VolBounce v;
+  v.lnum = -logf(fminf(fmaxf(1.0f - uniform(base, 8), 1e-7f), 1.0f));
+  v.free_path = med.s > 0.0f ? v.lnum / fmaxf(med.s, 1e-12f) : BIG;
+  v.vs = r.hit && v.free_path < r.t;
+  v.seg = v.vs ? v.free_path : (r.hit ? r.t : 0.0f);
+  v.atten = v3(expf(-med.a.x * v.seg), expf(-med.a.y * v.seg), expf(-med.a.z * v.seg));
+  v.thr_mult = v.atten;
+  if (!v.vs) {
+    v.sc = sample_bsdf(r.mat, r.p, r.normal, d, uniform(base, 0), uniform(base, 1),
+                       uniform(base, 2));
+    v.thr_mult = vmul(v.atten, v.sc.thr);
+  }
+  return v;
+}
+
+// Volumetric NEE at the scatter point o + fp d (bounce_pallas.py:1375-1450),
+// isotropic phase: the light connection and its split sweep recomputed in
+// float as pt::bounce ran them (the sweep detached: visibility is a
+// comparison, the boundary distance occ_re a constant), and where the term
+// counted the adjoint of
+//   contrib += phase cos_yv / max(d2v, 1e-12) / max(1 / max(area, 1e-20), 1e-20)
+//              * ((thr_a * exp(-(sigma_a + sigma_s) min(occ_re, distv))) * emit)
+// into the cotangents of o, d, the free path, the attenuated throughput,
+// the medium and the tables.
+PT_FN void vol_nee_adj(const Tables& T, const RowLayout& R, uint32_t base, V3 o, V3 d, float fp,
+                       V3 thr_a, Medium med, D3 g_rad, D3& g_o, D3& g_d, AD& g_fp, D3& g_thr_a,
+                       D3& g_sa, AD& g_ss, float* acc) {
+  V3 lp_obj, ln_obj;
+  const int lid = sample_light_obj(T.g, T.l, T.G, uniform(base, 4), uniform(base, 5),
+                                   uniform(base, 6), uniform(base, 7), lp_obj, ln_obj);
+  const float* L = T.l + lid * LCOLS;
+  const V3 lnw = world_normal_raw(T.g + lid * GCOLS, ln_obj);
+  const V3 ln = vnormalize(lnw);
+  const V3 vol_pos = vadd(o, vscale(fp, d));
+  const V3 to_l = vsub(light_position(L, lp_obj), vol_pos);
+  const float d2v = vdot(to_l, to_l);
+  const float distv = sqrtf(fmaxf(d2v, 1e-12f));
+  const float rd = 1.0f / distv;
+  const V3 wiv = vscale(rd, to_l);
+  const float cos_yv = -vdot(ln, wiv);
+  if (!(cos_yv > 0.0f)) return;
+  float occ_op, occ_re;
+  occ_split(T, vol_pos, wiv, occ_op, occ_re);
+  if (!(occ_op >= distv - SHADOW_SLACK)) return;
+  const float seg_v = fminf(occ_re, distv);
+  const V3 sig_t = v3(med.a.x + med.s, med.a.y + med.s, med.a.z + med.s);
+  const V3 transmit = v3(expf(-sig_t.x * seg_v), expf(-sig_t.y * seg_v), expf(-sig_t.z * seg_v));
+  const float md = fmaxf(d2v, 1e-12f);
+  const float ma = fmaxf(T.total_area, 1e-20f);
+  const float pdf = 1.0f / ma;
+  const float mp = fmaxf(pdf, 1e-20f);
+  const float a1 = INV_FOUR_PI * cos_yv;
+  const float a2 = a1 / md;
+  const float scale_v = a2 / mp;
+  const V3 tt = vmul(thr_a, transmit);
+  const V3 emit = v3(L[13], L[14], L[15]);
+
+  // contrib = scale_v * (tt * emit), tt = thr_a * transmit
+  const AD g_scale = ddot(g_rad, up(vmul(tt, emit)));
+  const D3 g_tt = dmul(dscale(scale_v, g_rad), up(emit));
+  const int lacc = R.ol + lid * LCOLS;
+  acc_d(acc, lacc + 13, scale_v * g_rad.x * tt.x);
+  acc_d(acc, lacc + 14, scale_v * g_rad.y * tt.y);
+  acc_d(acc, lacc + 15, scale_v * g_rad.z * tt.z);
+  g_thr_a = dadd(g_thr_a, dmul(g_tt, up(transmit)));
+  const D3 g_tr = dmul(g_tt, up(thr_a));
+  // transmit = exp(-sig_t seg_v), sig_t = sigma_a + sigma_s
+  const D3 e = dmul(g_tr, up(transmit));
+  const D3 g_sig = dscale(-(AD)seg_v, e);
+  g_sa = dadd(g_sa, g_sig);
+  g_ss += g_sig.x + g_sig.y + g_sig.z;
+  const AD g_segv = -ddot(e, up(sig_t));
+  // seg_v = min(occ_re, distv), occ_re detached
+  AD g_occ = 0.0, g_distv = 0.0;
+  min_adj(occ_re, distv, g_segv, g_occ, g_distv);
+  // scale_v = ((phase cos_yv) / md) / mp, mp = max(1 / max(area, 1e-20), 1e-20)
+  const AD g_a2 = g_scale / mp;
+  const AD g_a1 = g_a2 / md;
+  AD g_d2v = d2v >= 1e-12f ? -g_a2 * a1 / ((AD)md * md) : 0.0;
+  const AD g_cos = g_a1 * (AD)INV_FOUR_PI;
+  if (pdf >= 1e-20f && T.total_area >= 1e-20f) {
+    const AD g_mp = -g_scale * a2 / ((AD)mp * mp);
+    acc_d(acc, R.os + 0, -g_mp / ((AD)ma * ma));
+  }
+  // cos_yv = -ln . wiv
+  const D3 g_ln = dscale(-g_cos, up(wiv));
+  const D3 g_wiv = dscale(-g_cos, up(ln));
+  // wiv = (1 / distv) to_l, distv = sqrt(max(d2v, 1e-12)), d2v = to_l . to_l
+  D3 g_tl = dscale(rd, g_wiv);
+  g_distv -= ddot(g_wiv, up(to_l)) / ((AD)distv * distv);
+  if (d2v >= 1e-12f) g_d2v += g_distv * 0.5 / distv;
+  g_tl = dadd(g_tl, dscale(2.0 * g_d2v, up(to_l)));
+  // to_l = lp - vol_pos, vol_pos = o + fp d
+  g_o = dsub(g_o, g_tl);
+  g_d = dsub(g_d, dscale(fp, g_tl));
+  g_fp -= ddot(g_tl, up(d));
+  light_adj(R, lid, lp_obj, ln_obj, lnw, g_tl, g_ln, acc);
+}
+
+// The adjoint of bounce_physics(replay) with the volumetric feature
+// (kernels 3v and 5v), mask-free as physics_adj: the cotangents of contrib,
+// the next origin and direction, the throughput multiplier and the medium
+// entered (g_ma, g_ms) become those of o, d, thr, the medium (g_sa, g_ss;
+// added) and the tables.  A lane that scatters in the medium
+// differentiates its free path (through the scatter point, the
+// attenuation and the volumetric NEE); its direction comes from uniforms
+// alone.  A surface event differentiates physics_adj's terms at the
+// attenuated throughput, the attenuation over the winner's t and the
+// medium switch of a transmission.  Only the branch the lane took is
+// differentiated, so the 0 * inf of a 1e30 free path never arises.
+// `bsdf` false skips the BSDF sample and the medium switch (kernel 5 on a
+// light hit, whose continuation has no cotangent).  The replay planes are
+// the forward's: nee_add is 0 on a lane that scatters.
+PT_FN void physics_adj_vol(const Tables& T, const RowLayout& R, const Replay& r,
+                           const VolBounce& v, uint32_t base, int dep, int nee, int vol_nee, V3 o,
+                           V3 d, V3 thr, Medium med, float prev_state, bool nee_add, bool bsdf,
+                           D3 g_contrib, D3 g_next_o, D3 g_next_d, D3 g_thr_mult, D3 g_ma,
+                           AD g_ms, D3& g_o, D3& g_d, D3& g_thr, D3& g_sa, AD& g_ss, float* acc) {
+  const D3 zero = d3(0.0, 0.0, 0.0);
+  const V3 thr_a = vmul(thr, v.atten);  // the throughput the bounce's terms see
+  D3 g_thr_a = zero, g_atten = zero, g_p = zero, g_normal = zero;
+  AD g_fp = 0.0;
+  const int macc = R.om + r.mid * MCOLS;
+  if (!v.vs) {
+    if (r.hit && r.mat[9] > 0.0f && emission_counts(nee, dep, prev_state))
+      emission_adj(r.mat, macc, thr_a, g_contrib, g_thr_a, acc);
+    if (bsdf) {
+      // thr_mult = atten * sc.thr
+      g_atten = dmul(g_thr_mult, up(v.sc.thr));
+      bsdf_adj(r.mat, macc, r.normal, d, uniform(base, 0), uniform(base, 1), uniform(base, 2),
+               dmul(g_thr_mult, up(v.atten)), g_next_o, g_next_d, g_p, g_normal, g_d, acc);
+      // the medium entered: the material's on a transmission inwards (its
+      // absorption, has_scatter * scatter_coeff), vacuum outwards, else
+      // the same
+      if (!v.sc.transmitted) {
+        g_sa = dadd(g_sa, g_ma);
+        g_ss += g_ms;
+      } else if (v.sc.entering) {
+        acc_d(acc, macc + 11, g_ma.x);
+        acc_d(acc, macc + 12, g_ma.y);
+        acc_d(acc, macc + 13, g_ma.z);
+        acc_d(acc, macc + 14, g_ms * r.mat[15]);
+        acc_d(acc, macc + 15, g_ms * r.mat[14]);
+      }
+    }
+    if (nee && nee_add)
+      nee_adj(T, R, r.mat, macc, r.p, r.normal, d, thr_a, uniform(base, 4), uniform(base, 5),
+              uniform(base, 6), uniform(base, 7), g_contrib, g_p, g_normal, g_thr_a, acc);
+  } else {
+    // next origin: the scatter point o + fp d; the medium stays
+    g_o = dadd(g_o, g_next_o);
+    g_d = dadd(g_d, dscale(v.free_path, g_next_o));
+    g_fp += ddot(g_next_o, up(d));
+    g_atten = g_thr_mult;
+    g_sa = dadd(g_sa, g_ma);
+    g_ss += g_ms;
+    if (nee && vol_nee && T.any_light)
+      vol_nee_adj(T, R, base, o, d, v.free_path, thr_a, med, g_contrib, g_o, g_d, g_fp, g_thr_a,
+                  g_sa, g_ss, acc);
+  }
+  // thr_a = thr * atten, atten = exp(-sigma_a seg)
+  g_thr = dadd(g_thr, dmul(g_thr_a, up(v.atten)));
+  g_atten = dadd(g_atten, dmul(g_thr_a, up(thr)));
+  const D3 ga = dmul(g_atten, up(v.atten));
+  g_sa = dsub(g_sa, dscale(v.seg, ga));
+  const AD g_seg = -ddot(ga, up(med.a));
+  if (v.vs) {
+    // seg = fp = lnum / max(sigma_s, 1e-12)
+    g_fp += g_seg;
+    const float ms = fmaxf(med.s, 1e-12f);
+    if (med.s >= 1e-12f) g_ss -= g_fp * v.lnum / ((AD)ms * ms);
+  } else {
+    winner_adj<true>(r, o, d, g_p, g_normal, g_o, g_d, acc, r.hit ? g_seg : 0.0);
+  }
 }
 
 }  // namespace pt

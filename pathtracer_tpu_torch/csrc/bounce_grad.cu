@@ -16,9 +16,16 @@
 // too) in double at the float forward's recomputed values, and writes
 // d_origin, d_direction and d_throughput ([N, 3] each).  No sweep and no
 // shadow ray run: the winner and the NEE bit are replayed, since both are
-// comparisons and carry no cotangent.  The medium passes through the bounce
-// unchanged in the port's vacuum scenes, so its cotangent passes through in
-// the wrapper and this kernel neither reads nor writes medium planes.
+// comparisons and carry no cotangent.  In vacuum the medium passes through
+// the bounce unchanged, so its cotangent passes through in the wrapper and
+// the vacuum instance neither reads nor writes medium planes.  The kVol
+// instance (kernel 3v, participating media; its forward is kernel 2's kVol
+// instance with the replay planes, 2r-v) takes JAX's plane set
+// (bounce_grad.py:97-117): the medium [N, 4] (sigma_a rgb, sigma_s) and the
+// cotangent of the medium entered [N, 4] in, the medium's cotangent [N, 4]
+// out, and runs bounce_adj.cuh's physics_adj_vol (the free path, the
+// in-medium scatter, the attenuation, the medium switch and the volumetric
+// NEE with its split sweep run again in float), which kernel 5v runs too.
 //
 // Output contract: mask-free, as kernel 2's.  For any cotangents on any
 // lane, misses and light hits included, the outputs are the adjoint of the
@@ -51,8 +58,9 @@
 
 namespace pt {
 
-// one lane of kernel 3; also compiled as host C++ by
+// one lane of kernel 3 (kVol: 3v); also compiled as host C++ by
 // tests/kernel_host_harness.cpp
+template <bool kVol = false>
 PT_FN void bounce_bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, int nee, size_t i,
                            const float* __restrict__ origin, const float* __restrict__ direction,
                            const float* __restrict__ thr, const uint32_t* __restrict__ sample,
@@ -63,7 +71,9 @@ PT_FN void bounce_bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, i
                            const float* __restrict__ g_next_d,
                            const float* __restrict__ g_thr_mult, float* __restrict__ d_origin,
                            float* __restrict__ d_direction, float* __restrict__ d_thr,
-                           float* acc) {
+                           float* acc, int vol_nee = 1, const float* __restrict__ medium = nullptr,
+                           const float* __restrict__ g_medium = nullptr,
+                           float* __restrict__ d_medium = nullptr) {
   const V3 o = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
   const V3 d = v3(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
   const V3 t = v3(thr[3 * i], thr[3 * i + 1], thr[3 * i + 2]);
@@ -75,8 +85,24 @@ PT_FN void bounce_bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, i
   const D3 gnd = d3(g_next_d[3 * i], g_next_d[3 * i + 1], g_next_d[3 * i + 2]);
   const D3 gtm = d3(g_thr_mult[3 * i], g_thr_mult[3 * i + 1], g_thr_mult[3 * i + 2]);
   D3 g_o = d3(0.0, 0.0, 0.0), g_d = g_o, g_t = g_o;
-  physics_adj(T, R, r, base, dep, nee, o, d, t, prev[i], replay_nee[i] > 0.5f, gc, gno, gnd, gtm,
-              g_o, g_d, g_t, acc);
+  if constexpr (kVol) {
+    const float* mi = medium + 4 * i;
+    const float* gm = g_medium + 4 * i;
+    const Medium med{v3(mi[0], mi[1], mi[2]), mi[3], 0.0f};
+    D3 g_sa = g_o;
+    AD g_ss = 0.0;
+    physics_adj_vol(T, R, r, vol_bounce(r, base, d, med), base, dep, nee, vol_nee, o, d, t, med,
+                    prev[i], replay_nee[i] > 0.5f, true, gc, gno, gnd, gtm, d3(gm[0], gm[1], gm[2]),
+                    gm[3], g_o, g_d, g_t, g_sa, g_ss, acc);
+    float* dm = d_medium + 4 * i;
+    dm[0] = (float)g_sa.x;
+    dm[1] = (float)g_sa.y;
+    dm[2] = (float)g_sa.z;
+    dm[3] = (float)g_ss;
+  } else {
+    physics_adj(T, R, r, base, dep, nee, o, d, t, prev[i], replay_nee[i] > 0.5f, gc, gno, gnd,
+                gtm, g_o, g_d, g_t, acc);
+  }
   const D3* vec[3] = {&g_o, &g_d, &g_t};
   float* out[3] = {d_origin, d_direction, d_thr};
   for (int k = 0; k < 3; ++k) {
@@ -96,6 +122,7 @@ using namespace pt;
 
 constexpr int THREADS = 128;
 
+template <bool kVol>
 __global__ void __launch_bounds__(THREADS)
 bounce_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mtab, int M,
                   const float* __restrict__ ltab, const float* __restrict__ scal, uint32_t seed,
@@ -107,7 +134,8 @@ bounce_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict
                   const float* __restrict__ g_next_o, const float* __restrict__ g_next_d,
                   const float* __restrict__ g_thr_mult, float* __restrict__ d_origin,
                   float* __restrict__ d_direction, float* __restrict__ d_thr,
-                  float* __restrict__ partial) {
+                  float* __restrict__ partial, int vol_nee, const float* __restrict__ medium,
+                  const float* __restrict__ g_medium, float* __restrict__ d_medium) {
   extern __shared__ float smem[];
   const RowLayout R = row_layout(G, M);
   float* s_acc = smem + table_floats(G, M);
@@ -119,9 +147,10 @@ bounce_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict
 
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx < n)  // lanes past n contribute nothing
-    bounce_bwd_lane(T, R, seed, nee, (size_t)idx, origin, direction, thr, sample, depth, prev,
-                    replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult, d_origin,
-                    d_direction, d_thr, s_acc);
+    bounce_bwd_lane<kVol>(T, R, seed, nee, (size_t)idx, origin, direction, thr, sample, depth,
+                          prev, replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult,
+                          d_origin, d_direction, d_thr, s_acc, vol_nee, medium, g_medium,
+                          d_medium);
   __syncthreads();
   for (int i = threadIdx.x; i < R.k; i += blockDim.x)
     partial[(size_t)blockIdx.x * R.k + i] = s_acc[i];
@@ -140,20 +169,23 @@ extern "C" int bounce_bwd_launch(const float* gtab, int G, const float* mtab, in
                                  const float* replay_nee, const float* g_contrib,
                                  const float* g_next_o, const float* g_next_d,
                                  const float* g_thr_mult, float* d_origin, float* d_direction,
-                                 float* d_thr, float* partial, float* row, void* stream) {
+                                 float* d_thr, float* partial, float* row, int vol, int vol_nee,
+                                 const float* medium, const float* g_medium, float* d_medium,
+                                 void* stream) {
   const RowLayout R = row_layout(G, M);
   const int blocks = bounce_bwd_blocks(n);
   if (n <= 0) return (int)cudaMemsetAsync(row, 0, sizeof(float) * R.k, (cudaStream_t)stream);
   const size_t smem = sizeof(float) * (table_floats(G, M) + R.k);
+  const auto kernel = vol ? bounce_bwd_kernel<true> : bounce_bwd_kernel<false>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        bounce_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  bounce_bwd_kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       gtab, G, mtab, M, ltab, scal, seed, nee, n, origin, direction, thr, sample, depth, prev,
       replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult, d_origin, d_direction,
-      d_thr, partial);
+      d_thr, partial, vol_nee, medium, g_medium, d_medium);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   block_row_sum<<<(R.k + ROW_SUM_THREADS - 1) / ROW_SUM_THREADS, ROW_SUM_THREADS, 0,

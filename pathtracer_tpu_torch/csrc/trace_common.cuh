@@ -679,6 +679,25 @@ PT_FN LightSample light_sample(const Tables& T, uint32_t base) {
   return ls;
 }
 
+// Volumetric NEE's shadow ray, split (ops/intersect.py:occlusion_split_t):
+// the nearest refractive geom or mesh bounds the attenuated segment
+// (occ_re), the nearest other one blocks (occ_op); BIG for none.
+PT_FN void occ_split(const Tables& T, V3 x, V3 wi, float& occ_op, float& occ_re) {
+  occ_op = BIG;
+  occ_re = BIG;
+  for (int g = 0; g < T.G; ++g) {
+    const float* m = T.g + g * GCOLS;
+    V3 oo, od;
+    to_object(m, x, wi, oo, od);
+    const float t = geom_t(m, oo, od);
+    if (T.m[(int)m[13] * MCOLS + 7] > 0.0f)
+      occ_re = fminf(occ_re, t);
+    else
+      occ_op = fminf(occ_op, t);
+  }
+  if (T.mesh.n > 0) mesh_occ_split(T.g, T.m, T.mesh, x, wi, occ_op, occ_re);
+}
+
 // One bounce of a lane at depth `dep` with emit state `prev_state`.
 //
 // kMaskFree = false (the trace loops): a lane that terminates here (miss or
@@ -971,20 +990,8 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
     const V3 wiv = vscale(1.0f / distv, to_l);
     const float cos_yv = -vdot(ls.ln, wiv);
     if (cos_yv > 0.0f) {
-      // the occlusion split: refractive geoms bound the segment, the rest
-      // block (ops/intersect.py:occlusion_split_t)
-      float occ_op = BIG, occ_re = BIG;
-      for (int g = 0; g < T.G; ++g) {
-        const float* m = T.g + g * GCOLS;
-        V3 oo, od;
-        to_object(m, vol_pos, wiv, oo, od);
-        const float t = geom_t(m, oo, od);
-        if (T.m[(int)m[13] * MCOLS + 7] > 0.0f)
-          occ_re = fminf(occ_re, t);
-        else
-          occ_op = fminf(occ_op, t);
-      }
-      if (T.mesh.n > 0) mesh_occ_split(T.g, T.m, T.mesh, vol_pos, wiv, occ_op, occ_re);
+      float occ_op, occ_re;
+      occ_split(T, vol_pos, wiv, occ_op, occ_re);
       if (occ_op >= distv - SHADOW_SLACK) {
         const float seg_v = fminf(occ_re, distv);
         const V3 transmit = v3(expf(-(med.a.x + med.s) * seg_v), expf(-(med.a.y + med.s) * seg_v),

@@ -12,7 +12,11 @@
 // outcomes the bounce resolved, stored lane-contiguous as resid[depth][13][n]
 // (planes o(3) d(3) thr(3) prev_state alive gid nee_add).  A lane that has
 // died stores the carries it died with, alive 0, gid -1 and NEE bit 0.
-// The scenes are vacuum: no medium carries are stored.
+// The kVol instance (kernel 4v, participating media) runs
+// pt::bounce_step<kVol>, carries the medium and stores JAX's 17 planes,
+// resid[depth][17][n]: o(3) d(3) thr(3) sigma_a(3) sigma_s prev_state alive
+// gid nee_add (trace_grad.py:74-76); a dead lane's medium is the one it
+// died in.
 //
 // trace_bwd_kernel: one thread per lane walks the bounces from depth-1 down
 // to 0.  A dead bounce is the identity on the carry cotangents and adds
@@ -27,6 +31,16 @@
 // the emission under the emit-state code, the sampled directions (Lambert
 // through the tangent frame, mirror, Phong glossy, Fresnel dielectric) and
 // the NEE connection (light position, light normal, emission, total area).
+// The kVol instance (kernel 5v) reads the 17 planes and runs the medium's
+// adjoint too (bounce_adj.cuh's physics_adj_vol): the free path and the
+// in-medium scatter, the Beer-Lambert attenuation over the segment (on a
+// light hit too: its emission is attenuated), the medium switch of a
+// transmission and the volumetric NEE, whose split sweep it runs again in
+// float as the forward did (only the surface NEE bit is replayed); the
+// cotangents of sigma_a and sigma_s flow back through the medium carry
+// (next medium = out medium where the lane lives on, the old one where it
+// died) to the material table's absorption, has_scatter and
+// scatter_coeff columns.  vol_nee reaches both kernels.
 // The table cotangents of a block's lanes go into a shared-memory row with
 // float atomics (their order within the block is not fixed: the row varies
 // in its last bits from run to run); block_row_sum then sums the per-block
@@ -34,14 +48,15 @@
 //
 // What bounds them on the H100: the forward moves 40 B per lane plus 52 B
 // per lane and bounce of residuals (266 MB per 640,000-lane iteration at
-// depth 8, ~0.08 ms at 3.35 TB/s) against the trace kernel's two sweeps per
-// bounce.  The reverse reads the alive plane of every bounce and the other
-// 12 planes of a live one, and replays one intersection per live bounce,
-// but its adjoint is several times the forward's shading arithmetic, and
-// its shared-memory atomics serialize where a block's lanes hit the same
-// geom.  This first version keeps the bounce loop rolled and the state in
-// registers; ptxas reports its registers and spills in chip_smoke.py's
-// build phase.
+// depth 8, ~0.08 ms at 3.35 TB/s; 68 B with the medium planes) against the
+// trace kernel's two sweeps per bounce.  The reverse reads the alive plane
+// of every bounce and the other 12 (16) planes of a live one, and replays
+// one intersection per live bounce, but its adjoint is several times the
+// forward's shading arithmetic (5v also re-runs the volumetric NEE's split
+// sweep at a scatter), and its shared-memory atomics serialize where a
+// block's lanes hit the same geom.  This first version keeps the bounce loop
+// rolled and the state in registers; ptxas reports its registers and
+// spills in chip_smoke.py's build phase.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -52,22 +67,30 @@
 
 namespace pt {
 
-constexpr int N_RESID = 13;
-constexpr int R_O = 0, R_D = 3, R_THR = 6, R_STATE = 9, R_ALIVE = 10, R_GID = 11, R_NEE = 12;
+// residual planes per bounce: o(3) d(3) thr(3) [sigma_a(3) sigma_s] prev_state
+// alive gid nee_add
+constexpr int R_O = 0, R_D = 3, R_THR = 6, R_SA = 9, R_SS = 12;
+template <bool kVol>
+constexpr int N_RESID = kVol ? 17 : 13;
+template <bool kVol>
+constexpr int R_STATE = N_RESID<kVol> - 4;  // the emit-state plane; alive, gid, nee_add follow
 
 // ---- forward with residuals -----------------------------------------------
 
+template <bool kVol = false>
 PT_FN void fwd_lane(const Tables& T, uint32_t seed, uint32_t s, V3 o, V3 d, int max_depth,
                     int nee, int rr, int rr_start, bool valid, float* resid, size_t n,
-                    size_t idx, V3& rad, unsigned int& bounces) {
+                    size_t idx, V3& rad, unsigned int& bounces, int vol_nee = 1) {
+  constexpr int NR = N_RESID<kVol>, RS = R_STATE<kVol>;
   V3 thr = v3(1.0f, 1.0f, 1.0f);
   float prev_state = 0.0f;
+  Medium med{};
   bool alive = valid;
   const uint32_t s_term = s * 0x85EBCA6Bu;
   for (int dep = 0; dep < max_depth; ++dep) {
     int gid = -1;
     bool nee_add = false;
-    float* r = resid + (size_t)dep * N_RESID * n + idx;
+    float* r = resid + (size_t)dep * NR * n + idx;
     if (valid) {
       r[(R_O + 0) * n] = o.x;
       r[(R_O + 1) * n] = o.y;
@@ -78,17 +101,27 @@ PT_FN void fwd_lane(const Tables& T, uint32_t seed, uint32_t s, V3 o, V3 d, int 
       r[(R_THR + 0) * n] = thr.x;
       r[(R_THR + 1) * n] = thr.y;
       r[(R_THR + 2) * n] = thr.z;
-      r[R_STATE * n] = prev_state;
-      r[R_ALIVE * n] = alive ? 1.0f : 0.0f;
+      if constexpr (kVol) {
+        r[(R_SA + 0) * n] = med.a.x;
+        r[(R_SA + 1) * n] = med.a.y;
+        r[(R_SA + 2) * n] = med.a.z;
+        r[R_SS * n] = med.s;
+      }
+      r[RS * n] = prev_state;
+      r[(RS + 1) * n] = alive ? 1.0f : 0.0f;
     }
     if (alive) {
       ++bounces;
-      bounce_step(T, bounce_base(seed, s_term, dep), dep, nee, rr, rr_start, o, d, thr,
-                  prev_state, rad, alive, gid, nee_add);
+      if constexpr (kVol)
+        bounce_step<true>(T, bounce_base(seed, s_term, dep), dep, nee, rr, rr_start, o, d, thr,
+                          prev_state, rad, alive, gid, nee_add, &med, vol_nee);
+      else
+        bounce_step(T, bounce_base(seed, s_term, dep), dep, nee, rr, rr_start, o, d, thr,
+                    prev_state, rad, alive, gid, nee_add);
     }
     if (valid) {
-      r[R_GID * n] = (float)gid;
-      r[R_NEE * n] = nee_add ? 1.0f : 0.0f;
+      r[(RS + 2) * n] = (float)gid;
+      r[(RS + 3) * n] = nee_add ? 1.0f : 0.0f;
     }
   }
 }
@@ -143,23 +176,82 @@ PT_FN void bounce_adj(const Tables& T, const RowLayout& R, uint32_t base, int de
   g_thr = g_thr_in;
 }
 
+// One live bounce in reverse with the volumetric feature (kernel 5v): as
+// bounce_adj, and the medium's cotangents g_sa, g_ss chained like the other
+// carries'.  A miss adds nothing; a light hit reached without an in-medium
+// scatter ends the path with its emission, attenuated over the winner's t.
+PT_FN void bounce_adj_vol(const Tables& T, const RowLayout& R, uint32_t base, int dep, int nee,
+                          int vol_nee, int rr, int rr_start, V3 o, V3 d, V3 thr, Medium med,
+                          float prev_state, int gid, bool nee_add, D3 g_rad, D3& g_o, D3& g_d,
+                          D3& g_thr, D3& g_sa, AD& g_ss, float* acc) {
+  if (gid < 0) return;  // miss: the path ends, the carries pass through
+  const Replay r = replay_bounce(T, o, d, gid);
+  const VolBounce v = vol_bounce(r, base, d, med);
+  const D3 zero = d3(0.0, 0.0, 0.0);
+  if (!v.vs && r.mat[9] > 0.0f) {
+    // light hit: the carries pass through, the emission counts (or not)
+    physics_adj_vol(T, R, r, v, base, dep, nee, vol_nee, o, d, thr, med, prev_state, false,
+                    false, g_rad, zero, zero, zero, zero, 0.0, g_o, g_d, g_thr, g_sa, g_ss, acc);
+    return;
+  }
+
+  // ---- step_update: thr2 = (thr * mult) [* 1/p]; the next o, d, medium if
+  // it survives, the old ones if russian roulette ends it
+  const V3 tm = vmul(thr, v.thr_mult);
+  bool survive = true;
+  AD inv_p = 1.0;
+  if (rr && dep >= rr_start) {
+    const float p_rr = fminf(fmaxf(fmaxf(fmaxf(tm.x, tm.y), tm.z), 0.05f), 1.0f);
+    survive = uniform(base, 3) < p_rr;
+    inv_p = 1.0f / p_rr;
+  }
+  const D3 g_tm = dscale(inv_p, g_thr);
+  D3 g_thr_in = dmul(g_tm, up(v.thr_mult));
+  const D3 g_mult = dmul(g_tm, up(thr));
+  D3 g_o_in = survive ? zero : g_o, g_d_in = survive ? zero : g_d;
+  D3 g_sa_in = survive ? zero : g_sa;
+  AD g_ss_in = survive ? 0.0 : g_ss;
+  physics_adj_vol(T, R, r, v, base, dep, nee, vol_nee, o, d, thr, med, prev_state, nee_add, true,
+                  g_rad, survive ? g_o : zero, survive ? g_d : zero, g_mult,
+                  survive ? g_sa : zero, survive ? g_ss : 0.0, g_o_in, g_d_in, g_thr_in, g_sa_in,
+                  g_ss_in, acc);
+  g_o = g_o_in;
+  g_d = g_d_in;
+  g_thr = g_thr_in;
+  g_sa = g_sa_in;
+  g_ss = g_ss_in;
+}
+
 // the reverse loop of one lane: its origin and direction cotangents
+template <bool kVol = false>
 PT_FN void bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, uint32_t s,
                     const float* resid, size_t n, size_t idx, int max_depth, int nee, int rr,
-                    int rr_start, V3 g_rad_f, V3& g_o_out, V3& g_d_out, float* acc) {
+                    int rr_start, V3 g_rad_f, V3& g_o_out, V3& g_d_out, float* acc,
+                    int vol_nee = 1) {
+  constexpr int NR = N_RESID<kVol>, RS = R_STATE<kVol>;
   const uint32_t s_term = s * 0x85EBCA6Bu;
   const D3 g_rad = up(g_rad_f);
   D3 g_thr = d3(0.0, 0.0, 0.0);
   D3 g_o = g_thr, g_d = g_thr;  // the loop's final carries are discarded
+  D3 g_sa = g_thr;
+  AD g_ss = 0.0;
   for (int dep = max_depth - 1; dep >= 0; --dep) {
-    const float* r = resid + (size_t)dep * N_RESID * n + idx;
-    if (!(r[R_ALIVE * n] > 0.5f)) continue;  // dead: identity, no table cotangent
+    const float* r = resid + (size_t)dep * NR * n + idx;
+    if (!(r[(RS + 1) * n] > 0.5f)) continue;  // dead: identity, no table cotangent
     const V3 o = v3(r[(R_O + 0) * n], r[(R_O + 1) * n], r[(R_O + 2) * n]);
     const V3 d = v3(r[(R_D + 0) * n], r[(R_D + 1) * n], r[(R_D + 2) * n]);
     const V3 thr = v3(r[(R_THR + 0) * n], r[(R_THR + 1) * n], r[(R_THR + 2) * n]);
-    bounce_adj(T, R, bounce_base(seed, s_term, dep), dep, nee, rr, rr_start, o, d, thr,
-               r[R_STATE * n], (int)r[R_GID * n], r[R_NEE * n] > 0.5f, g_rad, g_o, g_d, g_thr,
-               acc);
+    const uint32_t base = bounce_base(seed, s_term, dep);
+    if constexpr (kVol) {
+      const Medium med{v3(r[(R_SA + 0) * n], r[(R_SA + 1) * n], r[(R_SA + 2) * n]), r[R_SS * n],
+                       0.0f};
+      bounce_adj_vol(T, R, base, dep, nee, vol_nee, rr, rr_start, o, d, thr, med, r[RS * n],
+                     (int)r[(RS + 2) * n], r[(RS + 3) * n] > 0.5f, g_rad, g_o, g_d, g_thr, g_sa,
+                     g_ss, acc);
+    } else {
+      bounce_adj(T, R, base, dep, nee, rr, rr_start, o, d, thr, r[RS * n], (int)r[(RS + 2) * n],
+                 r[(RS + 3) * n] > 0.5f, g_rad, g_o, g_d, g_thr, acc);
+    }
   }
   g_o_out = v3((float)g_o.x, (float)g_o.y, (float)g_o.z);
   g_d_out = v3((float)g_d.x, (float)g_d.y, (float)g_d.z);
@@ -176,13 +268,14 @@ using namespace pt;
 constexpr int FWD_THREADS = 128;
 constexpr int BWD_THREADS = 128;
 
+template <bool kVol>
 __global__ void __launch_bounds__(FWD_THREADS)
 trace_fwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mtab, int M,
                  const float* __restrict__ ltab, const float* __restrict__ scal, uint32_t seed,
                  const float* __restrict__ origin, const float* __restrict__ direction,
                  const uint32_t* __restrict__ sample, int n, float* __restrict__ radiance,
                  unsigned long long* __restrict__ nrays, float* __restrict__ resid,
-                 int max_depth, int nee, int rr, int rr_start) {
+                 int max_depth, int nee, int rr, int rr_start, int vol_nee) {
   extern __shared__ float smem[];
   load_tables(smem, gtab, G, mtab, M, ltab);
   __syncthreads();
@@ -199,8 +292,8 @@ trace_fwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict_
     s = sample[idx];
   }
   unsigned int bounces = 0;
-  fwd_lane(T, seed, s, o, d, max_depth, nee, rr, rr_start, valid, resid, (size_t)n,
-           (size_t)(valid ? idx : 0), rad, bounces);
+  fwd_lane<kVol>(T, seed, s, o, d, max_depth, nee, rr, rr_start, valid, resid, (size_t)n,
+                 (size_t)(valid ? idx : 0), rad, bounces, vol_nee);
   if (valid) {
     radiance[3 * idx] = rad.x;
     radiance[3 * idx + 1] = rad.y;
@@ -212,13 +305,14 @@ trace_fwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict_
   if ((threadIdx.x & 31) == 0 && c) atomicAdd(nrays, c);
 }
 
+template <bool kVol>
 __global__ void __launch_bounds__(BWD_THREADS)
 trace_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mtab, int M,
                  const float* __restrict__ ltab, const float* __restrict__ scal, uint32_t seed,
                  const uint32_t* __restrict__ sample, int n, const float* __restrict__ resid,
                  const float* __restrict__ g_radiance, float* __restrict__ d_origin,
                  float* __restrict__ d_direction, float* __restrict__ partial, int max_depth,
-                 int nee, int rr, int rr_start) {
+                 int nee, int rr, int rr_start, int vol_nee) {
   extern __shared__ float smem[];
   const RowLayout R = row_layout(G, M);
   float* s_acc = smem + G * GCOLS + M * MCOLS + G * LCOLS;
@@ -232,8 +326,8 @@ trace_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict_
   if (idx < n) {  // lanes past n contribute nothing
     const V3 g_rad = v3(g_radiance[3 * idx], g_radiance[3 * idx + 1], g_radiance[3 * idx + 2]);
     V3 g_o, g_d;
-    bwd_lane(T, R, seed, sample[idx], resid, (size_t)n, (size_t)idx, max_depth, nee, rr,
-             rr_start, g_rad, g_o, g_d, s_acc);
+    bwd_lane<kVol>(T, R, seed, sample[idx], resid, (size_t)n, (size_t)idx, max_depth, nee, rr,
+                   rr_start, g_rad, g_o, g_d, s_acc, vol_nee);
     d_origin[3 * idx] = g_o.x;
     d_origin[3 * idx + 1] = g_o.y;
     d_origin[3 * idx + 2] = g_o.z;
@@ -253,13 +347,14 @@ extern "C" int trace_fwd_launch(const float* gtab, int G, const float* mtab, int
                                 const float* origin, const float* direction,
                                 const unsigned int* sample, int n, float* radiance,
                                 unsigned long long* nrays, float* resid, int max_depth, int nee,
-                                int rr, int rr_start, void* stream) {
+                                int rr, int rr_start, int vol, int vol_nee, void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + FWD_THREADS - 1) / FWD_THREADS;
   const size_t smem = sizeof(float) * table_floats(G, M);
-  trace_fwd_kernel<<<blocks, FWD_THREADS, smem, (cudaStream_t)stream>>>(
+  const auto kernel = vol ? trace_fwd_kernel<true> : trace_fwd_kernel<false>;
+  kernel<<<blocks, FWD_THREADS, smem, (cudaStream_t)stream>>>(
       gtab, G, mtab, M, ltab, scal, seed, origin, direction, sample, n, radiance, nrays, resid,
-      max_depth, nee, rr, rr_start);
+      max_depth, nee, rr, rr_start, vol_nee);
   return (int)cudaGetLastError();
 }
 
@@ -271,19 +366,20 @@ extern "C" int trace_bwd_launch(const float* gtab, int G, const float* mtab, int
                                 const unsigned int* sample, int n, const float* resid,
                                 const float* g_radiance, float* d_origin, float* d_direction,
                                 float* partial, float* row, int max_depth, int nee, int rr,
-                                int rr_start, void* stream) {
+                                int rr_start, int vol, int vol_nee, void* stream) {
   const RowLayout R = row_layout(G, M);
   const int blocks = trace_bwd_blocks(n);
   if (n <= 0) return (int)cudaMemsetAsync(row, 0, sizeof(float) * R.k, (cudaStream_t)stream);
   const size_t smem = sizeof(float) * (table_floats(G, M) + R.k);
+  const auto kernel = vol ? trace_bwd_kernel<true> : trace_bwd_kernel<false>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(
-        trace_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  trace_bwd_kernel<<<blocks, BWD_THREADS, smem, (cudaStream_t)stream>>>(
+  kernel<<<blocks, BWD_THREADS, smem, (cudaStream_t)stream>>>(
       gtab, G, mtab, M, ltab, scal, seed, sample, n, resid, g_radiance, d_origin, d_direction,
-      partial, max_depth, nee, rr, rr_start);
+      partial, max_depth, nee, rr, rr_start, vol_nee);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   block_row_sum<<<(R.k + ROW_SUM_THREADS - 1) / ROW_SUM_THREADS, ROW_SUM_THREADS, 0,

@@ -40,9 +40,9 @@ sinusoidal bump of the shading normal, ``:1121-1138``; ``microfacet`` and
 JAX's order: texture before the bump, the bump before the free path, the
 emittance, NEE and the BSDF.  ``tex_defer`` adds the deferred image texel's
 UV and atlas slot (``:1076-1119``, with the polynomial ``atan2_planes`` /
-``asin_planes`` of ``:580-605``).  The differentiable engines refuse media
-and the surface features (:func:`check_diff_features`).  ``glossy`` is not
-gated in the JAX kernel either.
+``asin_planes`` of ``:580-605``).  The differentiable engines take media
+and refuse the surface features (:func:`check_diff_features`).  ``glossy``
+is not gated in the JAX kernel either.
 """
 
 from __future__ import annotations
@@ -77,8 +77,13 @@ SUPPORTED_FEATURES = frozenset(
     {"glossy", "volumetric", "hg", "texture", "bump", "microfacet", "ward"})
 # the optional surface blocks, compiled into the kernels' kSurf instance
 SURFACE_FEATURES = ("texture", "bump", "microfacet", "ward")
-# features the differentiable engines model: vacuum transport, base lobes
-DIFF_FEATURES = frozenset({"glossy"})
+# features the differentiable engines model: the base lobes and
+# participating media; the fused engines (kernels 4 and 5, 2r and 3) take
+# no Henyey-Greenstein phase, as in JAX, the lean engine takes it
+DIFF_FEATURES = {
+    "fused": frozenset({"glossy", "volumetric"}),
+    "lean": frozenset({"glossy", "volumetric", "hg"}),
+}
 
 
 def check_features(features, supported=SUPPORTED_FEATURES, what="the bounce physics") -> None:
@@ -87,11 +92,17 @@ def check_features(features, supported=SUPPORTED_FEATURES, what="the bounce phys
         raise NotImplementedError(f"feature(s) {', '.join(missing)} of {what}: later slice")
 
 
-def check_diff_features(features) -> None:
-    """The differentiable entry points' gate: the forward models
-    participating media and the surface features, their gradients are a
-    later slice."""
-    check_features(features, DIFF_FEATURES, "the differentiable engines")
+def check_diff_features(features, engine: str) -> None:
+    """The differentiable engines' gate: ``engine`` is ``"fused"`` (the
+    full-depth and per-bounce engines) or ``"lean"``.  The surface
+    features' gradients are a later slice; ``hg`` runs on the lean engine
+    only (``render/diff`` sends such scenes there)."""
+    lean_only = sorted((set(features) - DIFF_FEATURES[engine]) & DIFF_FEATURES["lean"])
+    if lean_only:
+        raise NotImplementedError(
+            f"feature(s) {', '.join(lean_only)} of the fused differentiable engines: the lean "
+            "engine (RenderConfig(grad_fused=False)) differentiates them")
+    check_features(features, DIFF_FEATURES[engine], "the differentiable engines")
 
 
 # ---------------------------------------------------------------------------
@@ -506,7 +517,10 @@ def bounce_physics(
     them back as ``replay={"gid", "nee_add"}`` recomputes only the winner's
     intersection and skips the shadow sweep.  Both are comparisons, so the
     gradients are those of the sweep, and the recompute gives the sweep's
-    values bit for bit.
+    values bit for bit.  Only the surface NEE is replayed: with
+    ``volumetric`` the free path and the in-medium scatter follow from the
+    recomputed winner, and the volumetric NEE's detached split sweep runs
+    again, as JAX's vjp re-runs it (``:1375-1411``).
 
     ``mesh`` is the scene's ``ops/mesh_tables.KernelMeshes`` (or None): the
     in-kernel triangle sweep, as the module docstring says.  It takes no
@@ -559,8 +573,6 @@ def bounce_physics(
     if (mesh is not None or mesh_in is not None) and (replay is not None or emit_replay):
         raise NotImplementedError("winner replay of mesh scenes: later slice")
     has_vol = "volumetric" in features  # "hg" without "volumetric" is inert
-    if has_vol and (replay is not None or emit_replay):
-        raise NotImplementedError("winner replay of volumetric media: later slice")
     hg = has_vol and "hg" in features
     if hg and medium_g is None:
         raise ValueError("the hg feature needs the medium's phase g (medium_g)")
@@ -749,12 +761,12 @@ def bounce_physics(
         out["tex_out"] = tex_out
     if deferred is not None:
         out["nee_deferred"] = deferred
+    if emit_replay:
+        zero = torch.zeros_like(o[0])
+        out["replay_gid"] = torch.where(hit, gid.to(torch.float32), -1.0)
+        out["replay_nee_add"] = torch.where(add, 1.0, zero) if add is not None else zero
     if not has_vol:
         # vacuum transport: surface events only, the medium passes through
-        if emit_replay:
-            zero = torch.zeros_like(o[0])
-            out["replay_gid"] = torch.where(hit, gid.to(torch.float32), -1.0)
-            out["replay_nee_add"] = torch.where(add, 1.0, zero) if add is not None else zero
         return out
 
     # ---- in-medium scatter: the continuation from the scatter point

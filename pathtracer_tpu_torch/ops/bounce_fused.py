@@ -18,7 +18,8 @@ code, BSDF continuation, and NEE with a shadow sweep.
   it also returns the winner geom as a float (-1 on a miss) and the NEE
   bit, the planes kernel 3 (``ops/bounce_grad.py``) replays.  On the card
   it is the same kernel with two more output pointers, counted in
-  ``replay_launches``.
+  ``replay_launches`` (``replay_vol_launches`` for its volumetric instance,
+  2r-v).
 * :func:`bounce_fused` dispatches on the rays' device: a CUDA tensor
   launches the kernel or raises, a CPU tensor takes the plain version.
 
@@ -29,7 +30,8 @@ triangles for its nearest hit and its shadow ray.  Participating media
 (sigma_a rgb, sigma_s) or ``[N, 5]`` with the phase g when ``hg`` is on
 (:func:`medium_width`; ``bounce_pallas.py:1485-1488,1661,1737``), and the
 kernel runs its ``kVol`` / ``kHg`` instance; in vacuum the medium passes
-through.  The replay variant stays in vacuum.  The surface features
+through.  The replay variant runs in vacuum and in ``volumetric`` media
+without ``hg`` (the per-bounce differentiable engine's scope, as in JAX).  The surface features
 (``texture``, ``bump``, ``microfacet``, ``ward``) run the kernel's ``kSurf``
 instance (``surf_launches``).  A scene with image textures runs the
 deferred-texel variant (``bounce_pallas.py:1076-1119,1772-1793``): both
@@ -85,7 +87,8 @@ from pathtracer_tpu_torch.ops.trace import (
 launches = 0  # launches of csrc/bounce.cu in this process, analytic vacuum scenes
 vol_launches = 0  # launches of its volumetric instance (analytic scenes)
 hg_launches = 0  # launches of its volumetric instance with the HG phase
-replay_launches = 0  # launches of its emit_replay variant
+replay_launches = 0  # launches of its emit_replay variant, vacuum scenes
+replay_vol_launches = 0  # launches of its emit_replay variant's volumetric instance (2r-v)
 mesh_launches = 0  # launches of its variant with in-kernel mesh tables, media or not
 surf_launches = 0  # launches of its surface instances (no deferred texel), any mesh or media
 tex_launches = 0  # launches of its deferred-texel variant (surface blocks, any media case)
@@ -262,7 +265,7 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
     """Launch kernel 2 on the rays' CUDA device, on the current stream
     (``csrc/bounce.cu``, or with ``mesh_in`` ``csrc/bounce_merge.cu``);
     the arguments and the result as in :func:`bounce_fused_plain`."""
-    global launches, replay_launches, mesh_launches, vol_launches, hg_launches
+    global launches, replay_launches, replay_vol_launches, mesh_launches, vol_launches, hg_launches
     global surf_launches, tex_launches, mesh_tex_launches, merge_launches
     check_features(features)
     _check_variants(emit_replay, tex_defer, mesh, mesh_in, mesh_uv)
@@ -272,8 +275,9 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
     media = media_args(features, vol_nee)
     surf = surface_bits(features)
     width = _checked_width(medium_sigma, media[1])
-    if media[0] and emit_replay:
-        raise NotImplementedError("winner replay of volumetric media: later slice")
+    if media[1] and emit_replay:
+        raise NotImplementedError("winner replay of the hg instance: the lean engine "
+                                  "differentiates Henyey-Greenstein media")
     g, m, bits = check_launch(gtab, mtab, ltab, scal, sample_idx, n, device)
     f32 = dict(dtype=torch.float32, device=device)
     depth = _per_lane_depth(depth, n, device)
@@ -322,7 +326,10 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
                        throughput_mult=thr_mult, terminate=terminate.view(torch.bool),
                        was_specular=wspec, rr_uniform=rru, next_medium=medium)
     if emit_replay:
-        replay_launches += 1
+        if media[0]:
+            replay_vol_launches += 1
+        else:
+            replay_launches += 1
         return (res, *replay)
     if mesh_in is not None:
         merge_launches += 1

@@ -24,11 +24,14 @@ for that bounce alone.
   continuation and throughput multiplier carry gradients to the tables and
   the carries.
 
-The medium passes through the bounce in the port's vacuum scenes, so it
-stays outside the Function: ``next_medium`` is ``medium_sigma`` itself and
-its cotangent passes through as JAX's kernel passes it (zero in the scans,
-whose medium starts as a constant).  Volumetric media raise, as the other
-optional blocks do.
+The medium ``[N, 4]`` (sigma_a rgb, sigma_s) is an input and
+``next_medium`` an output of the Function, as in JAX's kernel pair
+(``bounce_grad.py:97-117``).  With ``volumetric`` the forward is kernel 2's
+volumetric instance with replay planes (2r-v) and the backward kernel 3's
+(3v), which takes the medium and its output cotangent and returns the
+medium's cotangent; in vacuum the medium passes through the bounce, and so
+does its cotangent.  ``hg`` raises: the lean engine differentiates it, as
+in JAX.
 
 Output contract of both backwards: mask-free, as kernel 2's forward.  Any
 cotangents on any lane, misses and light hits included, give the adjoint of
@@ -60,16 +63,21 @@ from pathtracer_tpu_torch.ops.trace_grad import (
     split_grad_row,
 )
 
-launches = 0  # launches of csrc/bounce_grad.cu (its kernel and its block sum)
+launches = 0  # launches of csrc/bounce_grad.cu (its kernel and its block sum), vacuum scenes
+vol_launches = 0  # launches of its volumetric instance (3v)
 
 
 def bounce_bwd_plain(tables, origin, direction, throughput, sample_idx, depth, prev_specular,
                      replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult,
-                     seed: int, *, nee: bool, features=frozenset(), dtype=torch.float32):
+                     seed: int, *, nee: bool, features=frozenset(), medium=None, g_medium=None,
+                     vol_nee: bool = True, dtype=torch.float32):
     """Plain version of kernel 3: ``(d_gtab, d_mtab, d_ltab, d_scal,
     d_origin [N, 3], d_direction [N, 3], d_throughput [N, 3])`` of one
     bounce, from the cotangents of its contribution, next origin, next
-    direction and throughput multiplier (``[N, 3]`` each).
+    direction and throughput multiplier (``[N, 3]`` each).  With
+    ``volumetric`` in ``features`` it also takes the ``medium`` ``[N, 4]``
+    and its output's cotangent ``g_medium`` ``[N, 4]``, and returns
+    ``d_medium`` ``[N, 4]`` last.
 
     ``dtype=torch.float64`` returns the float64 reference: the bounce's
     values are the float32 bounce's own (``ops/trace_grad._Float32Values``)
@@ -78,28 +86,36 @@ def bounce_bwd_plain(tables, origin, direction, throughput, sample_idx, depth, p
     if dtype not in (torch.float32, torch.float64):
         raise ValueError(f"dtype must be float32 or float64, got {dtype}")
     values = _Float32Values() if dtype == torch.float64 else contextlib.nullcontext()
+    vol = "volumetric" in features
     tabs = [t.detach().to(dtype).requires_grad_(True) for t in tables]
+    carries = (origin, direction, throughput) + ((medium,) if vol else ())
     leaves = [x[:, k].detach().to(dtype).requires_grad_(True)
-              for x in (origin, direction, throughput) for k in range(3)]
+              for x in carries for k in range(x.shape[1])]
     depth = _per_lane_depth(depth, origin.shape[0], origin.device)
     u = hash_uniforms_planes(seed, sample_idx, depth, 11)
     zero = torch.zeros_like(leaves[0])
+    sigma_a, sigma_s = (tuple(leaves[9:12]), leaves[12]) if vol else ((zero,) * 3, zero)
     replay = {"gid": replay_gid.to(dtype), "nee_add": replay_nee.to(dtype)}
     with torch.enable_grad():
         with values:
             out = bounce_physics(
-                tuple(leaves[0:3]), tuple(leaves[3:6]), tuple(leaves[6:9]), (zero,) * 3, zero,
+                tuple(leaves[0:3]), tuple(leaves[3:6]), tuple(leaves[6:9]), sigma_a, sigma_s,
                 *tabs, u, depth, prev_specular.to(dtype), nee=nee, t_min=T_MIN,
-                features=features, replay=replay,
+                features=features, replay=replay, vol_nee=vol_nee,
             )
-        cots = [g.to(dtype)[:, k] for g in (g_contrib, g_next_o, g_next_d, g_thr_mult)
-                for k in range(3)]
-        grads = torch.autograd.grad(
-            [c for key in ("contrib", "next_o", "next_d", "thr_mult") for c in out[key]],
-            [*tabs, *leaves], grad_outputs=cots, allow_unused=True,
-        )
+        outs = [c for key in ("contrib", "next_o", "next_d", "thr_mult") for c in out[key]]
+        g_outs = (g_contrib, g_next_o, g_next_d, g_thr_mult)
+        if vol:
+            outs += [*out["out_ma"], out["out_ms"]]
+            g_outs += (g_medium,)
+        cots = [g.to(dtype)[:, k] for g in g_outs for k in range(g.shape[1])]
+        grads = torch.autograd.grad(outs, [*tabs, *leaves], grad_outputs=cots,
+                                    allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, tabs + leaves)]
-    return (*grads[:4], *(torch.stack(grads[4 + 3 * i:7 + 3 * i], dim=-1) for i in range(3)))
+    d_carries = [torch.stack(grads[4 + 3 * i:7 + 3 * i], dim=-1) for i in range(3)]
+    if vol:
+        d_carries.append(torch.stack(grads[13:17], dim=-1))
+    return (*grads[:4], *d_carries)
 
 
 def _lib():
@@ -115,6 +131,7 @@ def _lib():
             P, P, P, P,  # cotangents: contrib, next origin, next direction, thr mult
             P, P, P,  # d_origin, d_direction, d_throughput
             P, P,  # block partials, table row
+            I, I, P, P, P,  # volumetric, vol_nee; medium, its cotangent, d_medium (null: vacuum)
             P,  # stream
         ]
         lib.bounce_bwd_blocks.restype = ctypes.c_int
@@ -124,10 +141,14 @@ def _lib():
 
 def bounce_bwd_cuda(tables, origin, direction, throughput, sample_idx, depth, prev_specular,
                     replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult,
-                    seed: int, *, nee: bool):
-    """Launch kernel 3 and its fixed-order block sum on the rays' CUDA
-    device, on the current stream: what :func:`bounce_bwd_plain` returns."""
-    global launches
+                    seed: int, *, nee: bool, features=frozenset(), medium=None, g_medium=None,
+                    vol_nee: bool = True):
+    """Launch kernel 3 (3v with ``volumetric``) and its fixed-order block
+    sum on the rays' CUDA device, on the current stream: what
+    :func:`bounce_bwd_plain` returns."""
+    global launches, vol_launches
+    check_diff_features(features, "fused")
+    vol = "volumetric" in features
     gtab, mtab, ltab, scal = tables
     device = origin.device
     n = origin.shape[0]
@@ -143,6 +164,12 @@ def bounce_bwd_cuda(tables, origin, direction, throughput, sample_idx, depth, pr
                            (g_next_d, "next direction cotangent", (n, 3)),
                            (g_thr_mult, "throughput multiplier cotangent", (n, 3))):
         check_tensor(t, name, f32, shape, device)
+    med = (None, None, None)
+    if vol:
+        check_tensor(medium, "medium", f32, (n, 4), device)
+        check_tensor(g_medium, "medium cotangent", f32, (n, 4), device)
+        d_m = torch.empty((n, 4), dtype=f32, device=device)
+        med = (medium.data_ptr(), g_medium.data_ptr(), d_m.data_ptr())
 
     lib = _lib()
     k = grad_row_len(g, m)
@@ -156,75 +183,87 @@ def bounce_bwd_cuda(tables, origin, direction, throughput, sample_idx, depth, pr
         depth.data_ptr(), prev.data_ptr(), replay_gid.data_ptr(), replay_nee.data_ptr(),
         g_contrib.data_ptr(), g_next_o.data_ptr(), g_next_d.data_ptr(), g_thr_mult.data_ptr(),
         d_o.data_ptr(), d_d.data_ptr(), d_t.data_ptr(), partial.data_ptr(), row.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream,
+        int(vol), int(bool(vol_nee)), *med, torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"bounce backward kernel launch failed: CUDA error {err}")
+    if vol:
+        vol_launches += 1
+        return (*split_grad_row(row, g, m), d_o, d_d, d_t, d_m)
     launches += 1
     return (*split_grad_row(row, g, m), d_o, d_d, d_t)
 
 
 class BounceDiff(torch.autograd.Function):
     """One bounce with kernel 3 as its backward: ``(contrib, next_origin,
-    next_direction, throughput_mult, terminate, was_specular, rr_uniform,
-    replay_gid, replay_nee_add)``; the last five are not differentiable.
-    ``opts`` holds ``nee`` and ``features``."""
+    next_direction, throughput_mult, next_medium, terminate, was_specular,
+    rr_uniform, replay_gid, replay_nee_add)``; the last five are not
+    differentiable.  ``opts`` holds ``nee``, ``features`` and ``vol_nee``."""
 
     @staticmethod
-    def forward(ctx, gtab, mtab, ltab, scal, origin, direction, throughput, sample_idx, depth,
-                prev_specular, seed, opts):
-        n = origin.shape[0]
-        depth = _per_lane_depth(depth, n, origin.device)
-        medium = torch.zeros((n, 4), dtype=torch.float32, device=origin.device)
+    def forward(ctx, gtab, mtab, ltab, scal, origin, direction, throughput, medium, sample_idx,
+                depth, prev_specular, seed, opts):
+        depth = _per_lane_depth(depth, origin.shape[0], origin.device)
         args = ((gtab, mtab, ltab, scal), origin, direction, throughput, sample_idx, depth,
                 prev_specular, medium, seed)
+        kw = dict(nee=opts["nee"], features=opts["features"], vol_nee=opts["vol_nee"],
+                  emit_replay=True)
         if origin.device.type == "cuda":
-            res, rgid, rnee = bounce_fused_cuda(*args, nee=opts["nee"], emit_replay=True)
+            res, rgid, rnee = bounce_fused_cuda(*args, **kw)
         elif origin.device.type == "cpu":
-            res, rgid, rnee = bounce_fused_plain(*args, nee=opts["nee"],
-                                                 features=opts["features"], emit_replay=True)
+            res, rgid, rnee = bounce_fused_plain(*args, **kw)
         else:
             raise ValueError(f"no differentiable bounce for device {origin.device}")
         ctx.save_for_backward(gtab, mtab, ltab, scal, origin, direction, throughput, sample_idx,
-                              depth, prev_specular, rgid, rnee)
+                              depth, prev_specular, rgid, rnee, medium)
         ctx.seed, ctx.opts = seed, opts
         terminate = res.terminate.clone()  # a view of the kernel's byte plane
         ctx.mark_non_differentiable(terminate, res.was_specular, res.rr_uniform, rgid, rnee)
         return (res.contrib, res.next_origin, res.next_direction, res.throughput_mult,
-                terminate, res.was_specular, res.rr_uniform, rgid, rnee)
+                res.next_medium, terminate, res.was_specular, res.rr_uniform, rgid, rnee)
 
     @staticmethod
-    def backward(ctx, g_contrib, g_next_o, g_next_d, g_thr_mult, *_):
-        saved = ctx.saved_tensors
+    def backward(ctx, g_contrib, g_next_o, g_next_d, g_thr_mult, g_medium, *_):
+        *saved, medium = ctx.saved_tensors
+        g_medium = torch.zeros_like(medium) if g_medium is None else g_medium.contiguous()
         args = ((*saved[:4],), *saved[4:],
                 *(g.contiguous() for g in (g_contrib, g_next_o, g_next_d, g_thr_mult)), ctx.seed)
-        if saved[4].device.type == "cuda":
-            grads = bounce_bwd_cuda(*args, nee=ctx.opts["nee"])
-        else:
-            grads = bounce_bwd_plain(*args, nee=ctx.opts["nee"], features=ctx.opts["features"])
-        return (*grads, None, None, None, None, None)
+        opts = ctx.opts
+        kw = dict(nee=opts["nee"], features=opts["features"], vol_nee=opts["vol_nee"])
+        if "volumetric" in opts["features"]:
+            kw.update(medium=medium, g_medium=g_medium)
+        bwd = bounce_bwd_cuda if medium.device.type == "cuda" else bounce_bwd_plain
+        grads = bwd(*args, **kw)
+        if "volumetric" not in opts["features"]:
+            grads = (*grads, g_medium)  # vacuum: the medium passes through the bounce
+        d_gtab, d_mtab, d_ltab, d_scal, d_o, d_d, d_t, d_m = grads
+        return (d_gtab, d_mtab, d_ltab, d_scal, d_o, d_d, d_t, d_m, None, None, None, None,
+                None)
 
 
 def bounce_fused_diff(scene, origin, direction, throughput, sample_idx, depth, prev_specular,
                       medium_sigma, seed: int, cfg, tables=None) -> BounceResult:
     """Differentiable bounce (``bounce_grad.py:348``): forward kernel 2 with
-    replay planes, backward kernel 3 (their plain versions on the CPU).
-    ``tables`` are :func:`pack_tables` of the scene, whose graph carries
-    the table cotangents on to the scene's tensors."""
-    check_diff_features(cfg.features)
+    replay planes, backward kernel 3 (their plain versions on the CPU), the
+    volumetric instances with ``volumetric``.  ``tables`` are
+    :func:`pack_tables` of the scene, whose graph carries the table
+    cotangents on to the scene's tensors."""
+    check_diff_features(cfg.features, "fused")
     if not fused_diff_eligible(scene, cfg):
         raise NotImplementedError(
-            "differentiable bounce of meshes, image textures, HG media or fast_rng=False: "
+            "the per-bounce differentiable engine takes no meshes, image textures or HG media (the "
+            "lean engine, RenderConfig(grad_fused=False), runs them) and no fast_rng=False: "
             "later slice"
         )
     gtab, mtab, ltab, scal = tables if tables is not None else pack_tables(scene)
     if medium_sigma is None:
         medium_sigma = torch.zeros((origin.shape[0], 4), dtype=torch.float32,
                                    device=origin.device)
-    opts = dict(nee=cfg.nee, features=frozenset(cfg.features))
-    out = BounceDiff.apply(gtab, mtab, ltab, scal, origin, direction, throughput, sample_idx,
-                           depth, prev_specular, int(seed), opts)
+    opts = dict(nee=cfg.nee, features=frozenset(cfg.features), vol_nee=cfg.vol_nee)
+    out = BounceDiff.apply(gtab, mtab, ltab, scal, origin, direction, throughput,
+                           medium_sigma.contiguous(), sample_idx, depth, prev_specular,
+                           int(seed), opts)
     return BounceResult(
         contrib=out[0], next_origin=out[1], next_direction=out[2], throughput_mult=out[3],
-        terminate=out[4], was_specular=out[5], rr_uniform=out[6], next_medium=medium_sigma,
+        next_medium=out[4], terminate=out[5], was_specular=out[6], rr_uniform=out[7],
     )

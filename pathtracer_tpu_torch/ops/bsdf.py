@@ -57,11 +57,36 @@ class MaterialLookup:
     phase_g: torch.Tensor  # [N]
 
 
+class _GatherRows(torch.autograd.Function):
+    """``torch.index_select(table, 0, idx)`` whose backward adds the lanes'
+    cotangents into their rows with ``index_add_`` in float64 and rounds
+    once.  Hundreds of thousands of lanes share a row: added in float32
+    (``index_select``'s own backward, atomics on the card) they round at
+    every add, in an order that changes from run to run."""
+
+    @staticmethod
+    def forward(ctx, table, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return torch.index_select(table, 0, idx)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (idx,) = ctx.saved_tensors
+        acc = torch.zeros((ctx.rows, *grad.shape[1:]), dtype=torch.float64, device=grad.device)
+        return acc.index_add_(0, idx, grad.double()).to(grad.dtype), None
+
+
+def gather_rows(table: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """Each lane's row ``table[idx]`` (``idx`` detached), its backward
+    summed per row in float64 (:class:`_GatherRows`)."""
+    return _GatherRows.apply(table, idx.detach().long())
+
+
 def gather_materials(mtab: torch.Tensor, material_id: torch.Tensor) -> MaterialLookup:
-    """Rows of the material table per ray (``material_id`` detached).  An
-    ``index_select``, whose backward adds rows with ``index_add_``: the
-    backward of ``mtab[ids]`` serializes the many lanes that share a row."""
-    rows = torch.index_select(mtab, 0, material_id.detach().long())
+    """Rows of the material table per ray (``material_id`` detached),
+    gathered with :func:`gather_rows`."""
+    rows = gather_rows(mtab, material_id)
     return MaterialLookup(
         color=rows[:, 0:3],
         specular_color=rows[:, 3:6],

@@ -36,6 +36,7 @@ import dataclasses
 
 import torch
 
+from pathtracer_tpu_torch.ops.bsdf import gather_rows
 from pathtracer_tpu_torch.scene.structs import CUBE, SPHERE, Geoms, Rays
 
 BIG = 1e30  # miss sentinel (finite)
@@ -317,9 +318,7 @@ def intersect_scene_lean(rays: Rays, gtab: torch.Tensor, winner=None, meshes=())
     t_win, gid = winner[0], winner[1]
     mesh_idx = winner[2] if len(winner) > 2 else ()
     hit = t_win < BIG
-    # index_select: its backward adds rows with index_add_ (gtab[gid]'s
-    # serializes the many lanes that share a row)
-    rows = torch.index_select(gtab, 0, gid.long()).unbind(-1)
+    rows = gather_rows(gtab, gid).unbind(-1)
     o, d = rays.origin.unbind(-1), rays.direction.unbind(-1)
     obj = to_object(rows, *o, *d)
     is_sphere = rows[12] == float(SPHERE)
@@ -333,7 +332,7 @@ def intersect_scene_lean(rays: Rays, gtab: torch.Tensor, winner=None, meshes=())
             verts = m.tri_verts
             if m.accel is not None:
                 verts = torch.index_select(verts, 0, m.accel.scan_to_file.long())
-            tri = torch.index_select(verts, 0, idx.detach().long())
+            tri = gather_rows(verts, idx)
             mt_re, mn = mt_single(o_obj, d_obj, tri)
             sel = gid == m.geom_index
             t_re = torch.where(sel, mt_re, t_re)
@@ -419,7 +418,7 @@ def mt_planes(o, d, cv0, ce1, ce2, t_min=T_MIN):
 def winner_face_normal(scan_verts, best_i):
     """Unnormalized face normal ``cross(v1 - v0, v2 - v0)`` of each lane's
     winning row of ``scan_verts`` (``[T, 3, 3]``)."""
-    tri = torch.index_select(scan_verts, 0, best_i.long())
+    tri = gather_rows(scan_verts, best_i)
     return torch.linalg.cross(tri[:, 1] - tri[:, 0], tri[:, 2] - tri[:, 0], dim=-1)
 
 
@@ -443,7 +442,7 @@ def mesh_winner_attrs(m, o_obj, d_obj, best_i):
     a mesh without ``vt``).  The barycentrics are recomputed against the
     winner alone and clipped to [0, 1]; the scan-to-file permutation is
     applied to the tables, and each lane's row is gathered with
-    ``index_select``."""
+    ``ops/bsdf.gather_rows``."""
     if not m.has_attrs:
         return None, None
     idx = best_i.long()
@@ -453,7 +452,7 @@ def mesh_winner_attrs(m, o_obj, d_obj, best_i):
         verts = verts[perm]
         norms = None if norms is None else norms[perm]
         uvs = None if uvs is None else uvs[perm]
-    tri = torch.index_select(verts, 0, idx)
+    tri = gather_rows(verts, idx)
     v0 = tri[:, 0]
     e1 = tri[:, 1] - tri[:, 0]
     e2 = tri[:, 2] - tri[:, 0]

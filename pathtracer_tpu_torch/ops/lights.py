@@ -18,6 +18,7 @@ import math
 
 import torch
 
+from pathtracer_tpu_torch.ops.bsdf import gather_rows
 from pathtracer_tpu_torch.ops.transforms import mat3_apply
 from pathtracer_tpu_torch.scene.structs import SPHERE, Geoms, Materials
 
@@ -99,10 +100,8 @@ def sample_lights(geoms: Geoms, materials: Materials, u: torch.Tensor) -> LightS
     light_id = torch.sum((pick > cdf.detach()[None, :]).long(), dim=-1)
     light_id = torch.clamp(light_id, 0, geoms.count - 1)
 
-    # index_select: its backward adds rows with index_add_ (x[light_id]'s
-    # serializes the many lanes that pick one light)
-    xf = torch.index_select(geoms.transform, 0, light_id)
-    inv = torch.index_select(geoms.inv_transform, 0, light_id)
+    xf = gather_rows(geoms.transform, light_id)
+    inv = gather_rows(geoms.inv_transform, light_id)
     is_sphere = geoms.type[light_id] == SPHERE
     s = axis_scales(xf)  # [N, 3] per-axis world scale of the picked light
     face_pairs = 2.0 * torch.stack([s[:, 1] * s[:, 2], s[:, 0] * s[:, 2], s[:, 0] * s[:, 1]],
@@ -123,7 +122,7 @@ def sample_lights(geoms: Geoms, materials: Materials, u: torch.Tensor) -> LightS
     return LightSample(
         position=p_world,
         normal=n_world,
-        emitted=torch.index_select(emit_g, 0, light_id),
+        emitted=gather_rows(emit_g, light_id),
         pdf_area=torch.ones(n, dtype=u.dtype, device=u.device) * pdf,
         valid=valid.expand(n),
     )

@@ -24,12 +24,24 @@ replays the winner (no sweep, no shadow ray), differentiates the bounce and
   ``grad_lean``.  Rays on a CUDA device launch the kernels or raise; rays
   on the CPU take the plain versions.
 
-Residuals are ``[depth, N_RESID, N]`` float32, lane-contiguous so that the
-kernel's stores coalesce.  Planes: o(3) d(3) thr(3) prev_state alive
-replay_gid replay_nee_add.  A lane that has died stores the carries it
-died with, alive 0, gid -1 and NEE bit 0.  The analytic scenes of this
-slice are vacuum, so the medium carries of the JAX layout (sigma_a,
-sigma_s) are not stored.
+Residuals are ``[depth, n_resid(features), N]`` float32, lane-contiguous so
+that the kernel's stores coalesce.  With ``volumetric`` they are JAX's 17
+planes in JAX's order (``trace_grad.py:74-76``): o(3) d(3) thr(3)
+sigma_a(3) sigma_s prev_state alive replay_gid replay_nee_add; in vacuum
+the medium planes are left out (13 planes).  A lane that has died stores
+the carries it died with, its medium too, alive 0, gid -1 and NEE bit 0.
+JAX's ``_step_update`` passes the medium on unconditionally (``:107-110``),
+so a dead lane's medium there follows the bounces it no longer takes; the
+two differ on dead lanes only, which neither the radiance nor the reverse
+loop reads, so the gradients are the same.
+
+Participating media (``volumetric``, with or without ``vol_nee``): the
+forward carries the medium as ``ops/trace.trace_plain`` does and stores it;
+the reverse loop differentiates the medium carries too (the cotangents of
+sigma_a and sigma_s flow back through the bounce's ``out_ma`` / ``out_ms``
+and on to the material table's absorption and scattering columns).  The
+kernels run their ``kVol`` instances.  ``hg`` stays on the lean engine
+(``fused_diff_eligible``), as in JAX.
 
 Gradient semantics are those of the JAX engines: detached sampling,
 winner-only intersection cotangents, zero-cotangent visibility, detached
@@ -54,7 +66,7 @@ from pathtracer_tpu_torch.ops.bounce import (
     check_diff_features,
     pack_tables,
 )
-from pathtracer_tpu_torch.ops.intersect import GEOM_COLS, T_MIN
+from pathtracer_tpu_torch.ops.intersect import GEOM_COLS, T_MIN, winner_t_gid_plain
 from pathtracer_tpu_torch.ops.rng import hash_uniforms_planes
 from pathtracer_tpu_torch.ops.trace import (
     check_launch,
@@ -63,12 +75,57 @@ from pathtracer_tpu_torch.ops.trace import (
     init_carries,
     step_update,
 )
+from pathtracer_tpu_torch.scene.structs import Rays
 
-N_RESID = 13
-R_O, R_D, R_THR, R_STATE, R_ALIVE, R_GID, R_NEE = 0, 3, 6, 9, 10, 11, 12
+N_RESID = 13  # vacuum: o(3) d(3) thr(3), then the tail: prev_state alive gid nee_add
+N_RESID_VOL = 17  # volumetric: sigma_a(3) sigma_s before the tail, as JAX's N_RESID
+R_SA, R_SS = 9, 12  # the medium's planes, in the volumetric layout only
 
-fwd_launches = 0  # launches of tfwd_cuda in this process
-bwd_launches = 0  # launches of tbwd_cuda (its kernel and its block sum)
+fwd_launches = 0  # launches of tfwd_cuda in this process, vacuum scenes
+bwd_launches = 0  # launches of tbwd_cuda (its kernel and its block sum), vacuum scenes
+fwd_vol_launches = 0  # launches of tfwd_cuda's volumetric instance (4v)
+bwd_vol_launches = 0  # launches of tbwd_cuda's volumetric instance (5v)
+
+
+def n_resid(features) -> int:
+    """Residual planes per bounce: 17 with ``volumetric``, 13 without."""
+    return N_RESID_VOL if "volumetric" in features else N_RESID
+
+
+def tail_plane(features) -> int:
+    """Index of the emit-state plane, which alive, gid and the NEE bit
+    follow: 9 in vacuum, 13 with ``volumetric``."""
+    return n_resid(features) - 4
+
+
+def lane_events(gtab, seed: int, sample_idx, resid, lane: int, features=frozenset()) -> str:
+    """A check's account of lane ``lane``'s path in a residual stack, one
+    ``bounce:event gid g`` per bounce it lived: the event is ``miss``,
+    ``surface``, ``scatter`` (an in-medium scatter before the winner) or
+    ``cross`` (a medium crossed to the winner), with ``+nee`` where the
+    surface NEE added light."""
+    tail = tail_plane(features)
+    r = resid[..., lane:lane + 1].float()
+    events = []
+    for dep in range(r.shape[0]):
+        if float(r[dep, tail + 1]) <= 0.5:
+            break
+        gid = int(r[dep, tail + 2])
+        event = "miss" if gid < 0 else "surface"
+        if gid >= 0 and "volumetric" in features and float(r[dep, R_SS]) > 0:
+            u8 = hash_uniforms_planes(seed, sample_idx[lane:lane + 1], dep, 11)[8]
+            free = -torch.log(torch.clamp(1.0 - u8, 1e-7, 1.0)) / r[dep, R_SS]
+            t, _ = winner_t_gid_plain(Rays(r[dep, 0:3].T, r[dep, 3:6].T), gtab.float())
+            event = "scatter" if float(free) < float(t) else "cross"
+        events.append(f"{dep}:{event} gid {gid}" + (" +nee" if float(r[dep, tail + 3]) else ""))
+    return ", ".join(events)
+
+
+def _medium_update(out, alive, sigma_a, sigma_s):
+    """The medium carries after a bounce: the one entered where the lane
+    lives on, the old one where it died (as its other carries)."""
+    return (tuple(torch.where(alive, a, b) for a, b in zip(out["out_ma"], sigma_a)),
+            torch.where(alive, out["out_ms"], sigma_s))
 
 
 def grad_row_len(n_geoms: int, n_materials: int) -> int:
@@ -92,8 +149,8 @@ def split_grad_row(row, n_geoms: int, n_materials: int):
 
 def fused_diff_eligible(scene, cfg) -> bool:
     """Scope of the differentiable trace (``render/common.py:80``): that of
-    the forward trace, without meshes or Henyey-Greenstein media, unless the
-    caller turned the fused engine off."""
+    the forward trace, without meshes or Henyey-Greenstein media (the lean
+    engine takes those), unless the caller turned the fused engine off."""
     return (
         cfg.grad_fused is not False
         and not scene.meshes
@@ -109,32 +166,39 @@ def fused_diff_eligible(scene, cfg) -> bool:
 def tfwd_plain(
     gtab, mtab, ltab, scal, seed: int, origin, direction, sample_idx,
     *, max_depth: int, nee: bool, rr: bool, rr_start: int, features=frozenset(),
+    vol_nee: bool = True,
 ):
-    """``(radiance [N, 3], rays_traced int64 [], residuals [depth, 13, N])``:
-    :func:`ops.trace.trace_plain`'s loop plus the residual stores."""
+    """``(radiance [N, 3], rays_traced int64 [], residuals [depth,
+    n_resid(features), N])``: :func:`ops.trace.trace_plain`'s loop plus the
+    residual stores."""
     o, d, thr, prev_state, alive = init_carries(origin, direction)
     zero = torch.zeros_like(prev_state)
+    sigma_a, sigma_s = (zero,) * 3, zero
+    vol = "volumetric" in features
+    tail = tail_plane(features)
     radiance = (zero,) * 3
     nrays = torch.zeros((), dtype=torch.int64, device=origin.device)
     ray_mult = 2 if nee else 1
-    resid = torch.empty((max_depth, N_RESID, origin.shape[0]), dtype=torch.float32,
+    resid = torch.empty((max_depth, n_resid(features), origin.shape[0]), dtype=torch.float32,
                         device=origin.device)
 
     for dep in range(max_depth):
-        alive_f = alive.to(torch.float32)
-        resid[dep, :R_GID] = torch.stack([*o, *d, *thr, prev_state, alive_f])
+        medium = [*sigma_a, sigma_s] if vol else []
+        resid[dep, :tail + 2] = torch.stack(
+            [*o, *d, *thr, *medium, prev_state, alive.to(torch.float32)])
         nrays = nrays + alive.sum() * ray_mult
         u = hash_uniforms_planes(seed, sample_idx, dep, 11)
         out = bounce_physics(
-            o, d, thr, (zero,) * 3, zero, gtab, mtab, ltab, scal,
+            o, d, thr, sigma_a, sigma_s, gtab, mtab, ltab, scal,
             u, dep, prev_state, nee=nee, t_min=T_MIN, features=features,
-            emit_replay=True,
+            emit_replay=True, vol_nee=vol_nee,
         )
-        resid[dep, R_GID] = torch.where(alive, out["replay_gid"], -1.0)
-        resid[dep, R_NEE] = torch.where(alive, out["replay_nee_add"], 0.0)
+        resid[dep, tail + 2] = torch.where(alive, out["replay_gid"], -1.0)
+        resid[dep, tail + 3] = torch.where(alive, out["replay_nee_add"], 0.0)
         rad_inc, alive, thr, o, d, prev_state = step_update(
             out, o, d, thr, prev_state, alive, dep, rr=rr, rr_start=rr_start
         )
+        sigma_a, sigma_s = _medium_update(out, alive, sigma_a, sigma_s)
         radiance = tuple(r + c for r, c in zip(radiance, rad_inc))
     return torch.stack(radiance, dim=-1), nrays, resid
 
@@ -183,7 +247,7 @@ def _with_values(x, low):
 def tbwd_plain(
     gtab, mtab, ltab, scal, seed: int, sample_idx, resid, g_rad,
     *, max_depth: int, nee: bool, rr: bool, rr_start: int, features=frozenset(),
-    dtype=torch.float32,
+    vol_nee: bool = True, dtype=torch.float32,
 ):
     """Reverse loop, newest bounce first (``trace_grad.py:190-318``):
     ``(d_gtab, d_mtab, d_ltab, d_scal, d_origin [N, 3], d_direction [N, 3])``.
@@ -191,7 +255,8 @@ def tbwd_plain(
     Each bounce reloads its residuals, recomputes the replayed bounce and
     :func:`step_update` on leaf tensors, and takes ``torch.autograd.grad``
     with the radiance cotangent and the carry cotangents of the bounce
-    after it; the table cotangents are summed across bounces.
+    after it (with ``volumetric`` the medium's too); the table cotangents
+    are summed across bounces.
 
     ``dtype=torch.float64`` returns the float64 reference: the bounce's
     values are the float32 bounce's own (:class:`_Float32Values`) and
@@ -207,34 +272,40 @@ def tbwd_plain(
     resid = resid.to(dtype)
     g_rad = tuple(g_rad.to(dtype).unbind(-1))
     zero = torch.zeros_like(resid[0, 0])
-    g_o = g_d = g_thr = (zero,) * 3  # the loop's final carries are discarded
+    vol = "volumetric" in features
+    tail = tail_plane(features)
+    # the loop's final carries are discarded: the medium's cotangents too
+    g_carry = [zero] * tail
 
     for dep in reversed(range(max_depth)):
         r = resid[dep]
-        leaves = [r[k].detach().requires_grad_(True) for k in range(R_STATE)]
+        leaves = [r[k].detach().requires_grad_(True) for k in range(tail)]
         o, d, thr = tuple(leaves[0:3]), tuple(leaves[3:6]), tuple(leaves[6:9])
-        alive = r[R_ALIVE] > 0.5
+        sigma_a, sigma_s = (tuple(leaves[9:12]), leaves[12]) if vol else ((zero,) * 3, zero)
+        alive = r[tail + 1] > 0.5
         u = hash_uniforms_planes(seed, sample_idx, dep, 11)
         with torch.enable_grad():
             with values:
                 out = bounce_physics(
-                    o, d, thr, (zero,) * 3, zero, *tabs, u, dep, r[R_STATE],
-                    nee=nee, t_min=T_MIN, features=features,
-                    replay={"gid": r[R_GID], "nee_add": r[R_NEE]},
+                    o, d, thr, sigma_a, sigma_s, *tabs, u, dep, r[tail],
+                    nee=nee, t_min=T_MIN, features=features, vol_nee=vol_nee,
+                    replay={"gid": r[tail + 2], "nee_add": r[tail + 3]},
                 )
-                rad_inc, _, thr2, next_o, next_d, _ = step_update(
-                    out, o, d, thr, r[R_STATE], alive, dep, rr=rr, rr_start=rr_start
+                rad_inc, new_alive, thr2, next_o, next_d, _ = step_update(
+                    out, o, d, thr, r[tail], alive, dep, rr=rr, rr_start=rr_start
                 )
+                nexts = [*next_o, *next_d, *thr2]
+                if vol:
+                    next_sa, next_ss = _medium_update(out, new_alive, sigma_a, sigma_s)
+                    nexts += [*next_sa, next_ss]
             grads = torch.autograd.grad(
-                [*rad_inc, *next_o, *next_d, *thr2],
-                [*leaves, *tabs],
-                grad_outputs=[*g_rad, *g_o, *g_d, *g_thr],
-                allow_unused=True,
+                [*rad_inc, *nexts], [*leaves, *tabs],
+                grad_outputs=[*g_rad, *g_carry], allow_unused=True,
             )
         grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves + tabs)]
-        g_o, g_d, g_thr = tuple(grads[0:3]), tuple(grads[3:6]), tuple(grads[6:9])
-        acc = [a + g for a, g in zip(acc, grads[9:])]
-    return (*acc, torch.stack(g_o, dim=-1), torch.stack(g_d, dim=-1))
+        g_carry = grads[:tail]
+        acc = [a + g for a, g in zip(acc, grads[tail:])]
+    return (*acc, torch.stack(g_carry[0:3], dim=-1), torch.stack(g_carry[3:6], dim=-1))
 
 
 # ---------------------------------------------------------------------------
@@ -255,6 +326,7 @@ def _lib():
             ctypes.c_int,  # n
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # radiance, nrays, resid
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # depth, nee, rr, rr_start
+            ctypes.c_int, ctypes.c_int,  # volumetric, vol_nee
             ctypes.c_void_p,  # stream
         ]
         lib.trace_bwd_launch.restype = ctypes.c_int
@@ -268,6 +340,7 @@ def _lib():
             ctypes.c_void_p, ctypes.c_void_p,  # d_origin, d_direction
             ctypes.c_void_p, ctypes.c_void_p,  # block partials, table row
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # depth, nee, rr, rr_start
+            ctypes.c_int, ctypes.c_int,  # volumetric, vol_nee
             ctypes.c_void_p,  # stream
         ]
         lib.trace_bwd_blocks.restype = ctypes.c_int
@@ -277,12 +350,16 @@ def _lib():
 
 def tfwd_cuda(
     gtab, mtab, ltab, scal, seed: int, origin, direction, sample_idx,
-    *, max_depth: int, nee: bool, rr: bool, rr_start: int,
+    *, max_depth: int, nee: bool, rr: bool, rr_start: int, features=frozenset(),
+    vol_nee: bool = True,
 ):
-    """Launch the forward-with-residuals kernel: ``(radiance [N, 3],
-    rays_traced int64 [], residuals [depth, 13, N])`` on the rays' CUDA
-    device, on the current stream."""
-    global fwd_launches
+    """Launch the forward-with-residuals kernel (its ``kVol`` instance with
+    ``volumetric``): ``(radiance [N, 3], rays_traced int64 [], residuals
+    [depth, n_resid(features), N])`` on the rays' CUDA device, on the
+    current stream."""
+    global fwd_launches, fwd_vol_launches
+    check_diff_features(features, "fused")
+    vol = "volumetric" in features
     device = origin.device
     n = origin.shape[0]
     g, m, bits = check_launch(gtab, mtab, ltab, scal, sample_idx, n, device)
@@ -291,33 +368,41 @@ def tfwd_cuda(
 
     radiance = torch.empty((n, 3), dtype=torch.float32, device=device)
     nrays = torch.zeros((), dtype=torch.int64, device=device)
-    resid = torch.empty((max_depth, N_RESID, n), dtype=torch.float32, device=device)
+    resid = torch.empty((max_depth, n_resid(features), n), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = _lib().trace_fwd_launch(
         gtab.data_ptr(), g, mtab.data_ptr(), m, ltab.data_ptr(), scal.data_ptr(),
         int(seed) & 0xFFFFFFFF,
         origin.data_ptr(), direction.data_ptr(), bits.data_ptr(), n,
         radiance.data_ptr(), nrays.data_ptr(), resid.data_ptr(),
-        int(max_depth), int(bool(nee)), int(bool(rr)), int(rr_start), stream,
+        int(max_depth), int(bool(nee)), int(bool(rr)), int(rr_start), int(vol),
+        int(bool(vol_nee)), stream,
     )
     if err != 0:
         raise RuntimeError(f"trace_fwd kernel launch failed: CUDA error {err}")
-    fwd_launches += 1
+    if vol:
+        fwd_vol_launches += 1
+    else:
+        fwd_launches += 1
     return radiance, nrays, resid
 
 
 def tbwd_cuda(
     gtab, mtab, ltab, scal, seed: int, sample_idx, resid, g_rad,
-    *, max_depth: int, nee: bool, rr: bool, rr_start: int,
+    *, max_depth: int, nee: bool, rr: bool, rr_start: int, features=frozenset(),
+    vol_nee: bool = True,
 ):
-    """Launch the reverse kernel and its fixed-order block sum:
-    ``(d_gtab, d_mtab, d_ltab, d_scal, d_origin [N, 3], d_direction
-    [N, 3])`` on the current stream."""
-    global bwd_launches
+    """Launch the reverse kernel (its ``kVol`` instance with
+    ``volumetric``) and its fixed-order block sum: ``(d_gtab, d_mtab,
+    d_ltab, d_scal, d_origin [N, 3], d_direction [N, 3])`` on the current
+    stream."""
+    global bwd_launches, bwd_vol_launches
+    check_diff_features(features, "fused")
+    vol = "volumetric" in features
     device = resid.device
     n = resid.shape[2]
     g, m, bits = check_launch(gtab, mtab, ltab, scal, sample_idx, n, device)
-    check_tensor(resid, "residuals", torch.float32, (max_depth, N_RESID, n), device)
+    check_tensor(resid, "residuals", torch.float32, (max_depth, n_resid(features), n), device)
     check_tensor(g_rad, "radiance cotangent", torch.float32, (n, 3), device)
 
     lib = _lib()
@@ -333,11 +418,15 @@ def tbwd_cuda(
         int(seed) & 0xFFFFFFFF, bits.data_ptr(), n,
         resid.data_ptr(), g_rad.data_ptr(), d_o.data_ptr(), d_d.data_ptr(),
         partial.data_ptr(), row.data_ptr(),
-        int(max_depth), int(bool(nee)), int(bool(rr)), int(rr_start), stream,
+        int(max_depth), int(bool(nee)), int(bool(rr)), int(rr_start), int(vol),
+        int(bool(vol_nee)), stream,
     )
     if err != 0:
         raise RuntimeError(f"trace_bwd kernel launch failed: CUDA error {err}")
-    bwd_launches += 1
+    if vol:
+        bwd_vol_launches += 1
+    else:
+        bwd_launches += 1
     return (*split_grad_row(row, g, m), d_o, d_d)
 
 
@@ -348,13 +437,12 @@ def tbwd_cuda(
 class TraceDiff(torch.autograd.Function):
     """``(radiance [N, 3], rays_traced int64 [])`` of a wavefront, with the
     reverse loop as its backward.  ``opts`` holds ``max_depth``, ``nee``,
-    ``rr``, ``rr_start`` and ``features``."""
+    ``rr``, ``rr_start``, ``features`` and ``vol_nee``."""
 
     @staticmethod
     def forward(ctx, gtab, mtab, ltab, scal, origin, direction, sample_idx, seed, opts):
         kw = dict(opts)
         if origin.device.type == "cuda":
-            kw.pop("features")
             rad, nrays, resid = tfwd_cuda(
                 gtab, mtab, ltab, scal, seed, origin, direction, sample_idx, **kw
             )
@@ -377,7 +465,6 @@ class TraceDiff(torch.autograd.Function):
         kw = dict(ctx.opts)
         args = (gtab, mtab, ltab, scal, ctx.seed, sample_idx, resid, g_rad.contiguous())
         if resid.device.type == "cuda":
-            kw.pop("features")
             grads = tbwd_cuda(*args, **kw)
         else:
             grads = tbwd_plain(*args, **kw)
@@ -390,16 +477,17 @@ def trace_fused_diff(scene, rays, sample_idx, seed: int, cfg, tables=None):
     :func:`pack_tables` of the scene, packed here when not given; their
     graph carries the table cotangents on to the scene's tensors, and the
     rays' graph carries ``d_origin`` / ``d_direction`` to the camera."""
-    check_diff_features(cfg.features)
+    check_diff_features(cfg.features, "fused")
     if not fused_diff_eligible(scene, cfg):
         raise NotImplementedError(
-            "differentiable trace of meshes, image textures, HG media or "
-            "fast_rng=False: later slice"
+            "the full-depth differentiable trace takes no meshes, image textures or HG media (the "
+            "lean engine, RenderConfig(grad_fused=False), runs them) and no fast_rng=False: "
+            "later slice"
         )
     gtab, mtab, ltab, scal = tables if tables is not None else pack_tables(scene)
     opts = dict(
         max_depth=cfg.max_depth, nee=cfg.nee, rr=cfg.russian_roulette,
-        rr_start=cfg.rr_start, features=frozenset(cfg.features),
+        rr_start=cfg.rr_start, features=frozenset(cfg.features), vol_nee=cfg.vol_nee,
     )
     return TraceDiff.apply(
         gtab, mtab, ltab, scal, rays.origin, rays.direction, sample_idx, int(seed), opts

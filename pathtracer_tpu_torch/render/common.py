@@ -25,17 +25,18 @@ traversal above).
 
 Under ``cfg.grad_lean`` (``:204-222,395-417``) a scene in the fused scope
 takes ``ops/bounce_grad.bounce_fused_diff`` (kernel 2 with replay planes,
-kernel 3 backward); any other takes the lean split route: the detached
-winner search (``ops/intersect_cuda.winner_t_gid``, kernel 7) and the
-winner-only recompute of ``ops/intersect.intersect_scene_lean``, the split
-route's shading, and the NEE shadow ray on detached inputs through kernel
-8, visibility a comparison.  Meshes join both detached searches (kernels 9
+kernel 3 backward; their volumetric instances in media); any other takes
+the lean split route: the detached winner search
+(``ops/intersect_cuda.winner_t_gid``, kernel 7) and the winner-only
+recompute of ``ops/intersect.intersect_scene_lean``, the split route's
+shading, and the NEE shadow ray on detached inputs through kernel 8,
+visibility a comparison.  Meshes join both detached searches (kernels 9
 and 10 per mesh, or the LBVH traversal), and a mesh winner's triangle is
 recomputed from the live vertices, so vertex gradients flow (JAX
 ``:395-417``, ``ops/intersect.py:777-910``).  ``lean_cache``, a dict, keeps
-the two detached searches' outputs on their first run and hands them back
-to a recompute (the lean scan's per-bounce checkpoint), so no search
-kernel runs again.
+the detached searches' outputs on their first run (the volumetric NEE's
+split sweep too) and hands them back to a recompute (the lean scan's
+per-bounce checkpoint), so no search kernel runs again.
 
 Participating media (``:311-348,440-582``): with ``volumetric`` the
 bounce samples an exponential free path in the medium the ray travels
@@ -47,8 +48,13 @@ medium.  Volumetric NEE connects the scatter point to the light sample
 through ``ops/intersect.occlusion_split_t`` on detached inputs (plain
 PyTorch over the analytic geoms, as JAX's XLA, and kernel 10 per mesh).
 Meshes above 4096 triangles with volumetric NEE take the split route, as
-in JAX (``:131-153``).  Media are forward only: under ``grad_lean`` they
-raise.
+in JAX (``:131-153``).  Under ``grad_lean`` media differentiate: the free
+path, the Beer-Lambert attenuation, the in-medium continuation and the
+volumetric NEE's transmittance and phase carry gradients to the medium (its
+absorption and scattering coefficients and, with ``hg``, the phase g),
+while the volumetric NEE's split sweep runs detached, as JAX's
+(``:537-545``): visibility is a comparison and the boundary distance a
+constant of the transmittance.  ``hg`` runs on the lean route only.
 
 Optional surface physics (``:238-308``): with ``texture`` the checker /
 stripes albedo and, for a scene with image textures, the bilinear atlas
@@ -130,7 +136,7 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
     as the module docstring says."""
     check_features(cfg.features)
     if cfg.grad_lean:
-        check_diff_features(cfg.features)
+        check_diff_features(cfg.features, "lean")
         if scene.textures is not None:
             raise NotImplementedError("gradients of image textures: later slice")
     if not cfg.fast_rng:
@@ -335,10 +341,13 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
         wiv = to_l / distv[:, None]
         cos_yv = torch.sum(ls.normal * (-wiv), dim=-1)
         cand_v = vol_scatter & ls.valid & (cos_yv > 0)
-        t_opaque, t_boundary = occlusion_split_t(
-            Rays(origin=vp.detach().contiguous(), direction=wiv.detach().contiguous()),
-            gtab.detach(), mtab.detach(), scene.meshes,
-        )
+        def split():
+            return occlusion_split_t(
+                Rays(origin=vp.detach().contiguous(), direction=wiv.detach().contiguous()),
+                gtab.detach(), mtab.detach(), scene.meshes)
+
+        t_opaque, t_boundary = (_cached(lean_cache, "occlusion_split", split) if cfg.grad_lean
+                                else split())
         visible_v = t_opaque >= distv.detach() - 4.0 * RAY_BIAS
         seg_v = torch.minimum(t_boundary, distv)
         transmit = torch.exp(-(sigma_a + sigma_s[:, None]) * seg_v[:, None])

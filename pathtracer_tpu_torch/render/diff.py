@@ -37,9 +37,16 @@ them); every :func:`build_scene` rebinds it to the live vertices
 (the stale Morton order only loosens the chunk boxes).  Authored normals
 and UVs do not enter differentiable mode, as in JAX.
 
+Features (``ops/bounce.check_diff_features``): the full-depth and
+per-bounce engines differentiate the base lobes and ``volumetric`` media
+(with or without ``vol_nee``), on their kernels' volumetric instances
+(4v and 5v, 2r-v and 3v); the lean engine differentiates those and ``hg``,
+on analytic scenes and with meshes.  A scene with ``hg`` takes the lean
+engine, as in JAX.
+
 On the card the kernels run, on the CPU their plain versions.  Not ported
-yet: textures as leaves (``textures`` raises when set), the surface and
-media features' gradients and the sharded variants.
+yet: textures as leaves (``textures`` raises when set), the surface
+features' gradients and the sharded variants.
 """
 
 from __future__ import annotations
@@ -294,7 +301,7 @@ def render_linear_rays(params: SceneParams, static: SceneStatic, spp: int, base_
     trimmed to the materials' needs, as every render entry point does; the
     engine is chosen as the module docstring says."""
     cfg = resolve_features(cfg, params.materials)
-    check_diff_features(cfg.features)  # media are forward only: every engine refuses them
+    check_diff_features(cfg.features, "lean")  # each engine checks its own features
     cfg_bwd = dataclasses.replace(cfg, fused=False, grad_lean=True, debug=False)
     scene = build_scene(params, static)
     seed = key_to_seed(base_key)

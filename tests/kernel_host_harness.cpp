@@ -4,8 +4,9 @@
 // functions, their kernels drop out); these C entry points run their lanes
 // one after another over a wavefront, with the same arguments as the CUDA
 // launchers: the trace (trace.cu), the forward with residuals and the
-// reverse lanes (trace_grad.cu), one bounce (bounce.cu) and its backward
-// (bounce_grad.cu), the nearest hit, winner search and occlusion
+// reverse lanes (trace_grad.cu; vol picks their kVol instances, 4v and 5v),
+// one bounce (bounce.cu) and its backward (bounce_grad.cu; vol: 3v, with the
+// medium planes), the nearest hit, winner search and occlusion
 // (intersect.cu), and the nearest triangle and triangle occlusion (mesh.cu).
 // The trace and the bounce take the in-kernel mesh tables as the launchers
 // do (n_mesh = 0 for none), the media flags (volumetric, hg, vol_nee)
@@ -36,16 +37,17 @@ extern "C" void host_fwd(const float* gtab, int G, const float* mtab, const floa
                          const float* scal, unsigned seed, const float* origin,
                          const float* direction, const unsigned* sample, int n, float* radiance,
                          unsigned long long* nrays, float* resid, int depth, int nee, int rr,
-                         int rr_start) {
+                         int rr_start, int vol, int vol_nee) {
   const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f};
+  auto lane = vol ? fwd_lane<true> : fwd_lane<false>;
   unsigned long long total = 0;
   for (int i = 0; i < n; ++i) {
     V3 o = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
     V3 d = v3(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
     V3 rad = v3(0.0f, 0.0f, 0.0f);
     unsigned bounces = 0;
-    fwd_lane(T, seed, sample[i], o, d, depth, nee, rr, rr_start, true, resid, (size_t)n,
-             (size_t)i, rad, bounces);
+    lane(T, seed, sample[i], o, d, depth, nee, rr, rr_start, true, resid, (size_t)n, (size_t)i,
+         rad, bounces, vol_nee);
     radiance[3 * i] = rad.x;
     radiance[3 * i + 1] = rad.y;
     radiance[3 * i + 2] = rad.z;
@@ -58,15 +60,16 @@ extern "C" void host_bwd(const float* gtab, int G, const float* mtab, int M, con
                          const float* scal, unsigned seed, const unsigned* sample, int n,
                          const float* resid, const float* g_radiance, float* d_origin,
                          float* d_direction, float* row, int depth, int nee, int rr,
-                         int rr_start) {
+                         int rr_start, int vol, int vol_nee) {
   const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f};
   const RowLayout R = row_layout(G, M);
+  auto lane = vol ? bwd_lane<true> : bwd_lane<false>;
   for (int k = 0; k < R.k; ++k) row[k] = 0.0f;
   for (int i = 0; i < n; ++i) {
     V3 g_rad = v3(g_radiance[3 * i], g_radiance[3 * i + 1], g_radiance[3 * i + 2]);
     V3 g_o, g_d;
-    bwd_lane(T, R, seed, sample[i], resid, (size_t)n, (size_t)i, depth, nee, rr, rr_start,
-             g_rad, g_o, g_d, row);
+    lane(T, R, seed, sample[i], resid, (size_t)n, (size_t)i, depth, nee, rr, rr_start, g_rad, g_o,
+         g_d, row, vol_nee);
     d_origin[3 * i] = g_o.x;
     d_origin[3 * i + 1] = g_o.y;
     d_origin[3 * i + 2] = g_o.z;
@@ -188,14 +191,16 @@ extern "C" void host_bounce_bwd(const float* gtab, int G, const float* mtab, int
                                 const float* replay_nee, const float* g_contrib,
                                 const float* g_next_o, const float* g_next_d,
                                 const float* g_thr_mult, float* d_origin, float* d_direction,
-                                float* d_thr, float* row) {
+                                float* d_thr, float* row, int vol, int vol_nee,
+                                const float* medium, const float* g_medium, float* d_medium) {
   const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f};
   const RowLayout R = row_layout(G, M);
+  auto lane = vol ? bounce_bwd_lane<true> : bounce_bwd_lane<false>;
   for (int k = 0; k < R.k; ++k) row[k] = 0.0f;
   for (int i = 0; i < n; ++i)
-    bounce_bwd_lane(T, R, seed, nee, (size_t)i, origin, direction, thr, sample, depth, prev,
-                    replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult, d_origin,
-                    d_direction, d_thr, row);
+    lane(T, R, seed, nee, (size_t)i, origin, direction, thr, sample, depth, prev, replay_gid,
+         replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult, d_origin, d_direction, d_thr, row,
+         vol_nee, medium, g_medium, d_medium);
 }
 
 extern "C" void host_mesh_nearest(const float* tab, int n_tris, int n, const float* o_obj,

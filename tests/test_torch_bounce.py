@@ -136,8 +136,9 @@ def test_bounce_physics_matches_jax(name):
 def test_unsupported_features_raise():
     """Every optional block of the forward bounce runs (the surface blocks
     are held against JAX in ``tests/test_torch_surface.py``, the media in
-    ``tests/test_torch_volume.py``); the differentiable gate refuses them,
-    and an unknown feature raises."""
+    ``tests/test_torch_volume.py``); the differentiable gate refuses the
+    surface features on every engine and ``hg`` on the fused engines, takes
+    media, and an unknown feature raises."""
     scene = port_scene_from_jax(_jax_scene("mini"))
     tables = tb.pack_tables(scene)
     z = (torch.zeros(4),) * 3
@@ -147,8 +148,9 @@ def test_unsupported_features_raise():
             torch.zeros(4), nee=True, t_min=T_MIN, features=frozenset({feat}),
         )
         assert out["contrib"][0].shape == (4,)
-        with pytest.raises(NotImplementedError, match=feat):
-            tb.check_diff_features((feat,))
+        for engine in ("fused", "lean"):
+            with pytest.raises(NotImplementedError, match=feat):
+                tb.check_diff_features((feat,), engine)
     with pytest.raises(NotImplementedError, match="sparkle"):
         tb.check_features(("sparkle",))
     d = (torch.zeros(4), torch.zeros(4), -torch.ones(4))
@@ -158,6 +160,8 @@ def test_unsupported_features_raise():
         medium_g=torch.zeros(4),
     )
     assert {"out_ma", "out_ms", "out_mg"} <= set(out)
-    with pytest.raises(NotImplementedError, match="volumetric"):
-        tb.check_diff_features(("volumetric",))
+    tb.check_diff_features(("glossy", "volumetric"), "fused")
+    tb.check_diff_features(("glossy", "volumetric", "hg"), "lean")
+    with pytest.raises(NotImplementedError, match="hg of the fused"):
+        tb.check_diff_features(("volumetric", "hg"), "fused")
 

@@ -290,14 +290,14 @@ def test_tbwd_plain_float64_reference_keeps_float32_values(mini_desc):
     _, _, resid = trace_grad.tfwd_plain(*tables, seed, rays.origin, rays.direction, sample, **kw)
 
     r = resid[1]
+    tail = trace_grad.tail_plane(())
     u = hash_uniforms_planes(seed, sample, 1, 11)
 
     def bounce(r, tabs):
         zero = torch.zeros_like(r[0])
         return bounce_physics(
             tuple(r[0:3]), tuple(r[3:6]), tuple(r[6:9]), (zero,) * 3, zero, *tabs, u, 1,
-            r[trace_grad.R_STATE], nee=True, t_min=T_MIN,
-            replay={"gid": r[trace_grad.R_GID], "nee_add": r[trace_grad.R_NEE]},
+            r[tail], nee=True, t_min=T_MIN, replay={"gid": r[tail + 2], "nee_add": r[tail + 3]},
         )
 
     want = bounce(r, tables)
@@ -456,3 +456,26 @@ def test_diff_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
         dataclasses.replace(params, textures=object())  # texture leaves: a later slice
     verts = dataclasses.replace(params, mesh_verts=[torch.zeros(1, 3, 3)]).mesh_verts
     assert isinstance(verts, tuple) and len(verts) == 1  # mesh vertices are leaves
+
+
+def test_gather_rows_sums_each_row_in_float64():
+    """``ops/bsdf.gather_rows``, the lean engine's per-lane gather of table
+    rows: its forward equals ``index_select``; its backward is each row's
+    float64 sum of the lane cotangents rounded once to float32, so it does
+    not depend on the order of the adds (a float32 sum of 200,000 lanes
+    into four rows does)."""
+    from pathtracer_tpu_torch.ops.bsdf import gather_rows
+
+    rng = np.random.default_rng(0)
+    table = torch.from_numpy(rng.standard_normal((4, 4, 4)).astype(np.float32))
+    table.requires_grad_(True)
+    idx = torch.from_numpy(rng.integers(0, 4, 200_000))
+    cot = torch.from_numpy((rng.standard_normal((200_000, 4, 4)) * 1e3 + 1).astype(np.float32))
+    rows = gather_rows(table, idx)
+    assert torch.equal(rows, torch.index_select(table, 0, idx))
+    (got,) = torch.autograd.grad(rows, table, cot)
+    want = torch.zeros((4, 4, 4), dtype=torch.float64).index_add_(0, idx, cot.double()).float()
+    assert torch.equal(got, want)
+    perm = torch.from_numpy(rng.permutation(200_000))
+    (again,) = torch.autograd.grad(gather_rows(table, idx[perm]), table, cot[perm])
+    assert torch.equal(again, got)

@@ -60,6 +60,7 @@ from pathtracer_tpu_torch.ops.intersect import (
     occlusion_t_plain,
     winner_t_gid_plain,
 )
+from pathtracer_tpu_torch.ops.rng import hash_uniforms_planes
 from pathtracer_tpu_torch.scene.parser import load_scene, parse_scene_text
 from pathtracer_tpu_torch.scene.structs import Rays
 from tests.test_bounce_grad import MINI_SCENE
@@ -69,6 +70,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 P, I = ctypes.c_void_p, ctypes.c_int
 NO_MESH = (None, None, None, None, None, 0)  # the launchers' mesh arguments for no meshes
 VACUUM = (0, 0, 1)  # the launchers' media arguments (volumetric, hg, vol_nee) for vacuum
+VAC_GRAD = (0, 1)  # the gradient kernels' media arguments (volumetric, vol_nee) for vacuum
+NO_MEDIUM = (None, None, None)  # kernel 3's medium, its cotangent, d_medium (vacuum)
 # the bounce launcher's surface bits and deferred-texel planes for neither
 NO_SURF = (0, None, None, None)
 # MINI_SCENE with its mirror sphere turned Phong-glossy (specular exponent 30)
@@ -88,8 +91,9 @@ def host_lib(tmp_path_factory):
         check=True, capture_output=True, text=True,
     )
     lib = ctypes.CDLL(out)
-    lib.host_fwd.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, P, I, I, I, I]
-    lib.host_bwd.argtypes = [P, I, P, I, P, P, ctypes.c_uint, P, I, P, P, P, P, P, I, I, I, I]
+    lib.host_fwd.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, P, I, I, I, I, I, I]
+    lib.host_bwd.argtypes = [P, I, P, I, P, P, ctypes.c_uint, P, I, P, P, P, P, P, I, I, I, I, I,
+                             I]
     lib.host_trace.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, I, I, I, I,
                                I, I, I, I, P, P, P, P, P, I]
     lib.host_bounce.argtypes = ([P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 17 + [I] * 5
@@ -101,7 +105,8 @@ def host_lib(tmp_path_factory):
     lib.host_nearest.argtypes = [P, I, I] + [P] * 8
     lib.host_occlusion.argtypes = [P, I, I, P, P, P]
     lib.host_winner.argtypes = [P, I, I, P, P, P, P]
-    lib.host_bounce_bwd.argtypes = [P, I, P, I, P, P, ctypes.c_uint, I, I] + [P] * 16
+    lib.host_bounce_bwd.argtypes = ([P, I, P, I, P, P, ctypes.c_uint, I, I] + [P] * 16 + [I, I]
+                                    + [P] * 3)
     return lib
 
 
@@ -144,7 +149,7 @@ def test_kernel_lanes_match_plain(host_lib, case):
     host_lib.host_fwd(tables[0].data_ptr(), g, tables[1].data_ptr(), tables[2].data_ptr(),
                       tables[3].data_ptr(), seed, rays.origin.data_ptr(),
                       rays.direction.data_ptr(), bits.data_ptr(), n, rad_k.data_ptr(),
-                      ctypes.byref(nr_k), res_k.data_ptr(), *flags)
+                      ctypes.byref(nr_k), res_k.data_ptr(), *flags, *VAC_GRAD)
     assert nr_k.value == int(nr_p)
     rad_frac = float(torch.isclose(rad_k, rad_p, rtol=2e-6, atol=2e-6).all(-1).float().mean())
     res_frac = float(
@@ -159,7 +164,8 @@ def test_kernel_lanes_match_plain(host_lib, case):
     row = torch.empty(trace_grad.grad_row_len(g, m))
     host_lib.host_bwd(tables[0].data_ptr(), g, tables[1].data_ptr(), m, tables[2].data_ptr(),
                       tables[3].data_ptr(), seed, bits.data_ptr(), n, res_p.data_ptr(),
-                      g_rad.data_ptr(), d_o.data_ptr(), d_d.data_ptr(), row.data_ptr(), *flags)
+                      g_rad.data_ptr(), d_o.data_ptr(), d_d.data_ptr(), row.data_ptr(), *flags,
+                      *VAC_GRAD)
     got = tuple(t.double() for t in (*trace_grad.split_grad_row(row, g, m), d_o, d_d))
 
     def lane_frac(a, b):
@@ -222,7 +228,8 @@ def test_trace_lanes_match_plain_and_forward(host_lib, case):
                         *NO_MESH)
     rad_f, nr_f = torch.empty((n, 3)), ctypes.c_ulonglong()
     resid = torch.empty((kw["max_depth"], trace_grad.N_RESID, n))
-    host_lib.host_fwd(*common, rad_f.data_ptr(), ctypes.byref(nr_f), resid.data_ptr(), *flags)
+    host_lib.host_fwd(*common, rad_f.data_ptr(), ctypes.byref(nr_f), resid.data_ptr(), *flags,
+                      *VAC_GRAD)
     rad_p, nr_p = trace.trace_plain(*tables, seed, rays.origin, rays.direction, sample, **kw)
     frac = float(torch.isclose(rad_k, rad_p, rtol=2e-6, atol=2e-6).all(-1).float().mean())
     print(f"{case}: trace lanes within 2e-6 of trace_plain: {frac:.5f}")
@@ -360,7 +367,7 @@ def test_bounce_replay_and_backward_lanes_match_plain(host_lib, scene_name, nee)
         *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
                                     "prev")),
         rgid.data_ptr(), rnee.data_ptr(), *(c.data_ptr() for c in cots),
-        d_o.data_ptr(), d_d.data_ptr(), d_t.data_ptr(), row.data_ptr(),
+        d_o.data_ptr(), d_d.data_ptr(), d_t.data_ptr(), row.data_ptr(), *VAC_GRAD, *NO_MEDIUM,
     )
     got = (*trace_grad.split_grad_row(row, g, m), d_o, d_d, d_t)
     frac = [float(torch.isclose(k.double(), w, rtol=1e-5, atol=1e-5).all(-1).double().mean())
@@ -382,7 +389,7 @@ def test_bounce_replay_and_backward_lanes_match_plain(host_lib, scene_name, nee)
         *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
                                     "prev")),
         rgid.data_ptr(), rnee.data_ptr(), *(zero.data_ptr() for _ in cots),
-        d_o.data_ptr(), d_d.data_ptr(), d_t.data_ptr(), row.data_ptr(),
+        d_o.data_ptr(), d_d.data_ptr(), d_t.data_ptr(), row.data_ptr(), *VAC_GRAD, *NO_MEDIUM,
     )
     assert not bool(torch.cat([d_o, d_d, d_t, row[None].expand(3, -1).reshape(-1, 3)]).any())
 
@@ -660,6 +667,202 @@ def test_bounce_media_lanes_match_plain(host_lib, hg, nee):
     assert frac >= 0.995 and changed > 50
     if nee:
         assert states[2] > 10
+
+
+# ---- differentiable participating media: kernels 4v and 5v, 2r-v and 3v
+
+
+def _vol_grad_scene(name, res):
+    """A media scene of the gradient kernels (volumetric, no hg) at ``res``
+    and its tables: ``tests/test_torch_volume_diff.VOL_MINI`` or a file of
+    ``scenes/``."""
+    from tests.test_torch_volume_diff import VOL_MINI
+
+    if name == "vol_mini":
+        desc = parse_scene_text(VOL_MINI, name=name)
+    else:
+        desc = load_scene(os.path.join(HERE, "..", "scenes", f"{name}.txt"))
+    scene = dataclasses.replace(desc, resolution=res).scene_for_frame(0, device="cpu")
+    return scene, [t.contiguous() for t in pack_tables(scene)]
+
+
+def _lane_share(got, want):
+    """Share of lanes whose every component is within rtol = atol = 1e-5 of
+    the float64 reference's."""
+    return float(torch.isclose(got.double(), want, rtol=1e-5, atol=1e-5).all(-1).double().mean())
+
+
+def _check_table_cotangents(got, want):
+    for w, k in zip(want, got):
+        # every entry, small ones too
+        assert bool(((k.double() - w).abs() <= 1e-4 * w.abs() + 1e-6 * float(w.abs().max())).all())
+
+
+# scene, resolution, options, vol_nee, least share of lanes whose residuals
+# are within 2e-6
+VOL_GRAD_CASES = {
+    "vol_mini_rr": ("vol_mini", (37, 23), dict(max_depth=3, nee=True, rr=True, rr_start=1), True,
+                    0.995),
+    "vol_mini_no_vol_nee": ("vol_mini", (37, 23), dict(max_depth=4, nee=True, rr=False,
+                                                       rr_start=3), False, 0.995),
+    "milky": ("milky", (24, 24), dict(max_depth=6, nee=True, rr=False, rr_start=3), True, 0.98),
+    "fog": ("fog", (24, 24), dict(max_depth=4, nee=True, rr=False, rr_start=3), True, 0.995),
+}
+
+
+@pytest.mark.parametrize("case", sorted(VOL_GRAD_CASES))
+def test_trace_grad_vol_lanes_match_plain(host_lib, case):
+    """Kernels 4v and 5v (``trace_grad.cu``'s kVol instances): the forward
+    lanes against ``tfwd_plain(features={"volumetric"})`` (equal ray counts;
+    radiance and all 17 residual planes within 2e-6 on at least 99.5% of
+    lanes, room for the host's libm exp / log, as the media forward cases
+    above, and the residuals on 98% of milky's at depth 6, as Cornell's at
+    depth 8; measured: every lane, 98.96% on milky), and the reverse lanes
+    on the plain
+    version's residuals against ``tbwd_plain``'s float64 reference at the
+    bars of ``chip_smoke.py``'s ``[grad:vol]``: every table cotangent within
+    1e-4 of itself plus 1e-6 of its table's largest, every component of
+    d_origin / d_direction within rtol = atol = 1e-5 on at least 99.99% of
+    lanes (measured: every lane).  The medium's material columns get
+    gradients."""
+    name, res, kw, vol_nee, min_res = VOL_GRAD_CASES[case]
+    scene, tables = _vol_grad_scene(name, res)
+    n, seed = res[0] * res[1], 4321
+    pixel = torch.arange(n)
+    sample = 2 * n + pixel
+    rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, sample))
+    g, m = tables[0].shape[0], tables[1].shape[0]
+    bits = sample.to(torch.int32)
+    flags = (kw["max_depth"], int(kw["nee"]), int(kw["rr"]), kw["rr_start"])
+    feats = frozenset({"volumetric"})
+    vkw = dict(kw, features=feats, vol_nee=vol_nee)
+
+    rad_p, nr_p, res_p = trace_grad.tfwd_plain(*tables, seed, rays.origin, rays.direction,
+                                               sample, **vkw)
+    assert res_p.shape == (kw["max_depth"], trace_grad.N_RESID_VOL, n)
+    rad_k, res_k, nr_k = torch.empty((n, 3)), torch.empty_like(res_p), ctypes.c_ulonglong()
+    host_lib.host_fwd(tables[0].data_ptr(), g, tables[1].data_ptr(), tables[2].data_ptr(),
+                      tables[3].data_ptr(), seed, rays.origin.data_ptr(),
+                      rays.direction.data_ptr(), bits.data_ptr(), n, rad_k.data_ptr(),
+                      ctypes.byref(nr_k), res_k.data_ptr(), *flags, 1, int(vol_nee))
+    assert nr_k.value == int(nr_p)
+    rad_frac = float(torch.isclose(rad_k, rad_p, rtol=2e-6, atol=2e-6).all(-1).float().mean())
+    res_frac = float(
+        torch.isclose(res_k, res_p, rtol=2e-6, atol=2e-6).all(0).all(0).float().mean())
+    in_medium = int((res_p[:, trace_grad.R_SS] > 0).sum())
+
+    g_rad = torch.from_numpy(np.random.default_rng(8).standard_normal((n, 3)).astype(np.float32))
+    want = trace_grad.tbwd_plain(*tables, seed, sample, res_p, g_rad, dtype=torch.float64, **vkw)
+    d_o, d_d = torch.empty((n, 3)), torch.empty((n, 3))
+    row = torch.empty(trace_grad.grad_row_len(g, m))
+    host_lib.host_bwd(tables[0].data_ptr(), g, tables[1].data_ptr(), m, tables[2].data_ptr(),
+                      tables[3].data_ptr(), seed, bits.data_ptr(), n, res_p.data_ptr(),
+                      g_rad.data_ptr(), d_o.data_ptr(), d_d.data_ptr(), row.data_ptr(), *flags, 1,
+                      int(vol_nee))
+    got = (*trace_grad.split_grad_row(row, g, m), d_o, d_d)
+    shares = [_lane_share(k, w) for k, w in zip(got[4:], want[4:])]
+    media = [k for k in range(m) if float(tables[1][k, 14] * tables[1][k, 15]) > 0
+             or float(tables[1][k, 11:14].abs().sum()) > 0]
+    d_media = float(want[1][media][:, 11:16].abs().max())
+    print(f"{case}: lane-bounces in a medium {in_medium}; forward lanes within 2e-6: radiance "
+          f"{rad_frac:.5f}, residuals {res_frac:.5f}; reverse lanes within 1e-5 of the float64 "
+          f"reference {shares}; largest medium-column cotangent {d_media:.4g}")
+    assert rad_frac >= 0.995 and res_frac >= min_res and in_medium > 20
+    _check_table_cotangents(got[:4], want[:4])
+    assert min(shares) >= 0.9999
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert d_media > 0
+
+
+def _vol_lanes(name, n, seed):
+    """Random lanes about a media scene with seeded medium carries [N, 4]
+    (sigma_a, sigma_s nonzero on about 60% of lanes)."""
+    from tests.test_torch_volume import medium_carries
+
+    _, tables = _vol_grad_scene(name, (8, 8))
+    lanes = random_lanes(n, seed=seed)
+    centre = np.array([0.0, 6.5, 2.0] if name == "vol_mini" else [0.0, 0.0, 0.0])
+    lanes["origin"] = (lanes["origin"] + centre).astype(np.float32)
+    sa, ss, _ = medium_carries(n, seed=seed + 1)
+    medium = torch.from_numpy(np.ascontiguousarray(np.concatenate([sa, ss[:, None]], -1)))
+    return tables, {k: torch.from_numpy(v) for k, v in lanes.items()}, medium
+
+
+@pytest.mark.parametrize("vol_nee", [True, False])
+@pytest.mark.parametrize("scene_name", ["vol_mini", "fog"])
+def test_bounce_vol_replay_and_backward_lanes_match_plain(host_lib, scene_name, vol_nee):
+    """Kernel 2r-v (``bounce.cu``'s kVol instance with the replay planes)
+    against ``bounce_fused_plain(features={"volumetric"}, emit_replay=True)``
+    on 2,048 random lanes with seeded media: replay planes, terminate, emit
+    state and the medium equal on every lane, the float planes within 2e-6
+    on at least 99.5% of lanes; and kernel 3v (``bounce_grad.cu``'s kVol
+    instance) on those planes with seeded cotangents on every lane (the
+    medium's too) against ``bounce_bwd_plain``'s float64 reference: every
+    table cotangent within 1e-4 of itself plus 1e-6 of its table's largest,
+    every component of d_origin / d_direction / d_throughput / d_medium
+    within rtol = atol = 1e-5 on at least 99.99% of lanes (measured: every
+    lane), misses, light hits and in-medium scatters included."""
+    n, seed = 2048, 55
+    tables, t, medium = _vol_lanes(scene_name, n, 40)
+    feats = frozenset({"volumetric"})
+    keys = ("origin", "direction", "throughput", "sample", "depth", "prev")
+    args = (tables, *(t[k].long() if k == "sample" else t[k] for k in keys))
+    want, want_gid, want_nee = bounce_fused.bounce_fused_plain(
+        *args, medium, seed, nee=True, features=feats, vol_nee=vol_nee, emit_replay=True)
+    outs = [torch.empty((n, 3)) for _ in range(4)] + [
+        torch.empty(n, dtype=torch.uint8), torch.empty(n), torch.empty(n), torch.empty((n, 4))]
+    rgid, rnee = torch.empty(n), torch.empty(n)
+    host_lib.host_bounce(
+        tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(), tables[2].data_ptr(),
+        tables[3].data_ptr(), seed, 1, n, *(t[k].data_ptr() for k in keys), medium.data_ptr(),
+        *(o.data_ptr() for o in outs), rgid.data_ptr(), rnee.data_ptr(), 1, 0, int(vol_nee), 4,
+        *NO_SURF, *NO_MESH,
+    )
+    contrib, next_o, next_d, thr_mult, terminate, wspec, _, out_medium = outs
+    assert torch.equal(rgid, want_gid) and torch.equal(rnee, want_nee)
+    assert torch.equal(terminate.bool(), want.terminate)
+    assert torch.equal(wspec, want.was_specular) and torch.equal(out_medium, want.next_medium)
+    close = torch.ones(n, dtype=torch.bool)
+    for got, ref in ((contrib, want.contrib), (next_o, want.next_origin),
+                     (next_d, want.next_direction), (thr_mult, want.throughput_mult)):
+        close &= torch.isclose(got, ref, rtol=2e-6, atol=2e-6).all(-1)
+    frac = float(close.float().mean())
+    miss, light = rgid < 0, (rgid >= 0) & want.terminate
+    # the lanes whose free path ends before their surface
+    u8 = hash_uniforms_planes(seed, t["sample"].long(), t["depth"], 11)[8]
+    free_path = torch.where(medium[:, 3] > 0, -torch.log(torch.clamp(1.0 - u8, 1e-7, 1.0))
+                            / torch.clamp(medium[:, 3], min=1e-12), 1e30)
+    scatter = (rgid >= 0) & (free_path < nearest_hit_plain(Rays(t["origin"], t["direction"]),
+                                                           tables[0]).t)
+    assert frac >= 0.995 and int(miss.sum()) > 0 and int(light.sum()) > 0
+
+    r = np.random.default_rng(9)
+    cots = [torch.from_numpy(r.standard_normal((n, 3)).astype(np.float32)) for _ in range(4)]
+    g_med = torch.from_numpy(r.standard_normal((n, 4)).astype(np.float32))
+    bargs = (*args, rgid, rnee, *cots, seed)
+    bkw = dict(nee=True, features=feats, medium=medium, g_medium=g_med, vol_nee=vol_nee)
+    ref = bounce_grad.bounce_bwd_plain(*bargs, dtype=torch.float64, **bkw)
+    g, m = tables[0].shape[0], tables[1].shape[0]
+    d_o, d_d, d_t, d_m = torch.empty((n, 3)), torch.empty((n, 3)), torch.empty((n, 3)), torch.empty(
+        (n, 4))
+    row = torch.empty(trace_grad.grad_row_len(g, m))
+    host_lib.host_bounce_bwd(
+        tables[0].data_ptr(), g, tables[1].data_ptr(), m, tables[2].data_ptr(),
+        tables[3].data_ptr(), seed, 1, n, *(t[k].data_ptr() for k in keys), rgid.data_ptr(),
+        rnee.data_ptr(), *(c.data_ptr() for c in cots), d_o.data_ptr(), d_d.data_ptr(),
+        d_t.data_ptr(), row.data_ptr(), 1, int(vol_nee), medium.data_ptr(), g_med.data_ptr(),
+        d_m.data_ptr(),
+    )
+    got = (*trace_grad.split_grad_row(row, g, m), d_o, d_d, d_t, d_m)
+    shares = [_lane_share(k, w) for k, w in zip(got[4:], ref[4:])]
+    print(f"{scene_name} vol_nee={vol_nee}: {int(miss.sum())} misses, {int(light.sum())} light "
+          f"hits, {int(scatter.sum())} in-medium scatters; 2r-v lanes within 2e-6: {frac:.5f}; "
+          f"3v lanes within 1e-5 of the float64 reference (d_o, d_d, d_thr, d_medium): {shares}")
+    assert int(scatter.sum()) > 50
+    _check_table_cotangents(got[:4], ref[:4])
+    assert min(shares) >= 0.9999
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    assert float(d_m.abs().max()) > 0
 
 
 # ---- the optional surface physics: the kSurf instances of kernels 1 and 2

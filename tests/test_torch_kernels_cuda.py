@@ -524,6 +524,163 @@ def test_grad_engine_wrappers_check_inputs():
         intersect_cuda.winner_t_gid_cuda(Rays(o, d), tables[0].repeat(200, 1))
 
 
+# ---- differentiable participating media: kernels 4v, 5v, 2r-v and 3v.
+# Bars: 4v's radiance equal to kernel 1's volumetric instance and its 17
+# residual planes equal to tfwd_plain's; 2r-v equal to plain in every
+# output; 5v and 3v against the float64 references, every component within
+# rtol = atol = 1e-5 on at least 99.9% of lanes (the vacuum kernels' bar
+# here; chip_smoke.py's [grad:vol] holds 99.99% on milky's 640,000 lanes),
+# every table cotangent within 1e-4 of itself plus 1e-6 of its table's
+# largest.  Each lane beyond the bar is printed with its component, its
+# errors and, for 5v, the path it took (ops/trace_grad.lane_events).
+
+
+def _vol_table_bars(got, ref):
+    for g, w in zip(got, ref):
+        assert bool(torch.isfinite(g).all())
+        assert bool(((g.double() - w).abs() <= 1e-4 * w.abs() + 1e-6 * float(w.abs().max())).all())
+
+
+def _vol_lane_bars(got, ref, names, f32=None, path=None):
+    for name, g, w, p in zip(names, got, ref, f32 or [None] * len(names)):
+        assert bool(torch.isfinite(g).all())
+        close = torch.isclose(g.double(), w, rtol=1e-5, atol=1e-5).all(-1)
+        for i in (~close).nonzero()[:, 0].tolist()[:8]:
+            c = int((g[i].double() - w[i]).abs().argmax())
+            k, r = float(g[i, c]), float(w[i, c])
+            plain = "" if p is None else (
+                f", |float32 plain - float64| {abs(float(p[i, c]) - r):.3g}")
+            print(f"{name}[{c}] lane {i}: kernel {k:.9g}, float64 {r:.9g}, |kernel - float64| "
+                  f"{abs(k - r):.3g}{plain}, largest |component| {float(w[i].abs().max()):.4g}"
+                  + ("" if path is None else f"; path {path(i)}"))
+        assert float(close.double().mean()) >= 0.999, name
+
+
+@pytest.mark.parametrize("name,vol_nee", [("milky", True), ("milky", False), ("fog", True)])
+def test_trace_grad_vol_kernels_match_plain(name, vol_nee):
+    _need_cuda()
+    import numpy as np
+
+    from pathtracer_tpu_torch.ops import trace_grad
+
+    tables, seed, rays, sample = _grad_inputs(name, (96, 96))
+    n = 96 * 96
+    kw = dict(max_depth=6, nee=True, rr=False, rr_start=3, vol_nee=vol_nee)
+    feats = frozenset({"volumetric"})
+    args = (*tables, seed, rays.origin, rays.direction, sample)
+    before = (trace_grad.fwd_launches, trace_grad.fwd_vol_launches)
+    rad_k, nr_k, res_k = trace_grad.tfwd_cuda(*args, features=feats, **kw)
+    assert (trace_grad.fwd_launches, trace_grad.fwd_vol_launches) == (before[0], before[1] + 1)
+    rad_t, nr_t = trace.trace_cuda(*args, features=feats, **kw)
+    rad_p, nr_p, res_p = trace_grad.tfwd_plain(*args, features=feats, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(rad_k, rad_t) and int(nr_k) == int(nr_t) == int(nr_p)
+    assert torch.equal(res_k, res_p)
+    g_rad = torch.from_numpy(
+        np.random.default_rng(3).standard_normal((n, 3)).astype(np.float32)).cuda()
+    before = (trace_grad.bwd_launches, trace_grad.bwd_vol_launches)
+    got = trace_grad.tbwd_cuda(*tables, seed, sample, res_k, g_rad, features=feats, **kw)
+    assert (trace_grad.bwd_launches, trace_grad.bwd_vol_launches) == (before[0], before[1] + 1)
+    ref = trace_grad.tbwd_plain(*tables, seed, sample, res_k, g_rad, features=feats,
+                                dtype=torch.float64, **kw)
+    f32 = trace_grad.tbwd_plain(*tables, seed, sample, res_k, g_rad, features=feats, **kw)
+    torch.cuda.synchronize()
+    _vol_table_bars(got[:4], ref[:4])
+    _vol_lane_bars(got[4:], ref[4:], ("d_origin", "d_direction"), f32[4:], lambda i: (
+        trace_grad.lane_events(tables[0], seed, sample, res_k, i, feats)))
+
+
+@pytest.mark.parametrize("vol_nee", [True, False])
+def test_bounce_vol_replay_and_backward_kernels_match_plain(vol_nee):
+    _need_cuda()
+    import numpy as np
+
+    from pathtracer_tpu_torch.ops import bounce_fused, bounce_grad
+
+    tables = pack_tables(_scene("milky", (8, 8)))
+    n = 50_000
+    t = _random_lanes_cuda(n, 12)
+    t["origin"] = t["origin"] + torch.tensor([2.2, 1.6, 1.5], device="cuda")
+    r = np.random.default_rng(5)
+    on = r.random((n, 1)) < 0.6
+    medium = torch.from_numpy(np.concatenate([r.uniform(0, 0.3, (n, 3)), r.uniform(0, 3, (n, 1))],
+                                             -1).astype(np.float32) * on).cuda()
+    feats = frozenset({"volumetric"})
+    args = (tables, t["origin"], t["direction"], t["throughput"], t["sample"].long(),
+            t["depth"], t["prev"])
+    before = (bounce_fused.replay_launches, bounce_fused.replay_vol_launches)
+    res, rgid, rnee = bounce_fused.bounce_fused_cuda(*args, medium, 4321, nee=True,
+                                                     features=feats, vol_nee=vol_nee,
+                                                     emit_replay=True)
+    assert (bounce_fused.replay_launches, bounce_fused.replay_vol_launches) == (
+        before[0], before[1] + 1)
+    plain, pgid, pnee = bounce_fused.bounce_fused_plain(*args, medium, 4321, nee=True,
+                                                        features=feats, vol_nee=vol_nee,
+                                                        emit_replay=True)
+    torch.cuda.synchronize()
+    assert torch.equal(rgid, pgid) and torch.equal(rnee, pnee)
+    for f in ("contrib", "next_origin", "next_direction", "throughput_mult", "terminate",
+              "was_specular", "rr_uniform", "next_medium"):
+        assert torch.equal(getattr(res, f), getattr(plain, f)), f
+
+    cots = [torch.from_numpy(r.standard_normal((n, 3)).astype(np.float32)).cuda()
+            for _ in range(4)]
+    g_med = torch.from_numpy(r.standard_normal((n, 4)).astype(np.float32)).cuda()
+    bargs = (*args, rgid, rnee, *cots, 4321)
+    bkw = dict(nee=True, features=feats, medium=medium, g_medium=g_med, vol_nee=vol_nee)
+    before = (bounce_grad.launches, bounce_grad.vol_launches)
+    got = bounce_grad.bounce_bwd_cuda(*bargs, **bkw)
+    assert (bounce_grad.launches, bounce_grad.vol_launches) == (before[0], before[1] + 1)
+    ref = bounce_grad.bounce_bwd_plain(*bargs, dtype=torch.float64, **bkw)
+    torch.cuda.synchronize()
+    _vol_table_bars(got[:4], ref[:4])
+    _vol_lane_bars(got[4:], ref[4:], ("d_origin", "d_direction", "d_throughput", "d_medium"))
+
+
+# engine, launches of 2 spp at depth 5: kernel 1v, 4v, 5v, 2r-v, 3v, 7, 8
+VOL_ENGINES = {
+    "full-depth": (dict(), [0, 2, 2, 0, 0, 0, 0]),
+    "per-bounce": (dict(grad_full_trace=False), [0, 0, 0, 10, 10, 0, 0]),
+    "lean": (dict(grad_fused=False), [2, 0, 0, 0, 0, 10, 10]),
+}
+
+
+@pytest.mark.parametrize("name", sorted(VOL_ENGINES))
+def test_vol_grad_engines_launch_their_kernels(name):
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import bounce_fused, bounce_grad, intersect_cuda, trace_grad
+    from pathtracer_tpu_torch.ops.rng import prng_key
+    from pathtracer_tpu_torch.render import diff
+
+    desc = dataclasses.replace(load_scene(os.path.join(ROOT, "scenes", "milky.txt")),
+                               resolution=(48, 48))
+    params, static = diff.params_from_description(desc, 0, device="cuda")
+    target = torch.zeros((48 * 48, 3), device="cuda")
+    engine, launched = VOL_ENGINES[name]
+    cfg = RenderConfig(max_depth=5, **engine)
+
+    def counts():
+        return (trace.vol_launches, trace_grad.fwd_vol_launches, trace_grad.bwd_vol_launches,
+                bounce_fused.replay_vol_launches, bounce_grad.vol_launches,
+                intersect_cuda.winner_launches, intersect_cuda.occlusion_launches)
+
+    before = counts()
+    loss, grads, _ = diff.loss_and_grad_rays(params, static, target, 2, prng_key(0), cfg)
+    torch.cuda.synchronize()
+    d = [a - b for a, b in zip(counts(), before)]
+    assert d == launched, d
+    cp, _ = diff.params_from_description(desc, 0, device="cpu")
+    loss_c, grads_c = diff.loss_and_grad(cp, static, target.cpu(), 2, prng_key(0), cfg,
+                                         device="cpu")
+    assert abs(float(loss) - float(loss_c)) <= 1e-4 * abs(float(loss_c))
+    cl, gl = grads_c.leaves(), grads.leaves()
+    gscale = max(float(v.abs().max()) for v in cl.values())
+    for k, v in gl.items():
+        assert bool(torch.isfinite(v).all()), k
+        assert float((v.cpu() - cl[k]).abs().max()) <= 5e-4 * gscale, k
+    assert float(grads.materials.absorption_coefficient.abs().max()) > 0
+
+
 # ---- triangle meshes: kernels 9 and 10, kernels 1 and 2 with the in-kernel
 # sweep.  Bars: kernels 9 and 10 equal their plain versions on every lane (t,
 # index, miss pattern); kernel 1 with meshes equal ray counts and radiance

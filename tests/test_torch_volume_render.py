@@ -1,6 +1,6 @@
 """Renders of the participating-media scenes through the port's engines,
 against the JAX package and against each other, on the CPU; the ``sss_96``
-golden; and the differentiable engines' refusal of media.
+golden; and the differentiable engines on media.
 
 The scenes are ``scenes/glass_dof.txt`` (Beer-Lambert absorption in a
 glass sphere, thin-lens depth of field), ``fog.txt`` (volumetric NEE in an
@@ -125,18 +125,22 @@ def test_sss_96_golden():
 @pytest.mark.parametrize("grad", [dict(), dict(grad_full_trace=False), dict(grad_fused=False)],
                          ids=["full-depth", "per-bounce", "lean"])
 def test_differentiable_engines_refuse_media(grad):
-    """Media are forward only: each differentiable engine (the full-depth
-    trace, the per-bounce engine, the lean scan) raises on a volumetric
-    scene rather than differentiate it as vacuum."""
-    scene = dataclasses.replace(load_scene(_path("glass_dof")), resolution=(8, 8)).scene_for_frame(
-        0, device="cpu")
-    cfg = RenderConfig(grad_lean=True, max_depth=2, features=("volumetric",), **grad)
-    with pytest.raises(NotImplementedError, match="volumetric"):
-        render(scene, 1, cfg, device="cpu")
-    # and through the gradient entry point, whose lean engine would
-    # otherwise run its forward on kernel 1 first
+    """Media differentiate on every engine (the full-depth trace, the
+    per-bounce engine, the lean scan): glass_dof's render under
+    ``grad_lean`` equals the forward render's, and ``loss_and_grad`` gives
+    finite gradients with a nonzero gradient of the glass's absorption
+    (``tests/test_torch_volume_diff.py`` holds them to JAX's)."""
     desc = dataclasses.replace(load_scene(_path("glass_dof")), resolution=(8, 8))
+    scene = desc.scene_for_frame(0, device="cpu")
+    cfg = RenderConfig(max_depth=4, features=("volumetric",), auto_features=False)
+    _, want, _ = render(scene, 1, cfg, device="cpu")
+    _, got, _ = render(scene, 1, dataclasses.replace(cfg, grad_lean=True, **grad), device="cpu")
+    torch.testing.assert_close(got, want, rtol=2e-6, atol=2e-6)
     params, static = diff.params_from_description(desc, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match="volumetric"):
-        diff.loss_and_grad(params, static, torch.zeros((64, 3)), 1, prng_key(0),
-                           RenderConfig(max_depth=2, **grad), device="cpu")
+    loss, grads = diff.loss_and_grad(params, static, torch.zeros((64, 3)), 1, prng_key(0),
+                                     RenderConfig(max_depth=4, **grad), device="cpu")
+    assert float(loss) > 0
+    assert all(bool(torch.isfinite(v).all()) for v in grads.leaves().values())
+    absorption = grads.materials.absorption_coefficient
+    print(f"{grad}: loss {float(loss):.6g}, absorption gradient {absorption.tolist()}")
+    assert float(absorption.abs().max()) > 0
