@@ -205,7 +205,33 @@ Phases (any failure exits non-zero):
     sss at 512x512 (kernel 1hg forward; profiled) and of fog's cube around
     the icosphere (kernel 1m-vol forward); the new instances' registers,
     and Cornell's kernels 3, 4 and 5 take exactly 136, 72 and 148;
-14. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+14. ``[grad:surf]``, differentiable surface physics, each step through
+    ``render.diff.loss_and_grad_rays`` with the counters zeroed just
+    before: (a) ``scenes/ward.txt`` at ``bench.py``'s 512x512 and
+    ``textured.txt`` at its 800x800, depth 8, NEE, 4 spp, target zeros, on
+    the full-depth engine (kernels 4s and 5s, 4 launches each; ward's step
+    profiled), the per-bounce engine (2r-s and 3s, 32 each) and the lean
+    one (kernel 1s forward, kernels 7 and 8 in the backward): every
+    gradient finite, the three losses equal, each leaf of the per-bounce
+    step within 5e-4 of the full-depth step's largest entry of that leaf;
+    the lean step's leaves printed against the gscale bar (5e-4 of the
+    largest gradient), and over the pixels whose lean re-trace (the split
+    route's physics) keeps the kernel forward's path its leaves held leaf
+    by leaf as the per-bounce step's: all of them on ward, the albedo leaves
+    on textured, whose others are printed (the docstring of
+    ``hold_engines`` says why);
+    ``textured_image.txt`` at 512x512 on the
+    lean engine (kernel 2t forward, 8 launches per iteration) with a
+    finite, nonzero gradient on the atlas's texels; (b) 4s and 2r-s
+    bit-equal to their plain versions and 5s and 3s against the float64
+    references (99.99% of lanes at 1e-5, the tables at their bars; the
+    lanes beyond printed with their paths) on ward's 262,144 and
+    textured's 640,000 iteration-0 lanes, 2r-s and 3s also on the state
+    after two bounces; (c) each kernel's device time on ward's inputs, its
+    plain version's and its bound (the Ward lobe counted on the lanes that
+    sample it); the new instances' registers, and Cornell's 3 / 4 / 5 at
+    136 / 72 / 148;
+15. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
 The rendered PNGs and the profile table go to ``--out-dir`` (default
 ``renders/chip_smoke``).
@@ -217,6 +243,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -290,11 +317,15 @@ def _counters() -> dict:
         "trace_bwd": (trace_grad, "bwd_launches"),
         "trace_fwd_resid_vol": (trace_grad, "fwd_vol_launches"),
         "trace_bwd_vol": (trace_grad, "bwd_vol_launches"),
+        "trace_fwd_resid_surf": (trace_grad, "fwd_surf_launches"),
+        "trace_bwd_surf": (trace_grad, "bwd_surf_launches"),
         "bounce": (bounce_fused, "launches"),
         "bounce_replay": (bounce_fused, "replay_launches"),
         "bounce_replay_vol": (bounce_fused, "replay_vol_launches"),
+        "bounce_replay_surf": (bounce_fused, "replay_surf_launches"),
         "bounce_bwd": (bounce_grad, "launches"),
         "bounce_bwd_vol": (bounce_grad, "vol_launches"),
+        "bounce_bwd_surf": (bounce_grad, "surf_launches"),
         "nearest_hit": (intersect_cuda, "nearest_launches"),
         "winner": (intersect_cuda, "winner_launches"),
         "occlusion": (intersect_cuda, "occlusion_launches"),
@@ -2476,6 +2507,92 @@ def bigmesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     return entries
 
 
+def grad_step(tag, shown, dev, spp: int, out_dir: str, label, desc, cfg, expect,
+              kernels=None) -> dict:
+    """One ``loss_and_grad_rays`` step of ``spp`` iterations, target zeros,
+    through the entry point with the counters zeroed just before: its
+    launches checked against ``expect``, every gradient finite, its time
+    after a warm-up step, the material leaves ``shown`` printed, and with
+    ``kernels`` one profiled step (idle share).  The phases bind the first
+    five arguments (``functools.partial``)."""
+    import torch
+
+    from pathtracer_tpu_torch.ops.rng import prng_key
+    from pathtracer_tpu_torch.render import diff
+
+    params, static = diff.params_from_description(desc, 0, device=dev)
+    n = static.resolution[0] * static.resolution[1]
+    target = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+
+    def step():
+        return diff.loss_and_grad_rays(params, static, target, spp, prng_key(0), cfg, device=dev)
+
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, grads, rays = step()
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches == expect, f"{label} step launches {launches}, expected {expect}")
+    bad = [k for k, v in grads.leaves().items() if not bool(torch.isfinite(v).all())]
+    check(not bad and float(loss) > 0, f"{label}: loss {float(loss)}, non-finite {bad}")
+    t0 = time.perf_counter()  # the first step was the warm-up
+    step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    name = tag.strip("[]").replace(":", "_") + "_" + label.replace(" ", "_")
+    summary = (profile_step(step, step_ms, out_dir, name, kernels) if kernels
+               else "idle share not measured (one profile per scene)")
+    leaves = {k: [round(v, 6) for v in getattr(grads.materials, k).flatten().tolist()]
+              for k in shown}
+    print(f"{tag} {label} {static.resolution[0]}x{static.resolution[1]} d{cfg.max_depth} nee "
+          f"vol_nee={cfg.vol_nee} spp={spp}: {step_ms:.4f} ms ({first_s:.3f} s first), "
+          f"{int(rays) / step_ms / 1e3:.1f} fwd+bwd Mrays/s, loss {float(loss):.9g}, peak "
+          f"memory {peak_gb:.3f} GB, launches {launches}; gradients {leaves}; {summary}")
+    return dict(loss=loss, grads=grads, ms=step_ms, launches=launches, params=params,
+                static=static)
+
+
+def hold_adjoint(tag, got, ref, names, path) -> float:
+    """An adjoint kernel's ``got`` against its float64 reference ``ref``
+    (four table cotangents, then ``[N, k]`` lane planes named ``names``):
+    the tables at their bars (1e-4 of themselves plus 1e-6 of their
+    table's largest), each lane component within rtol = atol = 1e-5 on
+    99.99% of lanes; prints the worst lane of each plane and up to four
+    lanes beyond the bar with ``path(lane)``.  Returns the max abs err."""
+    import torch
+
+    shares = {}
+    for nm, g, rf in zip(("d_gtab", "d_mtab", "d_ltab", "d_scal"), got[:4], ref[:4]):
+        bar = 1e-4 * rf.abs() + 1e-6 * float(rf.abs().max())
+        ok = bool(torch.isfinite(g).all()) and bool(((g.double() - rf).abs() <= bar).all())
+        check(ok, f"{tag}: {nm} beyond 1e-4 of itself plus 1e-6 of its table's largest")
+    for nm, g, rf in zip(names, got[4:], ref[4:]):
+        check(bool(torch.isfinite(g).all()), f"{tag}: {nm} not finite")
+        close = torch.isclose(g.double(), rf, rtol=1e-5, atol=1e-5).all(-1)
+        shares[nm] = float(close.double().mean())
+        excess = ((g.double() - rf).abs() / (1e-5 + 1e-5 * rf.abs())).amax(-1)
+        beyond = (excess > 1).nonzero()[:, 0]
+        i = int(excess.argmax())
+        print(f"[grad:check] {tag}: {nm} worst lane {i}: |kernel - float64| "
+              f"{float((g[i].double() - rf[i]).abs().max()):.3g}, largest |component| "
+              f"{float(rf[i].abs().max()):.4g}, {float(excess[i]):.3g} times the bar; "
+              f"{beyond.numel()} lanes beyond it")
+        for j in beyond[:4].tolist():
+            c = int((g[j].double() - rf[j]).abs().argmax())
+            print(f"[grad:check] {tag}: {nm}[{c}] lane {j}: kernel {float(g[j, c]):.9g}, "
+                  f"float64 {float(rf[j, c]):.9g}; path {path(j)}")
+    worst = max(float((g.double() - rf).abs().max()) for g, rf in zip(got, ref))
+    print(f"[grad:check] {tag}: lanes within rtol = atol = 1e-5 of the float64 reference "
+          f"{shares}; tables within their bars; max abs err {worst:.3g}")
+    check(min(shares.values()) >= 0.9999,
+          f"{tag}: beyond 1e-5 of the float64 reference on > 0.01% of lanes")
+    return worst
+
+
 GRAD_VOL_SPP = 4
 GRAD_VOL_WINDOW = 256  # (b)'s vol_nee=False repeat: a 256x256 window of milky's primary rays
 # fp32 operations of the adjoint's media blocks per live lane-bounce beyond
@@ -2530,46 +2647,7 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     }
     medium_leaves = ("absorption_coefficient", "reduced_scatter_coefficient", "has_scatter",
                      "phase_g")
-
-    def grad_step(label, desc, cfg, expect, kernels=None):
-        """One ``loss_and_grad_rays`` step through the entry point with the
-        counters zeroed just before: its launches checked, its time, and
-        with ``kernels`` one profiled step (idle share)."""
-        params, static = diff.params_from_description(desc, 0, device=dev)
-        n = static.resolution[0] * static.resolution[1]
-        target = torch.zeros((n, 3), dtype=torch.float32, device=dev)
-
-        def step():
-            return diff.loss_and_grad_rays(params, static, target, spp, prng_key(0), cfg,
-                                           device=dev)
-
-        zero_counts()
-        torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        loss, grads, rays = step()
-        torch.cuda.synchronize()
-        first_s = time.perf_counter() - t0
-        launches = read_counts()
-        peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        check(launches == expect, f"{label} step launches {launches}, expected {expect}")
-        bad = [k for k, v in grads.leaves().items() if not bool(torch.isfinite(v).all())]
-        check(not bad and float(loss) > 0, f"{label}: loss {float(loss)}, non-finite {bad}")
-        t0 = time.perf_counter()  # the first step was the warm-up
-        step()
-        torch.cuda.synchronize()
-        step_ms = (time.perf_counter() - t0) * 1e3
-        summary = (profile_step(step, step_ms, out_dir, "grad_vol_" + label.replace(" ", "_"),
-                                kernels)
-                   if kernels else "idle share not measured (one lean profile per phase)")
-        med = {k: [round(v, 6) for v in getattr(grads.materials, k).flatten().tolist()]
-               for k in medium_leaves}
-        print(f"[grad:vol] {label} {static.resolution[0]}x{static.resolution[1]} d{depth} nee "
-              f"vol_nee={cfg.vol_nee} spp={spp}: {step_ms:.4f} ms ({first_s:.3f} s first), "
-              f"{int(rays) / step_ms / 1e3:.1f} fwd+bwd Mrays/s, loss {float(loss):.9g}, peak "
-              f"memory {peak_gb:.3f} GB, launches {launches}; medium leaves' gradients {med}; "
-              f"{summary}")
-        return dict(loss=loss, grads=grads, ms=step_ms, launches=launches)
+    step = functools.partial(grad_step, "[grad:vol]", medium_leaves, dev, spp, out_dir)
 
     def hold_engines(label, steps):
         """The per-bounce and lean steps against the full-depth one: the loss
@@ -2590,7 +2668,7 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
 
     # ---- (a) milky at its 800x800 on the three engines
     milky = load_scene(os.path.join(scenes_dir, "milky.txt"))
-    steps = {name: grad_step(f"milky {name}", milky, cfg, expect, kernels)
+    steps = {name: step(f"milky {name}", milky, cfg, expect, kernels)
              for name, (cfg, expect, kernels) in engines.items()}
     hold_engines("milky", steps)
     engine_launch = {"trace_fwd_resid_vol": steps["full-depth"]["launches"]["trace_fwd_resid_vol"],
@@ -2632,41 +2710,6 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
         print(f"[grad:vol] (b) vol_nee=True on all {n_full} lanes, {int(on_sphere.sum())} of "
               f"them on the milky sphere; vol_nee=False on {window.numel()} lanes at rows "
               f"{y0}.., columns {x0}.., {int(on_sphere[window].sum())} of them on the sphere")
-
-        def lane_share(got, want):
-            close = torch.isclose(got.double(), want, rtol=1e-5, atol=1e-5).all(-1)
-            return float(close.double().mean())
-
-        def hold_adjoint(tag, got, ref, names, path):
-            """The tables at their bars, each lane component within rtol =
-            atol = 1e-5 of the float64 reference on 99.99% of lanes; the
-            worst lane of each component, and up to four lanes beyond the
-            bar with the path they took."""
-            shares = {}
-            for nm, g, rf in zip(("d_gtab", "d_mtab", "d_ltab", "d_scal"), got[:4], ref[:4]):
-                bar = 1e-4 * rf.abs() + 1e-6 * float(rf.abs().max())
-                ok = bool(torch.isfinite(g).all()) and bool(((g.double() - rf).abs() <= bar).all())
-                check(ok, f"{tag}: {nm} beyond 1e-4 of itself plus 1e-6 of its table's largest")
-            for nm, g, rf in zip(names, got[4:], ref[4:]):
-                check(bool(torch.isfinite(g).all()), f"{tag}: {nm} not finite")
-                shares[nm] = lane_share(g, rf)
-                excess = ((g.double() - rf).abs() / (1e-5 + 1e-5 * rf.abs())).amax(-1)
-                beyond = (excess > 1).nonzero()[:, 0]
-                i = int(excess.argmax())
-                print(f"[grad:check] {tag}: {nm} worst lane {i}: |kernel - float64| "
-                      f"{float((g[i].double() - rf[i]).abs().max()):.3g}, largest |component| "
-                      f"{float(rf[i].abs().max()):.4g}, {float(excess[i]):.3g} times the bar; "
-                      f"{beyond.numel()} lanes beyond it")
-                for j in beyond[:4].tolist():
-                    c = int((g[j].double() - rf[j]).abs().argmax())
-                    print(f"[grad:check] {tag}: {nm}[{c}] lane {j}: kernel {float(g[j, c]):.9g}, "
-                          f"float64 {float(rf[j, c]):.9g}; path {path(j)}")
-            worst = max(float((g.double() - rf).abs().max()) for g, rf in zip(got, ref))
-            print(f"[grad:check] {tag}: lanes within rtol = atol = 1e-5 of the float64 "
-                  f"reference {shares}; tables within their bars; max abs err {worst:.3g}")
-            check(min(shares.values()) >= 0.9999,
-                  f"{tag}: beyond 1e-5 of the float64 reference on > 0.01% of lanes")
-            return worst
 
         timing_args = {}
         for vol_nee, lanes in ((True, pixel), (False, window)):
@@ -2823,7 +2866,7 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
 
     # ---- (c) fog at its 200x200 on the three engines
     fog = load_scene(os.path.join(scenes_dir, "fog.txt"))
-    fog_steps = {name: grad_step(f"fog {name}", fog, cfg, expect)
+    fog_steps = {name: step(f"fog {name}", fog, cfg, expect)
                  for name, (cfg, expect, _) in engines.items()}
     hold_engines("fog", fog_steps)
     lap("(c)")
@@ -2832,10 +2875,10 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     # fog's cube around the icosphere (media in a mesh scene, 1m-vol forward)
     sss = dataclasses.replace(load_scene(os.path.join(scenes_dir, "sss.txt")),
                               resolution=VOL_RES)
-    grad_step("sss lean", sss, base, only(trace_hg=spp, winner=per, occlusion=per),
+    step("sss lean", sss, base, only(trace_hg=spp, winner=per, occlusion=per),
               ("trace_kernel", "winner_kernel", "occlusion_kernel"))
     fog_mesh = parse_scene_text(fog_mesh_scene(True), name="fog_mesh_glass", scene_dir=scenes_dir)
-    grad_step("fog_mesh_glass lean", fog_mesh, base,
+    step("fog_mesh_glass lean", fog_mesh, base,
               only(trace_mesh_vol=spp, winner=per, occlusion=per, mesh_nearest=per,
                    mesh_min=2 * per))
     lap("(d)")
@@ -2843,12 +2886,12 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     # ---- registers: the new instances, and the vacuum ones keep theirs
     instances = ptxas_instances(reports)
     regs = {
-        "4": instance_regs(instances, "trace_grad", "trace_fwd_kernel", False),
-        "4v": instance_regs(instances, "trace_grad", "trace_fwd_kernel", True),
-        "5": instance_regs(instances, "trace_grad", "trace_bwd_kernel", False),
-        "5v": instance_regs(instances, "trace_grad", "trace_bwd_kernel", True),
-        "3": instance_regs(instances, "bounce_grad", "bounce_bwd_kernel", False),
-        "3v": instance_regs(instances, "bounce_grad", "bounce_bwd_kernel", True),
+        "4": instance_regs(instances, "trace_grad", "trace_fwd_kernel", False, False),
+        "4v": instance_regs(instances, "trace_grad", "trace_fwd_kernel", True, False),
+        "5": instance_regs(instances, "trace_grad", "trace_bwd_kernel", False, False),
+        "5v": instance_regs(instances, "trace_grad", "trace_bwd_kernel", True, False),
+        "3": instance_regs(instances, "bounce_grad", "bounce_bwd_kernel", False, False),
+        "3v": instance_regs(instances, "bounce_grad", "bounce_bwd_kernel", True, False),
         "2r-v": instance_regs(instances, "bounce", "bounce_kernel", 0, 1, 0, 0, 0),
     }
     print(f"[grad:vol:regs] registers, spill store / load bytes per instance: {regs}")
@@ -2875,6 +2918,424 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
             ("trace_bwd_vol", "5v", "trace_grad.cu", "pathtracer_tpu/ops/trace_grad.py:190"),
             ("bounce_replay_vol", "2r-v", "bounce.cu", "pathtracer_tpu/ops/bounce_grad.py:226"),
             ("bounce_bwd_vol", "3v", "bounce_grad.cu", "pathtracer_tpu/ops/bounce_grad.py:91"),
+        )
+    ]
+
+
+GRAD_SURF_SPP = 4
+# fp32 operations of the Ward lobe per lane-bounce that samples it, counted
+# by hand from trace_common.cuh:ward_lobe (the clamps and the azimuth 20,
+# the half-vector's angles 17, the tangent frame 28, the half vector and
+# the reflection 24, the weight 18: 107), and of its adjoint beyond
+# OPS_BWD_ADJOINT (bounce_adj.cuh:ward_adj: the recomputed lobe, the
+# weight's and the angles' adjoints 60, the frame's 130, the reflection's
+# 20: 317); the times and bounds of [grad:surf] are ward's, whose brushed
+# floor and sphere take this lobe on the lanes counted from the run's
+# winners
+OPS_WARD = 107
+OPS_WARD_ADJ = 317
+
+
+def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
+    """Phase 14, ``[grad:surf]``: differentiable surface physics.  ward at
+    ``bench.py``'s 512x512 and textured at its 800x800 on the three gradient
+    engines, textured_image at 512x512 on the lean engine (the atlas a
+    leaf), kernels 4s, 5s, 2r-s and 3s against their plain versions on
+    ward's and textured's iteration-0 lanes, times, bounds and registers.
+    Returns the JSON entries of the four new instances."""
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import bounce_fused, bounce_grad, trace, trace_grad
+    from pathtracer_tpu_torch.ops.bounce import pack_tables
+    from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render import diff
+    from pathtracer_tpu_torch.render.features import resolve_features
+    from pathtracer_tpu_torch.render.integrator import render_sample
+    from pathtracer_tpu_torch.scene.parser import load_scene
+
+    scenes_dir = os.path.join(ROOT, "scenes")
+    t_last = [time.perf_counter()]
+
+    def lap(part: str) -> None:
+        now = time.perf_counter()
+        print(f"[grad:surf:wall] {part} {now - t_last[0]:.1f} s")
+        t_last[0] = now
+
+    spp, depth = GRAD_SURF_SPP, 8
+    per = spp * depth
+    base = RenderConfig(wavefront=False, nee=True, max_depth=depth)
+    engines = {
+        "full-depth": (base, only(trace_fwd_resid_surf=spp, trace_bwd_surf=spp),
+                       ("trace_fwd_kernel", "trace_bwd_kernel", "block_row_sum")),
+        "per-bounce": (dataclasses.replace(base, grad_full_trace=False),
+                       only(bounce_replay_surf=per, bounce_bwd_surf=per),
+                       ("bounce_kernel", "bounce_bwd_kernel", "block_row_sum")),
+        "lean": (dataclasses.replace(base, grad_fused=False),
+                 only(trace_surf=spp, winner=per, occlusion=per),
+                 ("trace_kernel", "winner_kernel", "occlusion_kernel")),
+    }
+    surface_leaves = ("texture_color2", "bump_scale", "bump_amp", "specular_color", "roughness",
+                      "roughness_y")
+
+    step = functools.partial(grad_step, "[grad:surf]", surface_leaves, dev, spp, out_dir)
+
+    def masked_grads(params, static, cfg, weight):
+        """The gradient of the mean squared error (target zeros) over the
+        pixels ``weight`` keeps, by the engine of ``cfg``, through
+        ``render_linear`` as ``loss_and_grad`` runs it."""
+        names, values = zip(*params.leaves().items())
+        leaves = [v.detach().requires_grad_(True) for v in values]
+        hw = None if params.textures is None else params.textures.hw
+        p = diff.SceneParams.from_leaves(dict(zip(names, leaves)), hw)
+        with torch.enable_grad():
+            img = diff.render_linear(p, static, spp, prng_key(0), cfg)
+            loss = torch.mean(weight[:, None] * img ** 2)
+            grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        return float(loss.detach()), {k: torch.zeros_like(x) if g is None else g
+                                      for k, g, x in zip(names, grads, leaves)}
+
+    albedo = ("materials.color", "materials.specular_color", "materials.emittance",
+              "materials.texture_color2")
+
+    def leaf_errs(got, want):
+        """Each leaf's largest |got - want| over its bar, 5e-4 of its own
+        largest |want| entry (of the largest gradient, for a leaf that
+        ``want`` gives none)."""
+        gscale = max(float(v.abs().max()) for v in want.values())
+        out = {}
+        for k, w in want.items():
+            scale = float(w.abs().max()) or gscale
+            out[k] = float((got[k] - w).abs().max()) / (5e-4 * scale)
+        return out
+
+    def hold_engines(label, steps):
+        """The three engines' losses equal; every leaf of the per-bounce
+        step within 5e-4 of the full-depth step's largest entry of that
+        leaf.  The lean step's backward re-traces each path with the split
+        route's physics (JAX's split path), whose last bits part from the
+        kernels' on a few lanes (a direction one ulp apart flips a grazing
+        shadow ray): there it differentiates another path than the one its
+        forward counted.  Its whole-loss leaves are printed against the
+        gscale bar (5e-4 of the largest gradient), and over the pixels
+        whose re-trace keeps the forward's path in every iteration its
+        leaves are held leaf by leaf as the per-bounce step's: every leaf on
+        ward, the albedo leaves (linear in the radiance) on textured, whose
+        other leaves are printed, not held.  There, on a few lanes
+        (grazing and bumped re-hits), the float32 forward's last bits decide
+        the geometry, camera and bump derivatives for every engine alike
+        (``tests/test_torch_surface_diff.py::
+        test_textured_gradient_against_float64_paths``), and the kernels
+        and torch's ops round apart (ROADMAP queue 3, open)."""
+        full = steps["full-depth"]
+        fl = full["grads"].leaves()
+        gscale = max(float(v.abs().max()) for v in fl.values())
+        for name in ("per-bounce", "lean"):
+            st = steps[name]
+            leaves = st["grads"].leaves()
+            worst, worst_leaf = max((float((leaves[k] - fl[k]).abs().max()), k) for k in fl)
+            rel = leaf_errs(leaves, fl)
+            k_rel = max(rel, key=rel.get)
+            print(f"[grad:surf] {label} {name} against full-depth: loss {float(st['loss']):.9g} "
+                  f"vs {float(full['loss']):.9g}, worst leaf {worst_leaf} {worst:.3g} (the "
+                  f"gscale bar {5e-4 * gscale:.4g}); leaf by leaf, the worst {k_rel} at "
+                  f"{rel[k_rel]:.3g} of its bar" + (" (not held)" if name == "lean" else ""))
+            check(float(st["loss"]) == float(full["loss"]), f"{label} {name}: loss differs")
+            if name == "per-bounce":
+                check(rel[k_rel] <= 1.0, f"{label} {name}: {k_rel} at {rel[k_rel]:.3g} of its bar")
+        params, static = full["params"], full["static"]
+        scene = diff.build_scene(params, static)
+        cfg = resolve_features(base, params.materials)
+        n = static.resolution[0] * static.resolution[1]
+        pix = torch.arange(n, dtype=torch.int64, device=dev)
+        seed = key_to_seed(prng_key(0))
+        parted = torch.zeros(n, dtype=torch.bool, device=dev)
+        tables = pack_tables(scene)
+        with torch.no_grad():
+            for it in range(spp):
+                a, _ = render_sample(scene, pix, it, seed, cfg)
+                b, _ = render_sample(scene, pix, it, seed, dataclasses.replace(
+                    cfg, fused=False, grad_lean=True, grad_fused=False))
+                parted_it = ((a - b).abs() > 1e-4 * (1.0 + a.abs())).any(-1)
+                if it == 0 and bool(parted_it.any()):
+                    rays = generate_camera_rays(scene.camera, pix, camera_uniforms(seed, pix))
+                    _, _, res = trace_grad.tfwd_cuda(
+                        *tables, seed, rays.origin, rays.direction, pix, max_depth=depth,
+                        nee=True, rr=False, rr_start=base.rr_start,
+                        features=frozenset(cfg.features))
+                    for lane in parted_it.nonzero()[:3, 0].tolist():
+                        print(f"[grad:surf] {label} lean: pixel {lane} parts in iteration 0, "
+                              f"radiance {a[lane].tolist()} forward, {b[lane].tolist()} "
+                              f"re-trace; the forward's path " + trace_grad.lane_events(
+                                  tables[0], seed, pix, res, lane, frozenset(cfg.features)))
+                parted |= parted_it
+        weight = (~parted).float()
+        ml_full, mg_full = masked_grads(params, static, base, weight)
+        ml_lean, mg_lean = masked_grads(params, static, dataclasses.replace(base, grad_fused=False),
+                                        weight)
+        mscale = max(float(v.abs().max()) for v in mg_full.values())
+        worst, worst_leaf = max((float((mg_lean[k] - mg_full[k]).abs().max()), k)
+                                for k in mg_full)
+        rel = leaf_errs(mg_lean, mg_full)
+        held = tuple(rel) if label == "ward" else albedo
+        k_held = max(held, key=rel.get)
+        print(f"[grad:surf] {label} lean: its re-trace parts from the kernel forward on "
+              f"{int(parted.sum())} of {n} pixels; over the others the loss {ml_lean:.9g} vs "
+              f"{ml_full:.9g}, the worst leaf {worst_leaf} {worst:.3g} (the gscale bar "
+              f"{5e-4 * mscale:.4g}); leaf by leaf, of each leaf's bar ("
+              f"{'every leaf' if label == 'ward' else 'the albedo leaves'} held): "
+              + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()))
+        check(ml_lean == ml_full and rel[k_held] <= 1.0,
+              f"{label} lean over the pixels it keeps: {k_held} at {rel[k_held]:.3g} of its bar")
+        check(float(parted.float().mean()) <= 0.01, f"{label}: the lean re-trace parts on > 1%")
+
+    # ---- (a) ward at 512x512 and textured at its 800x800 on the three
+    # engines (ward's full-depth step profiled), textured_image on the lean
+    # engine with the atlas a leaf
+    ward = dataclasses.replace(load_scene(os.path.join(scenes_dir, "ward.txt")),
+                               resolution=SURF_RES)
+    textured = load_scene(os.path.join(scenes_dir, "textured.txt"))
+    steps = {}
+    for sname, desc in (("ward", ward), ("textured", textured)):
+        steps[sname] = {
+            name: step(f"{sname} {name}", desc, cfg, expect,
+                       kernels if (sname, name) == ("ward", "full-depth") else None)
+            for name, (cfg, expect, kernels) in engines.items()}
+        hold_engines(sname, steps[sname])
+    engine_launch = {
+        "trace_fwd_resid_surf": steps["ward"]["full-depth"]["launches"]["trace_fwd_resid_surf"],
+        "trace_bwd_surf": steps["ward"]["full-depth"]["launches"]["trace_bwd_surf"],
+        "bounce_replay_surf": steps["ward"]["per-bounce"]["launches"]["bounce_replay_surf"],
+        "bounce_bwd_surf": steps["ward"]["per-bounce"]["launches"]["bounce_bwd_surf"]}
+    timg = dataclasses.replace(load_scene(os.path.join(scenes_dir, "textured_image.txt")),
+                               resolution=SURF_RES)
+    st = step("textured_image lean", timg, base, only(bounce_tex=per, winner=per, occlusion=per))
+    g_tex = st["grads"].textures.data
+    shown = int((g_tex.abs().sum(-1) > 0).sum())
+    print(f"[grad:surf] textured_image: atlas {tuple(g_tex.shape)}, {shown} texels with a "
+          f"gradient, largest |gradient| {float(g_tex.abs().max()):.4g}")
+    check(bool(torch.isfinite(g_tex).all()) and shown > 0, "textured_image: no texel gradient")
+    lap("(a)")
+
+    # ---- (b) each new kernel against its plain version on the main path's
+    # inputs: the iteration-0 lanes (pixel = sample) of ward and textured,
+    # and for 2r-s and 3s the wavefront's state after two bounces.  The
+    # times and bounds are ward's.
+    seed = key_to_seed(prng_key(0))
+    f32 = dict(dtype=torch.float32, device=dev)
+    rng = np.random.default_rng(1)
+    err = {k: 0.0 for k in engine_launch}
+    timing_args = {}
+
+    with torch.no_grad():
+        for sname, desc in (("ward", ward), ("textured", textured)):
+            params = steps[sname]["full-depth"]["params"]
+            scene = diff.build_scene(params, diff.params_from_description(desc, 0, device=dev)[1])
+            cfg = resolve_features(base, params.materials)
+            feats = frozenset(cfg.features)
+            tables = [t.contiguous() for t in pack_tables(scene)]
+            w, h = scene.camera.width, scene.camera.height
+            n = w * h
+            lanes = torch.arange(n, dtype=torch.int64, device=dev)
+            rays = generate_camera_rays(scene.camera, lanes, camera_uniforms(seed, lanes))
+            o0, d0 = rays.origin.contiguous(), rays.direction.contiguous()
+            kw = dict(max_depth=depth, nee=True, rr=False, rr_start=base.rr_start, features=feats)
+            args = (*tables, seed, o0, d0, lanes)
+            rad_k, nr_k, res_k = trace_grad.tfwd_cuda(*args, **kw)
+            rad_t, nr_t = trace.trace_cuda(*args, **kw)
+            rad_p, nr_p, res_p = trace_grad.tfwd_plain(*args, **kw)
+            torch.cuda.synchronize()
+            same = torch.equal(rad_k, rad_p) and torch.equal(res_k, res_p)
+            print(f"[grad:check] 4s {sname} {sorted(feats)}, {n} lanes: rays {int(nr_k)} (kernel "
+                  f"1s {int(nr_t)}, plain {int(nr_p)}); radiance and all {res_k.shape[1]} "
+                  f"residual planes equal to plain: {same}; radiance equal to kernel 1s: "
+                  f"{torch.equal(rad_k, rad_t)}")
+            check(same and torch.equal(rad_k, rad_t) and int(nr_k) == int(nr_t) == int(nr_p),
+                  f"kernel 4s differs from its plain version ({sname})")
+            err["trace_fwd_resid_surf"] = max(err["trace_fwd_resid_surf"],
+                                              float((rad_k - rad_p).abs().max()))
+            del rad_t, rad_p, res_p
+            g_rad = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32)).to(dev)
+            bargs = (*tables, seed, lanes, res_k, g_rad)
+            got = trace_grad.tbwd_cuda(*bargs, **kw)
+            ref = trace_grad.tbwd_plain(*bargs, dtype=torch.float64, **kw)
+            torch.cuda.synchronize()
+            err["trace_bwd_surf"] = max(err["trace_bwd_surf"], hold_adjoint(
+                f"5s {sname}", got, ref, ("d_origin", "d_direction"),
+                lambda j, t=tables[0], r=res_k, ls=lanes, f=feats: trace_grad.lane_events(
+                    t, seed, ls, r, j, f)))
+            del ref
+            if sname == "ward":
+                # the live lane-bounces whose winner's material samples the Ward lobe
+                tail = trace_grad.tail_plane(feats)
+                gid = res_k[:, tail + 2].long()
+                ward_mat = (tables[1][:, 6] > 0) & (tables[1][:, 24] > 1.5)
+                on_ward = ((res_k[:, tail + 1] > 0.5) & (gid >= 0)
+                           & ward_mat[tables[0][gid.clamp(min=0), 13].long()])
+                timing_args["4s"] = (args, kw, int(nr_k), int(on_ward.sum()))
+                timing_args["5s"] = (bargs, kw, got)
+
+            # 2r-s and 3s: the primary rays, and the state after two bounces
+            medium = torch.zeros((n, 4), **f32)
+            state = dict(origin=o0, direction=d0, throughput=torch.ones((n, 3), **f32),
+                         depth=torch.zeros(n, dtype=torch.int32, device=dev),
+                         prev=torch.zeros(n, **f32))
+            states = {"primary": state}
+            alive = torch.ones(n, dtype=torch.bool, device=dev)
+            for dep in range(2):
+                res = bounce_fused.bounce_fused_cuda(
+                    tables, state["origin"], state["direction"], state["throughput"], lanes, dep,
+                    state["prev"], medium, seed, nee=True, features=feats)
+                alive = alive & ~res.terminate
+                a = alive[:, None]
+                state = dict(origin=torch.where(a, res.next_origin, state["origin"]),
+                             direction=torch.where(a, res.next_direction, state["direction"]),
+                             throughput=torch.where(a, state["throughput"] * res.throughput_mult,
+                                                    state["throughput"]),
+                             depth=torch.full((n,), dep + 1, dtype=torch.int32, device=dev),
+                             prev=res.was_specular)
+            states["after 2 bounces"] = state
+            for label, st in states.items():
+                args2 = (tables, st["origin"], st["direction"], st["throughput"], lanes,
+                         st["depth"], st["prev"])
+                rkw = dict(nee=True, features=feats)
+                got2, rgid, rnee = bounce_fused.bounce_fused_cuda(*args2, medium, seed,
+                                                                  emit_replay=True, **rkw)
+                plain2, pgid, pnee = bounce_fused.bounce_fused_plain(*args2, medium, seed,
+                                                                     emit_replay=True, **rkw)
+                torch.cuda.synchronize()
+                same = (torch.equal(rgid, pgid) and torch.equal(rnee, pnee)
+                        and all(torch.equal(getattr(got2, f.name), getattr(plain2, f.name))
+                                for f in dataclasses.fields(got2)))
+                for f in ("contrib", "next_origin", "next_direction", "throughput_mult"):
+                    err["bounce_replay_surf"] = max(err["bounce_replay_surf"], float(
+                        (getattr(got2, f) - getattr(plain2, f)).abs().max()))
+                print(f"[grad:check] 2r-s {sname} {label}, {n} lanes: every output and the "
+                      f"replay planes equal to plain: {same}; {int((rgid < 0).sum())} misses, "
+                      f"{int(rnee.sum())} NEE connections")
+                check(same, f"kernel 2r-s differs from its plain version ({sname} {label})")
+                cots = [torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32)).to(dev)
+                        for _ in range(4)]
+                b2 = (*args2, rgid, rnee, *cots, seed)
+                bkw = dict(nee=True, features=feats)
+                got3 = bounce_grad.bounce_bwd_cuda(*b2, **bkw)
+                ref3 = bounce_grad.bounce_bwd_plain(*b2, dtype=torch.float64, **bkw)
+                torch.cuda.synchronize()
+
+                def path(j, st=st, rgid=rgid, rnee=rnee, gtab=tables[0]):
+                    gid = int(rgid[j])
+                    mid = int(gtab[gid, 13]) if gid >= 0 else -1
+                    return (f"depth {int(st['depth'][j])}, gid {gid}, material {mid}, NEE bit "
+                            f"{int(rnee[j])}")
+
+                err["bounce_bwd_surf"] = max(err["bounce_bwd_surf"], hold_adjoint(
+                    f"3s {sname} {label}", got3, ref3,
+                    ("d_origin", "d_direction", "d_throughput"), path))
+                del ref3
+                if sname == "ward" and label != "primary":
+                    mids = tables[0][rgid.long().clamp(min=0), 13].long()
+                    on_ward2 = int(((rgid >= 0) & ward_mat[mids]).sum())
+                    timing_args["2r-s"] = (args2, medium, rkw, on_ward2)
+                    timing_args["3s"] = (b2, bkw, got3)
+            if sname == "ward":
+                ward_scene, ward_tables, n_ward = scene, tables, n
+        lap("(b)")
+
+        # ---- (c) times: each kernel's device time from the profiler on
+        # ward's inputs, its plain version by CUDA events, its bound from
+        # this run's inputs
+        args, kw, nrays4, ward4 = timing_args["4s"]
+        bargs, _, got5 = timing_args["5s"]
+        args2, med2, rkw, ward2 = timing_args["2r-s"]
+        b2, bkw, got3 = timing_args["3s"]
+        dev_ms = {
+            "4s": device_ms(lambda: trace_grad.tfwd_cuda(*args, **kw),
+                            ["trace_fwd_kernel"])["trace_fwd_kernel"][0],
+            "5s": device_ms(lambda: trace_grad.tbwd_cuda(*bargs, **kw),
+                            ["trace_bwd_kernel"])["trace_bwd_kernel"][0],
+            "2r-s": device_ms(lambda: bounce_fused.bounce_fused_cuda(
+                *args2, med2, seed, emit_replay=True, **rkw),
+                ["bounce_kernel"])["bounce_kernel"][0],
+            "3s": device_ms(lambda: bounce_grad.bounce_bwd_cuda(*b2, **bkw),
+                            ["bounce_bwd_kernel"])["bounce_bwd_kernel"][0],
+        }
+        plain_ms = {
+            "4s": cuda_ms(lambda: trace_grad.tfwd_plain(*args, **kw), reps=1),
+            "5s": cuda_ms(lambda: trace_grad.tbwd_plain(*bargs, **kw), reps=1),
+            "2r-s": cuda_ms(lambda: bounce_fused.bounce_fused_plain(
+                *args2, med2, seed, emit_replay=True, **rkw), reps=1),
+            "3s": cuda_ms(lambda: bounce_grad.bounce_bwd_plain(*b2, **bkw), reps=1),
+        }
+    lap("(c) times")
+
+    types = ward_scene.geoms.type.tolist()
+    sweep = sum(OPS_TO_OBJECT + (OPS_SPHERE if t == 0 else OPS_CUBE) for t in types)
+    table_bytes = sum(t.numel() * 4 for t in ward_tables)
+    row_bytes = sum(t.numel() * 4 for t in got5[:4])
+
+    def bound(ops, nbytes):
+        t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+        return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+    lane_bounces, n = nrays4 // 2, n_ward
+    adj = OPS_TO_OBJECT + min(OPS_SPHERE, OPS_CUBE) + OPS_SHADE + OPS_BWD_ADJOINT
+    planes = trace_grad.N_RESID
+    print(f"[grad:surf] ward: {ward4} of {lane_bounces} live lane-bounces of iteration 0 and "
+          f"{ward2} of the {n} lanes after two bounces sample the Ward lobe")
+    bounds = {
+        # origin, direction, sample in; radiance and the 13 planes per bounce out
+        "4s": bound(lane_bounces * (sweep + OPS_SHADE) + ward4 * OPS_WARD,
+                    n * (12 + 12 + 4 + 12) + depth * planes * n * 4 + table_bytes),
+        # the alive plane of every bounce, the other 12 planes of the live
+        # ones, sample and radiance cotangent in; d_origin, d_direction, the row out
+        "5s": bound(lane_bounces * adj + ward4 * OPS_WARD_ADJ,
+                    depth * n * 4 + lane_bounces * (planes - 1) * 4
+                    + n * (4 + 12 + 12 + 12) + table_bytes + row_bytes),
+        # 16 planes in (64 B); 20 float planes and a terminate byte out (81 B)
+        "2r-s": bound(n * (sweep + OPS_SHADE) + ward2 * OPS_WARD, n * (64 + 81) + table_bytes),
+        # o, d, thr, sample, depth, emit state, two replay planes, four [N, 3]
+        # cotangents in (120 B); d_o, d_d, d_thr out (36 B); the tables and the row
+        "3s": bound(n * adj + ward2 * OPS_WARD_ADJ, n * (120 + 36) + table_bytes + row_bytes),
+    }
+
+    # ---- registers: the new instances, and the vacuum ones keep theirs
+    instances = ptxas_instances(reports)
+    regs = {
+        "4s": instance_regs(instances, "trace_grad", "trace_fwd_kernel", False, True),
+        "5s": instance_regs(instances, "trace_grad", "trace_bwd_kernel", False, True),
+        "4v-s": instance_regs(instances, "trace_grad", "trace_fwd_kernel", True, True),
+        "5v-s": instance_regs(instances, "trace_grad", "trace_bwd_kernel", True, True),
+        "3s": instance_regs(instances, "bounce_grad", "bounce_bwd_kernel", False, True),
+        "3v-s": instance_regs(instances, "bounce_grad", "bounce_bwd_kernel", True, True),
+        "2r-s": instance_regs(instances, "bounce", "bounce_kernel", 0, 0, 0, 1, 0),
+        "4": instance_regs(instances, "trace_grad", "trace_fwd_kernel", False, False),
+        "5": instance_regs(instances, "trace_grad", "trace_bwd_kernel", False, False),
+        "3": instance_regs(instances, "bounce_grad", "bounce_bwd_kernel", False, False),
+    }
+    print(f"[grad:surf:regs] registers, spill store / load bytes per instance: {regs}")
+    for key, want in (("4", 72), ("5", 148), ("3", 136)):
+        check(regs[key] is None or regs[key][0] == want,
+              f"Cornell's kernel {key} uses {regs[key]} registers, not {want}")
+    print(f"[card] {card}")
+    for key in ("4s", "5s", "2r-s", "3s"):
+        print(f"[grad:surf:time] kernel {key}: {dev_ms[key]:.4f} ms of device time at {n} lanes "
+              f"of ward (plain {plain_ms[key]:.3f} ms), bound {bounds[key][0]:.4f} ms by "
+              f"{bounds[key][1]}; on {card}")
+
+    common = {"route": "cuda", "library_ms": None}
+    return [
+        {"name": name, **common, "source": f"pathtracer_tpu_torch/csrc/{src}",
+         "replaces": rep, "launches": engine_launch[name], "max_abs_err": err[name],
+         "ms": dev_ms[key], "plain_ms": plain_ms[key], "bound_ms": bounds[key][0],
+         "bound_by": bounds[key][1]}
+        for name, key, src, rep in (
+            ("trace_fwd_resid_surf", "4s", "trace_grad.cu",
+             "pathtracer_tpu/ops/trace_grad.py:115"),
+            ("trace_bwd_surf", "5s", "trace_grad.cu", "pathtracer_tpu/ops/trace_grad.py:190"),
+            ("bounce_replay_surf", "2r-s", "bounce.cu", "pathtracer_tpu/ops/bounce_grad.py:226"),
+            ("bounce_bwd_surf", "3s", "bounce_grad.cu", "pathtracer_tpu/ops/bounce_grad.py:91"),
         )
     ]
 
@@ -3075,7 +3536,11 @@ def main() -> int:
     grad_vol_kernels = grad_vol_phase(dev, card, out_dir, reports)
     wall("[grad:vol]")
 
-    # ---- 14. results
+    # ---- 14. differentiable surface physics
+    grad_surf_kernels = grad_surf_phase(dev, card, out_dir, reports)
+    wall("[grad:surf]")
+
+    # ---- 15. results
     kernels = [
         {
             "name": "trace",
@@ -3098,6 +3563,7 @@ def main() -> int:
         *surf_kernels,
         *bigmesh_kernels,
         *grad_vol_kernels,
+        *grad_surf_kernels,
     ]
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))

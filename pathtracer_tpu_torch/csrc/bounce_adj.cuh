@@ -15,9 +15,23 @@
 // Only the branch a lane took is differentiated, so the unselected
 // branches' 0 * inf of a where-graph cannot appear.  Ties of min/max split
 // the cotangent in half and clamps pass it at their bounds, as torch's
-// autograd does.  Table cotangents go to a flat row (geom, material, light
-// tables and the two scalars, RowLayout) through acc_add: a float atomic
-// on the card, a plain add in the host build.
+// autograd does; the square root of a clamped quantity passes zero where
+// the quantity is not positive (ops/bsdf.py:sqrt0).  Table cotangents go to
+// a flat row (geom, material, light tables and the two scalars, RowLayout)
+// through acc_add: a float atomic on the card, a plain add in the host
+// build.
+//
+// The surface blocks (the kSurf instances: texture, bump, microfacet and
+// ward, bounce_pallas.py:645-706,756-783,1054-1074,1121-1138) have their
+// adjoints here too.  The checker or stripes choice is piecewise constant:
+// the albedo's cotangent goes to the columns the lane selected, the
+// material's colour (0-2) or texture_color2 (18-20), and the texture scale
+// gets none.  The bump differentiates its normalize, amp sin(bs ph)
+// (columns 21-22) and the tangent frame; its phase reaches the object-space
+// hit point and through it the winner's transform.  The Cook-Torrance and
+// Ward lobes differentiate the sampled direction and the weight with
+// respect to the shading normal, the incoming direction, the specular
+// colour (3-5) and the roughness (25, and 26 for Ward's second axis).
 
 #pragma once
 
@@ -66,13 +80,27 @@ PT_FN D3 dcross(D3 a, D3 b) {
 PT_FN AD dcomp(D3 a, int i) { return i == 0 ? a.x : (i == 1 ? a.y : a.z); }
 PT_FN void acc_d(float* acc, int i, AD v) { acc_add(acc, i, (float)v); }
 
+// kExact (the kSurf instances): the derivative of a square root, a
+// reciprocal square root or a reciprocal from its result in double at the
+// float argument, and of a product from the float product, as the float64
+// reference takes them (autograd keeps those results in float64 and the
+// operands' float32 values).  The bump multiplies the shading normal's
+// cotangent by its phase's ~10^3, and the hit point's components then cancel
+// along the normal: without it the float results' last bits show in the
+// small components of d_direction.  Without kExact (the vacuum and media
+// instances) the adjoint takes the float results, as it always has.
+
 // y = x * rsqrt(max(x.x, 1e-24)): the cotangent of x from that of y
+template <bool kExact = false>
 PT_FN D3 normalize_adj(V3 xf, D3 gy) {
   const float s = vdot(xf, xf);
   const AD r = rsqrtf(fmaxf(s, 1e-24f));
   const D3 x = up(xf);
   D3 gx = dscale(r, gy);
-  if (s >= 1e-24f) gx = dsub(gx, dscale(r * r * r * ddot(gy, x), x));
+  if (s >= 1e-24f) {
+    const AD rr = kExact ? 1.0 / sqrt((AD)s) : r;
+    gx = dsub(gx, dscale(rr * rr * rr * ddot(gy, x), x));
+  }
   return gx;
 }
 
@@ -100,38 +128,45 @@ PT_FN void min_adj(float a, float b, AD g, AD& ga, AD& gb) {
 }
 
 // tangent frame (p1, p2) about n: n's cotangent from p1's and p2's
+template <bool kExact = false>
 PT_FN void frame_adj(V3 n, D3 g_p1, D3 g_p2, D3& g_n) {
   const V3 not_n = not_axis_vector(n);
   const V3 c1 = vcross(n, not_n);
   const V3 p1 = vnormalize(c1);
   const V3 c2 = vcross(n, p1);
-  const D3 g_c2 = normalize_adj(c2, g_p2);  // c2 = n x p1
+  const D3 g_c2 = normalize_adj<kExact>(c2, g_p2);  // c2 = n x p1
   g_n = dadd(g_n, dcross(up(p1), g_c2));
   g_p1 = dadd(g_p1, dcross(g_c2, up(n)));
-  const D3 g_c1 = normalize_adj(c1, g_p1);  // c1 = n x not_n
+  const D3 g_c1 = normalize_adj<kExact>(c1, g_p1);  // c1 = n x not_n
   g_n = dadd(g_n, dcross(up(not_n), g_c1));
 }
 
+template <bool kExact = false>
 PT_FN void cosine_hemisphere_adj(V3 n, float xi1, float xi2, D3 g_out, D3& g_n) {
   const float up_ = sqrtf(xi1);
   const float over = sqrtf(fmaxf(1.0f - xi1, 0.0f));
   const float around = xi2 * TWO_PI;
   g_n = dadd(g_n, dscale(up_, g_out));
-  frame_adj(n, dscale((AD)(cosf(around) * over), g_out),
-            dscale((AD)(sinf(around) * over), g_out), g_n);
+  frame_adj<kExact>(n, dscale((AD)(cosf(around) * over), g_out),
+                    dscale((AD)(sinf(around) * over), g_out), g_n);
 }
 
+template <bool kExact = false>
 PT_FN void rotate_about_adj(V3 axis, float ca, float phi, D3 g_out, D3& g_axis, AD& g_ca) {
   const float arg = 1.0f - ca * ca;
   const float sa = sqrtf(fmaxf(arg, 0.0f));
   V3 p1, p2;
   not_axis_frame(axis, p1, p2);
-  const AD cp = cosf(phi), sp = sinf(phi);
+  const float cpf = cosf(phi), spf = sinf(phi);
+  const AD cp = cpf, sp = spf;
   g_axis = dadd(g_axis, dscale(ca, g_out));
   g_ca += ddot(g_out, up(axis));
   const AD g_sa = cp * ddot(g_out, up(p1)) + sp * ddot(g_out, up(p2));
-  if (arg > 0.0f) g_ca -= g_sa * (AD)ca / (AD)sa;
-  frame_adj(axis, dscale(cp * sa, g_out), dscale(sp * sa, g_out), g_axis);
+  if (arg > 0.0f) g_ca -= g_sa * (AD)ca / (kExact ? sqrt((AD)arg) : (AD)sa);
+  if constexpr (kExact)
+    frame_adj<true>(axis, dscale((AD)(cpf * sa), g_out), dscale((AD)(spf * sa), g_out), g_axis);
+  else
+    frame_adj(axis, dscale(cp * sa, g_out), dscale(sp * sa, g_out), g_axis);
 }
 
 // m = d - (2 d.n) n
@@ -143,6 +178,12 @@ PT_FN void reflect_adj(V3 d_in, V3 n, D3 g_m, D3& g_din, D3& g_n) {
   g_n = dadd(g_n, dsub(dscale(2.0 * g_k, d), dscale(k, g_m)));
 }
 
+// The slab's and the quadratic's adjoints.  kExact takes the derivatives of
+// the reciprocals and the square root in double of their float arguments,
+// as the float64 reference takes them: with the bump, the object-space
+// point's cotangent is large and cancels against the distance's along the
+// normal, and the float results' last bits would show.
+template <bool kExact = false>
 PT_FN void sphere_t_adj(V3 of, V3 df, AD g_t, D3& g_o, D3& g_d) {
   const float af = df.x * df.x + df.y * df.y + df.z * df.z;
   const float bf = of.x * df.x + of.y * df.y + of.z * df.z;
@@ -151,18 +192,20 @@ PT_FN void sphere_t_adj(V3 of, V3 df, AD g_t, D3& g_o, D3& g_d) {
   const float inv_af = safe_recip(af);
   const AD sg = (-bf - sqf) * inv_af > T_MIN ? -1.0 : 1.0;  // t = (-b + sg sq) / a
   const D3 o = up(of), d = up(df);
-  const AD a = af, b = bf, c = cf, sq = sqf, inv_a = inv_af;
+  const AD a = af, b = bf, c = cf, inv_a = inv_af;
+  const AD sq = kExact ? sqrt((AD)(bf * bf - af * cf)) : (AD)sqf;
   const AD g_in = g_t * inv_a;
-  const AD g_inv_a = g_t * (-b + sg * sq);
+  const AD g_inv_a = g_t * (kExact ? (AD)(sg < 0.0 ? -bf - sqf : -bf + sqf) : -b + sg * sq);
   const AD g_disc = sg * g_in * 0.5 / sq;
   const AD g_b = -g_in + 2.0 * b * g_disc;
   AD g_a = -c * g_disc;
   const AD g_c = -a * g_disc;
-  if (!(fabsf(af) < 1e-12f)) g_a -= g_inv_a * inv_a * inv_a;
+  if (!(fabsf(af) < 1e-12f)) g_a -= kExact ? g_inv_a / (a * a) : g_inv_a * inv_a * inv_a;
   g_o = dadd(g_o, dadd(dscale(2.0 * g_c, o), dscale(g_b, d)));
   g_d = dadd(g_d, dadd(dscale(2.0 * g_a, d), dscale(g_b, o)));
 }
 
+template <bool kExact = false>
 PT_FN void cube_t_adj(V3 o, V3 d, AD g_t, D3& g_o, D3& g_d) {
   const float oc[3] = {o.x, o.y, o.z};
   const float dc[3] = {d.x, d.y, d.z};
@@ -194,27 +237,217 @@ PT_FN void cube_t_adj(V3 o, V3 d, AD g_t, D3& g_o, D3& g_d) {
   for (int k = 0; k < 3; ++k) {
     const AD inv = safe_recip(dc[k]);
     go[k] = -(g_tl[k] + g_th[k]) * inv;
-    const AD g_inv = g_tl[k] * (-0.5 - (AD)oc[k]) + g_th[k] * (0.5 - (AD)oc[k]);
-    gd[k] = fabsf(dc[k]) < 1e-12f ? 0.0 : -g_inv * inv * inv;
+    const AD g_inv = kExact ? g_tl[k] * (AD)(-0.5f - oc[k]) + g_th[k] * (AD)(0.5f - oc[k])
+                            : g_tl[k] * (-0.5 - (AD)oc[k]) + g_th[k] * (0.5 - (AD)oc[k]);
+    gd[k] = fabsf(dc[k]) < 1e-12f ? 0.0
+                                  : (kExact ? -g_inv / ((AD)dc[k] * dc[k]) : -g_inv * inv * inv);
   }
   g_o = dadd(g_o, d3(go[0], go[1], go[2]));
   g_d = dadd(g_d, d3(gd[0], gd[1], gd[2]));
 }
 
+// ---- the Cook-Torrance and Ward lobes (kSurf) ------------------------------
+
+// Smith's G1 (smith_g1) at c_in: its cotangent g_g -> those of c_in and a2
+PT_FN void smith_g1_adj(float c_in, float a2, AD g_g, AD& g_c_in, AD& g_a2) {
+  const float c = fminf(fmaxf(c_in, 1e-6f), 1.0f);
+  const float om = 1.0f - a2;
+  const float omc = om * c;
+  const float inner = a2 + omc * c;
+  const float sq = sqrtf(inner);
+  const float den = c + sq;
+  const AD g_den = -g_g * (AD)(2.0f * c) / ((AD)den * den);
+  AD g_c = 2.0 * g_g / den + g_den;
+  const AD g_inner = g_den * 0.5 / sqrt((AD)inner);  // inner >= a2 >= 1e-8
+  const AD g_omc = g_inner * c;
+  g_c += g_inner * omc + g_omc * om;
+  g_a2 += g_inner - g_omc * c;
+  if (c_in >= 1e-6f && c_in <= 1.0f) g_c_in += g_c;
+}
+
+// The Cook-Torrance GGX lobe (ggx_lobe) recomputed in float, and its
+// adjoint, the kSurf instances' only (kExact's conventions throughout): the
+// cotangents of its weight (g_w3; only where the sample is valid, the
+// weight being 0 elsewhere) and its direction -> those of the shading
+// normal n, the incoming direction, cos_i and the material's specular
+// colour (columns 3-5) and roughness (25)
+PT_FN void ggx_adj(const float* mat, int macc, V3 n, V3 d_in, float cos_i, float u0, float u1,
+                   D3 g_w3, D3 g_dir, D3& g_n, D3& g_din, AD& g_cos_i, float* acc) {
+  const float rough = mat[25];
+  const float rr = rough * rough;
+  const float alpha = fminf(fmaxf(rr, 1e-4f), 1.0f);
+  const float a2 = alpha * alpha;
+  const float xi1 = fminf(fmaxf(u0, 1e-7f), ONE_MINUS_1E7);
+  const float den_q = 1.0f + (a2 - 1.0f) * xi1;
+  const float q = (1.0f - xi1) / den_q;
+  const float cos_h = sqrtf(fminf(fmaxf(q, 0.0f), 1.0f));
+  const float phi = u1 * TWO_PI;
+  const V3 h = rotate_about(n, cos_h, phi);
+  const V3 dir = reflect(d_in, h);
+  const float wdh = -vdot(d_in, h);
+  const float cos_o = vdot(dir, n);
+  const float ci = fminf(fmaxf(cos_i, 1e-6f), 1.0f);
+  AD g_a2 = 0.0, g_cos_h = 0.0, g_ci = 0.0;
+  D3 g_h = d3(0.0, 0.0, 0.0);
+  if (cos_o > 0.0f && wdh > 0.0f) {
+    // weight = w * (s + (1 - s) f5), w = g wo.h / max(ci cos_h, 1e-6)
+    const float g1i = smith_g1(ci, a2), g1o = smith_g1(cos_o, a2);
+    const float g = g1i * g1o;
+    const float x = fmaxf(1.0f - wdh, 0.0f);
+    const float x2 = x * x;
+    const float x4 = x2 * x2;
+    const float f5 = x * x4;
+    const float dw = fmaxf(ci * cos_h, 1e-6f);
+    const float gw = g * wdh;
+    const float w = gw / dw;
+    AD g_w = 0.0, g_f5 = 0.0;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const float sk = mat[3 + k];
+      const AD gk = dcomp(g_w3, k);
+      g_w += gk * (AD)(sk + (1.0f - sk) * f5);
+      acc_d(acc, macc + 3 + k, gk * (AD)w * (1.0 - (AD)f5));
+      g_f5 += gk * (AD)w * (AD)(1.0f - sk);
+    }
+    const AD g_gw = g_w / dw;
+    const AD g_dw = -g_w * (AD)gw / ((AD)dw * dw);
+    if (ci * cos_h >= 1e-6f) {
+      g_ci += g_dw * cos_h;
+      g_cos_h += g_dw * ci;
+    }
+    AD g_wdh = g_gw * g;
+    const AD g_g = g_gw * wdh;
+    // f5 = x (x2 x2), x = max(1 - wo.h, 0)
+    const AD g_x4 = g_f5 * x;
+    const AD g_x2 = 2.0 * g_x4 * x2;
+    const AD g_x = g_f5 * x4 + 2.0 * g_x2 * x;
+    if (1.0f - wdh >= 0.0f) g_wdh -= g_x;
+    AD g_co = 0.0;
+    smith_g1_adj(ci, a2, g_g * g1o, g_ci, g_a2);
+    smith_g1_adj(cos_o, a2, g_g * g1i, g_co, g_a2);
+    // cos_o = dir . n, wo.h = -d_in . h
+    g_dir = dadd(g_dir, dscale(g_co, up(n)));
+    g_n = dadd(g_n, dscale(g_co, up(dir)));
+    g_h = dscale(-g_wdh, up(d_in));
+    g_din = dsub(g_din, dscale(g_wdh, up(h)));
+  }
+  if (cos_i >= 1e-6f && cos_i <= 1.0f) g_cos_i += g_ci;
+  // dir = reflect(d_in, h), h = rotate_about(n, cos_h, phi)
+  reflect_adj(d_in, h, g_dir, g_din, g_h);
+  rotate_about_adj<true>(n, cos_h, phi, g_h, g_n, g_cos_h);
+  // cos_h = sqrt(clamp(q, 0, 1)), q = (1 - xi1) / (1 + (a2 - 1) xi1)
+  if (q > 0.0f && q <= 1.0f) {
+    const AD g_q = g_cos_h * 0.5 / sqrt((AD)q);
+    g_a2 -= g_q * (AD)(1.0f - xi1) / ((AD)den_q * den_q) * xi1;
+  }
+  // a2 = alpha^2, alpha = clamp(r^2, 1e-4, 1)
+  if (rr >= 1e-4f && rr <= 1.0f) acc_d(acc, macc + 25, 2.0 * g_a2 * alpha * 2.0 * rough);
+}
+
+// The Ward lobe (ward_lobe) recomputed in float, and its adjoint, as
+// ggx_adj's (kExact's conventions): the roughness columns 25 and, where it is positive, 26
+PT_FN void ward_adj(const float* mat, int macc, V3 n, V3 d_in, float cos_i, float u0, float u1,
+                    D3 g_w3, D3 g_dir, D3& g_n, D3& g_din, AD& g_cos_i, float* acc) {
+  const float rx = mat[25], ry = mat[26];
+  const float ax = fminf(fmaxf(rx, 1e-3f), 1.0f);
+  const float ay_in = ry > 0.0f ? ry : rx;
+  const float ay = fminf(fmaxf(ay_in, 1e-3f), 1.0f);
+  const float xi1 = fminf(fmaxf(u0, 1e-7f), ONE_MINUS_1E7);
+  const float beta = TWO_PI * u1;
+  const float cb = cosf(beta), sb = sinf(beta);
+  const float d_inv = ax * ax * cb * cb + ay * ay * sb * sb;
+  const float sq = sqrtf(fmaxf(d_inv, 1e-12f));
+  const float inv_len = 1.0f / sq;
+  const float acb = ax * cb, asb = ay * sb;
+  const float cos_phi = acb * inv_len;
+  const float sin_phi = asb * inv_len;
+  const float lg = -logf(xi1);
+  const float tan2 = lg * d_inv;
+  const float sq1 = sqrtf(1.0f + tan2);
+  const float cos_th = 1.0f / sq1;
+  const float s2 = 1.0f - cos_th * cos_th;
+  const float sin_th = sqrtf(fmaxf(s2, 0.0f));
+  V3 t1, t2;
+  not_axis_frame(n, t1, t2);
+  const float ca = sin_th * cos_phi, cs = sin_th * sin_phi;
+  const V3 h = vadd(vscale(cos_th, n), vadd(vscale(ca, t1), vscale(cs, t2)));
+  const V3 dir = reflect(d_in, h);
+  const float wdh = -vdot(d_in, h);
+  const float cos_o = vdot(dir, n);
+  AD g_cos_th = 0.0;
+  D3 g_h = d3(0.0, 0.0, 0.0);
+  if (cos_o > 0.0f && wdh > 0.0f) {
+    // weight = w spec, w = (wi.h cos_th^3) sqrt(max(cos_o, 0) / clamp(cos_i))
+    const float ct2 = cos_th * cos_th;
+    const float c3 = cos_th * ct2;
+    const float ci = fminf(fmaxf(cos_i, 1e-6f), 1.0f);
+    const float ratio = fmaxf(cos_o, 0.0f) / ci;
+    const float sr = sqrtf(ratio);
+    const float p1 = wdh * c3;
+    const float w = p1 * sr;
+    const AD g_w = ddot(g_w3, d3(mat[3], mat[4], mat[5]));
+    acc_d(acc, macc + 3, g_w3.x * w);
+    acc_d(acc, macc + 4, g_w3.y * w);
+    acc_d(acc, macc + 5, g_w3.z * w);
+    const AD g_p1 = g_w * sr;
+    const AD g_wdh = g_p1 * c3;
+    const AD g_c3 = g_p1 * wdh;
+    g_cos_th += g_c3 * ct2 + 2.0 * (g_c3 * cos_th) * cos_th;
+    AD g_co = 0.0;
+    if (ratio > 0.0f) {
+      const AD g_ratio = g_w * p1 * 0.5 / sqrt((AD)ratio);
+      g_co = g_ratio / ci;
+      if (cos_i >= 1e-6f && cos_i <= 1.0f)
+        g_cos_i -= g_ratio * (AD)fmaxf(cos_o, 0.0f) / ((AD)ci * ci);
+    }
+    g_dir = dadd(g_dir, dscale(g_co, up(n)));
+    g_n = dadd(g_n, dscale(g_co, up(dir)));
+    g_h = dscale(-g_wdh, up(d_in));
+    g_din = dsub(g_din, dscale(g_wdh, up(h)));
+  }
+  reflect_adj(d_in, h, g_dir, g_din, g_h);
+  // h = cos_th n + (sin_th cos_phi t1 + sin_th sin_phi t2), (t1, t2) the frame of n
+  g_cos_th += ddot(g_h, up(n));
+  g_n = dadd(g_n, dscale(cos_th, g_h));
+  const AD g_ca = ddot(g_h, up(t1)), g_cs = ddot(g_h, up(t2));
+  frame_adj<true>(n, dscale(ca, g_h), dscale(cs, g_h), g_n);
+  const AD g_sin_th = g_ca * cos_phi + g_cs * sin_phi;
+  const AD g_cos_phi = g_ca * sin_th, g_sin_phi = g_cs * sin_th;
+  // sin_th = sqrt(max(1 - cos_th^2, 0)), cos_th = 1 / sqrt(1 + tan2)
+  if (s2 > 0.0f) g_cos_th -= 2.0 * (g_sin_th * 0.5 / sqrt((AD)s2)) * cos_th;
+  const AD g_tan2 = -g_cos_th / ((AD)sq1 * sq1) * 0.5 / sqrt((AD)(1.0f + tan2));
+  AD g_dinv = g_tan2 * lg;
+  // cos_phi = (ax cb) / len, sin_phi = (ay sb) / len, len = sqrt(max(d_inv, 1e-12))
+  AD g_ax = g_cos_phi * inv_len * cb, g_ay = g_sin_phi * inv_len * sb;
+  const AD g_inv = g_cos_phi * acb + g_sin_phi * asb;
+  if (d_inv >= 1e-12f) g_dinv -= g_inv / ((AD)sq * sq) * 0.5 / sqrt((AD)fmaxf(d_inv, 1e-12f));
+  // d_inv = ((ax ax) cb) cb + ((ay ay) sb) sb
+  g_ax += 2.0 * (g_dinv * cb * cb) * ax;
+  g_ay += 2.0 * (g_dinv * sb * sb) * ay;
+  if (rx >= 1e-3f && rx <= 1.0f) acc_d(acc, macc + 25, g_ax);
+  if (ay_in >= 1e-3f && ay_in <= 1.0f) acc_d(acc, macc + (ry > 0.0f ? 26 : 25), g_ay);
+}
+
 // BSDF sample at a non-emissive hit: the cotangents of the throughput
 // multiplier, the origin and the direction -> those of p, the raw normal,
-// the incoming direction and the material row (acc offset macc)
-PT_FN void bsdf_adj(const float* mat, int macc, V3 n_raw, V3 d_in, float u0, float u1,
-                    float u2, D3 g_mult, D3 g_org, D3 g_dir, D3& g_p, D3& g_nraw, D3& g_din,
-                    float* acc) {
+// the incoming direction and the material row (acc offset macc; the
+// diffuse albedo's at cacc).  kSurf adds the Cook-Torrance and Ward lobes
+// the microfacet and ward bits of `surf` switch on (sample_bsdf_c).
+template <bool kSurf = false>
+PT_FN void bsdf_adj(const float* mat, int macc, int cacc, V3 n_raw, V3 d_in, float u0, float u1,
+                    float u2, int surf, D3 g_mult, D3 g_org, D3 g_dir, D3& g_p, D3& g_nraw,
+                    D3& g_din, float* acc) {
   const float cos_raw = vdot(d_in, n_raw);
   const bool entering = cos_raw < 0.0f;
   const V3 n = entering ? n_raw : vscale(-1.0f, n_raw);
   const float cos_i = fabsf(cos_raw);
   const bool is_refractive = mat[7] > 0.0f;
   const bool is_reflective = !is_refractive && (mat[6] > 0.0f);
-  const bool is_glossy = is_reflective && (mat[10] > 0.0f);
+  bool is_ct = false;
+  if constexpr (kSurf) is_ct = (surf & SURF_MICROFACET) && is_reflective && mat[24] > 0.5f;
+  const bool is_glossy = is_reflective && (mat[10] > 0.0f) && !is_ct;
   D3 g_n = d3(0.0, 0.0, 0.0);
+  AD g_cos_i = 0.0;
   float bias = RAY_BIAS;
 
   if (is_refractive) {
@@ -241,13 +474,15 @@ PT_FN void bsdf_adj(const float* mat, int macc, V3 n_raw, V3 d_in, float u0, flo
       const AD mt = fmaxf(ior_t, 1e-6f);
       const AD eta = eta_f, r_cos_i = rci_f, cos_t = cos_t_f, h = h_f;
       const AD mm = fmaxf(m1_f, 0.0f);
-      const D3 g_v = normalize_adj(vadd(vscale(eta_f, d_in), vscale(h_f, n)), g_dir);
+      const D3 g_v = normalize_adj<kSurf>(vadd(vscale(eta_f, d_in), vscale(h_f, n)), g_dir);
       g_din = dadd(g_din, dscale(eta, g_v));
       g_n = dadd(g_n, dscale(h, g_v));
       const AD g_h = ddot(g_v, nn);
       AD g_eta = ddot(g_v, d) + g_h * r_cos_i;
       AD g_rci = g_h * eta;
-      const AD g_sin2 = a2_f >= 1e-12f ? g_h * 0.5 / cos_t : 0.0;  // cos_t = sqrt(1 - sin2)
+      // cos_t = sqrt(max(1 - sin2, 1e-12))
+      const AD g_sin2 =
+          a2_f >= 1e-12f ? g_h * 0.5 / (kSurf ? sqrt((AD)fmaxf(a2_f, 1e-12f)) : cos_t) : 0.0;
       g_eta += g_sin2 * mm * 2.0 * eta;
       if (m1_f >= 0.0f) g_rci += g_sin2 * (eta * eta) * (-2.0 * r_cos_i);
       g_din = dsub(g_din, dscale(g_rci, nn));
@@ -259,6 +494,11 @@ PT_FN void bsdf_adj(const float* mat, int macc, V3 n_raw, V3 d_in, float u0, flo
         g_ior = g_eta / mt;
       acc_d(acc, macc + 8, g_ior);
     }
+  } else if (kSurf && is_ct) {
+    if ((surf & SURF_WARD) && mat[24] > 1.5f)
+      ward_adj(mat, macc, n, d_in, cos_i, u0, u1, g_mult, g_dir, g_n, g_din, g_cos_i, acc);
+    else
+      ggx_adj(mat, macc, n, d_in, cos_i, u0, u1, g_mult, g_dir, g_n, g_din, g_cos_i, acc);
   } else if (is_glossy) {
     const V3 dm = reflect(d_in, n);
     const float spec_exp = mat[10];
@@ -286,12 +526,13 @@ PT_FN void bsdf_adj(const float* mat, int macc, V3 n_raw, V3 d_in, float u0, flo
         g_dg = dadd(g_dg, dscale(g_gco, up(n)));
         g_n = dadd(g_n, dscale(g_gco, up(dg)));
       }
-      g_exp += g_q / e1 - g_q * (exp_n + 2.0) / (e1 * e1);
+      g_exp += g_q / e1 - g_q * (kSurf ? (AD)(exp_f + 2.0f) : exp_n + 2.0) / (e1 * e1);
     }
     D3 g_dm = d3(0.0, 0.0, 0.0);
     AD g_ca = 0.0;
-    rotate_about_adj(dm, ca, phi, g_dg, g_dm, g_ca);
-    g_exp += g_ca * (AD)ca * (-lg / (e1 * e1));
+    rotate_about_adj<kSurf>(dm, ca, phi, g_dg, g_dm, g_ca);
+    const AD ca_d = kSurf ? exp((AD)(logf(fmaxf(u0, 1e-9f)) / e1_f)) : (AD)ca;
+    g_exp += g_ca * ca_d * (-lg / (e1 * e1));
     reflect_adj(d_in, n, g_dm, g_din, g_n);
     if (spec_exp >= 1e-6f) acc_d(acc, macc + 10, g_exp);
   } else if (is_reflective) {
@@ -300,20 +541,27 @@ PT_FN void bsdf_adj(const float* mat, int macc, V3 n_raw, V3 d_in, float u0, flo
     acc_d(acc, macc + 5, g_mult.z);
     reflect_adj(d_in, n, g_dir, g_din, g_n);
   } else {
-    acc_d(acc, macc + 0, g_mult.x);
-    acc_d(acc, macc + 1, g_mult.y);
-    acc_d(acc, macc + 2, g_mult.z);
-    cosine_hemisphere_adj(n, u0, u1, g_dir, g_n);
+    acc_d(acc, cacc + 0, g_mult.x);
+    acc_d(acc, cacc + 1, g_mult.y);
+    acc_d(acc, cacc + 2, g_mult.z);
+    cosine_hemisphere_adj<kSurf>(n, u0, u1, g_dir, g_n);
   }
   // origin = p + bias * n
   g_p = dadd(g_p, g_org);
   g_n = dadd(g_n, dscale(bias, g_org));
   g_nraw = entering ? dadd(g_nraw, g_n) : dsub(g_nraw, g_n);
+  if constexpr (kSurf) {
+    // cos_i = |d_in . n_raw| (the lobes' weights)
+    const AD g_raw = cos_raw > 0.0f ? g_cos_i : (cos_raw < 0.0f ? -g_cos_i : 0.0);
+    g_din = dadd(g_din, dscale(g_raw, up(n_raw)));
+    g_nraw = dadd(g_nraw, dscale(g_raw, up(d_in)));
+  }
 }
 
 // The light sample's point lp = F lp_obj + f (light table rows 0..11 of
 // `lid`) and unit normal ln = normalize(Li^T ln_obj) (the light geom's
 // inverse rows, lnw before the normalize): their cotangents -> the tables'
+template <bool kExact = false>
 PT_FN void light_adj(const RowLayout& R, int lid, V3 lp_obj, V3 ln_obj, V3 lnw, D3 g_lp, D3 g_ln,
                      float* acc) {
   const D3 lpo = up(lp_obj), lno = up(ln_obj);
@@ -326,7 +574,7 @@ PT_FN void light_adj(const RowLayout& R, int lid, V3 lp_obj, V3 ln_obj, V3 lnw, 
     acc_d(acc, lacc + 4 * i + 2, gi * lpo.z);
     acc_d(acc, lacc + 4 * i + 3, gi);
   }
-  const D3 g_lnw = normalize_adj(lnw, g_ln);
+  const D3 g_lnw = normalize_adj<kExact>(lnw, g_ln);
   const int gacc = lid * GCOLS;
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
@@ -339,8 +587,9 @@ PT_FN void light_adj(const RowLayout& R, int lid, V3 lp_obj, V3 ln_obj, V3 lnw, 
 
 // NEE connection that counted (its radiance cotangent g_rad) -> cotangents
 // of p, the normal, the throughput, and the material, light, geom and
-// scalar tables
-PT_FN void nee_adj(const Tables& T, const RowLayout& R, const float* mat, int macc, V3 pf,
+// scalar tables; the albedo is read from col, its cotangent goes to cacc
+template <bool kExact = false>
+PT_FN void nee_adj(const Tables& T, const RowLayout& R, const float* col, int cacc, V3 pf,
                    V3 normal, V3 d, V3 thr_f, float u4, float u5, float u6, float u7, D3 g_rad,
                    D3& g_p, D3& g_normal, D3& g_thr, float* acc) {
   V3 lp_obj, ln_obj;
@@ -366,14 +615,14 @@ PT_FN void nee_adj(const Tables& T, const RowLayout& R, const float* mat, int ma
   const float pdf_f = 1.0f / ma_f;
   const float mp_f = fmaxf(pdf_f, 1e-20f);
   const float ns_f = gterm_f / mp_f * INV_PI;
-  const V3 tc_f = vmul(thr_f, v3(mat[0], mat[1], mat[2]));
+  const V3 tc_f = vmul(thr_f, v3(col[0], col[1], col[2]));
   // ... and in double for the adjoint
   const AD sgn = sgn_f, dist = dist_f, rd = rd_f, cos_x = cos_x_f, cos_y = cos_y_f,
            md = md_f, cxy = cxy_f, gterm = gterm_f, ma = ma_f, mp = mp_f, ns = ns_f;
   const D3 n_shade = up(n_shade_f), tl = up(tl_f), wi = up(wi_f), ln = up(ln_f);
   const D3 emit = d3(L[13], L[14], L[15]);
   const D3 thr = up(thr_f);
-  const D3 color = d3(mat[0], mat[1], mat[2]);
+  const D3 color = d3(col[0], col[1], col[2]);
   const D3 tc = up(tc_f);
   const D3 tce = up(vmul(tc_f, v3(L[13], L[14], L[15])));
 
@@ -386,9 +635,9 @@ PT_FN void nee_adj(const Tables& T, const RowLayout& R, const float* mat, int ma
   acc_d(acc, lacc + 14, g_tce.y * tc.y);
   acc_d(acc, lacc + 15, g_tce.z * tc.z);
   g_thr = dadd(g_thr, dmul(g_tc, color));
-  acc_d(acc, macc + 0, g_tc.x * thr.x);
-  acc_d(acc, macc + 1, g_tc.y * thr.y);
-  acc_d(acc, macc + 2, g_tc.z * thr.z);
+  acc_d(acc, cacc + 0, g_tc.x * thr.x);
+  acc_d(acc, cacc + 1, g_tc.y * thr.y);
+  acc_d(acc, cacc + 2, g_tc.z * thr.z);
   // ns = gterm / max(1 / max(area, 1e-20), 1e-20) / pi
   const AD g_a = g_ns * (AD)INV_PI;
   const AD g_gterm = g_a / mp;
@@ -407,13 +656,13 @@ PT_FN void nee_adj(const Tables& T, const RowLayout& R, const float* mat, int ma
   // wi = (1 / dist) tl, dist = sqrt(max(dist2, 1e-12)), dist2 = tl.tl
   D3 g_tl = dscale(rd, g_wi);
   const AD g_dist = -ddot(g_wi, tl) / (dist * dist);
-  if (dist2_f >= 1e-12f) g_dist2 += g_dist * 0.5 / dist;
+  if (dist2_f >= 1e-12f) g_dist2 += g_dist * 0.5 / (kExact ? sqrt((AD)md_f) : dist);
   g_tl = dadd(g_tl, dscale(2.0 * g_dist2, tl));
   // tl = lp - x, x = p + bias n_shade, n_shade = sgn normal
   g_p = dsub(g_p, g_tl);
   g_nsh = dsub(g_nsh, dscale((AD)RAY_BIAS, g_tl));
   g_normal = dadd(g_normal, dscale(sgn, g_nsh));
-  light_adj(R, lid, lp_obj, ln_obj, lnw, g_tl, g_ln, acc);
+  light_adj<kExact>(R, lid, lp_obj, ln_obj, lnw, g_tl, g_ln, acc);
 }
 
 // ---- one replayed bounce ----------------------------------------------------
@@ -458,30 +707,33 @@ PT_FN bool emission_counts(int nee, int dep, float prev_state) {
   return !nee || dep == 0 || fabsf(prev_state - 1.0f) < 0.5f;
 }
 
-// contrib = e * (thr * color) of a light hit whose emission counted
-PT_FN void emission_adj(const float* mat, int macc, V3 thr, D3 g_contrib, D3& g_thr,
-                        float* acc) {
+// contrib = e * (thr * color) of a light hit whose emission counted; the
+// albedo `color` is read from col and its cotangent goes to cacc (the
+// material's own colour, or with a texture the columns the lane selected)
+PT_FN void emission_adj(const float* mat, int macc, const float* col, int cacc, V3 thr,
+                        D3 g_contrib, D3& g_thr, float* acc) {
   const AD e = mat[9];
-  const D3 color = d3(mat[0], mat[1], mat[2]), th = up(thr);
+  const D3 color = d3(col[0], col[1], col[2]), th = up(thr);
   const D3 g_tc = dscale(e, g_contrib);
   acc_d(acc, macc + 9, ddot(g_contrib, dmul(th, color)));
-  acc_d(acc, macc + 0, g_tc.x * th.x);
-  acc_d(acc, macc + 1, g_tc.y * th.y);
-  acc_d(acc, macc + 2, g_tc.z * th.z);
+  acc_d(acc, cacc + 0, g_tc.x * th.x);
+  acc_d(acc, cacc + 1, g_tc.y * th.y);
+  acc_d(acc, cacc + 2, g_tc.z * th.z);
   g_thr = dadd(g_thr, dmul(g_tc, color));
 }
 
 // The winner's part of a replayed bounce's adjoint: the cotangents of the hit
 // point p, the unit normal and, with kT, of the winner's t itself (g_t_in:
-// the volumetric segment's attenuation) -> those of o, d and the winner's
+// the volumetric segment's attenuation) and, with kP, of the object-space
+// hit point (g_pobj_in: the bump's phase) -> those of o, d and the winner's
 // geom row.  A miss (t = 1, zero normal) passes p's to o and d only.
-template <bool kT = false>
+template <bool kT = false, bool kP = false>
 PT_FN void winner_adj(const Replay& r, V3 o, V3 d, D3 g_p, D3 g_normal, D3& g_o, D3& g_d,
-                      float* acc, AD g_t_in = 0.0) {
+                      float* acc, AD g_t_in = 0.0, D3 g_pobj_in = D3{0.0, 0.0, 0.0}) {
   const float* gw = r.gw;
   const D3 zero = d3(0.0, 0.0, 0.0);
   // ---- normal = normalize(M3^T n_obj)
-  const D3 g_nw = normalize_adj(r.nw, g_normal);
+  const D3 g_nw = normalize_adj<kP>(r.nw, g_normal);
   const int gacc = r.gc * GCOLS;
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
@@ -495,8 +747,9 @@ PT_FN void winner_adj(const Replay& r, V3 o, V3 d, D3 g_p, D3 g_normal, D3& g_o,
     const D3 g_nobj = d3(gw[0] * g_nw.x + gw[1] * g_nw.y + gw[2] * g_nw.z,
                          gw[4] * g_nw.x + gw[5] * g_nw.y + gw[6] * g_nw.z,
                          gw[8] * g_nw.x + gw[9] * g_nw.y + gw[10] * g_nw.z);
-    g_pobj = normalize_adj(r.p_obj, g_nobj);
+    g_pobj = normalize_adj<kP>(r.p_obj, g_nobj);
   }
+  if constexpr (kP) g_pobj = dadd(g_pobj, g_pobj_in);  // a miss's p_obj reaches nothing
 
   // ---- p_obj = oo + t od, p = o + t d, t of the winner (1 on a miss)
   D3 g_oo = g_pobj;
@@ -508,9 +761,9 @@ PT_FN void winner_adj(const Replay& r, V3 o, V3 d, D3 g_p, D3 g_normal, D3& g_o,
   if (!r.rhit) return;  // no winner: nothing reaches a geom row
   if (r.hit) {
     if (r.sphere)
-      sphere_t_adj(r.oo, r.od, g_t, g_oo, g_od);
+      sphere_t_adj<kP>(r.oo, r.od, g_t, g_oo, g_od);
     else
-      cube_t_adj(r.oo, r.od, g_t, g_oo, g_od);
+      cube_t_adj<kP>(r.oo, r.od, g_t, g_oo, g_od);
   }
 
   // ---- oo = M3 o + m3, od = M3 d (geom table rows 0..11)
@@ -530,30 +783,101 @@ PT_FN void winner_adj(const Replay& r, V3 o, V3 d, D3 g_p, D3 g_normal, D3& g_o,
                      gw[2] * g_od.x + gw[6] * g_od.y + gw[10] * g_od.z));
 }
 
+// ---- the surface blocks of a replayed bounce (kSurf) ------------------------
+
+// The surface blocks of a replayed bounce, recomputed in float as
+// pt::bounce<..., kSurf> ran them (T.surf names the blocks): the diffuse
+// albedo's three columns (the material's colour, or texture_color2 where the
+// checker or stripes pattern picks it) and the shading normal (bumped where
+// the material's bump scale is positive).  Without kSurf: the material's
+// colour and the geometric normal.
+struct SurfReplay {
+  const float* col;  // the albedo's columns in the material row
+  int ccol;          // their offset in the row: 0 or 18
+  bool bump;         // the bump ran
+  V3 normal;         // the shading normal
+};
+
+template <bool kSurf>
+PT_FN SurfReplay surf_replay(const Tables& T, const Replay& r) {
+  SurfReplay s{r.mat, 0, false, r.normal};
+  if constexpr (kSurf) {
+    if ((T.surf & SURF_TEXTURE) && texture_second(r.mat, r.p_obj)) {
+      s.col = r.mat + 18;
+      s.ccol = 18;
+    }
+    s.bump = (T.surf & SURF_BUMP) && r.mat[21] > 0.0f;
+    if (s.bump) s.normal = bump_normal(r.mat, r.p_obj, r.normal);
+  }
+  return s;
+}
+
+PT_FN V3 albedo(const SurfReplay& s) { return v3(s.col[0], s.col[1], s.col[2]); }
+
+// The bump's adjoint (bump_normal): the bumped normal's cotangent -> that
+// of the geometric normal (returned), of the object-space hit point (added
+// to g_pobj) and of the material's bump scale and amplitude (columns 21,
+// 22).  The phases reach ~10^3 rad: their cosines are taken in double of
+// the float arguments, as the float64 reference takes them.
+PT_FN D3 bump_adj(const float* mat, int macc, V3 p_obj, V3 normal, D3 g_nb, D3& g_pobj,
+                  float* acc) {
+  V3 t1, t2;
+  not_axis_frame(normal, t1, t2);
+  const float ph1 = p_obj.x * (float)12.9898 + p_obj.y * (float)78.233 + p_obj.z * (float)37.719;
+  const float ph2 = p_obj.x * (float)93.989 + p_obj.y * (float)26.651 + p_obj.z * (float)61.312;
+  const float amp = mat[22], bs = mat[21];
+  const float x1 = bs * ph1, x2 = bs * ph2;
+  const float s1 = sinf(x1), s2 = sinf(x2);
+  const float a1 = amp * s1, a2 = amp * s2;
+  const V3 v = vadd(normal, vadd(vscale(a1, t1), vscale(a2, t2)));
+  const D3 g_v = normalize_adj<true>(v, g_nb);
+  const AD g_a1 = ddot(g_v, up(t1)), g_a2 = ddot(g_v, up(t2));
+  D3 g_n = g_v;
+  frame_adj<true>(normal, dscale(a1, g_v), dscale(a2, g_v), g_n);
+  acc_d(acc, macc + 22, g_a1 * s1 + g_a2 * s2);
+  const AD g_x1 = g_a1 * amp * cos((AD)x1), g_x2 = g_a2 * amp * cos((AD)x2);
+  acc_d(acc, macc + 21, g_x1 * ph1 + g_x2 * ph2);
+  const AD g_ph1 = g_x1 * bs, g_ph2 = g_x2 * bs;
+  g_pobj = dadd(g_pobj, d3(g_ph1 * 12.9898 + g_ph2 * 93.989, g_ph1 * 78.233 + g_ph2 * 26.651,
+                           g_ph1 * 37.719 + g_ph2 * 61.312));
+  return g_n;
+}
+
 // The adjoint of bounce_physics(replay) alone, mask-free: the cotangents of
 // its outputs (contrib, next origin, next direction, throughput multiplier)
 // become those of its inputs, added to g_o, g_d, g_thr, and of the tables,
 // added to acc.  Every lane is defined: a miss differentiates p = o + d and
 // material 0's BSDF at the zero normal, a light hit its emission (when it
 // counted) and its own material's BSDF.  The medium passes through and is
-// not seen here.
+// not seen here.  kSurf: the textured albedo feeds the emission, the
+// diffuse lobe and NEE, the bumped normal the BSDF and NEE, and the bump's
+// adjoint turns the shading normal's cotangent into the geometric normal's
+// and the object-space point's.
+template <bool kSurf = false>
 PT_FN void physics_adj(const Tables& T, const RowLayout& R, const Replay& r, uint32_t base,
                        int dep, int nee, V3 o, V3 d, V3 thr, float prev_state, bool nee_add,
                        D3 g_contrib, D3 g_next_o, D3 g_next_d, D3 g_thr_mult, D3& g_o, D3& g_d,
                        D3& g_thr, float* acc) {
   const int macc = R.om + r.mid * MCOLS;
+  const SurfReplay s = surf_replay<kSurf>(T, r);
+  const int cacc = macc + s.ccol;
   if (r.hit && r.mat[9] > 0.0f && emission_counts(nee, dep, prev_state))
-    emission_adj(r.mat, macc, thr, g_contrib, g_thr, acc);
+    emission_adj(r.mat, macc, s.col, cacc, thr, g_contrib, g_thr, acc);
 
   // ---- BSDF and NEE
   const D3 zero = d3(0.0, 0.0, 0.0);
   D3 g_p = zero, g_normal = zero;
-  bsdf_adj(r.mat, macc, r.normal, d, uniform(base, 0), uniform(base, 1), uniform(base, 2),
-           g_thr_mult, g_next_o, g_next_d, g_p, g_normal, g_d, acc);
+  bsdf_adj<kSurf>(r.mat, macc, cacc, s.normal, d, uniform(base, 0), uniform(base, 1),
+                  uniform(base, 2), T.surf, g_thr_mult, g_next_o, g_next_d, g_p, g_normal, g_d,
+                  acc);
   if (nee && nee_add)
-    nee_adj(T, R, r.mat, macc, r.p, r.normal, d, thr, uniform(base, 4), uniform(base, 5),
+    nee_adj<kSurf>(T, R, s.col, cacc, r.p, s.normal, d, thr, uniform(base, 4), uniform(base, 5),
             uniform(base, 6), uniform(base, 7), g_contrib, g_p, g_normal, g_thr, acc);
-  winner_adj(r, o, d, g_p, g_normal, g_o, g_d, acc);
+  D3 g_pobj = zero;
+  if constexpr (kSurf) {
+    if (s.bump) g_normal = bump_adj(r.mat, macc, r.p_obj, r.normal, g_normal, g_pobj, acc);
+  }
+  winner_adj<false, kSurf>(r, o, d, g_p, g_normal, g_o, g_d, acc, 0.0, g_pobj);
 }
 
 // ---- participating media (the kVol instances of kernels 3 and 5) -----------
@@ -569,12 +893,15 @@ struct VolBounce {
   bool vs;          // an in-medium scatter before the surface
   float seg;        // the segment travelled: the free path, the winner's t, 0 on a miss
   V3 atten;         // exp(-sigma_a seg)
+  SurfReplay s;     // the surface blocks (kSurf)
   Scatter sc;       // the surface event's BSDF sample (unset where vs)
   V3 thr_mult;      // atten, times sc.thr on a surface event
 };
 
-PT_FN VolBounce vol_bounce(const Replay& r, uint32_t base, V3 d, Medium med) {
+template <bool kSurf = false>
+PT_FN VolBounce vol_bounce(const Tables& T, const Replay& r, uint32_t base, V3 d, Medium med) {
   VolBounce v;
+  v.s = surf_replay<kSurf>(T, r);
   v.lnum = -logf(fminf(fmaxf(1.0f - uniform(base, 8), 1e-7f), 1.0f));
   v.free_path = med.s > 0.0f ? v.lnum / fmaxf(med.s, 1e-12f) : BIG;
   v.vs = r.hit && v.free_path < r.t;
@@ -582,8 +909,8 @@ PT_FN VolBounce vol_bounce(const Replay& r, uint32_t base, V3 d, Medium med) {
   v.atten = v3(expf(-med.a.x * v.seg), expf(-med.a.y * v.seg), expf(-med.a.z * v.seg));
   v.thr_mult = v.atten;
   if (!v.vs) {
-    v.sc = sample_bsdf(r.mat, r.p, r.normal, d, uniform(base, 0), uniform(base, 1),
-                       uniform(base, 2));
+    v.sc = sample_bsdf_c<kSurf>(r.mat, albedo(v.s), r.p, v.s.normal, d, uniform(base, 0),
+                                uniform(base, 1), uniform(base, 2), T.surf);
     v.thr_mult = vmul(v.atten, v.sc.thr);
   }
   return v;
@@ -686,7 +1013,9 @@ PT_FN void vol_nee_adj(const Tables& T, const RowLayout& R, uint32_t base, V3 o,
 // differentiated, so the 0 * inf of a 1e30 free path never arises.
 // `bsdf` false skips the BSDF sample and the medium switch (kernel 5 on a
 // light hit, whose continuation has no cotangent).  The replay planes are
-// the forward's: nee_add is 0 on a lane that scatters.
+// the forward's: nee_add is 0 on a lane that scatters.  kSurf: a surface
+// event differentiates the surface blocks as physics_adj<kSurf> does (v.s).
+template <bool kSurf = false>
 PT_FN void physics_adj_vol(const Tables& T, const RowLayout& R, const Replay& r,
                            const VolBounce& v, uint32_t base, int dep, int nee, int vol_nee, V3 o,
                            V3 d, V3 thr, Medium med, float prev_state, bool nee_add, bool bsdf,
@@ -697,14 +1026,17 @@ PT_FN void physics_adj_vol(const Tables& T, const RowLayout& R, const Replay& r,
   D3 g_thr_a = zero, g_atten = zero, g_p = zero, g_normal = zero;
   AD g_fp = 0.0;
   const int macc = R.om + r.mid * MCOLS;
+  const int cacc = macc + v.s.ccol;
+  D3 g_pobj = zero;
   if (!v.vs) {
     if (r.hit && r.mat[9] > 0.0f && emission_counts(nee, dep, prev_state))
-      emission_adj(r.mat, macc, thr_a, g_contrib, g_thr_a, acc);
+      emission_adj(r.mat, macc, v.s.col, cacc, thr_a, g_contrib, g_thr_a, acc);
     if (bsdf) {
       // thr_mult = atten * sc.thr
       g_atten = dmul(g_thr_mult, up(v.sc.thr));
-      bsdf_adj(r.mat, macc, r.normal, d, uniform(base, 0), uniform(base, 1), uniform(base, 2),
-               dmul(g_thr_mult, up(v.atten)), g_next_o, g_next_d, g_p, g_normal, g_d, acc);
+      bsdf_adj<kSurf>(r.mat, macc, cacc, v.s.normal, d, uniform(base, 0), uniform(base, 1),
+                      uniform(base, 2), T.surf, dmul(g_thr_mult, up(v.atten)), g_next_o,
+                      g_next_d, g_p, g_normal, g_d, acc);
       // the medium entered: the material's on a transmission inwards (its
       // absorption, has_scatter * scatter_coeff), vacuum outwards, else
       // the same
@@ -720,8 +1052,12 @@ PT_FN void physics_adj_vol(const Tables& T, const RowLayout& R, const Replay& r,
       }
     }
     if (nee && nee_add)
-      nee_adj(T, R, r.mat, macc, r.p, r.normal, d, thr_a, uniform(base, 4), uniform(base, 5),
-              uniform(base, 6), uniform(base, 7), g_contrib, g_p, g_normal, g_thr_a, acc);
+      nee_adj<kSurf>(T, R, v.s.col, cacc, r.p, v.s.normal, d, thr_a, uniform(base, 4),
+              uniform(base, 5), uniform(base, 6), uniform(base, 7), g_contrib, g_p, g_normal,
+              g_thr_a, acc);
+    if constexpr (kSurf) {
+      if (v.s.bump) g_normal = bump_adj(r.mat, macc, r.p_obj, r.normal, g_normal, g_pobj, acc);
+    }
   } else {
     // next origin: the scatter point o + fp d; the medium stays
     g_o = dadd(g_o, g_next_o);
@@ -746,7 +1082,7 @@ PT_FN void physics_adj_vol(const Tables& T, const RowLayout& R, const Replay& r,
     const float ms = fmaxf(med.s, 1e-12f);
     if (med.s >= 1e-12f) g_ss -= g_fp * v.lnum / ((AD)ms * ms);
   } else {
-    winner_adj<true>(r, o, d, g_p, g_normal, g_o, g_d, acc, r.hit ? g_seg : 0.0);
+    winner_adj<true, kSurf>(r, o, d, g_p, g_normal, g_o, g_d, acc, r.hit ? g_seg : 0.0, g_pobj);
   }
 }
 

@@ -26,6 +26,11 @@
 // out, and runs bounce_adj.cuh's physics_adj_vol (the free path, the
 // in-medium scatter, the attenuation, the medium switch and the volumetric
 // NEE with its split sweep run again in float), which kernel 5v runs too.
+// The kSurf instance (kernel 3s, the optional surface physics; its forward
+// is kernel 2's kSurf instance with the replay planes, 2r-s) takes the
+// surface feature bits `surf` and runs physics_adj<kSurf> (the texture's
+// albedo columns, the bump, the Cook-Torrance and Ward lobes), as kernel 5s
+// does; kVol x kSurf is the same template.
 //
 // Output contract: mask-free, as kernel 2's.  For any cotangents on any
 // lane, misses and light hits included, the outputs are the adjoint of the
@@ -58,9 +63,9 @@
 
 namespace pt {
 
-// one lane of kernel 3 (kVol: 3v); also compiled as host C++ by
+// one lane of kernel 3 (kVol: 3v, kSurf: 3s); also compiled as host C++ by
 // tests/kernel_host_harness.cpp
-template <bool kVol = false>
+template <bool kVol = false, bool kSurf = false>
 PT_FN void bounce_bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, int nee, size_t i,
                            const float* __restrict__ origin, const float* __restrict__ direction,
                            const float* __restrict__ thr, const uint32_t* __restrict__ sample,
@@ -91,17 +96,18 @@ PT_FN void bounce_bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, i
     const Medium med{v3(mi[0], mi[1], mi[2]), mi[3], 0.0f};
     D3 g_sa = g_o;
     AD g_ss = 0.0;
-    physics_adj_vol(T, R, r, vol_bounce(r, base, d, med), base, dep, nee, vol_nee, o, d, t, med,
-                    prev[i], replay_nee[i] > 0.5f, true, gc, gno, gnd, gtm, d3(gm[0], gm[1], gm[2]),
-                    gm[3], g_o, g_d, g_t, g_sa, g_ss, acc);
+    physics_adj_vol<kSurf>(T, R, r, vol_bounce<kSurf>(T, r, base, d, med), base, dep, nee,
+                           vol_nee, o, d, t, med, prev[i], replay_nee[i] > 0.5f, true, gc, gno,
+                           gnd, gtm, d3(gm[0], gm[1], gm[2]), gm[3], g_o, g_d, g_t, g_sa, g_ss,
+                           acc);
     float* dm = d_medium + 4 * i;
     dm[0] = (float)g_sa.x;
     dm[1] = (float)g_sa.y;
     dm[2] = (float)g_sa.z;
     dm[3] = (float)g_ss;
   } else {
-    physics_adj(T, R, r, base, dep, nee, o, d, t, prev[i], replay_nee[i] > 0.5f, gc, gno, gnd,
-                gtm, g_o, g_d, g_t, acc);
+    physics_adj<kSurf>(T, R, r, base, dep, nee, o, d, t, prev[i], replay_nee[i] > 0.5f, gc, gno,
+                       gnd, gtm, g_o, g_d, g_t, acc);
   }
   const D3* vec[3] = {&g_o, &g_d, &g_t};
   float* out[3] = {d_origin, d_direction, d_thr};
@@ -122,7 +128,7 @@ using namespace pt;
 
 constexpr int THREADS = 128;
 
-template <bool kVol>
+template <bool kVol, bool kSurf>
 __global__ void __launch_bounds__(THREADS)
 bounce_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mtab, int M,
                   const float* __restrict__ ltab, const float* __restrict__ scal, uint32_t seed,
@@ -134,8 +140,9 @@ bounce_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict
                   const float* __restrict__ g_next_o, const float* __restrict__ g_next_d,
                   const float* __restrict__ g_thr_mult, float* __restrict__ d_origin,
                   float* __restrict__ d_direction, float* __restrict__ d_thr,
-                  float* __restrict__ partial, int vol_nee, const float* __restrict__ medium,
-                  const float* __restrict__ g_medium, float* __restrict__ d_medium) {
+                  float* __restrict__ partial, int vol_nee, int surf,
+                  const float* __restrict__ medium, const float* __restrict__ g_medium,
+                  float* __restrict__ d_medium) {
   extern __shared__ float smem[];
   const RowLayout R = row_layout(G, M);
   float* s_acc = smem + table_floats(G, M);
@@ -143,14 +150,15 @@ bounce_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict
   for (int i = threadIdx.x; i < R.k; i += blockDim.x) s_acc[i] = 0.0f;
   __syncthreads();
   const Tables T{smem, smem + G * GCOLS, smem + G * GCOLS + M * MCOLS, G, scal[0],
-                 scal[1] > 0.5f};
+                 scal[1] > 0.5f, MeshTables{nullptr, nullptr, nullptr, nullptr, nullptr, 0},
+                 kSurf ? surf : 0};
 
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx < n)  // lanes past n contribute nothing
-    bounce_bwd_lane<kVol>(T, R, seed, nee, (size_t)idx, origin, direction, thr, sample, depth,
-                          prev, replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult,
-                          d_origin, d_direction, d_thr, s_acc, vol_nee, medium, g_medium,
-                          d_medium);
+    bounce_bwd_lane<kVol, kSurf>(T, R, seed, nee, (size_t)idx, origin, direction, thr, sample,
+                                 depth, prev, replay_gid, replay_nee, g_contrib, g_next_o,
+                                 g_next_d, g_thr_mult, d_origin, d_direction, d_thr, s_acc,
+                                 vol_nee, medium, g_medium, d_medium);
   __syncthreads();
   for (int i = threadIdx.x; i < R.k; i += blockDim.x)
     partial[(size_t)blockIdx.x * R.k + i] = s_acc[i];
@@ -170,13 +178,16 @@ extern "C" int bounce_bwd_launch(const float* gtab, int G, const float* mtab, in
                                  const float* g_next_o, const float* g_next_d,
                                  const float* g_thr_mult, float* d_origin, float* d_direction,
                                  float* d_thr, float* partial, float* row, int vol, int vol_nee,
-                                 const float* medium, const float* g_medium, float* d_medium,
-                                 void* stream) {
+                                 int surf, const float* medium, const float* g_medium,
+                                 float* d_medium, void* stream) {
   const RowLayout R = row_layout(G, M);
   const int blocks = bounce_bwd_blocks(n);
   if (n <= 0) return (int)cudaMemsetAsync(row, 0, sizeof(float) * R.k, (cudaStream_t)stream);
   const size_t smem = sizeof(float) * (table_floats(G, M) + R.k);
-  const auto kernel = vol ? bounce_bwd_kernel<true> : bounce_bwd_kernel<false>;
+  // the instance: vacuum or volumetric x surface blocks or not
+  const auto kernel =
+      vol ? (surf ? bounce_bwd_kernel<true, true> : bounce_bwd_kernel<true, false>)
+          : (surf ? bounce_bwd_kernel<false, true> : bounce_bwd_kernel<false, false>);
   if (smem > 48 * 1024) {
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -185,7 +196,7 @@ extern "C" int bounce_bwd_launch(const float* gtab, int G, const float* mtab, in
   kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       gtab, G, mtab, M, ltab, scal, seed, nee, n, origin, direction, thr, sample, depth, prev,
       replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult, d_origin, d_direction,
-      d_thr, partial, vol_nee, medium, g_medium, d_medium);
+      d_thr, partial, vol_nee, surf, medium, g_medium, d_medium);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   block_row_sum<<<(R.k + ROW_SUM_THREADS - 1) / ROW_SUM_THREADS, ROW_SUM_THREADS, 0,

@@ -470,13 +470,18 @@ PT_FN float floor_mod2(float x) {
   return m;
 }
 
-// the checker / stripes albedo in the object space (image textures, type 3,
-// are the deferred texel's)
-PT_FN V3 texture_albedo(const float* mat, V3 p_obj, V3 color) {
+// the checker / stripes pattern in the object space picks the second
+// colour (image textures, type 3, are the deferred texel's)
+PT_FN bool texture_second(const float* mat, V3 p_obj) {
   const float ts = mat[17], tt = mat[16];
   const float cx = floorf(p_obj.x * ts), cy = floorf(p_obj.y * ts), cz = floorf(p_obj.z * ts);
   const float pattern = tt > 1.5f ? floor_mod2(cx) : floor_mod2(cx + cy + cz);
-  return (tt > 0.5f && tt < 2.5f && pattern > 0.5f) ? v3(mat[18], mat[19], mat[20]) : color;
+  return tt > 0.5f && tt < 2.5f && pattern > 0.5f;
+}
+
+// the checker / stripes albedo
+PT_FN V3 texture_albedo(const float* mat, V3 p_obj, V3 color) {
+  return texture_second(mat, p_obj) ? v3(mat[18], mat[19], mat[20]) : color;
 }
 
 // the sinusoidal bump of the shading normal, on a lane whose bump scale is

@@ -41,6 +41,15 @@
 // (next medium = out medium where the lane lives on, the old one where it
 // died) to the material table's absorption, has_scatter and
 // scatter_coeff columns.  vol_nee reaches both kernels.
+// The kSurf instances (kernels 4s and 5s, the optional surface physics)
+// run pt::bounce_step<..., kSurf> forward, with the surface feature bits
+// `surf` as trace.cu takes them, and physics_adj<kSurf> in reverse: the
+// textured albedo's cotangent to the columns the lane's checker or stripes
+// cell picked, the bump's to the object-space hit point and the bump
+// columns, the Cook-Torrance and Ward lobes' to the shading normal, the
+// incoming direction, the specular colour and the roughness.  JAX adds no
+// residual planes for the surface blocks: 13 planes stay (17 with kVol,
+// whose instance with kSurf is the same template).
 // The table cotangents of a block's lanes go into a shared-memory row with
 // float atomics (their order within the block is not fixed: the row varies
 // in its last bits from run to run); block_row_sum then sums the per-block
@@ -77,7 +86,7 @@ constexpr int R_STATE = N_RESID<kVol> - 4;  // the emit-state plane; alive, gid,
 
 // ---- forward with residuals -----------------------------------------------
 
-template <bool kVol = false>
+template <bool kVol = false, bool kSurf = false>
 PT_FN void fwd_lane(const Tables& T, uint32_t seed, uint32_t s, V3 o, V3 d, int max_depth,
                     int nee, int rr, int rr_start, bool valid, float* resid, size_t n,
                     size_t idx, V3& rad, unsigned int& bounces, int vol_nee = 1) {
@@ -113,11 +122,13 @@ PT_FN void fwd_lane(const Tables& T, uint32_t seed, uint32_t s, V3 o, V3 d, int 
     if (alive) {
       ++bounces;
       if constexpr (kVol)
-        bounce_step<true>(T, bounce_base(seed, s_term, dep), dep, nee, rr, rr_start, o, d, thr,
-                          prev_state, rad, alive, gid, nee_add, &med, vol_nee);
+        bounce_step<true, false, kSurf>(T, bounce_base(seed, s_term, dep), dep, nee, rr,
+                                        rr_start, o, d, thr, prev_state, rad, alive, gid,
+                                        nee_add, &med, vol_nee);
       else
-        bounce_step(T, bounce_base(seed, s_term, dep), dep, nee, rr, rr_start, o, d, thr,
-                    prev_state, rad, alive, gid, nee_add);
+        bounce_step<false, false, kSurf>(T, bounce_base(seed, s_term, dep), dep, nee, rr,
+                                         rr_start, o, d, thr, prev_state, rad, alive, gid,
+                                         nee_add);
     }
     if (valid) {
       r[(RS + 2) * n] = (float)gid;
@@ -134,21 +145,25 @@ PT_FN void fwd_lane(const Tables& T, uint32_t seed, uint32_t s, V3 o, V3 d, int 
 // (added to acc).  This is the adjoint of step_update with p detached; the
 // bounce itself is bounce_adj.cuh's physics_adj.  A miss or a light hit
 // ends the path, so the carries pass through and only a counted emission
-// adds to the cotangents.
+// adds to the cotangents.  kSurf: the surface blocks (physics_adj<kSurf>).
+template <bool kSurf = false>
 PT_FN void bounce_adj(const Tables& T, const RowLayout& R, uint32_t base, int dep, int nee,
                       int rr, int rr_start, V3 o, V3 d, V3 thr, float prev_state, int gid,
                       bool nee_add, D3 g_rad, D3& g_o, D3& g_d, D3& g_thr, float* acc) {
   if (gid < 0) return;  // miss: the path ends, the carries pass through
   const Replay r = replay_bounce(T, o, d, gid);
+  const SurfReplay s = surf_replay<kSurf>(T, r);
   if (r.mat[9] > 0.0f) {
     // light hit: the path ends, the carries pass through; the emission
     // e * (thr * color) counts under the emit-state code
-    if (emission_counts(nee, dep, prev_state))
-      emission_adj(r.mat, R.om + r.mid * MCOLS, thr, g_rad, g_thr, acc);
+    if (emission_counts(nee, dep, prev_state)) {
+      const int macc = R.om + r.mid * MCOLS;
+      emission_adj(r.mat, macc, s.col, macc + s.ccol, thr, g_rad, g_thr, acc);
+    }
     return;
   }
-  const Scatter sc = sample_bsdf(r.mat, r.p, r.normal, d, uniform(base, 0), uniform(base, 1),
-                                 uniform(base, 2));
+  const Scatter sc = sample_bsdf_c<kSurf>(r.mat, albedo(s), r.p, s.normal, d, uniform(base, 0),
+                                          uniform(base, 1), uniform(base, 2), T.surf);
 
   // ---- step_update: thr2 = (thr * mult) [* 1/p], next o/d if it survives
   const V3 tm = vmul(thr, sc.thr);
@@ -169,8 +184,8 @@ PT_FN void bounce_adj(const Tables& T, const RowLayout& R, uint32_t base, int de
   D3 g_d_in = survive ? zero : g_d;
 
   // ---- the bounce
-  physics_adj(T, R, r, base, dep, nee, o, d, thr, prev_state, nee_add, g_rad, g_org, g_dir,
-              g_mult, g_o_in, g_d_in, g_thr_in, acc);
+  physics_adj<kSurf>(T, R, r, base, dep, nee, o, d, thr, prev_state, nee_add, g_rad, g_org,
+                     g_dir, g_mult, g_o_in, g_d_in, g_thr_in, acc);
   g_o = g_o_in;
   g_d = g_d_in;
   g_thr = g_thr_in;
@@ -180,18 +195,20 @@ PT_FN void bounce_adj(const Tables& T, const RowLayout& R, uint32_t base, int de
 // bounce_adj, and the medium's cotangents g_sa, g_ss chained like the other
 // carries'.  A miss adds nothing; a light hit reached without an in-medium
 // scatter ends the path with its emission, attenuated over the winner's t.
+template <bool kSurf = false>
 PT_FN void bounce_adj_vol(const Tables& T, const RowLayout& R, uint32_t base, int dep, int nee,
                           int vol_nee, int rr, int rr_start, V3 o, V3 d, V3 thr, Medium med,
                           float prev_state, int gid, bool nee_add, D3 g_rad, D3& g_o, D3& g_d,
                           D3& g_thr, D3& g_sa, AD& g_ss, float* acc) {
   if (gid < 0) return;  // miss: the path ends, the carries pass through
   const Replay r = replay_bounce(T, o, d, gid);
-  const VolBounce v = vol_bounce(r, base, d, med);
+  const VolBounce v = vol_bounce<kSurf>(T, r, base, d, med);
   const D3 zero = d3(0.0, 0.0, 0.0);
   if (!v.vs && r.mat[9] > 0.0f) {
     // light hit: the carries pass through, the emission counts (or not)
-    physics_adj_vol(T, R, r, v, base, dep, nee, vol_nee, o, d, thr, med, prev_state, false,
-                    false, g_rad, zero, zero, zero, zero, 0.0, g_o, g_d, g_thr, g_sa, g_ss, acc);
+    physics_adj_vol<kSurf>(T, R, r, v, base, dep, nee, vol_nee, o, d, thr, med, prev_state,
+                           false, false, g_rad, zero, zero, zero, zero, 0.0, g_o, g_d, g_thr,
+                           g_sa, g_ss, acc);
     return;
   }
 
@@ -211,10 +228,10 @@ PT_FN void bounce_adj_vol(const Tables& T, const RowLayout& R, uint32_t base, in
   D3 g_o_in = survive ? zero : g_o, g_d_in = survive ? zero : g_d;
   D3 g_sa_in = survive ? zero : g_sa;
   AD g_ss_in = survive ? 0.0 : g_ss;
-  physics_adj_vol(T, R, r, v, base, dep, nee, vol_nee, o, d, thr, med, prev_state, nee_add, true,
-                  g_rad, survive ? g_o : zero, survive ? g_d : zero, g_mult,
-                  survive ? g_sa : zero, survive ? g_ss : 0.0, g_o_in, g_d_in, g_thr_in, g_sa_in,
-                  g_ss_in, acc);
+  physics_adj_vol<kSurf>(T, R, r, v, base, dep, nee, vol_nee, o, d, thr, med, prev_state,
+                         nee_add, true, g_rad, survive ? g_o : zero, survive ? g_d : zero,
+                         g_mult, survive ? g_sa : zero, survive ? g_ss : 0.0, g_o_in, g_d_in,
+                         g_thr_in, g_sa_in, g_ss_in, acc);
   g_o = g_o_in;
   g_d = g_d_in;
   g_thr = g_thr_in;
@@ -223,7 +240,7 @@ PT_FN void bounce_adj_vol(const Tables& T, const RowLayout& R, uint32_t base, in
 }
 
 // the reverse loop of one lane: its origin and direction cotangents
-template <bool kVol = false>
+template <bool kVol = false, bool kSurf = false>
 PT_FN void bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, uint32_t s,
                     const float* resid, size_t n, size_t idx, int max_depth, int nee, int rr,
                     int rr_start, V3 g_rad_f, V3& g_o_out, V3& g_d_out, float* acc,
@@ -245,12 +262,13 @@ PT_FN void bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, uint32_t
     if constexpr (kVol) {
       const Medium med{v3(r[(R_SA + 0) * n], r[(R_SA + 1) * n], r[(R_SA + 2) * n]), r[R_SS * n],
                        0.0f};
-      bounce_adj_vol(T, R, base, dep, nee, vol_nee, rr, rr_start, o, d, thr, med, r[RS * n],
-                     (int)r[(RS + 2) * n], r[(RS + 3) * n] > 0.5f, g_rad, g_o, g_d, g_thr, g_sa,
-                     g_ss, acc);
+      bounce_adj_vol<kSurf>(T, R, base, dep, nee, vol_nee, rr, rr_start, o, d, thr, med,
+                            r[RS * n], (int)r[(RS + 2) * n], r[(RS + 3) * n] > 0.5f, g_rad, g_o,
+                            g_d, g_thr, g_sa, g_ss, acc);
     } else {
-      bounce_adj(T, R, base, dep, nee, rr, rr_start, o, d, thr, r[RS * n], (int)r[(RS + 2) * n],
-                 r[(RS + 3) * n] > 0.5f, g_rad, g_o, g_d, g_thr, acc);
+      bounce_adj<kSurf>(T, R, base, dep, nee, rr, rr_start, o, d, thr, r[RS * n],
+                        (int)r[(RS + 2) * n], r[(RS + 3) * n] > 0.5f, g_rad, g_o, g_d, g_thr,
+                        acc);
     }
   }
   g_o_out = v3((float)g_o.x, (float)g_o.y, (float)g_o.z);
@@ -268,19 +286,28 @@ using namespace pt;
 constexpr int FWD_THREADS = 128;
 constexpr int BWD_THREADS = 128;
 
-template <bool kVol>
+// the tables of a block's kernel: no meshes, the surface bits of a kSurf
+// instance
+template <bool kSurf>
+__device__ __forceinline__ Tables block_tables(const float* smem, int G, int M, const float* scal,
+                                               int surf) {
+  return Tables{smem, smem + G * GCOLS, smem + G * GCOLS + M * MCOLS, G, scal[0],
+                scal[1] > 0.5f, MeshTables{nullptr, nullptr, nullptr, nullptr, nullptr, 0},
+                kSurf ? surf : 0};
+}
+
+template <bool kVol, bool kSurf>
 __global__ void __launch_bounds__(FWD_THREADS)
 trace_fwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mtab, int M,
                  const float* __restrict__ ltab, const float* __restrict__ scal, uint32_t seed,
                  const float* __restrict__ origin, const float* __restrict__ direction,
                  const uint32_t* __restrict__ sample, int n, float* __restrict__ radiance,
                  unsigned long long* __restrict__ nrays, float* __restrict__ resid,
-                 int max_depth, int nee, int rr, int rr_start, int vol_nee) {
+                 int max_depth, int nee, int rr, int rr_start, int vol_nee, int surf) {
   extern __shared__ float smem[];
   load_tables(smem, gtab, G, mtab, M, ltab);
   __syncthreads();
-  const Tables T{smem, smem + G * GCOLS, smem + G * GCOLS + M * MCOLS, G, scal[0],
-                 scal[1] > 0.5f};
+  const Tables T = block_tables<kSurf>(smem, G, M, scal, surf);
 
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = idx < n;
@@ -292,8 +319,8 @@ trace_fwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict_
     s = sample[idx];
   }
   unsigned int bounces = 0;
-  fwd_lane<kVol>(T, seed, s, o, d, max_depth, nee, rr, rr_start, valid, resid, (size_t)n,
-                 (size_t)(valid ? idx : 0), rad, bounces, vol_nee);
+  fwd_lane<kVol, kSurf>(T, seed, s, o, d, max_depth, nee, rr, rr_start, valid, resid, (size_t)n,
+                        (size_t)(valid ? idx : 0), rad, bounces, vol_nee);
   if (valid) {
     radiance[3 * idx] = rad.x;
     radiance[3 * idx + 1] = rad.y;
@@ -305,29 +332,28 @@ trace_fwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict_
   if ((threadIdx.x & 31) == 0 && c) atomicAdd(nrays, c);
 }
 
-template <bool kVol>
+template <bool kVol, bool kSurf>
 __global__ void __launch_bounds__(BWD_THREADS)
 trace_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mtab, int M,
                  const float* __restrict__ ltab, const float* __restrict__ scal, uint32_t seed,
                  const uint32_t* __restrict__ sample, int n, const float* __restrict__ resid,
                  const float* __restrict__ g_radiance, float* __restrict__ d_origin,
                  float* __restrict__ d_direction, float* __restrict__ partial, int max_depth,
-                 int nee, int rr, int rr_start, int vol_nee) {
+                 int nee, int rr, int rr_start, int vol_nee, int surf) {
   extern __shared__ float smem[];
   const RowLayout R = row_layout(G, M);
   float* s_acc = smem + G * GCOLS + M * MCOLS + G * LCOLS;
   load_tables(smem, gtab, G, mtab, M, ltab);
   for (int i = threadIdx.x; i < R.k; i += blockDim.x) s_acc[i] = 0.0f;
   __syncthreads();
-  const Tables T{smem, smem + G * GCOLS, smem + G * GCOLS + M * MCOLS, G, scal[0],
-                 scal[1] > 0.5f};
+  const Tables T = block_tables<kSurf>(smem, G, M, scal, surf);
 
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx < n) {  // lanes past n contribute nothing
     const V3 g_rad = v3(g_radiance[3 * idx], g_radiance[3 * idx + 1], g_radiance[3 * idx + 2]);
     V3 g_o, g_d;
-    bwd_lane<kVol>(T, R, seed, sample[idx], resid, (size_t)n, (size_t)idx, max_depth, nee, rr,
-                   rr_start, g_rad, g_o, g_d, s_acc, vol_nee);
+    bwd_lane<kVol, kSurf>(T, R, seed, sample[idx], resid, (size_t)n, (size_t)idx, max_depth, nee,
+                          rr, rr_start, g_rad, g_o, g_d, s_acc, vol_nee);
     d_origin[3 * idx] = g_o.x;
     d_origin[3 * idx + 1] = g_o.y;
     d_origin[3 * idx + 2] = g_o.z;
@@ -342,19 +368,23 @@ trace_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict_
 
 }  // namespace
 
+// surf: the surface feature bits (0 runs the instance without the surface
+// blocks, any other value the kSurf one)
 extern "C" int trace_fwd_launch(const float* gtab, int G, const float* mtab, int M,
                                 const float* ltab, const float* scal, unsigned int seed,
                                 const float* origin, const float* direction,
                                 const unsigned int* sample, int n, float* radiance,
                                 unsigned long long* nrays, float* resid, int max_depth, int nee,
-                                int rr, int rr_start, int vol, int vol_nee, void* stream) {
+                                int rr, int rr_start, int vol, int vol_nee, int surf,
+                                void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + FWD_THREADS - 1) / FWD_THREADS;
   const size_t smem = sizeof(float) * table_floats(G, M);
-  const auto kernel = vol ? trace_fwd_kernel<true> : trace_fwd_kernel<false>;
+  const auto kernel = vol ? (surf ? trace_fwd_kernel<true, true> : trace_fwd_kernel<true, false>)
+                          : (surf ? trace_fwd_kernel<false, true> : trace_fwd_kernel<false, false>);
   kernel<<<blocks, FWD_THREADS, smem, (cudaStream_t)stream>>>(
       gtab, G, mtab, M, ltab, scal, seed, origin, direction, sample, n, radiance, nrays, resid,
-      max_depth, nee, rr, rr_start, vol_nee);
+      max_depth, nee, rr, rr_start, vol_nee, surf);
   return (int)cudaGetLastError();
 }
 
@@ -366,12 +396,13 @@ extern "C" int trace_bwd_launch(const float* gtab, int G, const float* mtab, int
                                 const unsigned int* sample, int n, const float* resid,
                                 const float* g_radiance, float* d_origin, float* d_direction,
                                 float* partial, float* row, int max_depth, int nee, int rr,
-                                int rr_start, int vol, int vol_nee, void* stream) {
+                                int rr_start, int vol, int vol_nee, int surf, void* stream) {
   const RowLayout R = row_layout(G, M);
   const int blocks = trace_bwd_blocks(n);
   if (n <= 0) return (int)cudaMemsetAsync(row, 0, sizeof(float) * R.k, (cudaStream_t)stream);
   const size_t smem = sizeof(float) * (table_floats(G, M) + R.k);
-  const auto kernel = vol ? trace_bwd_kernel<true> : trace_bwd_kernel<false>;
+  const auto kernel = vol ? (surf ? trace_bwd_kernel<true, true> : trace_bwd_kernel<true, false>)
+                          : (surf ? trace_bwd_kernel<false, true> : trace_bwd_kernel<false, false>);
   if (smem > 48 * 1024) {
     cudaError_t e =
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -379,7 +410,7 @@ extern "C" int trace_bwd_launch(const float* gtab, int G, const float* mtab, int
   }
   kernel<<<blocks, BWD_THREADS, smem, (cudaStream_t)stream>>>(
       gtab, G, mtab, M, ltab, scal, seed, sample, n, resid, g_radiance, d_origin, d_direction,
-      partial, max_depth, nee, rr, rr_start, vol_nee);
+      partial, max_depth, nee, rr, rr_start, vol_nee, surf);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   block_row_sum<<<(R.k + ROW_SUM_THREADS - 1) / ROW_SUM_THREADS, ROW_SUM_THREADS, 0,

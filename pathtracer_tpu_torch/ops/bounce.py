@@ -41,8 +41,8 @@ JAX's order: texture before the bump, the bump before the free path, the
 emittance, NEE and the BSDF.  ``tex_defer`` adds the deferred image texel's
 UV and atlas slot (``:1076-1119``, with the polynomial ``atan2_planes`` /
 ``asin_planes`` of ``:580-605``).  The differentiable engines take media
-and refuse the surface features (:func:`check_diff_features`).  ``glossy``
-is not gated in the JAX kernel either.
+and the surface features (:func:`check_diff_features`).  ``glossy`` is not
+gated in the JAX kernel either.
 """
 
 from __future__ import annotations
@@ -51,6 +51,7 @@ import math
 
 import torch
 
+from pathtracer_tpu_torch.ops.bsdf import sqrt0
 from pathtracer_tpu_torch.ops.intersect import (
     BIG,
     geom_t,
@@ -77,13 +78,6 @@ SUPPORTED_FEATURES = frozenset(
     {"glossy", "volumetric", "hg", "texture", "bump", "microfacet", "ward"})
 # the optional surface blocks, compiled into the kernels' kSurf instance
 SURFACE_FEATURES = ("texture", "bump", "microfacet", "ward")
-# features the differentiable engines model: the base lobes and
-# participating media; the fused engines (kernels 4 and 5, 2r and 3) take
-# no Henyey-Greenstein phase, as in JAX, the lean engine takes it
-DIFF_FEATURES = {
-    "fused": frozenset({"glossy", "volumetric"}),
-    "lean": frozenset({"glossy", "volumetric", "hg"}),
-}
 
 
 def check_features(features, supported=SUPPORTED_FEATURES, what="the bounce physics") -> None:
@@ -94,15 +88,15 @@ def check_features(features, supported=SUPPORTED_FEATURES, what="the bounce phys
 
 def check_diff_features(features, engine: str) -> None:
     """The differentiable engines' gate: ``engine`` is ``"fused"`` (the
-    full-depth and per-bounce engines) or ``"lean"``.  The surface
-    features' gradients are a later slice; ``hg`` runs on the lean engine
-    only (``render/diff`` sends such scenes there)."""
-    lean_only = sorted((set(features) - DIFF_FEATURES[engine]) & DIFF_FEATURES["lean"])
-    if lean_only:
+    full-depth and per-bounce engines) or ``"lean"``.  Every engine models
+    every feature of the bounce but ``hg``, which runs on the lean engine
+    only, as in JAX (``trace_grad.py:472``; ``render/diff`` sends such
+    scenes there)."""
+    if engine == "fused" and "hg" in features:
         raise NotImplementedError(
-            f"feature(s) {', '.join(lean_only)} of the fused differentiable engines: the lean "
-            "engine (RenderConfig(grad_fused=False)) differentiates them")
-    check_features(features, DIFF_FEATURES[engine], "the differentiable engines")
+            "feature(s) hg of the fused differentiable engines: the lean engine "
+            "(RenderConfig(grad_fused=False)) differentiates them")
+    check_features(features, what="the differentiable engines")
 
 
 # ---------------------------------------------------------------------------
@@ -283,7 +277,7 @@ def cosine_hemisphere(n, xi1, xi2):
 
 
 def rotate_about(axis_dir, cos_angle, phi):
-    sin_angle = torch.sqrt(torch.clamp(1.0 - cos_angle * cos_angle, min=0.0))
+    sin_angle = sqrt0(1.0 - cos_angle * cos_angle)
     p1, p2 = not_axis_frame(axis_dir)
     return vadd(
         vscale(cos_angle, axis_dir),
@@ -334,7 +328,7 @@ def ward_planes(mat, n, d_in, cos_i, u0, u1):
     sin_phi = ay_ * sb * inv_len
     tan2 = -torch.log(xi1) * d_inv
     cos_th = 1.0 / torch.sqrt(1.0 + tan2)
-    sin_th = torch.sqrt(torch.clamp(1.0 - cos_th * cos_th, min=0.0))
+    sin_th = sqrt0(1.0 - cos_th * cos_th)
     t1, t2 = not_axis_frame(n)
     h = vadd(vscale(cos_th, n), vadd(vscale(sin_th * cos_phi, t1), vscale(sin_th * sin_phi, t2)))
     d = vsub(d_in, vscale(2.0 * vdot(d_in, h), h))
@@ -342,7 +336,7 @@ def ward_planes(mat, n, d_in, cos_i, u0, u1):
     cos_o = vdot(d, n)
     valid = (cos_o > 0.0) & (wi_dot_h > 0.0)
     w = (wi_dot_h * (cos_th * (cos_th * cos_th))
-         * torch.sqrt(torch.clamp(cos_o, min=0.0) / torch.clamp(cos_i, 1e-6, 1.0)))
+         * sqrt0(torch.clamp(cos_o, min=0.0) / torch.clamp(cos_i, 1e-6, 1.0)))
     return d, vwhere(valid, vscale(w, mat["spec_color"]), (0.0 * w,) * 3)
 
 

@@ -19,7 +19,7 @@ code, BSDF continuation, and NEE with a shadow sweep.
   bit, the planes kernel 3 (``ops/bounce_grad.py``) replays.  On the card
   it is the same kernel with two more output pointers, counted in
   ``replay_launches`` (``replay_vol_launches`` for its volumetric instance,
-  2r-v).
+  2r-v, ``replay_surf_launches`` for its surface instances, 2r-s).
 * :func:`bounce_fused` dispatches on the rays' device: a CUDA tensor
   launches the kernel or raises, a CPU tensor takes the plain version.
 
@@ -31,7 +31,8 @@ triangles for its nearest hit and its shadow ray.  Participating media
 (:func:`medium_width`; ``bounce_pallas.py:1485-1488,1661,1737``), and the
 kernel runs its ``kVol`` / ``kHg`` instance; in vacuum the medium passes
 through.  The replay variant runs in vacuum and in ``volumetric`` media
-without ``hg`` (the per-bounce differentiable engine's scope, as in JAX).  The surface features
+without ``hg``, with or without the surface features (the per-bounce
+differentiable engine's scope, as in JAX).  The surface features
 (``texture``, ``bump``, ``microfacet``, ``ward``) run the kernel's ``kSurf``
 instance (``surf_launches``).  A scene with image textures runs the
 deferred-texel variant (``bounce_pallas.py:1076-1119,1772-1793``): both
@@ -89,6 +90,8 @@ vol_launches = 0  # launches of its volumetric instance (analytic scenes)
 hg_launches = 0  # launches of its volumetric instance with the HG phase
 replay_launches = 0  # launches of its emit_replay variant, vacuum scenes
 replay_vol_launches = 0  # launches of its emit_replay variant's volumetric instance (2r-v)
+# launches of its emit_replay variant's surface instances (2r-s), vacuum or volumetric
+replay_surf_launches = 0
 mesh_launches = 0  # launches of its variant with in-kernel mesh tables, media or not
 surf_launches = 0  # launches of its surface instances (no deferred texel), any mesh or media
 tex_launches = 0  # launches of its deferred-texel variant (surface blocks, any media case)
@@ -265,7 +268,8 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
     """Launch kernel 2 on the rays' CUDA device, on the current stream
     (``csrc/bounce.cu``, or with ``mesh_in`` ``csrc/bounce_merge.cu``);
     the arguments and the result as in :func:`bounce_fused_plain`."""
-    global launches, replay_launches, replay_vol_launches, mesh_launches, vol_launches, hg_launches
+    global launches, replay_launches, replay_vol_launches, replay_surf_launches, mesh_launches
+    global vol_launches, hg_launches
     global surf_launches, tex_launches, mesh_tex_launches, merge_launches
     check_features(features)
     _check_variants(emit_replay, tex_defer, mesh, mesh_in, mesh_uv)
@@ -326,7 +330,9 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
                        throughput_mult=thr_mult, terminate=terminate.view(torch.bool),
                        was_specular=wspec, rr_uniform=rru, next_medium=medium)
     if emit_replay:
-        if media[0]:
+        if surf:
+            replay_surf_launches += 1
+        elif media[0]:
             replay_vol_launches += 1
         else:
             replay_launches += 1

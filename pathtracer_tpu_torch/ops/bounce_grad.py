@@ -31,7 +31,10 @@ volumetric instance with replay planes (2r-v) and the backward kernel 3's
 (3v), which takes the medium and its output cotangent and returns the
 medium's cotangent; in vacuum the medium passes through the bounce, and so
 does its cotangent.  ``hg`` raises: the lean engine differentiates it, as
-in JAX.
+in JAX.  The surface features (``texture``, ``bump``, ``microfacet``,
+``ward``) run kernel 2's surface instance with replay planes (2r-s) and
+kernel 3's (3s), with ``volumetric`` the same templates' ``kVol`` x
+``kSurf`` instances.
 
 Output contract of both backwards: mask-free, as kernel 2's forward.  Any
 cotangents on any lane, misses and light hits included, give the adjoint of
@@ -55,7 +58,7 @@ from pathtracer_tpu_torch.ops.bounce_fused import (
 )
 from pathtracer_tpu_torch.ops.intersect import T_MIN
 from pathtracer_tpu_torch.ops.rng import hash_uniforms_planes
-from pathtracer_tpu_torch.ops.trace import check_launch, check_tensor
+from pathtracer_tpu_torch.ops.trace import check_launch, check_tensor, surface_bits
 from pathtracer_tpu_torch.ops.trace_grad import (
     _Float32Values,
     fused_diff_eligible,
@@ -65,6 +68,7 @@ from pathtracer_tpu_torch.ops.trace_grad import (
 
 launches = 0  # launches of csrc/bounce_grad.cu (its kernel and its block sum), vacuum scenes
 vol_launches = 0  # launches of its volumetric instance (3v)
+surf_launches = 0  # launches of its surface instances (3s), vacuum or volumetric
 
 
 def bounce_bwd_plain(tables, origin, direction, throughput, sample_idx, depth, prev_specular,
@@ -131,7 +135,8 @@ def _lib():
             P, P, P, P,  # cotangents: contrib, next origin, next direction, thr mult
             P, P, P,  # d_origin, d_direction, d_throughput
             P, P,  # block partials, table row
-            I, I, P, P, P,  # volumetric, vol_nee; medium, its cotangent, d_medium (null: vacuum)
+            I, I, I,  # volumetric, vol_nee, surface bits
+            P, P, P,  # medium, its cotangent, d_medium (null: vacuum)
             P,  # stream
         ]
         lib.bounce_bwd_blocks.restype = ctypes.c_int
@@ -143,12 +148,13 @@ def bounce_bwd_cuda(tables, origin, direction, throughput, sample_idx, depth, pr
                     replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult,
                     seed: int, *, nee: bool, features=frozenset(), medium=None, g_medium=None,
                     vol_nee: bool = True):
-    """Launch kernel 3 (3v with ``volumetric``) and its fixed-order block
-    sum on the rays' CUDA device, on the current stream: what
-    :func:`bounce_bwd_plain` returns."""
-    global launches, vol_launches
+    """Launch kernel 3 (3v with ``volumetric``, 3s with a surface feature)
+    and its fixed-order block sum on the rays' CUDA device, on the current
+    stream: what :func:`bounce_bwd_plain` returns."""
+    global launches, vol_launches, surf_launches
     check_diff_features(features, "fused")
     vol = "volumetric" in features
+    surf = surface_bits(features)
     gtab, mtab, ltab, scal = tables
     device = origin.device
     n = origin.shape[0]
@@ -183,15 +189,18 @@ def bounce_bwd_cuda(tables, origin, direction, throughput, sample_idx, depth, pr
         depth.data_ptr(), prev.data_ptr(), replay_gid.data_ptr(), replay_nee.data_ptr(),
         g_contrib.data_ptr(), g_next_o.data_ptr(), g_next_d.data_ptr(), g_thr_mult.data_ptr(),
         d_o.data_ptr(), d_d.data_ptr(), d_t.data_ptr(), partial.data_ptr(), row.data_ptr(),
-        int(vol), int(bool(vol_nee)), *med, torch.cuda.current_stream(device).cuda_stream,
+        int(vol), int(bool(vol_nee)), surf, *med, torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"bounce backward kernel launch failed: CUDA error {err}")
-    if vol:
+    if surf:
+        surf_launches += 1
+    elif vol:
         vol_launches += 1
-        return (*split_grad_row(row, g, m), d_o, d_d, d_t, d_m)
-    launches += 1
-    return (*split_grad_row(row, g, m), d_o, d_d, d_t)
+    else:
+        launches += 1
+    grads = (*split_grad_row(row, g, m), d_o, d_d, d_t)
+    return (*grads, d_m) if vol else grads
 
 
 class BounceDiff(torch.autograd.Function):

@@ -13,7 +13,9 @@ matmul at full precision; here it is a row gather with the same values.
 JAX's integer powers (``x ** 5``, ``x ** 3``) lower to repeated
 multiplication, ``x * ((x * x) * (x * x))`` and ``x * (x * x)``; they are
 written out so.  Discrete choices (the dielectric's reflect-or-transmit) are
-taken on detached values, as there.
+taken on detached values, as there.  A lobe's square root of a clamped
+quantity is :func:`sqrt0`: the same value, and a zero gradient where the
+quantity is not positive.
 
 The fused route's plain version (``ops/bounce.py:sample_bsdf``, on
 component tuples) computes the same lobes in the TPU kernel's order.
@@ -28,6 +30,20 @@ import torch
 
 SQRT_ONE_THIRD = 0.5773502691896257
 RAY_BIAS = 2e-4
+
+
+def sqrt0(x: torch.Tensor) -> torch.Tensor:
+    """``sqrt(max(x, 0))`` with a zero gradient where ``x <= 0``.
+
+    The value is ``torch.sqrt(torch.clamp(x, min=0))``'s.  Their gradient
+    there is infinite, and NaN under a zero cotangent.  The lobes meet such
+    points on a lane the lobe did not take (a self-shadowed Ward sample: a
+    zero ``cos_o``; a miss's zero normal), where the NaN reaches the
+    tables through the lane's normal.  They meet them on a lane it took
+    where the sampled angle rounds to zero (``sin_th`` of Ward, the sine
+    of ``_rotate_about``).  The kernels' adjoints pass zero there too."""
+    pos = x > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, x, 1.0)), 0.0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -150,7 +166,7 @@ def cosine_hemisphere(normal, xi1, xi2):
 
 def _rotate_about(axis_dir, cos_angle, phi):
     """Direction at ``acos(cos_angle)`` from ``axis_dir``, azimuth ``phi``."""
-    sin_angle = torch.sqrt(torch.clamp(1.0 - cos_angle**2, min=0.0))
+    sin_angle = sqrt0(1.0 - cos_angle**2)
     p1, p2 = _kutz_frame(axis_dir)
     return (
         cos_angle[..., None] * axis_dir
@@ -280,7 +296,7 @@ def ward_sample(n, incident, cos_i, alpha_x, alpha_y, spec_color, xi1, xi2):
     sin_phi = ay_ * sb * inv_len
     tan2 = -torch.log(xi1) * d_inv
     cos_th = 1.0 / torch.sqrt(1.0 + tan2)
-    sin_th = torch.sqrt(torch.clamp(1.0 - cos_th * cos_th, min=0.0))
+    sin_th = sqrt0(1.0 - cos_th * cos_th)
     t1, t2 = _kutz_frame(n)
     h = (cos_th[..., None] * n + (sin_th * cos_phi)[..., None] * t1
          + (sin_th * sin_phi)[..., None] * t2)
@@ -289,7 +305,7 @@ def ward_sample(n, incident, cos_i, alpha_x, alpha_y, spec_color, xi1, xi2):
     cos_o = _dot(d, n)
     valid = (cos_o > 0.0) & (wi_dot_h > 0.0)
     w = (wi_dot_h * (cos_th * (cos_th * cos_th))
-         * torch.sqrt(torch.clamp(cos_o, min=0.0) / torch.clamp(cos_i, 1e-6, 1.0)))
+         * sqrt0(torch.clamp(cos_o, min=0.0) / torch.clamp(cos_i, 1e-6, 1.0)))
     return d, torch.where(valid[..., None], spec_color * w[..., None], 0.0)
 
 

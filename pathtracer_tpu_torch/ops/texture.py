@@ -18,7 +18,11 @@ polynomial (``ops/bounce.atan2_planes``), as the JAX kernel does.
 The fetch is plain PyTorch, as the JAX package left it to XLA: four row
 gathers and a bilinear blend with wrapping.  JAX's one-hot MXU fetch at
 HIGHEST precision gives the exact texel values, so the gathers give the
-same numbers.
+same numbers.  The texels are differentiable (the atlas is a leaf of
+``render/diff.SceneParams``): the gathers' backward adds each texel's
+cotangents in float64 and rounds once (``ops/bsdf.gather_rows``), so a
+texel's gradient is the same from run to run on the card, where float32
+atomics would add its lanes in no fixed order.
 """
 
 from __future__ import annotations
@@ -28,7 +32,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from pathtracer_tpu_torch.ops.bsdf import gather_rows
 from pathtracer_tpu_torch.scene.structs import CUBE, SPHERE
+
 
 @dataclasses.dataclass(frozen=True)
 class TextureAtlas:
@@ -70,15 +76,19 @@ def compute_uv(gtype: torch.Tensor, p_obj: torch.Tensor, n_obj: torch.Tensor) ->
     ``gtype`` is the winning geom's type.  All three maps are evaluated and
     selected per lane."""
     px, py, pz = p_obj.unbind(-1)
-    u_sph = torch.atan2(pz, px) / (2.0 * np.pi) + 0.5
-    v_sph = torch.asin(torch.clamp(py * 2.0, -1.0, 1.0)) / np.pi + 0.5
+    sphere = gtype == SPHERE
+    # the sphere map sees its own lanes only: on a cube face at |y| = 0.5
+    # its asin is infinitely steep, and the zero cotangent of the lane it
+    # does not select would make the gradient NaN (JAX's is)
+    sx, sy, sz = (torch.where(sphere, c, fill) for c, fill in ((px, 1.0), (py, 0.0), (pz, 0.0)))
+    u_sph = torch.atan2(sz, sx) / (2.0 * np.pi) + 0.5
+    v_sph = torch.asin(torch.clamp(sy * 2.0, -1.0, 1.0)) / np.pi + 0.5
     # cube: the dominant |p_obj| axis; mesh: the dominant |n_obj| axis (the
     # first maximum wins, as argmax)
     sel = torch.where((gtype == CUBE)[:, None], torch.abs(p_obj), torch.abs(n_obj))
     axis = torch.argmax(sel, dim=-1)
     u_box = torch.where(axis == 0, pz, px) + 0.5
     v_box = torch.where(axis == 2, py, torch.where(axis == 0, py, pz)) + 0.5
-    sphere = gtype == SPHERE
     return torch.stack([torch.where(sphere, u_sph, u_box), torch.where(sphere, v_sph, v_box)],
                        dim=-1)
 
@@ -105,7 +115,7 @@ def sample_atlas(atlas: TextureAtlas, tex_id: torch.Tensor, uv: torch.Tensor) ->
     def texel(yi, xi):
         yi = torch.remainder(yi, h_safe).to(torch.int64)
         xi = torch.remainder(xi, w_safe).to(torch.int64)
-        return table[(k * height + yi) * width + xi]
+        return gather_rows(table, (k * height + yi) * width + xi)
 
     c00 = texel(y0, x0)
     c01 = texel(y0, x0 + 1.0)

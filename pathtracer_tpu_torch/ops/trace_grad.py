@@ -43,6 +43,12 @@ and on to the material table's absorption and scattering columns).  The
 kernels run their ``kVol`` instances.  ``hg`` stays on the lean engine
 (``fused_diff_eligible``), as in JAX.
 
+The optional surface features (``texture``, ``bump``, ``microfacet``,
+``ward``): both plain versions run ``bounce_physics`` with them, and the
+kernels their ``kSurf`` instances (4s and 5s; with ``volumetric`` the same
+template's ``kVol`` x ``kSurf`` instances), with the feature bits of
+``ops/trace.surface_bits``.  JAX adds no residual planes for them.
+
 Gradient semantics are those of the JAX engines: detached sampling,
 winner-only intersection cotangents, zero-cotangent visibility, detached
 russian-roulette probability.  The table cotangents come back as
@@ -74,6 +80,7 @@ from pathtracer_tpu_torch.ops.trace import (
     fused_trace_eligible,
     init_carries,
     step_update,
+    surface_bits,
 )
 from pathtracer_tpu_torch.scene.structs import Rays
 
@@ -85,6 +92,8 @@ fwd_launches = 0  # launches of tfwd_cuda in this process, vacuum scenes
 bwd_launches = 0  # launches of tbwd_cuda (its kernel and its block sum), vacuum scenes
 fwd_vol_launches = 0  # launches of tfwd_cuda's volumetric instance (4v)
 bwd_vol_launches = 0  # launches of tbwd_cuda's volumetric instance (5v)
+fwd_surf_launches = 0  # launches of tfwd_cuda's surface instances (4s), vacuum or volumetric
+bwd_surf_launches = 0  # launches of tbwd_cuda's surface instances (5s), vacuum or volumetric
 
 
 def n_resid(features) -> int:
@@ -326,7 +335,7 @@ def _lib():
             ctypes.c_int,  # n
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # radiance, nrays, resid
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # depth, nee, rr, rr_start
-            ctypes.c_int, ctypes.c_int,  # volumetric, vol_nee
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # volumetric, vol_nee, surface bits
             ctypes.c_void_p,  # stream
         ]
         lib.trace_bwd_launch.restype = ctypes.c_int
@@ -340,7 +349,7 @@ def _lib():
             ctypes.c_void_p, ctypes.c_void_p,  # d_origin, d_direction
             ctypes.c_void_p, ctypes.c_void_p,  # block partials, table row
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # depth, nee, rr, rr_start
-            ctypes.c_int, ctypes.c_int,  # volumetric, vol_nee
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # volumetric, vol_nee, surface bits
             ctypes.c_void_p,  # stream
         ]
         lib.trace_bwd_blocks.restype = ctypes.c_int
@@ -354,12 +363,13 @@ def tfwd_cuda(
     vol_nee: bool = True,
 ):
     """Launch the forward-with-residuals kernel (its ``kVol`` instance with
-    ``volumetric``): ``(radiance [N, 3], rays_traced int64 [], residuals
-    [depth, n_resid(features), N])`` on the rays' CUDA device, on the
-    current stream."""
-    global fwd_launches, fwd_vol_launches
+    ``volumetric``, its ``kSurf`` one with a surface feature): ``(radiance
+    [N, 3], rays_traced int64 [], residuals [depth, n_resid(features),
+    N])`` on the rays' CUDA device, on the current stream."""
+    global fwd_launches, fwd_vol_launches, fwd_surf_launches
     check_diff_features(features, "fused")
     vol = "volumetric" in features
+    surf = surface_bits(features)
     device = origin.device
     n = origin.shape[0]
     g, m, bits = check_launch(gtab, mtab, ltab, scal, sample_idx, n, device)
@@ -376,11 +386,13 @@ def tfwd_cuda(
         origin.data_ptr(), direction.data_ptr(), bits.data_ptr(), n,
         radiance.data_ptr(), nrays.data_ptr(), resid.data_ptr(),
         int(max_depth), int(bool(nee)), int(bool(rr)), int(rr_start), int(vol),
-        int(bool(vol_nee)), stream,
+        int(bool(vol_nee)), surf, stream,
     )
     if err != 0:
         raise RuntimeError(f"trace_fwd kernel launch failed: CUDA error {err}")
-    if vol:
+    if surf:
+        fwd_surf_launches += 1
+    elif vol:
         fwd_vol_launches += 1
     else:
         fwd_launches += 1
@@ -393,12 +405,13 @@ def tbwd_cuda(
     vol_nee: bool = True,
 ):
     """Launch the reverse kernel (its ``kVol`` instance with
-    ``volumetric``) and its fixed-order block sum: ``(d_gtab, d_mtab,
-    d_ltab, d_scal, d_origin [N, 3], d_direction [N, 3])`` on the current
-    stream."""
-    global bwd_launches, bwd_vol_launches
+    ``volumetric``, its ``kSurf`` one with a surface feature) and its
+    fixed-order block sum: ``(d_gtab, d_mtab, d_ltab, d_scal, d_origin [N,
+    3], d_direction [N, 3])`` on the current stream."""
+    global bwd_launches, bwd_vol_launches, bwd_surf_launches
     check_diff_features(features, "fused")
     vol = "volumetric" in features
+    surf = surface_bits(features)
     device = resid.device
     n = resid.shape[2]
     g, m, bits = check_launch(gtab, mtab, ltab, scal, sample_idx, n, device)
@@ -419,11 +432,13 @@ def tbwd_cuda(
         resid.data_ptr(), g_rad.data_ptr(), d_o.data_ptr(), d_d.data_ptr(),
         partial.data_ptr(), row.data_ptr(),
         int(max_depth), int(bool(nee)), int(bool(rr)), int(rr_start), int(vol),
-        int(bool(vol_nee)), stream,
+        int(bool(vol_nee)), surf, stream,
     )
     if err != 0:
         raise RuntimeError(f"trace_bwd kernel launch failed: CUDA error {err}")
-    if vol:
+    if surf:
+        bwd_surf_launches += 1
+    elif vol:
         bwd_vol_launches += 1
     else:
         bwd_launches += 1

@@ -64,8 +64,12 @@ use; ``microfacet`` / ``ward`` put the Cook-Torrance and Ward lobes in the
 BSDF.  On the fused route kernel 2 runs its surface instance and, with
 image textures, its deferred-texel variant.  A mesh lane's image UV is the
 box map of its object-space normal ``M^T n_world`` or its authored ``vt``
-(``:258-279``).  The surface features and image textures under
-``grad_lean`` raise ``NotImplementedError``.
+(``:258-279``).  Under ``grad_lean`` the surface features differentiate:
+in a scene in the fused scope on kernel 2's surface instance with replay
+planes and kernel 3's (2r-s, 3s); otherwise on the lean split route, where
+the albedo's choice is discrete, the bump's frame is JAX's split path's
+(``:284-309``), and an image texture's texels are differentiable while the
+UV's geom id and box-map transform run detached (``:262,266``).
 
 ``cfg.pallas`` picks no route in the port.
 """
@@ -137,8 +141,6 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
     check_features(cfg.features)
     if cfg.grad_lean:
         check_diff_features(cfg.features, "lean")
-        if scene.textures is not None:
-            raise NotImplementedError("gradients of image textures: later slice")
     if not cfg.fast_rng:
         raise NotImplementedError("shade_bounce for fast_rng=False: later slice")
     tables = tables if tables is not None else pack_tables(scene)
@@ -184,7 +186,7 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
         # image texture: UV from the object-space hit, bilinear atlas texel
         gid = hit.geom_id.detach().long()
         gtype = scene.geoms.type[gid]
-        m3 = scene.geoms.transform.detach()[gid][:, :3, :3]
+        m3 = scene.geoms.transform.detach()[gid][:, :3, :3].to(normal.dtype)
         n_obj = torch.einsum("nij,ni->nj", m3, normal)  # n_obj ~ M^T n_world
         uv = compute_uv(gtype, hit.position_obj, n_obj)
         if hit.uv is not None:

@@ -7,7 +7,10 @@ scales; materials, the camera and each mesh's object-space vertices
 (``SceneParams.mesh_verts``) are leaves themselves.  Sampling is
 detached (lobe choice, russian roulette, visibility are comparisons); the
 throughput, Fresnel weights, emittance, hit points and normals through the
-intersection ``t`` carry pathwise gradients.  Gradients come from
+intersection ``t`` carry pathwise gradients.  A scene's image textures
+are a leaf too: ``SceneParams.textures`` holds the atlas, whose texels
+(``textures.data``) take gradients (inverse texture painting) and whose
+slot sizes (``textures.hw``) stay static.  Gradients come from
 ``torch.autograd.grad`` over the :class:`SceneParams` leaves; a leaf with
 no path to the loss gets zeros, as in JAX's pytree of gradients.
 
@@ -38,15 +41,17 @@ them); every :func:`build_scene` rebinds it to the live vertices
 and UVs do not enter differentiable mode, as in JAX.
 
 Features (``ops/bounce.check_diff_features``): the full-depth and
-per-bounce engines differentiate the base lobes and ``volumetric`` media
-(with or without ``vol_nee``), on their kernels' volumetric instances
-(4v and 5v, 2r-v and 3v); the lean engine differentiates those and ``hg``,
-on analytic scenes and with meshes.  A scene with ``hg`` takes the lean
-engine, as in JAX.
+per-bounce engines differentiate the base lobes, ``volumetric`` media (with
+or without ``vol_nee``) and the surface features (``texture``, ``bump``,
+``microfacet``, ``ward``), on their kernels' volumetric instances (4v and
+5v, 2r-v and 3v) and surface instances (4s and 5s, 2r-s and 3s); the lean
+engine differentiates those and ``hg``, on analytic scenes and with meshes.
+A scene with ``hg`` or image textures takes the lean engine, as in JAX;
+its forward is the fast forward engine (on an image-textured scene the
+per-bounce scan on kernel 2's deferred-texel variant, 2t).
 
 On the card the kernels run, on the CPU their plain versions.  Not ported
-yet: textures as leaves (``textures`` raises when set), the surface
-features' gradients and the sharded variants.
+yet: the sharded variants.
 """
 
 from __future__ import annotations
@@ -62,6 +67,7 @@ from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.ops.accel import build_mesh_accel, refresh_accel
 from pathtracer_tpu_torch.ops.bounce import check_diff_features, pack_tables
 from pathtracer_tpu_torch.ops.rng import key_to_seed
+from pathtracer_tpu_torch.ops.texture import TextureAtlas, build_atlas
 from pathtracer_tpu_torch.ops.trace_grad import fused_diff_eligible
 from pathtracer_tpu_torch.ops.transforms import build_transform
 from pathtracer_tpu_torch.render.features import resolve_features
@@ -96,29 +102,38 @@ class SceneParams:
     # per mesh geom its [T, 3, 3] object-space vertices (file order): the
     # gradients reach them and, through TRS, the instance's transform
     mesh_verts: tuple = ()
-    textures: object = None  # texture atlas as a leaf: later slice
+    # the image textures' ops/texture.TextureAtlas, or None: its texels
+    # ``data`` [K, H, W, 3] are a leaf, its slot sizes ``hw`` static
+    textures: object = None
 
     def __post_init__(self):
-        if self.textures is not None:
-            raise NotImplementedError("textures as leaves: later slice")
         self.mesh_verts = tuple(self.mesh_verts)
 
     def leaves(self) -> dict:
-        """``{name: tensor}`` of every leaf, materials as ``materials.<field>``
-        and the meshes' vertices as ``mesh_verts.<k>``."""
+        """``{name: tensor}`` of every leaf, materials as ``materials.<field>``,
+        the meshes' vertices as ``mesh_verts.<k>`` and the atlas's texels as
+        ``textures.data``."""
         out = {f"materials.{k}": getattr(self.materials, k) for k in MATERIAL_FIELDS}
         for f in dataclasses.fields(self):
             if f.name not in ("materials", "mesh_verts", "textures"):
                 out[f.name] = getattr(self, f.name)
         out.update({f"mesh_verts.{k}": v for k, v in enumerate(self.mesh_verts)})
+        if self.textures is not None:
+            out["textures.data"] = self.textures.data
         return out
 
     @classmethod
-    def from_leaves(cls, leaves: dict) -> "SceneParams":
+    def from_leaves(cls, leaves: dict, textures_hw=None) -> "SceneParams":
+        """The inverse of :meth:`leaves`; ``textures_hw`` is the atlas's
+        slot sizes when the leaves hold ``textures.data``."""
         mats = Materials(**{k: leaves[f"materials.{k}"] for k in MATERIAL_FIELDS})
         verts = [v for k, v in leaves.items() if k.startswith("mesh_verts.")]
-        rest = {k: v for k, v in leaves.items() if not k.startswith(("materials.", "mesh_verts."))}
-        return cls(materials=mats, mesh_verts=tuple(verts), **rest)
+        tex = leaves.get("textures.data")
+        rest = {k: v for k, v in leaves.items()
+                if not k.startswith(("materials.", "mesh_verts.", "textures."))}
+        return cls(materials=mats, mesh_verts=tuple(verts),
+                   textures=None if tex is None else TextureAtlas(data=tex, hw=textures_hw),
+                   **rest)
 
     @property
     def device(self) -> torch.device:
@@ -155,10 +170,8 @@ def params_from_description(desc, frame: int = 0, device="cuda", accel: bool = T
     (CUDA by default; raises on a host without CUDA unless asked for the
     CPU).  ``accel=True`` builds the LBVH of each mesh of at least
     ``ACCEL_MIN_TRIS`` triangles over its initial vertices (``diff.py:
-    110-183``)."""
+    110-183``); the image textures' atlas is built on ``device``."""
     device = resolve_device(device)
-    if desc.texture_images:
-        raise NotImplementedError("differentiable image textures: later slice")
     mesh_tris = desc.mesh_tris_for_frame(frame)
     keys = []
     for t in mesh_tris:
@@ -188,6 +201,7 @@ def params_from_description(desc, frame: int = 0, device="cuda", accel: bool = T
         cam_aperture=f32(desc.aperture),
         cam_focal=f32(desc.focal_distance),
         mesh_verts=tuple(f32(t) for t in mesh_tris if t is not None),
+        textures=build_atlas(desc.texture_images, device=device) if desc.texture_images else None,
     )
     static = SceneStatic(
         geom_type=tuple(int(t) for t in desc.geom_type),
@@ -209,7 +223,8 @@ def _mesh_accel(key, verts):
 
 def build_scene(params: SceneParams, static: SceneStatic) -> Scene:
     """Differentiable scene assembly: TRS -> matrices inside the graph; the
-    meshes take their live vertices and their LBVH rebound to them."""
+    meshes take their live vertices and their LBVH rebound to them, the
+    scene the live atlas."""
     t, inv = build_transform(params.translations, params.rotations, params.scales)
     dev = params.device
     geoms = Geoms(
@@ -230,7 +245,8 @@ def build_scene(params: SceneParams, static: SceneStatic) -> Scene:
     keys = static.mesh_accel_keys or (None,) * len(static.mesh_geom_indices)
     meshes = tuple(MeshInstance(geom_index=g, tri_verts=v, accel=_mesh_accel(k, v))
                    for g, v, k in zip(static.mesh_geom_indices, params.mesh_verts, keys))
-    return Scene(geoms=geoms, materials=params.materials, camera=cam, meshes=meshes)
+    return Scene(geoms=geoms, materials=params.materials, camera=cam, meshes=meshes,
+                 textures=params.textures)
 
 
 CAMERA_FIELDS = ("position", "view", "up", "fov", "aperture", "focal_distance")
@@ -238,11 +254,13 @@ CAMERA_FIELDS = ("position", "view", "up", "fov", "aperture", "focal_distance")
 
 def scene_tensors(scene: Scene) -> list:
     """The float tensors of a scene that gradients reach: the transforms,
-    every material field, the camera's and each mesh's vertices."""
+    every material field, the camera's, each mesh's vertices and the
+    atlas's texels."""
     return [scene.geoms.transform, scene.geoms.inv_transform,
             *(getattr(scene.materials, k) for k in MATERIAL_FIELDS),
             *(getattr(scene.camera, k) for k in CAMERA_FIELDS),
-            *(m.tri_verts for m in scene.meshes)]
+            *(m.tri_verts for m in scene.meshes),
+            *(() if scene.textures is None else (scene.textures.data,))]
 
 
 def scene_with_tensors(scene: Scene, tensors) -> Scene:
@@ -253,11 +271,15 @@ def scene_with_tensors(scene: Scene, tensors) -> Scene:
     geoms = dataclasses.replace(scene.geoms, transform=tensors[0], inv_transform=tensors[1])
     mats = Materials(**dict(zip(MATERIAL_FIELDS, tensors[2:2 + nm])))
     cam = dataclasses.replace(scene.camera, **dict(zip(CAMERA_FIELDS, tensors[2 + nm:2 + nm + nc])))
+    mesh_end = 2 + nm + nc + len(scene.meshes)
     meshes = tuple(
         dataclasses.replace(m, tri_verts=v,
                             accel=None if m.accel is None else refresh_accel(m.accel, v))
-        for m, v in zip(scene.meshes, tensors[2 + nm + nc:]))
-    return dataclasses.replace(scene, geoms=geoms, materials=mats, camera=cam, meshes=meshes)
+        for m, v in zip(scene.meshes, tensors[2 + nm + nc:mesh_end]))
+    textures = (None if scene.textures is None
+                else dataclasses.replace(scene.textures, data=tensors[mesh_end]))
+    return dataclasses.replace(scene, geoms=geoms, materials=mats, camera=cam, meshes=meshes,
+                               textures=textures)
 
 
 class LeanSample(torch.autograd.Function):
@@ -349,20 +371,24 @@ def l2_loss(params, static, target, spp, base_key, cfg) -> torch.Tensor:
 def loss_and_grad_rays(params, static, target, spp, base_key, cfg, device="cuda"):
     """``(loss, grads, rays)``: the loss, its gradient as a
     :class:`SceneParams` of tensors (zeros for a leaf the loss does not
-    reach), and the measured rays of one forward pass, the count behind
-    ``bench.py``'s fwd+bwd Mrays/s (the backward is not counted again).
+    reach, and for the atlas's static slot sizes), and the measured rays of
+    one forward pass, the count behind ``bench.py``'s fwd+bwd Mrays/s (the
+    backward is not counted again).
     Runs on ``device``, where ``params`` and ``target`` must live."""
     device = resolve_device(device)
     if params.device.type != device.type or device.index not in (None, params.device.index):
         raise ValueError(f"params are on {params.device}, loss_and_grad asked for {device}")
     names, values = zip(*params.leaves().items())
     leaves = [v.detach().requires_grad_(True) for v in values]
-    p = SceneParams.from_leaves(dict(zip(names, leaves)))
+    hw = None if params.textures is None else params.textures.hw
+    p = SceneParams.from_leaves(dict(zip(names, leaves)), hw)
     with torch.enable_grad():
         loss, rays = l2_loss_rays(p, static, target, spp, base_key, cfg)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
-    return loss.detach(), SceneParams.from_leaves(dict(zip(names, grads))), rays
+    # the slot sizes are static: their entry of the gradient is zeros
+    hw_grad = None if hw is None else torch.zeros_like(hw)
+    return loss.detach(), SceneParams.from_leaves(dict(zip(names, grads)), hw_grad), rays
 
 
 def loss_and_grad(params, static, target, spp, base_key, cfg, device="cuda"):

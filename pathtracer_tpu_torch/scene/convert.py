@@ -22,7 +22,8 @@ The differentiable render's state crosses the same way:
 (``materials`` as a dict of fields, then ``translations``, ``rotations``,
 ``scales``, ``cam_position``, ``cam_view``, ``cam_up``, ``cam_fov``,
 ``cam_aperture``, ``cam_focal`` and, optionally, ``mesh_verts``: a list of
-``[T, 3, 3]`` arrays), and :func:`params_to_numpy` gives a port
+``[T, 3, 3]`` arrays, and ``textures``: the image atlas's ``data`` and
+``hw``, as the scene's), and :func:`params_to_numpy` gives a port
 ``SceneParams`` (its gradients, say) back in that form.
 """
 
@@ -100,9 +101,11 @@ def params_from_numpy(d: dict, device="cuda"):
     def f32(x):
         return torch.as_tensor(np.array(x, np.float32), device=device)
 
+    tex = d.get("textures")
     return SceneParams(
         materials=Materials(**{k: f32(d["materials"][k]) for k in MATERIAL_FIELDS}),
         mesh_verts=tuple(f32(v) for v in d.get("mesh_verts", ())),
+        textures=None if tex is None else TextureAtlas(data=f32(tex["data"]), hw=f32(tex["hw"])),
         **{k: f32(d[k]) for k in PARAM_FIELDS},
     )
 
@@ -117,4 +120,6 @@ def params_to_numpy(p) -> dict:
     out["materials"] = {k: arr(getattr(p.materials, k)) for k in MATERIAL_FIELDS}
     if p.mesh_verts:
         out["mesh_verts"] = [arr(v) for v in p.mesh_verts]
+    if p.textures is not None:
+        out["textures"] = {"data": arr(p.textures.data), "hw": arr(p.textures.hw)}
     return out

@@ -4,9 +4,10 @@
 // functions, their kernels drop out); these C entry points run their lanes
 // one after another over a wavefront, with the same arguments as the CUDA
 // launchers: the trace (trace.cu), the forward with residuals and the
-// reverse lanes (trace_grad.cu; vol picks their kVol instances, 4v and 5v),
-// one bounce (bounce.cu) and its backward (bounce_grad.cu; vol: 3v, with the
-// medium planes), the nearest hit, winner search and occlusion
+// reverse lanes (trace_grad.cu; vol picks their kVol instances, 4v and 5v,
+// and the surface bits surf their kSurf ones, 4s and 5s), one bounce
+// (bounce.cu) and its backward (bounce_grad.cu; vol: 3v, with the medium
+// planes; surf: 3s), the nearest hit, winner search and occlusion
 // (intersect.cu), and the nearest triangle and triangle occlusion (mesh.cu).
 // The trace and the bounce take the in-kernel mesh tables as the launchers
 // do (n_mesh = 0 for none), the media flags (volumetric, hg, vol_nee)
@@ -37,9 +38,10 @@ extern "C" void host_fwd(const float* gtab, int G, const float* mtab, const floa
                          const float* scal, unsigned seed, const float* origin,
                          const float* direction, const unsigned* sample, int n, float* radiance,
                          unsigned long long* nrays, float* resid, int depth, int nee, int rr,
-                         int rr_start, int vol, int vol_nee) {
-  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f};
-  auto lane = vol ? fwd_lane<true> : fwd_lane<false>;
+                         int rr_start, int vol, int vol_nee, int surf) {
+  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f, MeshTables{}, surf};
+  auto lane = vol ? (surf ? fwd_lane<true, true> : fwd_lane<true, false>)
+                  : (surf ? fwd_lane<false, true> : fwd_lane<false, false>);
   unsigned long long total = 0;
   for (int i = 0; i < n; ++i) {
     V3 o = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
@@ -60,10 +62,11 @@ extern "C" void host_bwd(const float* gtab, int G, const float* mtab, int M, con
                          const float* scal, unsigned seed, const unsigned* sample, int n,
                          const float* resid, const float* g_radiance, float* d_origin,
                          float* d_direction, float* row, int depth, int nee, int rr,
-                         int rr_start, int vol, int vol_nee) {
-  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f};
+                         int rr_start, int vol, int vol_nee, int surf) {
+  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f, MeshTables{}, surf};
   const RowLayout R = row_layout(G, M);
-  auto lane = vol ? bwd_lane<true> : bwd_lane<false>;
+  auto lane = vol ? (surf ? bwd_lane<true, true> : bwd_lane<true, false>)
+                  : (surf ? bwd_lane<false, true> : bwd_lane<false, false>);
   for (int k = 0; k < R.k; ++k) row[k] = 0.0f;
   for (int i = 0; i < n; ++i) {
     V3 g_rad = v3(g_radiance[3 * i], g_radiance[3 * i + 1], g_radiance[3 * i + 2]);
@@ -191,11 +194,12 @@ extern "C" void host_bounce_bwd(const float* gtab, int G, const float* mtab, int
                                 const float* replay_nee, const float* g_contrib,
                                 const float* g_next_o, const float* g_next_d,
                                 const float* g_thr_mult, float* d_origin, float* d_direction,
-                                float* d_thr, float* row, int vol, int vol_nee,
+                                float* d_thr, float* row, int vol, int vol_nee, int surf,
                                 const float* medium, const float* g_medium, float* d_medium) {
-  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f};
+  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f, MeshTables{}, surf};
   const RowLayout R = row_layout(G, M);
-  auto lane = vol ? bounce_bwd_lane<true> : bounce_bwd_lane<false>;
+  auto lane = vol ? (surf ? bounce_bwd_lane<true, true> : bounce_bwd_lane<true, false>)
+                  : (surf ? bounce_bwd_lane<false, true> : bounce_bwd_lane<false, false>);
   for (int k = 0; k < R.k; ++k) row[k] = 0.0f;
   for (int i = 0; i < n; ++i)
     lane(T, R, seed, nee, (size_t)i, origin, direction, thr, sample, depth, prev, replay_gid,

@@ -452,8 +452,14 @@ def test_diff_entry_points_need_cuda_unless_asked_for_cpu(monkeypatch):
     assert grads.materials.emittance.shape == params.materials.emittance.shape
     assert float(grads.materials.emittance.abs().max()) > 0
     assert float(grads.materials.texture_scale.abs().max()) == 0  # no path to the loss
-    with pytest.raises(NotImplementedError, match="later slice"):
-        dataclasses.replace(params, textures=object())  # texture leaves: a later slice
+    # an image atlas is a leaf: its texels, not its slot sizes
+    from pathtracer_tpu_torch.ops.texture import build_atlas
+
+    atlas = build_atlas([np.ones((2, 3, 3), np.float32)], device="cpu")
+    leaves = dataclasses.replace(params, textures=atlas).leaves()
+    assert leaves["textures.data"] is atlas.data and "textures.hw" not in leaves
+    back = diff.SceneParams.from_leaves(leaves, atlas.hw)
+    assert back.textures.data is atlas.data and back.textures.hw is atlas.hw
     verts = dataclasses.replace(params, mesh_verts=[torch.zeros(1, 3, 3)]).mesh_verts
     assert isinstance(verts, tuple) and len(verts) == 1  # mesh vertices are leaves
 

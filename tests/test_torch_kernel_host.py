@@ -70,7 +70,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 P, I = ctypes.c_void_p, ctypes.c_int
 NO_MESH = (None, None, None, None, None, 0)  # the launchers' mesh arguments for no meshes
 VACUUM = (0, 0, 1)  # the launchers' media arguments (volumetric, hg, vol_nee) for vacuum
-VAC_GRAD = (0, 1)  # the gradient kernels' media arguments (volumetric, vol_nee) for vacuum
+# the gradient kernels' media and surface arguments (volumetric, vol_nee, surface
+# bits) for vacuum without the surface blocks
+VAC_GRAD = (0, 1, 0)
 NO_MEDIUM = (None, None, None)  # kernel 3's medium, its cotangent, d_medium (vacuum)
 # the bounce launcher's surface bits and deferred-texel planes for neither
 NO_SURF = (0, None, None, None)
@@ -91,9 +93,8 @@ def host_lib(tmp_path_factory):
         check=True, capture_output=True, text=True,
     )
     lib = ctypes.CDLL(out)
-    lib.host_fwd.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, P, I, I, I, I, I, I]
-    lib.host_bwd.argtypes = [P, I, P, I, P, P, ctypes.c_uint, P, I, P, P, P, P, P, I, I, I, I, I,
-                             I]
+    lib.host_fwd.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, P] + [I] * 7
+    lib.host_bwd.argtypes = [P, I, P, I, P, P, ctypes.c_uint, P, I, P, P, P, P, P] + [I] * 7
     lib.host_trace.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, I, I, I, I,
                                I, I, I, I, P, P, P, P, P, I]
     lib.host_bounce.argtypes = ([P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 17 + [I] * 5
@@ -105,7 +106,7 @@ def host_lib(tmp_path_factory):
     lib.host_nearest.argtypes = [P, I, I] + [P] * 8
     lib.host_occlusion.argtypes = [P, I, I, P, P, P]
     lib.host_winner.argtypes = [P, I, I, P, P, P, P]
-    lib.host_bounce_bwd.argtypes = ([P, I, P, I, P, P, ctypes.c_uint, I, I] + [P] * 16 + [I, I]
+    lib.host_bounce_bwd.argtypes = ([P, I, P, I, P, P, ctypes.c_uint, I, I] + [P] * 16 + [I] * 3
                                     + [P] * 3)
     return lib
 
@@ -744,7 +745,7 @@ def test_trace_grad_vol_lanes_match_plain(host_lib, case):
     host_lib.host_fwd(tables[0].data_ptr(), g, tables[1].data_ptr(), tables[2].data_ptr(),
                       tables[3].data_ptr(), seed, rays.origin.data_ptr(),
                       rays.direction.data_ptr(), bits.data_ptr(), n, rad_k.data_ptr(),
-                      ctypes.byref(nr_k), res_k.data_ptr(), *flags, 1, int(vol_nee))
+                      ctypes.byref(nr_k), res_k.data_ptr(), *flags, 1, int(vol_nee), 0)
     assert nr_k.value == int(nr_p)
     rad_frac = float(torch.isclose(rad_k, rad_p, rtol=2e-6, atol=2e-6).all(-1).float().mean())
     res_frac = float(
@@ -758,7 +759,7 @@ def test_trace_grad_vol_lanes_match_plain(host_lib, case):
     host_lib.host_bwd(tables[0].data_ptr(), g, tables[1].data_ptr(), m, tables[2].data_ptr(),
                       tables[3].data_ptr(), seed, bits.data_ptr(), n, res_p.data_ptr(),
                       g_rad.data_ptr(), d_o.data_ptr(), d_d.data_ptr(), row.data_ptr(), *flags, 1,
-                      int(vol_nee))
+                      int(vol_nee), 0)
     got = (*trace_grad.split_grad_row(row, g, m), d_o, d_d)
     shares = [_lane_share(k, w) for k, w in zip(got[4:], want[4:])]
     media = [k for k in range(m) if float(tables[1][k, 14] * tables[1][k, 15]) > 0
@@ -850,7 +851,7 @@ def test_bounce_vol_replay_and_backward_lanes_match_plain(host_lib, scene_name, 
         tables[0].data_ptr(), g, tables[1].data_ptr(), m, tables[2].data_ptr(),
         tables[3].data_ptr(), seed, 1, n, *(t[k].data_ptr() for k in keys), rgid.data_ptr(),
         rnee.data_ptr(), *(c.data_ptr() for c in cots), d_o.data_ptr(), d_d.data_ptr(),
-        d_t.data_ptr(), row.data_ptr(), 1, int(vol_nee), medium.data_ptr(), g_med.data_ptr(),
+        d_t.data_ptr(), row.data_ptr(), 1, int(vol_nee), 0, medium.data_ptr(), g_med.data_ptr(),
         d_m.data_ptr(),
     )
     got = (*trace_grad.split_grad_row(row, g, m), d_o, d_d, d_t, d_m)
@@ -1122,3 +1123,194 @@ def test_bounce_mesh_tex_lanes_match_plain(host_lib, tmp_path, nee):
     slots = int((want_tex[2] >= 0).sum())
     print(f"2mt nee={nee}: {slots} image-textured events; lanes within 2e-6: {frac:.5f}")
     assert frac >= 0.995 and slots > 100
+
+
+# ---- differentiable surface physics: kernels 4s and 5s, 2r-s and 3s (the
+# kSurf instances of the gradient kernels; kVol x kSurf too)
+
+
+def _surf_grad_scene(name, res):
+    """A scene of the gradient kernels' surface instances at ``res``: a
+    file of ``scenes/``, ``scene/variants.ggx_ward_scene`` or a case of
+    ``tests/test_torch_surface_diff.py``; its tables and resolved
+    features."""
+    from pathtracer_tpu_torch.render.features import features_for_materials
+    from pathtracer_tpu_torch.scene.variants import ggx_ward_scene
+    from tests import test_torch_surface_diff as sd
+
+    texts = {"ggx_ward": ggx_ward_scene(), "checker_bump_mini": sd.CHECKER_BUMP_MINI,
+             "ct_mini": sd.CT_MINI, "surf_vol_mini": sd.SURF_VOL_MINI}
+    if name in texts:
+        desc = parse_scene_text(texts[name], name=name)
+    else:
+        desc = load_scene(os.path.join(HERE, "..", "scenes", f"{name}.txt"))
+    scene = dataclasses.replace(desc, resolution=res).scene_for_frame(0, device="cpu")
+    feats = frozenset(features_for_materials(scene.materials))
+    return scene, [t.contiguous() for t in pack_tables(scene)], feats
+
+
+# scene, resolution, options, least share of lanes whose residuals are
+# within 2e-6
+SURF_GRAD_CASES = {
+    "ward": ("ward", (24, 24), dict(max_depth=6, nee=True, rr=False, rr_start=3), 0.98),
+    "textured": ("textured", (24, 24), dict(max_depth=6, nee=True, rr=False, rr_start=3), 0.98),
+    "ggx_ward_rr": ("ggx_ward", (24, 24), dict(max_depth=4, nee=True, rr=True, rr_start=1), 0.98),
+    "checker_bump_mini_no_nee": ("checker_bump_mini", (24, 24),
+                                 dict(max_depth=3, nee=False, rr=False, rr_start=3), 0.98),
+    "surf_vol_mini": ("surf_vol_mini", (24, 24), dict(max_depth=4, nee=True, rr=False,
+                                                      rr_start=3), 0.98),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SURF_GRAD_CASES))
+def test_trace_grad_surf_lanes_match_plain(host_lib, case):
+    """Kernels 4s and 5s (``trace_grad.cu``'s kSurf instances; on
+    surf_vol_mini the kVol x kSurf ones): the forward lanes against
+    ``tfwd_plain(features=...)`` (equal ray counts, radiance and every
+    residual plane within 2e-6 on at least 98% of lanes: the host's libm
+    rounds sin / cos / exp / log apart from torch's, and the bump's phases
+    near 10^3 rad carry that into later bounces, as in the forward cases),
+    and the reverse lanes on the plain version's residuals against
+    ``tbwd_plain``'s float64 reference at the bars of the media cases:
+    every table cotangent within 1e-4 of itself plus 1e-6 of its table's
+    largest, every component of d_origin / d_direction within rtol = atol
+    = 1e-5 on at least 99.99% of lanes.  The surface columns (the second
+    colour, the bump's, the roughness) get gradients."""
+    name, res, kw, min_res = SURF_GRAD_CASES[case]
+    scene, tables, feats = _surf_grad_scene(name, res)
+    vol = "volumetric" in feats
+    surf = trace.surface_bits(feats)
+    assert surf
+    n, seed = res[0] * res[1], 5151
+    pixel = torch.arange(n)
+    sample = 3 * n + pixel
+    rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, sample))
+    g, m = tables[0].shape[0], tables[1].shape[0]
+    bits = sample.to(torch.int32)
+    flags = (kw["max_depth"], int(kw["nee"]), int(kw["rr"]), kw["rr_start"])
+    skw = dict(kw, features=feats)
+
+    rad_p, nr_p, res_p = trace_grad.tfwd_plain(*tables, seed, rays.origin, rays.direction,
+                                               sample, **skw)
+    rad_k, res_k, nr_k = torch.empty((n, 3)), torch.empty_like(res_p), ctypes.c_ulonglong()
+    host_lib.host_fwd(tables[0].data_ptr(), g, tables[1].data_ptr(), tables[2].data_ptr(),
+                      tables[3].data_ptr(), seed, rays.origin.data_ptr(),
+                      rays.direction.data_ptr(), bits.data_ptr(), n, rad_k.data_ptr(),
+                      ctypes.byref(nr_k), res_k.data_ptr(), *flags, int(vol), 1, surf)
+    rad_frac = float(torch.isclose(rad_k, rad_p, rtol=2e-6, atol=2e-6).all(-1).float().mean())
+    res_frac = float(
+        torch.isclose(res_k, res_p, rtol=2e-6, atol=2e-6).all(0).all(0).float().mean())
+
+    g_rad = torch.from_numpy(np.random.default_rng(12).standard_normal((n, 3)).astype(np.float32))
+    want = trace_grad.tbwd_plain(*tables, seed, sample, res_p, g_rad, dtype=torch.float64, **skw)
+    d_o, d_d = torch.empty((n, 3)), torch.empty((n, 3))
+    row = torch.empty(trace_grad.grad_row_len(g, m))
+    host_lib.host_bwd(tables[0].data_ptr(), g, tables[1].data_ptr(), m, tables[2].data_ptr(),
+                      tables[3].data_ptr(), seed, bits.data_ptr(), n, res_p.data_ptr(),
+                      g_rad.data_ptr(), d_o.data_ptr(), d_d.data_ptr(), row.data_ptr(), *flags,
+                      int(vol), 1, surf)
+    got = (*trace_grad.split_grad_row(row, g, m), d_o, d_d)
+    shares = [_lane_share(k, w) for k, w in zip(got[4:], want[4:])]
+    surf_cols = [c for c in (18, 19, 20, 21, 22, 25, 26) if float(want[1][:, c].abs().max()) > 0]
+    print(f"{case}: forward lanes within 2e-6: radiance {rad_frac:.5f}, residuals "
+          f"{res_frac:.5f}; rays kernel {nr_k.value}, plain {int(nr_p)}; reverse lanes within "
+          f"1e-5 of the float64 reference {shares}; material columns with gradient {surf_cols}")
+    assert rad_frac >= min_res and res_frac >= min_res
+    assert abs(nr_k.value - int(nr_p)) <= 2e-3 * int(nr_p)
+    _check_table_cotangents(got[:4], want[:4])
+    assert min(shares) >= 0.9999
+    assert all(bool(torch.isfinite(t).all()) for t in got)
+    assert surf_cols
+
+
+@pytest.mark.parametrize("nee", [True, False])
+@pytest.mark.parametrize("scene_name", ["ggx_ward", "textured", "surf_vol_mini"])
+def test_bounce_surf_replay_and_backward_lanes_match_plain(host_lib, scene_name, nee):
+    """Kernel 2r-s (``bounce.cu``'s kSurf instance with the replay planes;
+    on surf_vol_mini kVol x kSurf with seeded media) against
+    ``bounce_fused_plain(features=..., emit_replay=True)`` on 2,048 random
+    lanes: replay planes, terminate, emit state and the medium equal on
+    every lane, the float planes within 2e-6 on at least 99.5% of lanes; and
+    kernel 3s (``bounce_grad.cu``'s kSurf instance) on those planes with
+    seeded cotangents on every lane against ``bounce_bwd_plain``'s float64
+    reference at the media cases' bars: every table cotangent within 1e-4 of
+    itself plus 1e-6 of its table's largest, every component of the carry
+    cotangents within rtol = atol = 1e-5 on at least 99.99% of the lanes
+    whose forward planes agree, misses and light hits included.  A lane
+    whose forward the host's libm moved (one of textured's: the bump's sin
+    near 10^3 rad) differentiates other values; it is printed, with its
+    backward's worst difference."""
+    n, seed = 2048, 61
+    _, tables, feats = _surf_grad_scene(scene_name, (8, 8))
+    vol = "volumetric" in feats
+    surf = trace.surface_bits(feats)
+    lanes = random_lanes(n, seed=47)
+    centre = np.array({"ggx_ward": [0.0, 2.0, 0.0], "textured": [0.0, 4.0, -1.0]}.get(
+        scene_name, [0.0, 3.0, 1.0]))
+    lanes["origin"] = (lanes["origin"] * 0.8 + centre).astype(np.float32)
+    t = {k: torch.from_numpy(v) for k, v in lanes.items()}
+    if vol:
+        from tests.test_torch_volume import medium_carries
+
+        sa, ss, _ = medium_carries(n, seed=48)
+        medium = torch.from_numpy(np.ascontiguousarray(np.concatenate([sa, ss[:, None]], -1)))
+    else:
+        medium = torch.zeros((n, 4))
+    keys = ("origin", "direction", "throughput", "sample", "depth", "prev")
+    args = (tables, *(t[k].long() if k == "sample" else t[k] for k in keys))
+    want, want_gid, want_nee = bounce_fused.bounce_fused_plain(
+        *args, medium, seed, nee=nee, features=feats, emit_replay=True)
+    outs = [torch.empty((n, 3)) for _ in range(4)] + [
+        torch.empty(n, dtype=torch.uint8), torch.empty(n), torch.empty(n), torch.empty((n, 4))]
+    rgid, rnee = torch.empty(n), torch.empty(n)
+    host_lib.host_bounce(
+        tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(), tables[2].data_ptr(),
+        tables[3].data_ptr(), seed, int(nee), n, *(t[k].data_ptr() for k in keys),
+        medium.data_ptr(), *(o.data_ptr() for o in outs), rgid.data_ptr(), rnee.data_ptr(),
+        int(vol), 0, 1, 4, surf, None, None, None, *NO_MESH,
+    )
+    contrib, next_o, next_d, thr_mult, terminate, wspec, _, out_medium = outs
+    assert torch.equal(rgid, want_gid) and torch.equal(rnee, want_nee)
+    assert torch.equal(terminate.bool(), want.terminate)
+    assert torch.equal(wspec, want.was_specular) and torch.equal(out_medium, want.next_medium)
+    close = torch.ones(n, dtype=torch.bool)
+    for got, ref in ((contrib, want.contrib), (next_o, want.next_origin),
+                     (next_d, want.next_direction), (thr_mult, want.throughput_mult)):
+        close &= torch.isclose(got, ref, rtol=2e-6, atol=2e-6).all(-1)
+    frac = float(close.float().mean())
+    miss, light = rgid < 0, (rgid >= 0) & want.terminate
+    assert frac >= 0.995 and int(miss.sum()) > 0 and int(light.sum()) > 0
+
+    r = np.random.default_rng(10)
+    cots = [torch.from_numpy(r.standard_normal((n, 3)).astype(np.float32)) for _ in range(4)]
+    g_med = torch.from_numpy(r.standard_normal((n, 4)).astype(np.float32))
+    bargs = (*args, rgid, rnee, *cots, seed)
+    bkw = dict(nee=nee, features=feats)
+    if vol:
+        bkw.update(medium=medium, g_medium=g_med)
+    ref = bounce_grad.bounce_bwd_plain(*bargs, dtype=torch.float64, **bkw)
+    g, m = tables[0].shape[0], tables[1].shape[0]
+    d_o, d_d, d_t, d_m = (torch.empty((n, 3)), torch.empty((n, 3)), torch.empty((n, 3)),
+                          torch.empty((n, 4)))
+    row = torch.empty(trace_grad.grad_row_len(g, m))
+    host_lib.host_bounce_bwd(
+        tables[0].data_ptr(), g, tables[1].data_ptr(), m, tables[2].data_ptr(),
+        tables[3].data_ptr(), seed, int(nee), n, *(t[k].data_ptr() for k in keys),
+        rgid.data_ptr(), rnee.data_ptr(), *(c.data_ptr() for c in cots), d_o.data_ptr(),
+        d_d.data_ptr(), d_t.data_ptr(), row.data_ptr(), int(vol), 1, surf,
+        *((medium.data_ptr(), g_med.data_ptr(), d_m.data_ptr()) if vol else NO_MEDIUM),
+    )
+    got = (*trace_grad.split_grad_row(row, g, m), d_o, d_d, d_t) + ((d_m,) if vol else ())
+    shares = [_lane_share(k[close], w[close]) for k, w in zip(got[4:], ref[4:])]
+    moved = {int(i): max(float((k[i].double() - w[i]).abs().max())
+                         for k, w in zip(got[4:], ref[4:]))
+             for i in torch.nonzero(~close).ravel()}
+    surf_cols = [c for c in (18, 19, 20, 21, 22, 25, 26) if float(ref[1][:, c].abs().max()) > 0]
+    print(f"{scene_name} nee={nee}: {int(miss.sum())} misses, {int(light.sum())} light hits; "
+          f"2r-s lanes within 2e-6: {frac:.5f}; 3s lanes within 1e-5 of the float64 reference "
+          f"{shares}; lanes the host's libm moved and their backward's worst difference {moved}; "
+          f"material columns with gradient {surf_cols}")
+    _check_table_cotangents(got[:4], ref[:4])
+    assert min(shares) >= 0.9999
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    assert surf_cols

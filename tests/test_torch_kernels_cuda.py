@@ -681,6 +681,245 @@ def test_vol_grad_engines_launch_their_kernels(name):
     assert float(grads.materials.absorption_coefficient.abs().max()) > 0
 
 
+# ---- differentiable surface physics: kernels 4s, 5s, 2r-s and 3s (the
+# kSurf instances; kVol x kSurf on surf_vol_mini), at the media cases' bars:
+# 4s equal to kernel 1's surface instance and its residuals to tfwd_plain's,
+# 2r-s equal to plain in every output, 5s and 3s against the float64
+# references (99.9% of lanes here; chip_smoke.py's [grad:surf] holds 99.99%
+# on ward's and textured's full width).
+
+
+def _surf_grad_scene(name, res):
+    from tests.test_torch_surface_diff import SURF_VOL_MINI
+
+    if name == "surf_vol_mini":
+        desc = parse_scene_text(SURF_VOL_MINI, name=name)
+    elif name == "ggx_ward":
+        from pathtracer_tpu_torch.scene.variants import ggx_ward_scene
+
+        desc = parse_scene_text(ggx_ward_scene(), name=name)
+    else:
+        desc = load_scene(os.path.join(ROOT, "scenes", f"{name}.txt"))
+    return dataclasses.replace(desc, resolution=res).scene_for_frame(0, device="cuda")
+
+
+@pytest.mark.parametrize("name", ["ward", "textured", "surf_vol_mini"])
+def test_trace_grad_surf_kernels_match_plain(name):
+    _need_cuda()
+    import numpy as np
+
+    from pathtracer_tpu_torch.ops import trace_grad
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render.features import features_for_materials
+
+    scene = _surf_grad_scene(name, (96, 96))
+    feats = frozenset(features_for_materials(scene.materials))
+    tables = pack_tables(scene)
+    seed = key_to_seed(prng_key(0))
+    n = 96 * 96
+    sample = torch.arange(n, device="cuda") + 2 * n
+    rays = generate_camera_rays(scene.camera, sample - 2 * n, camera_uniforms(seed, sample))
+    kw = dict(max_depth=6, nee=True, rr=False, rr_start=3, features=feats)
+    args = (*tables, seed, rays.origin, rays.direction, sample)
+    before = trace_grad.fwd_surf_launches
+    rad_k, nr_k, res_k = trace_grad.tfwd_cuda(*args, **kw)
+    assert trace_grad.fwd_surf_launches == before + 1
+    rad_t, nr_t = trace.trace_cuda(*args, **kw)
+    _, nr_p, res_p = trace_grad.tfwd_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(rad_k, rad_t) and int(nr_k) == int(nr_t) == int(nr_p)
+    assert torch.equal(res_k, res_p)
+    g_rad = torch.from_numpy(
+        np.random.default_rng(4).standard_normal((n, 3)).astype(np.float32)).cuda()
+    before = trace_grad.bwd_surf_launches
+    got = trace_grad.tbwd_cuda(*tables, seed, sample, res_k, g_rad, **kw)
+    assert trace_grad.bwd_surf_launches == before + 1
+    ref = trace_grad.tbwd_plain(*tables, seed, sample, res_k, g_rad, dtype=torch.float64, **kw)
+    f32 = trace_grad.tbwd_plain(*tables, seed, sample, res_k, g_rad, **kw)
+    torch.cuda.synchronize()
+    _vol_table_bars(got[:4], ref[:4])
+    _vol_lane_bars(got[4:], ref[4:], ("d_origin", "d_direction"), f32[4:], lambda i: (
+        trace_grad.lane_events(tables[0], seed, sample, res_k, i, feats)))
+
+
+@pytest.mark.parametrize("nee", [True, False])
+@pytest.mark.parametrize("name", ["ggx_ward", "textured", "surf_vol_mini"])
+def test_bounce_surf_replay_and_backward_kernels_match_plain(name, nee):
+    _need_cuda()
+    import numpy as np
+
+    from pathtracer_tpu_torch.ops import bounce_fused, bounce_grad
+    from pathtracer_tpu_torch.render.features import features_for_materials
+
+    scene = _surf_grad_scene(name, (8, 8))
+    feats = frozenset(features_for_materials(scene.materials))
+    vol = "volumetric" in feats
+    tables = pack_tables(scene)
+    n = 50_000
+    t = _random_lanes_cuda(n, 13)
+    centre = {"ggx_ward": [0.0, 2.0, 0.0], "textured": [0.0, 4.0, -1.0]}.get(name, [0.0, 3.0, 1.0])
+    t["origin"] = t["origin"] * 0.8 + torch.tensor(centre, device="cuda")
+    r = np.random.default_rng(6)
+    medium = torch.zeros((n, 4), device="cuda")
+    if vol:
+        on = r.random((n, 1)) < 0.6
+        medium = torch.from_numpy(np.concatenate(
+            [r.uniform(0, 0.3, (n, 3)), r.uniform(0, 3, (n, 1))], -1).astype(np.float32)
+            * on).cuda()
+    args = (tables, t["origin"], t["direction"], t["throughput"], t["sample"].long(),
+            t["depth"], t["prev"])
+    before = bounce_fused.replay_surf_launches
+    res, rgid, rnee = bounce_fused.bounce_fused_cuda(*args, medium, 4321, nee=nee,
+                                                     features=feats, emit_replay=True)
+    assert bounce_fused.replay_surf_launches == before + 1
+    plain, pgid, pnee = bounce_fused.bounce_fused_plain(*args, medium, 4321, nee=nee,
+                                                        features=feats, emit_replay=True)
+    torch.cuda.synchronize()
+    assert torch.equal(rgid, pgid) and torch.equal(rnee, pnee)
+    for f in ("contrib", "next_origin", "next_direction", "throughput_mult", "terminate",
+              "was_specular", "rr_uniform", "next_medium"):
+        assert torch.equal(getattr(res, f), getattr(plain, f)), f
+
+    cots = [torch.from_numpy(r.standard_normal((n, 3)).astype(np.float32)).cuda()
+            for _ in range(4)]
+    bargs = (*args, rgid, rnee, *cots, 4321)
+    bkw = dict(nee=nee, features=feats)
+    names = ("d_origin", "d_direction", "d_throughput")
+    if vol:
+        g_med = torch.from_numpy(r.standard_normal((n, 4)).astype(np.float32)).cuda()
+        bkw.update(medium=medium, g_medium=g_med)
+        names += ("d_medium",)
+    before = bounce_grad.surf_launches
+    got = bounce_grad.bounce_bwd_cuda(*bargs, **bkw)
+    assert bounce_grad.surf_launches == before + 1
+    ref = bounce_grad.bounce_bwd_plain(*bargs, dtype=torch.float64, **bkw)
+    torch.cuda.synchronize()
+    _vol_table_bars(got[:4], ref[:4])
+    _vol_lane_bars(got[4:], ref[4:], names)
+
+
+# engine, launches of 2 spp at depth 5: kernel 1s, 4s, 5s, 2r-s, 3s, 7, 8
+SURF_ENGINES = {
+    "full-depth": (dict(), [0, 2, 2, 0, 0, 0, 0]),
+    "per-bounce": (dict(grad_full_trace=False), [0, 0, 0, 10, 10, 0, 0]),
+    "lean": (dict(grad_fused=False), [2, 0, 0, 0, 0, 10, 10]),
+}
+
+
+def _off_bump_grads(params, static, cfg, spp, device):
+    """The gradient of the mean squared error (target zeros) over the
+    pixels whose paths meet no bumped material in any iteration (the CPU's
+    full-depth forward decides), by ``cfg``'s engine on ``device``: on the
+    bumped sphere's re-hits the float32 forward's last bits, which the card
+    and the CPU round apart, decide the geometry and camera derivatives
+    (``tests/test_torch_surface_diff.py::
+    test_textured_gradient_against_float64_paths``; ROADMAP queue 3)."""
+    from pathtracer_tpu_torch.ops import trace_grad
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render import diff
+    from pathtracer_tpu_torch.render.features import resolve_features
+
+    cpu, _ = diff.params_from_description(static.desc, 0, device="cpu")
+    scene = diff.build_scene(cpu, static.static)
+    feats = frozenset(resolve_features(cfg, cpu.materials).features)
+    tables = pack_tables(scene)
+    bump_geom = tables[1][tables[0][:, 13].long(), 21] > 0
+    n, seed = static.n, key_to_seed(prng_key(0))
+    pix = torch.arange(n)
+    tail = trace_grad.tail_plane(feats)
+    bumped = torch.zeros(n, dtype=torch.bool)
+    for it in range(spp):
+        sample = it * n + pix
+        rays = generate_camera_rays(scene.camera, pix, camera_uniforms(seed, sample))
+        _, _, res = trace_grad.tfwd_plain(*tables, seed, rays.origin, rays.direction, sample,
+                                          max_depth=cfg.max_depth, nee=cfg.nee, rr=False,
+                                          rr_start=3, features=feats)
+        gid, live = res[:, tail + 2].long(), res[:, tail + 1] > 0.5
+        bumped |= (live & (gid >= 0) & bump_geom[gid.clamp(min=0)]).any(0)
+    weight = (~bumped).float().to(device)
+    names, values = zip(*params.leaves().items())
+    leaves = [v.detach().requires_grad_(True) for v in values]
+    p = diff.SceneParams.from_leaves(dict(zip(names, leaves)))
+    with torch.enable_grad():
+        img = diff.render_linear(p, static.static, spp, prng_key(0), cfg)
+        loss = torch.mean(weight[:, None] * img ** 2)
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    return float(loss.detach()), {k: (torch.zeros_like(x) if g is None else g).cpu()
+                                  for k, g, x in zip(names, grads, leaves)}
+
+
+@pytest.mark.parametrize("name", ["ward", "textured"])
+@pytest.mark.parametrize("engine", sorted(SURF_ENGINES))
+def test_surf_grad_engines_launch_their_kernels(engine, name):
+    """Each engine's kernels on a 48x48 step; its loss and leaves against
+    the CPU's plain versions at the media engines' bars: on textured over
+    the pixels whose paths meet no bump (``_off_bump_grads``)."""
+    _need_cuda()
+    import types
+
+    from pathtracer_tpu_torch.ops import bounce_fused, bounce_grad, intersect_cuda, trace_grad
+    from pathtracer_tpu_torch.ops.rng import prng_key
+    from pathtracer_tpu_torch.render import diff
+
+    desc = dataclasses.replace(load_scene(os.path.join(ROOT, "scenes", f"{name}.txt")),
+                               resolution=(48, 48))
+    params, static = diff.params_from_description(desc, 0, device="cuda")
+    target = torch.zeros((48 * 48, 3), device="cuda")
+    cfg_kw, launched = SURF_ENGINES[engine]
+    cfg = RenderConfig(max_depth=5, **cfg_kw)
+
+    def counts():
+        return (trace.surf_launches, trace_grad.fwd_surf_launches, trace_grad.bwd_surf_launches,
+                bounce_fused.replay_surf_launches, bounce_grad.surf_launches,
+                intersect_cuda.winner_launches, intersect_cuda.occlusion_launches)
+
+    before = counts()
+    loss, grads, _ = diff.loss_and_grad_rays(params, static, target, 2, prng_key(0), cfg)
+    torch.cuda.synchronize()
+    d = [a - b for a, b in zip(counts(), before)]
+    assert d == launched, d
+    assert all(bool(torch.isfinite(v).all()) for v in grads.leaves().values())
+    cp, _ = diff.params_from_description(desc, 0, device="cpu")
+    if name == "textured":
+        st = types.SimpleNamespace(desc=desc, static=static, n=48 * 48)
+        loss, gl = _off_bump_grads(params, st, cfg, 2, "cuda")
+        loss_c, cl = _off_bump_grads(cp, st, cfg, 2, "cpu")
+    else:
+        loss_c, grads_c = diff.loss_and_grad(cp, static, target.cpu(), 2, prng_key(0), cfg,
+                                             device="cpu")
+        cl, gl = grads_c.leaves(), {k: v.cpu() for k, v in grads.leaves().items()}
+    assert abs(float(loss) - float(loss_c)) <= 1e-4 * abs(float(loss_c))
+    gscale = max(float(v.abs().max()) for v in cl.values())
+    for k, v in gl.items():
+        assert float((v - cl[k]).abs().max()) <= 5e-4 * gscale, k
+
+
+def test_image_texture_grad_takes_the_lean_engine():
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import bounce_fused, intersect_cuda
+    from pathtracer_tpu_torch.ops.rng import prng_key
+    from pathtracer_tpu_torch.render import diff
+
+    desc = dataclasses.replace(load_scene(os.path.join(ROOT, "scenes", "textured_image.txt")),
+                               resolution=(48, 48))
+    params, static = diff.params_from_description(desc, 0, device="cuda")
+    target = torch.zeros((48 * 48, 3), device="cuda")
+    before = (bounce_fused.tex_launches, intersect_cuda.winner_launches)
+    _, grads, _ = diff.loss_and_grad_rays(params, static, target, 2, prng_key(0),
+                                          RenderConfig(max_depth=5))
+    torch.cuda.synchronize()
+    assert (bounce_fused.tex_launches - before[0], intersect_cuda.winner_launches - before[1]) == (
+        10, 10)
+    g = grads.textures.data
+    assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+    cp, _ = diff.params_from_description(desc, 0, device="cpu")
+    _, grads_c = diff.loss_and_grad(cp, static, target.cpu(), 2, prng_key(0),
+                                    RenderConfig(max_depth=5), device="cpu")
+    gscale = max(float(v.abs().max()) for v in grads_c.leaves().values())
+    for k, v in grads.leaves().items():
+        assert float((v.cpu() - grads_c.leaves()[k]).abs().max()) <= 5e-4 * gscale, k
+
+
 # ---- triangle meshes: kernels 9 and 10, kernels 1 and 2 with the in-kernel
 # sweep.  Bars: kernels 9 and 10 equal their plain versions on every lane (t,
 # index, miss pattern); kernel 1 with meshes equal ray counts and radiance

@@ -148,9 +148,10 @@ def test_shade_bounce_both_routes_match_jax_split(cornell_scene, name, nee):
         cfg = RenderConfig(nee=nee, fused=fused, features=features)
         _compare_bounce(ref, shade_bounce(*args, cfg), f"fused={fused}, nee={nee}")
     assert bounce_fused.launches == before  # CPU tensors take the plain versions
-    # the surface features run forward; the differentiable routes refuse them
-    with pytest.raises(NotImplementedError, match="texture"):
-        shade_bounce(*args, RenderConfig(features=("texture",), grad_lean=True))
+    # the surface features run forward and differentiably: on materials that
+    # select none of their blocks, the same bounce
+    cfg = RenderConfig(nee=nee, features=(*features, "texture"), grad_lean=True)
+    _compare_bounce(ref, shade_bounce(*args, cfg), f"texture, grad_lean, nee={nee}")
     # media in a vacuum scene with a vacuum carry: the same bounce on both
     # routes (zero sigmas attenuate by exactly 1 and never scatter)
     for fused in (None, False):

@@ -166,30 +166,62 @@ GRAD_IDS = ["full-depth", "per-bounce", "lean"]
 @pytest.mark.parametrize("feature,name", [("texture", "textured"), ("bump", "textured"),
                                           ("microfacet", "ward"), ("ward", "ward")])
 def test_differentiable_engines_refuse_surface_features(feature, name, grad):
-    """The surface features are forward only: each differentiable engine
-    raises on them, through ``render`` with the feature pinned and through
-    the gradient entry point with the scene's resolved features."""
+    """Each differentiable engine takes the surface features (the name is
+    from when they refused them): through ``render`` with the feature
+    pinned, its image equal to the forward render's, and through the
+    gradient entry point with the scene's resolved features, whose
+    gradients are finite and reach the feature's material columns.  The
+    values against JAX are ``tests/test_torch_surface_diff.py``'s."""
     desc = dataclasses.replace(load_scene(_path(name)), resolution=(8, 8))
     scene = desc.scene_for_frame(0, device="cpu")
     cfg = RenderConfig(grad_lean=True, max_depth=2, features=(feature,), **grad)
-    with pytest.raises(NotImplementedError, match=feature):
-        render(scene, 1, cfg, device="cpu")
+    _, acc, _ = render(scene, 1, cfg, device="cpu")
+    _, acc_fwd, _ = render(scene, 1, dataclasses.replace(cfg, grad_lean=False), device="cpu")
+    assert torch.allclose(acc, acc_fwd, rtol=1e-5, atol=1e-6)
     params, static = diff.params_from_description(desc, 0, device="cpu")
-    with pytest.raises(NotImplementedError, match=feature):
-        diff.loss_and_grad(params, static, torch.zeros((64, 3)), 1, prng_key(0),
-                           RenderConfig(max_depth=2, **grad), device="cpu")
+    loss, grads = diff.loss_and_grad(params, static, torch.zeros((64, 3)), 1, prng_key(0),
+                                     RenderConfig(max_depth=2, **grad), device="cpu")
+    assert float(loss) > 0
+    assert all(bool(torch.isfinite(v).all()) for v in grads.leaves().values())
+    column = {"texture": "texture_color2", "bump": "bump_amp", "microfacet": "roughness",
+              "ward": "roughness_y"}[feature]
+    assert float(getattr(grads.materials, column).abs().max()) > 0
 
 
 @pytest.mark.parametrize("grad", GRAD_ENGINES, ids=GRAD_IDS)
 def test_differentiable_engines_refuse_image_textures(grad):
+    """Image textures differentiate on every engine setting (the name is
+    from when they refused them): each takes the lean engine, as in JAX,
+    and the atlas's texels are a leaf whose gradient is finite and nonzero
+    on the texels the image shows; the full-depth and per-bounce engines
+    themselves refuse an atlas, as JAX's ``fused_diff_eligible`` does."""
+    from pathtracer_tpu_torch.ops.bounce_grad import bounce_fused_diff
+    from pathtracer_tpu_torch.ops.trace_grad import trace_fused_diff
+    from pathtracer_tpu_torch.scene.structs import Rays
+
     desc = dataclasses.replace(load_scene(_path("textured_image")), resolution=(8, 8))
     scene = desc.scene_for_frame(0, device="cpu")
     for features in (("texture",), ("glossy",)):  # the feature, or a pin that leaves it out
         cfg = RenderConfig(grad_lean=True, max_depth=2, features=features, **grad)
-        with pytest.raises(NotImplementedError, match="texture"):
-            render(scene, 1, cfg, device="cpu")
+        _, acc, _ = render(scene, 1, cfg, device="cpu")
+        # the lean scan is the split route's physics (libm's atan2 for the UV)
+        split = dataclasses.replace(cfg, grad_lean=False, fused=False)
+        _, acc_fwd, _ = render(scene, 1, split, device="cpu")
+        assert torch.allclose(acc, acc_fwd, rtol=1e-5, atol=1e-6)
+    params, static = diff.params_from_description(desc, 0, device="cpu")
+    assert params.textures is not None and "textures.data" in params.leaves()
+    _, grads = diff.loss_and_grad(params, static, torch.zeros((64, 3)), 1, prng_key(0),
+                                  RenderConfig(max_depth=2, **grad), device="cpu")
+    assert all(bool(torch.isfinite(v).all()) for v in grads.leaves().values())
+    assert float(grads.textures.data.abs().max()) > 0
+    cfg = RenderConfig(grad_lean=True, max_depth=2, features=("texture",))
+    rays = Rays(origin=torch.zeros((4, 3)), direction=torch.tensor([[0.0, 0.0, -1.0]] * 4))
+    pix = torch.arange(4)
     with pytest.raises(NotImplementedError, match="image textures"):
-        diff.params_from_description(desc, 0, device="cpu")
+        trace_fused_diff(scene, rays, pix, 3, cfg)
+    with pytest.raises(NotImplementedError, match="image textures"):
+        bounce_fused_diff(scene, rays.origin, rays.direction, torch.ones((4, 3)), pix, 0,
+                          torch.zeros(4), None, 3, cfg)
 
 
 def _mesh_and_image_texture_scene():
