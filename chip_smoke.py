@@ -46,10 +46,11 @@ Phases (any failure exits non-zero):
    engines at the same width: ``loss_and_grad_rays`` with
    ``RenderConfig(grad_full_trace=False)`` (kernel 2 with replay planes and
    kernel 3 once per bounce: 32 launches each per 4-spp depth-8 step, no
-   kernel 4 or 5) and with ``RenderConfig(grad_fused=False)`` (kernel 1
-   once per iteration for the forward; the backward's lean scan runs kernels
-   7 and 8 once per bounce, 32 each, so its checkpoint recompute ran
-   neither), each with the counters zeroed just before; every gradient
+   kernel 4 or 5) and with ``RenderConfig(grad_fused=False)`` (kernel 4
+   once per iteration for the forward, keeping each bounce's winner and
+   NEE bit; the backward's lean scan replays them and runs kernel 7 once
+   per bounce, 32 launches, and no kernel 8, so its checkpoint recompute
+   ran no search), each with the counters zeroed just before; every gradient
    finite, the loss within 1e-5 relative and every leaf within 5e-4 *
    max(gscale, 1) of the full-depth step's (russian roulette is off, so the
    physics and samples are the same).  Then on the 640,000 primary rays and
@@ -98,13 +99,19 @@ Phases (any failure exits non-zero):
    each, the megakernel's ray count, at least 99.5% of accumulator entries
    within 2e-4 of the megakernel's, sums within 2e-5; (d) the pinned
    wavefront engine (2 spp) launches kernel 2m once per super-step, the same
-   ray count, 99.9% within 2e-4, sums within 1e-5; (e) kernels 9 and 10
-   equal their plain versions on every lane (t, index, misses) on the mesh's
-   object-space primary rays and a mid-render super-step's at 320
-   triangles, and on a 5,120-triangle displaced icosphere; (f) kernel 2m
+   ray count, 99.9% within 2e-4, sums within 1e-5; (e) kernels 9 and 10,
+   culled by the mesh's padded chunk boxes and dense (no boxes, the
+   oracle), equal their plain versions on every lane (t, index, misses) on
+   the mesh's object-space primary rays and a mid-render super-step's at
+   320 triangles, and on a 5,120-triangle displaced icosphere in file
+   order, and the lanes where culled and dense differ are counted and
+   printed with their conditioning; (f) kernel 2m
    equals its plain version in every output on every lane, primary rays
    and that super-step; (g) the ``smooth_mesh_96`` golden rendered on the
-   card within a mean 0.8/255 of the PNG; (h) times and bounds; (i) the CLI
+   card within a mean 0.8/255 of the PNG; (h) times and bounds (kernels 9
+   and 10: device time twice, the dense sweep's, and a bound counted from
+   the triangle tests these rays need, which must read below the time),
+   kernels 9 and 10's registers and shared memory; (i) the CLI
    on smooth_mesh takes ``engine=megakernel``;
 10. ``[vol]``, participating media, each render through ``render`` with
     the counters zeroed just before: (a) ``scenes/sss.txt`` at
@@ -176,20 +183,28 @@ Phases (any failure exits non-zero):
     ``loss_and_grad_rays`` step with mesh vertex leaves on smooth_mesh at
     512x512, 4 spp (kernel 1m forward) and on the 5,120-triangle scene at
     256x256, 2 spp (2mm forward): launch counts, finite nonzero vertex
-    gradients, time, idle share, peak memory; (g) times by CUDA events and
-    device time, bounds, registers (Cornell's kernels 1 and 2 keep 72 and
-    56) and the CLI's auto engine on the 5,120-triangle scene
+    gradients, time, idle share, peak memory, and the pixels whose lean
+    re-trace parts from the forward (iteration 0; no replay outside the
+    fused scope); (g) kernels 9 and 10, culled and dense, bit-equal to
+    their plain versions on scan bounce 3's rays and its shadow rays, the
+    lanes where culled and dense differ counted; times by CUDA events and
+    device time (9 and 10 twice, beside the dense sweep's, with bounds
+    counted from the inputs), the iteration's wall and busy time and idle
+    share, bounds, registers (Cornell's kernels 1 and 2 keep 72 and 56) and
+    the CLI's auto engine on the 5,120-triangle scene
     (``engine=wavefront``);
 13. ``[grad:vol]``, differentiable participating media, each step through
     ``render.diff.loss_and_grad_rays`` with the counters zeroed just before:
     (a) ``scenes/milky.txt`` at its 800x800, depth 8, NEE, vol_nee on, 4 spp,
     target zeros, on the full-depth engine (kernels 4v and 5v, 4 launches
     each), the per-bounce engine (2r-v and 3v, 32 each) and the lean one
-    (kernel 1v forward, kernels 7 and 8 in the backward), each step's ms,
+    (kernel 4v forward, kernel 7 in the backward, which replays the
+    forward's winners, NEE bits and rays), each step's ms,
     fwd+bwd Mrays/s, profiled idle share, peak memory, launches and the
     medium leaves' gradients; the per-bounce and lean steps' losses within
     1e-5 relative and every leaf within 5e-4 of the largest gradient of the
-    full-depth step's; (b) on milky's iteration-0 inputs at full width
+    full-depth step's, and no pixel whose replayed lean re-trace parts
+    from the forward over the 4 iterations; (b) on milky's iteration-0 inputs at full width
     (640,000 lanes) with vol_nee on, and on a 65,536-lane window around the
     milky sphere with vol_nee off: 4v's radiance and 17
     residual planes equal to ``tfwd_plain``'s (its radiance to kernel 1v's),
@@ -203,7 +218,9 @@ Phases (any failure exits non-zero):
     version's and its bound at full width; (c) ``scenes/fog.txt`` at
     its 200x200 on the three engines at (a)'s bars; (d) the lean steps of
     sss at 512x512 (kernel 1hg forward; profiled) and of fog's cube around
-    the icosphere (kernel 1m-vol forward); the new instances' registers,
+    the icosphere (kernel 1m-vol forward), each with its parted pixels of
+    iteration 0 (no replay outside the fused scope); the new instances'
+    registers,
     and Cornell's kernels 3, 4 and 5 take exactly 136, 72 and 148;
 14. ``[grad:surf]``, differentiable surface physics, each step through
     ``render.diff.loss_and_grad_rays`` with the counters zeroed just
@@ -211,18 +228,19 @@ Phases (any failure exits non-zero):
     ``textured.txt`` at its 800x800, depth 8, NEE, 4 spp, target zeros, on
     the full-depth engine (kernels 4s and 5s, 4 launches each; ward's step
     profiled), the per-bounce engine (2r-s and 3s, 32 each) and the lean
-    one (kernel 1s forward, kernels 7 and 8 in the backward): every
-    gradient finite, the three losses equal, each leaf of the per-bounce
-    step within 5e-4 of the full-depth step's largest entry of that leaf;
-    the lean step's leaves printed against the gscale bar (5e-4 of the
-    largest gradient), and over the pixels whose lean re-trace (the split
-    route's physics) keeps the kernel forward's path its leaves held leaf
-    by leaf as the per-bounce step's: all of them on ward, the albedo leaves
-    on textured, whose others are printed (the docstring of
-    ``hold_engines`` says why);
+    one (kernel 4s forward, kernel 7 in the backward, which replays the
+    forward's winners, NEE bits and rays): every gradient finite, the three
+    losses equal, each leaf of the per-bounce step within 5e-4 of the
+    full-depth step's largest entry of that leaf, and each leaf of the
+    lean step too, over every pixel; the pixels whose replayed re-trace
+    still parts from the forward counted and printed with their paths
+    (none on ward), and on textured, over the pixels that keep the path,
+    the lean step's albedo leaves held leaf by leaf as before the replay
+    (the docstring of ``hold_engines`` says why);
     ``textured_image.txt`` at 512x512 on the
     lean engine (kernel 2t forward, 8 launches per iteration) with a
-    finite, nonzero gradient on the atlas's texels; (b) 4s and 2r-s
+    finite, nonzero gradient on the atlas's texels and its parted pixels of
+    iteration 0; (b) 4s and 2r-s
     bit-equal to their plain versions and 5s and 3s against the float64
     references (99.99% of lanes at 1e-5, the tables at their bars; the
     lanes beyond printed with their paths) on ward's 262,144 and
@@ -433,6 +451,28 @@ def device_ms(fn, kernels, reps: int = 10, per_call: int = 1) -> dict:
               f"the profiler kept {count} launches of {k} for {reps} calls")
         out[k] = (sum(us for us, _ in hits) / 1e3 / count, count)
     return out
+
+
+def queued_ms(fn, reps: int = 10) -> float:
+    """The median device time in ms of one ``fn()`` over ``reps`` calls
+    (after a warm-up call), by CUDA events recorded just before and after
+    it while a queued ``torch.cuda._sleep`` keeps the card busy, so that the
+    host's time to enqueue the call is not counted."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    times = []
+    for _ in range(reps):
+        torch.cuda._sleep(2_000_000)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[reps // 2]
 
 
 def profile_step(step, step_ms: float, out_dir: str, name: str, kernels) -> str:
@@ -680,9 +720,11 @@ def grad_engines_phase(desc, dev, card: str, out_dir: str, full_loss, full_grads
         "perbounce": (dataclasses.replace(base, grad_full_trace=False),
                       only(bounce_replay=gspp * depth, bounce_bwd=gspp * depth),
                       ("bounce_kernel", "bounce_bwd_kernel", "block_row_sum")),
+        # the lean forward on kernel 4 keeps each bounce's winner, NEE bit and ray,
+        # which the re-trace replays: no shadow ray
         "lean": (dataclasses.replace(base, grad_fused=False),
-                 only(trace=gspp, winner=gspp * depth, occlusion=gspp * depth),
-                 ("trace_kernel", "winner_kernel", "occlusion_kernel")),
+                 only(trace_fwd_resid=gspp, winner=gspp * depth),
+                 ("trace_fwd_kernel", "winner_kernel")),
     }
     full = full_grads.leaves()
     gscale = max(float(v.abs().max()) for v in full.values())
@@ -1153,7 +1195,114 @@ OPS_AABB = 26  # one chunk-box slab test of the in-kernel sweep
 OPS_MESH_RAY = OPS_TO_OBJECT + 18  # a mesh's object-space ray and its reciprocal direction
 
 
-def mesh_phase(dev, card: str, out_dir: str) -> list:
+def mesh_kernel_resources(reports: dict) -> dict:
+    """Kernels 9 and 10's registers and shared memory, ptxas's own words
+    (``Used N registers, ... smem``) from ``_build.build_all``'s report of
+    ``csrc/mesh.cu``."""
+    out, entry = {}, None
+    for line in reports.get("mesh", "").splitlines():
+        if "Compiling entry function" in line:
+            entry = "9" if "mesh_nearest_kernel" in line else "10" if "mesh_min_kernel" in line \
+                else None
+        elif "Used" in line and "registers" in line and entry is not None:
+            out[entry] = line.split("info    :")[-1].strip()
+            entry = None
+    return out or {"9 and 10": "not in this build's report (a reused library)"}
+
+
+def hold_mesh_kernels(tag, label, tab, boxes, o, d, k9_err: float, k10_err: float):
+    """Kernels 9 and 10 (``ops/mesh``) on the rays ``o``, ``d`` against
+    their plain versions, culled (``boxes``) and dense, bit for bit on
+    every lane; the lanes where culled and dense differ are counted and
+    printed with the dense winner's conditioning |a| / (|e1| |h|).
+    Returns the largest |t| errors of 9 and 10 on the hits, with the ones
+    given."""
+    import torch
+
+    from pathtracer_tpu_torch.ops import mesh
+
+    got = {}
+    for sweep, bx in (("culled", boxes), ("dense", None)):
+        t_k, i_k = mesh.mesh_nearest_cuda(tab, bx, o, d)
+        occ_k = mesh.mesh_min_cuda(tab, bx, o, d)
+        t_p, i_p = mesh.mesh_nearest_plain(tab, bx, o, d)
+        occ_p = mesh.mesh_min_plain(tab, bx, o, d)
+        torch.cuda.synchronize()
+        hit = t_p < mesh.BIG
+        if bool(hit.any()):
+            k9_err = max(k9_err, float((t_k - t_p).abs()[hit].max()))
+            k10_err = max(k10_err, float((occ_k - occ_p).abs()[hit].max()))
+        equal = (torch.equal(t_k, t_p), torch.equal(i_k, i_p), torch.equal(occ_k, occ_p))
+        print(f"{tag} {label}, {sweep}, {o.shape[0]} rays, {int(hit.sum())} hits: kernel 9 t / "
+              f"index equal to plain {equal[0]} / {equal[1]}, kernel 10 t equal {equal[2]}")
+        check(all(equal), f"kernels 9 / 10 ({sweep}) differ from their plain versions ({label})")
+        got[sweep] = (t_k, i_k, occ_k)
+    (tc, ic, oc), (td, idn, od) = got["culled"], got["dense"]
+    differ = (tc != td) | (ic != idn) | (oc != od)
+    lanes = differ.nonzero()[:16, 0]
+    rows = tab.view(-1, 9)[idn[lanes].long()]
+    h = torch.linalg.cross(d[lanes], rows[:, 6:9], dim=-1)
+    cond = (rows[:, 3:6] * h).sum(-1).abs() / (rows[:, 3:6].norm(dim=-1) * h.norm(dim=-1))
+    print(f"{tag} {label}: culled differs from dense on {int(differ.sum())} of {o.shape[0]} "
+          f"lanes" + "".join(f"; lane {j} t {float(tc[j]):.9g} vs {float(td[j]):.9g}, "
+                             f"conditioning {float(c):.3g}"
+                             for j, c in zip(lanes.tolist(), cond.tolist())))
+    return k9_err, k10_err
+
+
+def time_mesh_kernels(tab, boxes, bare, o, d) -> dict:
+    """Kernels 9 and 10 on the rays ``o``, ``d``: their device time (the
+    median of ten launches, :func:`queued_ms`, twice), the dense sweep's, the
+    culled plain version's (CUDA events), and the bound counted from
+    these inputs: a slab test per lane and chunk and a Moeller-Trumbore
+    test per (lane, triangle) of every chunk whose bare box (``bare``) the
+    ray enters at or before its final t (the plain version's masks), over
+    67 TFLOP/s, against the rays in, the results out and the table and
+    boxes once, over 3.35 TB/s."""
+    import torch
+
+    from pathtracer_tpu_torch.ops import mesh
+    from pathtracer_tpu_torch.ops.intersect import safe_recip
+    from pathtracer_tpu_torch.ops.mesh_tables import chunk_reaches
+
+    n, n_tris = o.shape[0], tab.numel() // 9
+    t_final = mesh.mesh_nearest_plain(tab, boxes, o, d)[0]
+    inv = tuple(safe_recip(c) for c in d.unbind(-1))
+    reach_by = torch.nextafter(t_final, torch.full_like(t_final, float("inf")))
+    pairs = 0
+    for c in range(bare.shape[0]):
+        rows = min(mesh.SCAN_CHUNK, n_tris - c * mesh.SCAN_CHUNK)
+        pairs += int(chunk_reaches(bare[c].unbind(-1), o.unbind(-1), inv, reach_by).sum()) * rows
+    ops = n * bare.shape[0] * OPS_AABB + pairs * OPS_MT
+    static_bytes = tab.numel() * 4 + boxes.numel() * 4
+    out = {}
+    for key, culled, dense, plain, out_bytes in (
+            ("9", lambda: mesh.mesh_nearest_cuda(tab, boxes, o, d),
+             lambda: mesh.mesh_nearest_cuda(tab, None, o, d),
+             lambda: mesh.mesh_nearest_plain(tab, boxes, o, d), 8),
+            ("10", lambda: mesh.mesh_min_cuda(tab, boxes, o, d),
+             lambda: mesh.mesh_min_cuda(tab, None, o, d),
+             lambda: mesh.mesh_min_plain(tab, boxes, o, d), 4)):
+        t_ops = ops / FP32_OPS_PER_S
+        t_bytes = (n * (24 + out_bytes) + static_bytes) / HBM_BYTES_PER_S
+        out[key] = dict(
+            ms=queued_ms(culled), ms2=queued_ms(culled), dense_ms=queued_ms(dense),
+            plain_ms=cuda_ms(plain, reps=2),
+            bound=(max(t_ops, t_bytes) * 1e3, "operations" if t_ops > t_bytes else "bytes"),
+            pairs=pairs, all_pairs=n * n_tris, rays=n, tris=n_tris)
+    return out
+
+
+def print_mesh_times(tag, where, mt: dict, card: str) -> None:
+    for key, v in mt.items():
+        print(f"{tag} kernel {key} at {where}: {v['ms']:.4f} / {v['ms2']:.4f} ms of device time "
+              f"(two repeats; the dense sweep {v['dense_ms']:.4f} ms; plain {v['plain_ms']:.3f} "
+              f"ms), bound {v['bound'][0]:.4f} ms by {v['bound'][1]}, counted from "
+              f"{v['pairs']} needed ray-triangle tests of the {v['all_pairs']} pairs; on {card}")
+        check(v["bound"][0] < v["ms"], f"kernel {key}'s counted bound reads below its time")
+
+
+def mesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     """Phase 9, ``[mesh]``: smooth_mesh (a 320-triangle icosphere with
     authored normals) at ``bench.py``'s width through every forward engine,
     and kernels 9, 10 and the mesh variants of 1 and 2 against their plain
@@ -1248,7 +1397,8 @@ def mesh_phase(dev, card: str, out_dir: str) -> list:
     close_to(acc_d, acc2, 0.999, 1e-5, "(d) pinned vs megakernel, 2 spp")
     check(bool(captured), "no super-step state captured")
 
-    # ---- (e) kernels 9 and 10 against their plain versions, bit for bit
+    # ---- (e) kernels 9 and 10 against their culled plain versions, bit for
+    # bit, and the dense sweep (kernel and plain, no boxes) as the oracle
     def object_rays(o, d):
         return mesh.object_rays(Rays(o, d), tables[0], m0.geom_index)
 
@@ -1256,23 +1406,13 @@ def mesh_phase(dev, card: str, out_dir: str) -> list:
     big = mesh.pack_tri_table(torch.from_numpy(displace_mesh(ico, 0.06, 4, "sin", 9.0)).to(dev))
     o_p, d_p = object_rays(rays0.origin, rays0.direction)
     o_m, d_m = object_rays(captured["origin"], captured["direction"])
-    cases = {"primary, T=320": (m0.scan_table, o_p, d_p),
-             f"super-step {CAPTURE_STEP}, T=320": (m0.scan_table, o_m, d_m),
-             f"primary, T={big.numel() // 9}": (big, o_p, d_p)}
+    cases = {"primary, T=320": (m0.scan_table, m0.scan_boxes, o_p, d_p),
+             f"super-step {CAPTURE_STEP}, T=320": (m0.scan_table, m0.scan_boxes, o_m, d_m),
+             f"primary, T={big.numel() // 9} (file order)": (big, mesh.table_boxes(big), o_p, d_p)}
     k9_err = k10_err = 0.0
-    for label, (tab, o, d) in cases.items():
-        t_k, i_k = mesh.mesh_nearest_cuda(tab, o, d)
-        occ_k = mesh.mesh_min_cuda(tab, o, d)
-        t_p, i_p = mesh.mesh_nearest_plain(tab, o, d)
-        occ_p = mesh.mesh_min_plain(tab, o, d)
-        torch.cuda.synchronize()
-        hit = t_p < mesh.BIG
-        k9_err = max(k9_err, float((t_k - t_p).abs()[hit].max()) if bool(hit.any()) else 0.0)
-        k10_err = max(k10_err, float((occ_k - occ_p).abs()[hit].max()) if bool(hit.any()) else 0.0)
-        equal = (torch.equal(t_k, t_p), torch.equal(i_k, i_p), torch.equal(occ_k, occ_p))
-        print(f"[mesh:check] (e) {label}, {o.shape[0]} rays, {int(hit.sum())} hits: kernel 9 t / "
-              f"index equal {equal[0]} / {equal[1]}, kernel 10 t equal {equal[2]}")
-        check(all(equal), f"kernels 9 / 10 differ from their plain versions ({label})")
+    for label, (tab, boxes, o, d) in cases.items():
+        k9_err, k10_err = hold_mesh_kernels("[mesh:check] (e)", label, tab, boxes, o, d,
+                                            k9_err, k10_err)
 
     # ---- (f) kernel 2m against its plain version: every output on every lane
     f32 = dict(dtype=torch.float32, device=dev)
@@ -1319,14 +1459,8 @@ def mesh_phase(dev, card: str, out_dir: str) -> list:
              captured["sample"], captured["depth"], captured["prev"], captured["medium"], seed)
     k2_ms = cuda_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, nee=True, mesh=km), reps=20)
     k2p_ms = cuda_ms(lambda: bounce_fused.bounce_fused_plain(*margs, nee=True, mesh=km), reps=1)
-    mt_ms = {}
-    for label, tab in (("320", m0.scan_table), (str(big.numel() // 9), big)):
-        mt_ms[label] = (
-            cuda_ms(lambda: mesh.mesh_nearest_cuda(tab, o_p, d_p), reps=10),
-            cuda_ms(lambda: mesh.mesh_nearest_plain(tab, o_p, d_p), reps=2),
-            cuda_ms(lambda: mesh.mesh_min_cuda(tab, o_p, d_p), reps=10),
-            cuda_ms(lambda: mesh.mesh_min_plain(tab, o_p, d_p), reps=2),
-        )
+    mt = time_mesh_kernels(m0.scan_table, m0.scan_boxes, mesh.mesh_chunk_boxes(m0, pad=False),
+                           o_p, d_p)
 
     def bound(ops, nbytes):
         t_ops, t_bytes = ops / FP32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
@@ -1350,8 +1484,6 @@ def mesh_phase(dev, card: str, out_dir: str) -> list:
                      n * (12 + 12 + 4 + 12) + table_bytes)
     k2_bound = bound(n * (sweep + OPS_SHADE + mesh_ops) + k2_tris * OPS_MT,
                      n * (64 + 73) + table_bytes)
-    mt_bound = {t: (bound(n * int(t) * OPS_MT, n * (24 + 8) + int(t) * 36),
-                    bound(n * int(t) * OPS_MT, n * (24 + 4) + int(t) * 36)) for t in mt_ms}
     print(f"[card] {card}")
     print(f"[mesh:profile] render iteration: {summary}")
     print(
@@ -1363,11 +1495,8 @@ def mesh_phase(dev, card: str, out_dir: str) -> list:
         f"{CAPTURE_STEP} (plain {k2p_ms:.3f} ms, bound {k2_bound[0]:.4f} ms by {k2_bound[1]}, with "
         f"{k2_tris} triangle tests, a lower bound: shadow rays left out); on {card}"
     )
-    for t, (k9, k9p, k10, k10p) in mt_ms.items():
-        b9, b10 = mt_bound[t]
-        print(f"[mesh:time] {n} rays x {t} triangles: kernel 9 {k9:.4f} ms (plain {k9p:.3f} ms, "
-              f"bound {b9[0]:.4f} ms by {b9[1]}); kernel 10 {k10:.4f} ms (plain {k10p:.3f} ms, "
-              f"bound {b10[0]:.4f} ms by {b10[1]}); on {card}")
+    print_mesh_times("[mesh:time]", f"smooth_mesh's {n} primary rays x 320 triangles", mt, card)
+    print(f"[mesh:regs] {mesh_kernel_resources(reports)}")
 
     # ---- (i) the CLI on smooth_mesh takes the megakernel
     cli = subprocess.run(
@@ -1379,7 +1508,6 @@ def mesh_phase(dev, card: str, out_dir: str) -> list:
     check(cli.returncode == 0 and "engine=megakernel" in cli.stdout, "mesh CLI run failed")
 
     common = {"route": "cuda", "library_ms": None}
-    k9, k9p, k10, k10p = mt_ms["320"]
     return [
         {"name": "trace_mesh", **common, "source": "pathtracer_tpu_torch/csrc/trace.cu",
          "replaces": "pathtracer_tpu/ops/trace_pallas.py:62", "launches": launches["trace_mesh"],
@@ -1391,12 +1519,14 @@ def mesh_phase(dev, card: str, out_dir: str) -> list:
          "plain_ms": k2p_ms, "bound_ms": k2_bound[0], "bound_by": k2_bound[1]},
         {"name": "mesh_nearest", **common, "source": "pathtracer_tpu_torch/csrc/mesh.cu",
          "replaces": "pathtracer_tpu/ops/mesh_pallas.py:88",
-         "launches": launch_c["mesh_nearest"], "max_abs_err": k9_err, "ms": k9, "plain_ms": k9p,
-         "bound_ms": mt_bound["320"][0][0], "bound_by": mt_bound["320"][0][1]},
+         "launches": launch_c["mesh_nearest"], "max_abs_err": k9_err, "ms": mt["9"]["ms"],
+         "plain_ms": mt["9"]["plain_ms"], "bound_ms": mt["9"]["bound"][0],
+         "bound_by": mt["9"]["bound"][1]},
         {"name": "mesh_min", **common, "source": "pathtracer_tpu_torch/csrc/mesh.cu",
          "replaces": "pathtracer_tpu/ops/mesh_pallas.py:107",
-         "launches": launch_c["mesh_min"], "max_abs_err": k10_err, "ms": k10, "plain_ms": k10p,
-         "bound_ms": mt_bound["320"][1][0], "bound_by": mt_bound["320"][1][1]},
+         "launches": launch_c["mesh_min"], "max_abs_err": k10_err, "ms": mt["10"]["ms"],
+         "plain_ms": mt["10"]["plain_ms"], "bound_ms": mt["10"]["bound"][0],
+         "bound_by": mt["10"]["bound"][1]},
     ]
 
 
@@ -2372,9 +2502,14 @@ def bigmesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     deferred = bounce_fused.bounce_fused_cuda(*bargs["merge"][0], **kw_merge)[-1]
     s_obj, s_dir = object_rays(Rays(deferred[0:3].T.contiguous(), deferred[3:6].T.contiguous()),
                                big_tables[0], m0.geom_index)
-    k9 = (lambda: mesh.mesh_nearest_cuda(m0.scan_table, o_obj.contiguous(), d_obj.contiguous()))
-    k10 = (lambda: mesh.mesh_min_cuda(m0.scan_table, s_obj.contiguous(), s_dir.contiguous()))
-    k9_ms, k10_ms = cuda_ms(k9, reps=5), cuda_ms(k10, reps=5)
+    o_obj, d_obj, s_obj, s_dir = (x.contiguous() for x in (o_obj, d_obj, s_obj, s_dir))
+    bare = mesh.mesh_chunk_boxes(m0, pad=False)
+    for label, (o, d) in ((f"scan bounce {SCAN_CAPTURE_DEPTH}", (o_obj, d_obj)),
+                          (f"scan bounce {SCAN_CAPTURE_DEPTH}'s shadow rays", (s_obj, s_dir))):
+        hold_mesh_kernels("[bigmesh:check] (g)", label, m0.scan_table, m0.scan_boxes, o, d, 0.0,
+                          0.0)
+    mt9 = time_mesh_kernels(m0.scan_table, m0.scan_boxes, bare, o_obj, d_obj)["9"]
+    mt10 = time_mesh_kernels(m0.scan_table, m0.scan_boxes, bare, s_obj, s_dir)["10"]
     acc0 = torch.zeros((n, 3), **f32)
     rcfg = dataclasses.replace(cfg, features=tuple(sorted(feats_of(big))))
     iter_ms = cuda_ms(lambda: render_chunk(big, acc0, 0, seed, rcfg, 1, tables=big_tables), reps=3)
@@ -2411,8 +2546,12 @@ def bigmesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
           f"({st_m['rays_traced'] / 2 / iter_ms / 1e3:.1f} Mrays/s); device time per launch "
           f"in the iteration: "
           + "; ".join(f"{k} {v[0]:.4f} ms x{v[1]}" for k, v in per_launch.items())
-          + f"; by events at {o_obj.shape[0]} rays of bounce {SCAN_CAPTURE_DEPTH}: kernel 9 "
-          f"{k9_ms:.4f} ms, kernel 10 {k10_ms:.4f} ms; on {card}")
+          + f"; on {card}")
+    print_mesh_times("[bigmesh:time]", f"{o_obj.shape[0]} rays of scan bounce "
+                     f"{SCAN_CAPTURE_DEPTH} x {m0.scan_table.numel() // 9} triangles",
+                     {"9": mt9}, card)
+    print_mesh_times("[bigmesh:time]", f"scan bounce {SCAN_CAPTURE_DEPTH}'s {s_obj.shape[0]} "
+                     f"shadow rays", {"10": mt10}, card)
     print(f"[bigmesh:profile] iteration: {summary}")
     for key, (ms, d_ms, p_ms, (b_ms, b_by), where, ln) in timing.items():
         print(f"[bigmesh:time] {key} at {ln} lanes of {where}: {ms:.4f} ms by events, "
@@ -2475,6 +2614,7 @@ def bigmesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
         summary = profile_step(step, step_ms, out_dir, f"bigmesh_{name}_step", kernels)
         print(f"[bigmesh:profile] lean step on {name}: {step_ms:.4f} ms, "
               f"{int(rays) / step_ms / 1e3:.1f} fwd+bwd Mrays/s; {summary}")
+        lean_parted_pixels("[bigmesh] (f)", name, params, static, gcfg, 1)
     lap("(f)")
 
     # the CLI's auto engine on the 5,120-triangle scene: the wavefront engine
@@ -2554,6 +2694,55 @@ def grad_step(tag, shown, dev, spp: int, out_dir: str, label, desc, cfg, expect,
           f"memory {peak_gb:.3f} GB, launches {launches}; gradients {leaves}; {summary}")
     return dict(loss=loss, grads=grads, ms=step_ms, launches=launches, params=params,
                 static=static)
+
+
+def lean_parted_pixels(tag, label, params, static, cfg, iterations: int, shown: int = 8):
+    """The pixels whose lean re-trace parts from the lean forward in any of
+    ``iterations`` iterations (``render/diff.lean_parted``: radiances apart
+    beyond float32 rounding), the first ``shown`` printed with their
+    iteration, radiances and, in the fused scope (the re-trace replays the
+    forward), their forward paths (``ops/trace_grad.lane_events``)."""
+    import torch
+
+    from pathtracer_tpu_torch.ops import trace_grad
+    from pathtracer_tpu_torch.ops.bounce import pack_tables
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render import diff
+    from pathtracer_tpu_torch.render.integrator import camera_sample
+
+    cfg_fwd, _ = diff.lean_cfgs(cfg, params.materials)
+    scene = diff.build_scene(params, static)
+    replayed = trace_grad.replay_scope(scene, cfg_fwd)
+    seed = key_to_seed(prng_key(0))
+    feats = frozenset(cfg_fwd.features)
+    parted = None
+    for it in range(iterations):
+        p, fwd, back = diff.lean_parted(params, static, it, prng_key(0), cfg)
+        parted = p if parted is None else parted | p
+        lanes = p.nonzero()[:max(shown, 0), 0].tolist()
+        shown -= len(lanes)
+        paths = {}
+        if replayed and lanes:
+            pix = torch.arange(p.shape[0], dtype=torch.int64, device=p.device)
+            tables = pack_tables(scene)
+            with torch.no_grad():
+                rays, sample = camera_sample(scene, pix, it, seed, cfg_fwd)
+                _, _, resid = trace_grad.tfwd_cuda(
+                    *tables, seed, rays.origin, rays.direction, sample, max_depth=cfg.max_depth,
+                    nee=cfg.nee, rr=cfg.russian_roulette, rr_start=cfg.rr_start, features=feats,
+                    vol_nee=cfg.vol_nee)
+            paths = {j: trace_grad.lane_events(tables[0], seed, sample, resid, j, feats)
+                     for j in lanes}
+        for j in lanes:
+            print(f"{tag} {label} lean: pixel {j} parts in iteration {it}, radiance "
+                  f"{fwd[j].tolist()} forward, {back[j].tolist()} re-trace"
+                  + (f"; the forward's path {paths[j]}" if j in paths else ""))
+    print(f"{tag} {label} lean: its re-trace "
+          + ("replaying the forward's winners, NEE bits and rays" if replayed
+             else "with its own searches (no replay outside the fused scope)")
+          + f" parts from its forward on {int(parted.sum())} of {parted.numel()} pixels over "
+          f"{iterations} iteration(s)")
+    return parted
 
 
 def hold_adjoint(tag, got, ref, names, path) -> float:
@@ -2642,8 +2831,8 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
                        only(bounce_replay_vol=per, bounce_bwd_vol=per),
                        ("bounce_kernel", "bounce_bwd_kernel", "block_row_sum")),
         "lean": (dataclasses.replace(base, grad_fused=False),
-                 only(trace_vol=spp, winner=per, occlusion=per),
-                 ("trace_kernel", "winner_kernel", "occlusion_kernel")),
+                 only(trace_fwd_resid_vol=spp, winner=per),
+                 ("trace_fwd_kernel", "winner_kernel")),
     }
     medium_leaves = ("absorption_coefficient", "reduced_scatter_coefficient", "has_scatter",
                      "phase_g")
@@ -2671,6 +2860,10 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     steps = {name: step(f"milky {name}", milky, cfg, expect, kernels)
              for name, (cfg, expect, kernels) in engines.items()}
     hold_engines("milky", steps)
+    milky_parted = lean_parted_pixels("[grad:vol]", "milky", steps["lean"]["params"],
+                                      steps["lean"]["static"], engines["lean"][0], spp)
+    check(not bool(milky_parted.any()),
+          f"milky: the replayed lean re-trace parts on {int(milky_parted.sum())} pixels")
     engine_launch = {"trace_fwd_resid_vol": steps["full-depth"]["launches"]["trace_fwd_resid_vol"],
                      "trace_bwd_vol": steps["full-depth"]["launches"]["trace_bwd_vol"],
                      "bounce_replay_vol": steps["per-bounce"]["launches"]["bounce_replay_vol"],
@@ -2875,12 +3068,15 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     # fog's cube around the icosphere (media in a mesh scene, 1m-vol forward)
     sss = dataclasses.replace(load_scene(os.path.join(scenes_dir, "sss.txt")),
                               resolution=VOL_RES)
-    step("sss lean", sss, base, only(trace_hg=spp, winner=per, occlusion=per),
+    st = step("sss lean", sss, base, only(trace_hg=spp, winner=per, occlusion=per),
               ("trace_kernel", "winner_kernel", "occlusion_kernel"))
+    lean = dataclasses.replace(base, grad_fused=False)
+    lean_parted_pixels("[grad:vol]", "sss", st["params"], st["static"], lean, 1)
     fog_mesh = parse_scene_text(fog_mesh_scene(True), name="fog_mesh_glass", scene_dir=scenes_dir)
-    step("fog_mesh_glass lean", fog_mesh, base,
+    st = step("fog_mesh_glass lean", fog_mesh, base,
               only(trace_mesh_vol=spp, winner=per, occlusion=per, mesh_nearest=per,
                    mesh_min=2 * per))
+    lean_parted_pixels("[grad:vol]", "fog_mesh_glass", st["params"], st["static"], lean, 1)
     lap("(d)")
 
     # ---- registers: the new instances, and the vacuum ones keep theirs
@@ -2953,7 +3149,6 @@ def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
     from pathtracer_tpu_torch.render import diff
     from pathtracer_tpu_torch.render.features import resolve_features
-    from pathtracer_tpu_torch.render.integrator import render_sample
     from pathtracer_tpu_torch.scene.parser import load_scene
 
     scenes_dir = os.path.join(ROOT, "scenes")
@@ -2974,8 +3169,8 @@ def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
                        only(bounce_replay_surf=per, bounce_bwd_surf=per),
                        ("bounce_kernel", "bounce_bwd_kernel", "block_row_sum")),
         "lean": (dataclasses.replace(base, grad_fused=False),
-                 only(trace_surf=spp, winner=per, occlusion=per),
-                 ("trace_kernel", "winner_kernel", "occlusion_kernel")),
+                 only(trace_fwd_resid_surf=spp, winner=per),
+                 ("trace_fwd_kernel", "winner_kernel")),
     }
     surface_leaves = ("texture_color2", "bump_scale", "bump_amp", "specular_color", "roughness",
                       "roughness_y")
@@ -3012,23 +3207,20 @@ def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
         return out
 
     def hold_engines(label, steps):
-        """The three engines' losses equal; every leaf of the per-bounce
-        step within 5e-4 of the full-depth step's largest entry of that
-        leaf.  The lean step's backward re-traces each path with the split
-        route's physics (JAX's split path), whose last bits part from the
-        kernels' on a few lanes (a direction one ulp apart flips a grazing
-        shadow ray): there it differentiates another path than the one its
-        forward counted.  Its whole-loss leaves are printed against the
-        gscale bar (5e-4 of the largest gradient), and over the pixels
-        whose re-trace keeps the forward's path in every iteration its
-        leaves are held leaf by leaf as the per-bounce step's: every leaf on
-        ward, the albedo leaves (linear in the radiance) on textured, whose
-        other leaves are printed, not held.  There, on a few lanes
-        (grazing and bumped re-hits), the float32 forward's last bits decide
-        the geometry, camera and bump derivatives for every engine alike
-        (``tests/test_torch_surface_diff.py::
-        test_textured_gradient_against_float64_paths``), and the kernels
-        and torch's ops round apart (ROADMAP queue 3, open)."""
+        """The three engines' losses equal; every leaf of the per-bounce and
+        the lean steps within 5e-4 of the full-depth step's largest entry of
+        that leaf, over every pixel.  The lean step's forward is kernel 4s
+        and its backward replays each bounce's winner, NEE bit and ray, so
+        it differentiates the paths the forward counted at the forward's
+        values; the pixels whose replayed re-trace still parts from the
+        forward are counted and printed with their paths (ward: none).  On
+        textured the lean albedo leaves are also held over the pixels that
+        keep the path, as before the replay; there the float32 forward's
+        last bits still decide the geometry, camera and bump derivatives of
+        the bumped sphere's re-hits for every engine alike, against their
+        float64 derivative (``tests/test_torch_surface_diff.py::
+        test_textured_gradient_against_float64_paths``; ROADMAP queue 3,
+        open)."""
         full = steps["full-depth"]
         fl = full["grads"].leaves()
         gscale = max(float(v.abs().max()) for v in fl.values())
@@ -3041,55 +3233,31 @@ def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
             print(f"[grad:surf] {label} {name} against full-depth: loss {float(st['loss']):.9g} "
                   f"vs {float(full['loss']):.9g}, worst leaf {worst_leaf} {worst:.3g} (the "
                   f"gscale bar {5e-4 * gscale:.4g}); leaf by leaf, the worst {k_rel} at "
-                  f"{rel[k_rel]:.3g} of its bar" + (" (not held)" if name == "lean" else ""))
+                  f"{rel[k_rel]:.3g} of its bar")
             check(float(st["loss"]) == float(full["loss"]), f"{label} {name}: loss differs")
-            if name == "per-bounce":
-                check(rel[k_rel] <= 1.0, f"{label} {name}: {k_rel} at {rel[k_rel]:.3g} of its bar")
+            check(rel[k_rel] <= 1.0, f"{label} {name}: {k_rel} at {rel[k_rel]:.3g} of its bar")
         params, static = full["params"], full["static"]
-        scene = diff.build_scene(params, static)
-        cfg = resolve_features(base, params.materials)
-        n = static.resolution[0] * static.resolution[1]
-        pix = torch.arange(n, dtype=torch.int64, device=dev)
-        seed = key_to_seed(prng_key(0))
-        parted = torch.zeros(n, dtype=torch.bool, device=dev)
-        tables = pack_tables(scene)
-        with torch.no_grad():
-            for it in range(spp):
-                a, _ = render_sample(scene, pix, it, seed, cfg)
-                b, _ = render_sample(scene, pix, it, seed, dataclasses.replace(
-                    cfg, fused=False, grad_lean=True, grad_fused=False))
-                parted_it = ((a - b).abs() > 1e-4 * (1.0 + a.abs())).any(-1)
-                if it == 0 and bool(parted_it.any()):
-                    rays = generate_camera_rays(scene.camera, pix, camera_uniforms(seed, pix))
-                    _, _, res = trace_grad.tfwd_cuda(
-                        *tables, seed, rays.origin, rays.direction, pix, max_depth=depth,
-                        nee=True, rr=False, rr_start=base.rr_start,
-                        features=frozenset(cfg.features))
-                    for lane in parted_it.nonzero()[:3, 0].tolist():
-                        print(f"[grad:surf] {label} lean: pixel {lane} parts in iteration 0, "
-                              f"radiance {a[lane].tolist()} forward, {b[lane].tolist()} "
-                              f"re-trace; the forward's path " + trace_grad.lane_events(
-                                  tables[0], seed, pix, res, lane, frozenset(cfg.features)))
-                parted |= parted_it
+        parted = lean_parted_pixels("[grad:surf]", label, params, static,
+                                    dataclasses.replace(base, grad_fused=False), spp)
+        if label == "ward":
+            check(not bool(parted.any()), f"ward: the replayed lean re-trace parts on "
+                  f"{int(parted.sum())} pixels")
+            return int(parted.sum())
+        print(f"[grad:surf] {label} lean: {int(parted.sum())} parted pixels under replay "
+              f"(2,642 when the re-trace ran its own searches)")
         weight = (~parted).float()
         ml_full, mg_full = masked_grads(params, static, base, weight)
         ml_lean, mg_lean = masked_grads(params, static, dataclasses.replace(base, grad_fused=False),
                                         weight)
-        mscale = max(float(v.abs().max()) for v in mg_full.values())
-        worst, worst_leaf = max((float((mg_lean[k] - mg_full[k]).abs().max()), k)
-                                for k in mg_full)
         rel = leaf_errs(mg_lean, mg_full)
-        held = tuple(rel) if label == "ward" else albedo
-        k_held = max(held, key=rel.get)
-        print(f"[grad:surf] {label} lean: its re-trace parts from the kernel forward on "
-              f"{int(parted.sum())} of {n} pixels; over the others the loss {ml_lean:.9g} vs "
-              f"{ml_full:.9g}, the worst leaf {worst_leaf} {worst:.3g} (the gscale bar "
-              f"{5e-4 * mscale:.4g}); leaf by leaf, of each leaf's bar ("
-              f"{'every leaf' if label == 'ward' else 'the albedo leaves'} held): "
-              + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()))
+        k_held = max(albedo, key=rel.get)
+        print(f"[grad:surf] {label} lean over the {int((~parted).sum())} pixels whose replayed "
+              f"re-trace keeps the path: the loss {ml_lean:.9g} vs {ml_full:.9g}; the albedo "
+              f"leaves, of each leaf's bar: " + ", ".join(f"{k} {rel[k]:.3g}" for k in albedo))
         check(ml_lean == ml_full and rel[k_held] <= 1.0,
               f"{label} lean over the pixels it keeps: {k_held} at {rel[k_held]:.3g} of its bar")
         check(float(parted.float().mean()) <= 0.01, f"{label}: the lean re-trace parts on > 1%")
+        return int(parted.sum())
 
     # ---- (a) ward at 512x512 and textured at its 800x800 on the three
     # engines (ward's full-depth step profiled), textured_image on the lean
@@ -3097,13 +3265,13 @@ def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     ward = dataclasses.replace(load_scene(os.path.join(scenes_dir, "ward.txt")),
                                resolution=SURF_RES)
     textured = load_scene(os.path.join(scenes_dir, "textured.txt"))
-    steps = {}
+    steps, parted = {}, {}
     for sname, desc in (("ward", ward), ("textured", textured)):
         steps[sname] = {
             name: step(f"{sname} {name}", desc, cfg, expect,
                        kernels if (sname, name) == ("ward", "full-depth") else None)
             for name, (cfg, expect, kernels) in engines.items()}
-        hold_engines(sname, steps[sname])
+        parted[sname] = hold_engines(sname, steps[sname])
     engine_launch = {
         "trace_fwd_resid_surf": steps["ward"]["full-depth"]["launches"]["trace_fwd_resid_surf"],
         "trace_bwd_surf": steps["ward"]["full-depth"]["launches"]["trace_bwd_surf"],
@@ -3112,6 +3280,8 @@ def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     timg = dataclasses.replace(load_scene(os.path.join(scenes_dir, "textured_image.txt")),
                                resolution=SURF_RES)
     st = step("textured_image lean", timg, base, only(bounce_tex=per, winner=per, occlusion=per))
+    lean_parted_pixels("[grad:surf]", "textured_image", st["params"], st["static"],
+                       dataclasses.replace(base, grad_fused=False), 1)
     g_tex = st["grads"].textures.data
     shown = int((g_tex.abs().sum(-1) > 0).sum())
     print(f"[grad:surf] textured_image: atlas {tuple(g_tex.shape)}, {shown} texels with a "
@@ -3517,7 +3687,7 @@ def main() -> int:
     wall("[wavefront]")
 
     # ---- 9. triangle meshes
-    mesh_kernels = mesh_phase(dev, card, out_dir)
+    mesh_kernels = mesh_phase(dev, card, out_dir, reports)
     wall("[mesh]")
 
     # ---- 10. participating media

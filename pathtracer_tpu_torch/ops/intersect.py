@@ -14,7 +14,9 @@ and refractive geoms).  The kernels' CUDA versions are
 ``csrc/intersect.cu`` (``ops/intersect_cuda.py``).  :func:`intersect_scene_lean`
 ports ``pathtracer_tpu/ops/intersect.py:777-926``: the differentiable
 recompute of the winner only, a mesh winner's triangle (:func:`mt_single`)
-gathered from the file-order vertices so that their gradients land there.  A geom's row is read as tensors, so ``t`` and the
+gathered from the file-order vertices so that their gradients land there;
+:func:`replay_winner` is its search with the forward kernel's winner
+replayed.  A geom's row is read as tensors, so ``t`` and the
 object-space ray carry gradients to the geom table.  Unit primitives live in object space (sphere r = 0.5,
 cube side 1) and are tested through the inverse transform; the
 object-space direction stays unnormalized, so ``t`` is the world-space
@@ -355,6 +357,40 @@ def intersect_scene_lean(rays: Rays, gtab: torch.Tensor, winner=None, meshes=())
         position_obj=torch.stack(p_obj, dim=-1),
         normal=torch.stack(normal, dim=-1),
     )
+
+
+def replay_winner(rays: Rays, gtab: torch.Tensor, found, gid) -> tuple:
+    """The lean search's ``(t, gid)`` with a replayed winner: ``gid`` [N]
+    is the geom the forward kernel hit (-1: a miss), ``found`` the detached
+    search's own ``(t, gid)`` on the same rays.  The replayed geom stands,
+    geom 0 on a miss, as the search's argmin.  Its ``t`` is the search's
+    where the search found that geom, else the geom's own distance on the
+    detached rays taken as a grazing ray's: the sphere's discriminant
+    clamped at 0 and the cube's slabs unordered, so that a replayed hit
+    whose re-trace arithmetic misses it still gets a finite ``t`` (the one
+    :func:`intersect_scene_lean` keeps where its recompute misses), never
+    ``BIG``."""
+    hit = gid >= 0
+    g = torch.where(hit, gid.long(), 0)
+    rows = gtab[g].unbind(-1)
+    ox, oy, oz, dx, dy, dz = to_object(rows, *rays.origin.unbind(-1),
+                                       *rays.direction.unbind(-1))
+    a = dx * dx + dy * dy + dz * dz
+    b = ox * dx + oy * dy + oz * dz
+    sq = torch.sqrt(torch.clamp(b * b - a * (ox * ox + oy * oy + oz * oz - 0.25), min=0.0))
+    inv_a = safe_recip(a)
+    t0, t1 = (-b - sq) * inv_a, (-b + sq) * inv_a
+    t_sphere = torch.where(t0 > T_MIN, t0, t1)
+    ix, iy, iz = safe_recip(dx), safe_recip(dy), safe_recip(dz)
+    slabs = [torch.stack([(-0.5 - oc) * ic, (0.5 - oc) * ic])
+             for oc, ic in ((ox, ix), (oy, iy), (oz, iz))]
+    t_near = torch.amax(torch.stack([torch.amin(s, 0) for s in slabs]), 0)
+    t_far = torch.amin(torch.stack([torch.amax(s, 0) for s in slabs]), 0)
+    t_cube = torch.where(t_near > T_MIN, t_near, t_far)
+    t_own = torch.clamp(torch.where(rows[12] == float(SPHERE), t_sphere, t_cube), min=T_MIN)
+    same = (found[1].long() == g) & (found[0] < BIG)
+    t = torch.where(same, found[0], t_own)
+    return torch.where(hit, t, BIG), g.to(torch.int32)
 
 
 def mt_single(o_obj, d_obj, tri, t_min=T_MIN):

@@ -10,24 +10,36 @@ winner search (``intersect.py:808-826``, :func:`merge_mesh_winners`).
 
 * Kernel 9, :func:`mesh_nearest`: each ray's nearest triangle ``t`` and
   index over a ``[T * 9]`` table of ``(v0, e1, e2)`` rows; kernel 10,
-  :func:`mesh_min`: the nearest ``t`` alone, for shadow rays.  The CUDA
-  kernels are ``csrc/mesh.cu``; the plain versions
-  (:func:`mesh_nearest_plain`, :func:`mesh_min_plain`) run
-  ``ops/intersect.mt_chunk_t`` on ``[N, 256]`` blocks and fold each block's
-  first minimum into the running best under a strict ``<``, which equals
-  the kernels' one triangle after another.  A CUDA tensor launches the
+  :func:`mesh_min`: the nearest ``t`` alone, for shadow rays.  Both cull by
+  chunk: the table's rows fall into chunks of :data:`SCAN_CHUNK` (the
+  LBVH's where the mesh has one), and a lane tests a chunk's triangles only
+  where its ray's slab interval meets the chunk's padded box
+  (:func:`pad_boxes`, ``[C, 6]``) nearer than its running best times
+  :data:`REACH_SLACK` (``ops/mesh_tables.chunk_reaches``).  The CUDA kernels
+  are ``csrc/mesh.cu`` (shared-memory tiles, a block skips a chunk none of
+  its lanes reaches); the plain versions (:func:`mesh_nearest_plain`,
+  :func:`mesh_min_plain`) run ``ops/intersect.mt_chunk_t`` on each chunk,
+  apply the same per-lane test and fold the chunk's first minimum into the
+  running best under a strict ``<``, which equals the kernels' one
+  triangle after another, so the two are equal on every lane.  With
+  ``boxes=None`` both sweep every chunk: the dense sweep, the oracle that
+  shows what culling changes (a hit so ill-conditioned that its ``t`` lies
+  beyond the padded box; ``csrc/mesh.cu`` says why a well-conditioned hit
+  cannot be culled).  JAX's CPU route for an LBVH mesh culls by chunk too
+  (``ops/accel.mesh_t_and_normal_accel``).  A CUDA tensor launches the
   kernel or raises; a CPU tensor takes the plain version.
 * :func:`mesh_query` / :func:`mesh_occlusion_t` take the kernels for
-  meshes of at most :data:`MESH_KERNEL_MAX_TRIS` triangles, and above that
-  the LBVH traversal of ``ops/accel.py`` (``scene_for_frame`` builds an
-  LBVH for every mesh of ``ACCEL_MIN_TRIS`` triangles or more).  Every
-  path tests against ``T_MIN``, which the kernels hard-code.  A mesh's
-  table is its scan order without the LBVH's pad rows: a pad row repeats
-  the last triangle and cannot beat it under a strict ``<``, so the
-  winners are those of the padded table.
+  meshes of at most :data:`MESH_KERNEL_MAX_TRIS` triangles, with the
+  mesh's ``scan_table`` and ``scan_boxes``, and above that the LBVH
+  traversal of ``ops/accel.py`` (``scene_for_frame`` builds an LBVH for
+  every mesh of ``ACCEL_MIN_TRIS`` triangles or more).  Every path tests
+  against ``T_MIN``, which the kernels hard-code.  A mesh's table is its
+  scan order without the LBVH's pad rows: a pad row repeats the last
+  triangle and cannot beat it under a strict ``<``, so the winners are
+  those of the padded table.
 * JAX guards both kernels with a ``lax.cond`` on whether any ray reaches
   the mesh's root box; that needs a host sync here, so the kernels launch
-  unconditionally, which gives the same result.
+  unconditionally and each block skips the chunks it does not reach.
 """
 
 from __future__ import annotations
@@ -37,26 +49,31 @@ import ctypes
 import torch
 
 from pathtracer_tpu_torch.ops import _build
-from pathtracer_tpu_torch.ops.accel import mesh_t_and_normal_accel
+from pathtracer_tpu_torch.ops.accel import ACCEL_CHUNK, mesh_t_and_normal_accel
 from pathtracer_tpu_torch.ops.intersect import (
     BIG,
     T_MIN,
     mesh_scan_verts,
     mesh_winner_attrs,
     mt_chunk_t,
+    safe_recip,
     to_object,
     unit,
     winner_face_normal,
 )
+from pathtracer_tpu_torch.ops.mesh_tables import chunk_reaches
 from pathtracer_tpu_torch.ops.trace import check_tensor
 
 # kernels 9 and 10 take meshes up to this many triangles; larger ones take
 # the LBVH traversal, as in JAX
 MESH_KERNEL_MAX_TRIS = 8192
-PLAIN_BLOCK = 256  # triangles per block of the plain versions
+SCAN_CHUNK = ACCEL_CHUNK  # table rows per culling chunk (csrc/mesh.cu SCAN_CHUNK)
+REACH_SLACK = 1.000001  # a chunk's entry may round up to the running best (float32)
+BOX_PAD = 1e-5  # of a box's largest extent plus its largest |coordinate|
 
-nearest_launches = 0  # launches of csrc/mesh.cu:mesh_nearest_kernel in this process
-min_launches = 0  # launches of csrc/mesh.cu:mesh_min_kernel
+nearest_launches = 0  # launches of csrc/mesh.cu's kernel 9 (culled) in this process
+min_launches = 0  # launches of kernel 10 (culled)
+dense_launches = 0  # launches of either without boxes: the dense oracle, off the main path
 
 P, I = ctypes.c_void_p, ctypes.c_int
 
@@ -69,48 +86,98 @@ def pack_tri_table(tri_verts: torch.Tensor) -> torch.Tensor:
     return torch.cat([v0, e1, e2], dim=-1).reshape(-1).contiguous()
 
 
-def _blocks(table: torch.Tensor):
+def pad_boxes(lo, hi) -> torch.Tensor:
+    """``[C, 6]`` chunk boxes (lo, hi) widened on every side by
+    :data:`BOX_PAD` of the box's largest extent plus its largest
+    ``|coordinate|``, detached float32: the boxes kernels 9 and 10 cull
+    with (``csrc/mesh.cu`` says why the margin covers a well-conditioned
+    hit)."""
+    lo, hi = lo.detach().float(), hi.detach().float()
+    scale = torch.amax(hi - lo, dim=-1) + torch.amax(torch.maximum(lo.abs(), hi.abs()), dim=-1)
+    pad = (BOX_PAD * scale)[:, None]
+    return torch.cat([lo - pad, hi + pad], dim=-1).contiguous()
+
+
+def table_boxes(table) -> torch.Tensor:
+    """The padded boxes (:func:`pad_boxes`) of a ``[T * 9]`` table's rows in
+    chunks of :data:`SCAN_CHUNK`, over the corners ``v0``, ``v0 + e1``,
+    ``v0 + e2``."""
+    rows = table.detach().view(-1, 9)
+    v0 = rows[:, 0:3]
+    corners = torch.stack([v0, v0 + rows[:, 3:6], v0 + rows[:, 6:9]], dim=1)
+    lo = torch.stack([c.amin(dim=(0, 1)) for c in corners.split(SCAN_CHUNK)])
+    hi = torch.stack([c.amax(dim=(0, 1)) for c in corners.split(SCAN_CHUNK)])
+    return pad_boxes(lo, hi)
+
+
+def mesh_chunk_boxes(m, pad: bool = True) -> torch.Tensor:
+    """One mesh's chunk boxes over its scan order: the LBVH's chunk boxes
+    where it has one (rebound to the live vertices by ``ops/accel.
+    refresh_accel``), else boxes of :data:`SCAN_CHUNK` file-order
+    triangles; padded (:func:`pad_boxes`) or the bare ``[C, 6]`` boxes."""
+    if m.accel is not None:
+        lo, hi = m.accel.lo, m.accel.hi
+    else:
+        chunks = m.tri_verts.detach().float().split(SCAN_CHUNK)
+        lo = torch.stack([c.amin(dim=(0, 1)) for c in chunks])
+        hi = torch.stack([c.amax(dim=(0, 1)) for c in chunks])
+    return pad_boxes(lo, hi) if pad else torch.cat([lo.float(), hi.float()], dim=-1)
+
+
+def _scan(table, boxes, o_obj, d_obj, with_index: bool):
+    """The plain sweep of kernels 9 (``with_index``) and 10: per chunk of
+    :data:`SCAN_CHUNK` rows, Moeller-Trumbore of every lane, and where
+    ``boxes`` are given only the lanes whose ray reaches the chunk's box
+    (tested before the chunk, against the running best) take its first
+    minimum under a strict ``<``."""
     rows = table.view(-1, 9)
-    for b in range(0, rows.shape[0], PLAIN_BLOCK):
-        r = rows[b:b + PLAIN_BLOCK]
-        yield b, r[:, 0:3], r[:, 3:6], r[:, 6:9]
-
-
-def mesh_nearest_plain(table, o_obj, d_obj):
-    """Plain version of kernel 9: ``(t [N] float32, index [N] int32)``,
-    BIG and index 0 on a miss."""
-    best_t = torch.full((o_obj.shape[0],), BIG, dtype=torch.float32, device=o_obj.device)
-    best_i = torch.zeros(o_obj.shape[0], dtype=torch.int32, device=o_obj.device)
-    for b, v0, e1, e2 in _blocks(table):
-        t_b, i_b = torch.min(mt_chunk_t(o_obj, d_obj, v0, e1, e2, T_MIN), dim=-1)
-        better = t_b < best_t
+    n = o_obj.shape[0]
+    best_t = torch.full((n,), BIG, dtype=torch.float32, device=o_obj.device)
+    best_i = torch.zeros(n, dtype=torch.int32, device=o_obj.device)
+    o, inv = o_obj.unbind(-1), tuple(safe_recip(c) for c in d_obj.unbind(-1))
+    slack = torch.tensor(REACH_SLACK, dtype=torch.float32, device=o_obj.device)
+    for c, b in enumerate(range(0, rows.shape[0], SCAN_CHUNK)):
+        r = rows[b:b + SCAN_CHUNK]
+        t_c = mt_chunk_t(o_obj, d_obj, r[:, 0:3], r[:, 3:6], r[:, 6:9], T_MIN)
+        if with_index:
+            t_b, i_b = torch.min(t_c, dim=-1)
+            better = t_b < best_t
+        else:
+            t_b = torch.minimum(best_t, torch.amin(t_c, dim=-1))
+            better = torch.ones_like(best_t, dtype=torch.bool)
+        if boxes is not None:
+            better = better & chunk_reaches(boxes[c].unbind(-1), o, inv, best_t * slack)
         best_t = torch.where(better, t_b, best_t)
-        best_i = torch.where(better, (b + i_b).to(torch.int32), best_i)
+        if with_index:
+            best_i = torch.where(better, (b + i_b).to(torch.int32), best_i)
     return best_t, best_i
 
 
-def mesh_min_plain(table, o_obj, d_obj):
-    """Plain version of kernel 10: each ray's nearest ``t`` (BIG = clear)."""
-    best_t = torch.full((o_obj.shape[0],), BIG, dtype=torch.float32, device=o_obj.device)
-    for _, v0, e1, e2 in _blocks(table):
-        best_t = torch.minimum(best_t, torch.amin(mt_chunk_t(o_obj, d_obj, v0, e1, e2, T_MIN),
-                                                  dim=-1))
-    return best_t
+def mesh_nearest_plain(table, boxes, o_obj, d_obj):
+    """Plain version of kernel 9: ``(t [N] float32, index [N] int32)``,
+    BIG and index 0 on a miss; ``boxes`` None sweeps every chunk."""
+    return _scan(table, boxes, o_obj, d_obj, True)
+
+
+def mesh_min_plain(table, boxes, o_obj, d_obj):
+    """Plain version of kernel 10: each ray's nearest ``t`` (BIG = clear);
+    ``boxes`` None sweeps every chunk."""
+    return _scan(table, boxes, o_obj, d_obj, False)[0]
 
 
 def _lib():
     lib = _build.load("mesh")
     if lib.mesh_nearest_launch.argtypes is None:  # ctypes would cut pointers to 32 bits
         lib.mesh_nearest_launch.restype = ctypes.c_int
-        # table, T, n, o_obj, d_obj, t, index, stream
-        lib.mesh_nearest_launch.argtypes = [P, I, I, P, P, P, P, P]
+        # table, T, boxes, n, o_obj, d_obj, t, index, stream
+        lib.mesh_nearest_launch.argtypes = [P, I, P, I, P, P, P, P, P]
         lib.mesh_min_launch.restype = ctypes.c_int
-        # table, T, n, o_obj, d_obj, t, stream
-        lib.mesh_min_launch.argtypes = [P, I, I, P, P, P, P]
+        # table, T, boxes, n, o_obj, d_obj, t, stream
+        lib.mesh_min_launch.argtypes = [P, I, P, I, P, P, P, P]
     return lib
 
 
-def _check(table, o_obj, d_obj):
+def _check(table, boxes, o_obj, d_obj):
     device = o_obj.device
     if device.type != "cuda":
         raise ValueError(f"mesh kernels need CUDA tensors, got {device}")
@@ -120,39 +187,53 @@ def _check(table, o_obj, d_obj):
     if not 1 <= n_tris <= MESH_KERNEL_MAX_TRIS:
         raise ValueError(f"mesh kernels take 1..{MESH_KERNEL_MAX_TRIS} triangles, got {n_tris}")
     check_tensor(table, "triangle table", torch.float32, (n_tris * 9,), device)
+    if boxes is not None:
+        check_tensor(boxes, "chunk boxes", torch.float32, (-(-n_tris // SCAN_CHUNK), 6), device)
     check_tensor(o_obj, "origin", torch.float32, (n, 3), device)
     check_tensor(d_obj, "direction", torch.float32, (n, 3), device)
     return n, n_tris, device
 
 
-def mesh_nearest_cuda(table, o_obj, d_obj):
-    """Launch kernel 9 on the rays' CUDA device, on the current stream."""
-    global nearest_launches
-    n, n_tris, device = _check(table, o_obj, d_obj)
+def _count(boxes, kernel: str) -> None:
+    global nearest_launches, min_launches, dense_launches
+    if boxes is None:
+        dense_launches += 1
+    elif kernel == "nearest":
+        nearest_launches += 1
+    else:
+        min_launches += 1
+
+
+def mesh_nearest_cuda(table, boxes, o_obj, d_obj):
+    """Launch kernel 9 on the rays' CUDA device, on the current stream
+    (``boxes`` None: the dense sweep)."""
+    n, n_tris, device = _check(table, boxes, o_obj, d_obj)
     t = torch.empty(n, dtype=torch.float32, device=device)
     idx = torch.empty(n, dtype=torch.int32, device=device)
     err = _lib().mesh_nearest_launch(
-        table.data_ptr(), n_tris, n, o_obj.data_ptr(), d_obj.data_ptr(), t.data_ptr(),
-        idx.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+        table.data_ptr(), n_tris, None if boxes is None else boxes.data_ptr(), n,
+        o_obj.data_ptr(), d_obj.data_ptr(), t.data_ptr(), idx.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"mesh nearest kernel launch failed: CUDA error {err}")
-    nearest_launches += 1
+    _count(boxes, "nearest")
     return t, idx
 
 
-def mesh_min_cuda(table, o_obj, d_obj):
-    """Launch kernel 10 on the rays' CUDA device, on the current stream."""
-    global min_launches
-    n, n_tris, device = _check(table, o_obj, d_obj)
+def mesh_min_cuda(table, boxes, o_obj, d_obj):
+    """Launch kernel 10 on the rays' CUDA device, on the current stream
+    (``boxes`` None: the dense sweep)."""
+    n, n_tris, device = _check(table, boxes, o_obj, d_obj)
     t = torch.empty(n, dtype=torch.float32, device=device)
     err = _lib().mesh_min_launch(
-        table.data_ptr(), n_tris, n, o_obj.data_ptr(), d_obj.data_ptr(), t.data_ptr(),
+        table.data_ptr(), n_tris, None if boxes is None else boxes.data_ptr(), n,
+        o_obj.data_ptr(), d_obj.data_ptr(), t.data_ptr(),
         torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"mesh min kernel launch failed: CUDA error {err}")
-    min_launches += 1
+    _count(boxes, "min")
     return t
 
 
@@ -165,14 +246,14 @@ def _route(o_obj, kernel, plain):
     raise ValueError(f"no mesh intersection for device type {device_type!r}")
 
 
-def mesh_nearest(table, o_obj, d_obj):
+def mesh_nearest(table, boxes, o_obj, d_obj):
     """Kernel 9 or its plain version, by the rays' device."""
-    return _route(o_obj, mesh_nearest_cuda, mesh_nearest_plain)(table, o_obj, d_obj)
+    return _route(o_obj, mesh_nearest_cuda, mesh_nearest_plain)(table, boxes, o_obj, d_obj)
 
 
-def mesh_min(table, o_obj, d_obj):
+def mesh_min(table, boxes, o_obj, d_obj):
     """Kernel 10 or its plain version, by the rays' device."""
-    return _route(o_obj, mesh_min_cuda, mesh_min_plain)(table, o_obj, d_obj)
+    return _route(o_obj, mesh_min_cuda, mesh_min_plain)(table, boxes, o_obj, d_obj)
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +272,8 @@ def mesh_query(m, o_obj, d_obj, with_index=False):
     (BIG = miss), and with ``with_index`` its row in
     ``ops/intersect.mesh_scan_verts(m)``."""
     if _kernel_rows(m) <= MESH_KERNEL_MAX_TRIS:
-        t, idx = mesh_nearest(m.scan_table, o_obj.contiguous(), d_obj.contiguous())
+        t, idx = mesh_nearest(m.scan_table, m.scan_boxes, o_obj.contiguous(),
+                              d_obj.contiguous())
         nrm = winner_face_normal(mesh_scan_verts(m), idx)
         return (t, nrm, idx) if with_index else (t, nrm)
     if m.accel is None:
@@ -203,7 +285,7 @@ def mesh_query(m, o_obj, d_obj, with_index=False):
 def mesh_occlusion_t(m, o_obj, d_obj):
     """Nearest ``t`` of one mesh for shadow rays (BIG = clear)."""
     if _kernel_rows(m) <= MESH_KERNEL_MAX_TRIS:
-        return mesh_min(m.scan_table, o_obj.contiguous(), d_obj.contiguous())
+        return mesh_min(m.scan_table, m.scan_boxes, o_obj.contiguous(), d_obj.contiguous())
     return mesh_query(m, o_obj, d_obj)[0]
 
 

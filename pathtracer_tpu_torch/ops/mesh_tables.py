@@ -150,8 +150,9 @@ def kernel_meshes(meshes):
     )
 
 
-def _reaches(box, oo, inv, best):
-    """Per lane: the ray's slab interval meets the box nearer than ``best``."""
+def chunk_reaches(box, oo, inv, best):
+    """Per lane: the ray's slab interval meets the box nearer than ``best``
+    (``csrc/trace_common.cuh:chunk_reaches``)."""
     t_lo, t_hi = [], []
     for ax in range(3):
         t1 = (box[ax] - oo[ax]) * inv[ax]
@@ -201,7 +202,7 @@ def mesh_sweep(km: KernelMeshes, gtab, o, d, want_uv: bool = False) -> dict:
         t_min, j_min = torch.min(tc, dim=-1)  # per chunk the first minimum, as the strict < loop
         for c in range(boxes.shape[0]):
             t_c, j = t_min[:, c], j_min[:, c]
-            reach = _reaches(boxes[c].unbind(-1), oo, inv, et)
+            reach = chunk_reaches(boxes[c].unbind(-1), oo, inv, et)
             reached = reached + reach
             better = reach & (t_c < et)
             row = row0 + c * MESH_CHUNK + j
@@ -242,7 +243,7 @@ def mesh_occ(km: KernelMeshes, gtab, x, wi) -> torch.Tensor:
     for _, _, _, boxes, oo, _, inv, (tc, _, _) in _meshes(km, gtab, x, wi):
         t_min = torch.amin(tc, dim=-1)
         for c in range(boxes.shape[0]):
-            reach = _reaches(boxes[c].unbind(-1), oo, inv, occ)
+            reach = chunk_reaches(boxes[c].unbind(-1), oo, inv, occ)
             occ = torch.where(reach, torch.minimum(occ, t_min[:, c]), occ)
     return occ
 
@@ -262,7 +263,7 @@ def mesh_occ_split(km: KernelMeshes, gtab, mtab, x, wi):
         mt = torch.full_like(x[0], BIG)
         t_min = torch.amin(tc, dim=-1)
         for c in range(boxes.shape[0]):
-            reach = _reaches(boxes[c].unbind(-1), oo, inv, mt)
+            reach = chunk_reaches(boxes[c].unbind(-1), oo, inv, mt)
             mt = torch.where(reach, torch.minimum(mt, t_min[:, c]), mt)
         if refr[g]:
             occ_re = torch.minimum(occ_re, mt)

@@ -21,8 +21,11 @@ replays the winner (no sweep, no shadow ray), differentiates the bounce and
   tables, the samples and the residuals, the backward runs the reverse
   loop, and the ray count is not differentiable.
 * :func:`trace_fused_diff` is the drop-in for ``trace_paths`` under
-  ``grad_lean``.  Rays on a CUDA device launch the kernels or raise; rays
-  on the CPU take the plain versions.
+  ``grad_lean``; :func:`trace_replay` is the lean engine's forward in the
+  fused scope, the forward with residuals keeping only each bounce's
+  winner, NEE bit and entering ray for the backward's re-trace to replay.
+  Rays on a CUDA device launch the kernels or raise; rays on the CPU take
+  the plain versions.
 
 Residuals are ``[depth, n_resid(features), N]`` float32, lane-contiguous so
 that the kernel's stores coalesce.  With ``volumetric`` they are JAX's 17
@@ -60,6 +63,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import dataclasses
 
 import torch
 from torch.overrides import TorchFunctionMode
@@ -166,6 +170,15 @@ def fused_diff_eligible(scene, cfg) -> bool:
         and fused_trace_eligible(scene, cfg)
         and "hg" not in cfg.features
     )
+
+
+def replay_scope(scene, cfg) -> bool:
+    """Whether the lean engine's forward is :func:`trace_replay` and its
+    backward replays the forward's winners, NEE bits and rays: the fused
+    scope (:func:`fused_diff_eligible` whatever ``grad_fused`` says) on the
+    fused route (``cfg.fused`` not False)."""
+    return cfg.fused is not False and fused_diff_eligible(
+        scene, dataclasses.replace(cfg, grad_fused=None))
 
 
 # ---------------------------------------------------------------------------
@@ -484,6 +497,40 @@ class TraceDiff(torch.autograd.Function):
         else:
             grads = tbwd_plain(*args, **kw)
         return (*grads, None, None, None)
+
+
+def trace_replay(scene, rays, sample_idx, seed: int, cfg, tables=None):
+    """The lean engine's forward in the fused scope: ``(radiance [N, 3],
+    rays_traced int64 [], gid [depth, N] int16, nee [depth, N] bool, ray
+    [depth, 6, N] float32)``.  The forward with residuals (kernel 4 on a
+    CUDA tensor, its plain version on the CPU) traces the paths; of its
+    residuals each bounce's winner geom (-1: a miss or a dead lane), its
+    surface NEE bit and the ray entering it (origin, direction planes) are
+    kept, 27 bytes per lane-bounce, for the backward's re-trace to replay,
+    and the rest is freed here.  Kernels 1 and 4 run the same
+    ``pt::bounce_step``, so the radiance and ray count are the trace
+    kernel's."""
+    if not replay_scope(scene, cfg):
+        raise NotImplementedError("trace_replay takes the scenes of the fused scope")
+    gtab, mtab, ltab, scal = tables if tables is not None else pack_tables(scene)
+    features = frozenset(cfg.features)
+    args = (gtab.detach(), mtab.detach(), ltab.detach(), scal.detach(), int(seed),
+            rays.origin.detach(), rays.direction.detach(), sample_idx)
+    kw = dict(max_depth=cfg.max_depth, nee=cfg.nee, rr=cfg.russian_roulette,
+              rr_start=cfg.rr_start, features=features, vol_nee=cfg.vol_nee)
+    device_type = rays.origin.device.type
+    if device_type == "cuda":
+        rad, nrays, resid = tfwd_cuda(*args, **kw)
+    elif device_type == "cpu":
+        rad, nrays, resid = tfwd_plain(*args, **kw)
+    else:
+        raise ValueError(f"no differentiable trace for device type {device_type!r}")
+    tail = tail_plane(features)
+    gid = resid[:, tail + 2].to(torch.int16)
+    nee = resid[:, tail + 3] > 0.5
+    ray = resid[:, 0:6].clone()
+    del resid
+    return rad, nrays, gid, nee, ray
 
 
 def trace_fused_diff(scene, rays, sample_idx, seed: int, cfg, tables=None):

@@ -36,7 +36,14 @@ recomputed from the live vertices, so vertex gradients flow (JAX
 ``:395-417``, ``ops/intersect.py:777-910``).  ``lean_cache``, a dict, keeps
 the detached searches' outputs on their first run (the volumetric NEE's
 split sweep too) and hands them back to a recompute (the lean scan's
-per-bounce checkpoint), so no search kernel runs again.
+per-bounce checkpoint), so no search kernel runs again.  ``replay``, on a
+scene of the fused scope, is the forward kernel's ``(gid, nee)`` of this
+bounce (``ops/trace_grad.trace_replay``): the re-trace takes the replayed
+winner (``ops/intersect.replay_winner``; kernel 7's ``t`` where it found
+the same geom) and the replayed surface NEE bit in place of its own
+comparisons, with no shadow ray; the scan gives it the forward's ray
+(``render/megakernel.scan_paths``), so it differentiates the path the
+forward counted.
 
 Participating media (``:311-348,440-582``): with ``volumetric`` the
 bounce samples an exponential free path in the medium the ray travels
@@ -92,7 +99,11 @@ from pathtracer_tpu_torch.ops.bsdf import (
     sample_bsdf,
     uniform_sphere,
 )
-from pathtracer_tpu_torch.ops.intersect import intersect_scene_lean, occlusion_split_t
+from pathtracer_tpu_torch.ops.intersect import (
+    intersect_scene_lean,
+    occlusion_split_t,
+    replay_winner,
+)
 from pathtracer_tpu_torch.ops.intersect_cuda import nearest_hit, occlusion_t, winner_t_gid
 from pathtracer_tpu_torch.ops.lights import sample_lights
 from pathtracer_tpu_torch.ops.mesh import merge_mesh_winners
@@ -131,16 +142,20 @@ def _detached(rays: Rays) -> Rays:
 
 
 def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular, seed: int,
-                 cfg, medium_sigma=None, tables=None, lean_cache=None) -> BounceResult:
+                 cfg, medium_sigma=None, tables=None, lean_cache=None,
+                 replay=None) -> BounceResult:
     """One physics step for a wavefront of rays (mask-free: callers gate
     with their alive masks).  ``depth`` is an int or a per-lane tensor;
     ``tables`` are ``ops/bounce.pack_tables`` of the scene; ``medium_sigma``
     the medium each ray travels through, ``[N, 4]`` (sigma_a rgb, sigma_s)
     or with ``hg`` ``[N, 5]`` (the phase g), None for vacuum; ``lean_cache``
-    as the module docstring says."""
+    and ``replay`` (the lean split route's ``(gid [N], nee [N])``) as the
+    module docstring says."""
     check_features(cfg.features)
     if cfg.grad_lean:
         check_diff_features(cfg.features, "lean")
+    if replay is not None and (not cfg.grad_lean or scene.meshes):
+        raise ValueError("a replay is the lean split route's, on scenes without meshes")
     if not cfg.fast_rng:
         raise NotImplementedError("shade_bounce for fast_rng=False: later slice")
     tables = tables if tables is not None else pack_tables(scene)
@@ -163,7 +178,9 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
     if cfg.grad_lean:
         def search():
             rays_d, gtab_d = _detached(rays), gtab.detach().contiguous()
-            return merge_mesh_winners(rays_d, gtab_d, scene.meshes, *winner_t_gid(rays_d, gtab_d))
+            found = merge_mesh_winners(rays_d, gtab_d, scene.meshes,
+                                       *winner_t_gid(rays_d, gtab_d))
+            return found if replay is None else replay_winner(rays_d, gtab_d, found, replay[0])
 
         winner = _cached(lean_cache, "winner", search)
         hit = intersect_scene_lean(rays, gtab, winner=winner, meshes=scene.meshes)
@@ -272,17 +289,19 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
         diffuse_lane = hit.hit & (~emissive) & (~scatter.is_specular) & (~vol_scatter)
         candidate = diffuse_lane & ls.valid & (cos_x > 0) & (cos_y > 0)
         shadow = Rays(origin=x.contiguous(), direction=wi.contiguous())
-        if cfg.grad_lean:  # visibility is a comparison: the shadow ray runs detached
+        if replay is not None:  # the forward kernel's bit: candidate and visible
+            add = replay[1]
+        elif cfg.grad_lean:  # visibility is a comparison: the shadow ray runs detached
             occ_t = _cached(lean_cache, "occlusion", lambda: occlusion_t(
                 _detached(shadow), gtab.detach().contiguous(), scene.meshes))
-            visible = occ_t >= dist.detach() - 4.0 * RAY_BIAS
+            add = candidate & (occ_t >= dist.detach() - 4.0 * RAY_BIAS)
         else:
             occ_t = occlusion_t(shadow, gtab, scene.meshes)
-            visible = occ_t >= dist - 4.0 * RAY_BIAS
+            add = candidate & (occ_t >= dist - 4.0 * RAY_BIAS)
         g = cos_x * cos_y / torch.clamp(dist2, min=1e-12)
         nee = (throughput * (mat.color / math.pi) * ls.emitted
                * (g / torch.clamp(ls.pdf_area, min=1e-20))[:, None])
-        contrib = contrib + torch.where((candidate & visible)[:, None], nee, 0.0)
+        contrib = contrib + torch.where(add[:, None], nee, 0.0)
 
     # emit-state code of this bounce: a specular event continues a
     # suppressed chain (2 -> 2), otherwise 1; a diffuse event resets to 0

@@ -25,13 +25,18 @@ Engines (``diff.py:279-327``), chosen per scene as JAX chooses them:
   them with the forward kernels;
 * any other scene (``grad_fused=False``, and every mesh scene, as JAX's
   ``fused_diff_eligible`` excludes meshes) runs each iteration as
-  :class:`LeanSample`: the forward is the fast forward engine (kernel 1,
-  or 1m for meshes up to 4096 triangles, on the card; above that the
-  per-bounce scan on kernel 2's mesh-merge variant), the backward re-traces
-  the lean scan (kernels 7 and 8, and 9 and 10 per mesh, detached; PyTorch
-  shading, a checkpoint per bounce) and returns the scene's cotangents.
-  JAX takes this split only on a TPU and runs the lean graph both ways on
-  the CPU; the port takes it on every device.
+  :class:`LeanSample`: the backward re-traces the lean scan (kernels 7 and
+  8, and 9 and 10 per mesh, detached; PyTorch shading, a checkpoint per
+  bounce) and returns the scene's cotangents.  On a scene of the fused
+  scope (``grad_fused=False`` chosen by the caller) the forward is the
+  forward with residuals (kernel 4 on the card), which keeps each
+  bounce's winner, NEE bit and entering ray, and the re-trace replays
+  them; on the others the forward is the fast forward engine (kernel 1 for
+  hg media, 1m for meshes up to 4096 triangles; above that and with image
+  textures the per-bounce scan on kernel 2's mesh-merge and deferred-texel
+  variants) and the re-trace runs its own searches.  JAX takes this split only on a TPU and
+  runs the lean graph both ways on the CPU; the port takes it on every
+  device.
 
 Meshes: a mesh of at least ``ACCEL_MIN_TRIS`` triangles gets an LBVH built
 once over its initial vertices (``_ACCEL_CACHE``, keyed by a hash of
@@ -68,10 +73,10 @@ from pathtracer_tpu_torch.ops.accel import build_mesh_accel, refresh_accel
 from pathtracer_tpu_torch.ops.bounce import check_diff_features, pack_tables
 from pathtracer_tpu_torch.ops.rng import key_to_seed
 from pathtracer_tpu_torch.ops.texture import TextureAtlas, build_atlas
-from pathtracer_tpu_torch.ops.trace_grad import fused_diff_eligible
+from pathtracer_tpu_torch.ops.trace_grad import fused_diff_eligible, replay_scope, trace_replay
 from pathtracer_tpu_torch.ops.transforms import build_transform
 from pathtracer_tpu_torch.render.features import resolve_features
-from pathtracer_tpu_torch.render.integrator import render_sample, resolve_device
+from pathtracer_tpu_torch.render.integrator import camera_sample, render_sample, resolve_device
 from pathtracer_tpu_torch.scene.structs import (
     ACCEL_MIN_TRIS,
     MATERIAL_FIELDS,
@@ -282,36 +287,89 @@ def scene_with_tensors(scene: Scene, tensors) -> Scene:
                                textures=textures)
 
 
+def lean_forward(scene, pixel_index, iteration: int, seed: int, cfg_fwd, tables=None):
+    """The lean engine's forward of one iteration: ``(radiance [N, 3],
+    rays_traced, replay)``.  In the fused scope (``ops/trace_grad.
+    replay_scope``) it is ``trace_replay`` (kernel 4 on the card) and
+    ``replay`` the ``(gid, nee, ray)`` planes its backward replays;
+    elsewhere the fast forward engine (``render_sample``: kernel 1, 1m, or
+    the scan on 2mm or 2t) and ``replay`` None."""
+    if not replay_scope(scene, cfg_fwd):
+        return (*render_sample(scene, pixel_index, iteration, seed, cfg_fwd, tables=tables),
+                None)
+    rays, sample_idx = camera_sample(scene, pixel_index, iteration, seed, cfg_fwd)
+    radiance, nrays, *replay = trace_replay(scene, rays, sample_idx, seed, cfg_fwd,
+                                            tables=tables)
+    return radiance, nrays, tuple(replay)
+
+
 class LeanSample(torch.autograd.Function):
     """One progressive iteration of the lean engine (``diff.py:299-321``):
-    ``(radiance [N, 3], rays_traced)`` of ``render_sample`` under
-    ``cfg_fwd`` (the fast forward: kernel 1 on the card), with the backward
-    re-tracing the lean scan under ``cfg_bwd`` and differentiating it
-    (``torch.autograd.grad`` at the lean forward's values, equal to the fast
-    forward's a.e.).  Its differentiable inputs are :func:`scene_tensors`."""
+    ``(radiance [N, 3], rays_traced)`` of :func:`lean_forward` under
+    ``cfg_fwd``, with the backward re-tracing the lean scan under
+    ``cfg_bwd`` and differentiating it (``torch.autograd.grad``).  In the
+    fused scope the forward's winners, NEE bits and the rays entering each
+    bounce (27 bytes per lane-bounce) are saved and the re-trace replays
+    them, so it differentiates the paths the forward counted at the
+    forward's values; elsewhere the re-trace runs its own searches, whose
+    last bits may part from the forward kernel's on a few lanes (ROADMAP
+    queue 3).  Its differentiable inputs are :func:`scene_tensors`."""
 
     @staticmethod
     def forward(ctx, scene, pixel_index, iteration, seed, cfg_fwd, cfg_bwd, *tensors):
         scene = scene_with_tensors(scene, tensors)
-        radiance, nrays = render_sample(scene, pixel_index, iteration, seed, cfg_fwd,
-                                        tables=pack_tables(scene))
-        ctx.save_for_backward(pixel_index, *tensors)
+        radiance, nrays, replay = lean_forward(scene, pixel_index, iteration, seed, cfg_fwd,
+                                               tables=pack_tables(scene))
+        replay = replay or ()
+        ctx.save_for_backward(pixel_index, *replay, *tensors)
+        ctx.n_replay = len(replay)
         ctx.scene, ctx.iteration, ctx.seed, ctx.cfg_bwd = scene, iteration, seed, cfg_bwd
         ctx.mark_non_differentiable(nrays)
         return radiance, nrays
 
     @staticmethod
     def backward(ctx, g_rad, _g_nrays):
-        pixel_index, *tensors = ctx.saved_tensors
+        pixel_index, *rest = ctx.saved_tensors
+        replay, tensors = tuple(rest[:ctx.n_replay]), rest[ctx.n_replay:]
         needs = ctx.needs_input_grad[6:]
         leaves = [t.detach().requires_grad_(need) for t, need in zip(tensors, needs)]
         wanted = [x for x in leaves if x.requires_grad]
         with torch.enable_grad():
             scene = scene_with_tensors(ctx.scene, leaves)
             radiance, _ = render_sample(scene, pixel_index, ctx.iteration, ctx.seed,
-                                        ctx.cfg_bwd, tables=pack_tables(scene))
+                                        ctx.cfg_bwd, tables=pack_tables(scene),
+                                        replay=replay or None)
             grads = iter(torch.autograd.grad(radiance, wanted, g_rad, allow_unused=True))
         return (None,) * 6 + tuple(next(grads) if x.requires_grad else None for x in leaves)
+
+
+def lean_cfgs(cfg: RenderConfig, materials):
+    """``(cfg_fwd, cfg_bwd)`` of the lean engine for ``cfg``: the forward's
+    and the backward's re-trace (the lean split route), features
+    resolved."""
+    cfg = resolve_features(cfg, materials)
+    return (dataclasses.replace(cfg, grad_lean=False, debug=False),
+            dataclasses.replace(cfg, fused=False, grad_lean=True, debug=False))
+
+
+def lean_parted(params: SceneParams, static: SceneStatic, iteration: int, base_key,
+                cfg: RenderConfig):
+    """The pixels whose lean re-trace parts from the lean forward in one
+    iteration, a check's measure: ``(parted [N] bool, forward radiance,
+    re-trace radiance)``, detached.  The re-trace replays the forward where
+    the engine does; a pixel parts where the two radiances differ beyond
+    float32 rounding (1e-4 of 1 + the forward's)."""
+    cfg_fwd, cfg_bwd = lean_cfgs(cfg, params.materials)
+    scene = build_scene(params, static)
+    seed = key_to_seed(base_key)
+    w, h = static.resolution
+    pix = torch.arange(w * h, dtype=torch.int64, device=params.device)
+    tables = pack_tables(scene)
+    with torch.no_grad():
+        fwd, _, replay = lean_forward(scene, pix, iteration, seed, cfg_fwd, tables=tables)
+        back, _ = render_sample(scene, pix, iteration, seed, cfg_bwd, tables=tables,
+                                replay=replay)
+    return ((fwd - back).abs() > 1e-4 * (1.0 + fwd.abs())).any(-1), fwd, back
 
 
 def render_linear_rays(params: SceneParams, static: SceneStatic, spp: int, base_key,
@@ -322,9 +380,8 @@ def render_linear_rays(params: SceneParams, static: SceneStatic, spp: int, base_
     the gamma curve has an unbounded gradient at 0.  ``cfg.features`` is
     trimmed to the materials' needs, as every render entry point does; the
     engine is chosen as the module docstring says."""
-    cfg = resolve_features(cfg, params.materials)
-    check_diff_features(cfg.features, "lean")  # each engine checks its own features
-    cfg_bwd = dataclasses.replace(cfg, fused=False, grad_lean=True, debug=False)
+    cfg_fwd, cfg_bwd = lean_cfgs(cfg, params.materials)
+    check_diff_features(cfg_bwd.features, "lean")  # each engine checks its own features
     scene = build_scene(params, static)
     seed = key_to_seed(base_key)
     w, h = static.resolution
@@ -338,8 +395,6 @@ def render_linear_rays(params: SceneParams, static: SceneStatic, spp: int, base_
                                   tables=tables, use_reentrant=False, preserve_rng_state=False)
             return render_sample(scene, pixel_index, it, seed, cfg_bwd, tables=tables)
     else:
-        cfg_fwd = dataclasses.replace(cfg, grad_lean=False, debug=False)
-
         def sample(it):
             return LeanSample.apply(scene, pixel_index, it, seed, cfg_fwd, cfg_bwd,
                                     *scene_tensors(scene))

@@ -44,17 +44,25 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def render_sample(
-    scene: Scene, pixel_index, iteration: int, seed: int, cfg: RenderConfig, tables=None
-):
-    """One progressive iteration: ``(radiance [N, 3], rays_traced)``.
-    Randomness is keyed by the global sample index ``iteration * N +
-    pixel``, computed in int64 (the RNG reduces it mod 2^32, which gives
-    the bits of JAX's wrapping int32)."""
+def camera_sample(scene: Scene, pixel_index, iteration: int, seed: int, cfg: RenderConfig):
+    """One progressive iteration's primary rays and global sample indices
+    ``iteration * N + pixel``, computed in int64 (the RNG reduces them mod
+    2^32, which gives the bits of JAX's wrapping int32)."""
     sample_idx = iteration * pixel_index.shape[0] + pixel_index.to(torch.int64)
     u4 = camera_uniforms(seed, sample_idx)
-    rays = generate_camera_rays(scene.camera, pixel_index, u4, jitter=cfg.jitter)
-    return trace_paths(scene, rays, sample_idx, seed, cfg, tables=tables)
+    return generate_camera_rays(scene.camera, pixel_index, u4, jitter=cfg.jitter), sample_idx
+
+
+def render_sample(
+    scene: Scene, pixel_index, iteration: int, seed: int, cfg: RenderConfig, tables=None,
+    replay=None,
+):
+    """One progressive iteration: ``(radiance [N, 3], rays_traced)``, its
+    randomness keyed by the global sample index (:func:`camera_sample`).
+    ``replay`` is the lean scan's per-bounce winners, NEE bits and rays
+    (``render/megakernel.scan_paths``)."""
+    rays, sample_idx = camera_sample(scene, pixel_index, iteration, seed, cfg)
+    return trace_paths(scene, rays, sample_idx, seed, cfg, tables=tables, replay=replay)
 
 
 def render_chunk(

@@ -16,8 +16,10 @@ scan on ``shade_bounce``'s lean split route, each bounce under
 its backward recomputes the shading; the detached winner search and shadow
 ray (kernels 7 and 8) keep their outputs in a per-bounce cache and do not
 run again in the recompute (``save_only_these_names("lean_winner")`` in
-JAX).  Each runs its CUDA kernels for rays on a CUDA device and its plain
-version for rays on the CPU.  The scan carries each path's medium, ``[N,
+JAX).  The lean engine's backward on a scene of the fused scope passes
+the scan its forward's winners, NEE bits and rays, which each bounce
+replays (``render/diff.LeanSample``).  Each runs its CUDA kernels for rays
+on a CUDA device and its plain version for rays on the CPU.  The scan carries each path's medium, ``[N,
 4]`` or ``[N, 5]`` with the ``hg`` feature (``:164-166``), from vacuum.
 ``cfg.debug`` raises: the debug variant belongs to a later slice.
 The wavefront engines are ``render/wavefront.py``, chosen by the
@@ -58,14 +60,24 @@ DEBUG_MISSING = (
 
 
 def scan_paths(scene: Scene, rays: Rays, sample_idx, seed: int, cfg: RenderConfig,
-               tables=None):
+               tables=None, replay=None):
     """The per-bounce scan: ``(radiance [N, 3], rays_traced int64 [])``.
     Russian roulette divides by ``p`` with ``p`` detached, as the JAX scan
     does.  Under ``cfg.grad_lean`` outside the fused scope each bounce runs
     under a checkpoint with its own lean cache (the module docstring says
     why); the checkpoint keeps no torch RNG state, since the port's
-    sampling is the counter hash."""
+    sampling is the counter hash.  ``replay``, the lean scan's only, is
+    ``(gid [depth, N], nee [depth, N], ray [depth, 6, N])`` of
+    ``ops/trace_grad.trace_replay``: bounce ``k`` takes the winner and NEE
+    bit of row ``k`` (and its checkpoint's recompute the same), and its ray
+    takes the forward's values with the scan's own gradient (the forward
+    kernel and the scan round apart, and a grazing hit magnifies that
+    across bounces), so each bounce is differentiated at the forward's
+    path, as the full-depth engine's reverse kernel does."""
     lean = cfg.grad_lean and not fused_diff_eligible(scene, cfg)
+    if replay is not None and not lean:
+        raise ValueError("a replay is the lean scan's: RenderConfig(grad_lean=True, "
+                         "grad_fused=False)")
     n = rays.count
     f32 = dict(dtype=torch.float32, device=rays.origin.device)
     throughput = torch.ones((n, 3), **f32)
@@ -76,9 +88,15 @@ def scan_paths(scene: Scene, rays: Rays, sample_idx, seed: int, cfg: RenderConfi
     nrays = torch.zeros((), dtype=torch.int64, device=rays.origin.device)
     for depth in range(cfg.max_depth):
         nrays = nrays + alive.sum() * (2 if cfg.nee else 1)  # + the shadow ray
+        if replay is not None:
+            ray = replay[2][depth]
+            rays = Rays(origin=_with_value(rays.origin, ray[0:3].T),
+                        direction=_with_value(rays.direction, ray[3:6].T))
         if lean:
             res = checkpoint(shade_bounce, scene, rays, throughput, sample_idx, depth, prev_spec,
                              seed, cfg, medium_sigma=medium, tables=tables, lean_cache={},
+                             replay=None if replay is None else (replay[0][depth],
+                                                                 replay[1][depth]),
                              use_reentrant=False, preserve_rng_state=False)
         else:
             res = shade_bounce(scene, rays, throughput, sample_idx, depth, prev_spec, seed, cfg,
@@ -100,13 +118,22 @@ def scan_paths(scene: Scene, rays: Rays, sample_idx, seed: int, cfg: RenderConfi
     return radiance, nrays
 
 
+def _with_value(x, value):
+    """``value`` exactly, with ``x``'s gradient."""
+    return value + (x - x.detach())
+
+
 def trace_paths(
-    scene: Scene, rays: Rays, sample_idx, seed: int, cfg: RenderConfig, tables=None
+    scene: Scene, rays: Rays, sample_idx, seed: int, cfg: RenderConfig, tables=None,
+    replay=None,
 ):
     """Trace a wavefront of primary rays to completion: ``(radiance [N, 3],
-    rays_traced int64 [])``, one sample of the estimator per ray."""
+    rays_traced int64 [])``, one sample of the estimator per ray.
+    ``replay`` goes to the lean scan (:func:`scan_paths`)."""
     if cfg.debug:
         raise NotImplementedError(DEBUG_MISSING)
+    if replay is not None:
+        return scan_paths(scene, rays, sample_idx, seed, cfg, tables=tables, replay=replay)
     if cfg.grad_lean and fused_diff_eligible(scene, cfg) and cfg.grad_full_trace is not False:
         return trace_fused_diff(scene, rays, sample_idx, seed, cfg, tables=tables)
     if cfg.grad_lean or cfg.fused is False or (cfg.fast_rng

@@ -143,6 +143,15 @@ class MeshInstance:
             return pack_tri_table(self.tri_verts.detach())
         return pack_tri_table(self.accel.chunks.detach().reshape(-1, 3, 3)[: self.accel.n_tris])
 
+    @functools.cached_property
+    def scan_boxes(self) -> torch.Tensor:
+        """The padded ``[C, 6]`` boxes of :attr:`scan_table`'s chunks of 128
+        rows, which kernels 9 and 10 cull with (``ops/mesh.
+        mesh_chunk_boxes``); detached, built once."""
+        from pathtracer_tpu_torch.ops.mesh import mesh_chunk_boxes
+
+        return mesh_chunk_boxes(self)
+
 
 @dataclasses.dataclass(frozen=True)
 class Scene:

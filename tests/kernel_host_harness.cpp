@@ -8,7 +8,8 @@
 // and the surface bits surf their kSurf ones, 4s and 5s), one bounce
 // (bounce.cu) and its backward (bounce_grad.cu; vol: 3v, with the medium
 // planes; surf: 3s), the nearest hit, winner search and occlusion
-// (intersect.cu), and the nearest triangle and triangle occlusion (mesh.cu).
+// (intersect.cu), and the nearest triangle and triangle occlusion (mesh.cu,
+// chunk-culled with the padded boxes, or dense without).
 // The trace and the bounce take the in-kernel mesh tables as the launchers
 // do (n_mesh = 0 for none), the media flags (volumetric, hg, vol_nee)
 // that pick their kVol / kHg instance and the surface feature bits that pick
@@ -207,16 +208,19 @@ extern "C" void host_bounce_bwd(const float* gtab, int G, const float* mtab, int
          vol_nee, medium, g_medium, d_medium);
 }
 
-extern "C" void host_mesh_nearest(const float* tab, int n_tris, int n, const float* o_obj,
-                                  const float* d_obj, float* t, int* idx) {
+// boxes: the padded chunk boxes, or null for the dense sweep
+extern "C" void host_mesh_nearest(const float* tab, int n_tris, const float* boxes, int n,
+                                  const float* o_obj, const float* d_obj, float* t, int* idx) {
   for (int i = 0; i < n; ++i)
-    mesh_nearest_lane(tab, n_tris, v3(o_obj[3 * i], o_obj[3 * i + 1], o_obj[3 * i + 2]),
-                      v3(d_obj[3 * i], d_obj[3 * i + 1], d_obj[3 * i + 2]), t[i], idx[i]);
+    mesh_scan_lane<true>(tab, n_tris, boxes, v3(o_obj[3 * i], o_obj[3 * i + 1], o_obj[3 * i + 2]),
+                         v3(d_obj[3 * i], d_obj[3 * i + 1], d_obj[3 * i + 2]), t[i], idx[i]);
 }
 
-extern "C" void host_mesh_min(const float* tab, int n_tris, int n, const float* o_obj,
-                              const float* d_obj, float* t) {
-  for (int i = 0; i < n; ++i)
-    t[i] = mesh_min_lane(tab, n_tris, v3(o_obj[3 * i], o_obj[3 * i + 1], o_obj[3 * i + 2]),
-                         v3(d_obj[3 * i], d_obj[3 * i + 1], d_obj[3 * i + 2]));
+extern "C" void host_mesh_min(const float* tab, int n_tris, const float* boxes, int n,
+                              const float* o_obj, const float* d_obj, float* t) {
+  for (int i = 0; i < n; ++i) {
+    int32_t unused;
+    mesh_scan_lane<false>(tab, n_tris, boxes, v3(o_obj[3 * i], o_obj[3 * i + 1], o_obj[3 * i + 2]),
+                          v3(d_obj[3 * i], d_obj[3 * i + 1], d_obj[3 * i + 2]), t[i], unused);
+  }
 }

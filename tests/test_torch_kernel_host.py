@@ -101,8 +101,8 @@ def host_lib(tmp_path_factory):
                                 + [P] * 3 + [P] * 5 + [I])
     lib.host_bounce_merge.argtypes = ([P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 15
                                       + [I] * 5 + [P] * 6)
-    lib.host_mesh_nearest.argtypes = [P, I, I, P, P, P, P]
-    lib.host_mesh_min.argtypes = [P, I, I, P, P, P]
+    lib.host_mesh_nearest.argtypes = [P, I, P, I, P, P, P, P]
+    lib.host_mesh_min.argtypes = [P, I, P, I, P, P, P]
     lib.host_nearest.argtypes = [P, I, I] + [P] * 8
     lib.host_occlusion.argtypes = [P, I, I, P, P, P]
     lib.host_winner.argtypes = [P, I, I, P, P, P, P]
@@ -441,29 +441,104 @@ def _mesh_args(km):
             km.desc.data_ptr(), len(km.descs))
 
 
-@pytest.mark.parametrize("scene_name", ["smooth_mesh", "displace_demo"])
+def adversarial_mesh_rays(m, seed: int = 4):
+    """Numpy object-space rays that test chunk culling at its edges, for a
+    mesh with an LBVH (its chunk boxes ``accel.lo`` / ``hi``): rays aimed at
+    the vertices that lie on a chunk box's face and at the midpoints of
+    their edges; axis-parallel rays (two zero direction components) through
+    those vertices; rays from each box's centre (inside) and from the centre
+    of each of its faces (on it); and rays grazing each face, in its plane
+    from outside the box towards the face's centre."""
+    rng = np.random.default_rng(seed)
+
+    def unit(v):
+        return v / np.linalg.norm(v, axis=-1, keepdims=True)
+
+    chunks = m.accel.chunks.numpy()
+    lo, hi = m.accel.lo.numpy(), m.accel.hi.numpy()
+    o, d = [], []
+    for c in range(chunks.shape[0]):
+        tri = chunks[c]
+        on_face = (tri == lo[c]) | (tri == hi[c])  # [128, 3 corners, 3 axes]
+        face_tris, face_corners = np.nonzero(on_face.any(-1))
+        verts = tri[face_tris, face_corners]
+        mids = 0.5 * (verts + tri[face_tris, (face_corners + 1) % 3])
+        for targets in (verts, mids):
+            origin = unit(rng.standard_normal((len(targets), 3))) * 1.5
+            o.append(origin)
+            d.append(unit(targets - origin))
+        for ax in range(3):  # axis-parallel, both ways
+            e = np.eye(3)[ax]
+            o += [verts - 2.0 * e, verts + 2.0 * e]
+            d += [np.tile(e, (len(verts), 1)), np.tile(-e, (len(verts), 1))]
+        centre = 0.5 * (lo[c] + hi[c])
+        for ax in range(3):
+            for side in (lo[c], hi[c]):
+                face = centre.copy()
+                face[ax] = side[ax]
+                o += [np.tile(centre, (16, 1)), np.tile(face, (16, 1))]
+                d += [unit(rng.standard_normal((16, 3))), unit(rng.standard_normal((16, 3)))]
+                # grazing: in the face's plane, from outside towards its centre
+                start = face + unit(rng.standard_normal((16, 3)) * (1 - np.eye(3)[ax])) * 2.0
+                start[:, ax] = side[ax]
+                o.append(start)
+                d.append(unit(face - start))
+    return (np.concatenate(o).astype(np.float32), np.concatenate(d).astype(np.float32))
+
+
+def mt_conditioning(table, o, d, idx):
+    """Per lane, ``|a| / (|e1| |h|)`` of its triangle ``idx`` (Moeller-
+    Trumbore's determinant over its scale, ``h = d x e2``): near 0 where
+    the ray runs nearly parallel to the triangle's plane."""
+    rows = table.view(-1, 9)[idx.long()]
+    e1, e2 = rows[:, 3:6], rows[:, 6:9]
+    h = torch.linalg.cross(d, e2, dim=-1)
+    a = torch.sum(e1 * h, dim=-1)
+    return a.abs() / (e1.norm(dim=-1) * h.norm(dim=-1)).clamp(min=1e-30)
+
+
+@pytest.mark.parametrize("scene_name", ["smooth_mesh", "displace_demo", "adversarial"])
 def test_mesh_kernel_lanes_match_plain(host_lib, scene_name):
     """Kernels 9 and 10's lanes (``mesh.cu``) against ``mesh_nearest_plain``
     / ``mesh_min_plain`` on the mesh's scan-order table (320 and 1,280
-    triangles) and 2,048 object-space rays from around it: t, winner
-    index and miss pattern equal on every lane."""
-    desc = load_scene(os.path.join(HERE, "..", "scenes", f"{scene_name}.txt"))
+    triangles) with its padded chunk boxes, and without them (the dense
+    sweep), on 2,048 object-space rays from around it, and on smooth_mesh's
+    :func:`adversarial_mesh_rays`: t, winner index and miss pattern equal on
+    every lane, culled and dense alike.  Culled equals dense on every lane,
+    except on the adversarial rays where the dense winner's
+    :func:`mt_conditioning` is below 1e-4 (a ray nearly in the triangle's
+    plane, whose t no box margin bounds); those lanes are printed."""
+    name = "smooth_mesh" if scene_name == "adversarial" else scene_name
+    desc = load_scene(os.path.join(HERE, "..", "scenes", f"{name}.txt"))
     m = desc.scene_for_frame(0, device="cpu").meshes[0]
-    table = m.scan_table
-    n = 2048
-    o, d = (torch.from_numpy(a) for a in object_rays(n, seed=9))
-    want_t, want_i = mesh.mesh_nearest_plain(table, o, d)
-    want_min = mesh.mesh_min_plain(table, o, d)
-    t_k, i_k, min_k = torch.empty(n), torch.empty(n, dtype=torch.int32), torch.empty(n)
-    n_tris = table.shape[0] // 9
-    host_lib.host_mesh_nearest(table.data_ptr(), n_tris, n, o.data_ptr(), d.data_ptr(),
-                               t_k.data_ptr(), i_k.data_ptr())
-    host_lib.host_mesh_min(table.data_ptr(), n_tris, n, o.data_ptr(), d.data_ptr(),
-                           min_k.data_ptr())
-    hit = want_t < mesh.BIG
+    table, boxes = m.scan_table, m.scan_boxes
+    if scene_name == "adversarial":
+        o, d = (torch.from_numpy(a) for a in adversarial_mesh_rays(m))
+    else:
+        o, d = (torch.from_numpy(a) for a in object_rays(2048, seed=9))
+    n, n_tris = o.shape[0], table.shape[0] // 9
+    got = {}
+    for label, bx in (("culled", boxes), ("dense", None)):
+        want_t, want_i = mesh.mesh_nearest_plain(table, bx, o, d)
+        want_min = mesh.mesh_min_plain(table, bx, o, d)
+        t_k, i_k, min_k = torch.empty(n), torch.empty(n, dtype=torch.int32), torch.empty(n)
+        ptr = None if bx is None else bx.data_ptr()
+        host_lib.host_mesh_nearest(table.data_ptr(), n_tris, ptr, n, o.data_ptr(), d.data_ptr(),
+                                   t_k.data_ptr(), i_k.data_ptr())
+        host_lib.host_mesh_min(table.data_ptr(), n_tris, ptr, n, o.data_ptr(), d.data_ptr(),
+                               min_k.data_ptr())
+        assert torch.equal(t_k, want_t) and torch.equal(i_k, want_i), label
+        assert torch.equal(min_k, want_min) and torch.equal(want_min, want_t), label
+        got[label] = (want_t, want_i)
+    hit = got["dense"][0] < mesh.BIG
     assert 0.2 < float(hit.float().mean()) < 0.95
-    assert torch.equal(t_k, want_t) and torch.equal(i_k, want_i) and torch.equal(min_k, want_min)
-    assert torch.equal(want_min, want_t)
+    differ = (got["culled"][0] != got["dense"][0]) | (got["culled"][1] != got["dense"][1])
+    cond = mt_conditioning(table, o, d, got["dense"][1])
+    print(f"{scene_name}: {n} rays, {int(hit.sum())} hits; culled differs from dense on "
+          f"{int(differ.sum())} lanes: " + ", ".join(
+              f"{j} (conditioning {float(cond[j]):.3g})" for j in differ.nonzero()[:, 0].tolist()))
+    allowed = (cond < 1e-4) if scene_name == "adversarial" else torch.zeros_like(differ)
+    assert not bool((differ & ~allowed).any())
 
 
 @pytest.mark.parametrize("kw", [dict(max_depth=4, nee=True, rr=False, rr_start=3),

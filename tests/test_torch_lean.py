@@ -33,11 +33,13 @@ Tolerances, with the reason:
   ``loss_and_grad`` on ``tests/test_torch_diff.py``'s two CASES: the loss
   within 1e-5 relative, every leaf within 5e-4 * max(gscale, 1), the bar
   JAX holds between its own engines (``tests/test_bounce_grad.py:169-176``).
-  The port's forward is the trace kernel's plain version, its backward the
-  lean scan; JAX runs the lean graph both ways on the CPU.
-* the lean backward re-runs neither detached search: the winner search and
-  the shadow ray run once per bounce and sample, exactly, while the shading
-  runs twice (forward and checkpoint recompute).
+  The port's forward is the forward with residuals' plain version (kernel
+  4's), its backward the lean scan replaying the forward's winners, NEE
+  bits and rays; JAX runs the lean graph both ways on the CPU.
+* the lean backward re-runs no detached search: the winner search runs
+  once per bounce and sample, exactly, the shadow ray not at all (its bit
+  is replayed), while the shading runs twice (forward and checkpoint
+  recompute).
 """
 
 import tests.torch_threads  # noqa: F401  (first: one torch thread per xdist worker)
@@ -185,11 +187,13 @@ def test_lean_loss_and_grad_matches_jax(case, jax_losses):  # noqa: F811
 
 
 def test_lean_backward_reruns_no_sweep(monkeypatch):
-    """One lean gradient step at depth 3, 2 spp, NEE: the winner search and
-    the shadow ray run 6 times each (once per bounce and sample: the
-    checkpoint recompute takes their kept outputs), the shading 12 times
-    (forward and recompute), and the forward is the trace's plain version."""
-    calls = {"winner": 0, "occlusion": 0, "shade": 0, "trace": 0}
+    """One lean gradient step at depth 3, 2 spp, NEE: the winner search
+    runs 6 times (once per bounce and sample: the checkpoint recompute
+    takes its kept output), the shading 12 times (forward and recompute),
+    the forward is the forward with residuals' plain version (the scene is
+    in the fused scope), and no shadow ray runs: the re-trace replays the
+    forward's NEE bits."""
+    calls = {"winner": 0, "occlusion": 0, "shade": 0, "trace": 0, "forward": 0}
 
     def counting(name, fn):
         def wrapped(*a, **k):
@@ -203,12 +207,13 @@ def test_lean_backward_reruns_no_sweep(monkeypatch):
                         counting("occlusion", intersect_cuda.occlusion_t_plain))
     monkeypatch.setattr(megakernel, "shade_bounce", counting("shade", megakernel.shade_bounce))
     monkeypatch.setattr(trace, "trace_plain", counting("trace", trace.trace_plain))
+    monkeypatch.setattr(trace_grad, "tfwd_plain", counting("forward", trace_grad.tfwd_plain))
     desc = dataclasses.replace(parse_scene_text(MINI_SCENE, name="mini"), resolution=(12, 10))
     params, static = diff.params_from_description(desc, 0, device="cpu")
     cfg = RenderConfig(max_depth=3, nee=True, grad_fused=False)
     loss, grads = diff.loss_and_grad(params, static, torch.zeros(120, 3), 2, prng_key(1), cfg,
                                      device="cpu")
-    assert calls == {"winner": 6, "occlusion": 6, "shade": 12, "trace": 2}, calls
+    assert calls == {"winner": 6, "occlusion": 0, "shade": 12, "trace": 0, "forward": 2}, calls
     assert float(loss) > 0
     leaves = grads.leaves()
     assert all(bool(torch.isfinite(v).all()) for v in leaves.values())

@@ -148,10 +148,13 @@ def test_mesh_kernel_plain_versions_match_jax_kernels(t_count):
                                          interpret=True))
     table = mesh.pack_tri_table(torch.from_numpy(tris))
     ot, dt = torch.from_numpy(o), torch.from_numpy(d)
+    boxes = mesh.table_boxes(table)
     before = (mesh.nearest_launches, mesh.min_launches)
-    bt, bi = (x.numpy() for x in mesh.mesh_nearest(table, ot, dt))  # CPU: the plain version
-    occ = mesh.mesh_min(table, ot, dt).numpy()
+    bt, bi = (x.numpy() for x in mesh.mesh_nearest(table, boxes, ot, dt))  # CPU: plain
+    occ = mesh.mesh_min(table, boxes, ot, dt).numpy()
     assert (mesh.nearest_launches, mesh.min_launches) == before
+    dense_t, dense_i = mesh.mesh_nearest_plain(table, None, ot, dt)
+    assert np.array_equal(bt, dense_t.numpy()) and np.array_equal(bi, dense_i.numpy())
     for t, ref in ((bt, bt_ref), (occ, occ_ref)):
         miss, miss_ref = t >= 1e29, ref >= 1e29
         np.testing.assert_array_equal(miss, miss_ref)
@@ -170,14 +173,49 @@ def test_mesh_kernel_tie_rule_and_degenerate_guard():
     table = mesh.pack_tri_table(torch.from_numpy(np.concatenate([tri, tri])))
     o = torch.zeros((256, 3))
     d = torch.tensor([[0.0, 0.0, 1.0]]).repeat(256, 1)
-    bt, bi = mesh.mesh_nearest_plain(table, o, d)
-    assert torch.all(bt == 2.0) and torch.all(bi == 0)
+    for boxes in (mesh.table_boxes(table), None):  # culled and dense
+        bt, bi = mesh.mesh_nearest_plain(table, boxes, o, d)
+        assert torch.all(bt == 2.0) and torch.all(bi == 0)
     flat = np.zeros((1, 3, 3), np.float32)  # every corner at the origin
     flat_table = mesh.pack_tri_table(torch.from_numpy(np.concatenate([flat, tri])))
     o2 = torch.tensor([[0.0, 0.0, -1.0]]).repeat(256, 1)
-    bt2, bi2 = mesh.mesh_nearest_plain(flat_table, o2, d)
-    assert torch.all(bt2 == 3.0) and torch.all(bi2 == 1)
-    assert torch.all(mesh.mesh_min_plain(flat_table[:9], o2, d) >= mesh.BIG)
+    for boxes in (mesh.table_boxes(flat_table), None):
+        bt2, bi2 = mesh.mesh_nearest_plain(flat_table, boxes, o2, d)
+        assert torch.all(bt2 == 3.0) and torch.all(bi2 == 1)
+    assert torch.all(mesh.mesh_min_plain(flat_table[:9], mesh.table_boxes(flat_table[:9]), o2,
+                                         d) >= mesh.BIG)
+
+
+@pytest.mark.parametrize("name", ["smooth_mesh", "displace_demo"])
+def test_culled_mesh_query_matches_jax(name):
+    """The split route's mesh winner on the CPU, kernel 9's culled plain
+    version over the mesh's scan order and chunk boxes, against JAX's
+    ``mesh_query`` (its LBVH traversal on the CPU, which culls per chunk
+    over the whole wavefront): the miss pattern and every hit's triangle
+    row equal, ``t`` within 1e-5 relative, the face normal within 1e-6 of
+    its largest; and kernel 10's culled plain version equals kernel 9's
+    ``t``."""
+    from pathtracer_tpu.ops.intersect import mesh_query as jax_mesh_query
+
+    path = os.path.join(ROOT, "scenes", f"{name}.txt")
+    jm = jax_load_scene(path).scene_for_frame(0).meshes[0]
+    tm = load_scene(path).scene_for_frame(0, device="cpu").meshes[0]
+    rng = np.random.default_rng(5)
+    unit = lambda v: v / np.linalg.norm(v, axis=-1, keepdims=True)  # noqa: E731
+    o = (unit(rng.standard_normal((2048, 3))) * 1.5).astype(np.float32)
+    d = unit(rng.standard_normal((2048, 3)) * 0.4 - o).astype(np.float32)
+    want_t, want_n, want_i = (np.asarray(x) for x in jax_mesh_query(
+        jm, jnp.asarray(o), jnp.asarray(d), with_index=True))
+    got_t, got_n, got_i = (x.numpy() for x in mesh.mesh_query(
+        tm, torch.from_numpy(o), torch.from_numpy(d), with_index=True))
+    hit = want_t < 1e29
+    np.testing.assert_array_equal(got_t < 1e29, hit)
+    assert 0.2 < hit.mean() < 0.95
+    np.testing.assert_array_equal(got_i[hit], want_i[hit])
+    np.testing.assert_allclose(got_t[hit], want_t[hit], rtol=1e-5)
+    assert np.abs(got_n[hit] - want_n[hit]).max() <= 1e-6 * np.abs(want_n[hit]).max()
+    occ = mesh.mesh_occlusion_t(tm, torch.from_numpy(o), torch.from_numpy(d)).numpy()
+    np.testing.assert_array_equal(occ, got_t)
 
 
 def test_lbvh_traversal_matches_jax():
