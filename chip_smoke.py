@@ -38,7 +38,9 @@ Phases (any failure exits non-zero):
    cotangent within 1e-4 of the largest magnitude in its table of the
    float32 plain version's, since the sums over 640,000 lanes run in
    another order.  Times by CUDA events: the step, both kernels, both
-   plain versions and the fwd+bwd Mrays/s (rays of one forward pass over
+   plain versions and the fwd+bwd Mrays/s; the reverse kernel's body and
+   its table row sum apart (device time per call, twice; the row sum
+   within 0.02 ms at 640,000 lanes) (rays of one forward pass over
    the step's time, ``bench.py``'s convention); the step's profile (device
    busy and idle share); the inverse-rendering example on the card, whose
    loss must fall and wall error shrink;
@@ -61,8 +63,13 @@ Phases (any failure exits non-zero):
    float64 reference: d_origin / d_direction / d_throughput within rtol =
    atol = 1e-5 on at least 99.9% of lanes (the float32 plain version's
    share printed beside it), each table cotangent within 1e-4 of its
-   table's largest magnitude.  Times by CUDA events: each new kernel at
-   640,000 lanes with its plain version and its bound; each step's ms,
+   table's largest magnitude; then the worst contention for kernel 3's
+   table row: all 640,000 lanes aimed within 1e-3 of the point the centre
+   pixel hits, every one on that geom, held to the float64 reference at
+   ``hold_adjoint``'s bars.  Times by CUDA events: each new kernel at
+   640,000 lanes with its plain version and its bound, and kernel 3's body
+   and row sum apart (device time, twice, on the state after three bounces
+   and on the one-geom lanes); each step's ms,
    fwd+bwd Mrays/s, profiled idle share and peak memory;
 8. ``[wavefront]``, the wavefront engines (``render(...,
    RenderConfig(wavefront=True))``) at Cornell 800x800, depth 8, NEE, each
@@ -110,7 +117,8 @@ Phases (any failure exits non-zero):
    and that super-step; (g) the ``smooth_mesh_96`` golden rendered on the
    card within a mean 0.8/255 of the PNG; (h) times and bounds (kernels 9
    and 10: device time twice, the dense sweep's, and a bound counted from
-   the triangle tests these rays need, which must read below the time),
+   the triangle tests these rays need, which must read below the time;
+   kernel 1m's device time twice),
    kernels 9 and 10's registers and shared memory; (i) the CLI
    on smooth_mesh takes ``engine=megakernel``;
 10. ``[vol]``, participating media, each render through ``render`` with
@@ -214,14 +222,15 @@ Phases (any failure exits non-zero):
     state after two bounces: every component within rtol = atol = 1e-5 on
     at least 99.99% of lanes, every table cotangent within 1e-4 of itself
     plus 1e-6 of its table's largest, the lanes beyond the bar printed with
-    their paths; each kernel's device time from the profiler, its plain
-    version's and its bound at full width; (c) ``scenes/fog.txt`` at
+    their paths; each kernel's device time from the profiler (5v and 3v:
+    body and row sum apart, twice), its plain version's and its bound at
+    full width; (c) ``scenes/fog.txt`` at
     its 200x200 on the three engines at (a)'s bars; (d) the lean steps of
     sss at 512x512 (kernel 1hg forward; profiled) and of fog's cube around
     the icosphere (kernel 1m-vol forward), each with its parted pixels of
     iteration 0 (no replay outside the fused scope); the new instances'
     registers,
-    and Cornell's kernels 3, 4 and 5 take exactly 136, 72 and 148;
+    and Cornell's kernels 3, 4 and 5 take exactly 158, 72 and 148;
 14. ``[grad:surf]``, differentiable surface physics, each step through
     ``render.diff.loss_and_grad_rays`` with the counters zeroed just
     before: (a) ``scenes/ward.txt`` at ``bench.py``'s 512x512 and
@@ -245,10 +254,11 @@ Phases (any failure exits non-zero):
     references (99.99% of lanes at 1e-5, the tables at their bars; the
     lanes beyond printed with their paths) on ward's 262,144 and
     textured's 640,000 iteration-0 lanes, 2r-s and 3s also on the state
-    after two bounces; (c) each kernel's device time on ward's inputs, its
-    plain version's and its bound (the Ward lobe counted on the lanes that
+    after two bounces; (c) each kernel's device time on ward's inputs (5s
+    and 3s: body and row sum apart, twice), its plain version's and its
+    bound (the Ward lobe counted on the lanes that
     sample it); the new instances' registers, and Cornell's 3 / 4 / 5 at
-    136 / 72 / 148;
+    158 / 72 / 148;
 15. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
 The rendered PNGs and the profile table go to ``--out-dir`` (default
@@ -389,26 +399,44 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def profiled(fn, reps: int = 1):
-    """Run ``fn()`` ``reps`` times under the profiler: ``(kernels, wall ms
-    per call)``, ``kernels`` per device kernel name its ``[device us,
-    launches]`` over all the calls.  Only the device is traced, and the raw
-    events are summed here: host operators and ``key_averages``' grouping
-    took minutes for the half a million events of a lean gradient step."""
+# idle host time at both ends of a profile: late in a long process the
+# profiler dropped the records of the kernels run first after it started
+# (all ten of ten short calls after three minutes) unless it waited first
+PROFILE_PAD_S = 0.05
+
+
+def profile_events(fn, reps: int = 1):
+    """Run ``fn()`` ``reps`` times under the profiler: ``(events, wall ms
+    per call)``, ``events`` the device kernels as ``(start us, name, device
+    us)``.  Only the device is traced: host operators and ``key_averages``'
+    grouping took minutes for the half a million events of a lean gradient
+    step."""
     import torch
 
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / reps
+        time.sleep(PROFILE_PAD_S)
+    events = [(e.time_range.start, e.name,
+               getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0)))
+              for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return events, wall_ms
+
+
+def profiled(fn, reps: int = 1):
+    """:func:`profile_events` summed: ``(kernels, wall ms per call)``,
+    ``kernels`` per device kernel name its ``[device us, launches]`` over
+    all the calls."""
+    events, wall_ms = profile_events(fn, reps)
     kernels = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            k = kernels.setdefault(e.name, [0.0, 0])
-            k[0] += getattr(e, "self_device_time_total", getattr(e, "self_cuda_time_total", 0.0))
-            k[1] += 1
+    for _, name, us in events:
+        k = kernels.setdefault(name, [0.0, 0])
+        k[0] += us
+        k[1] += 1
     return kernels, wall_ms
 
 
@@ -430,6 +458,9 @@ def write_kernel_table(kernels: dict, path: str) -> None:
                 f"{sum(v[1] for v in kernels.values()):9d} {'':10}  all kernels\n")
 
 
+PROFILE_TRIES = 3  # profiles of one measurement while records are missing
+
+
 def device_ms(fn, kernels, reps: int = 10, per_call: int = 1) -> dict:
     """Per kernel of ``kernels`` (substrings of kernel names): its mean
     device time in ms per launch and its launch count over ``reps`` calls of
@@ -437,19 +468,22 @@ def device_ms(fn, kernels, reps: int = 10, per_call: int = 1) -> dict:
     time of the wrapper, which CUDA events around back-to-back calls of a
     short kernel include.  Each kernel launches ``per_call`` times per call;
     the profiler may drop some launches' records, and the mean is over those
-    it kept."""
+    it kept; a profile that kept none of one kernel is taken again (up to
+    ``PROFILE_TRIES`` times)."""
     import torch
 
     fn()
     torch.cuda.synchronize()
-    run, _ = profiled(fn, reps)
+    for _ in range(PROFILE_TRIES):
+        run, _ = profiled(fn, reps)
+        kept = {k: [sum(v[j] for name, v in run.items() if k in name) for j in (0, 1)]
+                for k in kernels}
+        if all(n for _, n in kept.values()):
+            break
     out = {}
-    for k in kernels:
-        hits = [v for name, v in run.items() if k in name]
-        count = sum(launches for _, launches in hits)
-        check(0 < count <= reps * per_call,
-              f"the profiler kept {count} launches of {k} for {reps} calls")
-        out[k] = (sum(us for us, _ in hits) / 1e3 / count, count)
+    for k, (us, n) in kept.items():
+        check(0 < n <= reps * per_call, f"the profiler kept {n} launches of {k} for {reps} calls")
+        out[k] = (us / 1e3 / max(n, 1), n)
     return out
 
 
@@ -473,6 +507,92 @@ def queued_ms(fn, reps: int = 10) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return sorted(times)[reps // 2]
+
+
+ADJOINT_THREADS = 128  # lanes per block of kernels 3 and 5, each block one partial row
+ROW_SUM_SEG = 64  # bounce_adj.cuh:row_sum launches once up to 64 partial rows, twice above
+
+
+def row_sum_launches(lanes: int) -> int:
+    """Launches of ``bounce_adj.cuh:row_sum`` per reverse-kernel call."""
+    return 1 if -(-lanes // ADJOINT_THREADS) <= ROW_SUM_SEG else 2
+
+
+def whole_calls(events, body: str, per_call: int) -> tuple:
+    """``events`` (``(start us, name, device us)`` of one profile's body and
+    row-sum kernels) cut into calls in launch order: the calls of which the
+    profiler kept the body and exactly ``per_call`` row sums, as ``(body
+    us, row-sum us)``, and the number of records outside them (a call that
+    lost a record, or one that launched a kernel too often)."""
+    seq = sorted(events)
+    calls, loose, i = [], 0, 0
+    while i < len(seq):
+        group = seq[i:i + per_call + 1]
+        rest = seq[i + per_call + 1:i + per_call + 2]
+        if (len(group) == per_call + 1 and body in group[0][1]
+                and not any(body in name for _, name, _ in group[1:])
+                and all(body in name for _, name, _ in rest)):
+            calls.append((group[0][2], sum(us for _, _, us in group[1:])))
+            i += per_call + 1
+        else:
+            loose += 1
+            i += 1
+    return calls, loose
+
+
+def body_and_row_sum(fn, body: str, lanes: int, reps: int = 10) -> tuple:
+    """An adjoint kernel's device ms per call of ``fn()`` at ``lanes``
+    lanes: its body (the kernel whose name holds ``body``) and its table row
+    sum (the ``row_sum_launches(lanes)`` kernels named ``row_sum`` after
+    it), means over the calls the profiler kept whole (``whole_calls``) in
+    a profile of ``2 * reps`` calls: late in a long process it loses some
+    calls' records (one to four of ten in ``[grad:vol]`` and
+    ``[grad:surf]``).  The profile is taken again while fewer than ``reps``
+    are whole (up to ``PROFILE_TRIES`` times, the best one used); fewer
+    still, or a kernel launched more often than the calls need, fail the
+    run."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    per = row_sum_launches(lanes)
+    n_calls = 2 * reps
+    best = ([], 0)
+    for _ in range(PROFILE_TRIES):
+        events, _ = profile_events(fn, n_calls)
+        mine = [e for e in events if body in e[1] or "row_sum" in e[1]]
+        n_body = sum(body in name for _, name, _ in mine)
+        check(n_body <= n_calls and len(mine) - n_body <= n_calls * per,
+              f"{body}: {n_body} bodies and {len(mine) - n_body} row sums in {n_calls} calls")
+        calls, loose = whole_calls(mine, body, per)
+        best = max(best, (calls, loose), key=lambda c: len(c[0]))
+        if len(calls) < n_calls:
+            print(f"[profile] {body}: {len(calls)} of {n_calls} calls kept whole, {loose} "
+                  f"records outside them", flush=True)
+        if len(calls) >= reps:
+            break
+    calls = best[0]
+    check(len(calls) >= reps,
+          f"the profiler kept {len(calls)} of {n_calls} calls of {body} whole")
+    n = max(len(calls), 1)
+    return sum(b for b, _ in calls) / 1e3 / n, sum(r for _, r in calls) / 1e3 / n
+
+
+ROW_SUM_BAR_MS = 0.02  # the row sum's device time per call at 640,000 lanes
+
+
+def adjoint_split(tag: str, label: str, fn, body: str, lanes: int, card: str) -> float:
+    """Print an adjoint kernel's body and row sum apart, twice (device time
+    per call); at 640,000 lanes the row sum must stay within
+    ``ROW_SUM_BAR_MS``.  Returns the body's mean device ms per launch, the
+    measure of the kernel's ``ms`` in the JSON line."""
+    two = [body_and_row_sum(fn, body, lanes) for _ in range(2)]
+    print(f"{tag} {label} at {lanes} lanes: body {two[0][0]:.4f} / {two[1][0]:.4f} ms, row sum "
+          f"{two[0][1]:.4f} / {two[1][1]:.4f} ms of device time per call (two repeats); on {card}")
+    if lanes >= 640_000:
+        check(max(r for _, r in two) <= ROW_SUM_BAR_MS,
+              f"{label}: row sum {max(r for _, r in two):.4f} ms above {ROW_SUM_BAR_MS} ms")
+    return sum(b for b, _ in two) / 2
 
 
 def profile_step(step, step_ms: float, out_dir: str, name: str, kernels) -> str:
@@ -630,11 +750,13 @@ def grad_phase(desc, dev, card: str, out_dir: str):
         b_ms = cuda_ms(lambda: trace_grad.tbwd_cuda(*bargs, **kw), reps=10)
         fp_ms = cuda_ms(lambda: trace_grad.tfwd_plain(*args, **kw), reps=1)
         bp_ms = cuda_ms(lambda: trace_grad.tbwd_plain(*bargs, **kw), reps=1)
+        adjoint_split("[grad:time]", "kernel 5, Cornell's iteration 0",
+                      lambda: trace_grad.tbwd_cuda(*bargs, **kw), "trace_bwd_kernel", n, card)
     step_ms = cuda_ms(step, reps=3)
     mrays = int(rays) / step_ms / 1e3
 
     summary = profile_step(step, step_ms, out_dir, "grad_step",
-                           ("trace_fwd_kernel", "trace_bwd_kernel", "block_row_sum"))
+                           ("trace_fwd_kernel", "trace_bwd_kernel", "row_sum"))
     print(f"[grad:profile] step: {summary}")
 
     # ---- bounds, from this run's inputs
@@ -719,7 +841,7 @@ def grad_engines_phase(desc, dev, card: str, out_dir: str, full_loss, full_grads
     engines = {
         "perbounce": (dataclasses.replace(base, grad_full_trace=False),
                       only(bounce_replay=gspp * depth, bounce_bwd=gspp * depth),
-                      ("bounce_kernel", "bounce_bwd_kernel", "block_row_sum")),
+                      ("bounce_kernel", "bounce_bwd_kernel", "row_sum")),
         # the lean forward on kernel 4 keeps each bounce's winner, NEE bit and ray,
         # which the re-trace replays: no shadow ray
         "lean": (dataclasses.replace(base, grad_fused=False),
@@ -863,6 +985,40 @@ def grad_engines_phase(desc, dev, card: str, out_dir: str, full_loss, full_grads
                                                                 emit_replay=True), reps=2)
         b_ms = cuda_ms(lambda: bounce_grad.bounce_bwd_cuda(*bargs, nee=True), reps=20)
         bp_ms = cuda_ms(lambda: bounce_grad.bounce_bwd_plain(*bargs, nee=True), reps=2)
+        adjoint_split("[grad:perbounce:time]", "kernel 3, Cornell after three bounces",
+                      lambda: bounce_grad.bounce_bwd_cuda(*bargs, nee=True), "bounce_bwd_kernel",
+                      n, card)
+
+        # ---- the worst contention for the table atomics: every lane aimed
+        # within 1e-3 of the centre pixel's hit point, so that all of them
+        # hit one geom and add to the same table entries
+        centre = (h // 2) * w + w // 2
+        ct, cg = intersect_cuda.winner_t_gid_cuda(
+            Rays(rays0.origin[centre:centre + 1], rays0.direction[centre:centre + 1]), tables[0])
+        aim = rays0.origin[centre] + ct[0] * rays0.direction[centre]
+        jitter = torch.from_numpy(rng.uniform(-1e-3, 1e-3, (n, 3)).astype(np.float32)).to(dev)
+        to = aim + jitter - rays0.origin
+        one_dir = (to / to.norm(dim=-1, keepdim=True)).contiguous()
+        ones = torch.ones((n, 3), **f32)
+        zeros_n = torch.zeros(n, **f32)
+        depth0 = torch.zeros(n, dtype=torch.int32, device=dev)
+        one_args = (tables, rays0.origin, one_dir, ones, pixel, depth0, zeros_n)
+        _, ogid, onee = bounce_fused.bounce_fused_cuda(*one_args, medium, seed, nee=True,
+                                                       emit_replay=True)
+        print(f"[grad:check] one geom: all {n} lanes hit geom {int(cg[0])}: "
+              f"{bool((ogid == cg[0].float()).all())}, {int(onee.sum())} NEE connections")
+        check(bool((ogid == cg[0].float()).all()), "the one-geom lanes do not all hit one geom")
+        ocots = [torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32)).to(dev)
+                 for _ in range(4)]
+        oargs = (*one_args, ogid, onee, *ocots, seed)
+        b_err = max(b_err, hold_adjoint(
+            "kernel 3, every lane on one geom", bounce_grad.bounce_bwd_cuda(*oargs, nee=True),
+            bounce_grad.bounce_bwd_plain(*oargs, nee=True, dtype=torch.float64),
+            ("d_origin", "d_direction", "d_throughput"),
+            lambda j: f"NEE bit {int(onee[j])}"))
+        adjoint_split("[grad:perbounce:time]", "kernel 3, every lane on one geom",
+                      lambda: bounce_grad.bounce_bwd_cuda(*oargs, nee=True), "bounce_bwd_kernel",
+                      n, card)
         w_ms = cuda_ms(lambda: intersect_cuda.winner_t_gid_cuda(mrays, tables[0]), reps=50)
         wp_ms = cuda_ms(lambda: winner_t_gid_plain(mrays, tables[0]), reps=3)
 
@@ -1454,6 +1610,7 @@ def mesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     iter_ms = cuda_ms(iteration, reps=5)
     summary = profile_step(iteration, iter_ms, out_dir, "mesh_iteration", ("trace_kernel",))
     k1_ms = cuda_ms(lambda: trace.trace_cuda(*targs, **kw), reps=10)
+    k1_dev = [queued_ms(lambda: trace.trace_cuda(*targs, **kw)) for _ in range(2)]
     k1p_ms = cuda_ms(lambda: trace.trace_plain(*targs, **kw), reps=1)
     margs = (tables, captured["origin"], captured["direction"], captured["throughput"],
              captured["sample"], captured["depth"], captured["prev"], captured["medium"], seed)
@@ -1488,7 +1645,8 @@ def mesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     print(f"[mesh:profile] render iteration: {summary}")
     print(
         f"[mesh:time] iteration {iter_ms:.4f} ms ({int(nr_k) / iter_ms / 1e3:.1f} Mrays/s); kernel "
-        f"1m {k1_ms:.4f} ms/iteration ({int(nr_k) / k1_ms / 1e3:.1f} Mrays/s; plain {k1p_ms:.3f} "
+        f"1m {k1_ms:.4f} ms/iteration by events, {k1_dev[0]:.4f} / {k1_dev[1]:.4f} ms of device "
+        f"time (two repeats; {int(nr_k) / k1_dev[0] / 1e3:.1f} Mrays/s; plain {k1p_ms:.3f} "
         f"ms), bound {k1_bound[0]:.4f} ms by {k1_bound[1]} (a lower bound: the analytic part, "
         f"the chunk-box tests and the {k1_tris} triangle tests of bounce 0, not those of later "
         f"bounces or of shadow rays); kernel 2m {k2_ms:.4f} ms at {n} lanes of super-step "
@@ -2826,10 +2984,10 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     base = RenderConfig(wavefront=False, nee=True, max_depth=depth)
     engines = {
         "full-depth": (base, only(trace_fwd_resid_vol=spp, trace_bwd_vol=spp),
-                       ("trace_fwd_kernel", "trace_bwd_kernel", "block_row_sum")),
+                       ("trace_fwd_kernel", "trace_bwd_kernel", "row_sum")),
         "per-bounce": (dataclasses.replace(base, grad_full_trace=False),
                        only(bounce_replay_vol=per, bounce_bwd_vol=per),
-                       ("bounce_kernel", "bounce_bwd_kernel", "block_row_sum")),
+                       ("bounce_kernel", "bounce_bwd_kernel", "row_sum")),
         "lean": (dataclasses.replace(base, grad_fused=False),
                  only(trace_fwd_resid_vol=spp, winner=per),
                  ("trace_fwd_kernel", "winner_kernel")),
@@ -3014,12 +3172,14 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
         dev_ms = {}
         dev_ms["4v"] = device_ms(lambda: trace_grad.tfwd_cuda(*args, **kw),
                                  ["trace_fwd_kernel"])["trace_fwd_kernel"][0]
-        dev_ms["5v"] = device_ms(lambda: trace_grad.tbwd_cuda(*bargs, **kw),
-                                 ["trace_bwd_kernel"])["trace_bwd_kernel"][0]
+        dev_ms["5v"] = adjoint_split("[grad:vol:time]", "kernel 5v, milky's iteration 0",
+                                     lambda: trace_grad.tbwd_cuda(*bargs, **kw),
+                                     "trace_bwd_kernel", n_full, card)
         dev_ms["2r-v"] = device_ms(lambda: bounce_fused.bounce_fused_cuda(
             *args2, med2, seed, emit_replay=True, **rkw), ["bounce_kernel"])["bounce_kernel"][0]
-        dev_ms["3v"] = device_ms(lambda: bounce_grad.bounce_bwd_cuda(*b2, **bkw),
-                                 ["bounce_bwd_kernel"])["bounce_bwd_kernel"][0]
+        dev_ms["3v"] = adjoint_split("[grad:vol:time]", "kernel 3v, milky after two bounces",
+                                     lambda: bounce_grad.bounce_bwd_cuda(*b2, **bkw),
+                                     "bounce_bwd_kernel", n_full, card)
         plain_ms = {
             "4v": cuda_ms(lambda: trace_grad.tfwd_plain(*args, **kw), reps=1),
             "5v": cuda_ms(lambda: trace_grad.tbwd_plain(*bargs, **kw), reps=1),
@@ -3093,8 +3253,10 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     print(f"[grad:vol:regs] registers, spill store / load bytes per instance: {regs}")
     # the vacuum instances' registers, pinned: 4 keeps its 72; 5 and 3 went
     # from 156 and 140 to 148 and 136 when their light and winner adjoints
-    # were factored out for the media instances to share (PERF.md)
-    for key, want in (("4", 72), ("5", 148), ("3", 136)):
+    # were factored out for the media instances to share, and 3 to 158 with
+    # its table row in device memory and the skip of zero-cotangent lanes
+    # (still three blocks per SM; PERF.md)
+    for key, want in (("4", 72), ("5", 148), ("3", 158)):
         check(regs[key] is None or regs[key][0] == want,
               f"Cornell's kernel {key} uses {regs[key]} registers, not {want}")
     print(f"[card] {card}")
@@ -3164,10 +3326,10 @@ def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     base = RenderConfig(wavefront=False, nee=True, max_depth=depth)
     engines = {
         "full-depth": (base, only(trace_fwd_resid_surf=spp, trace_bwd_surf=spp),
-                       ("trace_fwd_kernel", "trace_bwd_kernel", "block_row_sum")),
+                       ("trace_fwd_kernel", "trace_bwd_kernel", "row_sum")),
         "per-bounce": (dataclasses.replace(base, grad_full_trace=False),
                        only(bounce_replay_surf=per, bounce_bwd_surf=per),
-                       ("bounce_kernel", "bounce_bwd_kernel", "block_row_sum")),
+                       ("bounce_kernel", "bounce_bwd_kernel", "row_sum")),
         "lean": (dataclasses.replace(base, grad_fused=False),
                  only(trace_fwd_resid_surf=spp, winner=per),
                  ("trace_fwd_kernel", "winner_kernel")),
@@ -3423,13 +3585,15 @@ def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
         dev_ms = {
             "4s": device_ms(lambda: trace_grad.tfwd_cuda(*args, **kw),
                             ["trace_fwd_kernel"])["trace_fwd_kernel"][0],
-            "5s": device_ms(lambda: trace_grad.tbwd_cuda(*bargs, **kw),
-                            ["trace_bwd_kernel"])["trace_bwd_kernel"][0],
+            "5s": adjoint_split("[grad:surf:time]", "kernel 5s, ward's iteration 0",
+                                lambda: trace_grad.tbwd_cuda(*bargs, **kw), "trace_bwd_kernel",
+                                n_ward, card),
             "2r-s": device_ms(lambda: bounce_fused.bounce_fused_cuda(
                 *args2, med2, seed, emit_replay=True, **rkw),
                 ["bounce_kernel"])["bounce_kernel"][0],
-            "3s": device_ms(lambda: bounce_grad.bounce_bwd_cuda(*b2, **bkw),
-                            ["bounce_bwd_kernel"])["bounce_bwd_kernel"][0],
+            "3s": adjoint_split("[grad:surf:time]", "kernel 3s, ward after two bounces",
+                                lambda: bounce_grad.bounce_bwd_cuda(*b2, **bkw),
+                                "bounce_bwd_kernel", n_ward, card),
         }
         plain_ms = {
             "4s": cuda_ms(lambda: trace_grad.tfwd_plain(*args, **kw), reps=1),
@@ -3485,7 +3649,7 @@ def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
         "3": instance_regs(instances, "bounce_grad", "bounce_bwd_kernel", False, False),
     }
     print(f"[grad:surf:regs] registers, spill store / load bytes per instance: {regs}")
-    for key, want in (("4", 72), ("5", 148), ("3", 136)):
+    for key, want in (("4", 72), ("5", 148), ("3", 158)):
         check(regs[key] is None or regs[key][0] == want,
               f"Cornell's kernel {key} uses {regs[key]} registers, not {want}")
     print(f"[card] {card}")

@@ -18,8 +18,9 @@
 // autograd does; the square root of a clamped quantity passes zero where
 // the quantity is not positive (ops/bsdf.py:sqrt0).  Table cotangents go to
 // a flat row (geom, material, light tables and the two scalars, RowLayout)
-// through acc_add: a float atomic on the card, a plain add in the host
-// build.
+// through acc_add: a float atomic into the block's row on the card (kernel
+// 5's in shared memory, kernel 3's in device memory), a plain add in the
+// host build; row_sum then adds the blocks' rows in a fixed tree.
 //
 // The surface blocks (the kSurf instances: texture, bump, microfacet and
 // ward, bounce_pallas.py:645-706,756-783,1054-1074,1121-1138) have their
@@ -1104,16 +1105,59 @@ __device__ __forceinline__ void load_tables(float* smem, const float* gtab, int 
 
 PT_HD size_t table_floats(int G, int M) { return (size_t)(G * GCOLS + M * MCOLS + G * LCOLS); }
 
-constexpr int ROW_SUM_THREADS = 256;
+// The row sum of the reverse kernels (3 and 5): row[j] = the sum over the
+// blocks' partial rows of column j.  A block of row_sum_segments takes 32
+// neighbouring columns (a warp reads 128 contiguous bytes of a row) and one
+// segment of rows; its 8 warps add the segment's rows w, w + 8, ... in order
+// and then the 8 sums in warp order.  Up to ROW_SUM_SEG rows that is the
+// whole sum; above, a first pass writes one row per segment to scratch and a
+// second adds those in segment order.  Every order is fixed, so the row does
+// not change from run to run given the partial rows.
+constexpr int ROW_SUM_COLS = 32;
+constexpr int ROW_SUM_WARPS = 8;
+constexpr int ROW_SUM_SEG = 64;  // partial rows per segment of the first pass
 
-// row[i] = sum of the blocks' partial rows, in block order
-__global__ void __launch_bounds__(ROW_SUM_THREADS)
-block_row_sum(const float* __restrict__ partial, int nblocks, int k, float* __restrict__ row) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= k) return;
+__global__ void __launch_bounds__(ROW_SUM_COLS * ROW_SUM_WARPS)
+row_sum_segments(const float* __restrict__ in, int nrows, int k, int seg,
+                 float* __restrict__ out) {
+  __shared__ float part[ROW_SUM_WARPS][ROW_SUM_COLS];
+  const int j = blockIdx.x * ROW_SUM_COLS + threadIdx.x;
+  const int r0 = blockIdx.y * seg, r1 = min(r0 + seg, nrows);
   float s = 0.0f;
-  for (int b = 0; b < nblocks; ++b) s += partial[(size_t)b * k + i];
-  row[i] = s;
+  if (j < k)
+    for (int r = r0 + threadIdx.y; r < r1; r += ROW_SUM_WARPS) s += in[(size_t)r * k + j];
+  part[threadIdx.y][threadIdx.x] = s;
+  __syncthreads();
+  if (threadIdx.y == 0 && j < k) {
+    float t = part[0][threadIdx.x];
+    for (int w = 1; w < ROW_SUM_WARPS; ++w) t += part[w][threadIdx.x];
+    out[(size_t)blockIdx.y * k + j] = t;
+  }
+}
+
+// rows of scratch that row_sum needs beside `nrows` partial rows
+inline int row_sum_scratch(int nrows) {
+  const int segs = (nrows + ROW_SUM_SEG - 1) / ROW_SUM_SEG;
+  return segs > 1 ? segs : 0;
+}
+
+// row = the sum of the nrows >= 1 partial rows of k floats, with
+// row_sum_scratch(nrows) rows of scratch
+inline cudaError_t row_sum(const float* partial, int nrows, int k, float* scratch, float* row,
+                           cudaStream_t stream) {
+  const dim3 block(ROW_SUM_COLS, ROW_SUM_WARPS);
+  const int tiles = (k + ROW_SUM_COLS - 1) / ROW_SUM_COLS;
+  const int segs = (nrows + ROW_SUM_SEG - 1) / ROW_SUM_SEG;
+  if (segs > 1) {
+    row_sum_segments<<<dim3(tiles, segs), block, 0, stream>>>(partial, nrows, k, ROW_SUM_SEG,
+                                                              scratch);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+    partial = scratch;
+    nrows = segs;
+  }
+  row_sum_segments<<<dim3(tiles, 1), block, 0, stream>>>(partial, nrows, k, nrows, row);
+  return cudaGetLastError();
 }
 
 }  // namespace pt

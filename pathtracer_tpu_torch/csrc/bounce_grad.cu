@@ -41,18 +41,28 @@
 //
 // Table cotangents: the row of K = 14 G + 28 M + 19 G + 2 floats (495 for
 // Cornell) that autograd of ops/bounce.py:pack_tables carries to the scene.
-// Each block sums its lanes' cotangents into a shared-memory row with float
-// atomics (no fixed order within a block), writes it to its row of
-// `partial`, and bounce_adj.cuh's block_row_sum adds the rows in block
-// order.  The TPU kernel accumulated into one SMEM row across its sequential
-// grid; on the GPU the blocks run at once.
+// Each block zeroes its own row of `partial` (device memory) and its lanes
+// add their cotangents there with float atomics (no fixed order within a
+// block); bounce_adj.cuh's row_sum then adds the rows in a fixed tree
+// spread over 32-column tiles and 64-row segments (two short launches; one
+// thread per column over all 5,000 rows took 0.16 ms at 640,000 lanes).
+// The TPU kernel accumulated into one SMEM row across its sequential grid;
+// on the GPU the blocks run at once.
 //
 // Design: one thread per lane, the tables in shared memory, the adjoint in
-// registers.  What bounds it on the H100: bytes, on paper (140 B per lane:
-// 23 four-byte planes in, 9 out; 89.6 MB per 640,000-lane launch, 0.027 ms
-// at 3.35 TB/s), but its adjoint is several times a bounce's shading
-// arithmetic in double, and its shared-memory atomics serialize where a
-// block's lanes hit the same geom; chip_smoke.py measures it.
+// registers; a lane whose cotangents are all zero writes zeros and skips the
+// adjoint.  What bounds it on the H100: bytes, on paper (140 B per lane: 23
+// four-byte planes in, 9 out; 89.6 MB per 640,000-lane launch, 0.027 ms at
+// 3.35 TB/s), but its adjoint is several times a bounce's shading
+// arithmetic in double and divergent (a warp runs the union of its lanes'
+// branches), and it issues up to 59 float atomics per lane.  Those atomics
+// took most of the time in a shared-memory row (kernel 3 on Cornell ran 4x
+// faster with them skipped); into the block's row in device memory, where
+// L2 resolves them, the body takes 0.31 ms there instead of 0.51.
+// A resident-sized grid, warp-aggregated atomics, a per-atomic zero skip
+// and __launch_bounds__(128, 4) were measured and left out: each slower on
+// some instance, or spilling (PERF.md, section 6).  chip_smoke.py measures
+// the body and the row sum apart.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -79,6 +89,24 @@ PT_FN void bounce_bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, i
                            float* acc, int vol_nee = 1, const float* __restrict__ medium = nullptr,
                            const float* __restrict__ g_medium = nullptr,
                            float* __restrict__ d_medium = nullptr) {
+  // A lane whose cotangents are all zero (in the per-bounce engine, a lane
+  // that died at an earlier bounce) has exact zeros for its adjoint and adds
+  // nothing to the tables: it writes the zeros and skips the rest, as
+  // kernel 5 skips a dead bounce.
+  bool zero = true;
+  const float* cot[4] = {g_contrib, g_next_o, g_next_d, g_thr_mult};
+  for (int k = 0; k < 4; ++k)
+    for (int c = 0; c < 3; ++c) zero = zero && cot[k][3 * i + c] == 0.0f;
+  if constexpr (kVol)
+    for (int c = 0; c < 4; ++c) zero = zero && g_medium[4 * i + c] == 0.0f;
+  if (zero) {
+    float* out[3] = {d_origin, d_direction, d_thr};
+    for (int k = 0; k < 3; ++k)
+      for (int c = 0; c < 3; ++c) out[k][3 * i + c] = 0.0f;
+    if constexpr (kVol)
+      for (int c = 0; c < 4; ++c) d_medium[4 * i + c] = 0.0f;
+    return;
+  }
   const V3 o = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
   const V3 d = v3(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
   const V3 t = v3(thr[3 * i], thr[3 * i + 1], thr[3 * i + 2]);
@@ -145,9 +173,12 @@ bounce_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict
                   float* __restrict__ d_medium) {
   extern __shared__ float smem[];
   const RowLayout R = row_layout(G, M);
-  float* s_acc = smem + table_floats(G, M);
+  // the block's table row is its row of `partial`, in device memory: the
+  // lanes' float atomics there are reductions resolved in L2, about twice
+  // as fast here as the same atomics into a shared-memory row
+  float* acc = partial + (size_t)blockIdx.x * R.k;
   load_tables(smem, gtab, G, mtab, M, ltab);
-  for (int i = threadIdx.x; i < R.k; i += blockDim.x) s_acc[i] = 0.0f;
+  for (int i = threadIdx.x; i < R.k; i += blockDim.x) acc[i] = 0.0f;
   __syncthreads();
   const Tables T{smem, smem + G * GCOLS, smem + G * GCOLS + M * MCOLS, G, scal[0],
                  scal[1] > 0.5f, MeshTables{nullptr, nullptr, nullptr, nullptr, nullptr, 0},
@@ -157,17 +188,18 @@ bounce_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict
   if (idx < n)  // lanes past n contribute nothing
     bounce_bwd_lane<kVol, kSurf>(T, R, seed, nee, (size_t)idx, origin, direction, thr, sample,
                                  depth, prev, replay_gid, replay_nee, g_contrib, g_next_o,
-                                 g_next_d, g_thr_mult, d_origin, d_direction, d_thr, s_acc,
+                                 g_next_d, g_thr_mult, d_origin, d_direction, d_thr, acc,
                                  vol_nee, medium, g_medium, d_medium);
-  __syncthreads();
-  for (int i = threadIdx.x; i < R.k; i += blockDim.x)
-    partial[(size_t)blockIdx.x * R.k + i] = s_acc[i];
 }
 
 }  // namespace
 
-// the number of blocks (rows of `partial`) kernel 3 runs for n lanes
-extern "C" int bounce_bwd_blocks(int n) { return (n + THREADS - 1) / THREADS; }
+// the rows of `partial` that bounce_bwd_launch needs for n lanes: one per
+// block and the row sum's scratch
+extern "C" int bounce_bwd_rows(int n) {
+  const int blocks = (n + THREADS - 1) / THREADS;
+  return blocks > 0 ? blocks + row_sum_scratch(blocks) : 1;
+}
 
 extern "C" int bounce_bwd_launch(const float* gtab, int G, const float* mtab, int M,
                                  const float* ltab, const float* scal, unsigned int seed, int nee,
@@ -181,9 +213,9 @@ extern "C" int bounce_bwd_launch(const float* gtab, int G, const float* mtab, in
                                  int surf, const float* medium, const float* g_medium,
                                  float* d_medium, void* stream) {
   const RowLayout R = row_layout(G, M);
-  const int blocks = bounce_bwd_blocks(n);
+  const int blocks = (n + THREADS - 1) / THREADS;
   if (n <= 0) return (int)cudaMemsetAsync(row, 0, sizeof(float) * R.k, (cudaStream_t)stream);
-  const size_t smem = sizeof(float) * (table_floats(G, M) + R.k);
+  const size_t smem = sizeof(float) * table_floats(G, M);
   // the instance: vacuum or volumetric x surface blocks or not
   const auto kernel =
       vol ? (surf ? bounce_bwd_kernel<true, true> : bounce_bwd_kernel<true, false>)
@@ -197,11 +229,10 @@ extern "C" int bounce_bwd_launch(const float* gtab, int G, const float* mtab, in
       gtab, G, mtab, M, ltab, scal, seed, nee, n, origin, direction, thr, sample, depth, prev,
       replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult, d_origin, d_direction,
       d_thr, partial, vol_nee, surf, medium, g_medium, d_medium);
-  cudaError_t e = cudaGetLastError();
+  const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  block_row_sum<<<(R.k + ROW_SUM_THREADS - 1) / ROW_SUM_THREADS, ROW_SUM_THREADS, 0,
-                  (cudaStream_t)stream>>>(partial, blocks, R.k, row);
-  return (int)cudaGetLastError();
+  return (int)row_sum(partial, blocks, R.k, partial + (size_t)blocks * R.k, row,
+                      (cudaStream_t)stream);
 }
 
 #endif  // __CUDACC__

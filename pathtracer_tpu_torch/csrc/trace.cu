@@ -36,13 +36,17 @@
 // Triangle meshes (kernel 1 with mesh_tables, trace_pallas.py:67-74,115-137):
 // a scene whose meshes total at most 4096 triangles passes their in-kernel
 // tables (ops/mesh_tables.KernelMeshes: triangles, chunk boxes, corner
-// normals, one descriptor row per mesh), which stay in device memory (at the
-// cap 4096 x 27 floats, 442 KB, more than a block's shared memory) and are
-// read through the caches by every lane alike.  Each bounce's nearest hit
-// and each counted shadow ray also sweep them (trace_common.cuh:mesh_sweep,
-// mesh_occ), each lane culling 32-triangle chunks by their boxes.  The
-// kernel is built twice: with the sweep, launched for n_mesh > 0, and
-// without it for analytic scenes, whose code and registers stay as before.
+// normals, one descriptor row per mesh), which stay in device memory and
+// are read through the caches by every lane alike (every lane reads the
+// same rows, so they stay in L1: staging smooth_mesh's 15.6 KB in shared
+// memory measured no faster).  Each bounce's nearest hit and each counted
+// shadow ray also sweep them (trace_common.cuh:mesh_sweep, mesh_occ), each
+// lane culling 32-triangle chunks by their boxes.  The sweep keeps only the
+// winner (mesh, row, t, u, v) in its loop and shades it once after; the
+// shadow ray's sweep stops at the first triangle nearer than the light (its
+// caller only compares t with the light's distance).  The kernel is built
+// twice: with the sweep, launched for n_mesh > 0, and without it for
+// analytic scenes, whose code and registers stay as before.
 //
 // Participating media (kernel 1 with the volumetric and Henyey-Greenstein
 // blocks, trace_pallas.py:90-98,131-173): each lane carries its medium
@@ -69,8 +73,13 @@
 // per geom.  The loop is branchy and divergent (a warp runs the union of
 // its lanes' material branches and lives as long as its longest path);
 // this first kernel accepts that and keeps registers, not memory, as the
-// working set.  Sorting lanes by material or compacting live lanes is
-// later work.
+// working set.  With meshes the triangle tests dominate: a lane tests the
+// 32 triangles of every chunk its ray reaches nearer than its best, and a
+// warp runs the chunks any of its lanes reaches (on smooth_mesh's primary
+// rays the nearest sweep took ~70% of the mesh instance's time before the
+// winner moved out of the loop, the shadow sweep ~25%; chip_smoke.py's
+// [mesh:time] measures it).  Sorting lanes by material or compacting live
+// lanes is later work.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>

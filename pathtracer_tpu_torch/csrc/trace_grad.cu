@@ -52,8 +52,9 @@
 // whose instance with kSurf is the same template).
 // The table cotangents of a block's lanes go into a shared-memory row with
 // float atomics (their order within the block is not fixed: the row varies
-// in its last bits from run to run); block_row_sum then sums the per-block
-// rows in block order.
+// in its last bits from run to run); bounce_adj.cuh's row_sum then adds the
+// per-block rows (5,000 at 640,000 lanes) in a fixed tree spread over
+// 32-column tiles and 64-row segments, two short launches.
 //
 // What bounds them on the H100: the forward moves 40 B per lane plus 52 B
 // per lane and bounce of residuals (266 MB per 640,000-lane iteration at
@@ -388,8 +389,12 @@ extern "C" int trace_fwd_launch(const float* gtab, int G, const float* mtab, int
   return (int)cudaGetLastError();
 }
 
-// the number of blocks (rows of `partial`) the reverse kernel runs for n lanes
-extern "C" int trace_bwd_blocks(int n) { return (n + BWD_THREADS - 1) / BWD_THREADS; }
+// the rows of `partial` that trace_bwd_launch needs for n lanes: one per
+// block and the row sum's scratch
+extern "C" int trace_bwd_rows(int n) {
+  const int blocks = (n + BWD_THREADS - 1) / BWD_THREADS;
+  return blocks > 0 ? blocks + row_sum_scratch(blocks) : 1;
+}
 
 extern "C" int trace_bwd_launch(const float* gtab, int G, const float* mtab, int M,
                                 const float* ltab, const float* scal, unsigned int seed,
@@ -398,7 +403,7 @@ extern "C" int trace_bwd_launch(const float* gtab, int G, const float* mtab, int
                                 float* partial, float* row, int max_depth, int nee, int rr,
                                 int rr_start, int vol, int vol_nee, int surf, void* stream) {
   const RowLayout R = row_layout(G, M);
-  const int blocks = trace_bwd_blocks(n);
+  const int blocks = (n + BWD_THREADS - 1) / BWD_THREADS;
   if (n <= 0) return (int)cudaMemsetAsync(row, 0, sizeof(float) * R.k, (cudaStream_t)stream);
   const size_t smem = sizeof(float) * (table_floats(G, M) + R.k);
   const auto kernel = vol ? (surf ? trace_bwd_kernel<true, true> : trace_bwd_kernel<true, false>)
@@ -413,9 +418,8 @@ extern "C" int trace_bwd_launch(const float* gtab, int G, const float* mtab, int
       partial, max_depth, nee, rr, rr_start, vol_nee, surf);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  block_row_sum<<<(R.k + ROW_SUM_THREADS - 1) / ROW_SUM_THREADS, ROW_SUM_THREADS, 0,
-                  (cudaStream_t)stream>>>(partial, blocks, R.k, row);
-  return (int)cudaGetLastError();
+  return (int)row_sum(partial, blocks, R.k, partial + (size_t)blocks * R.k, row,
+                      (cudaStream_t)stream);
 }
 
 #endif  // __CUDACC__

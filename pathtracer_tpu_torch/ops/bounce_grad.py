@@ -14,8 +14,9 @@ for that bounce alone.
   kernel 3 is held to, as ``ops/trace_grad.py:tbwd_plain``'s).
 * :func:`bounce_bwd_cuda` launches ``csrc/bounce_grad.cu`` (kernel 3: one
   thread per lane, the tables in shared memory, the adjoint of
-  ``csrc/bounce_adj.cuh`` that kernel 5 shares, per-block table rows summed
-  in block order).
+  ``csrc/bounce_adj.cuh`` that kernel 5 shares, one table row per block,
+  the rows summed by ``bounce_adj.cuh:row_sum`` in a fixed tree; a lane
+  whose cotangents are all zero writes zeros and adds nothing).
 * :class:`BounceDiff` is the ``torch.autograd.Function`` (the
   ``jax.custom_vjp`` of ``bounce_grad.py:380-428``): its forward saves the
   inputs and the replay planes, its backward runs kernel 3 on a CUDA
@@ -66,7 +67,7 @@ from pathtracer_tpu_torch.ops.trace_grad import (
     split_grad_row,
 )
 
-launches = 0  # launches of csrc/bounce_grad.cu (its kernel and its block sum), vacuum scenes
+launches = 0  # launches of csrc/bounce_grad.cu (its kernel and its row sum), vacuum scenes
 vol_launches = 0  # launches of its volumetric instance (3v)
 surf_launches = 0  # launches of its surface instances (3s), vacuum or volumetric
 
@@ -134,13 +135,13 @@ def _lib():
             P, P,  # replay gid, replay NEE bit
             P, P, P, P,  # cotangents: contrib, next origin, next direction, thr mult
             P, P, P,  # d_origin, d_direction, d_throughput
-            P, P,  # block partials, table row
+            P, P,  # block partials with the row sum's scratch, table row
             I, I, I,  # volumetric, vol_nee, surface bits
             P, P, P,  # medium, its cotangent, d_medium (null: vacuum)
             P,  # stream
         ]
-        lib.bounce_bwd_blocks.restype = ctypes.c_int
-        lib.bounce_bwd_blocks.argtypes = [I]
+        lib.bounce_bwd_rows.restype = ctypes.c_int
+        lib.bounce_bwd_rows.argtypes = [I]
     return lib
 
 
@@ -149,7 +150,7 @@ def bounce_bwd_cuda(tables, origin, direction, throughput, sample_idx, depth, pr
                     seed: int, *, nee: bool, features=frozenset(), medium=None, g_medium=None,
                     vol_nee: bool = True):
     """Launch kernel 3 (3v with ``volumetric``, 3s with a surface feature)
-    and its fixed-order block sum on the rays' CUDA device, on the current
+    and its fixed-order row sum on the rays' CUDA device, on the current
     stream: what :func:`bounce_bwd_plain` returns."""
     global launches, vol_launches, surf_launches
     check_diff_features(features, "fused")
@@ -180,7 +181,7 @@ def bounce_bwd_cuda(tables, origin, direction, throughput, sample_idx, depth, pr
     lib = _lib()
     k = grad_row_len(g, m)
     d_o, d_d, d_t = (torch.empty((n, 3), dtype=f32, device=device) for _ in range(3))
-    partial = torch.empty((max(lib.bounce_bwd_blocks(n), 1), k), dtype=f32, device=device)
+    partial = torch.empty((lib.bounce_bwd_rows(n), k), dtype=f32, device=device)
     row = torch.empty((k,), dtype=f32, device=device)
     err = lib.bounce_bwd_launch(
         gtab.data_ptr(), g, mtab.data_ptr(), m, ltab.data_ptr(), scal.data_ptr(),

@@ -360,13 +360,13 @@ def _lib():
             ctypes.c_void_p, ctypes.c_int,  # sample, n
             ctypes.c_void_p, ctypes.c_void_p,  # resid, g_rad
             ctypes.c_void_p, ctypes.c_void_p,  # d_origin, d_direction
-            ctypes.c_void_p, ctypes.c_void_p,  # block partials, table row
+            ctypes.c_void_p, ctypes.c_void_p,  # block partials with the row sum's scratch, row
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # depth, nee, rr, rr_start
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # volumetric, vol_nee, surface bits
             ctypes.c_void_p,  # stream
         ]
-        lib.trace_bwd_blocks.restype = ctypes.c_int
-        lib.trace_bwd_blocks.argtypes = [ctypes.c_int]
+        lib.trace_bwd_rows.restype = ctypes.c_int
+        lib.trace_bwd_rows.argtypes = [ctypes.c_int]
     return lib
 
 
@@ -435,8 +435,7 @@ def tbwd_cuda(
     k = grad_row_len(g, m)
     d_o = torch.empty((n, 3), dtype=torch.float32, device=device)
     d_d = torch.empty((n, 3), dtype=torch.float32, device=device)
-    partial = torch.empty((max(lib.trace_bwd_blocks(n), 1), k), dtype=torch.float32,
-                          device=device)
+    partial = torch.empty((lib.trace_bwd_rows(n), k), dtype=torch.float32, device=device)
     row = torch.empty((k,), dtype=torch.float32, device=device)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.trace_bwd_launch(

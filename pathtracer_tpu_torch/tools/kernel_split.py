@@ -1,0 +1,254 @@
+"""Device times of the per-bounce adjoint (kernels 3, 3v and 3s, the adjoint
+body and the table row sum apart), of the full-depth reverse kernels' row
+sum (5, 5v and 5s), of kernel 1m, and of the steps and the iteration that
+run them, for one or more checkouts in turns on one card:
+
+    python -m pathtracer_tpu_torch.tools.kernel_split [NAME=DIR ...]
+
+Each ``NAME=DIR`` is a checkout (its ``pathtracer_tpu_torch/``, ``scenes/``
+and ``chip_smoke.py``, as ``git archive`` unpacks them); with none, this
+checkout.  They run in the order given (``a=P b=C b=C a=P`` for parent /
+change / change / parent), each in a process of its own that builds its
+kernels from its own sources (``tools/in_turns``).  Each process prints
+``[split]`` lines:
+
+- adjoint: kernel 3 on Cornell 800x800, 3v on milky 800x800 (vol_nee
+  on) and 3s on ward 512x512, each on the state after two bounces (640,000,
+  640,000 and 262,144 lanes; seeded cotangents), and kernels 5 / 5v / 5s on
+  the same scenes' iteration-0 residuals: per launch the device time of the
+  body (``bounce_bwd_kernel`` / ``trace_bwd_kernel``) and of the row sum
+  (every kernel named ``row_sum``), from the profiler over 10 calls, twice,
+  which must keep every launch (``_profiled_split``);
+- 1m: kernel 1m on smooth_mesh's 262,144 primary rays at 512x512, depth
+  8, NEE (``chip_smoke.queued_ms``, the median of 10, twice), and the
+  megakernel iteration around it by host clock, five repeats;
+- steps: the per-bounce and full-depth gradient steps of Cornell, milky
+  and ward (4 spp, depth 8, target zeros) by host clock ending in a
+  synchronize, ten repeats each, with the time until the step returns
+  (the host's part, before the synchronize); from one profiled step the
+  device's busy time (every kernel), its idle share against the median
+  step, and the adjoint kernel's body and row sum per launch.
+
+Every process also prints the registers and spills of kernel 3's
+instances and of 1m (none when its libraries were built earlier).
+
+Needs a card and ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+ADJOINT_SCENES = (("3", "cornell.txt", None), ("3v", "milky.txt", None),
+                  ("3s", "ward.txt", (512, 512)))
+
+
+PROFILE_TRIES = 3  # profiles of one measurement while records are missing
+ADJOINT_THREADS = 128  # lanes per block of kernels 3 and 5, each block one partial row
+
+
+def _row_sum_per_call(names, lanes: int):
+    """Row-sum launches per call of a checkout's reverse kernel, told by the
+    names the profiler kept: ``block_row_sum`` (the older design) once;
+    ``row_sum_segments`` once up to 64 partial rows, twice above."""
+    if any("row_sum_segments" in k for k in names):
+        return 1 if -(-lanes // ADJOINT_THREADS) <= 64 else 2
+    return 1 if any("block_row_sum" in k for k in names) else None
+
+
+def _profiled_split(cs, fn, body: str, lanes: int, reps: int = 10) -> tuple:
+    """Per call of ``fn`` at ``lanes`` lanes: the body kernel's device ms
+    and the row sum's (its launches summed), from a profile of ``reps``
+    calls that kept every launch of both, taken again while one is missing
+    (up to ``PROFILE_TRIES`` times)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(PROFILE_TRIES):
+        run, _ = cs.profiled(fn, reps)
+        b_us, b_n = (sum(v[j] for k, v in run.items() if body in k) for j in (0, 1))
+        r_us, r_n = (sum(v[j] for k, v in run.items() if "row_sum" in k) for j in (0, 1))
+        per = _row_sum_per_call(run, lanes)
+        if b_n == reps and per is not None and r_n == reps * per:
+            return b_us / 1e3 / reps, r_us / 1e3 / reps, per
+    raise RuntimeError(f"the profiler kept {b_n} launches of {body} and {r_n} of the row sum "
+                       f"for {reps} calls")
+
+
+def measure(card: str) -> None:
+    """In a checkout: print its ``[split]`` lines (the module's docstring)."""
+    import dataclasses
+    import time
+
+    import numpy as np
+    import torch
+
+    import chip_smoke as cs
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import _build, bounce_fused, bounce_grad, trace, trace_grad
+    from pathtracer_tpu_torch.ops.bounce import pack_tables
+    from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render import diff
+    from pathtracer_tpu_torch.render.features import resolve_features
+    from pathtracer_tpu_torch.render.integrator import render_chunk
+    from pathtracer_tpu_torch.scene.parser import load_scene
+
+    reports = _build.build_all()
+    dev = torch.device("cuda")
+    f32 = dict(dtype=torch.float32, device=dev)
+    seed = key_to_seed(prng_key(0))
+    rng = np.random.default_rng(0)
+    base = RenderConfig(wavefront=False, nee=True, max_depth=8)
+    here = os.path.basename(os.getcwd())
+
+    def desc_of(name, res):
+        desc = load_scene(os.path.join("scenes", name))
+        return dataclasses.replace(desc, resolution=res) if res else desc
+
+    def timed(fn, reps=5):
+        # host-clock ms of each call ending in a synchronize, and until it returned
+        fn()
+        torch.cuda.synchronize()
+        walls, hosts = [], []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            t1 = time.perf_counter()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+            hosts.append((t1 - t0) * 1e3)
+        return walls, hosts
+
+    for label, name, res in ADJOINT_SCENES:
+        desc = desc_of(name, res)
+        params, static = diff.params_from_description(desc, 0, device=dev)
+        feats = frozenset(resolve_features(base, params.materials).features)
+        with torch.no_grad():
+            scene = diff.build_scene(params, static)
+            tables = [t.contiguous() for t in pack_tables(scene)]
+            w, h = static.resolution
+            n = w * h
+            lanes = torch.arange(n, dtype=torch.int64, device=dev)
+            rays = generate_camera_rays(scene.camera, lanes, camera_uniforms(seed, lanes))
+            medium = torch.zeros((n, 4), **f32)
+            st = dict(origin=rays.origin, direction=rays.direction,
+                      throughput=torch.ones((n, 3), **f32),
+                      depth=torch.zeros(n, dtype=torch.int32, device=dev),
+                      prev=torch.zeros(n, **f32), medium=medium)
+            alive = torch.ones(n, dtype=torch.bool, device=dev)
+            for dep in range(2):
+                r = bounce_fused.bounce_fused_cuda(
+                    tables, st["origin"], st["direction"], st["throughput"], lanes, dep,
+                    st["prev"], st["medium"], seed, nee=True, features=feats)
+                alive = alive & ~r.terminate
+                a = alive[:, None]
+                st = dict(origin=torch.where(a, r.next_origin, st["origin"]),
+                          direction=torch.where(a, r.next_direction, st["direction"]),
+                          throughput=torch.where(a, st["throughput"] * r.throughput_mult,
+                                                 st["throughput"]),
+                          depth=torch.full((n,), dep + 1, dtype=torch.int32, device=dev),
+                          prev=r.was_specular,
+                          medium=r.next_medium if "volumetric" in feats else medium)
+            args2 = (tables, st["origin"], st["direction"], st["throughput"], lanes,
+                     st["depth"], st["prev"])
+            _, rgid, rnee = bounce_fused.bounce_fused_cuda(*args2, st["medium"], seed,
+                                                           emit_replay=True, nee=True,
+                                                           features=feats)
+            cots = [torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32)).to(dev)
+                    for _ in range(4)]
+            bkw = dict(nee=True, features=feats)
+            if "volumetric" in feats:
+                g_med = torch.from_numpy(rng.standard_normal((n, 4)).astype(np.float32)).to(dev)
+                bkw.update(medium=st["medium"], g_medium=g_med)
+            b2 = (*args2, rgid, rnee, *cots, seed)
+            kw = dict(max_depth=8, nee=True, rr=False, rr_start=base.rr_start, features=feats)
+            _, _, resid = trace_grad.tfwd_cuda(*tables, seed, rays.origin, rays.direction,
+                                               lanes, **kw)
+            g_rad = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32)).to(dev)
+            b5 = (*tables, seed, lanes, resid, g_rad)
+            for rep in range(2):
+                body, rsum, rlaunch = _profiled_split(
+                    cs, lambda: bounce_grad.bounce_bwd_cuda(*b2, **bkw), "bounce_bwd_kernel", n)
+                b5_ms, r5_ms, r5_launch = _profiled_split(
+                    cs, lambda: trace_grad.tbwd_cuda(*b5, **kw), "trace_bwd_kernel", n)
+                print(f"[split] {here} adjoint {label} {name} {n} lanes, repeat {rep}: body "
+                      f"{body:.4f} ms, row sum {rsum:.4f} ms ({rlaunch:g} launches); kernel "
+                      f"{label.replace('3', '5')} body {b5_ms:.4f} ms, row sum {r5_ms:.4f} ms "
+                      f"({r5_launch:g} launches); on {card}", flush=True)
+            del resid, b5, b2
+
+    # ---- kernel 1m on smooth_mesh's primary rays, and its iteration
+    scene = desc_of("smooth_mesh.txt", (512, 512)).scene_for_frame(0, device=dev)
+    cfg = RenderConfig(max_depth=8, nee=True, iters_per_launch=8)
+    mseed = key_to_seed(prng_key(cfg.seed))
+    tables = [t.contiguous() for t in pack_tables(scene)]
+    n = scene.camera.width * scene.camera.height
+    pixel = torch.arange(n, dtype=torch.int64, device=dev)
+    rays0 = generate_camera_rays(scene.camera, pixel, camera_uniforms(mseed, pixel))
+    targs = (*tables, mseed, rays0.origin, rays0.direction, pixel)
+    tkw = dict(max_depth=8, nee=True, rr=False, rr_start=cfg.rr_start,
+               mesh=scene.mesh_tables)
+    k1 = [cs.queued_ms(lambda: trace.trace_cuda(*targs, **tkw)) for _ in range(2)]
+    print(f"[split] {here} 1m smooth_mesh {n} primary rays: {k1[0]:.4f} / {k1[1]:.4f} ms "
+          f"of device time; on {card}", flush=True)
+    rcfg = resolve_features(cfg, scene.materials)
+    acc0 = torch.zeros((n, 3), **f32)
+    it, _ = timed(lambda: render_chunk(scene, acc0, 0, mseed, rcfg, 1, tables=tables))
+    print(f"[split] {here} step mesh:time iteration smooth_mesh 512x512: "
+          + " / ".join(f"{t:.4f}" for t in it) + f" ms; on {card}", flush=True)
+
+    # the gradient steps: per-bounce (kernels 2r and 3) and full-depth
+    # (kernels 4 and 5), their time and the adjoint's device time inside them
+    for label, name, res in (("grad:perbounce", "cornell.txt", None),
+                             ("grad:vol", "milky.txt", None),
+                             ("grad:surf", "ward.txt", (512, 512))):
+        params, static = diff.params_from_description(desc_of(name, res), 0, device=dev)
+        target = torch.zeros((static.resolution[0] * static.resolution[1], 3), **f32)
+        for engine, scfg, body in (
+                ("per-bounce", dataclasses.replace(base, grad_full_trace=False),
+                 "bounce_bwd_kernel"),
+                ("full-depth", base, "trace_bwd_kernel")):
+            def step(scfg=scfg):
+                return diff.loss_and_grad_rays(params, static, target, 4, prng_key(0),
+                                               scfg, device=dev)
+
+            walls, hosts = timed(step, reps=10)
+            wall = sorted(walls)[len(walls) // 2]
+            run, _ = cs.profiled(step)
+            busy = sum(us for us, _ in run.values()) / 1e3
+            b_us, b_n = (sum(v[j] for k, v in run.items() if body in k) for j in (0, 1))
+            r_us, r_n = (sum(v[j] for k, v in run.items() if "row_sum" in k) for j in (0, 1))
+            print(f"[split] {here} step {label} {engine} {name} 4 spp: median {wall:.4f} ms of "
+                  + " / ".join(f"{t:.4f}" for t in walls) + f" ms; returned after a median "
+                  f"{sorted(hosts)[len(hosts) // 2]:.4f} ms; profiled step: device busy "
+                  f"{busy:.4f} ms, idle share {1 - busy / wall:.3f}; device time per launch: "
+                  f"body {b_us / 1e3 / max(b_n, 1):.4f} ms x {b_n}, row sum "
+                  f"{r_us / 1e3 / max(r_n, 1):.4f} ms x {r_n}; on {card}", flush=True)
+
+    inst = cs.ptxas_instances(reports)
+    regs = {f"3 vol={v} surf={s}": cs.instance_regs(inst, "bounce_grad", "bounce_bwd_kernel",
+                                                     v, s)
+            for v in (False, True) for s in (False, True)}
+    regs["1m"] = cs.instance_regs(inst, "trace", "trace_kernel", True, False, False, False)
+    print(f"[split] {here} regs (registers, spill store / load bytes): {regs}", flush=True)
+
+
+def main() -> int:
+    from pathtracer_tpu_torch.tools.in_turns import card, run_in_turns
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("checkouts", nargs="*", help="NAME=DIR, each a checkout, in turn")
+    args = ap.parse_args()
+    line = card()
+    print(line, flush=True)
+    named = [c.split("=", 1) for c in args.checkouts] or [("this", ROOT)]
+    return run_in_turns(named, __file__, "measure", [line], shown=("[split]",))
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,6 +10,8 @@
 // planes; surf: 3s), the nearest hit, winner search and occlusion
 // (intersect.cu), and the nearest triangle and triangle occlusion (mesh.cu,
 // chunk-culled with the padded boxes, or dense without).
+// host_mesh_sweep and host_mesh_occ run the in-kernel triangle sweep and
+// the shadow ray's sweep (trace_common.cuh) on one ray per lane.
 // The trace and the bounce take the in-kernel mesh tables as the launchers
 // do (n_mesh = 0 for none), the media flags (volumetric, hg, vol_nee)
 // that pick their kVol / kHg instance and the surface feature bits that pick
@@ -223,4 +225,43 @@ extern "C" void host_mesh_min(const float* tab, int n_tris, const float* boxes, 
     mesh_scan_lane<false>(tab, n_tris, boxes, v3(o_obj[3 * i], o_obj[3 * i + 1], o_obj[3 * i + 2]),
                           v3(d_obj[3 * i], d_obj[3 * i + 1], d_obj[3 * i + 2]), t[i], unused);
   }
+}
+
+// pt::mesh_sweep (kUV with uv != 0) per lane: t, the object-space hit point,
+// the unit normal, the material and (u, v, 1 where the winner's mesh has UVs)
+extern "C" void host_mesh_sweep(const float* gtab, const float* mtri, const float* maabb,
+                                const float* mnorm, const float* muv, const int* mdesc,
+                                int n_mesh, int uv, int n, const float* origin,
+                                const float* direction, float* t, float* p_obj, float* normal,
+                                int* mid, float* uvs) {
+  const MeshTables M{mtri, maabb, mnorm, muv, mdesc, n_mesh};
+  for (int i = 0; i < n; ++i) {
+    const V3 o = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
+    const V3 d = v3(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
+    const MeshHit h = uv ? mesh_sweep<true>(gtab, M, o, d) : mesh_sweep<false>(gtab, M, o, d);
+    t[i] = h.t;
+    const V3* vec[2] = {&h.p_obj, &h.normal};
+    float* out[2] = {p_obj, normal};
+    for (int k = 0; k < 2; ++k) {
+      out[k][3 * i] = vec[k]->x;
+      out[k][3 * i + 1] = vec[k]->y;
+      out[k][3 * i + 2] = vec[k]->z;
+    }
+    mid[i] = h.mid;
+    uvs[3 * i] = h.uv_u;
+    uvs[3 * i + 1] = h.uv_v;
+    uvs[3 * i + 2] = h.uv_valid ? 1.0f : 0.0f;
+  }
+}
+
+// pt::mesh_occ per lane: the shadow ray's nearest triangle t, or the first t
+// below the lane's limit
+extern "C" void host_mesh_occ(const float* gtab, const float* mtri, const float* maabb,
+                              const float* mnorm, const float* muv, const int* mdesc, int n_mesh,
+                              int n, const float* x, const float* wi, const float* limit,
+                              float* occ) {
+  const MeshTables M{mtri, maabb, mnorm, muv, mdesc, n_mesh};
+  for (int i = 0; i < n; ++i)
+    occ[i] = mesh_occ(gtab, M, v3(x[3 * i], x[3 * i + 1], x[3 * i + 2]),
+                      v3(wi[3 * i], wi[3 * i + 1], wi[3 * i + 2]), limit[i]);
 }

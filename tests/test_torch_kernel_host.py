@@ -106,6 +106,8 @@ def host_lib(tmp_path_factory):
     lib.host_nearest.argtypes = [P, I, I] + [P] * 8
     lib.host_occlusion.argtypes = [P, I, I, P, P, P]
     lib.host_winner.argtypes = [P, I, I, P, P, P, P]
+    lib.host_mesh_sweep.argtypes = [P] * 6 + [I, I, I] + [P] * 7
+    lib.host_mesh_occ.argtypes = [P] * 6 + [I, I] + [P] * 4
     lib.host_bounce_bwd.argtypes = ([P, I, P, I, P, P, ctypes.c_uint, I, I] + [P] * 16 + [I] * 3
                                     + [P] * 3)
     return lib
@@ -393,6 +395,27 @@ def test_bounce_replay_and_backward_lanes_match_plain(host_lib, scene_name, nee)
         d_o.data_ptr(), d_d.data_ptr(), d_t.data_ptr(), row.data_ptr(), *VAC_GRAD, *NO_MEDIUM,
     )
     assert not bool(torch.cat([d_o, d_d, d_t, row[None].expand(3, -1).reshape(-1, 3)]).any())
+    # a third of the lanes dead (every cotangent zero, as the per-bounce
+    # engine gives a lane that died earlier): those skip the adjoint, and the
+    # rest still meet the reference
+    dead = (torch.arange(n) % 3 == 0)[:, None]
+    dcots = [torch.where(dead, 0.0, c) for c in cots]
+    dargs = (*bargs[:9], *dcots, seed)
+    dref = bounce_grad.bounce_bwd_plain(*dargs, nee=nee, dtype=torch.float64)
+    host_lib.host_bounce_bwd(
+        tables[0].data_ptr(), g, tables[1].data_ptr(), m, tables[2].data_ptr(),
+        tables[3].data_ptr(), seed, int(nee), n,
+        *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
+                                    "prev")),
+        rgid.data_ptr(), rnee.data_ptr(), *(c.data_ptr() for c in dcots),
+        d_o.data_ptr(), d_d.data_ptr(), d_t.data_ptr(), row.data_ptr(), *VAC_GRAD, *NO_MEDIUM,
+    )
+    dgot = (*trace_grad.split_grad_row(row, g, m), d_o, d_d, d_t)
+    for w, k in zip(dref[:4], dgot[:4]):
+        assert bool(((k.double() - w).abs() <= 1e-4 * w.abs() + 1e-6 * float(w.abs().max())).all())
+    for w, k in zip(dref[4:], dgot[4:]):
+        assert bool(torch.isclose(k.double(), w, rtol=1e-5, atol=1e-5).all())
+        assert not bool(k[dead[:, 0]].any())
 
 
 @pytest.mark.parametrize("scene_name", ["cornell", "glossy"])
@@ -617,6 +640,197 @@ def test_bounce_mesh_lanes_match_plain(host_lib, nee):
     print(f"smooth_mesh nee={nee}: bounce lanes within 2e-6: {frac:.5f}; lanes the mesh "
           f"changed: {int(moved.sum())}")
     assert frac >= 0.995 and int(moved.sum()) > 100
+
+
+# ---- the in-kernel sweep's winner and shadow ray (trace_common.cuh:
+# mesh_sweep keeps only the winner in its loop and shades it after;
+# mesh_occ stops at the first triangle nearer than its limit)
+
+def _scene_with(tmp_path, extra: str, objs: dict, drop_mesh: bool = False):
+    """smooth_mesh with ``extra`` appended (``objs``: OBJ files to write to
+    ``tmp_path`` first, named in ``extra`` by ``{name}``); ``drop_mesh``
+    leaves out its own icosphere."""
+    with open(os.path.join(HERE, "..", "scenes", "smooth_mesh.txt")) as f:
+        text = f.read()
+    if drop_mesh:
+        head, tail = text.split("OBJECT 1    // icosahedron mesh")
+        text = head + "OBJECT 1\ncube\nmaterial 0\nframe 0\nTRANS 0 -40 0\nROTAT 0 0 0\n" \
+            "SCALE 1 1 1\n" + tail[tail.index("\nOBJECT 2"):]
+    paths = {}
+    for name, body in objs.items():
+        paths[name] = str(tmp_path / f"{name}.obj")
+        with open(paths[name], "w") as f:
+            f.write(body)
+    text += extra.format(**paths)
+    scene = parse_scene_text(text, scene_dir=os.path.join(HERE, "..", "scenes")).scene_for_frame(
+        0, device="cpu")
+    return scene, [t.contiguous() for t in pack_tables(scene)]
+
+
+def _host_sweep(host_lib, tables, km, o, d, uv: bool):
+    n = o.shape[0]
+    t, p_obj, normal = torch.empty(n), torch.empty((n, 3)), torch.empty((n, 3))
+    mid, uvs = torch.empty(n, dtype=torch.int32), torch.empty((n, 3))
+    host_lib.host_mesh_sweep(tables[0].data_ptr(), *_mesh_args(km), int(uv), n, o.data_ptr(),
+                             d.data_ptr(), t.data_ptr(), p_obj.data_ptr(), normal.data_ptr(),
+                             mid.data_ptr(), uvs.data_ptr())
+    return t, p_obj, normal, mid, uvs
+
+
+def _assert_sweep_equal(host_lib, tables, km, o, d):
+    """The host sweep bit-equal to ``mesh_sweep`` on every lane, with and
+    without the UV blend; returns the plain version's outputs."""
+    from pathtracer_tpu_torch.ops.mesh_tables import mesh_sweep
+
+    want = mesh_sweep(km, tables[0], o.unbind(-1), d.unbind(-1), want_uv=True)
+    for uv in (False, True):
+        t, p_obj, normal, mid, uvs = _host_sweep(host_lib, tables, km, o, d, uv)
+        assert torch.equal(t, want["et"])
+        assert torch.equal(p_obj, torch.stack(want["epo"], -1))
+        assert torch.equal(normal, torch.stack(want["en"], -1))
+        assert torch.equal(mid.long(), want["emid"])
+        if uv:
+            assert torch.equal(uvs, torch.stack([want["muv_u"], want["muv_v"], want["muvv"]], -1))
+    return want
+
+
+def test_mesh_sweep_two_meshes_keeps_the_winners_geom(host_lib, tmp_path):
+    """Three meshes under different transforms: smooth_mesh's icosphere
+    (normals, material 1), a second copy of it turned and scaled unevenly
+    (material 3), and a quad with authored UVs (material 0).  On 4,096 rays
+    through them the sweep, which keeps only the winner in its loop and
+    shades it after, equals ``mesh_sweep`` (which shades at every
+    improvement) bit for bit on every lane; the rays include lanes where a
+    later mesh beats an earlier one's hit and lanes where an earlier mesh
+    keeps its hit against a later one, so the winner's own geom transform,
+    normals and UVs are the ones used."""
+    from pathtracer_tpu_torch.ops.mesh_tables import kernel_meshes, mesh_sweep
+    from pathtracer_tpu_torch.scene.variants import quad_obj
+
+    extra = ("\nOBJECT 4\nassets/ico_smooth.obj\nmaterial 3\nframe 0\nTRANS 0.9 2.3 1.1\n"
+             "ROTAT 20 -35 10\nSCALE 2.5 1.5 3\n"
+             "\nOBJECT 5\n{quad}\nmaterial 0\nframe 0\nTRANS -0.8 2.0 1.6\n"
+             "ROTAT 10 30 0\nSCALE 3 3 3\n")
+    scene, tables = _scene_with(tmp_path, extra, {"quad": quad_obj(True)})
+    km = scene.mesh_tables
+    assert len(km.descs) == 3 and [d[3:] for d in km.descs] == [(1, 0), (1, 0), (0, 1)]
+    rng = np.random.default_rng(21)
+    n, centre = 4096, np.array([0.0, 2.1, 0.9])
+    o = rng.standard_normal((n, 3))
+    o = centre + 6.0 * o / np.linalg.norm(o, axis=-1, keepdims=True)
+    d = centre + rng.standard_normal((n, 3)) * 0.9 - o
+    o = torch.from_numpy(o.astype(np.float32))
+    d = torch.from_numpy((d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32))
+    want = _assert_sweep_equal(host_lib, tables, km, o, d)
+    # each mesh alone: which lanes it hits, and where
+    alone = torch.stack([mesh_sweep(kernel_meshes([m]), tables[0], o.unbind(-1),
+                                    d.unbind(-1))["et"] for m in scene.meshes], -1)
+    hits = alone < mesh.BIG
+    first = torch.argmax(hits.int(), dim=-1)  # the first mesh in sweep order the lane hits
+    winner = torch.argmin(alone, dim=-1)
+    multi = hits.sum(-1) >= 2
+    later_wins = int((multi & (winner > first)).sum())
+    earlier_keeps = int((multi & (winner == first)).sum())
+    print(f"three meshes: {int(hits.any(-1).sum())} of {n} lanes hit, {int(multi.sum())} hit "
+          f"two or more; a later mesh wins on {later_wins}, the first one hit keeps its hit on "
+          f"{earlier_keeps}; UV lanes {int(want['muvv'].sum())}")
+    assert later_wins >= 20 and earlier_keeps >= 20 and int(want["muvv"].sum()) >= 20
+
+
+def _facet_grid_obj(cells: int) -> str:
+    """A cells x cells grid of unit squares in the z = 0 plane, two
+    triangles each, every triangle with its own tilted vertex normal, so
+    that the normal a lane gets names the triangle that won."""
+    lines = [f"v {i} {j} 0" for j in range(cells + 1) for i in range(cells + 1)]
+    faces = []
+    for j in range(cells):
+        for i in range(cells):
+            a = j * (cells + 1) + i + 1
+            b, e, dd = a + 1, a + cells + 2, a + cells + 1
+            for tri in ((a, b, e), (a, e, dd)):
+                k = len(faces) + 1
+                lines.append(f"vn {0.05 * (k % 7 - 3)} {0.05 * (k % 5 - 2)} 1")
+                faces.append("f " + " ".join(f"{v}//{k}" for v in tri))
+    return "\n".join(lines + faces) + "\n"
+
+
+def test_mesh_sweep_tie_across_chunks_takes_the_lowest_row(host_lib, tmp_path):
+    """Rays straight down onto a flat 6 x 6 grid (72 triangles, three chunks
+    of 32 after the Morton sort) through every vertex and edge midpoint:
+    Moeller-Trumbore's t is exact there (integer corners, dyadic origins),
+    so triangles that share the edge or vertex tie, and on some lanes the
+    tied rows lie in different chunks.  The sweep takes the lowest row, as
+    ``mesh_sweep`` does, on every lane: its normal (each triangle's own)
+    equals the plain version's."""
+    from pathtracer_tpu_torch.ops.intersect import mt_planes
+
+    cells = 6
+    extra = ("\nOBJECT 4\n{grid}\nmaterial 1\nframe 0\nTRANS 0 0 0\nROTAT 0 0 0\n"
+             "SCALE 1 1 1\n")
+    scene, tables = _scene_with(tmp_path, extra, {"grid": _facet_grid_obj(cells)},
+                                drop_mesh=True)
+    km = scene.mesh_tables
+    assert len(km.descs) == 1 and km.descs[0][1] == 3
+    pts = [(x / 2, y / 2) for x in range(1, 2 * cells) for y in range(1, 2 * cells)]
+    n = len(pts)
+    o = torch.tensor([(x, y, 1.0) for x, y in pts], dtype=torch.float32)
+    d = torch.tensor([(0.0, 0.0, -1.0)] * n, dtype=torch.float32)
+    _assert_sweep_equal(host_lib, tables, km, o, d)
+    tri = km.tri.view(-1, 12)
+    t_all, _, _ = mt_planes(o.unbind(-1), d.unbind(-1), tri[:, 0:3], tri[:, 3:6], tri[:, 6:9])
+    tied = t_all == t_all.min(-1, keepdim=True).values
+    rows = torch.arange(tri.shape[0])
+    chunk_of = rows // 32
+    spans = torch.tensor([len(set(chunk_of[tied[j]].tolist())) for j in range(n)])
+    distinct = torch.tensor([len({tuple(r) for r in km.norm.view(-1, 9)[tied[j], :3].tolist()})
+                             for j in range(n)])
+    across = int(((spans >= 2) & (distinct >= 2)).sum())
+    print(f"facet grid: {n} rays, all at t = 1: {bool((t_all.min(-1).values == 1.0).all())}; "
+          f"ties across chunks with different normals on {across} lanes")
+    assert bool((t_all.min(-1).values == 1.0).all()) and across >= 5
+
+
+def test_mesh_occ_stops_before_the_limit(host_lib, tmp_path):
+    """The shadow ray's sweep against ``mesh_occ`` on smooth_mesh and the
+    three-mesh scene: 4,096 rays from around the meshes towards a light
+    point either before the meshes or past them (limit = distance - 8e-4,
+    the bounce's bar).  On every lane the kernel's answer to t >= limit is
+    the plain version's; where the nearest triangle lies beyond the light
+    (or none is hit) its t is the plain nearest t, and where one lies
+    before it, a t below the limit."""
+    from pathtracer_tpu_torch.ops.mesh_tables import mesh_occ
+    from pathtracer_tpu_torch.scene.variants import quad_obj
+
+    extra = ("\nOBJECT 4\nassets/ico_smooth.obj\nmaterial 3\nframe 0\nTRANS 0.9 2.3 1.1\n"
+             "ROTAT 20 -35 10\nSCALE 2.5 1.5 3\n"
+             "\nOBJECT 5\n{quad}\nmaterial 0\nframe 0\nTRANS -0.8 2.0 1.6\n"
+             "ROTAT 10 30 0\nSCALE 3 3 3\n")
+    for label, (scene, tables) in (("smooth_mesh", _mesh_scene((8, 8))),
+                                   ("three meshes", _scene_with(tmp_path, extra,
+                                                                {"quad": quad_obj(True)}))):
+        km = scene.mesh_tables
+        rng = np.random.default_rng(33)
+        n, centre = 4096, np.array([0.0, 2.0, 0.6])
+        x = rng.standard_normal((n, 3))
+        x = centre + 6.0 * x / np.linalg.norm(x, axis=-1, keepdims=True)
+        aim = centre + rng.standard_normal((n, 3)) * 0.8
+        light = x + (aim - x) * rng.uniform(0.3, 1.8, (n, 1))
+        dist = np.linalg.norm(light - x, axis=-1)
+        wi = torch.from_numpy(((light - x) / dist[:, None]).astype(np.float32))
+        x = torch.from_numpy(x.astype(np.float32))
+        limit = torch.from_numpy(dist.astype(np.float32)) - 4.0 * 2e-4
+        want = mesh_occ(km, tables[0], x.unbind(-1), wi.unbind(-1))
+        got = torch.empty(n)
+        host_lib.host_mesh_occ(tables[0].data_ptr(), *_mesh_args(km), n, x.data_ptr(),
+                               wi.data_ptr(), limit.data_ptr(), got.data_ptr())
+        blocked = want < limit
+        beyond = ~blocked & (want < mesh.BIG)
+        print(f"{label}: {int(blocked.sum())} shadow rays blocked before the light, "
+              f"{int(beyond.sum())} with their nearest triangle beyond it, "
+              f"{int((want >= mesh.BIG).sum())} clear")
+        assert torch.equal(got < limit, blocked)
+        assert torch.equal(got[~blocked], want[~blocked])
+        assert int(blocked.sum()) >= 100 and int(beyond.sum()) >= 100
 
 
 # ---- participating media: the kVol / kHg instances of kernels 1 and 2,

@@ -445,6 +445,96 @@ def test_bounce_replay_and_backward_kernels_match_plain(name, nee):
     assert not any(bool(z.any()) for z in zgot)
 
 
+def _assert_rows_near(got, ref):
+    """Each table cotangent within 1e-4 of itself plus 1e-6 of its table's
+    largest (``chip_smoke.hold_adjoint``'s bar): the kernels add a block's
+    lanes in no fixed order and the blocks' rows in another tree than
+    float64 autograd."""
+    for g, r in zip(got[:4], ref[:4]):
+        assert bool(torch.isfinite(g).all())
+        bar = 1e-4 * r.abs() + 1e-6 * float(r.abs().max())
+        assert bool(((g.double() - r).abs() <= bar).all())
+
+
+@pytest.mark.parametrize("n", [0, 1, 127, 129, 640_000])
+def test_backward_row_sums_at_any_width(n):
+    """Kernel 3's and kernel 5's table rows (``bounce_adj.cuh:row_sum``: one
+    pass up to 64 partial rows, two above) against their float64
+    references on n random lanes of Cornell, from none to 640,000 (one
+    block, and one partial row, per 128 lanes: 5,000 at 640,000); no lanes
+    give a zero row."""
+    _need_cuda()
+    import numpy as np
+
+    from pathtracer_tpu_torch.ops import bounce_fused, bounce_grad, trace_grad
+
+    tables = pack_tables(_scene("cornell", (8, 8)))
+    t = _random_lanes_cuda(n, 17)
+    medium = torch.zeros((n, 4), device="cuda")
+    args = (tables, t["origin"], t["direction"], t["throughput"], t["sample"].long(),
+            t["depth"], t["prev"])
+    _, rgid, rnee = bounce_fused.bounce_fused_cuda(*args, medium, 99, nee=True, emit_replay=True)
+    r = np.random.default_rng(5)
+    cots = [torch.from_numpy(r.standard_normal((n, 3)).astype(np.float32)).cuda()
+            for _ in range(4)]
+    bargs = (*args, rgid, rnee, *cots, 99)
+    got3 = bounce_grad.bounce_bwd_cuda(*bargs, nee=True)
+    kw = dict(max_depth=4, nee=True, rr=False, rr_start=3)
+    sample = t["sample"].long()
+    _, _, resid = trace_grad.tfwd_cuda(*tables, 99, t["origin"], t["direction"], sample, **kw)
+    g_rad = cots[0]
+    got5 = trace_grad.tbwd_cuda(*tables, 99, sample, resid, g_rad, **kw)
+    torch.cuda.synchronize()
+    if n == 0:
+        assert not any(bool(g.any()) for g in got3[:4] + got5[:4])
+        return
+    _assert_rows_near(got3, bounce_grad.bounce_bwd_plain(*bargs, nee=True, dtype=torch.float64))
+    _assert_rows_near(got5, trace_grad.tbwd_plain(*tables, 99, sample, resid, g_rad,
+                                                  dtype=torch.float64, **kw))
+
+
+def test_backward_row_with_every_lane_on_one_geom():
+    """640,000 lanes aimed within 1e-3 of the point that Cornell's centre
+    pixel hits: every lane hits that geom, so every lane adds to the same
+    table entries (the worst contention for the atomics into each block's
+    row).  The row within its bar of the float64 reference, the lanes at
+    1e-5 on 99.9%."""
+    _need_cuda()
+    import numpy as np
+
+    from pathtracer_tpu_torch.ops import bounce_fused, bounce_grad, intersect_cuda
+    from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
+    from pathtracer_tpu_torch.scene.structs import Rays
+
+    scene = _scene("cornell", (8, 8))
+    tables = pack_tables(scene)
+    n = 640_000
+    centre = torch.tensor([36], device="cuda")
+    ray = generate_camera_rays(scene.camera, centre, camera_uniforms(7, centre))
+    t_c, g_c = intersect_cuda.winner_t_gid_cuda(ray, tables[0])
+    r = np.random.default_rng(23)
+    aim = ray.origin[0] + t_c[0] * ray.direction[0]
+    to = aim + torch.from_numpy(r.uniform(-1e-3, 1e-3, (n, 3)).astype(np.float32)).cuda() \
+        - ray.origin[0]
+    rays = Rays(ray.origin.expand(n, 3).contiguous(), to / to.norm(dim=-1, keepdim=True))
+    medium = torch.zeros((n, 4), device="cuda")
+    sample = torch.arange(n, device="cuda")
+    args = (tables, rays.origin, rays.direction, torch.ones((n, 3), device="cuda"), sample,
+            torch.zeros(n, dtype=torch.int32, device="cuda"), torch.zeros(n, device="cuda"))
+    _, rgid, rnee = bounce_fused.bounce_fused_cuda(*args, medium, 7, nee=True, emit_replay=True)
+    assert bool((rgid == g_c[0].float()).all())
+    cots = [torch.from_numpy(r.standard_normal((n, 3)).astype(np.float32)).cuda()
+            for _ in range(4)]
+    bargs = (*args, rgid, rnee, *cots, 7)
+    got = bounce_grad.bounce_bwd_cuda(*bargs, nee=True)
+    ref = bounce_grad.bounce_bwd_plain(*bargs, nee=True, dtype=torch.float64)
+    torch.cuda.synchronize()
+    _assert_rows_near(got, ref)
+    for g, w in zip(got[4:], ref[4:]):
+        close = torch.isclose(g.double(), w, rtol=1e-5, atol=1e-5).all(-1)
+        assert float(close.double().mean()) >= 0.999
+
+
 @pytest.mark.parametrize("name", ["cornell", "glossy"])
 def test_winner_kernel_matches_plain(name):
     _need_cuda()
