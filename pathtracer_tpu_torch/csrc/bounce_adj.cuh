@@ -18,9 +18,10 @@
 // autograd does; the square root of a clamped quantity passes zero where
 // the quantity is not positive (ops/bsdf.py:sqrt0).  Table cotangents go to
 // a flat row (geom, material, light tables and the two scalars, RowLayout)
-// through acc_add: a float atomic into the block's row on the card (kernel
-// 5's in shared memory, kernel 3's in device memory), a plain add in the
-// host build; row_sum then adds the blocks' rows in a fixed tree.
+// through acc_add: a float atomic into the block's row of `partial`, in
+// device memory, on the card (kernels 3 and 5), a plain add in the host
+// build; kernel 5 first sums NEE's light and scalar columns per lane
+// (LaneSums).  row_sum then adds the blocks' rows in a fixed tree.
 //
 // The surface blocks (the kSurf instances: texture, bump, microfacet and
 // ward, bounce_pallas.py:645-706,756-783,1054-1074,1121-1138) have their
@@ -80,6 +81,61 @@ PT_FN D3 dcross(D3 a, D3 b) {
 }
 PT_FN AD dcomp(D3 a, int i) { return i == 0 ? a.x : (i == 1 ? a.y : a.z); }
 PT_FN void acc_d(float* acc, int i, AD v) { acc_add(acc, i, (float)v); }
+
+// Kernel 5's own sums of the columns that a lane's NEE connections add to
+// at every bounce: the sampled light's 12 position columns, its emission
+// (3) and the 9 normal columns of its geom row, for the first light the
+// lane samples, and the total-area scalar.  Where a scene has one light
+// every lane adds to these same 25 columns.  The lane sums them in double
+// across its bounces (slot k at s[k * stride]) and they reach the row once
+// at its end (lane_sums_add, or on the card a warp's sum: trace_grad.cu); a
+// connection to another light adds to the row at once.  With kSums false
+// (kernel 3, one bounce per lane, and the media and surface instances of
+// kernel 5, where the sums measured slower) every column goes to the row.
+constexpr int LS_POS = 0, LS_EMIT = 12, LS_NRM = 15, LS_AREA = 24, LANE_SUMS = 25;
+
+struct LaneSums {
+  AD* s;       // the lane's slots, slot k at s[k * stride]
+  int stride;
+  int lid;     // the light whose columns the light slots hold, -1 while none
+};
+
+// whether the columns of light lid go to the lane sums: they hold lid's,
+// or none yet (lid's from now on)
+template <bool kSums>
+PT_FN bool sums_take(LaneSums* ls, int lid) {
+  if constexpr (kSums) {
+    if (ls->lid < 0) ls->lid = lid;
+    return ls->lid == lid;
+  }
+  return false;
+}
+
+// column col's cotangent v: into slot `slot` of the lane sums where `hot`,
+// else into the row
+template <bool kSums>
+PT_FN void acc_sum(float* acc, LaneSums* ls, bool hot, int slot, int col, AD v) {
+  if (kSums && hot)
+    ls->s[slot * ls->stride] += v;
+  else
+    acc_d(acc, col, v);
+}
+
+// the row column of lane-sum slot k, for the sums' light lid
+PT_HD int lane_sum_col(const RowLayout& R, int k, int lid) {
+  if (k < LS_EMIT) return R.ol + lid * LCOLS + k;
+  if (k < LS_NRM) return R.ol + lid * LCOLS + 13 + (k - LS_EMIT);
+  if (k < LS_AREA) return lid * GCOLS + 4 * ((k - LS_NRM) / 3) + (k - LS_NRM) % 3;
+  return R.os;
+}
+
+// a lane's sums into the row, each nonzero slot once
+PT_FN void lane_sums_add(float* acc, const RowLayout& R, const LaneSums& ls) {
+  for (int k = 0; k < LANE_SUMS; ++k) {
+    const AD v = ls.s[k * ls.stride];
+    if (v != 0.0 && (k == LS_AREA || ls.lid >= 0)) acc_d(acc, lane_sum_col(R, k, ls.lid), v);
+  }
+}
 
 // kExact (the kSurf instances): the derivative of a square root, a
 // reciprocal square root or a reciprocal from its result in double at the
@@ -562,39 +618,42 @@ PT_FN void bsdf_adj(const float* mat, int macc, int cacc, V3 n_raw, V3 d_in, flo
 // The light sample's point lp = F lp_obj + f (light table rows 0..11 of
 // `lid`) and unit normal ln = normalize(Li^T ln_obj) (the light geom's
 // inverse rows, lnw before the normalize): their cotangents -> the tables'
-template <bool kExact = false>
+// (into the lane sums where `hot`)
+template <bool kExact = false, bool kSums = false>
 PT_FN void light_adj(const RowLayout& R, int lid, V3 lp_obj, V3 ln_obj, V3 lnw, D3 g_lp, D3 g_ln,
-                     float* acc) {
+                     float* acc, LaneSums* ls = nullptr, bool hot = false) {
   const D3 lpo = up(lp_obj), lno = up(ln_obj);
   const int lacc = R.ol + lid * LCOLS;
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
     const AD gi = dcomp(g_lp, i);
-    acc_d(acc, lacc + 4 * i + 0, gi * lpo.x);
-    acc_d(acc, lacc + 4 * i + 1, gi * lpo.y);
-    acc_d(acc, lacc + 4 * i + 2, gi * lpo.z);
-    acc_d(acc, lacc + 4 * i + 3, gi);
+    acc_sum<kSums>(acc, ls, hot, LS_POS + 4 * i + 0, lacc + 4 * i + 0, gi * lpo.x);
+    acc_sum<kSums>(acc, ls, hot, LS_POS + 4 * i + 1, lacc + 4 * i + 1, gi * lpo.y);
+    acc_sum<kSums>(acc, ls, hot, LS_POS + 4 * i + 2, lacc + 4 * i + 2, gi * lpo.z);
+    acc_sum<kSums>(acc, ls, hot, LS_POS + 4 * i + 3, lacc + 4 * i + 3, gi);
   }
   const D3 g_lnw = normalize_adj<kExact>(lnw, g_ln);
   const int gacc = lid * GCOLS;
 #pragma unroll
   for (int j = 0; j < 3; ++j) {
     const AD nj = dcomp(lno, j);
-    acc_d(acc, gacc + 4 * j + 0, g_lnw.x * nj);
-    acc_d(acc, gacc + 4 * j + 1, g_lnw.y * nj);
-    acc_d(acc, gacc + 4 * j + 2, g_lnw.z * nj);
+    acc_sum<kSums>(acc, ls, hot, LS_NRM + 3 * j + 0, gacc + 4 * j + 0, g_lnw.x * nj);
+    acc_sum<kSums>(acc, ls, hot, LS_NRM + 3 * j + 1, gacc + 4 * j + 1, g_lnw.y * nj);
+    acc_sum<kSums>(acc, ls, hot, LS_NRM + 3 * j + 2, gacc + 4 * j + 2, g_lnw.z * nj);
   }
 }
 
 // NEE connection that counted (its radiance cotangent g_rad) -> cotangents
 // of p, the normal, the throughput, and the material, light, geom and
-// scalar tables; the albedo is read from col, its cotangent goes to cacc
-template <bool kExact = false>
+// scalar tables; the albedo is read from col, its cotangent goes to cacc;
+// kSums: the light's and the scalar's columns to the lane sums ls
+template <bool kExact = false, bool kSums = false>
 PT_FN void nee_adj(const Tables& T, const RowLayout& R, const float* col, int cacc, V3 pf,
                    V3 normal, V3 d, V3 thr_f, float u4, float u5, float u6, float u7, D3 g_rad,
-                   D3& g_p, D3& g_normal, D3& g_thr, float* acc) {
+                   D3& g_p, D3& g_normal, D3& g_thr, float* acc, LaneSums* ls = nullptr) {
   V3 lp_obj, ln_obj;
   const int lid = sample_light_obj(T.g, T.l, T.G, u4, u5, u6, u7, lp_obj, ln_obj);
+  const bool hot = sums_take<kSums>(ls, lid);
   const float* L = T.l + lid * LCOLS;
   const float* li = T.g + lid * GCOLS;
   const V3 lnw = world_normal_raw(li, ln_obj);
@@ -632,9 +691,9 @@ PT_FN void nee_adj(const Tables& T, const RowLayout& R, const float* col, int ca
   const D3 g_tce = dscale(ns, g_rad);
   const D3 g_tc = dmul(g_tce, emit);
   const int lacc = R.ol + lid * LCOLS;
-  acc_d(acc, lacc + 13, g_tce.x * tc.x);
-  acc_d(acc, lacc + 14, g_tce.y * tc.y);
-  acc_d(acc, lacc + 15, g_tce.z * tc.z);
+  acc_sum<kSums>(acc, ls, hot, LS_EMIT + 0, lacc + 13, g_tce.x * tc.x);
+  acc_sum<kSums>(acc, ls, hot, LS_EMIT + 1, lacc + 14, g_tce.y * tc.y);
+  acc_sum<kSums>(acc, ls, hot, LS_EMIT + 2, lacc + 15, g_tce.z * tc.z);
   g_thr = dadd(g_thr, dmul(g_tc, color));
   acc_d(acc, cacc + 0, g_tc.x * thr.x);
   acc_d(acc, cacc + 1, g_tc.y * thr.y);
@@ -644,7 +703,7 @@ PT_FN void nee_adj(const Tables& T, const RowLayout& R, const float* col, int ca
   const AD g_gterm = g_a / mp;
   if (pdf_f >= 1e-20f && T.total_area >= 1e-20f) {
     const AD g_mp = -g_a * gterm / (mp * mp);
-    acc_d(acc, R.os + 0, -g_mp / (ma * ma));
+    acc_sum<kSums>(acc, ls, true, LS_AREA, R.os + 0, -g_mp / (ma * ma));
   }
   // gterm = cos_x cos_y / max(dist2, 1e-12)
   const AD g_cxy = g_gterm / md;
@@ -663,7 +722,7 @@ PT_FN void nee_adj(const Tables& T, const RowLayout& R, const float* col, int ca
   g_p = dsub(g_p, g_tl);
   g_nsh = dsub(g_nsh, dscale((AD)RAY_BIAS, g_tl));
   g_normal = dadd(g_normal, dscale(sgn, g_nsh));
-  light_adj<kExact>(R, lid, lp_obj, ln_obj, lnw, g_tl, g_ln, acc);
+  light_adj<kExact, kSums>(R, lid, lp_obj, ln_obj, lnw, g_tl, g_ln, acc, ls, hot);
 }
 
 // ---- one replayed bounce ----------------------------------------------------
@@ -853,12 +912,13 @@ PT_FN D3 bump_adj(const float* mat, int macc, V3 p_obj, V3 normal, D3 g_nb, D3& 
 // not seen here.  kSurf: the textured albedo feeds the emission, the
 // diffuse lobe and NEE, the bumped normal the BSDF and NEE, and the bump's
 // adjoint turns the shading normal's cotangent into the geometric normal's
-// and the object-space point's.
-template <bool kSurf = false>
+// and the object-space point's.  kSums: NEE's light and scalar columns to
+// the lane sums ls (kernel 5).
+template <bool kSurf = false, bool kSums = false>
 PT_FN void physics_adj(const Tables& T, const RowLayout& R, const Replay& r, uint32_t base,
                        int dep, int nee, V3 o, V3 d, V3 thr, float prev_state, bool nee_add,
                        D3 g_contrib, D3 g_next_o, D3 g_next_d, D3 g_thr_mult, D3& g_o, D3& g_d,
-                       D3& g_thr, float* acc) {
+                       D3& g_thr, float* acc, LaneSums* ls = nullptr) {
   const int macc = R.om + r.mid * MCOLS;
   const SurfReplay s = surf_replay<kSurf>(T, r);
   const int cacc = macc + s.ccol;
@@ -872,8 +932,9 @@ PT_FN void physics_adj(const Tables& T, const RowLayout& R, const Replay& r, uin
                   uniform(base, 2), T.surf, g_thr_mult, g_next_o, g_next_d, g_p, g_normal, g_d,
                   acc);
   if (nee && nee_add)
-    nee_adj<kSurf>(T, R, s.col, cacc, r.p, s.normal, d, thr, uniform(base, 4), uniform(base, 5),
-            uniform(base, 6), uniform(base, 7), g_contrib, g_p, g_normal, g_thr, acc);
+    nee_adj<kSurf, kSums>(T, R, s.col, cacc, r.p, s.normal, d, thr, uniform(base, 4),
+                          uniform(base, 5), uniform(base, 6), uniform(base, 7), g_contrib, g_p,
+                          g_normal, g_thr, acc, ls);
   D3 g_pobj = zero;
   if constexpr (kSurf) {
     if (s.bump) g_normal = bump_adj(r.mat, macc, r.p_obj, r.normal, g_normal, g_pobj, acc);

@@ -50,23 +50,43 @@
 // incoming direction, the specular colour and the roughness.  JAX adds no
 // residual planes for the surface blocks: 13 planes stay (17 with kVol,
 // whose instance with kSurf is the same template).
-// The table cotangents of a block's lanes go into a shared-memory row with
-// float atomics (their order within the block is not fixed: the row varies
-// in its last bits from run to run); bounce_adj.cuh's row_sum then adds the
-// per-block rows (5,000 at 640,000 lanes) in a fixed tree spread over
-// 32-column tiles and 64-row segments, two short launches.
+// The table cotangents: each block zeroes its own row of `partial`, in
+// device memory, and its lanes add to it with float atomics, which L2
+// resolves as reductions (their order within the block is not fixed: the
+// row varies in its last bits from run to run).  In the vacuum instance
+// (kernel 5) the columns that every NEE bounce adds to (its first light's
+// position, emission and normal columns and the total-area scalar: 25 of
+// the up to 59 atomics of a live bounce, the same 25 on every lane of a
+// one-light scene) are summed per lane in double in shared memory across
+// its bounces (bounce_adj.cuh's LaneSums) and reach the row once per warp,
+// a shuffle sum in a fixed order, after the loop.  A lane whose radiance
+// cotangent is zero writes zeros and skips the loop.  bounce_adj.cuh's
+// row_sum then adds the per-block rows (5,000 at 640,000 lanes) in a fixed
+// tree spread over 32-column tiles and 64-row segments, two short launches.
+//
+// The media and surface instances (5v, 5s) first order their lanes: a lane
+// takes a key of one bit per bounce, set where it takes the instance's
+// costly branch (lane_key: in a scattering medium, where the free path's
+// and the volumetric NEE's adjoints run; on a Cook-Torrance or Ward
+// material), two short kernels group the lanes by key (lane_order), and
+// thread t of the reverse kernel takes lane order[t].  A warp otherwise
+// runs the union of its lanes' branches: one lane that scatters in the
+// medium makes the whole warp wait for its volumetric NEE adjoint.
 //
 // What bounds them on the H100: the forward moves 40 B per lane plus 52 B
 // per lane and bounce of residuals (266 MB per 640,000-lane iteration at
 // depth 8, ~0.08 ms at 3.35 TB/s; 68 B with the medium planes) against the
 // trace kernel's two sweeps per bounce.  The reverse reads the alive plane
 // of every bounce and the other 12 (16) planes of a live one, and replays
-// one intersection per live bounce, but its adjoint is several times the
-// forward's shading arithmetic (5v also re-runs the volumetric NEE's split
-// sweep at a scatter), and its shared-memory atomics serialize where a
-// block's lanes hit the same geom.  This first version keeps the bounce loop
-// rolled and the state in registers; ptxas reports its registers and
-// spills in chip_smoke.py's build phase.
+// one intersection per live bounce; its operations, the float recompute
+// and an adjoint in double several times the forward's shading (5v also
+// re-runs the volumetric NEE's split sweep at a scatter), bound it on
+// paper about as much as its bytes.  On the card it ran far above both:
+// its table atomics into a shared-memory row took 64% of kernel 5's time,
+// and divergence between a warp's lanes about half of 5v's and 5s's once
+// the row had moved to device memory (PERF.md, section 6).  The
+// bounce loop stays rolled and the state in registers; ptxas reports
+// registers and spills in chip_smoke.py's build phase.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -140,6 +160,12 @@ PT_FN void fwd_lane(const Tables& T, uint32_t seed, uint32_t s, V3 o, V3 d, int 
 
 // ---- reverse ---------------------------------------------------------------
 
+// The instances that sum NEE's light and scalar columns per lane
+// (bounce_adj.cuh's LaneSums): the vacuum one, kernel 5.  On 5v and 5s the
+// sums measured slower than the row's atomics alone (PERF.md, section 6).
+template <bool kVol, bool kSurf>
+constexpr bool LANE_SUMS_ON = !kVol && !kSurf;
+
 // One live bounce in reverse: the cotangents of the bounce's outputs
 // (g_rad of the radiance increment; g_o, g_d, g_thr of the next carries)
 // become those of its inputs (g_o, g_d, g_thr, in place) and of the tables
@@ -150,7 +176,8 @@ PT_FN void fwd_lane(const Tables& T, uint32_t seed, uint32_t s, V3 o, V3 d, int 
 template <bool kSurf = false>
 PT_FN void bounce_adj(const Tables& T, const RowLayout& R, uint32_t base, int dep, int nee,
                       int rr, int rr_start, V3 o, V3 d, V3 thr, float prev_state, int gid,
-                      bool nee_add, D3 g_rad, D3& g_o, D3& g_d, D3& g_thr, float* acc) {
+                      bool nee_add, D3 g_rad, D3& g_o, D3& g_d, D3& g_thr, float* acc,
+                      LaneSums* ls) {
   if (gid < 0) return;  // miss: the path ends, the carries pass through
   const Replay r = replay_bounce(T, o, d, gid);
   const SurfReplay s = surf_replay<kSurf>(T, r);
@@ -185,8 +212,9 @@ PT_FN void bounce_adj(const Tables& T, const RowLayout& R, uint32_t base, int de
   D3 g_d_in = survive ? zero : g_d;
 
   // ---- the bounce
-  physics_adj<kSurf>(T, R, r, base, dep, nee, o, d, thr, prev_state, nee_add, g_rad, g_org,
-                     g_dir, g_mult, g_o_in, g_d_in, g_thr_in, acc);
+  physics_adj<kSurf, LANE_SUMS_ON<false, kSurf>>(T, R, r, base, dep, nee, o, d, thr, prev_state,
+                                                 nee_add, g_rad, g_org, g_dir, g_mult, g_o_in,
+                                                 g_d_in, g_thr_in, acc, ls);
   g_o = g_o_in;
   g_d = g_d_in;
   g_thr = g_thr_in;
@@ -240,13 +268,21 @@ PT_FN void bounce_adj_vol(const Tables& T, const RowLayout& R, uint32_t base, in
   g_ss = g_ss_in;
 }
 
-// the reverse loop of one lane: its origin and direction cotangents
+// the reverse loop of one lane: its origin and direction cotangents; the
+// table cotangents go to acc, and in the LANE_SUMS_ON instance the light's
+// and the scalar's to the lane sums ls (zeroed by the caller, who adds them
+// to the row after the loop)
 template <bool kVol = false, bool kSurf = false>
 PT_FN void bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, uint32_t s,
                     const float* resid, size_t n, size_t idx, int max_depth, int nee, int rr,
                     int rr_start, V3 g_rad_f, V3& g_o_out, V3& g_d_out, float* acc,
-                    int vol_nee = 1) {
+                    LaneSums* ls, int vol_nee = 1) {
   constexpr int NR = N_RESID<kVol>, RS = R_STATE<kVol>;
+  if (g_rad_f.x == 0.0f && g_rad_f.y == 0.0f && g_rad_f.z == 0.0f) {
+    // no cotangent: exact zeros, and nothing added to the tables
+    g_o_out = g_d_out = v3(0.0f, 0.0f, 0.0f);
+    return;
+  }
   const uint32_t s_term = s * 0x85EBCA6Bu;
   const D3 g_rad = up(g_rad_f);
   D3 g_thr = d3(0.0, 0.0, 0.0);
@@ -269,11 +305,41 @@ PT_FN void bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, uint32_t
     } else {
       bounce_adj<kSurf>(T, R, base, dep, nee, rr, rr_start, o, d, thr, r[RS * n],
                         (int)r[(RS + 2) * n], r[(RS + 3) * n] > 0.5f, g_rad, g_o, g_d, g_thr,
-                        acc);
+                        acc, ls);
     }
   }
   g_o_out = v3((float)g_o.x, (float)g_o.y, (float)g_o.z);
   g_d_out = v3((float)g_d.x, (float)g_d.y, (float)g_d.z);
+}
+
+// ---- the lane order of the media and surface instances (5v, 5s) ----------
+
+constexpr int ORDER_BOUNCES = 8;                // the bounces a lane's key looks at
+constexpr int ORDER_KEYS = 1 << ORDER_BOUNCES;  // the keys' range
+
+// A lane's key: bit d set where the lane lives at bounce d and takes its
+// instance's costly branch there: in a scattering medium (kVol, kernel 5v:
+// the free path's and the volumetric NEE's adjoints; ops/trace_grad.py:
+// lane_keys_plain), on a Cook-Torrance or Ward material (kernel 5s: the
+// lobe's adjoint).  It reads the residual planes and the tables alone.
+template <bool kVol>
+PT_FN int lane_key(const float* gtab, const float* mtab, const float* resid, size_t n, size_t idx,
+                   int max_depth) {
+  constexpr int NR = N_RESID<kVol>, RS = R_STATE<kVol>;
+  int key = 0;
+  for (int dep = 0; dep < max_depth && dep < ORDER_BOUNCES; ++dep) {
+    const float* r = resid + (size_t)dep * NR * n + idx;
+    if (!(r[(RS + 1) * n] > 0.5f)) break;  // dead from here on
+    bool costly;
+    if constexpr (kVol) {
+      costly = r[R_SS * n] > 0.0f;
+    } else {
+      const int gid = (int)r[(RS + 2) * n];
+      costly = gid >= 0 && mtab[(int)gtab[gid * GCOLS + 13] * MCOLS + 24] > 0.5f;
+    }
+    key |= (costly ? 1 : 0) << dep;
+  }
+  return key;
 }
 
 }  // namespace pt
@@ -286,6 +352,31 @@ using namespace pt;
 
 constexpr int FWD_THREADS = 128;
 constexpr int BWD_THREADS = 128;
+
+// the lane sums' place in the reverse kernel's shared memory, in floats:
+// after the tables, at an 8-byte boundary
+__host__ __device__ __forceinline__ size_t sums_offset(int G, int M) {
+  return (table_floats(G, M) + 1) & ~(size_t)1;
+}
+
+// The lane sums of a whole warp into the row (every thread of the warp
+// calls it): where every lane's light slots hold one light, or none, each
+// slot is summed over the warp with shuffles in a fixed order and added
+// once; else each lane adds its own (lane_sums_add).
+__device__ __forceinline__ void warp_sums_add(float* acc, const RowLayout& R, const LaneSums& ls) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const int lid = __reduce_max_sync(FULL, ls.lid);
+  if (!__all_sync(FULL, ls.lid < 0 || ls.lid == lid)) {
+    lane_sums_add(acc, R, ls);
+    return;
+  }
+  for (int k = 0; k < LANE_SUMS; ++k) {
+    AD v = ls.s[k * ls.stride];
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+    if ((threadIdx.x & 31) == 0 && v != 0.0 && (k == LS_AREA || lid >= 0))
+      acc_d(acc, lane_sum_col(R, k, lid), v);
+  }
+}
 
 // the tables of a block's kernel: no meshes, the surface bits of a kSurf
 // instance
@@ -340,21 +431,34 @@ trace_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict_
                  const uint32_t* __restrict__ sample, int n, const float* __restrict__ resid,
                  const float* __restrict__ g_radiance, float* __restrict__ d_origin,
                  float* __restrict__ d_direction, float* __restrict__ partial, int max_depth,
-                 int nee, int rr, int rr_start, int vol_nee, int surf) {
+                 int nee, int rr, int rr_start, int vol_nee, int surf,
+                 const int* __restrict__ order) {
   extern __shared__ float smem[];
   const RowLayout R = row_layout(G, M);
-  float* s_acc = smem + G * GCOLS + M * MCOLS + G * LCOLS;
+  // the block's table row is its row of `partial`, in device memory: the
+  // lanes' float atomics there are reductions resolved in L2
+  float* acc = partial + (size_t)blockIdx.x * R.k;
   load_tables(smem, gtab, G, mtab, M, ltab);
-  for (int i = threadIdx.x; i < R.k; i += blockDim.x) s_acc[i] = 0.0f;
+  for (int i = threadIdx.x; i < R.k; i += blockDim.x) acc[i] = 0.0f;
+  // kernel 5: each thread's lane sums, slot k at [k * BWD_THREADS + thread],
+  // after the tables
+  constexpr bool kSums = LANE_SUMS_ON<kVol, kSurf>;
+  LaneSums ls{nullptr, BWD_THREADS, -1};
+  if constexpr (kSums) {
+    ls.s = reinterpret_cast<AD*>(smem + sums_offset(G, M)) + threadIdx.x;
+    for (int k = 0; k < LANE_SUMS; ++k) ls.s[k * BWD_THREADS] = 0.0;
+  }
   __syncthreads();
   const Tables T = block_tables<kSurf>(smem, G, M, scal, surf);
 
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  // thread t takes lane order[t] where the instance orders its lanes
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int idx = order != nullptr && t < n ? order[t] : t;
   if (idx < n) {  // lanes past n contribute nothing
     const V3 g_rad = v3(g_radiance[3 * idx], g_radiance[3 * idx + 1], g_radiance[3 * idx + 2]);
     V3 g_o, g_d;
     bwd_lane<kVol, kSurf>(T, R, seed, sample[idx], resid, (size_t)n, (size_t)idx, max_depth, nee,
-                          rr, rr_start, g_rad, g_o, g_d, s_acc, vol_nee);
+                          rr, rr_start, g_rad, g_o, g_d, acc, &ls, vol_nee);
     d_origin[3 * idx] = g_o.x;
     d_origin[3 * idx + 1] = g_o.y;
     d_origin[3 * idx + 2] = g_o.z;
@@ -362,9 +466,77 @@ trace_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict_
     d_direction[3 * idx + 1] = g_d.y;
     d_direction[3 * idx + 2] = g_d.z;
   }
+  if constexpr (kSums) warp_sums_add(acc, R, ls);
+}
+
+constexpr int ORDER_THREADS = ORDER_KEYS;  // the place pass scans the counts one per thread
+
+// The lane order's first pass: each lane's key (lane_key), and the keys'
+// counts, a block's in shared memory and then added to counts[]
+template <bool kVol>
+__global__ void __launch_bounds__(ORDER_THREADS)
+lane_order_keys(const float* __restrict__ gtab, const float* __restrict__ mtab,
+                const float* __restrict__ resid, int n, int max_depth, int* __restrict__ keys,
+                int* __restrict__ counts) {
+  __shared__ int s_count[ORDER_KEYS];
+  s_count[threadIdx.x] = 0;
   __syncthreads();
-  for (int i = threadIdx.x; i < R.k; i += blockDim.x)
-    partial[(size_t)blockIdx.x * R.k + i] = s_acc[i];
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    const int key = lane_key<kVol>(gtab, mtab, resid, (size_t)n, (size_t)i, max_depth);
+    keys[i] = key;
+    atomicAdd(&s_count[key], 1);
+  }
+  __syncthreads();
+  if (s_count[threadIdx.x]) atomicAdd(&counts[threadIdx.x], s_count[threadIdx.x]);
+}
+
+// The second pass: order[] holds the lanes grouped by key in increasing key
+// order.  A warp's lanes of one key take consecutive places in lane order
+// (one atomic per warp and key on fill[]), so the reverse kernel's loads
+// stay in runs; the warps' runs are in no fixed order.
+__global__ void __launch_bounds__(ORDER_THREADS)
+lane_order_place(const int* __restrict__ keys, const int* __restrict__ counts, int n,
+                 int* __restrict__ fill, int* __restrict__ order) {
+  __shared__ int s_scan[ORDER_KEYS];
+  s_scan[threadIdx.x] = counts[threadIdx.x];
+  __syncthreads();
+  for (int off = 1; off < ORDER_KEYS; off <<= 1) {  // inclusive scan of the counts
+    const int add = threadIdx.x >= off ? s_scan[threadIdx.x - off] : 0;
+    __syncthreads();
+    s_scan[threadIdx.x] += add;
+    __syncthreads();
+  }
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int key = i < n ? keys[i] : -1;
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  const int lane = threadIdx.x & 31, leader = __ffs(peers) - 1;
+  int base = 0;
+  if (i < n && lane == leader) base = atomicAdd(&fill[key], __popc(peers));
+  base = __shfl_sync(0xffffffffu, base, leader);
+  if (i < n) {
+    const int start = s_scan[key] - counts[key];  // the exclusive scan
+    order[start + base + __popc(peers & ((1u << lane) - 1u))] = i;
+  }
+}
+
+// The lane order of n lanes into scratch (lane_order_ints(n) ints: the keys,
+// the order, the counts and the fill counters)
+cudaError_t lane_order(const float* gtab, const float* mtab, const float* resid, int n,
+                       int max_depth, int vol, int* scratch, cudaStream_t stream) {
+  int* keys = scratch;
+  int* order = keys + n;
+  int* counts = order + n;
+  int* fill = counts + ORDER_KEYS;
+  cudaError_t e = cudaMemsetAsync(counts, 0, sizeof(int) * 2 * ORDER_KEYS, stream);
+  if (e != cudaSuccess) return e;
+  const int blocks = (n + ORDER_THREADS - 1) / ORDER_THREADS;
+  const auto keys_kernel = vol ? lane_order_keys<true> : lane_order_keys<false>;
+  keys_kernel<<<blocks, ORDER_THREADS, 0, stream>>>(gtab, mtab, resid, n, max_depth, keys, counts);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  lane_order_place<<<blocks, ORDER_THREADS, 0, stream>>>(keys, counts, n, fill, order);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -389,6 +561,18 @@ extern "C" int trace_fwd_launch(const float* gtab, int G, const float* mtab, int
   return (int)cudaGetLastError();
 }
 
+// the ints of scratch that the lane order of n lanes needs (lane_order_launch;
+// trace_bwd_launch's media and surface instances)
+extern "C" int lane_order_ints(int n) { return 2 * n + 2 * ORDER_KEYS; }
+
+// the keys (scratch[0, n)) and the order (scratch[n, 2n)) of n lanes'
+// residuals: vol picks the media key, else the surface one
+extern "C" int lane_order_launch(const float* gtab, const float* mtab, const float* resid, int n,
+                                 int max_depth, int vol, int* scratch, void* stream) {
+  if (n <= 0) return 0;
+  return (int)lane_order(gtab, mtab, resid, n, max_depth, vol, scratch, (cudaStream_t)stream);
+}
+
 // the rows of `partial` that trace_bwd_launch needs for n lanes: one per
 // block and the row sum's scratch
 extern "C" int trace_bwd_rows(int n) {
@@ -401,11 +585,14 @@ extern "C" int trace_bwd_launch(const float* gtab, int G, const float* mtab, int
                                 const unsigned int* sample, int n, const float* resid,
                                 const float* g_radiance, float* d_origin, float* d_direction,
                                 float* partial, float* row, int max_depth, int nee, int rr,
-                                int rr_start, int vol, int vol_nee, int surf, void* stream) {
+                                int rr_start, int vol, int vol_nee, int surf, int* order_scratch,
+                                void* stream) {
   const RowLayout R = row_layout(G, M);
   const int blocks = (n + BWD_THREADS - 1) / BWD_THREADS;
   if (n <= 0) return (int)cudaMemsetAsync(row, 0, sizeof(float) * R.k, (cudaStream_t)stream);
-  const size_t smem = sizeof(float) * (table_floats(G, M) + R.k);
+  // the tables, and the lane sums in the instance that keeps them
+  const size_t smem = sizeof(float) * (vol || surf ? table_floats(G, M)
+                                       : sums_offset(G, M) + 2 * LANE_SUMS * BWD_THREADS);
   const auto kernel = vol ? (surf ? trace_bwd_kernel<true, true> : trace_bwd_kernel<true, false>)
                           : (surf ? trace_bwd_kernel<false, true> : trace_bwd_kernel<false, false>);
   if (smem > 48 * 1024) {
@@ -413,9 +600,17 @@ extern "C" int trace_bwd_launch(const float* gtab, int G, const float* mtab, int
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
+  // the media and surface instances take their lanes grouped by lane_key
+  const int* order = nullptr;
+  if (vol || surf) {
+    const cudaError_t e = lane_order(gtab, mtab, resid, n, max_depth, vol, order_scratch,
+                                     (cudaStream_t)stream);
+    if (e != cudaSuccess) return (int)e;
+    order = order_scratch + n;
+  }
   kernel<<<blocks, BWD_THREADS, smem, (cudaStream_t)stream>>>(
       gtab, G, mtab, M, ltab, scal, seed, sample, n, resid, g_radiance, d_origin, d_direction,
-      partial, max_depth, nee, rr, rr_start, vol_nee, surf);
+      partial, max_depth, nee, rr, rr_start, vol_nee, surf, order);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   return (int)row_sum(partial, blocks, R.k, partial + (size_t)blocks * R.k, row,

@@ -16,6 +16,9 @@ replays the winner (no sweep, no shadow ray), differentiates the bounce and
 * :func:`tfwd_cuda` / :func:`tbwd_cuda` launch ``csrc/trace_grad.cu``: one
   thread per lane; the reverse kernel is a hand-written adjoint of the
   replayed bounce, with per-block table partials and a fixed-order sum.
+  Its media and surface instances take their lanes grouped by a key of
+  the residuals (:func:`lane_keys_plain`; :func:`lane_order_cuda`), so
+  that a warp's lanes take the costly branches together.
 * :class:`TraceDiff` is the ``torch.autograd.Function`` (the
   ``jax.custom_vjp`` of ``trace_grad.py:487-511``): the forward saves the
   tables, the samples and the residuals, the backward runs the reverse
@@ -91,6 +94,7 @@ from pathtracer_tpu_torch.scene.structs import Rays
 N_RESID = 13  # vacuum: o(3) d(3) thr(3), then the tail: prev_state alive gid nee_add
 N_RESID_VOL = 17  # volumetric: sigma_a(3) sigma_s before the tail, as JAX's N_RESID
 R_SA, R_SS = 9, 12  # the medium's planes, in the volumetric layout only
+ORDER_BOUNCES = 8  # the bounces a lane's key looks at (csrc/trace_grad.cu)
 
 fwd_launches = 0  # launches of tfwd_cuda in this process, vacuum scenes
 bwd_launches = 0  # launches of tbwd_cuda (its kernel and its block sum), vacuum scenes
@@ -363,10 +367,19 @@ def _lib():
             ctypes.c_void_p, ctypes.c_void_p,  # block partials with the row sum's scratch, row
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # depth, nee, rr, rr_start
             ctypes.c_int, ctypes.c_int, ctypes.c_int,  # volumetric, vol_nee, surface bits
+            ctypes.c_void_p,  # the lane order's scratch (media and surface instances)
             ctypes.c_void_p,  # stream
         ]
         lib.trace_bwd_rows.restype = ctypes.c_int
         lib.trace_bwd_rows.argtypes = [ctypes.c_int]
+        lib.lane_order_ints.restype = ctypes.c_int
+        lib.lane_order_ints.argtypes = [ctypes.c_int]
+        lib.lane_order_launch.restype = ctypes.c_int
+        lib.lane_order_launch.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # geom, material tables, resid
+            ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n, depth, volumetric
+            ctypes.c_void_p, ctypes.c_void_p,  # scratch, stream
+        ]
     return lib
 
 
@@ -437,6 +450,8 @@ def tbwd_cuda(
     d_d = torch.empty((n, 3), dtype=torch.float32, device=device)
     partial = torch.empty((lib.trace_bwd_rows(n), k), dtype=torch.float32, device=device)
     row = torch.empty((k,), dtype=torch.float32, device=device)
+    order = (torch.empty(lib.lane_order_ints(n), dtype=torch.int32, device=device)
+             if vol or surf else None)
     stream = torch.cuda.current_stream(device).cuda_stream
     err = lib.trace_bwd_launch(
         gtab.data_ptr(), g, mtab.data_ptr(), m, ltab.data_ptr(), scal.data_ptr(),
@@ -444,7 +459,7 @@ def tbwd_cuda(
         resid.data_ptr(), g_rad.data_ptr(), d_o.data_ptr(), d_d.data_ptr(),
         partial.data_ptr(), row.data_ptr(),
         int(max_depth), int(bool(nee)), int(bool(rr)), int(rr_start), int(vol),
-        int(bool(vol_nee)), surf, stream,
+        int(bool(vol_nee)), surf, None if order is None else order.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"trace_bwd kernel launch failed: CUDA error {err}")
@@ -455,6 +470,46 @@ def tbwd_cuda(
     else:
         bwd_launches += 1
     return (*split_grad_row(row, g, m), d_o, d_d)
+
+
+def lane_keys_plain(gtab, mtab, resid, features, max_depth: int):
+    """The plain version of the reverse kernel's lane keys (int32 [N]): bit
+    d set where the lane lives at bounce d (d < ``ORDER_BOUNCES``) and takes
+    its instance's costly branch there, in a scattering medium with
+    ``volumetric`` (5v), else on a Cook-Torrance or Ward material (5s)."""
+    tail = tail_plane(features)
+    depth = min(max_depth, ORDER_BOUNCES)
+    alive = torch.cumprod((resid[:depth, tail + 1] > 0.5).int(), 0).bool()
+    if "volumetric" in features:
+        costly = resid[:depth, R_SS] > 0
+    else:
+        gid = resid[:depth, tail + 2].long()
+        mat = gtab[gid.clamp(min=0), 13].long()
+        costly = (gid >= 0) & (mtab[mat, 24] > 0.5)
+    bits = (alive & costly).int() << torch.arange(depth, device=resid.device)[:, None]
+    return bits.sum(0, dtype=torch.int32)
+
+
+def lane_order_cuda(gtab, mtab, resid, features, max_depth: int):
+    """The lane order that :func:`tbwd_cuda`'s media and surface instances
+    run: ``(keys int32 [N], order int32 [N])``, the lanes grouped by key in
+    increasing key order (within a key in no fixed order), on the current
+    stream.  ``keys`` equal :func:`lane_keys_plain`'s."""
+    device = resid.device
+    n = resid.shape[2]
+    check_tensor(resid, "residuals", torch.float32, (max_depth, n_resid(features), n), device)
+    check_tensor(gtab, "geom table", torch.float32, (gtab.shape[0], GEOM_COLS), device)
+    check_tensor(mtab, "material table", torch.float32, (mtab.shape[0], MAT_COLS), device)
+    lib = _lib()
+    scratch = torch.empty(lib.lane_order_ints(n), dtype=torch.int32, device=device)
+    err = lib.lane_order_launch(
+        gtab.data_ptr(), mtab.data_ptr(), resid.data_ptr(), n, int(max_depth),
+        int("volumetric" in features), scratch.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
+    )
+    if err != 0:
+        raise RuntimeError(f"lane order kernels failed: CUDA error {err}")
+    return scratch[:n], scratch[n:2 * n]
 
 
 # ---------------------------------------------------------------------------

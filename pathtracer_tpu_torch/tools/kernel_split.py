@@ -3,22 +3,24 @@ body and the table row sum apart), of the full-depth reverse kernels' row
 sum (5, 5v and 5s), of kernel 1m, and of the steps and the iteration that
 run them, for one or more checkouts in turns on one card:
 
-    python -m pathtracer_tpu_torch.tools.kernel_split [NAME=DIR ...]
+    python -m pathtracer_tpu_torch.tools.kernel_split [--parts PARTS] [NAME=DIR ...]
 
 Each ``NAME=DIR`` is a checkout (its ``pathtracer_tpu_torch/``, ``scenes/``
 and ``chip_smoke.py``, as ``git archive`` unpacks them); with none, this
 checkout.  They run in the order given (``a=P b=C b=C a=P`` for parent /
 change / change / parent), each in a process of its own that builds its
 kernels from its own sources (``tools/in_turns``).  Each process prints
-``[split]`` lines:
+``[split]`` lines for the parts that ``--parts`` names (comma-separated;
+``adjoint,1m,steps`` by default):
 
 - adjoint: kernel 3 on Cornell 800x800, 3v on milky 800x800 (vol_nee
   on) and 3s on ward 512x512, each on the state after two bounces (640,000,
   640,000 and 262,144 lanes; seeded cotangents), and kernels 5 / 5v / 5s on
   the same scenes' iteration-0 residuals: per launch the device time of the
   body (``bounce_bwd_kernel`` / ``trace_bwd_kernel``) and of the row sum
-  (every kernel named ``row_sum``), from the profiler over 10 calls, twice,
-  which must keep every launch (``_profiled_split``);
+  (every kernel named ``row_sum``) and, for 5v and 5s, of the lane order
+  before it (``lane_order``), from the profiler over 10 calls, twice, which
+  must keep every launch of the body and the row sum (``_profiled_split``);
 - 1m: kernel 1m on smooth_mesh's 262,144 primary rays at 512x512, depth
   8, NEE (``chip_smoke.queued_ms``, the median of 10, twice), and the
   megakernel iteration around it by host clock, five repeats;
@@ -29,8 +31,8 @@ kernels from its own sources (``tools/in_turns``).  Each process prints
   device's busy time (every kernel), its idle share against the median
   step, and the adjoint kernel's body and row sum per launch.
 
-Every process also prints the registers and spills of kernel 3's
-instances and of 1m (none when its libraries were built earlier).
+Every process also prints the registers and spills of kernel 3's and
+kernel 5's instances and of 1m (none when its libraries were built earlier).
 
 Needs a card and ``nvcc``.
 """
@@ -60,9 +62,11 @@ def _row_sum_per_call(names, lanes: int):
 
 
 def _profiled_split(cs, fn, body: str, lanes: int, reps: int = 10) -> tuple:
-    """Per call of ``fn`` at ``lanes`` lanes: the body kernel's device ms
-    and the row sum's (its launches summed), from a profile of ``reps``
-    calls that kept every launch of both, taken again while one is missing
+    """Per call of ``fn`` at ``lanes`` lanes: the body kernel's device ms,
+    the row sum's (its launches summed), the row-sum launches per call and
+    the lane order's ms (kernels 5v and 5s; its two launches summed, 0
+    where none ran), from a profile of ``reps`` calls that kept every
+    launch of the body and the row sum, taken again while one is missing
     (up to ``PROFILE_TRIES`` times)."""
     import torch
 
@@ -73,14 +77,19 @@ def _profiled_split(cs, fn, body: str, lanes: int, reps: int = 10) -> tuple:
         b_us, b_n = (sum(v[j] for k, v in run.items() if body in k) for j in (0, 1))
         r_us, r_n = (sum(v[j] for k, v in run.items() if "row_sum" in k) for j in (0, 1))
         per = _row_sum_per_call(run, lanes)
+        o_us = sum(v[0] for k, v in run.items() if "lane_order" in k)
         if b_n == reps and per is not None and r_n == reps * per:
-            return b_us / 1e3 / reps, r_us / 1e3 / reps, per
+            return b_us / 1e3 / reps, r_us / 1e3 / reps, per, o_us / 1e3 / reps
     raise RuntimeError(f"the profiler kept {b_n} launches of {body} and {r_n} of the row sum "
                        f"for {reps} calls")
 
 
-def measure(card: str) -> None:
-    """In a checkout: print its ``[split]`` lines (the module's docstring)."""
+PARTS = ("adjoint", "1m", "steps")
+
+
+def measure(card: str, parts: str = ",".join(PARTS)) -> None:
+    """In a checkout: print its ``[split]`` lines for the comma-separated
+    ``parts`` (the module's docstring)."""
     import dataclasses
     import time
 
@@ -124,7 +133,8 @@ def measure(card: str) -> None:
             hosts.append((t1 - t0) * 1e3)
         return walls, hosts
 
-    for label, name, res in ADJOINT_SCENES:
+    parts = parts.split(",")
+    for label, name, res in ADJOINT_SCENES if "adjoint" in parts else ():
         desc = desc_of(name, res)
         params, static = diff.params_from_description(desc, 0, device=dev)
         feats = frozenset(resolve_features(base, params.materials).features)
@@ -172,68 +182,77 @@ def measure(card: str) -> None:
             g_rad = torch.from_numpy(rng.standard_normal((n, 3)).astype(np.float32)).to(dev)
             b5 = (*tables, seed, lanes, resid, g_rad)
             for rep in range(2):
-                body, rsum, rlaunch = _profiled_split(
+                body, rsum, rlaunch, _ = _profiled_split(
                     cs, lambda: bounce_grad.bounce_bwd_cuda(*b2, **bkw), "bounce_bwd_kernel", n)
-                b5_ms, r5_ms, r5_launch = _profiled_split(
+                b5_ms, r5_ms, r5_launch, o5_ms = _profiled_split(
                     cs, lambda: trace_grad.tbwd_cuda(*b5, **kw), "trace_bwd_kernel", n)
                 print(f"[split] {here} adjoint {label} {name} {n} lanes, repeat {rep}: body "
                       f"{body:.4f} ms, row sum {rsum:.4f} ms ({rlaunch:g} launches); kernel "
                       f"{label.replace('3', '5')} body {b5_ms:.4f} ms, row sum {r5_ms:.4f} ms "
-                      f"({r5_launch:g} launches); on {card}", flush=True)
+                      f"({r5_launch:g} launches), lane order {o5_ms:.4f} ms; on {card}",
+                      flush=True)
             del resid, b5, b2
 
-    # ---- kernel 1m on smooth_mesh's primary rays, and its iteration
-    scene = desc_of("smooth_mesh.txt", (512, 512)).scene_for_frame(0, device=dev)
-    cfg = RenderConfig(max_depth=8, nee=True, iters_per_launch=8)
-    mseed = key_to_seed(prng_key(cfg.seed))
-    tables = [t.contiguous() for t in pack_tables(scene)]
-    n = scene.camera.width * scene.camera.height
-    pixel = torch.arange(n, dtype=torch.int64, device=dev)
-    rays0 = generate_camera_rays(scene.camera, pixel, camera_uniforms(mseed, pixel))
-    targs = (*tables, mseed, rays0.origin, rays0.direction, pixel)
-    tkw = dict(max_depth=8, nee=True, rr=False, rr_start=cfg.rr_start,
-               mesh=scene.mesh_tables)
-    k1 = [cs.queued_ms(lambda: trace.trace_cuda(*targs, **tkw)) for _ in range(2)]
-    print(f"[split] {here} 1m smooth_mesh {n} primary rays: {k1[0]:.4f} / {k1[1]:.4f} ms "
-          f"of device time; on {card}", flush=True)
-    rcfg = resolve_features(cfg, scene.materials)
-    acc0 = torch.zeros((n, 3), **f32)
-    it, _ = timed(lambda: render_chunk(scene, acc0, 0, mseed, rcfg, 1, tables=tables))
-    print(f"[split] {here} step mesh:time iteration smooth_mesh 512x512: "
-          + " / ".join(f"{t:.4f}" for t in it) + f" ms; on {card}", flush=True)
+    if "1m" in parts:
+        # ---- kernel 1m on smooth_mesh's primary rays, and its iteration
+        scene = desc_of("smooth_mesh.txt", (512, 512)).scene_for_frame(0, device=dev)
+        cfg = RenderConfig(max_depth=8, nee=True, iters_per_launch=8)
+        mseed = key_to_seed(prng_key(cfg.seed))
+        tables = [t.contiguous() for t in pack_tables(scene)]
+        n = scene.camera.width * scene.camera.height
+        pixel = torch.arange(n, dtype=torch.int64, device=dev)
+        rays0 = generate_camera_rays(scene.camera, pixel, camera_uniforms(mseed, pixel))
+        targs = (*tables, mseed, rays0.origin, rays0.direction, pixel)
+        tkw = dict(max_depth=8, nee=True, rr=False, rr_start=cfg.rr_start,
+                   mesh=scene.mesh_tables)
+        k1 = [cs.queued_ms(lambda: trace.trace_cuda(*targs, **tkw)) for _ in range(2)]
+        print(f"[split] {here} 1m smooth_mesh {n} primary rays: {k1[0]:.4f} / {k1[1]:.4f} ms "
+              f"of device time; on {card}", flush=True)
+        rcfg = resolve_features(cfg, scene.materials)
+        acc0 = torch.zeros((n, 3), **f32)
+        it, _ = timed(lambda: render_chunk(scene, acc0, 0, mseed, rcfg, 1, tables=tables))
+        print(f"[split] {here} step mesh:time iteration smooth_mesh 512x512: "
+              + " / ".join(f"{t:.4f}" for t in it) + f" ms; on {card}", flush=True)
 
-    # the gradient steps: per-bounce (kernels 2r and 3) and full-depth
-    # (kernels 4 and 5), their time and the adjoint's device time inside them
-    for label, name, res in (("grad:perbounce", "cornell.txt", None),
-                             ("grad:vol", "milky.txt", None),
-                             ("grad:surf", "ward.txt", (512, 512))):
-        params, static = diff.params_from_description(desc_of(name, res), 0, device=dev)
-        target = torch.zeros((static.resolution[0] * static.resolution[1], 3), **f32)
-        for engine, scfg, body in (
-                ("per-bounce", dataclasses.replace(base, grad_full_trace=False),
-                 "bounce_bwd_kernel"),
-                ("full-depth", base, "trace_bwd_kernel")):
-            def step(scfg=scfg):
-                return diff.loss_and_grad_rays(params, static, target, 4, prng_key(0),
-                                               scfg, device=dev)
+    if "steps" in parts:
+        # the gradient steps: per-bounce (kernels 2r and 3) and full-depth
+        # (kernels 4 and 5), their time and the adjoint's device time inside them
+        for label, name, res in (("grad:perbounce", "cornell.txt", None),
+                                 ("grad:vol", "milky.txt", None),
+                                 ("grad:surf", "ward.txt", (512, 512))):
+            params, static = diff.params_from_description(desc_of(name, res), 0, device=dev)
+            target = torch.zeros((static.resolution[0] * static.resolution[1], 3), **f32)
+            for engine, scfg, body in (
+                    ("per-bounce", dataclasses.replace(base, grad_full_trace=False),
+                     "bounce_bwd_kernel"),
+                    ("full-depth", base, "trace_bwd_kernel")):
+                def step(scfg=scfg):
+                    return diff.loss_and_grad_rays(params, static, target, 4, prng_key(0),
+                                                   scfg, device=dev)
 
-            walls, hosts = timed(step, reps=10)
-            wall = sorted(walls)[len(walls) // 2]
-            run, _ = cs.profiled(step)
-            busy = sum(us for us, _ in run.values()) / 1e3
-            b_us, b_n = (sum(v[j] for k, v in run.items() if body in k) for j in (0, 1))
-            r_us, r_n = (sum(v[j] for k, v in run.items() if "row_sum" in k) for j in (0, 1))
-            print(f"[split] {here} step {label} {engine} {name} 4 spp: median {wall:.4f} ms of "
-                  + " / ".join(f"{t:.4f}" for t in walls) + f" ms; returned after a median "
-                  f"{sorted(hosts)[len(hosts) // 2]:.4f} ms; profiled step: device busy "
-                  f"{busy:.4f} ms, idle share {1 - busy / wall:.3f}; device time per launch: "
-                  f"body {b_us / 1e3 / max(b_n, 1):.4f} ms x {b_n}, row sum "
-                  f"{r_us / 1e3 / max(r_n, 1):.4f} ms x {r_n}; on {card}", flush=True)
+                walls, hosts = timed(step, reps=10)
+                wall = sorted(walls)[len(walls) // 2]
+                run, _ = cs.profiled(step)
+                busy = sum(us for us, _ in run.values()) / 1e3
+                b_us, b_n = (sum(v[j] for k, v in run.items() if body in k) for j in (0, 1))
+                r_us, r_n = (sum(v[j] for k, v in run.items() if "row_sum" in k) for j in (0, 1))
+                o_us, o_n = (sum(v[j] for k, v in run.items() if "lane_order" in k)
+                             for j in (0, 1))
+                print(f"[split] {here} step {label} {engine} {name} 4 spp: median {wall:.4f} ms of "
+                      + " / ".join(f"{t:.4f}" for t in walls) + f" ms; returned after a median "
+                      f"{sorted(hosts)[len(hosts) // 2]:.4f} ms; profiled step: device busy "
+                      f"{busy:.4f} ms, idle share {1 - busy / wall:.3f}; device time per launch: "
+                      f"body {b_us / 1e3 / max(b_n, 1):.4f} ms x {b_n}, row sum "
+                      f"{r_us / 1e3 / max(r_n, 1):.4f} ms x {r_n}, lane order "
+                      f"{o_us / 1e3 / max(o_n, 1):.4f} ms x {o_n}; on {card}", flush=True)
 
     inst = cs.ptxas_instances(reports)
     regs = {f"3 vol={v} surf={s}": cs.instance_regs(inst, "bounce_grad", "bounce_bwd_kernel",
                                                      v, s)
             for v in (False, True) for s in (False, True)}
+    regs.update({f"5 vol={v} surf={s}": cs.instance_regs(inst, "trace_grad", "trace_bwd_kernel",
+                                                         v, s)
+                 for v in (False, True) for s in (False, True)})
     regs["1m"] = cs.instance_regs(inst, "trace", "trace_kernel", True, False, False, False)
     print(f"[split] {here} regs (registers, spill store / load bytes): {regs}", flush=True)
 
@@ -243,11 +262,16 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("checkouts", nargs="*", help="NAME=DIR, each a checkout, in turn")
+    ap.add_argument("--parts", default=",".join(PARTS),
+                    help=f"comma-separated, of {', '.join(PARTS)}")
     args = ap.parse_args()
+    unknown = set(args.parts.split(",")) - set(PARTS)
+    if unknown:
+        ap.error(f"unknown parts {sorted(unknown)}")
     line = card()
     print(line, flush=True)
     named = [c.split("=", 1) for c in args.checkouts] or [("this", ROOT)]
-    return run_in_turns(named, __file__, "measure", [line], shown=("[split]",))
+    return run_in_turns(named, __file__, "measure", [line, args.parts], shown=("[split]",))
 
 
 if __name__ == "__main__":

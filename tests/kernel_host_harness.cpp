@@ -5,7 +5,8 @@
 // one after another over a wavefront, with the same arguments as the CUDA
 // launchers: the trace (trace.cu), the forward with residuals and the
 // reverse lanes (trace_grad.cu; vol picks their kVol instances, 4v and 5v,
-// and the surface bits surf their kSurf ones, 4s and 5s), one bounce
+// and the surface bits surf their kSurf ones, 4s and 5s) and the reverse
+// kernel's lane keys, one bounce
 // (bounce.cu) and its backward (bounce_grad.cu; vol: 3v, with the medium
 // planes; surf: 3s), the nearest hit, winner search and occlusion
 // (intersect.cu), and the nearest triangle and triangle occlusion (mesh.cu,
@@ -74,8 +75,11 @@ extern "C" void host_bwd(const float* gtab, int G, const float* mtab, int M, con
   for (int i = 0; i < n; ++i) {
     V3 g_rad = v3(g_radiance[3 * i], g_radiance[3 * i + 1], g_radiance[3 * i + 2]);
     V3 g_o, g_d;
+    AD sums[LANE_SUMS] = {};
+    LaneSums ls{sums, 1, -1};
     lane(T, R, seed, sample[i], resid, (size_t)n, (size_t)i, depth, nee, rr, rr_start, g_rad, g_o,
-         g_d, row, vol_nee);
+         g_d, row, &ls, vol_nee);
+    lane_sums_add(row, R, ls);
     d_origin[3 * i] = g_o.x;
     d_origin[3 * i + 1] = g_o.y;
     d_origin[3 * i + 2] = g_o.z;
@@ -83,6 +87,14 @@ extern "C" void host_bwd(const float* gtab, int G, const float* mtab, int M, con
     d_direction[3 * i + 1] = g_d.y;
     d_direction[3 * i + 2] = g_d.z;
   }
+}
+
+// the reverse kernel's lane keys (lane_key; vol picks the media key)
+extern "C" void host_lane_keys(const float* gtab, const float* mtab, const float* resid, int n,
+                               int depth, int vol, int* keys) {
+  for (int i = 0; i < n; ++i)
+    keys[i] = vol ? lane_key<true>(gtab, mtab, resid, (size_t)n, (size_t)i, depth)
+                  : lane_key<false>(gtab, mtab, resid, (size_t)n, (size_t)i, depth);
 }
 
 extern "C" void host_trace(const float* gtab, int G, const float* mtab, const float* ltab,

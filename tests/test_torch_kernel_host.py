@@ -79,6 +79,19 @@ NO_SURF = (0, None, None, None)
 # MINI_SCENE with its mirror sphere turned Phong-glossy (specular exponent 30)
 GLOSSY_MINI = MINI_SCENE.replace("SPECEX 0\nSPECRGB .95 .92 .9", "SPECEX 30\nSPECRGB .95 .92 .9")
 assert GLOSSY_MINI != MINI_SCENE
+# a second area light, on Cornell's red wall (its material 5): a lane's NEE
+# connections sample either, so the reverse lanes' light sums hold one light
+# and add the other's columns to the row at once (about one lane in ten
+# connects to both at depth 4)
+SECOND_LIGHT = """
+OBJECT 9
+cube
+material 5
+frame 0
+TRANS -4.9 7 0
+ROTAT 0 0 0
+SCALE .3 2 2
+"""
 
 
 @pytest.fixture(scope="module")
@@ -95,6 +108,7 @@ def host_lib(tmp_path_factory):
     lib = ctypes.CDLL(out)
     lib.host_fwd.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, P] + [I] * 7
     lib.host_bwd.argtypes = [P, I, P, I, P, P, ctypes.c_uint, P, I, P, P, P, P, P] + [I] * 7
+    lib.host_lane_keys.argtypes = [P, P, P, I, I, I, P]
     lib.host_trace.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, I, I, I, I,
                                I, I, I, I, P, P, P, P, P, I]
     lib.host_bounce.argtypes = ([P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 17 + [I] * 5
@@ -121,9 +135,33 @@ CASES = {
                 (1.0, 1.0)),
     "glossy_nee": ("glossy", (37, 23), dict(max_depth=3, nee=True, rr=False, rr_start=3),
                    (1.0, 1.0)),
+    "cornell_two_lights": ("cornell_two_lights", (24, 24),
+                           dict(max_depth=4, nee=True, rr=False, rr_start=3), (0.995, 0.98)),
     "cornell_d8": ("cornell", (48, 48), dict(max_depth=8, nee=True, rr=False, rr_start=3),
                    (0.995, 0.98)),
+    # every lane aimed within 1e-3 of the point Cornell's centre pixel hits:
+    # all first hits on one geom, every lane adding to the same columns
+    # (the reverse kernel's lane sums and row) from the first bounce on.
+    # Residuals on 97% of lanes (measured 97.7%): the lanes start alike, so
+    # the host libm's last bits part more of them at the same later bounces
+    # than on camera rays; the reverse lanes keep the strict bars.
+    "cornell_one_geom": ("cornell", (24, 24),
+                         dict(max_depth=8, nee=True, rr=False, rr_start=3), (0.995, 0.97)),
 }
+
+
+def one_geom_rays(scene, seed: int, n: int):
+    """``n`` rays from the camera through points within 1e-3 of the point
+    its centre pixel's ray hits, and that geom's index."""
+    w, h = scene.camera.width, scene.camera.height
+    centre = torch.tensor([(h // 2) * w + w // 2])
+    ray = generate_camera_rays(scene.camera, centre, camera_uniforms(seed, centre))
+    t, gid = winner_t_gid_plain(ray, pack_tables(scene)[0])
+    aim = ray.origin[0] + t[0] * ray.direction[0]
+    jitter = np.random.default_rng(23).uniform(-1e-3, 1e-3, (n, 3)).astype(np.float32)
+    to = aim + torch.from_numpy(jitter) - ray.origin[0]
+    return Rays(ray.origin.expand(n, 3).contiguous(), to / to.norm(dim=-1, keepdim=True)), \
+        int(gid[0])
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
@@ -133,6 +171,9 @@ def test_kernel_lanes_match_plain(host_lib, case):
         desc = parse_scene_text(MINI_SCENE if name == "mini" else GLOSSY_MINI, name=name)
     else:
         desc = load_scene(os.path.join(HERE, "..", "scenes", "cornell.txt"))
+    if name == "cornell_two_lights":
+        with open(os.path.join(HERE, "..", "scenes", "cornell.txt")) as f:
+            desc = parse_scene_text(f.read() + SECOND_LIGHT, name=name)
     scene = dataclasses.replace(desc, resolution=res).scene_for_frame(0, device="cpu")
     n = res[0] * res[1]
     seed = 1234
@@ -140,6 +181,9 @@ def test_kernel_lanes_match_plain(host_lib, case):
     sample = 3 * n + pixel
     rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, sample))
     tables = [t.contiguous() for t in pack_tables(scene)]
+    if case == "cornell_one_geom":
+        rays, gid = one_geom_rays(scene, seed, n)
+        assert bool((winner_t_gid_plain(rays, tables[0])[1] == gid).all())
     g, m = tables[0].shape[0], tables[1].shape[0]
     bits = sample.to(torch.int32)  # indices below 2^31: their uint32 bits
     flags = (kw["max_depth"], int(kw["nee"]), int(kw["rr"]), kw["rr_start"])
@@ -203,6 +247,9 @@ def _case_inputs(name, res):
         desc = parse_scene_text(MINI_SCENE if name == "mini" else GLOSSY_MINI, name=name)
     else:
         desc = load_scene(os.path.join(HERE, "..", "scenes", "cornell.txt"))
+    if name == "cornell_two_lights":
+        with open(os.path.join(HERE, "..", "scenes", "cornell.txt")) as f:
+            desc = parse_scene_text(f.read() + SECOND_LIGHT, name=name)
     scene = dataclasses.replace(desc, resolution=res).scene_for_frame(0, device="cpu")
     return scene, [t.contiguous() for t in pack_tables(scene)]
 
@@ -1227,6 +1274,35 @@ def test_trace_surface_lanes_match_plain(host_lib, case):
 
 CENTRES = {"ward": (0.0, 2.0, 0.0), "ggx_ward": (0.0, 2.0, 0.0), "striped": (0.0, 4.0, -1.0),
            "textured_image": (0.0, 2.0, 0.0)}
+
+
+@pytest.mark.parametrize("name", ["milky", "fog", "ward", "ggx_ward", "textured"])
+def test_lane_keys_match_plain(host_lib, name):
+    """The keys by which the reverse kernel's media and surface instances
+    order their lanes (``trace_grad.cu:lane_key``) equal
+    ``trace_grad.lane_keys_plain``'s on every lane of the forward's
+    residuals at depth 8: one bit per bounce the lane lives in a scattering
+    medium (milky, fog) or on a Cook-Torrance or Ward material (ward,
+    ggx_ward; textured has neither: every key 0)."""
+    if name in ("milky", "fog"):
+        scene, tables = _vol_grad_scene(name, (24, 24))
+        feats = frozenset({"volumetric"})
+    else:
+        scene, tables, feats = _surf_grad_scene(name, (24, 24))
+    n, seed, depth = 24 * 24, 77, 8
+    pixel = torch.arange(n)
+    rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, pixel))
+    _, _, resid = trace_grad.tfwd_plain(*tables, seed, rays.origin, rays.direction, pixel,
+                                        max_depth=depth, nee=True, rr=False, rr_start=3,
+                                        features=feats)
+    want = trace_grad.lane_keys_plain(tables[0], tables[1], resid, feats, depth)
+    got = torch.empty(n, dtype=torch.int32)
+    host_lib.host_lane_keys(tables[0].data_ptr(), tables[1].data_ptr(), resid.data_ptr(), n,
+                            depth, int("volumetric" in feats), got.data_ptr())
+    print(f"{name}: {int((want > 0).sum())} of {n} lanes with a costly bounce, "
+          f"{len(torch.unique(want))} keys")
+    assert torch.equal(got, want)
+    assert (name == "textured") == (int(want.max()) == 0)
 
 
 @pytest.mark.parametrize("nee", [True, False])

@@ -535,6 +535,45 @@ def test_backward_row_with_every_lane_on_one_geom():
         assert float(close.double().mean()) >= 0.999
 
 
+def test_full_depth_backward_row_with_every_lane_on_one_geom():
+    """Kernel 5's worst contention: 640,000 lanes aimed within 1e-3 of the
+    point that Cornell's centre pixel hits, all first hits on that geom, run
+    through the full-depth forward and reverse at depth 8 with NEE, so that
+    every lane adds to the same table entries at its first bounce and to the
+    light's columns at each of its NEE bounces.  The row within its bar of
+    the float64 reference, the lanes at 1e-5 on 99.9%."""
+    _need_cuda()
+    import numpy as np
+
+    from pathtracer_tpu_torch.ops import intersect_cuda, trace_grad
+    from pathtracer_tpu_torch.scene.structs import Rays
+
+    scene = _scene("cornell", (8, 8))
+    tables = pack_tables(scene)
+    n = 640_000
+    centre = torch.tensor([36], device="cuda")
+    ray = generate_camera_rays(scene.camera, centre, camera_uniforms(7, centre))
+    t_c, g_c = intersect_cuda.winner_t_gid_cuda(ray, tables[0])
+    r = np.random.default_rng(29)
+    aim = ray.origin[0] + t_c[0] * ray.direction[0]
+    to = aim + torch.from_numpy(r.uniform(-1e-3, 1e-3, (n, 3)).astype(np.float32)).cuda() \
+        - ray.origin[0]
+    rays = Rays(ray.origin.expand(n, 3).contiguous(), to / to.norm(dim=-1, keepdim=True))
+    _, g_all = intersect_cuda.winner_t_gid_cuda(rays, tables[0])
+    assert bool((g_all == g_c[0]).all())
+    sample = torch.arange(n, device="cuda")
+    kw = dict(max_depth=8, nee=True, rr=False, rr_start=3)
+    _, _, resid = trace_grad.tfwd_cuda(*tables, 7, rays.origin, rays.direction, sample, **kw)
+    g_rad = torch.from_numpy(r.standard_normal((n, 3)).astype(np.float32)).cuda()
+    got = trace_grad.tbwd_cuda(*tables, 7, sample, resid, g_rad, **kw)
+    ref = trace_grad.tbwd_plain(*tables, 7, sample, resid, g_rad, dtype=torch.float64, **kw)
+    torch.cuda.synchronize()
+    _assert_rows_near(got, ref)
+    for g, w in zip(got[4:], ref[4:]):
+        close = torch.isclose(g.double(), w, rtol=1e-5, atol=1e-5).all(-1)
+        assert float(close.double().mean()) >= 0.999
+
+
 @pytest.mark.parametrize("name", ["cornell", "glossy"])
 def test_winner_kernel_matches_plain(name):
     _need_cuda()
@@ -832,6 +871,37 @@ def test_trace_grad_surf_kernels_match_plain(name):
     _vol_table_bars(got[:4], ref[:4])
     _vol_lane_bars(got[4:], ref[4:], ("d_origin", "d_direction"), f32[4:], lambda i: (
         trace_grad.lane_events(tables[0], seed, sample, res_k, i, feats)))
+
+
+@pytest.mark.parametrize("name", ["milky", "fog", "ward", "textured", "surf_vol_mini"])
+def test_lane_order_matches_plain(name):
+    """The lane order that kernels 5v and 5s run before their body
+    (``trace_grad.lane_order_cuda``) on 96x96 lanes' residuals at depth 8:
+    its keys equal ``lane_keys_plain``'s, its order is a permutation of the
+    lanes, and the keys in that order are the plain keys sorted (within a
+    key the order is free)."""
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import trace_grad
+    from pathtracer_tpu_torch.render.features import features_for_materials
+
+    if name in ("milky", "fog"):
+        tables, seed, rays, sample = _grad_inputs(name, (96, 96))
+        feats = frozenset({"volumetric"})
+    else:
+        scene = _surf_grad_scene(name, (96, 96))
+        feats = frozenset(features_for_materials(scene.materials))
+        tables, seed = pack_tables(scene), 11
+        sample = torch.arange(96 * 96, device="cuda")
+        rays = generate_camera_rays(scene.camera, sample, camera_uniforms(seed, sample))
+    kw = dict(max_depth=8, nee=True, rr=False, rr_start=3, features=feats)
+    _, _, resid = trace_grad.tfwd_cuda(*tables, seed, rays.origin, rays.direction, sample, **kw)
+    keys, order = trace_grad.lane_order_cuda(tables[0], tables[1], resid, feats, 8)
+    want = trace_grad.lane_keys_plain(tables[0], tables[1], resid, feats, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(keys, want)
+    assert torch.equal(torch.sort(order.long()).values, torch.arange(96 * 96, device="cuda"))
+    assert torch.equal(keys[order.long()], torch.sort(want).values)
+    assert (name == "textured") == (int(want.max()) == 0)
 
 
 @pytest.mark.parametrize("nee", [True, False])
