@@ -14,11 +14,16 @@ Phases (any failure exits non-zero):
 3. hold each kernel against its plain PyTorch version on the card, on the
    main path's own inputs (the 640,000 primary rays of an iteration):
    equal ray counts, radiance within rtol = atol = 2e-6 on at least 99.9%
-   of lanes, and the image sum within 1e-5 relative;
+   of lanes, and the image sum within 1e-5 relative; the persistent grid
+   forced to ``SMALL_GRID`` blocks bit-equal to the resident grid, and the
+   kernel with russian roulette from bounce 3 against its plain version at
+   the same bars;
 4. time the kernel (CUDA events over a steady window, and its device time
-   queued behind a sleep, ``queued_ms``, twice) and its plain version, and
-   print ms per iteration and Mrays/s beside the card's name
-   and power limit;
+   queued behind a sleep, ``queued_ms``, twice; with russian roulette once)
+   and its plain version, and print ms per iteration, Mrays/s and the mean
+   bounces per lane (each phase prints them beside its trace kernel's time:
+   their share of the depth is the share of lane-bounces that hold a live
+   path) beside the card's name and power limit;
 5. check the output: finite image of the expected shape, and the port's
    render of the ``cornell_96`` golden configuration against
    ``tests/golden/cornell_96.npy``; write the PNG, and run the CLI once;
@@ -329,6 +334,15 @@ def adjoint_bound(fp32_ops: int, fp64_ops: int, nbytes: int) -> tuple:
     t_ops = fp32_ops / FP32_OPS_PER_S + fp64_ops / FP64_OPS_PER_S
     t_bytes = nbytes / HBM_BYTES_PER_S
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+# kernel 1's persistent grid forced to this many blocks in the checks (the
+# launcher's block count; 0 takes the blocks resident at once)
+SMALL_GRID = 7
+
+# Cornell's kernel 1: its registers and spill store bytes, pinned (28 B of
+# spill since the persistent schedule, none before; PERF.md, section 7)
+TRACE_CORNELL_REGS = (72, 28)
 
 
 def fail(msg: str) -> None:
@@ -844,7 +858,8 @@ def grad_phase(desc, dev, card: str, out_dir: str):
     print(
         f"[grad:time] step {step_ms:.4f} ms ({mrays:.1f} fwd+bwd Mrays/s: {int(rays)} rays of one "
         f"forward pass over the step); forward kernel {f_ms:.4f} ms/iteration ("
-        f"{f_dev[0]:.4f} / {f_dev[1]:.4f} ms of device time, queued, twice; plain "
+        f"{f_dev[0]:.4f} / {f_dev[1]:.4f} ms of device time, queued, twice; "
+        f"{lane_bounces / n:.4f} bounces per lane of {cfg.max_depth}; plain "
         f"{fp_ms:.3f} ms), bound {f_bound:.4f} ms by {f_by} ({f_ops} fp32 ops, {f_bytes} bytes); "
         f"reverse kernel {b_ms:.4f} ms/iteration (plain {bp_ms:.3f} ms), bound {b_bound:.4f} ms "
         f"by {b_by} ({b_ops} fp32 and {b_ops64} fp64 ops, {b_bytes} bytes); on {card}"
@@ -1714,7 +1729,8 @@ def mesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     print(
         f"[mesh:time] iteration {iter_ms:.4f} ms ({int(nr_k) / iter_ms / 1e3:.1f} Mrays/s); kernel "
         f"1m {k1_ms:.4f} ms/iteration by events, {k1_dev[0]:.4f} / {k1_dev[1]:.4f} ms of device "
-        f"time (two repeats; {int(nr_k) / k1_dev[0] / 1e3:.1f} Mrays/s; plain {k1p_ms:.3f} "
+        f"time (two repeats; {int(nr_k) / k1_dev[0] / 1e3:.1f} Mrays/s; {lane_bounces / n:.4f} "
+        f"bounces per lane of {cfg.max_depth}; plain {k1p_ms:.3f} "
         f"ms), bound {k1_bound[0]:.4f} ms by {k1_bound[1]} (a lower bound: the analytic part, "
         f"the chunk-box tests and the {k1_tris} triangle tests of bounce 0, not those of later "
         f"bounces or of shadow rays); kernel 2m {k2_ms:.4f} ms at {n} lanes of super-step "
@@ -2016,7 +2032,8 @@ def vol_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) ->
             reached = mesh_sweep(km, targs[0], targs[5].unbind(-1), targs[6].unbind(-1))["reached"]
             ops += (lane_bounces * (OPS_MESH_RAY + OPS_AABB * km.aabb.numel() // 6)
                     + int(reached.sum()) * MESH_CHUNK * OPS_MT)
-        timing[key] = (ms, p_ms, bound(ops, n * (12 + 12 + 4 + 12) + tbytes), name, n)
+        timing[key] = (ms, p_ms, bound(ops, n * (12 + 12 + 4 + 12) + tbytes), name, n,
+                       f"; {lane_bounces / n:.4f} bounces per lane of {kw['max_depth']}")
     for inst in ("vol", "hg"):
         args, feats2, label = bargs[inst]
         n = args[1].shape[0]
@@ -2030,7 +2047,7 @@ def vol_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) ->
         # terminate byte out
         timing[f"bounce_{inst}"] = (ms, p_ms, bound(n * (sweep_ops(sss) + OPS_SHADE + OPS_VOL),
                                                     n * (48 + 4 * mw + 57 + 4 * mw) + tbytes),
-                                    label, n)
+                                    label, n, "")
     rcfg = dataclasses.replace(cfg, features=tuple(feats))
     acc0 = torch.zeros((n0, 3), **f32)
     iter_ms = cuda_ms(lambda: render_chunk(sss, acc0, 0, seed, rcfg, 1, tables=sss_tables),
@@ -2050,13 +2067,15 @@ def vol_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) ->
     }
     print(f"[card] {card}")
     print(f"[vol:regs] registers, spill store / load bytes per instance: {regs}")
-    check(regs["trace"] is None or regs["trace"][0] == 72,
-          f"Cornell's kernel 1 uses {regs['trace']} registers, not 72")
+    check(regs["trace"] is None or regs["trace"][:2] == TRACE_CORNELL_REGS,
+          f"Cornell's kernel 1 uses {regs['trace']} registers and spill bytes, not "
+          f"{TRACE_CORNELL_REGS}")
     print(f"[vol:time] sss iteration {iter_ms:.4f} ms ({trace_args['sss'][3] / iter_ms / 1e3:.1f} "
           f"Mrays/s); Cornell's kernel 1 {cornell_ms:.4f} ms/iteration in this run; on {card}")
     print(f"[vol:profile] sss render iteration: {summary}")
-    for key, (ms, p_ms, (b_ms, b_by), where, n) in timing.items():
-        print(f"[vol:time] {key} at {n} lanes of {where}: {ms:.4f} ms (plain {p_ms:.3f} ms), "
+    for key, (ms, p_ms, (b_ms, b_by), where, n, per_lane) in timing.items():
+        print(f"[vol:time] {key} at {n} lanes of {where}: {ms:.4f} ms{per_lane} (plain "
+              f"{p_ms:.3f} ms), "
               f"bound {b_ms:.4f} ms by {b_by} (a lower bound: in-medium scatters, light "
               f"connections, shadow rays and triangle tests after bounce 0 left out); on {card}")
 
@@ -2081,7 +2100,7 @@ def vol_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) ->
         ("bounce_vol", "bounce.cu", "pathtracer_tpu/ops/bounce_pallas.py:1477", k2_err["vol"]),
         ("bounce_hg", "bounce.cu", "pathtracer_tpu/ops/bounce_pallas.py:1477", k2_err["hg"]),
     ):
-        ms, p_ms, (b_ms, b_by), _, _ = timing[key]
+        ms, p_ms, (b_ms, b_by), _, _, _ = timing[key]
         entries.append({"name": key, **common, "source": f"pathtracer_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": launches[key], "max_abs_err": err,
                         "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by})
@@ -2351,7 +2370,8 @@ def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -
         n = targs[5].shape[0]
         tbytes = sum(t.numel() * 4 for t in targs[:4])
         ops = nrays // 2 * (sweep_ops(scene) + surf_ops(kw["features"]))
-        timing[key] = (ms, d_ms, p_ms, bound(ops, n * (12 + 12 + 4 + 12) + tbytes), name, n)
+        where = f"{name} ({nrays // 2 / n:.4f} bounces per lane of {kw['max_depth']})"
+        timing[key] = (ms, d_ms, p_ms, bound(ops, n * (12 + 12 + 4 + 12) + tbytes), where, n)
     for inst in ("surf", "tex"):
         args, feats, label = bargs[inst]
         tex = inst == "tex"
@@ -2405,8 +2425,9 @@ def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -
     }
     print(f"[card] {card}")
     print(f"[surf:regs] registers, spill store / load bytes per instance: {regs}")
-    check(regs["trace (Cornell)"] is None or regs["trace (Cornell)"][0] == 72,
-          f"Cornell's kernel 1 uses {regs['trace (Cornell)']} registers, not 72")
+    check(regs["trace (Cornell)"] is None or regs["trace (Cornell)"][:2] == TRACE_CORNELL_REGS,
+          f"Cornell's kernel 1 uses {regs['trace (Cornell)']} registers and spill bytes, not "
+          f"{TRACE_CORNELL_REGS}")
     print(f"[surf:time] Cornell's kernel 1 {cornell_ms:.4f} ms/iteration in this run; ward "
           f"iteration {iter_ms:.4f} ms ({trace_args['ward'][3] / iter_ms / 1e3:.1f} Mrays/s); "
           f"textured_image iteration (8 bounces of the scan) {ti_ms:.4f} ms; on {card}")
@@ -2763,10 +2784,11 @@ def bigmesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
                                   vol, hg, surf, tex)
     print(f"[card] {card}")
     print(f"[bigmesh:regs] registers, spill store / load bytes per instance: {regs}")
-    for key, want in (("trace (Cornell)", 72), ("bounce (Cornell)", 56), ("bounce_surf", 56),
-                      ("bounce_tex", 64)):
-        check(regs[key] is None or regs[key][0] == want,
-              f"{key} uses {regs[key]} registers, not {want} as before")
+    # registers, and for kernel 1 its spill store bytes too
+    for key, want in (("trace (Cornell)", TRACE_CORNELL_REGS), ("bounce (Cornell)", (56,)),
+                      ("bounce_surf", (56,)), ("bounce_tex", (64,))):
+        check(regs[key] is None or regs[key][:len(want)] == want,
+              f"{key} uses {regs[key]} registers and spill bytes, not {want} as before")
     print(f"[bigmesh:time] iteration of the 5,120-triangle scene at {w}x{h} (8 bounces of the "
           f"scan, each kernels 9, 2mm, 10) {iter_ms:.4f} ms "
           f"({st_m['rays_traced'] / 2 / iter_ms / 1e3:.1f} Mrays/s); device time per launch "
@@ -3378,8 +3400,9 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
               f"Cornell's kernel {key} uses {regs[key]} registers, not {want}")
     print(f"[card] {card}")
     for key in ("4v", "5v", "2r-v", "3v"):
-        print(f"[grad:vol:time] kernel {key}: {dev_ms[key]:.4f} ms of device time at {n} lanes "
-              f"(plain {plain_ms[key]:.3f} ms), bound {bounds[key][0]:.4f} ms by "
+        per_lane = f", {lane_bounces / n:.4f} bounces per lane of {depth}" if key == "4v" else ""
+        print(f"[grad:vol:time] kernel {key}: {dev_ms[key]:.4f} ms of device time at {n} lanes"
+              f"{per_lane} (plain {plain_ms[key]:.3f} ms), bound {bounds[key][0]:.4f} ms by "
               f"{bounds[key][1]}; on {card}")
 
     common = {"route": "cuda", "library_ms": None}
@@ -3774,9 +3797,10 @@ def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
               f"Cornell's kernel {key} uses {regs[key]} registers, not {want}")
     print(f"[card] {card}")
     for key in ("4s", "5s", "2r-s", "3s"):
+        per_lane = f", {lane_bounces / n:.4f} bounces per lane of {depth}" if key == "4s" else ""
         print(f"[grad:surf:time] kernel {key}: {dev_ms[key]:.4f} ms of device time at {n} lanes "
-              f"of ward (plain {plain_ms[key]:.3f} ms), bound {bounds[key][0]:.4f} ms by "
-              f"{bounds[key][1]}; on {card}")
+              f"of ward{per_lane} (plain {plain_ms[key]:.3f} ms), bound {bounds[key][0]:.4f} ms "
+              f"by {bounds[key][1]}; on {card}")
 
     common = {"route": "cuda", "library_ms": None}
     return [
@@ -3891,6 +3915,24 @@ def main() -> int:
         check(int(nr_k) == int(nr_p), "ray counts differ")
         check(n_beyond <= n // 1000, f"{n_beyond} lanes beyond tolerance (> 0.1%)")
         check(sum_rel <= 1e-5, f"image sum differs by {sum_rel:.3g} relative")
+    # the persistent schedule: the grid forced small gives the resident grid's
+    # radiance and ray count bit for bit; with russian roulette from bounce 3
+    # (shorter, more uneven paths) the kernel against the plain version
+    rad_s, nr_s = trace.trace_cuda(*args, blocks=SMALL_GRID, **kw)
+    rr_kw = dict(kw, rr=True)
+    rad_rk, nr_rk = trace.trace_cuda(*args, **rr_kw)
+    rad_rp, nr_rp = trace.trace_plain(*args, **rr_kw)
+    torch.cuda.synchronize()
+    rr_beyond = int(((rad_rk - rad_rp).abs() > 2e-6 + 2e-6 * rad_rp.abs()).any(-1).sum())
+    worst_abs = max(worst_abs, float((rad_rk - rad_rp).abs().max()))
+    print(f"[check] {SMALL_GRID} blocks: radiance and rays bit-equal to the resident grid's: "
+          f"{bool(torch.equal(rad_s, rad_k)) and int(nr_s) == int(nr_k)}; russian roulette from "
+          f"bounce {cfg.rr_start}: rays kernel {int(nr_rk)} plain {int(nr_rp)}, lanes beyond "
+          f"2e-6: {rr_beyond} of {n}")
+    check(torch.equal(rad_s, rad_k) and int(nr_s) == int(nr_k),
+          "the forced small grid differs from the resident grid")
+    check(int(nr_rk) == int(nr_rp) and rr_beyond <= n // 1000,
+          "russian roulette: kernel and plain version differ")
 
     # ---- 4. timing on the main path's shapes
     rays_per_iter = int(nr_k)
@@ -3922,10 +3964,13 @@ def main() -> int:
     bytes_moved = n * (12 + 12 + 4 + 12) + sum(t.numel() * 4 for t in tables)
     bound_ms = max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S) * 1e3
     bound_by = "operations" if ops / FP32_OPS_PER_S > bytes_moved / HBM_BYTES_PER_S else "bytes"
+    rr_dev = queued_ms(lambda: trace.trace_cuda(*args, **rr_kw))
     print(f"[card] {card}")
     print(
         f"[time] trace kernel {k_ms:.4f} ms/iteration ({rays_per_iter / k_ms / 1e3:.1f} Mrays/s), "
-        f"{k_dev[0]:.4f} / {k_dev[1]:.4f} ms of device time (queued, twice), plain {p_ms:.3f} ms, "
+        f"{k_dev[0]:.4f} / {k_dev[1]:.4f} ms of device time (queued, twice), "
+        f"{lane_bounces / n:.4f} bounces per lane of {cfg.max_depth}; with russian roulette "
+        f"{rr_dev:.4f} ms, {int(nr_rk) // 2 / n:.4f} bounces per lane; plain {p_ms:.3f} ms, "
         f"camera rays {cam_ms:.4f} ms, render iteration {iter_ms:.4f} ms "
         f"({rays_per_iter / iter_ms / 1e3:.1f} Mrays/s); bound {bound_ms:.4f} ms by {bound_by} "
         f"({ops} fp32 ops, {bytes_moved} bytes); on {card}"

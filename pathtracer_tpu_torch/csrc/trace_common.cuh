@@ -21,9 +21,11 @@
 #ifdef __CUDACC__
 #define PT_FN __device__ __forceinline__
 #define PT_HD __host__ __device__ __forceinline__
+#define PT_POPC(x) __popc(x)
 #else
 #define PT_FN inline
 #define PT_HD inline
+#define PT_POPC(x) __builtin_popcount(x)
 #endif
 
 namespace pt {

@@ -76,7 +76,13 @@
 // What bounds them on the H100: the forward moves 40 B per lane plus 52 B
 // per lane and bounce of residuals (266 MB per 640,000-lane iteration at
 // depth 8, ~0.08 ms at 3.35 TB/s; 68 B with the medium planes) against the
-// trace kernel's two sweeps per bounce.  The reverse reads the alive plane
+// trace kernel's two sweeps per bounce.  The forward keeps one path per
+// thread, so a warp's 32 lanes store each bounce's planes together, four
+// full 32-byte sectors per plane.  The trace kernel's persistent schedule
+// (trace.cu) measured slower here: its refills take one to three lanes at a
+// time, the lanes of a warp sit at different bounces, and a path's dead
+// bounces become single-lane stores (0.96 ms against 0.60 on Cornell,
+// PERF.md, section 6).  The reverse reads the alive plane
 // of every bounce and the other 12 (16) planes of a live one, and replays
 // one intersection per live bounce; its operations, the float recompute
 // and an adjoint in double several times the forward's shading (5v also

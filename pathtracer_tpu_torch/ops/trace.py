@@ -10,8 +10,9 @@ lanes per bounce, twice that with NEE for the shadow rays).
 * :func:`trace_plain` is the plain PyTorch version: the bounce loop of
   ``trace_pallas.py:110-173`` over ``ops/bounce.py`` and
   :func:`step_update`, which the differentiable trace shares.
-* :func:`trace_cuda` launches ``csrc/trace.cu`` (one thread per lane, all
-  bounces in a loop inside the thread).
+* :func:`trace_cuda` launches ``csrc/trace.cu``: persistent threads, each
+  running whole paths (all bounces in a loop inside the thread) and
+  starting a new path in a lane as soon as its path ends.
 * :func:`trace_fused` dispatches on the rays' device: a CUDA tensor
   launches the kernel or raises, a CPU tensor takes the plain version.
 
@@ -209,9 +210,12 @@ def _lib():
             ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,  # origin, dir, sample
             ctypes.c_int,  # n
             ctypes.c_void_p, ctypes.c_void_p,  # radiance, nrays
+            ctypes.c_void_p,  # the schedule's lane counter
             ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,  # depth, nee, rr, rr_start
             *MEDIA_ARGTYPES, SURF_ARGTYPE,
             *MESH_ARGTYPES,
+            ctypes.c_int,  # device
+            ctypes.c_int,  # blocks of the persistent grid (0: the resident count)
             ctypes.c_void_p,  # stream
         ]
     return fn
@@ -258,14 +262,16 @@ def check_launch(gtab, mtab, ltab, scal, sample_idx, n: int, device):
 def trace_cuda(
     gtab, mtab, ltab, scal, seed: int, origin, direction, sample_idx,
     *, max_depth: int, nee: bool, rr: bool, rr_start: int, mesh=None,
-    features=frozenset(), vol_nee: bool = True,
+    features=frozenset(), vol_nee: bool = True, blocks: int = 0,
 ):
     """Launch the trace kernel: ``(radiance [N, 3], rays_traced int64 [])``
     on the rays' CUDA device, on the current stream.  The tables are those
     of :func:`pack_tables`, which checks the material ids; ``mesh`` the
     scene's in-kernel triangle tables or None; ``features`` picks the
     media instance (:func:`media_args`) and the surface blocks
-    (:func:`surface_bits`)."""
+    (:func:`surface_bits`).  ``blocks`` sizes the persistent grid: 0 takes
+    the blocks resident at once, a positive count forces a smaller grid
+    (the results are the same)."""
     global launches, mesh_launches, vol_launches, hg_launches, mesh_vol_launches, surf_launches
     check_features(features)
     device = origin.device
@@ -276,7 +282,8 @@ def trace_cuda(
     check_tensor(direction, "direction", f32, (n, 3), device)
 
     radiance = torch.empty((n, 3), dtype=f32, device=device)
-    nrays = torch.zeros((), dtype=torch.int64, device=device)
+    # the ray count and the persistent schedule's lane counter, zeroed together
+    nrays, lane_counter = torch.zeros(2, dtype=torch.int64, device=device)
     media = media_args(features, vol_nee)
     surf = surface_bits(features)
     stream = torch.cuda.current_stream(device).cuda_stream
@@ -284,9 +291,9 @@ def trace_cuda(
         gtab.data_ptr(), g, mtab.data_ptr(), m, ltab.data_ptr(), scal.data_ptr(),
         int(seed) & 0xFFFFFFFF,
         origin.data_ptr(), direction.data_ptr(), bits.data_ptr(), n,
-        radiance.data_ptr(), nrays.data_ptr(),
+        radiance.data_ptr(), nrays.data_ptr(), lane_counter.data_ptr(),
         int(max_depth), int(bool(nee)), int(bool(rr)), int(rr_start),
-        *media, surf, *mesh_launch_args(mesh, device), stream,
+        *media, surf, *mesh_launch_args(mesh, device), device.index, int(blocks), stream,
     )
     if err != 0:
         raise RuntimeError(f"trace kernel launch failed: CUDA error {err}")

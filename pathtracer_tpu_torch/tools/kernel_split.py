@@ -1,6 +1,7 @@
 """Device times of the per-bounce adjoint (kernels 3, 3v and 3s, the adjoint
 body and the table row sum apart), of the full-depth reverse kernels' row
-sum (5, 5v and 5s), of kernel 1m, and of the steps and the iteration that
+sum (5, 5v and 5s), of the full-depth forward loop (kernels 1 and 4 and
+their instances), of kernel 1m, and of the steps and the iteration that
 run them, for one or more checkouts in turns on one card:
 
     python -m pathtracer_tpu_torch.tools.kernel_split [--parts PARTS] [NAME=DIR ...]
@@ -11,7 +12,7 @@ checkout.  They run in the order given (``a=P b=C b=C a=P`` for parent /
 change / change / parent), each in a process of its own that builds its
 kernels from its own sources (``tools/in_turns``).  Each process prints
 ``[split]`` lines for the parts that ``--parts`` names (comma-separated;
-``adjoint,1m,steps`` by default):
+``adjoint,forward,1m,steps`` by default):
 
 - adjoint: kernel 3 on Cornell 800x800, 3v on milky 800x800 (vol_nee
   on) and 3s on ward 512x512, each on the state after two bounces (640,000,
@@ -21,6 +22,18 @@ kernels from its own sources (``tools/in_turns``).  Each process prints
   (every kernel named ``row_sum``) and, for 5v and 5s, of the lane order
   before it (``lane_order``), from the profiler over 10 calls, twice, which
   must keep every launch of the body and the row sum (``_profiled_split``);
+- forward: kernels 1 (Cornell 800x800, russian roulette off and on from
+  bounce 3), 1v (fog and glass_dof at 800x800), 1hg (sss 512x512), 1s
+  (ward 512x512, textured 800x800), 1m (smooth_mesh 512x512), 1m-vol (the
+  fog cube around the icosphere, ``scene/variants.fog_mesh_scene``, 512x512)
+  and 4 (Cornell), 4v (milky 800x800, vol_nee on), 4s (ward 512x512) on an
+  iteration's primary rays, depth 8, NEE: each launch's device time
+  (``chip_smoke.queued_ms``, the median of 10, twice) and the mean
+  bounces a lane traced (the ray count over the lanes, halved for NEE's
+  shadow rays), whose share of the depth is the share of lane-bounces that
+  hold a live path; Cornell's render iteration around kernel 1 by host
+  clock, ten repeats, with the device's busy time and idle share from a
+  profile of three;
 - 1m: kernel 1m on smooth_mesh's 262,144 primary rays at 512x512, depth
   8, NEE (``chip_smoke.queued_ms``, the median of 10, twice), and the
   megakernel iteration around it by host clock, five repeats;
@@ -31,8 +44,8 @@ kernels from its own sources (``tools/in_turns``).  Each process prints
   device's busy time (every kernel), its idle share against the median
   step, and the adjoint kernel's body and row sum per launch.
 
-Every process also prints the registers and spills of kernel 3's and
-kernel 5's instances and of 1m (none when its libraries were built earlier).
+Every process also prints the registers and spills of every instance of
+kernels 1, 3, 4 and 5 (none when its libraries were built earlier).
 
 Needs a card and ``nvcc``.
 """
@@ -84,7 +97,18 @@ def _profiled_split(cs, fn, body: str, lanes: int, reps: int = 10) -> tuple:
                        f"for {reps} calls")
 
 
-PARTS = ("adjoint", "1m", "steps")
+PARTS = ("adjoint", "forward", "1m", "steps")
+# the forward part's launches: label, kernel (1 or 4), scene, resolution,
+# russian roulette from bounce 3
+FORWARD_CASES = (
+    ("1", 1, "cornell", None, False), ("1 rr", 1, "cornell", None, True),
+    ("1v", 1, "fog", (800, 800), False), ("1v", 1, "glass_dof", None, False),
+    ("1hg", 1, "sss", (512, 512), False), ("1s", 1, "ward", (512, 512), False),
+    ("1s", 1, "textured", None, False), ("1m", 1, "smooth_mesh", (512, 512), False),
+    ("1m-vol", 1, "fog_mesh_glass", (512, 512), False),
+    ("4", 4, "cornell", None, False), ("4v", 4, "milky", None, False),
+    ("4s", 4, "ward", (512, 512), False),
+)
 
 
 def measure(card: str, parts: str = ",".join(PARTS)) -> None:
@@ -193,6 +217,55 @@ def measure(card: str, parts: str = ",".join(PARTS)) -> None:
                       flush=True)
             del resid, b5, b2
 
+    if "forward" in parts:
+        # ---- kernels 1 and 4 and their instances on an iteration's primary rays
+        from pathtracer_tpu_torch.scene.parser import parse_scene_text
+        from pathtracer_tpu_torch.scene.variants import fog_mesh_scene
+
+        for label, kernel, name, res, rr in FORWARD_CASES:
+            if name == "fog_mesh_glass":
+                desc = parse_scene_text(fog_mesh_scene(True), name=name, scene_dir="scenes")
+                desc = dataclasses.replace(desc, resolution=res)
+            else:
+                desc = desc_of(f"{name}.txt", res)
+            scene = desc.scene_for_frame(0, device=dev)
+            feats = frozenset(resolve_features(base, scene.materials).features)
+            tables = [t.contiguous() for t in pack_tables(scene)]
+            n = scene.camera.width * scene.camera.height
+            pixel = torch.arange(n, dtype=torch.int64, device=dev)
+            rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, pixel))
+            fargs = (*tables, seed, rays.origin, rays.direction, pixel)
+            fkw = dict(max_depth=8, nee=True, rr=rr, rr_start=3, features=feats)
+            if kernel == 1:
+                fkw["mesh"] = scene.mesh_tables
+
+                def launch():
+                    return trace.trace_cuda(*fargs, **fkw)
+            else:
+                def launch():
+                    return trace_grad.tfwd_cuda(*fargs, **fkw)
+            nrays = int(launch()[1])
+            ms = [cs.queued_ms(launch) for _ in range(2)]
+            print(f"[split] {here} forward {label} {name} {n} lanes{' rr' if rr else ''}: "
+                  f"{ms[0]:.4f} / {ms[1]:.4f} ms of device time; {nrays / n / 2:.4f} bounces "
+                  f"per lane of 8; on {card}", flush=True)
+            if (label, rr) == ("1", False):
+                # the main path's iteration around kernel 1: host clock, device busy, idle share
+                cfg = RenderConfig(max_depth=8, nee=True, iters_per_launch=8)
+                rcfg = resolve_features(cfg, scene.materials)
+                acc0 = torch.zeros((n, 3), **f32)
+
+                def iteration():
+                    return render_chunk(scene, acc0, 0, seed, rcfg, 1, tables=tables)
+
+                walls, _ = timed(iteration, reps=10)
+                wall = sorted(walls)[len(walls) // 2]
+                run, _ = cs.profiled(iteration, 3)
+                busy = sum(us for us, _ in run.values()) / 1e3 / 3
+                print(f"[split] {here} forward iteration cornell 800x800: median {wall:.4f} ms of "
+                      + " / ".join(f"{t:.4f}" for t in walls) + f" ms; device busy {busy:.4f} ms, "
+                      f"idle share {1 - busy / wall:.3f}; on {card}", flush=True)
+
     if "1m" in parts:
         # ---- kernel 1m on smooth_mesh's primary rays, and its iteration
         scene = desc_of("smooth_mesh.txt", (512, 512)).scene_for_frame(0, device=dev)
@@ -253,7 +326,13 @@ def measure(card: str, parts: str = ",".join(PARTS)) -> None:
     regs.update({f"5 vol={v} surf={s}": cs.instance_regs(inst, "trace_grad", "trace_bwd_kernel",
                                                          v, s)
                  for v in (False, True) for s in (False, True)})
-    regs["1m"] = cs.instance_regs(inst, "trace", "trace_kernel", True, False, False, False)
+    regs.update({f"1 mesh={m} vol={v} hg={g} surf={s}":
+                 cs.instance_regs(inst, "trace", "trace_kernel", m, v, g, s)
+                 for m in (False, True) for v, g in ((False, False), (True, False), (True, True))
+                 for s in (False, True)})
+    regs.update({f"4 vol={v} surf={s}": cs.instance_regs(inst, "trace_grad", "trace_fwd_kernel",
+                                                         v, s)
+                 for v in (False, True) for s in (False, True)})
     print(f"[split] {here} regs (registers, spill store / load bytes): {regs}", flush=True)
 
 

@@ -11,6 +11,9 @@
 // planes; surf: 3s), the nearest hit, winner search and occlusion
 // (intersect.cu), and the nearest triangle and triangle occlusion (mesh.cu,
 // chunk-culled with the padded boxes, or dense without).
+// host_trace_sched runs kernel 1 under a host emulation of its persistent
+// schedule (trace.cu:persistent_paths): warps of 32 lanes in lockstep
+// sharing one lane counter, refilled by rank.
 // host_mesh_sweep and host_mesh_occ run the in-kernel triangle sweep and
 // the shadow ray's sweep (trace_common.cuh) on one ray per lane.
 // The trace and the bounce take the in-kernel mesh tables as the launchers
@@ -26,6 +29,8 @@
 
 #include <math.h>
 
+#include <vector>
+
 // the card's rsqrtf; the host has none
 static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 
@@ -37,6 +42,55 @@ static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 #include "../pathtracer_tpu_torch/csrc/mesh.cu"
 
 using namespace pt;
+
+// The persistent schedule of kernel 1 (trace.cu:persistent_paths) on the
+// host: `threads` threads in warps of 32, each warp's lanes in lockstep,
+// every warp taking its new lanes from one counter.  The warps take their
+// passes in an uneven order (warp w sits out round k where
+// (k + w) % (w % 3 + 2) == 0), so the counter is taken in changing orders.
+// step(p) runs one bounce of path p; returns the bounces.
+template <typename Step>
+static unsigned long long host_schedule(int n, int threads, const float* origin,
+                                        const float* direction, const unsigned* sample,
+                                        Step step) {
+  const int warps = (threads + 31) / 32;
+  std::vector<Path> path(32 * (size_t)warps);
+  for (Path& p : path) p.alive = false;
+  std::vector<char> drained(warps, 0), done(warps, 0);
+  unsigned long long next = 0, bounces = 0;
+  for (int round = 0, left = warps; left > 0; ++round) {
+    for (int w = 0; w < warps; ++w) {
+      if (done[w] || (round + w) % (w % 3 + 2) == 0) continue;
+      Path* lanes = &path[32 * (size_t)w];
+      uint32_t free = 0;
+      if (!drained[w])
+        for (int l = 0; l < 32; ++l) free |= lanes[l].alive ? 0u : 1u << l;
+      if (free) {
+        const unsigned long long base = next;
+        next += PT_POPC(free);
+        drained[w] = base + PT_POPC(free) >= (unsigned long long)n;
+        for (int l = 0; l < 32; ++l) {
+          const unsigned long long mine = base + refill_rank(free, l);
+          if (!lanes[l].alive && mine < (unsigned long long)n)
+            lanes[l] = path_start((int)mine, origin, direction, sample);
+        }
+      }
+      bool any = false;
+      for (int l = 0; l < 32; ++l) any = any || lanes[l].alive;
+      if (!any) {
+        done[w] = 1;
+        --left;
+        continue;
+      }
+      for (int l = 0; l < 32; ++l) {
+        if (!lanes[l].alive) continue;
+        step(lanes[l]);
+        ++bounces;
+      }
+    }
+  }
+  return bounces;
+}
 
 extern "C" void host_fwd(const float* gtab, int G, const float* mtab, const float* ltab,
                          const float* scal, unsigned seed, const float* origin,
@@ -97,6 +151,34 @@ extern "C" void host_lane_keys(const float* gtab, const float* mtab, const float
                   : lane_key<false>(gtab, mtab, resid, (size_t)n, (size_t)i, depth);
 }
 
+// threads = 0: the lanes one by one in index order (trace_lane); else the
+// persistent schedule on that many threads
+static void trace_lanes(const float* gtab, int G, const float* mtab, const float* ltab,
+                        const float* scal, unsigned seed, const float* origin,
+                        const float* direction, const unsigned* sample, int n, float* radiance,
+                        unsigned long long* nrays, int depth, int nee, int rr, int rr_start,
+                        int vol, int hg, int vol_nee, int surf, const float* mtri,
+                        const float* maabb, const float* mnorm, const float* muv,
+                        const int* mdesc, int n_mesh, int threads) {
+  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f,
+                 MeshTables{mtri, maabb, mnorm, muv, mdesc, n_mesh}, surf};
+  const LoopArgs A{seed, depth, nee, rr, rr_start, vol_nee};
+  auto lane = !vol ? (surf ? trace_lane<false, false, true> : trace_lane<false, false, false>)
+              : hg ? (surf ? trace_lane<true, true, true> : trace_lane<true, true, false>)
+                   : (surf ? trace_lane<true, false, true> : trace_lane<true, false, false>);
+  auto step = !vol ? (surf ? trace_step<false, false, true> : trace_step<false, false, false>)
+              : hg ? (surf ? trace_step<true, true, true> : trace_step<true, true, false>)
+                   : (surf ? trace_step<true, false, true> : trace_step<true, false, false>);
+  unsigned long long total = 0;
+  if (threads == 0) {
+    for (int i = 0; i < n; ++i) total += lane(T, A, i, origin, direction, sample, radiance);
+  } else {
+    total = host_schedule(n, threads, origin, direction, sample,
+                          [&](Path& p) { step(T, A, p, radiance); });
+  }
+  *nrays = total * (nee ? 2 : 1);
+}
+
 extern "C" void host_trace(const float* gtab, int G, const float* mtab, const float* ltab,
                            const float* scal, unsigned seed, const float* origin,
                            const float* direction, const unsigned* sample, int n,
@@ -104,24 +186,21 @@ extern "C" void host_trace(const float* gtab, int G, const float* mtab, const fl
                            int rr, int rr_start, int vol, int hg, int vol_nee, int surf,
                            const float* mtri, const float* maabb, const float* mnorm,
                            const float* muv, const int* mdesc, int n_mesh) {
-  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f,
-                 MeshTables{mtri, maabb, mnorm, muv, mdesc, n_mesh}, surf};
-  auto lane = !vol ? (surf ? trace_lane<false, false, true> : trace_lane<false, false, false>)
-              : hg ? (surf ? trace_lane<true, true, true> : trace_lane<true, true, false>)
-                   : (surf ? trace_lane<true, false, true> : trace_lane<true, false, false>);
-  unsigned long long total = 0;
-  for (int i = 0; i < n; ++i) {
-    V3 o = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
-    V3 d = v3(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
-    unsigned bounces = 0;
-    const V3 rad =
-        lane(T, seed, sample[i], o, d, depth, nee, rr, rr_start, true, bounces, vol_nee);
-    radiance[3 * i] = rad.x;
-    radiance[3 * i + 1] = rad.y;
-    radiance[3 * i + 2] = rad.z;
-    total += (unsigned long long)bounces * (nee ? 2 : 1);
-  }
-  *nrays = total;
+  trace_lanes(gtab, G, mtab, ltab, scal, seed, origin, direction, sample, n, radiance, nrays,
+              depth, nee, rr, rr_start, vol, hg, vol_nee, surf, mtri, maabb, mnorm, muv, mdesc,
+              n_mesh, 0);
+}
+
+extern "C" void host_trace_sched(const float* gtab, int G, const float* mtab, const float* ltab,
+                                 const float* scal, unsigned seed, const float* origin,
+                                 const float* direction, const unsigned* sample, int n,
+                                 float* radiance, unsigned long long* nrays, int depth, int nee,
+                                 int rr, int rr_start, int vol, int hg, int vol_nee, int surf,
+                                 const float* mtri, const float* maabb, const float* mnorm,
+                                 const float* muv, const int* mdesc, int n_mesh, int threads) {
+  trace_lanes(gtab, G, mtab, ltab, scal, seed, origin, direction, sample, n, radiance, nrays,
+              depth, nee, rr, rr_start, vol, hg, vol_nee, surf, mtri, maabb, mnorm, muv, mdesc,
+              n_mesh, threads);
 }
 
 extern "C" void host_bounce(const float* gtab, int G, const float* mtab, const float* ltab,

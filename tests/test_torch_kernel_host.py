@@ -111,6 +111,7 @@ def host_lib(tmp_path_factory):
     lib.host_lane_keys.argtypes = [P, P, P, I, I, I, P]
     lib.host_trace.argtypes = [P, I, P, P, P, ctypes.c_uint, P, P, P, I, P, P, I, I, I, I,
                                I, I, I, I, P, P, P, P, P, I]
+    lib.host_trace_sched.argtypes = lib.host_trace.argtypes + [I]
     lib.host_bounce.argtypes = ([P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 17 + [I] * 5
                                 + [P] * 3 + [P] * 5 + [I])
     lib.host_bounce_merge.argtypes = ([P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 15
@@ -1679,3 +1680,93 @@ def test_bounce_surf_replay_and_backward_lanes_match_plain(host_lib, scene_name,
     assert min(shares) >= 0.9999
     assert all(bool(torch.isfinite(x).all()) for x in got)
     assert surf_cols
+
+
+# ---- kernel 1's persistent schedule
+
+
+def _sched_scene(name, res):
+    """A scene of the schedule's cases at ``res``: its tables, in-kernel
+    mesh tables (or None), the launchers' media and surface arguments
+    (volumetric, hg, surface bits) and the scene."""
+    from pathtracer_tpu_torch.render.features import features_for_materials
+    from pathtracer_tpu_torch.scene.variants import fog_mesh_scene
+
+    if name == "mini":
+        desc = parse_scene_text(MINI_SCENE, name=name)
+    elif name.startswith("fog_mesh"):
+        desc = parse_scene_text(fog_mesh_scene(name.endswith("glass")), name=name,
+                                scene_dir=os.path.join(HERE, "..", "scenes"))
+    else:
+        desc = load_scene(os.path.join(HERE, "..", "scenes", f"{name}.txt"))
+    scene = dataclasses.replace(desc, resolution=res).scene_for_frame(0, device="cpu")
+    feats = frozenset(features_for_materials(scene.materials))
+    flags = (*trace.media_args(feats, True)[:2], trace.surface_bits(feats))
+    return [t.contiguous() for t in pack_tables(scene)], scene.mesh_tables, flags, scene
+
+
+# scene, options, whether kernel 4 takes it (no meshes, no hg)
+SCHED_CASES = {
+    "mini_nee_rr": ("mini", dict(max_depth=3, nee=True, rr=True, rr_start=1), True),
+    "cornell_d8": ("cornell", dict(max_depth=8, nee=True, rr=False, rr_start=3), True),
+    "cornell_d8_rr": ("cornell", dict(max_depth=8, nee=True, rr=True, rr_start=3), True),
+    "cornell_no_nee_rr": ("cornell", dict(max_depth=6, nee=False, rr=True, rr_start=2), True),
+    "milky": ("milky", dict(max_depth=6, nee=True, rr=False, rr_start=3), True),
+    "fog_rr": ("fog", dict(max_depth=6, nee=True, rr=True, rr_start=2), True),
+    "glass_dof": ("glass_dof", dict(max_depth=6, nee=True, rr=False, rr_start=3), True),
+    "ward": ("ward", dict(max_depth=6, nee=True, rr=True, rr_start=2), True),
+    "textured": ("textured", dict(max_depth=6, nee=True, rr=False, rr_start=3), True),
+    "sss_hg": ("sss", dict(max_depth=6, nee=True, rr=False, rr_start=3), False),
+    "smooth_mesh": ("smooth_mesh", dict(max_depth=4, nee=True, rr=False, rr_start=3), False),
+    "fog_mesh_glass": ("fog_mesh_glass", dict(max_depth=4, nee=True, rr=True, rr_start=2),
+                       False),
+}
+
+
+@pytest.mark.parametrize("threads", [64, 200, 1024])
+@pytest.mark.parametrize("case", sorted(SCHED_CASES))
+def test_persistent_schedule_matches_index_order(host_lib, case, threads):
+    """Kernel 1 under a host emulation of its persistent schedule
+    (``trace.cu:persistent_paths``: warps of 32 lanes in lockstep, one lane
+    counter, a warp's free lanes refilled by rank as soon as one is free),
+    the warps taking their passes in an uneven order, against the same
+    lanes run one by one in index order: radiance and ray count bit-equal.
+    29x31 lanes (not a multiple of 32) on 64 threads (each thread runs
+    about 14 paths), on 200 (a part-filled warp) and on 1,024 (more threads
+    than lanes).  Kernel 4, which keeps one path per thread, gives the same
+    radiance and rays."""
+    name, kw, fwd = SCHED_CASES[case]
+    tables, km, (vol, hg, surf), scene = _sched_scene(name, (29, 31))
+    n, seed = 29 * 31, 41
+    pixel = torch.arange(n)
+    sample = 3 * n + pixel
+    rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, sample))
+    bits = sample.to(torch.int32)  # kept alive across the calls
+    flags = (kw["max_depth"], int(kw["nee"]), int(kw["rr"]), kw["rr_start"])
+    common = (tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(),
+              tables[2].data_ptr(), tables[3].data_ptr(), seed, rays.origin.data_ptr(),
+              rays.direction.data_ptr(), bits.data_ptr(), n)
+    mesh = _mesh_args(km) if km is not None else NO_MESH
+
+    def nan(*shape):
+        return torch.full(shape, float("nan"))
+
+    rad_i, rad_s = nan(n, 3), nan(n, 3)
+    nr_i, nr_s = ctypes.c_ulonglong(), ctypes.c_ulonglong()
+    host_lib.host_trace(*common, rad_i.data_ptr(), ctypes.byref(nr_i), *flags, vol, hg, 1, surf,
+                        *mesh)
+    host_lib.host_trace_sched(*common, rad_s.data_ptr(), ctypes.byref(nr_s), *flags, vol, hg, 1,
+                              surf, *mesh, threads)
+    print(f"{case}: {nr_i.value} rays, {nr_i.value / n / (2 if kw['nee'] else 1):.3f} bounces "
+          f"per lane of {kw['max_depth']}")
+    assert nr_s.value == nr_i.value > 0
+    assert torch.equal(rad_s, rad_i) and float(rad_i.sum()) > 0
+    if not fwd:
+        return
+    nr = trace_grad.N_RESID_VOL if vol else trace_grad.N_RESID
+    rad_f, res_f, nr_f = nan(n, 3), nan(kw["max_depth"], nr, n), ctypes.c_ulonglong()
+    host_lib.host_fwd(*common, rad_f.data_ptr(), ctypes.byref(nr_f), res_f.data_ptr(), *flags,
+                      vol, 1, surf)
+    assert nr_f.value == nr_i.value and torch.equal(rad_f, rad_i)
+    assert not bool(res_f.isnan().any())
+    assert float(res_f[-1, nr - 3].mean()) < 1.0  # the alive plane: some paths ended early

@@ -1516,3 +1516,60 @@ def test_merge_wrapper_checks_its_inputs():
     with pytest.raises(ValueError, match="CUDA"):
         bounce_fused.bounce_fused_cuda([t.cpu() for t in tables], *(s.cpu() for s in state), 1,
                                        nee=True, mesh_in=mesh_in.cpu())
+
+
+# ---- kernel 1's persistent schedule and kernel 4 on the same paths: russian
+# roulette on, an odd lane count, and kernel 1's grid forced far below the
+# resident one (the launcher's block count; 0 takes the resident count).
+# The schedule changes which thread runs a path and when, not what the path
+# computes: the forced grid's outputs equal the resident grid's bit for bit,
+# both meet the plain version's bars above, and kernel 4's radiance equals
+# kernel 1's.
+
+PERSISTENT_CASES = {
+    "cornell_rr": ("cornell", dict(max_depth=8, nee=True, rr=True, rr_start=3)),
+    "mini_no_nee_rr": ("mini", dict(max_depth=6, nee=False, rr=True, rr_start=1)),
+    "milky": ("milky", dict(max_depth=8, nee=True, rr=True, rr_start=2)),
+    "ward": ("ward", dict(max_depth=8, nee=True, rr=True, rr_start=3)),
+    "sss": ("sss", dict(max_depth=8, nee=True, rr=True, rr_start=3)),
+    "smooth_mesh": ("smooth_mesh", dict(max_depth=8, nee=True, rr=True, rr_start=3)),
+    "fog": ("fog", dict(max_depth=8, nee=True, rr=True, rr_start=3)),
+    "fog_mesh_glass": ("fog_mesh_glass", dict(max_depth=8, nee=True, rr=True, rr_start=3)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PERSISTENT_CASES))
+def test_persistent_trace_kernels_match_plain(case):
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import trace_grad
+    from pathtracer_tpu_torch.render.features import features_for_materials
+
+    name, kw = PERSISTENT_CASES[case]
+    res = (97, 61)  # 5,917 lanes: odd
+    scene = _media_scene(name, res)
+    feats = frozenset(features_for_materials(scene.materials))
+    n = res[0] * res[1]
+    pixel = torch.arange(n, device="cuda")
+    sample = 5 * n + pixel
+    rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(31, sample))
+    args = (*pack_tables(scene), 31, rays.origin, rays.direction, sample)
+    opts = dict(kw, features=feats)
+    rad_p, nr_p = trace.trace_plain(*args, mesh=scene.mesh_tables, **opts)
+    runs = [trace.trace_cuda(*args, mesh=scene.mesh_tables, blocks=b, **opts) for b in (0, 3)]
+    torch.cuda.synchronize()
+    for rad_k, nr_k in runs:
+        assert int(nr_k) == int(nr_p)
+        close = torch.isclose(rad_k, rad_p, rtol=2e-6, atol=2e-6).all(-1)
+        assert float(close.float().mean()) >= 0.999 and float(rad_p.sum()) > 0
+    assert torch.equal(runs[0][0], runs[1][0])
+    if scene.meshes or "hg" in feats:
+        return  # kernel 4 takes neither (the lean engine does)
+    # kernel 4 (one path per thread) on the same paths
+    _, nr_fp, res_p = trace_grad.tfwd_plain(*args, **opts)
+    rad_f, nr_f, res_f = trace_grad.tfwd_cuda(*args, **opts)
+    torch.cuda.synchronize()
+    assert torch.equal(rad_f, runs[0][0]) and int(nr_f) == int(nr_fp) == int(nr_p)
+    close = torch.isclose(res_f, res_p, rtol=2e-6, atol=2e-6).all(1)
+    assert float(close.float().mean()) >= 0.999
+    tail = res_p.shape[1] - 4  # prev_state, alive, gid, nee_add
+    assert float(res_p[-1, tail + 1].mean()) < 1.0  # some paths ended early
