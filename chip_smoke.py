@@ -1049,8 +1049,33 @@ def grad_engines_phase(desc, dev, card: str, out_dir: str, full_loss, full_grads
             check(min(a for _, a, _ in shares) >= 0.999,
                   f"kernel 3 beyond 1e-5 of the float64 reference on > 0.1% of lanes ({label})")
 
-        # ---- times at 640,000 lanes on the state after three bounces
+        # ---- the engine's launches on the state after three bounces: kernel
+        # 2's replay variant with the alive plane, and kernel 3's lanes in
+        # key order against index order, with the engine's cotangents (zero
+        # on the lanes that died)
         ms_ = states["after 3 bounces"]
+        args = (tables, ms_["origin"], ms_["direction"], ms_["throughput"], ms_["sample"],
+                ms_["depth"], ms_["prev"])
+        hold_alive_plane("grad", "kernel 2 replay, after 3 bounces", (*args, medium, seed),
+                         dict(nee=True, emit_replay=True), alive)
+        _, agid, anee = bounce_fused.bounce_fused_cuda(*args, medium, seed, nee=True,
+                                                       emit_replay=True, alive=alive)
+        ecots = [torch.where(alive[:, None], c, 0.0) for c in cots]
+        eargs = (*args, agid, anee, *ecots, seed)
+        ordered = bounce_grad.bounce_bwd_cuda(*eargs, nee=True)
+        index = bounce_grad.bounce_bwd_cuda(*eargs, nee=True, ordered=False)
+        eref = bounce_grad.bounce_bwd_plain(*eargs, nee=True, dtype=torch.float64)
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(ordered[4:], index[4:]))
+        print(f"[grad:check] after 3 bounces, the engine's cotangents: kernel 3 in key order "
+              f"bit-equal to index order on every lane: {same}")
+        check(same, "kernel 3's lane order changes a lane's outputs")
+        b_err = max(b_err, hold_adjoint(
+            "kernel 3 in key order, after 3 bounces", ordered, eref,
+            ("d_origin", "d_direction", "d_throughput"), lambda j: f"alive {bool(alive[j])}",
+            min_share=0.999))
+
+        # ---- times at 640,000 lanes on the state after three bounces
         args = (tables, ms_["origin"], ms_["direction"], ms_["throughput"], ms_["sample"],
                 ms_["depth"], ms_["prev"])
         bargs = (*args, rgid, rnee, *cots, seed)
@@ -1187,19 +1212,47 @@ def capturing_render(scene, spp: int, cfg, dev, captured: dict):
     shade = wavefront.shade_bounce
 
     def recording(scn, rays, thr, sample, depth, prev, seed_, cfg_, medium_sigma=None,
-                  tables=None):
+                  tables=None, alive=None):
         if wavefront.super_steps == CAPTURE_STEP:
             captured.update(origin=rays.origin.clone(), direction=rays.direction.clone(),
                             throughput=thr.clone(), sample=sample.clone(), depth=depth.clone(),
-                            prev=prev.clone(), medium=medium_sigma.clone())
+                            prev=prev.clone(), medium=medium_sigma.clone(), alive=alive.clone())
         return shade(scn, rays, thr, sample, depth, prev, seed_, cfg_,
-                     medium_sigma=medium_sigma, tables=tables)
+                     medium_sigma=medium_sigma, tables=tables, alive=alive)
 
     wavefront.shade_bounce = recording
     try:
         return counted_render(scene, spp, cfg, dev)
     finally:
         wavefront.shade_bounce = shade
+
+
+def hold_alive_plane(tag: str, label: str, args, kw: dict, alive) -> None:
+    """Kernel 2 (or an instance, by ``kw``) with the engine's ``alive``
+    plane, under its span schedule, at spans 1 and 8 and as variant (d):
+    every live lane's planes bit-equal to the mask-free launch's, every dead
+    lane's to ``bounce_fused_plain(alive=...)``'s; fails otherwise."""
+    import torch
+
+    from pathtracer_tpu_torch.ops import bounce_fused
+
+    def planes(out):
+        res, *extra = out if isinstance(out, tuple) else (out,)
+        return [getattr(res, f.name) for f in dataclasses.fields(res)] + extra
+
+    whole = planes(bounce_fused.bounce_fused_cuda(*args, **kw))
+    plain = planes(bounce_fused.bounce_fused_plain(*args, alive=alive, **kw))
+    dead = ~alive
+    ok = []
+    for sched in (dict(), dict(span=1), dict(span=8), dict(lane_order=True)):
+        got = planes(bounce_fused.bounce_fused_cuda(*args, alive=alive, **kw, **sched))
+        torch.cuda.synchronize()
+        ok.append(all(torch.equal(g[alive], w[alive]) and torch.equal(g[dead], p[dead])
+                      for g, w, p in zip(got, whole, plain)))
+    print(f"[{tag}:check] {label}, {int(alive.sum())} of {alive.numel()} lanes alive: with the "
+          f"alive plane (span from the card, 1, 8, variant (d)) live lanes bit-equal to the "
+          f"mask-free launch and dead lanes to plain: {ok}")
+    check(all(ok), f"kernel 2 with the alive plane differs ({label})")
 
 
 def check_close(tag: str, acc, ref, min_share: float, sum_tol: float, what: str) -> None:
@@ -1336,15 +1389,23 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
         check(ids_equal and float(frame.float().mean()) >= 0.999,
               f"kernel 6 differs from its plain version ({label})")
         check(occ_share >= 0.999, f"kernel 8 differs from its plain version ({label})")
+    hold_alive_plane("wavefront", f"kernel 2, super-step {CAPTURE_STEP}",
+                     (tables, mid["origin"], mid["direction"], mid["throughput"], mid["sample"],
+                      mid["depth"], mid["prev"], mid["medium"], seed), dict(nee=True),
+                     mid["alive"])
 
     # ---- (e) times at 640,000 lanes, on the captured super-step's state
     margs = (tables, mid["origin"], mid["direction"], mid["throughput"], mid["sample"],
              mid["depth"], mid["prev"], mid["medium"], seed)
     mrays = Rays(mid["origin"], mid["direction"])
-    k2_ms = cuda_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, nee=True), reps=50)
-    k2_dev = [queued_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, nee=True))
+    malive = mid["alive"]  # the engine's launch: its alive plane, the span schedule
+    k2_ms = cuda_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, nee=True, alive=malive),
+                    reps=50)
+    k2_dev = [queued_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, nee=True, alive=malive))
               for _ in range(2)]
-    k2p_ms = cuda_ms(lambda: bounce_fused.bounce_fused_plain(*margs, nee=True), reps=2)
+    k2_whole = queued_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, nee=True))
+    k2p_ms = cuda_ms(lambda: bounce_fused.bounce_fused_plain(*margs, nee=True, alive=malive),
+                     reps=2)
     k6_ms = cuda_ms(lambda: intersect_cuda.nearest_hit_cuda(mrays, tables[0]), reps=50)
     k6p_ms = cuda_ms(lambda: nearest_hit_plain(mrays, tables[0]), reps=3)
     k8_ms = cuda_ms(lambda: intersect_cuda.occlusion_t_cuda(mrays, tables[0]), reps=50)
@@ -1393,8 +1454,9 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
         f"{launch_c['nearest_hit']} each; on {card}"
     )
     print(
-        f"[wavefront:time] at {n} lanes: kernel 2 {k2_ms:.4f} ms ({k2_dev[0]:.4f} / "
-        f"{k2_dev[1]:.4f} ms of device time, queued, twice; plain {k2p_ms:.3f} ms, bound "
+        f"[wavefront:time] at {n} lanes, {int(malive.sum())} alive: kernel 2 {k2_ms:.4f} ms "
+        f"({k2_dev[0]:.4f} / {k2_dev[1]:.4f} ms of device time, queued, twice; mask-free "
+        f"{k2_whole:.4f}; plain {k2p_ms:.3f} ms, bound "
         f"{k2_bound[0]:.4f} ms by {k2_bound[1]}); kernel 6 {k6_ms:.4f} ms (plain {k6p_ms:.3f} ms, "
         f"bound {k6_bound[0]:.4f} ms by {k6_bound[1]}); kernel 8 {k8_ms:.4f} ms (plain "
         f"{k8p_ms:.3f} ms, bound {k8_bound[0]:.4f} ms by {k8_bound[1]}); on {card}"
@@ -1414,7 +1476,7 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
     return [
         {"name": "bounce", **common, "source": "pathtracer_tpu_torch/csrc/bounce.cu",
          "replaces": "pathtracer_tpu/ops/bounce_pallas.py:1477", "launches": launch_a["bounce"],
-         "max_abs_err": b_err, "ms": k2_ms, "plain_ms": k2p_ms, "bound_ms": k2_bound[0],
+         "max_abs_err": b_err, "ms": k2_dev[0], "plain_ms": k2p_ms, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1]},
         {"name": "nearest_hit", **common, "source": "pathtracer_tpu_torch/csrc/intersect.cu",
          "replaces": "pathtracer_tpu/ops/intersect_pallas.py:83",
@@ -2225,14 +2287,14 @@ def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -
     shade = megakernel.shade_bounce
 
     def recording(scn, rays, thr, sample, depth, prev, seed_, cfg_, medium_sigma=None,
-                  tables=None):
+                  tables=None, alive=None):
         if depth == SCAN_CAPTURE_DEPTH and not captured:
             captured.update(origin=rays.origin.clone(), direction=rays.direction.clone(),
                             throughput=thr.clone(), sample=sample.clone(),
                             depth=torch.full(sample.shape, depth, dtype=torch.int32, device=dev),
-                            prev=prev.clone(), medium=medium_sigma.clone())
+                            prev=prev.clone(), medium=medium_sigma.clone(), alive=alive.clone())
         return shade(scn, rays, thr, sample, depth, prev, seed_, cfg_,
-                     medium_sigma=medium_sigma, tables=tables)
+                     medium_sigma=medium_sigma, tables=tables, alive=alive)
 
     megakernel.shade_bounce = recording
     try:
@@ -2555,14 +2617,14 @@ def bigmesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     shade = megakernel.shade_bounce
 
     def recording(scn, rays, thr, sample, depth, prev, seed_, cfg_, medium_sigma=None,
-                  tables=None):
+                  tables=None, alive=None):
         if depth == SCAN_CAPTURE_DEPTH and not captured:
             captured.update(origin=rays.origin.clone(), direction=rays.direction.clone(),
                             throughput=thr.clone(), sample=sample.clone(),
                             depth=torch.full(sample.shape, depth, dtype=torch.int32, device=dev),
-                            prev=prev.clone(), medium=medium_sigma.clone())
+                            prev=prev.clone(), medium=medium_sigma.clone(), alive=alive.clone())
         return shade(scn, rays, thr, sample, depth, prev, seed_, cfg_,
-                     medium_sigma=medium_sigma, tables=tables)
+                     medium_sigma=medium_sigma, tables=tables, alive=alive)
 
     megakernel.shade_bounce = recording
     try:

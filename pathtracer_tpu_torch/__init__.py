@@ -39,11 +39,17 @@ from pathtracer_tpu_torch.render.diff import (
     render_linear,
     render_linear_rays,
 )
-from pathtracer_tpu_torch.render.integrator import render
-from pathtracer_tpu_torch.scene.parser import load_scene
+from pathtracer_tpu_torch.render.integrator import render, render_chunk
+from pathtracer_tpu_torch.scene.parser import load_scene, parse_scene_text
+from pathtracer_tpu_torch.scene.structs import Camera, Geoms, Materials, Rays, Scene
 
 __all__ = [
+    "Camera",
+    "Geoms",
+    "Materials",
+    "Rays",
     "RenderConfig",
+    "Scene",
     "SceneParams",
     "SceneStatic",
     "build_scene",
@@ -53,7 +59,9 @@ __all__ = [
     "loss_and_grad",
     "loss_and_grad_rays",
     "params_from_description",
+    "parse_scene_text",
     "render",
+    "render_chunk",
     "render_linear",
     "render_linear_rays",
 ]

@@ -73,9 +73,26 @@
 
 namespace pt {
 
+// whether every cotangent of lane i is zero (with kVol the medium's too)
+template <bool kVol>
+PT_FN bool cotangents_zero(const float* __restrict__ g_contrib, const float* __restrict__ g_next_o,
+                           const float* __restrict__ g_next_d,
+                           const float* __restrict__ g_thr_mult,
+                           const float* __restrict__ g_medium, size_t i) {
+  bool zero = true;
+  const float* cot[4] = {g_contrib, g_next_o, g_next_d, g_thr_mult};
+  for (int k = 0; k < 4; ++k)
+    for (int c = 0; c < 3; ++c) zero = zero && cot[k][3 * i + c] == 0.0f;
+  if constexpr (kVol)
+    for (int c = 0; c < 4; ++c) zero = zero && g_medium[4 * i + c] == 0.0f;
+  return zero;
+}
+
 // one lane of kernel 3 (kVol: 3v, kSurf: 3s); also compiled as host C++ by
-// tests/kernel_host_harness.cpp
-template <bool kVol = false, bool kSurf = false>
+// tests/kernel_host_harness.cpp.  kSums: NEE's light and scalar columns go
+// to the lane sums ls (zeroed by the caller, who adds them to the row after
+// the lane), the others to acc.
+template <bool kVol = false, bool kSurf = false, bool kSums = false>
 PT_FN void bounce_bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, int nee, size_t i,
                            const float* __restrict__ origin, const float* __restrict__ direction,
                            const float* __restrict__ thr, const uint32_t* __restrict__ sample,
@@ -86,20 +103,15 @@ PT_FN void bounce_bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, i
                            const float* __restrict__ g_next_d,
                            const float* __restrict__ g_thr_mult, float* __restrict__ d_origin,
                            float* __restrict__ d_direction, float* __restrict__ d_thr,
-                           float* acc, int vol_nee = 1, const float* __restrict__ medium = nullptr,
+                           float* acc, LaneSums* ls, int vol_nee = 1,
+                           const float* __restrict__ medium = nullptr,
                            const float* __restrict__ g_medium = nullptr,
                            float* __restrict__ d_medium = nullptr) {
   // A lane whose cotangents are all zero (in the per-bounce engine, a lane
   // that died at an earlier bounce) has exact zeros for its adjoint and adds
   // nothing to the tables: it writes the zeros and skips the rest, as
   // kernel 5 skips a dead bounce.
-  bool zero = true;
-  const float* cot[4] = {g_contrib, g_next_o, g_next_d, g_thr_mult};
-  for (int k = 0; k < 4; ++k)
-    for (int c = 0; c < 3; ++c) zero = zero && cot[k][3 * i + c] == 0.0f;
-  if constexpr (kVol)
-    for (int c = 0; c < 4; ++c) zero = zero && g_medium[4 * i + c] == 0.0f;
-  if (zero) {
+  if (cotangents_zero<kVol>(g_contrib, g_next_o, g_next_d, g_thr_mult, g_medium, i)) {
     float* out[3] = {d_origin, d_direction, d_thr};
     for (int k = 0; k < 3; ++k)
       for (int c = 0; c < 3; ++c) out[k][3 * i + c] = 0.0f;
@@ -134,8 +146,8 @@ PT_FN void bounce_bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, i
     dm[2] = (float)g_sa.z;
     dm[3] = (float)g_ss;
   } else {
-    physics_adj<kSurf>(T, R, r, base, dep, nee, o, d, t, prev[i], replay_nee[i] > 0.5f, gc, gno,
-                       gnd, gtm, g_o, g_d, g_t, acc);
+    physics_adj<kSurf, kSums>(T, R, r, base, dep, nee, o, d, t, prev[i], replay_nee[i] > 0.5f,
+                              gc, gno, gnd, gtm, g_o, g_d, g_t, acc, ls);
   }
   const D3* vec[3] = {&g_o, &g_d, &g_t};
   float* out[3] = {d_origin, d_direction, d_thr};
@@ -144,6 +156,52 @@ PT_FN void bounce_bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, i
     out[k][3 * i + 1] = (float)vec[k]->y;
     out[k][3 * i + 2] = (float)vec[k]->z;
   }
+}
+
+// ---- the lane order of kernel 3 -------------------------------------------
+
+// A lane's key: the branch its adjoint takes, known before the launch from
+// the forward's replay planes, the tables and the cotangents.  A miss, a
+// light hit, a diffuse hit with its NEE connection, one without, a mirror or
+// glossy surface, glass; 3s adds a Cook-Torrance or Ward material, 3v a
+// scattering medium (5v's bit).  A lane whose cotangents are all zero takes
+// the largest key: those lanes run last, in whole warps that write zeros.
+constexpr int KEY_MISS = 0, KEY_LIGHT = 1, KEY_NEE = 2, KEY_DIFFUSE = 3, KEY_MIRROR = 4,
+              KEY_GLASS = 5, KEY_LOBE = 8, KEY_SCATTER = 16, KEY_ZERO = ORDER_KEYS - 1;
+
+// what a lane's key reads
+struct BwdKeyIn {
+  const float* gtab;
+  const float* mtab;
+  const float* replay_gid;
+  const float* replay_nee;
+  const float* g_contrib;
+  const float* g_next_o;
+  const float* g_next_d;
+  const float* g_thr_mult;
+  const float* medium;    // kVol
+  const float* g_medium;  // kVol
+};
+
+template <bool kVol, bool kSurf>
+PT_FN int bounce_bwd_key(const BwdKeyIn& k, size_t i) {
+  if (cotangents_zero<kVol>(k.g_contrib, k.g_next_o, k.g_next_d, k.g_thr_mult, k.g_medium, i))
+    return KEY_ZERO;
+  const int gid = (int)k.replay_gid[i];
+  int key = KEY_MISS;
+  if (gid >= 0) {
+    const float* mat = k.mtab + (int)k.gtab[gid * GCOLS + 13] * MCOLS;
+    if (mat[9] > 0.0f)
+      key = KEY_LIGHT;
+    else if (mat[7] > 0.0f)
+      key = KEY_GLASS;
+    else if (mat[6] > 0.0f)
+      key = KEY_MIRROR + (kSurf && mat[24] > 0.5f ? KEY_LOBE : 0);
+    else
+      key = k.replay_nee[i] > 0.5f ? KEY_NEE : KEY_DIFFUSE;
+  }
+  if constexpr (kVol) key += k.medium[4 * i + 3] > 0.0f ? KEY_SCATTER : 0;
+  return key;
 }
 
 }  // namespace pt
@@ -155,6 +213,14 @@ namespace {
 using namespace pt;
 
 constexpr int THREADS = 128;
+
+// The instances that sum NEE's light and scalar columns per lane
+// (bounce_adj.cuh's LaneSums) and once per warp: 3 and 3s.  3v's adjoint
+// (physics_adj_vol) adds every column to the row.
+template <bool kVol, bool kSurf>
+constexpr bool BWD_SUMS_ON = !kVol;
+// whether 3v orders its lanes (keyed with 5v's medium bit); 3 and 3s do
+constexpr bool ORDER_VOL = true;
 
 template <bool kVol, bool kSurf>
 __global__ void __launch_bounds__(THREADS)
@@ -170,7 +236,7 @@ bounce_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict
                   float* __restrict__ d_direction, float* __restrict__ d_thr,
                   float* __restrict__ partial, int vol_nee, int surf,
                   const float* __restrict__ medium, const float* __restrict__ g_medium,
-                  float* __restrict__ d_medium) {
+                  float* __restrict__ d_medium, const int* __restrict__ order) {
   extern __shared__ float smem[];
   const RowLayout R = row_layout(G, M);
   // the block's table row is its row of `partial`, in device memory: the
@@ -179,17 +245,41 @@ bounce_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict
   float* acc = partial + (size_t)blockIdx.x * R.k;
   load_tables(smem, gtab, G, mtab, M, ltab);
   for (int i = threadIdx.x; i < R.k; i += blockDim.x) acc[i] = 0.0f;
+  // each thread's lane sums, slot k at [k * THREADS + thread], after the tables
+  constexpr bool kSums = BWD_SUMS_ON<kVol, kSurf>;
+  LaneSums ls{nullptr, THREADS, -1};
+  if constexpr (kSums) {
+    ls.s = reinterpret_cast<AD*>(smem + sums_offset(G, M)) + threadIdx.x;
+    for (int k = 0; k < LANE_SUMS; ++k) ls.s[k * THREADS] = 0.0;
+  }
   __syncthreads();
   const Tables T{smem, smem + G * GCOLS, smem + G * GCOLS + M * MCOLS, G, scal[0],
                  scal[1] > 0.5f, MeshTables{nullptr, nullptr, nullptr, nullptr, nullptr, 0},
                  kSurf ? surf : 0};
 
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  // thread t takes lane order[t] where the launch orders its lanes
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const int idx = order != nullptr && t < n ? order[t] : t;
   if (idx < n)  // lanes past n contribute nothing
-    bounce_bwd_lane<kVol, kSurf>(T, R, seed, nee, (size_t)idx, origin, direction, thr, sample,
-                                 depth, prev, replay_gid, replay_nee, g_contrib, g_next_o,
-                                 g_next_d, g_thr_mult, d_origin, d_direction, d_thr, acc,
-                                 vol_nee, medium, g_medium, d_medium);
+    bounce_bwd_lane<kVol, kSurf, kSums>(T, R, seed, nee, (size_t)idx, origin, direction, thr,
+                                        sample, depth, prev, replay_gid, replay_nee, g_contrib,
+                                        g_next_o, g_next_d, g_thr_mult, d_origin, d_direction,
+                                        d_thr, acc, &ls, vol_nee, medium, g_medium, d_medium);
+  // every thread of the warp, past n or on a lane that added nothing too
+  if constexpr (kSums) warp_sums_add(acc, R, ls);
+}
+
+// a lane's key for the lane order (bounce_adj.cuh:lane_order)
+template <bool kVol, bool kSurf>
+struct BwdKey {
+  BwdKeyIn in;
+  __device__ int operator()(size_t i) const { return bounce_bwd_key<kVol, kSurf>(in, i); }
+};
+
+template <bool kVol>
+cudaError_t bwd_lane_order(const BwdKeyIn& in, int surf, int n, int* scratch, cudaStream_t s) {
+  return surf ? lane_order(BwdKey<kVol, true>{in}, n, scratch, s)
+              : lane_order(BwdKey<kVol, false>{in}, n, scratch, s);
 }
 
 }  // namespace
@@ -201,6 +291,11 @@ extern "C" int bounce_bwd_rows(int n) {
   return blocks > 0 ? blocks + row_sum_scratch(blocks) : 1;
 }
 
+// the ints of order scratch that bounce_bwd_launch needs for n lanes
+extern "C" int bounce_bwd_order_ints(int n) { return lane_order_ints(n > 0 ? n : 1); }
+
+// order_scratch: bounce_bwd_order_ints(n) ints for the lane order, or null
+// for the lanes in index order (one thread per lane, thread t on lane t)
 extern "C" int bounce_bwd_launch(const float* gtab, int G, const float* mtab, int M,
                                  const float* ltab, const float* scal, unsigned int seed, int nee,
                                  int n, const float* origin, const float* direction,
@@ -211,11 +306,16 @@ extern "C" int bounce_bwd_launch(const float* gtab, int G, const float* mtab, in
                                  const float* g_thr_mult, float* d_origin, float* d_direction,
                                  float* d_thr, float* partial, float* row, int vol, int vol_nee,
                                  int surf, const float* medium, const float* g_medium,
-                                 float* d_medium, void* stream) {
+                                 float* d_medium, int* order_scratch, void* stream) {
   const RowLayout R = row_layout(G, M);
   const int blocks = (n + THREADS - 1) / THREADS;
-  if (n <= 0) return (int)cudaMemsetAsync(row, 0, sizeof(float) * R.k, (cudaStream_t)stream);
-  const size_t smem = sizeof(float) * table_floats(G, M);
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (n <= 0) return (int)cudaMemsetAsync(row, 0, sizeof(float) * R.k, s);
+  // the tables, and the lane sums in the instances that keep them
+  const bool sums = vol ? (surf ? BWD_SUMS_ON<true, true> : BWD_SUMS_ON<true, false>)
+                         : (surf ? BWD_SUMS_ON<false, true> : BWD_SUMS_ON<false, false>);
+  const size_t smem = sizeof(float) * (sums ? sums_offset(G, M) + 2 * LANE_SUMS * THREADS
+                                            : table_floats(G, M));
   // the instance: vacuum or volumetric x surface blocks or not
   const auto kernel =
       vol ? (surf ? bounce_bwd_kernel<true, true> : bounce_bwd_kernel<true, false>)
@@ -225,14 +325,22 @@ extern "C" int bounce_bwd_launch(const float* gtab, int G, const float* mtab, in
         cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
   }
-  kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
+  const int* order = nullptr;
+  if (order_scratch != nullptr && (!vol || ORDER_VOL)) {
+    const BwdKeyIn in{gtab,     mtab,     replay_gid, replay_nee, g_contrib,
+                      g_next_o, g_next_d, g_thr_mult, medium,     g_medium};
+    const cudaError_t e = vol ? bwd_lane_order<true>(in, surf, n, order_scratch, s)
+                              : bwd_lane_order<false>(in, surf, n, order_scratch, s);
+    if (e != cudaSuccess) return (int)e;
+    order = order_scratch + n;
+  }
+  kernel<<<blocks, THREADS, smem, s>>>(
       gtab, G, mtab, M, ltab, scal, seed, nee, n, origin, direction, thr, sample, depth, prev,
       replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult, d_origin, d_direction,
-      d_thr, partial, vol_nee, surf, medium, g_medium, d_medium);
+      d_thr, partial, vol_nee, surf, medium, g_medium, d_medium, order);
   const cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
-  return (int)row_sum(partial, blocks, R.k, partial + (size_t)blocks * R.k, row,
-                      (cudaStream_t)stream);
+  return (int)row_sum(partial, blocks, R.k, partial + (size_t)blocks * R.k, row, s);
 }
 
 #endif  // __CUDACC__

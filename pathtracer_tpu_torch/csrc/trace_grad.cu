@@ -59,8 +59,8 @@
 // the up to 59 atomics of a live bounce, the same 25 on every lane of a
 // one-light scene) are summed per lane in double in shared memory across
 // its bounces (bounce_adj.cuh's LaneSums) and reach the row once per warp,
-// a shuffle sum in a fixed order, after the loop.  A lane whose radiance
-// cotangent is zero writes zeros and skips the loop.  bounce_adj.cuh's
+// a shuffle sum in a fixed order, after the loop (warp_sums_add).  A lane
+// whose radiance cotangent is zero writes zeros and skips the loop.  bounce_adj.cuh's
 // row_sum then adds the per-block rows (5,000 at 640,000 lanes) in a fixed
 // tree spread over 32-column tiles and 64-row segments, two short launches.
 //
@@ -68,8 +68,9 @@
 // takes a key of one bit per bounce, set where it takes the instance's
 // costly branch (lane_key: in a scattering medium, where the free path's
 // and the volumetric NEE's adjoints run; on a Cook-Torrance or Ward
-// material), two short kernels group the lanes by key (lane_order), and
-// thread t of the reverse kernel takes lane order[t].  A warp otherwise
+// material), two short kernels group the lanes by key (bounce_adj.cuh:
+// lane_order, which kernel 3 shares), and thread t of the reverse kernel
+// takes lane order[t].  A warp otherwise
 // runs the union of its lanes' branches: one lane that scatters in the
 // medium makes the whole warp wait for its volumetric NEE adjoint.
 //
@@ -320,8 +321,8 @@ PT_FN void bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, uint32_t
 
 // ---- the lane order of the media and surface instances (5v, 5s) ----------
 
-constexpr int ORDER_BOUNCES = 8;                // the bounces a lane's key looks at
-constexpr int ORDER_KEYS = 1 << ORDER_BOUNCES;  // the keys' range
+constexpr int ORDER_BOUNCES = 8;  // the bounces a lane's key looks at
+static_assert(1 << ORDER_BOUNCES == ORDER_KEYS, "a key holds one bit per bounce");
 
 // A lane's key: bit d set where the lane lives at bounce d and takes its
 // instance's costly branch there: in a scattering medium (kVol, kernel 5v:
@@ -358,31 +359,6 @@ using namespace pt;
 
 constexpr int FWD_THREADS = 128;
 constexpr int BWD_THREADS = 128;
-
-// the lane sums' place in the reverse kernel's shared memory, in floats:
-// after the tables, at an 8-byte boundary
-__host__ __device__ __forceinline__ size_t sums_offset(int G, int M) {
-  return (table_floats(G, M) + 1) & ~(size_t)1;
-}
-
-// The lane sums of a whole warp into the row (every thread of the warp
-// calls it): where every lane's light slots hold one light, or none, each
-// slot is summed over the warp with shuffles in a fixed order and added
-// once; else each lane adds its own (lane_sums_add).
-__device__ __forceinline__ void warp_sums_add(float* acc, const RowLayout& R, const LaneSums& ls) {
-  constexpr unsigned FULL = 0xffffffffu;
-  const int lid = __reduce_max_sync(FULL, ls.lid);
-  if (!__all_sync(FULL, ls.lid < 0 || ls.lid == lid)) {
-    lane_sums_add(acc, R, ls);
-    return;
-  }
-  for (int k = 0; k < LANE_SUMS; ++k) {
-    AD v = ls.s[k * ls.stride];
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-    if ((threadIdx.x & 31) == 0 && v != 0.0 && (k == LS_AREA || lid >= 0))
-      acc_d(acc, lane_sum_col(R, k, lid), v);
-  }
-}
 
 // the tables of a block's kernel: no meshes, the surface bits of a kSurf
 // instance
@@ -475,74 +451,25 @@ trace_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict_
   if constexpr (kSums) warp_sums_add(acc, R, ls);
 }
 
-constexpr int ORDER_THREADS = ORDER_KEYS;  // the place pass scans the counts one per thread
-
-// The lane order's first pass: each lane's key (lane_key), and the keys'
-// counts, a block's in shared memory and then added to counts[]
+// A lane's key for the lane order (bounce_adj.cuh:lane_order): lane_key on
+// the residuals
 template <bool kVol>
-__global__ void __launch_bounds__(ORDER_THREADS)
-lane_order_keys(const float* __restrict__ gtab, const float* __restrict__ mtab,
-                const float* __restrict__ resid, int n, int max_depth, int* __restrict__ keys,
-                int* __restrict__ counts) {
-  __shared__ int s_count[ORDER_KEYS];
-  s_count[threadIdx.x] = 0;
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    const int key = lane_key<kVol>(gtab, mtab, resid, (size_t)n, (size_t)i, max_depth);
-    keys[i] = key;
-    atomicAdd(&s_count[key], 1);
+struct ResidKey {
+  const float* gtab;
+  const float* mtab;
+  const float* resid;
+  int n, max_depth;
+  __device__ int operator()(size_t i) const {
+    return lane_key<kVol>(gtab, mtab, resid, (size_t)n, i, max_depth);
   }
-  __syncthreads();
-  if (s_count[threadIdx.x]) atomicAdd(&counts[threadIdx.x], s_count[threadIdx.x]);
-}
+};
 
-// The second pass: order[] holds the lanes grouped by key in increasing key
-// order.  A warp's lanes of one key take consecutive places in lane order
-// (one atomic per warp and key on fill[]), so the reverse kernel's loads
-// stay in runs; the warps' runs are in no fixed order.
-__global__ void __launch_bounds__(ORDER_THREADS)
-lane_order_place(const int* __restrict__ keys, const int* __restrict__ counts, int n,
-                 int* __restrict__ fill, int* __restrict__ order) {
-  __shared__ int s_scan[ORDER_KEYS];
-  s_scan[threadIdx.x] = counts[threadIdx.x];
-  __syncthreads();
-  for (int off = 1; off < ORDER_KEYS; off <<= 1) {  // inclusive scan of the counts
-    const int add = threadIdx.x >= off ? s_scan[threadIdx.x - off] : 0;
-    __syncthreads();
-    s_scan[threadIdx.x] += add;
-    __syncthreads();
-  }
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int key = i < n ? keys[i] : -1;
-  const unsigned peers = __match_any_sync(0xffffffffu, key);
-  const int lane = threadIdx.x & 31, leader = __ffs(peers) - 1;
-  int base = 0;
-  if (i < n && lane == leader) base = atomicAdd(&fill[key], __popc(peers));
-  base = __shfl_sync(0xffffffffu, base, leader);
-  if (i < n) {
-    const int start = s_scan[key] - counts[key];  // the exclusive scan
-    order[start + base + __popc(peers & ((1u << lane) - 1u))] = i;
-  }
-}
-
-// The lane order of n lanes into scratch (lane_order_ints(n) ints: the keys,
-// the order, the counts and the fill counters)
-cudaError_t lane_order(const float* gtab, const float* mtab, const float* resid, int n,
-                       int max_depth, int vol, int* scratch, cudaStream_t stream) {
-  int* keys = scratch;
-  int* order = keys + n;
-  int* counts = order + n;
-  int* fill = counts + ORDER_KEYS;
-  cudaError_t e = cudaMemsetAsync(counts, 0, sizeof(int) * 2 * ORDER_KEYS, stream);
-  if (e != cudaSuccess) return e;
-  const int blocks = (n + ORDER_THREADS - 1) / ORDER_THREADS;
-  const auto keys_kernel = vol ? lane_order_keys<true> : lane_order_keys<false>;
-  keys_kernel<<<blocks, ORDER_THREADS, 0, stream>>>(gtab, mtab, resid, n, max_depth, keys, counts);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  lane_order_place<<<blocks, ORDER_THREADS, 0, stream>>>(keys, counts, n, fill, order);
-  return cudaGetLastError();
+// The lane order of n lanes by lane_key into scratch (lane_order_ints(n)
+// ints: the keys, the order, the counts and the fill counters)
+cudaError_t resid_lane_order(const float* gtab, const float* mtab, const float* resid, int n,
+                             int max_depth, int vol, int* scratch, cudaStream_t stream) {
+  return vol ? lane_order(ResidKey<true>{gtab, mtab, resid, n, max_depth}, n, scratch, stream)
+             : lane_order(ResidKey<false>{gtab, mtab, resid, n, max_depth}, n, scratch, stream);
 }
 
 }  // namespace
@@ -569,14 +496,15 @@ extern "C" int trace_fwd_launch(const float* gtab, int G, const float* mtab, int
 
 // the ints of scratch that the lane order of n lanes needs (lane_order_launch;
 // trace_bwd_launch's media and surface instances)
-extern "C" int lane_order_ints(int n) { return 2 * n + 2 * ORDER_KEYS; }
+extern "C" int lane_order_ints(int n) { return pt::lane_order_ints(n); }
 
 // the keys (scratch[0, n)) and the order (scratch[n, 2n)) of n lanes'
 // residuals: vol picks the media key, else the surface one
 extern "C" int lane_order_launch(const float* gtab, const float* mtab, const float* resid, int n,
                                  int max_depth, int vol, int* scratch, void* stream) {
   if (n <= 0) return 0;
-  return (int)lane_order(gtab, mtab, resid, n, max_depth, vol, scratch, (cudaStream_t)stream);
+  return (int)resid_lane_order(gtab, mtab, resid, n, max_depth, vol, scratch,
+                               (cudaStream_t)stream);
 }
 
 // the rows of `partial` that trace_bwd_launch needs for n lanes: one per
@@ -609,8 +537,8 @@ extern "C" int trace_bwd_launch(const float* gtab, int G, const float* mtab, int
   // the media and surface instances take their lanes grouped by lane_key
   const int* order = nullptr;
   if (vol || surf) {
-    const cudaError_t e = lane_order(gtab, mtab, resid, n, max_depth, vol, order_scratch,
-                                     (cudaStream_t)stream);
+    const cudaError_t e = resid_lane_order(gtab, mtab, resid, n, max_depth, vol, order_scratch,
+                                           (cudaStream_t)stream);
     if (e != cudaSuccess) return (int)e;
     order = order_scratch + n;
   }

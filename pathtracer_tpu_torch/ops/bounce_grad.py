@@ -16,11 +16,18 @@ for that bounce alone.
   thread per lane, the tables in shared memory, the adjoint of
   ``csrc/bounce_adj.cuh`` that kernel 5 shares, one table row per block,
   the rows summed by ``bounce_adj.cuh:row_sum`` in a fixed tree; a lane
-  whose cotangents are all zero writes zeros and adds nothing).
+  whose cotangents are all zero writes zeros and adds nothing).  Its lanes
+  run grouped by the branch their adjoint takes (:func:`bounce_bwd_keys_plain`
+  is the plain version of the key; two short kernels order them first), and
+  3 and 3s sum NEE's light and scalar columns per lane and add them once per
+  warp.
 * :class:`BounceDiff` is the ``torch.autograd.Function`` (the
   ``jax.custom_vjp`` of ``bounce_grad.py:380-428``): its forward saves the
   inputs and the replay planes, its backward runs kernel 3 on a CUDA
-  tensor and the plain version on a CPU tensor.
+  tensor and the plain version on a CPU tensor.  The forward takes the
+  lanes' alive plane (kernel 2 runs no dead lane's bounce, and writes it
+  the outputs ``ops/bounce_fused.py`` defines); a dead lane's outputs are
+  gated away by the engine, so its cotangents are zero.
 * :func:`bounce_fused_diff` returns a ``BounceResult`` whose contribution,
   continuation and throughput multiplier carry gradients to the tables and
   the carries.
@@ -123,6 +130,35 @@ def bounce_bwd_plain(tables, origin, direction, throughput, sample_idx, depth, p
     return (*grads[:4], *d_carries)
 
 
+# kernel 3's lane keys (csrc/bounce_grad.cu: KEY_*): the branch of the
+# replayed winner; 3s adds a Cook-Torrance or Ward material, 3v a scattering
+# medium; a lane whose cotangents are all zero takes the last key
+KEY_MISS, KEY_LIGHT, KEY_NEE, KEY_DIFFUSE, KEY_MIRROR, KEY_GLASS = range(6)
+KEY_LOBE, KEY_SCATTER, KEY_ZERO = 8, 16, 255
+
+
+def bounce_bwd_keys_plain(gtab, mtab, replay_gid, replay_nee, cotangents, features,
+                          medium=None, g_medium=None):
+    """The plain version of kernel 3's lane keys (int32 ``[N]``):
+    ``cotangents`` are those of contrib, next origin, next direction and the
+    throughput multiplier (``[N, 3]`` each); with ``volumetric`` the medium
+    and its cotangent (``[N, 4]``) too."""
+    vol = "volumetric" in features
+    cots = list(cotangents) + ([g_medium] if vol else [])
+    zero = torch.stack([(c == 0).all(-1) for c in cots]).all(0)
+    gid = replay_gid.long()
+    mat = mtab[gtab[gid.clamp(min=0), 13].long()]
+    key = torch.where(replay_nee > 0.5, KEY_NEE, KEY_DIFFUSE)
+    mirror = KEY_MIRROR + (KEY_LOBE * (mat[:, 24] > 0.5) if surface_bits(features) else 0)
+    key = torch.where(mat[:, 6] > 0, mirror, key)
+    key = torch.where(mat[:, 7] > 0, KEY_GLASS, key)
+    key = torch.where(mat[:, 9] > 0, KEY_LIGHT, key)
+    key = torch.where(gid < 0, KEY_MISS, key)
+    if vol:
+        key = key + KEY_SCATTER * (medium[:, 3] > 0)
+    return torch.where(zero, KEY_ZERO, key).to(torch.int32)
+
+
 def _lib():
     lib = _build.load("bounce_grad")
     if lib.bounce_bwd_launch.argtypes is None:  # ctypes would cut pointers to 32 bits
@@ -138,20 +174,24 @@ def _lib():
             P, P,  # block partials with the row sum's scratch, table row
             I, I, I,  # volumetric, vol_nee, surface bits
             P, P, P,  # medium, its cotangent, d_medium (null: vacuum)
+            P,  # the lane order's scratch (null: the lanes in index order)
             P,  # stream
         ]
-        lib.bounce_bwd_rows.restype = ctypes.c_int
-        lib.bounce_bwd_rows.argtypes = [I]
+        for fn in (lib.bounce_bwd_rows, lib.bounce_bwd_order_ints):
+            fn.restype = ctypes.c_int
+            fn.argtypes = [I]
     return lib
 
 
 def bounce_bwd_cuda(tables, origin, direction, throughput, sample_idx, depth, prev_specular,
                     replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult,
                     seed: int, *, nee: bool, features=frozenset(), medium=None, g_medium=None,
-                    vol_nee: bool = True):
+                    vol_nee: bool = True, ordered: bool = True):
     """Launch kernel 3 (3v with ``volumetric``, 3s with a surface feature)
     and its fixed-order row sum on the rays' CUDA device, on the current
-    stream: what :func:`bounce_bwd_plain` returns."""
+    stream: what :func:`bounce_bwd_plain` returns.  ``ordered=False`` runs
+    the lanes in index order (one thread per lane) instead of grouped by
+    their key: the per-lane outputs are the same."""
     global launches, vol_launches, surf_launches
     check_diff_features(features, "fused")
     vol = "volumetric" in features
@@ -183,6 +223,8 @@ def bounce_bwd_cuda(tables, origin, direction, throughput, sample_idx, depth, pr
     d_o, d_d, d_t = (torch.empty((n, 3), dtype=f32, device=device) for _ in range(3))
     partial = torch.empty((lib.bounce_bwd_rows(n), k), dtype=f32, device=device)
     row = torch.empty((k,), dtype=f32, device=device)
+    order = (torch.empty(lib.bounce_bwd_order_ints(n), dtype=torch.int32, device=device)
+             if ordered else None)
     err = lib.bounce_bwd_launch(
         gtab.data_ptr(), g, mtab.data_ptr(), m, ltab.data_ptr(), scal.data_ptr(),
         int(seed) & 0xFFFFFFFF, int(bool(nee)), n,
@@ -190,7 +232,8 @@ def bounce_bwd_cuda(tables, origin, direction, throughput, sample_idx, depth, pr
         depth.data_ptr(), prev.data_ptr(), replay_gid.data_ptr(), replay_nee.data_ptr(),
         g_contrib.data_ptr(), g_next_o.data_ptr(), g_next_d.data_ptr(), g_thr_mult.data_ptr(),
         d_o.data_ptr(), d_d.data_ptr(), d_t.data_ptr(), partial.data_ptr(), row.data_ptr(),
-        int(vol), int(bool(vol_nee)), surf, *med, torch.cuda.current_stream(device).cuda_stream,
+        int(vol), int(bool(vol_nee)), surf, *med, None if order is None else order.data_ptr(),
+        torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"bounce backward kernel launch failed: CUDA error {err}")
@@ -208,16 +251,17 @@ class BounceDiff(torch.autograd.Function):
     """One bounce with kernel 3 as its backward: ``(contrib, next_origin,
     next_direction, throughput_mult, next_medium, terminate, was_specular,
     rr_uniform, replay_gid, replay_nee_add)``; the last five are not
-    differentiable.  ``opts`` holds ``nee``, ``features`` and ``vol_nee``."""
+    differentiable.  ``opts`` holds ``nee``, ``features`` and ``vol_nee``;
+    ``alive`` is the lanes' alive plane or None."""
 
     @staticmethod
     def forward(ctx, gtab, mtab, ltab, scal, origin, direction, throughput, medium, sample_idx,
-                depth, prev_specular, seed, opts):
+                depth, prev_specular, seed, opts, alive):
         depth = _per_lane_depth(depth, origin.shape[0], origin.device)
         args = ((gtab, mtab, ltab, scal), origin, direction, throughput, sample_idx, depth,
                 prev_specular, medium, seed)
         kw = dict(nee=opts["nee"], features=opts["features"], vol_nee=opts["vol_nee"],
-                  emit_replay=True)
+                  emit_replay=True, alive=alive)
         if origin.device.type == "cuda":
             res, rgid, rnee = bounce_fused_cuda(*args, **kw)
         elif origin.device.type == "cpu":
@@ -248,16 +292,17 @@ class BounceDiff(torch.autograd.Function):
             grads = (*grads, g_medium)  # vacuum: the medium passes through the bounce
         d_gtab, d_mtab, d_ltab, d_scal, d_o, d_d, d_t, d_m = grads
         return (d_gtab, d_mtab, d_ltab, d_scal, d_o, d_d, d_t, d_m, None, None, None, None,
-                None)
+                None, None)
 
 
 def bounce_fused_diff(scene, origin, direction, throughput, sample_idx, depth, prev_specular,
-                      medium_sigma, seed: int, cfg, tables=None) -> BounceResult:
+                      medium_sigma, seed: int, cfg, tables=None, alive=None) -> BounceResult:
     """Differentiable bounce (``bounce_grad.py:348``): forward kernel 2 with
     replay planes, backward kernel 3 (their plain versions on the CPU), the
     volumetric instances with ``volumetric``.  ``tables`` are
     :func:`pack_tables` of the scene, whose graph carries the table
-    cotangents on to the scene's tensors."""
+    cotangents on to the scene's tensors; ``alive`` the lanes with a live
+    path, or None for every lane."""
     check_diff_features(cfg.features, "fused")
     if not fused_diff_eligible(scene, cfg):
         raise NotImplementedError(
@@ -272,7 +317,7 @@ def bounce_fused_diff(scene, origin, direction, throughput, sample_idx, depth, p
     opts = dict(nee=cfg.nee, features=frozenset(cfg.features), vol_nee=cfg.vol_nee)
     out = BounceDiff.apply(gtab, mtab, ltab, scal, origin, direction, throughput,
                            medium_sigma.contiguous(), sample_idx, depth, prev_specular,
-                           int(seed), opts)
+                           int(seed), opts, alive)
     return BounceResult(
         contrib=out[0], next_origin=out[1], next_direction=out[2], throughput_mult=out[3],
         next_medium=out[4], terminate=out[5], was_specular=out[6], rr_uniform=out[7],

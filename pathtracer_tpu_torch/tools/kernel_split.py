@@ -44,8 +44,32 @@ kernels from its own sources (``tools/in_turns``).  Each process prints
   device's busy time (every kernel), its idle share against the median
   step, and the adjoint kernel's body and row sum per launch.
 
+- perbounce: kernels 2 and 3 where the engines launch them (Cornell 800x800,
+  depth 8, NEE): kernel 2's device time summed over the pinned 8-spp render
+  (every launch, from the profiler, twice) and per launch at super-step 10
+  (``chip_smoke.queued_ms``, twice, with the engine's alive plane where the
+  checkout takes one, and without it); the per-bounce gradient step of
+  Cornell, milky and ward (4 spp) by host clock, ten repeats, and from two
+  profiled steps its device busy time, idle share, 2r's total (every
+  ``bounce_kernel`` launch) and kernel 3's body, row sum and lane order per
+  launch; kernels 3 / 3v / 3s isolated on the state after two bounces with
+  the engine's cotangents (zero on the lanes that died), body, row sum and
+  lane order apart (``_profiled_split``).  Where the checkout has them, the
+  variants run beside: kernel 2 at spans 1, 2, 4, 8 and with the two-pass
+  lane order (variant (d)), kernel 3 in index order (``ordered=False``);
+- rows: kernel 2's instances 2v, 2hg (sss), 2m (smooth_mesh), 2s (ward),
+  2t (textured_image), each at 512x512 on the pinned engine's super-step 10
+  (2 spp), and kernels 6 and 8 on Cornell's (800x800, 8 spp) and 7 on the
+  same rays: ``chip_smoke.queued_ms``, twice; kernel 2 with the engine's
+  alive plane where the checkout takes one, and without.
+
 Every process also prints the registers and spills of every instance of
-kernels 1, 3, 4 and 5 (none when its libraries were built earlier).
+kernels 1, 2, 3, 4 and 5 (none when its libraries were built earlier).
+
+A ``NAME=variant:V`` checkout is a copy of this checkout under
+``build/kernel_split/V`` with the source edits of ``VARIANTS[V]``: a
+variant measured for timing only (``nosums``: kernel 3 without its lane
+sums).
 
 Needs a card and ``nvcc``.
 """
@@ -97,7 +121,17 @@ def _profiled_split(cs, fn, body: str, lanes: int, reps: int = 10) -> tuple:
                        f"for {reps} calls")
 
 
-PARTS = ("adjoint", "forward", "1m", "steps")
+PARTS = ("adjoint", "forward", "1m", "steps", "perbounce", "rows")
+DEFAULT_PARTS = ("adjoint", "forward", "1m", "steps")
+# variant copies of this checkout: name -> (file, text, replacement) edits
+VARIANTS = {
+    "nosums": (("pathtracer_tpu_torch/csrc/bounce_grad.cu",
+                "constexpr bool BWD_SUMS_ON = !kVol;", "constexpr bool BWD_SUMS_ON = false;"),),
+    # kernel 2 held to nine blocks of 128 threads per SM (56 registers)
+    "k2_lb9": (("pathtracer_tpu_torch/csrc/bounce.cu",
+                "__global__ void __launch_bounds__(THREADS)\nbounce_kernel(",
+                "__global__ void __launch_bounds__(THREADS, 9)\nbounce_kernel("),),
+}
 # the forward part's launches: label, kernel (1 or 4), scene, resolution,
 # russian roulette from bounce 3
 FORWARD_CASES = (
@@ -111,7 +145,268 @@ FORWARD_CASES = (
 )
 
 
-def measure(card: str, parts: str = ",".join(PARTS)) -> None:
+def _device_sum(run: dict, name: str) -> tuple:
+    """``(device ms, launches)`` of the kernels whose names hold ``name`` in
+    a ``chip_smoke.profiled`` table."""
+    return (sum(v[0] for k, v in run.items() if name in k) / 1e3,
+            sum(v[1] for k, v in run.items() if name in k))
+
+
+def _takes(fn, arg: str) -> bool:
+    import inspect
+
+    return arg in inspect.signature(fn).parameters
+
+
+def perbounce(cs, card: str, here: str) -> None:
+    """The ``perbounce`` part (the module's docstring)."""
+    import dataclasses
+    import functools
+    import time
+
+    import numpy as np
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import bounce_fused, bounce_grad
+    from pathtracer_tpu_torch.ops.bounce import pack_tables
+    from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render import diff
+    from pathtracer_tpu_torch.render.features import resolve_features
+    from pathtracer_tpu_torch.render.integrator import render
+    from pathtracer_tpu_torch.scene.parser import load_scene
+
+    dev = torch.device("cuda")
+    f32 = dict(dtype=torch.float32, device=dev)
+    seed = key_to_seed(prng_key(0))
+    alive_k2 = _takes(bounce_fused.bounce_fused_cuda, "alive")
+    ordered_k3 = _takes(bounce_grad.bounce_bwd_cuda, "ordered")
+    k2 = bounce_fused.bounce_fused_cuda
+    k3 = bounce_grad.bounce_bwd_cuda
+
+    def desc_of(name, res=None):
+        desc = load_scene(os.path.join("scenes", name))
+        return dataclasses.replace(desc, resolution=res) if res else desc
+
+    # ---- kernel 2 over the pinned 8-spp render, and at super-step 10
+    scene = desc_of("cornell.txt").scene_for_frame(0, device=dev)
+    pinned = RenderConfig(wavefront=True, iters_per_launch=8, max_depth=8, nee=True)
+    k2_variants = [("as is", {})]
+    if alive_k2:
+        k2_variants += [(f"span {k}", dict(span=k)) for k in (1, 2, 4, 8)]
+        k2_variants += [("two-pass order (d)", dict(lane_order=True)), ("mask-free", None)]
+    for label, kw in k2_variants:
+        if kw is None:
+            bounce_fused.bounce_fused_cuda = lambda *a, alive=None, **k: k2(*a, **k)
+        else:
+            bounce_fused.bounce_fused_cuda = functools.partial(k2, **kw)
+        try:
+            render(scene, 8, pinned, device=dev)
+            torch.cuda.synchronize()
+            for rep in range(2):
+                run, wall = cs.profiled(lambda: render(scene, 8, pinned, device=dev))
+                ms, n = _device_sum(run, "bounce_kernel")
+                o_ms, _ = _device_sum(run, "lane_order")
+                busy = sum(v[0] for v in run.values()) / 1e3
+                print(f"[split] {here} perbounce kernel 2 {label}, pinned 8-spp render cornell "
+                      f"800x800, repeat {rep}: {ms:.4f} ms of device time in {n} launches "
+                      f"({ms / max(n, 1):.4f} per launch), lane order {o_ms:.4f} ms; device busy "
+                      f"{busy:.4f} ms of {wall:.4f} ms profiled; on {card}", flush=True)
+        finally:
+            bounce_fused.bounce_fused_cuda = k2
+    captured = {}
+    cs.capturing_render(scene, 8, pinned, dev, captured)
+    tables = [t.contiguous() for t in pack_tables(scene)]
+    margs = (tables, captured["origin"], captured["direction"], captured["throughput"],
+             captured["sample"], captured["depth"], captured["prev"], captured["medium"], seed)
+    alive = captured.get("alive")
+    n = margs[1].shape[0]
+    live = n if alive is None else int(alive.sum())
+    for label, kw in k2_variants:
+        kw = {} if kw is None or not alive_k2 else dict(kw, alive=alive)
+        ms = [cs.queued_ms(lambda: k2(*margs, nee=True, **kw)) for _ in range(2)]
+        print(f"[split] {here} perbounce kernel 2 {label} at super-step {cs.CAPTURE_STEP}, "
+              f"{live} of {n} lanes alive: {ms[0]:.4f} / {ms[1]:.4f} ms of device time "
+              f"(queued); on {card}", flush=True)
+
+    # ---- kernel 2's replay variant (2r) at each bounce of the per-bounce
+    # scan of Cornell's primary rays, its alive plane thinning as paths end
+    with torch.no_grad():
+        pixel = torch.arange(n, dtype=torch.int64, device=dev)
+        rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, pixel))
+        st = dict(origin=rays.origin, direction=rays.direction,
+                  throughput=torch.ones((n, 3), **f32), prev=torch.zeros(n, **f32))
+        medium = torch.zeros((n, 4), **f32)
+        on = torch.ones(n, dtype=torch.bool, device=dev)
+        for dep in range(8):
+            sargs = (tables, st["origin"], st["direction"], st["throughput"], pixel, dep,
+                     st["prev"], medium, seed)
+            for label, kw in k2_variants:
+                kw = {} if kw is None or not alive_k2 else dict(kw, alive=on)
+                ms = [cs.queued_ms(lambda: k2(*sargs, nee=True, emit_replay=True, **kw))
+                      for _ in range(2)]
+                print(f"[split] {here} perbounce kernel 2r {label} at bounce {dep} of the scan, "
+                      f"{int(on.sum())} of {n} lanes alive: {ms[0]:.4f} / {ms[1]:.4f} ms of "
+                      f"device time (queued); on {card}", flush=True)
+            r = k2(*sargs, nee=True)
+            on = on & ~r.terminate
+            a = on[:, None]
+            st = dict(origin=torch.where(a, r.next_origin, st["origin"]),
+                      direction=torch.where(a, r.next_direction, st["direction"]),
+                      throughput=torch.where(a, st["throughput"] * r.throughput_mult,
+                                             st["throughput"]),
+                      prev=r.was_specular)
+
+    # ---- the per-bounce steps, kernel 3 ordered and (where the checkout
+    # has it) in index order
+    base = RenderConfig(wavefront=False, nee=True, max_depth=8, grad_full_trace=False)
+    k3_variants = [("as is", {})] + ([("index order", dict(ordered=False))] if ordered_k3 else [])
+    for label, name, res in (("3", "cornell.txt", None), ("3v", "milky.txt", None),
+                             ("3s", "ward.txt", (512, 512))):
+        params, static = diff.params_from_description(desc_of(name, res), 0, device=dev)
+        target = torch.zeros((static.resolution[0] * static.resolution[1], 3), **f32)
+        for vlabel, kw in k3_variants:
+            bounce_grad.bounce_bwd_cuda = functools.partial(k3, **kw)
+            try:
+                def step():
+                    return diff.loss_and_grad_rays(params, static, target, 4, prng_key(0), base,
+                                                   device=dev)
+
+                step()
+                torch.cuda.synchronize()
+                walls = []
+                for _ in range(10):
+                    t0 = time.perf_counter()
+                    step()
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t0) * 1e3)
+                wall = sorted(walls)[len(walls) // 2]
+                for rep in range(2):
+                    run, _ = cs.profiled(step)
+                    busy = sum(v[0] for v in run.values()) / 1e3
+                    r2, n2 = _device_sum(run, "bounce_kernel")
+                    b3, n3 = _device_sum(run, "bounce_bwd_kernel")
+                    rs, nrs = _device_sum(run, "row_sum")
+                    lo, nlo = _device_sum(run, "lane_order")
+                    print(f"[split] {here} perbounce step {label} {vlabel} {name} 4 spp, repeat "
+                          f"{rep}: median {wall:.4f} ms of "
+                          + " / ".join(f"{t:.4f}" for t in walls) + f" ms; device busy "
+                          f"{busy:.4f} ms, idle share {1 - busy / wall:.3f}; 2r {r2:.4f} ms in "
+                          f"{n2} launches; kernel {label} body {b3 / max(n3, 1):.4f} ms x {n3}, "
+                          f"row sum {rs / max(nrs, 1):.4f} ms x {nrs}, lane order "
+                          f"{lo / max(n3, 1):.4f} ms per launch ({nlo} kernels); on {card}",
+                          flush=True)
+            finally:
+                bounce_grad.bounce_bwd_cuda = k3
+
+        # ---- isolated, on the state after two bounces with the engine's cotangents
+        with torch.no_grad():
+            scn = diff.build_scene(params, static)
+            tabs = [t.contiguous() for t in pack_tables(scn)]
+            feats = frozenset(resolve_features(base, params.materials).features)
+            w, h = static.resolution
+            n = w * h
+            lanes = torch.arange(n, dtype=torch.int64, device=dev)
+            rays = generate_camera_rays(scn.camera, lanes, camera_uniforms(seed, lanes))
+            medium = torch.zeros((n, 4), **f32)
+            st = dict(origin=rays.origin, direction=rays.direction,
+                      throughput=torch.ones((n, 3), **f32), prev=torch.zeros(n, **f32),
+                      medium=medium)
+            on = torch.ones(n, dtype=torch.bool, device=dev)
+            for dep in range(2):
+                r = k2(tabs, st["origin"], st["direction"], st["throughput"], lanes, dep,
+                       st["prev"], st["medium"], seed, nee=True, features=feats)
+                on = on & ~r.terminate
+                a = on[:, None]
+                st = dict(origin=torch.where(a, r.next_origin, st["origin"]),
+                          direction=torch.where(a, r.next_direction, st["direction"]),
+                          throughput=torch.where(a, st["throughput"] * r.throughput_mult,
+                                                 st["throughput"]),
+                          prev=r.was_specular,
+                          medium=r.next_medium if "volumetric" in feats else medium)
+            args2 = (tabs, st["origin"], st["direction"], st["throughput"], lanes, 2, st["prev"])
+            _, rgid, rnee = k2(*args2, st["medium"], seed, emit_replay=True, nee=True,
+                               features=feats)
+            rng = np.random.default_rng(0)
+            a = on[:, None]
+            cots = [torch.where(a, torch.from_numpy(rng.standard_normal((n, 3)).astype(
+                np.float32)).to(dev), 0.0) for _ in range(4)]
+            bkw = dict(nee=True, features=feats)
+            if "volumetric" in feats:
+                g_med = torch.from_numpy(rng.standard_normal((n, 4)).astype(np.float32)).to(dev)
+                bkw.update(medium=st["medium"], g_medium=torch.where(a, g_med, 0.0))
+            bargs = (*args2, rgid, rnee, *cots, seed)
+            for vlabel, kw in k3_variants:
+                for rep in range(2):
+                    body, rsum, per, order = _profiled_split(
+                        cs, lambda: k3(*bargs, **bkw, **kw), "bounce_bwd_kernel", n)
+                    print(f"[split] {here} perbounce isolated {label} {vlabel} {name} after two "
+                          f"bounces, {int(on.sum())} of {n} lanes alive, repeat {rep}: body "
+                          f"{body:.4f} ms, row sum {rsum:.4f} ms ({per:g} launches), lane order "
+                          f"{order:.4f} ms; on {card}", flush=True)
+
+
+def rows(cs, card: str, here: str) -> None:
+    """The ``rows`` part (the module's docstring)."""
+    import dataclasses
+
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import bounce_fused, intersect_cuda
+    from pathtracer_tpu_torch.ops.bounce import pack_tables
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render.features import resolve_features
+    from pathtracer_tpu_torch.scene.parser import load_scene
+    from pathtracer_tpu_torch.scene.structs import Rays
+
+    dev = torch.device("cuda")
+    seed = key_to_seed(prng_key(0))
+    alive_k2 = _takes(bounce_fused.bounce_fused_cuda, "alive")
+    for label, name, spp, res in (("2v", "sss", 2, (512, 512)), ("2hg", "sss", 2, (512, 512)),
+                                  ("2m", "smooth_mesh", 2, (512, 512)),
+                                  ("2s", "ward", 2, (512, 512)),
+                                  ("2t", "textured_image", 2, (512, 512)),
+                                  ("2", "cornell", 8, None)):
+        desc = load_scene(os.path.join("scenes", f"{name}.txt"))
+        desc = dataclasses.replace(desc, resolution=res) if res else desc
+        scene = desc.scene_for_frame(0, device=dev)
+        cfg = RenderConfig(wavefront=True, iters_per_launch=spp, max_depth=8, nee=True)
+        feats = resolve_features(cfg, scene.materials).features
+        if label == "2v":
+            feats = tuple(f for f in feats if f != "hg")
+        captured = {}
+        cs.capturing_render(scene, spp, cfg, dev, captured)
+        tables = [t.contiguous() for t in pack_tables(scene)]
+        medium = captured["medium"]
+        if label == "2v":
+            medium = medium[:, :4].contiguous()
+        margs = (tables, captured["origin"], captured["direction"], captured["throughput"],
+                 captured["sample"], captured["depth"], captured["prev"], medium, seed)
+        kw = dict(nee=True, features=frozenset(feats), tex_defer=scene.textures is not None,
+                  mesh=scene.mesh_tables)
+        alive = captured.get("alive")
+        cases = [("mask-free", {})] + ([("alive", dict(alive=alive))] if alive_k2 else [])
+        for clabel, ckw in cases:
+            ms = [cs.queued_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, **kw, **ckw))
+                  for _ in range(2)]
+            live = "" if alive is None else f", {int(alive.sum())} alive"
+            print(f"[split] {here} rows kernel {label} {clabel} {name} super-step "
+                  f"{cs.CAPTURE_STEP} ({margs[1].shape[0]} lanes{live}): {ms[0]:.4f} / "
+                  f"{ms[1]:.4f} ms of device time (queued); on {card}", flush=True)
+        if label == "2":
+            rays = Rays(captured["origin"], captured["direction"])
+            for klabel, fn in (("6", intersect_cuda.nearest_hit_cuda),
+                               ("7", intersect_cuda.winner_t_gid_cuda),
+                               ("8", intersect_cuda.occlusion_t_cuda)):
+                ms = [cs.queued_ms(lambda: fn(rays, tables[0])) for _ in range(2)]
+                print(f"[split] {here} rows kernel {klabel} {name} super-step "
+                      f"{cs.CAPTURE_STEP} ({margs[1].shape[0]} lanes): {ms[0]:.4f} / "
+                      f"{ms[1]:.4f} ms of device time (queued); on {card}", flush=True)
+
+
+def measure(card: str, parts: str = ",".join(DEFAULT_PARTS)) -> None:
     """In a checkout: print its ``[split]`` lines for the comma-separated
     ``parts`` (the module's docstring)."""
     import dataclasses
@@ -319,10 +614,19 @@ def measure(card: str, parts: str = ",".join(PARTS)) -> None:
                       f"{r_us / 1e3 / max(r_n, 1):.4f} ms x {r_n}, lane order "
                       f"{o_us / 1e3 / max(o_n, 1):.4f} ms x {o_n}; on {card}", flush=True)
 
+    if "perbounce" in parts:
+        perbounce(cs, card, here)
+    if "rows" in parts:
+        rows(cs, card, here)
+
     inst = cs.ptxas_instances(reports)
     regs = {f"3 vol={v} surf={s}": cs.instance_regs(inst, "bounce_grad", "bounce_bwd_kernel",
                                                      v, s)
             for v in (False, True) for s in (False, True)}
+    regs.update({f"2 mesh={m} vol={v} hg={g} surf={s} tex={t}":
+                 cs.instance_regs(inst, "bounce", "bounce_kernel", m, v, g, s, t)
+                 for m in (False, True) for v, g in ((False, False), (True, False), (True, True))
+                 for s, t in ((False, False), (True, False), (True, True))})
     regs.update({f"5 vol={v} surf={s}": cs.instance_regs(inst, "trace_grad", "trace_bwd_kernel",
                                                          v, s)
                  for v in (False, True) for s in (False, True)})
@@ -336,12 +640,35 @@ def measure(card: str, parts: str = ",".join(PARTS)) -> None:
     print(f"[split] {here} regs (registers, spill store / load bytes): {regs}", flush=True)
 
 
+def variant_copy(name: str) -> str:
+    """A copy of this checkout's package, scenes and smoke script under
+    ``build/kernel_split/<name>`` with ``VARIANTS[name]``'s edits; its
+    path."""
+    import shutil
+
+    dest = os.path.join(ROOT, "build", "kernel_split", name)
+    shutil.rmtree(dest, ignore_errors=True)
+    for sub in ("pathtracer_tpu_torch", "scenes"):
+        shutil.copytree(os.path.join(ROOT, sub), os.path.join(dest, sub),
+                        ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), dest)
+    for path, old, new in VARIANTS[name]:
+        with open(os.path.join(dest, path)) as f:
+            src = f.read()
+        if src.count(old) != 1:
+            raise RuntimeError(f"variant {name}: {path} holds {src.count(old)} of {old!r}")
+        with open(os.path.join(dest, path), "w") as f:
+            f.write(src.replace(old, new))
+    return dest
+
+
 def main() -> int:
     from pathtracer_tpu_torch.tools.in_turns import card, run_in_turns
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("checkouts", nargs="*", help="NAME=DIR, each a checkout, in turn")
-    ap.add_argument("--parts", default=",".join(PARTS),
+    ap.add_argument("checkouts", nargs="*",
+                    help="NAME=DIR (a checkout) or NAME=variant:V (VARIANTS[V]), each in turn")
+    ap.add_argument("--parts", default=",".join(DEFAULT_PARTS),
                     help=f"comma-separated, of {', '.join(PARTS)}")
     args = ap.parse_args()
     unknown = set(args.parts.split(",")) - set(PARTS)
@@ -350,6 +677,15 @@ def main() -> int:
     line = card()
     print(line, flush=True)
     named = [c.split("=", 1) for c in args.checkouts] or [("this", ROOT)]
+    made = {}
+    for i, (name, path) in enumerate(named):
+        if path.startswith("variant:"):
+            v = path[len("variant:"):]
+            if v not in VARIANTS:
+                ap.error(f"unknown variant {v!r}, of {sorted(VARIANTS)}")
+            if v not in made:
+                made[v] = variant_copy(v)
+            named[i] = (name, made[v])
     return run_in_turns(named, __file__, "measure", [line, args.parts], shown=("[split]",))
 
 

@@ -203,6 +203,20 @@ extern "C" void host_trace_sched(const float* gtab, int G, const float* mtab, co
               n_mesh, threads);
 }
 
+typedef decltype(&bounce_lane<false, false>) BounceLaneFn;
+
+// kernel 2's lane instance for the launcher's flags
+static BounceLaneFn bounce_instance(int vol, int hg, int surf, bool tex) {
+  if (tex)
+    return !vol ? bounce_lane<false, false, true, true>
+                : (hg ? bounce_lane<true, true, true, true> : bounce_lane<true, false, true, true>);
+  if (surf)
+    return !vol ? bounce_lane<false, false, true>
+                : (hg ? bounce_lane<true, true, true> : bounce_lane<true, false, true>);
+  return !vol ? bounce_lane<false, false> : (hg ? bounce_lane<true, true>
+                                                : bounce_lane<true, false>);
+}
+
 extern "C" void host_bounce(const float* gtab, int G, const float* mtab, const float* ltab,
                             const float* scal, unsigned seed, int nee, int n,
                             const float* origin, const float* direction, const float* thr,
@@ -216,20 +230,63 @@ extern "C" void host_bounce(const float* gtab, int G, const float* mtab, const f
                             int n_mesh) {
   const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f,
                  MeshTables{mtri, maabb, mnorm, muv, mdesc, n_mesh}, surf};
-  decltype(&bounce_lane<false, false>) lane;
-  if (tex_u != nullptr)
-    lane = !vol ? bounce_lane<false, false, true, true>
-                : (hg ? bounce_lane<true, true, true, true> : bounce_lane<true, false, true, true>);
-  else if (surf)
-    lane = !vol ? bounce_lane<false, false, true>
-                : (hg ? bounce_lane<true, true, true> : bounce_lane<true, false, true>);
-  else
-    lane = !vol ? bounce_lane<false, false> : (hg ? bounce_lane<true, true>
-                                                  : bounce_lane<true, false>);
+  const BounceLaneFn lane = bounce_instance(vol, hg, surf, tex_u != nullptr);
   for (int i = 0; i < n; ++i)
     lane(T, seed, nee, vol_nee, mw, (size_t)i, origin, direction, thr, sample, depth, prev,
          medium, contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium,
          replay_gid, replay_nee, tex_u, tex_v, tex_slot, nullptr, nullptr, nullptr, 0);
+}
+
+// Kernel 2 with an alive plane under a host emulation of its span schedule
+// (bounce.cu:span_lanes): warp w walks lanes [w 32 span, (w + 1) 32 span)
+// in chunks of 32, writes each chunk's dead lanes (dead_lane), queues its
+// live lanes in index order and runs a batch of 32 whenever 32 are queued,
+// the rest as the span's last batch.  *batches counts the batches run and
+// *partial those with fewer than 32 lanes.
+extern "C" void host_bounce_span(const float* gtab, int G, const float* mtab, const float* ltab,
+                                 const float* scal, unsigned seed, int nee, int n,
+                                 const float* origin, const float* direction, const float* thr,
+                                 const unsigned* sample, const int* depth, const float* prev,
+                                 const float* medium, float* contrib, float* next_o,
+                                 float* next_d, float* thr_mult, unsigned char* terminate,
+                                 float* wspec, float* rru, float* out_medium, float* replay_gid,
+                                 float* replay_nee, int vol, int hg, int vol_nee, int mw,
+                                 int surf, float* tex_u, float* tex_v, float* tex_slot,
+                                 const unsigned char* alive, int span, int* batches,
+                                 int* partial) {
+  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f, MeshTables{}, surf};
+  const BounceLaneFn lane = bounce_instance(vol, hg, surf, tex_u != nullptr);
+  auto live = [&](size_t i) {
+    lane(T, seed, nee, vol_nee, mw, i, origin, direction, thr, sample, depth, prev, medium,
+         contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
+         replay_nee, tex_u, tex_v, tex_slot, nullptr, nullptr, nullptr, 0);
+  };
+  *batches = *partial = 0;
+  const size_t width = 32 * (size_t)span;
+  for (size_t lo = 0; lo < (size_t)n; lo += width) {
+    const size_t hi = lo + width < (size_t)n ? lo + width : (size_t)n;
+    std::vector<int> queue;
+    for (size_t base = lo; base < hi; base += 32) {
+      for (size_t i = base; i < base + 32 && i < hi; ++i) {
+        if (alive[i])
+          queue.push_back((int)i);
+        else
+          dead_lane(seed, mw, i, origin, direction, sample, depth, prev, medium, contrib,
+                    next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
+                    replay_nee, tex_u, tex_v, tex_slot);
+      }
+      if (queue.size() >= 32) {
+        for (int l = 0; l < 32; ++l) live((size_t)queue[l]);
+        queue.erase(queue.begin(), queue.begin() + 32);
+        ++*batches;
+      }
+    }
+    if (!queue.empty()) {
+      for (int q : queue) live((size_t)q);
+      ++*batches;
+      ++*partial;
+    }
+  }
 }
 
 extern "C" void host_bounce_merge(const float* gtab, int G, const float* mtab, const float* ltab,
@@ -280,6 +337,9 @@ extern "C" void host_winner(const float* gtab, int G, int n, const float* origin
   for (int i = 0; i < n; ++i) winner_lane(gtab, G, (size_t)i, origin, direction, t, gid);
 }
 
+// kernel 3's lanes in the order `order` (null: index order); the vacuum and
+// surface instances sum NEE's light and scalar columns per lane, as the
+// kernel's BWD_SUMS_ON instances do, and add them after the lane
 extern "C" void host_bounce_bwd(const float* gtab, int G, const float* mtab, int M,
                                 const float* ltab, const float* scal, unsigned seed, int nee,
                                 int n, const float* origin, const float* direction,
@@ -289,16 +349,37 @@ extern "C" void host_bounce_bwd(const float* gtab, int G, const float* mtab, int
                                 const float* g_next_o, const float* g_next_d,
                                 const float* g_thr_mult, float* d_origin, float* d_direction,
                                 float* d_thr, float* row, int vol, int vol_nee, int surf,
-                                const float* medium, const float* g_medium, float* d_medium) {
+                                const float* medium, const float* g_medium, float* d_medium,
+                                const int* order) {
   const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f, MeshTables{}, surf};
   const RowLayout R = row_layout(G, M);
   auto lane = vol ? (surf ? bounce_bwd_lane<true, true> : bounce_bwd_lane<true, false>)
-                  : (surf ? bounce_bwd_lane<false, true> : bounce_bwd_lane<false, false>);
+                  : (surf ? bounce_bwd_lane<false, true, true>
+                          : bounce_bwd_lane<false, false, true>);
   for (int k = 0; k < R.k; ++k) row[k] = 0.0f;
-  for (int i = 0; i < n; ++i)
+  for (int t = 0; t < n; ++t) {
+    const int i = order != nullptr ? order[t] : t;
+    AD sums[LANE_SUMS] = {};
+    LaneSums ls{sums, 1, -1};
     lane(T, R, seed, nee, (size_t)i, origin, direction, thr, sample, depth, prev, replay_gid,
          replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult, d_origin, d_direction, d_thr, row,
-         vol_nee, medium, g_medium, d_medium);
+         &ls, vol_nee, medium, g_medium, d_medium);
+    lane_sums_add(row, R, ls);
+  }
+}
+
+// kernel 3's lane keys (bounce_grad.cu:bounce_bwd_key; vol: 3v's, surf: 3s's)
+extern "C" void host_bounce_bwd_keys(const float* gtab, const float* mtab, int n,
+                                     const float* replay_gid, const float* replay_nee,
+                                     const float* g_contrib, const float* g_next_o,
+                                     const float* g_next_d, const float* g_thr_mult,
+                                     const float* medium, const float* g_medium, int vol,
+                                     int surf, int* keys) {
+  const BwdKeyIn in{gtab,     mtab,     replay_gid, replay_nee, g_contrib,
+                    g_next_o, g_next_d, g_thr_mult, medium,     g_medium};
+  auto key = vol ? (surf ? bounce_bwd_key<true, true> : bounce_bwd_key<true, false>)
+                 : (surf ? bounce_bwd_key<false, true> : bounce_bwd_key<false, false>);
+  for (int i = 0; i < n; ++i) keys[i] = key(in, (size_t)i);
 }
 
 // boxes: the padded chunk boxes, or null for the dense sweep

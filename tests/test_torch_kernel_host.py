@@ -124,7 +124,10 @@ def host_lib(tmp_path_factory):
     lib.host_mesh_sweep.argtypes = [P] * 6 + [I, I, I] + [P] * 7
     lib.host_mesh_occ.argtypes = [P] * 6 + [I, I] + [P] * 4
     lib.host_bounce_bwd.argtypes = ([P, I, P, I, P, P, ctypes.c_uint, I, I] + [P] * 16 + [I] * 3
-                                    + [P] * 3)
+                                    + [P] * 3 + [P])
+    lib.host_bounce_bwd_keys.argtypes = [P, P, I] + [P] * 8 + [I, I, P]
+    lib.host_bounce_span.argtypes = ([P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 17 + [I] * 5
+                                     + [P] * 3 + [P, I, P, P])
     return lib
 
 
@@ -419,6 +422,7 @@ def test_bounce_replay_and_backward_lanes_match_plain(host_lib, scene_name, nee)
                                     "prev")),
         rgid.data_ptr(), rnee.data_ptr(), *(c.data_ptr() for c in cots),
         d_o.data_ptr(), d_d.data_ptr(), d_t.data_ptr(), row.data_ptr(), *VAC_GRAD, *NO_MEDIUM,
+        None,
     )
     got = (*trace_grad.split_grad_row(row, g, m), d_o, d_d, d_t)
     frac = [float(torch.isclose(k.double(), w, rtol=1e-5, atol=1e-5).all(-1).double().mean())
@@ -441,6 +445,7 @@ def test_bounce_replay_and_backward_lanes_match_plain(host_lib, scene_name, nee)
                                     "prev")),
         rgid.data_ptr(), rnee.data_ptr(), *(zero.data_ptr() for _ in cots),
         d_o.data_ptr(), d_d.data_ptr(), d_t.data_ptr(), row.data_ptr(), *VAC_GRAD, *NO_MEDIUM,
+        None,
     )
     assert not bool(torch.cat([d_o, d_d, d_t, row[None].expand(3, -1).reshape(-1, 3)]).any())
     # a third of the lanes dead (every cotangent zero, as the per-bounce
@@ -457,6 +462,7 @@ def test_bounce_replay_and_backward_lanes_match_plain(host_lib, scene_name, nee)
                                     "prev")),
         rgid.data_ptr(), rnee.data_ptr(), *(c.data_ptr() for c in dcots),
         d_o.data_ptr(), d_d.data_ptr(), d_t.data_ptr(), row.data_ptr(), *VAC_GRAD, *NO_MEDIUM,
+        None,
     )
     dgot = (*trace_grad.split_grad_row(row, g, m), d_o, d_d, d_t)
     for w, k in zip(dref[:4], dgot[:4]):
@@ -464,6 +470,142 @@ def test_bounce_replay_and_backward_lanes_match_plain(host_lib, scene_name, nee)
     for w, k in zip(dref[4:], dgot[4:]):
         assert bool(torch.isclose(k.double(), w, rtol=1e-5, atol=1e-5).all())
         assert not bool(k[dead[:, 0]].any())
+
+
+# kernel 2's span schedule: lanes, share of them alive
+SPAN_CASES = {"all alive": (2048, 1.0), "none alive": (2048, 0.0), "30% alive": (2048, 0.3),
+              "70% alive": (2048, 0.7), "n not a multiple of 32": (2013, 0.5)}
+
+
+@pytest.mark.parametrize("span", [1, 3, 8])
+@pytest.mark.parametrize("case", sorted(SPAN_CASES))
+def test_bounce_span_schedule_matches_index_order(host_lib, case, span):
+    """Kernel 2 with an alive plane, under a host emulation of its span
+    schedule (``bounce.cu:span_lanes``, ``host_bounce_span``): every live
+    lane's 21 outputs (replay planes too) equal ``bounce_lane``'s run in
+    index order bit for bit, every dead lane holds the values
+    ``bounce_fused_plain(alive=...)`` writes, bit for bit, and the live lanes
+    of each span run in full batches of 32 with at most one partial batch
+    per span."""
+    n, share = SPAN_CASES[case]
+    seed = 77
+    tables, t, medium = _bounce_args("cornell", n, 41)
+    alive = torch.from_numpy(np.random.default_rng(3).random(n) < share)
+    ref, ref_gid, ref_nee = _host_bounce(host_lib, tables, t, medium, seed, True)
+    outs = [torch.empty((n, 3)) for _ in range(4)] + [
+        torch.empty(n, dtype=torch.uint8), torch.empty(n), torch.empty(n), torch.empty((n, 4))]
+    rgid, rnee = torch.empty(n), torch.empty(n)
+    batches, partial = ctypes.c_int(), ctypes.c_int()
+    host_lib.host_bounce_span(
+        tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(), tables[2].data_ptr(),
+        tables[3].data_ptr(), seed, 1, n,
+        *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
+                                    "prev")),
+        medium.data_ptr(), *(o.data_ptr() for o in outs), rgid.data_ptr(), rnee.data_ptr(),
+        *VACUUM, 4, *NO_SURF, alive.data_ptr(), span, ctypes.byref(batches),
+        ctypes.byref(partial),
+    )
+    for got, want in zip(outs + [rgid, rnee], ref + [ref_gid, ref_nee]):
+        assert torch.equal(got[alive], want[alive])
+    args = (tables, t["origin"], t["direction"], t["throughput"], t["sample"].long(),
+            t["depth"], t["prev"], medium, seed)
+    plain, p_gid, p_nee = bounce_fused.bounce_fused_plain(*args, nee=True, emit_replay=True,
+                                                          alive=alive)
+    dead = ~alive
+    want = (plain.contrib, plain.next_origin, plain.next_direction, plain.throughput_mult,
+            plain.terminate.to(torch.uint8), plain.was_specular, plain.rr_uniform,
+            plain.next_medium, p_gid, p_nee)
+    for got, w in zip(outs + [rgid, rnee], want):
+        assert torch.equal(got[dead], w[dead])
+    assert bool(plain.terminate[dead].all()) and not bool(plain.contrib[dead].any())
+    live = alive.reshape(-1)
+    spans = [int(live[lo:lo + 32 * span].sum()) for lo in range(0, n, 32 * span)]
+    assert batches.value == sum(-(-c // 32) for c in spans)
+    assert partial.value == sum(1 for c in spans if c % 32)
+    print(f"{case}, span {span}: {int(alive.sum())} live lanes in {batches.value} batches "
+          f"({partial.value} partial) against {-(-n // 32)} warps of index order")
+
+
+def _bwd_case(name, n):
+    """Random lanes of kernel 3's instances: ``(tables, lanes, medium,
+    features)``; cornell and glossy in vacuum (3), ggx_ward with its
+    surface features (3s), vol_mini with seeded medium carries (3v)."""
+    if name == "vol_mini":
+        tables, t, medium = _vol_lanes(name, n, 13)
+        return tables, t, medium, frozenset({"volumetric"})
+    if name == "ggx_ward":
+        _, tables, feats = _surf_grad_scene(name, (8, 8))
+        lanes = random_lanes(n, seed=47)
+        lanes["origin"] = (lanes["origin"] * 0.8 + np.array([0.0, 2.0, 0.0])).astype(np.float32)
+        return tables, {k: torch.from_numpy(v) for k, v in lanes.items()}, torch.zeros((n, 4)), feats
+    tables, t, medium = _bounce_args(name, n, 31)
+    return tables, t, medium, frozenset()
+
+
+@pytest.mark.parametrize("name", ["cornell", "glossy", "ggx_ward", "vol_mini"])
+def test_bounce_bwd_keys_and_lane_order(host_lib, name):
+    """Kernel 3's lane keys (``bounce_grad.cu:bounce_bwd_key``) equal
+    ``bounce_grad.bounce_bwd_keys_plain``'s on every lane, a third of the
+    lanes with zero cotangents (the dead lanes of the per-bounce engine,
+    which take the last key); and kernel 3 run in a lane order grouped by
+    key (within a key in a random order, as the card's place pass leaves it)
+    gives every lane's d_origin, d_direction, d_throughput (and d_medium)
+    bit-equal to index order, and a table row within the float64
+    reference's bars (every cotangent within 1e-4 of itself plus 1e-6 of its
+    table's largest)."""
+    n, seed = 2048, 77
+    tables, t, medium, feats = _bwd_case(name, n)
+    vol, surf = int("volumetric" in feats), trace.surface_bits(feats)
+    keys = ("origin", "direction", "throughput", "sample", "depth", "prev")
+    args = (tables, *(t[k].long() if k == "sample" else t[k] for k in keys))
+    _, rgid, rnee = bounce_fused.bounce_fused_plain(*args, medium, seed, nee=True,
+                                                    features=feats, emit_replay=True)
+    r = np.random.default_rng(8)
+    dead = (torch.arange(n) % 3 == 0)[:, None]
+    cots = [torch.where(dead, 0.0, torch.from_numpy(r.standard_normal((n, 3)).astype(np.float32)))
+            for _ in range(4)]
+    g_med = torch.where(dead, 0.0, torch.from_numpy(r.standard_normal((n, 4)).astype(np.float32)))
+    want = bounce_grad.bounce_bwd_keys_plain(tables[0], tables[1], rgid, rnee, cots, feats,
+                                             medium=medium, g_medium=g_med)
+    got = torch.empty(n, dtype=torch.int32)
+    host_lib.host_bounce_bwd_keys(tables[0].data_ptr(), tables[1].data_ptr(), n,
+                                  rgid.data_ptr(), rnee.data_ptr(), *(c.data_ptr() for c in cots),
+                                  medium.data_ptr(), g_med.data_ptr(), vol, surf, got.data_ptr())
+    counts = torch.bincount(want, minlength=256)
+    print(f"{name}: lanes per key {({k: int(c) for k, c in enumerate(counts) if c})}")
+    assert torch.equal(got, want)
+    assert int(counts[bounce_grad.KEY_ZERO]) == int(dead.sum())
+    assert int(counts[bounce_grad.KEY_MISS] + counts[bounce_grad.KEY_MISS
+                                                       + bounce_grad.KEY_SCATTER]) > 0
+    assert len(torch.unique(want)) >= 5
+
+    order = torch.from_numpy(np.lexsort((r.random(n), want.numpy())).astype(np.int32))
+    assert torch.equal(want[order.long()], torch.sort(want).values)
+    g, m = tables[0].shape[0], tables[1].shape[0]
+    bargs = (*args, rgid, rnee, *cots, seed)
+    bkw = dict(nee=True, features=feats)
+    if vol:
+        bkw.update(medium=medium, g_medium=g_med)
+    ref = bounce_grad.bounce_bwd_plain(*bargs, dtype=torch.float64, **bkw)
+    runs = []
+    for lane_order in (None, order):
+        outs = [torch.empty((n, 3)) for _ in range(3)] + [torch.empty((n, 4))]
+        row = torch.empty(trace_grad.grad_row_len(g, m))
+        host_lib.host_bounce_bwd(
+            tables[0].data_ptr(), g, tables[1].data_ptr(), m, tables[2].data_ptr(),
+            tables[3].data_ptr(), seed, 1, n, *(t[k].data_ptr() for k in keys),
+            rgid.data_ptr(), rnee.data_ptr(), *(c.data_ptr() for c in cots),
+            *(o.data_ptr() for o in outs[:3]), row.data_ptr(), vol, 1, surf,
+            *((medium.data_ptr(), g_med.data_ptr(), outs[3].data_ptr()) if vol else NO_MEDIUM),
+            None if lane_order is None else lane_order.data_ptr(),
+        )
+        runs.append((trace_grad.split_grad_row(row, g, m), outs[:3 + vol]))
+    (row_i, lanes_i), (row_o, lanes_o) = runs
+    for a, b in zip(lanes_i, lanes_o):
+        assert torch.equal(a, b)
+    for w, k in zip(ref[:4], row_o):
+        assert bool(((k.double() - w).abs() <= 1e-4 * w.abs() + 1e-6 * float(w.abs().max())).all())
+    assert not bool(torch.cat([x[dead[:, 0]].reshape(-1) for x in lanes_o]).any())
 
 
 @pytest.mark.parametrize("scene_name", ["cornell", "glossy"])
@@ -1189,7 +1331,7 @@ def test_bounce_vol_replay_and_backward_lanes_match_plain(host_lib, scene_name, 
         tables[3].data_ptr(), seed, 1, n, *(t[k].data_ptr() for k in keys), rgid.data_ptr(),
         rnee.data_ptr(), *(c.data_ptr() for c in cots), d_o.data_ptr(), d_d.data_ptr(),
         d_t.data_ptr(), row.data_ptr(), 1, int(vol_nee), 0, medium.data_ptr(), g_med.data_ptr(),
-        d_m.data_ptr(),
+        d_m.data_ptr(), None,
     )
     got = (*trace_grad.split_grad_row(row, g, m), d_o, d_d, d_t, d_m)
     shares = [_lane_share(k, w) for k, w in zip(got[4:], ref[4:])]
@@ -1664,7 +1806,7 @@ def test_bounce_surf_replay_and_backward_lanes_match_plain(host_lib, scene_name,
         tables[3].data_ptr(), seed, int(nee), n, *(t[k].data_ptr() for k in keys),
         rgid.data_ptr(), rnee.data_ptr(), *(c.data_ptr() for c in cots), d_o.data_ptr(),
         d_d.data_ptr(), d_t.data_ptr(), row.data_ptr(), int(vol), 1, surf,
-        *((medium.data_ptr(), g_med.data_ptr(), d_m.data_ptr()) if vol else NO_MEDIUM),
+        *((medium.data_ptr(), g_med.data_ptr(), d_m.data_ptr()) if vol else NO_MEDIUM), None,
     )
     got = (*trace_grad.split_grad_row(row, g, m), d_o, d_d, d_t) + ((d_m,) if vol else ())
     shares = [_lane_share(k[close], w[close]) for k, w in zip(got[4:], ref[4:])]
