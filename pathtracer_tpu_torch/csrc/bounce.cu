@@ -89,63 +89,13 @@ namespace {
 using namespace pt;
 
 constexpr int THREADS = 128;
-constexpr int WARPS = THREADS / 32;
-constexpr int MAX_SPAN = 8;  // the chunks of 32 lanes a warp walks at most
-
-// The lane schedule: warp w walks the lanes [w * 32 * span, (w + 1) * 32 *
-// span) in chunks of 32 (with an order, the lanes order[j] of those
-// places).  Each chunk's alive flags are read by its 32 threads and
-// balloted; its dead lanes are written at once (dead, one lane per thread),
-// its live lanes are appended in index order to the warp's queue in shared
-// memory, and whenever 32 are queued, or the span is done, the warp runs one
-// batch of them (live(i) on lane queue[thread]).  Only the last batch of a
-// span may be partial.  Without an alive plane every lane is live: with
-// span 1 each warp runs its 32 lanes as one batch in index order, the
-// mask-free kernel's one lane per thread.  The body has one call site of
-// each lane function, so the bounce is inlined once.
-template <typename Live, typename Dead>
-__device__ __forceinline__ void span_lanes(int n, int span, const uint8_t* __restrict__ alive,
-                                           const int* __restrict__ order, int* queue, Live live,
-                                           Dead dead) {
-  constexpr unsigned FULL = 0xffffffffu;
-  const int lane = threadIdx.x & 31;
-  const size_t w = (size_t)blockIdx.x * WARPS + (threadIdx.x >> 5);
-  const size_t lo = w * 32 * (size_t)span;
-  const size_t hi = lo + 32 * (size_t)span < (size_t)n ? lo + 32 * (size_t)span : (size_t)n;
-  size_t base = lo;
-  int queued = 0;  // warp-uniform, as base
-  for (;;) {
-    while (queued < 32 && base < hi) {  // queue the live lanes of the next chunk
-      const size_t j = base + lane;
-      const bool in = j < hi;
-      const int i = in ? (order != nullptr ? order[j] : (int)j) : 0;
-      const bool on = in && (alive == nullptr || alive[i] != 0);
-      const unsigned live_mask = __ballot_sync(FULL, on);
-      if (on)
-        queue[queued + __popc(live_mask & ((1u << lane) - 1u))] = i;
-      else if (in)
-        dead((size_t)i);
-      queued += __popc(live_mask);
-      base += 32;
-      __syncwarp();
-    }
-    if (queued == 0) return;
-    const int take = queued < 32 ? queued : 32;
-    const int mine = lane < take ? queue[lane] : -1;
-    __syncwarp();
-    if (lane < queued - 32) queue[lane] = queue[32 + lane];  // the rest to the front
-    queued -= take;
-    __syncwarp();
-    if (mine >= 0) live((size_t)mine);
-  }
-}
 
 // kMesh = false compiles the analytic kernel: its mesh tables are a
 // constant n = 0, and the sweep drops out of the code (and of the register
 // budget) as in the kernels that never take meshes.  kVol / kHg compile the
 // participating-media blocks in, kSurf the surface blocks, as in trace.cu;
-// kTex writes the deferred texel's planes.  alive null: every lane live;
-// order not null: variant (d)'s lane order, with span 1.
+// kTex writes the deferred texel's planes.  alive null: every lane runs its
+// bounce; else a lane whose flag is 0 writes dead_lane's outputs instead.
 template <bool kMesh, bool kVol, bool kHg, bool kSurf, bool kTex>
 __global__ void __launch_bounds__(THREADS)
 bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mtab, int M,
@@ -160,10 +110,8 @@ bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ m
               float* __restrict__ rru, float* __restrict__ out_medium,
               float* __restrict__ replay_gid, float* __restrict__ replay_nee, int vol_nee,
               int mw, int surf, float* __restrict__ tex_u, float* __restrict__ tex_v,
-              float* __restrict__ tex_slot, MeshTables mesh, const uint8_t* __restrict__ alive,
-              const int* __restrict__ order, int span) {
+              float* __restrict__ tex_slot, MeshTables mesh, const uint8_t* __restrict__ alive) {
   extern __shared__ float smem[];
-  __shared__ int s_queue[WARPS][64];  // each warp's queue of live lanes
   float* s_g = smem;
   float* s_m = s_g + G * GCOLS;
   float* s_l = s_m + M * MCOLS;
@@ -172,22 +120,21 @@ bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ m
   for (int i = threadIdx.x; i < G * LCOLS; i += blockDim.x) s_l[i] = ltab[i];
   __syncthreads();
 
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  if (alive != nullptr && alive[idx] == 0) {
+    dead_lane(seed, mw, (size_t)idx, origin, direction, sample, depth, prev, medium, contrib,
+              next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
+              replay_nee, kTex ? tex_u : nullptr, tex_v, tex_slot);
+    return;
+  }
   const Tables T{s_g, s_m, s_l, G, scal[0], scal[1] > 0.5f,
                  kMesh ? mesh : MeshTables{nullptr, nullptr, nullptr, nullptr, nullptr, 0},
                  kSurf ? surf : 0};
-  span_lanes(
-      n, span, alive, order, s_queue[threadIdx.x >> 5],
-      [&](size_t i) {
-        bounce_lane<kVol, kHg, kSurf, kTex>(T, seed, nee, vol_nee, mw, i, origin, direction,
-                                            thr, sample, depth, prev, medium, contrib, next_o,
-                                            next_d, thr_mult, terminate, wspec, rru, out_medium,
-                                            replay_gid, replay_nee, tex_u, tex_v, tex_slot);
-      },
-      [&](size_t i) {
-        dead_lane(seed, mw, i, origin, direction, sample, depth, prev, medium, contrib, next_o,
-                  next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid, replay_nee,
-                  kTex ? tex_u : nullptr, tex_v, tex_slot);
-      });
+  bounce_lane<kVol, kHg, kSurf, kTex>(T, seed, nee, vol_nee, mw, (size_t)idx, origin, direction,
+                                      thr, sample, depth, prev, medium, contrib, next_o, next_d,
+                                      thr_mult, terminate, wspec, rru, out_medium, replay_gid,
+                                      replay_nee, tex_u, tex_v, tex_slot);
 }
 
 // the instance of one media case (vacuum, volumetric, volumetric + HG)
@@ -198,25 +145,11 @@ decltype(&bounce_kernel<false, false, false, false, false>) media_instance(int v
                     : bounce_kernel<kMesh, true, false, kSurf, kTex>);
 }
 
-// variant (d)'s key: the live lanes first
-struct AliveKey {
-  const uint8_t* alive;
-  __device__ int operator()(size_t i) const { return alive[i] != 0 ? 0 : 1; }
-};
-
 }  // namespace
-
-// the ints of order scratch that bounce_launch's variant (d) needs for n lanes
-extern "C" int bounce_order_ints(int n) { return lane_order_ints(n > 0 ? n : 1); }
 
 // tex_u / tex_v / tex_slot not null: the deferred-texel variant (with surf;
 // the wrapper checks it), with n_mesh > 0 kernel 2mt.  alive: one byte per
-// lane, 1 where the lane holds a live path, or null for every lane.  With
-// alive, span > 0 makes each warp walk 32 * span lanes and span 0 the span
-// that fills the card once (the lanes over 32 times the warps resident at
-// once, at most MAX_SPAN); order_scratch (bounce_order_ints(n) ints, or
-// null) runs variant (d) instead: the live lanes first by two short kernels,
-// then one lane per thread.  dev: the device of the tensors.
+// lane, 1 where the lane holds a live path, or null for every lane.
 extern "C" int bounce_launch(const float* gtab, int G, const float* mtab, int M,
                              const float* ltab, const float* scal, unsigned int seed, int nee,
                              int n, const float* origin, const float* direction,
@@ -228,8 +161,7 @@ extern "C" int bounce_launch(const float* gtab, int G, const float* mtab, int M,
                              int hg, int vol_nee, int mw, int surf, float* tex_u, float* tex_v,
                              float* tex_slot, const float* mtri, const float* maabb,
                              const float* mnorm, const float* muv, const int* mdesc, int n_mesh,
-                             const unsigned char* alive, int span, int* order_scratch, int dev,
-                             void* stream) {
+                             const unsigned char* alive, void* stream) {
   if (n <= 0) return 0;
   const cudaStream_t s = (cudaStream_t)stream;
   const size_t smem = sizeof(float) * (size_t)(G * GCOLS + M * MCOLS + G * LCOLS);
@@ -247,26 +179,11 @@ extern "C" int bounce_launch(const float* gtab, int G, const float* mtab, int M,
   else
     kernel = surf ? media_instance<false, true, false>(vol, hg)
                   : media_instance<false, false, false>(vol, hg);
-  const int* order = nullptr;
-  if (alive == nullptr || order_scratch != nullptr) {
-    span = 1;
-    if (alive != nullptr) {
-      const cudaError_t e = lane_order(AliveKey{alive}, n, order_scratch, s);
-      if (e != cudaSuccess) return (int)e;
-      order = order_scratch + n;
-    }
-  } else if (span <= 0) {
-    const long long warps =
-        (long long)resident_blocks((const void*)kernel, THREADS, dev, smem) * WARPS;
-    const long long fill = (n + 32 * warps - 1) / (32 * warps);
-    span = (int)(fill < 1 ? 1 : (fill > MAX_SPAN ? MAX_SPAN : fill));
-  }
-  const long long per_block = (long long)THREADS * span;
-  const int blocks = (int)((n + per_block - 1) / per_block);
+  const int blocks = (n + THREADS - 1) / THREADS;
   kernel<<<blocks, THREADS, smem, s>>>(
       gtab, G, mtab, M, ltab, scal, seed, nee, n, origin, direction, thr, sample, depth, prev,
       medium, contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
-      replay_nee, vol_nee, mw, surf, tex_u, tex_v, tex_slot, mesh, alive, order, span);
+      replay_nee, vol_nee, mw, surf, tex_u, tex_v, tex_slot, mesh, alive);
   return (int)cudaGetLastError();
 }
 

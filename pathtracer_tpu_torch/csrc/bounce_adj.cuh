@@ -96,6 +96,11 @@ PT_FN void acc_d(float* acc, int i, AD v) { acc_add(acc, i, (float)v); }
 // bounce_grad.cu's BWD_SUMS_ON) every column goes to the row.
 constexpr int LS_POS = 0, LS_EMIT = 12, LS_NRM = 15, LS_AREA = 24, LANE_SUMS = 25;
 
+// The reverse kernels' lane orders (lane_order, at the end of this file): a
+// lane's key is in [0, ORDER_KEYS), and the lanes run grouped by key in
+// increasing order.
+constexpr int ORDER_KEYS = 256;
+
 struct LaneSums {
   AD* s;       // the lane's slots, slot k at s[k * stride]
   int stride;
@@ -115,8 +120,8 @@ PT_FN bool sums_take(LaneSums* ls, int lid) {
 
 // column col's cotangent v: into slot `slot` of the lane sums where `hot`,
 // else into the row
-template <bool kSums>
-PT_FN void acc_sum(float* acc, LaneSums* ls, bool hot, int slot, int col, AD v) {
+template <bool kSums, typename Acc>
+PT_FN void acc_sum(Acc acc, LaneSums* ls, bool hot, int slot, int col, AD v) {
   if (kSums && hot)
     ls->s[slot * ls->stride] += v;
   else
@@ -136,6 +141,58 @@ PT_FN void lane_sums_add(float* acc, const RowLayout& R, const LaneSums& ls) {
   for (int k = 0; k < LANE_SUMS; ++k) {
     const AD v = ls.s[k * ls.stride];
     if (v != 0.0 && (k == LS_AREA || ls.lid >= 0)) acc_d(acc, lane_sum_col(R, k, ls.lid), v);
+  }
+}
+
+// Kernel 3's own sums of its winner's rows: the geom row's 12 transform
+// columns (the normal's and the winner's t's cotangents) and the 28 columns
+// of its material row (the BSDF's, the emission's and NEE's albedo).  Every
+// live lane adds to them once per bounce, and a warp's lanes mostly share a
+// winner (neighbouring pixels), so the lane sums them in double (slot k at
+// s[k * stride]) and the warp adds them to the row once where all its lanes
+// share the winner (warp_row_sums_add), else each lane adds its own.  Every
+// other column goes to the row at once.  g0 and m0 are the columns of the
+// lane's geom and material rows, ROW_NONE before the lane has a winner.
+constexpr int RS_GEOM = 12, ROW_SUMS = RS_GEOM + MCOLS;
+constexpr int ROW_NONE = -(1 << 30);
+
+struct RowSums {
+  float* row;  // the block's row
+  AD* s;       // the lane's slots, slot k at s[k * stride]
+  int stride;
+  int g0, m0;  // the row columns of the lane's winner geom and material rows
+};
+
+PT_FN void acc_d(const RowSums& a, int i, AD v) {
+  const unsigned gk = (unsigned)(i - a.g0), mk = (unsigned)(i - a.m0);
+  if (gk < (unsigned)RS_GEOM)
+    a.s[gk * a.stride] += v;
+  else if (mk < (unsigned)MCOLS)
+    a.s[(RS_GEOM + mk) * a.stride] += v;
+  else
+    acc_d(a.row, i, v);
+}
+
+// the row column of row-sum slot k
+PT_HD int row_sum_col(const RowSums& a, int k) {
+  return k < RS_GEOM ? a.g0 + k : a.m0 + k - RS_GEOM;
+}
+
+// the lane's winner rows for its row sums, from its replayed winner (a miss
+// adds to geom 0's and material 0's rows, as the adjoint does); a plain row
+// has none
+PT_FN void row_owner(float*, const RowLayout&, int, int) {}
+PT_FN void row_owner(RowSums& a, const RowLayout& R, int gc, int mid) {
+  a.g0 = gc * GCOLS;
+  a.m0 = R.om + mid * MCOLS;
+}
+
+// a lane's row sums into the row, each nonzero slot once
+PT_FN void row_sums_add(const RowSums& a) {
+  if (a.g0 == ROW_NONE) return;
+  for (int k = 0; k < ROW_SUMS; ++k) {
+    const AD v = a.s[k * a.stride];
+    if (v != 0.0) acc_d(a.row, row_sum_col(a, k), v);
   }
 }
 
@@ -330,8 +387,9 @@ PT_FN void smith_g1_adj(float c_in, float a2, AD g_g, AD& g_c_in, AD& g_a2) {
 // weight being 0 elsewhere) and its direction -> those of the shading
 // normal n, the incoming direction, cos_i and the material's specular
 // colour (columns 3-5) and roughness (25)
+template <typename Acc>
 PT_FN void ggx_adj(const float* mat, int macc, V3 n, V3 d_in, float cos_i, float u0, float u1,
-                   D3 g_w3, D3 g_dir, D3& g_n, D3& g_din, AD& g_cos_i, float* acc) {
+                   D3 g_w3, D3 g_dir, D3& g_n, D3& g_din, AD& g_cos_i, Acc acc) {
   const float rough = mat[25];
   const float rr = rough * rough;
   const float alpha = fminf(fmaxf(rr, 1e-4f), 1.0f);
@@ -405,8 +463,9 @@ PT_FN void ggx_adj(const float* mat, int macc, V3 n, V3 d_in, float cos_i, float
 
 // The Ward lobe (ward_lobe) recomputed in float, and its adjoint, as
 // ggx_adj's (kExact's conventions): the roughness columns 25 and, where it is positive, 26
+template <typename Acc>
 PT_FN void ward_adj(const float* mat, int macc, V3 n, V3 d_in, float cos_i, float u0, float u1,
-                    D3 g_w3, D3 g_dir, D3& g_n, D3& g_din, AD& g_cos_i, float* acc) {
+                    D3 g_w3, D3 g_dir, D3& g_n, D3& g_din, AD& g_cos_i, Acc acc) {
   const float rx = mat[25], ry = mat[26];
   const float ax = fminf(fmaxf(rx, 1e-3f), 1.0f);
   const float ay_in = ry > 0.0f ? ry : rx;
@@ -492,10 +551,10 @@ PT_FN void ward_adj(const float* mat, int macc, V3 n, V3 d_in, float cos_i, floa
 // the incoming direction and the material row (acc offset macc; the
 // diffuse albedo's at cacc).  kSurf adds the Cook-Torrance and Ward lobes
 // the microfacet and ward bits of `surf` switch on (sample_bsdf_c).
-template <bool kSurf = false>
+template <bool kSurf = false, typename Acc>
 PT_FN void bsdf_adj(const float* mat, int macc, int cacc, V3 n_raw, V3 d_in, float u0, float u1,
                     float u2, int surf, D3 g_mult, D3 g_org, D3 g_dir, D3& g_p, D3& g_nraw,
-                    D3& g_din, float* acc) {
+                    D3& g_din, Acc acc) {
   const float cos_raw = vdot(d_in, n_raw);
   const bool entering = cos_raw < 0.0f;
   const V3 n = entering ? n_raw : vscale(-1.0f, n_raw);
@@ -621,9 +680,9 @@ PT_FN void bsdf_adj(const float* mat, int macc, int cacc, V3 n_raw, V3 d_in, flo
 // `lid`) and unit normal ln = normalize(Li^T ln_obj) (the light geom's
 // inverse rows, lnw before the normalize): their cotangents -> the tables'
 // (into the lane sums where `hot`)
-template <bool kExact = false, bool kSums = false>
+template <bool kExact = false, bool kSums = false, typename Acc>
 PT_FN void light_adj(const RowLayout& R, int lid, V3 lp_obj, V3 ln_obj, V3 lnw, D3 g_lp, D3 g_ln,
-                     float* acc, LaneSums* ls = nullptr, bool hot = false) {
+                     Acc acc, LaneSums* ls = nullptr, bool hot = false) {
   const D3 lpo = up(lp_obj), lno = up(ln_obj);
   const int lacc = R.ol + lid * LCOLS;
 #pragma unroll
@@ -649,10 +708,10 @@ PT_FN void light_adj(const RowLayout& R, int lid, V3 lp_obj, V3 ln_obj, V3 lnw, 
 // of p, the normal, the throughput, and the material, light, geom and
 // scalar tables; the albedo is read from col, its cotangent goes to cacc;
 // kSums: the light's and the scalar's columns to the lane sums ls
-template <bool kExact = false, bool kSums = false>
+template <bool kExact = false, bool kSums = false, typename Acc>
 PT_FN void nee_adj(const Tables& T, const RowLayout& R, const float* col, int cacc, V3 pf,
                    V3 normal, V3 d, V3 thr_f, float u4, float u5, float u6, float u7, D3 g_rad,
-                   D3& g_p, D3& g_normal, D3& g_thr, float* acc, LaneSums* ls = nullptr) {
+                   D3& g_p, D3& g_normal, D3& g_thr, Acc acc, LaneSums* ls = nullptr) {
   V3 lp_obj, ln_obj;
   const int lid = sample_light_obj(T.g, T.l, T.G, u4, u5, u6, u7, lp_obj, ln_obj);
   const bool hot = sums_take<kSums>(ls, lid);
@@ -772,8 +831,9 @@ PT_FN bool emission_counts(int nee, int dep, float prev_state) {
 // contrib = e * (thr * color) of a light hit whose emission counted; the
 // albedo `color` is read from col and its cotangent goes to cacc (the
 // material's own colour, or with a texture the columns the lane selected)
+template <typename Acc>
 PT_FN void emission_adj(const float* mat, int macc, const float* col, int cacc, V3 thr,
-                        D3 g_contrib, D3& g_thr, float* acc) {
+                        D3 g_contrib, D3& g_thr, Acc acc) {
   const AD e = mat[9];
   const D3 color = d3(col[0], col[1], col[2]), th = up(thr);
   const D3 g_tc = dscale(e, g_contrib);
@@ -789,9 +849,9 @@ PT_FN void emission_adj(const float* mat, int macc, const float* col, int cacc, 
 // the volumetric segment's attenuation) and, with kP, of the object-space
 // hit point (g_pobj_in: the bump's phase) -> those of o, d and the winner's
 // geom row.  A miss (t = 1, zero normal) passes p's to o and d only.
-template <bool kT = false, bool kP = false>
+template <bool kT = false, bool kP = false, typename Acc>
 PT_FN void winner_adj(const Replay& r, V3 o, V3 d, D3 g_p, D3 g_normal, D3& g_o, D3& g_d,
-                      float* acc, AD g_t_in = 0.0, D3 g_pobj_in = D3{0.0, 0.0, 0.0}) {
+                      Acc acc, AD g_t_in = 0.0, D3 g_pobj_in = D3{0.0, 0.0, 0.0}) {
   const float* gw = r.gw;
   const D3 zero = d3(0.0, 0.0, 0.0);
   // ---- normal = normalize(M3^T n_obj)
@@ -881,8 +941,9 @@ PT_FN V3 albedo(const SurfReplay& s) { return v3(s.col[0], s.col[1], s.col[2]); 
 // to g_pobj) and of the material's bump scale and amplitude (columns 21,
 // 22).  The phases reach ~10^3 rad: their cosines are taken in double of
 // the float arguments, as the float64 reference takes them.
+template <typename Acc>
 PT_FN D3 bump_adj(const float* mat, int macc, V3 p_obj, V3 normal, D3 g_nb, D3& g_pobj,
-                  float* acc) {
+                  Acc acc) {
   V3 t1, t2;
   not_axis_frame(normal, t1, t2);
   const float ph1 = p_obj.x * (float)12.9898 + p_obj.y * (float)78.233 + p_obj.z * (float)37.719;
@@ -916,11 +977,11 @@ PT_FN D3 bump_adj(const float* mat, int macc, V3 p_obj, V3 normal, D3 g_nb, D3& 
 // adjoint turns the shading normal's cotangent into the geometric normal's
 // and the object-space point's.  kSums: NEE's light and scalar columns to
 // the lane sums ls (kernel 5).
-template <bool kSurf = false, bool kSums = false>
+template <bool kSurf = false, bool kSums = false, typename Acc>
 PT_FN void physics_adj(const Tables& T, const RowLayout& R, const Replay& r, uint32_t base,
                        int dep, int nee, V3 o, V3 d, V3 thr, float prev_state, bool nee_add,
                        D3 g_contrib, D3 g_next_o, D3 g_next_d, D3 g_thr_mult, D3& g_o, D3& g_d,
-                       D3& g_thr, float* acc, LaneSums* ls = nullptr) {
+                       D3& g_thr, Acc acc, LaneSums* ls = nullptr) {
   const int macc = R.om + r.mid * MCOLS;
   const SurfReplay s = surf_replay<kSurf>(T, r);
   const int cacc = macc + s.ccol;
@@ -989,9 +1050,10 @@ PT_FN VolBounce vol_bounce(const Tables& T, const Replay& r, uint32_t base, V3 d
 //              * ((thr_a * exp(-(sigma_a + sigma_s) min(occ_re, distv))) * emit)
 // into the cotangents of o, d, the free path, the attenuated throughput,
 // the medium and the tables.
+template <typename Acc>
 PT_FN void vol_nee_adj(const Tables& T, const RowLayout& R, uint32_t base, V3 o, V3 d, float fp,
                        V3 thr_a, Medium med, D3 g_rad, D3& g_o, D3& g_d, AD& g_fp, D3& g_thr_a,
-                       D3& g_sa, AD& g_ss, float* acc) {
+                       D3& g_sa, AD& g_ss, Acc acc) {
   V3 lp_obj, ln_obj;
   const int lid = sample_light_obj(T.g, T.l, T.G, uniform(base, 4), uniform(base, 5),
                                    uniform(base, 6), uniform(base, 7), lp_obj, ln_obj);
@@ -1079,12 +1141,12 @@ PT_FN void vol_nee_adj(const Tables& T, const RowLayout& R, uint32_t base, V3 o,
 // light hit, whose continuation has no cotangent).  The replay planes are
 // the forward's: nee_add is 0 on a lane that scatters.  kSurf: a surface
 // event differentiates the surface blocks as physics_adj<kSurf> does (v.s).
-template <bool kSurf = false>
+template <bool kSurf = false, typename Acc>
 PT_FN void physics_adj_vol(const Tables& T, const RowLayout& R, const Replay& r,
                            const VolBounce& v, uint32_t base, int dep, int nee, int vol_nee, V3 o,
                            V3 d, V3 thr, Medium med, float prev_state, bool nee_add, bool bsdf,
                            D3 g_contrib, D3 g_next_o, D3 g_next_d, D3 g_thr_mult, D3 g_ma,
-                           AD g_ms, D3& g_o, D3& g_d, D3& g_thr, D3& g_sa, AD& g_ss, float* acc) {
+                           AD g_ms, D3& g_o, D3& g_d, D3& g_thr, D3& g_sa, AD& g_ss, Acc acc) {
   const D3 zero = d3(0.0, 0.0, 0.0);
   const V3 thr_a = vmul(thr, v.atten);  // the throughput the bounce's terms see
   D3 g_thr_a = zero, g_atten = zero, g_p = zero, g_normal = zero;
@@ -1223,6 +1285,99 @@ __device__ __forceinline__ void warp_sums_add(float* acc, const RowLayout& R, co
     if ((threadIdx.x & 31) == 0 && v != 0.0 && (k == LS_AREA || lid >= 0))
       acc_d(acc, lane_sum_col(R, k, lid), v);
   }
+}
+
+// The row sums of a whole warp into the row (every thread of the warp calls
+// it): where every lane that ran has the same winner geom and material rows,
+// each slot is summed over the warp with shuffles in a fixed order and added
+// once; else each lane adds its own (row_sums_add).
+__device__ __forceinline__ void warp_row_sums_add(const RowSums& a) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const int g0 = __reduce_max_sync(FULL, a.g0), m0 = __reduce_max_sync(FULL, a.m0);
+  if (g0 == ROW_NONE) return;  // no lane of the warp ran its adjoint
+  if (!__all_sync(FULL, a.g0 == ROW_NONE || (a.g0 == g0 && a.m0 == m0))) {
+    row_sums_add(a);
+    return;
+  }
+  const RowSums w{a.row, a.s, a.stride, g0, m0};
+  for (int k = 0; k < ROW_SUMS; ++k) {
+    AD v = a.s[k * a.stride];
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+    if ((threadIdx.x & 31) == 0 && v != 0.0) acc_d(a.row, row_sum_col(w, k), v);
+  }
+}
+
+// ---- the lane order of the reverse kernels (5v, 5s, 3s) --------------------
+
+constexpr int ORDER_THREADS = ORDER_KEYS;  // the place pass scans the counts one per thread
+
+// The lane order's first pass: each lane's key, key_of(i) in [0,
+// ORDER_KEYS), and the keys' counts, a block's in shared memory and then
+// added to counts[]
+template <typename Key>
+__global__ void __launch_bounds__(ORDER_THREADS)
+lane_order_keys(Key key_of, int n, int* __restrict__ keys, int* __restrict__ counts) {
+  __shared__ int s_count[ORDER_KEYS];
+  s_count[threadIdx.x] = 0;
+  __syncthreads();
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i < n) {
+    const int key = key_of((size_t)i);
+    keys[i] = key;
+    atomicAdd(&s_count[key], 1);
+  }
+  __syncthreads();
+  if (s_count[threadIdx.x]) atomicAdd(&counts[threadIdx.x], s_count[threadIdx.x]);
+}
+
+// The second pass: order[] holds the lanes grouped by key in increasing key
+// order.  A warp's lanes of one key take consecutive places in lane order
+// (one atomic per warp and key on fill[]), so the reverse kernel's loads
+// stay in runs; the warps' runs are in no fixed order.
+__global__ void __launch_bounds__(ORDER_THREADS)
+lane_order_place(const int* __restrict__ keys, const int* __restrict__ counts, int n,
+                 int* __restrict__ fill, int* __restrict__ order) {
+  __shared__ int s_scan[ORDER_KEYS];
+  s_scan[threadIdx.x] = counts[threadIdx.x];
+  __syncthreads();
+  for (int off = 1; off < ORDER_KEYS; off <<= 1) {  // inclusive scan of the counts
+    const int add = threadIdx.x >= off ? s_scan[threadIdx.x - off] : 0;
+    __syncthreads();
+    s_scan[threadIdx.x] += add;
+    __syncthreads();
+  }
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int key = i < n ? keys[i] : -1;
+  const unsigned peers = __match_any_sync(0xffffffffu, key);
+  const int lane = threadIdx.x & 31, leader = __ffs(peers) - 1;
+  int base = 0;
+  if (i < n && lane == leader) base = atomicAdd(&fill[key], __popc(peers));
+  base = __shfl_sync(0xffffffffu, base, leader);
+  if (i < n) {
+    const int start = s_scan[key] - counts[key];  // the exclusive scan
+    order[start + base + __popc(peers & ((1u << lane) - 1u))] = i;
+  }
+}
+
+// the ints of scratch that the lane order of n lanes needs
+inline int lane_order_ints(int n) { return 2 * n + 2 * ORDER_KEYS; }
+
+// The lane order of n >= 1 lanes by key_of into scratch (lane_order_ints(n)
+// ints: the keys, the order, the counts and the fill counters)
+template <typename Key>
+cudaError_t lane_order(Key key_of, int n, int* scratch, cudaStream_t stream) {
+  int* keys = scratch;
+  int* order = keys + n;
+  int* counts = order + n;
+  int* fill = counts + ORDER_KEYS;
+  cudaError_t e = cudaMemsetAsync(counts, 0, sizeof(int) * 2 * ORDER_KEYS, stream);
+  if (e != cudaSuccess) return e;
+  const int blocks = (n + ORDER_THREADS - 1) / ORDER_THREADS;
+  lane_order_keys<<<blocks, ORDER_THREADS, 0, stream>>>(key_of, n, keys, counts);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  lane_order_place<<<blocks, ORDER_THREADS, 0, stream>>>(keys, counts, n, fill, order);
+  return cudaGetLastError();
 }
 
 // rows of scratch that row_sum needs beside `nrows` partial rows

@@ -91,8 +91,10 @@ PT_FN bool cotangents_zero(const float* __restrict__ g_contrib, const float* __r
 // one lane of kernel 3 (kVol: 3v, kSurf: 3s); also compiled as host C++ by
 // tests/kernel_host_harness.cpp.  kSums: NEE's light and scalar columns go
 // to the lane sums ls (zeroed by the caller, who adds them to the row after
-// the lane), the others to acc.
-template <bool kVol = false, bool kSurf = false, bool kSums = false>
+// the lane), the others to acc: the block's row, or its RowSums (the slots
+// zeroed by the caller, who adds them after the lane; the lane sets their
+// winner rows).
+template <bool kVol = false, bool kSurf = false, bool kSums = false, typename Acc = float*>
 PT_FN void bounce_bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, int nee, size_t i,
                            const float* __restrict__ origin, const float* __restrict__ direction,
                            const float* __restrict__ thr, const uint32_t* __restrict__ sample,
@@ -103,7 +105,7 @@ PT_FN void bounce_bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, i
                            const float* __restrict__ g_next_d,
                            const float* __restrict__ g_thr_mult, float* __restrict__ d_origin,
                            float* __restrict__ d_direction, float* __restrict__ d_thr,
-                           float* acc, LaneSums* ls, int vol_nee = 1,
+                           Acc& acc, LaneSums* ls, int vol_nee = 1,
                            const float* __restrict__ medium = nullptr,
                            const float* __restrict__ g_medium = nullptr,
                            float* __restrict__ d_medium = nullptr) {
@@ -125,6 +127,7 @@ PT_FN void bounce_bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, i
   const int dep = depth[i];
   const uint32_t base = bounce_base(seed, sample[i] * 0x85EBCA6Bu, dep);
   const Replay r = replay_bounce(T, o, d, (int)replay_gid[i]);
+  row_owner(acc, R, r.gc, r.mid);
   const D3 gc = d3(g_contrib[3 * i], g_contrib[3 * i + 1], g_contrib[3 * i + 2]);
   const D3 gno = d3(g_next_o[3 * i], g_next_o[3 * i + 1], g_next_o[3 * i + 2]);
   const D3 gnd = d3(g_next_d[3 * i], g_next_d[3 * i + 1], g_next_d[3 * i + 2]);
@@ -216,11 +219,23 @@ constexpr int THREADS = 128;
 
 // The instances that sum NEE's light and scalar columns per lane
 // (bounce_adj.cuh's LaneSums) and once per warp: 3 and 3s.  3v's adjoint
-// (physics_adj_vol) adds every column to the row.
+// (physics_adj_vol) adds those columns to the row.
 template <bool kVol, bool kSurf>
 constexpr bool BWD_SUMS_ON = !kVol;
-// whether 3v orders its lanes (keyed with 5v's medium bit); 3 and 3s do
-constexpr bool ORDER_VOL = true;
+// The instances that sum their winner's geom and material rows per lane and
+// once per warp (bounce_adj.cuh's RowSums)
+template <bool kVol, bool kSurf>
+constexpr bool BWD_ROWS_ON = true;
+
+// the doubles of a thread's lane sums and row sums in the instance
+template <bool kVol, bool kSurf>
+constexpr int SLOTS = (BWD_SUMS_ON<kVol, kSurf> ? LANE_SUMS : 0) +
+                      (BWD_ROWS_ON<kVol, kSurf> ? ROW_SUMS : 0);
+// The instances that order their lanes by key (bounce_bwd_key): 3s.  3 and
+// 3v run their lanes in index order: neighbouring pixels share a winner, so
+// a warp's loads stay coalesced and its row sums warp-uniform.
+template <bool kVol, bool kSurf>
+constexpr bool ORDER_ON = kSurf && !kVol;
 
 template <bool kVol, bool kSurf>
 __global__ void __launch_bounds__(THREADS)
@@ -245,13 +260,13 @@ bounce_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict
   float* acc = partial + (size_t)blockIdx.x * R.k;
   load_tables(smem, gtab, G, mtab, M, ltab);
   for (int i = threadIdx.x; i < R.k; i += blockDim.x) acc[i] = 0.0f;
-  // each thread's lane sums, slot k at [k * THREADS + thread], after the tables
-  constexpr bool kSums = BWD_SUMS_ON<kVol, kSurf>;
-  LaneSums ls{nullptr, THREADS, -1};
-  if constexpr (kSums) {
-    ls.s = reinterpret_cast<AD*>(smem + sums_offset(G, M)) + threadIdx.x;
-    for (int k = 0; k < LANE_SUMS; ++k) ls.s[k * THREADS] = 0.0;
-  }
+  // each thread's lane sums and row sums, slot k at [k * THREADS + thread],
+  // after the tables
+  constexpr bool kSums = BWD_SUMS_ON<kVol, kSurf>, kRows = BWD_ROWS_ON<kVol, kSurf>;
+  AD* slots = reinterpret_cast<AD*>(smem + sums_offset(G, M)) + threadIdx.x;
+  for (int k = 0; k < SLOTS<kVol, kSurf>; ++k) slots[k * THREADS] = 0.0;
+  LaneSums ls{slots, THREADS, -1};
+  RowSums rs{acc, slots + (kSums ? LANE_SUMS * THREADS : 0), THREADS, ROW_NONE, ROW_NONE};
   __syncthreads();
   const Tables T{smem, smem + G * GCOLS, smem + G * GCOLS + M * MCOLS, G, scal[0],
                  scal[1] > 0.5f, MeshTables{nullptr, nullptr, nullptr, nullptr, nullptr, 0},
@@ -260,13 +275,21 @@ bounce_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict
   // thread t takes lane order[t] where the launch orders its lanes
   const int t = blockIdx.x * blockDim.x + threadIdx.x;
   const int idx = order != nullptr && t < n ? order[t] : t;
-  if (idx < n)  // lanes past n contribute nothing
-    bounce_bwd_lane<kVol, kSurf, kSums>(T, R, seed, nee, (size_t)idx, origin, direction, thr,
-                                        sample, depth, prev, replay_gid, replay_nee, g_contrib,
-                                        g_next_o, g_next_d, g_thr_mult, d_origin, d_direction,
-                                        d_thr, acc, &ls, vol_nee, medium, g_medium, d_medium);
+  if (idx < n) {  // lanes past n contribute nothing
+    if constexpr (kRows)
+      bounce_bwd_lane<kVol, kSurf, kSums>(T, R, seed, nee, (size_t)idx, origin, direction, thr,
+                                          sample, depth, prev, replay_gid, replay_nee, g_contrib,
+                                          g_next_o, g_next_d, g_thr_mult, d_origin, d_direction,
+                                          d_thr, rs, &ls, vol_nee, medium, g_medium, d_medium);
+    else
+      bounce_bwd_lane<kVol, kSurf, kSums>(T, R, seed, nee, (size_t)idx, origin, direction, thr,
+                                          sample, depth, prev, replay_gid, replay_nee, g_contrib,
+                                          g_next_o, g_next_d, g_thr_mult, d_origin, d_direction,
+                                          d_thr, acc, &ls, vol_nee, medium, g_medium, d_medium);
+  }
   // every thread of the warp, past n or on a lane that added nothing too
   if constexpr (kSums) warp_sums_add(acc, R, ls);
+  if constexpr (kRows) warp_row_sums_add(rs);
 }
 
 // a lane's key for the lane order (bounce_adj.cuh:lane_order)
@@ -291,11 +314,21 @@ extern "C" int bounce_bwd_rows(int n) {
   return blocks > 0 ? blocks + row_sum_scratch(blocks) : 1;
 }
 
-// the ints of order scratch that bounce_bwd_launch needs for n lanes
-extern "C" int bounce_bwd_order_ints(int n) { return lane_order_ints(n > 0 ? n : 1); }
+// whether the instance orders its lanes
+static bool ordered_instance(int vol, int surf) {
+  return vol ? (surf ? ORDER_ON<true, true> : ORDER_ON<true, false>)
+             : (surf ? ORDER_ON<false, true> : ORDER_ON<false, false>);
+}
 
-// order_scratch: bounce_bwd_order_ints(n) ints for the lane order, or null
-// for the lanes in index order (one thread per lane, thread t on lane t)
+// the ints of order scratch that bounce_bwd_launch needs for n lanes of the
+// instance (vol, surf): 0 where it runs its lanes in index order
+extern "C" int bounce_bwd_order_ints(int n, int vol, int surf) {
+  return ordered_instance(vol, surf) ? lane_order_ints(n > 0 ? n : 1) : 0;
+}
+
+// order_scratch: bounce_bwd_order_ints(n, vol, surf) ints for the lane order
+// of the instances that order theirs, or null for the lanes in index order
+// (one thread per lane, thread t on lane t)
 extern "C" int bounce_bwd_launch(const float* gtab, int G, const float* mtab, int M,
                                  const float* ltab, const float* scal, unsigned int seed, int nee,
                                  int n, const float* origin, const float* direction,
@@ -311,11 +344,10 @@ extern "C" int bounce_bwd_launch(const float* gtab, int G, const float* mtab, in
   const int blocks = (n + THREADS - 1) / THREADS;
   const cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0) return (int)cudaMemsetAsync(row, 0, sizeof(float) * R.k, s);
-  // the tables, and the lane sums in the instances that keep them
-  const bool sums = vol ? (surf ? BWD_SUMS_ON<true, true> : BWD_SUMS_ON<true, false>)
-                         : (surf ? BWD_SUMS_ON<false, true> : BWD_SUMS_ON<false, false>);
-  const size_t smem = sizeof(float) * (sums ? sums_offset(G, M) + 2 * LANE_SUMS * THREADS
-                                            : table_floats(G, M));
+  // the tables, and the lane and row sums of the instance
+  const int slots = vol ? (surf ? SLOTS<true, true> : SLOTS<true, false>)
+                        : (surf ? SLOTS<false, true> : SLOTS<false, false>);
+  const size_t smem = sizeof(float) * (sums_offset(G, M) + 2 * (size_t)slots * THREADS);
   // the instance: vacuum or volumetric x surface blocks or not
   const auto kernel =
       vol ? (surf ? bounce_bwd_kernel<true, true> : bounce_bwd_kernel<true, false>)
@@ -326,7 +358,7 @@ extern "C" int bounce_bwd_launch(const float* gtab, int G, const float* mtab, in
     if (e != cudaSuccess) return (int)e;
   }
   const int* order = nullptr;
-  if (order_scratch != nullptr && (!vol || ORDER_VOL)) {
+  if (order_scratch != nullptr && ordered_instance(vol, surf)) {
     const BwdKeyIn in{gtab,     mtab,     replay_gid, replay_nee, g_contrib,
                       g_next_o, g_next_d, g_thr_mult, medium,     g_medium};
     const cudaError_t e = vol ? bwd_lane_order<true>(in, surf, n, order_scratch, s)

@@ -175,6 +175,10 @@ PT_FN int refill_rank(uint32_t free, int lane) { return PT_POPC(free & ((1u << l
 
 #ifdef __CUDACC__
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace {
 
 using namespace pt;
@@ -273,6 +277,27 @@ decltype(&trace_kernel<false, false, false, false>) media_instance(int vol, int 
                     : trace_kernel<kMesh, true, false, kSurf>);
 }
 
+// The blocks of `kernel` resident at once on device `dev`: its SMs times
+// the kernel's occupancy at TRACE_THREADS and `smem` bytes of shared
+// memory.  Queried once per kernel instance, device and shared-memory size.
+int resident_blocks(const void* kernel, int dev, size_t smem) {
+  static std::mutex mu;
+  static std::map<std::tuple<const void*, int, size_t>, int> known;
+  const std::lock_guard<std::mutex> lock(mu);
+  const auto key = std::make_tuple(kernel, dev, smem);
+  const auto it = known.find(key);
+  if (it != known.end()) return it->second;
+  int cur = 0, sms = 0, per_sm = 0;
+  cudaGetDevice(&cur);
+  if (cur != dev) cudaSetDevice(dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, TRACE_THREADS, smem);
+  if (cur != dev) cudaSetDevice(cur);
+  const int blocks = sms * (per_sm > 0 ? per_sm : 1);
+  known.emplace(key, blocks);
+  return blocks;
+}
+
 }  // namespace
 
 // nrays, next: the ray count and the persistent schedule's lane counter,
@@ -300,8 +325,7 @@ extern "C" int trace_launch(const float* gtab, int G, const float* mtab, int M,
                                          : media_instance<true, false>(vol, hg))
                                  : (surf ? media_instance<false, true>(vol, hg)
                                          : media_instance<false, false>(vol, hg));
-  int grid = blocks > 0 ? blocks
-                        : resident_blocks((const void*)kernel, TRACE_THREADS, dev, smem);
+  int grid = blocks > 0 ? blocks : resident_blocks((const void*)kernel, dev, smem);
   const int needed = (n + TRACE_THREADS - 1) / TRACE_THREADS;
   if (grid > needed) grid = needed;
   kernel<<<grid, TRACE_THREADS, smem, s>>>(gtab, G, mtab, M, ltab, scal, seed, origin, direction,

@@ -38,10 +38,6 @@ constexpr float BIG = 1e30f;
 constexpr float T_MIN = 1e-4f;
 constexpr float RAY_BIAS = 2e-4f;
 constexpr float SHADOW_SLACK = (float)(4.0 * 2e-4);
-
-// The lane orders (lane_order, at the end of this file): a lane's key is in
-// [0, ORDER_KEYS), and the lanes run grouped by key in increasing order.
-constexpr int ORDER_KEYS = 256;
 constexpr float TWO_PI = (float)(2.0 * 3.14159265358979323846);
 constexpr float INV_PI = (float)(1.0 / 3.14159265358979323846);
 constexpr float SQRT_ONE_THIRD = (float)0.5773502691896257;
@@ -1101,111 +1097,3 @@ PT_FN void bounce_step(const Tables& T, uint32_t base, int dep, int nee, int rr,
 }
 
 }  // namespace pt
-
-#ifdef __CUDACC__
-#include <cuda_runtime.h>
-
-#include <map>
-#include <mutex>
-#include <tuple>
-
-namespace pt {
-
-// The blocks of `kernel` resident at once on device `dev`: its SMs times
-// the kernel's occupancy at `threads` threads a block and `smem` bytes of
-// shared memory.  Queried once per kernel instance, device and
-// shared-memory size.
-inline int resident_blocks(const void* kernel, int threads, int dev, size_t smem) {
-  static std::mutex mu;
-  static std::map<std::tuple<const void*, int, size_t>, int> known;
-  const std::lock_guard<std::mutex> lock(mu);
-  const auto key = std::make_tuple(kernel, dev, smem);
-  const auto it = known.find(key);
-  if (it != known.end()) return it->second;
-  int cur = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&cur);
-  if (cur != dev) cudaSetDevice(dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
-  if (cur != dev) cudaSetDevice(cur);
-  const int blocks = sms * (per_sm > 0 ? per_sm : 1);
-  known.emplace(key, blocks);
-  return blocks;
-}
-
-// ---- lane orders (kernels 5v, 5s, 3, 3s and 3v; kernel 2's variant (d)) ---
-
-constexpr int ORDER_THREADS = ORDER_KEYS;  // the place pass scans the counts one per thread
-
-// The lane order's first pass: each lane's key, key_of(i) in [0,
-// ORDER_KEYS), and the keys' counts, a block's in shared memory and then
-// added to counts[]
-template <typename Key>
-__global__ void __launch_bounds__(ORDER_THREADS)
-lane_order_keys(Key key_of, int n, int* __restrict__ keys, int* __restrict__ counts) {
-  __shared__ int s_count[ORDER_KEYS];
-  s_count[threadIdx.x] = 0;
-  __syncthreads();
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i < n) {
-    const int key = key_of((size_t)i);
-    keys[i] = key;
-    atomicAdd(&s_count[key], 1);
-  }
-  __syncthreads();
-  if (s_count[threadIdx.x]) atomicAdd(&counts[threadIdx.x], s_count[threadIdx.x]);
-}
-
-// The second pass: order[] holds the lanes grouped by key in increasing key
-// order.  A warp's lanes of one key take consecutive places in lane order
-// (one atomic per warp and key on fill[]), so the reverse kernel's loads
-// stay in runs; the warps' runs are in no fixed order.
-__global__ void __launch_bounds__(ORDER_THREADS)
-lane_order_place(const int* __restrict__ keys, const int* __restrict__ counts, int n,
-                 int* __restrict__ fill, int* __restrict__ order) {
-  __shared__ int s_scan[ORDER_KEYS];
-  s_scan[threadIdx.x] = counts[threadIdx.x];
-  __syncthreads();
-  for (int off = 1; off < ORDER_KEYS; off <<= 1) {  // inclusive scan of the counts
-    const int add = threadIdx.x >= off ? s_scan[threadIdx.x - off] : 0;
-    __syncthreads();
-    s_scan[threadIdx.x] += add;
-    __syncthreads();
-  }
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const int key = i < n ? keys[i] : -1;
-  const unsigned peers = __match_any_sync(0xffffffffu, key);
-  const int lane = threadIdx.x & 31, leader = __ffs(peers) - 1;
-  int base = 0;
-  if (i < n && lane == leader) base = atomicAdd(&fill[key], __popc(peers));
-  base = __shfl_sync(0xffffffffu, base, leader);
-  if (i < n) {
-    const int start = s_scan[key] - counts[key];  // the exclusive scan
-    order[start + base + __popc(peers & ((1u << lane) - 1u))] = i;
-  }
-}
-
-// the ints of scratch that the lane order of n lanes needs
-inline int lane_order_ints(int n) { return 2 * n + 2 * ORDER_KEYS; }
-
-// The lane order of n >= 1 lanes by key_of into scratch (lane_order_ints(n)
-// ints: the keys, the order, the counts and the fill counters)
-template <typename Key>
-cudaError_t lane_order(Key key_of, int n, int* scratch, cudaStream_t stream) {
-  int* keys = scratch;
-  int* order = keys + n;
-  int* counts = order + n;
-  int* fill = counts + ORDER_KEYS;
-  cudaError_t e = cudaMemsetAsync(counts, 0, sizeof(int) * 2 * ORDER_KEYS, stream);
-  if (e != cudaSuccess) return e;
-  const int blocks = (n + ORDER_THREADS - 1) / ORDER_THREADS;
-  lane_order_keys<<<blocks, ORDER_THREADS, 0, stream>>>(key_of, n, keys, counts);
-  e = cudaGetLastError();
-  if (e != cudaSuccess) return e;
-  lane_order_place<<<blocks, ORDER_THREADS, 0, stream>>>(keys, counts, n, fill, order);
-  return cudaGetLastError();
-}
-
-}  // namespace pt
-
-#endif  // __CUDACC__

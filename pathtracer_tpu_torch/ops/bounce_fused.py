@@ -27,10 +27,9 @@ code, BSDF continuation, and NEE with a shadow sweep.
   every caller: no contribution, the ray passed through, a zero throughput
   multiplier, terminate set, the emit state and the medium passed through,
   the russian-roulette uniform as a live lane's, replay gid -1 and NEE bit
-  0, no texel (slot -1, u = v = 0).  The kernel does not run their bounce:
-  each warp walks a span of lanes and runs its live lanes in full batches
-  of 32 (``csrc/bounce.cu``); the plain version computes every lane and
-  then writes the dead lanes' values.  Live lanes' outputs do not depend on
+  0, no texel (slot -1, u = v = 0).  The kernel does not run their bounce
+  (``csrc/bounce.cu``); the plain version computes every lane and then
+  writes the dead lanes' values.  Live lanes' outputs do not depend on
   ``alive``.  The mesh-merge variant takes no ``alive``.
 
 Mesh scenes the in-kernel sweep takes (``bounce_pallas.py:1637-1671``, the
@@ -272,12 +271,9 @@ def _lib():
             *MEDIA_ARGTYPES, I,  # volumetric, hg, vol_nee; the medium's width
             SURF_ARGTYPE, P, P, P,  # surface bits; deferred texel u, v, slot (null: none)
             *MESH_ARGTYPES,
-            P, I, P,  # alive plane (null: every lane), span, variant (d)'s order scratch
-            I, P,  # device index, stream
+            P,  # alive plane (null: every lane)
+            P,  # stream
         ]
-        lib = _build.load("bounce")
-        lib.bounce_order_ints.restype = I
-        lib.bounce_order_ints.argtypes = [I]
     return fn
 
 
@@ -309,14 +305,10 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
                       prev_specular, medium_sigma, seed: int, *, nee: bool,
                       features=frozenset(), emit_replay: bool = False, mesh=None,
                       vol_nee: bool = True, tex_defer: bool = False, mesh_in=None,
-                      mesh_uv=None, alive=None, span: int = 0, lane_order: bool = False):
+                      mesh_uv=None, alive=None):
     """Launch kernel 2 on the rays' CUDA device, on the current stream
     (``csrc/bounce.cu``, or with ``mesh_in`` ``csrc/bounce_merge.cu``);
-    the arguments and the result as in :func:`bounce_fused_plain`.  With
-    ``alive``, each warp walks ``span`` chunks of 32 lanes (0: the span that
-    fills the card once), or with ``lane_order`` the live lanes go first by
-    two short kernels (variant (d), measured against the span schedule);
-    the outputs are the same."""
+    the arguments and the result as in :func:`bounce_fused_plain`."""
     global launches, replay_launches, replay_vol_launches, replay_surf_launches, mesh_launches
     global vol_launches, hg_launches
     global surf_launches, tex_launches, mesh_tex_launches, merge_launches
@@ -371,16 +363,10 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
             None if deferred is None else deferred.data_ptr(), stream,
         )
     else:
-        launch = _lib()
-        order = None
-        if alive is not None and lane_order:
-            order = torch.empty(_build.load("bounce").bounce_order_ints(n), dtype=torch.int32,
-                                device=device)
-        err = launch(
+        err = _lib()(
             *common, *(None if r is None else r.data_ptr() for r in replay), *media, width,
             surf, *tex_ptrs, *mesh_launch_args(mesh, device),
-            None if alive is None else alive.data_ptr(), int(span),
-            None if order is None else order.data_ptr(), device.index or 0, stream,
+            None if alive is None else alive.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(f"bounce kernel launch failed: CUDA error {err}")

@@ -16,11 +16,12 @@ for that bounce alone.
   thread per lane, the tables in shared memory, the adjoint of
   ``csrc/bounce_adj.cuh`` that kernel 5 shares, one table row per block,
   the rows summed by ``bounce_adj.cuh:row_sum`` in a fixed tree; a lane
-  whose cotangents are all zero writes zeros and adds nothing).  Its lanes
-  run grouped by the branch their adjoint takes (:func:`bounce_bwd_keys_plain`
-  is the plain version of the key; two short kernels order them first), and
-  3 and 3s sum NEE's light and scalar columns per lane and add them once per
-  warp.
+  whose cotangents are all zero writes zeros and adds nothing).  Each lane
+  sums its winner's geom and material columns (and in 3 and 3s NEE's light
+  and scalar columns) in double and its warp adds them to the row once.
+  3s runs its lanes grouped by the branch their adjoint takes
+  (:func:`bounce_bwd_keys_plain` is the plain version of the key; two short
+  kernels order them first).
 * :class:`BounceDiff` is the ``torch.autograd.Function`` (the
   ``jax.custom_vjp`` of ``bounce_grad.py:380-428``): its forward saves the
   inputs and the replay planes, its backward runs kernel 3 on a CUDA
@@ -177,9 +178,10 @@ def _lib():
             P,  # the lane order's scratch (null: the lanes in index order)
             P,  # stream
         ]
-        for fn in (lib.bounce_bwd_rows, lib.bounce_bwd_order_ints):
-            fn.restype = ctypes.c_int
-            fn.argtypes = [I]
+        lib.bounce_bwd_rows.restype = ctypes.c_int
+        lib.bounce_bwd_rows.argtypes = [I]
+        lib.bounce_bwd_order_ints.restype = ctypes.c_int
+        lib.bounce_bwd_order_ints.argtypes = [I, I, I]
     return lib
 
 
@@ -189,9 +191,10 @@ def bounce_bwd_cuda(tables, origin, direction, throughput, sample_idx, depth, pr
                     vol_nee: bool = True, ordered: bool = True):
     """Launch kernel 3 (3v with ``volumetric``, 3s with a surface feature)
     and its fixed-order row sum on the rays' CUDA device, on the current
-    stream: what :func:`bounce_bwd_plain` returns.  ``ordered=False`` runs
-    the lanes in index order (one thread per lane) instead of grouped by
-    their key: the per-lane outputs are the same."""
+    stream: what :func:`bounce_bwd_plain` returns.  The instances that
+    order their lanes (3s) run them grouped by their key, ``ordered=False``
+    in index order (one thread per lane); the per-lane outputs are the
+    same."""
     global launches, vol_launches, surf_launches
     check_diff_features(features, "fused")
     vol = "volumetric" in features
@@ -223,8 +226,8 @@ def bounce_bwd_cuda(tables, origin, direction, throughput, sample_idx, depth, pr
     d_o, d_d, d_t = (torch.empty((n, 3), dtype=f32, device=device) for _ in range(3))
     partial = torch.empty((lib.bounce_bwd_rows(n), k), dtype=f32, device=device)
     row = torch.empty((k,), dtype=f32, device=device)
-    order = (torch.empty(lib.bounce_bwd_order_ints(n), dtype=torch.int32, device=device)
-             if ordered else None)
+    order_ints = lib.bounce_bwd_order_ints(n, int(vol), surf) if ordered else 0
+    order = torch.empty(order_ints, dtype=torch.int32, device=device) if order_ints else None
     err = lib.bounce_bwd_launch(
         gtab.data_ptr(), g, mtab.data_ptr(), m, ltab.data_ptr(), scal.data_ptr(),
         int(seed) & 0xFFFFFFFF, int(bool(nee)), n,

@@ -55,8 +55,8 @@ kernels from its own sources (``tools/in_turns``).  Each process prints
   launch; kernels 3 / 3v / 3s isolated on the state after two bounces with
   the engine's cotangents (zero on the lanes that died), body, row sum and
   lane order apart (``_profiled_split``).  Where the checkout has them, the
-  variants run beside: kernel 2 at spans 1, 2, 4, 8 and with the two-pass
-  lane order (variant (d)), kernel 3 in index order (``ordered=False``);
+  variants run beside: kernel 2 without its alive plane (mask-free), kernel
+  3 in index order (``ordered=False``);
 - rows: kernel 2's instances 2v, 2hg (sss), 2m (smooth_mesh), 2s (ward),
   2t (textured_image), each at 512x512 on the pinned engine's super-step 10
   (2 spp), and kernels 6 and 8 on Cornell's (800x800, 8 spp) and 7 on the
@@ -69,7 +69,7 @@ kernels 1, 2, 3, 4 and 5 (none when its libraries were built earlier).
 A ``NAME=variant:V`` checkout is a copy of this checkout under
 ``build/kernel_split/V`` with the source edits of ``VARIANTS[V]``: a
 variant measured for timing only (``nosums``: kernel 3 without its lane
-sums).
+sums; ``norows``: without its row sums).
 
 Needs a card and ``nvcc``.
 """
@@ -127,10 +127,8 @@ DEFAULT_PARTS = ("adjoint", "forward", "1m", "steps")
 VARIANTS = {
     "nosums": (("pathtracer_tpu_torch/csrc/bounce_grad.cu",
                 "constexpr bool BWD_SUMS_ON = !kVol;", "constexpr bool BWD_SUMS_ON = false;"),),
-    # kernel 2 held to nine blocks of 128 threads per SM (56 registers)
-    "k2_lb9": (("pathtracer_tpu_torch/csrc/bounce.cu",
-                "__global__ void __launch_bounds__(THREADS)\nbounce_kernel(",
-                "__global__ void __launch_bounds__(THREADS, 9)\nbounce_kernel("),),
+    "norows": (("pathtracer_tpu_torch/csrc/bounce_grad.cu",
+                "constexpr bool BWD_ROWS_ON = true;", "constexpr bool BWD_ROWS_ON = false;"),),
 }
 # the forward part's launches: label, kernel (1 or 4), scene, resolution,
 # russian roulette from bounce 3
@@ -194,8 +192,7 @@ def perbounce(cs, card: str, here: str) -> None:
     pinned = RenderConfig(wavefront=True, iters_per_launch=8, max_depth=8, nee=True)
     k2_variants = [("as is", {})]
     if alive_k2:
-        k2_variants += [(f"span {k}", dict(span=k)) for k in (1, 2, 4, 8)]
-        k2_variants += [("two-pass order (d)", dict(lane_order=True)), ("mask-free", None)]
+        k2_variants.append(("mask-free", None))
     for label, kw in k2_variants:
         if kw is None:
             bounce_fused.bounce_fused_cuda = lambda *a, alive=None, **k: k2(*a, **k)
@@ -207,12 +204,11 @@ def perbounce(cs, card: str, here: str) -> None:
             for rep in range(2):
                 run, wall = cs.profiled(lambda: render(scene, 8, pinned, device=dev))
                 ms, n = _device_sum(run, "bounce_kernel")
-                o_ms, _ = _device_sum(run, "lane_order")
                 busy = sum(v[0] for v in run.values()) / 1e3
                 print(f"[split] {here} perbounce kernel 2 {label}, pinned 8-spp render cornell "
                       f"800x800, repeat {rep}: {ms:.4f} ms of device time in {n} launches "
-                      f"({ms / max(n, 1):.4f} per launch), lane order {o_ms:.4f} ms; device busy "
-                      f"{busy:.4f} ms of {wall:.4f} ms profiled; on {card}", flush=True)
+                      f"({ms / max(n, 1):.4f} per launch); device busy {busy:.4f} ms of "
+                      f"{wall:.4f} ms profiled; on {card}", flush=True)
         finally:
             bounce_fused.bounce_fused_cuda = k2
     captured = {}
@@ -240,7 +236,8 @@ def perbounce(cs, card: str, here: str) -> None:
         medium = torch.zeros((n, 4), **f32)
         on = torch.ones(n, dtype=torch.bool, device=dev)
         for dep in range(8):
-            sargs = (tables, st["origin"], st["direction"], st["throughput"], pixel, dep,
+            depth = torch.full((n,), dep, dtype=torch.int32, device=dev)
+            sargs = (tables, st["origin"], st["direction"], st["throughput"], pixel, depth,
                      st["prev"], medium, seed)
             for label, kw in k2_variants:
                 kw = {} if kw is None or not alive_k2 else dict(kw, alive=on)

@@ -7,8 +7,9 @@
 // reverse lanes (trace_grad.cu; vol picks their kVol instances, 4v and 5v,
 // and the surface bits surf their kSurf ones, 4s and 5s) and the reverse
 // kernel's lane keys, one bounce
-// (bounce.cu) and its backward (bounce_grad.cu; vol: 3v, with the medium
-// planes; surf: 3s), the nearest hit, winner search and occlusion
+// (bounce.cu; host_bounce_alive with an alive plane) and its backward
+// (bounce_grad.cu; vol: 3v, with the medium planes; surf: 3s; in a given
+// lane order) and its lane keys, the nearest hit, winner search and occlusion
 // (intersect.cu), and the nearest triangle and triangle occlusion (mesh.cu,
 // chunk-culled with the padded boxes, or dense without).
 // host_trace_sched runs kernel 1 under a host emulation of its persistent
@@ -237,55 +238,29 @@ extern "C" void host_bounce(const float* gtab, int G, const float* mtab, const f
          replay_gid, replay_nee, tex_u, tex_v, tex_slot, nullptr, nullptr, nullptr, 0);
 }
 
-// Kernel 2 with an alive plane under a host emulation of its span schedule
-// (bounce.cu:span_lanes): warp w walks lanes [w 32 span, (w + 1) 32 span)
-// in chunks of 32, writes each chunk's dead lanes (dead_lane), queues its
-// live lanes in index order and runs a batch of 32 whenever 32 are queued,
-// the rest as the span's last batch.  *batches counts the batches run and
-// *partial those with fewer than 32 lanes.
-extern "C" void host_bounce_span(const float* gtab, int G, const float* mtab, const float* ltab,
-                                 const float* scal, unsigned seed, int nee, int n,
-                                 const float* origin, const float* direction, const float* thr,
-                                 const unsigned* sample, const int* depth, const float* prev,
-                                 const float* medium, float* contrib, float* next_o,
-                                 float* next_d, float* thr_mult, unsigned char* terminate,
-                                 float* wspec, float* rru, float* out_medium, float* replay_gid,
-                                 float* replay_nee, int vol, int hg, int vol_nee, int mw,
-                                 int surf, float* tex_u, float* tex_v, float* tex_slot,
-                                 const unsigned char* alive, int span, int* batches,
-                                 int* partial) {
+// Kernel 2 with an alive plane (bounce.cu): a lane whose flag is 0 writes
+// dead_lane's outputs, every other lane runs its bounce
+extern "C" void host_bounce_alive(const float* gtab, int G, const float* mtab, const float* ltab,
+                                  const float* scal, unsigned seed, int nee, int n,
+                                  const float* origin, const float* direction, const float* thr,
+                                  const unsigned* sample, const int* depth, const float* prev,
+                                  const float* medium, float* contrib, float* next_o,
+                                  float* next_d, float* thr_mult, unsigned char* terminate,
+                                  float* wspec, float* rru, float* out_medium, float* replay_gid,
+                                  float* replay_nee, int vol, int hg, int vol_nee, int mw,
+                                  int surf, float* tex_u, float* tex_v, float* tex_slot,
+                                  const unsigned char* alive) {
   const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f, MeshTables{}, surf};
   const BounceLaneFn lane = bounce_instance(vol, hg, surf, tex_u != nullptr);
-  auto live = [&](size_t i) {
-    lane(T, seed, nee, vol_nee, mw, i, origin, direction, thr, sample, depth, prev, medium,
-         contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
-         replay_nee, tex_u, tex_v, tex_slot, nullptr, nullptr, nullptr, 0);
-  };
-  *batches = *partial = 0;
-  const size_t width = 32 * (size_t)span;
-  for (size_t lo = 0; lo < (size_t)n; lo += width) {
-    const size_t hi = lo + width < (size_t)n ? lo + width : (size_t)n;
-    std::vector<int> queue;
-    for (size_t base = lo; base < hi; base += 32) {
-      for (size_t i = base; i < base + 32 && i < hi; ++i) {
-        if (alive[i])
-          queue.push_back((int)i);
-        else
-          dead_lane(seed, mw, i, origin, direction, sample, depth, prev, medium, contrib,
-                    next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
-                    replay_nee, tex_u, tex_v, tex_slot);
-      }
-      if (queue.size() >= 32) {
-        for (int l = 0; l < 32; ++l) live((size_t)queue[l]);
-        queue.erase(queue.begin(), queue.begin() + 32);
-        ++*batches;
-      }
-    }
-    if (!queue.empty()) {
-      for (int q : queue) live((size_t)q);
-      ++*batches;
-      ++*partial;
-    }
+  for (int i = 0; i < n; ++i) {
+    if (alive[i] == 0)
+      dead_lane(seed, mw, (size_t)i, origin, direction, sample, depth, prev, medium, contrib,
+                next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
+                replay_nee, tex_u, tex_v, tex_slot);
+    else
+      lane(T, seed, nee, vol_nee, mw, (size_t)i, origin, direction, thr, sample, depth, prev,
+           medium, contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium,
+           replay_gid, replay_nee, tex_u, tex_v, tex_slot, nullptr, nullptr, nullptr, 0);
   }
 }
 
@@ -337,9 +312,10 @@ extern "C" void host_winner(const float* gtab, int G, int n, const float* origin
   for (int i = 0; i < n; ++i) winner_lane(gtab, G, (size_t)i, origin, direction, t, gid);
 }
 
-// kernel 3's lanes in the order `order` (null: index order); the vacuum and
-// surface instances sum NEE's light and scalar columns per lane, as the
-// kernel's BWD_SUMS_ON instances do, and add them after the lane
+// kernel 3's lanes in the order `order` (null: index order), as the kernel
+// runs them: each lane's winner rows summed in its row sums (RowSums) and, in
+// the vacuum and surface instances, NEE's light and scalar columns in its
+// lane sums (LaneSums), both added to the row after the lane
 extern "C" void host_bounce_bwd(const float* gtab, int G, const float* mtab, int M,
                                 const float* ltab, const float* scal, unsigned seed, int nee,
                                 int n, const float* origin, const float* direction,
@@ -353,18 +329,21 @@ extern "C" void host_bounce_bwd(const float* gtab, int G, const float* mtab, int
                                 const int* order) {
   const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f, MeshTables{}, surf};
   const RowLayout R = row_layout(G, M);
-  auto lane = vol ? (surf ? bounce_bwd_lane<true, true> : bounce_bwd_lane<true, false>)
-                  : (surf ? bounce_bwd_lane<false, true, true>
-                          : bounce_bwd_lane<false, false, true>);
+  auto lane = vol ? (surf ? bounce_bwd_lane<true, true, false, RowSums>
+                          : bounce_bwd_lane<true, false, false, RowSums>)
+                  : (surf ? bounce_bwd_lane<false, true, true, RowSums>
+                          : bounce_bwd_lane<false, false, true, RowSums>);
   for (int k = 0; k < R.k; ++k) row[k] = 0.0f;
   for (int t = 0; t < n; ++t) {
     const int i = order != nullptr ? order[t] : t;
-    AD sums[LANE_SUMS] = {};
+    AD sums[LANE_SUMS] = {}, rows[ROW_SUMS] = {};
     LaneSums ls{sums, 1, -1};
+    RowSums rs{row, rows, 1, ROW_NONE, ROW_NONE};
     lane(T, R, seed, nee, (size_t)i, origin, direction, thr, sample, depth, prev, replay_gid,
-         replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult, d_origin, d_direction, d_thr, row,
+         replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult, d_origin, d_direction, d_thr, rs,
          &ls, vol_nee, medium, g_medium, d_medium);
     lane_sums_add(row, R, ls);
+    row_sums_add(rs);
   }
 }
 

@@ -126,8 +126,8 @@ def host_lib(tmp_path_factory):
     lib.host_bounce_bwd.argtypes = ([P, I, P, I, P, P, ctypes.c_uint, I, I] + [P] * 16 + [I] * 3
                                     + [P] * 3 + [P])
     lib.host_bounce_bwd_keys.argtypes = [P, P, I] + [P] * 8 + [I, I, P]
-    lib.host_bounce_span.argtypes = ([P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 17 + [I] * 5
-                                     + [P] * 3 + [P, I, P, P])
+    lib.host_bounce_alive.argtypes = ([P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 17
+                                      + [I] * 5 + [P] * 3 + [P])
     return lib
 
 
@@ -472,22 +472,21 @@ def test_bounce_replay_and_backward_lanes_match_plain(host_lib, scene_name, nee)
         assert not bool(k[dead[:, 0]].any())
 
 
-# kernel 2's span schedule: lanes, share of them alive
-SPAN_CASES = {"all alive": (2048, 1.0), "none alive": (2048, 0.0), "30% alive": (2048, 0.3),
-              "70% alive": (2048, 0.7), "n not a multiple of 32": (2013, 0.5)}
+# kernel 2 with an alive plane: lanes, share of them alive
+ALIVE_CASES = {"all alive": (2048, 1.0), "none alive": (2048, 0.0), "30% alive": (2048, 0.3),
+               "70% alive": (2048, 0.7), "n not a multiple of 32": (2013, 0.5)}
 
 
-@pytest.mark.parametrize("span", [1, 3, 8])
-@pytest.mark.parametrize("case", sorted(SPAN_CASES))
-def test_bounce_span_schedule_matches_index_order(host_lib, case, span):
-    """Kernel 2 with an alive plane, under a host emulation of its span
-    schedule (``bounce.cu:span_lanes``, ``host_bounce_span``): every live
-    lane's 21 outputs (replay planes too) equal ``bounce_lane``'s run in
-    index order bit for bit, every dead lane holds the values
-    ``bounce_fused_plain(alive=...)`` writes, bit for bit, and the live lanes
-    of each span run in full batches of 32 with at most one partial batch
-    per span."""
-    n, share = SPAN_CASES[case]
+@pytest.mark.parametrize("case", sorted(ALIVE_CASES))
+def test_bounce_alive_plane_matches_index_order(host_lib, case):
+    """Kernel 2 with an alive plane (``host_bounce_alive``, the kernel's
+    per-lane exit): every live lane's 21 outputs (replay planes too) equal
+    ``bounce_lane``'s in index order bit for bit, and every dead lane holds
+    the values ``bounce_fused_plain(alive=...)`` writes, bit for bit: no
+    contribution, the ray passed through, a zero throughput multiplier,
+    terminate set, the emit state and the medium passed through, the
+    russian-roulette uniform, replay gid -1 and NEE bit 0."""
+    n, share = ALIVE_CASES[case]
     seed = 77
     tables, t, medium = _bounce_args("cornell", n, 41)
     alive = torch.from_numpy(np.random.default_rng(3).random(n) < share)
@@ -495,15 +494,13 @@ def test_bounce_span_schedule_matches_index_order(host_lib, case, span):
     outs = [torch.empty((n, 3)) for _ in range(4)] + [
         torch.empty(n, dtype=torch.uint8), torch.empty(n), torch.empty(n), torch.empty((n, 4))]
     rgid, rnee = torch.empty(n), torch.empty(n)
-    batches, partial = ctypes.c_int(), ctypes.c_int()
-    host_lib.host_bounce_span(
+    host_lib.host_bounce_alive(
         tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(), tables[2].data_ptr(),
         tables[3].data_ptr(), seed, 1, n,
         *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
                                     "prev")),
         medium.data_ptr(), *(o.data_ptr() for o in outs), rgid.data_ptr(), rnee.data_ptr(),
-        *VACUUM, 4, *NO_SURF, alive.data_ptr(), span, ctypes.byref(batches),
-        ctypes.byref(partial),
+        *VACUUM, 4, *NO_SURF, alive.data_ptr(),
     )
     for got, want in zip(outs + [rgid, rnee], ref + [ref_gid, ref_nee]):
         assert torch.equal(got[alive], want[alive])
@@ -511,6 +508,7 @@ def test_bounce_span_schedule_matches_index_order(host_lib, case, span):
             t["depth"], t["prev"], medium, seed)
     plain, p_gid, p_nee = bounce_fused.bounce_fused_plain(*args, nee=True, emit_replay=True,
                                                           alive=alive)
+    whole, w_gid, w_nee = bounce_fused.bounce_fused_plain(*args, nee=True, emit_replay=True)
     dead = ~alive
     want = (plain.contrib, plain.next_origin, plain.next_direction, plain.throughput_mult,
             plain.terminate.to(torch.uint8), plain.was_specular, plain.rr_uniform,
@@ -518,12 +516,12 @@ def test_bounce_span_schedule_matches_index_order(host_lib, case, span):
     for got, w in zip(outs + [rgid, rnee], want):
         assert torch.equal(got[dead], w[dead])
     assert bool(plain.terminate[dead].all()) and not bool(plain.contrib[dead].any())
-    live = alive.reshape(-1)
-    spans = [int(live[lo:lo + 32 * span].sum()) for lo in range(0, n, 32 * span)]
-    assert batches.value == sum(-(-c // 32) for c in spans)
-    assert partial.value == sum(1 for c in spans if c % 32)
-    print(f"{case}, span {span}: {int(alive.sum())} live lanes in {batches.value} batches "
-          f"({partial.value} partial) against {-(-n // 32)} warps of index order")
+    assert torch.equal(plain.next_origin[dead], t["origin"][dead])
+    assert bool((p_gid[dead] == -1).all()) and not bool(p_nee[dead].any())
+    # the plain version's live lanes are its mask-free lanes
+    for a, b in zip((plain.contrib, plain.next_direction, p_gid), (whole.contrib,
+                                                                    whole.next_direction, w_gid)):
+        assert torch.equal(a[alive], b[alive])
 
 
 def _bwd_case(name, n):

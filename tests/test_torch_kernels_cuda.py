@@ -447,8 +447,8 @@ def test_bounce_replay_and_backward_kernels_match_plain(name, nee):
 
 @pytest.mark.parametrize("name", ["cornell", "glossy", "ggx_ward", "milky"])
 def test_backward_lane_order_leaves_each_lane(name):
-    """Kernel 3 (3s on ggx_ward, 3v on milky) with its lanes grouped by key
-    (the default) and in index order (``ordered=False``) on 50,000 random
+    """Kernel 3 (3s on ggx_ward, 3v on milky) as it runs (3s with its lanes
+    grouped by key) and in index order (``ordered=False``) on 50,000 random
     lanes, a third of them with zero cotangents: every lane's d_origin,
     d_direction, d_throughput (and d_medium) bit for bit the same, both
     rows within their bar of the float64 reference."""
@@ -1411,8 +1411,7 @@ def test_bounce_surface_kernel_matches_plain(name, nee):
         assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
 
 
-# ---- kernel 2 with an alive plane: its span schedule (and variant (d), the
-# two-pass lane order) on every instance built from it
+# ---- kernel 2 with an alive plane, on every instance built from it
 
 
 def _alive_case(name, n):
@@ -1458,8 +1457,7 @@ def _planes(out):
 def test_bounce_kernel_with_alive_plane(name, share):
     """Kernel 2 and its instances (vacuum, replay, media, hg, surface
     (2s; 2r-s on ggx_ward's replay is held in chip_smoke.py), texel, mesh)
-    with an alive plane at 0%, 50% and 100% of 60,013 lanes, under the span
-    schedule (the launcher's span, 1 and 8) and variant (d): every live
+    with an alive plane at 0%, 50% and 100% of 60,013 lanes: every live
     lane's planes equal the mask-free launch's bit for bit, every dead lane's
     equal ``bounce_fused_plain(alive=...)``'s bit for bit; the instances held
     bit-equal to plain elsewhere (media, surface, texel) are so here on
@@ -1474,14 +1472,13 @@ def test_bounce_kernel_with_alive_plane(name, share):
     whole = _planes(bounce_fused.bounce_fused_cuda(*args, **kw))
     plain = _planes(bounce_fused.bounce_fused_plain(*args, alive=alive, **kw))
     exact = name not in ("2", "2r", "2m")
-    for sched in (dict(), dict(span=1), dict(span=8), dict(lane_order=True)):
-        got = _planes(bounce_fused.bounce_fused_cuda(*args, alive=alive, **kw, **sched))
-        torch.cuda.synchronize()
-        for i, (g, w, p) in enumerate(zip(got, whole, plain)):
-            assert torch.equal(g[alive], w[alive]), (sched, i)
-            assert torch.equal(g[~alive], p[~alive]), (sched, i)
-            if exact:
-                assert torch.equal(g, p), (sched, i)
+    got = _planes(bounce_fused.bounce_fused_cuda(*args, alive=alive, **kw))
+    torch.cuda.synchronize()
+    for i, (g, w, p) in enumerate(zip(got, whole, plain)):
+        assert torch.equal(g[alive], w[alive]), i
+        assert torch.equal(g[~alive], p[~alive]), i
+        if exact:
+            assert torch.equal(g, p), i
 
 
 @pytest.mark.parametrize("name", ["ward", "textured", "textured_image"])
