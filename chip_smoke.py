@@ -76,7 +76,9 @@ Phases (any failure exits non-zero):
    float64 reference: d_origin / d_direction / d_throughput within rtol =
    atol = 1e-5 on at least 99.9% of lanes (the float32 plain version's
    share printed beside it), each table cotangent within 1e-4 of its
-   table's largest magnitude; then the worst contention for kernel 3's
+   table's largest magnitude, and on the engine's cotangents after three
+   bounces (zero on the lanes that died); then the worst contention for
+   kernel 3's
    table row: all 640,000 lanes aimed within 1e-3 of the point the centre
    pixel hits, every one on that geom, held to the float64 reference at
    ``hold_adjoint``'s bars.  Times by CUDA events: each new kernel at
@@ -249,7 +251,8 @@ Phases (any failure exits non-zero):
     the icosphere (kernel 1m-vol forward), each with its parted pixels of
     iteration 0 (no replay outside the fused scope); the new instances'
     registers,
-    and Cornell's kernels 3, 4 and 5 take exactly 158, 72 and 168;
+    and Cornell's kernels 3, 4 and 5 take exactly 152, 72 and 168 (3 with
+    no spill);
 14. ``[grad:surf]``, differentiable surface physics, each step through
     ``render.diff.loss_and_grad_rays`` with the counters zeroed just
     before: (a) ``scenes/ward.txt`` at ``bench.py``'s 512x512 and
@@ -273,11 +276,13 @@ Phases (any failure exits non-zero):
     references (99.99% of lanes at 1e-5, the tables at their bars; the
     lanes beyond printed with their paths) on ward's 262,144 and
     textured's 640,000 iteration-0 lanes, 2r-s and 3s also on the state
-    after two bounces, and 5s's lane order on ward's lanes as 5v's; (c)
-    each kernel's device time on ward's inputs (5s and 3s: body and row
-    sum apart, twice), its plain version's and its bound (the Ward lobe
-    counted on the lanes that sample it; 5s's as 5's); the new instances'
-    registers, and Cornell's 3 / 4 / 5 at 158 / 72 / 168;
+    after two bounces (3s in key order bit-equal to index order on every
+    lane), and 5s's lane order on ward's lanes as 5v's; (c) each kernel's
+    device time on ward's inputs (5s and 3s: body and row sum apart, twice;
+    3s's lane order added to its time), its plain version's and its bound
+    (the Ward lobe counted on the lanes that sample it; 5s's as 5's); the
+    new instances' registers, Cornell's 3 / 4 / 5 at 152 / 72 / 168 and 3s
+    at 168 with 20 B of spill;
 15. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
 The rendered PNGs and the profile table go to ``--out-dir`` (default
@@ -343,6 +348,11 @@ SMALL_GRID = 7
 # Cornell's kernel 1: its registers and spill store bytes, pinned (28 B of
 # spill since the persistent schedule, none before; PERF.md, section 7)
 TRACE_CORNELL_REGS = (72, 28)
+# kernels 3 (Cornell) and 3s: registers and spill store bytes, pinned.  The
+# per-lane sums of the winner's rows (RowSums) took 3 from 158 to 152
+# registers and 3s from none to 20 B of spill at its 168 (PERF.md, section 6)
+BWD3_REGS = (152, 0)
+BWD3S_REGS = (168, 20)
 
 
 def fail(msg: str) -> None:
@@ -1049,29 +1059,18 @@ def grad_engines_phase(desc, dev, card: str, out_dir: str, full_loss, full_grads
             check(min(a for _, a, _ in shares) >= 0.999,
                   f"kernel 3 beyond 1e-5 of the float64 reference on > 0.1% of lanes ({label})")
 
-        # ---- the engine's launches on the state after three bounces: kernel
-        # 2's replay variant with the alive plane, and kernel 3's lanes in
-        # key order against index order, with the engine's cotangents (zero
-        # on the lanes that died)
+        # ---- kernel 3 on the engine's cotangents after three bounces: zero
+        # on the lanes that died (they write zeros and add nothing), so that
+        # warps of live and dead lanes sum their winner rows as in the step
         ms_ = states["after 3 bounces"]
         args = (tables, ms_["origin"], ms_["direction"], ms_["throughput"], ms_["sample"],
                 ms_["depth"], ms_["prev"])
-        hold_alive_plane("grad", "kernel 2 replay, after 3 bounces", (*args, medium, seed),
-                         dict(nee=True, emit_replay=True), alive)
-        _, agid, anee = bounce_fused.bounce_fused_cuda(*args, medium, seed, nee=True,
-                                                       emit_replay=True, alive=alive)
         ecots = [torch.where(alive[:, None], c, 0.0) for c in cots]
-        eargs = (*args, agid, anee, *ecots, seed)
-        ordered = bounce_grad.bounce_bwd_cuda(*eargs, nee=True)
-        index = bounce_grad.bounce_bwd_cuda(*eargs, nee=True, ordered=False)
-        eref = bounce_grad.bounce_bwd_plain(*eargs, nee=True, dtype=torch.float64)
-        torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in zip(ordered[4:], index[4:]))
-        print(f"[grad:check] after 3 bounces, the engine's cotangents: kernel 3 in key order "
-              f"bit-equal to index order on every lane: {same}")
-        check(same, "kernel 3's lane order changes a lane's outputs")
+        eargs = (*args, rgid, rnee, *ecots, seed)
         b_err = max(b_err, hold_adjoint(
-            "kernel 3 in key order, after 3 bounces", ordered, eref,
+            "kernel 3, the engine's cotangents after 3 bounces",
+            bounce_grad.bounce_bwd_cuda(*eargs, nee=True),
+            bounce_grad.bounce_bwd_plain(*eargs, nee=True, dtype=torch.float64),
             ("d_origin", "d_direction", "d_throughput"), lambda j: f"alive {bool(alive[j])}",
             min_share=0.999))
 
@@ -1212,45 +1211,19 @@ def capturing_render(scene, spp: int, cfg, dev, captured: dict):
     shade = wavefront.shade_bounce
 
     def recording(scn, rays, thr, sample, depth, prev, seed_, cfg_, medium_sigma=None,
-                  tables=None, alive=None):
+                  tables=None):
         if wavefront.super_steps == CAPTURE_STEP:
             captured.update(origin=rays.origin.clone(), direction=rays.direction.clone(),
                             throughput=thr.clone(), sample=sample.clone(), depth=depth.clone(),
-                            prev=prev.clone(), medium=medium_sigma.clone(), alive=alive.clone())
+                            prev=prev.clone(), medium=medium_sigma.clone())
         return shade(scn, rays, thr, sample, depth, prev, seed_, cfg_,
-                     medium_sigma=medium_sigma, tables=tables, alive=alive)
+                     medium_sigma=medium_sigma, tables=tables)
 
     wavefront.shade_bounce = recording
     try:
         return counted_render(scene, spp, cfg, dev)
     finally:
         wavefront.shade_bounce = shade
-
-
-def hold_alive_plane(tag: str, label: str, args, kw: dict, alive) -> None:
-    """Kernel 2 (or an instance, by ``kw``) with the engine's ``alive``
-    plane: every live lane's planes bit-equal to the mask-free launch's,
-    every dead lane's to ``bounce_fused_plain(alive=...)``'s; fails
-    otherwise."""
-    import torch
-
-    from pathtracer_tpu_torch.ops import bounce_fused
-
-    def planes(out):
-        res, *extra = out if isinstance(out, tuple) else (out,)
-        return [getattr(res, f.name) for f in dataclasses.fields(res)] + extra
-
-    whole = planes(bounce_fused.bounce_fused_cuda(*args, **kw))
-    plain = planes(bounce_fused.bounce_fused_plain(*args, alive=alive, **kw))
-    dead = ~alive
-    got = planes(bounce_fused.bounce_fused_cuda(*args, alive=alive, **kw))
-    torch.cuda.synchronize()
-    ok = all(torch.equal(g[alive], w[alive]) and torch.equal(g[dead], p[dead])
-             for g, w, p in zip(got, whole, plain))
-    print(f"[{tag}:check] {label}, {int(alive.sum())} of {alive.numel()} lanes alive: with the "
-          f"alive plane, live lanes bit-equal to the mask-free launch and dead lanes to plain: "
-          f"{ok}")
-    check(ok, f"kernel 2 with the alive plane differs ({label})")
 
 
 def check_close(tag: str, acc, ref, min_share: float, sum_tol: float, what: str) -> None:
@@ -1387,23 +1360,15 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
         check(ids_equal and float(frame.float().mean()) >= 0.999,
               f"kernel 6 differs from its plain version ({label})")
         check(occ_share >= 0.999, f"kernel 8 differs from its plain version ({label})")
-    hold_alive_plane("wavefront", f"kernel 2, super-step {CAPTURE_STEP}",
-                     (tables, mid["origin"], mid["direction"], mid["throughput"], mid["sample"],
-                      mid["depth"], mid["prev"], mid["medium"], seed), dict(nee=True),
-                     mid["alive"])
 
     # ---- (e) times at 640,000 lanes, on the captured super-step's state
     margs = (tables, mid["origin"], mid["direction"], mid["throughput"], mid["sample"],
              mid["depth"], mid["prev"], mid["medium"], seed)
     mrays = Rays(mid["origin"], mid["direction"])
-    malive = mid["alive"]  # the engine's launch: with its alive plane
-    k2_ms = cuda_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, nee=True, alive=malive),
-                    reps=50)
-    k2_dev = [queued_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, nee=True, alive=malive))
+    k2_ms = cuda_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, nee=True), reps=50)
+    k2_dev = [queued_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, nee=True))
               for _ in range(2)]
-    k2_whole = queued_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, nee=True))
-    k2p_ms = cuda_ms(lambda: bounce_fused.bounce_fused_plain(*margs, nee=True, alive=malive),
-                     reps=2)
+    k2p_ms = cuda_ms(lambda: bounce_fused.bounce_fused_plain(*margs, nee=True), reps=2)
     k6_ms = cuda_ms(lambda: intersect_cuda.nearest_hit_cuda(mrays, tables[0]), reps=50)
     k6p_ms = cuda_ms(lambda: nearest_hit_plain(mrays, tables[0]), reps=3)
     k8_ms = cuda_ms(lambda: intersect_cuda.occlusion_t_cuda(mrays, tables[0]), reps=50)
@@ -1452,9 +1417,8 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
         f"{launch_c['nearest_hit']} each; on {card}"
     )
     print(
-        f"[wavefront:time] at {n} lanes, {int(malive.sum())} alive: kernel 2 {k2_ms:.4f} ms "
-        f"({k2_dev[0]:.4f} / {k2_dev[1]:.4f} ms of device time, queued, twice; mask-free "
-        f"{k2_whole:.4f}; plain {k2p_ms:.3f} ms, bound "
+        f"[wavefront:time] at {n} lanes: kernel 2 {k2_ms:.4f} ms ({k2_dev[0]:.4f} / "
+        f"{k2_dev[1]:.4f} ms of device time, queued, twice; plain {k2p_ms:.3f} ms, bound "
         f"{k2_bound[0]:.4f} ms by {k2_bound[1]}); kernel 6 {k6_ms:.4f} ms (plain {k6p_ms:.3f} ms, "
         f"bound {k6_bound[0]:.4f} ms by {k6_bound[1]}); kernel 8 {k8_ms:.4f} ms (plain "
         f"{k8p_ms:.3f} ms, bound {k8_bound[0]:.4f} ms by {k8_bound[1]}); on {card}"
@@ -1474,7 +1438,7 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
     return [
         {"name": "bounce", **common, "source": "pathtracer_tpu_torch/csrc/bounce.cu",
          "replaces": "pathtracer_tpu/ops/bounce_pallas.py:1477", "launches": launch_a["bounce"],
-         "max_abs_err": b_err, "ms": k2_dev[0], "plain_ms": k2p_ms, "bound_ms": k2_bound[0],
+         "max_abs_err": b_err, "ms": k2_ms, "plain_ms": k2p_ms, "bound_ms": k2_bound[0],
          "bound_by": k2_bound[1]},
         {"name": "nearest_hit", **common, "source": "pathtracer_tpu_torch/csrc/intersect.cu",
          "replaces": "pathtracer_tpu/ops/intersect_pallas.py:83",
@@ -2285,14 +2249,14 @@ def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -
     shade = megakernel.shade_bounce
 
     def recording(scn, rays, thr, sample, depth, prev, seed_, cfg_, medium_sigma=None,
-                  tables=None, alive=None):
+                  tables=None):
         if depth == SCAN_CAPTURE_DEPTH and not captured:
             captured.update(origin=rays.origin.clone(), direction=rays.direction.clone(),
                             throughput=thr.clone(), sample=sample.clone(),
                             depth=torch.full(sample.shape, depth, dtype=torch.int32, device=dev),
-                            prev=prev.clone(), medium=medium_sigma.clone(), alive=alive.clone())
+                            prev=prev.clone(), medium=medium_sigma.clone())
         return shade(scn, rays, thr, sample, depth, prev, seed_, cfg_,
-                     medium_sigma=medium_sigma, tables=tables, alive=alive)
+                     medium_sigma=medium_sigma, tables=tables)
 
     megakernel.shade_bounce = recording
     try:
@@ -2615,14 +2579,14 @@ def bigmesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     shade = megakernel.shade_bounce
 
     def recording(scn, rays, thr, sample, depth, prev, seed_, cfg_, medium_sigma=None,
-                  tables=None, alive=None):
+                  tables=None):
         if depth == SCAN_CAPTURE_DEPTH and not captured:
             captured.update(origin=rays.origin.clone(), direction=rays.direction.clone(),
                             throughput=thr.clone(), sample=sample.clone(),
                             depth=torch.full(sample.shape, depth, dtype=torch.int32, device=dev),
-                            prev=prev.clone(), medium=medium_sigma.clone(), alive=alive.clone())
+                            prev=prev.clone(), medium=medium_sigma.clone())
         return shade(scn, rays, thr, sample, depth, prev, seed_, cfg_,
-                     medium_sigma=medium_sigma, tables=tables, alive=alive)
+                     medium_sigma=medium_sigma, tables=tables)
 
     megakernel.shade_bounce = recording
     try:
@@ -3453,11 +3417,12 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     # from 156 and 140 to 148 and 136 when their light and winner adjoints
     # were factored out for the media instances to share, and 3 to 158 with
     # its table row in device memory and the skip of zero-cotangent lanes,
-    # 5 to 168 with its row in device memory and the lane sums of NEE's
-    # light columns (each still three blocks per SM; PERF.md)
-    for key, want in (("4", 72), ("5", 168), ("3", 158)):
-        check(regs[key] is None or regs[key][0] == want,
-              f"Cornell's kernel {key} uses {regs[key]} registers, not {want}")
+    # then to 152 with its row sums; 5 to 168 with its row in device memory
+    # and the lane sums of NEE's light columns (each still three blocks per
+    # SM; PERF.md)
+    for key, want in (("4", (72,)), ("5", (168,)), ("3", BWD3_REGS)):
+        check(regs[key] is None or regs[key][:len(want)] == want,
+              f"Cornell's kernel {key} uses {regs[key]} registers and spill bytes, not {want}")
     print(f"[card] {card}")
     for key in ("4v", "5v", "2r-v", "3v"):
         per_lane = f", {lane_bounces / n:.4f} bounces per lane of {depth}" if key == "4v" else ""
@@ -3767,6 +3732,15 @@ def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
                     f"3s {sname} {label}", got3, ref3,
                     ("d_origin", "d_direction", "d_throughput"), path))
                 del ref3
+                # 3s orders its lanes by branch: in index order every lane's
+                # outputs are the same
+                index3 = bounce_grad.bounce_bwd_cuda(*b2, ordered=False, **bkw)
+                torch.cuda.synchronize()
+                same3 = all(torch.equal(a, b) for a, b in zip(got3[4:], index3[4:]))
+                print(f"[grad:check] 3s {sname} {label}: lanes in key order bit-equal to index "
+                      f"order: {same3}")
+                check(same3, f"3s's lane order changes a lane's outputs ({sname} {label})")
+                del index3
                 if sname == "ward" and label != "primary":
                     mids = tables[0][rgid.long().clamp(min=0), 13].long()
                     on_ward2 = int(((rgid >= 0) & ward_mat[mids]).sum())
@@ -3796,6 +3770,12 @@ def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
                                 lambda: bounce_grad.bounce_bwd_cuda(*b2, **bkw),
                                 "bounce_bwd_kernel", n_ward, card),
         }
+        # 3s's lane order (two short kernels before it) counts in its time
+        order3 = device_ms(lambda: bounce_grad.bounce_bwd_cuda(*b2, **bkw), ["lane_order"],
+                           per_call=2)["lane_order"][0] * 2
+        print(f"[grad:surf:time] kernel 3s's lane order {order3:.4f} ms of device time per "
+              f"call; on {card}")
+        dev_ms["3s"] += order3
         plain_ms = {
             "4s": cuda_ms(lambda: trace_grad.tfwd_plain(*args, **kw), reps=1),
             "5s": cuda_ms(lambda: trace_grad.tbwd_plain(*bargs, **kw), reps=1),
@@ -3852,9 +3832,9 @@ def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
         "3": instance_regs(instances, "bounce_grad", "bounce_bwd_kernel", False, False),
     }
     print(f"[grad:surf:regs] registers, spill store / load bytes per instance: {regs}")
-    for key, want in (("4", 72), ("5", 168), ("3", 158)):
-        check(regs[key] is None or regs[key][0] == want,
-              f"Cornell's kernel {key} uses {regs[key]} registers, not {want}")
+    for key, want in (("4", (72,)), ("5", (168,)), ("3", BWD3_REGS), ("3s", BWD3S_REGS)):
+        check(regs[key] is None or regs[key][:len(want)] == want,
+              f"kernel {key} uses {regs[key]} registers and spill bytes, not {want}")
     print(f"[card] {card}")
     for key in ("4s", "5s", "2r-s", "3s"):
         per_lane = f", {lane_bounces / n:.4f} bounces per lane of {depth}" if key == "4s" else ""

@@ -74,10 +74,20 @@
 // sweep over the geoms and one shading, as one bounce of trace.cu) take
 // about a third of that at the fp32 peak.  Measured by chip_smoke.py on an
 // H100 80GB HBM3 at 700 W, a launch on the state of a mid-render super-step
-// takes about 9x that bound: the lanes of a warp sit at different depths
+// takes about 4x that bound: the lanes of a warp sit at different depths
 // and materials, and the transcendental functions and the shadow sweeps
-// are not counted.  The kernel is simple on purpose (one bounce, no sorting
-// by material, no compaction of live lanes); making it fast is later work.
+// are not counted.  Its time does not follow the share of lanes that hold
+// a live path: 0.095-0.101 ms per launch of the replay variant at every
+// bounce of the per-bounce scan of Cornell's 640,000 primary rays, from
+// all of them alive to 34% (PERF.md, section 6).  A lane whose path ended
+// re-runs the miss or the light hit that ended it, in step with its warp's
+// live lanes and without shading, so it costs its warp nothing.  Three
+// schedules that leave such lanes out were measured slower and are not
+// kept: an alive plane whose dead lanes exit early (their branch diverges
+// from the live lanes'), live lanes gathered into full warps across a span
+// of 32 to 256 lanes (the gathered lanes load scattered planes, and a warp
+// runs its batches one after another), and live lanes ordered first by two
+// short kernels.
 
 #include "bounce_lane.cuh"
 
@@ -94,8 +104,7 @@ constexpr int THREADS = 128;
 // constant n = 0, and the sweep drops out of the code (and of the register
 // budget) as in the kernels that never take meshes.  kVol / kHg compile the
 // participating-media blocks in, kSurf the surface blocks, as in trace.cu;
-// kTex writes the deferred texel's planes.  alive null: every lane runs its
-// bounce; else a lane whose flag is 0 writes dead_lane's outputs instead.
+// kTex writes the deferred texel's planes.
 template <bool kMesh, bool kVol, bool kHg, bool kSurf, bool kTex>
 __global__ void __launch_bounds__(THREADS)
 bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mtab, int M,
@@ -110,7 +119,7 @@ bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ m
               float* __restrict__ rru, float* __restrict__ out_medium,
               float* __restrict__ replay_gid, float* __restrict__ replay_nee, int vol_nee,
               int mw, int surf, float* __restrict__ tex_u, float* __restrict__ tex_v,
-              float* __restrict__ tex_slot, MeshTables mesh, const uint8_t* __restrict__ alive) {
+              float* __restrict__ tex_slot, MeshTables mesh) {
   extern __shared__ float smem[];
   float* s_g = smem;
   float* s_m = s_g + G * GCOLS;
@@ -122,12 +131,6 @@ bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ m
 
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n) return;
-  if (alive != nullptr && alive[idx] == 0) {
-    dead_lane(seed, mw, (size_t)idx, origin, direction, sample, depth, prev, medium, contrib,
-              next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
-              replay_nee, kTex ? tex_u : nullptr, tex_v, tex_slot);
-    return;
-  }
   const Tables T{s_g, s_m, s_l, G, scal[0], scal[1] > 0.5f,
                  kMesh ? mesh : MeshTables{nullptr, nullptr, nullptr, nullptr, nullptr, 0},
                  kSurf ? surf : 0};
@@ -148,8 +151,7 @@ decltype(&bounce_kernel<false, false, false, false, false>) media_instance(int v
 }  // namespace
 
 // tex_u / tex_v / tex_slot not null: the deferred-texel variant (with surf;
-// the wrapper checks it), with n_mesh > 0 kernel 2mt.  alive: one byte per
-// lane, 1 where the lane holds a live path, or null for every lane.
+// the wrapper checks it), with n_mesh > 0 kernel 2mt
 extern "C" int bounce_launch(const float* gtab, int G, const float* mtab, int M,
                              const float* ltab, const float* scal, unsigned int seed, int nee,
                              int n, const float* origin, const float* direction,
@@ -161,9 +163,9 @@ extern "C" int bounce_launch(const float* gtab, int G, const float* mtab, int M,
                              int hg, int vol_nee, int mw, int surf, float* tex_u, float* tex_v,
                              float* tex_slot, const float* mtri, const float* maabb,
                              const float* mnorm, const float* muv, const int* mdesc, int n_mesh,
-                             const unsigned char* alive, void* stream) {
+                             void* stream) {
   if (n <= 0) return 0;
-  const cudaStream_t s = (cudaStream_t)stream;
+  const int blocks = (n + THREADS - 1) / THREADS;
   const size_t smem = sizeof(float) * (size_t)(G * GCOLS + M * MCOLS + G * LCOLS);
   const MeshTables mesh{mtri, maabb, mnorm, muv, mdesc, n_mesh};
   // the instance: mesh sweep or not x media x surface blocks or not, and the
@@ -179,11 +181,10 @@ extern "C" int bounce_launch(const float* gtab, int G, const float* mtab, int M,
   else
     kernel = surf ? media_instance<false, true, false>(vol, hg)
                   : media_instance<false, false, false>(vol, hg);
-  const int blocks = (n + THREADS - 1) / THREADS;
-  kernel<<<blocks, THREADS, smem, s>>>(
+  kernel<<<blocks, THREADS, smem, (cudaStream_t)stream>>>(
       gtab, G, mtab, M, ltab, scal, seed, nee, n, origin, direction, thr, sample, depth, prev,
       medium, contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
-      replay_nee, vol_nee, mw, surf, tex_u, tex_v, tex_slot, mesh, alive);
+      replay_nee, vol_nee, mw, surf, tex_u, tex_v, tex_slot, mesh);
   return (int)cudaGetLastError();
 }
 

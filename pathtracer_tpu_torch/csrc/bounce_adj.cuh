@@ -20,8 +20,9 @@
 // a flat row (geom, material, light tables and the two scalars, RowLayout)
 // through acc_add: a float atomic into the block's row of `partial`, in
 // device memory, on the card (kernels 3 and 5), a plain add in the host
-// build; kernels 5 and 3 first sum NEE's light and scalar columns per lane
-// (LaneSums).  row_sum then adds the blocks' rows in a fixed tree.
+// build; kernel 5 first sums NEE's light and scalar columns per lane
+// (LaneSums), kernel 3 its winner's geom and material columns (RowSums).
+// row_sum then adds the blocks' rows in a fixed tree.
 //
 // The surface blocks (the kSurf instances: texture, bump, microfacet and
 // ward, bounce_pallas.py:645-706,756-783,1054-1074,1121-1138) have their
@@ -82,18 +83,16 @@ PT_FN D3 dcross(D3 a, D3 b) {
 PT_FN AD dcomp(D3 a, int i) { return i == 0 ? a.x : (i == 1 ? a.y : a.z); }
 PT_FN void acc_d(float* acc, int i, AD v) { acc_add(acc, i, (float)v); }
 
-// The reverse kernels' own sums of the columns that a lane's NEE
-// connections add to at every bounce: the sampled light's 12 position
-// columns, its emission (3) and the 9 normal columns of its geom row, for
-// the first light the lane samples, and the total-area scalar.  Where a
-// scene has one light every lane adds to these same 25 columns.  The lane
-// sums them in double across its bounces (slot k at s[k * stride]) and they
-// reach the row once at its end (lane_sums_add, or on the card a warp's sum:
-// warp_sums_add); a connection to another light adds to the row at once.
-// Kernel 5 sums across a path's bounces, kernel 3 over its one bounce, and
-// both gain from the warp's one atomic per column.  With kSums false (the
-// instances where the sums measured slower: trace_grad.cu's LANE_SUMS_ON,
-// bounce_grad.cu's BWD_SUMS_ON) every column goes to the row.
+// Kernel 5's own sums of the columns that a lane's NEE connections add to
+// at every bounce: the sampled light's 12 position columns, its emission
+// (3) and the 9 normal columns of its geom row, for the first light the
+// lane samples, and the total-area scalar.  Where a scene has one light
+// every lane adds to these same 25 columns.  The lane sums them in double
+// across its bounces (slot k at s[k * stride]) and they reach the row once
+// at its end (lane_sums_add, or on the card a warp's sum: trace_grad.cu); a
+// connection to another light adds to the row at once.  With kSums false
+// (kernel 3, one bounce per lane, and the media and surface instances of
+// kernel 5, where the sums measured slower) every column goes to the row.
 constexpr int LS_POS = 0, LS_EMIT = 12, LS_NRM = 15, LS_AREA = 24, LANE_SUMS = 25;
 
 // The reverse kernels' lane orders (lane_order, at the end of this file): a
@@ -1260,31 +1259,10 @@ row_sum_segments(const float* __restrict__ in, int nrows, int k, int seg,
   }
 }
 
-// the lane sums' place in a reverse kernel's shared memory, in floats:
-// after the tables, at an 8-byte boundary
+// the place of a reverse kernel's per-lane sums in its shared memory, in
+// floats: after the tables, at an 8-byte boundary
 __host__ __device__ __forceinline__ size_t sums_offset(int G, int M) {
   return (table_floats(G, M) + 1) & ~(size_t)1;
-}
-
-// The lane sums of a whole warp into the row (every thread of the warp
-// calls it): where every lane's light slots hold one light, or none, each
-// slot is summed over the warp with shuffles in a fixed order and added
-// once; else each lane adds its own (lane_sums_add).  A warp none of whose
-// lanes made a connection (every slot zero) returns at once.
-__device__ __forceinline__ void warp_sums_add(float* acc, const RowLayout& R, const LaneSums& ls) {
-  constexpr unsigned FULL = 0xffffffffu;
-  if (__all_sync(FULL, ls.lid < 0)) return;
-  const int lid = __reduce_max_sync(FULL, ls.lid);
-  if (!__all_sync(FULL, ls.lid < 0 || ls.lid == lid)) {
-    lane_sums_add(acc, R, ls);
-    return;
-  }
-  for (int k = 0; k < LANE_SUMS; ++k) {
-    AD v = ls.s[k * ls.stride];
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
-    if ((threadIdx.x & 31) == 0 && v != 0.0 && (k == LS_AREA || lid >= 0))
-      acc_d(acc, lane_sum_col(R, k, lid), v);
-  }
 }
 
 // The row sums of a whole warp into the row (every thread of the warp calls

@@ -54,15 +54,28 @@
 // adjoint.  What bounds it on the H100: bytes, on paper (140 B per lane: 23
 // four-byte planes in, 9 out; 89.6 MB per 640,000-lane launch, 0.027 ms at
 // 3.35 TB/s), but its adjoint is several times a bounce's shading
-// arithmetic in double and divergent (a warp runs the union of its lanes'
-// branches), and it issues up to 59 float atomics per lane.  Those atomics
-// took most of the time in a shared-memory row (kernel 3 on Cornell ran 4x
-// faster with them skipped); into the block's row in device memory, where
-// L2 resolves them, the body takes 0.31 ms there instead of 0.51.
-// A resident-sized grid, warp-aggregated atomics, a per-atomic zero skip
-// and __launch_bounds__(128, 4) were measured and left out: each slower on
-// some instance, or spilling (PERF.md, section 6).  chip_smoke.py measures
-// the body and the row sum apart.
+// arithmetic in double, and a live lane issues up to 59 float atomics, most
+// of them to the same addresses as its warp's other lanes: every lane adds
+// to its winner's geom row (the transform's 12 columns) and material row,
+// and neighbouring pixels share a winner.  So in 3 and 3s each lane sums
+// those 40 columns in double in shared memory (bounce_adj.cuh's RowSums),
+// and after the lane its warp adds each column once, a shuffle sum in a
+// fixed order, where all its lanes share the winner (else each lane adds
+// its own): 3 on Cornell from 0.256 to 0.200 ms per launch in the
+// per-bounce step, at 152 registers (158 before).  3v keeps every atomic:
+// the sums took it to 180 registers, two blocks per SM, and slower.  3s
+// first orders its lanes by the branch their adjoint takes (bounce_bwd_key,
+// two short kernels of bounce_adj.cuh:lane_order, thread t on lane
+// order[t]): its Cook-Torrance and Ward lobes otherwise make a warp run the
+// union of its lanes' branches (in ward's step 0.047 + 0.015 ms of order
+// against 0.076).  On 3 and 3v the order measured slower: their warps
+// already hold neighbouring pixels on one surface, and ordered lanes load
+// scattered planes.  Per-lane sums of NEE's light columns (kernel 5's
+// LaneSums) measured slower on 3 and 3s beside the row sums, and within 3%
+// either way without them.  A resident-sized grid, warp-aggregated atomics
+// per call site, a per-atomic zero skip and __launch_bounds__(128, 4) were
+// measured before and left out (PERF.md, section 6).  chip_smoke.py
+// measures the body and the row sum apart.
 
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
@@ -89,12 +102,10 @@ PT_FN bool cotangents_zero(const float* __restrict__ g_contrib, const float* __r
 }
 
 // one lane of kernel 3 (kVol: 3v, kSurf: 3s); also compiled as host C++ by
-// tests/kernel_host_harness.cpp.  kSums: NEE's light and scalar columns go
-// to the lane sums ls (zeroed by the caller, who adds them to the row after
-// the lane), the others to acc: the block's row, or its RowSums (the slots
-// zeroed by the caller, who adds them after the lane; the lane sets their
-// winner rows).
-template <bool kVol = false, bool kSurf = false, bool kSums = false, typename Acc = float*>
+// tests/kernel_host_harness.cpp.  The table cotangents go to acc: the
+// block's row, or its RowSums (the slots zeroed by the caller, who adds them
+// to the row after the lane; the lane sets their winner rows).
+template <bool kVol = false, bool kSurf = false, typename Acc = float*>
 PT_FN void bounce_bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, int nee, size_t i,
                            const float* __restrict__ origin, const float* __restrict__ direction,
                            const float* __restrict__ thr, const uint32_t* __restrict__ sample,
@@ -105,7 +116,7 @@ PT_FN void bounce_bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, i
                            const float* __restrict__ g_next_d,
                            const float* __restrict__ g_thr_mult, float* __restrict__ d_origin,
                            float* __restrict__ d_direction, float* __restrict__ d_thr,
-                           Acc& acc, LaneSums* ls, int vol_nee = 1,
+                           Acc& acc, int vol_nee = 1,
                            const float* __restrict__ medium = nullptr,
                            const float* __restrict__ g_medium = nullptr,
                            float* __restrict__ d_medium = nullptr) {
@@ -149,8 +160,8 @@ PT_FN void bounce_bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, i
     dm[2] = (float)g_sa.z;
     dm[3] = (float)g_ss;
   } else {
-    physics_adj<kSurf, kSums>(T, R, r, base, dep, nee, o, d, t, prev[i], replay_nee[i] > 0.5f,
-                              gc, gno, gnd, gtm, g_o, g_d, g_t, acc, ls);
+    physics_adj<kSurf>(T, R, r, base, dep, nee, o, d, t, prev[i], replay_nee[i] > 0.5f, gc, gno,
+                       gnd, gtm, g_o, g_d, g_t, acc);
   }
   const D3* vec[3] = {&g_o, &g_d, &g_t};
   float* out[3] = {d_origin, d_direction, d_thr};
@@ -161,16 +172,16 @@ PT_FN void bounce_bwd_lane(const Tables& T, const RowLayout& R, uint32_t seed, i
   }
 }
 
-// ---- the lane order of kernel 3 -------------------------------------------
+// ---- the lane order of kernel 3s ------------------------------------------
 
 // A lane's key: the branch its adjoint takes, known before the launch from
 // the forward's replay planes, the tables and the cotangents.  A miss, a
 // light hit, a diffuse hit with its NEE connection, one without, a mirror or
-// glossy surface, glass; 3s adds a Cook-Torrance or Ward material, 3v a
-// scattering medium (5v's bit).  A lane whose cotangents are all zero takes
-// the largest key: those lanes run last, in whole warps that write zeros.
+// glossy surface, a Cook-Torrance or Ward one, glass.  A lane whose
+// cotangents are all zero takes the largest key: those lanes run last, in
+// whole warps that write zeros.
 constexpr int KEY_MISS = 0, KEY_LIGHT = 1, KEY_NEE = 2, KEY_DIFFUSE = 3, KEY_MIRROR = 4,
-              KEY_GLASS = 5, KEY_LOBE = 8, KEY_SCATTER = 16, KEY_ZERO = ORDER_KEYS - 1;
+              KEY_LOBE = 5, KEY_GLASS = 6, KEY_ZERO = ORDER_KEYS - 1;
 
 // what a lane's key reads
 struct BwdKeyIn {
@@ -182,29 +193,18 @@ struct BwdKeyIn {
   const float* g_next_o;
   const float* g_next_d;
   const float* g_thr_mult;
-  const float* medium;    // kVol
-  const float* g_medium;  // kVol
 };
 
-template <bool kVol, bool kSurf>
 PT_FN int bounce_bwd_key(const BwdKeyIn& k, size_t i) {
-  if (cotangents_zero<kVol>(k.g_contrib, k.g_next_o, k.g_next_d, k.g_thr_mult, k.g_medium, i))
+  if (cotangents_zero<false>(k.g_contrib, k.g_next_o, k.g_next_d, k.g_thr_mult, nullptr, i))
     return KEY_ZERO;
   const int gid = (int)k.replay_gid[i];
-  int key = KEY_MISS;
-  if (gid >= 0) {
-    const float* mat = k.mtab + (int)k.gtab[gid * GCOLS + 13] * MCOLS;
-    if (mat[9] > 0.0f)
-      key = KEY_LIGHT;
-    else if (mat[7] > 0.0f)
-      key = KEY_GLASS;
-    else if (mat[6] > 0.0f)
-      key = KEY_MIRROR + (kSurf && mat[24] > 0.5f ? KEY_LOBE : 0);
-    else
-      key = k.replay_nee[i] > 0.5f ? KEY_NEE : KEY_DIFFUSE;
-  }
-  if constexpr (kVol) key += k.medium[4 * i + 3] > 0.0f ? KEY_SCATTER : 0;
-  return key;
+  if (gid < 0) return KEY_MISS;
+  const float* mat = k.mtab + (int)k.gtab[gid * GCOLS + 13] * MCOLS;
+  if (mat[9] > 0.0f) return KEY_LIGHT;
+  if (mat[7] > 0.0f) return KEY_GLASS;
+  if (mat[6] > 0.0f) return mat[24] > 0.5f ? KEY_LOBE : KEY_MIRROR;
+  return k.replay_nee[i] > 0.5f ? KEY_NEE : KEY_DIFFUSE;
 }
 
 }  // namespace pt
@@ -217,23 +217,15 @@ using namespace pt;
 
 constexpr int THREADS = 128;
 
-// The instances that sum NEE's light and scalar columns per lane
-// (bounce_adj.cuh's LaneSums) and once per warp: 3 and 3s.  3v's adjoint
-// (physics_adj_vol) adds those columns to the row.
-template <bool kVol, bool kSurf>
-constexpr bool BWD_SUMS_ON = !kVol;
 // The instances that sum their winner's geom and material rows per lane and
-// once per warp (bounce_adj.cuh's RowSums)
+// once per warp (bounce_adj.cuh's RowSums): 3 and 3s.  3v's 167 registers
+// rose to 180 with them, two blocks per SM: slower.
 template <bool kVol, bool kSurf>
-constexpr bool BWD_ROWS_ON = true;
-
-// the doubles of a thread's lane sums and row sums in the instance
-template <bool kVol, bool kSurf>
-constexpr int SLOTS = (BWD_SUMS_ON<kVol, kSurf> ? LANE_SUMS : 0) +
-                      (BWD_ROWS_ON<kVol, kSurf> ? ROW_SUMS : 0);
-// The instances that order their lanes by key (bounce_bwd_key): 3s.  3 and
-// 3v run their lanes in index order: neighbouring pixels share a winner, so
-// a warp's loads stay coalesced and its row sums warp-uniform.
+constexpr bool BWD_ROWS_ON = !kVol;
+// The instance that orders its lanes by key (bounce_bwd_key): 3s, whose
+// lobes diverge.  3 and 3v run their lanes in index order: neighbouring
+// pixels share a winner, so a warp's loads stay coalesced and its row sums
+// warp-uniform.
 template <bool kVol, bool kSurf>
 constexpr bool ORDER_ON = kSurf && !kVol;
 
@@ -260,13 +252,12 @@ bounce_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict
   float* acc = partial + (size_t)blockIdx.x * R.k;
   load_tables(smem, gtab, G, mtab, M, ltab);
   for (int i = threadIdx.x; i < R.k; i += blockDim.x) acc[i] = 0.0f;
-  // each thread's lane sums and row sums, slot k at [k * THREADS + thread],
-  // after the tables
-  constexpr bool kSums = BWD_SUMS_ON<kVol, kSurf>, kRows = BWD_ROWS_ON<kVol, kSurf>;
-  AD* slots = reinterpret_cast<AD*>(smem + sums_offset(G, M)) + threadIdx.x;
-  for (int k = 0; k < SLOTS<kVol, kSurf>; ++k) slots[k * THREADS] = 0.0;
-  LaneSums ls{slots, THREADS, -1};
-  RowSums rs{acc, slots + (kSums ? LANE_SUMS * THREADS : 0), THREADS, ROW_NONE, ROW_NONE};
+  // each thread's row sums, slot k at [k * THREADS + thread], after the tables
+  constexpr bool kRows = BWD_ROWS_ON<kVol, kSurf>;
+  RowSums rs{acc, reinterpret_cast<AD*>(smem + sums_offset(G, M)) + threadIdx.x, THREADS,
+             ROW_NONE, ROW_NONE};
+  if constexpr (kRows)
+    for (int k = 0; k < ROW_SUMS; ++k) rs.s[k * THREADS] = 0.0;
   __syncthreads();
   const Tables T{smem, smem + G * GCOLS, smem + G * GCOLS + M * MCOLS, G, scal[0],
                  scal[1] > 0.5f, MeshTables{nullptr, nullptr, nullptr, nullptr, nullptr, 0},
@@ -277,32 +268,35 @@ bounce_bwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict
   const int idx = order != nullptr && t < n ? order[t] : t;
   if (idx < n) {  // lanes past n contribute nothing
     if constexpr (kRows)
-      bounce_bwd_lane<kVol, kSurf, kSums>(T, R, seed, nee, (size_t)idx, origin, direction, thr,
-                                          sample, depth, prev, replay_gid, replay_nee, g_contrib,
-                                          g_next_o, g_next_d, g_thr_mult, d_origin, d_direction,
-                                          d_thr, rs, &ls, vol_nee, medium, g_medium, d_medium);
+      bounce_bwd_lane<kVol, kSurf>(T, R, seed, nee, (size_t)idx, origin, direction, thr, sample,
+                                   depth, prev, replay_gid, replay_nee, g_contrib, g_next_o,
+                                   g_next_d, g_thr_mult, d_origin, d_direction, d_thr, rs,
+                                   vol_nee, medium, g_medium, d_medium);
     else
-      bounce_bwd_lane<kVol, kSurf, kSums>(T, R, seed, nee, (size_t)idx, origin, direction, thr,
-                                          sample, depth, prev, replay_gid, replay_nee, g_contrib,
-                                          g_next_o, g_next_d, g_thr_mult, d_origin, d_direction,
-                                          d_thr, acc, &ls, vol_nee, medium, g_medium, d_medium);
+      bounce_bwd_lane<kVol, kSurf>(T, R, seed, nee, (size_t)idx, origin, direction, thr, sample,
+                                   depth, prev, replay_gid, replay_nee, g_contrib, g_next_o,
+                                   g_next_d, g_thr_mult, d_origin, d_direction, d_thr, acc,
+                                   vol_nee, medium, g_medium, d_medium);
   }
   // every thread of the warp, past n or on a lane that added nothing too
-  if constexpr (kSums) warp_sums_add(acc, R, ls);
   if constexpr (kRows) warp_row_sums_add(rs);
 }
 
 // a lane's key for the lane order (bounce_adj.cuh:lane_order)
-template <bool kVol, bool kSurf>
 struct BwdKey {
   BwdKeyIn in;
-  __device__ int operator()(size_t i) const { return bounce_bwd_key<kVol, kSurf>(in, i); }
+  __device__ int operator()(size_t i) const { return bounce_bwd_key(in, i); }
 };
 
-template <bool kVol>
-cudaError_t bwd_lane_order(const BwdKeyIn& in, int surf, int n, int* scratch, cudaStream_t s) {
-  return surf ? lane_order(BwdKey<kVol, true>{in}, n, scratch, s)
-              : lane_order(BwdKey<kVol, false>{in}, n, scratch, s);
+// whether the instance (vol, surf) orders its lanes, and keeps row sums
+bool ordered_instance(int vol, int surf) {
+  return vol ? (surf ? ORDER_ON<true, true> : ORDER_ON<true, false>)
+             : (surf ? ORDER_ON<false, true> : ORDER_ON<false, false>);
+}
+
+bool rows_instance(int vol, int surf) {
+  return vol ? (surf ? BWD_ROWS_ON<true, true> : BWD_ROWS_ON<true, false>)
+             : (surf ? BWD_ROWS_ON<false, true> : BWD_ROWS_ON<false, false>);
 }
 
 }  // namespace
@@ -312,12 +306,6 @@ cudaError_t bwd_lane_order(const BwdKeyIn& in, int surf, int n, int* scratch, cu
 extern "C" int bounce_bwd_rows(int n) {
   const int blocks = (n + THREADS - 1) / THREADS;
   return blocks > 0 ? blocks + row_sum_scratch(blocks) : 1;
-}
-
-// whether the instance orders its lanes
-static bool ordered_instance(int vol, int surf) {
-  return vol ? (surf ? ORDER_ON<true, true> : ORDER_ON<true, false>)
-             : (surf ? ORDER_ON<false, true> : ORDER_ON<false, false>);
 }
 
 // the ints of order scratch that bounce_bwd_launch needs for n lanes of the
@@ -344,10 +332,10 @@ extern "C" int bounce_bwd_launch(const float* gtab, int G, const float* mtab, in
   const int blocks = (n + THREADS - 1) / THREADS;
   const cudaStream_t s = (cudaStream_t)stream;
   if (n <= 0) return (int)cudaMemsetAsync(row, 0, sizeof(float) * R.k, s);
-  // the tables, and the lane and row sums of the instance
-  const int slots = vol ? (surf ? SLOTS<true, true> : SLOTS<true, false>)
-                        : (surf ? SLOTS<false, true> : SLOTS<false, false>);
-  const size_t smem = sizeof(float) * (sums_offset(G, M) + 2 * (size_t)slots * THREADS);
+  // the tables, and the row sums of the instances that keep them
+  const size_t smem = sizeof(float) * (rows_instance(vol, surf)
+                                           ? sums_offset(G, M) + 2 * (size_t)ROW_SUMS * THREADS
+                                           : table_floats(G, M));
   // the instance: vacuum or volumetric x surface blocks or not
   const auto kernel =
       vol ? (surf ? bounce_bwd_kernel<true, true> : bounce_bwd_kernel<true, false>)
@@ -359,10 +347,9 @@ extern "C" int bounce_bwd_launch(const float* gtab, int G, const float* mtab, in
   }
   const int* order = nullptr;
   if (order_scratch != nullptr && ordered_instance(vol, surf)) {
-    const BwdKeyIn in{gtab,     mtab,     replay_gid, replay_nee, g_contrib,
-                      g_next_o, g_next_d, g_thr_mult, medium,     g_medium};
-    const cudaError_t e = vol ? bwd_lane_order<true>(in, surf, n, order_scratch, s)
-                              : bwd_lane_order<false>(in, surf, n, order_scratch, s);
+    const BwdKeyIn in{gtab,     mtab,     replay_gid, replay_nee,
+                      g_contrib, g_next_o, g_next_d,  g_thr_mult};
+    const cudaError_t e = lane_order(BwdKey{in}, n, order_scratch, s);
     if (e != cudaSuccess) return (int)e;
     order = order_scratch + n;
   }

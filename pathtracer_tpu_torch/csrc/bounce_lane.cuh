@@ -1,8 +1,7 @@
 // One lane of the per-bounce kernel (csrc/bounce.cu) and of its mesh-merge
 // variant (csrc/bounce_merge.cu): reads a lane's planes, runs pt::bounce in
-// its mask-free form and writes every output; and the outputs of a dead lane
-// (dead_lane), which kernel 2 writes without running the bounce.  Also
-// compiled as host C++ by tests/kernel_host_harness.cpp.
+// its mask-free form and writes every output.  Also compiled as host C++ by
+// tests/kernel_host_harness.cpp.
 
 #pragma once
 
@@ -96,44 +95,6 @@ PT_FN void bounce_lane(const Tables& T, uint32_t seed, int nee, int vol_nee, int
                                 b.nee_rgb.y,   b.nee_rgb.z,   b.cand_vis};
       for (int k = 0; k < 11; ++k) deferred[k * n + i] = planes[k];
     }
-  }
-}
-
-// The outputs of a lane that holds no live path (kernel 2's alive plane
-// says so; ops/bounce_fused.py:bounce_fused_plain writes the same): no
-// contribution, the ray passed through, a zero throughput multiplier, the
-// path ended, the emit state and the medium passed through, the
-// russian-roulette uniform as a live lane's, no winner (-1), no NEE
-// connection and no texel (slot -1, u = v = 0).  Every caller gates these
-// with its alive mask, so they reach no result.
-PT_FN void dead_lane(uint32_t seed, int mw, size_t i, const float* __restrict__ origin,
-                     const float* __restrict__ direction, const uint32_t* __restrict__ sample,
-                     const int32_t* __restrict__ depth, const float* __restrict__ prev,
-                     const float* __restrict__ medium, float* __restrict__ contrib,
-                     float* __restrict__ next_o, float* __restrict__ next_d,
-                     float* __restrict__ thr_mult, uint8_t* __restrict__ terminate,
-                     float* __restrict__ wspec, float* __restrict__ rru,
-                     float* __restrict__ out_medium, float* __restrict__ replay_gid,
-                     float* __restrict__ replay_nee, float* __restrict__ tex_u,
-                     float* __restrict__ tex_v, float* __restrict__ tex_slot) {
-  for (int c = 0; c < 3; ++c) {
-    contrib[3 * i + c] = 0.0f;
-    next_o[3 * i + c] = origin[3 * i + c];
-    next_d[3 * i + c] = direction[3 * i + c];
-    thr_mult[3 * i + c] = 0.0f;
-  }
-  terminate[i] = 1;
-  wspec[i] = prev[i];
-  rru[i] = uniform(bounce_base(seed, sample[i] * 0x85EBCA6Bu, depth[i]), 3);
-  for (int k = 0; k < mw; ++k) out_medium[(size_t)mw * i + k] = medium[(size_t)mw * i + k];
-  if (replay_gid != nullptr) {
-    replay_gid[i] = -1.0f;
-    replay_nee[i] = 0.0f;
-  }
-  if (tex_u != nullptr) {
-    tex_u[i] = 0.0f;
-    tex_v[i] = 0.0f;
-    tex_slot[i] = -1.0f;
   }
 }
 

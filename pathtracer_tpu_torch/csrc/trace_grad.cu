@@ -59,8 +59,8 @@
 // the up to 59 atomics of a live bounce, the same 25 on every lane of a
 // one-light scene) are summed per lane in double in shared memory across
 // its bounces (bounce_adj.cuh's LaneSums) and reach the row once per warp,
-// a shuffle sum in a fixed order, after the loop (warp_sums_add).  A lane
-// whose radiance cotangent is zero writes zeros and skips the loop.  bounce_adj.cuh's
+// a shuffle sum in a fixed order, after the loop.  A lane whose radiance
+// cotangent is zero writes zeros and skips the loop.  bounce_adj.cuh's
 // row_sum then adds the per-block rows (5,000 at 640,000 lanes) in a fixed
 // tree spread over 32-column tiles and 64-row segments, two short launches.
 //
@@ -69,10 +69,10 @@
 // costly branch (lane_key: in a scattering medium, where the free path's
 // and the volumetric NEE's adjoints run; on a Cook-Torrance or Ward
 // material), two short kernels group the lanes by key (bounce_adj.cuh:
-// lane_order, which kernel 3 shares), and thread t of the reverse kernel
-// takes lane order[t].  A warp otherwise
-// runs the union of its lanes' branches: one lane that scatters in the
-// medium makes the whole warp wait for its volumetric NEE adjoint.
+// lane_order, which kernel 3s shares), and thread t of the reverse kernel
+// takes lane order[t].  A warp otherwise runs the union of its lanes'
+// branches: one lane that scatters in the medium makes the whole warp wait
+// for its volumetric NEE adjoint.
 //
 // What bounds them on the H100: the forward moves 40 B per lane plus 52 B
 // per lane and bounce of residuals (266 MB per 640,000-lane iteration at
@@ -359,6 +359,25 @@ using namespace pt;
 
 constexpr int FWD_THREADS = 128;
 constexpr int BWD_THREADS = 128;
+
+// The lane sums of a whole warp into the row (every thread of the warp
+// calls it): where every lane's light slots hold one light, or none, each
+// slot is summed over the warp with shuffles in a fixed order and added
+// once; else each lane adds its own (lane_sums_add).
+__device__ __forceinline__ void warp_sums_add(float* acc, const RowLayout& R, const LaneSums& ls) {
+  constexpr unsigned FULL = 0xffffffffu;
+  const int lid = __reduce_max_sync(FULL, ls.lid);
+  if (!__all_sync(FULL, ls.lid < 0 || ls.lid == lid)) {
+    lane_sums_add(acc, R, ls);
+    return;
+  }
+  for (int k = 0; k < LANE_SUMS; ++k) {
+    AD v = ls.s[k * ls.stride];
+    for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(FULL, v, off);
+    if ((threadIdx.x & 31) == 0 && v != 0.0 && (k == LS_AREA || lid >= 0))
+      acc_d(acc, lane_sum_col(R, k, lid), v);
+  }
+}
 
 // the tables of a block's kernel: no meshes, the surface bits of a kSurf
 // instance

@@ -22,15 +22,6 @@ code, BSDF continuation, and NEE with a shadow sweep.
   2r-v, ``replay_surf_launches`` for its surface instances, 2r-s).
 * :func:`bounce_fused` dispatches on the rays' device: a CUDA tensor
   launches the kernel or raises, a CPU tensor takes the plain version.
-* ``alive`` (a bool ``[N]``, or None for every lane) names the lanes that
-  hold a live path.  A dead lane's outputs are defined and gated away by
-  every caller: no contribution, the ray passed through, a zero throughput
-  multiplier, terminate set, the emit state and the medium passed through,
-  the russian-roulette uniform as a live lane's, replay gid -1 and NEE bit
-  0, no texel (slot -1, u = v = 0).  The kernel does not run their bounce
-  (``csrc/bounce.cu``); the plain version computes every lane and then
-  writes the dead lanes' values.  Live lanes' outputs do not depend on
-  ``alive``.  The mesh-merge variant takes no ``alive``.
 
 Mesh scenes the in-kernel sweep takes (``bounce_pallas.py:1637-1671``, the
 in-kernel branch) pass its tables as ``mesh=``: the bounce sweeps the
@@ -150,8 +141,7 @@ def _checked_width(medium_sigma, hg: int) -> int:
     return width
 
 
-def _check_variants(emit_replay: bool, tex_defer: bool, mesh, mesh_in, mesh_uv,
-                    alive=None) -> None:
+def _check_variants(emit_replay: bool, tex_defer: bool, mesh, mesh_in, mesh_uv) -> None:
     if emit_replay and tex_defer:
         raise NotImplementedError("winner replay of image textures: later slice")
     if emit_replay and (mesh is not None or mesh_in is not None):
@@ -161,8 +151,6 @@ def _check_variants(emit_replay: bool, tex_defer: bool, mesh, mesh_in, mesh_uv,
                          "each other")
     if mesh_uv is not None and (mesh_in is None or not tex_defer):
         raise ValueError("mesh_uv serves the deferred texel of a mesh_in launch")
-    if alive is not None and mesh_in is not None:
-        raise ValueError("the mesh-merge variant runs every lane: it takes no alive plane")
 
 
 def _mesh_in_dict(mesh_in, mesh_uv) -> dict:
@@ -178,7 +166,7 @@ def bounce_fused_plain(tables, origin, direction, throughput, sample_idx, depth,
                        prev_specular, medium_sigma, seed: int, *, nee: bool,
                        features=frozenset(), emit_replay: bool = False, mesh=None,
                        vol_nee: bool = True, tex_defer: bool = False, mesh_in=None,
-                       mesh_uv=None, alive=None):
+                       mesh_uv=None):
     """Plain version of kernel 2.  ``depth`` is an int or a per-lane
     tensor; ``medium_sigma`` ``[N, 4]`` or, with ``hg``, ``[N, 5]``; ``mesh``
     the scene's in-kernel triangle tables or None; ``mesh_in`` / ``mesh_uv``
@@ -190,10 +178,8 @@ def bounce_fused_plain(tables, origin, direction, throughput, sample_idx, depth,
     ``tex_defer`` the tuple ``(BounceResult, tex_u [N], tex_v [N],
     tex_slot [N])``: the deferred texel's texture-scaled UV and atlas slot
     (-1: no texel); with ``mesh_in`` under NEE one more element at the end,
-    the deferred shadow ray ``[11, N]``.  ``alive`` (bool ``[N]``) gives
-    the lanes it names false the dead lanes' values (the module
-    docstring)."""
-    _check_variants(emit_replay, tex_defer, mesh, mesh_in, mesh_uv, alive)
+    the deferred shadow ray ``[11, N]``."""
+    _check_variants(emit_replay, tex_defer, mesh, mesh_in, mesh_uv)
     gtab, mtab, ltab, scal = tables
     vol, hg, _ = media_args(features, vol_nee)
     width = _checked_width(medium_sigma, hg)
@@ -221,43 +207,17 @@ def bounce_fused_plain(tables, origin, direction, throughput, sample_idx, depth,
         rr_uniform=out["rru"],
         next_medium=torch.stack([*out["out_ma"], out["out_ms"], *g_col], dim=-1),
     )
-    replay = (out["replay_gid"], out["replay_nee_add"]) if emit_replay else ()
-    tex = (out["tex_out"]["u"], out["tex_out"]["v"], out["tex_out"]["slot"]) if tex_defer else ()
-    if alive is not None:
-        res, replay, tex = _dead_lanes(alive, res, replay, tex, origin, direction,
-                                       prev_specular, medium_sigma)
     if emit_replay:
-        return (res, *replay)
-    extra = list(tex)
+        return res, out["replay_gid"], out["replay_nee_add"]
+    extra = []
+    if tex_defer:
+        tex = out["tex_out"]
+        extra += [tex["u"], tex["v"], tex["slot"]]
     if "nee_deferred" in out:
         nd = out["nee_deferred"]
         extra.append(torch.stack([*nd["x"], *nd["wi"], nd["dist"], *nd["nee_rgb"],
                                   nd["cand_vis"]]))
     return (res, *extra) if extra else res
-
-
-def _dead_lanes(alive, res: BounceResult, replay, tex, origin, direction, prev_specular,
-                medium_sigma):
-    """The dead lanes' values (the module docstring) where ``alive`` is
-    false; the replay planes ``(gid, nee)`` and the texel planes ``(u, v,
-    slot)`` where given, else ``()``."""
-    on, on3 = alive, alive[:, None]
-    res = BounceResult(
-        contrib=torch.where(on3, res.contrib, 0.0),
-        next_origin=torch.where(on3, res.next_origin, origin),
-        next_direction=torch.where(on3, res.next_direction, direction),
-        throughput_mult=torch.where(on3, res.throughput_mult, 0.0),
-        terminate=res.terminate | ~on,
-        was_specular=torch.where(on, res.was_specular, prev_specular.to(torch.float32)),
-        rr_uniform=res.rr_uniform,
-        next_medium=torch.where(on3, res.next_medium, medium_sigma),
-    )
-    if replay:
-        replay = (torch.where(on, replay[0], -1.0), torch.where(on, replay[1], 0.0))
-    if tex:
-        tex = (torch.where(on, tex[0], 0.0), torch.where(on, tex[1], 0.0),
-               torch.where(on, tex[2], -1.0))
-    return res, replay, tex
 
 
 def _lib():
@@ -271,7 +231,6 @@ def _lib():
             *MEDIA_ARGTYPES, I,  # volumetric, hg, vol_nee; the medium's width
             SURF_ARGTYPE, P, P, P,  # surface bits; deferred texel u, v, slot (null: none)
             *MESH_ARGTYPES,
-            P,  # alive plane (null: every lane)
             P,  # stream
         ]
     return fn
@@ -305,7 +264,7 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
                       prev_specular, medium_sigma, seed: int, *, nee: bool,
                       features=frozenset(), emit_replay: bool = False, mesh=None,
                       vol_nee: bool = True, tex_defer: bool = False, mesh_in=None,
-                      mesh_uv=None, alive=None):
+                      mesh_uv=None):
     """Launch kernel 2 on the rays' CUDA device, on the current stream
     (``csrc/bounce.cu``, or with ``mesh_in`` ``csrc/bounce_merge.cu``);
     the arguments and the result as in :func:`bounce_fused_plain`."""
@@ -313,7 +272,7 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
     global vol_launches, hg_launches
     global surf_launches, tex_launches, mesh_tex_launches, merge_launches
     check_features(features)
-    _check_variants(emit_replay, tex_defer, mesh, mesh_in, mesh_uv, alive)
+    _check_variants(emit_replay, tex_defer, mesh, mesh_in, mesh_uv)
     gtab, mtab, ltab, scal = tables
     device = origin.device
     n = origin.shape[0]
@@ -335,8 +294,6 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
         check_tensor(mesh_in, "mesh_in", torch.float32, (MERGE_PLANES, n), device)
     if mesh_uv is not None:
         check_tensor(mesh_uv, "mesh_uv", torch.float32, (MESH_UV_PLANES, n), device)
-    if alive is not None:
-        check_tensor(alive, "alive", torch.bool, (n,), device)
 
     contrib, next_o, next_d, thr_mult = (torch.empty((n, 3), **f32) for _ in range(4))
     terminate = torch.empty(n, dtype=torch.uint8, device=device)
@@ -365,8 +322,7 @@ def bounce_fused_cuda(tables, origin, direction, throughput, sample_idx, depth,
     else:
         err = _lib()(
             *common, *(None if r is None else r.data_ptr() for r in replay), *media, width,
-            surf, *tex_ptrs, *mesh_launch_args(mesh, device),
-            None if alive is None else alive.data_ptr(), stream,
+            surf, *tex_ptrs, *mesh_launch_args(mesh, device), stream,
         )
     if err != 0:
         raise RuntimeError(f"bounce kernel launch failed: CUDA error {err}")
@@ -417,12 +373,11 @@ def merge_planes(scene, origin, direction, gtab, with_uv: bool):
 
 
 def bounce_fused(scene, origin, direction, throughput, sample_idx, depth, prev_specular,
-                 medium_sigma, seed: int, cfg, tables=None, alive=None) -> BounceResult:
+                 medium_sigma, seed: int, cfg, tables=None) -> BounceResult:
     """One bounce for a wavefront of lanes (mask-free: callers gate with
     their alive masks).  ``tables`` are :func:`pack_tables` of the scene
     (packed here when not given); ``medium_sigma`` ``[N, medium_width]`` or
-    None (vacuum); ``alive`` the lanes with a live path, or None (the module
-    docstring; the mesh-merge variant runs every lane)."""
+    None (vacuum)."""
     check_features(cfg.features)
     if not cfg.fast_rng:
         raise NotImplementedError("per-bounce kernel for fast_rng=False: later slice")
@@ -441,7 +396,7 @@ def bounce_fused(scene, origin, direction, throughput, sample_idx, depth, prev_s
         with_uv = tex_defer and any(m.tri_uv is not None for m in scene.meshes)
         kw["mesh_in"], kw["mesh_uv"] = merge_planes(scene, origin, direction, tables[0], with_uv)
     else:
-        kw.update(mesh=scene.mesh_tables, alive=alive)
+        kw["mesh"] = scene.mesh_tables
     args = (tables, origin, direction, throughput, sample_idx, depth, prev_specular,
             medium_sigma, seed)
     out = (bounce_fused_cuda if device_type == "cuda" else bounce_fused_plain)(*args, **kw)

@@ -16,19 +16,15 @@ for that bounce alone.
   thread per lane, the tables in shared memory, the adjoint of
   ``csrc/bounce_adj.cuh`` that kernel 5 shares, one table row per block,
   the rows summed by ``bounce_adj.cuh:row_sum`` in a fixed tree; a lane
-  whose cotangents are all zero writes zeros and adds nothing).  Each lane
-  sums its winner's geom and material columns (and in 3 and 3s NEE's light
-  and scalar columns) in double and its warp adds them to the row once.
-  3s runs its lanes grouped by the branch their adjoint takes
-  (:func:`bounce_bwd_keys_plain` is the plain version of the key; two short
-  kernels order them first).
+  whose cotangents are all zero writes zeros and adds nothing).  In 3 and
+  3s each lane sums its winner's geom and material columns in double and
+  its warp adds them to the row once; 3s runs its lanes grouped by the
+  branch their adjoint takes (:func:`bounce_bwd_keys_plain` is the plain
+  version of the key; two short kernels order them first).
 * :class:`BounceDiff` is the ``torch.autograd.Function`` (the
   ``jax.custom_vjp`` of ``bounce_grad.py:380-428``): its forward saves the
   inputs and the replay planes, its backward runs kernel 3 on a CUDA
-  tensor and the plain version on a CPU tensor.  The forward takes the
-  lanes' alive plane (kernel 2 runs no dead lane's bounce, and writes it
-  the outputs ``ops/bounce_fused.py`` defines); a dead lane's outputs are
-  gated away by the engine, so its cotangents are zero.
+  tensor and the plain version on a CPU tensor.
 * :func:`bounce_fused_diff` returns a ``BounceResult`` whose contribution,
   continuation and throughput multiplier carry gradients to the tables and
   the carries.
@@ -131,32 +127,24 @@ def bounce_bwd_plain(tables, origin, direction, throughput, sample_idx, depth, p
     return (*grads[:4], *d_carries)
 
 
-# kernel 3's lane keys (csrc/bounce_grad.cu: KEY_*): the branch of the
-# replayed winner; 3s adds a Cook-Torrance or Ward material, 3v a scattering
-# medium; a lane whose cotangents are all zero takes the last key
-KEY_MISS, KEY_LIGHT, KEY_NEE, KEY_DIFFUSE, KEY_MIRROR, KEY_GLASS = range(6)
-KEY_LOBE, KEY_SCATTER, KEY_ZERO = 8, 16, 255
+# kernel 3s's lane keys (csrc/bounce_grad.cu: KEY_*): the branch of the
+# replayed winner; a lane whose cotangents are all zero takes the last key
+KEY_MISS, KEY_LIGHT, KEY_NEE, KEY_DIFFUSE, KEY_MIRROR, KEY_LOBE, KEY_GLASS = range(7)
+KEY_ZERO = 255
 
 
-def bounce_bwd_keys_plain(gtab, mtab, replay_gid, replay_nee, cotangents, features,
-                          medium=None, g_medium=None):
-    """The plain version of kernel 3's lane keys (int32 ``[N]``):
+def bounce_bwd_keys_plain(gtab, mtab, replay_gid, replay_nee, cotangents):
+    """The plain version of kernel 3s's lane keys (int32 ``[N]``):
     ``cotangents`` are those of contrib, next origin, next direction and the
-    throughput multiplier (``[N, 3]`` each); with ``volumetric`` the medium
-    and its cotangent (``[N, 4]``) too."""
-    vol = "volumetric" in features
-    cots = list(cotangents) + ([g_medium] if vol else [])
-    zero = torch.stack([(c == 0).all(-1) for c in cots]).all(0)
+    throughput multiplier (``[N, 3]`` each)."""
+    zero = torch.stack([(c == 0).all(-1) for c in cotangents]).all(0)
     gid = replay_gid.long()
     mat = mtab[gtab[gid.clamp(min=0), 13].long()]
     key = torch.where(replay_nee > 0.5, KEY_NEE, KEY_DIFFUSE)
-    mirror = KEY_MIRROR + (KEY_LOBE * (mat[:, 24] > 0.5) if surface_bits(features) else 0)
-    key = torch.where(mat[:, 6] > 0, mirror, key)
+    key = torch.where(mat[:, 6] > 0, torch.where(mat[:, 24] > 0.5, KEY_LOBE, KEY_MIRROR), key)
     key = torch.where(mat[:, 7] > 0, KEY_GLASS, key)
     key = torch.where(mat[:, 9] > 0, KEY_LIGHT, key)
     key = torch.where(gid < 0, KEY_MISS, key)
-    if vol:
-        key = key + KEY_SCATTER * (medium[:, 3] > 0)
     return torch.where(zero, KEY_ZERO, key).to(torch.int32)
 
 
@@ -254,17 +242,16 @@ class BounceDiff(torch.autograd.Function):
     """One bounce with kernel 3 as its backward: ``(contrib, next_origin,
     next_direction, throughput_mult, next_medium, terminate, was_specular,
     rr_uniform, replay_gid, replay_nee_add)``; the last five are not
-    differentiable.  ``opts`` holds ``nee``, ``features`` and ``vol_nee``;
-    ``alive`` is the lanes' alive plane or None."""
+    differentiable.  ``opts`` holds ``nee``, ``features`` and ``vol_nee``."""
 
     @staticmethod
     def forward(ctx, gtab, mtab, ltab, scal, origin, direction, throughput, medium, sample_idx,
-                depth, prev_specular, seed, opts, alive):
+                depth, prev_specular, seed, opts):
         depth = _per_lane_depth(depth, origin.shape[0], origin.device)
         args = ((gtab, mtab, ltab, scal), origin, direction, throughput, sample_idx, depth,
                 prev_specular, medium, seed)
         kw = dict(nee=opts["nee"], features=opts["features"], vol_nee=opts["vol_nee"],
-                  emit_replay=True, alive=alive)
+                  emit_replay=True)
         if origin.device.type == "cuda":
             res, rgid, rnee = bounce_fused_cuda(*args, **kw)
         elif origin.device.type == "cpu":
@@ -295,17 +282,16 @@ class BounceDiff(torch.autograd.Function):
             grads = (*grads, g_medium)  # vacuum: the medium passes through the bounce
         d_gtab, d_mtab, d_ltab, d_scal, d_o, d_d, d_t, d_m = grads
         return (d_gtab, d_mtab, d_ltab, d_scal, d_o, d_d, d_t, d_m, None, None, None, None,
-                None, None)
+                None)
 
 
 def bounce_fused_diff(scene, origin, direction, throughput, sample_idx, depth, prev_specular,
-                      medium_sigma, seed: int, cfg, tables=None, alive=None) -> BounceResult:
+                      medium_sigma, seed: int, cfg, tables=None) -> BounceResult:
     """Differentiable bounce (``bounce_grad.py:348``): forward kernel 2 with
     replay planes, backward kernel 3 (their plain versions on the CPU), the
     volumetric instances with ``volumetric``.  ``tables`` are
     :func:`pack_tables` of the scene, whose graph carries the table
-    cotangents on to the scene's tensors; ``alive`` the lanes with a live
-    path, or None for every lane."""
+    cotangents on to the scene's tensors."""
     check_diff_features(cfg.features, "fused")
     if not fused_diff_eligible(scene, cfg):
         raise NotImplementedError(
@@ -320,7 +306,7 @@ def bounce_fused_diff(scene, origin, direction, throughput, sample_idx, depth, p
     opts = dict(nee=cfg.nee, features=frozenset(cfg.features), vol_nee=cfg.vol_nee)
     out = BounceDiff.apply(gtab, mtab, ltab, scal, origin, direction, throughput,
                            medium_sigma.contiguous(), sample_idx, depth, prev_specular,
-                           int(seed), opts, alive)
+                           int(seed), opts)
     return BounceResult(
         contrib=out[0], next_origin=out[1], next_direction=out[2], throughput_mult=out[3],
         next_medium=out[4], terminate=out[5], was_specular=out[6], rr_uniform=out[7],

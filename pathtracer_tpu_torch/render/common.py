@@ -143,17 +143,14 @@ def _detached(rays: Rays) -> Rays:
 
 def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular, seed: int,
                  cfg, medium_sigma=None, tables=None, lean_cache=None,
-                 replay=None, alive=None) -> BounceResult:
+                 replay=None) -> BounceResult:
     """One physics step for a wavefront of rays (mask-free: callers gate
     with their alive masks).  ``depth`` is an int or a per-lane tensor;
     ``tables`` are ``ops/bounce.pack_tables`` of the scene; ``medium_sigma``
     the medium each ray travels through, ``[N, 4]`` (sigma_a rgb, sigma_s)
     or with ``hg`` ``[N, 5]`` (the phase g), None for vacuum; ``lean_cache``
     and ``replay`` (the lean split route's ``(gid [N], nee [N])``) as the
-    module docstring says.  ``alive`` (bool ``[N]`` or None) goes to kernel
-    2 and its replay variant, which run no dead lane's bounce and write it
-    defined outputs (``ops/bounce_fused.py``); the split and lean routes
-    ignore it."""
+    module docstring says."""
     check_features(cfg.features)
     if cfg.grad_lean:
         check_diff_features(cfg.features, "lean")
@@ -172,11 +169,10 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
                 and "volumetric" in cfg.features and cfg.nee and cfg.vol_nee)
     if cfg.grad_lean and fused_diff_eligible(scene, cfg):
         return bounce_fused_diff(scene, rays.origin, rays.direction, throughput, sample_idx,
-                                 depth, prev_specular, medium_sigma, seed, cfg, tables=tables,
-                                 alive=alive)
+                                 depth, prev_specular, medium_sigma, seed, cfg, tables=tables)
     if cfg.fused is not False and not cfg.grad_lean and not vol_mesh:
         return bounce_fused(scene, rays.origin, rays.direction, throughput, sample_idx, depth,
-                            prev_specular, medium_sigma, seed, cfg, tables=tables, alive=alive)
+                            prev_specular, medium_sigma, seed, cfg, tables=tables)
 
     gtab, mtab = tables[0], tables[1]
     if cfg.grad_lean:

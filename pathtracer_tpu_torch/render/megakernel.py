@@ -100,7 +100,7 @@ def scan_paths(scene: Scene, rays: Rays, sample_idx, seed: int, cfg: RenderConfi
                              use_reentrant=False, preserve_rng_state=False)
         else:
             res = shade_bounce(scene, rays, throughput, sample_idx, depth, prev_spec, seed, cfg,
-                               medium_sigma=medium, tables=tables, alive=alive)
+                               medium_sigma=medium, tables=tables)
         radiance = radiance + torch.where(alive[:, None], res.contrib, 0.0)
         new_alive = alive & (~res.terminate)
         throughput = torch.where(new_alive[:, None], throughput * res.throughput_mult,

@@ -69,7 +69,7 @@ def _step(scene, st, seed: int, cfg, tables):
     res = shade_bounce(
         scene, Rays(origin=st["origin"], direction=st["direction"]), st["throughput"],
         st["sample"], st["depth"], st["prev_spec"], seed, cfg,
-        medium_sigma=st["medium"], tables=tables, alive=alive,
+        medium_sigma=st["medium"], tables=tables,
     )
     radiance = st["radiance"] + torch.where(alive[:, None], res.contrib, 0.0)
     depth = st["depth"] + 1

@@ -46,30 +46,28 @@ kernels from its own sources (``tools/in_turns``).  Each process prints
 
 - perbounce: kernels 2 and 3 where the engines launch them (Cornell 800x800,
   depth 8, NEE): kernel 2's device time summed over the pinned 8-spp render
-  (every launch, from the profiler, twice) and per launch at super-step 10
-  (``chip_smoke.queued_ms``, twice, with the engine's alive plane where the
-  checkout takes one, and without it); the per-bounce gradient step of
-  Cornell, milky and ward (4 spp) by host clock, ten repeats, and from two
-  profiled steps its device busy time, idle share, 2r's total (every
-  ``bounce_kernel`` launch) and kernel 3's body, row sum and lane order per
-  launch; kernels 3 / 3v / 3s isolated on the state after two bounces with
-  the engine's cotangents (zero on the lanes that died), body, row sum and
-  lane order apart (``_profiled_split``).  Where the checkout has them, the
-  variants run beside: kernel 2 without its alive plane (mask-free), kernel
-  3 in index order (``ordered=False``);
+  (every launch, from the profiler, twice), per launch at super-step 10 and
+  2r's at each bounce of the per-bounce scan of the primary rays (with the
+  share of lanes alive; ``chip_smoke.queued_ms``, twice); the per-bounce
+  gradient step of Cornell, milky and ward (4 spp) by host clock, ten
+  repeats, and from two profiled steps its device busy time, idle share,
+  2r's total (every ``bounce_kernel`` launch) and kernel 3's body, row sum
+  and lane order per launch; kernels 3 / 3v / 3s isolated on the state
+  after two bounces with the engine's cotangents (zero on the lanes that
+  died), body, row sum and lane order apart (``_profiled_split``); 3s also
+  in index order (``ordered=False``) where the checkout orders its lanes;
 - rows: kernel 2's instances 2v, 2hg (sss), 2m (smooth_mesh), 2s (ward),
   2t (textured_image), each at 512x512 on the pinned engine's super-step 10
   (2 spp), and kernels 6 and 8 on Cornell's (800x800, 8 spp) and 7 on the
-  same rays: ``chip_smoke.queued_ms``, twice; kernel 2 with the engine's
-  alive plane where the checkout takes one, and without.
+  same rays: ``chip_smoke.queued_ms``, twice.
 
 Every process also prints the registers and spills of every instance of
 kernels 1, 2, 3, 4 and 5 (none when its libraries were built earlier).
 
 A ``NAME=variant:V`` checkout is a copy of this checkout under
 ``build/kernel_split/V`` with the source edits of ``VARIANTS[V]``: a
-variant measured for timing only (``nosums``: kernel 3 without its lane
-sums; ``norows``: without its row sums).
+variant measured for timing only (``norows``: kernel 3 without its row
+sums).
 
 Needs a card and ``nvcc``.
 """
@@ -125,10 +123,8 @@ PARTS = ("adjoint", "forward", "1m", "steps", "perbounce", "rows")
 DEFAULT_PARTS = ("adjoint", "forward", "1m", "steps")
 # variant copies of this checkout: name -> (file, text, replacement) edits
 VARIANTS = {
-    "nosums": (("pathtracer_tpu_torch/csrc/bounce_grad.cu",
-                "constexpr bool BWD_SUMS_ON = !kVol;", "constexpr bool BWD_SUMS_ON = false;"),),
     "norows": (("pathtracer_tpu_torch/csrc/bounce_grad.cu",
-                "constexpr bool BWD_ROWS_ON = true;", "constexpr bool BWD_ROWS_ON = false;"),),
+                "constexpr bool BWD_ROWS_ON = !kVol;", "constexpr bool BWD_ROWS_ON = false;"),),
 }
 # the forward part's launches: label, kernel (1 or 4), scene, resolution,
 # russian roulette from bounce 3
@@ -150,16 +146,11 @@ def _device_sum(run: dict, name: str) -> tuple:
             sum(v[1] for k, v in run.items() if name in k))
 
 
-def _takes(fn, arg: str) -> bool:
-    import inspect
-
-    return arg in inspect.signature(fn).parameters
-
-
 def perbounce(cs, card: str, here: str) -> None:
     """The ``perbounce`` part (the module's docstring)."""
     import dataclasses
     import functools
+    import inspect
     import time
 
     import numpy as np
@@ -178,8 +169,8 @@ def perbounce(cs, card: str, here: str) -> None:
     dev = torch.device("cuda")
     f32 = dict(dtype=torch.float32, device=dev)
     seed = key_to_seed(prng_key(0))
-    alive_k2 = _takes(bounce_fused.bounce_fused_cuda, "alive")
-    ordered_k3 = _takes(bounce_grad.bounce_bwd_cuda, "ordered")
+    # a checkout whose kernel 3s orders its lanes takes `ordered`
+    ordered_k3 = "ordered" in inspect.signature(bounce_grad.bounce_bwd_cuda).parameters
     k2 = bounce_fused.bounce_fused_cuda
     k3 = bounce_grad.bounce_bwd_cuda
 
@@ -190,44 +181,28 @@ def perbounce(cs, card: str, here: str) -> None:
     # ---- kernel 2 over the pinned 8-spp render, and at super-step 10
     scene = desc_of("cornell.txt").scene_for_frame(0, device=dev)
     pinned = RenderConfig(wavefront=True, iters_per_launch=8, max_depth=8, nee=True)
-    k2_variants = [("as is", {})]
-    if alive_k2:
-        k2_variants.append(("mask-free", None))
-    for label, kw in k2_variants:
-        if kw is None:
-            bounce_fused.bounce_fused_cuda = lambda *a, alive=None, **k: k2(*a, **k)
-        else:
-            bounce_fused.bounce_fused_cuda = functools.partial(k2, **kw)
-        try:
-            render(scene, 8, pinned, device=dev)
-            torch.cuda.synchronize()
-            for rep in range(2):
-                run, wall = cs.profiled(lambda: render(scene, 8, pinned, device=dev))
-                ms, n = _device_sum(run, "bounce_kernel")
-                busy = sum(v[0] for v in run.values()) / 1e3
-                print(f"[split] {here} perbounce kernel 2 {label}, pinned 8-spp render cornell "
-                      f"800x800, repeat {rep}: {ms:.4f} ms of device time in {n} launches "
-                      f"({ms / max(n, 1):.4f} per launch); device busy {busy:.4f} ms of "
-                      f"{wall:.4f} ms profiled; on {card}", flush=True)
-        finally:
-            bounce_fused.bounce_fused_cuda = k2
+    render(scene, 8, pinned, device=dev)
+    torch.cuda.synchronize()
+    for rep in range(2):
+        run, wall = cs.profiled(lambda: render(scene, 8, pinned, device=dev))
+        ms, n = _device_sum(run, "bounce_kernel")
+        busy = sum(v[0] for v in run.values()) / 1e3
+        print(f"[split] {here} perbounce kernel 2, pinned 8-spp render cornell 800x800, repeat "
+              f"{rep}: {ms:.4f} ms of device time in {n} launches ({ms / max(n, 1):.4f} per "
+              f"launch); device busy {busy:.4f} ms of {wall:.4f} ms profiled; on {card}",
+              flush=True)
     captured = {}
     cs.capturing_render(scene, 8, pinned, dev, captured)
     tables = [t.contiguous() for t in pack_tables(scene)]
     margs = (tables, captured["origin"], captured["direction"], captured["throughput"],
              captured["sample"], captured["depth"], captured["prev"], captured["medium"], seed)
-    alive = captured.get("alive")
     n = margs[1].shape[0]
-    live = n if alive is None else int(alive.sum())
-    for label, kw in k2_variants:
-        kw = {} if kw is None or not alive_k2 else dict(kw, alive=alive)
-        ms = [cs.queued_ms(lambda: k2(*margs, nee=True, **kw)) for _ in range(2)]
-        print(f"[split] {here} perbounce kernel 2 {label} at super-step {cs.CAPTURE_STEP}, "
-              f"{live} of {n} lanes alive: {ms[0]:.4f} / {ms[1]:.4f} ms of device time "
-              f"(queued); on {card}", flush=True)
+    ms = [cs.queued_ms(lambda: k2(*margs, nee=True)) for _ in range(2)]
+    print(f"[split] {here} perbounce kernel 2 at super-step {cs.CAPTURE_STEP}, {n} lanes: "
+          f"{ms[0]:.4f} / {ms[1]:.4f} ms of device time (queued); on {card}", flush=True)
 
     # ---- kernel 2's replay variant (2r) at each bounce of the per-bounce
-    # scan of Cornell's primary rays, its alive plane thinning as paths end
+    # scan of Cornell's primary rays, its alive share thinning as paths end
     with torch.no_grad():
         pixel = torch.arange(n, dtype=torch.int64, device=dev)
         rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, pixel))
@@ -239,13 +214,11 @@ def perbounce(cs, card: str, here: str) -> None:
             depth = torch.full((n,), dep, dtype=torch.int32, device=dev)
             sargs = (tables, st["origin"], st["direction"], st["throughput"], pixel, depth,
                      st["prev"], medium, seed)
-            for label, kw in k2_variants:
-                kw = {} if kw is None or not alive_k2 else dict(kw, alive=on)
-                ms = [cs.queued_ms(lambda: k2(*sargs, nee=True, emit_replay=True, **kw))
-                      for _ in range(2)]
-                print(f"[split] {here} perbounce kernel 2r {label} at bounce {dep} of the scan, "
-                      f"{int(on.sum())} of {n} lanes alive: {ms[0]:.4f} / {ms[1]:.4f} ms of "
-                      f"device time (queued); on {card}", flush=True)
+            ms = [cs.queued_ms(lambda: k2(*sargs, nee=True, emit_replay=True))
+                  for _ in range(2)]
+            print(f"[split] {here} perbounce kernel 2r at bounce {dep} of the scan, "
+                  f"{int(on.sum())} of {n} lanes alive: {ms[0]:.4f} / {ms[1]:.4f} ms of "
+                  f"device time (queued); on {card}", flush=True)
             r = k2(*sargs, nee=True)
             on = on & ~r.terminate
             a = on[:, None]
@@ -258,9 +231,11 @@ def perbounce(cs, card: str, here: str) -> None:
     # ---- the per-bounce steps, kernel 3 ordered and (where the checkout
     # has it) in index order
     base = RenderConfig(wavefront=False, nee=True, max_depth=8, grad_full_trace=False)
-    k3_variants = [("as is", {})] + ([("index order", dict(ordered=False))] if ordered_k3 else [])
     for label, name, res in (("3", "cornell.txt", None), ("3v", "milky.txt", None),
                              ("3s", "ward.txt", (512, 512))):
+        k3_variants = [("as is", {})]
+        if ordered_k3 and label == "3s":
+            k3_variants.append(("index order", dict(ordered=False)))
         params, static = diff.params_from_description(desc_of(name, res), 0, device=dev)
         target = torch.zeros((static.resolution[0] * static.resolution[1], 3), **f32)
         for vlabel, kw in k3_variants:
@@ -360,7 +335,6 @@ def rows(cs, card: str, here: str) -> None:
 
     dev = torch.device("cuda")
     seed = key_to_seed(prng_key(0))
-    alive_k2 = _takes(bounce_fused.bounce_fused_cuda, "alive")
     for label, name, spp, res in (("2v", "sss", 2, (512, 512)), ("2hg", "sss", 2, (512, 512)),
                                   ("2m", "smooth_mesh", 2, (512, 512)),
                                   ("2s", "ward", 2, (512, 512)),
@@ -383,15 +357,11 @@ def rows(cs, card: str, here: str) -> None:
                  captured["sample"], captured["depth"], captured["prev"], medium, seed)
         kw = dict(nee=True, features=frozenset(feats), tex_defer=scene.textures is not None,
                   mesh=scene.mesh_tables)
-        alive = captured.get("alive")
-        cases = [("mask-free", {})] + ([("alive", dict(alive=alive))] if alive_k2 else [])
-        for clabel, ckw in cases:
-            ms = [cs.queued_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, **kw, **ckw))
-                  for _ in range(2)]
-            live = "" if alive is None else f", {int(alive.sum())} alive"
-            print(f"[split] {here} rows kernel {label} {clabel} {name} super-step "
-                  f"{cs.CAPTURE_STEP} ({margs[1].shape[0]} lanes{live}): {ms[0]:.4f} / "
-                  f"{ms[1]:.4f} ms of device time (queued); on {card}", flush=True)
+        ms = [cs.queued_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, **kw))
+              for _ in range(2)]
+        print(f"[split] {here} rows kernel {label} {name} super-step {cs.CAPTURE_STEP} "
+              f"({margs[1].shape[0]} lanes): {ms[0]:.4f} / {ms[1]:.4f} ms of device time "
+              f"(queued); on {card}", flush=True)
         if label == "2":
             rays = Rays(captured["origin"], captured["direction"])
             for klabel, fn in (("6", intersect_cuda.nearest_hit_cuda),

@@ -7,9 +7,9 @@
 // reverse lanes (trace_grad.cu; vol picks their kVol instances, 4v and 5v,
 // and the surface bits surf their kSurf ones, 4s and 5s) and the reverse
 // kernel's lane keys, one bounce
-// (bounce.cu; host_bounce_alive with an alive plane) and its backward
-// (bounce_grad.cu; vol: 3v, with the medium planes; surf: 3s; in a given
-// lane order) and its lane keys, the nearest hit, winner search and occlusion
+// (bounce.cu) and its backward (bounce_grad.cu; vol: 3v, with the medium
+// planes; surf: 3s; in a given lane order) and 3s's lane keys, the nearest
+// hit, winner search and occlusion
 // (intersect.cu), and the nearest triangle and triangle occlusion (mesh.cu,
 // chunk-culled with the padded boxes, or dense without).
 // host_trace_sched runs kernel 1 under a host emulation of its persistent
@@ -204,20 +204,6 @@ extern "C" void host_trace_sched(const float* gtab, int G, const float* mtab, co
               n_mesh, threads);
 }
 
-typedef decltype(&bounce_lane<false, false>) BounceLaneFn;
-
-// kernel 2's lane instance for the launcher's flags
-static BounceLaneFn bounce_instance(int vol, int hg, int surf, bool tex) {
-  if (tex)
-    return !vol ? bounce_lane<false, false, true, true>
-                : (hg ? bounce_lane<true, true, true, true> : bounce_lane<true, false, true, true>);
-  if (surf)
-    return !vol ? bounce_lane<false, false, true>
-                : (hg ? bounce_lane<true, true, true> : bounce_lane<true, false, true>);
-  return !vol ? bounce_lane<false, false> : (hg ? bounce_lane<true, true>
-                                                : bounce_lane<true, false>);
-}
-
 extern "C" void host_bounce(const float* gtab, int G, const float* mtab, const float* ltab,
                             const float* scal, unsigned seed, int nee, int n,
                             const float* origin, const float* direction, const float* thr,
@@ -231,37 +217,20 @@ extern "C" void host_bounce(const float* gtab, int G, const float* mtab, const f
                             int n_mesh) {
   const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f,
                  MeshTables{mtri, maabb, mnorm, muv, mdesc, n_mesh}, surf};
-  const BounceLaneFn lane = bounce_instance(vol, hg, surf, tex_u != nullptr);
+  decltype(&bounce_lane<false, false>) lane;
+  if (tex_u != nullptr)
+    lane = !vol ? bounce_lane<false, false, true, true>
+                : (hg ? bounce_lane<true, true, true, true> : bounce_lane<true, false, true, true>);
+  else if (surf)
+    lane = !vol ? bounce_lane<false, false, true>
+                : (hg ? bounce_lane<true, true, true> : bounce_lane<true, false, true>);
+  else
+    lane = !vol ? bounce_lane<false, false> : (hg ? bounce_lane<true, true>
+                                                  : bounce_lane<true, false>);
   for (int i = 0; i < n; ++i)
     lane(T, seed, nee, vol_nee, mw, (size_t)i, origin, direction, thr, sample, depth, prev,
          medium, contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium,
          replay_gid, replay_nee, tex_u, tex_v, tex_slot, nullptr, nullptr, nullptr, 0);
-}
-
-// Kernel 2 with an alive plane (bounce.cu): a lane whose flag is 0 writes
-// dead_lane's outputs, every other lane runs its bounce
-extern "C" void host_bounce_alive(const float* gtab, int G, const float* mtab, const float* ltab,
-                                  const float* scal, unsigned seed, int nee, int n,
-                                  const float* origin, const float* direction, const float* thr,
-                                  const unsigned* sample, const int* depth, const float* prev,
-                                  const float* medium, float* contrib, float* next_o,
-                                  float* next_d, float* thr_mult, unsigned char* terminate,
-                                  float* wspec, float* rru, float* out_medium, float* replay_gid,
-                                  float* replay_nee, int vol, int hg, int vol_nee, int mw,
-                                  int surf, float* tex_u, float* tex_v, float* tex_slot,
-                                  const unsigned char* alive) {
-  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f, MeshTables{}, surf};
-  const BounceLaneFn lane = bounce_instance(vol, hg, surf, tex_u != nullptr);
-  for (int i = 0; i < n; ++i) {
-    if (alive[i] == 0)
-      dead_lane(seed, mw, (size_t)i, origin, direction, sample, depth, prev, medium, contrib,
-                next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, replay_gid,
-                replay_nee, tex_u, tex_v, tex_slot);
-    else
-      lane(T, seed, nee, vol_nee, mw, (size_t)i, origin, direction, thr, sample, depth, prev,
-           medium, contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium,
-           replay_gid, replay_nee, tex_u, tex_v, tex_slot, nullptr, nullptr, nullptr, 0);
-  }
 }
 
 extern "C" void host_bounce_merge(const float* gtab, int G, const float* mtab, const float* ltab,
@@ -313,9 +282,8 @@ extern "C" void host_winner(const float* gtab, int G, int n, const float* origin
 }
 
 // kernel 3's lanes in the order `order` (null: index order), as the kernel
-// runs them: each lane's winner rows summed in its row sums (RowSums) and, in
-// the vacuum and surface instances, NEE's light and scalar columns in its
-// lane sums (LaneSums), both added to the row after the lane
+// runs them: in the vacuum and surface instances each lane's winner rows
+// summed in its row sums (RowSums) and added to the row after the lane
 extern "C" void host_bounce_bwd(const float* gtab, int G, const float* mtab, int M,
                                 const float* ltab, const float* scal, unsigned seed, int nee,
                                 int n, const float* origin, const float* direction,
@@ -329,36 +297,34 @@ extern "C" void host_bounce_bwd(const float* gtab, int G, const float* mtab, int
                                 const int* order) {
   const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f, MeshTables{}, surf};
   const RowLayout R = row_layout(G, M);
-  auto lane = vol ? (surf ? bounce_bwd_lane<true, true, false, RowSums>
-                          : bounce_bwd_lane<true, false, false, RowSums>)
-                  : (surf ? bounce_bwd_lane<false, true, true, RowSums>
-                          : bounce_bwd_lane<false, false, true, RowSums>);
+  auto vol_lane = surf ? bounce_bwd_lane<true, true> : bounce_bwd_lane<true, false>;
+  auto lane =
+      surf ? bounce_bwd_lane<false, true, RowSums> : bounce_bwd_lane<false, false, RowSums>;
   for (int k = 0; k < R.k; ++k) row[k] = 0.0f;
   for (int t = 0; t < n; ++t) {
     const int i = order != nullptr ? order[t] : t;
-    AD sums[LANE_SUMS] = {}, rows[ROW_SUMS] = {};
-    LaneSums ls{sums, 1, -1};
+    AD rows[ROW_SUMS] = {};
     RowSums rs{row, rows, 1, ROW_NONE, ROW_NONE};
-    lane(T, R, seed, nee, (size_t)i, origin, direction, thr, sample, depth, prev, replay_gid,
-         replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult, d_origin, d_direction, d_thr, rs,
-         &ls, vol_nee, medium, g_medium, d_medium);
-    lane_sums_add(row, R, ls);
+    if (vol)
+      vol_lane(T, R, seed, nee, (size_t)i, origin, direction, thr, sample, depth, prev,
+               replay_gid, replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult, d_origin,
+               d_direction, d_thr, row, vol_nee, medium, g_medium, d_medium);
+    else
+      lane(T, R, seed, nee, (size_t)i, origin, direction, thr, sample, depth, prev, replay_gid,
+           replay_nee, g_contrib, g_next_o, g_next_d, g_thr_mult, d_origin, d_direction, d_thr,
+           rs, vol_nee, medium, g_medium, d_medium);
     row_sums_add(rs);
   }
 }
 
-// kernel 3's lane keys (bounce_grad.cu:bounce_bwd_key; vol: 3v's, surf: 3s's)
+// kernel 3s's lane keys (bounce_grad.cu:bounce_bwd_key)
 extern "C" void host_bounce_bwd_keys(const float* gtab, const float* mtab, int n,
                                      const float* replay_gid, const float* replay_nee,
                                      const float* g_contrib, const float* g_next_o,
-                                     const float* g_next_d, const float* g_thr_mult,
-                                     const float* medium, const float* g_medium, int vol,
-                                     int surf, int* keys) {
-  const BwdKeyIn in{gtab,     mtab,     replay_gid, replay_nee, g_contrib,
-                    g_next_o, g_next_d, g_thr_mult, medium,     g_medium};
-  auto key = vol ? (surf ? bounce_bwd_key<true, true> : bounce_bwd_key<true, false>)
-                 : (surf ? bounce_bwd_key<false, true> : bounce_bwd_key<false, false>);
-  for (int i = 0; i < n; ++i) keys[i] = key(in, (size_t)i);
+                                     const float* g_next_d, const float* g_thr_mult, int* keys) {
+  const BwdKeyIn in{gtab,      mtab,     replay_gid, replay_nee,
+                    g_contrib, g_next_o, g_next_d,   g_thr_mult};
+  for (int i = 0; i < n; ++i) keys[i] = bounce_bwd_key(in, (size_t)i);
 }
 
 // boxes: the padded chunk boxes, or null for the dense sweep

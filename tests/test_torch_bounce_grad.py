@@ -238,44 +238,6 @@ def test_perbounce_loss_and_grad_matches_jax_and_full_trace(case, jax_losses):
                          _flat(params_to_numpy(full)), float(loss), grads)
 
 
-@pytest.mark.parametrize("rr", [False, True], ids=["no_rr", "rr"])
-def test_perbounce_alive_plane_leaves_the_gradient_unchanged(monkeypatch, rr):
-    """The per-bounce engine's scan hands each bounce its alive plane: the
-    forward writes a dead lane's defined outputs in place of its bounce, and
-    the backward's cotangents on those lanes are zero (the scan gates every
-    output of a dead lane away).  The loss and every gradient leaf equal the
-    step run with ``alive=None`` bit for bit."""
-    from pathtracer_tpu_torch.render import common, megakernel
-    from pathtracer_tpu_torch.scene.parser import parse_scene_text
-
-    desc = dataclasses.replace(parse_scene_text(MINI_SCENE, name="mini"), resolution=(8, 6))
-    params, static = diff.params_from_description(desc, 0, device="cpu")
-    cfg = RenderConfig(max_depth=4, nee=True, grad_full_trace=False, russian_roulette=rr,
-                       rr_start=1)
-    target = torch.full((48, 3), 0.2)
-    planes = []
-    fused_diff = common.bounce_fused_diff
-
-    def spying(*a, alive=None, **k):
-        planes.append(alive)
-        return fused_diff(*a, alive=alive, **k)
-
-    monkeypatch.setattr(common, "bounce_fused_diff", spying)
-    loss, grads = diff.loss_and_grad(params, static, target, 2, prng_key(3), cfg, device="cpu")
-    assert planes and all(p is not None for p in planes)
-    assert any(not bool(p.all()) for p in planes)
-    shade = megakernel.shade_bounce
-    monkeypatch.setattr(megakernel, "shade_bounce",
-                        lambda *a, alive=None, **k: shade(*a, **k))
-    planes.clear()
-    loss2, grads2 = diff.loss_and_grad(params, static, target, 2, prng_key(3), cfg, device="cpu")
-    assert planes and all(p is None for p in planes)
-    assert float(loss) == float(loss2)
-    for k, v in grads.leaves().items():
-        assert torch.equal(v, grads2.leaves()[k]), k
-    assert any(bool(v.any()) for v in grads.leaves().values())
-
-
 @pytest.mark.parametrize("engine", [{}, dict(grad_full_trace=False)], ids=["full", "perbounce"])
 def test_checkpoint_per_iteration_above_8_spp(monkeypatch, engine):
     """Above 8 spp each iteration of a fused-scope engine runs under a

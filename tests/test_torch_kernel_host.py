@@ -125,9 +125,7 @@ def host_lib(tmp_path_factory):
     lib.host_mesh_occ.argtypes = [P] * 6 + [I, I] + [P] * 4
     lib.host_bounce_bwd.argtypes = ([P, I, P, I, P, P, ctypes.c_uint, I, I] + [P] * 16 + [I] * 3
                                     + [P] * 3 + [P])
-    lib.host_bounce_bwd_keys.argtypes = [P, P, I] + [P] * 8 + [I, I, P]
-    lib.host_bounce_alive.argtypes = ([P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 17
-                                      + [I] * 5 + [P] * 3 + [P])
+    lib.host_bounce_bwd_keys.argtypes = [P, P, I] + [P] * 7
     return lib
 
 
@@ -472,85 +470,35 @@ def test_bounce_replay_and_backward_lanes_match_plain(host_lib, scene_name, nee)
         assert not bool(k[dead[:, 0]].any())
 
 
-# kernel 2 with an alive plane: lanes, share of them alive
-ALIVE_CASES = {"all alive": (2048, 1.0), "none alive": (2048, 0.0), "30% alive": (2048, 0.3),
-               "70% alive": (2048, 0.7), "n not a multiple of 32": (2013, 0.5)}
-
-
-@pytest.mark.parametrize("case", sorted(ALIVE_CASES))
-def test_bounce_alive_plane_matches_index_order(host_lib, case):
-    """Kernel 2 with an alive plane (``host_bounce_alive``, the kernel's
-    per-lane exit): every live lane's 21 outputs (replay planes too) equal
-    ``bounce_lane``'s in index order bit for bit, and every dead lane holds
-    the values ``bounce_fused_plain(alive=...)`` writes, bit for bit: no
-    contribution, the ray passed through, a zero throughput multiplier,
-    terminate set, the emit state and the medium passed through, the
-    russian-roulette uniform, replay gid -1 and NEE bit 0."""
-    n, share = ALIVE_CASES[case]
-    seed = 77
-    tables, t, medium = _bounce_args("cornell", n, 41)
-    alive = torch.from_numpy(np.random.default_rng(3).random(n) < share)
-    ref, ref_gid, ref_nee = _host_bounce(host_lib, tables, t, medium, seed, True)
-    outs = [torch.empty((n, 3)) for _ in range(4)] + [
-        torch.empty(n, dtype=torch.uint8), torch.empty(n), torch.empty(n), torch.empty((n, 4))]
-    rgid, rnee = torch.empty(n), torch.empty(n)
-    host_lib.host_bounce_alive(
-        tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(), tables[2].data_ptr(),
-        tables[3].data_ptr(), seed, 1, n,
-        *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
-                                    "prev")),
-        medium.data_ptr(), *(o.data_ptr() for o in outs), rgid.data_ptr(), rnee.data_ptr(),
-        *VACUUM, 4, *NO_SURF, alive.data_ptr(),
-    )
-    for got, want in zip(outs + [rgid, rnee], ref + [ref_gid, ref_nee]):
-        assert torch.equal(got[alive], want[alive])
-    args = (tables, t["origin"], t["direction"], t["throughput"], t["sample"].long(),
-            t["depth"], t["prev"], medium, seed)
-    plain, p_gid, p_nee = bounce_fused.bounce_fused_plain(*args, nee=True, emit_replay=True,
-                                                          alive=alive)
-    whole, w_gid, w_nee = bounce_fused.bounce_fused_plain(*args, nee=True, emit_replay=True)
-    dead = ~alive
-    want = (plain.contrib, plain.next_origin, plain.next_direction, plain.throughput_mult,
-            plain.terminate.to(torch.uint8), plain.was_specular, plain.rr_uniform,
-            plain.next_medium, p_gid, p_nee)
-    for got, w in zip(outs + [rgid, rnee], want):
-        assert torch.equal(got[dead], w[dead])
-    assert bool(plain.terminate[dead].all()) and not bool(plain.contrib[dead].any())
-    assert torch.equal(plain.next_origin[dead], t["origin"][dead])
-    assert bool((p_gid[dead] == -1).all()) and not bool(p_nee[dead].any())
-    # the plain version's live lanes are its mask-free lanes
-    for a, b in zip((plain.contrib, plain.next_direction, p_gid), (whole.contrib,
-                                                                    whole.next_direction, w_gid)):
-        assert torch.equal(a[alive], b[alive])
-
-
 def _bwd_case(name, n):
     """Random lanes of kernel 3's instances: ``(tables, lanes, medium,
-    features)``; cornell and glossy in vacuum (3), ggx_ward with its
-    surface features (3s), vol_mini with seeded medium carries (3v)."""
+    features)``; cornell in vacuum (3), ggx_ward with its surface features
+    (3s), vol_mini with seeded medium carries (3v)."""
     if name == "vol_mini":
         tables, t, medium = _vol_lanes(name, n, 13)
         return tables, t, medium, frozenset({"volumetric"})
     if name == "ggx_ward":
         _, tables, feats = _surf_grad_scene(name, (8, 8))
         lanes = random_lanes(n, seed=47)
-        lanes["origin"] = (lanes["origin"] * 0.8 + np.array([0.0, 2.0, 0.0])).astype(np.float32)
-        return tables, {k: torch.from_numpy(v) for k, v in lanes.items()}, torch.zeros((n, 4)), feats
+        lanes["origin"] = (lanes["origin"] * 0.8 + np.array(CENTRES[name])).astype(np.float32)
+        t = {k: torch.from_numpy(v) for k, v in lanes.items()}
+        return tables, t, torch.zeros((n, 4)), feats
     tables, t, medium = _bounce_args(name, n, 31)
     return tables, t, medium, frozenset()
 
 
-@pytest.mark.parametrize("name", ["cornell", "glossy", "ggx_ward", "vol_mini"])
+@pytest.mark.parametrize("name", ["cornell", "ggx_ward", "vol_mini"])
 def test_bounce_bwd_keys_and_lane_order(host_lib, name):
-    """Kernel 3's lane keys (``bounce_grad.cu:bounce_bwd_key``) equal
+    """Kernel 3s's lane keys (``bounce_grad.cu:bounce_bwd_key``) equal
     ``bounce_grad.bounce_bwd_keys_plain``'s on every lane, a third of the
     lanes with zero cotangents (the dead lanes of the per-bounce engine,
-    which take the last key); and kernel 3 run in a lane order grouped by
-    key (within a key in a random order, as the card's place pass leaves it)
-    gives every lane's d_origin, d_direction, d_throughput (and d_medium)
-    bit-equal to index order, and a table row within the float64
-    reference's bars (every cotangent within 1e-4 of itself plus 1e-6 of its
-    table's largest)."""
+    which take the last key); and kernel 3 (3s on ggx_ward, 3v on
+    vol_mini, each lane's winner rows in its row sums in 3 and 3s) run in
+    a lane order grouped by key (within a key in a random order, as the
+    card's place pass leaves it) gives every lane's d_origin, d_direction,
+    d_throughput (and d_medium) bit-equal to index order, and a table row
+    within the float64 reference's bars (every cotangent within 1e-4 of
+    itself plus 1e-6 of its table's largest)."""
     n, seed = 2048, 77
     tables, t, medium, feats = _bwd_case(name, n)
     vol, surf = int("volumetric" in feats), trace.surface_bits(feats)
@@ -563,19 +511,18 @@ def test_bounce_bwd_keys_and_lane_order(host_lib, name):
     cots = [torch.where(dead, 0.0, torch.from_numpy(r.standard_normal((n, 3)).astype(np.float32)))
             for _ in range(4)]
     g_med = torch.where(dead, 0.0, torch.from_numpy(r.standard_normal((n, 4)).astype(np.float32)))
-    want = bounce_grad.bounce_bwd_keys_plain(tables[0], tables[1], rgid, rnee, cots, feats,
-                                             medium=medium, g_medium=g_med)
+    want = bounce_grad.bounce_bwd_keys_plain(tables[0], tables[1], rgid, rnee, cots)
     got = torch.empty(n, dtype=torch.int32)
     host_lib.host_bounce_bwd_keys(tables[0].data_ptr(), tables[1].data_ptr(), n,
                                   rgid.data_ptr(), rnee.data_ptr(), *(c.data_ptr() for c in cots),
-                                  medium.data_ptr(), g_med.data_ptr(), vol, surf, got.data_ptr())
+                                  got.data_ptr())
     counts = torch.bincount(want, minlength=256)
     print(f"{name}: lanes per key {({k: int(c) for k, c in enumerate(counts) if c})}")
     assert torch.equal(got, want)
     assert int(counts[bounce_grad.KEY_ZERO]) == int(dead.sum())
-    assert int(counts[bounce_grad.KEY_MISS] + counts[bounce_grad.KEY_MISS
-                                                       + bounce_grad.KEY_SCATTER]) > 0
-    assert len(torch.unique(want)) >= 5
+    assert int(counts[bounce_grad.KEY_MISS]) > 0 and len(torch.unique(want)) >= 4
+    if name == "ggx_ward":
+        assert int(counts[bounce_grad.KEY_LOBE]) > 0
 
     order = torch.from_numpy(np.lexsort((r.random(n), want.numpy())).astype(np.int32))
     assert torch.equal(want[order.long()], torch.sort(want).values)
@@ -601,8 +548,10 @@ def test_bounce_bwd_keys_and_lane_order(host_lib, name):
     (row_i, lanes_i), (row_o, lanes_o) = runs
     for a, b in zip(lanes_i, lanes_o):
         assert torch.equal(a, b)
-    for w, k in zip(ref[:4], row_o):
-        assert bool(((k.double() - w).abs() <= 1e-4 * w.abs() + 1e-6 * float(w.abs().max())).all())
+    for row in (row_i, row_o):
+        for w, k in zip(ref[:4], row):
+            bar = 1e-4 * w.abs() + 1e-6 * float(w.abs().max())
+            assert bool(((k.double() - w).abs() <= bar).all())
     assert not bool(torch.cat([x[dead[:, 0]].reshape(-1) for x in lanes_o]).any())
 
 

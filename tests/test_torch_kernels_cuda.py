@@ -1411,76 +1411,6 @@ def test_bounce_surface_kernel_matches_plain(name, nee):
         assert torch.equal(getattr(got, f.name), getattr(want, f.name)), f.name
 
 
-# ---- kernel 2 with an alive plane, on every instance built from it
-
-
-def _alive_case(name, n):
-    """Random lanes of one instance of kernel 2: ``(args, kw)`` of
-    ``bounce_fused_cuda`` / ``bounce_fused_plain``."""
-    from pathtracer_tpu_torch.render.features import features_for_materials
-
-    t = _random_lanes_cuda(n, 19)
-    scene_name = {"2": "cornell", "2r": "cornell", "2v": "sss", "2r-v": "sss", "2hg": "sss",
-                  "2m": "smooth_mesh"}.get(name, name)
-    scene = _surface_scene(scene_name, (8, 8))
-    centre = {"sss": [0.0, 1.2, 0.0], "smooth_mesh": [0.0, 1.8, 0.0]}.get(
-        scene_name, CENTRES.get(scene_name, [0.0, 0.0, 0.0]))
-    origin = (t["origin"] * 0.7 + torch.tensor(centre, device="cuda")).contiguous()
-    width = 5 if name == "2hg" else 4
-    medium = torch.zeros((n, width), device="cuda")
-    feats = frozenset()
-    if scene_name == "sss":
-        gen = torch.Generator(device="cuda").manual_seed(4)
-        medium = torch.rand((n, width), device="cuda", generator=gen) * torch.tensor(
-            [0.3, 0.3, 0.3, 3.0, 0.9][:width], device="cuda")
-        feats = frozenset({"volumetric", "hg"} if name == "2hg" else {"volumetric"})
-    elif scene_name not in ("cornell", "smooth_mesh"):
-        feats = frozenset(features_for_materials(scene.materials))
-    kw = dict(nee=True, features=feats, emit_replay=name.startswith("2r"),
-              tex_defer=scene.textures is not None,
-              mesh=scene.mesh_tables if scene_name == "smooth_mesh" else None)
-    args = (pack_tables(scene), origin, t["direction"], t["throughput"], t["sample"].long(),
-            t["depth"], t["prev"], medium.contiguous(), 4321)
-    return args, kw
-
-
-def _planes(out):
-    """Every output plane of kernel 2 (the result's fields, then the replay
-    or texel planes)."""
-    res, *extra = out if isinstance(out, tuple) else (out,)
-    return [getattr(res, f.name) for f in dataclasses.fields(res)] + extra
-
-
-@pytest.mark.parametrize("share", [0.0, 0.5, 1.0])
-@pytest.mark.parametrize("name", ["2", "2r", "2v", "2r-v", "2hg", "ggx_ward", "textured_image",
-                                  "2m"])
-def test_bounce_kernel_with_alive_plane(name, share):
-    """Kernel 2 and its instances (vacuum, replay, media, hg, surface
-    (2s; 2r-s on ggx_ward's replay is held in chip_smoke.py), texel, mesh)
-    with an alive plane at 0%, 50% and 100% of 60,013 lanes: every live
-    lane's planes equal the mask-free launch's bit for bit, every dead lane's
-    equal ``bounce_fused_plain(alive=...)``'s bit for bit; the instances held
-    bit-equal to plain elsewhere (media, surface, texel) are so here on
-    every lane."""
-    _need_cuda()
-    from pathtracer_tpu_torch.ops import bounce_fused
-
-    n = 60_013
-    args, kw = _alive_case(name, n)
-    gen = torch.Generator(device="cuda").manual_seed(5)
-    alive = (torch.rand(n, device="cuda", generator=gen) < share).contiguous()
-    whole = _planes(bounce_fused.bounce_fused_cuda(*args, **kw))
-    plain = _planes(bounce_fused.bounce_fused_plain(*args, alive=alive, **kw))
-    exact = name not in ("2", "2r", "2m")
-    got = _planes(bounce_fused.bounce_fused_cuda(*args, alive=alive, **kw))
-    torch.cuda.synchronize()
-    for i, (g, w, p) in enumerate(zip(got, whole, plain)):
-        assert torch.equal(g[alive], w[alive]), i
-        assert torch.equal(g[~alive], p[~alive]), i
-        if exact:
-            assert torch.equal(g, p), i
-
-
 @pytest.mark.parametrize("name", ["ward", "textured", "textured_image"])
 def test_surface_render_launches_its_kernels(name):
     """Through ``render``: the megakernel route runs kernel 1s once per

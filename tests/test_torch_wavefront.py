@@ -91,69 +91,6 @@ def test_wavefront_matches_megakernel(engine):
     assert ws["rays_traced"] == ms["rays_traced"]
 
 
-def _drop_alive(monkeypatch, module):
-    """``module.shade_bounce`` without its ``alive`` argument: the path
-    before the engines passed their alive plane (kernel 2 mask-free)."""
-    shade = module.shade_bounce
-
-    def without_alive(*a, alive=None, **k):
-        return shade(*a, **k)
-
-    monkeypatch.setattr(module, "shade_bounce", without_alive)
-
-
-@pytest.mark.parametrize("engine", [dict(wavefront=True), dict(QUEUE, wavefront_capacity=1 << 9),
-                                    dict(wavefront=True, russian_roulette=True, rr_start=2)],
-                         ids=["pinned", "queue", "pinned_rr"])
-def test_alive_plane_leaves_the_render_unchanged(monkeypatch, engine):
-    """The engines hand kernel 2 their alive plane (here its plain version,
-    which writes a dead lane's defined outputs in place of its bounce);
-    every dead lane's outputs are gated away, so the render equals the one
-    with ``alive=None``: the pinned engine bit for bit, the queue engine
-    within its 1e-6 (its flushes add in the order the refills take), with
-    equal ray counts."""
-    from pathtracer_tpu_torch.render import common
-
-    scene = _cornell((24, 24))
-    cfg = RenderConfig(max_depth=6, iters_per_launch=4, **engine)
-    planes = []
-    fused = common.bounce_fused
-
-    def spying(*a, alive=None, **k):
-        planes.append(alive)
-        return fused(*a, alive=alive, **k)
-
-    monkeypatch.setattr(common, "bounce_fused", spying)
-    _, got, gs = render(scene, 4, cfg, device="cpu")
-    assert planes and all(p is not None for p in planes)
-    assert any(not bool(p.all()) for p in planes)  # some super-step holds dead lanes
-    _drop_alive(monkeypatch, wavefront)
-    planes.clear()
-    _, want, ws = render(scene, 4, cfg, device="cpu")
-    assert planes and all(p is None for p in planes)
-    assert gs["rays_traced"] == ws["rays_traced"]
-    if engine.get("wavefront_pinned", True):
-        assert torch.equal(got, want)
-    else:
-        torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
-
-
-def test_megakernel_scan_alive_plane_leaves_the_render_unchanged(monkeypatch):
-    """The megakernel's per-bounce scan (a scene with image textures takes
-    it, kernel 2's texel variant) passes its alive plane too; the render
-    equals the one without it bit for bit."""
-    from pathtracer_tpu_torch.render import megakernel
-
-    desc = load_scene(os.path.join(ROOT, "scenes", "textured_image.txt"))
-    scene = dataclasses.replace(desc, resolution=(16, 16)).scene_for_frame(0, device="cpu")
-    cfg = RenderConfig(max_depth=4, iters_per_launch=2)
-    _, got, gs = render(scene, 2, cfg, device="cpu")
-    _drop_alive(monkeypatch, megakernel)
-    _, want, ws = render(scene, 2, cfg, device="cpu")
-    assert gs["rays_traced"] == ws["rays_traced"]
-    assert torch.equal(got, want)
-
-
 def test_megakernel_split_scan_matches_trace():
     """``fused=False`` on the megakernel runs the per-bounce scan over the
     split route; it traces the same samples as the full-depth trace."""
