@@ -283,7 +283,33 @@ Phases (any failure exits non-zero):
     (the Ward lobe counted on the lanes that sample it; 5s's as 5's); the
     new instances' registers, Cornell's 3 / 4 / 5 at 152 / 72 / 168 and 3s
     at 168 with 20 B of spill;
-15. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+15. ``[rng]``, threefry (``fast_rng=False``): its bounce draw (``[N, 11]``,
+    per-lane depths) and camera draw (``[N, 4]``) on 640,000 CUDA lanes of
+    seeded sample indices (some past 2^31) bit-equal to the CPU's, each
+    with its device time and launches beside the counter hash's;
+16. ``[slowrng]``: Cornell at its 800x800, depth 8, NEE, 2 spp through
+    ``render`` with ``RenderConfig(fast_rng=False)`` and the counters zeroed
+    just before: the per-bounce scan on the split route, kernels 6 and 8
+    once per bounce (16 each) and nothing else; finite image; one
+    iteration's wall time, device busy time, idle share and threefry's
+    share of the device time (its draws' device time from ``[rng]``); at
+    200x200 the card's render against the CPU's plain split route (ray
+    counts equal, 99.5% of entries within 2e-4, sums within 2e-5);
+17. ``[grad:slowrng]``: one lean ``loss_and_grad_rays`` step at 200x200,
+    depth 8, 1 spp with ``fast_rng=False`` (the forward's split route,
+    kernels 6 and 8, and the backward's lean re-trace, kernels 7 and 8,
+    once per bounce: 8, 16 and 8 launches), profiled, its loss within 1e-5
+    relative and every leaf within 5e-4 of the largest gradient of the
+    CPU's step;
+18. ``[motion]``: ``render/motion.render_motion`` of frames 0-1 of
+    ``scenes/animation.txt`` at its 400x400, depth 8, NEE, 8 spp (kernel 1
+    once per iteration and nothing else) and of ``deform_demo.txt`` at its
+    320x320, 2 spp (kernel 1m, the lerped 20-triangle mesh in the
+    in-kernel sweep), each with the counters zeroed just before; finite
+    images; one iteration's wall and device time; at 64x64 the card's
+    motion renders against the CPU's (ray counts equal, 99.5% within 2e-4,
+    sums within 2e-5);
+19. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
 The rendered PNGs and the profile table go to ``--out-dir`` (default
 ``renders/chip_smoke``).
@@ -3858,6 +3884,181 @@ def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     ]
 
 
+SLOW_RES_CHECK = (200, 200)  # the slow-RNG renders and step held to the CPU's plain route
+SLOW_SPP = 2
+MOTION_SPP = 8
+MOTION_CHECK_RES = (64, 64)
+
+
+def slow_rng_phase(desc, dev, card: str, out_dir: str) -> None:
+    """Phases 15-17: threefry (``fast_rng=False``).  ``[rng]``: its bounce
+    and camera draws on CUDA tensors bit-equal to the CPU's at 640,000
+    lanes, their device time and launches.  ``[slowrng]``: Cornell at its
+    800x800, 2 spp through ``render``, which takes the scan on the split
+    route: kernels 6 and 8 once per bounce and nothing else; the
+    iteration's wall and device time and threefry's share of it; at 200x200
+    the card's render against the CPU's plain split route.
+    ``[grad:slowrng]``: one lean step at 200x200, 1 spp (kernels 6 and 8 in
+    the forward, 7 and 8 in the backward's re-trace, once per bounce), its
+    loss and leaves against the CPU's step."""
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops.camera import camera_uniforms
+    from pathtracer_tpu_torch.ops.rng import KeyedSeed, prng_key
+    from pathtracer_tpu_torch.render import diff
+    from pathtracer_tpu_torch.render.common import bounce_uniforms
+    from pathtracer_tpu_torch.render.features import resolve_features
+    from pathtracer_tpu_torch.render.integrator import render, render_chunk
+    from pathtracer_tpu_torch.utils.imageio import save_image
+
+    seed = KeyedSeed(prng_key(0))
+    scene = desc.scene_for_frame(0, device=dev)
+    w, h = scene.camera.width, scene.camera.height
+    n = w * h
+
+    # ---- [rng] threefry on the card == on the CPU, bit for bit
+    gen = torch.Generator().manual_seed(17)
+    sample = torch.randint(0, 1 << 32, (n,), generator=gen, dtype=torch.int64)
+    sample[:4] = torch.tensor([0, (1 << 31) - 1, 1 << 31, (1 << 32) - 1])
+    depth = torch.randint(0, 8, (n,), generator=gen, dtype=torch.int32)
+    draws = {
+        "bounce": lambda s, d, fast: bounce_uniforms(seed, s, d, fast_rng=fast),
+        "camera": lambda s, d, fast: camera_uniforms(seed, s, fast_rng=fast),
+    }
+    s_dev, d_dev = sample.to(dev), depth.to(dev)
+    rng_ms = {}
+    for name, draw in draws.items():
+        got = draw(s_dev, d_dev, False)
+        want = draw(sample, depth, False)
+        equal = torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+        timed = {}
+        for fast in (False, True):
+            run, _ = profiled(lambda: draw(s_dev, d_dev, fast), reps=3)
+            timed[fast] = (sum(us for us, _ in run.values()) / 1e3 / 3,
+                           sum(c for _, c in run.values()) // 3)
+        rng_ms[name] = timed[False][0]
+        print(f"[rng] threefry {name} uniforms {tuple(got.shape)} on the card bit-equal to the "
+              f"CPU's: {equal}; {timed[False][0]:.4f} ms of device time in {timed[False][1]} "
+              f"launches per draw (the counter hash: {timed[True][0]:.4f} ms in "
+              f"{timed[True][1]}); on {card}")
+        check(equal, f"threefry {name} uniforms differ between the card and the CPU")
+
+    # ---- [slowrng] the full-width render through the entry point
+    cfg = RenderConfig(max_depth=8, nee=True, fast_rng=False, iters_per_launch=SLOW_SPP)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, acc, stats = render(scene, SLOW_SPP, cfg, device=dev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    bounces = SLOW_SPP * cfg.max_depth
+    print(f"[slowrng] cornell {w}x{h} d8 nee fast_rng=False spp={SLOW_SPP}: {wall_s:.3f} s, rays "
+          f"{stats['rays_traced']}, launches {launches}")
+    check(launches == only(nearest_hit=bounces, occlusion=bounces),
+          f"slow-RNG render launches {launches}")
+    check(tuple(img.shape) == (h, w, 3) and bool(torch.isfinite(acc).all())
+          and bool((acc >= 0).all()) and stats["rays_traced"] >= SLOW_SPP * n,
+          "slow-RNG render: bad image, accumulator or ray count")
+    save_image(os.path.join(out_dir, "chip_smoke_cornell_slowrng.png"), img.cpu().numpy())
+    rcfg = resolve_features(cfg, scene.materials)
+    acc0 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+
+    def iteration():
+        return render_chunk(scene, acc0, 0, seed, rcfg, 1)
+
+    iter_ms = cuda_ms(iteration, reps=3)
+    run, prof_ms = profiled(iteration)
+    busy_ms = sum(us for us, _ in run.values()) / 1e3
+    named = {k: sum(us for name, (us, _) in run.items() if k in name) / 1e3
+             for k in ("nearest_kernel", "occlusion_kernel")}
+    rng_iter = cfg.max_depth * rng_ms["bounce"] + rng_ms["camera"]
+    write_kernel_table(run, os.path.join(out_dir, "profile_slowrng_iteration.txt"))
+    print(f"[slowrng:time] iteration {iter_ms:.4f} ms wall ({prof_ms:.4f} profiled), device busy "
+          f"{busy_ms:.4f} ms, idle share {1 - busy_ms / iter_ms:.3f}, "
+          f"{sum(c for _, c in run.values())} launches; "
+          + "; ".join(f"{k} {v:.4f} ms" for k, v in named.items())
+          + f"; threefry {rng_ms['bounce']:.4f} ms per bounce, {rng_iter:.4f} ms per iteration "
+          f"(8 bounces and the camera), {rng_iter / busy_ms:.3f} of the device time; on {card}")
+    small = dataclasses.replace(desc, resolution=SLOW_RES_CHECK)
+    _, acc_k, st_k = render(small.scene_for_frame(0, device=dev), SLOW_SPP, cfg, device=dev)
+    _, acc_p, st_p = render(small.scene_for_frame(0, device="cpu"), SLOW_SPP, cfg, device="cpu")
+    check(st_k["rays_traced"] == st_p["rays_traced"], "slow-RNG ray counts differ card vs CPU")
+    check_close("slowrng", acc_k.cpu(), acc_p, 0.995, 2e-5,
+                f"{SLOW_RES_CHECK[0]}x{SLOW_RES_CHECK[1]} card vs the CPU's plain split route")
+
+    # ---- [grad:slowrng] one lean step through the entry point
+    gcfg = RenderConfig(wavefront=False, nee=True, max_depth=8, fast_rng=False)
+    step = grad_step("[grad:slowrng]", ("color",), dev, 1, out_dir, "lean", small, gcfg,
+                     only(nearest_hit=8, occlusion=16, winner=8),
+                     kernels=("nearest_kernel", "winner_kernel", "occlusion_kernel"))
+    params, static = diff.params_from_description(small, 0, device="cpu")
+    target = torch.zeros((static.resolution[0] * static.resolution[1], 3))
+    loss_p, grads_p, _ = diff.loss_and_grad_rays(params, static, target, 1, prng_key(0), gcfg,
+                                                 device="cpu")
+    got, want = step["grads"].leaves(), grads_p.leaves()
+    gscale = max(float(v.abs().max()) for v in want.values())
+    worst, leaf = max((float((got[k].cpu() - want[k]).abs().max()), k) for k in want)
+    loss_rel = abs(float(step["loss"]) - float(loss_p)) / abs(float(loss_p))
+    print(f"[grad:slowrng:check] loss card {float(step['loss']):.9g} CPU {float(loss_p):.9g} "
+          f"({loss_rel:.3g} relative); worst leaf {leaf} {worst:.3g} of gscale {gscale:.4g}")
+    check(loss_rel <= 1e-5 and worst <= 5e-4 * max(gscale, 1.0),
+          "slow-RNG lean step: card and CPU apart beyond the lean bars")
+
+
+def motion_phase(dev, card: str, out_dir: str) -> None:
+    """Phase 18, ``[motion]``: ``render/motion.render_motion`` of
+    ``scenes/animation.txt``'s frames 0-1 at its 400x400, depth 8, NEE, 8
+    spp, with the counters zeroed just before: kernel 1 once per iteration
+    and nothing else; ``deform_demo.txt`` (lerped vertices, 20 triangles) at
+    its 320x320, 2 spp: kernel 1m once per iteration; at 64x64 the card's
+    motion renders against the CPU's plain ones; the iteration's time."""
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops.rng import KeyedSeed, prng_key
+    from pathtracer_tpu_torch.render.motion import render_motion, shutter_time
+    from pathtracer_tpu_torch.scene.parser import load_scene
+    from pathtracer_tpu_torch.utils.imageio import save_image
+
+    cfg = RenderConfig(max_depth=8, nee=True, iters_per_launch=MOTION_SPP)
+    for name, spp, counter in (("animation", MOTION_SPP, "trace"),
+                               ("deform_demo", SLOW_SPP, "trace_mesh")):
+        desc = load_scene(os.path.join(ROOT, "scenes", f"{name}.txt"))
+        w, h = desc.resolution
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        img, acc, stats = render_motion(desc, 0, spp, cfg, device=dev)
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+        launches = read_counts()
+        print(f"[motion] {name} {w}x{h} d8 nee frames 0-1 spp={spp}: {wall_s:.3f} s, rays "
+              f"{stats['rays_traced']}, launches {launches}")
+        check(launches == only(**{counter: spp}), f"{name} motion launches {launches}")
+        check(tuple(img.shape) == (h, w, 3) and bool(torch.isfinite(acc).all())
+              and stats["rays_traced"] >= spp * w * h, f"{name} motion: bad image or rays")
+        save_image(os.path.join(out_dir, f"chip_smoke_{name}_motion.png"), img.cpu().numpy())
+        wall_ms = cuda_ms(lambda: render_motion(desc, 0, 1, cfg, device=dev), reps=2)
+        run, _ = profiled(lambda: render_motion(desc, 0, 1, cfg, device=dev))
+        busy_ms = sum(us for us, _ in run.values()) / 1e3
+        seed = KeyedSeed(prng_key(0))
+        t0 = time.perf_counter()
+        for it in range(100):
+            shutter_time(seed, it)
+        t_ms = (time.perf_counter() - t0) * 10
+        print(f"[motion:time] {name}: one iteration {wall_ms:.4f} ms wall (scene build, tables, "
+              f"camera, kernel), device busy {busy_ms:.4f} ms, idle share "
+              f"{1 - busy_ms / wall_ms:.3f}; the shutter time {t_ms:.4f} ms on the host; on {card}")
+        small = dataclasses.replace(desc, resolution=MOTION_CHECK_RES)
+        _, acc_k, st_k = render_motion(small, 0, SLOW_SPP, cfg, device=dev)
+        _, acc_p, st_p = render_motion(small, 0, SLOW_SPP, cfg, device="cpu")
+        check(st_k["rays_traced"] == st_p["rays_traced"], f"{name}: ray counts differ")
+        check_close("motion", acc_k.cpu(), acc_p, 0.995, 2e-5,
+                    f"{name} {MOTION_CHECK_RES[0]}x{MOTION_CHECK_RES[1]} card vs CPU")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4081,7 +4282,15 @@ def main() -> int:
     grad_surf_kernels = grad_surf_phase(dev, card, out_dir, reports)
     wall("[grad:surf]")
 
-    # ---- 15. results
+    # ---- 15-17. threefry (fast_rng=False): the draws, the split route, the lean step
+    slow_rng_phase(desc, dev, card, out_dir)
+    wall("[rng], [slowrng] and [grad:slowrng]")
+
+    # ---- 18. motion blur
+    motion_phase(dev, card, out_dir)
+    wall("[motion]")
+
+    # ---- 19. results
     kernels = [
         {
             "name": "trace",

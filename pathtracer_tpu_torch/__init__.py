@@ -2,8 +2,9 @@
 for the NVIDIA H100.
 
 A port of the JAX package ``pathtracer_tpu`` (which stays the reference):
-the same scene DSL, the same ``RenderConfig`` knobs and the same
-counter-hash RNG, so one seed gives the same samples in both.  The
+the same scene DSL, the same ``RenderConfig`` knobs and the same RNGs (the
+counter hash, and threefry under ``fast_rng=False``), so one seed gives the
+same samples in both.  The
 full-depth trace runs as one hand-written CUDA kernel per progressive
 iteration (``csrc/trace.cu``); the differentiable render runs a forward
 kernel with residuals and a reverse kernel per iteration

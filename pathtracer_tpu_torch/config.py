@@ -34,7 +34,7 @@ class RenderConfig:
     accum_dtype: str = "float32"  # HDR sum accumulator dtype
     compute_dtype: str = "float32"
     seed: int = 0
-    fast_rng: bool = True  # counter-hash RNG (the only RNG the port has)
+    fast_rng: bool = True  # counter-hash RNG; False: threefry, as jax.random (split route)
     pallas: bool | None = None
     fused: bool | None = None
     grad_fused: bool | None = None

@@ -380,7 +380,9 @@ def bounce_fused(scene, origin, direction, throughput, sample_idx, depth, prev_s
     None (vacuum)."""
     check_features(cfg.features)
     if not cfg.fast_rng:
-        raise NotImplementedError("per-bounce kernel for fast_rng=False: later slice")
+        raise NotImplementedError(
+            "the per-bounce kernel draws the counter hash: fast_rng=False takes "
+            "render/common.shade_bounce's split route, as in JAX")
     tables = tables if tables is not None else pack_tables(scene)
     if medium_sigma is None:
         medium_sigma = torch.zeros((origin.shape[0], medium_width(cfg.features)),

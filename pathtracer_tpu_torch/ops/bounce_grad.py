@@ -295,9 +295,8 @@ def bounce_fused_diff(scene, origin, direction, throughput, sample_idx, depth, p
     check_diff_features(cfg.features, "fused")
     if not fused_diff_eligible(scene, cfg):
         raise NotImplementedError(
-            "the per-bounce differentiable engine takes no meshes, image textures or HG media (the "
-            "lean engine, RenderConfig(grad_fused=False), runs them) and no fast_rng=False: "
-            "later slice"
+            "the per-bounce differentiable engine takes no meshes, image textures, HG media or "
+            "fast_rng=False (the lean engine, RenderConfig(grad_fused=False), runs them)"
         )
     gtab, mtab, ltab, scal = tables if tables is not None else pack_tables(scene)
     if medium_sigma is None:

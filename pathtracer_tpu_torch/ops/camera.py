@@ -1,7 +1,7 @@
 """Batched camera ray generation.
 
-Port of ``pathtracer_tpu/ops/camera.py:32-130`` and of the fast-RNG half
-of ``pathtracer_tpu/render/common.py:51-58`` (``camera_uniforms``).
+Port of ``pathtracer_tpu/ops/camera.py:32-130`` and of
+``pathtracer_tpu/render/common.py:51-58`` (``camera_uniforms``, both RNGs).
 Conventions: basis ``A = view x up``, ``B = A x view``; half-extents
 ``|view| tan(fovx)`` along A and ``|view| tan(-fovy)`` along B (row 0 is the
 top of the image); pixel coordinates ``x / (w - 1)``; one uniform jitter
@@ -16,13 +16,17 @@ import math
 
 import torch
 
-from pathtracer_tpu_torch.ops.rng import CAMERA_STREAM, hash_uniforms
+from pathtracer_tpu_torch.ops.rng import CAMERA_STREAM, hash_uniforms, sample_keys, uniform
 from pathtracer_tpu_torch.scene.structs import Camera, Rays
 
 
-def camera_uniforms(seed: int, sample_idx: torch.Tensor) -> torch.Tensor:
-    """``[N, 4]`` camera jitter + lens uniforms per global sample."""
-    return hash_uniforms(seed, sample_idx, CAMERA_STREAM, 4)
+def camera_uniforms(seed: int, sample_idx: torch.Tensor, fast_rng: bool = True) -> torch.Tensor:
+    """``[N, 4]`` camera jitter + lens uniforms per global sample: the
+    counter hash's camera stream, or with ``fast_rng`` off threefry's
+    ``uniform(fold_in(key, sample), (4,))`` (``seed`` a ``KeyedSeed``)."""
+    if fast_rng:
+        return hash_uniforms(seed, sample_idx, CAMERA_STREAM, 4)
+    return uniform(sample_keys(seed, sample_idx), (4,))
 
 
 def _cross(a, b):

@@ -8,6 +8,12 @@ murmur3 fmix32 finalizer over that counter lattice, top 24 bits scaled to
 [0, 1).  No ``torch.Generator`` is involved, so the same seed gives the same
 samples as the JAX package and as the CUDA kernel (``csrc/trace.cu``).
 
+Under ``cfg.fast_rng=False`` the uniforms are threefry's instead
+(``ops/threefry.py``, re-exported here), keyed by ``fold_in`` of the
+render's key with the sample index (and ``depth + 1`` for a bounce).  The
+routes carry the seed as a :class:`KeyedSeed`: the counter hash's int
+seed, which every kernel takes, with the key's two words beside it.
+
 Torch has no complete uint32 arithmetic, so values are carried as int64
 masked to 32 bits.  A product of two 32-bit values can exceed 2^63, so
 :func:`_u32mul` splits one factor into 16-bit halves.
@@ -16,6 +22,8 @@ masked to 32 bits.  A product of two 32-bit values can exceed 2^63, so
 from __future__ import annotations
 
 import torch
+
+from pathtracer_tpu_torch.ops.threefry import fold_in, uniform  # noqa: F401
 
 MASK32 = 0xFFFFFFFF
 CAMERA_STREAM = 0x10000  # depth slot reserved for camera/lens draws
@@ -49,6 +57,35 @@ def key_to_seed(base_key) -> int:
     """Collapse a key (sequence of uint32 words) to the uint32 seed."""
     words = [int(w) & MASK32 for w in base_key]
     return _avalanche(_u32mul(words[0], 0x9E3779B9) ^ words[-1])
+
+
+class KeyedSeed(int):
+    """:func:`key_to_seed` of a threefry key: an ``int``, the seed every
+    route and kernel takes, that carries the key's two uint32 words in
+    ``key`` for the routes that draw threefry uniforms (``fast_rng=False``)
+    and for the motion-blur shutter time."""
+
+    key: tuple
+
+    def __new__(cls, base_key):
+        words = tuple(int(w) & MASK32 for w in base_key)
+        if len(words) != 2:
+            raise ValueError(f"a threefry key has two words, got {len(words)}")
+        self = super().__new__(cls, key_to_seed(words))
+        self.key = words
+        return self
+
+
+def sample_keys(seed, sample_idx: torch.Tensor) -> torch.Tensor:
+    """``fold_in(key, sample)`` per lane, ``[N, 2]``: the threefry keys of
+    the global sample indices (their uint32 bits), from the key ``seed``
+    carries (a :class:`KeyedSeed`)."""
+    key = getattr(seed, "key", None)
+    if key is None:
+        raise TypeError("fast_rng=False draws threefry uniforms from the render's key: pass "
+                        "the seed as ops.rng.KeyedSeed(key), not a bare int")
+    keys = torch.tensor(key, dtype=torch.int64, device=sample_idx.device)
+    return fold_in(keys, sample_bits(sample_idx))
 
 
 def sample_bits(sample_idx: torch.Tensor) -> torch.Tensor:

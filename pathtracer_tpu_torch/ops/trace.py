@@ -320,8 +320,8 @@ def trace_fused(scene, rays, sample_idx, seed: int, cfg, tables=None):
     if not fused_trace_eligible(scene, cfg):
         raise NotImplementedError(
             "the one-kernel trace takes no image textures, no meshes above 4096 triangles "
-            "(their scenes run the per-bounce scan, render/megakernel.trace_paths) and no "
-            "fast_rng=False"
+            "and no fast_rng=False (their scenes run the per-bounce scan, "
+            "render/megakernel.trace_paths)"
         )
     gtab, mtab, ltab, scal = tables if tables is not None else pack_tables(scene)
     kw = dict(

@@ -596,9 +596,8 @@ def trace_fused_diff(scene, rays, sample_idx, seed: int, cfg, tables=None):
     check_diff_features(cfg.features, "fused")
     if not fused_diff_eligible(scene, cfg):
         raise NotImplementedError(
-            "the full-depth differentiable trace takes no meshes, image textures or HG media (the "
-            "lean engine, RenderConfig(grad_fused=False), runs them) and no fast_rng=False: "
-            "later slice"
+            "the full-depth differentiable trace takes no meshes, image textures, HG media or "
+            "fast_rng=False (the lean engine, RenderConfig(grad_fused=False), runs them)"
         )
     gtab, mtab, ltab, scal = tables if tables is not None else pack_tables(scene)
     opts = dict(

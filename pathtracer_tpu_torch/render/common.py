@@ -2,15 +2,17 @@
 scan call.
 
 Port of ``pathtracer_tpu/render/common.py``: ``bounce_uniforms``
-(``:37-48``), ``BounceResult`` (``:61-77``, defined in
-``ops/bounce_fused.py`` and re-exported here) and ``shade_bounce``
-(``:101-582``).  One bounce is: nearest hit,
+(``:37-48``, the counter hash or threefry by ``cfg.fast_rng``),
+``BounceResult`` (``:61-77``, defined in ``ops/bounce_fused.py`` and
+re-exported here) and ``shade_bounce`` (``:101-582``).  One bounce is: nearest hit,
 emittance under the 0/1/2 emit-state code, BSDF continuation, and NEE at
 diffuse hits with a shadow ray.  Two routes:
 
 * fused (``cfg.fused`` None or True): ``ops/bounce_fused.bounce_fused``,
   kernel 2 on a CUDA tensor;
-* split (``cfg.fused=False``): ``ops/intersect_cuda.nearest_hit`` (kernel
+* split (``cfg.fused=False``, and ``cfg.fast_rng=False``, whose threefry
+  uniforms kernel 2 does not draw: a warning says so, as JAX's does,
+  ``:145-190``): ``ops/intersect_cuda.nearest_hit`` (kernel
   6), ``ops/bsdf.gather_materials`` / ``sample_bsdf``,
   ``ops/lights.sample_lights`` and ``ops/intersect_cuda.occlusion_t``
   (kernel 8) for the shadow ray, the rest in PyTorch ops, in the JAX split
@@ -85,6 +87,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import warnings
 
 import torch
 
@@ -108,7 +111,7 @@ from pathtracer_tpu_torch.ops.intersect_cuda import nearest_hit, occlusion_t, wi
 from pathtracer_tpu_torch.ops.lights import sample_lights
 from pathtracer_tpu_torch.ops.mesh import merge_mesh_winners
 from pathtracer_tpu_torch.ops.mesh_tables import mesh_inkernel_eligible
-from pathtracer_tpu_torch.ops.rng import hash_uniforms
+from pathtracer_tpu_torch.ops.rng import fold_in, hash_uniforms, sample_keys, uniform
 from pathtracer_tpu_torch.ops.texture import compute_uv, sample_atlas
 from pathtracer_tpu_torch.ops.trace_grad import fused_diff_eligible
 from pathtracer_tpu_torch.scene.structs import Rays
@@ -116,10 +119,17 @@ from pathtracer_tpu_torch.scene.structs import Rays
 __all__ = ["BounceResult", "bounce_uniforms", "shade_bounce"]
 
 
-def bounce_uniforms(seed: int, sample_idx, depth) -> torch.Tensor:
+def bounce_uniforms(seed: int, sample_idx, depth, fast_rng: bool = True) -> torch.Tensor:
     """``[N, 11]`` uniforms, a pure function of (seed, sample, depth): 3 for
-    the BSDF, 1 for russian roulette, 4 for the light sample, 3 for media."""
-    return hash_uniforms(seed, sample_idx, depth, 11)
+    the BSDF, 1 for russian roulette, 4 for the light sample, 3 for media.
+    ``fast_rng`` takes the counter hash; otherwise threefry's
+    ``uniform(fold_in(fold_in(key, sample), depth + 1), (11,))`` per lane,
+    with ``seed`` a ``KeyedSeed``."""
+    if fast_rng:
+        return hash_uniforms(seed, sample_idx, depth, 11)
+    keys = sample_keys(seed, sample_idx)
+    d1 = (depth.to(torch.int64) if isinstance(depth, torch.Tensor) else int(depth)) + 1
+    return uniform(fold_in(keys, d1), (11,))
 
 
 def _cached(cache, key, fn):
@@ -156,8 +166,6 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
         check_diff_features(cfg.features, "lean")
     if replay is not None and (not cfg.grad_lean or scene.meshes):
         raise ValueError("a replay is the lean split route's, on scenes without meshes")
-    if not cfg.fast_rng:
-        raise NotImplementedError("shade_bounce for fast_rng=False: later slice")
     tables = tables if tables is not None else pack_tables(scene)
     if medium_sigma is None:
         medium_sigma = torch.zeros((throughput.shape[0], medium_width(cfg.features)),
@@ -170,7 +178,17 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
     if cfg.grad_lean and fused_diff_eligible(scene, cfg):
         return bounce_fused_diff(scene, rays.origin, rays.direction, throughput, sample_idx,
                                  depth, prev_specular, medium_sigma, seed, cfg, tables=tables)
-    if cfg.fused is not False and not cfg.grad_lean and not vol_mesh:
+    use_fused = cfg.fused is not False and not cfg.grad_lean and not vol_mesh
+    if use_fused and not cfg.fast_rng:
+        # kernel 2 draws the counter hash: threefry's samples take the split
+        # route, with JAX's warning (:145-190)
+        warnings.warn(
+            ("fused bounce kernel auto-disabled (fast_rng=False) — rendering on the split "
+             "per-op path") if cfg.fused is None else
+            "cfg.fused=True unsupported (fast_rng=False) — falling back to the split per-op path",
+            stacklevel=2)
+        use_fused = False
+    if use_fused:
         return bounce_fused(scene, rays.origin, rays.direction, throughput, sample_idx, depth,
                             prev_specular, medium_sigma, seed, cfg, tables=tables)
 
@@ -237,7 +255,7 @@ def shade_bounce(scene, rays: Rays, throughput, sample_idx, depth, prev_specular
             torch.linalg.vector_norm(n_bumped, dim=-1, keepdim=True), min=1e-12)
         normal = torch.where(bump_on[:, None], n_bumped, normal)
 
-    u = bounce_uniforms(seed, sample_idx, depth)
+    u = bounce_uniforms(seed, sample_idx, depth, cfg.fast_rng)
 
     sigma_a = medium_sigma[:, 0:3]
     sigma_s = medium_sigma[:, 3]

@@ -23,8 +23,9 @@ Engines (``diff.py:279-327``), chosen per scene as JAX chooses them:
   above 8 spp each iteration runs under ``torch.utils.checkpoint``, so one
   iteration's residuals are alive at a time and the backward recomputes
   them with the forward kernels;
-* any other scene (``grad_fused=False``, and every mesh scene, as JAX's
-  ``fused_diff_eligible`` excludes meshes) runs each iteration as
+* any other scene (``grad_fused=False``, ``fast_rng=False``, and every mesh
+  scene, as JAX's ``fused_diff_eligible`` excludes meshes) runs each
+  iteration as
   :class:`LeanSample`: the backward re-traces the lean scan (kernels 7 and
   8, and 9 and 10 per mesh, detached; PyTorch shading, a checkpoint per
   bounce) and returns the scene's cotangents.  On a scene of the fused
@@ -34,7 +35,8 @@ Engines (``diff.py:279-327``), chosen per scene as JAX chooses them:
   them; on the others the forward is the fast forward engine (kernel 1 for
   hg media, 1m for meshes up to 4096 triangles; above that and with image
   textures the per-bounce scan on kernel 2's mesh-merge and deferred-texel
-  variants) and the re-trace runs its own searches.  JAX takes this split only on a TPU and
+  variants; under ``fast_rng=False`` the scan on the split route, kernels 6
+  and 8) and the re-trace runs its own searches.  JAX takes this split only on a TPU and
   runs the lean graph both ways on the CPU; the port takes it on every
   device.
 
@@ -71,7 +73,7 @@ from torch.utils.checkpoint import checkpoint
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.ops.accel import build_mesh_accel, refresh_accel
 from pathtracer_tpu_torch.ops.bounce import check_diff_features, pack_tables
-from pathtracer_tpu_torch.ops.rng import key_to_seed
+from pathtracer_tpu_torch.ops.rng import KeyedSeed
 from pathtracer_tpu_torch.ops.texture import TextureAtlas, build_atlas
 from pathtracer_tpu_torch.ops.trace_grad import fused_diff_eligible, replay_scope, trace_replay
 from pathtracer_tpu_torch.ops.transforms import build_transform
@@ -361,7 +363,7 @@ def lean_parted(params: SceneParams, static: SceneStatic, iteration: int, base_k
     float32 rounding (1e-4 of 1 + the forward's)."""
     cfg_fwd, cfg_bwd = lean_cfgs(cfg, params.materials)
     scene = build_scene(params, static)
-    seed = key_to_seed(base_key)
+    seed = KeyedSeed(base_key)
     w, h = static.resolution
     pix = torch.arange(w * h, dtype=torch.int64, device=params.device)
     tables = pack_tables(scene)
@@ -383,7 +385,7 @@ def render_linear_rays(params: SceneParams, static: SceneStatic, spp: int, base_
     cfg_fwd, cfg_bwd = lean_cfgs(cfg, params.materials)
     check_diff_features(cfg_bwd.features, "lean")  # each engine checks its own features
     scene = build_scene(params, static)
-    seed = key_to_seed(base_key)
+    seed = KeyedSeed(base_key)
     w, h = static.resolution
     pixel_index = torch.arange(w * h, dtype=torch.int64, device=params.device)
     if fused_diff_eligible(scene, cfg_bwd):

@@ -24,7 +24,7 @@ import torch
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.ops.bounce import pack_tables
 from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
-from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+from pathtracer_tpu_torch.ops.rng import KeyedSeed, prng_key
 from pathtracer_tpu_torch.ops.tonemap import tonemap
 from pathtracer_tpu_torch.render.features import resolve_features
 from pathtracer_tpu_torch.render.megakernel import DEBUG_MISSING, trace_paths
@@ -47,9 +47,10 @@ def resolve_device(device) -> torch.device:
 def camera_sample(scene: Scene, pixel_index, iteration: int, seed: int, cfg: RenderConfig):
     """One progressive iteration's primary rays and global sample indices
     ``iteration * N + pixel``, computed in int64 (the RNG reduces them mod
-    2^32, which gives the bits of JAX's wrapping int32)."""
+    2^32, which gives the bits of JAX's wrapping int32); the camera
+    uniforms follow ``cfg.fast_rng``."""
     sample_idx = iteration * pixel_index.shape[0] + pixel_index.to(torch.int64)
-    u4 = camera_uniforms(seed, sample_idx)
+    u4 = camera_uniforms(seed, sample_idx, cfg.fast_rng)
     return generate_camera_rays(scene.camera, pixel_index, u4, jitter=cfg.jitter), sample_idx
 
 
@@ -111,7 +112,7 @@ def render(
     cfg = resolve_features(cfg or RenderConfig(), scene.materials)
     if cfg.debug:  # every engine: nothing here checks the accumulator yet
         raise NotImplementedError(DEBUG_MISSING)
-    seed = key_to_seed(base_key if base_key is not None else prng_key(cfg.seed))
+    seed = KeyedSeed(base_key if base_key is not None else prng_key(cfg.seed))
     w, h = scene.camera.width, scene.camera.height
     if accum is None:
         accum = torch.zeros((w * h, 3), dtype=torch.float32, device=scene.device)

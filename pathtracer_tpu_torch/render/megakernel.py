@@ -28,7 +28,9 @@ integrator.
 A scene with image textures takes the per-bounce scan on every route, as
 JAX's ``trace_paths`` does (its trace kernel refuses them): with
 ``cfg.fused`` None the scan's ``shade_bounce`` runs kernel 2's
-deferred-texel variant.
+deferred-texel variant.  So does ``cfg.fast_rng=False`` (the kernels draw
+the counter hash), whose scan takes the split route (kernels 6 and 8) and,
+under ``cfg.grad_lean``, the lean scan (kernels 7 and 8).
 
 Mesh scenes whose meshes total at most 4096 triangles take the full-depth
 trace with the in-kernel triangle sweep (kernel 1's mesh variant); larger
@@ -66,7 +68,7 @@ def scan_paths(scene: Scene, rays: Rays, sample_idx, seed: int, cfg: RenderConfi
     does.  Under ``cfg.grad_lean`` outside the fused scope each bounce runs
     under a checkpoint with its own lean cache (the module docstring says
     why); the checkpoint keeps no torch RNG state, since the port's
-    sampling is the counter hash.  ``replay``, the lean scan's only, is
+    sampling is a pure function of (key, sample, depth).  ``replay``, the lean scan's only, is
     ``(gid [depth, N], nee [depth, N], ray [depth, 6, N])`` of
     ``ops/trace_grad.trace_replay``: bounce ``k`` takes the winner and NEE
     bit of row ``k`` (and its checkpoint's recompute the same), and its ray
@@ -136,9 +138,9 @@ def trace_paths(
         return scan_paths(scene, rays, sample_idx, seed, cfg, tables=tables, replay=replay)
     if cfg.grad_lean and fused_diff_eligible(scene, cfg) and cfg.grad_full_trace is not False:
         return trace_fused_diff(scene, rays, sample_idx, seed, cfg, tables=tables)
-    if cfg.grad_lean or cfg.fused is False or (cfg.fast_rng
-                                                and not fused_trace_eligible(scene, cfg)):
-        # image textures and meshes above the in-kernel cap stay outside the
-        # one-kernel trace, as in JAX (:44-64)
+    if cfg.grad_lean or cfg.fused is False or not fused_trace_eligible(scene, cfg):
+        # image textures, meshes above the in-kernel cap and threefry's
+        # samples (fast_rng=False) stay outside the one-kernel trace, as in
+        # JAX (:44-64)
         return scan_paths(scene, rays, sample_idx, seed, cfg, tables=tables)
     return trace_fused(scene, rays, sample_idx, seed, cfg, tables=tables)

@@ -55,8 +55,8 @@ super_steps = 0  # super-steps run by both engines in this process
 
 def _spawn(scene, global_pix, sample, seed: int, cfg) -> Rays:
     """Camera rays of the given global pixels and global sample indices."""
-    return generate_camera_rays(scene.camera, global_pix, camera_uniforms(seed, sample),
-                                jitter=cfg.jitter)
+    return generate_camera_rays(scene.camera, global_pix,
+                                camera_uniforms(seed, sample, cfg.fast_rng), jitter=cfg.jitter)
 
 
 def _step(scene, st, seed: int, cfg, tables):

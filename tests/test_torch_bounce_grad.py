@@ -213,7 +213,7 @@ def test_bounce_diff_dispatch_on_device():
     with pytest.raises(ValueError, match="CUDA"):
         bounce_fused.bounce_fused_cuda(*args, torch.zeros(64, 4), SEED, nee=True,
                                        emit_replay=True)
-    with pytest.raises(NotImplementedError, match="later slice"):
+    with pytest.raises(NotImplementedError, match="fast_rng=False"):
         bounce_grad.bounce_fused_diff(scene, o, lanes["direction"], lanes["throughput"],
                                       lanes["sample"].long(), 2, lanes["prev"], None, SEED,
                                       dataclasses.replace(cfg, fast_rng=False), tables=tables)

@@ -56,7 +56,7 @@ from pathtracer_tpu_torch.ops import trace, trace_grad
 from pathtracer_tpu_torch.ops.bounce import bounce_physics, pack_tables
 from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
 from pathtracer_tpu_torch.ops.intersect import T_MIN
-from pathtracer_tpu_torch.ops.rng import hash_uniforms_planes, prng_key
+from pathtracer_tpu_torch.ops.rng import KeyedSeed, hash_uniforms_planes, prng_key
 from pathtracer_tpu_torch.ops.transforms import build_transform
 from pathtracer_tpu_torch.render import diff
 from pathtracer_tpu_torch.render.megakernel import trace_paths
@@ -325,8 +325,9 @@ def test_trace_diff_dispatch_on_device(mini_desc):
     """CPU rays take the plain versions under autograd; the kernel wrappers
     refuse CPU tensors (nothing falls back); the per-bounce engine
     (``grad_full_trace=False``) runs and gives the full-depth trace's
-    radiance and origin cotangents; ``fast_rng=False`` waits for its
-    slice."""
+    radiance and origin cotangents; ``fast_rng=False`` takes the lean scan
+    (threefry's samples, the seed a ``KeyedSeed``) and gives a finite origin
+    gradient."""
     scene = dataclasses.replace(mini_desc, resolution=(5, 4)).scene_for_frame(0, device="cpu")
     tables = pack_tables(scene)
     pix = torch.arange(20)
@@ -352,8 +353,15 @@ def test_trace_diff_dispatch_on_device(mini_desc):
     rad2.sum().backward()
     assert torch.equal(rad2.detach(), rad.detach()) and int(nrays2) == int(nrays)
     assert torch.allclose(o2.grad, o.grad, rtol=1e-5, atol=1e-6)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        trace_paths(scene, rays, pix, 3, dataclasses.replace(cfg, fast_rng=False))
+    o3 = rays.origin.clone().requires_grad_()
+    before = (trace.launches, trace_grad.fwd_launches, trace_grad.bwd_launches)
+    rad3, nrays3 = trace_paths(scene, Rays(o3, rays.direction), pix, KeyedSeed(prng_key(3)),
+                               dataclasses.replace(cfg, fast_rng=False), tables=tables)
+    rad3.sum().backward()
+    assert (trace.launches, trace_grad.fwd_launches, trace_grad.bwd_launches) == before
+    assert bool(torch.isfinite(rad3).all()) and int(nrays3) >= 20
+    assert o3.grad is not None and bool(torch.isfinite(o3.grad).all())
+    assert float(o3.grad.abs().max()) > 0
 
 
 # ---------------------------------------------------------------------------
