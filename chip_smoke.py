@@ -309,7 +309,29 @@ Phases (any failure exits non-zero):
     images; one iteration's wall and device time; at 64x64 the card's
     motion renders against the CPU's (ray counts equal, 99.5% within 2e-4,
     sums within 2e-5);
-19. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+19. ``[debug]``: Cornell at its 800x800, depth 8, NEE, 2 spp on the
+    megakernel engine with ``RenderConfig(debug=True)``, one iteration per
+    chunk, the counters zeroed just before: the per-bounce scan, kernel 2
+    once per bounce (16) and no kernel 1; the alive histogram starts at
+    2 x 640,000, never rises and counts the rays (a shadow ray per alive
+    lane); the accumulator against kernel 1's render of the same seed
+    (99.9% of entries within 1e-5 relative, sums within 2e-5; the entries
+    bit-equal counted); a NaN in material 1's colour raises the finite
+    check's ``RuntimeError`` for the window ``[0, 1)`` on the megakernel
+    and on the pinned engine;
+20. ``[ckpt]``: Cornell 800x800 on the megakernel, 4 spp in chunks of 2
+    with a checkpoint (``utils/checkpoint.save``) written from
+    ``progress_fn`` at 2, loaded and resumed to 4: bit-equal to the straight
+    render; then the CLI in a subprocess at 200x200, ``--spp 4 --checkpoint
+    --checkpoint-every 2 --preview-every 2 --debug``: exit 0 on ``cuda``,
+    the preview, the image and a checkpoint at 4 spp written;
+21. ``[interactive]``: ``render/interactive.interactive_loop`` on Cornell
+    800x800 with the script ``w j refine 1 save quit``, previews of 1 spp
+    and a full render of 2, the counters zeroed just before: kernel 1 six
+    times (three previews, one refine, two for the save); the 2-spp
+    preview accumulator bit-equal to a fresh 2-spp render of the rig's
+    camera and the ``.full.png`` equal to its PNG; a preview's wall time;
+22. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
 The rendered PNGs and the profile table go to ``--out-dir`` (default
 ``renders/chip_smoke``).
@@ -4059,6 +4081,200 @@ def motion_phase(dev, card: str, out_dir: str) -> None:
                     f"{name} {MOTION_CHECK_RES[0]}x{MOTION_CHECK_RES[1]} card vs CPU")
 
 
+DEBUG_SPP = 2
+CKPT_SPP = 4
+CKPT_CLI_RES = (200, 200)
+
+
+def _within_golden(acc, ref):
+    """Entries within 1e-5 relative, as ``[golden]`` holds them."""
+    return (acc - ref).abs() <= 1e-5 * (ref.abs() + 1e-3)
+
+
+def debug_phase(desc, dev, card: str) -> None:
+    """Phase 19, ``[debug]``: the debug engine at full width (the module
+    docstring lists the checks)."""
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.render.integrator import render
+
+    scene = desc.scene_for_frame(0, device=dev)
+    w, h = scene.camera.width, scene.camera.height
+    n = w * h
+    cfg = RenderConfig(max_depth=8, nee=True, debug=True, iters_per_launch=1)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img, acc, stats = render(scene, DEBUG_SPP, cfg, device=dev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    hist = stats["alive_per_bounce"]
+    print(f"[debug] cornell {w}x{h} d8 nee spp={DEBUG_SPP} debug=True: {wall_s:.3f} s, rays "
+          f"{stats['rays_traced']}, alive per bounce {hist}, launches {launches}")
+    check(launches == only(bounce=DEBUG_SPP * cfg.max_depth),
+          f"debug render launches {launches}")
+    check(len(hist) == cfg.max_depth and hist[0] == DEBUG_SPP * n
+          and all(a >= b for a, b in zip(hist, hist[1:]))
+          and sum(hist) * 2 == stats["rays_traced"], f"debug histogram {hist}")
+    check(tuple(img.shape) == (h, w, 3) and bool(torch.isfinite(acc).all()),
+          "debug render: bad image or accumulator")
+    _, ref, ref_stats = render(scene, DEBUG_SPP, dataclasses.replace(cfg, debug=False),
+                               device=dev)
+    share = float(_within_golden(acc, ref).float().mean())
+    sum_rel = float((acc.double().sum() - ref.double().sum()).abs() / ref.double().sum())
+    equal = int((acc == ref).sum())
+    print(f"[debug:check] against kernel 1's render of the seed: {share:.6f} of entries within "
+          f"1e-5 relative, {equal} of {acc.numel()} bit-equal, sums within {sum_rel:.3g}; rays "
+          f"{stats['rays_traced']} against {ref_stats['rays_traced']}")
+    check(share >= 0.999 and sum_rel <= 2e-5, "the debug scan and kernel 1 apart")
+    color = scene.materials.color.clone()
+    color[1, 0] = float("nan")
+    bad = dataclasses.replace(scene, materials=dataclasses.replace(scene.materials, color=color))
+    for engine, extra in (("megakernel", {}), ("pinned", dict(wavefront=True))):
+        try:
+            render(bad, DEBUG_SPP, dataclasses.replace(cfg, **extra), device=dev)
+            message = "no error"
+        except RuntimeError as e:  # the finite check's, checked by its message below
+            message = str(e)
+        print(f"[debug:nan] {engine}: {message}")
+        check(message == "debug: non-finite accumulator after spp window [0, 1)",
+              f"{engine}: a NaN material did not raise the finite check")
+    warm = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render(scene, DEBUG_SPP, cfg, device=dev)
+        torch.cuda.synchronize()
+        warm.append((time.perf_counter() - t0) * 1e3)
+    print(f"[debug:time] the debug render at {DEBUG_SPP} spp {wall_s * 1e3:.4f} ms wall (the "
+          f"counted run), then {warm[0]:.4f} / {warm[1]:.4f}; on {card}")
+
+
+def ckpt_phase(desc, dev, card: str, out_dir: str) -> None:
+    """Phase 20, ``[ckpt]``: a checkpoint and its resume at full width,
+    then the CLI's checkpoint, preview and debug flags in a subprocess."""
+    import re
+
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.render.integrator import render
+    from pathtracer_tpu_torch.utils import checkpoint as ckpt
+
+    scene = desc.scene_for_frame(0, device=dev)
+    cfg = RenderConfig(max_depth=8, nee=True, iters_per_launch=2)
+    path = os.path.join(out_dir, "chip_smoke_ckpt.npz")
+    save_s = []
+
+    def progress(done, acc):
+        if done == 2:
+            t0 = time.perf_counter()
+            ckpt.save(path, acc, done, 0, cfg.seed)
+            save_s.append(time.perf_counter() - t0)
+
+    zero_counts()
+    _, straight, st = render(scene, CKPT_SPP, cfg, progress_fn=progress, device=dev)
+    t0 = time.perf_counter()
+    state = ckpt.load(path)
+    acc = torch.from_numpy(state["accum"]).to(dev)
+    load_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, resumed, st2 = render(scene, CKPT_SPP - state["spp_done"], cfg, accum=acc,
+                             start_iteration=state["spp_done"], device=dev)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    launches = read_counts()
+    same = bool(torch.equal(resumed, straight))
+    print(f"[ckpt] cornell {scene.camera.width}x{scene.camera.height} {CKPT_SPP} spp in "
+          f"chunks of 2, checkpoint at "
+          f"{state['spp_done']} ({save_s[0] * 1e3:.1f} ms to write, {load_s * 1e3:.1f} ms to "
+          f"load onto the card), resumed to {CKPT_SPP} in {resume_s * 1e3:.1f} ms: bit-equal "
+          f"to the straight render: {same}; launches {launches}; on {card}")
+    check(state["spp_done"] == 2 and state["frame"] == 0 and state["accum"].shape == (
+        scene.camera.width * scene.camera.height, 3), f"checkpoint state {state['spp_done']}")
+    check(same, "the resumed accumulator differs from the straight render")
+    check(launches == only(trace=CKPT_SPP + CKPT_SPP - state["spp_done"]),
+          f"checkpoint renders launches {launches}")
+
+    text = open(os.path.join(ROOT, "scenes", "cornell.txt")).read()
+    scene_file = os.path.join(out_dir, "cornell_ckpt_cli.txt")
+    with open(scene_file, "w") as f:
+        f.write(re.sub(r"RES\s+\d+\s+\d+", "RES %d %d" % CKPT_CLI_RES, text))
+    ck = os.path.join(out_dir, "cli_ckpt.npz")
+    out = os.path.join(out_dir, "cli_ckpt.png")
+    for stale in (ck, out.replace(".png", ".0.png"), out.replace(".png", ".0.preview.png")):
+        if os.path.exists(stale):
+            os.remove(stale)
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "pathtracer_tpu_torch.cli", f"scene={scene_file}", "--spp",
+         str(CKPT_SPP), "--checkpoint", ck, "--checkpoint-every", "2", "--preview-every", "2",
+         "--debug", "--out", out],
+        cwd=ROOT, capture_output=True, text=True, timeout=300,
+    )
+    cli_s = time.perf_counter() - t0
+    print(f"[ckpt:cli] exit {cli.returncode} in {cli_s:.1f} s: {cli.stdout.strip()} "
+          f"{cli.stderr.strip()[-2000:]}")
+    check(cli.returncode == 0, "CLI run with --checkpoint --debug failed")
+    check("device=cuda" in cli.stdout and "engine=megakernel" in cli.stdout,
+          "the CLI did not run the megakernel on cuda")
+    state = ckpt.load(ck)
+    check(state is not None and state["spp_done"] == CKPT_SPP and state["frame"] == 0,
+          "the CLI's checkpoint is missing or not at the full spp")
+    for written in (out.replace(".png", ".0.png"), out.replace(".png", ".0.preview.png")):
+        check(os.path.exists(written), f"the CLI did not write {written}")
+
+
+def interactive_phase(desc, dev, card: str, out_dir: str) -> None:
+    """Phase 21, ``[interactive]``: the camera REPL on a scripted stdin."""
+    import io
+
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.render.integrator import render
+    from pathtracer_tpu_torch.render.interactive import interactive_loop
+    from pathtracer_tpu_torch.utils.imageio import load_png, save_image
+
+    cfg = RenderConfig(max_depth=8, nee=True)
+    out = os.path.join(out_dir, "chip_smoke_interactive.png")
+    log, state = io.StringIO(), {}
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    renders = interactive_loop(desc, 0, cfg, preview_spp=1, out_path=out, full_spp=2,
+                               stdin=io.StringIO("w j refine 1 save quit\n"), stdout=log,
+                               device=dev, state=state)
+    wall_s = time.perf_counter() - t0
+    launches = read_counts()
+    print("[interactive] " + " | ".join(line.strip() for line in log.getvalue().splitlines()))
+    print(f"[interactive] {renders} renders in {wall_s:.3f} s, launches {launches}")
+    check(launches == only(trace=6), f"interactive launches {launches}")
+    scene = desc.scene_for_frame(0, device=dev)
+    moved = dataclasses.replace(scene, camera=state["rig"].camera(scene.camera))
+    img, fresh, _ = render(moved, 2, cfg, device=dev)
+    same = state["spp"] == 2 and bool(torch.equal(state["accum"], fresh))
+    want = os.path.join(out_dir, "chip_smoke_interactive_fresh.png")
+    save_image(want, img.cpu().numpy())
+    png_same = bool((load_png(out.replace(".png", ".full.png")) == load_png(want)).all())
+    print(f"[interactive:check] the 2-spp preview bit-equal to a fresh render of the rig's "
+          f"camera: {same}; the .full.png equal to its PNG: {png_same}")
+    check(same and png_same, "the interactive preview or save differs from a fresh render")
+
+    def preview():
+        t0 = time.perf_counter()
+        im, _, _ = render(moved, 1, cfg, device=dev)
+        save_image(out, im.cpu().numpy())
+        return (time.perf_counter() - t0) * 1e3
+
+    times = [preview() for _ in range(3)]
+    print(f"[interactive:time] a 1-spp preview (render, read back, PNG written) "
+          f"{', '.join(f'{t:.2f}' for t in times)} ms wall; on {card}")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4290,7 +4506,19 @@ def main() -> int:
     motion_phase(dev, card, out_dir)
     wall("[motion]")
 
-    # ---- 19. results
+    # ---- 19. the debug engine
+    debug_phase(desc, dev, card)
+    wall("[debug]")
+
+    # ---- 20. checkpoints and resume, and the CLI's flags
+    ckpt_phase(desc, dev, card, out_dir)
+    wall("[ckpt]")
+
+    # ---- 21. the interactive camera
+    interactive_phase(desc, dev, card, out_dir)
+    wall("[interactive]")
+
+    # ---- 22. results
     kernels = [
         {
             "name": "trace",

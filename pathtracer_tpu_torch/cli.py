@@ -1,22 +1,36 @@
-"""Command-line entry point: forward render of a frame, every frame, or a
-frame's shutter interval.
+"""Command-line entry point: progressive render of a frame, every frame, or a
+frame's shutter interval, with previews, checkpoints and resume.
 
 Port of ``pathtracer_tpu/cli.py``: the reference-style ``scene=<file>
 frame=<n>`` key=value arguments next to the flags ``--scene --frame --spp
 --depth --out --seed --no-jitter``, ``--engine auto|wavefront|megakernel``
-(``cli.py:58-62,134-160``), ``--all-frames`` (one image per animation
-frame), ``--motion-blur`` (``render/motion.render_motion`` of ``[frame,
-frame + 1]``; ``cli.py:67-71,184-245``) and ``--device`` (default
-``cuda``).  Frame ``f`` is written to ``<stem>.<f>.<ext>`` of ``--out`` or
-the scene's ``FILE``.  ``auto`` takes the megakernel, the full-depth trace
-kernel, for scenes inside its scope on a CUDA device (analytic scenes, and
-mesh scenes of at most 4096 triangles with the in-kernel sweep), where the
-TPU took it on a TPU, and the wavefront engine otherwise.  Checkpoints,
-previews, sharding, the debug engine and the interactive mode belong to
-later slices.
+(``cli.py:58-62,134-160``), ``--preview-every N`` (a tone-mapped PNG
+``<stem>.<frame>.preview.<ext>`` every N spp), ``--checkpoint FILE`` and
+``--checkpoint-every N`` (``utils/checkpoint.py`` every N spp; a render
+whose frame matches the file resumes from it), ``--all-frames`` (one image
+per animation frame), ``--motion-blur`` (``render/motion.render_motion`` of
+``[frame, frame + 1]``), ``--interactive`` (the camera REPL of
+``render/interactive.py``), ``--debug`` (``RenderConfig.debug``: the
+per-chunk finite check, and the alive histogram on the megakernel engine),
+``--resume-on-failure`` (``cli.py:27-30,97-105,250-335``: a render that
+raises is retried from the last good checkpoint, up to
+:data:`MAX_FAILURE_RETRIES` times) and ``--device`` (default ``cuda``;
+JAX's ``--platform``).  Frame ``f`` is written to ``<stem>.<f>.<ext>`` of
+``--out`` or the scene's ``FILE``.  ``auto`` takes the megakernel, the
+full-depth trace kernel, for scenes inside its scope on a CUDA device
+(analytic scenes, and mesh scenes of at most 4096 triangles with the
+in-kernel sweep), where JAX took it on a TPU, and the wavefront engine
+otherwise.  ``--sharded`` belongs to a later slice.
+
+A fault of the CUDA device itself (an illegal address, a launch failure)
+leaves the process's CUDA context unusable, so ``--resume-on-failure``
+cannot recover from it in the same process: the retry raises again, and
+the checkpoint on disk is what a new process resumes from.
 
     python -m pathtracer_tpu_torch.cli scene=scenes/cornell.txt --spp 16
-    python -m pathtracer_tpu_torch.cli scene=scenes/animation.txt --all-frames
+    python -m pathtracer_tpu_torch.cli scene=scenes/cornell.txt --spp 64 \\
+        --checkpoint renders/cornell.npz --checkpoint-every 16 --resume-on-failure
+    python -m pathtracer_tpu_torch.cli scene=scenes/cornell.txt --interactive
 """
 
 from __future__ import annotations
@@ -26,6 +40,11 @@ import sys
 import time
 
 from pathtracer_tpu_torch.config import RenderConfig
+
+# retries of --resume-on-failure: a transient fault clears on retry; a
+# failure that recurs (NaN physics under --debug) exhausts them and the
+# last error is raised
+MAX_FAILURE_RETRIES = 3
 
 
 def _split_kv_args(argv):
@@ -58,20 +77,43 @@ def build_argparser():
         help="path tracing engine (auto: the full-depth trace kernel for the scenes "
         "it takes on CUDA, wavefront otherwise)",
     )
+    p.add_argument("--preview-every", type=int, default=0, help="dump preview PNG every N spp")
+    p.add_argument("--checkpoint-every", type=int, default=0, help="save resume state every N spp")
+    p.add_argument("--checkpoint", default=None, help="checkpoint file to resume from / write")
     p.add_argument("--all-frames", action="store_true", help="render every animation frame")
     p.add_argument(
         "--motion-blur",
         action="store_true",
         help="render the shutter interval [frame, frame+1] with motion blur",
     )
+    p.add_argument(
+        "--interactive",
+        action="store_true",
+        help="interactive camera REPL (WASD moves, live preview)",
+    )
+    p.add_argument(
+        "--debug",
+        action="store_true",
+        help="debug mode: a finite check of the accumulator after every chunk and the "
+        "per-bounce alive-lane histogram (megakernel engine)",
+    )
+    p.add_argument(
+        "--resume-on-failure",
+        action="store_true",
+        help="if a render raises (a --debug finite check, a transient fault), reload "
+        "the last good checkpoint and retry from it (up to "
+        f"{MAX_FAILURE_RETRIES} times); needs --checkpoint and --checkpoint-every for "
+        "resume points inside a frame. A CUDA device fault poisons the process and "
+        "is not recovered here",
+    )
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
     return p
 
 
-def _out_path(out, image_name, frame):
+def _out_path(out, image_name, frame, suffix=""):
     base = out or image_name
     stem, ext = base.rsplit(".", 1) if "." in base else (base, "png")
-    return f"{stem}.{frame}.{ext}"  # the frame number goes before the extension
+    return f"{stem}.{frame}{suffix}.{ext}"  # the frame number goes before the extension
 
 
 def main(argv=None):
@@ -86,14 +128,19 @@ def main(argv=None):
     if not args.scene:
         parser.error("a scene file is required (scene=<file> or --scene)")
 
+    import torch
+
+    from pathtracer_tpu_torch.ops.rng import prng_key
+    from pathtracer_tpu_torch.ops.tonemap import tonemap
     from pathtracer_tpu_torch.ops.trace import fused_trace_eligible
+    from pathtracer_tpu_torch.render import integrator
     from pathtracer_tpu_torch.render.features import resolve_features
-    from pathtracer_tpu_torch.render.integrator import render, resolve_device
     from pathtracer_tpu_torch.render.motion import render_motion
     from pathtracer_tpu_torch.scene.parser import load_scene
+    from pathtracer_tpu_torch.utils import checkpoint as ckpt
     from pathtracer_tpu_torch.utils.imageio import save_image
 
-    device = resolve_device(args.device)
+    device = integrator.resolve_device(args.device)
     desc = load_scene(args.scene)
     spp = args.spp if args.spp is not None else desc.iterations
     engine = args.engine
@@ -103,27 +150,88 @@ def main(argv=None):
         eligible = fused_trace_eligible(scene, probe)
         engine = "megakernel" if eligible and device.type == "cuda" else "wavefront"
     cfg = RenderConfig(max_depth=args.depth, jitter=not args.no_jitter, seed=args.seed,
-                       wavefront=engine == "wavefront")
+                       wavefront=engine == "wavefront", debug=args.debug)
+
+    if args.interactive:
+        from pathtracer_tpu_torch.render.interactive import interactive_loop
+
+        interactive_loop(desc, args.frame, cfg, preview_spp=min(spp, 16),
+                         out_path=args.out or "renders/interactive.png", full_spp=spp,
+                         device=device)
+        return 0
+
     w, h = desc.resolution
+
+    def resume_point(frame):
+        """``(accum on the device, spp done)`` of the checkpoint if it holds
+        ``frame``, else ``(None, 0)``."""
+        state = ckpt.load(args.checkpoint) if args.checkpoint else None
+        if state is None or state["frame"] != frame:
+            return None, 0
+        return torch.from_numpy(state["accum"]).to(device), int(state["spp_done"])
+
     for frame in range(desc.frames) if args.all_frames else [args.frame]:
         print(
             f"[pathtracer-tpu-torch] frame {frame}: {w}x{h}, {spp} spp, "
             f"depth {cfg.max_depth}, engine={engine}, device={device}"
             + (" (motion blur)" if args.motion_blur else "")
         )
+        accum, start_it = resume_point(frame)
+        if accum is not None:
+            print(f"  resumed at {start_it} spp from {args.checkpoint}")
         t0 = time.perf_counter()
-        if args.motion_blur:
-            img, _, stats = render_motion(desc, frame, spp, cfg, device=device)
-        else:
-            img, _, stats = render(desc.scene_for_frame(frame, device=device), spp, cfg,
-                                   device=device)
-        img = img.cpu().numpy()  # waits for the device
+
+        def run_frame(accum, start_it, frame=frame):
+            """One render attempt from ``(accum, start_it)``; raises when a
+            chunk fails, for the retry loop below."""
+            last = {"t": time.perf_counter(), "spp": start_it}
+
+            def progress(done_in_run, acc):
+                done = start_it + done_in_run
+                now = time.perf_counter()
+                if args.preview_every and done % args.preview_every == 0:
+                    img = tonemap(acc.reshape(h, w, 3), done).cpu().numpy()
+                    save_image(_out_path(args.out, desc.image_name, frame, ".preview"), img)
+                if args.checkpoint and args.checkpoint_every and done % args.checkpoint_every == 0:
+                    ckpt.save(args.checkpoint, acc, done, frame, cfg.seed)
+                rate = (done - last["spp"]) * w * h / max(now - last["t"], 1e-9) / 1e6
+                last["t"], last["spp"] = now, done
+                print(f"  {done}/{spp} spp  ({rate:.1f} Mpaths/s)")
+
+            if args.motion_blur:
+                # as JAX's CLI (cli.py:237-243): the remaining spp from
+                # iteration 0, without the checkpoint's accumulator
+                out = render_motion(desc, frame, spp - start_it, cfg,
+                                    base_key=prng_key(cfg.seed), progress_fn=progress,
+                                    device=device)
+            else:
+                out = integrator.render(desc.scene_for_frame(frame, device=device),
+                                        spp - start_it, cfg, base_key=prng_key(cfg.seed),
+                                        accum=accum, start_iteration=start_it,
+                                        progress_fn=progress, device=device)
+            return out[0].cpu().numpy(), out[1], out[2]  # waits for the device
+
+        # the periodic checkpoint written by progress() is the last good
+        # state: a failed attempt reloads it and retries
+        attempts = 0
+        while True:
+            try:
+                img, accum, stats = run_frame(accum, start_it)
+                break
+            except KeyboardInterrupt:
+                raise
+            except Exception as e:
+                attempts += 1
+                if not args.resume_on_failure or attempts > MAX_FAILURE_RETRIES:
+                    raise
+                accum, start_it = resume_point(frame)
+                print(f"  render failed ({type(e).__name__}: {e}); resuming from {start_it} "
+                      f"spp (attempt {attempts}/{MAX_FAILURE_RETRIES})")
         dt = time.perf_counter() - t0
         path = save_image(_out_path(args.out, desc.image_name, frame), img)
-        print(
-            f"  saved {path} ({dt:.1f}s, {spp * w * h / dt / 1e6:.1f} Mpaths/s, "
-            f"{stats['rays_traced'] / dt / 1e6:.1f} Mrays/s)"
-        )
+        mrays = stats["rays_traced"] / dt / 1e6
+        mpaths = (spp - start_it) * w * h / dt / 1e6
+        print(f"  saved {path} ({dt:.1f}s, {mpaths:.1f} Mpaths/s, {mrays:.1f} Mrays/s)")
     return 0
 
 

@@ -8,9 +8,10 @@ port reads the ones its slices implement (``max_depth``, ``jitter``,
 ``wavefront``, ``wavefront_pinned``, ``wavefront_pinned_max_pixels``,
 ``wavefront_capacity`` and ``fused``, which picks the per-bounce kernel or
 the split route's intersection kernels; and for the differentiable render
-``grad_lean``, ``grad_fused``, ``grad_full_trace``) and refuses the engines
-it does not have yet (``debug`` raises).  ``pallas`` is kept for parity and picks no route:
-a CUDA tensor always runs the hand-written kernels.
+``grad_lean``, ``grad_fused``, ``grad_full_trace``; and ``debug``, the
+per-chunk finite check and the scan's alive histogram).  ``pallas`` is
+kept for parity and picks no route: a CUDA tensor always runs the
+hand-written kernels.
 """
 
 from __future__ import annotations

@@ -10,7 +10,12 @@ engine (``render/wavefront.py``: pinned slots up to
 ``cfg.wavefront_pinned_max_pixels`` pixels, the free-slot queue otherwise);
 else the megakernel's accumulator takes ``acc + radiance`` in float32 one
 iteration at a time, in the same order as the JAX loop.  Ray counts are
-int64 on every engine.
+int64 on every engine.  ``cfg.debug`` (``:87-97,154-200``) checks the
+accumulator after every chunk and raises ``RuntimeError`` when it is not
+finite, on every engine; the megakernel engine (the per-bounce scan under
+``debug``) also sums each bounce's alive lanes into
+``stats["alive_per_bounce"]``.  JAX also turns on ``jax_debug_nans``, which
+has no counterpart here: the per-chunk check is what both packages share.
 Every entry point renders on the device it is given, CUDA by default; on
 a host without CUDA the caller must ask for ``device="cpu"``.
 """
@@ -27,7 +32,7 @@ from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_ray
 from pathtracer_tpu_torch.ops.rng import KeyedSeed, prng_key
 from pathtracer_tpu_torch.ops.tonemap import tonemap
 from pathtracer_tpu_torch.render.features import resolve_features
-from pathtracer_tpu_torch.render.megakernel import DEBUG_MISSING, trace_paths
+from pathtracer_tpu_torch.render.megakernel import trace_paths
 from pathtracer_tpu_torch.render.wavefront import render_samples_pinned, render_samples_wavefront
 from pathtracer_tpu_torch.scene.structs import Scene
 
@@ -71,7 +76,9 @@ def render_chunk(
     n_iters: int, tables=None,
 ):
     """Add ``n_iters`` progressive iterations to ``accum`` (``[N, 3]``
-    radiance sum); returns ``(accum, rays_traced int64 [])``."""
+    radiance sum); returns ``(accum, rays_traced int64 [])``, and on the
+    megakernel engine under ``cfg.debug`` a third value, the chunk's alive
+    lanes per bounce (``[max_depth]`` int64)."""
     n_pixels = accum.shape[0]
     if cfg.wavefront:
         if cfg.wavefront_pinned and n_pixels <= cfg.wavefront_pinned_max_pixels:
@@ -81,13 +88,17 @@ def render_chunk(
                                         n_iters * n_pixels, seed, cfg, tables=tables)
     pixel_index = torch.arange(n_pixels, dtype=torch.int64, device=accum.device)
     nrays = torch.zeros((), dtype=torch.int64, device=accum.device)
+    hist = (torch.zeros(cfg.max_depth, dtype=torch.int64, device=accum.device)
+            if cfg.debug else None)
     for i in range(n_iters):
-        radiance, n = render_sample(
+        radiance, n, *h = render_sample(
             scene, pixel_index, start_iteration + i, seed, cfg, tables=tables
         )
         accum = accum + radiance
         nrays = nrays + n
-    return accum, nrays
+        if cfg.debug:
+            hist = hist + h[0]
+    return (accum, nrays, hist) if cfg.debug else (accum, nrays)
 
 
 def render(
@@ -102,16 +113,14 @@ def render(
 ):
     """Render ``spp`` progressive samples per pixel on ``device`` (where the
     scene must live); returns ``(image [H, W, 3] in [0, 1], accum [N, 3],
-    stats)`` with ``stats["rays_traced"]`` and ``stats["spp"]``.
-    ``cfg.debug`` raises ``NotImplementedError`` on every engine: JAX checks
-    the accumulator after every chunk (``integrator.py:158-185``), which
-    the port does not do yet."""
+    stats)`` with ``stats["rays_traced"]`` and ``stats["spp"]``, and under
+    ``cfg.debug`` on the megakernel engine ``stats["alive_per_bounce"]``
+    (floats, as JAX's).  Under ``cfg.debug`` a chunk that leaves the
+    accumulator non-finite raises ``RuntimeError`` naming its spp window."""
     device = resolve_device(device)
     if scene.device.type != device.type or device.index not in (None, scene.device.index):
         raise ValueError(f"scene is on {scene.device}, render asked for {device}")
     cfg = resolve_features(cfg or RenderConfig(), scene.materials)
-    if cfg.debug:  # every engine: nothing here checks the accumulator yet
-        raise NotImplementedError(DEBUG_MISSING)
     seed = KeyedSeed(base_key if base_key is not None else prng_key(cfg.seed))
     w, h = scene.camera.width, scene.camera.height
     if accum is None:
@@ -120,11 +129,18 @@ def render(
 
     done = 0
     counts = []
+    hists = []
     while done < spp:
         chunk = min(cfg.iters_per_launch, spp - done)
-        accum, nrays = render_chunk(
+        accum, nrays, *hist = render_chunk(
             scene, accum, start_iteration + done, seed, cfg, chunk, tables=tables
         )
+        hists += hist
+        if cfg.debug and not bool(torch.isfinite(accum).all()):
+            raise RuntimeError(
+                f"debug: non-finite accumulator after spp window "
+                f"[{start_iteration + done}, {start_iteration + done + chunk})"
+            )
         counts.append(nrays)
         done += chunk
         if progress_fn is not None:
@@ -132,4 +148,6 @@ def render(
 
     img = tonemap(accum.reshape(h, w, 3), start_iteration + spp)
     stats = {"rays_traced": int(sum(int(c) for c in counts)), "spp": spp}
+    if hists:
+        stats["alive_per_bounce"] = [float(x) for x in torch.stack(hists).sum(0).tolist()]
     return img, accum, stats

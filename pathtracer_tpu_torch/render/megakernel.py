@@ -21,7 +21,11 @@ the scan its forward's winners, NEE bits and rays, which each bounce
 replays (``render/diff.LeanSample``).  Each runs its CUDA kernels for rays
 on a CUDA device and its plain version for rays on the CPU.  The scan carries each path's medium, ``[N,
 4]`` or ``[N, 5]`` with the ``hg`` feature (``:164-166``), from vacuum.
-``cfg.debug`` raises: the debug variant belongs to a later slice.
+Under ``cfg.debug`` (``:44,69,123-175``) every scene takes the per-bounce
+scan, never the full-depth trace or the full-depth gradient trace (on a
+CUDA device kernel 2 once per bounce, or kernels 6 and 8 with
+``cfg.fused=False``), and the scan also returns how many lanes were alive
+as each bounce began (the debug histogram).
 The wavefront engines are ``render/wavefront.py``, chosen by the
 integrator.
 
@@ -54,16 +58,11 @@ from pathtracer_tpu_torch.render.common import shade_bounce
 from pathtracer_tpu_torch.scene.structs import Rays, Scene
 
 
-DEBUG_MISSING = (
-    "RenderConfig(debug=True): the per-chunk finite check and the alive histogram "
-    "(pathtracer_tpu/render/integrator.py:154-192, render/megakernel.py:156-175) are a "
-    "later slice"
-)
-
-
 def scan_paths(scene: Scene, rays: Rays, sample_idx, seed: int, cfg: RenderConfig,
                tables=None, replay=None):
-    """The per-bounce scan: ``(radiance [N, 3], rays_traced int64 [])``.
+    """The per-bounce scan: ``(radiance [N, 3], rays_traced int64 [])``,
+    and under ``cfg.debug`` a third value, the alive lanes counted before
+    each bounce is shaded (``[max_depth]`` int64; ``:125,156-157``).
     Russian roulette divides by ``p`` with ``p`` detached, as the JAX scan
     does.  Under ``cfg.grad_lean`` outside the fused scope each bounce runs
     under a checkpoint with its own lean cache (the module docstring says
@@ -88,8 +87,11 @@ def scan_paths(scene: Scene, rays: Rays, sample_idx, seed: int, cfg: RenderConfi
     medium = torch.zeros((n, medium_width(cfg.features)), **f32)
     radiance = torch.zeros((n, 3), **f32)
     nrays = torch.zeros((), dtype=torch.int64, device=rays.origin.device)
+    alive_hist = []
     for depth in range(cfg.max_depth):
-        nrays = nrays + alive.sum() * (2 if cfg.nee else 1)  # + the shadow ray
+        n_alive = alive.sum()
+        alive_hist.append(n_alive)
+        nrays = nrays + n_alive * (2 if cfg.nee else 1)  # + the shadow ray
         if replay is not None:
             ray = replay[2][depth]
             rays = Rays(origin=_with_value(rays.origin, ray[0:3].T),
@@ -117,6 +119,8 @@ def scan_paths(scene: Scene, rays: Rays, sample_idx, seed: int, cfg: RenderConfi
             direction=torch.where(new_alive[:, None], res.next_direction, rays.direction),
         )
         alive, prev_spec, medium = new_alive, res.was_specular, res.next_medium
+    if cfg.debug:
+        return radiance, nrays, torch.stack(alive_hist)
     return radiance, nrays
 
 
@@ -130,11 +134,10 @@ def trace_paths(
     replay=None,
 ):
     """Trace a wavefront of primary rays to completion: ``(radiance [N, 3],
-    rays_traced int64 [])``, one sample of the estimator per ray.
-    ``replay`` goes to the lean scan (:func:`scan_paths`)."""
-    if cfg.debug:
-        raise NotImplementedError(DEBUG_MISSING)
-    if replay is not None:
+    rays_traced int64 [])``, one sample of the estimator per ray, and
+    under ``cfg.debug`` the scan's alive histogram.  ``replay`` goes to the
+    lean scan (:func:`scan_paths`)."""
+    if replay is not None or cfg.debug:
         return scan_paths(scene, rays, sample_idx, seed, cfg, tables=tables, replay=replay)
     if cfg.grad_lean and fused_diff_eligible(scene, cfg) and cfg.grad_full_trace is not False:
         return trace_fused_diff(scene, rays, sample_idx, seed, cfg, tables=tables)

@@ -20,6 +20,10 @@ LBVH built over frame ``frame``'s vertices and rebound to the lerped
 vertices at each shutter time (``render/diff.build_scene``,
 ``ops/accel.refresh_accel``): the traversal tests the lerped triangles
 themselves, so it finds the dense sweep's nearest hits.
+
+``cfg.debug`` is refused with a ``ValueError`` before anything renders:
+JAX's motion chunk unpacks the debug scan's three outputs into two
+(``:65``) and fails, and neither package gives motion blur a debug mode.
 """
 
 from __future__ import annotations
@@ -76,6 +80,9 @@ def render_motion(desc, frame: int, spp: int, cfg: Optional[RenderConfig] = None
     ``cfg.iters_per_launch`` iterations."""
     device = resolve_device(device)
     cfg = cfg or RenderConfig()
+    if cfg.debug:
+        raise ValueError("render_motion takes no RenderConfig(debug=True): motion blur has "
+                         "no debug mode")
     if frame + 1 >= desc.frames:
         raise ValueError(f"motion blur needs frames {frame} and {frame + 1}; scene has "
                          f"{desc.frames} frame(s)")
