@@ -331,7 +331,31 @@ Phases (any failure exits non-zero):
     times (three previews, one refine, two for the save); the 2-spp
     preview accumulator bit-equal to a fresh 2-spp render of the rig's
     camera and the ``.full.png`` equal to its PNG; a preview's wall time;
-22. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
+22. ``[sharded]``: Cornell at its 800x800, depth 8, NEE, at full width on
+    ``SHARDS`` = 4 shards of ``cuda:0`` (``parallel/mesh.make_mesh([cuda:0]
+    * 4)``; one card, so no NCCL group of several ranks): ``render_sharded``
+    2 spp on the pinned engine with the counters zeroed just before, kernel
+    2 once per super-step of each shard and nothing else; the gathered
+    accumulator bit-equal to ``render(..., RenderConfig(wavefront=True))``'s
+    on the card (each pixel sums its samples in iteration order) and the
+    int64 ray counts equal; ``per_device_ray_counts`` and their min / max;
+    the queue engine's sharded render against its single-device render
+    (99.99% of entries within 1e-5; ``index_add_`` flushes in no fixed
+    order); one 4-spp ``loss_and_grad_sharded`` step on the full-depth
+    engine (kernels 4 and 5 four times per shard) against ``[grad]``'s
+    single-device step (the loss within 1e-5 relative, every leaf within
+    rtol = 2e-3, atol = 1e-5); the CLI in a subprocess at 200x200, 4 spp,
+    ``--sharded`` with ``WORLD_SIZE=1 RANK=0`` and a free ``MASTER_PORT``
+    (a one-rank NCCL group: the ray count and the image gather go through
+    NCCL), its PNG within one 8-bit quantum of the single-device image; the
+    parts' times;
+23. ``[native]``: ``utils/native.py``'s library built with g++ on this
+    machine (``available()`` true; built beside the kernels in phase 1 and
+    timed there), ``scenes/cornell.txt`` parsed natively equal to the
+    Python parse, an 800x800 PNG written natively and read back equal, the
+    native and Python parse and encode host times, and
+    ``utils/metrics.device_memory_stats()`` after ``[sharded]``;
+24. print the kernels' JSON line, then ``{"ok": true, "device": ...}``.
 
 The rendered PNGs and the profile table go to ``--out-dir`` (default
 ``renders/chip_smoke``).
@@ -349,6 +373,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -4275,6 +4300,179 @@ def interactive_phase(desc, dev, card: str, out_dir: str) -> None:
           f"{', '.join(f'{t:.2f}' for t in times)} ms wall; on {card}")
 
 
+SHARDS = 4  # shards of cuda:0 in [sharded]: one card, several shards
+SHARDED_SPP = 2
+SHARDED_CLI_RES = (200, 200)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def sharded_phase(desc, dev, card: str, out_dir: str, full_loss, full_grads) -> None:
+    """Phase 22, ``[sharded]``: the multi-shard render and gradient on
+    ``SHARDS`` shards of one card, and the CLI's ``--sharded`` through a
+    one-rank NCCL group (the module docstring lists the checks)."""
+    import re
+
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops.rng import prng_key
+    from pathtracer_tpu_torch.parallel.mesh import make_mesh
+    from pathtracer_tpu_torch.parallel.sharded import (
+        gather_image,
+        per_device_ray_counts,
+        render_sharded,
+    )
+    from pathtracer_tpu_torch.render import diff, wavefront
+    from pathtracer_tpu_torch.render.integrator import render
+    from pathtracer_tpu_torch.utils.imageio import load_png, save_image
+
+    parts = {}
+
+    def timed(name, fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    scene = desc.scene_for_frame(0, device=dev)
+    w, h = scene.camera.width, scene.camera.height
+    mesh = make_mesh([dev] * SHARDS)
+    cfg = RenderConfig(wavefront=True, max_depth=8, nee=True, iters_per_launch=SHARDED_SPP)
+    zero_counts()
+    steps0 = wavefront.super_steps
+    _, blocks, st = timed("pinned render", lambda: render_sharded(scene, SHARDED_SPP, cfg,
+                                                                  mesh=mesh))
+    launches, steps = read_counts(), wavefront.super_steps - steps0
+    _, whole, st1 = timed("single-device pinned render",
+                          lambda: render(scene, SHARDED_SPP, cfg, device=dev))
+    same = bool(torch.equal(gather_image(blocks, mesh), whole))
+    counts = timed("per_device_ray_counts",
+                   lambda: per_device_ray_counts(scene, SHARDED_SPP, cfg, mesh))
+    print(f"[sharded] cornell {w}x{h} d8 nee spp={SHARDED_SPP} on {SHARDS} shards of "
+          f"{mesh.devices[0]} (pinned): kernel 2 {launches['bounce']} launches over {steps} super-steps of the "
+          f"{SHARDS} shards, launches {launches}; rays {st['rays_traced']} against the single "
+          f"device's {st1['rays_traced']}; accumulator bit-equal to the single-device pinned "
+          f"render: {same}; rays per shard {counts.tolist()}, min / max "
+          f"{counts.min() / counts.max():.4f}")
+    check(launches == only(bounce=steps) and steps > 0, f"sharded render launches {launches}")
+    check(same, "the sharded accumulator differs from the single-device render")
+    check(st["rays_traced"] == st1["rays_traced"] == int(counts.sum()),
+          "sharded and single-device ray counts differ")
+
+    qcfg = dataclasses.replace(cfg, wavefront_pinned=False)
+    _, qblocks, qst = timed("queue render", lambda: render_sharded(scene, SHARDED_SPP, qcfg,
+                                                                   mesh=mesh))
+    _, qwhole, qst1 = render(scene, SHARDED_SPP, qcfg, device=dev)
+    qshare = close_fraction(gather_image(qblocks, mesh).reshape(-1, 1), qwhole.reshape(-1, 1))
+    print(f"[sharded] queue engine on {SHARDS} shards: rays {qst['rays_traced']} against "
+          f"{qst1['rays_traced']}, {qshare:.6f} of entries within 1e-5 of the single-device "
+          f"render")
+    check(qst["rays_traced"] == qst1["rays_traced"] and qshare >= 0.9999,
+          "the sharded queue render differs from the single-device one")
+
+    params, static = diff.params_from_description(desc, 0, device=dev)
+    gcfg = RenderConfig(wavefront=False, nee=True, max_depth=8)
+    target = diff.scatter_target(torch.zeros((w * h, 3), device=dev), mesh)
+    zero_counts()
+    loss, grads = timed("gradient step", lambda: diff.loss_and_grad_sharded(
+        params, static, target, 4, prng_key(0), gcfg, mesh))
+    glaunches = read_counts()
+    loss_rel = abs(float(loss) - float(full_loss)) / abs(float(full_loss))
+    want, got = full_grads.leaves(), grads.leaves()
+    apart = [k for k in want if not torch.allclose(got[k], want[k], rtol=2e-3, atol=1e-5)]
+    print(f"[sharded:grad] loss_and_grad_sharded 4 spp on {SHARDS} shards (full-depth): kernel 4 "
+          f"{glaunches['trace_fwd_resid']} launches, kernel 5 {glaunches['trace_bwd']}; loss "
+          f"{float(loss):.8g} against {float(full_loss):.8g} ({loss_rel:.3g} relative); leaves "
+          f"beyond rtol 2e-3, atol 1e-5 of the single-device step's: {apart or 'none'}")
+    check(glaunches == only(trace_fwd_resid=4 * SHARDS, trace_bwd=4 * SHARDS),
+          f"sharded step launches {glaunches}")
+    check(loss_rel <= 1e-5 and not apart, "the sharded gradient differs from the single device's")
+
+    text = open(os.path.join(ROOT, "scenes", "cornell.txt")).read()
+    scene_file = os.path.join(out_dir, "cornell_sharded_cli.txt")
+    with open(scene_file, "w") as f:
+        f.write(re.sub(r"RES\s+\d+\s+\d+", "RES %d %d" % SHARDED_CLI_RES, text))
+    out = os.path.join(out_dir, "cli_sharded.png")
+    if os.path.exists(out.replace(".png", ".0.png")):
+        os.remove(out.replace(".png", ".0.png"))
+    env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE="1",
+               RANK="0", LOCAL_RANK="0")
+    cli = timed("CLI subprocess", lambda: subprocess.run(
+        [sys.executable, "-m", "pathtracer_tpu_torch.cli", f"scene={scene_file}", "--spp", "4",
+         "--sharded", "--out", out], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300))
+    print(f"[sharded:cli] exit {cli.returncode}: {cli.stdout.strip()} {cli.stderr.strip()[-2000:]}")
+    check(cli.returncode == 0, "the CLI with --sharded failed")
+    check("devices=1 (sharded, 1 process(es))" in cli.stdout, "the CLI did not run sharded")
+    small = dataclasses.replace(desc, resolution=SHARDED_CLI_RES).scene_for_frame(0, device=dev)
+    img, _, _ = render(small, 4, RenderConfig(wavefront=True, max_depth=8), device=dev)
+    want_png = os.path.join(out_dir, "cli_sharded_single.png")
+    save_image(want_png, img.cpu().numpy())
+    quanta = int(abs(load_png(out.replace(".png", ".0.png")).astype(int)
+                     - load_png(want_png).astype(int)).max())
+    print(f"[sharded:cli] the NCCL run's PNG against the single-device image: at most {quanta} "
+          f"8-bit quanta apart")
+    check(quanta <= 1, "the sharded CLI image is more than one quantum from the single device's")
+    print("[sharded:time] " + ", ".join(f"{k} {v * 1e3:.1f} ms" for k, v in parts.items())
+          + f"; on {card}")
+
+
+def native_phase(card: str, out_dir: str, build_s: float) -> None:
+    """Phase 23, ``[native]``: the native host library built with g++ on
+    this machine, its parse and PNG encoder against the Python versions,
+    their host times, and the card's memory after ``[sharded]``."""
+    import numpy as np
+
+    from pathtracer_tpu_torch.scene import parser
+    from pathtracer_tpu_torch.utils import imageio, metrics, native
+
+    check(native.available(), "the native library did not build")
+    text = open(os.path.join(ROOT, "scenes", "cornell.txt")).read()
+    a, b = native.parse_scene_text(text), parser.parse_scene_text(text)
+    same = all(
+        np.array_equal(getattr(a, f), getattr(b, f)) if isinstance(getattr(a, f), np.ndarray)
+        else getattr(a, f) == getattr(b, f)
+        for f in ("frames", "iterations", "image_name", "resolution", "fovy", "eye", "view",
+                  "up", "aperture", "focal_distance", "geom_type", "geom_material",
+                  "translations", "rotations", "scales")
+    ) and sorted(a.materials) == sorted(b.materials) and all(
+        np.array_equal(a.materials[k], b.materials[k]) for k in a.materials)
+    rgb = (np.random.default_rng(0).random((800, 800, 3)) * 255).astype(np.uint8)
+    path = os.path.join(out_dir, "chip_smoke_native.png")
+    wrote = native.write_png(path, rgb)
+    back = imageio.load_png(path)
+    png_same = wrote and bool((back == rgb).all())
+
+    def host_ms(fn, reps):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    t_native = host_ms(lambda: native.parse_scene_text(text), 50)
+    t_python = host_ms(lambda: parser.parse_scene_text(text), 50)
+    e_native = host_ms(lambda: native.write_png(path, rgb), 3)
+    e_python = host_ms(lambda: imageio.encode_png(rgb), 3)
+    print(f"[native] {native.library_path()} built with g++ in {build_s:.2f} s; cornell parsed "
+          f"natively equal to the Python parse: {same}; an 800x800 PNG written and read back "
+          f"equal: {png_same}")
+    print(f"[native:time] parse cornell.txt native {t_native:.4f} ms, Python {t_python:.4f} ms; "
+          f"encode an 800x800 PNG native {e_native:.2f} ms (written), Python {e_python:.2f} ms "
+          f"(bytes only); host times on the machine of {card}")
+    print(f"[native:memory] device_memory_stats() after [sharded]: {metrics.device_memory_stats()}")
+    check(same, "the native parse differs from the Python parse")
+    check(png_same, "the native PNG did not read back equal")
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -4298,6 +4496,7 @@ def main() -> int:
     from pathtracer_tpu_torch.render.features import resolve_features
     from pathtracer_tpu_torch.render.integrator import render, render_chunk
     from pathtracer_tpu_torch.scene.parser import load_scene
+    from pathtracer_tpu_torch.utils import native
     from pathtracer_tpu_torch.utils.imageio import load_png, save_image
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4310,11 +4509,20 @@ def main() -> int:
     )
     card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 else "nvidia-smi failed"
 
-    # ---- 1. build
+    # ---- 1. build: the kernels with nvcc, the native host library with g++ beside them
+    def timed_native():
+        t0 = time.perf_counter()
+        return native.available(), time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    reports = _build.build_all()
+    with ThreadPoolExecutor(max_workers=1) as pool:
+        native_job = pool.submit(timed_native)
+        reports = _build.build_all()
+        native_ok, native_build_s = native_job.result()
     print(f"[build] {len(reports)} kernel(s) in {time.perf_counter() - t0:.1f} s; per source "
-          + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(_build.build_seconds.items())))
+          + ", ".join(f"{k} {v:.1f} s" for k, v in sorted(_build.build_seconds.items()))
+          + f"; the native host library (g++, at the same time): available {native_ok} in "
+          f"{native_build_s:.2f} s")
     for name, report in reports.items():
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
@@ -4518,7 +4726,15 @@ def main() -> int:
     interactive_phase(desc, dev, card, out_dir)
     wall("[interactive]")
 
-    # ---- 22. results
+    # ---- 22. multi-shard render and gradient, the CLI's --sharded
+    sharded_phase(desc, dev, card, out_dir, full_loss, full_grads)
+    wall("[sharded]")
+
+    # ---- 23. the native host library and the metrics module
+    native_phase(card, out_dir, native_build_s)
+    wall("[native]")
+
+    # ---- 24. results
     kernels = [
         {
             "name": "trace",

@@ -14,13 +14,24 @@ per animation frame), ``--motion-blur`` (``render/motion.render_motion`` of
 per-chunk finite check, and the alive histogram on the megakernel engine),
 ``--resume-on-failure`` (``cli.py:27-30,97-105,250-335``: a render that
 raises is retried from the last good checkpoint, up to
-:data:`MAX_FAILURE_RETRIES` times) and ``--device`` (default ``cuda``;
-JAX's ``--platform``).  Frame ``f`` is written to ``<stem>.<f>.<ext>`` of
-``--out`` or the scene's ``FILE``.  ``auto`` takes the megakernel, the
-full-depth trace kernel, for scenes inside its scope on a CUDA device
-(analytic scenes, and mesh scenes of at most 4096 triangles with the
-in-kernel sweep), where JAX took it on a TPU, and the wavefront engine
-otherwise.  ``--sharded`` belongs to a later slice.
+:data:`MAX_FAILURE_RETRIES` times), ``--sharded`` (``cli.py:78-85,118-130,
+174-181``: ``parallel/sharded.render_sharded`` over the shards of
+``parallel/mesh.make_mesh``, on the wavefront engine) and ``--device``
+(default ``cuda``; JAX's ``--platform``).  Frame ``f`` is written to
+``<stem>.<f>.<ext>`` of ``--out`` or the scene's ``FILE``.  ``auto`` takes
+the megakernel, the full-depth trace kernel, for scenes inside its scope on
+a CUDA device (analytic scenes, and mesh scenes of at most 4096 triangles
+with the in-kernel sweep), where JAX took it on a TPU, and the wavefront
+engine otherwise.
+
+Under ``--sharded`` every process of a ``torchrun`` launch joins the group
+(``parallel/mesh.initialize_distributed``: NCCL on ``cuda``, gloo on
+``cpu``) and owns one shard, on ``cuda:LOCAL_RANK`` (``--device cpu``: one
+CPU shard); without a launcher one process owns a shard per local card.
+Only rank 0 prints and writes.  Previews and checkpoints gather the
+accumulator to pixel order on every rank first, and a checkpoint is in
+pixel order, so a single-device checkpoint resumes sharded and the other
+way round.
 
 A fault of the CUDA device itself (an illegal address, a launch failure)
 leaves the process's CUDA context unusable, so ``--resume-on-failure``
@@ -31,6 +42,8 @@ the checkpoint on disk is what a new process resumes from.
     python -m pathtracer_tpu_torch.cli scene=scenes/cornell.txt --spp 64 \\
         --checkpoint renders/cornell.npz --checkpoint-every 16 --resume-on-failure
     python -m pathtracer_tpu_torch.cli scene=scenes/cornell.txt --interactive
+    torchrun --nproc_per_node=<GPUs> -m pathtracer_tpu_torch.cli \\
+        scene=scenes/cornell.txt --sharded
 """
 
 from __future__ import annotations
@@ -87,6 +100,14 @@ def build_argparser():
         help="render the shutter interval [frame, frame+1] with motion blur",
     )
     p.add_argument(
+        "--sharded",
+        action="store_true",
+        help="render on a mesh of shards with strided pixel ownership: one per process "
+        "of a torchrun launch (torch.distributed, NCCL on cuda, gloo on cpu; "
+        "MASTER_ADDR, MASTER_PORT, WORLD_SIZE, RANK, LOCAL_RANK), or one per local "
+        "card (see parallel/mesh.py)",
+    )
+    p.add_argument(
         "--interactive",
         action="store_true",
         help="interactive camera REPL (WASD moves, live preview)",
@@ -127,7 +148,25 @@ def main(argv=None):
         args.frame = int(kv["frame"])
     if not args.scene:
         parser.error("a scene file is required (scene=<file> or --scene)")
+    if args.sharded and (args.interactive or args.motion_blur):
+        parser.error("--sharded does not combine with --interactive/--motion-blur")
 
+    import torch
+
+    made_group = False
+    if args.sharded:
+        from pathtracer_tpu_torch.parallel.mesh import initialize_distributed
+
+        # the rendezvous comes before the first use of a device
+        made_group = initialize_distributed(args.device)
+    try:
+        return _run(args)
+    finally:
+        if made_group:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args):
     import torch
 
     from pathtracer_tpu_torch.ops.rng import prng_key
@@ -143,12 +182,19 @@ def main(argv=None):
     device = integrator.resolve_device(args.device)
     desc = load_scene(args.scene)
     spp = args.spp if args.spp is not None else desc.iterations
-    engine = args.engine
+    engine = "wavefront" if args.sharded else args.engine
     if engine == "auto":
         scene = desc.scene_for_frame(args.frame, device=device)
         probe = resolve_features(RenderConfig(), scene.materials)
         eligible = fused_trace_eligible(scene, probe)
         engine = "megakernel" if eligible and device.type == "cuda" else "wavefront"
+    mesh = None
+    if args.sharded:
+        from pathtracer_tpu_torch.parallel import mesh as pmesh
+        from pathtracer_tpu_torch.parallel.sharded import gather_image, render_sharded
+
+        mesh = pmesh.make_mesh([device] if device.type == "cpu" else None)
+    is_main = mesh is None or mesh.rank == 0
     cfg = RenderConfig(max_depth=args.depth, jitter=not args.no_jitter, seed=args.seed,
                        wavefront=engine == "wavefront", debug=args.debug)
 
@@ -170,15 +216,21 @@ def main(argv=None):
             return None, 0
         return torch.from_numpy(state["accum"]).to(device), int(state["spp_done"])
 
+    def say(line):
+        if is_main:
+            print(line)
+
     for frame in range(desc.frames) if args.all_frames else [args.frame]:
-        print(
+        say(
             f"[pathtracer-tpu-torch] frame {frame}: {w}x{h}, {spp} spp, "
-            f"depth {cfg.max_depth}, engine={engine}, device={device}"
+            f"depth {cfg.max_depth}, engine={engine}, device={device}, "
+            f"devices={mesh.size if mesh else 1}"
+            + (f" (sharded, {mesh.world} process(es))" if mesh else "")
             + (" (motion blur)" if args.motion_blur else "")
         )
         accum, start_it = resume_point(frame)
         if accum is not None:
-            print(f"  resumed at {start_it} spp from {args.checkpoint}")
+            say(f"  resumed at {start_it} spp from {args.checkpoint}")
         t0 = time.perf_counter()
 
         def run_frame(accum, start_it, frame=frame):
@@ -189,16 +241,27 @@ def main(argv=None):
             def progress(done_in_run, acc):
                 done = start_it + done_in_run
                 now = time.perf_counter()
-                if args.preview_every and done % args.preview_every == 0:
+                want_preview = args.preview_every and done % args.preview_every == 0
+                want_ckpt = (args.checkpoint and args.checkpoint_every
+                             and done % args.checkpoint_every == 0)
+                if mesh and (want_preview or want_ckpt):
+                    acc = gather_image(acc, mesh)  # on every rank: it gathers across them
+                if want_preview and is_main:
                     img = tonemap(acc.reshape(h, w, 3), done).cpu().numpy()
                     save_image(_out_path(args.out, desc.image_name, frame, ".preview"), img)
-                if args.checkpoint and args.checkpoint_every and done % args.checkpoint_every == 0:
+                if want_ckpt and is_main:
                     ckpt.save(args.checkpoint, acc, done, frame, cfg.seed)
                 rate = (done - last["spp"]) * w * h / max(now - last["t"], 1e-9) / 1e6
                 last["t"], last["spp"] = now, done
-                print(f"  {done}/{spp} spp  ({rate:.1f} Mpaths/s)")
+                say(f"  {done}/{spp} spp  ({rate:.1f} Mpaths/s)")
 
-            if args.motion_blur:
+            if mesh:
+                # a checkpoint's pixel-ordered accumulator is scattered to the shards
+                out = render_sharded(desc.scene_for_frame(frame, device=device),
+                                     spp - start_it, cfg, mesh=mesh,
+                                     base_key=prng_key(cfg.seed), progress_fn=progress,
+                                     accum=accum, start_iteration=start_it)
+            elif args.motion_blur:
                 # as JAX's CLI (cli.py:237-243): the remaining spp from
                 # iteration 0, without the checkpoint's accumulator
                 out = render_motion(desc, frame, spp - start_it, cfg,
@@ -225,13 +288,14 @@ def main(argv=None):
                 if not args.resume_on_failure or attempts > MAX_FAILURE_RETRIES:
                     raise
                 accum, start_it = resume_point(frame)
-                print(f"  render failed ({type(e).__name__}: {e}); resuming from {start_it} "
-                      f"spp (attempt {attempts}/{MAX_FAILURE_RETRIES})")
+                say(f"  render failed ({type(e).__name__}: {e}); resuming from {start_it} "
+                    f"spp (attempt {attempts}/{MAX_FAILURE_RETRIES})")
         dt = time.perf_counter() - t0
-        path = save_image(_out_path(args.out, desc.image_name, frame), img)
-        mrays = stats["rays_traced"] / dt / 1e6
-        mpaths = (spp - start_it) * w * h / dt / 1e6
-        print(f"  saved {path} ({dt:.1f}s, {mpaths:.1f} Mpaths/s, {mrays:.1f} Mrays/s)")
+        if is_main:
+            path = save_image(_out_path(args.out, desc.image_name, frame), img)
+            mrays = stats["rays_traced"] / dt / 1e6
+            mpaths = (spp - start_it) * w * h / dt / 1e6
+            print(f"  saved {path} ({dt:.1f}s, {mpaths:.1f} Mpaths/s, {mrays:.1f} Mrays/s)")
     return 0
 
 

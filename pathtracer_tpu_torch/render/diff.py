@@ -57,8 +57,10 @@ A scene with ``hg`` or image textures takes the lean engine, as in JAX;
 its forward is the fast forward engine (on an image-textured scene the
 per-bounce scan on kernel 2's deferred-texel variant, 2t).
 
-On the card the kernels run, on the CPU their plain versions.  Not ported
-yet: the sharded variants.
+On the card the kernels run, on the CPU their plain versions.
+:func:`loss_and_grad_sharded` splits the pixels over the shards of a
+``parallel/mesh.Mesh`` (``diff.py:500-557``); each shard runs the engine
+above on its strided pixels.
 """
 
 from __future__ import annotations
@@ -289,17 +291,20 @@ def scene_with_tensors(scene: Scene, tensors) -> Scene:
                                textures=textures)
 
 
-def lean_forward(scene, pixel_index, iteration: int, seed: int, cfg_fwd, tables=None):
+def lean_forward(scene, pixel_index, iteration: int, seed: int, cfg_fwd, tables=None,
+                 n_global_pixels=None):
     """The lean engine's forward of one iteration: ``(radiance [N, 3],
     rays_traced, replay)``.  In the fused scope (``ops/trace_grad.
     replay_scope``) it is ``trace_replay`` (kernel 4 on the card) and
     ``replay`` the ``(gid, nee, ray)`` planes its backward replays;
     elsewhere the fast forward engine (``render_sample``: kernel 1, 1m, or
-    the scan on 2mm or 2t) and ``replay`` None."""
+    the scan on 2mm or 2t) and ``replay`` None.  ``n_global_pixels`` keys
+    the samples as :func:`render_sample` does."""
     if not replay_scope(scene, cfg_fwd):
-        return (*render_sample(scene, pixel_index, iteration, seed, cfg_fwd, tables=tables),
-                None)
-    rays, sample_idx = camera_sample(scene, pixel_index, iteration, seed, cfg_fwd)
+        return (*render_sample(scene, pixel_index, iteration, seed, cfg_fwd, tables=tables,
+                               n_global_pixels=n_global_pixels), None)
+    rays, sample_idx = camera_sample(scene, pixel_index, iteration, seed, cfg_fwd,
+                                     n_global_pixels)
     radiance, nrays, *replay = trace_replay(scene, rays, sample_idx, seed, cfg_fwd,
                                             tables=tables)
     return radiance, nrays, tuple(replay)
@@ -315,17 +320,21 @@ class LeanSample(torch.autograd.Function):
     them, so it differentiates the paths the forward counted at the
     forward's values; elsewhere the re-trace runs its own searches, whose
     last bits may part from the forward kernel's on a few lanes (ROADMAP
-    queue 3).  Its differentiable inputs are :func:`scene_tensors`."""
+    queue 3).  ``n_global`` keys the samples (:func:`render_sample`'s
+    ``n_global_pixels``).  Its differentiable inputs are
+    :func:`scene_tensors`."""
 
     @staticmethod
-    def forward(ctx, scene, pixel_index, iteration, seed, cfg_fwd, cfg_bwd, *tensors):
+    def forward(ctx, scene, pixel_index, iteration, seed, cfg_fwd, cfg_bwd, n_global, *tensors):
         scene = scene_with_tensors(scene, tensors)
         radiance, nrays, replay = lean_forward(scene, pixel_index, iteration, seed, cfg_fwd,
-                                               tables=pack_tables(scene))
+                                               tables=pack_tables(scene),
+                                               n_global_pixels=n_global)
         replay = replay or ()
         ctx.save_for_backward(pixel_index, *replay, *tensors)
         ctx.n_replay = len(replay)
         ctx.scene, ctx.iteration, ctx.seed, ctx.cfg_bwd = scene, iteration, seed, cfg_bwd
+        ctx.n_global = n_global
         ctx.mark_non_differentiable(nrays)
         return radiance, nrays
 
@@ -333,16 +342,16 @@ class LeanSample(torch.autograd.Function):
     def backward(ctx, g_rad, _g_nrays):
         pixel_index, *rest = ctx.saved_tensors
         replay, tensors = tuple(rest[:ctx.n_replay]), rest[ctx.n_replay:]
-        needs = ctx.needs_input_grad[6:]
+        needs = ctx.needs_input_grad[7:]
         leaves = [t.detach().requires_grad_(need) for t, need in zip(tensors, needs)]
         wanted = [x for x in leaves if x.requires_grad]
         with torch.enable_grad():
             scene = scene_with_tensors(ctx.scene, leaves)
             radiance, _ = render_sample(scene, pixel_index, ctx.iteration, ctx.seed,
                                         ctx.cfg_bwd, tables=pack_tables(scene),
-                                        replay=replay or None)
+                                        replay=replay or None, n_global_pixels=ctx.n_global)
             grads = iter(torch.autograd.grad(radiance, wanted, g_rad, allow_unused=True))
-        return (None,) * 6 + tuple(next(grads) if x.requires_grad else None for x in leaves)
+        return (None,) * 7 + tuple(next(grads) if x.requires_grad else None for x in leaves)
 
 
 def lean_cfgs(cfg: RenderConfig, materials):
@@ -354,53 +363,69 @@ def lean_cfgs(cfg: RenderConfig, materials):
             dataclasses.replace(cfg, fused=False, grad_lean=True, debug=False))
 
 
+def _pixels(static: SceneStatic, pixel_index, device):
+    """The pixels to render: ``pixel_index`` as int64 on ``device``, or
+    every pixel of the image when it is None."""
+    if pixel_index is None:
+        w, h = static.resolution
+        return torch.arange(w * h, dtype=torch.int64, device=device)
+    return torch.as_tensor(pixel_index, device=device).to(torch.int64)
+
+
 def lean_parted(params: SceneParams, static: SceneStatic, iteration: int, base_key,
-                cfg: RenderConfig):
+                cfg: RenderConfig, pixel_index=None, n_global_pixels=None):
     """The pixels whose lean re-trace parts from the lean forward in one
     iteration, a check's measure: ``(parted [N] bool, forward radiance,
-    re-trace radiance)``, detached.  The re-trace replays the forward where
-    the engine does; a pixel parts where the two radiances differ beyond
-    float32 rounding (1e-4 of 1 + the forward's)."""
+    re-trace radiance)``, detached, over ``pixel_index`` (every pixel when
+    None; ``n_global_pixels`` as :func:`render_linear_rays` takes it).  The
+    re-trace replays the forward where the engine does; a pixel parts where
+    the two radiances differ beyond float32 rounding (1e-4 of 1 + the
+    forward's)."""
     cfg_fwd, cfg_bwd = lean_cfgs(cfg, params.materials)
     scene = build_scene(params, static)
     seed = KeyedSeed(base_key)
-    w, h = static.resolution
-    pix = torch.arange(w * h, dtype=torch.int64, device=params.device)
+    pix = _pixels(static, pixel_index, params.device)
     tables = pack_tables(scene)
     with torch.no_grad():
-        fwd, _, replay = lean_forward(scene, pix, iteration, seed, cfg_fwd, tables=tables)
+        fwd, _, replay = lean_forward(scene, pix, iteration, seed, cfg_fwd, tables=tables,
+                                      n_global_pixels=n_global_pixels)
         back, _ = render_sample(scene, pix, iteration, seed, cfg_bwd, tables=tables,
-                                replay=replay)
+                                replay=replay, n_global_pixels=n_global_pixels)
     return ((fwd - back).abs() > 1e-4 * (1.0 + fwd.abs())).any(-1), fwd, back
 
 
 def render_linear_rays(params: SceneParams, static: SceneStatic, spp: int, base_key,
-                       cfg: RenderConfig):
+                       cfg: RenderConfig, pixel_index=None, n_global_pixels=None):
     """Differentiable linear (pre-tonemap) image ``[N, 3]``, the mean of
     ``spp`` progressive samples, plus the measured int64 number of rays of
     one forward pass (primary, bounce and shadow rays).  Linear, because
     the gamma curve has an unbounded gradient at 0.  ``cfg.features`` is
     trimmed to the materials' needs, as every render entry point does; the
-    engine is chosen as the module docstring says."""
+    engine is chosen as the module docstring says.  ``pixel_index`` lists
+    the pixels to render (every pixel when None), and ``n_global_pixels``
+    the image's pixel count that keys their samples (``diff.py:243-400``):
+    the rows of a strided subset equal those rows of the whole image."""
     cfg_fwd, cfg_bwd = lean_cfgs(cfg, params.materials)
     check_diff_features(cfg_bwd.features, "lean")  # each engine checks its own features
     scene = build_scene(params, static)
     seed = KeyedSeed(base_key)
-    w, h = static.resolution
-    pixel_index = torch.arange(w * h, dtype=torch.int64, device=params.device)
+    pixel_index = _pixels(static, pixel_index, params.device)
+    n_glob = n_global_pixels
     if fused_diff_eligible(scene, cfg_bwd):
         tables = pack_tables(scene)
 
         def sample(it):
             if spp > 8:
                 return checkpoint(render_sample, scene, pixel_index, it, seed, cfg_bwd,
-                                  tables=tables, use_reentrant=False, preserve_rng_state=False)
-            return render_sample(scene, pixel_index, it, seed, cfg_bwd, tables=tables)
+                                  tables=tables, n_global_pixels=n_glob, use_reentrant=False,
+                                  preserve_rng_state=False)
+            return render_sample(scene, pixel_index, it, seed, cfg_bwd, tables=tables,
+                                 n_global_pixels=n_glob)
     else:
         def sample(it):
-            return LeanSample.apply(scene, pixel_index, it, seed, cfg_fwd, cfg_bwd,
+            return LeanSample.apply(scene, pixel_index, it, seed, cfg_fwd, cfg_bwd, n_glob,
                                     *scene_tensors(scene))
-    total = torch.zeros((w * h, 3), dtype=torch.float32, device=params.device)
+    total = torch.zeros((pixel_index.shape[0], 3), dtype=torch.float32, device=params.device)
     rays = torch.zeros((), dtype=torch.int64, device=params.device)
     for it in range(spp):
         radiance, n = sample(it)
@@ -409,20 +434,26 @@ def render_linear_rays(params: SceneParams, static: SceneStatic, spp: int, base_
     return total / spp, rays
 
 
-def render_linear(params, static, spp, base_key, cfg) -> torch.Tensor:
+def render_linear(params, static, spp, base_key, cfg, pixel_index=None,
+                  n_global_pixels=None) -> torch.Tensor:
     """:func:`render_linear_rays` without the ray count."""
-    return render_linear_rays(params, static, spp, base_key, cfg)[0]
+    return render_linear_rays(params, static, spp, base_key, cfg, pixel_index,
+                              n_global_pixels)[0]
 
 
-def l2_loss_rays(params, static, target, spp, base_key, cfg):
+def l2_loss_rays(params, static, target, spp, base_key, cfg, pixel_index=None,
+                 n_global_pixels=None):
     """``(MSE against the target linear image [N, 3], measured rays)``."""
-    img, rays = render_linear_rays(params, static, spp, base_key, cfg)
+    img, rays = render_linear_rays(params, static, spp, base_key, cfg, pixel_index,
+                                   n_global_pixels)
     return torch.mean((img - target) ** 2), rays
 
 
-def l2_loss(params, static, target, spp, base_key, cfg) -> torch.Tensor:
+def l2_loss(params, static, target, spp, base_key, cfg, pixel_index=None,
+            n_global_pixels=None) -> torch.Tensor:
     """Mean squared error against a target linear image ``[N, 3]``."""
-    return l2_loss_rays(params, static, target, spp, base_key, cfg)[0]
+    return l2_loss_rays(params, static, target, spp, base_key, cfg, pixel_index,
+                        n_global_pixels)[0]
 
 
 def loss_and_grad_rays(params, static, target, spp, base_key, cfg, device="cuda"):
@@ -435,20 +466,83 @@ def loss_and_grad_rays(params, static, target, spp, base_key, cfg, device="cuda"
     device = resolve_device(device)
     if params.device.type != device.type or device.index not in (None, params.device.index):
         raise ValueError(f"params are on {params.device}, loss_and_grad asked for {device}")
+    return _value_and_grad(
+        params, lambda p: l2_loss_rays(p, static, target, spp, base_key, cfg))
+
+
+def _value_and_grad(params: SceneParams, loss_fn):
+    """``(loss, grads, aux)`` of ``loss_fn(p) -> (loss, aux)`` over every
+    leaf of ``params``: a :class:`SceneParams` of gradients, zeros where
+    the loss does not reach (and for the atlas's static slot sizes)."""
     names, values = zip(*params.leaves().items())
     leaves = [v.detach().requires_grad_(True) for v in values]
     hw = None if params.textures is None else params.textures.hw
     p = SceneParams.from_leaves(dict(zip(names, leaves)), hw)
     with torch.enable_grad():
-        loss, rays = l2_loss_rays(p, static, target, spp, base_key, cfg)
+        loss, aux = loss_fn(p)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
     # the slot sizes are static: their entry of the gradient is zeros
     hw_grad = None if hw is None else torch.zeros_like(hw)
-    return loss.detach(), SceneParams.from_leaves(dict(zip(names, grads)), hw_grad), rays
+    return loss.detach(), SceneParams.from_leaves(dict(zip(names, grads)), hw_grad), aux
 
 
 def loss_and_grad(params, static, target, spp, base_key, cfg, device="cuda"):
     """``(loss, dloss/dparams)`` on one device."""
     loss, grads, _ = loss_and_grad_rays(params, static, target, spp, base_key, cfg, device)
     return loss, grads
+
+
+def scatter_target(target_flat, mesh) -> torch.Tensor:
+    """A pixel-ordered target ``[N, 3]`` in the device-major layout of
+    ``parallel/sharded.py``: row ``d*(N/D) + j`` holds pixel ``d + D*j``
+    (``diff.py:551-557``)."""
+    n_dev = mesh.size
+    t = torch.as_tensor(target_flat)
+    return t.reshape(-1, n_dev, 3).transpose(0, 1).reshape(-1, 3)
+
+
+def loss_and_grad_sharded(params, static, target_sharded, spp, base_key, cfg, mesh):
+    """``(loss, grads)`` of :func:`l2_loss` over the mesh's shards
+    (``diff.py:500-548``): shard ``d`` of ``D`` renders the strided pixels
+    ``d + D*j`` with their global sample keys, on a copy of ``params`` on
+    its device, and differentiates its share of the loss, ``sum((img -
+    target_local)**2) / (N*3)``; the shares and their gradients are summed
+    over the local shards and then over the processes (one ``all_reduce``
+    of a flat buffer, every rank must call it).  ``target_sharded`` is the
+    device-major ``[N, 3]`` of :func:`scatter_target`.  Returns the loss
+    and a :class:`SceneParams` of gradients on the mesh's first local
+    device, with zeros where the loss does not reach, like
+    :func:`loss_and_grad`."""
+    from pathtracer_tpu_torch.parallel.mesh import all_reduce_sum
+    from pathtracer_tpu_torch.parallel.sharded import _run_shards, shard_rows, to_device
+
+    target = torch.as_tensor(target_sharded)
+    n_global = target.shape[0]
+    n_local = shard_rows(n_global, mesh)
+
+    def shard(i):
+        d, dev = mesh.shard_ids[i], mesh.devices[i]
+        pix = d + mesh.size * torch.arange(n_local, dtype=torch.int64, device=dev)
+        t_local = target[d * n_local:(d + 1) * n_local].to(dev)
+
+        def local_loss(p):
+            img = render_linear(p, static, spp, base_key, cfg, pix, n_global)
+            return torch.sum((img - t_local) ** 2) / (n_global * 3), None
+
+        loss, grads, _ = _value_and_grad(to_device(params, dev), local_loss)
+        return loss, grads
+
+    results = _run_shards(mesh, shard)
+    first = mesh.devices[0]
+    shapes = {k: v.shape for k, v in params.leaves().items()}
+
+    def local_sum(values):
+        return torch.stack([v.to(first) for v in values]).sum(0).reshape(-1)
+
+    flat = [local_sum([loss for loss, _ in results])]
+    flat += [local_sum([g.leaves()[k] for _, g in results]) for k in shapes]
+    summed = all_reduce_sum(torch.cat(flat)).split([x.numel() for x in flat])
+    grads = {k: g.reshape(shape) for (k, shape), g in zip(shapes.items(), summed[1:])}
+    hw = None if params.textures is None else torch.zeros_like(params.textures.hw, device=first)
+    return summed[0].reshape(()), SceneParams.from_leaves(grads, hw)

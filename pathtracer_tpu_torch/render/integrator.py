@@ -49,25 +49,30 @@ def resolve_device(device) -> torch.device:
     return device
 
 
-def camera_sample(scene: Scene, pixel_index, iteration: int, seed: int, cfg: RenderConfig):
+def camera_sample(scene: Scene, pixel_index, iteration: int, seed: int, cfg: RenderConfig,
+                  n_global_pixels=None):
     """One progressive iteration's primary rays and global sample indices
-    ``iteration * N + pixel``, computed in int64 (the RNG reduces them mod
-    2^32, which gives the bits of JAX's wrapping int32); the camera
+    ``iteration * n_global + pixel``, computed in int64 (the RNG reduces
+    them mod 2^32, which gives the bits of JAX's wrapping int32);
+    ``n_global`` is ``n_global_pixels``, or the number of pixels listed
+    when it is None (``integrator.py:28-43``), so a strided subset of the
+    pixels draws the samples the whole image draws there.  The camera
     uniforms follow ``cfg.fast_rng``."""
-    sample_idx = iteration * pixel_index.shape[0] + pixel_index.to(torch.int64)
+    n_global = pixel_index.shape[0] if n_global_pixels is None else n_global_pixels
+    sample_idx = iteration * n_global + pixel_index.to(torch.int64)
     u4 = camera_uniforms(seed, sample_idx, cfg.fast_rng)
     return generate_camera_rays(scene.camera, pixel_index, u4, jitter=cfg.jitter), sample_idx
 
 
 def render_sample(
     scene: Scene, pixel_index, iteration: int, seed: int, cfg: RenderConfig, tables=None,
-    replay=None,
+    replay=None, n_global_pixels=None,
 ):
     """One progressive iteration: ``(radiance [N, 3], rays_traced)``, its
     randomness keyed by the global sample index (:func:`camera_sample`).
     ``replay`` is the lean scan's per-bounce winners, NEE bits and rays
     (``render/megakernel.scan_paths``)."""
-    rays, sample_idx = camera_sample(scene, pixel_index, iteration, seed, cfg)
+    rays, sample_idx = camera_sample(scene, pixel_index, iteration, seed, cfg, n_global_pixels)
     return trace_paths(scene, rays, sample_idx, seed, cfg, tables=tables, replay=replay)
 
 

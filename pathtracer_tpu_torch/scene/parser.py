@@ -1,16 +1,17 @@
 """Parser for the scene DSL.
 
-Port of ``pathtracer_tpu/scene/parser.py:57-525`` (pure Python, no native
-loader): ``MATERIAL`` blocks with their 10 fixed property lines and the
-TEXTURE / BUMP / PHASE / BRDF extension lines, the ``CAMERA`` block with
-optional APERTURE / FOCAL, and ``OBJECT`` blocks with per-frame TRS, the
-DISPLACE extension and per-frame FILE overrides.  Mesh objects load their
-OBJ file relative to the scene file (``:240-300,346-360``): the triangles,
-displaced when the object says DISPLACE, one vertex array per frame where
-FILE lines deform the mesh (the topology must match), and the authored
-``vt`` / ``vn`` attributes of undisplaced meshes.  ``TEXTURE <file>.png``
-images load relative to the scene file too (``:207-217``), decoded to
-linear light, one atlas slot per distinct path.
+Port of ``pathtracer_tpu/scene/parser.py:57-525``: ``MATERIAL`` blocks with
+their 10 fixed property lines and the TEXTURE / BUMP / PHASE / BRDF
+extension lines, the ``CAMERA`` block with optional APERTURE / FOCAL, and
+``OBJECT`` blocks with per-frame TRS, the DISPLACE extension and per-frame
+FILE overrides. Mesh objects load their OBJ file relative to the scene file
+(``:240-300,346-360``): the triangles, displaced when the object says
+DISPLACE, one vertex array per frame where FILE lines deform the mesh (the
+topology must match), and the authored ``vt`` / ``vn`` attributes of
+undisplaced meshes. ``TEXTURE <file>.png`` images load relative to the
+scene file too (``:207-217``), decoded to linear light, one atlas slot per
+distinct path. :func:`load_scene` takes the native parser
+(``utils/native.py``) for a scene it covers, as JAX's does (``:497-517``).
 """
 
 from __future__ import annotations
@@ -403,9 +404,23 @@ def _parse_object(advance, peek, name):
     return obj
 
 
+# the extension keywords the native parser does not know; ".obj" catches
+# mesh scenes and per-frame FILE lines (parser.py:504-513)
+_NATIVE_UNKNOWN = ("TEXTURE", "BUMP", "BRDF", "PHASE", "DISPLACE")
+
+
 def load_scene(path: str) -> SceneDescription:
-    """Load a scene DSL file."""
+    """Load a scene DSL file: with the native parser when the library is
+    available and the scene has no extension keyword, no ``.obj`` and no
+    mesh geom (``parser.py:497-517``), else in Python."""
+    from pathtracer_tpu_torch.utils import native
+
     with open(path, "r") as f:
         text = f.read()
-    return parse_scene_text(text, name=os.path.basename(path),
-                            scene_dir=os.path.dirname(os.path.abspath(path)))
+    name = os.path.basename(path)
+    has_ext = any(k in text for k in _NATIVE_UNKNOWN) or ".obj" in text.lower()
+    if not has_ext and native.available():
+        desc = native.parse_scene_text(text, name=name)
+        if not (desc.geom_type == MESH).any():
+            return desc
+    return parse_scene_text(text, name=name, scene_dir=os.path.dirname(os.path.abspath(path)))

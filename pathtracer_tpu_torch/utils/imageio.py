@@ -2,8 +2,10 @@
 
 Port of ``pathtracer_tpu/utils/imageio.py:20-147``: extension-sniffed
 save of the 8-bit image (PNG, or BMP for reference parity), with the
-trailing-``\\r`` filename tolerance, and a minimal PNG reader.  The
-encoders are pure numpy + zlib; there is no native fast path.
+trailing-``\\r`` filename tolerance, and a minimal PNG reader.
+:func:`save_image` writes with the native encoders (``utils/native.py``)
+when the library is available, as JAX's does (``:72-80``), and with the
+numpy + zlib encoders here otherwise.
 """
 
 from __future__ import annotations
@@ -67,6 +69,12 @@ def save_image(path: str, img01: np.ndarray) -> str:
         path = os.path.splitext(path)[0] + ".png"
         ext = ".png"
 
+    from pathtracer_tpu_torch.utils import native
+
+    if native.available():
+        write = native.write_bmp if ext == ".bmp" else native.write_png
+        if write(path, rgb):
+            return path
     data = encode_bmp(rgb) if ext == ".bmp" else encode_png(rgb)
     with open(path, "wb") as f:
         f.write(data)

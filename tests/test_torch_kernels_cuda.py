@@ -1660,3 +1660,26 @@ def test_debug_scan_launches_kernel_2_per_bounce():
     assert trace.launches - k1 == spp and fused_stats["rays_traced"] == stats["rays_traced"]
     near = (accum - fused).abs() <= 1e-5 * (fused.abs() + 1e-3)
     assert float(near.float().mean()) >= 0.999
+
+
+def test_sharded_render_on_two_shards_of_one_card():
+    """``parallel/sharded.render_sharded`` on 2 shards of ``cuda:0`` traces
+    the pinned single-device render's samples: the accumulator bit for bit,
+    the ray counts equal, kernel 2 once per super-step of each shard."""
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import bounce_fused
+    from pathtracer_tpu_torch.parallel.mesh import make_mesh
+    from pathtracer_tpu_torch.parallel.sharded import gather_image, render_sharded
+    from pathtracer_tpu_torch.render import wavefront
+
+    scene = _scene("cornell", (64, 48))
+    cfg = RenderConfig(wavefront=True, max_depth=6, nee=True, iters_per_launch=2)
+    _, whole, st1 = render(scene, 4, cfg, device="cuda")
+    mesh = make_mesh([torch.device("cuda", 0)] * 2)
+    k2, steps = bounce_fused.launches, wavefront.super_steps
+    _, blocks, st2 = render_sharded(scene, 4, cfg, mesh=mesh)
+    torch.cuda.synchronize()
+    assert bounce_fused.launches - k2 == wavefront.super_steps - steps > 0
+    assert all(b.device == torch.device("cuda", 0) for b in blocks)
+    assert st1["rays_traced"] == st2["rays_traced"]
+    assert torch.equal(gather_image(blocks, mesh), whole)
