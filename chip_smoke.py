@@ -33,8 +33,8 @@ Phases (any failure exits non-zero):
    kernel must each have launched once per progressive iteration, every
    gradient be finite and the loss positive.  Then the forward kernel
    against its plain version on the 640,000 primary rays of an iteration
-   (equal ray counts; radiance and residual planes within 2e-6 on at least
-   99.9% of lanes; radiance bit-equal to the trace kernel's), and the
+   (equal ray counts; radiance and every residual plane bit-equal; radiance
+   bit-equal to the trace kernel's), and the
    reverse kernel against its plain version on the same residuals and a
    seeded radiance cotangent: every component of d_origin / d_direction
    within rtol = atol = 1e-5 of the float64 reference's (``tbwd_plain``
@@ -129,13 +129,16 @@ Phases (any failure exits non-zero):
    the mesh's object-space primary rays and a mid-render super-step's at
    320 triangles, and on a 5,120-triangle displaced icosphere in file
    order, and the lanes where culled and dense differ are counted and
-   printed with their conditioning; (f) kernel 2m
-   equals its plain version in every output on every lane, primary rays
-   and that super-step; (g) the ``smooth_mesh_96`` golden rendered on the
+   printed with their conditioning; (f) kernel 2m, whose blocks sweep the
+   triangles together, equals its plain version (each lane sweeping on its
+   own) in every output on every lane, primary rays and that super-step;
+   (g) the ``smooth_mesh_96`` golden rendered on the
    card within a mean 0.8/255 of the PNG; (h) times and bounds (kernels 9
    and 10: device time twice, the dense sweep's, and a bound counted from
    the triangle tests these rays need, which must read below the time;
-   kernel 1m's device time twice),
+   kernel 1m's device time twice; kernel 2m's twice and its bound counted
+   from the slab and triangle tests of its sweeps on these lanes, which
+   must read below the time),
    kernels 9 and 10's registers and shared memory; (i) the CLI
    on smooth_mesh takes ``engine=megakernel``;
 10. ``[vol]``, participating media, each render through ``render`` with
@@ -251,7 +254,7 @@ Phases (any failure exits non-zero):
     the icosphere (kernel 1m-vol forward), each with its parted pixels of
     iteration 0 (no replay outside the fused scope); the new instances'
     registers,
-    and Cornell's kernels 3, 4 and 5 take exactly 152, 72 and 168 (3 with
+    and Cornell's kernels 3, 4 and 5 take exactly 152, 64 and 168 (3 with
     no spill);
 14. ``[grad:surf]``, differentiable surface physics, each step through
     ``render.diff.loss_and_grad_rays`` with the counters zeroed just
@@ -281,7 +284,7 @@ Phases (any failure exits non-zero):
     device time on ward's inputs (5s and 3s: body and row sum apart, twice;
     3s's lane order added to its time), its plain version's and its bound
     (the Ward lobe counted on the lanes that sample it; 5s's as 5's); the
-    new instances' registers, Cornell's 3 / 4 / 5 at 152 / 72 / 168 and 3s
+    new instances' registers, Cornell's 3 / 4 / 5 at 152 / 64 / 168 and 3s
     at 168 with 20 B of spill;
 15. ``[rng]``, threefry (``fast_rng=False``): its bounce draw (``[N, 11]``,
     per-lane depths) and camera draw (``[N, 4]``) on 640,000 CUDA lanes of
@@ -426,6 +429,20 @@ TRACE_CORNELL_REGS = (72, 28)
 # registers and 3s from none to 20 B of spill at its 168 (PERF.md, section 6)
 BWD3_REGS = (152, 0)
 BWD3S_REGS = (168, 20)
+# the designs of the kernels redesigned last, named in the kernels line
+DESIGNS = {
+    "bounce_mesh": "block sweep: a block's lanes sweep the triangles together, a chunk no lane "
+                   "reaches skipped, a reaching lane's 32 tests on a warp (bounce.cu)",
+    "bounce_mesh_tex": "block sweep, as bounce_mesh",
+    "trace_fwd_resid": "live paths packed into a block's first warps at each bounce, blocks of "
+                       "256 (trace_grad.cu:trace_fwd_kernel_packed)",
+    "trace_fwd_resid_vol": "live paths packed per block, blocks of 128",
+    "trace_fwd_resid_surf": "one path per thread (packing measured slower)",
+}
+# Cornell's kernel 4: its registers, pinned.  72 with one path per thread;
+# packing the live paths per block, held to four blocks of 256 per SM,
+# leaves it 64 (PERF.md, section 6)
+FWD4_REGS = (64,)
 
 
 def fail(msg: str) -> None:
@@ -803,22 +820,19 @@ def grad_phase(desc, dev, card: str, out_dir: str):
         rad_t, nr_t = trace.trace_cuda(*args, **kw)
         rad_p, nr_p, res_p = trace_grad.tfwd_plain(*args, **kw)
         torch.cuda.synchronize()
-        rad_frac = float(torch.isclose(rad_k, rad_p, rtol=2e-6, atol=2e-6).all(-1).float().mean())
-        res_frac = float(
-            torch.isclose(res_k, res_p, rtol=2e-6, atol=2e-6).all(0).all(0).float().mean()
-        )
         fwd_err = float((rad_k - rad_p).abs().max())
+        same = torch.equal(rad_k, rad_p) and torch.equal(res_k, res_p)
         print(
-            f"[grad:check] forward kernel: rays {int(nr_k)} (trace kernel {int(nr_t)}, plain "
-            f"{int(nr_p)}); radiance bit-equal to the trace kernel: "
-            f"{bool(torch.equal(rad_k, rad_t))}; lanes within 2e-6 of plain: radiance "
-            f"{rad_frac:.6f}, residuals {res_frac:.6f}; max abs radiance err {fwd_err:.3g}, "
-            f"max abs residual err {float((res_k - res_p).abs().max()):.3g}"
+            f"[grad:check] forward kernel (live paths packed per block): rays {int(nr_k)} (trace "
+            f"kernel {int(nr_t)}, plain {int(nr_p)}); radiance bit-equal to the trace kernel: "
+            f"{bool(torch.equal(rad_k, rad_t))}; radiance and all {res_k.shape[1]} residual "
+            f"planes equal to plain: {same}; max abs radiance err {fwd_err:.3g}, max abs "
+            f"residual err {float((res_k - res_p).abs().max()):.3g}"
         )
         check(torch.equal(rad_k, rad_t) and int(nr_k) == int(nr_t),
               "forward kernel differs from the trace kernel")
         check(int(nr_k) == int(nr_p), "forward kernel and plain ray counts differ")
-        check(rad_frac >= 0.999 and res_frac >= 0.999, "forward kernel beyond 2e-6 on > 0.1% of lanes")
+        check(same, "forward kernel differs from its plain version")
 
         g_rad = torch.from_numpy(
             np.random.default_rng(0).standard_normal((n, 3)).astype(np.float32)
@@ -1531,6 +1545,62 @@ OPS_AABB = 26  # one chunk-box slab test of the in-kernel sweep
 OPS_MESH_RAY = OPS_TO_OBJECT + 18  # a mesh's object-space ray and its reciprocal direction
 
 
+def mesh_bounce_work(tables, km, s, seed: int, features=frozenset()) -> dict:
+    """The triangle work of kernel 2's mesh instances (2m, 2mt) on the
+    bounce state ``s`` under NEE, counted from the plain versions as kernels
+    9 and 10's bounds are.  The nearest-hit sweep: a slab test of every
+    chunk box per lane and the 32 pair tests of each chunk the culled sweep
+    enters (``mesh_sweep``'s ``reached``).  The shadow ray, which the kernel
+    sweeps where the analytic geoms leave it clear (the merge variant's
+    deferred ray and ``cand_vis``, ``bounce_fused_plain`` with the sweep's
+    winner merged in): where the mesh does not block it, a slab test of
+    every chunk box and the pair tests of each chunk it enters by its final
+    t; where the mesh blocks it, none (the sweep stops at the first blocker):
+    a lower bound.  Returns the counts, the shares of lanes and warps
+    whose ray reaches a chunk and the most chunks one lane enters."""
+    import torch
+
+    from pathtracer_tpu_torch.ops import bounce_fused
+    from pathtracer_tpu_torch.ops.intersect import safe_recip, to_object
+    from pathtracer_tpu_torch.ops.mesh_tables import (MESH_CHUNK, chunk_reaches, mesh_occ,
+                                                      mesh_sweep)
+
+    o, d = s["origin"].unbind(-1), s["direction"].unbind(-1)
+    hit = mesh_sweep(km, tables[0], o, d)
+    chunks = km.aabb.numel() // 6
+    mesh_in = torch.stack([hit["et"], *hit["epo"], *hit["en"], hit["emid"].to(torch.float32)])
+    _, deferred = bounce_fused.bounce_fused_plain(
+        tables, s["origin"], s["direction"], s["throughput"], s["sample"], s["depth"], s["prev"],
+        s["medium"].contiguous(), seed, nee=True, features=features,
+        mesh_in=mesh_in.contiguous())
+    cand = deferred[10] > 0.5
+    x, wi = deferred[0:3, cand], deferred[3:6, cand]
+    limit = deferred[6, cand] - SHADOW_SLACK
+    occ = mesh_occ(km, tables[0], x.unbind(0), wi.unbind(0))
+    clear = occ >= limit
+    reach_by = torch.nextafter(occ, torch.full_like(occ, float("inf")))
+    shadow_pairs = 0
+    boxes = km.aabb.view(-1, 6)
+    for g, n_chunks, first, _, _ in km.descs:
+        obj = to_object(tables[0][g].unbind(-1), *x.unbind(0), *wi.unbind(0))
+        inv = tuple(safe_recip(c) for c in obj[3:])
+        for c in range(first, first + n_chunks):
+            shadow_pairs += int((chunk_reaches(boxes[c].unbind(-1), obj[:3], inv, reach_by)
+                                 & clear).sum()) * MESH_CHUNK
+    reaching = hit["reached"] > 0
+    n = reaching.shape[0]
+    warps = torch.nn.functional.pad(reaching, (0, (-n) % 32)).view(-1, 32).any(-1)
+    return dict(slab=n * chunks + int(clear.sum()) * chunks,
+                pairs=int(hit["reached"].sum()) * MESH_CHUNK + shadow_pairs,
+                shadow_rays=int(cand.sum()), blocked=int((~clear).sum()),
+                lanes_reaching=float(reaching.double().mean()),
+                warps_reaching=float(warps.double().mean()),
+                most_chunks=int(hit["reached"].max()))
+
+
+SHADOW_SLACK = 4 * 2e-4  # trace_common.cuh: a shadow ray is clear up to this short of the light
+
+
 def mesh_kernel_resources(reports: dict) -> dict:
     """Kernels 9 and 10's registers and shared memory, ptxas's own words
     (``Used N registers, ... smem``) from ``_build.build_all``'s report of
@@ -1767,8 +1837,8 @@ def mesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
                 for f in dataclasses.fields(got)}
         for f in ("contrib", "next_origin", "next_direction", "throughput_mult"):
             k2_err = max(k2_err, float((getattr(got, f) - getattr(want, f)).abs().max()))
-        print(f"[mesh:check] (f) kernel 2m, {label}, {s['origin'].shape[0]} lanes: outputs equal "
-              f"{same}; max abs err {k2_err:.3g}")
+        print(f"[mesh:check] (f) kernel 2m (the block's sweep), {label}, "
+              f"{s['origin'].shape[0]} lanes: outputs equal {same}; max abs err {k2_err:.3g}")
         check(all(same.values()), f"kernel 2m differs from its plain version ({label})")
 
     # ---- (g) the smooth_mesh_96 golden, rendered on the card
@@ -1795,7 +1865,10 @@ def mesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     margs = (tables, captured["origin"], captured["direction"], captured["throughput"],
              captured["sample"], captured["depth"], captured["prev"], captured["medium"], seed)
     k2_ms = cuda_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, nee=True, mesh=km), reps=20)
+    k2_dev = [queued_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, nee=True, mesh=km))
+              for _ in range(2)]
     k2p_ms = cuda_ms(lambda: bounce_fused.bounce_fused_plain(*margs, nee=True, mesh=km), reps=1)
+    k2_work = mesh_bounce_work(tables, km, captured, seed)
     mt = time_mesh_kernels(m0.scan_table, m0.scan_boxes, mesh.mesh_chunk_boxes(m0, pad=False),
                            o_p, d_p)
 
@@ -1813,14 +1886,14 @@ def mesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
         return int(reached.sum()) * MESH_CHUNK
 
     k1_tris = tri_tests(rays0.origin, rays0.direction)  # bounce 0 only: a lower bound
-    k2_tris = tri_tests(captured["origin"], captured["direction"])
     table_bytes = sum(t.numel() * 4 for t in tables) + sum(
         t.numel() * 4 for t in (km.tri, km.aabb, km.norm, km.desc))
     lane_bounces = int(nr_k) // 2
     k1_bound = bound(lane_bounces * (sweep + OPS_SHADE + mesh_ops) + k1_tris * OPS_MT,
                      n * (12 + 12 + 4 + 12) + table_bytes)
-    k2_bound = bound(n * (sweep + OPS_SHADE + mesh_ops) + k2_tris * OPS_MT,
-                     n * (64 + 73) + table_bytes)
+    # the bounce's triangle sweeps are counted by mesh_bounce_work
+    k2_bound = bound(n * (sweep + OPS_SHADE + OPS_MESH_RAY) + k2_work["slab"] * OPS_AABB
+                     + k2_work["pairs"] * OPS_MT, n * (64 + 73) + table_bytes)
     print(f"[card] {card}")
     print(f"[mesh:profile] render iteration: {summary}")
     print(
@@ -1830,10 +1903,16 @@ def mesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
         f"bounces per lane of {cfg.max_depth}; plain {k1p_ms:.3f} "
         f"ms), bound {k1_bound[0]:.4f} ms by {k1_bound[1]} (a lower bound: the analytic part, "
         f"the chunk-box tests and the {k1_tris} triangle tests of bounce 0, not those of later "
-        f"bounces or of shadow rays); kernel 2m {k2_ms:.4f} ms at {n} lanes of super-step "
-        f"{CAPTURE_STEP} (plain {k2p_ms:.3f} ms, bound {k2_bound[0]:.4f} ms by {k2_bound[1]}, with "
-        f"{k2_tris} triangle tests, a lower bound: shadow rays left out); on {card}"
+        f"bounces or of shadow rays); kernel 2m {k2_ms:.4f} ms by events at {n} lanes of "
+        f"super-step {CAPTURE_STEP}, {k2_dev[0]:.4f} / {k2_dev[1]:.4f} ms of device time (queued, "
+        f"twice; plain {k2p_ms:.3f} ms), bound {k2_bound[0]:.4f} ms by {k2_bound[1]} "
+        f"({k2_work['slab']} slab tests and {k2_work['pairs']} triangle tests, "
+        f"{k2_work['shadow_rays']} shadow rays swept, {k2_work['blocked']} of them blocked by the "
+        f"mesh and counted as none: a lower bound; {k2_work['lanes_reaching']:.4f} of lanes and "
+        f"{k2_work['warps_reaching']:.4f} of warps reach a chunk, at most "
+        f"{k2_work['most_chunks']} chunks for one lane); on {card}"
     )
+    check(k2_bound[0] < k2_dev[0], "kernel 2m's counted bound reads above its time")
     print_mesh_times("[mesh:time]", f"smooth_mesh's {n} primary rays x 320 triangles", mt, card)
     print(f"[mesh:regs] {mesh_kernel_resources(reports)}")
 
@@ -2589,7 +2668,6 @@ def bigmesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     from pathtracer_tpu_torch.ops.bounce import pack_tables
     from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
     from pathtracer_tpu_torch.ops.mesh import object_rays
-    from pathtracer_tpu_torch.ops.mesh_tables import MESH_CHUNK, mesh_sweep
     from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
     from pathtracer_tpu_torch.render import diff, megakernel
     from pathtracer_tpu_torch.render.features import features_for_materials
@@ -2829,12 +2907,15 @@ def bigmesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
             # and mesh_uv 3 in
             nbytes = ln * (53 * 4 + 1 + (24 if tex else 0)) + tbytes
         else:
+            # kernel 2's planes and the texel's 3 out; the sweeps counted by
+            # mesh_bounce_work
             km = scene.mesh_tables
             tbytes += sum(t.numel() * 4 for t in (km.tri, km.aabb, km.norm, km.uv, km.desc))
             nbytes = ln * (48 + 16 + 57 + 16 + 12) + tbytes
-            reached = mesh_sweep(km, args[0][0], args[1].unbind(-1), args[2].unbind(-1))["reached"]
-            ops += (ln * (OPS_MESH_RAY + OPS_AABB * km.aabb.numel() // 6)
-                    + int(reached.sum()) * MESH_CHUNK * OPS_MT)
+            state = dict(zip(("origin", "direction", "throughput", "sample", "depth", "prev",
+                              "medium"), args[1:8]))
+            work = mesh_bounce_work(args[0], km, state, seed, kw["features"])
+            ops += (ln * OPS_MESH_RAY + work["slab"] * OPS_AABB + work["pairs"] * OPS_MT)
         timing[f"bounce_{inst}"] = (ms, d_ms, p_ms, bound(ops, nbytes), label, ln)
     # kernels 9 and 10 inside this path: the mesh winner of scan bounce
     # SCAN_CAPTURE_DEPTH's rays and the deferred shadow rays of that bounce
@@ -3477,8 +3558,8 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     # ---- registers: the new instances, and the vacuum ones keep theirs
     instances = ptxas_instances(reports)
     regs = {
-        "4": instance_regs(instances, "trace_grad", "trace_fwd_kernel", False, False),
-        "4v": instance_regs(instances, "trace_grad", "trace_fwd_kernel", True, False),
+        "4": instance_regs(instances, "trace_grad", "trace_fwd_kernel_packed", False, False),
+        "4v": instance_regs(instances, "trace_grad", "trace_fwd_kernel_packed", True, False),
         "5": instance_regs(instances, "trace_grad", "trace_bwd_kernel", False, False),
         "5v": instance_regs(instances, "trace_grad", "trace_bwd_kernel", True, False),
         "3": instance_regs(instances, "bounce_grad", "bounce_bwd_kernel", False, False),
@@ -3486,14 +3567,14 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
         "2r-v": instance_regs(instances, "bounce", "bounce_kernel", 0, 1, 0, 0, 0),
     }
     print(f"[grad:vol:regs] registers, spill store / load bytes per instance: {regs}")
-    # the vacuum instances' registers, pinned: 4 keeps its 72; 5 and 3 went
+    # the vacuum instances' registers, pinned: 4 at FWD4_REGS; 5 and 3 went
     # from 156 and 140 to 148 and 136 when their light and winner adjoints
     # were factored out for the media instances to share, and 3 to 158 with
     # its table row in device memory and the skip of zero-cotangent lanes,
     # then to 152 with its row sums; 5 to 168 with its row in device memory
     # and the lane sums of NEE's light columns (each still three blocks per
     # SM; PERF.md)
-    for key, want in (("4", (72,)), ("5", (168,)), ("3", BWD3_REGS)):
+    for key, want in (("4", FWD4_REGS), ("5", (168,)), ("3", BWD3_REGS)):
         check(regs[key] is None or regs[key][:len(want)] == want,
               f"Cornell's kernel {key} uses {regs[key]} registers and spill bytes, not {want}")
     print(f"[card] {card}")
@@ -3900,12 +3981,12 @@ def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
         "3s": instance_regs(instances, "bounce_grad", "bounce_bwd_kernel", False, True),
         "3v-s": instance_regs(instances, "bounce_grad", "bounce_bwd_kernel", True, True),
         "2r-s": instance_regs(instances, "bounce", "bounce_kernel", 0, 0, 0, 1, 0),
-        "4": instance_regs(instances, "trace_grad", "trace_fwd_kernel", False, False),
+        "4": instance_regs(instances, "trace_grad", "trace_fwd_kernel_packed", False, False),
         "5": instance_regs(instances, "trace_grad", "trace_bwd_kernel", False, False),
         "3": instance_regs(instances, "bounce_grad", "bounce_bwd_kernel", False, False),
     }
     print(f"[grad:surf:regs] registers, spill store / load bytes per instance: {regs}")
-    for key, want in (("4", (72,)), ("5", (168,)), ("3", BWD3_REGS), ("3s", BWD3S_REGS)):
+    for key, want in (("4", FWD4_REGS), ("5", (168,)), ("3", BWD3_REGS), ("3s", BWD3S_REGS)):
         check(regs[key] is None or regs[key][:len(want)] == want,
               f"kernel {key} uses {regs[key]} registers and spill bytes, not {want}")
     print(f"[card] {card}")
@@ -4759,6 +4840,9 @@ def main() -> int:
         *grad_vol_kernels,
         *grad_surf_kernels,
     ]
+    for entry in kernels:
+        if entry["name"] in DESIGNS:
+            entry["design"] = DESIGNS[entry["name"]]
     print(f"{card}")
     print(json.dumps({"kernels": kernels}))
     print(

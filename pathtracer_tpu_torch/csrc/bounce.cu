@@ -43,9 +43,12 @@
 // Triangle meshes (kernel 2 with mesh_tables, bounce_pallas.py:1491-1494,
 // 1568-1591, the in-kernel branch): as in trace.cu, a scene whose meshes
 // total at most 4096 triangles passes their in-kernel tables, and the
-// bounce's nearest hit and shadow ray sweep them through the same
-// pt::bounce.  As in trace.cu the kernel is built with and without the sweep
-// and launched by n_mesh.  The mesh-merge variant for larger meshes is
+// bounce's nearest hit and shadow ray sweep them.  As in trace.cu the
+// kernel is built with and without the sweep and launched by n_mesh.  The
+// mesh instances (2m, 2mt) find each lane's nearest triangle before its
+// bounce, the whole block together (block_mesh_sweep, below), and hand the
+// winner to pt::bounce; the shadow ray's sweep (mesh_occ) stays per lane
+// inside it.  The mesh-merge variant for larger meshes is
 // csrc/bounce_merge.cu.
 //
 // Optional surface physics (kernel 2 with the texture, bump, microfacet and
@@ -88,6 +91,21 @@
 // of 32 to 256 lanes (the gathered lanes load scattered planes, and a warp
 // runs its batches one after another), and live lanes ordered first by two
 // short kernels.
+//
+// The mesh instances spent most of a launch in the nearest-hit sweep: on
+// smooth_mesh's super-step 10 (262,144 lanes, 10 chunks of 32 triangles)
+// 0.16 ms against 0.034 for the same lanes without the meshes, on a
+// 4,050-triangle vt grid (127 chunks) 0.55 ms against 0.04, though 3% of
+// its lanes reach a chunk box.  A lane that grazes the grid reaches up to
+// all 127 chunks and tests their 4,064 triangles one after another while
+// its warp waits.  The block sweep shares each reaching lane's 32 tests of
+// a chunk out over a warp: 2m 0.145-0.149 ms, 2mt 0.289-0.296 (PERF.md,
+// section 6).  Lanes ordered by the first chunk their ray reaches (a key
+// pass and lane_order's two kernels first) cut the chunks a warp sweeps
+// fourfold but took 0.018 / 0.069 ms to order and were slower in every
+// combination, so the lanes stay in index order.  What the grid has left is
+// the blocks whose lanes all graze it: their tests are shared within the
+// block, not across blocks.
 
 #include "bounce_lane.cuh"
 
@@ -99,6 +117,79 @@ namespace {
 using namespace pt;
 
 constexpr int THREADS = 128;
+
+// The mesh instances' nearest-triangle sweep, one block at a time: every
+// lane of the block walks the chunks of every mesh in order and tests the
+// box against its own running best (as mesh_sweep does); a chunk that no
+// lane of the block reaches is skipped by all of them; otherwise its 32
+// triangles are staged in shared memory, the reaching lanes are listed, and
+// each warp takes a listed lane and tests its ray against the 32 triangles
+// at once, one per thread, the first minimum found by a shuffle reduction.
+// So a lane that reaches many chunks shares its triangle tests with the
+// block's other threads instead of testing them one after another.  A lane
+// takes the chunk's first minimum where it is below its best, as
+// mesh_sweep's strict update in row order does, so the winner is the same.
+// Every thread of the block calls it (valid false past n).
+constexpr int SWEEP_FLOATS = 6 * THREADS + 9 * MESH_CHUNK + 5 * THREADS;
+
+template <bool kUV>
+__device__ MeshHit block_mesh_sweep(const float* g_tab, const MeshTables& M, V3 o, V3 d,
+                                    bool valid, float* scratch) {
+  constexpr unsigned FULL = 0xffffffffu;
+  float* ray = scratch;                   // [6][THREADS]: object-space origin, direction
+  float* stage = ray + 6 * THREADS;       // [MESH_CHUNK][9]: v0, e1, e2 of the chunk's rows
+  float* hit_t = stage + 9 * MESH_CHUNK;  // [THREADS] per listed lane: the chunk's first minimum
+  float* hit_u = hit_t + THREADS;
+  float* hit_v = hit_u + THREADS;
+  int* hit_j = reinterpret_cast<int*>(hit_v + THREADS);
+  int* list = hit_j + THREADS;  // the lanes that reach the chunk, in no fixed order
+  __shared__ int s_count;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  SweepBest s;
+  for (int k = 0; k < M.n; ++k) {
+    const int* ds = M.desc + MESH_DESC * k;
+    V3 oo, od;
+    to_object(g_tab + ds[0] * GCOLS, o, d, oo, od);
+    const V3 inv = v3(safe_recip(od.x), safe_recip(od.y), safe_recip(od.z));
+    const float mine[6] = {oo.x, oo.y, oo.z, od.x, od.y, od.z};
+    for (int f = 0; f < 6; ++f) ray[f * THREADS + tid] = mine[f];
+    for (int c = ds[2]; c < ds[2] + ds[1]; ++c) {
+      const bool reach = valid && chunk_reaches(M.aabb + 6 * c, oo, inv, s.best);
+      if (tid == 0) s_count = 0;
+      if (__syncthreads_count(reach) == 0) continue;
+      const unsigned b = __ballot_sync(FULL, reach);
+      int base = 0;
+      if (lane == 0 && b != 0) base = atomicAdd(&s_count, __popc(b));
+      base = __shfl_sync(FULL, base, 0);
+      if (reach) list[base + __popc(b & ((1u << lane) - 1u))] = tid;
+      for (int f = tid; f < 9 * MESH_CHUNK; f += THREADS)
+        stage[f] = M.tri[12 * (c * MESH_CHUNK + f / 9) + f % 9];
+      __syncthreads();
+      const int count = s_count;
+      for (int r = warp; r < count; r += THREADS / 32) {
+        const int L = list[r];
+        const V3 ro = v3(ray[L], ray[THREADS + L], ray[2 * THREADS + L]);
+        const V3 rd = v3(ray[3 * THREADS + L], ray[4 * THREADS + L], ray[5 * THREADS + L]);
+        float u, v;
+        const float t = mt_tri(stage + 9 * lane, ro, rd, u, v);
+        float m = t;
+        for (int off = 16; off > 0; off >>= 1) m = fminf(m, __shfl_xor_sync(FULL, m, off));
+        const int j = __ffs(__ballot_sync(FULL, t == m)) - 1;
+        if (lane == j) {
+          hit_t[L] = m;
+          hit_u[L] = u;
+          hit_v[L] = v;
+          hit_j[L] = j;
+        }
+      }
+      __syncthreads();
+      if (reach)
+        sweep_take<kUV>(s, k, ds, c * MESH_CHUNK + hit_j[tid], hit_t[tid], hit_u[tid],
+                        hit_v[tid]);
+    }
+  }
+  return mesh_hit<kUV>(g_tab, M, o, d, s);
+}
 
 // kMesh = false compiles the analytic kernel: its mesh tables are a
 // constant n = 0, and the sweep drops out of the code (and of the register
@@ -129,15 +220,24 @@ bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ m
   for (int i = threadIdx.x; i < G * LCOLS; i += blockDim.x) s_l[i] = ltab[i];
   __syncthreads();
 
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= n) return;
+  const int t = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool valid = t < n;
+  const int idx = valid ? t : 0;
   const Tables T{s_g, s_m, s_l, G, scal[0], scal[1] > 0.5f,
                  kMesh ? mesh : MeshTables{nullptr, nullptr, nullptr, nullptr, nullptr, 0},
                  kSurf ? surf : 0};
+  MeshHit pre{};
+  if constexpr (kMesh) {  // the block's sweep first, every thread of it
+    const V3 o = v3(origin[3 * idx], origin[3 * idx + 1], origin[3 * idx + 2]);
+    const V3 d = v3(direction[3 * idx], direction[3 * idx + 1], direction[3 * idx + 2]);
+    pre = block_mesh_sweep<kTex>(s_g, mesh, o, d, valid, s_l + G * LCOLS);
+  }
+  if (!valid) return;
   bounce_lane<kVol, kHg, kSurf, kTex>(T, seed, nee, vol_nee, mw, (size_t)idx, origin, direction,
                                       thr, sample, depth, prev, medium, contrib, next_o, next_d,
                                       thr_mult, terminate, wspec, rru, out_medium, replay_gid,
-                                      replay_nee, tex_u, tex_v, tex_slot);
+                                      replay_nee, tex_u, tex_v, tex_slot, nullptr, nullptr,
+                                      nullptr, 0, kMesh ? &pre : nullptr);
 }
 
 // the instance of one media case (vacuum, volumetric, volumetric + HG)
@@ -166,7 +266,9 @@ extern "C" int bounce_launch(const float* gtab, int G, const float* mtab, int M,
                              void* stream) {
   if (n <= 0) return 0;
   const int blocks = (n + THREADS - 1) / THREADS;
-  const size_t smem = sizeof(float) * (size_t)(G * GCOLS + M * MCOLS + G * LCOLS);
+  // the tables, and for the mesh instances the block sweep's scratch
+  const size_t smem = sizeof(float) * ((size_t)(G * GCOLS + M * MCOLS + G * LCOLS) +
+                                       (n_mesh > 0 ? SWEEP_FLOATS : 0));
   const MeshTables mesh{mtri, maabb, mnorm, muv, mdesc, n_mesh};
   // the instance: mesh sweep or not x media x surface blocks or not, and the
   // deferred texel

@@ -20,6 +20,8 @@ namespace pt {
 // material id) and, where not null, mesh_uv [3, n] (u, v, 1 where valid),
 // and under NEE writes the deferred shadow ray to deferred [11, n] (x, wi,
 // its length, the NEE rgb, 1 where the analytic geoms leave it clear).
+// pre: the lane's in-kernel mesh winner, found before the lane by kernel
+// 2's block sweep (bounce.cu), or null to sweep here.
 template <bool kVol = false, bool kHg = false, bool kSurf = false, bool kTex = false,
           bool kMerge = false>
 PT_FN void bounce_lane(const Tables& T, uint32_t seed, int nee, int vol_nee, int mw, size_t i,
@@ -36,7 +38,8 @@ PT_FN void bounce_lane(const Tables& T, uint32_t seed, int nee, int vol_nee, int
                        float* __restrict__ tex_slot = nullptr,
                        const float* __restrict__ mesh_in = nullptr,
                        const float* __restrict__ mesh_uv = nullptr,
-                       float* __restrict__ deferred = nullptr, size_t n = 0) {
+                       float* __restrict__ deferred = nullptr, size_t n = 0,
+                       const MeshHit* pre = nullptr) {
   const V3 o = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
   const V3 d = v3(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
   const V3 t = v3(thr[3 * i], thr[3 * i + 1], thr[3 * i + 2]);
@@ -58,7 +61,7 @@ PT_FN void bounce_lane(const Tables& T, uint32_t seed, int nee, int vol_nee, int
     }
   }
   const Bounce b = bounce<true, kVol, kHg, kSurf, kTex, kMerge>(T, base, dep, nee, o, d, t,
-                                                                prev[i], med, vol_nee, ext);
+                                                                prev[i], med, vol_nee, ext, pre);
   const V3* vec[4] = {&b.contrib, &b.next_o, &b.next_d, &b.thr_mult};
   float* out[4] = {contrib, next_o, next_d, thr_mult};
   for (int k = 0; k < 4; ++k) {

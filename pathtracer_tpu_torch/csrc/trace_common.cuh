@@ -226,55 +226,45 @@ struct MeshHit {
   bool uv_valid;    // the winner's mesh has authored UVs
 };
 
-// The nearest triangle over every mesh (ops/mesh_tables.py:mesh_sweep): per
-// mesh the ray in its geom's object space, per chunk the slab test against
-// this lane's best, per triangle a strict t < best update, so the first
-// minimum in index order wins.  The loop keeps only the winner (mesh, row,
-// t, u, v); after it the winner's hit point, its normal (the clipped
-// barycentric blend of the corner normals, or the face normal, through the
-// geom's inverse transpose, normalized) and its material are computed once,
-// from the same values in the same float order as the plain version, which
-// computes them at every improvement.  kUV (kernel 2m's want_uv,
-// bounce_pallas.py:430-473) also blends the corner UVs of the last winner
-// whose mesh has them (a winner whose mesh has none keeps those earlier
-// values and clears uv_valid).
-template <bool kUV = false>
-PT_FN MeshHit mesh_sweep(const float* g_tab, const MeshTables& M, V3 o, V3 d) {
+// A lane's running winner in a nearest-triangle sweep (mesh_sweep's, and
+// kernel 2's block sweep in csrc/bounce.cu)
+struct SweepBest {
   float best = BIG, bu = 0.0f, bv = 0.0f;
   int bk = -1, brow = 0;
   int uv_row = -1;  // kUV: the last winner whose mesh has UVs
   float uv_bu = 0.0f, uv_bv = 0.0f;
-  for (int k = 0; k < M.n; ++k) {
-    const int* ds = M.desc + MESH_DESC * k;
-    V3 oo, od;
-    to_object(g_tab + ds[0] * GCOLS, o, d, oo, od);
-    const V3 inv = v3(safe_recip(od.x), safe_recip(od.y), safe_recip(od.z));
-    for (int c = ds[2]; c < ds[2] + ds[1]; ++c) {
-      if (!chunk_reaches(M.aabb + 6 * c, oo, inv, best)) continue;
-      // unrolled by 4: 3% faster on smooth_mesh than the default, 9%
-      // faster than none (PERF.md, section 6)
-#pragma unroll 4
-      for (int j = 0; j < MESH_CHUNK; ++j) {
-        const int row = c * MESH_CHUNK + j;
-        float u, v;
-        const float tc = mt_tri(M.tri + 12 * row, oo, od, u, v);
-        if (tc < best) {
-          best = tc;
-          bk = k;
-          brow = row;
-          bu = u;
-          bv = v;
-          if constexpr (kUV) {
-            if (ds[4]) {
-              uv_row = row;
-              uv_bu = u;
-              uv_bv = v;
-            }
-          }
-        }
-      }
+};
+
+// A triangle of mesh k (descriptor ds) at row, or a chunk's first minimum
+// over its triangles, with its barycentrics: it wins where strictly below
+// the lane's best, so over a chunk's rows in order the first minimum wins.
+template <bool kUV>
+PT_FN void sweep_take(SweepBest& s, int k, const int* ds, int row, float t, float u, float v) {
+  if (!(t < s.best)) return;
+  s.best = t;
+  s.bk = k;
+  s.brow = row;
+  s.bu = u;
+  s.bv = v;
+  if constexpr (kUV) {
+    if (ds[4]) {
+      s.uv_row = row;
+      s.uv_bu = u;
+      s.uv_bv = v;
     }
   }
+}
+
+// The winner of a triangle sweep shaded once: its hit point in its mesh's
+// object space, its unit world normal (the clipped barycentric blend of the
+// corner normals, or the face normal, through the geom's inverse
+// transpose), its material and with kUV the blended UV of the last winner
+// whose mesh has UVs (uv_row, -1 for none).  bk = -1: no triangle.
+template <bool kUV>
+PT_FN MeshHit mesh_hit(const float* g_tab, const MeshTables& M, V3 o, V3 d,
+                       const SweepBest& s) {
+  const float best = s.best, bu = s.bu, bv = s.bv, uv_bu = s.uv_bu, uv_bv = s.uv_bv;
+  const int bk = s.bk, brow = s.brow, uv_row = s.uv_row;
   MeshHit h;
   h.t = best;
   h.p_obj = v3(0.0f, 0.0f, 0.0f);
@@ -316,6 +306,42 @@ PT_FN MeshHit mesh_sweep(const float* g_tab, const MeshTables& M, V3 o, V3 d) {
   }
   h.normal = vnormalize(nw);
   return h;
+}
+
+// The nearest triangle over every mesh (ops/mesh_tables.py:mesh_sweep): per
+// mesh the ray in its geom's object space, per chunk the slab test against
+// this lane's best, per triangle a strict t < best update, so the first
+// minimum in index order wins.  The loop keeps only the winner (mesh, row,
+// t, u, v); after it the winner's hit point, its normal (the clipped
+// barycentric blend of the corner normals, or the face normal, through the
+// geom's inverse transpose, normalized) and its material are computed once,
+// from the same values in the same float order as the plain version, which
+// computes them at every improvement.  kUV (kernel 2m's want_uv,
+// bounce_pallas.py:430-473) also blends the corner UVs of the last winner
+// whose mesh has them (a winner whose mesh has none keeps those earlier
+// values and clears uv_valid).
+template <bool kUV = false>
+PT_FN MeshHit mesh_sweep(const float* g_tab, const MeshTables& M, V3 o, V3 d) {
+  SweepBest s;
+  for (int k = 0; k < M.n; ++k) {
+    const int* ds = M.desc + MESH_DESC * k;
+    V3 oo, od;
+    to_object(g_tab + ds[0] * GCOLS, o, d, oo, od);
+    const V3 inv = v3(safe_recip(od.x), safe_recip(od.y), safe_recip(od.z));
+    for (int c = ds[2]; c < ds[2] + ds[1]; ++c) {
+      if (!chunk_reaches(M.aabb + 6 * c, oo, inv, s.best)) continue;
+      // unrolled by 4: 3% faster on smooth_mesh than the default, 9%
+      // faster than none (PERF.md, section 6)
+#pragma unroll 4
+      for (int j = 0; j < MESH_CHUNK; ++j) {
+        const int row = c * MESH_CHUNK + j;
+        float u, v;
+        const float tc = mt_tri(M.tri + 12 * row, oo, od, u, v);
+        sweep_take<kUV>(s, k, ds, row, tc, u, v);
+      }
+    }
+  }
+  return mesh_hit<kUV>(g_tab, M, o, d, s);
 }
 
 // the shadow ray's nearest triangle t (ops/mesh_tables.py:mesh_occ), or the
@@ -784,11 +810,15 @@ PT_FN void occ_split(const Tables& T, V3 x, V3 wi, float& occ_op, float& occ_re)
 // (sh_x, sh_wi, sh_dist, nee_rgb, cand_vis) instead of being added: the
 // caller tests the triangles.  Volumetric NEE does not run (its callers
 // send such scenes to the split route).
+//
+// pre (kernel 2's mesh instances, csrc/bounce.cu): the in-kernel sweep's
+// winner, found before the bounce by the block's sweep; null runs
+// mesh_sweep here.
 template <bool kMaskFree, bool kVol = false, bool kHg = false, bool kSurf = false,
           bool kTex = false, bool kMerge = false>
 PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d, V3 thr,
                     float prev_state, Medium med = Medium{}, int vol_nee = 1,
-                    const MeshHit& ext = MeshHit{}) {
+                    const MeshHit& ext = MeshHit{}, const MeshHit* pre = nullptr) {
   Bounce b;
   b.contrib = v3(0.0f, 0.0f, 0.0f);
   b.next_o = b.next_d = b.thr_mult = b.contrib;
@@ -822,7 +852,7 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
     if constexpr (kMerge)
       mh = ext;
     else
-      mh = mesh_sweep<kTex>(T.g, T.mesh, o, d);
+      mh = pre != nullptr ? *pre : mesh_sweep<kTex>(T.g, T.mesh, o, d);
     mb = mh.t < best_t;
     if (mb) best_t = mh.t;
   }

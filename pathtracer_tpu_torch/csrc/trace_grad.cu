@@ -10,7 +10,9 @@
 // radiance and ray count equal the trace kernel's bit for bit), and at
 // every bounce the lane's carries entering the bounce and the two discrete
 // outcomes the bounce resolved, stored lane-contiguous as resid[depth][13][n]
-// (planes o(3) d(3) thr(3) prev_state alive gid nee_add).  A lane that has
+// (planes o(3) d(3) thr(3) prev_state alive gid nee_add).  Which thread
+// runs a path's bounce does not change it: the uniforms are keyed by the
+// path's sample and depth, so the packed instances store the same bits.  A lane that has
 // died stores the carries it died with, alive 0, gid -1 and NEE bit 0.
 // The kVol instance (kernel 4v, participating media) runs
 // pt::bounce_step<kVol>, carries the medium and stores JAX's 17 planes,
@@ -77,13 +79,22 @@
 // What bounds them on the H100: the forward moves 40 B per lane plus 52 B
 // per lane and bounce of residuals (266 MB per 640,000-lane iteration at
 // depth 8, ~0.08 ms at 3.35 TB/s; 68 B with the medium planes) against the
-// trace kernel's two sweeps per bounce.  The forward keeps one path per
-// thread, so a warp's 32 lanes store each bounce's planes together, four
-// full 32-byte sectors per plane.  The trace kernel's persistent schedule
-// (trace.cu) measured slower here: its refills take one to three lanes at a
-// time, the lanes of a warp sit at different bounces, and a path's dead
-// bounces become single-lane stores (0.96 ms against 0.60 on Cornell,
-// PERF.md, section 6).  The reverse reads the alive plane
+// trace kernel's two sweeps per bounce.  Every thread stores its own path's
+// record at each bounce, so a warp's 32 lanes store each plane together,
+// four full 32-byte sectors.  With one path per thread a warp ran until its
+// longest path ended: on Cornell's primary rays 68% of the thread-bounces
+// of the warps that ran held a live path.  So 4 and 4v keep a block's paths
+// in shared memory and, at each bounce, pack the live ones into the
+// block's first warps, which run their bounces (the path planes above; 94% of
+// the thread-bounces live on blocks of 256): 4 from 0.60 to 0.545 ms, 4v
+// from 0.98 to 0.89.  The barriers leave the rest: a block's warps wait for
+// its slowest packed warp at every bounce.  4s keeps one path per thread:
+// its paths are short (2.7 bounces of 8 on ward) and packing measured 10%
+// slower (PERF.md, section 6).  The trace kernel's persistent schedule
+// (trace.cu) measured slower still: its refills take one to three lanes at
+// a time, the lanes of a warp sit at different bounces, and a path's dead
+// bounces become single-lane stores (0.96 ms against 0.60 on Cornell).
+// The reverse reads the alive plane
 // of every bounce and the other 12 (16) planes of a live one, and replays
 // one intersection per live bounce; its operations, the float recompute
 // and an adjoint in double several times the forward's shading (5v also
@@ -114,6 +125,8 @@ constexpr int R_STATE = N_RESID<kVol> - 4;  // the emit-state plane; alive, gid,
 
 // ---- forward with residuals -----------------------------------------------
 
+// one path of one thread, all its bounces: kernel 4s, and the index-order
+// reference of tests/kernel_host_harness.cpp for the packed instances
 template <bool kVol = false, bool kSurf = false>
 PT_FN void fwd_lane(const Tables& T, uint32_t seed, uint32_t s, V3 o, V3 d, int max_depth,
                     int nee, int rr, int rr_start, bool valid, float* resid, size_t n,
@@ -163,6 +176,124 @@ PT_FN void fwd_lane(const Tables& T, uint32_t seed, uint32_t s, V3 o, V3 d, int 
       r[(RS + 3) * n] = nee_add ? 1.0f : 0.0f;
     }
   }
+}
+
+// ---- the forward kernel's block of packed paths ---------------------------
+//
+// trace_fwd_kernel_packed keeps its block's paths (one per thread, the same
+// index range as one path per thread) in shared memory, one plane per carry.  At
+// each bounce every thread stores its own path's record (path_record, at
+// the path's own index: the stores stay coalesced), the live paths are
+// listed in path order, the first `live` threads each run one listed
+// path's bounce (path_step) and every thread then stores its path's
+// outcome (path_outcome).  A warp so runs bounces only while it has listed
+// paths, not until the longest of its own 32 ends.  The host harness
+// (tests/kernel_host_harness.cpp) runs these same functions block by block.
+
+// the carry planes of a block's paths: origin, direction, throughput, emit
+// state, radiance and with kVol the medium (sigma_a rgb, sigma_s); then
+// int planes: the sample index, alive, the bounce's winner and NEE bit, and
+// the list of live paths
+constexpr int P_O = 0, P_D = 3, P_THR = 6, P_STATE = 9, P_RAD = 10, P_SA = 13, P_SS = 16;
+template <bool kVol>
+constexpr int P_FLOATS = kVol ? 17 : 13;
+constexpr int P_SAMPLE = 0, P_ALIVE = 1, P_GID = 2, P_NEE = 3, P_LIST = 4, P_INTS = 5;
+
+// a block's path planes: carry k of path p at f[k * threads + p], int
+// plane k at i[k * threads + p]
+struct PathPlanes {
+  float* f;
+  int* i;
+  int threads;
+  PT_FN float& at(int k, int p) const { return f[k * threads + p]; }
+  PT_FN int& in(int k, int p) const { return i[k * threads + p]; }
+};
+
+// the shared-memory floats of a block's path planes
+template <bool kVol>
+PT_HD size_t path_floats(int threads) {
+  return (size_t)(P_FLOATS<kVol> + P_INTS) * threads;
+}
+
+// path p of a block starts a ray (valid: below n), with unit throughput,
+// emit state 0 and the vacuum medium
+template <bool kVol>
+PT_FN void path_init(const PathPlanes& P, int p, bool valid, V3 o, V3 d, uint32_t s) {
+  const float v[P_RAD + 3] = {o.x, o.y, o.z, d.x, d.y, d.z, 1.0f, 1.0f, 1.0f, 0.0f, 0.0f, 0.0f,
+                              0.0f};
+  for (int k = 0; k < P_RAD + 3; ++k) P.at(k, p) = v[k];
+  if constexpr (kVol)
+    for (int k = P_SA; k <= P_SS; ++k) P.at(k, p) = 0.0f;
+  P.in(P_SAMPLE, p) = (int)s;
+  P.in(P_ALIVE, p) = valid ? 1 : 0;
+}
+
+// bounce dep's record of path p at lane idx: the carries entering it and
+// alive (a dead path's are those it died with); its winner and NEE bit are
+// reset for path_step
+template <bool kVol>
+PT_FN void path_record(const PathPlanes& P, int p, bool valid, float* resid, size_t n,
+                       size_t idx, int dep) {
+  constexpr int NR = N_RESID<kVol>, RS = R_STATE<kVol>;
+  P.in(P_GID, p) = -1;
+  P.in(P_NEE, p) = 0;
+  if (!valid) return;
+  float* r = resid + (size_t)dep * NR * n + idx;
+  for (int k = 0; k < 9; ++k) r[(size_t)k * n] = P.at(P_O + k, p);  // o, d, thr
+  if constexpr (kVol)
+    for (int k = 0; k < 4; ++k) r[(size_t)(R_SA + k) * n] = P.at(P_SA + k, p);
+  r[(size_t)RS * n] = P.at(P_STATE, p);
+  r[(size_t)(RS + 1) * n] = (float)P.in(P_ALIVE, p);
+}
+
+// bounce dep's outcome of path p at lane idx: the winner (-1 on a miss or
+// a dead path) and the NEE bit
+template <bool kVol>
+PT_FN void path_outcome(const PathPlanes& P, int p, bool valid, float* resid, size_t n,
+                        size_t idx, int dep) {
+  constexpr int NR = N_RESID<kVol>, RS = R_STATE<kVol>;
+  if (!valid) return;
+  float* r = resid + (size_t)dep * NR * n + idx;
+  r[(size_t)(RS + 2) * n] = (float)P.in(P_GID, p);
+  r[(size_t)(RS + 3) * n] = (float)P.in(P_NEE, p);
+}
+
+// bounce dep of the live path p, whoever runs it: fwd_lane's bounce on the
+// path's carries, written back to its planes; one more bounce counted
+template <bool kVol, bool kSurf>
+PT_FN void path_step(const Tables& T, const PathPlanes& P, int p, uint32_t seed, int dep, int nee,
+                     int rr, int rr_start, int vol_nee, unsigned int& bounces) {
+  V3 o = v3(P.at(P_O, p), P.at(P_O + 1, p), P.at(P_O + 2, p));
+  V3 d = v3(P.at(P_D, p), P.at(P_D + 1, p), P.at(P_D + 2, p));
+  V3 thr = v3(P.at(P_THR, p), P.at(P_THR + 1, p), P.at(P_THR + 2, p));
+  V3 rad = v3(P.at(P_RAD, p), P.at(P_RAD + 1, p), P.at(P_RAD + 2, p));
+  float prev_state = P.at(P_STATE, p);
+  Medium med{};
+  if constexpr (kVol)
+    med = Medium{v3(P.at(P_SA, p), P.at(P_SA + 1, p), P.at(P_SA + 2, p)), P.at(P_SS, p), 0.0f};
+  bool alive = true;
+  int gid = -1;
+  bool nee_add = false;
+  const uint32_t base = bounce_base(seed, (uint32_t)P.in(P_SAMPLE, p) * 0x85EBCA6Bu, dep);
+  ++bounces;
+  if constexpr (kVol)
+    bounce_step<true, false, kSurf>(T, base, dep, nee, rr, rr_start, o, d, thr, prev_state, rad,
+                                    alive, gid, nee_add, &med, vol_nee);
+  else
+    bounce_step<false, false, kSurf>(T, base, dep, nee, rr, rr_start, o, d, thr, prev_state, rad,
+                                     alive, gid, nee_add);
+  const float v[P_RAD + 3] = {o.x,   o.y,   o.z,        d.x,   d.y,   d.z,  thr.x,
+                              thr.y, thr.z, prev_state, rad.x, rad.y, rad.z};
+  for (int k = 0; k < P_RAD + 3; ++k) P.at(k, p) = v[k];
+  if constexpr (kVol) {
+    P.at(P_SA, p) = med.a.x;
+    P.at(P_SA + 1, p) = med.a.y;
+    P.at(P_SA + 2, p) = med.a.z;
+    P.at(P_SS, p) = med.s;
+  }
+  P.in(P_ALIVE, p) = alive ? 1 : 0;
+  P.in(P_GID, p) = gid;
+  P.in(P_NEE, p) = nee_add ? 1 : 0;
 }
 
 // ---- reverse ---------------------------------------------------------------
@@ -357,7 +488,22 @@ namespace {
 
 using namespace pt;
 
-constexpr int FWD_THREADS = 128;
+// The forward's instances that pack their live paths per block (4 and 4v,
+// trace_fwd_kernel_packed): 4s's one path per thread (trace_fwd_kernel)
+// measured faster, its paths short (2.7 bounces of 8 on ward).  The block:
+// 256 paths for 4 (0.545 ms against 0.561 on 128), 128 for 4v, whose 96
+// registers left two blocks of 256 per SM (0.935 ms on 256 against 0.89).
+// A block's idle warps wait at its barriers, so more resident blocks hide
+// them: 4 held to four blocks per SM (0.526 ms against 0.547 on its own 80
+// registers, 0.668 on 85), 4v to six (0.868 against 0.89; PERF.md,
+// section 6).
+template <bool kVol, bool kSurf>
+constexpr bool FWD_PACKED = !kSurf;
+constexpr int FWD_THREADS = 128;  // trace_fwd_kernel
+template <bool kVol>
+constexpr int PACKED_THREADS = kVol ? 128 : 256;
+template <bool kVol>
+constexpr int PACKED_BLOCKS = kVol ? 6 : 4;  // resident per SM, at least
 constexpr int BWD_THREADS = 128;
 
 // The lane sums of a whole warp into the row (every thread of the warp
@@ -389,6 +535,7 @@ __device__ __forceinline__ Tables block_tables(const float* smem, int G, int M, 
                 kSurf ? surf : 0};
 }
 
+// one path per thread, all its bounces (4s)
 template <bool kVol, bool kSurf>
 __global__ void __launch_bounds__(FWD_THREADS)
 trace_fwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ mtab, int M,
@@ -423,6 +570,99 @@ trace_fwd_kernel(const float* __restrict__ gtab, int G, const float* __restrict_
   unsigned long long c = (unsigned long long)bounces * (nee ? 2ull : 1ull);
   for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(0xffffffffu, c, off);
   if ((threadIdx.x & 31) == 0 && c) atomicAdd(nrays, c);
+}
+
+// the block's paths in its path planes, the live ones packed into its
+// first warps at every bounce (4, 4v)
+template <bool kVol, bool kSurf>
+__global__ void __launch_bounds__(PACKED_THREADS<kVol>, PACKED_BLOCKS<kVol>)
+trace_fwd_kernel_packed(const float* __restrict__ gtab, int G, const float* __restrict__ mtab,
+                        int M, const float* __restrict__ ltab, const float* __restrict__ scal,
+                        uint32_t seed, const float* __restrict__ origin,
+                        const float* __restrict__ direction, const uint32_t* __restrict__ sample,
+                        int n, float* __restrict__ radiance,
+                        unsigned long long* __restrict__ nrays, float* __restrict__ resid,
+                        int max_depth, int nee, int rr, int rr_start, int vol_nee, int surf) {
+  constexpr unsigned FULL = 0xffffffffu;
+  constexpr int THREADS = PACKED_THREADS<kVol>, WARPS = THREADS / 32;
+  extern __shared__ float smem[];
+  __shared__ int warp_live[WARPS];
+  load_tables(smem, gtab, G, mtab, M, ltab);
+  const Tables T = block_tables<kSurf>(smem, G, M, scal, surf);
+  float* planes = smem + table_floats(G, M);
+  const PathPlanes P{planes, reinterpret_cast<int*>(planes + P_FLOATS<kVol> * THREADS), THREADS};
+
+  // thread p holds path p of the block, lane idx: its record and outcome
+  const int p = threadIdx.x, lane = p & 31, warp = p >> 5;
+  const int idx = blockIdx.x * blockDim.x + p;
+  const bool valid = idx < n;
+  V3 o = v3(0.0f, 0.0f, 0.0f), d = o;
+  uint32_t s = 0;
+  if (valid) {
+    o = v3(origin[3 * idx], origin[3 * idx + 1], origin[3 * idx + 2]);
+    d = v3(direction[3 * idx], direction[3 * idx + 1], direction[3 * idx + 2]);
+    s = sample[idx];
+  }
+  path_init<kVol>(P, p, valid, o, d, s);
+  __syncthreads();
+  const size_t at = (size_t)(valid ? idx : 0);
+  unsigned int bounces = 0;
+  for (int dep = 0; dep < max_depth; ++dep) {
+    path_record<kVol>(P, p, valid, resid, (size_t)n, at, dep);
+    // the live paths in path order: a warp's count, then each live path's place
+    const bool live = P.in(P_ALIVE, p) != 0;
+    const unsigned ballot = __ballot_sync(FULL, live);
+    if (lane == 0) warp_live[warp] = __popc(ballot);
+    __syncthreads();
+    int before = 0, total = 0;
+    for (int w = 0; w < WARPS; ++w) {
+      before += w < warp ? warp_live[w] : 0;
+      total += warp_live[w];
+    }
+    if (total == 0) {  // every path of the block has ended: the rest are dead records
+      path_outcome<kVol>(P, p, valid, resid, (size_t)n, at, dep);
+      for (int rest = dep + 1; rest < max_depth; ++rest) {
+        path_record<kVol>(P, p, valid, resid, (size_t)n, at, rest);
+        path_outcome<kVol>(P, p, valid, resid, (size_t)n, at, rest);
+      }
+      break;
+    }
+    if (live) P.in(P_LIST, before + __popc(ballot & ((1u << lane) - 1u))) = p;
+    __syncthreads();
+    // the first `total` threads run the listed paths' bounces; the warps
+    // past them wait at the barrier
+    if (p < total)
+      path_step<kVol, kSurf>(T, P, P.in(P_LIST, p), seed, dep, nee, rr, rr_start, vol_nee,
+                             bounces);
+    __syncthreads();
+    path_outcome<kVol>(P, p, valid, resid, (size_t)n, at, dep);
+  }
+  if (valid) {
+    radiance[3 * idx] = P.at(P_RAD, p);
+    radiance[3 * idx + 1] = P.at(P_RAD + 1, p);
+    radiance[3 * idx + 2] = P.at(P_RAD + 2, p);
+  }
+  // exact ray count: warp sum, one 64-bit atomic per warp
+  unsigned long long c = (unsigned long long)bounces * (nee ? 2ull : 1ull);
+  for (int off = 16; off > 0; off >>= 1) c += __shfl_down_sync(FULL, c, off);
+  if (lane == 0 && c) atomicAdd(nrays, c);
+}
+
+using FwdKernel = decltype(&trace_fwd_kernel<false, true>);  // 4s's, launched anyway
+
+// the forward's instance: its kernel, threads per block and the
+// shared-memory bytes of its path planes (beside the tables)
+template <bool kVol, bool kSurf>
+FwdKernel fwd_instance(int& threads, size_t& path_bytes) {
+  if constexpr (FWD_PACKED<kVol, kSurf>) {
+    threads = PACKED_THREADS<kVol>;
+    path_bytes = sizeof(float) * path_floats<kVol>(threads);
+    return trace_fwd_kernel_packed<kVol, kSurf>;
+  } else {
+    threads = FWD_THREADS;
+    path_bytes = 0;
+    return trace_fwd_kernel<kVol, kSurf>;
+  }
 }
 
 template <bool kVol, bool kSurf>
@@ -503,11 +743,22 @@ extern "C" int trace_fwd_launch(const float* gtab, int G, const float* mtab, int
                                 int rr, int rr_start, int vol, int vol_nee, int surf,
                                 void* stream) {
   if (n <= 0) return 0;
-  const int blocks = (n + FWD_THREADS - 1) / FWD_THREADS;
-  const size_t smem = sizeof(float) * table_floats(G, M);
-  const auto kernel = vol ? (surf ? trace_fwd_kernel<true, true> : trace_fwd_kernel<true, false>)
-                          : (surf ? trace_fwd_kernel<false, true> : trace_fwd_kernel<false, false>);
-  kernel<<<blocks, FWD_THREADS, smem, (cudaStream_t)stream>>>(
+  int threads;
+  size_t path_bytes;
+  const FwdKernel kernel =
+      vol ? (surf ? fwd_instance<true, true>(threads, path_bytes)
+                  : fwd_instance<true, false>(threads, path_bytes))
+          : (surf ? fwd_instance<false, true>(threads, path_bytes)
+                  : fwd_instance<false, false>(threads, path_bytes));
+  const int blocks = (n + threads - 1) / threads;
+  // the tables, then the block's path planes where it packs its paths
+  const size_t smem = sizeof(float) * table_floats(G, M) + path_bytes;
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kernel<<<blocks, threads, smem, (cudaStream_t)stream>>>(
       gtab, G, mtab, M, ltab, scal, seed, origin, direction, sample, n, radiance, nrays, resid,
       max_depth, nee, rr, rr_start, vol_nee, surf);
   return (int)cudaGetLastError();

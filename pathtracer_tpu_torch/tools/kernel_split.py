@@ -59,7 +59,23 @@ kernels from its own sources (``tools/in_turns``).  Each process prints
 - rows: kernel 2's instances 2v, 2hg (sss), 2m (smooth_mesh), 2s (ward),
   2t (textured_image), each at 512x512 on the pinned engine's super-step 10
   (2 spp), and kernels 6 and 8 on Cornell's (800x800, 8 spp) and 7 on the
-  same rays: ``chip_smoke.queued_ms``, twice.
+  same rays: ``chip_smoke.queued_ms``, twice;
+- 2m: kernel 2's mesh instances where the pinned engine launches them,
+  each at super-step 10 of a 2-spp render at 512x512: 2m on smooth_mesh
+  (320 triangles, 10 chunks) and 2mt on a vt grid of ``GRID_CELLS`` squared
+  cells (``scene/variants.grid_obj``, 4,050 triangles, 127 chunks) in
+  ``variants.textured_mesh_scene``: the launch's device time
+  (``chip_smoke.queued_ms``, twice, and profiled over 10 calls), the same
+  state without the in-kernel meshes (the analytic instance: neither
+  triangle sweep), and from ``chunk_reach`` the share of lanes and of warps
+  whose ray reaches a chunk box and the chunks a warp sweeps together, in
+  index order and with its lanes ordered by the first chunk they reach;
+- packing: kernels 4 (Cornell 800x800), 4v (milky 800x800) and 4s (ward
+  512x512) on an iteration's primary rays (``chip_smoke.queued_ms``,
+  twice), the share of lanes alive at each bounce (the residuals' alive
+  plane) and the live share of the thread-bounces that warps run: in index
+  order (a warp runs while one of its lanes lives) and with the live paths
+  of each block of 128 or 256 packed into its first warps.
 
 Every process also prints the registers and spills of every instance of
 kernels 1, 2, 3, 4 and 5 (none when its libraries were built earlier).
@@ -67,7 +83,14 @@ kernels 1, 2, 3, 4 and 5 (none when its libraries were built earlier).
 A ``NAME=variant:V`` checkout is a copy of this checkout under
 ``build/kernel_split/V`` with the source edits of ``VARIANTS[V]``: a
 variant measured for timing only (``norows``: kernel 3 without its row
-sums).
+sums; ``nomeshocc``: the bounce's shadow ray without its triangle sweep
+``mesh_occ``, which kernel 1m shares and the ``2m`` part does not run;
+``fwd128``: kernel 4 packing blocks of 128 paths, not 256; ``surfpacked``:
+kernel 4s packing its live paths too; ``fwdfree``: kernel 4's packed
+instances free to take the registers they want, not held to four blocks
+of 256 (4) and six of 128 (4v) per SM; ``lanesweep``: kernel 2's mesh
+instances with each lane sweeping the triangles on its own, as kernel 1m
+does, instead of the block's sweep).
 
 Needs a card and ``nvcc``.
 """
@@ -119,13 +142,32 @@ def _profiled_split(cs, fn, body: str, lanes: int, reps: int = 10) -> tuple:
                        f"for {reps} calls")
 
 
-PARTS = ("adjoint", "forward", "1m", "steps", "perbounce", "rows")
+PARTS = ("adjoint", "forward", "1m", "steps", "perbounce", "rows", "2m", "packing")
 DEFAULT_PARTS = ("adjoint", "forward", "1m", "steps")
 # variant copies of this checkout: name -> (file, text, replacement) edits
 VARIANTS = {
     "norows": (("pathtracer_tpu_torch/csrc/bounce_grad.cu",
                 "constexpr bool BWD_ROWS_ON = !kVol;", "constexpr bool BWD_ROWS_ON = false;"),),
+    "nomeshocc": (("pathtracer_tpu_torch/csrc/trace_common.cuh",
+                   "if (T.mesh.n > 0 && occ_t >= dist - SHADOW_SLACK)",
+                   "if (false && T.mesh.n > 0 && occ_t >= dist - SHADOW_SLACK)"),),
+    "fwd128": (("pathtracer_tpu_torch/csrc/trace_grad.cu",
+                "constexpr int PACKED_THREADS = kVol ? 128 : 256;",
+                "constexpr int PACKED_THREADS = 128;"),),
+    "surfpacked": (("pathtracer_tpu_torch/csrc/trace_grad.cu",
+                    "constexpr bool FWD_PACKED = !kSurf;", "constexpr bool FWD_PACKED = true;"),),
+    "fwdfree": (("pathtracer_tpu_torch/csrc/trace_grad.cu",
+                 "constexpr int PACKED_BLOCKS = kVol ? 6 : 4;",
+                 "constexpr int PACKED_BLOCKS = 1;"),),
+    "lanesweep": (("pathtracer_tpu_torch/csrc/bounce.cu",
+                   "if constexpr (kMesh) {  // the block's sweep first",
+                   "if constexpr (false) {  // the block's sweep first"),
+                  ("pathtracer_tpu_torch/csrc/bounce.cu",
+                   "nullptr, 0, kMesh ? &pre : nullptr);", "nullptr, 0, nullptr);")),
 }
+GRID_CELLS = 45  # the 2m part's vt grid: 2 * 45^2 = 4,050 triangles, under the in-kernel cap
+# the packing part's launches: label, scene, resolution
+PACKING_CASES = (("4", "cornell", None), ("4v", "milky", None), ("4s", "ward", (512, 512)))
 # the forward part's launches: label, kernel (1 or 4), scene, resolution,
 # russian roulette from bounce 3
 FORWARD_CASES = (
@@ -373,6 +415,167 @@ def rows(cs, card: str, here: str) -> None:
                       f"{ms[1]:.4f} ms of device time (queued); on {card}", flush=True)
 
 
+def chunk_reach(km, gtab, origin, direction):
+    """``[N, C]`` bool: lane i's ray reaches chunk c's box with nothing
+    nearer found yet (``csrc/trace_common.cuh:chunk_reaches`` at ``best =
+    BIG``), each mesh's chunks in its geom's object space.  A lane that
+    reaches no chunk tests no triangle in the nearest-hit sweep."""
+    import torch
+
+    from pathtracer_tpu_torch.ops.intersect import BIG, safe_recip, to_object
+    from pathtracer_tpu_torch.ops.mesh_tables import chunk_reaches
+
+    boxes = km.aabb.view(-1, 6)
+    cols = []
+    for g, n_chunks, first, _, _ in km.descs:
+        obj = to_object(gtab[g].unbind(-1), *origin.unbind(-1), *direction.unbind(-1))
+        oo, inv = obj[:3], tuple(safe_recip(c) for c in obj[3:])
+        big = torch.full_like(oo[0], BIG)
+        cols += [chunk_reaches(boxes[c].unbind(-1), oo, inv, big)
+                 for c in range(first, first + n_chunks)]
+    return torch.stack(cols, dim=-1)
+
+
+def warp_chunks(reach, order=None) -> float:
+    """The mean over warps (32 consecutive lanes, or 32 consecutive entries
+    of ``order``) of the chunks that some lane of the warp reaches: the
+    chunks a warp sweeps together."""
+    import torch
+
+    if order is not None:
+        reach = reach[order]
+    pad = (-reach.shape[0]) % 32
+    if pad:
+        reach = torch.cat([reach, reach.new_zeros((pad, reach.shape[1]))])
+    return float(reach.view(-1, 32, reach.shape[1]).any(1).sum(-1).double().mean())
+
+
+def live_shares(alive) -> dict:
+    """The live share of the thread-bounces that warps run, from the alive
+    plane of every bounce (``[depth, N]`` bool): ``"index"``, one path per
+    thread (a warp runs a bounce while one of its 32 lanes lives), and per
+    block size b of 128 and 256, its live paths packed into its first
+    ceil(live / 32) warps."""
+    import torch
+
+    depth, n = alive.shape
+    pad = torch.nn.functional.pad(alive, (0, (-n) % 256))
+    live = int(alive.sum())
+    out = {"index": live / (int(pad.view(depth, -1, 32).any(-1).sum()) * 32)}
+    for b in (128, 256):
+        warps = -(-pad.view(depth, -1, b).sum(-1) // 32)
+        out[b] = live / (int(warps.sum()) * 32)
+    return out
+
+
+def mesh_bounce(cs, card: str, here: str) -> None:
+    """The ``2m`` part (the module's docstring)."""
+    import dataclasses
+
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import bounce_fused
+    from pathtracer_tpu_torch.ops.bounce import pack_tables
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render.features import resolve_features
+    from pathtracer_tpu_torch.scene.parser import load_scene, parse_scene_text
+    from pathtracer_tpu_torch.scene.variants import grid_obj, textured_mesh_scene
+
+    dev = torch.device("cuda")
+    seed = key_to_seed(prng_key(0))
+    grid = os.path.join(ROOT, "build", "kernel_split", f"grid{GRID_CELLS}.obj")
+    os.makedirs(os.path.dirname(grid), exist_ok=True)
+    with open(grid, "w") as f:
+        f.write(grid_obj(GRID_CELLS))
+    for label, name in (("2m", "smooth_mesh"), ("2mt", f"vt grid {GRID_CELLS}")):
+        if label == "2m":
+            desc = load_scene(os.path.join("scenes", "smooth_mesh.txt"))
+        else:
+            desc = parse_scene_text(textured_mesh_scene(grid), name="vt_grid",
+                                    scene_dir="scenes")
+        desc = dataclasses.replace(desc, resolution=(512, 512))
+        scene = desc.scene_for_frame(0, device=dev)
+        km = scene.mesh_tables
+        cfg = RenderConfig(wavefront=True, iters_per_launch=2, max_depth=8, nee=True)
+        captured = {}
+        cs.capturing_render(scene, 2, cfg, dev, captured)
+        tables = [t.contiguous() for t in pack_tables(scene)]
+        margs = (tables, captured["origin"], captured["direction"], captured["throughput"],
+                 captured["sample"], captured["depth"], captured["prev"],
+                 captured["medium"].contiguous(), seed)
+        feats = frozenset(resolve_features(cfg, scene.materials).features)
+        kw = dict(nee=True, features=feats, tex_defer=scene.textures is not None, mesh=km)
+        n = margs[1].shape[0]
+
+        def launch(**extra):
+            return bounce_fused.bounce_fused_cuda(*margs, **{**kw, **extra})
+
+        ms = [cs.queued_ms(launch) for _ in range(2)]
+        run, _ = cs.profiled(launch, 10)
+        body, nb = _device_sum(run, "bounce_kernel")
+        bare = cs.queued_ms(lambda: launch(mesh=None))
+        reach = chunk_reach(km, tables[0], margs[1], margs[2])
+        lanes = reach.any(-1)
+        warps = float(torch.nn.functional.pad(lanes, (0, (-n) % 32)).view(-1, 32).any(-1)
+                      .double().mean())
+        first = torch.where(lanes, reach.int().argmax(-1) + 1, 0)
+        by_first = torch.sort(first, stable=True).indices
+        print(f"[split] {here} 2m kernel {label} {name} super-step {cs.CAPTURE_STEP} ({n} lanes, "
+              f"{reach.shape[1]} chunks): {ms[0]:.4f} / {ms[1]:.4f} ms of device time (queued; "
+              f"without the meshes {bare:.4f}); profiled: {body / max(nb, 1):.4f} ms x {nb}; "
+              f"lanes whose ray reaches a chunk {float(lanes.double().mean()):.4f}, warps "
+              f"{warps:.4f}; chunks per lane {float(reach.sum(-1).double().mean()):.3f}, "
+              f"per warp in index order {warp_chunks(reach):.3f}, ordered by first chunk "
+              f"{warp_chunks(reach, by_first):.3f}; on {card}", flush=True)
+
+
+def path_packing(cs, card: str, here: str) -> None:
+    """The ``packing`` part (the module's docstring)."""
+    import dataclasses
+
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import trace_grad
+    from pathtracer_tpu_torch.ops.bounce import pack_tables
+    from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render.features import resolve_features
+    from pathtracer_tpu_torch.scene.parser import load_scene
+
+    dev = torch.device("cuda")
+    seed = key_to_seed(prng_key(0))
+    base = RenderConfig(wavefront=False, nee=True, max_depth=8)
+    for label, name, res in PACKING_CASES:
+        desc = load_scene(os.path.join("scenes", f"{name}.txt"))
+        desc = dataclasses.replace(desc, resolution=res) if res else desc
+        scene = desc.scene_for_frame(0, device=dev)
+        feats = frozenset(resolve_features(base, scene.materials).features)
+        tables = [t.contiguous() for t in pack_tables(scene)]
+        n = scene.camera.width * scene.camera.height
+        pixel = torch.arange(n, dtype=torch.int64, device=dev)
+        rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, pixel))
+        fargs = (*tables, seed, rays.origin, rays.direction, pixel)
+        fkw = dict(max_depth=8, nee=True, rr=False, rr_start=3, features=feats)
+
+        def launch():
+            return trace_grad.tfwd_cuda(*fargs, **fkw)
+
+        _, nrays, resid = launch()
+        ms = [cs.queued_ms(launch) for _ in range(2)]
+        alive = resid[:, resid.shape[1] - 3] > 0.5  # [depth, N]: the alive plane
+        del resid
+        share = live_shares(alive)
+        print(f"[split] {here} packing kernel {label} {name} {n} lanes: {ms[0]:.4f} / "
+              f"{ms[1]:.4f} ms of device time (queued); {int(nrays) / n / 2:.4f} bounces per "
+              f"lane of 8; live lanes per bounce " + " ".join(
+                  f"{float(x) / n:.4f}" for x in alive.sum(-1))
+              + f"; live share of the warps' thread-bounces: index order "
+              f"{share['index']:.4f}, packed in blocks of 128 {share[128]:.4f}, of 256 "
+              f"{share[256]:.4f}; on {card}", flush=True)
+
+
 def measure(card: str, parts: str = ",".join(DEFAULT_PARTS)) -> None:
     """In a checkout: print its ``[split]`` lines for the comma-separated
     ``parts`` (the module's docstring)."""
@@ -585,6 +788,10 @@ def measure(card: str, parts: str = ",".join(DEFAULT_PARTS)) -> None:
         perbounce(cs, card, here)
     if "rows" in parts:
         rows(cs, card, here)
+    if "2m" in parts:
+        mesh_bounce(cs, card, here)
+    if "packing" in parts:
+        path_packing(cs, card, here)
 
     inst = cs.ptxas_instances(reports)
     regs = {f"3 vol={v} surf={s}": cs.instance_regs(inst, "bounce_grad", "bounce_bwd_kernel",
@@ -601,9 +808,12 @@ def measure(card: str, parts: str = ",".join(DEFAULT_PARTS)) -> None:
                  cs.instance_regs(inst, "trace", "trace_kernel", m, v, g, s)
                  for m in (False, True) for v, g in ((False, False), (True, False), (True, True))
                  for s in (False, True)})
-    regs.update({f"4 vol={v} surf={s}": cs.instance_regs(inst, "trace_grad", "trace_fwd_kernel",
-                                                         v, s)
-                 for v in (False, True) for s in (False, True)})
+    # kernel 4's instances without the surface blocks pack their paths
+    # (trace_fwd_kernel_packed) where the checkout has that kernel
+    packed = any("trace_fwd_kernel_packed" in entry for _, entry in inst)
+    regs.update({f"4 vol={v} surf={s}": cs.instance_regs(
+        inst, "trace_grad", "trace_fwd_kernel_packed" if packed and not s else "trace_fwd_kernel",
+        v, s) for v in (False, True) for s in (False, True)})
     print(f"[split] {here} regs (registers, spill store / load bytes): {regs}", flush=True)
 
 

@@ -14,7 +14,10 @@
 // chunk-culled with the padded boxes, or dense without).
 // host_trace_sched runs kernel 1 under a host emulation of its persistent
 // schedule (trace.cu:persistent_paths): warps of 32 lanes in lockstep
-// sharing one lane counter, refilled by rank.
+// sharing one lane counter, refilled by rank.  host_fwd_packed runs kernel
+// 4 block by block with its live paths packed (trace_grad.cu:
+// trace_fwd_kernel_packed), host_bounce_blocks kernel 2's mesh instances
+// with each block's triangle sweep shared (bounce.cu:block_mesh_sweep).
 // host_mesh_sweep and host_mesh_occ run the in-kernel triangle sweep and
 // the shadow ray's sweep (trace_common.cuh) on one ray per lane.
 // The trace and the bounce take the in-kernel mesh tables as the launchers
@@ -115,6 +118,71 @@ extern "C" void host_fwd(const float* gtab, int G, const float* mtab, const floa
     total += (unsigned long long)bounces * (nee ? 2 : 1);
   }
   *nrays = total;
+}
+
+// Kernel 4 (trace_grad.cu:trace_fwd_kernel_packed) block by block as the card
+// runs it: `threads` paths per block in the path planes; at each bounce
+// every path's record, the live paths listed in path order, the listed
+// paths' bounces (here from the last listed to the first), every path's
+// outcome; a block whose paths have all ended writes its remaining records
+// at once.
+template <bool kVol, bool kSurf>
+static void fwd_blocks(const Tables& T, unsigned seed, const float* origin,
+                       const float* direction, const unsigned* sample, int n, float* radiance,
+                       unsigned long long* nrays, float* resid, int depth, int nee, int rr,
+                       int rr_start, int vol_nee, int threads) {
+  std::vector<float> f(P_FLOATS<kVol> * (size_t)threads);
+  std::vector<int> ints(P_INTS * (size_t)threads);
+  const PathPlanes P{f.data(), ints.data(), threads};
+  unsigned long long total = 0;
+  for (int b0 = 0; b0 < n; b0 += threads) {
+    auto valid = [&](int p) { return b0 + p < n; };
+    for (int p = 0; p < threads; ++p) {
+      const int i = valid(p) ? b0 + p : 0;
+      path_init<kVol>(P, p, valid(p), v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]),
+                      v3(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]),
+                      valid(p) ? sample[i] : 0u);
+    }
+    unsigned int bounces = 0;
+    for (int dep = 0; dep < depth; ++dep) {
+      int live = 0;
+      for (int p = 0; p < threads; ++p) {
+        path_record<kVol>(P, p, valid(p), resid, (size_t)n, (size_t)(b0 + p), dep);
+        if (P.in(P_ALIVE, p)) P.in(P_LIST, live++) = p;
+      }
+      if (live == 0) {
+        for (int rest = dep; rest < depth; ++rest)
+          for (int p = 0; p < threads; ++p) {
+            if (rest > dep)
+              path_record<kVol>(P, p, valid(p), resid, (size_t)n, (size_t)(b0 + p), rest);
+            path_outcome<kVol>(P, p, valid(p), resid, (size_t)n, (size_t)(b0 + p), rest);
+          }
+        break;
+      }
+      for (int t = live - 1; t >= 0; --t)
+        path_step<kVol, kSurf>(T, P, P.in(P_LIST, t), seed, dep, nee, rr, rr_start, vol_nee,
+                               bounces);
+      for (int p = 0; p < threads; ++p)
+        path_outcome<kVol>(P, p, valid(p), resid, (size_t)n, (size_t)(b0 + p), dep);
+    }
+    for (int p = 0; p < threads && valid(p); ++p)
+      for (int k = 0; k < 3; ++k) radiance[3 * (b0 + p) + k] = P.at(P_RAD + k, p);
+    total += bounces;
+  }
+  *nrays = total * (nee ? 2 : 1);
+}
+
+extern "C" void host_fwd_packed(const float* gtab, int G, const float* mtab, const float* ltab,
+                                const float* scal, unsigned seed, const float* origin,
+                                const float* direction, const unsigned* sample, int n,
+                                float* radiance, unsigned long long* nrays, float* resid,
+                                int depth, int nee, int rr, int rr_start, int vol, int vol_nee,
+                                int surf, int threads) {
+  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f, MeshTables{}, surf};
+  auto run = vol ? (surf ? fwd_blocks<true, true> : fwd_blocks<true, false>)
+                 : (surf ? fwd_blocks<false, true> : fwd_blocks<false, false>);
+  run(T, seed, origin, direction, sample, n, radiance, nrays, resid, depth, nee, rr, rr_start,
+      vol_nee, threads);
 }
 
 extern "C" void host_bwd(const float* gtab, int G, const float* mtab, int M, const float* ltab,
@@ -230,7 +298,92 @@ extern "C" void host_bounce(const float* gtab, int G, const float* mtab, const f
   for (int i = 0; i < n; ++i)
     lane(T, seed, nee, vol_nee, mw, (size_t)i, origin, direction, thr, sample, depth, prev,
          medium, contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium,
-         replay_gid, replay_nee, tex_u, tex_v, tex_slot, nullptr, nullptr, nullptr, 0);
+         replay_gid, replay_nee, tex_u, tex_v, tex_slot, nullptr, nullptr, nullptr, 0, nullptr);
+}
+
+// Kernel 2's block sweep (bounce.cu:block_mesh_sweep) over the rays of one
+// block's lanes: each lane walks the chunks of every mesh in order against
+// its own best; a chunk that no lane reaches is skipped; for one that some
+// reach, every lane's test comes first, then each reaching lane (from the
+// last listed to the first) takes the chunk's first minimum over its 32
+// triangles, as the card's warps compute it (the minimum, then the lowest
+// row that gives it).
+template <bool kUV>
+static void host_block_sweep(const float* g_tab, const MeshTables& M, const V3* o, const V3* d,
+                             int lanes, MeshHit* out) {
+  std::vector<SweepBest> s(lanes);
+  std::vector<V3> oo(lanes), od(lanes), inv(lanes);
+  std::vector<char> reach(lanes);
+  for (int k = 0; k < M.n; ++k) {
+    const int* ds = M.desc + MESH_DESC * k;
+    for (int l = 0; l < lanes; ++l) {
+      to_object(g_tab + ds[0] * GCOLS, o[l], d[l], oo[l], od[l]);
+      inv[l] = v3(safe_recip(od[l].x), safe_recip(od[l].y), safe_recip(od[l].z));
+    }
+    for (int c = ds[2]; c < ds[2] + ds[1]; ++c) {
+      bool any = false;
+      for (int l = 0; l < lanes; ++l) {
+        reach[l] = chunk_reaches(M.aabb + 6 * c, oo[l], inv[l], s[l].best);
+        any = any || reach[l];
+      }
+      if (!any) continue;
+      for (int l = lanes - 1; l >= 0; --l) {
+        if (!reach[l]) continue;
+        float t[MESH_CHUNK], u[MESH_CHUNK], v[MESH_CHUNK], m = BIG;
+        for (int j = 0; j < MESH_CHUNK; ++j) {
+          t[j] = mt_tri(M.tri + 12 * (c * MESH_CHUNK + j), oo[l], od[l], u[j], v[j]);
+          m = fminf(m, t[j]);
+        }
+        int j = 0;
+        while (t[j] != m) ++j;
+        sweep_take<kUV>(s[l], k, ds, c * MESH_CHUNK + j, m, u[j], v[j]);
+      }
+    }
+  }
+  for (int l = 0; l < lanes; ++l)
+    out[l] = mesh_hit<kUV>(g_tab, M, o[l], d[l], s[l]);
+}
+
+// kernel 2's mesh instances as the card runs them: blocks of `threads`
+// lanes, each block's nearest-triangle sweep first (host_block_sweep), then
+// every lane's bounce with its winner.  A non-null `order` deals the lanes
+// to the blocks in that order (block b takes lanes order[b * threads ...]):
+// a lane's winner must not depend on which lanes share its block.
+extern "C" void host_bounce_blocks(const float* gtab, int G, const float* mtab,
+                                   const float* ltab, const float* scal, unsigned seed, int nee,
+                                   int n, const float* origin, const float* direction,
+                                   const float* thr, const unsigned* sample, const int* depth,
+                                   const float* prev, const float* medium, float* contrib,
+                                   float* next_o, float* next_d, float* thr_mult,
+                                   unsigned char* terminate, float* wspec, float* rru,
+                                   float* out_medium, int surf, float* tex_u, float* tex_v,
+                                   float* tex_slot, const float* mtri, const float* maabb,
+                                   const float* mnorm, const float* muv, const int* mdesc,
+                                   int n_mesh, const int* order, int threads) {
+  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f,
+                 MeshTables{mtri, maabb, mnorm, muv, mdesc, n_mesh}, surf};
+  const bool tex = tex_u != nullptr;
+  auto lane = tex ? bounce_lane<false, false, true, true>
+                  : (surf ? bounce_lane<false, false, true> : bounce_lane<false, false>);
+  std::vector<V3> o(threads), d(threads);
+  std::vector<MeshHit> hits(threads);
+  for (int b0 = 0; b0 < n; b0 += threads) {
+    const int lanes = n - b0 < threads ? n - b0 : threads;
+    for (int p = 0; p < lanes; ++p) {
+      const int i = order != nullptr ? order[b0 + p] : b0 + p;
+      o[p] = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
+      d[p] = v3(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
+    }
+    if (tex)
+      host_block_sweep<true>(gtab, T.mesh, o.data(), d.data(), lanes, hits.data());
+    else
+      host_block_sweep<false>(gtab, T.mesh, o.data(), d.data(), lanes, hits.data());
+    for (int p = 0; p < lanes; ++p)
+      lane(T, seed, nee, 1, 4, (size_t)(order != nullptr ? order[b0 + p] : b0 + p), origin,
+           direction, thr, sample, depth, prev, medium, contrib, next_o, next_d, thr_mult,
+           terminate, wspec, rru, out_medium, nullptr, nullptr, tex_u, tex_v, tex_slot, nullptr,
+           nullptr, nullptr, 0, &hits[p]);
+  }
 }
 
 extern "C" void host_bounce_merge(const float* gtab, int G, const float* mtab, const float* ltab,
@@ -261,7 +414,7 @@ extern "C" void host_bounce_merge(const float* gtab, int G, const float* mtab, c
   for (int i = 0; i < n; ++i)
     lane(T, seed, nee, vol_nee, mw, (size_t)i, origin, direction, thr, sample, depth, prev,
          medium, contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium, nullptr,
-         nullptr, tex_u, tex_v, tex_slot, mesh_in, mesh_uv, deferred, (size_t)n);
+         nullptr, tex_u, tex_v, tex_slot, mesh_in, mesh_uv, deferred, (size_t)n, nullptr);
 }
 
 extern "C" void host_nearest(const float* gtab, int G, int n, const float* origin,

@@ -126,6 +126,9 @@ def host_lib(tmp_path_factory):
     lib.host_bounce_bwd.argtypes = ([P, I, P, I, P, P, ctypes.c_uint, I, I] + [P] * 16 + [I] * 3
                                     + [P] * 3 + [P])
     lib.host_bounce_bwd_keys.argtypes = [P, P, I] + [P] * 7
+    lib.host_fwd_packed.argtypes = lib.host_fwd.argtypes + [I]
+    lib.host_bounce_blocks.argtypes = ([P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 15 + [I]
+                                       + [P] * 3 + [P] * 5 + [I, P, I])
     return lib
 
 
@@ -1859,3 +1862,127 @@ def test_persistent_schedule_matches_index_order(host_lib, case, threads):
     assert nr_f.value == nr_i.value and torch.equal(rad_f, rad_i)
     assert not bool(res_f.isnan().any())
     assert float(res_f[-1, nr - 3].mean()) < 1.0  # the alive plane: some paths ended early
+
+
+@pytest.mark.parametrize("threads", [128, 256])
+@pytest.mark.parametrize("case", sorted(c for c, (_, _, fwd) in SCHED_CASES.items() if fwd))
+def test_fwd_block_packing_matches_index_order(host_lib, case, threads):
+    """Kernel 4 as the card runs it (``trace_grad.cu:trace_fwd_kernel_packed``: a
+    block's paths in its path planes, at each bounce every path's record,
+    the live paths packed into the first threads for their bounces, every
+    path's outcome), emulated block by block with the packed paths run in
+    reverse, against the same lanes run one by one in index order
+    (``fwd_lane``): radiance, ray count and the whole residual stack
+    bit-equal, in the vacuum, kVol and kSurf instances.  29x31 lanes, not a
+    multiple of the block of 128 or 256 paths."""
+    name, kw, _ = SCHED_CASES[case]
+    tables, _, (vol, _, surf), scene = _sched_scene(name, (29, 31))
+    n, seed = 29 * 31, 43
+    pixel = torch.arange(n)
+    sample = 2 * n + pixel
+    rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, sample))
+    bits = sample.to(torch.int32)  # kept alive across the calls
+    flags = (kw["max_depth"], int(kw["nee"]), int(kw["rr"]), kw["rr_start"], vol, 1, surf)
+    common = (tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(),
+              tables[2].data_ptr(), tables[3].data_ptr(), seed, rays.origin.data_ptr(),
+              rays.direction.data_ptr(), bits.data_ptr(), n)
+    nr = trace_grad.N_RESID_VOL if vol else trace_grad.N_RESID
+    out = {}
+    for packed in (False, True):
+        rad = torch.full((n, 3), float("nan"))
+        res = torch.full((kw["max_depth"], nr, n), float("nan"))
+        rays_n = ctypes.c_ulonglong()
+        if packed:
+            host_lib.host_fwd_packed(*common, rad.data_ptr(), ctypes.byref(rays_n),
+                                     res.data_ptr(), *flags, threads)
+        else:
+            host_lib.host_fwd(*common, rad.data_ptr(), ctypes.byref(rays_n), res.data_ptr(),
+                              *flags)
+        out[packed] = (rad, rays_n.value, res)
+    (rad_i, nr_i, res_i), (rad_p, nr_p, res_p) = out[False], out[True]
+    alive = res_i[:, nr - 3]
+    print(f"{case}, blocks of {threads}: {nr_i} rays; live lanes per bounce "
+          + " ".join(f"{float(a.mean()):.3f}" for a in alive))
+    assert nr_p == nr_i > 0
+    assert torch.equal(rad_p, rad_i) and float(rad_i.sum()) > 0
+    assert torch.equal(res_p, res_i) and not bool(res_i.isnan().any())
+    assert float(alive[-1].mean()) < 1.0  # some paths ended early: the packing had work
+
+
+def _mesh_bounce_lanes(tmp_path, name):
+    """Lanes of kernel 2m (smooth_mesh, random rays around the icosphere)
+    or 2mt (a vt grid of 24 cells, rays aimed at it): the tables, in-kernel
+    meshes, surface bits and deferred-texel flag, and the lanes."""
+    n = 2048
+    if name == "2m":
+        scene, tables = _mesh_scene((8, 8))
+        lanes = random_lanes(n, seed=12)
+        lanes["origin"] = (lanes["origin"] * 0.7 + np.array([0.0, 1.8, 0.0])).astype(np.float32)
+        t = {k: torch.from_numpy(v) for k, v in lanes.items()}
+        return tables, scene.mesh_tables, 0, False, t
+    scene, tables, feats = _bigmesh_scene("grid24", tmp_path)
+    return tables, scene.mesh_tables, trace.surface_bits(feats), True, _aimed(
+        (0.3, 2.4, 2.5), n, seed=23)
+
+
+def _host_bounce_planes(host_lib, tables, km, surf, tex, t, nee):
+    """Every output plane of kernel 2's lanes with in-kernel meshes, each
+    lane sweeping the triangles on its own (``host_bounce``)."""
+    n = t["origin"].shape[0]
+    outs = [torch.empty((n, 3)) for _ in range(4)] + [
+        torch.empty(n, dtype=torch.uint8), torch.empty(n), torch.empty(n), torch.empty((n, 4))]
+    tex_out = [torch.empty(n) for _ in range(3)] if tex else [None] * 3
+    medium = torch.zeros((n, 4))
+    host_lib.host_bounce(
+        tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(), tables[2].data_ptr(),
+        tables[3].data_ptr(), 77, int(nee), n,
+        *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
+                                    "prev")),
+        medium.data_ptr(), *(o.data_ptr() for o in outs), None, None, *VACUUM, 4, surf,
+        *(None if o is None else o.data_ptr() for o in tex_out), *_mesh_args(km),
+    )
+    return outs + [o for o in tex_out if o is not None]
+
+
+@pytest.mark.parametrize("nee", [True, False])
+@pytest.mark.parametrize("name", ["2m", "2mt"])
+def test_bounce_mesh_block_sweep_matches_the_lane_sweep(host_lib, tmp_path, name, nee):
+    """Kernel 2m and 2mt as the card runs them (``bounce.cu``: each block of
+    128 lanes sweeps the triangles together, ``block_mesh_sweep``: a chunk
+    no lane reaches skipped, a reaching lane's 32 triangle tests shared out
+    and its first minimum taken), emulated block by block, against every
+    lane sweeping on its own (``mesh_sweep``): every output plane bit-equal,
+    on 2,000 lanes (not a multiple of the block), dealt to the blocks in
+    index order and in a shuffled order (a lane's winner does not depend on
+    its block-mates).  Some lanes of each case reach a chunk, some do not."""
+    from pathtracer_tpu_torch.ops.mesh_tables import mesh_sweep
+
+    tables, km, surf, tex, t = _mesh_bounce_lanes(tmp_path, name)
+    n = 2000
+    t = {k: v[:n].contiguous() for k, v in t.items()}
+    want = _host_bounce_planes(host_lib, tables, km, surf, tex, t, nee)
+    medium = torch.zeros((n, 4))
+    shuffled = torch.from_numpy(np.random.default_rng(9).permutation(n).astype(np.int32))
+    for order in (None, shuffled):
+        outs = [torch.empty((n, 3)) for _ in range(4)] + [
+            torch.empty(n, dtype=torch.uint8), torch.empty(n), torch.empty(n),
+            torch.empty((n, 4))]
+        tex_out = [torch.empty(n) for _ in range(3)] if tex else [None] * 3
+        host_lib.host_bounce_blocks(
+            tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(),
+            tables[2].data_ptr(), tables[3].data_ptr(), 77, int(nee), n,
+            *(t[k].data_ptr() for k in ("origin", "direction", "throughput", "sample", "depth",
+                                        "prev")),
+            medium.data_ptr(), *(o.data_ptr() for o in outs), surf,
+            *(None if o is None else o.data_ptr() for o in tex_out), *_mesh_args(km),
+            None if order is None else order.data_ptr(), 128,
+        )
+        got = outs + [o for o in tex_out if o is not None]
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    reached = mesh_sweep(km, tables[0], t["origin"].unbind(-1), t["direction"].unbind(-1))[
+        "reached"]
+    print(f"{name} nee={nee}: {int((reached > 0).sum())} of {n} lanes reach a chunk, "
+          f"{int(reached.sum())} lane-chunks, at most {int(reached.max())} for one lane")
+    assert 100 < int((reached > 0).sum()) < n

@@ -1683,3 +1683,83 @@ def test_sharded_render_on_two_shards_of_one_card():
     assert all(b.device == torch.device("cuda", 0) for b in blocks)
     assert st1["rays_traced"] == st2["rays_traced"]
     assert torch.equal(gather_image(blocks, mesh), whole)
+
+
+# ---- kernel 4's packed paths and the lane order of kernel 2's mesh
+# instances: bit for bit (chip_smoke.py [grad], [grad:vol], [grad:surf]
+# and [mesh], [bigmesh] hold them at full width)
+
+PACKING_CASES = {
+    "cornell": ("cornell", dict(max_depth=8, nee=True, rr=False, rr_start=3)),
+    "cornell_rr": ("cornell", dict(max_depth=8, nee=True, rr=True, rr_start=2)),
+    "milky": ("milky", dict(max_depth=8, nee=True, rr=False, rr_start=3)),
+    "ward": ("ward", dict(max_depth=8, nee=True, rr=True, rr_start=2)),
+    "surf_vol_mini": ("surf_vol_mini", dict(max_depth=6, nee=True, rr=False, rr_start=3)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PACKING_CASES))
+def test_trace_fwd_packed_paths_bit_equal(case):
+    """Kernel 4 with its block's live paths packed into its first warps at
+    each bounce (4, 4v, 4s and kVol x kSurf) on 97x61 lanes, not a
+    multiple of the block: radiance, the int64 ray count and the whole
+    residual stack equal to ``tfwd_plain``'s, and the radiance to the trace
+    kernel's."""
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import trace_grad
+    from pathtracer_tpu_torch.render.features import features_for_materials
+
+    name, kw = PACKING_CASES[case]
+    scene = _surf_grad_scene(name, (97, 61))
+    feats = frozenset(features_for_materials(scene.materials)) - {"hg"}
+    tables = pack_tables(scene)
+    n, seed = 97 * 61, 23
+    sample = torch.arange(n, device="cuda") + 5 * n
+    rays = generate_camera_rays(scene.camera, sample - 5 * n, camera_uniforms(seed, sample))
+    args = (*tables, seed, rays.origin, rays.direction, sample)
+    rad_k, nr_k, res_k = trace_grad.tfwd_cuda(*args, features=feats, **kw)
+    rad_t, nr_t = trace.trace_cuda(*args, features=feats, **kw)
+    rad_p, nr_p, res_p = trace_grad.tfwd_plain(*args, features=feats, **kw)
+    torch.cuda.synchronize()
+    assert int(nr_k) == int(nr_t) == int(nr_p) > 0
+    assert torch.equal(rad_k, rad_p) and torch.equal(rad_k, rad_t)
+    assert torch.equal(res_k, res_p)
+    assert float(res_k[-1, res_k.shape[1] - 3].mean()) < 1.0  # some paths ended early
+
+
+def _mesh_sweep_state(name, tmp_path):
+    if name == "2m":
+        scene = _scene("smooth_mesh", (8, 8))
+        n = 50_001  # not a multiple of the block
+        t = _random_lanes_cuda(n, 8)
+        t["origin"] = t["origin"] * 0.7 + torch.tensor([0.0, 1.8, 0.0], device="cuda")
+        state = (t["origin"], t["direction"], t["throughput"], t["sample"].long(), t["depth"],
+                 t["prev"], torch.zeros((n, 4), device="cuda"))
+        return scene, state, dict(features=frozenset())
+    scene = _bigmesh("grid24", (127, 129), tmp_path)
+    return scene, _primary_state(scene), dict(features=frozenset({"glossy", "texture"}),
+                                               tex_defer=True)
+
+
+@pytest.mark.parametrize("nee", [True, False])
+@pytest.mark.parametrize("name", ["2m", "2mt"])
+def test_bounce_mesh_block_sweep_bit_equal(tmp_path, name, nee):
+    """Kernel 2m (smooth_mesh, random lanes around the icosphere, 50,001 of
+    them) and 2mt (the vt grid's primary rays at 127x129), whose blocks
+    sweep the triangles together (``bounce.cu:block_mesh_sweep``): every
+    output plane equal to ``bounce_fused_plain``'s, whose lanes each sweep
+    on their own."""
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import bounce_fused
+    from pathtracer_tpu_torch.ops.mesh_tables import mesh_sweep
+
+    scene, state, kw = _mesh_sweep_state(name, tmp_path)
+    km = scene.mesh_tables
+    tables = [t.contiguous() for t in pack_tables(scene)]
+    args = (tables, *state, 19)
+    got = bounce_fused.bounce_fused_cuda(*args, nee=nee, mesh=km, **kw)
+    want = bounce_fused.bounce_fused_plain(*args, nee=nee, mesh=km, **kw)
+    reached = mesh_sweep(km, tables[0], state[0].unbind(-1), state[1].unbind(-1))["reached"]
+    torch.cuda.synchronize()
+    _all_equal(got, want)
+    assert 100 < int((reached > 0).sum()) < state[0].shape[0]
