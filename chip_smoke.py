@@ -6,7 +6,9 @@ Phases (any failure exits non-zero):
 
 1. build every kernel of ``pathtracer_tpu_torch/csrc`` with nvcc (one
    process per source, all at once) and print ptxas' register / spill
-   report;
+   report; every kernel instance whose registers the script reads and every
+   kernel name its profiles match (``EXPECTED_INSTANCES``,
+   ``PROFILED_NAMES``) must be among the compiled symbols;
 2. drive the main path: Cornell at its full 800x800, depth 8, NEE, through
    ``pathtracer_tpu_torch.render.integrator.render`` on the card, with the
    launch counters zeroed just before; every kernel of the path must have
@@ -160,7 +162,8 @@ Phases (any failure exits non-zero):
     smooth_mesh's icosphere inside fog's scattering cube, glass and opaque), and through
     ``render``; (f) the ``sss_96`` golden (95% of entries within 1e-5,
     sum within 2e-5, PNG mean 0.8/255) and the ``glass_dof_128`` PNG
-    (mean 0.8/255) on the card; (g) times by CUDA events, bounds, and each
+    (mean 0.8/255) on the card; (g) times by CUDA events (kernel 2's
+    instances also by device time, ``queued_ms``), bounds, and each
     instance's registers and spills from ``[build]`` (Cornell's kernel 1
     must keep 72 registers); (h) the CLI on sss takes ``engine=megakernel``;
 11. ``[surf]``, optional surface physics, each render through ``render``
@@ -185,7 +188,10 @@ Phases (any failure exits non-zero):
     within 2e-5 (textured's split route, whose bump frame is JAX's split
     path's: 99% and 1e-4, ray counts within 1e-5), and 2s bit-equal on the
     pinned engine's
-    super-step 10 of ward and textured; (f) the ``ward_96`` golden (95% of
+    super-step 10 of ward and textured; kernel 2's kVol x kSurf instance,
+    with and without the replay planes, bit-equal on every output plane on
+    that super-step of ``variants.milky_ward_scene`` (512x512: milky's
+    medium beside a Ward sphere); (f) the ``ward_96`` golden (95% of
     entries within 1e-5, sum within 2e-5, PNG mean 0.8/255) and the
     ``textured_image_96`` PNG (mean 0.8/255, 99.9% of pixels within 2.5/255)
     on the card; (g) times by CUDA events and each new kernel's device time
@@ -1980,12 +1986,71 @@ def ptxas_instances(reports: dict) -> dict:
     return out
 
 
+# The kernel instances whose registers this script reads (instance_regs:
+# source, kernel, template flags) and the kernel names its profiles match:
+# [build] checks each against the symbols the build compiled, so that a
+# renamed kernel or a dropped instance fails there, by its name.
+EXPECTED_INSTANCES = (
+    *(("trace", "trace_kernel", f) for f in (
+        (0, 0, 0, 0), (0, 1, 0, 0), (0, 1, 1, 0), (1, 1, 0, 0), (1, 1, 1, 0), (0, 0, 0, 1),
+        (0, 1, 0, 1), (0, 1, 1, 1), (1, 0, 0, 1), (1, 1, 0, 1), (1, 1, 1, 1))),
+    *(("bounce", "bounce_kernel", f) for f in (
+        (0, 0, 0, 0, 0), (0, 1, 0, 0, 0), (0, 1, 1, 0, 0), (0, 0, 0, 1, 0), (0, 1, 0, 1, 0),
+        (0, 1, 1, 1, 0), (1, 0, 0, 1, 0), (1, 1, 0, 1, 0), (1, 1, 1, 1, 0), (0, 0, 0, 1, 1),
+        (0, 1, 0, 1, 1), (0, 1, 1, 1, 1), (1, 0, 0, 1, 1), (1, 1, 0, 1, 1), (1, 1, 1, 1, 1))),
+    ("bounce", "bounce_kernel_grouped", ()),
+    *(("bounce_merge", "bounce_merge_kernel", f) for f in (
+        (0, 0, 0, 0), (0, 0, 1, 0), (0, 0, 1, 1), (1, 0, 0, 0), (1, 1, 0, 0), (1, 0, 1, 0),
+        (1, 1, 1, 0), (1, 0, 1, 1), (1, 1, 1, 1))),
+    *(("bounce_grad", "bounce_bwd_kernel", f) for f in ((0, 0), (1, 0), (0, 1), (1, 1))),
+    *(("trace_grad", "trace_bwd_kernel", f) for f in ((0, 0), (1, 0), (0, 1), (1, 1))),
+    *(("trace_grad", "trace_fwd_kernel", f) for f in ((0, 1), (1, 1))),
+    *(("trace_grad", "trace_fwd_kernel_packed", f) for f in ((0, 0), (1, 0))),
+)
+PROFILED_NAMES = ("trace_kernel", "bounce_kernel", "bounce_merge_kernel", "bounce_bwd_kernel",
+                  "trace_fwd_kernel", "trace_fwd_kernel_packed", "trace_bwd_kernel", "row_sum",
+                  "lane_order", "nearest_kernel", "winner_kernel", "occlusion_kernel",
+                  "mesh_nearest_kernel", "mesh_min_kernel")
+
+
+# the design of kernel 2's analytic media and surface instances, in the
+# JSON entries that run them: 2r-v groups its lanes by event, the others
+# keep one lane per thread (grouping measured slower there, PERF.md)
+KERNEL2_GROUPED = ("grouped on every launch: each 128-lane block's lanes shaded in the order of "
+                   "the event their nearest hit gives (csrc/bounce.cu:bounce_kernel_grouped)")
+KERNEL2_PER_LANE = "one lane per thread, in index order (csrc/bounce.cu:bounce_kernel)"
+
+
+def missing_kernels(reports: dict) -> list:
+    """The entries of :data:`EXPECTED_INSTANCES` and :data:`PROFILED_NAMES`
+    that no compiled symbol holds, from ``_build.build_all``'s ptxas reports.
+    A source reused from an earlier build reports nothing: its instances are
+    not checked, nor the profiled names then (:func:`unchecked_sources`)."""
+    instances = ptxas_instances(reports)
+    built = {src for src, _ in instances}
+    missing = [f"{src}:{kernel}" + (f"<{','.join(str(int(f)) for f in flags)}>" if flags else "")
+               for src, kernel, flags in EXPECTED_INSTANCES
+               if src in built and instance_regs(instances, src, kernel, *flags) is None]
+    if all(report for report in reports.values()):
+        missing += [name for name in PROFILED_NAMES
+                    if not any(name in entry for _, entry in instances)]
+    return missing
+
+
+def unchecked_sources(reports: dict) -> list:
+    """The sources of ``_build.build_all``'s reports that were reused from
+    an earlier build: no ptxas report, so :func:`missing_kernels` cannot
+    check their kernels."""
+    return sorted(name for name, report in reports.items() if not report)
+
+
 def instance_regs(instances: dict, source: str, kernel: str, *flags: bool):
     """Registers and spills of the instance of ``trace_kernel`` /
     ``bounce_kernel`` with these template flags (``kMesh, kVol, kHg,
-    kSurf[, kTex]``), or None when the report has no such entry (a library
+    kSurf[, kTex]``), or of the kernel ``kernel`` that is no template when
+    no flags are given; None when the report has no such entry (a library
     reused from an earlier build prints none)."""
-    tag = "I" + "".join(f"Lb{int(b)}E" for b in flags) + "E"
+    tag = "I" + "".join(f"Lb{int(b)}E" for b in flags) + "E" if flags else "E"
     for (src, entry), regs in instances.items():
         if src == source and f"{kernel}{tag}" in entry:
             return regs
@@ -2210,12 +2275,15 @@ def vol_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) ->
                     + int(reached.sum()) * MESH_CHUNK * OPS_MT)
         timing[key] = (ms, p_ms, bound(ops, n * (12 + 12 + 4 + 12) + tbytes), name, n,
                        f"; {lane_bounces / n:.4f} bounces per lane of {kw['max_depth']}")
+    device = {}
     for inst in ("vol", "hg"):
         args, feats2, label = bargs[inst]
         n = args[1].shape[0]
         mw = args[7].shape[1]
         ms = cuda_ms(lambda: bounce_fused.bounce_fused_cuda(*args, nee=True, features=feats2),
                      reps=20)
+        d_ms = queued_ms(lambda: bounce_fused.bounce_fused_cuda(*args, nee=True,
+                                                                features=feats2))
         p_ms = cuda_ms(lambda: bounce_fused.bounce_fused_plain(*args, nee=True, features=feats2),
                        reps=2)
         tbytes = sum(t.numel() * 4 for t in args[0])
@@ -2223,7 +2291,8 @@ def vol_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) ->
         # terminate byte out
         timing[f"bounce_{inst}"] = (ms, p_ms, bound(n * (sweep_ops(sss) + OPS_SHADE + OPS_VOL),
                                                     n * (48 + 4 * mw + 57 + 4 * mw) + tbytes),
-                                    label, n, "")
+                                    label, n, f"; {d_ms:.4f} ms of device time (queued)")
+        device[f"bounce_{inst}"] = d_ms
     rcfg = dataclasses.replace(cfg, features=tuple(feats))
     acc0 = torch.zeros((n0, 3), **f32)
     iter_ms = cuda_ms(lambda: render_chunk(sss, acc0, 0, seed, rcfg, 1, tables=sss_tables),
@@ -2280,6 +2349,8 @@ def vol_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) ->
         entries.append({"name": key, **common, "source": f"pathtracer_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": launches[key], "max_abs_err": err,
                         "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by})
+        if key in device:
+            entries[-1].update(device_ms=device[key], design=KERNEL2_PER_LANE)
     return entries
 
 
@@ -2315,7 +2386,11 @@ def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -
     from pathtracer_tpu_torch.render.features import features_for_materials
     from pathtracer_tpu_torch.render.integrator import render, render_chunk
     from pathtracer_tpu_torch.scene.parser import load_scene, parse_scene_text
-    from pathtracer_tpu_torch.scene.variants import ggx_ward_scene, striped_scene
+    from pathtracer_tpu_torch.scene.variants import (
+        ggx_ward_scene,
+        milky_ward_scene,
+        striped_scene,
+    )
     from pathtracer_tpu_torch.utils.imageio import load_png, save_image
 
     scenes_dir = os.path.join(ROOT, "scenes")
@@ -2323,6 +2398,8 @@ def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -
     def scene_of(name, res=None):
         if name == "ggx_ward":
             desc = parse_scene_text(ggx_ward_scene(), name=name)
+        elif name == "milky_ward":
+            desc = parse_scene_text(milky_ward_scene(), name=name, scene_dir=scenes_dir)
         elif name == "striped":
             desc = parse_scene_text(striped_scene(), name=name, scene_dir=scenes_dir)
         else:
@@ -2503,6 +2580,41 @@ def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -
         if not tex:
             hold_bounce("surf", f"{name} super-step {CAPTURE_STEP}", scene, cap)
 
+    # ---- (e) kernel 2's kVol x kSurf instance and its replay variant on the
+    # pinned engine's super-step CAPTURE_STEP of milky_ward (milky's medium
+    # beside a Ward sphere, scene/variants.milky_ward_scene): every output
+    # plane equal to plain
+    mward = scene_of("milky_ward", SURF_RES)
+    cap = {}
+    _, _, _, launch_e, steps, _ = capturing_render(
+        mward, 2, RenderConfig(wavefront=True, iters_per_launch=2, **base), dev, cap)
+    check(launch_e == only(bounce_surf=steps) and bool(cap),
+          f"milky_ward pinned launches {launch_e}")
+    mfeats = feats_of(mward)
+    margs = (tables_of(mward), cap["origin"], cap["direction"], cap["throughput"], cap["sample"],
+             cap["depth"], cap["prev"], cap["medium"].contiguous(), seed)
+    for replay in (False, True):
+        zero_counts()
+        got = bounce_fused.bounce_fused_cuda(*margs, nee=True, features=mfeats,
+                                             emit_replay=replay)
+        launched = read_counts()
+        want = bounce_fused.bounce_fused_plain(*margs, nee=True, features=mfeats,
+                                               emit_replay=replay)
+        torch.cuda.synchronize()
+        got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+        same = {f.name: torch.equal(getattr(got[0], f.name), getattr(want[0], f.name))
+                for f in dataclasses.fields(got[0])}
+        same.update({k: torch.equal(a, b) for k, a, b in zip(("replay_gid", "replay_nee"),
+                                                             got[1:], want[1:])})
+        in_med = int((cap["medium"][:, 3] > 0).sum())
+        print(f"[surf:check] (e) kernel 2 kVol x kSurf{' (replay)' if replay else ''} on "
+              f"milky_ward super-step {CAPTURE_STEP} ({sorted(mfeats)}), {margs[1].shape[0]} "
+              f"lanes, {in_med} in a scattering medium: outputs equal {same}")
+        counter = "bounce_replay_surf" if replay else "bounce_surf"
+        check(launched == only(**{counter: 1}), f"kernel 2 kVol x kSurf launches {launched}")
+        check(all(same.values()) and in_med > 0,
+              f"kernel 2 kVol x kSurf differs from plain (replay {replay})")
+
     # ---- (f) the ward_96 and textured_image_96 goldens on the card
     gcfg = RenderConfig(iters_per_launch=8, **base)
     gimg, gacc, _ = render(scene_of("ward", (96, 96)), 16, gcfg, device=dev)
@@ -2630,12 +2742,14 @@ def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -
     for key, source, err in (("trace_surf", "trace.cu", k1_err),
                              ("bounce_surf", "bounce.cu", k2_err["surf"]),
                              ("bounce_tex", "bounce.cu", k2_err["tex"])):
-        ms, _, p_ms, (b_ms, b_by), _, _ = timing[key]
+        ms, d_ms, p_ms, (b_ms, b_by), _, _ = timing[key]
         replaces = ("pathtracer_tpu/ops/trace_pallas.py:62" if key == "trace_surf"
                     else "pathtracer_tpu/ops/bounce_pallas.py:1477")
         entries.append({"name": key, **common, "source": f"pathtracer_tpu_torch/csrc/{source}",
                         "replaces": replaces, "launches": engine_launch[key], "max_abs_err": err,
                         "ms": ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by})
+        if key != "trace_surf":
+            entries[-1].update(device_ms=d_ms, design=KERNEL2_PER_LANE)
     return entries
 
 
@@ -3564,7 +3678,7 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
         "5v": instance_regs(instances, "trace_grad", "trace_bwd_kernel", True, False),
         "3": instance_regs(instances, "bounce_grad", "bounce_bwd_kernel", False, False),
         "3v": instance_regs(instances, "bounce_grad", "bounce_bwd_kernel", True, False),
-        "2r-v": instance_regs(instances, "bounce", "bounce_kernel", 0, 1, 0, 0, 0),
+        "2r-v": instance_regs(instances, "bounce", "bounce_kernel_grouped"),
     }
     print(f"[grad:vol:regs] registers, spill store / load bytes per instance: {regs}")
     # the vacuum instances' registers, pinned: 4 at FWD4_REGS; 5 and 3 went
@@ -3589,7 +3703,7 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
         {"name": name, **common, "source": f"pathtracer_tpu_torch/csrc/{src}",
          "replaces": rep, "launches": engine_launch[name], "max_abs_err": err[name],
          "ms": dev_ms[key], "plain_ms": plain_ms[key], "bound_ms": bounds[key][0],
-         "bound_by": bounds[key][1]}
+         "bound_by": bounds[key][1], **({"design": KERNEL2_GROUPED} if key == "2r-v" else {})}
         for name, key, src, rep in (
             ("trace_fwd_resid_vol", "4v", "trace_grad.cu", "pathtracer_tpu/ops/trace_grad.py:115"),
             ("trace_bwd_vol", "5v", "trace_grad.cu", "pathtracer_tpu/ops/trace_grad.py:190"),
@@ -4001,7 +4115,7 @@ def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
         {"name": name, **common, "source": f"pathtracer_tpu_torch/csrc/{src}",
          "replaces": rep, "launches": engine_launch[name], "max_abs_err": err[name],
          "ms": dev_ms[key], "plain_ms": plain_ms[key], "bound_ms": bounds[key][0],
-         "bound_by": bounds[key][1]}
+         "bound_by": bounds[key][1], **({"design": KERNEL2_PER_LANE} if key == "2r-s" else {})}
         for name, key, src, rep in (
             ("trace_fwd_resid_surf", "4s", "trace_grad.cu",
              "pathtracer_tpu/ops/trace_grad.py:115"),
@@ -4608,6 +4722,15 @@ def main() -> int:
         for line in report.splitlines():
             if "registers" in line or "spill" in line or "Compiling" in line:
                 print(f"[build:{name}] {line.strip()}")
+    missing = missing_kernels(reports)
+    unchecked = unchecked_sources(reports)
+    print(f"[build] the {len(EXPECTED_INSTANCES)} kernel instances and {len(PROFILED_NAMES)} "
+          f"kernel names this script matches, against the built symbols: missing "
+          f"{missing or 'none'}; " + (
+              f"not checked (reused from an earlier build, no ptxas report): "
+              f"{', '.join(unchecked)}, and the kernel names" if unchecked
+              else "every source compiled and checked"))
+    check(not missing, f"kernels this script matches are not built: {', '.join(missing)}")
 
     # ---- 2. the main path at full width
     desc = load_scene(os.path.join(ROOT, "scenes", "cornell.txt"))

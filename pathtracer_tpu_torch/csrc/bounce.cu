@@ -106,6 +106,33 @@
 // combination, so the lanes stay in index order.  What the grid has left is
 // the blocks whose lanes all graze it: their tests are shared within the
 // block, not across blocks.
+//
+// The media and surface instances: after its nearest hit a lane takes one
+// of a few events, each with its own cost (the path ends; a surface event,
+// with the NEE shadow sweep on a diffuse lobe; an in-medium scatter, with
+// volumetric NEE's split sweep), and a warp runs every event its lanes
+// take, one after another.  On milky's per-bounce step (2r-v, 640,000
+// lanes) 95-98% of warps hold more than one event, and its two shadow
+// sweeps are 40% of its 0.113 ms; on a pinned render's super-step 90-98% of
+// the lanes end, and a launch of 2v, 2hg, 2s or 2t sits 1.25-1.35x above
+// the same lanes' loads and stores alone (PERF.md, section 6).  So only
+// 2r-v groups its lanes (bounce_kernel_grouped), on every bounce: each
+// block of 128 lanes sweeps each lane's nearest hit, ranks its lanes by
+// the event that hit gives (trace_common.cuh:event_key; a stable counting
+// sort, block_rank), puts each lane's state in the slot of its rank in
+// shared-memory planes, and shades slot s on thread s, storing every
+// output at the lane's own index; a scatter lane skips the BSDF sample no
+// output of it reads.  Each lane's arithmetic is the one-lane-per-thread
+// instance's, so the outputs are the same bits.  2r-v took 0.107 ms per
+// launch of milky's step against the one-lane instance's 0.113: 6-7%
+// slower on the first two bounces (nearly every lane alive), 4-11% faster
+// from the fourth, as a block's ended lanes gather into warps that finish
+// at once (PERF.md, section 6).  Grouping the other instances, the outputs
+// staged in shared memory and stored in index order, a resident-sized grid
+// whose blocks walk the tiles of lanes, a block shading in place when each
+// warp holds one event, and planes that keep only the winner (phase 2
+// loading the lane again) were each measured slower, blocks of 256 no
+// faster (PERF.md, section 6).
 
 #include "bounce_lane.cuh"
 
@@ -240,6 +267,104 @@ bounce_kernel(const float* __restrict__ gtab, int G, const float* __restrict__ m
                                       nullptr, 0, kMesh ? &pre : nullptr);
 }
 
+// Kernel 2's replay variant in media (2r-v: kVol with the replay planes,
+// no hg, no surface features, no meshes), whose lanes of one warp take
+// different events after their nearest hit: each block of GROUP_THREADS
+// lanes sweeps each lane's nearest hit (lane_sweep), orders its lanes by
+// the event that hit gives through the lane planes in shared memory
+// (block_rank, planes_put), and shades slot s on thread s (slot_get,
+// lane_shade), each output stored at the lane's own index.  Held to the
+// one-lane-per-thread instance's 6 resident blocks of 128 lanes per SM
+// (80 registers).
+constexpr int GROUP_THREADS = 128;
+constexpr int GROUP_BLOCKS = 6 * 128 / GROUP_THREADS;
+// the block's shared memory beside the tables: the event counts
+// (EVENT_KEYS + 1 keys, one column per warp) and the lane planes
+constexpr int GROUP_WORDS =
+    (EVENT_KEYS + 1) * (GROUP_THREADS / 32) + (LP_FLOATS + LP_INTS) * GROUP_THREADS;
+
+// Each lane's rank in the block when its lanes are ordered by key, ties in
+// thread order (a stable counting sort): every thread of the block calls it
+// with its key (0 <= key <= EVENT_KEYS); cnt holds (EVENT_KEYS + 1) x warps
+// ints, zeroed before the block's first barrier.  Each warp counts its keys
+// with one match, and warp 0 turns the counts into the offsets of each
+// (key, warp) group.
+template <int NT>
+__device__ int block_rank(int key, int* cnt) {
+  constexpr unsigned FULL = 0xffffffffu;
+  constexpr int W = NT / 32;
+  static_assert(EVENT_KEYS < 32, "one lane of warp 0 per key");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const unsigned peers = __match_any_sync(FULL, key);
+  const int below = __popc(peers & ((1u << lane) - 1u));
+  if (below == 0) cnt[key * W + warp] = __popc(peers);
+  __syncthreads();
+  if (warp == 0) {
+    int total = 0;
+    if (lane <= EVENT_KEYS)
+      for (int w = 0; w < W; ++w) {
+        const int c = cnt[lane * W + w];
+        cnt[lane * W + w] = total;
+        total += c;
+      }
+    int incl = total;
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(FULL, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (lane <= EVENT_KEYS)
+      for (int w = 0; w < W; ++w) cnt[lane * W + w] += incl - total;
+  }
+  __syncthreads();
+  return cnt[key * W + warp] + below;
+}
+
+__global__ void __launch_bounds__(GROUP_THREADS, GROUP_BLOCKS)
+bounce_kernel_grouped(const float* __restrict__ gtab, int G, const float* __restrict__ mtab,
+                      int M, const float* __restrict__ ltab, const float* __restrict__ scal,
+                      uint32_t seed, int nee, int n, const float* __restrict__ origin,
+                      const float* __restrict__ direction, const float* __restrict__ thr,
+                      const uint32_t* __restrict__ sample, const int32_t* __restrict__ depth,
+                      const float* __restrict__ prev, const float* __restrict__ medium,
+                      float* __restrict__ contrib, float* __restrict__ next_o,
+                      float* __restrict__ next_d, float* __restrict__ thr_mult,
+                      uint8_t* __restrict__ terminate, float* __restrict__ wspec,
+                      float* __restrict__ rru, float* __restrict__ out_medium,
+                      float* __restrict__ replay_gid, float* __restrict__ replay_nee,
+                      int vol_nee, int mw) {
+  extern __shared__ float smem[];
+  float* s_g = smem;
+  float* s_m = s_g + G * GCOLS;
+  float* s_l = s_m + M * MCOLS;
+  int* s_cnt = reinterpret_cast<int*>(s_l + G * LCOLS);
+  float* f = reinterpret_cast<float*>(s_cnt + (EVENT_KEYS + 1) * (GROUP_THREADS / 32));
+  const LanePlanes P{f, reinterpret_cast<int*>(f + LP_FLOATS * GROUP_THREADS), GROUP_THREADS};
+  for (int i = threadIdx.x; i < G * GCOLS; i += blockDim.x) s_g[i] = gtab[i];
+  for (int i = threadIdx.x; i < M * MCOLS; i += blockDim.x) s_m[i] = mtab[i];
+  for (int i = threadIdx.x; i < G * LCOLS; i += blockDim.x) s_l[i] = ltab[i];
+  for (int i = threadIdx.x; i < (EVENT_KEYS + 1) * (GROUP_THREADS / 32); i += blockDim.x)
+    s_cnt[i] = 0;
+  __syncthreads();
+
+  const int first = blockIdx.x * GROUP_THREADS, tid = threadIdx.x;
+  const int lanes = n - first < GROUP_THREADS ? n - first : GROUP_THREADS;
+  const Tables T{s_g, s_m, s_l, G, scal[0], scal[1] > 0.5f,
+                 MeshTables{nullptr, nullptr, nullptr, nullptr, nullptr, 0}, 0};
+  LaneIn L{};
+  Nearest h{};
+  const int key = tid < lanes ? lane_sweep(T, seed, mw, (size_t)(first + tid), origin, direction,
+                                           thr, sample, depth, prev, medium, L, h)
+                              : EVENT_KEYS;  // past n: last
+  const int rank = block_rank<GROUP_THREADS>(key, s_cnt);
+  if (tid < lanes) planes_put(P, rank, (size_t)(first + tid), L, h);
+  __syncthreads();
+  if (tid < lanes) {
+    const size_t i = slot_get(P, tid, L, h);
+    lane_shade(T, L, h, i, nee, vol_nee, mw, contrib, next_o, next_d, thr_mult, terminate, wspec,
+               rru, out_medium, replay_gid, replay_nee);
+  }
+}
+
 // the instance of one media case (vacuum, volumetric, volumetric + HG)
 template <bool kMesh, bool kSurf, bool kTex>
 decltype(&bounce_kernel<false, false, false, false, false>) media_instance(int vol, int hg) {
@@ -251,7 +376,8 @@ decltype(&bounce_kernel<false, false, false, false, false>) media_instance(int v
 }  // namespace
 
 // tex_u / tex_v / tex_slot not null: the deferred-texel variant (with surf;
-// the wrapper checks it), with n_mesh > 0 kernel 2mt
+// the wrapper checks it), with n_mesh > 0 kernel 2mt; 2r-v (the replay
+// planes in media, nothing else) takes the grouped kernel
 extern "C" int bounce_launch(const float* gtab, int G, const float* mtab, int M,
                              const float* ltab, const float* scal, unsigned int seed, int nee,
                              int n, const float* origin, const float* direction,
@@ -265,10 +391,18 @@ extern "C" int bounce_launch(const float* gtab, int G, const float* mtab, int M,
                              const float* mnorm, const float* muv, const int* mdesc, int n_mesh,
                              void* stream) {
   if (n <= 0) return 0;
+  const size_t tables = (size_t)(G * GCOLS + M * MCOLS + G * LCOLS);
+  if (replay_gid != nullptr && vol && !hg && !surf && tex_u == nullptr && n_mesh == 0) {
+    bounce_kernel_grouped<<<(n + GROUP_THREADS - 1) / GROUP_THREADS, GROUP_THREADS,
+           sizeof(float) * (tables + GROUP_WORDS), (cudaStream_t)stream>>>(
+            gtab, G, mtab, M, ltab, scal, seed, nee, n, origin, direction, thr, sample, depth,
+            prev, medium, contrib, next_o, next_d, thr_mult, terminate, wspec, rru, out_medium,
+            replay_gid, replay_nee, vol_nee, mw);
+    return (int)cudaGetLastError();
+  }
   const int blocks = (n + THREADS - 1) / THREADS;
   // the tables, and for the mesh instances the block sweep's scratch
-  const size_t smem = sizeof(float) * ((size_t)(G * GCOLS + M * MCOLS + G * LCOLS) +
-                                       (n_mesh > 0 ? SWEEP_FLOATS : 0));
+  const size_t smem = sizeof(float) * (tables + (n_mesh > 0 ? SWEEP_FLOATS : 0));
   const MeshTables mesh{mtri, maabb, mnorm, muv, mdesc, n_mesh};
   // the instance: mesh sweep or not x media x surface blocks or not, and the
   // deferred texel

@@ -1,7 +1,9 @@
 // One lane of the per-bounce kernel (csrc/bounce.cu) and of its mesh-merge
 // variant (csrc/bounce_merge.cu): reads a lane's planes, runs pt::bounce in
-// its mask-free form and writes every output.  Also compiled as host C++ by
-// tests/kernel_host_harness.cpp.
+// its mask-free form and writes every output.  The grouped kernel of
+// csrc/bounce.cu (2r-v) runs the same lane in two phases (lane_sweep,
+// lane_shade) with the lane's state in shared-memory planes between them.  Also
+// compiled as host C++ by tests/kernel_host_harness.cpp.
 
 #pragma once
 
@@ -99,6 +101,109 @@ PT_FN void bounce_lane(const Tables& T, uint32_t seed, int nee, int vol_nee, int
       for (int k = 0; k < 11; ++k) deferred[k * n + i] = planes[k];
     }
   }
+}
+
+// ---- kernel 2's grouped instance (csrc/bounce.cu:bounce_kernel_grouped,
+// 2r-v: kVol with the replay planes, no hg, no surface features, no
+// meshes): a block's lanes between the two phases, one shared-memory plane
+// per value, a lane's slot its rank in the block's event order
+
+// A lane's inputs, as bounce_lane reads them
+struct LaneIn {
+  V3 o, d, t;
+  int dep;
+  uint32_t base;
+  float prev;
+  Medium med;
+};
+
+constexpr int LP_FLOATS = 21;  // o, d, thr, prev, medium (4), best_t, w_o, w_d
+constexpr int LP_INTS = 4;     // the lane's index, depth, RNG base, winner geom
+
+struct LanePlanes {
+  float* f;   // [LP_FLOATS][slots]
+  int* ints;  // [LP_INTS][slots]
+  int slots;
+  PT_HD float& at(int k, int s) const { return f[k * slots + s]; }
+  PT_HD int& in(int k, int s) const { return ints[k * slots + s]; }
+};
+
+// phase 1: lane i's inputs and nearest hit; returns its event key.  The
+// medium's g column (mw = 5) is not read: without hg no bounce reads it.
+PT_FN int lane_sweep(const Tables& T, uint32_t seed, int mw, size_t i,
+                     const float* __restrict__ origin, const float* __restrict__ direction,
+                     const float* __restrict__ thr, const uint32_t* __restrict__ sample,
+                     const int32_t* __restrict__ depth, const float* __restrict__ prev,
+                     const float* __restrict__ medium, LaneIn& L, Nearest& h) {
+  L.o = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
+  L.d = v3(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
+  L.t = v3(thr[3 * i], thr[3 * i + 1], thr[3 * i + 2]);
+  L.dep = depth[i];
+  L.base = bounce_base(seed, sample[i] * 0x85EBCA6Bu, L.dep);
+  L.prev = prev[i];
+  const float* mi = medium + (size_t)mw * i;
+  L.med = Medium{v3(mi[0], mi[1], mi[2]), mi[3], 0.0f};
+  h = nearest_hit(T, L.o, L.d);
+  return event_key(T, L.base, L.med, h);
+}
+
+PT_FN void planes_put(const LanePlanes& P, int s, size_t i, const LaneIn& L, const Nearest& h) {
+  const float f[LP_FLOATS] = {L.o.x,     L.o.y,     L.o.z,     L.d.x,    L.d.y,    L.d.z,
+                              L.t.x,     L.t.y,     L.t.z,     L.prev,   L.med.a.x, L.med.a.y,
+                              L.med.a.z, L.med.s,   h.best_t,  h.w_o.x,  h.w_o.y,  h.w_o.z,
+                              h.w_d.x,   h.w_d.y,   h.w_d.z};
+  for (int k = 0; k < LP_FLOATS; ++k) P.at(k, s) = f[k];
+  P.in(0, s) = (int)i;
+  P.in(1, s) = L.dep;
+  P.in(2, s) = (int)L.base;
+  P.in(3, s) = h.gid;
+}
+
+// phase 2's inputs: the lane in slot s; returns its index
+PT_FN size_t slot_get(const LanePlanes& P, int s, LaneIn& L, Nearest& h) {
+  L.o = v3(P.at(0, s), P.at(1, s), P.at(2, s));
+  L.d = v3(P.at(3, s), P.at(4, s), P.at(5, s));
+  L.t = v3(P.at(6, s), P.at(7, s), P.at(8, s));
+  L.prev = P.at(9, s);
+  L.med = Medium{v3(P.at(10, s), P.at(11, s), P.at(12, s)), P.at(13, s), 0.0f};
+  h = Nearest{P.at(14, s), P.in(3, s), v3(P.at(15, s), P.at(16, s), P.at(17, s)),
+              v3(P.at(18, s), P.at(19, s), P.at(20, s))};
+  L.dep = P.in(1, s);
+  L.base = (uint32_t)P.in(2, s);
+  return (size_t)P.in(0, s);
+}
+
+// phase 2: lane i shaded after its nearest hit h (pt::bounce with kShade),
+// every output stored at its own index, as bounce_lane stores them in its
+// kVol instance with the replay planes (its own copy: bounce_lane keeps
+// the code the other instances compile as before)
+PT_FN void lane_shade(const Tables& T, const LaneIn& L, const Nearest& h, size_t i, int nee,
+                      int vol_nee, int mw, float* __restrict__ contrib,
+                      float* __restrict__ next_o, float* __restrict__ next_d,
+                      float* __restrict__ thr_mult, uint8_t* __restrict__ terminate,
+                      float* __restrict__ wspec, float* __restrict__ rru,
+                      float* __restrict__ out_medium, float* __restrict__ replay_gid,
+                      float* __restrict__ replay_nee) {
+  const Bounce b = bounce<true, true, false, false, false, false, true>(
+      T, L.base, L.dep, nee, L.o, L.d, L.t, L.prev, L.med, vol_nee, MeshHit{}, nullptr, &h);
+  const V3* vec[4] = {&b.contrib, &b.next_o, &b.next_d, &b.thr_mult};
+  float* out[4] = {contrib, next_o, next_d, thr_mult};
+  for (int k = 0; k < 4; ++k) {
+    out[k][3 * i] = vec[k]->x;
+    out[k][3 * i + 1] = vec[k]->y;
+    out[k][3 * i + 2] = vec[k]->z;
+  }
+  terminate[i] = b.terminate ? 1 : 0;
+  wspec[i] = b.wspec;
+  rru[i] = uniform(L.base, 3);
+  float* mo = out_medium + (size_t)mw * i;
+  mo[0] = b.medium.a.x;
+  mo[1] = b.medium.a.y;
+  mo[2] = b.medium.a.z;
+  mo[3] = b.medium.s;
+  if (mw > 4) mo[4] = 0.0f;
+  replay_gid[i] = (float)b.gid;
+  replay_nee[i] = b.nee_add ? 1.0f : 0.0f;
 }
 
 }  // namespace pt

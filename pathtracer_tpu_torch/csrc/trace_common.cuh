@@ -762,6 +762,59 @@ PT_FN void occ_split(const Tables& T, V3 x, V3 wi, float& occ_op, float& occ_re)
   if (T.mesh.n > 0) mesh_occ_split(T.g, T.m, T.mesh, x, wi, occ_op, occ_re);
 }
 
+// The analytic nearest hit of a ray, as bounce's sweep finds it: its
+// distance (BIG on a miss), winner geom (0 on a miss) and the ray in the
+// winner's object space (zeros on a miss).  Kernel 2's grouped kernel
+// finds it before its block regroups the lanes, then shades with kShade.
+// bounce keeps its own copy of the loop: calling this one from it changed
+// the registers ptxas gave the other kernels' instances (2m 72 to 86).
+struct Nearest {
+  float best_t;
+  int gid;
+  V3 w_o, w_d;
+};
+
+PT_FN Nearest nearest_hit(const Tables& T, V3 o, V3 d) {
+  Nearest h{BIG, 0, v3(0.0f, 0.0f, 0.0f), v3(0.0f, 0.0f, 0.0f)};
+  for (int g = 0; g < T.G; ++g) {
+    const float* m = T.g + g * GCOLS;
+    V3 oo, od;
+    to_object(m, o, d, oo, od);
+    const float t = geom_t(m, oo, od);
+    if (t < h.best_t) {
+      h.best_t = t;
+      h.gid = g;
+      h.w_o = oo;
+      h.w_d = od;
+    }
+  }
+  return h;
+}
+
+// The event a lane's nearest hit gives in 2r-v's instance (kVol, no hg, no
+// surface features), the key by which kernel 2's grouped kernel orders a
+// block's lanes: EV_ENDS (a miss, or a light hit that no in-medium scatter
+// precedes), EV_SCATTER (the free path, bounce's own expression, ends
+// first: volumetric NEE's split sweep), and EV_SURFACE + the surface's lobe
+// (diffuse, the one that takes the NEE shadow sweep; mirror; Phong glossy;
+// glass).  EVENT_KEYS is the count, and the key of a lane past n.
+// tools/kernel_split.event_keys counts a wider key over every instance's
+// lanes (surface lobes, bump and texture), equal to this one on these.
+constexpr int EV_ENDS = 0, EV_SCATTER = 1, EV_SURFACE = 2, EV_LOBES = 4;
+constexpr int EVENT_KEYS = EV_SURFACE + EV_LOBES;
+
+PT_FN int event_key(const Tables& T, uint32_t base, const Medium& med, const Nearest& h) {
+  const bool hit = h.best_t < BIG;
+  if (hit && med.s > 0.0f &&
+      -logf(fminf(fmaxf(1.0f - uniform(base, 8), 1e-7f), 1.0f)) / fmaxf(med.s, 1e-12f) <
+          h.best_t)
+    return EV_SCATTER;
+  const float* mat = T.m + (hit ? (int)T.g[h.gid * GCOLS + 13] : 0) * MCOLS;
+  if (!hit || mat[9] > 0.0f) return EV_ENDS;
+  const int lobe = mat[7] > 0.0f ? 3 : (mat[6] > 0.0f ? (mat[10] > 0.0f ? 2 : 1) : 0);
+  return EV_SURFACE + lobe;
+}
+
 // One bounce of a lane at depth `dep` with emit state `prev_state`.
 //
 // kMaskFree = false (the trace loops): a lane that terminates here (miss or
@@ -814,11 +867,17 @@ PT_FN void occ_split(const Tables& T, V3 x, V3 wi, float& occ_op, float& occ_re)
 // pre (kernel 2's mesh instances, csrc/bounce.cu): the in-kernel sweep's
 // winner, found before the bounce by the block's sweep; null runs
 // mesh_sweep here.
+//
+// kShade (kernel 2's grouped kernel, csrc/bounce.cu): the bounce after
+// its analytic nearest hit `near`, which nearest_hit found first (no
+// meshes); a lane that scatters in the medium skips the BSDF sample, which
+// no output of such a lane reads.
 template <bool kMaskFree, bool kVol = false, bool kHg = false, bool kSurf = false,
-          bool kTex = false, bool kMerge = false>
+          bool kTex = false, bool kMerge = false, bool kShade = false>
 PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d, V3 thr,
                     float prev_state, Medium med = Medium{}, int vol_nee = 1,
-                    const MeshHit& ext = MeshHit{}, const MeshHit* pre = nullptr) {
+                    const MeshHit& ext = MeshHit{}, const MeshHit* pre = nullptr,
+                    const Nearest* near = nullptr) {
   Bounce b;
   b.contrib = v3(0.0f, 0.0f, 0.0f);
   b.next_o = b.next_d = b.thr_mult = b.contrib;
@@ -831,6 +890,12 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
   float best_t = BIG;
   int gid = 0;
   V3 w_o = v3(0.0f, 0.0f, 0.0f), w_d = w_o;
+  if constexpr (kShade) {
+    best_t = near->best_t;
+    gid = near->gid;
+    w_o = near->w_o;
+    w_d = near->w_d;
+  } else {
   for (int g = 0; g < T.G; ++g) {
     const float* m = T.g + g * GCOLS;
     V3 oo, od;
@@ -842,6 +907,7 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
       w_o = oo;
       w_d = od;
     }
+  }
   }
   const bool a_hit = best_t < BIG;  // the analytic winner
   // the mesh winner merges in where it is nearer: its distance, material,
@@ -935,8 +1001,10 @@ PT_FN Bounce bounce(const Tables& T, uint32_t base, int dep, int nee, V3 o, V3 d
     if ((T.surf & SURF_BUMP) && mat[21] > 0.0f) normal = bump_normal(mat, p_obj_s, normal);
   }
 
-  const Scatter sc = sample_bsdf_c<kSurf>(mat, color, p, normal, d, uniform(base, 0),
-                                          uniform(base, 1), uniform(base, 2), T.surf);
+  const Scatter sc = kShade && vol_scatter
+                         ? Scatter{}
+                         : sample_bsdf_c<kSurf>(mat, color, p, normal, d, uniform(base, 0),
+                                                uniform(base, 1), uniform(base, 2), T.surf);
 
   // ---- next-event estimation at diffuse surface hits
   if constexpr (kMerge) {

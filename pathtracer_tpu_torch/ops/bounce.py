@@ -76,6 +76,12 @@ LIGHT_COLS = 19
 # features the forward bounce models; "glossy" is always on in the kernel body
 SUPPORTED_FEATURES = frozenset(
     {"glossy", "volumetric", "hg", "texture", "bump", "microfacet", "ward"})
+# winner replay (the fused differentiable engines) stops at meshes and image
+# textures, as JAX's fused_diff_eligible does: such scenes take the lean engine
+MESH_REPLAY_REFUSAL = ("winner replay of mesh scenes: the lean engine "
+                       "(RenderConfig(grad_fused=False)) differentiates them")
+TEX_REPLAY_REFUSAL = ("winner replay of image textures: the lean engine "
+                      "(RenderConfig(grad_fused=False)) differentiates them")
 # the optional surface blocks, compiled into the kernels' kSurf instance
 SURFACE_FEATURES = ("texture", "bump", "microfacet", "ward")
 
@@ -83,7 +89,9 @@ SURFACE_FEATURES = ("texture", "bump", "microfacet", "ward")
 def check_features(features, supported=SUPPORTED_FEATURES, what="the bounce physics") -> None:
     missing = sorted(set(features) - supported)
     if missing:
-        raise NotImplementedError(f"feature(s) {', '.join(missing)} of {what}: later slice")
+        raise NotImplementedError(
+            f"feature(s) {', '.join(missing)} of {what}: not modelled; the lean engine "
+            "(RenderConfig(grad_fused=False)) takes the scenes the fused kernels do not")
 
 
 def check_diff_features(features, engine: str) -> None:
@@ -565,7 +573,7 @@ def bounce_physics(
         raise ValueError("mesh (the in-kernel tables) and mesh_in (an outside winner) exclude "
                          "each other")
     if (mesh is not None or mesh_in is not None) and (replay is not None or emit_replay):
-        raise NotImplementedError("winner replay of mesh scenes: later slice")
+        raise NotImplementedError(MESH_REPLAY_REFUSAL)
     has_vol = "volumetric" in features  # "hg" without "volumetric" is inert
     hg = has_vol and "hg" in features
     if hg and medium_g is None:

@@ -67,7 +67,13 @@ import dataclasses
 import torch
 
 from pathtracer_tpu_torch.ops import _build
-from pathtracer_tpu_torch.ops.bounce import bounce_physics, check_features, pack_tables
+from pathtracer_tpu_torch.ops.bounce import (
+    MESH_REPLAY_REFUSAL,
+    TEX_REPLAY_REFUSAL,
+    bounce_physics,
+    check_features,
+    pack_tables,
+)
 from pathtracer_tpu_torch.ops.bsdf import RAY_BIAS
 from pathtracer_tpu_torch.ops.intersect import T_MIN
 from pathtracer_tpu_torch.ops.mesh import mesh_only_hit, mesh_only_occlusion
@@ -143,9 +149,9 @@ def _checked_width(medium_sigma, hg: int) -> int:
 
 def _check_variants(emit_replay: bool, tex_defer: bool, mesh, mesh_in, mesh_uv) -> None:
     if emit_replay and tex_defer:
-        raise NotImplementedError("winner replay of image textures: later slice")
+        raise NotImplementedError(TEX_REPLAY_REFUSAL)
     if emit_replay and (mesh is not None or mesh_in is not None):
-        raise NotImplementedError("winner replay of mesh scenes: later slice")
+        raise NotImplementedError(MESH_REPLAY_REFUSAL)
     if mesh is not None and mesh_in is not None:
         raise ValueError("mesh (the in-kernel tables) and mesh_in (an outside winner) exclude "
                          "each other")

@@ -21,6 +21,18 @@ def ggx_ward_scene() -> str:
     return text.replace("BRDF ward 0.25\n", "BRDF cooktorrance 0.25\n")
 
 
+def milky_ward_scene() -> str:
+    """``scenes/milky.txt`` with its mirror sphere (material 3) turned
+    anisotropic Ward (alpha 0.2 / 0.5): a scene whose lanes take the
+    scattering medium and a surface feature in one launch, kernel 2's
+    ``kVol`` x ``kSurf`` instance."""
+    with open(os.path.join(SCENES_DIR, "milky.txt")) as f:
+        text = f.read()
+    marker = "MATERIAL 4  // milky glass"
+    assert text.count(marker) == 1
+    return text.replace(marker, "BRDF        ward 0.2 0.5\n\n" + marker)
+
+
 def striped_scene() -> str:
     """The scene text of ``chip_smoke.py``'s ``[surf]`` (c):
     ``scenes/textured.txt`` with stripes (scale 3) on its red wall, so that the stripes pattern, on cells of

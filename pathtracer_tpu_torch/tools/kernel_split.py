@@ -77,12 +77,33 @@ kernels from its own sources (``tools/in_turns``).  Each process prints
   order (a warp runs while one of its lanes lives) and with the live paths
   of each block of 128 or 256 packed into its first warps.
 
+- events: kernel 2's analytic media and surface instances where the
+  engines launch them: 2v and 2hg (sss), 2s (ward), 2t (textured_image),
+  2v-s (kVol x kSurf: ``scene/variants.milky_ward_scene``, 800x800) and
+  the vacuum instance 2 (Cornell 800x800) at the pinned engine's
+  super-step 10 (2 spp, 512x512 but milky_ward and Cornell; the state
+  captured with the plain bounce), and the replay instances 2r-v (milky
+  800x800, vol_nee on), 2r-s (ward 512x512) and 2r (Cornell) at each
+  bounce of the per-bounce scan of the primary rays
+  (``chip_smoke.queued_ms``, twice), with the per-bounce step of each (4
+  spp) profiled twice for 2r's device time over its 32 launches; for each
+  state, from :func:`event_keys` on its planes, the share of lanes of each
+  event (:data:`EVENT_CLASSES`) and the share of warps of 32 that hold more
+  than one event and more than one key (:func:`mixed_warps`): in index
+  order and with each block of 128 or 256 lanes ordered by key, as the
+  grouped kernel (2r-v) shades them.
+
 Every process also prints the registers and spills of every instance of
 kernels 1, 2, 3, 4 and 5 (none when its libraries were built earlier).
 
 A ``NAME=variant:V`` checkout is a copy of this checkout under
-``build/kernel_split/V`` with the source edits of ``VARIANTS[V]``: a
-variant measured for timing only (``norows``: kernel 3 without its row
+``build/kernel_split/V`` with the source edits of ``VARIANTS[V]``
+(``NAME=variant:V@DIR``: a copy of the checkout ``DIR``): a
+variant measured for timing only (``noshadow``: kernel 2 without the
+surface NEE's shadow sweep and volumetric NEE's ``occ_split``;
+``planesonly``: kernel 2 loading its planes and storing outputs made from
+them, with no bounce, the card's floor for its bytes; ``group256``: 2r-v's
+grouped kernel on blocks of 256 lanes; ``norows``: kernel 3 without its row
 sums; ``nomeshocc``: the bounce's shadow ray without its triangle sweep
 ``mesh_occ``, which kernel 1m shares and the ``2m`` part does not run;
 ``fwd128``: kernel 4 packing blocks of 128 paths, not 256; ``surfpacked``:
@@ -142,7 +163,7 @@ def _profiled_split(cs, fn, body: str, lanes: int, reps: int = 10) -> tuple:
                        f"for {reps} calls")
 
 
-PARTS = ("adjoint", "forward", "1m", "steps", "perbounce", "rows", "2m", "packing")
+PARTS = ("adjoint", "forward", "1m", "steps", "perbounce", "rows", "2m", "packing", "events")
 DEFAULT_PARTS = ("adjoint", "forward", "1m", "steps")
 # variant copies of this checkout: name -> (file, text, replacement) edits
 VARIANTS = {
@@ -159,6 +180,44 @@ VARIANTS = {
     "fwdfree": (("pathtracer_tpu_torch/csrc/trace_grad.cu",
                  "constexpr int PACKED_BLOCKS = kVol ? 6 : 4;",
                  "constexpr int PACKED_BLOCKS = 1;"),),
+    "noshadow": (("pathtracer_tpu_torch/csrc/trace_common.cuh",
+                  """      float occ_t = BIG;
+      for (int g = 0; g < T.G; ++g) {
+        const float* m = T.g + g * GCOLS;
+        V3 oo, od;
+        to_object(m, x, wi, oo, od);
+        occ_t = fminf(occ_t, geom_t(m, oo, od));
+      }
+      // min(analytic, mesh)""",
+                  """      float occ_t = BIG;
+      for (int g = 0; g < 0; ++g) {
+        const float* m = T.g + g * GCOLS;
+        V3 oo, od;
+        to_object(m, x, wi, oo, od);
+        occ_t = fminf(occ_t, geom_t(m, oo, od));
+      }
+      // min(analytic, mesh)"""),
+                 ("pathtracer_tpu_torch/csrc/trace_common.cuh",
+                  "occ_split(T, vol_pos, wiv, occ_op, occ_re);", "occ_op = occ_re = BIG;")),
+    "planesonly": (("pathtracer_tpu_torch/csrc/bounce.cu",
+                    "if (replay_gid != nullptr && vol && !hg",
+                    "if (false && replay_gid != nullptr && vol && !hg"),
+                   ("pathtracer_tpu_torch/csrc/bounce_lane.cuh",
+                    """  const Bounce b = bounce<true, kVol, kHg, kSurf, kTex, kMerge>(T, base, dep, nee, o, d, t,
+                                                                prev[i], med, vol_nee, ext, pre);""",
+                    """  Bounce b{};
+  b.contrib = o;
+  b.next_o = d;
+  b.next_d = t;
+  b.thr_mult = o;
+  b.terminate = dep & 1;
+  b.wspec = prev[i];
+  b.gid = dep;
+  b.nee_add = dep & 2;
+  b.medium = med;
+  b.tex_u = b.tex_v = b.tex_slot = prev[i];""")),
+    "group256": (("pathtracer_tpu_torch/csrc/bounce.cu", "constexpr int GROUP_THREADS = 128;",
+                  "constexpr int GROUP_THREADS = 256;"),),
     "lanesweep": (("pathtracer_tpu_torch/csrc/bounce.cu",
                    "if constexpr (kMesh) {  // the block's sweep first",
                    "if constexpr (false) {  // the block's sweep first"),
@@ -179,6 +238,227 @@ FORWARD_CASES = (
     ("4", 4, "cornell", None, False), ("4v", 4, "milky", None, False),
     ("4s", 4, "ward", (512, 512), False),
 )
+
+
+# the event keys counted over kernel 2's lanes: csrc/trace_common.cuh:event_key's
+# (2r-v's grouped kernel) widened to the surface instances' lobes, bump and texture
+EV_ENDS, EV_SCATTER, EV_SURFACE, EV_LOBES = 0, 1, 2, 6
+EVENT_KEYS = EV_SURFACE + 4 * EV_LOBES
+# the events by their cost: the path ends; a surface event without a shadow
+# sweep (a specular lobe, or NEE off); one with the NEE shadow sweep (a
+# diffuse lobe under NEE); an in-medium scatter (volumetric NEE's split sweep)
+EVENT_CLASSES = ("ends", "surface", "surface with NEE", "scatter")
+# the events part's super-step rows: label, scene, spp, resolution
+EVENT_ROWS = (("2v", "sss", (512, 512)), ("2hg", "sss", (512, 512)), ("2s", "ward", (512, 512)),
+              ("2t", "textured_image", (512, 512)), ("2v-s", "milky_ward", None),
+              ("2", "cornell", None))
+# its per-bounce rows: label, scene, resolution
+EVENT_SCANS = (("2r-v", "milky", None), ("2r-s", "ward", (512, 512)), ("2r", "cornell", None))
+
+
+def milky_ward_text() -> str:
+    """``scene/variants.milky_ward_scene``'s text, built here from
+    ``scenes/milky.txt`` so that a checkout that predates it runs it too."""
+    with open(os.path.join("scenes", "milky.txt")) as f:
+        text = f.read()
+    marker = "MATERIAL 4  // milky glass"
+    return text.replace(marker, "BRDF        ward 0.2 0.5\n\n" + marker)
+
+
+def event_keys(tables, origin, direction, sample, depth, medium, seed: int,
+               features=frozenset()):
+    """Each lane's event key (int64 ``[N]``) on analytic scenes, a wider key
+    than ``csrc/trace_common.cuh:event_key`` (whose lanes, 2r-v's, take
+    lobes 0-3 with no bump or texture: its ``EV_SURFACE + lobe``):
+    ``EV_SCATTER``
+    where the medium's free path (``medium [N, >= 4]``, with ``volumetric``
+    in ``features``) ends before the nearest hit, ``EV_ENDS`` on a miss or a
+    light hit, else ``EV_SURFACE + 4 * lobe + 2 * bump + texture`` (lobes:
+    diffuse, mirror, Phong glossy, glass, Cook-Torrance, Ward; bump and
+    texture with their features)."""
+    import torch
+
+    from pathtracer_tpu_torch.ops.intersect import BIG, T_MIN, sweep
+    from pathtracer_tpu_torch.ops.rng import hash_uniforms_planes
+
+    gtab, mtab = tables[0], tables[1]
+    n = origin.shape[0]
+    best_t, gid, _ = sweep(gtab, tuple(origin.unbind(-1)), tuple(direction.unbind(-1)), T_MIN)
+    hit = best_t < BIG
+    mat = mtab[torch.where(hit, gtab[gid, 13].to(torch.int64), 0)]
+    dep = torch.as_tensor(depth, dtype=torch.int32, device=origin.device).expand(n)
+    scatter = torch.zeros_like(hit)
+    if "volumetric" in features:
+        u8 = hash_uniforms_planes(seed, sample, dep, 11)[8]
+        ss = medium[:, 3]
+        free = torch.where(ss > 0.0, -torch.log(torch.clamp(1.0 - u8, 1e-7, 1.0))
+                           / torch.clamp(ss, min=1e-12), BIG)
+        scatter = hit & (free < best_t)
+    refr = mat[:, 7] > 0.0
+    refl = ~refr & (mat[:, 6] > 0.0)
+    ct = refl & (mat[:, 24] > 0.5) if "microfacet" in features else torch.zeros_like(refl)
+    ward = ct & (mat[:, 24] > 1.5) if "ward" in features else torch.zeros_like(ct)
+    glossy = refl & ~ct & (mat[:, 10] > 0.0)
+    lobe = torch.where(refr, 3, torch.where(ward, 5, torch.where(ct, 4, torch.where(
+        glossy, 2, torch.where(refl, 1, 0)))))
+    bump = (mat[:, 21] > 0.0) if "bump" in features else torch.zeros_like(hit)
+    tex = (mat[:, 16] > 0.5) if "texture" in features else torch.zeros_like(hit)
+    surface = EV_SURFACE + 4 * lobe + 2 * bump.long() + tex.long()
+    ends = ~hit | (mat[:, 9] > 0.0)
+    return torch.where(scatter, EV_SCATTER, torch.where(ends, EV_ENDS, surface)).long()
+
+
+def event_classes(keys, nee: bool = True):
+    """Each lane's index in :data:`EVENT_CLASSES` from its event key."""
+    import torch
+
+    diffuse = (keys >= EV_SURFACE) & ((keys - EV_SURFACE) // 4 == 0)
+    return torch.where(keys == EV_SCATTER, 3, torch.where(
+        keys == EV_ENDS, 0, torch.where(diffuse & nee, 2, 1)))
+
+
+def mixed_warps(keys, block=None) -> float:
+    """The share of warps (32 consecutive lanes, the last one partial) whose
+    lanes hold more than one key: in index order, or with each ``block`` of
+    consecutive lanes first ordered by key, ties in index order (kernel 2's
+    grouped kernel, ``csrc/bounce.cu:block_rank``)."""
+    import torch
+
+    n = keys.shape[0]
+    k = keys
+    if block:
+        pad = (-n) % block
+        k = torch.cat([k, k.new_full((pad,), int(k.max()) + 1)]) if pad else k
+        k = torch.sort(k.view(-1, block), dim=-1, stable=True).values.reshape(-1)[:n]
+    pad = (-n) % 32
+    if pad:
+        k = torch.cat([k, k[-1:].expand(pad)])
+    w = k.view(-1, 32)
+    return float((w.max(-1).values != w.min(-1).values).double().mean())
+
+
+def _event_summary(keys, nee: bool = True) -> str:
+    """The events line's shares: of lanes per class, of mixed warps."""
+    import torch
+
+    cls = event_classes(keys, nee)
+    shares = ", ".join(f"{name} {float((cls == c).double().mean()):.4f}"
+                       for c, name in enumerate(EVENT_CLASSES))
+    warps = "; ".join(f"{what} {mixed_warps(cls, b):.4f} [{mixed_warps(keys, b):.4f}]"
+                      for what, b in (("index order", None), ("blocks of 128", 128),
+                                      ("blocks of 256", 256)))
+    return (f"events: {shares}; {len(torch.unique(keys))} keys; warps holding more than one "
+            f"event [key]: {warps}")
+
+
+def events(cs, card: str, here: str) -> None:
+    """The ``events`` part (the module's docstring)."""
+    import dataclasses
+
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import bounce_fused
+    from pathtracer_tpu_torch.ops.bounce import pack_tables
+    from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render import diff
+    from pathtracer_tpu_torch.render.features import resolve_features
+    from pathtracer_tpu_torch.scene.parser import load_scene, parse_scene_text
+
+    dev = torch.device("cuda")
+    f32 = dict(dtype=torch.float32, device=dev)
+    seed = key_to_seed(prng_key(0))
+
+    def desc_of(name, res):
+        if name == "milky_ward":
+            desc = parse_scene_text(milky_ward_text(), name=name, scene_dir="scenes")
+        else:
+            desc = load_scene(os.path.join("scenes", f"{name}.txt"))
+        return dataclasses.replace(desc, resolution=res) if res else desc
+
+    for label, name, res in EVENT_ROWS:
+        scene = desc_of(name, res).scene_for_frame(0, device=dev)
+        cfg = RenderConfig(wavefront=True, iters_per_launch=2, max_depth=8, nee=True)
+        feats = resolve_features(cfg, scene.materials).features
+        if label == "2v":
+            feats = tuple(f for f in feats if f != "hg")
+        # the state captured with the plain bounce, so that every checkout
+        # (and a variant whose kernel does no bounce) times the same lanes
+        captured = {}
+        kernel, bounce_fused.bounce_fused_cuda = (bounce_fused.bounce_fused_cuda,
+                                                  bounce_fused.bounce_fused_plain)
+        try:
+            cs.capturing_render(scene, 2, cfg, dev, captured)
+        finally:
+            bounce_fused.bounce_fused_cuda = kernel
+        tables = [t.contiguous() for t in pack_tables(scene)]
+        medium = captured["medium"]
+        if label == "2v":
+            medium = medium[:, :4]
+        medium = medium.contiguous()
+        margs = (tables, captured["origin"], captured["direction"], captured["throughput"],
+                 captured["sample"], captured["depth"], captured["prev"], medium, seed)
+        kw = dict(nee=True, features=frozenset(feats), tex_defer=scene.textures is not None)
+        ms = [cs.queued_ms(lambda: bounce_fused.bounce_fused_cuda(*margs, **kw))
+              for _ in range(2)]
+        keys = event_keys(tables, *margs[1:3], margs[4], margs[5], medium, seed, feats)
+        print(f"[split] {here} events kernel {label} {name} super-step {cs.CAPTURE_STEP} "
+              f"({margs[1].shape[0]} lanes): {ms[0]:.4f} / {ms[1]:.4f} ms of device time "
+              f"(queued); {_event_summary(keys)}; on {card}", flush=True)
+
+    base = RenderConfig(wavefront=False, nee=True, max_depth=8, grad_full_trace=False)
+    for label, name, res in EVENT_SCANS:
+        params, static = diff.params_from_description(desc_of(name, res), 0, device=dev)
+        target = torch.zeros((static.resolution[0] * static.resolution[1], 3), **f32)
+
+        def step():
+            return diff.loss_and_grad_rays(params, static, target, 4, prng_key(0), base,
+                                           device=dev)
+
+        step()
+        torch.cuda.synchronize()
+        for rep in range(2):
+            run, _ = cs.profiled(step)
+            r2, n2 = _device_sum(run, "bounce_kernel")
+            print(f"[split] {here} events step {label} {name} per-bounce 4 spp, repeat {rep}: "
+                  f"2r {r2:.4f} ms of device time in {n2} launches ({r2 / max(n2, 1):.4f} per "
+                  f"launch); on {card}", flush=True)
+        with torch.no_grad():
+            scn = diff.build_scene(params, static)
+            tabs = [t.contiguous() for t in pack_tables(scn)]
+            feats = frozenset(resolve_features(base, params.materials).features)
+            w, h = static.resolution
+            n = w * h
+            lanes = torch.arange(n, dtype=torch.int64, device=dev)
+            rays = generate_camera_rays(scn.camera, lanes, camera_uniforms(seed, lanes))
+            st = dict(origin=rays.origin, direction=rays.direction,
+                      throughput=torch.ones((n, 3), **f32), prev=torch.zeros(n, **f32),
+                      medium=torch.zeros((n, 4), **f32))
+            on = torch.ones(n, dtype=torch.bool, device=dev)
+            for dep in range(8):
+                # the depth as a plane already on the card: an int would be
+                # copied in by the wrapper, waiting out queued_ms's sleep
+                depth = torch.full((n,), dep, dtype=torch.int32, device=dev)
+                sargs = (tabs, st["origin"], st["direction"], st["throughput"], lanes, depth,
+                         st["prev"], st["medium"], seed)
+                kw = dict(nee=True, features=feats)
+                ms = [cs.queued_ms(lambda: bounce_fused.bounce_fused_cuda(
+                    *sargs, emit_replay=True, **kw)) for _ in range(2)]
+                keys = event_keys(tabs, st["origin"], st["direction"], lanes, depth,
+                                  st["medium"], seed, feats)
+                print(f"[split] {here} events kernel {label} {name} bounce {dep} of the scan, "
+                      f"{int(on.sum())} of {n} lanes alive: {ms[0]:.4f} / {ms[1]:.4f} ms of "
+                      f"device time (queued); {_event_summary(keys)}; on {card}", flush=True)
+                r = bounce_fused.bounce_fused_cuda(*sargs, **kw)
+                on = on & ~r.terminate
+                a = on[:, None]
+                st = dict(origin=torch.where(a, r.next_origin, st["origin"]),
+                          direction=torch.where(a, r.next_direction, st["direction"]),
+                          throughput=torch.where(a, st["throughput"] * r.throughput_mult,
+                                                 st["throughput"]),
+                          prev=r.was_specular,
+                          medium=r.next_medium if "volumetric" in feats else st["medium"])
 
 
 def _device_sum(run: dict, name: str) -> tuple:
@@ -792,6 +1072,8 @@ def measure(card: str, parts: str = ",".join(DEFAULT_PARTS)) -> None:
         mesh_bounce(cs, card, here)
     if "packing" in parts:
         path_packing(cs, card, here)
+    if "events" in parts:
+        events(cs, card, here)
 
     inst = cs.ptxas_instances(reports)
     regs = {f"3 vol={v} surf={s}": cs.instance_regs(inst, "bounce_grad", "bounce_bwd_kernel",
@@ -801,6 +1083,7 @@ def measure(card: str, parts: str = ",".join(DEFAULT_PARTS)) -> None:
                  cs.instance_regs(inst, "bounce", "bounce_kernel", m, v, g, s, t)
                  for m in (False, True) for v, g in ((False, False), (True, False), (True, True))
                  for s, t in ((False, False), (True, False), (True, True))})
+    regs["2r-v grouped"] = cs.instance_regs(inst, "bounce", "bounce_kernel_grouped")
     regs.update({f"5 vol={v} surf={s}": cs.instance_regs(inst, "trace_grad", "trace_bwd_kernel",
                                                          v, s)
                  for v in (False, True) for s in (False, True)})
@@ -817,18 +1100,18 @@ def measure(card: str, parts: str = ",".join(DEFAULT_PARTS)) -> None:
     print(f"[split] {here} regs (registers, spill store / load bytes): {regs}", flush=True)
 
 
-def variant_copy(name: str) -> str:
-    """A copy of this checkout's package, scenes and smoke script under
-    ``build/kernel_split/<name>`` with ``VARIANTS[name]``'s edits; its
-    path."""
+def variant_copy(name: str, src: str = ROOT, tag: str = "") -> str:
+    """A copy of the checkout ``src``'s package, scenes and smoke script
+    under ``build/kernel_split/<name><tag>`` with ``VARIANTS[name]``'s edits;
+    its path."""
     import shutil
 
-    dest = os.path.join(ROOT, "build", "kernel_split", name)
+    dest = os.path.join(ROOT, "build", "kernel_split", name + tag)
     shutil.rmtree(dest, ignore_errors=True)
     for sub in ("pathtracer_tpu_torch", "scenes"):
-        shutil.copytree(os.path.join(ROOT, sub), os.path.join(dest, sub),
+        shutil.copytree(os.path.join(src, sub), os.path.join(dest, sub),
                         ignore=shutil.ignore_patterns("__pycache__"))
-    shutil.copy(os.path.join(ROOT, "chip_smoke.py"), dest)
+    shutil.copy(os.path.join(src, "chip_smoke.py"), dest)
     for path, old, new in VARIANTS[name]:
         with open(os.path.join(dest, path)) as f:
             src = f.read()
@@ -844,7 +1127,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("checkouts", nargs="*",
-                    help="NAME=DIR (a checkout) or NAME=variant:V (VARIANTS[V]), each in turn")
+                    help="NAME=DIR (a checkout), NAME=variant:V (VARIANTS[V] on this checkout) "
+                         "or NAME=variant:V@DIR (on the checkout DIR), each in turn")
     ap.add_argument("--parts", default=",".join(DEFAULT_PARTS),
                     help=f"comma-separated, of {', '.join(PARTS)}")
     args = ap.parse_args()
@@ -857,12 +1141,12 @@ def main() -> int:
     made = {}
     for i, (name, path) in enumerate(named):
         if path.startswith("variant:"):
-            v = path[len("variant:"):]
+            v, _, src = path[len("variant:"):].partition("@")
             if v not in VARIANTS:
                 ap.error(f"unknown variant {v!r}, of {sorted(VARIANTS)}")
-            if v not in made:
-                made[v] = variant_copy(v)
-            named[i] = (name, made[v])
+            if (v, src) not in made:
+                made[v, src] = variant_copy(v, src or ROOT, f"-{len(made)}" if src else "")
+            named[i] = (name, made[v, src])
     return run_in_turns(named, __file__, "measure", [line, args.parts], shown=("[split]",))
 
 

@@ -17,7 +17,10 @@
 // sharing one lane counter, refilled by rank.  host_fwd_packed runs kernel
 // 4 block by block with its live paths packed (trace_grad.cu:
 // trace_fwd_kernel_packed), host_bounce_blocks kernel 2's mesh instances
-// with each block's triangle sweep shared (bounce.cu:block_mesh_sweep).
+// with each block's triangle sweep shared (bounce.cu:block_mesh_sweep),
+// host_bounce_grouped its grouped kernel (2r-v) with each block's lanes
+// ordered by the event their nearest hit gives, and host_event_keys that
+// event's key per lane.
 // host_mesh_sweep and host_mesh_occ run the in-kernel triangle sweep and
 // the shadow ray's sweep (trace_common.cuh) on one ray per lane.
 // The trace and the bounce take the in-kernel mesh tables as the launchers
@@ -33,6 +36,7 @@
 
 #include <math.h>
 
+#include <algorithm>
 #include <vector>
 
 // the card's rsqrtf; the host has none
@@ -383,6 +387,69 @@ extern "C" void host_bounce_blocks(const float* gtab, int G, const float* mtab,
            direction, thr, sample, depth, prev, medium, contrib, next_o, next_d, thr_mult,
            terminate, wspec, rru, out_medium, nullptr, nullptr, tex_u, tex_v, tex_slot, nullptr,
            nullptr, nullptr, 0, &hits[p]);
+  }
+}
+
+// kernel 2's grouped kernel (bounce.cu:bounce_kernel_grouped, 2r-v: kVol
+// with the replay planes, no hg, no surface features) as the card runs it:
+// blocks of `threads` lanes; each lane's sweep and event key (lane_sweep)
+// and its state put in the lane planes at its rank, the block's lanes
+// ordered by key with ties in block order (as block_rank's counting sort),
+// then each slot read out (slot_get) and shaded (lane_shade, here from the
+// last slot to the first) with its outputs at the lane's own index.  A
+// non-null `order` deals the lanes to the blocks in that order, as
+// host_bounce_blocks does.
+extern "C" void host_bounce_grouped(const float* gtab, int G, const float* mtab,
+                                    const float* ltab, const float* scal, unsigned seed, int nee,
+                                    int n, const float* origin, const float* direction,
+                                    const float* thr, const unsigned* sample, const int* depth,
+                                    const float* prev, const float* medium, float* contrib,
+                                    float* next_o, float* next_d, float* thr_mult,
+                                    unsigned char* terminate, float* wspec, float* rru,
+                                    float* out_medium, float* replay_gid, float* replay_nee,
+                                    int vol_nee, int mw, const int* order, int threads) {
+  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f, MeshTables{}, 0};
+  std::vector<float> f(LP_FLOATS * (size_t)threads);
+  std::vector<int> ints(LP_INTS * (size_t)threads), key(threads), count(EVENT_KEYS + 1);
+  const LanePlanes P{f.data(), ints.data(), threads};
+  std::vector<LaneIn> L(threads);
+  std::vector<Nearest> h(threads);
+  for (int b0 = 0; b0 < n; b0 += threads) {
+    const int lanes = n - b0 < threads ? n - b0 : threads;
+    auto index = [&](int p) { return (size_t)(order != nullptr ? order[b0 + p] : b0 + p); };
+    std::fill(count.begin(), count.end(), 0);
+    for (int p = 0; p < lanes; ++p) {
+      key[p] = lane_sweep(T, seed, mw, index(p), origin, direction, thr, sample, depth, prev,
+                          medium, L[p], h[p]);
+      ++count[key[p]];
+    }
+    for (int k = 0, run = 0; k <= EVENT_KEYS; ++k) {
+      const int c = count[k];
+      count[k] = run;
+      run += c;
+    }
+    std::vector<size_t> lane(lanes);
+    for (int p = 0; p < lanes; ++p) planes_put(P, count[key[p]]++, index(p), L[p], h[p]);
+    for (int s = 0; s < lanes; ++s) lane[s] = slot_get(P, s, L[s], h[s]);
+    for (int s = lanes - 1; s >= 0; --s)
+      lane_shade(T, L[s], h[s], lane[s], nee, vol_nee, mw, contrib, next_o, next_d, thr_mult,
+                 terminate, wspec, rru, out_medium, replay_gid, replay_nee);
+  }
+}
+
+// each lane's event key (trace_common.cuh:event_key) after its nearest hit
+extern "C" void host_event_keys(const float* gtab, int G, const float* mtab, const float* ltab,
+                                const float* scal, unsigned seed, int n, const float* origin,
+                                const float* direction, const unsigned* sample, const int* depth,
+                                const float* medium, int mw, int* keys) {
+  const Tables T{gtab, mtab, ltab, G, scal[0], scal[1] > 0.5f, MeshTables{}, 0};
+  for (int i = 0; i < n; ++i) {
+    const V3 o = v3(origin[3 * i], origin[3 * i + 1], origin[3 * i + 2]);
+    const V3 d = v3(direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]);
+    const uint32_t base = bounce_base(seed, sample[i] * 0x85EBCA6Bu, depth[i]);
+    const float* mi = medium + (size_t)mw * i;
+    keys[i] = event_key(T, base, Medium{v3(mi[0], mi[1], mi[2]), mi[3], 0.0f},
+                        nearest_hit(T, o, d));
   }
 }
 

@@ -19,6 +19,7 @@ reported and expected to be 0.
 
 import tests.torch_threads  # noqa: F401  (first: one torch thread per xdist worker)
 import os
+import re
 
 import jax.numpy as jnp
 import numpy as np
@@ -165,3 +166,39 @@ def test_unsupported_features_raise():
     with pytest.raises(NotImplementedError, match="hg of the fused"):
         tb.check_diff_features(("volumetric", "hg"), "fused")
 
+
+
+def _refuse_unknown_feature():
+    tb.check_features(("sparkle",))
+
+
+def _refuse_mesh_replay_physics():
+    z = (torch.zeros(4),) * 3
+    tb.bounce_physics(z, z, z, z, torch.zeros(4), None, None, None, None, None, 0,
+                      torch.zeros(4), nee=True, t_min=T_MIN, mesh=object(), emit_replay=True)
+
+
+def _refuse_fused(**kw):
+    from pathtracer_tpu_torch.ops.bounce_fused import bounce_fused_plain
+
+    def call():
+        bounce_fused_plain(None, None, None, None, None, 0, None, None, 0, nee=True,
+                           emit_replay=True, **kw)
+    return call
+
+
+@pytest.mark.parametrize("call, what", [
+    (_refuse_unknown_feature, r"feature\(s\) sparkle of the bounce physics: not modelled"),
+    (_refuse_mesh_replay_physics, "winner replay of mesh scenes"),
+    (_refuse_fused(tex_defer=True), "winner replay of image textures"),
+    (_refuse_fused(mesh=object()), "winner replay of mesh scenes"),
+], ids=["feature", "physics-mesh", "fused-texture", "fused-mesh"])
+def test_refusals_name_the_lean_engine(call, what):
+    """Every refusal of the fused bounce names where such scenes go (the
+    lean engine, as JAX's ``fused_diff_eligible`` sends them), and none
+    promises a later slice."""
+    with pytest.raises(NotImplementedError) as err:
+        call()
+    msg = str(err.value)
+    assert re.search(what, msg), msg
+    assert "RenderConfig(grad_fused=False)" in msg and "later slice" not in msg

@@ -129,6 +129,9 @@ def host_lib(tmp_path_factory):
     lib.host_fwd_packed.argtypes = lib.host_fwd.argtypes + [I]
     lib.host_bounce_blocks.argtypes = ([P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 15 + [I]
                                        + [P] * 3 + [P] * 5 + [I, P, I])
+    lib.host_bounce_grouped.argtypes = ([P, I, P, P, P, ctypes.c_uint, I, I] + [P] * 17
+                                        + [I, I, P, I])
+    lib.host_event_keys.argtypes = [P, I, P, P, P, ctypes.c_uint, I] + [P] * 5 + [I, P]
     return lib
 
 
@@ -1986,3 +1989,107 @@ def test_bounce_mesh_block_sweep_matches_the_lane_sweep(host_lib, tmp_path, name
     print(f"{name} nee={nee}: {int((reached > 0).sum())} of {n} lanes reach a chunk, "
           f"{int(reached.sum())} lane-chunks, at most {int(reached.max())} for one lane")
     assert 100 < int((reached > 0).sum()) < n
+
+
+# ---- kernel 2's grouped kernel (bounce.cu:bounce_kernel_grouped, 2r-v):
+# each block's lanes shaded in the order of the event their nearest hit
+# gives
+
+
+GROUPED_N = 16 * 128 + 77  # a partial last block at 128 and at 256 lanes
+# media scenes of 2r-v and the centre of their random lanes
+GROUPED_SCENES = {"sss": (0.0, 1.2, 0.0), "milky": (2.2, 1.6, 1.5)}
+
+
+def _grouped_lanes(name):
+    """Random lanes about a media scene: its tables, the lanes and seeded
+    medium carries ``[N, 4]`` (2r-v's: volumetric, no hg)."""
+    from tests.test_torch_volume import medium_carries
+
+    _, tables, _, _ = _media_scene(name, (8, 8))
+    lanes = random_lanes(GROUPED_N, seed=23)
+    lanes["origin"] = (lanes["origin"] * 0.8 + np.asarray(GROUPED_SCENES[name])).astype(np.float32)
+    t = {k: torch.from_numpy(v) for k, v in lanes.items()}
+    sa, ss, _ = medium_carries(GROUPED_N, seed=24)
+    medium = torch.from_numpy(np.ascontiguousarray(np.concatenate([sa, ss[:, None]], -1)))
+    return tables, t, medium
+
+
+GROUPED_PLANES = ("origin", "direction", "throughput", "sample", "depth", "prev")
+
+
+def _grouped_outputs(tables, t, medium, nee: bool, vol_nee: bool, host_fn, *tail):
+    """Every output plane of 2r-v's lanes, the replay planes included, by
+    ``host_fn`` (``host_bounce`` with the kVol flags, or
+    ``host_bounce_grouped`` with ``tail``: the order and the block size),
+    as int32 bit patterns."""
+    n, width = GROUPED_N, medium.shape[1]
+    outs = [torch.empty((n, 3)) for _ in range(4)] + [
+        torch.empty(n, dtype=torch.uint8), torch.empty(n), torch.empty(n),
+        torch.empty((n, width)), torch.empty(n), torch.empty(n)]
+    head = (tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(),
+            tables[2].data_ptr(), tables[3].data_ptr(), 5, int(nee), n,
+            *(t[k].data_ptr() for k in GROUPED_PLANES), medium.data_ptr(),
+            *(o.data_ptr() for o in outs))
+    if tail:
+        host_fn(*head, int(vol_nee), width, *tail)
+    else:  # host_bounce: volumetric, no hg, no surface bits, no texel, no mesh
+        host_fn(*head, 1, 0, int(vol_nee), width, 0, None, None, None, *NO_MESH)
+    return [o.view(torch.uint8 if o.dtype == torch.uint8 else torch.int32) for o in outs]
+
+
+def _event_keys_of(host_lib, tables, t, medium):
+    keys = torch.empty(GROUPED_N, dtype=torch.int32)
+    host_lib.host_event_keys(tables[0].data_ptr(), tables[0].shape[0], tables[1].data_ptr(),
+                             tables[2].data_ptr(), tables[3].data_ptr(), 5, GROUPED_N,
+                             t["origin"].data_ptr(), t["direction"].data_ptr(),
+                             t["sample"].data_ptr(), t["depth"].data_ptr(), medium.data_ptr(),
+                             medium.shape[1], keys.data_ptr())
+    return keys
+
+
+GROUPED_CASES = [(name, nee, vol_nee) for name in GROUPED_SCENES for nee in (True, False)
+                 for vol_nee in (True, False)]
+
+
+@pytest.mark.parametrize("name, nee, vol_nee", GROUPED_CASES)
+def test_bounce_grouped_blocks_match_index_order(host_lib, name, nee, vol_nee):
+    """Kernel 2's grouped kernel as the card runs it (2r-v:
+    ``host_bounce_grouped``, each block's lanes swept, ordered by event key
+    through the lane planes and shaded in that order) against
+    ``host_bounce``'s kVol instance with the replay planes (one lane after
+    another in index order) on 2,125 random lanes: every output plane bit
+    for bit, the replay planes too, in blocks of 128 and 256 lanes with a
+    partial last block, with the lanes dealt to the blocks in index order
+    and shuffled.  The lanes span several events in each block."""
+    tables, t, medium = _grouped_lanes(name)
+    want = _grouped_outputs(tables, t, medium, nee, vol_nee, host_lib.host_bounce)
+    assert len(torch.unique(_event_keys_of(host_lib, tables, t, medium))) >= 4
+    shuffled = torch.from_numpy(np.random.default_rng(3).permutation(GROUPED_N).astype(np.int32))
+    for threads in (128, 256):
+        for label, order in (("index", None), ("shuffled", shuffled)):
+            got = _grouped_outputs(tables, t, medium, nee, vol_nee, host_lib.host_bounce_grouped,
+                                   None if order is None else order.data_ptr(), threads)
+            assert all(torch.equal(g, w) for g, w in zip(got, want)), (threads, label)
+
+
+@pytest.mark.parametrize("name", sorted(GROUPED_SCENES))
+def test_event_keys_match_plain(host_lib, name):
+    """The event key by which the grouped kernel orders a block's lanes
+    (``trace_common.cuh:event_key``) equals ``tools/kernel_split.event_keys``
+    on every lane, that wider key's surface lobes mapped to the kernel's
+    (the media instance has no bump, texture, Cook-Torrance or Ward)."""
+    from pathtracer_tpu_torch.tools import kernel_split
+
+    tables, t, medium = _grouped_lanes(name)
+    got = _event_keys_of(host_lib, tables, t, medium).long()
+    want = kernel_split.event_keys(tables, t["origin"], t["direction"], t["sample"].long(),
+                                   t["depth"], medium, 5, frozenset({"volumetric"}))
+    surface = want >= kernel_split.EV_SURFACE
+    assert not bool(((want - kernel_split.EV_SURFACE) % 4)[surface].any())  # no bump, texture
+    want = torch.where(surface, kernel_split.EV_SURFACE + (want - kernel_split.EV_SURFACE) // 4,
+                       want)
+    counts = torch.bincount(got, minlength=6)
+    print(f"{name}: lanes per event key {counts.tolist()}")
+    assert torch.equal(got, want)
+    assert int(counts[kernel_split.EV_ENDS]) > 0 and int(counts[kernel_split.EV_SCATTER]) > 0

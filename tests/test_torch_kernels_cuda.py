@@ -1763,3 +1763,78 @@ def test_bounce_mesh_block_sweep_bit_equal(tmp_path, name, nee):
     torch.cuda.synchronize()
     _all_equal(got, want)
     assert 100 < int((reached > 0).sum()) < state[0].shape[0]
+
+
+# kernel 2's analytic media and surface instances: 2r-v runs the grouped
+# kernel (csrc/bounce.cu:bounce_kernel_grouped, each block's lanes shaded in
+# the order of the event their nearest hit gives), the others one lane per
+# thread: label, scene, replay planes, vol_nee; "primary" on the camera
+# rays, the others after two bounces
+GROUPED_CASES = [("2v", "sss", False, True), ("2hg", "sss", False, True),
+                 ("2s", "ward", False, True), ("2t", "textured_image", False, True),
+                 ("2v-s", "milky_ward", False, True), ("2r-v", "milky", True, True),
+                 ("2r-v no vol_nee", "milky", True, False), ("2r-v primary", "milky", True, True),
+                 ("2r-s", "ward", True, True), ("2r-v-s", "milky_ward", True, True)]
+GROUPED_RES = (233, 217)  # 50,561 lanes: a last block of one lane
+
+
+def _bits(x):
+    return x.view(torch.uint8) if x.dtype == torch.bool else x.view(torch.int32)
+
+
+@pytest.mark.parametrize("label,name,replay,vol_nee", GROUPED_CASES)
+def test_grouped_bounce_matches_plain_after_two_bounces(label, name, replay, vol_nee):
+    """Kernel 2's media and surface instances (2v, 2hg, 2s, 2t, kVol x
+    kSurf, and the replay instances: 2r-v on the grouped kernel, 2r-s, kVol
+    x kSurf) against ``bounce_fused_plain`` on the state after two bounces
+    of the primary rays (``bounce_fused_plain``'s own; 2r-v also on the
+    primary rays, the scan's bounce 0), at 233x217 (the last block holds
+    one lane): every output plane bit for bit, terminated lanes included."""
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import bounce_fused
+    from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
+    from pathtracer_tpu_torch.render.features import resolve_features
+    from pathtracer_tpu_torch.scene.variants import SCENES_DIR, milky_ward_scene
+
+    if name == "milky_ward":
+        desc = parse_scene_text(milky_ward_scene(), name=name, scene_dir=SCENES_DIR)
+    else:
+        desc = load_scene(os.path.join(ROOT, "scenes", f"{name}.txt"))
+    scene = dataclasses.replace(desc, resolution=GROUPED_RES).scene_for_frame(0, device="cuda")
+    feats = resolve_features(RenderConfig(nee=True), scene.materials).features
+    if label == "2v":
+        feats = tuple(f for f in feats if f != "hg")
+    feats = frozenset(feats)
+    tex = scene.textures is not None
+    tables = [t.contiguous() for t in pack_tables(scene)]
+    seed = key_to_seed(prng_key(3))
+    n = GROUPED_RES[0] * GROUPED_RES[1]
+    pixel = torch.arange(n, device="cuda")
+    rays = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, pixel))
+    o, d = rays.origin, rays.direction
+    thr, prev = torch.ones((n, 3), device="cuda"), torch.zeros(n, device="cuda")
+    medium = torch.zeros((n, bounce_fused.medium_width(feats)), device="cuda")
+    kw = dict(nee=True, features=feats, vol_nee=vol_nee, tex_defer=tex)
+    on = torch.ones(n, dtype=torch.bool, device="cuda")
+    prior = 0 if label.endswith("primary") else 2
+    for dep in range(prior):
+        r = bounce_fused.bounce_fused_plain(tables, o, d, thr, pixel, dep, prev, medium, seed, **kw)
+        r = r[0] if tex else r
+        on = on & ~r.terminate
+        a = on[:, None]
+        o, d = torch.where(a, r.next_origin, o), torch.where(a, r.next_direction, d)
+        thr, prev = torch.where(a, thr * r.throughput_mult, thr), r.was_specular
+        medium = r.next_medium
+    args = (tables, o, d, thr, pixel, prior, prev, medium.contiguous(), seed)
+    got = bounce_fused.bounce_fused_cuda(*args, emit_replay=replay, **kw)
+    want = bounce_fused.bounce_fused_plain(*args, emit_replay=replay, **kw)
+    torch.cuda.synchronize()
+    got, want = (x if isinstance(x, tuple) else (x,) for x in (got, want))
+    fields = ("contrib", "next_origin", "next_direction", "throughput_mult", "terminate",
+              "was_specular", "rr_uniform", "next_medium")
+    planes = [(f, getattr(got[0], f), getattr(want[0], f)) for f in fields]
+    planes += [(f"extra {k}", g, w) for k, (g, w) in enumerate(zip(got[1:], want[1:]))]
+    assert len(planes) == 8 + (2 if replay else 0) + (3 if tex else 0)
+    differ = {f: int((_bits(g) != _bits(w)).reshape(n, -1).any(-1).sum()) for f, g, w in planes}
+    print(f"{label}: {int(on.sum())} of {n} lanes alive; lanes that differ per plane {differ}")
+    assert not any(differ.values())
