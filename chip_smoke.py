@@ -100,15 +100,17 @@ Phases (any failure exits non-zero):
    route (``fused=False``, 2 spp) launches the nearest-hit and occlusion
    kernels once per super-step each and no per-bounce kernel, and its
    accumulator is within 2e-4 of the fused route's on at least 99.5% of
-   entries with the sums within 2e-5; (d) kernels 2, 6 and 8 against their
-   plain versions on the 640,000 primary rays and on the state of a
+   entries with the sums within 2e-5; (d) kernels 2, 6, 7 and 8 against
+   their plain versions on the 640,000 primary rays and on the state of a
    mid-render super-step (mixed depths and emit states): kernel 2's
    terminate, emit state, russian-roulette uniform and medium equal on
    every lane and its float planes within 2e-6 on at least 99.9% of lanes;
-   kernel 6's t, gid and mid equal, its frame within 2e-6 on at least 99.9%
-   of lanes; kernel 8's t within 2e-6 on at least 99.9%; (e) times: each
-   kernel at 640,000 lanes beside its plain version and its bound (kernel
-   2's device time too, queued, twice), the
+   kernel 6's t, hit, gid and mid equal, its frame within 2e-6 on at least
+   99.9% of lanes (the bit-equal share printed); kernel 7's t and gid equal
+   to plain and to kernel 6's; kernel 8's t within 2e-6 on at least 99.9%;
+   (e) times: each kernel at 640,000 lanes beside its plain version and its
+   bound (kernel 2's device time too, queued, twice; kernels 6 and 8 with
+   their operations at the issue rate too), the
    renders' wall time, super-steps and Mrays/s, and the 8-spp pinned render
    profiled (device busy and idle share, per super-step); and the CLI with
    ``--engine wavefront``;
@@ -391,6 +393,11 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 FP64_OPS_PER_S = 34e12
+# the rate at which these builds can issue counted fp32 operations: with
+# -fmad=false each multiply or add is an instruction of its own, so half the
+# FMA-counted peak (132 SMs x 128 lanes at 1.98 GHz).  Kernels 6, 7 and 8
+# print their operation bound at both rates; the JSON line keeps the peak's.
+FP32_UNFUSED_OPS_PER_S = 33.5e12
 
 # fp32 operations per lane of csrc/trace.cu, counted by hand from the source
 # (multiply, add, compare, select, min/max, sqrt, rsqrt, divide, sin, cos
@@ -444,6 +451,10 @@ DESIGNS = {
                        "256 (trace_grad.cu:trace_fwd_kernel_packed)",
     "trace_fwd_resid_vol": "live paths packed per block, blocks of 128",
     "trace_fwd_resid_surf": "one path per thread (packing measured slower)",
+    "nearest_hit": "two rays a thread, each 16-float table row read once for both; the "
+                   "winner's object-space ray recomputed after the sweep; the hit plane written "
+                   "in the kernel (intersect.cu)",
+    "winner": "two rays a thread, each 16-float table row read once for both (intersect.cu)",
 }
 # Cornell's kernel 4: its registers, pinned.  72 with one path per thread;
 # packing the live paths per block, held to four blocks of 256 per SM,
@@ -1248,7 +1259,8 @@ def grad_engines_phase(desc, dev, card: str, out_dir: str, full_loss, full_grads
         f"{rp_ms:.3f} ms, bound {r_bound[0]:.4f} ms by {r_bound[1]}); "
         f"kernel 3 {b_ms:.4f} ms (plain {bp_ms:.3f} ms, bound {b_bound[0]:.4f} ms by "
         f"{b_bound[1]}); kernel 7 {w_ms:.4f} ms (plain {wp_ms:.3f} ms, bound {w_bound[0]:.4f} "
-        f"ms by {w_bound[1]}); on {card}"
+        f"ms by {w_bound[1]}, its operations at the issue rate "
+        f"{n * sweep / FP32_UNFUSED_OPS_PER_S * 1e3:.4f}); on {card}"
     )
     pb, ln = steps["perbounce"]["launches"], steps["lean"]["launches"]
     common = {"route": "cuda", "library_ms": None}
@@ -1341,7 +1353,11 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
     from pathtracer_tpu_torch.ops import bounce_fused, intersect_cuda
     from pathtracer_tpu_torch.ops.bounce import pack_tables
     from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
-    from pathtracer_tpu_torch.ops.intersect import nearest_hit_plain, occlusion_t_plain
+    from pathtracer_tpu_torch.ops.intersect import (
+        nearest_hit_plain,
+        occlusion_t_plain,
+        winner_t_gid_plain,
+    )
     from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
     from pathtracer_tpu_torch.render import wavefront
     from pathtracer_tpu_torch.render.integrator import render
@@ -1420,6 +1436,8 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
         rays = Rays(s["origin"], s["direction"])
         hit_k, hit_p = intersect_cuda.nearest_hit_cuda(rays, tables[0]), nearest_hit_plain(rays, tables[0])
         occ_k, occ_p = intersect_cuda.occlusion_t_cuda(rays, tables[0]), occlusion_t_plain(rays, tables[0])
+        win_k = intersect_cuda.winner_t_gid_cuda(rays, tables[0])
+        win_p = winner_t_gid_plain(rays, tables[0])
         torch.cuda.synchronize()
         exact = (torch.equal(got.terminate, want.terminate)
                  and torch.equal(got.was_specular, want.was_specular)
@@ -1434,24 +1452,31 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
             b_err = max(b_err, float((a - b).abs().max()))
         b_share = float(close.float().mean())
         ids_equal = (torch.equal(hit_k.t, hit_p.t) and torch.equal(hit_k.geom_id, hit_p.geom_id)
-                     and torch.equal(hit_k.material_id, hit_p.material_id))
+                     and torch.equal(hit_k.material_id, hit_p.material_id)
+                     and torch.equal(hit_k.hit, hit_p.hit))
+        win_equal = (torch.equal(win_k[0], win_p[0]) and torch.equal(win_k[1], win_p[1])
+                     and torch.equal(win_k[0], hit_k.t) and torch.equal(win_k[1], hit_k.geom_id))
         frame = torch.ones(n, dtype=torch.bool, device=dev)
+        frame_same = torch.ones(n, dtype=torch.bool, device=dev)
         for f in ("position", "position_obj", "normal"):
             a, b = getattr(hit_k, f), getattr(hit_p, f)
             frame &= torch.isclose(a, b, rtol=2e-6, atol=2e-6).all(-1)
+            frame_same &= (a == b).all(-1)
             n_err = max(n_err, float((a - b).abs().max()))
         occ_share = float(torch.isclose(occ_k, occ_p, rtol=2e-6, atol=2e-6).float().mean())
         o_err = max(o_err, float((occ_k - occ_p).abs().max()))
         print(
             f"[wavefront:check] {label}, {n} lanes: kernel 2 terminate / emit state / rr "
             f"uniform / medium equal: {exact}; lanes with every plane within 2e-6 {b_share:.6f}, "
-            f"bit-equal {float(same.float().mean()):.6f}; kernel 6 t / gid / mid equal: "
-            f"{ids_equal}, frame within 2e-6 {float(frame.float().mean()):.6f}; kernel 8 t "
-            f"within 2e-6 {occ_share:.6f}"
+            f"bit-equal {float(same.float().mean()):.6f}; kernel 6 t / hit / gid / mid equal: "
+            f"{ids_equal}, frame within 2e-6 {float(frame.float().mean()):.6f}, bit-equal "
+            f"{float(frame_same.double().mean()):.6f}; kernel 7 t / gid equal to plain and to "
+            f"kernel 6's: {win_equal}; kernel 8 t within 2e-6 {occ_share:.6f}"
         )
         check(exact and b_share >= 0.999, f"kernel 2 differs from its plain version ({label})")
         check(ids_equal and float(frame.float().mean()) >= 0.999,
               f"kernel 6 differs from its plain version ({label})")
+        check(win_equal, f"kernel 7 differs from its plain version or kernel 6 ({label})")
         check(occ_share >= 0.999, f"kernel 8 differs from its plain version ({label})")
 
     # ---- (e) times at 640,000 lanes, on the captured super-step's state
@@ -1495,10 +1520,12 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
 
     # kernel 2: 16 planes in (64 B), 18 float planes and a terminate byte out (73 B)
     k2_bound = bound(n * (sweep + OPS_SHADE), n * (64 + 73) + table_bytes)
-    # kernel 6: origin and direction in (24 B); t, gid, mid, p, p_obj, n out (48 B)
-    k6_bound = bound(n * (sweep + OPS_FRAME), n * (24 + 48) + tables[0].numel() * 4)
+    # kernel 6: origin and direction in (24 B); t, hit, gid, mid, p, p_obj, n out (49 B)
+    k6_bound = bound(n * (sweep + OPS_FRAME), n * (24 + 49) + tables[0].numel() * 4)
     # kernel 8: origin and direction in, t out
     k8_bound = bound(n * sweep, n * (24 + 4) + tables[0].numel() * 4)
+    k6_issue, k8_issue = (n * ops / FP32_UNFUSED_OPS_PER_S * 1e3
+                          for ops in (sweep + OPS_FRAME, sweep))
     print(f"[card] {card}")
     print(
         f"[wavefront:time] pinned 8 spp: {steps_t} super-steps, {wall_t * 1e3:.4f} ms "
@@ -1513,8 +1540,9 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
         f"[wavefront:time] at {n} lanes: kernel 2 {k2_ms:.4f} ms ({k2_dev[0]:.4f} / "
         f"{k2_dev[1]:.4f} ms of device time, queued, twice; plain {k2p_ms:.3f} ms, bound "
         f"{k2_bound[0]:.4f} ms by {k2_bound[1]}); kernel 6 {k6_ms:.4f} ms (plain {k6p_ms:.3f} ms, "
-        f"bound {k6_bound[0]:.4f} ms by {k6_bound[1]}); kernel 8 {k8_ms:.4f} ms (plain "
-        f"{k8p_ms:.3f} ms, bound {k8_bound[0]:.4f} ms by {k8_bound[1]}); on {card}"
+        f"bound {k6_bound[0]:.4f} ms by {k6_bound[1]}, its operations at the issue rate "
+        f"{k6_issue:.4f}); kernel 8 {k8_ms:.4f} ms (plain {k8p_ms:.3f} ms, bound "
+        f"{k8_bound[0]:.4f} ms by {k8_bound[1]}, at the issue rate {k8_issue:.4f}); on {card}"
     )
 
     # ---- the CLI with the wavefront engine

@@ -4,10 +4,11 @@ the CUDA kernels and their dispatch.
 Port of ``pathtracer_tpu/ops/intersect_pallas.py:174-343``
 (``winner_t_gid_planes``, ``nearest_hit_planes``, ``occlusion_t_planes``,
 and for scenes of spheres and cubes ``intersect_scene_pallas`` /
-``occlusion_scene_pallas``).  The kernels are ``csrc/intersect.cu`` (one
-thread per lane, the geom table in shared memory); their plain versions are
-``ops/intersect.nearest_hit_plain``, ``winner_t_gid_plain`` and
-``occlusion_t_plain``.  :func:`nearest_hit`, :func:`winner_t_gid` and
+``occlusion_scene_pallas``).  The kernels are ``csrc/intersect.cu`` (the
+geom table in shared memory; kernels 6 and 7 sweep two rays a thread,
+kernel 8 one, and kernel 6 writes the ``hit`` plane too); their plain
+versions are ``ops/intersect.nearest_hit_plain``, ``winner_t_gid_plain``
+and ``occlusion_t_plain``.  :func:`nearest_hit`, :func:`winner_t_gid` and
 :func:`occlusion_t` dispatch on the rays' device: a CUDA tensor launches
 the kernel or raises, a CPU tensor takes the plain version.  With meshes,
 :func:`nearest_hit` and :func:`occlusion_t` are the split route's
@@ -48,8 +49,8 @@ def _lib():
     lib = _build.load("intersect")
     if lib.nearest_launch.argtypes is None:  # ctypes would cut pointers to 32 bits
         lib.nearest_launch.restype = ctypes.c_int
-        # gtab, G, n, origin, direction, t, gid, mid, p, p_obj, normal, stream
-        lib.nearest_launch.argtypes = [P, I, I, P, P, P, P, P, P, P, P, P]
+        # gtab, G, n, origin, direction, t, hit, gid, mid, p, p_obj, normal, stream
+        lib.nearest_launch.argtypes = [P, I, I, P, P, P, P, P, P, P, P, P, P]
         lib.occlusion_launch.restype = ctypes.c_int
         # gtab, G, n, origin, direction, t, stream
         lib.occlusion_launch.argtypes = [P, I, I, P, P, P, P]
@@ -81,16 +82,17 @@ def nearest_hit_cuda(rays: Rays, gtab: torch.Tensor) -> Hit:
     n, g, device = _check(rays, gtab)
     f32, i32 = dict(dtype=torch.float32, device=device), dict(dtype=torch.int32, device=device)
     t, gid, mid = torch.empty(n, **f32), torch.empty(n, **i32), torch.empty(n, **i32)
+    hit = torch.empty(n, dtype=torch.bool, device=device)
     p, p_obj, normal = (torch.empty((n, 3), **f32) for _ in range(3))
     err = _lib().nearest_launch(
         gtab.data_ptr(), g, n, rays.origin.data_ptr(), rays.direction.data_ptr(),
-        t.data_ptr(), gid.data_ptr(), mid.data_ptr(), p.data_ptr(), p_obj.data_ptr(),
-        normal.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
+        t.data_ptr(), hit.data_ptr(), gid.data_ptr(), mid.data_ptr(), p.data_ptr(),
+        p_obj.data_ptr(), normal.data_ptr(), torch.cuda.current_stream(device).cuda_stream,
     )
     if err != 0:
         raise RuntimeError(f"nearest-hit kernel launch failed: CUDA error {err}")
     nearest_launches += 1
-    return Hit(t=t, hit=t < BIG, geom_id=gid, material_id=mid, position=p,
+    return Hit(t=t, hit=hit, geom_id=gid, material_id=mid, position=p,
                position_obj=p_obj, normal=normal)
 
 

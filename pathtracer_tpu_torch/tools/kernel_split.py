@@ -93,6 +93,20 @@ kernels from its own sources (``tools/in_turns``).  Each process prints
   order and with each block of 128 or 256 lanes ordered by key, as the
   grouped kernel (2r-v) shades them.
 
+- intersect: kernels 6, 7 and 8 (``csrc/intersect.cu``) on the rays of
+  Cornell's super-step 10 (800x800, pinned 8 spp, 640,000 lanes), each
+  whole and on a one-row table of a mesh slot, which the sweep skips (the
+  planes-only floor: the rays loaded and every output stored);
+  kernel 8's launch is the sweep with its result reduced to one plane.
+  Kernel 7 also on the rays of launches :data:`LEAN_LAUNCHES` of a 1-spp
+  lean step (``RenderConfig(grad_fused=False)``), with the sizes of all
+  its launches (``chip_smoke.queued_ms``, twice each); then each kernel's
+  resources (``cuobjdump -res-usage``) and its SASS counted by
+  :data:`SASS_CLASSES`, whole and in the geom loop (:func:`sass_loop`),
+  with ``--listing-dir DIR`` the whole listing written to
+  ``DIR/intersect_sass_<checkout>.txt``. This part alone builds only the
+  libraries it launches and prints no other registers.
+
 Every process also prints the registers and spills of every instance of
 kernels 1, 2, 3, 4 and 5 (none when its libraries were built earlier).
 
@@ -163,7 +177,8 @@ def _profiled_split(cs, fn, body: str, lanes: int, reps: int = 10) -> tuple:
                        f"for {reps} calls")
 
 
-PARTS = ("adjoint", "forward", "1m", "steps", "perbounce", "rows", "2m", "packing", "events")
+PARTS = ("adjoint", "forward", "1m", "steps", "perbounce", "rows", "2m", "packing", "events",
+         "intersect")
 DEFAULT_PARTS = ("adjoint", "forward", "1m", "steps")
 # variant copies of this checkout: name -> (file, text, replacement) edits
 VARIANTS = {
@@ -218,6 +233,10 @@ VARIANTS = {
   b.tex_u = b.tex_v = b.tex_slot = prev[i];""")),
     "group256": (("pathtracer_tpu_torch/csrc/bounce.cu", "constexpr int GROUP_THREADS = 128;",
                   "constexpr int GROUP_THREADS = 256;"),),
+    "rays1": (("pathtracer_tpu_torch/csrc/intersect.cu", "constexpr int RAYS = 2;",
+               "constexpr int RAYS = 1;"),),
+    "rays4": (("pathtracer_tpu_torch/csrc/intersect.cu", "constexpr int RAYS = 2;",
+               "constexpr int RAYS = 4;"),),
     "lanesweep": (("pathtracer_tpu_torch/csrc/bounce.cu",
                    "if constexpr (kMesh) {  // the block's sweep first",
                    "if constexpr (false) {  // the block's sweep first"),
@@ -695,6 +714,201 @@ def rows(cs, card: str, here: str) -> None:
                       f"{ms[1]:.4f} ms of device time (queued); on {card}", flush=True)
 
 
+ISECT_KERNELS = ("nearest_kernel", "winner_kernel", "occlusion_kernel")  # kernels 6, 7, 8
+LEAN_LAUNCHES = (0, 3, 7)  # the lean step's kernel-7 launches whose rays the intersect part keeps
+# SASS opcodes by the unit or kind of work they are, for the intersect part's counts
+SASS_CLASSES = (
+    ("fp32 add/mul/fma", ("FADD", "FMUL", "FFMA")),
+    ("fp32 compare/select/min-max", ("FSETP", "FSEL", "FMNMX", "FSET", "FCHK")),
+    ("mufu", ("MUFU",)),
+    ("shared loads", ("LDS",)),
+    ("constant loads", ("LDC", "ULDC")),
+    ("global loads", ("LDG",)),
+    ("global stores", ("STG",)),
+    ("branches and calls", ("BRA", "BSSY", "BSYNC", "CALL", "RET", "WARPSYNC", "BREAK", "EXIT")),
+)
+
+
+def sass_functions(listing: str) -> dict:
+    """``cuobjdump -sass`` output cut into ``{function: [(address, opcode,
+    text)]}``; a branch's label target (``.L_x_N``) is turned into the
+    address of the instruction that follows the label."""
+    import re
+
+    funcs, labels, name = {}, {}, None
+    pending = []
+    for line in listing.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name], labels[name], pending = [], {}, []
+            continue
+        m = re.match(r"\s*(\.L_x_\d+):", line)
+        if m and name is not None:
+            pending.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+([^;]*?)\s*;", line)
+        if m and name is not None:
+            addr, text = int(m.group(1), 16), m.group(2)
+            for label in pending:
+                labels[name][label] = addr
+            pending = []
+            words = text.split()
+            op = words[1] if words[0].startswith("@") and len(words) > 1 else words[0]
+            funcs[name].append((addr, op.split(".")[0], text))
+    for name, insts in funcs.items():
+        funcs[name] = [(a, op, re.sub(r"`\((\.L_x_\d+)\)",
+                                      lambda m: hex(labels[name].get(m.group(1), -1)), text))
+                       for a, op, text in insts]
+    return funcs
+
+
+def sass_loop(insts) -> tuple:
+    """The address range of a function's loop that holds the most MUFU
+    instructions (the geom sweep, with its reciprocals and square roots):
+    ``(first, last)`` of a backward branch's target and the branch, or None
+    where no backward branch holds one."""
+    import re
+
+    best, best_mufu = None, 0
+    for addr, op, text in insts:
+        m = re.search(r"BRA\S*\s+(?:\S+,\s*)?(0x[0-9a-f]+)", text)
+        if op != "BRA" or m is None or int(m.group(1), 16) > addr:
+            continue
+        lo = int(m.group(1), 16)
+        mufu = sum(1 for a, o, _ in insts if lo <= a <= addr and o == "MUFU")
+        if mufu > best_mufu:
+            best, best_mufu = (lo, addr), mufu
+    return best
+
+
+def sass_counts(insts) -> dict:
+    """Instructions by :data:`SASS_CLASSES` (``"other"``: integer, moves,
+    predicates), and ``"all"``."""
+    out = {label: 0 for label, _ in SASS_CLASSES}
+    out["other"] = 0
+    for _, op, _ in insts:
+        label = next((lb for lb, ops in SASS_CLASSES if op in ops), "other")
+        out[label] += 1
+    out["all"] = len(insts)
+    return out
+
+
+def intersect(cs, card: str, here: str, listing_dir: str = "") -> None:
+    """The ``intersect`` part (the module's docstring)."""
+    import collections
+    import subprocess
+    from concurrent.futures import ThreadPoolExecutor
+
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import _build, intersect_cuda
+    from pathtracer_tpu_torch.ops.bounce import pack_tables
+    from pathtracer_tpu_torch.ops.intersect import nearest_hit_plain, winner_t_gid_plain
+    from pathtracer_tpu_torch.ops.rng import prng_key
+    from pathtracer_tpu_torch.render import diff
+    from pathtracer_tpu_torch.scene.parser import load_scene
+    from pathtracer_tpu_torch.scene.structs import Rays
+
+    with ThreadPoolExecutor(3) as pool:  # what the capture and the lean step launch
+        list(pool.map(_build.load, ("intersect", "bounce", "trace_grad")))
+    dev = torch.device("cuda")
+    desc = load_scene(os.path.join("scenes", "cornell.txt"))
+    scene = desc.scene_for_frame(0, device=dev)
+    captured = {}
+    cs.capturing_render(scene, 8, RenderConfig(wavefront=True, iters_per_launch=8, max_depth=8,
+                                               nee=True), dev, captured)
+    gtab = pack_tables(scene)[0].contiguous()
+    # a one-row table whose geom is a mesh slot (type 2): the analytic sweep
+    # skips it, so a launch on it loads the rays and stores every output
+    # with no sweep (the kernel's planes-only floor)
+    slot = gtab[:1].clone()
+    slot[0, 12] = 2.0
+    rays = Rays(captured["origin"], captured["direction"])
+    n = rays.origin.shape[0]
+    got, want = intersect_cuda.nearest_hit_cuda(rays, gtab), nearest_hit_plain(rays, gtab)
+    wt, wg = intersect_cuda.winner_t_gid_cuda(rays, gtab)
+    pt, pg = winner_t_gid_plain(rays, gtab)
+    same = all(torch.equal(getattr(got, f), getattr(want, f))
+               for f in ("t", "hit", "geom_id", "material_id"))
+    frame = torch.ones(n, dtype=torch.bool, device=dev)
+    for f in ("position", "position_obj", "normal"):
+        frame &= (getattr(got, f) == getattr(want, f)).all(-1)
+    print(f"[split] {here} intersect check: kernel 6 t / hit / gid / mid equal to plain {same}, "
+          f"frame bit-equal on {float(frame.double().mean()):.6f} of lanes; kernel 7 t / gid "
+          f"equal {torch.equal(wt, pt)} / {torch.equal(wg, pg)}; on {card}", flush=True)
+    for label, fn, name in zip("678", (intersect_cuda.nearest_hit_cuda,
+                                        intersect_cuda.winner_t_gid_cuda,
+                                        intersect_cuda.occlusion_t_cuda), ISECT_KERNELS):
+        whole = [cs.queued_ms(lambda: fn(rays, gtab)) for _ in range(2)]
+        planes = [cs.queued_ms(lambda: fn(rays, slot)) for _ in range(2)]
+        alone = []
+        for table in (gtab, slot):
+            run, _ = cs.profiled(lambda: fn(rays, table), 10)
+            ms, launches = _device_sum(run, name)
+            alone.append(f"{ms / max(launches, 1):.4f} x {launches}")
+        print(f"[split] {here} intersect kernel {label} cornell super-step {cs.CAPTURE_STEP} "
+              f"({n} lanes, {gtab.shape[0]} geoms): {whole[0]:.4f} / {whole[1]:.4f} ms of "
+              f"device time (queued, the wrapper's call); planes only {planes[0]:.4f} / "
+              f"{planes[1]:.4f}; the kernel alone (profiled over 10 calls) {alone[0]}, planes "
+              f"only {alone[1]}; on {card}", flush=True)
+
+    # kernel 7 where the lean step launches it: one 1-spp step on Cornell
+    params, static = diff.params_from_description(desc, 0, device=dev)
+    target = torch.zeros((static.resolution[0] * static.resolution[1], 3), device=dev)
+    kept, sizes = {}, []
+    winner = intersect_cuda.winner_t_gid_cuda
+
+    def recording(r, g):
+        if len(sizes) in LEAN_LAUNCHES:
+            kept[len(sizes)] = (Rays(r.origin.clone(), r.direction.clone()), g.clone())
+        sizes.append(r.origin.shape[0])
+        return winner(r, g)
+
+    intersect_cuda.winner_t_gid_cuda = recording
+    try:
+        diff.loss_and_grad_rays(params, static, target, 1, prng_key(0),
+                                RenderConfig(grad_fused=False, nee=True, max_depth=8),
+                                device=dev)
+        torch.cuda.synchronize()
+    finally:
+        intersect_cuda.winner_t_gid_cuda = winner
+    for k, (r, g) in sorted(kept.items()):
+        ms = [cs.queued_ms(lambda: winner(r, g)) for _ in range(2)]
+        print(f"[split] {here} intersect kernel 7 lean step launch {k} of {len(sizes)} "
+              f"({r.origin.shape[0]} lanes; sizes {sorted(set(sizes))}): {ms[0]:.4f} / "
+              f"{ms[1]:.4f} ms of device time (queued); on {card}", flush=True)
+
+    # registers and the SASS of the built library
+    lib = _build.compile_kernel("intersect")[0]
+    tool = os.path.join(os.path.dirname(os.path.dirname(_build.nvcc_path())), "bin",
+                        "cuobjdump")
+    tool = tool if os.path.exists(tool) else "cuobjdump"
+    res = subprocess.run([tool, "-res-usage", lib], capture_output=True, text=True).stdout
+    lines = res.splitlines()
+    for i, line in enumerate(lines):
+        name = next((k for k in ISECT_KERNELS if k in line), None)
+        if name and i + 1 < len(lines):
+            print(f"[split] {here} intersect resources {name}: {lines[i + 1].strip()}",
+                  flush=True)
+    listing = subprocess.run([tool, "-sass", lib], capture_output=True, text=True).stdout
+    if listing_dir:
+        os.makedirs(listing_dir, exist_ok=True)
+        with open(os.path.join(listing_dir, f"intersect_sass_{here}.txt"), "w") as f:
+            f.write(listing)
+    for fname, insts in sass_functions(listing).items():
+        name = next((k for k in ISECT_KERNELS if k in fname), None)
+        if name is None:
+            continue
+        loop = sass_loop(insts)
+        body = [x for x in insts if loop and loop[0] <= x[0] <= loop[1]]
+        ops = collections.Counter(op for _, op, _ in body)
+        print(f"[split] {here} intersect sass {name}: {sass_counts(insts)} in the kernel; geom "
+              f"loop {'none' if loop is None else f'0x{loop[0]:x}-0x{loop[1]:x}'}: "
+              f"{sass_counts(body)}; opcodes {dict(ops.most_common())}", flush=True)
+
+
 def chunk_reach(km, gtab, origin, direction):
     """``[N, C]`` bool: lane i's ray reaches chunk c's box with nothing
     nearer found yet (``csrc/trace_common.cuh:chunk_reaches`` at ``best =
@@ -856,9 +1070,10 @@ def path_packing(cs, card: str, here: str) -> None:
               f"{share[256]:.4f}; on {card}", flush=True)
 
 
-def measure(card: str, parts: str = ",".join(DEFAULT_PARTS)) -> None:
+def measure(card: str, parts: str = ",".join(DEFAULT_PARTS), listing_dir: str = "") -> None:
     """In a checkout: print its ``[split]`` lines for the comma-separated
-    ``parts`` (the module's docstring)."""
+    ``parts`` (the module's docstring); ``listing_dir``: where the
+    intersect part writes its SASS listing."""
     import dataclasses
     import time
 
@@ -876,6 +1091,10 @@ def measure(card: str, parts: str = ",".join(DEFAULT_PARTS)) -> None:
     from pathtracer_tpu_torch.render.integrator import render_chunk
     from pathtracer_tpu_torch.scene.parser import load_scene
 
+    parts = parts.split(",")
+    if parts == ["intersect"]:  # builds only what it launches
+        intersect(cs, card, os.path.basename(os.getcwd()), listing_dir)
+        return
     reports = _build.build_all()
     dev = torch.device("cuda")
     f32 = dict(dtype=torch.float32, device=dev)
@@ -902,7 +1121,6 @@ def measure(card: str, parts: str = ",".join(DEFAULT_PARTS)) -> None:
             hosts.append((t1 - t0) * 1e3)
         return walls, hosts
 
-    parts = parts.split(",")
     for label, name, res in ADJOINT_SCENES if "adjoint" in parts else ():
         desc = desc_of(name, res)
         params, static = diff.params_from_description(desc, 0, device=dev)
@@ -1074,6 +1292,8 @@ def measure(card: str, parts: str = ",".join(DEFAULT_PARTS)) -> None:
         path_packing(cs, card, here)
     if "events" in parts:
         events(cs, card, here)
+    if "intersect" in parts:
+        intersect(cs, card, here, listing_dir)
 
     inst = cs.ptxas_instances(reports)
     regs = {f"3 vol={v} surf={s}": cs.instance_regs(inst, "bounce_grad", "bounce_bwd_kernel",
@@ -1131,6 +1351,9 @@ def main() -> int:
                          "or NAME=variant:V@DIR (on the checkout DIR), each in turn")
     ap.add_argument("--parts", default=",".join(DEFAULT_PARTS),
                     help=f"comma-separated, of {', '.join(PARTS)}")
+    ap.add_argument("--listing-dir", default="",
+                    help="where the intersect part writes each checkout's SASS listing of "
+                         "csrc/intersect.cu")
     args = ap.parse_args()
     unknown = set(args.parts.split(",")) - set(PARTS)
     if unknown:
@@ -1147,7 +1370,9 @@ def main() -> int:
             if (v, src) not in made:
                 made[v, src] = variant_copy(v, src or ROOT, f"-{len(made)}" if src else "")
             named[i] = (name, made[v, src])
-    return run_in_turns(named, __file__, "measure", [line, args.parts], shown=("[split]",))
+    listing = os.path.abspath(args.listing_dir) if args.listing_dir else ""
+    return run_in_turns(named, __file__, "measure", [line, args.parts, listing],
+                        shown=("[split]",))
 
 
 if __name__ == "__main__":

@@ -579,6 +579,45 @@ def test_winner_lanes_match_plain(host_lib, scene_name):
     assert torch.equal(want_t, hit.t) and torch.equal(want_gid, hit.geom_id)
 
 
+@pytest.mark.parametrize("table", ["cornell", "cornell repeated rows", "one geom", "max geoms"])
+def test_intersect_lanes_on_stress_lanes(host_lib, table):
+    """Kernels 6 and 7's lanes (``nearest_lane``, ``winner_lane``) against
+    ``nearest_hit_plain`` / ``winner_t_gid_plain`` on
+    ``tests/intersect_lanes.py``'s lanes: rays at the corners and edges
+    where cubes meet, exact ties between repeated rows (the first in index
+    order wins), direction components of 0 and around 1e-12, tables of 1
+    and ``MAX_GEOMS`` rows.  gid and mid equal on every lane, kernel 7's t
+    and gid equal to kernel 6's; t within 2e-6 on every lane and bit-equal
+    on at least 99.5%: torch's CPU ``sqrt`` misses the correctly rounded
+    ``sqrtf`` by an ulp on a few inputs (1 and 4 of these 2,048 lanes on
+    Cornell and on the random table, in the parent's lanes too; on the card
+    both round alike and ``test_torch_kernels_cuda.py`` holds t equal); the
+    frame within 2e-6 as above."""
+    from tests.intersect_lanes import stress_rays, stress_table
+
+    gtab = stress_table(table)
+    n = 2048
+    o, d = stress_rays(gtab, n, 29)
+    want = nearest_hit_plain(Rays(o, d), gtab)
+    want_t, want_gid = winner_t_gid_plain(Rays(o, d), gtab)
+    t_k, gid, mid = torch.empty(n), torch.empty(n, dtype=torch.int32), torch.empty(
+        n, dtype=torch.int32)
+    p, p_obj, normal = (torch.empty((n, 3)) for _ in range(3))
+    host_lib.host_nearest(gtab.data_ptr(), gtab.shape[0], n, o.data_ptr(), d.data_ptr(),
+                          t_k.data_ptr(), gid.data_ptr(), mid.data_ptr(), p.data_ptr(),
+                          p_obj.data_ptr(), normal.data_ptr())
+    w_t, w_gid = torch.empty(n), torch.empty(n, dtype=torch.int32)
+    host_lib.host_winner(gtab.data_ptr(), gtab.shape[0], n, o.data_ptr(), d.data_ptr(),
+                         w_t.data_ptr(), w_gid.data_ptr())
+    assert torch.equal(gid, want.geom_id) and torch.equal(mid, want.material_id)
+    assert torch.equal(w_gid, want_gid)
+    assert torch.equal(w_t, t_k) and torch.equal(w_gid, gid)
+    torch.testing.assert_close(t_k, want.t, rtol=2e-6, atol=0.0)
+    assert float((t_k == want.t).double().mean()) >= 0.995
+    for got, ref in ((p, want.position), (p_obj, want.position_obj), (normal, want.normal)):
+        torch.testing.assert_close(got, ref, rtol=2e-6, atol=2e-6)
+
+
 # ---- triangle meshes: kernels 9 and 10, and the in-kernel sweep of 1 and 2
 
 
