@@ -107,10 +107,16 @@ Phases (any failure exits non-zero):
    every lane and its float planes within 2e-6 on at least 99.9% of lanes;
    kernel 6's t, hit, gid and mid equal, its frame within 2e-6 on at least
    99.9% of lanes (the bit-equal share printed); kernel 7's t and gid equal
-   to plain and to kernel 6's; kernel 8's t within 2e-6 on at least 99.9%;
-   (e) times: each kernel at 640,000 lanes beside its plain version and its
-   bound (kernel 2's device time too, queued, twice; kernels 6 and 8 with
-   their operations at the issue rate too), the
+   to plain and to kernel 6's; kernel 8's t equal on every lane, and on
+   the shadow rays the split route of (c) launched it on at super-step 10
+   (captured by a hook on its wrapper), with the share of its exact tests
+   that a padded world-box cull (``tools/occlusion_cull.py``) would skip,
+   per lane and per warp, and its device time there; (e) times: each
+   kernel at 640,000 lanes beside its plain version and its bound (kernel
+   2's device time too, queued, twice; kernels 6 and 8 with their
+   operations at the issue rate too; kernel 8 on (d)'s shadow rays, its
+   bound counted from a box cull's tests and the exact tests that hit, and
+   on the super-step's bounce rays beside it), the
    renders' wall time, super-steps and Mrays/s, and the 8-spp pinned render
    profiled (device busy and idle share, per super-step); and the CLI with
    ``--engine wavefront``;
@@ -1331,6 +1337,73 @@ def capturing_render(scene, spp: int, cfg, dev, captured: dict):
         wavefront.shade_bounce = shade
 
 
+def capturing_shadow(fn, captured: dict, at: int = CAPTURE_STEP):
+    """``fn()`` with kernel 8's wrapper (``ops/intersect_cuda.occlusion_t_cuda``)
+    recording: the shadow rays and geom table of its launch number ``at``
+    are copied into ``captured`` (``rays``, ``gtab``); the wrapper only
+    copies, so the run and its launch counts are unchanged."""
+    from pathtracer_tpu_torch.ops import intersect_cuda
+    from pathtracer_tpu_torch.scene.structs import Rays
+
+    occ, calls = intersect_cuda.occlusion_t_cuda, [0]
+
+    def recording(rays, gtab):
+        if calls[0] == at:
+            captured.update(rays=Rays(rays.origin.clone(), rays.direction.clone()),
+                            gtab=gtab.clone())
+        calls[0] += 1
+        return occ(rays, gtab)
+
+    intersect_cuda.occlusion_t_cuda = recording
+    try:
+        return fn()
+    finally:
+        intersect_cuda.occlusion_t_cuda = occ
+
+
+# fp32 operations of tools/occlusion_cull.py's padded world-box cull,
+# counted by hand: a ray's three reciprocals and its sanity test, and one
+# world slab test against a geom's padded box with the type test
+OPS_CULL_RAY = 18
+OPS_BOX = 26
+
+
+def occlusion_work(rays, gtab) -> dict:
+    """The work of kernel 8's function on ``rays`` under the padded
+    world-box cull of ``tools/occlusion_cull.py`` (kernel 8 runs every
+    test; the cull measured slower, PERF.md section 6): ``lanes``, the
+    ``boxes`` (lanes x geoms slab tests), the exact tests the cull leaves
+    (``runs``) and those that ``hit`` (t below BIG: no conservative cull
+    can skip them), the shares of the exact tests (spheres and cubes) it
+    skips per lane and per warp of 32 lanes (a warp runs a test where any
+    of its lanes does), and ``ops``: the operations of the cull and of the
+    exact tests that hit, the least such a sweep must do."""
+    import torch
+
+    from pathtracer_tpu_torch.ops.intersect import BIG, T_MIN, geom_t
+    from pathtracer_tpu_torch.tools.occlusion_cull import needed_tests
+
+    runs = needed_tests(rays, gtab)
+    n, g = runs.shape
+    analytic = ((gtab[:, 12] == 0.0) | (gtab[:, 12] == 1.0)).to(runs.device)
+    comps = (rays.origin.unbind(-1), rays.direction.unbind(-1))
+    hit_ops = 0
+    hits = 0
+    for k, row in enumerate(gtab.unbind(0)):
+        if bool(analytic[k]):
+            t = geom_t(row, *comps[0], *comps[1], T_MIN, float(row[12]))[0]
+            h = int((t < BIG).sum())
+            hits += h
+            hit_ops += h * (OPS_TO_OBJECT + (OPS_SPHERE if float(row[12]) == 0.0 else OPS_CUBE))
+    pad = torch.zeros(((-n) % 32, g), dtype=torch.bool, device=runs.device)
+    warps = torch.cat([runs, pad]).view(-1, 32, g).any(1)
+    tests = int(analytic.sum())
+    return dict(lanes=n, boxes=n * g, runs=int(runs.sum()), hit=hits,
+                lane_skip=1.0 - int(runs.sum()) / (n * tests),
+                warp_skip=1.0 - int(warps.sum()) / (warps.shape[0] * tests),
+                ops=n * (OPS_CULL_RAY + g * OPS_BOX) + hit_ops)
+
+
 def check_close(tag: str, acc, ref, min_share: float, sum_tol: float, what: str) -> None:
     """Fail unless at least ``min_share`` of ``acc``'s entries are within
     rtol = atol = 2e-4 of ``ref``'s and the sums within ``sum_tol``."""
@@ -1396,9 +1469,11 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
     close_to(acc_b, mega["acc2"], 0.999, 1e-5, "(b) queue vs megakernel, 2 spp")
 
     # ---- (c) split route (kernels 6 and 8), pinned, 2 spp, against the
-    # fused route's pinned render at the same spp
+    # fused route's pinned render at the same spp; kernel 8's shadow rays of
+    # super-step 10 are kept for (d)
     split = dataclasses.replace(pinned, fused=False, iters_per_launch=2)
-    acc_c, st_c, launch_c, steps_c, wall_c = run(2, split)
+    shadow = {}
+    acc_c, st_c, launch_c, steps_c, wall_c = capturing_shadow(lambda: run(2, split), shadow)
     print(f"[wavefront] (c) split route, pinned, spp=2: {wall_c:.3f} s, {steps_c} super-steps, "
           f"rays {st_c['rays_traced']}, launches {launch_c}")
     check(launch_c == only(nearest_hit=steps_c, occlusion=steps_c),
@@ -1463,7 +1538,6 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
             frame &= torch.isclose(a, b, rtol=2e-6, atol=2e-6).all(-1)
             frame_same &= (a == b).all(-1)
             n_err = max(n_err, float((a - b).abs().max()))
-        occ_share = float(torch.isclose(occ_k, occ_p, rtol=2e-6, atol=2e-6).float().mean())
         o_err = max(o_err, float((occ_k - occ_p).abs().max()))
         print(
             f"[wavefront:check] {label}, {n} lanes: kernel 2 terminate / emit state / rr "
@@ -1471,13 +1545,29 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
             f"bit-equal {float(same.float().mean()):.6f}; kernel 6 t / hit / gid / mid equal: "
             f"{ids_equal}, frame within 2e-6 {float(frame.float().mean()):.6f}, bit-equal "
             f"{float(frame_same.double().mean()):.6f}; kernel 7 t / gid equal to plain and to "
-            f"kernel 6's: {win_equal}; kernel 8 t within 2e-6 {occ_share:.6f}"
+            f"kernel 6's: {win_equal}; kernel 8 t equal: {torch.equal(occ_k, occ_p)}"
         )
         check(exact and b_share >= 0.999, f"kernel 2 differs from its plain version ({label})")
         check(ids_equal and float(frame.float().mean()) >= 0.999,
               f"kernel 6 differs from its plain version ({label})")
         check(win_equal, f"kernel 7 differs from its plain version or kernel 6 ({label})")
-        check(occ_share >= 0.999, f"kernel 8 differs from its plain version ({label})")
+        check(torch.equal(occ_k, occ_p), f"kernel 8 differs from its plain version ({label})")
+
+    # ---- kernel 8 on the shadow rays the split route of (c) launched it on
+    check(bool(shadow), "no shadow rays captured")
+    srays, sgtab = shadow["rays"], shadow["gtab"]
+    occ_k, occ_p = intersect_cuda.occlusion_t_cuda(srays, sgtab), occlusion_t_plain(srays, sgtab)
+    torch.cuda.synchronize()
+    o_err = max(o_err, float((occ_k - occ_p).abs().max()))
+    k8_work = occlusion_work(srays, sgtab)
+    k8_dev = [queued_ms(lambda: intersect_cuda.occlusion_t_cuda(srays, sgtab)) for _ in range(2)]
+    print(f"[wavefront:check] split route super-step {CAPTURE_STEP}'s shadow rays, "
+          f"{k8_work['lanes']} lanes: kernel 8 t equal to plain: {torch.equal(occ_k, occ_p)}; "
+          f"a padded world-box cull would skip {k8_work['lane_skip']:.4f} of its exact tests "
+          f"per lane, {k8_work['warp_skip']:.4f} per warp of 32 ({k8_work['runs']} left, "
+          f"{k8_work['hit']} hit); {k8_dev[0]:.4f} / {k8_dev[1]:.4f} ms of device time (queued, "
+          f"twice); on {card}")
+    check(torch.equal(occ_k, occ_p), "kernel 8 differs from its plain version (shadow rays)")
 
     # ---- (e) times at 640,000 lanes, on the captured super-step's state
     margs = (tables, mid["origin"], mid["direction"], mid["throughput"], mid["sample"],
@@ -1489,8 +1579,9 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
     k2p_ms = cuda_ms(lambda: bounce_fused.bounce_fused_plain(*margs, nee=True), reps=2)
     k6_ms = cuda_ms(lambda: intersect_cuda.nearest_hit_cuda(mrays, tables[0]), reps=50)
     k6p_ms = cuda_ms(lambda: nearest_hit_plain(mrays, tables[0]), reps=3)
-    k8_ms = cuda_ms(lambda: intersect_cuda.occlusion_t_cuda(mrays, tables[0]), reps=50)
-    k8p_ms = cuda_ms(lambda: occlusion_t_plain(mrays, tables[0]), reps=3)
+    k8_ms = cuda_ms(lambda: intersect_cuda.occlusion_t_cuda(srays, sgtab), reps=50)
+    k8p_ms = cuda_ms(lambda: occlusion_t_plain(srays, sgtab), reps=3)
+    k8u_ms = cuda_ms(lambda: intersect_cuda.occlusion_t_cuda(mrays, tables[0]), reps=50)
     _, st_t, _, steps_t, wall_t = run(8, pinned)  # the pinned render again, unwrapped
     # where a super-step's time goes: the same 8-spp render, profiled
     wavefront.super_steps = 0
@@ -1522,10 +1613,12 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
     k2_bound = bound(n * (sweep + OPS_SHADE), n * (64 + 73) + table_bytes)
     # kernel 6: origin and direction in (24 B); t, hit, gid, mid, p, p_obj, n out (49 B)
     k6_bound = bound(n * (sweep + OPS_FRAME), n * (24 + 49) + tables[0].numel() * 4)
-    # kernel 8: origin and direction in, t out
-    k8_bound = bound(n * sweep, n * (24 + 4) + tables[0].numel() * 4)
-    k6_issue, k8_issue = (n * ops / FP32_UNFUSED_OPS_PER_S * 1e3
-                          for ops in (sweep + OPS_FRAME, sweep))
+    # kernel 8 on the shadow rays: origin and direction in, t out; its
+    # operations a box cull's and the exact tests that hit (occlusion_work)
+    ns = k8_work["lanes"]
+    k8_bound = bound(k8_work["ops"], ns * (24 + 4) + sgtab.numel() * 4)
+    k6_issue = n * (sweep + OPS_FRAME) / FP32_UNFUSED_OPS_PER_S * 1e3
+    k8_issue = k8_work["ops"] / FP32_UNFUSED_OPS_PER_S * 1e3
     print(f"[card] {card}")
     print(
         f"[wavefront:time] pinned 8 spp: {steps_t} super-steps, {wall_t * 1e3:.4f} ms "
@@ -1541,8 +1634,10 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
         f"{k2_dev[1]:.4f} ms of device time, queued, twice; plain {k2p_ms:.3f} ms, bound "
         f"{k2_bound[0]:.4f} ms by {k2_bound[1]}); kernel 6 {k6_ms:.4f} ms (plain {k6p_ms:.3f} ms, "
         f"bound {k6_bound[0]:.4f} ms by {k6_bound[1]}, its operations at the issue rate "
-        f"{k6_issue:.4f}); kernel 8 {k8_ms:.4f} ms (plain {k8p_ms:.3f} ms, bound "
-        f"{k8_bound[0]:.4f} ms by {k8_bound[1]}, at the issue rate {k8_issue:.4f}); on {card}"
+        f"{k6_issue:.4f}); kernel 8 on the split route's shadow rays ({ns} lanes) {k8_ms:.4f} "
+        f"ms (plain {k8p_ms:.3f} ms, bound {k8_bound[0]:.4f} ms by {k8_bound[1]}: "
+        f"{k8_work['boxes']} box tests and the {k8_work['hit']} exact tests that hit, at the "
+        f"issue rate {k8_issue:.4f}), on the super-step's bounce rays {k8u_ms:.4f} ms; on {card}"
     )
 
     # ---- the CLI with the wavefront engine

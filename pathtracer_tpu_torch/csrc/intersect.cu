@@ -27,6 +27,14 @@
 //
 // occlusion_kernel (kernel 8): the min-t sweep of a shadow ray, t [N] (BIG
 // = clear); one thread per lane, the [G, GCOLS] table in shared memory.
+// Every exact test runs.  A padded world-box cull of each geom
+// (tools/occlusion_cull.py: the box computed in the kernel in double, the
+// exact test only where the ray enters it) leaves Cornell's shadow rays 2.2
+// of 9 tests a lane but 5.4 to 5.9 a warp past the first bounce, and its
+// nine box tests alone took 56% of this sweep's time on the H100; in each
+// form measured (blocks staging their boxes, a resident grid staging them
+// once, the smallest box first, a warp's surviving tests run one a thread)
+// it was slower than this kernel on every launch (PERF.md, section 6).
 //
 // What bounds 6 and 7 on the H100 is the sweep's instruction issue.  Each
 // geom's test issues about 100 (sphere) to 125 (cube) instructions a ray:

@@ -96,11 +96,19 @@ kernels from its own sources (``tools/in_turns``).  Each process prints
 - intersect: kernels 6, 7 and 8 (``csrc/intersect.cu``) on the rays of
   Cornell's super-step 10 (800x800, pinned 8 spp, 640,000 lanes), each
   whole and on a one-row table of a mesh slot, which the sweep skips (the
-  planes-only floor: the rays loaded and every output stored);
-  kernel 8's launch is the sweep with its result reduced to one plane.
+  planes-only floor: the rays loaded and every output stored).
   Kernel 7 also on the rays of launches :data:`LEAN_LAUNCHES` of a 1-spp
   lean step (``RenderConfig(grad_fused=False)``), with the sizes of all
-  its launches (``chip_smoke.queued_ms``, twice each); then each kernel's
+  its launches (``chip_smoke.queued_ms``, twice each).  Kernel 8 where the
+  routes launch it, on the shadow rays that a hook on
+  ``ops/intersect_cuda.occlusion_t_cuda`` captures (:func:`capture_shadow`:
+  launches :data:`SHADOW_SPLIT_LAUNCHES` of Cornell's 2-spp split render and
+  one launch of a 1-spp lean step on sss and on smooth_mesh) and on the
+  super-step 10 lanes above: equal to plain, its call and the kernel alone,
+  and the share of its exact tests that the padded world-box cull leaves
+  per lane and per warp (:func:`cull_counts`, the cull of this tool's own
+  checkout counted on each checkout's rays); then the split route's 2-spp
+  render, its wall time and its device time per super-step.  Then each kernel's
   resources (``cuobjdump -res-usage``) and its SASS counted by
   :data:`SASS_CLASSES`, whole and in the geom loop (:func:`sass_loop`),
   with ``--listing-dir DIR`` the whole listing written to
@@ -811,8 +819,8 @@ def intersect(cs, card: str, here: str, listing_dir: str = "") -> None:
     from pathtracer_tpu_torch.scene.parser import load_scene
     from pathtracer_tpu_torch.scene.structs import Rays
 
-    with ThreadPoolExecutor(3) as pool:  # what the capture and the lean step launch
-        list(pool.map(_build.load, ("intersect", "bounce", "trace_grad")))
+    with ThreadPoolExecutor(5) as pool:  # what the captures and the lean steps launch
+        list(pool.map(_build.load, ("intersect", "bounce", "trace_grad", "trace", "mesh")))
     dev = torch.device("cuda")
     desc = load_scene(os.path.join("scenes", "cornell.txt"))
     scene = desc.scene_for_frame(0, device=dev)
@@ -880,6 +888,8 @@ def intersect(cs, card: str, here: str, listing_dir: str = "") -> None:
               f"({r.origin.shape[0]} lanes; sizes {sorted(set(sizes))}): {ms[0]:.4f} / "
               f"{ms[1]:.4f} ms of device time (queued); on {card}", flush=True)
 
+    occlusion_part(cs, card, here, dev, rays, gtab)
+
     # registers and the SASS of the built library
     lib = _build.compile_kernel("intersect")[0]
     tool = os.path.join(os.path.dirname(os.path.dirname(_build.nvcc_path())), "bin",
@@ -907,6 +917,184 @@ def intersect(cs, card: str, here: str, listing_dir: str = "") -> None:
         print(f"[split] {here} intersect sass {name}: {sass_counts(insts)} in the kernel; geom "
               f"loop {'none' if loop is None else f'0x{loop[0]:x}-0x{loop[1]:x}'}: "
               f"{sass_counts(body)}; opcodes {dict(ops.most_common())}", flush=True)
+
+
+def cull_model():
+    """``tools/occlusion_cull.py`` of the checkout that holds this tool,
+    loaded apart, so that its cull counts on the rays of any checkout, one
+    that predates it too."""
+    import importlib.util
+
+    path = os.path.join(ROOT, "pathtracer_tpu_torch", "tools", "occlusion_cull.py")
+    spec = importlib.util.spec_from_file_location("_occlusion_cull", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def warp_share(need, pairs: bool = False) -> float:
+    """The share of (warp, geom) pairs whose test a warp runs, where any of
+    its lanes needs it (``need`` ``[N, G]``).  A warp holds 32 consecutive
+    lanes, or with ``pairs`` the 64 lanes of 32 threads of two rays each
+    (kernels 6 and 7's shape: thread t of a block of 128 takes lanes t and
+    t + 128 of its span of 256)."""
+    import torch
+
+    n, g = need.shape
+    span = 256 if pairs else 32
+    pad = (-n) % span
+    if pad:
+        need = torch.cat([need, need.new_zeros((pad, g))])
+    if not pairs:
+        return float(need.view(-1, 32, g).any(1).double().mean())
+    # [spans, 2 halves, 4 warps, 32 lanes, G] -> a warp's two halves together
+    return float(need.view(-1, 2, 4, 32, g).any(3).any(1).double().mean())
+
+
+def cull_counts(rays, gtab) -> str:
+    """The share of kernel 8's exact tests (spheres and cubes, lanes times
+    geoms) that remain under the padded world-box cull, per lane, per warp
+    of 32 lanes and per warp of 64 (two rays a thread), and with a geom also
+    skipped where its box starts beyond the ray's running minimum, in index
+    order and smallest box (surface area) first; with the sane share of
+    lanes."""
+    import torch
+
+    from pathtracer_tpu_torch.ops.intersect import BIG, T_MIN, geom_t
+
+    mod = cull_model()
+    boxes, r0 = mod.cull_boxes(gtab)
+    enters, t_near, sane = mod.box_entries(rays, boxes, r0)
+    analytic = ((gtab[:, 12] == 0.0) | (gtab[:, 12] == 1.0)).to(enters.device)
+    need = enters & analytic[None, :]
+    ga = int(analytic.sum())
+    per = need.shape[1] / ga  # the shares over analytic geoms
+    lane = float(need.double().mean()) * per
+    w32, w64 = warp_share(need) * per, warp_share(need, pairs=True) * per
+    # ordered: skip a geom whose box starts beyond the minimum found so far
+    o, d = rays.origin.float(), rays.direction.float()
+    comp = (o.unbind(-1), d.unbind(-1))
+    ext = (boxes[:, 3:] - boxes[:, :3]).double()
+    area = ext[:, 0] * ext[:, 1] + ext[:, 1] * ext[:, 2] + ext[:, 2] * ext[:, 0]
+    shares = []
+    for order in (range(gtab.shape[0]), torch.argsort(area.cpu(), stable=True).tolist()):
+        best = torch.full((o.shape[0],), BIG, device=o.device)
+        ordered = torch.zeros_like(need)
+        for g in order:
+            if not bool(analytic[g]):
+                continue
+            run = need[:, g] & ((t_near[:, g] <= best) | ~sane)
+            ordered[:, g] = run
+            t_g = geom_t(gtab[g], *comp[0], *comp[1], T_MIN, float(gtab[g, 12]))[0]
+            best = torch.where(run, torch.minimum(best, t_g), best)
+        shares.append((float(ordered.double().mean()) * per, warp_share(ordered) * per))
+    return (f"{ga} analytic geoms, tests left per lane {lane:.4f} ({lane * ga:.3f} a lane), per "
+            f"warp of 32 {w32:.4f} ({w32 * ga:.3f}), per warp of 64 {w64:.4f} "
+            f"({w64 * ga:.3f}); with the running minimum per lane / warp in index order "
+            f"{shares[0][0]:.4f} / {shares[0][1]:.4f}, smallest box first {shares[1][0]:.4f} / "
+            f"{shares[1][1]:.4f}; sane lanes {float(sane.double().mean()):.6f}, r0 {r0:.4f}")
+
+
+SHADOW_SPLIT_LAUNCHES = (0, 3, 7, 10)  # the split render's kernel-8 launches the part keeps
+SHADOW_LEAN_LAUNCH = 3  # the lean steps' kernel-8 launch the part keeps
+SHADOW_RES = (512, 512)  # the lean steps' scenes (sss, smooth_mesh), chip_smoke.py's widths
+
+
+def capture_shadow(cs, dev) -> tuple:
+    """Kernel 8's inputs where the routes launch it: ``({label: (rays,
+    gtab)}, the split render's launches)``: launches
+    :data:`SHADOW_SPLIT_LAUNCHES` of Cornell's 2-spp split render (800x800,
+    pinned, depth 8, NEE) and launch :data:`SHADOW_LEAN_LAUNCH` of a 1-spp
+    lean step on sss and on smooth_mesh (512x512)."""
+    import dataclasses
+
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import intersect_cuda
+    from pathtracer_tpu_torch.ops.rng import prng_key
+    from pathtracer_tpu_torch.render import diff
+    from pathtracer_tpu_torch.scene.parser import load_scene
+    from pathtracer_tpu_torch.scene.structs import Rays
+
+    occ = intersect_cuda.occlusion_t_cuda
+    kept, calls, keep = {}, [], {}
+
+    def recording(r, g):
+        if len(calls) in keep:
+            kept[keep[len(calls)]] = (Rays(r.origin.clone(), r.direction.clone()), g.clone())
+        calls.append(r.origin.shape[0])
+        return occ(r, g)
+
+    intersect_cuda.occlusion_t_cuda = recording
+    try:
+        keep.update({k: f"cornell split launch {k}" for k in SHADOW_SPLIT_LAUNCHES})
+        scene = load_scene(os.path.join("scenes", "cornell.txt")).scene_for_frame(0, device=dev)
+        split = RenderConfig(wavefront=True, fused=False, iters_per_launch=2, max_depth=8,
+                             nee=True)
+        cs.counted_render(scene, 2, split, dev)
+        split_launches = len(calls)
+        for name in ("sss", "smooth_mesh"):
+            calls.clear()
+            keep.clear()
+            keep[SHADOW_LEAN_LAUNCH] = f"{name} lean launch {SHADOW_LEAN_LAUNCH}"
+            desc = dataclasses.replace(load_scene(os.path.join("scenes", f"{name}.txt")),
+                                       resolution=SHADOW_RES)
+            params, static = diff.params_from_description(desc, 0, device=dev)
+            target = torch.zeros((SHADOW_RES[0] * SHADOW_RES[1], 3), device=dev)
+            diff.loss_and_grad_rays(params, static, target, 1, prng_key(0),
+                                    RenderConfig(grad_fused=False, nee=True, max_depth=8),
+                                    device=dev)
+            torch.cuda.synchronize()
+    finally:
+        intersect_cuda.occlusion_t_cuda = occ
+    return kept, split_launches
+
+
+def occlusion_part(cs, card: str, here: str, dev, usual, gtab) -> None:
+    """The intersect part's kernel 8 lines: on the usual lanes (Cornell's
+    super-step 10 bounce rays, ``usual``) and on the shadow rays of
+    :func:`capture_shadow`, kernel 8 checked equal to plain, its device time
+    as the wrapper's call (queued, twice) and alone (the profiler over 10
+    calls), and :func:`cull_counts`; then the split route's 2-spp render:
+    wall time (five repeats) and, from two profiles, its device busy time
+    per super-step and kernel 8's total."""
+    import torch
+
+    from pathtracer_tpu_torch.config import RenderConfig
+    from pathtracer_tpu_torch.ops import intersect_cuda
+    from pathtracer_tpu_torch.ops.intersect import occlusion_t_plain
+    from pathtracer_tpu_torch.render import wavefront
+    from pathtracer_tpu_torch.render.integrator import render
+    from pathtracer_tpu_torch.scene.parser import load_scene
+
+    shadow, launches = capture_shadow(cs, dev)
+    cases = {f"cornell super-step {cs.CAPTURE_STEP} (bounce rays)": (usual, gtab), **shadow}
+    fn = intersect_cuda.occlusion_t_cuda
+    for label, (r, g) in cases.items():
+        same = torch.equal(fn(r, g), occlusion_t_plain(r, g))
+        call = [cs.queued_ms(lambda: fn(r, g)) for _ in range(2)]
+        run, _ = cs.profiled(lambda: fn(r, g), 10)
+        ms, n_alone = _device_sum(run, "occlusion_kernel")
+        print(f"[split] {here} occlusion kernel 8 {label} ({r.origin.shape[0]} lanes, "
+              f"{g.shape[0]} geoms): equal to plain {same}; call {call[0]:.4f} / {call[1]:.4f} "
+              f"ms (queued), alone {ms / max(n_alone, 1):.4f} x {n_alone} (profiler); cull: "
+              f"{cull_counts(r, g)}; on {card}", flush=True)
+
+    scene = load_scene(os.path.join("scenes", "cornell.txt")).scene_for_frame(0, device=dev)
+    split = RenderConfig(wavefront=True, fused=False, iters_per_launch=2, max_depth=8, nee=True)
+    walls = [cs.counted_render(scene, 2, split, dev)[5] * 1e3 for _ in range(5)]
+    busy = []
+    for _ in range(2):
+        wavefront.super_steps = 0
+        run, _ = cs.profiled(lambda: render(scene, 2, split, device=dev))
+        steps = wavefront.super_steps
+        k8, n8 = _device_sum(run, "occlusion_kernel")
+        busy.append(f"busy {sum(v[0] for v in run.values()) / 1e3 / steps:.4f} ms per "
+                    f"super-step of {steps}, kernel 8 {k8:.4f} ms over {n8}")
+    print(f"[split] {here} occlusion split route cornell 2 spp ({launches} kernel-8 launches): "
+          f"wall {' '.join(f'{w:.2f}' for w in sorted(walls))} ms; {'; '.join(busy)}; "
+          f"on {card}", flush=True)
 
 
 def chunk_reach(km, gtab, origin, direction):

@@ -125,3 +125,129 @@ def stress_table(name: str) -> torch.Tensor:
     if name == "one geom":
         return gtab[1:2].contiguous()
     return gtab
+
+
+# ---- kernel 8 and the padded world-box cull of tools/occlusion_cull.py:
+# tables and lanes that probe its boxes
+
+
+def transform_table(g: int, seed: int) -> torch.Tensor:
+    """A ``[g, GEOM_COLS]`` float32 table of spheres and cubes under random
+    rotations and non-uniform scales from 0.01 to 10 (log-uniform; every
+    third row a wall of Cornell's 0.01 x 10 x 10 in a random orientation),
+    translations within 5, and every fifth row near-singular: its third
+    axis sheared to within 1e-3 of its first."""
+    rng = np.random.default_rng(seed)
+    rows = np.zeros((g, GEOM_COLS))
+    for i in range(g):
+        q, _ = np.linalg.qr(rng.standard_normal((3, 3)))
+        if i % 3 == 2:
+            scale = rng.permutation([0.01, 10.0, 10.0])
+        else:
+            scale = np.exp(rng.uniform(np.log(0.01), np.log(10.0), 3))
+        fwd = q * scale
+        if i % 5 == 4:
+            fwd[:, 2] = fwd[:, 0] + 1e-3 * np.linalg.norm(fwd[:, 0]) * q[:, 2]
+        inv = np.linalg.inv(fwd)
+        shift = rng.uniform(-5.0, 5.0, 3)
+        rows[i, :12] = np.concatenate([inv, (-inv @ shift)[:, None]], axis=1).reshape(-1)
+        rows[i, 12] = rng.choice([0.0, 1.0])
+        rows[i, 13] = i % 10
+    return torch.from_numpy(rows.astype(np.float32))
+
+
+def grazing_rays(gtab: torch.Tensor, n: int, seed: int):
+    """``(origin, direction)`` float32 ``[n, 3]`` that graze the tables'
+    spheres and cubes where their world boxes are tight: each ray passes
+    through a primitive's extreme point along a world axis (a sphere's one
+    point, a cube's corner, edge or face) with the direction's component on
+    that axis 0, +-1e-7, +-1e-5 or free, its origin 0.5 to 3 before the
+    point; every other ray passes instead through a point on the face of
+    the padded box (``tools/occlusion_cull.cull_boxes``), along it or across."""
+    from pathtracer_tpu_torch.tools.occlusion_cull import cull_boxes
+
+    rng = np.random.default_rng(seed)
+    fwd = forward_affines(gtab)
+    boxes = cull_boxes(gtab)[0].double().numpy()
+    types = gtab[:, 12].numpy()
+    geoms = np.flatnonzero((types == 0.0) | (types == 1.0))
+    origin, direction = np.zeros((n, 3)), np.zeros((n, 3))
+    for k in range(n):
+        g, j, sgn = geoms[rng.integers(len(geoms))], rng.integers(3), rng.choice([-1.0, 1.0])
+        f, c = fwd[g][:, :3], fwd[g][:, 3]
+        if k % 2 and np.isfinite(boxes[g]).all():  # a point on a face of the padded box
+            p = rng.uniform(boxes[g, :3], boxes[g, 3:])
+            p[j] = boxes[g, 3 + j] if sgn > 0 else boxes[g, j]
+        elif types[g] == 0.0:
+            p = f @ (sgn * 0.5 * f[j] / np.linalg.norm(f[j])) + c
+        else:
+            p = f @ (sgn * 0.5 * np.sign(f[j])) + c
+        d = rng.standard_normal(3)
+        kind = rng.integers(4)
+        if kind < 3:
+            d[j] = 0.0
+            d /= np.linalg.norm(d)
+            d[j] = rng.choice([-1.0, 1.0]) * (0.0, 1e-7, 1e-5)[kind]
+        direction[k] = d / np.linalg.norm(d)
+        origin[k] = p - rng.uniform(0.5, 3.0) * direction[k]
+    return (torch.from_numpy(origin.astype(np.float32)),
+            torch.from_numpy(direction.astype(np.float32)))
+
+
+def cornell_shadow_rays(n: int, seed: int):
+    """``(gtab, origin, direction)``: shadow rays on Cornell as
+    ``render/common.shade_bounce`` makes them: rays from points in the box
+    to their nearest hits (``nearest_hit_plain``), each hit's shadow ray
+    from hit + RAY_BIAS n_shade towards a light sample
+    (``ops/lights.sample_lights``, seeded uniforms), ``wi`` normalised; the
+    lanes that miss or hit the light keep theirs, as the route launches
+    kernel 8 on every lane."""
+    from pathtracer_tpu_torch.ops.bsdf import RAY_BIAS
+    from pathtracer_tpu_torch.ops.intersect import nearest_hit_plain
+    from pathtracer_tpu_torch.ops.lights import sample_lights
+    from pathtracer_tpu_torch.scene.structs import Rays
+
+    gtab = stress_table("cornell")
+    import os
+
+    from pathtracer_tpu_torch.scene.parser import load_scene
+
+    root = os.path.join(os.path.dirname(__file__), "..", "scenes", "cornell.txt")
+    scene = load_scene(root).scene_for_frame(0, device="cpu")
+    rng = np.random.default_rng(seed)
+    o = rng.uniform([-4.9, 0.1, -4.9], [4.9, 9.9, 11.0], (n, 3)).astype(np.float32)
+    d = rng.standard_normal((n, 3))
+    d = (d / np.linalg.norm(d, axis=-1, keepdims=True)).astype(np.float32)
+    rays = Rays(torch.from_numpy(o), torch.from_numpy(d))
+    hit = nearest_hit_plain(rays, gtab)
+    u = torch.from_numpy(rng.random((n, 4)).astype(np.float32))
+    ls = sample_lights(scene.geoms, scene.materials, u)
+    n_shade = hit.normal * torch.sign(-torch.sum(hit.normal * rays.direction, -1, keepdim=True))
+    x = hit.position + RAY_BIAS * n_shade
+    to_light = ls.position - x
+    dist = torch.sqrt(torch.clamp(torch.sum(to_light * to_light, -1), min=1e-12))
+    return gtab, x.contiguous(), (to_light / dist[:, None]).contiguous()
+
+
+# the lane sets that probe kernel 8 and the box cull: the stress lanes on the
+# four tables; random rotations and scales 0.01-10 with walls and sheared
+# rows, on stress lanes and on grazing rays; Cornell's grazing rays;
+# Cornell's shadow rays
+PROBE_CASES = ("stress cornell", "stress cornell repeated rows", "stress one geom",
+               "stress max geoms", "transforms", "transforms grazing", "cornell grazing",
+               "cornell shadow rays")
+
+
+def probe_case(name: str, n: int):
+    """``(gtab, origin, direction)``, float32 CPU tensors, of the lane set
+    ``name`` (:data:`PROBE_CASES`)."""
+    if name.startswith("stress "):
+        gtab = stress_table(name[len("stress "):])
+        return (gtab, *stress_rays(gtab, n, 31))
+    if name.startswith("transforms"):
+        gtab = transform_table(40, 11)
+        return (gtab, *(grazing_rays if "grazing" in name else stress_rays)(gtab, n, 13))
+    if name == "cornell grazing":
+        gtab = stress_table("cornell")
+        return (gtab, *grazing_rays(gtab, n, 14))
+    return cornell_shadow_rays(n, 15)

@@ -581,8 +581,9 @@ def test_winner_lanes_match_plain(host_lib, scene_name):
 
 @pytest.mark.parametrize("table", ["cornell", "cornell repeated rows", "one geom", "max geoms"])
 def test_intersect_lanes_on_stress_lanes(host_lib, table):
-    """Kernels 6 and 7's lanes (``nearest_lane``, ``winner_lane``) against
-    ``nearest_hit_plain`` / ``winner_t_gid_plain`` on
+    """Kernels 6, 7 and 8's lanes (``nearest_lane``, ``winner_lane``,
+    ``occlusion_lane``) against ``nearest_hit_plain`` / ``winner_t_gid_plain``
+    / ``occlusion_t_plain`` on
     ``tests/intersect_lanes.py``'s lanes: rays at the corners and edges
     where cubes meet, exact ties between repeated rows (the first in index
     order wins), direction components of 0 and around 1e-12, tables of 1
@@ -592,7 +593,7 @@ def test_intersect_lanes_on_stress_lanes(host_lib, table):
     ``sqrtf`` by an ulp on a few inputs (1 and 4 of these 2,048 lanes on
     Cornell and on the random table, in the parent's lanes too; on the card
     both round alike and ``test_torch_kernels_cuda.py`` holds t equal); the
-    frame within 2e-6 as above."""
+    frame within 2e-6 as above; kernel 8's t held as kernel 6's is."""
     from tests.intersect_lanes import stress_rays, stress_table
 
     gtab = stress_table(table)
@@ -616,6 +617,43 @@ def test_intersect_lanes_on_stress_lanes(host_lib, table):
     assert float((t_k == want.t).double().mean()) >= 0.995
     for got, ref in ((p, want.position), (p_obj, want.position_obj), (normal, want.normal)):
         torch.testing.assert_close(got, ref, rtol=2e-6, atol=2e-6)
+    occ = _host_occlusion(host_lib, gtab, o, d)
+    want_occ = occlusion_t_plain(Rays(o, d), gtab)
+    torch.testing.assert_close(occ, want_occ, rtol=2e-6, atol=0.0)
+    assert float((occ == want_occ).double().mean()) >= 0.995
+
+
+def _host_occlusion(host_lib, gtab, o, d):
+    """Kernel 8's host lanes."""
+    n = o.shape[0]
+    occ = torch.empty(n)
+    host_lib.host_occlusion(gtab.data_ptr(), gtab.shape[0], n, o.data_ptr(), d.data_ptr(),
+                            occ.data_ptr())
+    return occ
+
+
+@pytest.mark.parametrize("case", ["transforms", "transforms grazing", "cornell grazing",
+                                  "cornell shadow rays"])
+def test_occlusion_lanes_on_probe_lanes(host_lib, case):
+    """Kernel 8's lanes (``intersect.cu:occlusion_lane``) against
+    ``occlusion_t_plain`` on ``tests/intersect_lanes.py``'s probe lanes:
+    random rotations and scales 0.01-10 with Cornell's walls and sheared
+    rows, rays grazing the primitives and the padded boxes of
+    ``tools/occlusion_cull.py``, shadow rays made as the split route makes
+    them.  Equal on every lane of the shadow rays; on the others bit-equal
+    on at least 99.5% and within 2e-6 (torch's CPU ``sqrt`` misses the
+    correctly rounded ``sqrtf`` by an ulp on a few inputs, as on the stress
+    lanes; the card holds every lane equal, ``test_torch_kernels_cuda.py``)."""
+    from tests.intersect_lanes import probe_case
+
+    gtab, o, d = probe_case(case, 4096)
+    gtab = gtab.contiguous()
+    occ = _host_occlusion(host_lib, gtab, o, d)
+    want = occlusion_t_plain(Rays(o, d), gtab)
+    if case == "cornell shadow rays":
+        assert torch.equal(occ, want)
+    torch.testing.assert_close(occ, want, rtol=2e-6, atol=0.0)
+    assert float((occ == want).double().mean()) >= 0.995
 
 
 # ---- triangle meshes: kernels 9 and 10, and the in-kernel sweep of 1 and 2
