@@ -1,0 +1,5 @@
+"""Pixel-samples a render completed in the window, per second, in millions."""
+
+
+def value(run) -> float:
+    return run.samples / run.window_s / 1e6
