@@ -16,8 +16,10 @@ per-chunk finite check, and the alive histogram on the megakernel engine),
 raises is retried from the last good checkpoint, up to
 :data:`MAX_FAILURE_RETRIES` times), ``--sharded`` (``cli.py:78-85,118-130,
 174-181``: ``parallel/sharded.render_sharded`` over the shards of
-``parallel/mesh.make_mesh``, on the wavefront engine) and ``--device``
-(default ``cuda``; JAX's ``--platform``).  Frame ``f`` is written to
+``parallel/mesh.make_mesh``, on the wavefront engine), ``--profile DIR``
+(the frame loop under ``utils/metrics.profile_trace``: a Chrome trace,
+``DIR/trace.json``, whose ``pt.*`` spans name the layer that launched each
+kernel) and ``--device`` (default ``cuda``; JAX's ``--platform``).  Frame ``f`` is written to
 ``<stem>.<f>.<ext>`` of ``--out`` or the scene's ``FILE``.  ``auto`` takes
 the megakernel, the full-depth trace kernel, for scenes inside its scope on
 a CUDA device (analytic scenes, and mesh scenes of at most 4096 triangles
@@ -49,6 +51,7 @@ the checkpoint on disk is what a new process resumes from.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import sys
 import time
 
@@ -128,6 +131,13 @@ def build_argparser():
         "is not recovered here",
     )
     p.add_argument("--device", default="cuda", help="torch device (cuda or cpu)")
+    p.add_argument(
+        "--profile",
+        default=None,
+        metavar="DIR",
+        help="record the frame loop under torch.profiler and write a Chrome trace, "
+        "DIR/trace.json, whose pt.* spans name the layer of every kernel",
+    )
     return p
 
 
@@ -177,6 +187,7 @@ def _run(args):
     from pathtracer_tpu_torch.render.motion import render_motion
     from pathtracer_tpu_torch.scene.parser import load_scene
     from pathtracer_tpu_torch.utils import checkpoint as ckpt
+    from pathtracer_tpu_torch.utils import metrics
     from pathtracer_tpu_torch.utils.imageio import save_image
 
     device = integrator.resolve_device(args.device)
@@ -220,82 +231,84 @@ def _run(args):
         if is_main:
             print(line)
 
-    for frame in range(desc.frames) if args.all_frames else [args.frame]:
-        say(
-            f"[pathtracer-tpu-torch] frame {frame}: {w}x{h}, {spp} spp, "
-            f"depth {cfg.max_depth}, engine={engine}, device={device}, "
-            f"devices={mesh.size if mesh else 1}"
-            + (f" (sharded, {mesh.world} process(es))" if mesh else "")
-            + (" (motion blur)" if args.motion_blur else "")
-        )
-        accum, start_it = resume_point(frame)
-        if accum is not None:
-            say(f"  resumed at {start_it} spp from {args.checkpoint}")
-        t0 = time.perf_counter()
+    profiling = metrics.profile_trace(args.profile) if args.profile else contextlib.nullcontext()
+    with profiling:
+        for frame in range(desc.frames) if args.all_frames else [args.frame]:
+            say(
+                f"[pathtracer-tpu-torch] frame {frame}: {w}x{h}, {spp} spp, "
+                f"depth {cfg.max_depth}, engine={engine}, device={device}, "
+                f"devices={mesh.size if mesh else 1}"
+                + (f" (sharded, {mesh.world} process(es))" if mesh else "")
+                + (" (motion blur)" if args.motion_blur else "")
+            )
+            accum, start_it = resume_point(frame)
+            if accum is not None:
+                say(f"  resumed at {start_it} spp from {args.checkpoint}")
+            t0 = time.perf_counter()
 
-        def run_frame(accum, start_it, frame=frame):
-            """One render attempt from ``(accum, start_it)``; raises when a
-            chunk fails, for the retry loop below."""
-            last = {"t": time.perf_counter(), "spp": start_it}
+            def run_frame(accum, start_it, frame=frame):
+                """One render attempt from ``(accum, start_it)``; raises when a
+                chunk fails, for the retry loop below."""
+                last = {"t": time.perf_counter(), "spp": start_it}
 
-            def progress(done_in_run, acc):
-                done = start_it + done_in_run
-                now = time.perf_counter()
-                want_preview = args.preview_every and done % args.preview_every == 0
-                want_ckpt = (args.checkpoint and args.checkpoint_every
-                             and done % args.checkpoint_every == 0)
-                if mesh and (want_preview or want_ckpt):
-                    acc = gather_image(acc, mesh)  # on every rank: it gathers across them
-                if want_preview and is_main:
-                    img = tonemap(acc.reshape(h, w, 3), done).cpu().numpy()
-                    save_image(_out_path(args.out, desc.image_name, frame, ".preview"), img)
-                if want_ckpt and is_main:
-                    ckpt.save(args.checkpoint, acc, done, frame, cfg.seed)
-                rate = (done - last["spp"]) * w * h / max(now - last["t"], 1e-9) / 1e6
-                last["t"], last["spp"] = now, done
-                say(f"  {done}/{spp} spp  ({rate:.1f} Mpaths/s)")
+                def progress(done_in_run, acc):
+                    done = start_it + done_in_run
+                    now = time.perf_counter()
+                    want_preview = args.preview_every and done % args.preview_every == 0
+                    want_ckpt = (args.checkpoint and args.checkpoint_every
+                                 and done % args.checkpoint_every == 0)
+                    if mesh and (want_preview or want_ckpt):
+                        acc = gather_image(acc, mesh)  # on every rank: it gathers across them
+                    if want_preview and is_main:
+                        img = tonemap(acc.reshape(h, w, 3), done).cpu().numpy()
+                        save_image(_out_path(args.out, desc.image_name, frame, ".preview"), img)
+                    if want_ckpt and is_main:
+                        ckpt.save(args.checkpoint, acc, done, frame, cfg.seed)
+                    rate = (done - last["spp"]) * w * h / max(now - last["t"], 1e-9) / 1e6
+                    last["t"], last["spp"] = now, done
+                    say(f"  {done}/{spp} spp  ({rate:.1f} Mpaths/s)")
 
-            if mesh:
-                # a checkpoint's pixel-ordered accumulator is scattered to the shards
-                out = render_sharded(desc.scene_for_frame(frame, device=device),
-                                     spp - start_it, cfg, mesh=mesh,
-                                     base_key=prng_key(cfg.seed), progress_fn=progress,
-                                     accum=accum, start_iteration=start_it)
-            elif args.motion_blur:
-                # as JAX's CLI (cli.py:237-243): the remaining spp from
-                # iteration 0, without the checkpoint's accumulator
-                out = render_motion(desc, frame, spp - start_it, cfg,
-                                    base_key=prng_key(cfg.seed), progress_fn=progress,
-                                    device=device)
-            else:
-                out = integrator.render(desc.scene_for_frame(frame, device=device),
-                                        spp - start_it, cfg, base_key=prng_key(cfg.seed),
-                                        accum=accum, start_iteration=start_it,
-                                        progress_fn=progress, device=device)
-            return out[0].cpu().numpy(), out[1], out[2]  # waits for the device
+                if mesh:
+                    # a checkpoint's pixel-ordered accumulator is scattered to the shards
+                    out = render_sharded(desc.scene_for_frame(frame, device=device),
+                                         spp - start_it, cfg, mesh=mesh,
+                                         base_key=prng_key(cfg.seed), progress_fn=progress,
+                                         accum=accum, start_iteration=start_it)
+                elif args.motion_blur:
+                    # as JAX's CLI (cli.py:237-243): the remaining spp from
+                    # iteration 0, without the checkpoint's accumulator
+                    out = render_motion(desc, frame, spp - start_it, cfg,
+                                        base_key=prng_key(cfg.seed), progress_fn=progress,
+                                        device=device)
+                else:
+                    out = integrator.render(desc.scene_for_frame(frame, device=device),
+                                            spp - start_it, cfg, base_key=prng_key(cfg.seed),
+                                            accum=accum, start_iteration=start_it,
+                                            progress_fn=progress, device=device)
+                return out[0].cpu().numpy(), out[1], out[2]  # waits for the device
 
-        # the periodic checkpoint written by progress() is the last good
-        # state: a failed attempt reloads it and retries
-        attempts = 0
-        while True:
-            try:
-                img, accum, stats = run_frame(accum, start_it)
-                break
-            except KeyboardInterrupt:
-                raise
-            except Exception as e:
-                attempts += 1
-                if not args.resume_on_failure or attempts > MAX_FAILURE_RETRIES:
+            # the periodic checkpoint written by progress() is the last good
+            # state: a failed attempt reloads it and retries
+            attempts = 0
+            while True:
+                try:
+                    img, accum, stats = run_frame(accum, start_it)
+                    break
+                except KeyboardInterrupt:
                     raise
-                accum, start_it = resume_point(frame)
-                say(f"  render failed ({type(e).__name__}: {e}); resuming from {start_it} "
-                    f"spp (attempt {attempts}/{MAX_FAILURE_RETRIES})")
-        dt = time.perf_counter() - t0
-        if is_main:
-            path = save_image(_out_path(args.out, desc.image_name, frame), img)
-            mrays = stats["rays_traced"] / dt / 1e6
-            mpaths = (spp - start_it) * w * h / dt / 1e6
-            print(f"  saved {path} ({dt:.1f}s, {mpaths:.1f} Mpaths/s, {mrays:.1f} Mrays/s)")
+                except Exception as e:
+                    attempts += 1
+                    if not args.resume_on_failure or attempts > MAX_FAILURE_RETRIES:
+                        raise
+                    accum, start_it = resume_point(frame)
+                    say(f"  render failed ({type(e).__name__}: {e}); resuming from {start_it} "
+                        f"spp (attempt {attempts}/{MAX_FAILURE_RETRIES})")
+            dt = time.perf_counter() - t0
+            if is_main:
+                path = save_image(_out_path(args.out, desc.image_name, frame), img)
+                mrays = stats["rays_traced"] / dt / 1e6
+                mpaths = (spp - start_it) * w * h / dt / 1e6
+                print(f"  saved {path} ({dt:.1f}s, {mpaths:.1f} Mpaths/s, {mrays:.1f} Mrays/s)")
     return 0
 
 

@@ -64,6 +64,7 @@ from pathtracer_tpu_torch.ops.intersect import (
 from pathtracer_tpu_torch.ops.lights import axis_scales, light_areas
 from pathtracer_tpu_torch.ops.mesh_tables import mesh_occ, mesh_occ_split, mesh_sweep
 from pathtracer_tpu_torch.scene.structs import SPHERE, Scene
+from pathtracer_tpu_torch.utils.metrics import span
 
 TWO_PI = 2.0 * math.pi
 INV_PI = 1.0 / math.pi
@@ -194,17 +195,18 @@ def pack_tables(scene: Scene):
     """``(geom [G,14], material [M,28], light [G,19], scalars [2])``.
     Raises if a geom names a material the table does not have (the trace
     kernel indexes its material table by that id unchecked)."""
-    mid = scene.geoms.material_id
-    if bool(((mid < 0) | (mid >= scene.materials.count)).any()):
-        raise ValueError(
-            f"geom material ids {mid.tolist()} outside [0, {scene.materials.count})"
+    with span("pack_tables"):
+        mid = scene.geoms.material_id
+        if bool(((mid < 0) | (mid >= scene.materials.count)).any()):
+            raise ValueError(
+                f"geom material ids {mid.tolist()} outside [0, {scene.materials.count})"
+            )
+        return (
+            pack_geom_table(scene.geoms),
+            pack_material_table(scene.materials),
+            pack_light_table(scene.geoms, scene.materials),
+            pack_scalars(scene),
         )
-    return (
-        pack_geom_table(scene.geoms),
-        pack_material_table(scene.materials),
-        pack_light_table(scene.geoms, scene.materials),
-        pack_scalars(scene),
-    )
 
 
 def material_fetch(mtab: torch.Tensor, mid: torch.Tensor) -> dict:

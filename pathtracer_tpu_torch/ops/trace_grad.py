@@ -90,6 +90,7 @@ from pathtracer_tpu_torch.ops.trace import (
     surface_bits,
 )
 from pathtracer_tpu_torch.scene.structs import Rays
+from pathtracer_tpu_torch.utils.metrics import span
 
 N_RESID = 13  # vacuum: o(3) d(3) thr(3), then the tail: prev_state alive gid nee_add
 N_RESID_VOL = 17  # volumetric: sigma_a(3) sigma_s before the tail, as JAX's N_RESID
@@ -541,16 +542,17 @@ class TraceDiff(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g_rad, _g_nrays):
-        gtab, mtab, ltab, scal, sample_idx, resid = ctx.saved_tensors
-        if g_rad is None:
-            g_rad = torch.zeros((resid.shape[2], 3), dtype=torch.float32, device=resid.device)
-        kw = dict(ctx.opts)
-        args = (gtab, mtab, ltab, scal, ctx.seed, sample_idx, resid, g_rad.contiguous())
-        if resid.device.type == "cuda":
-            grads = tbwd_cuda(*args, **kw)
-        else:
-            grads = tbwd_plain(*args, **kw)
-        return (*grads, None, None, None)
+        with span("trace_bwd"):
+            gtab, mtab, ltab, scal, sample_idx, resid = ctx.saved_tensors
+            if g_rad is None:
+                g_rad = torch.zeros((resid.shape[2], 3), dtype=torch.float32, device=resid.device)
+            kw = dict(ctx.opts)
+            args = (gtab, mtab, ltab, scal, ctx.seed, sample_idx, resid, g_rad.contiguous())
+            if resid.device.type == "cuda":
+                grads = tbwd_cuda(*args, **kw)
+            else:
+                grads = tbwd_plain(*args, **kw)
+            return (*grads, None, None, None)
 
 
 def trace_replay(scene, rays, sample_idx, seed: int, cfg, tables=None):

@@ -91,6 +91,7 @@ from pathtracer_tpu_torch.scene.structs import (
     Scene,
     derive_fov,
 )
+from pathtracer_tpu_torch.utils.metrics import span
 
 
 @dataclasses.dataclass
@@ -474,17 +475,20 @@ def _value_and_grad(params: SceneParams, loss_fn):
     """``(loss, grads, aux)`` of ``loss_fn(p) -> (loss, aux)`` over every
     leaf of ``params``: a :class:`SceneParams` of gradients, zeros where
     the loss does not reach (and for the atlas's static slot sizes)."""
-    names, values = zip(*params.leaves().items())
-    leaves = [v.detach().requires_grad_(True) for v in values]
-    hw = None if params.textures is None else params.textures.hw
-    p = SceneParams.from_leaves(dict(zip(names, leaves)), hw)
-    with torch.enable_grad():
-        loss, aux = loss_fn(p)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
-    # the slot sizes are static: their entry of the gradient is zeros
-    hw_grad = None if hw is None else torch.zeros_like(hw)
-    return loss.detach(), SceneParams.from_leaves(dict(zip(names, grads)), hw_grad), aux
+    with span("loss_and_grad"):
+        names, values = zip(*params.leaves().items())
+        leaves = [v.detach().requires_grad_(True) for v in values]
+        hw = None if params.textures is None else params.textures.hw
+        p = SceneParams.from_leaves(dict(zip(names, leaves)), hw)
+        with torch.enable_grad():
+            with span("forward"):
+                loss, aux = loss_fn(p)
+            with span("backward"):
+                grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
+        # the slot sizes are static: their entry of the gradient is zeros
+        hw_grad = None if hw is None else torch.zeros_like(hw)
+        return loss.detach(), SceneParams.from_leaves(dict(zip(names, grads)), hw_grad), aux
 
 
 def loss_and_grad(params, static, target, spp, base_key, cfg, device="cuda"):

@@ -35,6 +35,7 @@ from pathtracer_tpu_torch.render.features import resolve_features
 from pathtracer_tpu_torch.render.megakernel import trace_paths
 from pathtracer_tpu_torch.render.wavefront import render_samples_pinned, render_samples_wavefront
 from pathtracer_tpu_torch.scene.structs import Scene
+from pathtracer_tpu_torch.utils.metrics import span
 
 
 def resolve_device(device) -> torch.device:
@@ -58,10 +59,11 @@ def camera_sample(scene: Scene, pixel_index, iteration: int, seed: int, cfg: Ren
     when it is None (``integrator.py:28-43``), so a strided subset of the
     pixels draws the samples the whole image draws there.  The camera
     uniforms follow ``cfg.fast_rng``."""
-    n_global = pixel_index.shape[0] if n_global_pixels is None else n_global_pixels
-    sample_idx = iteration * n_global + pixel_index.to(torch.int64)
-    u4 = camera_uniforms(seed, sample_idx, cfg.fast_rng)
-    return generate_camera_rays(scene.camera, pixel_index, u4, jitter=cfg.jitter), sample_idx
+    with span("camera_sample"):
+        n_global = pixel_index.shape[0] if n_global_pixels is None else n_global_pixels
+        sample_idx = iteration * n_global + pixel_index.to(torch.int64)
+        u4 = camera_uniforms(seed, sample_idx, cfg.fast_rng)
+        return generate_camera_rays(scene.camera, pixel_index, u4, jitter=cfg.jitter), sample_idx
 
 
 def render_sample(
@@ -84,26 +86,28 @@ def render_chunk(
     radiance sum); returns ``(accum, rays_traced int64 [])``, and on the
     megakernel engine under ``cfg.debug`` a third value, the chunk's alive
     lanes per bounce (``[max_depth]`` int64)."""
-    n_pixels = accum.shape[0]
-    if cfg.wavefront:
-        if cfg.wavefront_pinned and n_pixels <= cfg.wavefront_pinned_max_pixels:
-            return render_samples_pinned(scene, accum, start_iteration, n_iters, seed, cfg,
-                                         tables=tables)
-        return render_samples_wavefront(scene, accum, start_iteration * n_pixels,
-                                        n_iters * n_pixels, seed, cfg, tables=tables)
-    pixel_index = torch.arange(n_pixels, dtype=torch.int64, device=accum.device)
-    nrays = torch.zeros((), dtype=torch.int64, device=accum.device)
-    hist = (torch.zeros(cfg.max_depth, dtype=torch.int64, device=accum.device)
-            if cfg.debug else None)
-    for i in range(n_iters):
-        radiance, n, *h = render_sample(
-            scene, pixel_index, start_iteration + i, seed, cfg, tables=tables
-        )
-        accum = accum + radiance
-        nrays = nrays + n
-        if cfg.debug:
-            hist = hist + h[0]
-    return (accum, nrays, hist) if cfg.debug else (accum, nrays)
+    with span("render_chunk"):
+        n_pixels = accum.shape[0]
+        if cfg.wavefront:
+            if cfg.wavefront_pinned and n_pixels <= cfg.wavefront_pinned_max_pixels:
+                return render_samples_pinned(scene, accum, start_iteration, n_iters, seed, cfg,
+                                             tables=tables)
+            return render_samples_wavefront(scene, accum, start_iteration * n_pixels,
+                                            n_iters * n_pixels, seed, cfg, tables=tables)
+        pixel_index = torch.arange(n_pixels, dtype=torch.int64, device=accum.device)
+        nrays = torch.zeros((), dtype=torch.int64, device=accum.device)
+        hist = (torch.zeros(cfg.max_depth, dtype=torch.int64, device=accum.device)
+                if cfg.debug else None)
+        for i in range(n_iters):
+            radiance, n, *h = render_sample(
+                scene, pixel_index, start_iteration + i, seed, cfg, tables=tables
+            )
+            with span("accumulate"):
+                accum = accum + radiance
+                nrays = nrays + n
+                if cfg.debug:
+                    hist = hist + h[0]
+        return (accum, nrays, hist) if cfg.debug else (accum, nrays)
 
 
 def render(
@@ -122,37 +126,38 @@ def render(
     ``cfg.debug`` on the megakernel engine ``stats["alive_per_bounce"]``
     (floats, as JAX's).  Under ``cfg.debug`` a chunk that leaves the
     accumulator non-finite raises ``RuntimeError`` naming its spp window."""
-    device = resolve_device(device)
-    if scene.device.type != device.type or device.index not in (None, scene.device.index):
-        raise ValueError(f"scene is on {scene.device}, render asked for {device}")
-    cfg = resolve_features(cfg or RenderConfig(), scene.materials)
-    seed = KeyedSeed(base_key if base_key is not None else prng_key(cfg.seed))
-    w, h = scene.camera.width, scene.camera.height
-    if accum is None:
-        accum = torch.zeros((w * h, 3), dtype=torch.float32, device=scene.device)
-    tables = pack_tables(scene)
+    with span("render"):
+        device = resolve_device(device)
+        if scene.device.type != device.type or device.index not in (None, scene.device.index):
+            raise ValueError(f"scene is on {scene.device}, render asked for {device}")
+        cfg = resolve_features(cfg or RenderConfig(), scene.materials)
+        seed = KeyedSeed(base_key if base_key is not None else prng_key(cfg.seed))
+        w, h = scene.camera.width, scene.camera.height
+        if accum is None:
+            accum = torch.zeros((w * h, 3), dtype=torch.float32, device=scene.device)
+        tables = pack_tables(scene)
 
-    done = 0
-    counts = []
-    hists = []
-    while done < spp:
-        chunk = min(cfg.iters_per_launch, spp - done)
-        accum, nrays, *hist = render_chunk(
-            scene, accum, start_iteration + done, seed, cfg, chunk, tables=tables
-        )
-        hists += hist
-        if cfg.debug and not bool(torch.isfinite(accum).all()):
-            raise RuntimeError(
-                f"debug: non-finite accumulator after spp window "
-                f"[{start_iteration + done}, {start_iteration + done + chunk})"
+        done = 0
+        counts = []
+        hists = []
+        while done < spp:
+            chunk = min(cfg.iters_per_launch, spp - done)
+            accum, nrays, *hist = render_chunk(
+                scene, accum, start_iteration + done, seed, cfg, chunk, tables=tables
             )
-        counts.append(nrays)
-        done += chunk
-        if progress_fn is not None:
-            progress_fn(done, accum)
+            hists += hist
+            if cfg.debug and not bool(torch.isfinite(accum).all()):
+                raise RuntimeError(
+                    f"debug: non-finite accumulator after spp window "
+                    f"[{start_iteration + done}, {start_iteration + done + chunk})"
+                )
+            counts.append(nrays)
+            done += chunk
+            if progress_fn is not None:
+                progress_fn(done, accum)
 
-    img = tonemap(accum.reshape(h, w, 3), start_iteration + spp)
-    stats = {"rays_traced": int(sum(int(c) for c in counts)), "spp": spp}
-    if hists:
-        stats["alive_per_bounce"] = [float(x) for x in torch.stack(hists).sum(0).tolist()]
-    return img, accum, stats
+        img = tonemap(accum.reshape(h, w, 3), start_iteration + spp)
+        stats = {"rays_traced": int(sum(int(c) for c in counts)), "spp": spp}
+        if hists:
+            stats["alive_per_bounce"] = [float(x) for x in torch.stack(hists).sum(0).tolist()]
+        return img, accum, stats

@@ -56,6 +56,7 @@ from pathtracer_tpu_torch.ops.trace import fused_trace_eligible, trace_fused
 from pathtracer_tpu_torch.ops.trace_grad import fused_diff_eligible, trace_fused_diff
 from pathtracer_tpu_torch.render.common import shade_bounce
 from pathtracer_tpu_torch.scene.structs import Rays, Scene
+from pathtracer_tpu_torch.utils.metrics import span
 
 
 def scan_paths(scene: Scene, rays: Rays, sample_idx, seed: int, cfg: RenderConfig,
@@ -137,13 +138,14 @@ def trace_paths(
     rays_traced int64 [])``, one sample of the estimator per ray, and
     under ``cfg.debug`` the scan's alive histogram.  ``replay`` goes to the
     lean scan (:func:`scan_paths`)."""
-    if replay is not None or cfg.debug:
-        return scan_paths(scene, rays, sample_idx, seed, cfg, tables=tables, replay=replay)
-    if cfg.grad_lean and fused_diff_eligible(scene, cfg) and cfg.grad_full_trace is not False:
-        return trace_fused_diff(scene, rays, sample_idx, seed, cfg, tables=tables)
-    if cfg.grad_lean or cfg.fused is False or not fused_trace_eligible(scene, cfg):
-        # image textures, meshes above the in-kernel cap and threefry's
-        # samples (fast_rng=False) stay outside the one-kernel trace, as in
-        # JAX (:44-64)
-        return scan_paths(scene, rays, sample_idx, seed, cfg, tables=tables)
-    return trace_fused(scene, rays, sample_idx, seed, cfg, tables=tables)
+    with span("trace_paths"):
+        if replay is not None or cfg.debug:
+            return scan_paths(scene, rays, sample_idx, seed, cfg, tables=tables, replay=replay)
+        if cfg.grad_lean and fused_diff_eligible(scene, cfg) and cfg.grad_full_trace is not False:
+            return trace_fused_diff(scene, rays, sample_idx, seed, cfg, tables=tables)
+        if cfg.grad_lean or cfg.fused is False or not fused_trace_eligible(scene, cfg):
+            # image textures, meshes above the in-kernel cap and threefry's
+            # samples (fast_rng=False) stay outside the one-kernel trace, as in
+            # JAX (:44-64)
+            return scan_paths(scene, rays, sample_idx, seed, cfg, tables=tables)
+        return trace_fused(scene, rays, sample_idx, seed, cfg, tables=tables)
