@@ -12,9 +12,14 @@ Phases (any failure exits non-zero):
 2. drive the main path: Cornell at its full 800x800, depth 8, NEE, through
    ``pathtracer_tpu_torch.render.integrator.render`` on the card, with the
    launch counters zeroed just before; every kernel of the path must have
-   launched (the trace kernel once per progressive iteration);
+   launched (the trace kernel and the camera kernel once per progressive
+   iteration; every counted run below expects the camera kernel's launches
+   too: one per iteration of a render or a lean step's forward, between one
+   and one plus a super-step count for a wavefront engine's spawns);
 3. hold each kernel against its plain PyTorch version on the card, on the
-   main path's own inputs (the 640,000 primary rays of an iteration):
+   main path's own inputs: the camera kernel's rays bit-equal on every lane
+   of iterations 0 and 1, at 800x800 and at the render benchmark's
+   3840x2160; the trace kernel on the 640,000 primary rays of an iteration:
    equal ray counts, radiance within rtol = atol = 2e-6 on at least 99.9%
    of lanes, and the image sum within 1e-5 relative; the persistent grid
    forced to ``SMALL_GRID`` blocks bit-equal to the resident grid, and the
@@ -22,7 +27,8 @@ Phases (any failure exits non-zero):
    the same bars;
 4. time the kernel (CUDA events over a steady window, and its device time
    queued behind a sleep, ``queued_ms``, twice; with russian roulette once)
-   and its plain version, and print ms per iteration, Mrays/s and the mean
+   and its plain version (the camera kernel too, beside its 40-byte-a-lane
+   bound), and print ms per iteration, Mrays/s and the mean
    bounces per lane (each phase prints them beside its trace kernel's time:
    their share of the depth is the share of lane-bounces that hold a live
    path) beside the card's name and power limit;
@@ -483,6 +489,7 @@ def _counters() -> dict:
     from pathtracer_tpu_torch.ops import (
         bounce_fused,
         bounce_grad,
+        camera,
         intersect_cuda,
         mesh,
         trace,
@@ -521,6 +528,7 @@ def _counters() -> dict:
         "nearest_hit": (intersect_cuda, "nearest_launches"),
         "winner": (intersect_cuda, "winner_launches"),
         "occlusion": (intersect_cuda, "occlusion_launches"),
+        "camera": (camera, "launches"),
     }
 
 
@@ -537,6 +545,17 @@ def read_counts() -> dict:
 def only(**launched) -> dict:
     """The counts of a run that launched ``launched`` and nothing else."""
     return {name: launched.get(name, 0) for name in _counters()}
+
+
+def spawned(launches: dict, steps: int, engines: int = 1) -> int:
+    """The camera kernel's launches in ``launches``, of a wavefront render
+    of ``steps`` super-steps over ``engines`` engine calls (one a shard),
+    checked: each call spawns its first paths, then refills at most once a
+    super-step, so the count lies in ``[engines, engines + steps]``."""
+    n = launches["camera"]
+    check(engines <= n <= engines + steps,
+          f"camera kernel launches {n} in {steps} super-steps of {engines} engine call(s)")
+    return n
 
 
 def close_fraction(got, want, tol: float = 1e-5) -> float:
@@ -1040,8 +1059,9 @@ def grad_engines_phase(desc, dev, card: str, out_dir: str, full_loss, full_grads
                       ("bounce_kernel", "bounce_bwd_kernel", "row_sum")),
         # the lean forward on kernel 4 keeps each bounce's winner, NEE bit and ray,
         # which the re-trace replays: no shadow ray
+        # (its forward, under no grad, takes the camera kernel)
         "lean": (dataclasses.replace(base, grad_fused=False),
-                 only(trace_fwd_resid=gspp, winner=gspp * depth),
+                 only(trace_fwd_resid=gspp, winner=gspp * depth, camera=gspp),
                  ("trace_fwd_kernel", "winner_kernel")),
     }
     full = full_grads.leaves()
@@ -1453,7 +1473,8 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
     _, acc_a, st_a, launch_a, steps_a, wall_a = capturing_render(scene, 8, pinned, dev, captured)
     print(f"[wavefront] (a) pinned {w}x{h} d8 nee spp=8: {wall_a:.3f} s, {steps_a} super-steps, "
           f"rays {st_a['rays_traced']}, launches {launch_a}")
-    check(launch_a == only(bounce=steps_a), f"pinned engine launches {launch_a}")
+    check(launch_a == only(bounce=steps_a, camera=spawned(launch_a, steps_a)),
+          f"pinned engine launches {launch_a}")
     check(st_a["rays_traced"] == mega["rays8"], "pinned and megakernel ray counts differ")
     close_to(acc_a, mega["acc8"], 0.999, 1e-5, "(a) pinned vs megakernel, 8 spp")
     check(bool(torch.isfinite(acc_a).all()), "non-finite pinned accumulator")
@@ -1464,7 +1485,8 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
     acc_b, st_b, launch_b, steps_b, wall_b = run(2, queue)
     print(f"[wavefront] (b) queue capacity {1 << 18}, spp=2: {wall_b:.3f} s, {steps_b} "
           f"super-steps, rays {st_b['rays_traced']}, launches {launch_b}")
-    check(launch_b == only(bounce=steps_b), f"queue engine launches {launch_b}")
+    check(launch_b == only(bounce=steps_b, camera=spawned(launch_b, steps_b)),
+          f"queue engine launches {launch_b}")
     check(st_b["rays_traced"] == mega["rays2"], "queue and megakernel ray counts differ")
     close_to(acc_b, mega["acc2"], 0.999, 1e-5, "(b) queue vs megakernel, 2 spp")
 
@@ -1476,7 +1498,8 @@ def wavefront_phase(scene, dev, card: str, out_dir: str, mega: dict) -> list:
     acc_c, st_c, launch_c, steps_c, wall_c = capturing_shadow(lambda: run(2, split), shadow)
     print(f"[wavefront] (c) split route, pinned, spp=2: {wall_c:.3f} s, {steps_c} super-steps, "
           f"rays {st_c['rays_traced']}, launches {launch_c}")
-    check(launch_c == only(nearest_hit=steps_c, occlusion=steps_c),
+    check(launch_c == only(nearest_hit=steps_c, occlusion=steps_c,
+                           camera=spawned(launch_c, steps_c)),
           f"split route launches {launch_c}")
     acc_a2, st_a2, _, steps_a2, wall_a2 = run(2, dataclasses.replace(pinned, iters_per_launch=2))
     print(f"[wavefront] fused route, pinned, spp=2: {wall_a2:.3f} s, {steps_a2} super-steps, "
@@ -1881,7 +1904,7 @@ def mesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     img, acc, st, launches, _, wall = run(spp, cfg)
     print(f"[mesh] smooth_mesh {w}x{h} d{cfg.max_depth} nee spp={spp}, {m0.tri_verts.shape[0]} "
           f"triangles: {wall:.3f} s, rays {st['rays_traced']}, launches {launches}")
-    check(launches == only(trace_mesh=spp), f"mesh megakernel launches {launches}")
+    check(launches == only(trace_mesh=spp, camera=spp), f"mesh megakernel launches {launches}")
     check(tuple(img.shape) == (h, w, 3) and bool(torch.isfinite(acc).all())
           and bool((acc >= 0).all()), "mesh render: bad image")
     save_image(os.path.join(out_dir, "chip_smoke_smooth_mesh.png"), img.cpu().numpy())
@@ -1915,8 +1938,8 @@ def mesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     per = 2 * cfg.max_depth
     print(f"[mesh] (c) split route spp=2: {wall_c:.3f} s, rays {st_c['rays_traced']}, launches "
           f"{launch_c}")
-    check(launch_c == only(nearest_hit=per, occlusion=per, mesh_nearest=per, mesh_min=per),
-          f"split route launches {launch_c}")
+    check(launch_c == only(nearest_hit=per, occlusion=per, mesh_nearest=per, mesh_min=per,
+                           camera=2), f"split route launches {launch_c}")
     check(st_c["rays_traced"] == st2["rays_traced"], "split route and megakernel ray counts differ")
     close_to(acc_c, acc2, 0.995, 2e-5, "(c) split route vs megakernel, 2 spp")
 
@@ -1927,7 +1950,8 @@ def mesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     _, acc_d, st_d, launch_d, steps_d, wall_d = capturing_render(scene, 2, pinned, dev, captured)
     print(f"[mesh] (d) pinned wavefront spp=2: {wall_d:.3f} s, {steps_d} super-steps, rays "
           f"{st_d['rays_traced']}, launches {launch_d}")
-    check(launch_d == only(bounce_mesh=steps_d), f"pinned engine launches {launch_d}")
+    check(launch_d == only(bounce_mesh=steps_d, camera=spawned(launch_d, steps_d)),
+          f"pinned engine launches {launch_d}")
     check(st_d["rays_traced"] == st2["rays_traced"], "pinned and megakernel ray counts differ")
     close_to(acc_d, acc2, 0.999, 1e-5, "(d) pinned vs megakernel, 2 spp")
     check(bool(captured), "no super-step state captured")
@@ -2129,11 +2153,12 @@ EXPECTED_INSTANCES = (
     *(("trace_grad", "trace_bwd_kernel", f) for f in ((0, 0), (1, 0), (0, 1), (1, 1))),
     *(("trace_grad", "trace_fwd_kernel", f) for f in ((0, 1), (1, 1))),
     *(("trace_grad", "trace_fwd_kernel_packed", f) for f in ((0, 0), (1, 0))),
+    ("camera", "camera_kernel", ()),
 )
 PROFILED_NAMES = ("trace_kernel", "bounce_kernel", "bounce_merge_kernel", "bounce_bwd_kernel",
                   "trace_fwd_kernel", "trace_fwd_kernel_packed", "trace_bwd_kernel", "row_sum",
                   "lane_order", "nearest_kernel", "winner_kernel", "occlusion_kernel",
-                  "mesh_nearest_kernel", "mesh_min_kernel")
+                  "mesh_nearest_kernel", "mesh_min_kernel", "camera_kernel")
 
 
 # the design of kernel 2's analytic media and surface instances, in the
@@ -2227,7 +2252,8 @@ def vol_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) ->
     feats = features_for_materials(sss.materials)
     print(f"[vol] (a) sss {w}x{h} d8 nee spp={VOL_SPP}, features {feats}: {wall_a:.3f} s, rays "
           f"{st['rays_traced']}, launches {launch_a}")
-    check(launch_a == only(trace_hg=VOL_SPP), f"sss megakernel launches {launch_a}")
+    check(launch_a == only(trace_hg=VOL_SPP, camera=VOL_SPP),
+          f"sss megakernel launches {launch_a}")
     check(tuple(img.shape) == (h, w, 3) and bool(torch.isfinite(acc).all())
           and bool((acc >= 0).all()) and float(acc.sum()) > 0, "sss render: bad image")
     save_image(os.path.join(out_dir, "chip_smoke_sss.png"), img.cpu().numpy())
@@ -2275,7 +2301,8 @@ def vol_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) ->
         inst = "hg" if hg else "vol"
         mega_cfg = RenderConfig(iters_per_launch=2, **base)
         _, acc_m, st_m, launch_m, _, wall_m = counted_render(scene, 2, mega_cfg, dev)
-        check(launch_m == only(**{f"trace_{inst}": 2}), f"{name} megakernel launches {launch_m}")
+        check(launch_m == only(**{f"trace_{inst}": 2}, camera=2),
+              f"{name} megakernel launches {launch_m}")
         engine_launch[f"trace_{inst}"] = launch_m[f"trace_{inst}"]
         cap = {}
         runs = (("pinned", RenderConfig(wavefront=True, iters_per_launch=2, **base)),
@@ -2291,10 +2318,11 @@ def vol_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) ->
                   f"{st_e['rays_traced']}, launches {launch_e}")
             if engine == "split":
                 per = 2 * 8  # a bounce of each path slot: 2 spp x depth 8
-                check(launch_e == only(nearest_hit=per, occlusion=per),
+                check(launch_e == only(nearest_hit=per, occlusion=per, camera=2),
                       f"{name} split route launches {launch_e}")
             else:
-                check(launch_e == only(**{f"bounce_{inst}": steps}),
+                check(launch_e == only(**{f"bounce_{inst}": steps},
+                                       camera=spawned(launch_e, steps)),
                       f"{name} {engine} launches {launch_e}")
                 engine_launch.setdefault(f"bounce_{inst}", launch_e[f"bounce_{inst}"])
             check(st_e["rays_traced"] == st_m["rays_traced"],
@@ -2367,7 +2395,7 @@ def vol_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) ->
     _, acc_e, _, launch_e, _, _ = counted_render(fm, 2, RenderConfig(iters_per_launch=2, **base),
                                                  dev)
     print(f"[vol] (e) fog_mesh_glass megakernel spp=2: launches {launch_e}")
-    check(launch_e == only(trace_mesh_vol=2) and bool(torch.isfinite(acc_e).all()),
+    check(launch_e == only(trace_mesh_vol=2, camera=2) and bool(torch.isfinite(acc_e).all()),
           f"fog_mesh megakernel launches {launch_e}")
     engine_launch["trace_mesh_vol"] = launch_e["trace_mesh_vol"]
 
@@ -2559,7 +2587,8 @@ def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -
     img, acc, st, launch_a, _, wall_a = counted_render(ward, SURF_SPP, cfg, dev)
     print(f"[surf] (a) ward {w}x{h} d8 nee spp={SURF_SPP}, features {sorted(feats_of(ward))}: "
           f"{wall_a:.3f} s, rays {st['rays_traced']}, launches {launch_a}")
-    check(launch_a == only(trace_surf=SURF_SPP), f"ward megakernel launches {launch_a}")
+    check(launch_a == only(trace_surf=SURF_SPP, camera=SURF_SPP),
+          f"ward megakernel launches {launch_a}")
     check(tuple(img.shape) == (h, w, 3) and bool(torch.isfinite(acc).all())
           and bool((acc >= 0).all()) and float(acc.sum()) > 0, "ward render: bad image")
     save_image(os.path.join(out_dir, "chip_smoke_ward.png"), img.cpu().numpy())
@@ -2617,7 +2646,8 @@ def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -
         megakernel.shade_bounce = shade
     print(f"[surf] (d) textured_image {SURF_RES[0]}x{SURF_RES[1]} d8 nee spp={SURF_SPP}: "
           f"{wall_d:.3f} s, rays {st_d['rays_traced']}, launches {launch_d}")
-    check(launch_d == only(bounce_tex=8 * SURF_SPP), f"textured_image launches {launch_d}")
+    check(launch_d == only(bounce_tex=8 * SURF_SPP, camera=SURF_SPP),
+          f"textured_image launches {launch_d}")
     check(bool(torch.isfinite(acc_d).all()) and bool((acc_d >= 0).all())
           and float(acc_d.sum()) > 0, "textured_image render: bad image")
     check(bool(captured), "no scan bounce captured")
@@ -2668,7 +2698,7 @@ def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -
         tex = scene.textures is not None
         _, acc_m, st_m, launch_m, _, _ = counted_render(
             scene, 2, RenderConfig(iters_per_launch=2, **base), dev)
-        check(launch_m == (only(bounce_tex=16) if tex else only(trace_surf=2)),
+        check(launch_m == (only(bounce_tex=16, camera=2) if tex else only(trace_surf=2, camera=2)),
               f"{name} megakernel launches {launch_m}")
         cap = {}
         runs = (("pinned", RenderConfig(wavefront=True, iters_per_launch=2, **base)),
@@ -2685,7 +2715,7 @@ def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -
                   f"{st_e['rays_traced']}, launches {launch_e}")
             bar, rays_tol = (0.999, 2e-5), 0.0
             if engine == "split":
-                check(launch_e == only(nearest_hit=16, occlusion=16),
+                check(launch_e == only(nearest_hit=16, occlusion=16, camera=2),
                       f"{name} split route launches {launch_e}")
                 if name == "textured":
                     # JAX's split path builds the bump frame apart from the
@@ -2694,7 +2724,8 @@ def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -
                     bar, rays_tol = (0.99, 1e-4), 1e-5
             else:
                 inst = "bounce_tex" if tex else "bounce_surf"
-                check(launch_e == only(**{inst: steps}), f"{name} {engine} launches {launch_e}")
+                check(launch_e == only(**{inst: steps}, camera=spawned(launch_e, steps)),
+                      f"{name} {engine} launches {launch_e}")
                 engine_launch.setdefault(inst, launch_e[inst])
             check(abs(st_e["rays_traced"] - st_m["rays_traced"]) <= rays_tol * st_m["rays_traced"],
                   f"{name} {engine} and megakernel ray counts differ")
@@ -2711,7 +2742,7 @@ def surf_phase(dev, card: str, out_dir: str, reports: dict, cornell_ms: float) -
     cap = {}
     _, _, _, launch_e, steps, _ = capturing_render(
         mward, 2, RenderConfig(wavefront=True, iters_per_launch=2, **base), dev, cap)
-    check(launch_e == only(bounce_surf=steps) and bool(cap),
+    check(launch_e == only(bounce_surf=steps, camera=spawned(launch_e, steps)) and bool(cap),
           f"milky_ward pinned launches {launch_e}")
     mfeats = feats_of(mward)
     margs = (tables_of(mward), cap["origin"], cap["direction"], cap["throughput"], cap["sample"],
@@ -2986,7 +3017,8 @@ def bigmesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
           f"spp={BIG_SPP}: {wall_a:.3f} s, rays {st['rays_traced']}, launches {launch_a}")
     check(n_tris == 5120, f"{n_tris} triangles, expected 5120")
     check(launch_a == only(bounce_merge=per_iter * BIG_SPP, mesh_nearest=per_iter * BIG_SPP,
-                           mesh_min=per_iter * BIG_SPP), f"big mesh megakernel launches {launch_a}")
+                           mesh_min=per_iter * BIG_SPP, camera=BIG_SPP),
+          f"big mesh megakernel launches {launch_a}")
     check(tuple(img.shape) == (h, w, 3) and bool(torch.isfinite(acc).all())
           and bool((acc >= 0).all()) and float(acc.sum()) > 0, "big mesh render: bad image")
     check(bool(captured), "no scan bounce captured")
@@ -3045,7 +3077,7 @@ def bigmesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     # against the megakernel route
     _, acc_m, st_m, launch_m, _, _ = counted_render(
         big, 2, RenderConfig(iters_per_launch=2, **base), dev)
-    check(launch_m == only(bounce_merge=16, mesh_nearest=16, mesh_min=16),
+    check(launch_m == only(bounce_merge=16, mesh_nearest=16, mesh_min=16, camera=2),
           f"big mesh megakernel launches at 2 spp {launch_m}")
     engine_launch = {"bounce_merge": launch_a["bounce_merge"]}
     for engine, ecfg, bar in (
@@ -3058,10 +3090,11 @@ def bigmesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
         print(f"[bigmesh] (c) {engine}, spp=2: {wall_e:.3f} s, {steps} super-steps, rays "
               f"{st_e['rays_traced']}, launches {launch_e}")
         if engine == "split":
-            check(launch_e == only(nearest_hit=16, occlusion=16, mesh_nearest=16, mesh_min=16),
-                  f"big mesh split route launches {launch_e}")
+            check(launch_e == only(nearest_hit=16, occlusion=16, mesh_nearest=16, mesh_min=16,
+                                   camera=2), f"big mesh split route launches {launch_e}")
         else:
-            check(launch_e == only(bounce_merge=steps, mesh_nearest=steps, mesh_min=steps),
+            check(launch_e == only(bounce_merge=steps, mesh_nearest=steps, mesh_min=steps,
+                                   camera=spawned(launch_e, steps)),
                   f"big mesh {engine} launches {launch_e}")
         check(st_e["rays_traced"] == st_m["rays_traced"],
               f"big mesh {engine} and megakernel ray counts differ")
@@ -3079,8 +3112,8 @@ def bigmesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
         print(f"[bigmesh] (d) {huge.meshes[0].tri_verts.shape[0]} triangles "
               f"{TRAVERSAL_RES[0]}x{TRAVERSAL_RES[1]} {engine}, spp={TRAVERSAL_SPP}: "
               f"{wall_e:.3f} s, rays {st_e['rays_traced']}, launches {launch_e}")
-        want = (only(bounce_merge=per_d) if engine == "megakernel"
-                else only(nearest_hit=per_d, occlusion=per_d))
+        want = (only(bounce_merge=per_d, camera=TRAVERSAL_SPP) if engine == "megakernel"
+                else only(nearest_hit=per_d, occlusion=per_d, camera=TRAVERSAL_SPP))
         check(launch_e == want, f"20,480-triangle {engine} launches {launch_e}")
         t_d[engine] = (acc_e, st_e["rays_traced"])
     check(t_d["megakernel"][1] == t_d["split"][1], "20,480 triangles: ray counts differ")
@@ -3253,10 +3286,11 @@ def bigmesh_phase(dev, card: str, out_dir: str, reports: dict) -> list:
         launches = read_counts()
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         vg = grads.mesh_verts[0]
-        expect = (only(trace_mesh=gspp, winner=per, occlusion=per, mesh_nearest=per, mesh_min=per)
+        expect = (only(trace_mesh=gspp, winner=per, occlusion=per, mesh_nearest=per, mesh_min=per,
+                       camera=gspp)
                   if name == "smooth_mesh" else
                   only(bounce_merge=per, winner=per, occlusion=per, mesh_nearest=2 * per,
-                       mesh_min=2 * per))
+                       mesh_min=2 * per, camera=gspp))
         print(f"[bigmesh] (f) lean loss_and_grad_rays {name} {static.resolution[0]}x"
               f"{static.resolution[1]} d8 nee spp={gspp}, {vg.shape[0]} triangles as leaves: "
               f"{first_s:.3f} s (first step), loss {float(loss):.9g}, rays {int(rays)}, peak "
@@ -3538,7 +3572,7 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
                        only(bounce_replay_vol=per, bounce_bwd_vol=per),
                        ("bounce_kernel", "bounce_bwd_kernel", "row_sum")),
         "lean": (dataclasses.replace(base, grad_fused=False),
-                 only(trace_fwd_resid_vol=spp, winner=per),
+                 only(trace_fwd_resid_vol=spp, winner=per, camera=spp),
                  ("trace_fwd_kernel", "winner_kernel")),
     }
     medium_leaves = ("absorption_coefficient", "reduced_scatter_coefficient", "has_scatter",
@@ -3781,14 +3815,14 @@ def grad_vol_phase(dev, card: str, out_dir: str, reports: dict) -> list:
     # fog's cube around the icosphere (media in a mesh scene, 1m-vol forward)
     sss = dataclasses.replace(load_scene(os.path.join(scenes_dir, "sss.txt")),
                               resolution=VOL_RES)
-    st = step("sss lean", sss, base, only(trace_hg=spp, winner=per, occlusion=per),
+    st = step("sss lean", sss, base, only(trace_hg=spp, winner=per, occlusion=per, camera=spp),
               ("trace_kernel", "winner_kernel", "occlusion_kernel"))
     lean = dataclasses.replace(base, grad_fused=False)
     lean_parted_pixels("[grad:vol]", "sss", st["params"], st["static"], lean, 1)
     fog_mesh = parse_scene_text(fog_mesh_scene(True), name="fog_mesh_glass", scene_dir=scenes_dir)
     st = step("fog_mesh_glass lean", fog_mesh, base,
               only(trace_mesh_vol=spp, winner=per, occlusion=per, mesh_nearest=per,
-                   mesh_min=2 * per))
+                   mesh_min=2 * per, camera=spp))
     lean_parted_pixels("[grad:vol]", "fog_mesh_glass", st["params"], st["static"], lean, 1)
     lap("(d)")
 
@@ -3887,7 +3921,7 @@ def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
                        only(bounce_replay_surf=per, bounce_bwd_surf=per),
                        ("bounce_kernel", "bounce_bwd_kernel", "row_sum")),
         "lean": (dataclasses.replace(base, grad_fused=False),
-                 only(trace_fwd_resid_surf=spp, winner=per),
+                 only(trace_fwd_resid_surf=spp, winner=per, camera=spp),
                  ("trace_fwd_kernel", "winner_kernel")),
     }
     surface_leaves = ("texture_color2", "bump_scale", "bump_amp", "specular_color", "roughness",
@@ -3997,7 +4031,8 @@ def grad_surf_phase(dev, card: str, out_dir: str, reports: dict) -> list:
         "bounce_bwd_surf": steps["ward"]["per-bounce"]["launches"]["bounce_bwd_surf"]}
     timg = dataclasses.replace(load_scene(os.path.join(scenes_dir, "textured_image.txt")),
                                resolution=SURF_RES)
-    st = step("textured_image lean", timg, base, only(bounce_tex=per, winner=per, occlusion=per))
+    st = step("textured_image lean", timg, base,
+              only(bounce_tex=per, winner=per, occlusion=per, camera=spp))
     lean_parted_pixels("[grad:surf]", "textured_image", st["params"], st["static"],
                        dataclasses.replace(base, grad_fused=False), 1)
     g_tex = st["grads"].textures.data
@@ -4401,7 +4436,7 @@ def motion_phase(dev, card: str, out_dir: str) -> None:
         launches = read_counts()
         print(f"[motion] {name} {w}x{h} d8 nee frames 0-1 spp={spp}: {wall_s:.3f} s, rays "
               f"{stats['rays_traced']}, launches {launches}")
-        check(launches == only(**{counter: spp}), f"{name} motion launches {launches}")
+        check(launches == only(**{counter: spp}, camera=spp), f"{name} motion launches {launches}")
         check(tuple(img.shape) == (h, w, 3) and bool(torch.isfinite(acc).all())
               and stats["rays_traced"] >= spp * w * h, f"{name} motion: bad image or rays")
         save_image(os.path.join(out_dir, f"chip_smoke_{name}_motion.png"), img.cpu().numpy())
@@ -4456,7 +4491,7 @@ def debug_phase(desc, dev, card: str) -> None:
     hist = stats["alive_per_bounce"]
     print(f"[debug] cornell {w}x{h} d8 nee spp={DEBUG_SPP} debug=True: {wall_s:.3f} s, rays "
           f"{stats['rays_traced']}, alive per bounce {hist}, launches {launches}")
-    check(launches == only(bounce=DEBUG_SPP * cfg.max_depth),
+    check(launches == only(bounce=DEBUG_SPP * cfg.max_depth, camera=DEBUG_SPP),
           f"debug render launches {launches}")
     check(len(hist) == cfg.max_depth and hist[0] == DEBUG_SPP * n
           and all(a >= b for a, b in zip(hist, hist[1:]))
@@ -4539,7 +4574,8 @@ def ckpt_phase(desc, dev, card: str, out_dir: str) -> None:
     check(state["spp_done"] == 2 and state["frame"] == 0 and state["accum"].shape == (
         scene.camera.width * scene.camera.height, 3), f"checkpoint state {state['spp_done']}")
     check(same, "the resumed accumulator differs from the straight render")
-    check(launches == only(trace=CKPT_SPP + CKPT_SPP - state["spp_done"]),
+    iterations = CKPT_SPP + CKPT_SPP - state["spp_done"]
+    check(launches == only(trace=iterations, camera=iterations),
           f"checkpoint renders launches {launches}")
 
     text = open(os.path.join(ROOT, "scenes", "cornell.txt")).read()
@@ -4595,7 +4631,7 @@ def interactive_phase(desc, dev, card: str, out_dir: str) -> None:
     launches = read_counts()
     print("[interactive] " + " | ".join(line.strip() for line in log.getvalue().splitlines()))
     print(f"[interactive] {renders} renders in {wall_s:.3f} s, launches {launches}")
-    check(launches == only(trace=6), f"interactive launches {launches}")
+    check(launches == only(trace=6, camera=6), f"interactive launches {launches}")
     scene = desc.scene_for_frame(0, device=dev)
     moved = dataclasses.replace(scene, camera=state["rig"].camera(scene.camera))
     img, fresh, _ = render(moved, 2, cfg, device=dev)
@@ -4681,7 +4717,8 @@ def sharded_phase(desc, dev, card: str, out_dir: str, full_loss, full_grads) -> 
           f"device's {st1['rays_traced']}; accumulator bit-equal to the single-device pinned "
           f"render: {same}; rays per shard {counts.tolist()}, min / max "
           f"{counts.min() / counts.max():.4f}")
-    check(launches == only(bounce=steps) and steps > 0, f"sharded render launches {launches}")
+    check(launches == only(bounce=steps, camera=spawned(launches, steps, SHARDS)) and steps > 0,
+          f"sharded render launches {launches}")
     check(same, "the sharded accumulator differs from the single-device render")
     check(st["rays_traced"] == st1["rays_traced"] == int(counts.sum()),
           "sharded and single-device ray counts differ")
@@ -4807,7 +4844,7 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     sys.path.insert(0, ROOT)
     from pathtracer_tpu_torch.config import RenderConfig
-    from pathtracer_tpu_torch.ops import _build, trace, trace_grad
+    from pathtracer_tpu_torch.ops import _build, camera, trace, trace_grad
     from pathtracer_tpu_torch.ops.bounce import pack_tables
     from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
     from pathtracer_tpu_torch.ops.rng import key_to_seed, prng_key
@@ -4873,7 +4910,8 @@ def main() -> int:
         f"[main] cornell {w}x{h} d{cfg.max_depth} nee spp={spp}: {render_s:.3f} s, "
         f"rays {stats['rays_traced']}, launches {main_launches}"
     )
-    check(main_launches == only(trace=spp), f"forward main path launches {main_launches}")
+    check(main_launches == only(trace=spp, camera=spp),
+          f"forward main path launches {main_launches}")
     check(tuple(img.shape) == (h, w, 3), f"image shape {tuple(img.shape)}")
     check(bool(torch.isfinite(accum).all()), "non-finite accumulator")
     check(bool((accum >= 0).all()), "negative radiance")
@@ -4886,6 +4924,25 @@ def main() -> int:
     seed = key_to_seed(prng_key(cfg.seed))
     tables = pack_tables(scene)
     pixel = torch.arange(n, dtype=torch.int64, device=dev)
+    # the camera kernel against the plain ops, bit for bit on every lane, on
+    # the main path's pixels and samples and on the render benchmark's
+    # 3840x2160 camera, iterations 0 and 1
+    uhd = dataclasses.replace(desc, resolution=(3840, 2160)).scene_for_frame(0, device=dev)
+    for cam_scene in (scene, uhd):
+        cam = cam_scene.camera
+        cam_pixel = torch.arange(cam.width * cam.height, dtype=torch.int64, device=dev)
+        for it in (0, 1):
+            sample = it * cam_pixel.shape[0] + cam_pixel
+            got = camera.camera_rays_cuda(cam, cam_pixel, sample, seed)
+            want = generate_camera_rays(cam, cam_pixel, camera_uniforms(seed, sample))
+            torch.cuda.synchronize()
+            apart = int(((got.origin != want.origin) | (got.direction != want.direction))
+                        .any(-1).sum())
+            print(f"[check] camera kernel {cam.width}x{cam.height} iteration {it}: lanes whose "
+                  f"origin or direction differs from the plain ops' {apart} of "
+                  f"{cam_pixel.shape[0]}")
+            check(apart == 0, f"the camera kernel differs from the plain ops on {apart} lanes")
+    del uhd, cam_pixel, got, want
     kw = dict(max_depth=cfg.max_depth, nee=cfg.nee, rr=False, rr_start=cfg.rr_start)
     worst_abs = 0.0
     for it in (0, 1):
@@ -4934,9 +4991,12 @@ def main() -> int:
     rcfg = resolve_features(cfg, scene.materials)
     acc0 = torch.zeros((n, 3), dtype=torch.float32, device=dev)
     iter_ms = cuda_ms(lambda: render_chunk(scene, acc0, 0, seed, rcfg, 1, tables=tables), reps=5)
-    cam_ms = cuda_ms(
+    cam_plain_ms = cuda_ms(
         lambda: generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, pixel)), reps=5
     )
+    cam_ms = cuda_ms(lambda: camera.camera_rays_cuda(scene.camera, pixel, pixel, seed), reps=20)
+    cam_dev = queued_ms(lambda: camera.camera_rays_cuda(scene.camera, pixel, pixel, seed))
+    cam_bound_ms = n * 40 / HBM_BYTES_PER_S * 1e3  # 16 B read, 24 B written a lane
     # where one render iteration's device time goes, and how idle the card is
     kernels_run, wall_ms = profiled(
         lambda: render_chunk(scene, acc0, 0, seed, rcfg, 1, tables=tables), reps=3)
@@ -4963,7 +5023,9 @@ def main() -> int:
         f"{k_dev[0]:.4f} / {k_dev[1]:.4f} ms of device time (queued, twice), "
         f"{lane_bounces / n:.4f} bounces per lane of {cfg.max_depth}; with russian roulette "
         f"{rr_dev:.4f} ms, {int(nr_rk) // 2 / n:.4f} bounces per lane; plain {p_ms:.3f} ms, "
-        f"camera rays {cam_ms:.4f} ms, render iteration {iter_ms:.4f} ms "
+        f"camera rays: kernel {cam_ms:.4f} ms ({cam_dev:.4f} ms of device time, queued; bound "
+        f"{cam_bound_ms:.4f} ms by bytes), plain ops {cam_plain_ms:.4f} ms; render iteration "
+        f"{iter_ms:.4f} ms "
         f"({rays_per_iter / iter_ms / 1e3:.1f} Mrays/s); bound {bound_ms:.4f} ms by {bound_by} "
         f"({ops} fp32 ops, {bytes_moved} bytes); on {card}"
     )
@@ -5074,6 +5136,19 @@ def main() -> int:
             "plain_ms": p_ms,
             "bound_ms": bound_ms,
             "bound_by": bound_by,
+            "library_ms": None,
+        },
+        {
+            "name": "camera",
+            "route": "cuda",
+            "source": "pathtracer_tpu_torch/csrc/camera.cu",
+            "replaces": "pathtracer_tpu/ops/camera.py:generate_camera_rays (XLA-fused)",
+            "launches": main_launches["camera"],
+            "max_abs_err": 0.0,
+            "ms": cam_ms,
+            "plain_ms": cam_plain_ms,
+            "bound_ms": cam_bound_ms,
+            "bound_by": "bytes",
             "library_ms": None,
         },
         *grad_kernels,

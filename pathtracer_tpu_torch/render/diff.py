@@ -75,6 +75,7 @@ from torch.utils.checkpoint import checkpoint
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.ops.accel import build_mesh_accel, refresh_accel
 from pathtracer_tpu_torch.ops.bounce import check_diff_features, pack_tables
+from pathtracer_tpu_torch.ops.camera import CAMERA_FIELDS
 from pathtracer_tpu_torch.ops.rng import KeyedSeed
 from pathtracer_tpu_torch.ops.texture import TextureAtlas, build_atlas
 from pathtracer_tpu_torch.ops.trace_grad import fused_diff_eligible, replay_scope, trace_replay
@@ -257,9 +258,6 @@ def build_scene(params: SceneParams, static: SceneStatic) -> Scene:
                    for g, v, k in zip(static.mesh_geom_indices, params.mesh_verts, keys))
     return Scene(geoms=geoms, materials=params.materials, camera=cam, meshes=meshes,
                  textures=params.textures)
-
-
-CAMERA_FIELDS = ("position", "view", "up", "fov", "aperture", "focal_distance")
 
 
 def scene_tensors(scene: Scene) -> list:

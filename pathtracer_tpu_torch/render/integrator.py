@@ -28,7 +28,7 @@ import torch
 
 from pathtracer_tpu_torch.config import RenderConfig
 from pathtracer_tpu_torch.ops.bounce import pack_tables
-from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
+from pathtracer_tpu_torch.ops.camera import primary_rays
 from pathtracer_tpu_torch.ops.rng import KeyedSeed, prng_key
 from pathtracer_tpu_torch.ops.tonemap import tonemap
 from pathtracer_tpu_torch.render.features import resolve_features
@@ -58,12 +58,12 @@ def camera_sample(scene: Scene, pixel_index, iteration: int, seed: int, cfg: Ren
     ``n_global`` is ``n_global_pixels``, or the number of pixels listed
     when it is None (``integrator.py:28-43``), so a strided subset of the
     pixels draws the samples the whole image draws there.  The camera
-    uniforms follow ``cfg.fast_rng``."""
+    uniforms follow ``cfg.fast_rng``; the rays are ``ops/camera.
+    primary_rays`` (the camera kernel on the card)."""
     with span("camera_sample"):
         n_global = pixel_index.shape[0] if n_global_pixels is None else n_global_pixels
         sample_idx = iteration * n_global + pixel_index.to(torch.int64)
-        u4 = camera_uniforms(seed, sample_idx, cfg.fast_rng)
-        return generate_camera_rays(scene.camera, pixel_index, u4, jitter=cfg.jitter), sample_idx
+        return primary_rays(scene.camera, pixel_index, sample_idx, seed, cfg), sample_idx
 
 
 def render_sample(

@@ -45,7 +45,7 @@ from __future__ import annotations
 import torch
 
 from pathtracer_tpu_torch.ops.bounce_fused import medium_width
-from pathtracer_tpu_torch.ops.camera import camera_uniforms, generate_camera_rays
+from pathtracer_tpu_torch.ops.camera import primary_rays
 from pathtracer_tpu_torch.ops.compact import partition
 from pathtracer_tpu_torch.render.common import shade_bounce
 from pathtracer_tpu_torch.scene.structs import Rays
@@ -54,9 +54,9 @@ super_steps = 0  # super-steps run by both engines in this process
 
 
 def _spawn(scene, global_pix, sample, seed: int, cfg) -> Rays:
-    """Camera rays of the given global pixels and global sample indices."""
-    return generate_camera_rays(scene.camera, global_pix,
-                                camera_uniforms(seed, sample, cfg.fast_rng), jitter=cfg.jitter)
+    """Camera rays of the given global pixels and global sample indices
+    (``ops/camera.primary_rays``: the camera kernel on the card)."""
+    return primary_rays(scene.camera, global_pix, sample, seed, cfg)
 
 
 def _step(scene, st, seed: int, cfg, tables):

@@ -23,6 +23,8 @@
 // event's key per lane.
 // host_mesh_sweep and host_mesh_occ run the in-kernel triangle sweep and
 // the shadow ray's sweep (trace_common.cuh) on one ray per lane.
+// host_camera runs the camera kernel's lanes (camera.cu): the primary ray
+// of each pixel and global sample.
 // The trace and the bounce take the in-kernel mesh tables as the launchers
 // do (n_mesh = 0 for none), the media flags (volumetric, hg, vol_nee)
 // that pick their kVol / kHg instance and the surface feature bits that pick
@@ -48,6 +50,7 @@ static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 #include "../pathtracer_tpu_torch/csrc/bounce_grad.cu"
 #include "../pathtracer_tpu_torch/csrc/intersect.cu"
 #include "../pathtracer_tpu_torch/csrc/mesh.cu"
+#include "../pathtracer_tpu_torch/csrc/camera.cu"
 
 using namespace pt;
 
@@ -601,4 +604,19 @@ extern "C" void host_mesh_occ(const float* gtab, const float* mtri, const float*
   for (int i = 0; i < n; ++i)
     occ[i] = mesh_occ(gtab, M, v3(x[3 * i], x[3 * i + 1], x[3 * i + 2]),
                       v3(wi[3 * i], wi[3 * i + 1], wi[3 * i + 2]), limit[i]);
+}
+
+extern "C" void host_camera(const float* frame, unsigned seed, const long long* pixel,
+                            const long long* sample, int n, long long w, long long h, int jitter,
+                            float* origin, float* direction) {
+  for (int i = 0; i < n; ++i) {
+    V3 o, d;
+    camera_lane(frame, seed, pixel[i], sample[i], w, h, jitter, o, d);
+    origin[3 * i] = o.x;
+    origin[3 * i + 1] = o.y;
+    origin[3 * i + 2] = o.z;
+    direction[3 * i] = d.x;
+    direction[3 * i + 1] = d.y;
+    direction[3 * i + 2] = d.z;
+  }
 }

@@ -1939,3 +1939,62 @@ def test_grouped_bounce_matches_plain_after_two_bounces(label, name, replay, vol
     differ = {f: int((_bits(g) != _bits(w)).reshape(n, -1).any(-1).sum()) for f, g, w in planes}
     print(f"{label}: {int(on.sum())} of {n} lanes alive; lanes that differ per plane {differ}")
     assert not any(differ.values())
+
+
+# scene, pixel stride, iteration, jitter: the camera kernel's cases (96x96)
+CAMERA_CASES = [("cornell", 1, 0, True), ("cornell", 1, 7, True), ("cornell", 1, 7, False),
+                ("cornell", 3, (1 << 32) // (96 * 96) + 2, True), ("glass_dof", 1, 5, True),
+                ("glass_dof", 5, (1 << 31) // (96 * 96) + 1, False)]
+
+
+@pytest.mark.parametrize("name,stride,iteration,jitter", CAMERA_CASES)
+def test_camera_kernel_matches_plain(name, stride, iteration, jitter):
+    """Kernel ``csrc/camera.cu`` against the plain ops on the card, bit for
+    bit on every lane, origin and direction: pinhole and thin lens, a
+    strided subset, sample indices past 2^31 and 2^32."""
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import camera
+    from pathtracer_tpu_torch.ops.rng import KeyedSeed, prng_key
+
+    scene = _scene(name, (96, 96))
+    n = 96 * 96
+    pixel = torch.arange(0, n, stride, device="cuda")
+    sample = iteration * n + pixel
+    seed = KeyedSeed(prng_key(4321))
+    before = camera.launches
+    got = camera.camera_rays_cuda(scene.camera, pixel, sample, seed, jitter)
+    assert camera.launches == before + 1
+    want = generate_camera_rays(scene.camera, pixel, camera_uniforms(seed, sample), jitter=jitter)
+    torch.cuda.synchronize()
+    assert torch.equal(got.origin, want.origin)
+    assert torch.equal(got.direction, want.direction)
+    if name == "glass_dof":  # thin lens: the origins spread over the aperture
+        assert float(got.origin.std(0).max()) > 0.05
+    cfg = RenderConfig(jitter=jitter)
+    via = camera.primary_rays(scene.camera, pixel, sample, seed, cfg)
+    assert camera.launches == before + 2
+    assert torch.equal(via.origin, want.origin) and torch.equal(via.direction, want.direction)
+
+
+def test_camera_kernel_launches_per_render_iteration_not_in_a_gradient_step():
+    """A 4-spp ``render()`` takes the camera kernel once an iteration; a
+    gradient step, whose camera fields require grad, takes the plain ops."""
+    _need_cuda()
+    from pathtracer_tpu_torch.ops import camera
+    from pathtracer_tpu_torch.ops.rng import prng_key
+    from pathtracer_tpu_torch.render import diff
+
+    scene = _scene("cornell", (64, 48))
+    before = camera.launches
+    render(scene, 4, RenderConfig(), device="cuda")
+    torch.cuda.synchronize()
+    assert camera.launches - before == 4
+    desc = dataclasses.replace(load_scene(os.path.join(ROOT, "scenes", "cornell.txt")),
+                               resolution=(64, 48))
+    params, static = diff.params_from_description(desc, 0, device="cuda")
+    before = camera.launches
+    _, grads, _ = diff.loss_and_grad_rays(params, static, torch.zeros((64 * 48, 3), device="cuda"),
+                                          2, prng_key(0), RenderConfig(max_depth=4))
+    torch.cuda.synchronize()
+    assert camera.launches == before
+    assert float(grads.cam_position.abs().sum()) > 0
