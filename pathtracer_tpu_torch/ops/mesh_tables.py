@@ -47,6 +47,9 @@ from pathtracer_tpu_torch.ops.intersect import BIG, T_MIN, mt_planes, safe_recip
 MESH_INKERNEL_MAX_TRIS = 4096  # total triangles the in-kernel sweep takes
 MESH_CHUNK = 32  # triangles per culling chunk
 
+builds = 0  # KernelMeshes built by kernel_meshes in this process
+triangles = 0  # triangles those builds packed (before padding)
+
 
 def mesh_inkernel_eligible(meshes) -> bool:
     """True when the scene has meshes and they total at most
@@ -127,8 +130,11 @@ class KernelMeshes:
 def kernel_meshes(meshes):
     """:class:`KernelMeshes` of ``meshes``, or None when the in-kernel sweep
     does not take them (no meshes, or too many triangles)."""
+    global builds, triangles
     if not mesh_inkernel_eligible(meshes):
         return None
+    builds += 1
+    triangles += sum(m.tri_verts.shape[0] for m in meshes)
     descs, tri, aabb, norm, uv = [], [], [], [], []
     first = 0
     for (g, n_chunks, has_norm, has_uv), tables in pack_mesh_tables(meshes):

@@ -169,10 +169,16 @@ class Scene:
     def mesh_tables(self):
         """The in-kernel triangle tables of kernels 1 and 2
         (``ops/mesh_tables.KernelMeshes``), or None for a scene without
-        meshes or with more triangles than they take."""
-        from pathtracer_tpu_torch.ops.mesh_tables import kernel_meshes
+        meshes or with more triangles than they take.  Built once per scene
+        object, inside the ``pt.mesh_tables`` span (counters
+        ``ops.mesh_tables.builds`` / ``triangles``)."""
+        from pathtracer_tpu_torch.ops.mesh_tables import kernel_meshes, mesh_inkernel_eligible
+        from pathtracer_tpu_torch.utils.metrics import span
 
-        return kernel_meshes(self.meshes)
+        if not mesh_inkernel_eligible(self.meshes):
+            return None
+        with span("mesh_tables"):
+            return kernel_meshes(self.meshes)
 
 
 def derive_fov(fovy_deg: float, width: int, height: int):

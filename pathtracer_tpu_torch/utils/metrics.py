@@ -5,7 +5,8 @@
 profiling names for its layers (``pt.render``, ``pt.pack_tables``,
 ``pt.render_chunk``, ``pt.camera_sample``, ``pt.trace_paths``,
 ``pt.accumulate``, ``pt.tonemap``, ``pt.loss_and_grad``, ``pt.forward``,
-``pt.backward``, ``pt.trace_bwd``), stamped on the profiler's clock, so that
+``pt.backward``, ``pt.trace_bwd``, and ``pt.mesh_tables`` around a scene's
+one build of its in-kernel triangle tables), stamped on the profiler's clock, so that
 every kernel in the trace is tied through its launch to the layer that
 issued it.  :func:`device_memory_stats` reads ``torch.cuda.memory_stats``
 per card; :func:`profile_trace` records a ``torch.profiler`` Chrome trace
